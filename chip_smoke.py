@@ -2,23 +2,38 @@
 
     python3 chip_smoke.py
 
-Builds the CUDA kernel from cilium_tpu_torch/csrc with nvcc, builds
-the config-5 world (50,000 rules, 32 endpoints, 65,536 identities)
-from a fixed seed, checks the kernel bit-exact against its plain
-PyTorch version on a full-width pair (2 x 2,097,152 flows) and on two
-small worlds (16-bit ipcache values; narrow rows that spill into the
-stashes), then drives the headline path, PersistentPairDispatcher
-with K = 4 over 8 pairs, and checks that it ran through the kernel
-and that every stage fired.  Exits non-zero on any failure, and
-without a CUDA device.
+Builds the CUDA kernels from cilium_tpu_torch/csrc with nvcc (one
+process per library, started together), builds the config-5 world
+(50,000 rules, 32 endpoints, 65,536 identities) and its fleet L7
+matchers from fixed seeds, and drives four paths, each with the
+launch counts set to 0 just before it and read just after:
+
+  main_path  the headline datapath: PersistentPairDispatcher with
+             K = 4 over 8 pairs of 2 x 2,097,152 flows (DATAPATH_PAIR),
+             after the pair kernel is checked bit-exact against its
+             plain version on a full pair and two small worlds;
+  l7_http    config 3: 1,048,576 HTTP requests against 24 rules
+             through evaluate_http_batch (HTTP_MATCH);
+  l7_kafka   config 4: 1,048,576 Kafka requests against 24 rules
+             through evaluate_kafka_batch (KAFKA_MATCH);
+  combined   config 5's datapath + proxy step: 8 steps of
+             2 x 2,097,152 flows, redirected flows compacted to
+             131,072 per half and judged by the fleet L7 matchers
+             (DATAPATH_PAIR and FLEET_L7), with a traced idle share.
+
+Every kernel is held bit-exact against its plain PyTorch version at
+the path's shapes, and each L7 path against a host oracle on sampled
+rows.  Exits non-zero on any failure, and without a CUDA device.
 
 The line before the last two is {"kernels": [...]}: per kernel its
-launches on the main path, its error against the plain version, its
-time, the plain version's time, and the least time the card could
-take: the bytes the timed pair's data needs read and written once
-(see needed_bytes) at 3.35 TB/s, or its operations at 67 T/s,
-whichever is larger.  Then the card's name and power limit
-as nvidia-smi prints them, then {"ok": true, "device": {...}}.
+launches on its path, its error against the plain version, its time
+(CUDA events over 20 launches), the plain version's time, and the
+least time the card could take: the bytes this run's data needs read
+and written once at 3.35 TB/s, or its operations at 67 T/s, whichever
+is larger.  `library_ms` is null for all four: no single PyTorch call
+computes the datapath step, a DFA scan, the Kafka rule match or the
+fleet's routed match.  Then the card's name and power limit as
+nvidia-smi prints them, then {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -37,6 +52,9 @@ OPS_PER_S = 67e12  # H100 SXM non-tensor 32-bit rate (float32 table entry)
 HALF = 1 << 21  # bench.py's --batch 1 << 22, split into two halves
 PERSIST_K = 4  # bench.py's --persist-pairs
 N_PAIRS = 8
+L7_REQUESTS = 1 << 20  # configs 3 and 4 (bench.py --l7-requests: 1,000,000)
+COMBINED_STEPS = 8
+ORACLE_ROWS = 512  # bench.py _gate_combined's sample
 
 
 def phase(name: str, t0: float, **fields) -> None:
@@ -175,6 +193,448 @@ def table_leaves(tables):
                 yield f"{plane.name}.{f.name}", v
 
 
+def reset_counts(kernels) -> None:
+    for k in kernels.KERNELS:
+        k.launches = 0
+
+
+def kernel_row(kernel, source, replaces, launches, err, ms, plain_ms,
+               bound_bytes_ms, bound_ops_ms) -> dict:
+    return {
+        "name": kernel.name,
+        "route": "cuda",
+        "source": source,
+        "replaces": replaces,
+        "launches": launches,
+        "max_abs_err": err,
+        "ms": ms,
+        "plain_ms": plain_ms,
+        "bound_ms": max(bound_bytes_ms, bound_ops_ms),
+        "bound_by": "bytes" if bound_bytes_ms >= bound_ops_ms else "operations",
+        "library_ms": None,
+    }
+
+
+def int_err(a: torch.Tensor, b: torch.Tensor, u32: bool = False) -> int:
+    """Max |a - b| over two integer or bool tensors (u32 bits compared
+    as unsigned); 0 means bit-exact."""
+    if a.shape != b.shape:
+        raise SystemExit(f"shapes differ: {tuple(a.shape)} {tuple(b.shape)}")
+    x, y = a.to(torch.int64), b.to(torch.int64)
+    if u32:
+        x, y = x & 0xFFFFFFFF, y & 0xFFFFFFFF
+    return int((x - y).abs().max().item()) if x.numel() else 0
+
+
+def popcount(words: torch.Tensor) -> torch.Tensor:
+    """Set bits per row of u32 words held in int32: [B, W] -> [B]."""
+    w = words.to(torch.int64) & 0xFFFFFFFF
+    return sum(((w >> k) & 1).sum(dim=1) for k in range(32))
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def http_need(tables, fields, ident, rows=None):
+    """Bytes and integer operations the HTTP match needs for these
+    requests: each field's bytes up to its length (min(len, width)),
+    the lengths, identity and known flag read once, the allowed byte
+    and the W matched words written, each distinct identity row read
+    once, the DFA tables read once; operations: 4 per scanned byte (the
+    class lookup, the transition's index and its lookup) and 10 per
+    mask word.  `rows` restricts the count to a subset of the rows."""
+    w = int(tables.n_words)
+    scanned = 0
+    for k in range(3):
+        data, lens = fields[2 * k], fields[2 * k + 1]
+        if rows is not None:
+            lens = lens[rows]
+        scanned += int(lens.to(torch.int64).clamp(0, data.shape[1]).sum())
+    b = int(ident.numel() if rows is None else rows.numel())
+    idx = ident if rows is None else ident[rows]
+    n_ident = int(tables.ident_rules.shape[0])
+    distinct = int(torch.unique(idx.to(torch.int64).clamp(0, n_ident - 1))
+                   .numel())
+    dfa_bytes = sum(
+        nbytes(getattr(tables, f"{f}_dfa").trans) // 2  # u16 values
+        + nbytes(getattr(tables, f"{f}_dfa").accept, getattr(tables,
+                 f"absent_{f}")) + 256
+        for f in ("method", "path", "host")
+    )
+    total = scanned + b * (3 * 4 + 4 + 1 + 1 + 4 * w) + distinct * 4 * w
+    return total + dfa_bytes, 4 * scanned + 10 * w * b
+
+
+def kafka_need(tables, fields, ident, known, rows=None, scope=None):
+    """Bytes and integer operations the Kafka match needs: each
+    request's fields (kind, version, client, T topics, count, three
+    flags), identity and known flag read once and its verdict written,
+    each distinct identity row read once, the rule columns read once;
+    operations: 12 + T per rule the request's identity row (and scope
+    row) admits, 2 per topic slot."""
+    t_count = int(fields[3].shape[1])
+    ident = ident if rows is None else ident[rows]
+    known = known if rows is None else known[rows]
+    b = int(ident.numel())
+    n_ident, w = (int(v) for v in tables.ident_rules.shape)
+    idx = ident.to(torch.int64).clamp(0, n_ident - 1)
+    bits = tables.ident_rules[idx]
+    if scope is not None:
+        bits = bits & scope
+    active = int((popcount(bits) * known.to(torch.int64)).sum())
+    distinct = int(torch.unique(idx).numel())
+    rules = int(tables.rule_keys_lo.numel())
+    total = b * (4 * 3 + 4 * t_count + 4 + 3 + 4 + 1 + 1)
+    total += distinct * 4 * w + 21 * rules
+    return total, (12 + t_count) * active + 2 * t_count * b
+
+
+def http_oracle(hw, allowed) -> int:
+    """Mismatches of the HTTP verdicts against the host matcher on
+    config 3's sampled rows (bench.py config3's oracle)."""
+    from cilium_tpu_torch.l7.http import http_rule_matches_host
+
+    got = allowed.cpu().numpy()
+    bad = 0
+    for i in hw.sample:
+        m, p, h = hw.templates[int(hw.pick[i])]
+        want = any(
+            int(hw.ident[i]) in spec.identity_indices
+            and http_rule_matches_host(spec, m, p, h)
+            for spec in hw.specs
+        )
+        bad += int(bool(got[i]) != want)
+    return bad
+
+
+def kafka_oracle(kw, allowed) -> int:
+    """Mismatches against MatchesRule on config 4's sampled rows."""
+    from cilium_tpu_torch.l7.kafka import matches_rules_host
+
+    got = allowed.cpu().numpy()
+    return sum(
+        int(bool(got[i]) != matches_rules_host(
+            kw.templates[int(kw.pick[i])], kw.specs, int(kw.ident[i])))
+        for i in kw.sample
+    )
+
+
+def l7_http_phase(kernels) -> dict:
+    """Config 3 through evaluate_http_batch: the kernel against its
+    plain version (allowed and matched), the host oracle, times and the
+    bound."""
+    from cilium_tpu_torch import world
+    from cilium_tpu_torch.convert import http_tables_to
+    from cilium_tpu_torch.device import array_tensor
+    from cilium_tpu_torch.l7 import http
+
+    t = time.perf_counter()
+    hw = world.http_request_world(n=L7_REQUESTS)
+    tables = http_tables_to(hw.policy.tables, "cuda")
+    args = tuple(array_tensor(a, "cuda")
+                 for a in (*hw.fields, hw.ident, hw.known))
+    torch.cuda.synchronize()
+    reset_counts(kernels)
+    allowed, matched = http.evaluate_http_batch(tables, *args)
+    torch.cuda.synchronize()
+    launches = kernels.HTTP_MATCH.launches
+    if launches != 1:
+        raise SystemExit(f"l7_http: HTTP_MATCH launched {launches} times")
+    p_allowed, p_matched = http.evaluate_http_batch_plain(tables, *args)
+    err = max(int_err(allowed, p_allowed), int_err(matched, p_matched, True))
+    mismatches = http_oracle(hw, allowed)
+    n_allowed = int(allowed.sum())
+    ms = event_ms(lambda: kernels.HTTP_MATCH(tables, *args), 20)
+    plain_ms = event_ms(lambda: http.evaluate_http_batch_plain(tables, *args),
+                        3)
+    need, ops = http_need(tables, args[:6], args[6])
+    bb, bo = need / HBM_BYTES_PER_S * 1e3, ops / OPS_PER_S * 1e3
+    phase("l7_http", t, requests=L7_REQUESTS, rules=len(hw.specs),
+          launches=launches, allowed=n_allowed, max_abs_err=err,
+          oracle_rows=len(hw.sample), oracle_mismatches=mismatches,
+          ms=round(ms, 4), plain_ms=round(plain_ms, 4), bytes=need, ops=ops,
+          bound_bytes_ms=round(bb, 4), bound_ops_ms=round(bo, 4),
+          requests_per_s=round(L7_REQUESTS / (ms / 1e3)))
+    if err or mismatches or not 0 < n_allowed < L7_REQUESTS:
+        raise SystemExit("l7_http: the kernel disagrees or the mix is empty")
+    return kernel_row(kernels.HTTP_MATCH, "cilium_tpu_torch/csrc/l7.cu",
+                      "cilium_tpu/l7/http.py:477", launches, err, ms,
+                      plain_ms, bb, bo)
+
+
+def l7_kafka_phase(kernels) -> dict:
+    """Config 4 through evaluate_kafka_batch, checked and timed as the
+    HTTP phase is."""
+    from cilium_tpu_torch import world
+    from cilium_tpu_torch.convert import kafka_tables_to
+    from cilium_tpu_torch.device import array_tensor
+    from cilium_tpu_torch.l7 import kafka
+
+    t = time.perf_counter()
+    kw = world.kafka_request_world(n=L7_REQUESTS)
+    tables = kafka_tables_to(kw.policy, "cuda")
+    args = tuple(array_tensor(a, "cuda")
+                 for a in (*kw.fields, kw.ident, kw.known))
+    torch.cuda.synchronize()
+    reset_counts(kernels)
+    allowed = kafka.evaluate_kafka_batch(tables, *args)
+    torch.cuda.synchronize()
+    launches = kernels.KAFKA_MATCH.launches
+    if launches != 1:
+        raise SystemExit(f"l7_kafka: KAFKA_MATCH launched {launches} times")
+    err = int_err(allowed, kafka.evaluate_kafka_batch_plain(tables, *args))
+    mismatches = kafka_oracle(kw, allowed)
+    n_allowed = int(allowed.sum())
+    ms = event_ms(lambda: kernels.KAFKA_MATCH(tables, *args), 20)
+    plain_ms = event_ms(
+        lambda: kafka.evaluate_kafka_batch_plain(tables, *args), 3)
+    need, ops = kafka_need(tables, args[:8], args[8], args[9])
+    bb, bo = need / HBM_BYTES_PER_S * 1e3, ops / OPS_PER_S * 1e3
+    phase("l7_kafka", t, requests=L7_REQUESTS, rules=len(kw.specs),
+          launches=launches, allowed=n_allowed, max_abs_err=err,
+          oracle_rows=len(kw.sample), oracle_mismatches=mismatches,
+          ms=round(ms, 4), plain_ms=round(plain_ms, 4), bytes=need, ops=ops,
+          bound_bytes_ms=round(bb, 4), bound_ops_ms=round(bo, 4),
+          requests_per_s=round(L7_REQUESTS / (ms / 1e3)))
+    if err or mismatches or not 0 < n_allowed < L7_REQUESTS:
+        raise SystemExit("l7_kafka: the kernel disagrees or the mix is empty")
+    return kernel_row(kernels.KAFKA_MATCH, "cilium_tpu_torch/csrc/l7.cu",
+                      "cilium_tpu/l7/kafka.py:265", launches, err, ms,
+                      plain_ms, bb, bo)
+
+
+def combined_oracle(w, fleet, reqs, kreqs, id_table, picks, out,
+                    n_rows: int, seed: int) -> tuple:
+    """The composed host oracle (bench.py _gate_combined) on `n_rows`
+    redirected flows sampled from one step: each flow's proxy port
+    equals its policy map entry's, and its L7 verdict equals the host
+    matchers' over the rules of its own (endpoint, direction, slot)
+    scope.  Returns (rows checked, mismatches)."""
+    from cilium_tpu_torch.l7.fleet import PARSER_HTTP_ID, PARSER_KAFKA_ID
+    from cilium_tpu_torch.l7.http import http_rule_matches_host
+    from cilium_tpu_torch.l7.kafka import matches_rules_host
+    from cilium_tpu_torch.maps.policymap import PolicyKey
+
+    http_by_scope, kafka_by_scope = {}, {}
+    for spec in fleet.http.device_rules:
+        http_by_scope.setdefault(spec.scope_key, []).append(spec)
+    for spec in fleet.kafka.specs:
+        kafka_by_scope.setdefault(spec.scope_key, []).append(spec)
+    picks = picks.cpu().numpy()
+    order = out.order.cpu().numpy()
+    l7 = out.l7_allowed.cpu().numpy()
+    cands = []
+    for half, v in enumerate(out.verdicts):
+        red = ((v.proxy_port > 0) & (v.allowed != 0)).cpu().numpy()
+        cands += [(half, int(pos))
+                  for pos in np.nonzero(red[order[half]])[0]]
+    rng = np.random.default_rng(seed)
+    sample = rng.choice(len(cands), size=min(n_rows, len(cands)), replace=False)
+    cols = {h: {c: getattr(v, c).cpu().numpy()
+                for c in ("proxy_port", "l4_slot", "sec_id")}
+            for h, v in enumerate(out.verdicts)}
+    bad = 0
+    for s in sample:
+        half, pos = cands[int(s)]
+        row = int(order[half, pos])
+        p = int(picks[half, row])
+        e, d = int(w.pool["ep_index"][p]), int(w.pool["direction"][p])
+        sidx = int(cols[half]["sec_id"][row])
+        key = PolicyKey(int(id_table[sidx]), int(w.pool["dport"][p]),
+                        int(w.pool["proto"][p]), d)
+        entry = w.states[e].get(key)
+        if entry is None or entry.proxy_port != int(cols[half]["proxy_port"][row]):
+            bad += 1
+            continue
+        scope = (e, d, int(cols[half]["l4_slot"][row]))
+        kind = int(fleet.parser_kind[scope])
+        if kind == PARSER_HTTP_ID:
+            m, pth, h = reqs[p]
+            want = any(sidx in spec.identity_indices
+                       and http_rule_matches_host(spec, m, pth, h)
+                       for spec in http_by_scope.get(scope, []))
+        elif kind == PARSER_KAFKA_ID:
+            want = matches_rules_host(kreqs[p], kafka_by_scope.get(scope, []),
+                                      sidx)
+        else:
+            want = False
+        bad += int(bool(l7[half, pos]) != want)
+    return len(sample), bad
+
+
+def combined_phase(kernels, w, tables, fleet) -> dict:
+    """Config 5's combined datapath + proxy step (see the module
+    docstring): checks, the 8-step loop, its trace, and FLEET_L7 alone
+    against its plain version, timed, with its bound."""
+    from cilium_tpu_torch import world
+    from cilium_tpu_torch.convert import fleet_to
+    from cilium_tpu_torch.engine import datapath as dp
+    from cilium_tpu_torch.engine import verdict
+    from cilium_tpu_torch.l7 import combined as cb
+    from cilium_tpu_torch.l7.fleet import (
+        PARSER_HTTP_ID,
+        PARSER_KAFKA_ID,
+        evaluate_fleet_l7_plain,
+        scope_rows,
+    )
+
+    t = time.perf_counter()
+    reqs, kreqs, hf, kf = world.l7_payloads(w, fleet)
+    fd = fleet_to(fleet, "cuda")
+    pool = cb.pool_to(w.pool, hf, kf, "cuda")
+    dirs = [torch.from_numpy(np.nonzero(w.pool["direction"] == d)[0]).cuda()
+            for d in (0, 1)]
+    gen = torch.Generator(device="cuda").manual_seed(101)
+
+    def draw():
+        return torch.stack([
+            sub[torch.randint(0, sub.numel(), (cb.COMBINED_BATCH,),
+                              device="cuda", generator=gen)]
+            for sub in dirs
+        ])
+
+    # -- kernel path against the plain path on one step's picks
+    picks0 = draw()
+    acc_k = verdict.make_counter_buffers(tables.policy)
+    tel_k = verdict.make_telemetry_buffers("cuda")
+    acc_p, tel_p = acc_k.clone(), tel_k.clone()
+    got = cb.combined_step(tables, fd, pool, picks0, acc_k, tel_k)
+    want = cb.combined_step_plain(tables, fd, pool, picks0, acc_p, tel_p)
+    err_step = max(
+        int_err(got.header, want.header, True),
+        int_err(got.l7_allowed, want.l7_allowed),
+        int_err(got.order, want.order),
+        int_err(acc_k, acc_p, True), int_err(tel_k, tel_p, True),
+        compare(got.verdicts, want.verdicts, dp),
+    )
+    del want
+    cols, fh, fk = cb.fleet_inputs(pool, picks0, got.order, got.verdicts)
+    f_got = kernels.FLEET_L7(fd, *cols, http_fields=fh, kafka_fields=fk)
+    f_plain = evaluate_fleet_l7_plain(fd, *cols, http_fields=fh,
+                                      kafka_fields=fk)
+    err_fleet = int_err(f_got, f_plain)
+    id_table = tables.policy.id_table.cpu().numpy().view(np.uint32)
+    checked, bad = combined_oracle(
+        w, fleet, reqs, kreqs, id_table, picks0, got, ORACLE_ROWS, 7)
+    # the redirected rows that reached each parser, and those it allowed
+    redirected = torch.stack([
+        ((v.proxy_port > 0) & (v.allowed != 0)) for v in got.verdicts
+    ]).gather(1, got.order).reshape(-1)
+    kind = fd.parser_kind.reshape(-1)[scope_rows(fd, *cols[:3])]
+    reached = {
+        name: (int((redirected & (kind == k)).sum()),
+               int((f_got & redirected & (kind == k)).sum()))
+        for name, k in (("http", PARSER_HTTP_ID), ("kafka", PARSER_KAFKA_ID))
+    }
+    phase("combined_check", t, step_max_abs_err=err_step,
+          fleet_max_abs_err=err_fleet, oracle_rows=checked,
+          oracle_mismatches=bad, redirected_and_allowed_by_parser=reached,
+          header_in=got.header[0].cpu().numpy().view(np.uint32).tolist(),
+          header_eg=got.header[1].cpu().numpy().view(np.uint32).tolist())
+    if err_step or err_fleet or bad or checked == 0:
+        raise SystemExit("combined: the kernels disagree with the plain "
+                         "versions or the host oracle")
+    if not all(n for n, _ in reached.values()):
+        raise SystemExit(f"combined: a parser was not reached: {reached}")
+
+    # -- the loop: counts from 0, 8 steps, headers summed on the card
+    acc = verdict.make_counter_buffers(tables.policy)
+    tel = verdict.make_telemetry_buffers("cuda")
+    all_picks = [draw() for _ in range(COMBINED_STEPS)]
+    tot = torch.zeros((2, 4), dtype=torch.int64, device="cuda")
+    torch.cuda.synchronize()
+    reset_counts(kernels)
+    t = time.perf_counter()
+    for picks in all_picks:
+        out = cb.combined_step(tables, fd, pool, picks, acc, tel)
+        tot += out.header.to(torch.int64) & 0xFFFFFFFF
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    counts = {k.name: k.launches for k in kernels.KERNELS}
+    totals = (tot.sum(dim=0) & 0xFFFFFFFF).cpu().tolist()
+    per_half = tot.cpu().tolist()
+    flows = COMBINED_STEPS * 2 * cb.COMBINED_BATCH
+    combined_n, redirected, l7_allowed, overflow = totals
+    phase("combined", t, steps=COMBINED_STEPS, flows=flows,
+          launches=counts, verdicts_per_s=round(flows / wall),
+          wall_ms=round(wall * 1e3, 3), allowed=combined_n,
+          redirected=redirected, l7_allowed=l7_allowed, overflow=overflow,
+          per_half=per_half)
+    if counts[kernels.DATAPATH_PAIR.name] != COMBINED_STEPS or counts[
+            kernels.FLEET_L7.name] != COMBINED_STEPS:
+        raise SystemExit(f"combined: launches {counts}")
+    if overflow != 0 or redirected == 0 or not 0 < l7_allowed < redirected:
+        raise SystemExit("combined: overflow, no redirects, or a "
+                         "degenerate L7 mix")
+
+    # -- where the loop's time goes: one traced run of 4 steps
+    t = time.perf_counter()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=acts) as prof:
+        t1 = time.perf_counter()
+        for picks in all_picks[:4]:
+            cb.combined_step(tables, fd, pool, picks, acc, tel)
+        torch.cuda.synchronize()
+        traced_ms = (time.perf_counter() - t1) * 1e3
+    busy = device_busy(prof)
+    busy_ms = sum(busy.values())
+    for key, ms in sorted(busy.items(), key=lambda kv: -kv[1])[:8]:
+        print(f"  device {ms:.3f} ms  {key[:90]}", flush=True)
+    phase("combined_trace", t, steps=4, wall_ms=round(traced_ms, 3),
+          device_busy_ms=round(busy_ms, 3),
+          device_idle_share=round(1 - busy_ms / traced_ms, 4))
+
+    # -- FLEET_L7 alone on one step's compacted rows: time and bound
+    t = time.perf_counter()
+    ms = event_ms(lambda: kernels.FLEET_L7(
+        fd, *cols, http_fields=fh, kafka_fields=fk), 20)
+    plain_ms = event_ms(lambda: evaluate_fleet_l7_plain(
+        fd, *cols, http_fields=fh, kafka_fields=fk), 3)
+    lin = scope_rows(fd, *cols[:3])
+    n_scopes = int(fd.parser_kind.numel())
+    lin = lin.clamp(0, n_scopes - 1)
+    kind = fd.parser_kind.reshape(-1)[lin]
+    hrows = torch.nonzero(kind == PARSER_HTTP_ID).reshape(-1)
+    krows = torch.nonzero(kind == PARSER_KAFKA_ID).reshape(-1)
+    hb, ho = http_need(fd.http.tables, fh, cols[3], rows=hrows)
+    kscope = fd.scope_kafka.reshape(n_scopes, -1)[lin[krows]]
+    kb, ko = kafka_need(fd.kafka, fk, cols[3], cols[4], rows=krows,
+                        scope=kscope)
+    rows_n = int(cols[0].numel())
+    distinct = int(torch.unique(lin).numel())
+    scope_b = 4 * (int(torch.unique(lin[hrows]).numel())
+                   * fd.http.tables.n_words
+                   + int(torch.unique(lin[krows]).numel())
+                   * int(fd.scope_kafka.shape[-1]))
+    need = hb + kb + scope_b + rows_n * (4 * 4 + 1 + 1) + distinct
+    ops = ho + ko + 8 * rows_n
+    bb, bo = need / HBM_BYTES_PER_S * 1e3, ops / OPS_PER_S * 1e3
+    phase("fleet_timing", t, rows=rows_n, http_rows=int(hrows.numel()),
+          kafka_rows=int(krows.numel()), ms=round(ms, 4),
+          plain_ms=round(plain_ms, 4), bytes=need, ops=ops,
+          bound_bytes_ms=round(bb, 4), bound_ops_ms=round(bo, 4))
+    return kernel_row(kernels.FLEET_L7, "cilium_tpu_torch/csrc/l7.cu",
+                      "cilium_tpu/l7/fleet.py:172",
+                      counts[kernels.FLEET_L7.name], max(err_step, err_fleet),
+                      ms, plain_ms, bb, bo)
+
+
+def device_busy(prof) -> dict:
+    """Device time per kernel or copy from a profiler run, each once (a
+    host op such as aten::copy_ also reports its copy's device time)
+    and without the profiler's own "Activity Buffer Request" rows."""
+    return {
+        ev.key: ev.self_device_time_total / 1e3
+        for ev in prof.key_averages()
+        if ev.device_type == torch.autograd.DeviceType.CUDA
+        and ev.self_device_time_total > 0
+        and not ev.key.startswith("Activity Buffer")
+    }
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -194,25 +654,34 @@ def main() -> int:
     phase("device", t0, kind=repr(kind), count=count, smi=repr(smi),
           torch=torch.__version__, cuda=torch.version.cuda)
 
-    # -- kernel build (registers and spills from ptxas)
+    # -- kernel build: one nvcc per library, started together (ptxas
+    # registers and spills per kernel)
     t = time.perf_counter()
-    kernels.DATAPATH_PAIR.load(verbose=True)
-    for line in kernels.DATAPATH_PAIR.build_log.splitlines():
-        if "registers" in line or "spill" in line:
-            print("  ptxas:", line.strip(), flush=True)
+    for stem, (_, log) in kernels.build_all(verbose=True).items():
+        for line in log.splitlines():
+            if "Compiling entry" in line or "registers" in line or (
+                "spill" in line
+            ):
+                print(f"  ptxas {stem}:", line.strip(), flush=True)
+    for k in kernels.KERNELS:
+        k.load()
     phase("build", t)
 
     # -- config-5 world, headline layouts, onto the card
     t = time.perf_counter()
     w = world.make_world(seed=5)
-    host = world.headline_tables(w)
+    wide = w.host_tables()
+    fleet = world.l7_fleet(w, wide.policy)
+    host = world.headline_tables(w, wide)
+    del wide
     tables = tables_to(host, "cuda")
     total = 0
     for name, v in table_leaves(tables):
         nbytes = v.numel() * v.element_size()
         total += nbytes
         print(f"  table {name} {tuple(v.shape)} {nbytes} B", flush=True)
-    phase("world", t, **w.meta, table_bytes=total)
+    phase("world", t, **w.meta, table_bytes=total,
+          http_rules=fleet.http.tables.n_rules, kafka_rules=fleet.kafka.n_rules)
 
     # -- kernel vs plain: one full-width pair, exact
     t = time.perf_counter()
@@ -274,7 +743,7 @@ def main() -> int:
     tel = verdict.make_telemetry_buffers(acc.device)
     disp = dp.PersistentPairDispatcher(tables, PERSIST_K, acc, tel)
     torch.cuda.synchronize()
-    kernels.DATAPATH_PAIR.launches = 0
+    reset_counts(kernels)
     t = time.perf_counter()
     results = []
     for p in pairs:
@@ -284,11 +753,13 @@ def main() -> int:
     torch.cuda.synchronize()
     wall = time.perf_counter() - t
     launches = kernels.DATAPATH_PAIR.launches
+    others = {k.name: k.launches for k in kernels.KERNELS[1:]}
     flows = N_PAIRS * 2 * HALF
     phase("main_path", t, pairs=N_PAIRS, k=PERSIST_K, launches=launches,
           super_launches=disp.launches, verdicts_per_s=round(flows / wall))
-    if launches != N_PAIRS or len(results) != N_PAIRS:
-        raise SystemExit(f"{launches} kernel launches for {N_PAIRS} pairs")
+    if launches != N_PAIRS or len(results) != N_PAIRS or any(others.values()):
+        raise SystemExit(f"{launches} kernel launches for {N_PAIRS} pairs, "
+                         f"others {others}")
     telem = (tel.cpu().to(torch.int64) & 0xFFFFFFFF).sum(dim=0).tolist()
     print("  telemetry", json.dumps(dict(zip(verdict.TELEM_NAMES, telem))),
           flush=True)
@@ -328,16 +799,7 @@ def main() -> int:
         disp_t.flush()
         torch.cuda.synchronize()
         traced_ms = (time.perf_counter() - t1) * 1e3
-    # device work only: kernels and copies, once each (a host op such as
-    # aten::copy_ also reports its copy's device time) and not the
-    # profiler's own "Activity Buffer Request" rows
-    busy = {
-        ev.key: ev.self_device_time_total / 1e3
-        for ev in prof.key_averages()
-        if ev.device_type == torch.autograd.DeviceType.CUDA
-        and ev.self_device_time_total > 0
-        and not ev.key.startswith("Activity Buffer")
-    }
+    busy = device_busy(prof)
     busy_ms = sum(busy.values())
     for key, ms in sorted(busy.items(), key=lambda kv: -kv[1])[:6]:
         print(f"  device {ms:.3f} ms  {key[:90]}", flush=True)
@@ -374,19 +836,23 @@ def main() -> int:
           kernel_ms_per_pair=round(kernel_ms, 4),
           kernel_verdicts_per_s=round(b2 / (kernel_ms / 1e3)))
 
-    print(json.dumps({"kernels": [{
-        "name": kernels.DATAPATH_PAIR.name,
-        "route": "cuda",
-        "source": "cilium_tpu_torch/csrc/datapath.cu",
-        "replaces": "cilium_tpu/engine/datapath.py:801",
-        "launches": launches,
-        "max_abs_err": max(err_full, err_small, err_stash, err_main),
-        "ms": kernel_ms,
-        "plain_ms": plain_ms,
-        "bound_ms": bound_ms,
-        "bound_by": "bytes" if bound_bytes_ms >= bound_ops_ms else "operations",
-        "library_ms": None,
-    }]}), flush=True)
+    rows = [kernel_row(
+        kernels.DATAPATH_PAIR, "cilium_tpu_torch/csrc/datapath.cu",
+        "cilium_tpu/engine/datapath.py:801", launches,
+        max(err_full, err_small, err_stash, err_main), kernel_ms, plain_ms,
+        bound_bytes_ms, bound_ops_ms,
+    )]
+    del pairs, results, full, disp, disp_t
+    torch.cuda.empty_cache()
+
+    rows.append(l7_http_phase(kernels))
+    rows.append(l7_kafka_phase(kernels))
+    rows.append(combined_phase(kernels, w, tables, fleet))
+
+    print("[library] library_ms is null for every kernel: no single "
+          "PyTorch call computes the fused datapath step, a DFA scan, the "
+          "Kafka rule match or the fleet's routed match", flush=True)
+    print(json.dumps({"kernels": rows}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": count,

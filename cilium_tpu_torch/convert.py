@@ -107,3 +107,172 @@ def tables_from_numpy(leaves: dict, device=None) -> DatapathTables:
     if leaves.get("tunnel") is not None:
         raise ValueError("the tunnel map is not ported")
     return tables_to(DatapathTables(**planes), device)
+
+
+# ---------------------------------------------------------------------------
+# L7 tables (l7/http.py, l7/kafka.py, l7/fleet.py)
+# ---------------------------------------------------------------------------
+
+
+def _l7_array_to(value: np.ndarray, device) -> torch.Tensor:
+    if value.dtype == np.uint32:
+        return u32_tensor(value, device)
+    if value.dtype == np.uint16:
+        return torch.from_numpy(value.astype(np.int32)).to(device)
+    if value.dtype in (np.uint8, np.int32, np.int64, np.bool_):
+        return torch.from_numpy(np.array(value, copy=True)).to(device)
+    raise TypeError(f"unexpected L7 table leaf dtype {value.dtype}")
+
+
+def _l7_to(obj, device):
+    """Every numpy array leaf of an L7 table dataclass (nested
+    dataclasses and lists of arrays included) -> a tensor on `device`;
+    scalars, rule specs and the interner stay as they are."""
+    if isinstance(obj, np.ndarray):
+        return _l7_array_to(obj, device)
+    if isinstance(obj, list):
+        return [_l7_to(v, device) if isinstance(v, np.ndarray) else v
+                for v in obj]
+    if dataclasses.is_dataclass(obj) and not isinstance(obj, type):
+        return dataclasses.replace(obj, **{
+            f.name: _l7_to(getattr(obj, f.name), device)
+            for f in dataclasses.fields(obj)
+        })
+    return obj
+
+
+def http_tables_to(tables, device=None):
+    """Host HTTPTables -> the same tables with tensor leaves on `device`
+    (None = the card)."""
+    return _l7_to(tables, resolve_device(device))
+
+
+def kafka_tables_to(tables, device=None):
+    """Host KafkaTables -> the same tables with tensor leaves on
+    `device` (None = the card)."""
+    return _l7_to(tables, resolve_device(device))
+
+
+def fleet_to(fleet, device=None):
+    """Host FleetL7 -> the same fleet with tensor leaves on `device`
+    (None = the card)."""
+    return _l7_to(fleet, resolve_device(device))
+
+
+def _dfa_from_numpy(leaves: dict):
+    from cilium_tpu_torch.l7.regex_dfa import DFA
+
+    return DFA(
+        trans=np.asarray(leaves["trans"]),
+        accept=np.asarray(leaves["accept"]),
+        classes=np.asarray(leaves["classes"]),
+        start=int(leaves["start"]),
+    )
+
+
+def _strided_from_numpy(leaves):
+    from cilium_tpu_torch.l7.http import StridedDFA
+
+    if leaves is None:
+        return None
+    return StridedDFA(
+        classes=np.asarray(leaves["classes"]),
+        id_class0=int(leaves["id_class0"]),
+        base_trans=np.asarray(leaves["base_trans"]),
+        level_maps=[np.asarray(a) for a in leaves["level_maps"]],
+        level_ncs=[int(v) for v in leaves["level_ncs"]],
+        level_ids=[int(v) for v in leaves["level_ids"]],
+        level_trans=[np.asarray(a) for a in leaves["level_trans"]],
+        trans=np.asarray(leaves["trans"]),
+        start=int(leaves["start"]),
+        accept=np.asarray(leaves["accept"]),
+    )
+
+
+def _http_host_from_numpy(leaves: dict):
+    """Host HTTPTables from the leaves of tables compiled elsewhere: {method_dfa, path_dfa, host_dfa: {trans, accept,
+    classes, start}, absent_method, absent_path, absent_host,
+    ident_rules, n_rules, n_words, method_sdfa, path_sdfa, host_sdfa:
+    None or {classes, id_class0, base_trans, level_maps, level_ncs,
+    level_ids, level_trans, trans, start, accept}}."""
+    from cilium_tpu_torch.l7.http import HTTPTables
+
+    kwargs = {}
+    for f in ("method", "path", "host"):
+        kwargs[f"{f}_dfa"] = _dfa_from_numpy(leaves[f"{f}_dfa"])
+        kwargs[f"{f}_sdfa"] = _strided_from_numpy(leaves.get(f"{f}_sdfa"))
+        kwargs[f"absent_{f}"] = np.asarray(leaves[f"absent_{f}"])
+    return HTTPTables(
+        ident_rules=np.asarray(leaves["ident_rules"]),
+        n_rules=int(leaves["n_rules"]),
+        n_words=int(leaves["n_words"]),
+        **kwargs,
+    )
+
+
+def _kafka_host_from_numpy(leaves: dict):
+    """Host KafkaTables from the leaves of tables compiled elsewhere: {rule_keys_lo, rule_keys_hi, rule_keys_any,
+    rule_version, rule_client, rule_topic, ident_rules, n_rules,
+    interner: {string: id}, specs: optional list of dicts of
+    KafkaRuleSpec fields}."""
+    from cilium_tpu_torch.l7.kafka import Interner, KafkaRuleSpec, KafkaTables
+
+    interner = Interner()
+    interner._ids = {str(k): int(v) for k, v in leaves["interner"].items()}
+    return KafkaTables(
+        rule_keys_lo=np.asarray(leaves["rule_keys_lo"]),
+        rule_keys_hi=np.asarray(leaves["rule_keys_hi"]),
+        rule_keys_any=np.asarray(leaves["rule_keys_any"]),
+        rule_version=np.asarray(leaves["rule_version"]),
+        rule_client=np.asarray(leaves["rule_client"]),
+        rule_topic=np.asarray(leaves["rule_topic"]),
+        ident_rules=np.asarray(leaves["ident_rules"]),
+        n_rules=int(leaves["n_rules"]),
+        interner=interner,
+        specs=[KafkaRuleSpec(**s) for s in leaves.get("specs", [])],
+    )
+
+
+def http_tables_from_numpy(leaves: dict, device=None):
+    """The port's HTTPTables on `device` (None = the card) from the
+    leaves of tables compiled elsewhere (see _http_host_from_numpy),
+    as numpy arrays and Python scalars."""
+    return http_tables_to(_http_host_from_numpy(leaves), device)
+
+
+def kafka_tables_from_numpy(leaves: dict, device=None):
+    """The port's KafkaTables on `device` (None = the card) from the
+    leaves of tables compiled elsewhere (see _kafka_host_from_numpy),
+    the interner's string -> id map included."""
+    return kafka_tables_to(_kafka_host_from_numpy(leaves), device)
+
+
+def fleet_from_numpy(leaves: dict, device=None):
+    """The port's FleetL7 on `device` (None = the card) from the leaves
+    of a fleet compiled elsewhere: {http: None or {tables: <HTTP
+    leaves>, device_rules: optional list of dicts of HTTPRuleSpec
+    fields}, kafka: None or <Kafka leaves>, scope_http, scope_kafka,
+    parser_kind}."""
+    from cilium_tpu_torch.l7.fleet import FleetL7
+    from cilium_tpu_torch.l7.http import HTTPPolicy, HTTPRuleSpec
+
+    http = None
+    if leaves["http"] is not None:
+        http = HTTPPolicy(
+            tables=_http_host_from_numpy(leaves["http"]["tables"]),
+            host_rules=[],
+            device_rules=[HTTPRuleSpec(**s) for s in
+                          leaves["http"].get("device_rules", [])],
+        )
+    kafka = (
+        _kafka_host_from_numpy(leaves["kafka"])
+        if leaves["kafka"] is not None else None
+    )
+    fleet = FleetL7(
+        http=http,
+        kafka=kafka,
+        scope_http=np.asarray(leaves["scope_http"]),
+        scope_kafka=np.asarray(leaves["scope_kafka"]),
+        parser_kind=np.asarray(leaves["parser_kind"]),
+    )
+    return fleet_to(fleet, device)

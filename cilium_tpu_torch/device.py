@@ -41,6 +41,17 @@ def u32_tensor(arr, device) -> torch.Tensor:
     return t.clone() if torch.device(device).type == "cpu" else t.to(device)
 
 
+def array_tensor(arr, device) -> torch.Tensor:
+    """numpy array -> tensor on `device`: u32 as int32 with the same
+    bits (see u32_tensor), every other dtype kept; never aliases the
+    caller's array."""
+    a = np.asarray(arr)
+    if a.dtype == np.uint32:
+        return u32_tensor(a, device)
+    t = torch.from_numpy(np.ascontiguousarray(a))
+    return t.clone() if torch.device(device).type == "cpu" else t.to(device)
+
+
 def widen(t: torch.Tensor) -> torch.Tensor:
     """u32 bits in any integer tensor -> int64 holding the unsigned
     value in [0, 2^32)."""

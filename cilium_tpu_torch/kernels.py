@@ -1,10 +1,11 @@
-"""Build, binding and wrapper of the hand-written CUDA kernel.
+"""Build, binding and wrappers of the hand-written CUDA kernels.
 
-`csrc/datapath.cu` (with its stage headers) is compiled by `nvcc` for
-`sm_90a` into a shared library with a plain C interface, at first use,
-into `cilium_tpu_torch/_build/` (one file per source digest), and
-bound with ctypes.  Nothing here runs at import: the CPU tests import
-this module on a machine with no `nvcc` and no card.
+`csrc/datapath.cu` and `csrc/l7.cu` (with their headers) are each
+compiled by `nvcc` for `sm_90a` into a shared library with a plain C
+interface, at first use, into `cilium_tpu_torch/_build/` (one file per
+source digest), and bound with ctypes.  Nothing here runs at import:
+the CPU tests import this module on a machine with no `nvcc` and no
+card.
 
 `DATAPATH_PAIR(tables, pair, acc, telem)` is the pair step on the
 card.  It checks devices, dtypes, shapes and the table layouts (the
@@ -15,6 +16,13 @@ map, at most 32 endpoints) and raises on anything else.  It allocates
 the outputs with `torch.empty`, launches on the current stream
 without synchronising, raises if the launch reports an error, and
 counts its launches in `.launches`.
+
+`HTTP_MATCH`, `KAFKA_MATCH` and `FLEET_L7` (csrc/l7.cu) are the L7
+matchers K16, K17a and K17b under the same rules: they check device,
+dtype, shape and limits (the staged tables must fit one block's
+shared memory) and raise on anything else, allocate their outputs,
+launch on the current stream, raise on a launch error and count
+`.launches`.
 """
 
 from __future__ import annotations
@@ -42,6 +50,7 @@ from cilium_tpu_torch.prefilter import PrefilterRanges
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
+LIBRARIES = ("datapath", "l7")  # csrc/<stem>.cu, one shared library each
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC",
@@ -105,37 +114,65 @@ def _nvcc() -> str:
     cand = Path("/usr/local/cuda/bin/nvcc")
     if cand.exists():
         return str(cand)
-    raise RuntimeError("nvcc not found: the CUDA kernel cannot be built")
+    raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
 
 
-def build(verbose: bool = False):
-    """Compile csrc/datapath.cu once per source digest.  Returns (path
-    of the shared library, the compiler's output; empty when an
-    existing build was reused).  `verbose` adds -Xptxas -v (registers
-    and spills)."""
+def _lib_path(stem: str) -> Path:
+    """The shared library of csrc/<stem>.cu, named by the digest of
+    every source in csrc/ and the flags."""
     digest = hashlib.sha1()
     for src in _sources():
         digest.update(src.name.encode())
         digest.update(src.read_bytes())
     digest.update(" ".join(NVCC_FLAGS).encode())
-    lib = BUILD_DIR / f"libdatapath_{digest.hexdigest()[:16]}.so"
-    if lib.exists():
-        return lib, ""
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = lib.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / "datapath.cu")]
-    if verbose:
-        cmd[1:1] = ["-Xptxas", "-v"]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}):\n{proc.stdout}{proc.stderr}"
-        )
-    os.replace(tmp, lib)
-    return lib, proc.stdout + proc.stderr
+    return BUILD_DIR / f"lib{stem}_{digest.hexdigest()[:16]}.so"
 
 
-def _ptr(t: torch.Tensor, name: str, device: torch.device, dtype=torch.int32):
+def build_all(stems=LIBRARIES, verbose: bool = False) -> dict:
+    """Compile csrc/<stem>.cu for each stem, once per source digest,
+    with one nvcc process per library, all started together.  Returns
+    {stem: (path of the shared library, the compiler's output; empty
+    when an existing build was reused)}.  `verbose` adds -Xptxas -v
+    (registers and spills)."""
+    out, running = {}, []
+    for stem in stems:
+        lib = _lib_path(stem)
+        if lib.exists():
+            out[stem] = (lib, "")
+            continue
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = lib.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{stem}.cu")]
+        if verbose:
+            cmd[1:1] = ["-Xptxas", "-v"]
+        proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                stderr=subprocess.STDOUT, text=True)
+        running.append((stem, lib, tmp, proc))
+    failed = []
+    for stem, lib, tmp, proc in running:
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"nvcc {stem}.cu failed ({proc.returncode}):\n{log}")
+            continue
+        os.replace(tmp, lib)
+        out[stem] = (lib, log)
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return out
+
+
+def build(stem: str, verbose: bool = False):
+    """Compile csrc/<stem>.cu alone; see build_all."""
+    return build_all((stem,), verbose=verbose)[stem]
+
+
+def _ptr(t: torch.Tensor, name: str, device: torch.device, dtype=torch.int32,
+         shape=None):
+    if not isinstance(t, torch.Tensor):
+        raise TypeError(f"{name} must be a tensor, got {type(t).__name__}")
+    if shape is not None and tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name} has shape {tuple(t.shape)}, expected "
+                         f"{tuple(shape)}")
     if t.device != device:
         raise ValueError(f"{name} is on {t.device}, expected {device}")
     if t.dtype != dtype:
@@ -163,7 +200,7 @@ class DatapathPairKernel:
 
     def load(self, verbose: bool = False):
         if self._lib is None:
-            path, self.build_log = build(verbose=verbose)
+            path, self.build_log = build("datapath", verbose=verbose)
             lib = ctypes.CDLL(str(path))
             lib.launch_datapath_pair.argtypes = [
                 ctypes.POINTER(DatapathArgs), ctypes.c_void_p,
@@ -334,3 +371,353 @@ class DatapathPairKernel:
 
 
 DATAPATH_PAIR = DatapathPairKernel()
+
+
+# ---------------------------------------------------------------------------
+# L7 matchers (csrc/l7.cu)
+# ---------------------------------------------------------------------------
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int32
+
+
+class DfaGlobal(ctypes.Structure):
+    _fields_ = [("trans", _P), ("classes", _P), ("accept", _P),
+                ("n_states", _I), ("n_classes", _I), ("start", _I)]
+
+
+class HttpTablesArgs(ctypes.Structure):
+    _fields_ = [("dfa", DfaGlobal * 3), ("absent", _P * 3),
+                ("ident_rules", _P), ("n_ident", _I), ("n_words", _I)]
+
+
+class HttpFieldsArgs(ctypes.Structure):
+    _fields_ = [("data", _P * 3), ("len", _P * 3), ("width", _I * 3)]
+
+
+class KafkaTablesArgs(ctypes.Structure):
+    _fields_ = [("keys_lo", _P), ("keys_hi", _P), ("keys_any", _P),
+                ("version", _P), ("client", _P), ("topic", _P),
+                ("ident_rules", _P), ("n_rules", _I), ("n_ident", _I),
+                ("n_words", _I)]
+
+
+class KafkaFieldsArgs(ctypes.Structure):
+    _fields_ = [("kind", _P), ("version", _P), ("client", _P),
+                ("topics", _P), ("topic_count", _P), ("parsed", _P),
+                ("checks_client", _P), ("overflow", _P), ("n_topics", _I)]
+
+
+class HttpArgs(ctypes.Structure):
+    """Mirror of cl7::HttpArgs in csrc/l7.cu, field for field."""
+
+    _fields_ = [("t", HttpTablesArgs), ("f", HttpFieldsArgs),
+                ("ident_idx", _P), ("known", _P), ("scope", _P),
+                ("allowed", _P), ("matched", _P), ("n", _I)]
+
+
+class KafkaArgs(ctypes.Structure):
+    """Mirror of cl7::KafkaArgs in csrc/l7.cu, field for field."""
+
+    _fields_ = [("t", KafkaTablesArgs), ("f", KafkaFieldsArgs),
+                ("ident_idx", _P), ("known", _P), ("scope", _P),
+                ("allowed", _P), ("topic_kinds", ctypes.c_uint64),
+                ("n", _I)]
+
+
+class FleetArgs(ctypes.Structure):
+    """Mirror of cl7::FleetArgs in csrc/l7.cu, field for field."""
+
+    _fields_ = [("http", HttpTablesArgs), ("hf", HttpFieldsArgs),
+                ("kafka", KafkaTablesArgs), ("kf", KafkaFieldsArgs),
+                ("parser_kind", _P), ("scope_http", _P), ("scope_kafka", _P),
+                ("ep_index", _P), ("direction", _P), ("l4_slot", _P),
+                ("ident_idx", _P), ("known", _P), ("allowed", _P),
+                ("topic_kinds", ctypes.c_uint64), ("has_http", _I),
+                ("has_kafka", _I), ("n_scopes", _I), ("kg", _I), ("n", _I)]
+
+
+_L7_LAUNCHERS = (
+    ("launch_http_match", "http_match_smem", HttpArgs),
+    ("launch_kafka_match", "kafka_match_smem", KafkaArgs),
+    ("launch_fleet_l7", "fleet_l7_smem", FleetArgs),
+)
+
+
+class _L7Library:
+    """csrc/l7.cu, built and bound once for the three L7 wrappers."""
+
+    def __init__(self) -> None:
+        self.lib = None
+        self.build_log = ""
+
+    def load(self, verbose: bool = False):
+        if self.lib is None:
+            path, self.build_log = build("l7", verbose=verbose)
+            lib = ctypes.CDLL(str(path))
+            for launch, smem, args in _L7_LAUNCHERS:
+                getattr(lib, launch).argtypes = [ctypes.POINTER(args), _P]
+                getattr(lib, launch).restype = ctypes.c_int
+                getattr(lib, smem).argtypes = [ctypes.POINTER(args)]
+                getattr(lib, smem).restype = ctypes.c_longlong
+            lib.l7_smem_limit.argtypes = []
+            lib.l7_smem_limit.restype = ctypes.c_int
+            lib.l7_struct_sizes.argtypes = [ctypes.POINTER(ctypes.c_int)]
+            lib.l7_struct_sizes.restype = ctypes.c_int
+            sizes = (ctypes.c_int * 3)()
+            lib.l7_struct_sizes(sizes)
+            want = [ctypes.sizeof(a) for _, _, a in _L7_LAUNCHERS]
+            if list(sizes) != want:
+                raise RuntimeError(
+                    f"L7 argument layouts differ between kernels.py {want} "
+                    f"and csrc/l7.cu {list(sizes)}"
+                )
+            self.lib = lib
+        return self.lib
+
+    def launch(self, launch: str, smem: str, args, device, name: str):
+        """Refuse tables that do not fit one block's shared memory, then
+        launch on the current stream; raise on a launch error."""
+        lib = self.load()
+        need = getattr(lib, smem)(ctypes.byref(args))
+        limit = lib.l7_smem_limit()
+        if need > limit:
+            raise ValueError(
+                f"{name}: the staged tables take {need} B of shared memory, "
+                f"more than the {limit} B one block may use"
+            )
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = getattr(lib, launch)(ctypes.byref(args), stream)
+        if err != 0:
+            raise RuntimeError(f"{name} launch failed: CUDA error {err}")
+
+
+L7_LIBRARY = _L7Library()
+
+
+def _cuda_device(t, name):
+    if not isinstance(t, torch.Tensor) or t.device.type != "cuda":
+        where = t.device if isinstance(t, torch.Tensor) else type(t).__name__
+        raise ValueError(f"{name}: the kernel runs on CUDA tensors, got {where}")
+    return t.device
+
+
+def _fill_http_tables(t: HttpTablesArgs, tables, dev) -> int:
+    """Check the device-form HTTPTables and fill `t`; returns W."""
+    w = int(tables.n_words)
+    if w < 1:
+        raise ValueError("HTTP tables need at least one mask word")
+    for f, field in enumerate(("method", "path", "host")):
+        dfa = getattr(tables, f"{field}_dfa")
+        if dfa.trans.dim() != 2:
+            raise ValueError(f"{field}_dfa.trans must be [S, C]")
+        s_count, c_count = (int(v) for v in dfa.trans.shape)
+        if not (1 <= s_count <= 1 << 16 and 1 <= c_count <= 256):
+            raise ValueError(
+                f"{field}_dfa has {s_count} states and {c_count} classes; "
+                "the kernel takes at most 65536 states and 256 classes"
+            )
+        if not 0 <= int(dfa.start) < s_count:
+            raise ValueError(f"{field}_dfa.start out of range")
+        d = t.dfa[f]
+        d.trans = _ptr(dfa.trans, f"{field}_dfa.trans", dev, torch.int32)
+        d.classes = _ptr(dfa.classes, f"{field}_dfa.classes", dev,
+                         torch.uint8, (256,))
+        d.accept = _ptr(dfa.accept, f"{field}_dfa.accept", dev, torch.int32,
+                        (s_count, w))
+        d.n_states, d.n_classes, d.start = s_count, c_count, int(dfa.start)
+        t.absent[f] = _ptr(getattr(tables, f"absent_{field}"),
+                           f"absent_{field}", dev, torch.int32, (w,))
+    ident = tables.ident_rules
+    n = int(ident.shape[0])
+    if n < 1:
+        raise ValueError("ident_rules has no rows")
+    t.ident_rules = _ptr(ident, "ident_rules", dev, torch.int32, (n, w))
+    t.n_ident, t.n_words = n, w
+    return w
+
+
+def _fill_http_fields(f: HttpFieldsArgs, fields, b: int, dev) -> None:
+    if len(fields) != 6:
+        raise ValueError("HTTP fields are (m, ml, p, pl, h, hl)")
+    for k, name in enumerate(("method", "path", "host")):
+        data, lens = fields[2 * k], fields[2 * k + 1]
+        if data.dim() != 2 or data.shape[0] != b:
+            raise ValueError(f"{name} must be [B={b}, L]")
+        f.data[k] = _ptr(data, name, dev, torch.uint8)
+        f.len[k] = _ptr(lens, f"{name}_len", dev, torch.int32, (b,))
+        f.width[k] = int(data.shape[1])
+
+
+def _fill_kafka_tables(t: KafkaTablesArgs, tables, dev) -> int:
+    """Check the device-form KafkaTables and fill `t`; returns W."""
+    r = int(tables.rule_keys_lo.shape[0])
+    if r < 1:
+        raise ValueError("Kafka tables need at least one rule column")
+    t.keys_lo = _ptr(tables.rule_keys_lo, "rule_keys_lo", dev, torch.int32, (r,))
+    t.keys_hi = _ptr(tables.rule_keys_hi, "rule_keys_hi", dev, torch.int32, (r,))
+    t.keys_any = _ptr(tables.rule_keys_any, "rule_keys_any", dev, torch.uint8,
+                      (r,))
+    t.version = _ptr(tables.rule_version, "rule_version", dev, torch.int32, (r,))
+    t.client = _ptr(tables.rule_client, "rule_client", dev, torch.int32, (r,))
+    t.topic = _ptr(tables.rule_topic, "rule_topic", dev, torch.int32, (r,))
+    ident = tables.ident_rules
+    if ident.dim() != 2 or ident.shape[0] < 1:
+        raise ValueError("ident_rules must be [N >= 1, W]")
+    n, w = (int(v) for v in ident.shape)
+    if w * 32 < r:
+        raise ValueError(f"ident_rules has {w} words for {r} rules")
+    t.ident_rules = _ptr(ident, "ident_rules", dev, torch.int32)
+    t.n_rules, t.n_ident, t.n_words = r, n, w
+    return w
+
+
+def _fill_kafka_fields(f: KafkaFieldsArgs, fields, b: int, dev) -> None:
+    if len(fields) != 8:
+        raise ValueError("Kafka fields are pad_kafka_requests' eight")
+    kind, version, client, topics, count, parsed, checks, overflow = fields
+    if topics.dim() != 2 or topics.shape[0] != b or topics.shape[1] > 32:
+        raise ValueError("topics must be [B, T] with T <= 32")
+    f.kind = _ptr(kind, "kind", dev, torch.int32, (b,))
+    f.version = _ptr(version, "version", dev, torch.int32, (b,))
+    f.client = _ptr(client, "client", dev, torch.int32, (b,))
+    f.topics = _ptr(topics, "topics", dev, torch.int32)
+    f.topic_count = _ptr(count, "topic_count", dev, torch.int32, (b,))
+    f.parsed = _ptr(parsed, "parsed", dev, torch.bool, (b,))
+    f.checks_client = _ptr(checks, "checks_client", dev, torch.bool, (b,))
+    f.overflow = _ptr(overflow, "overflow", dev, torch.bool, (b,))
+    f.n_topics = int(topics.shape[1])
+
+
+def _topic_kinds() -> int:
+    from cilium_tpu_torch.l7.kafka import TOPIC_API_KEYS
+
+    return sum(1 << k for k in TOPIC_API_KEYS if 0 <= k < 64)
+
+
+def _batch(b: int) -> int:
+    if b >= 1 << 31:
+        raise ValueError("batch too large")
+    return b
+
+
+class HttpMatchKernel:
+    """K16 on the card: (allowed bool [B], matched int32 [B, W])."""
+
+    name = "http_match"
+
+    def __init__(self) -> None:
+        self.launches = 0
+
+    def load(self, verbose: bool = False):
+        return L7_LIBRARY.load(verbose)
+
+    def __call__(self, tables, method, method_len, path, path_len, host,
+                 host_len, ident_idx, known, scope_bits=None):
+        dev = _cuda_device(method, self.name)
+        b = _batch(int(method.shape[0]))
+        a = HttpArgs()
+        w = _fill_http_tables(a.t, tables, dev)
+        _fill_http_fields(a.f, (method, method_len, path, path_len, host,
+                                host_len), b, dev)
+        a.ident_idx = _ptr(ident_idx, "ident_idx", dev, torch.int32, (b,))
+        a.known = _ptr(known, "known", dev, torch.bool, (b,))
+        a.scope = (None if scope_bits is None else
+                   _ptr(scope_bits, "scope_bits", dev, torch.int32, (b, w)))
+        allowed = torch.empty(b, dtype=torch.bool, device=dev)
+        matched = torch.empty((b, w), dtype=torch.int32, device=dev)
+        a.allowed, a.matched, a.n = allowed.data_ptr(), matched.data_ptr(), b
+        L7_LIBRARY.launch("launch_http_match", "http_match_smem", a, dev,
+                          self.name)
+        self.launches += 1
+        return allowed, matched
+
+
+class KafkaMatchKernel:
+    """K17a on the card: allowed bool [B]."""
+
+    name = "kafka_match"
+
+    def __init__(self) -> None:
+        self.launches = 0
+
+    def load(self, verbose: bool = False):
+        return L7_LIBRARY.load(verbose)
+
+    def __call__(self, tables, kind, version, client, topics, topic_count,
+                 parsed, checks_client, overflow, ident_idx, known,
+                 scope_bits=None):
+        dev = _cuda_device(kind, self.name)
+        b = _batch(int(kind.shape[0]))
+        a = KafkaArgs()
+        w = _fill_kafka_tables(a.t, tables, dev)
+        _fill_kafka_fields(a.f, (kind, version, client, topics, topic_count,
+                                 parsed, checks_client, overflow), b, dev)
+        a.ident_idx = _ptr(ident_idx, "ident_idx", dev, torch.int32, (b,))
+        a.known = _ptr(known, "known", dev, torch.bool, (b,))
+        a.scope = (None if scope_bits is None else
+                   _ptr(scope_bits, "scope_bits", dev, torch.int32, (b, w)))
+        allowed = torch.empty(b, dtype=torch.bool, device=dev)
+        a.allowed, a.n = allowed.data_ptr(), b
+        a.topic_kinds = _topic_kinds()
+        L7_LIBRARY.launch("launch_kafka_match", "kafka_match_smem", a, dev,
+                          self.name)
+        self.launches += 1
+        return allowed
+
+
+class FleetL7Kernel:
+    """K17b on the card: allowed bool [B]."""
+
+    name = "fleet_l7"
+
+    def __init__(self) -> None:
+        self.launches = 0
+
+    def load(self, verbose: bool = False):
+        return L7_LIBRARY.load(verbose)
+
+    def __call__(self, fleet, ep_index, direction, l4_slot, ident_idx, known,
+                 http_fields=None, kafka_fields=None):
+        dev = _cuda_device(ep_index, self.name)
+        b = _batch(int(ep_index.shape[0]))
+        a = FleetArgs()
+        pk = fleet.parser_kind
+        if pk.dim() != 3 or pk.shape[1] != 2:
+            raise ValueError("parser_kind must be [E, 2, Kg]")
+        e_count, _, kg = (int(v) for v in pk.shape)
+        scopes = e_count * 2 * kg
+        if not 1 <= scopes < 1 << 31:
+            raise ValueError(f"{scopes} scopes")
+        a.parser_kind = _ptr(pk, "parser_kind", dev, torch.uint8)
+        a.n_scopes, a.kg = scopes, kg
+        a.has_http = int(fleet.http is not None and http_fields is not None)
+        a.has_kafka = int(fleet.kafka is not None and kafka_fields is not None)
+        if a.has_http:
+            wh = _fill_http_tables(a.http, fleet.http.tables, dev)
+            _fill_http_fields(a.hf, http_fields, b, dev)
+            a.scope_http = _ptr(fleet.scope_http, "scope_http", dev,
+                                torch.int32, (e_count, 2, kg, wh))
+        if a.has_kafka:
+            wk = _fill_kafka_tables(a.kafka, fleet.kafka, dev)
+            _fill_kafka_fields(a.kf, kafka_fields, b, dev)
+            a.scope_kafka = _ptr(fleet.scope_kafka, "scope_kafka", dev,
+                                 torch.int32, (e_count, 2, kg, wk))
+        a.ep_index = _ptr(ep_index, "ep_index", dev, torch.int32, (b,))
+        a.direction = _ptr(direction, "direction", dev, torch.int32, (b,))
+        a.l4_slot = _ptr(l4_slot, "l4_slot", dev, torch.int32, (b,))
+        a.ident_idx = _ptr(ident_idx, "ident_idx", dev, torch.int32, (b,))
+        a.known = _ptr(known, "known", dev, torch.bool, (b,))
+        allowed = torch.empty(b, dtype=torch.bool, device=dev)
+        a.allowed, a.n = allowed.data_ptr(), b
+        a.topic_kinds = _topic_kinds()
+        L7_LIBRARY.launch("launch_fleet_l7", "fleet_l7_smem", a, dev,
+                          self.name)
+        self.launches += 1
+        return allowed
+
+
+HTTP_MATCH = HttpMatchKernel()
+KAFKA_MATCH = KafkaMatchKernel()
+FLEET_L7 = FleetL7Kernel()
+KERNELS = (DATAPATH_PAIR, HTTP_MATCH, KAFKA_MATCH, FLEET_L7)

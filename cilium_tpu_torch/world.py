@@ -95,6 +95,10 @@ class World:
     identity_pad: int = 1024
     filter_pad: int = 64
     meta: dict = field(default_factory=dict)
+    # the L7 rules as (rule index, endpoint, port, team), and each
+    # team's member identities
+    l7_rules: list = field(default_factory=list)
+    team_members: list = field(default_factory=list)
 
     def host_tables(self) -> DatapathTables:
         """The compiled maps in their wide layouts (host numpy)."""
@@ -153,11 +157,13 @@ FLOW_FIELDS = (
 )
 
 
-def headline_tables(world: World) -> DatapathTables:
+def headline_tables(world: World,
+                    wide: Optional[DatapathTables] = None) -> DatapathTables:
     """The config-5 headline layout (host numpy): every sub-word
     transform applied (compact L4, compact CT, packed ipcache planes;
-    raises if one does not fit) and the policy's cold plane dropped."""
-    sub = subword_datapath_tables(world.host_tables())
+    raises if one does not fit) and the policy's cold plane dropped.
+    `wide` reuses tables already built by `world.host_tables()`."""
+    sub = subword_datapath_tables(wide or world.host_tables())
     sub.policy = split_hot(sub.policy)
     return sub
 
@@ -214,7 +220,7 @@ def make_world(seed: int = 5, n_rules: int = 50_000, n_endpoints: int = 32,
         return 10000 + e * len(l7_ports) + l7_ports.index(port)
 
     states = [dict() for _ in range(e_count)]
-    l7_pairs = []  # (endpoint, port, team) of L7 rules
+    l7_pairs = []  # (rule index, endpoint, port, team) of L7 rules
     kinds = rng.random(n_rules)
     teams = rng.integers(0, n_teams, size=n_rules)
     port_pick = rng.integers(0, len(plain_ports), size=n_rules)
@@ -246,7 +252,7 @@ def make_world(seed: int = 5, n_rules: int = 50_000, n_endpoints: int = 32,
             entry = PolicyMapStateEntry(proxy_port=proxy_of(e, port))
             for m in members:
                 st[PolicyKey(m, port, 6, INGRESS)] = entry
-            l7_pairs.append((e, port, int(teams[i])))
+            l7_pairs.append((i, e, port, int(teams[i])))
     for e in range(e_count):
         st = states[e]
         st[PolicyKey(RESERVED_HOST, 0, 0, INGRESS)] = plain
@@ -328,7 +334,7 @@ def make_world(seed: int = 5, n_rules: int = 50_000, n_endpoints: int = 32,
         rows = np.nonzero(rng.random(n) < 0.025)[0]
         rules = rng.integers(0, len(l7_pairs), size=len(rows))
         for row, ri in zip(rows, rules):
-            e, port, team = l7_pairs[int(ri)]
+            _, e, port, team = l7_pairs[int(ri)]
             members = team_members[team]
             m = members[int(rng.integers(0, len(members)))]
             direction[row] = INGRESS
@@ -400,4 +406,210 @@ def make_world(seed: int = 5, n_rules: int = 50_000, n_endpoints: int = 32,
             "l7_rules": len(l7_pairs), "ct_entries": len(ct.entries),
             "pool": n_pool,
         },
+        l7_rules=l7_pairs,
+        team_members=team_members,
+    )
+
+
+# -- the L7 side ---------------------------------------------------------------
+
+
+def l7_fleet(world: World, policy) -> "FleetL7":
+    """Config 5's fleet L7 matchers (bench.py build_rules' L7 rules):
+    per L7 rule i at (endpoint e, port), one spec in the scope
+    (e, INGRESS, slot of the port) that admits the team's members by
+    lattice index (the pair step's sec_id); HTTP rules match GET on
+    /api/v{i % 4}/[a-z]+, Kafka rules topic{i % 32} with any api key.
+    `policy` is the host PolicyTables of `world.host_tables()` (its
+    cold `port_slot` plane gives the slots)."""
+    from cilium_tpu_torch.compiler.tables import NO_SLOT
+    from cilium_tpu_torch.l7.fleet import (
+        PARSER_HTTP_ID,
+        PARSER_KAFKA_ID,
+        compile_fleet_from_specs,
+    )
+    from cilium_tpu_torch.l7.http import HTTPRuleSpec
+    from cilium_tpu_torch.l7.kafka import KafkaRuleSpec
+
+    if policy.port_slot is None:
+        raise ValueError("l7_fleet needs the policy's port_slot plane")
+    e_count, _, kg = policy.l4_meta.shape
+    id_table = np.asarray(policy.id_table)
+    parser_kind = np.zeros((e_count, 2, kg), np.uint8)
+    http_specs, kafka_specs = [], []
+    for i, e, port, team in world.l7_rules:
+        j = int(policy.port_slot[6, port])
+        if j == int(NO_SLOT):
+            raise ValueError(f"L7 port {port} has no L4 slot")
+        scope = (e, INGRESS, j)
+        idx = np.searchsorted(id_table, world.team_members[team]).tolist()
+        if port in HTTP_PORTS:
+            parser_kind[scope] = PARSER_HTTP_ID
+            http_specs.append(HTTPRuleSpec(
+                identity_indices=idx, method="GET",
+                path=f"/api/v{i % 4}/[a-z]+", scope_key=scope,
+            ))
+        else:
+            parser_kind[scope] = PARSER_KAFKA_ID
+            kafka_specs.append(KafkaRuleSpec(
+                identity_indices=idx, topic=f"topic{i % 32}",
+                scope_key=scope,
+            ))
+    return compile_fleet_from_specs(
+        http_specs, kafka_specs, parser_kind, len(id_table)
+    )
+
+
+def l7_payloads(world: World, fleet, seed: int = 23):
+    """Per pool row, the first request of its connection (bench.py
+    build_l7_payloads): HTTP fields for rows aimed at ports 8000-8015,
+    Kafka fields for ports 9090-9097, empty requests elsewhere.
+    Returns (requests, kafka requests, HTTP fields (m, ml, p, pl, h, hl)
+    padded and trimmed, Kafka fields in pad_kafka_requests' order), all
+    numpy and aligned with the pool's rows."""
+    from cilium_tpu_torch.l7.http import pad_requests, trim_packed
+    from cilium_tpu_torch.l7.kafka import KafkaRequest, pad_kafka_requests
+
+    rng = np.random.default_rng(seed)
+    dport = world.pool["dport"]
+    n = len(dport)
+    reqs = []
+    for i in range(n):
+        p = int(dport[i])
+        if 8000 <= p < 8016:
+            k = int(rng.integers(0, 5))
+            path = (
+                f"/api/v{p % 4}/items",
+                f"/api/v{(p + 1) % 4}/items",
+                "/api/v9/nope",
+                "/health",
+                f"/api/v{p % 4}/x{i % 97}",
+            )[k]
+            method = "GET" if k != 3 else "POST"
+            reqs.append((method.encode(), path.encode(), b""))
+        else:
+            reqs.append((b"", b"", b""))
+    m, ml, p_, pl, h, hl, overflow = pad_requests(reqs)
+    if overflow.any():
+        raise ValueError("an L7 payload exceeds its field budget")
+    m, p_, h = trim_packed(m, ml), trim_packed(p_, pl), trim_packed(h, hl)
+    kreqs = []
+    for i in range(n):
+        if 9090 <= int(dport[i]) < 9098:
+            kreqs.append(KafkaRequest(
+                kind=0, version=0, client_id=f"client{i % 4}",
+                topics=(f"topic{int(rng.integers(0, 48))}",), parsed=True,
+            ))
+        else:
+            kreqs.append(KafkaRequest(kind=0, version=0, client_id="",
+                                      topics=(), parsed=True))
+    kf = pad_kafka_requests(fleet.kafka, kreqs)
+    return reqs, kreqs, (m, ml, p_, pl, h, hl), tuple(np.asarray(x) for x in kf)
+
+
+@dataclass
+class RequestWorld:
+    """A batch of L7 requests against one rule set (configs 3 and 4):
+    the specs, the compiled policy, the 256 request templates, the
+    per-request template pick, identity index and known flag, the
+    request fields gathered by pick, and 256 rows for the host
+    oracle."""
+
+    specs: list
+    policy: object  # HTTPPolicy or KafkaTables
+    templates: list
+    pick: np.ndarray
+    ident: np.ndarray
+    known: np.ndarray
+    fields: tuple
+    sample: np.ndarray
+
+
+def http_request_world(n: int = 1 << 20, seed: int = 13) -> RequestWorld:
+    """Config 3 (bench.py config3): 24 HTTP rules over 1,024 identities,
+    256 request templates, `n` requests."""
+    from cilium_tpu_torch.l7.http import (
+        HTTPRuleSpec,
+        compile_http_rules,
+        pad_requests,
+        trim_packed,
+    )
+
+    rng = np.random.default_rng(seed)
+    n_ident = 1024
+    specs = []
+    for i in range(24):
+        specs.append(HTTPRuleSpec(
+            identity_indices=list(rng.integers(0, n_ident, size=64)),
+            method="GET|POST" if i % 3 else "GET",
+            path=f"/api/v{i % 4}/[a-z]+(/[0-9]+)?",
+            host="" if i % 2 else r"svc[0-9]+\.cluster\.local",
+        ))
+    policy = compile_http_rules(specs, n_ident)
+    templates = []
+    for i in range(256):
+        method = rng.choice(["GET", "POST", "PUT", "DELETE"])
+        path = rng.choice([
+            f"/api/v{i % 4}/users/{i}",
+            f"/api/v{i % 4}/items",
+            "/health",
+            "/api/v9/nope",
+            f"/api/v{i % 4}/x" + "y" * int(rng.integers(0, 40)),
+        ])
+        host = rng.choice([f"svc{i % 8}.cluster.local", "evil.example.com",
+                           ""])
+        templates.append((method.encode(), path.encode(), host.encode()))
+    tm, tml, tp, tpl, th, thl, _ = pad_requests(templates)
+    tm, tp, th = trim_packed(tm, tml), trim_packed(tp, tpl), trim_packed(th, thl)
+    pick = rng.integers(0, len(templates), size=n)
+    ident = rng.integers(0, n_ident, size=n).astype(np.int32)
+    sample = rng.integers(0, n, size=256)
+    return RequestWorld(
+        specs=specs, policy=policy, templates=templates, pick=pick,
+        ident=ident, known=np.ones(n, dtype=bool),
+        fields=tuple(a[pick] for a in (tm, tml, tp, tpl, th, thl)),
+        sample=sample,
+    )
+
+
+def kafka_request_world(n: int = 1 << 20, seed: int = 17) -> RequestWorld:
+    """Config 4 (bench.py config4): 24 Kafka rules over 1,024
+    identities, 256 request templates, `n` requests."""
+    from cilium_tpu_torch.l7.kafka import (
+        KafkaRequest,
+        KafkaRuleSpec,
+        compile_kafka_rules,
+        pad_kafka_requests,
+    )
+
+    rng = np.random.default_rng(seed)
+    n_ident = 1024
+    specs = []
+    for i in range(24):
+        specs.append(KafkaRuleSpec(
+            identity_indices=frozenset(
+                int(x) for x in rng.integers(0, n_ident, size=64)
+            ),
+            api_keys=(0,) if i % 2 else (1, 2, 3),
+            topic=f"topic{i % 16}" if i % 3 else "",
+        ))
+    tables = compile_kafka_rules(specs, n_ident)
+    templates = []
+    for i in range(256):
+        kind = int(rng.choice([0, 1, 2, 3, 8, 9]))
+        count = int(rng.integers(0, 3))
+        topics = [f"topic{int(t)}" for t in rng.integers(0, 24, size=count)]
+        templates.append(KafkaRequest(
+            kind=kind, version=0, client_id=f"client{i % 4}",
+            topics=tuple(topics), parsed=True,
+        ))
+    packed = pad_kafka_requests(tables, templates)
+    pick = rng.integers(0, len(templates), size=n)
+    ident = rng.integers(0, n_ident, size=n).astype(np.int32)
+    sample = rng.integers(0, n, size=256)
+    return RequestWorld(
+        specs=specs, policy=tables, templates=templates, pick=pick,
+        ident=ident, known=np.ones(n, dtype=bool),
+        fields=tuple(np.asarray(a)[pick] for a in packed),
+        sample=sample,
     )

@@ -214,3 +214,82 @@ def port_run_pairs(tables, pairs):
         )
         outs.append((oi, oe))
     return outs, acc, tel
+
+
+# -- L7 ------------------------------------------------------------------------
+
+
+def l7_leaves(obj):
+    """A JAX L7 table object (HTTPTables, KafkaTables, FleetL7, DFA,
+    StridedDFA) as the nested dict of numpy leaves and Python scalars
+    that convert.*_from_numpy take."""
+    from cilium_tpu.l7.kafka import Interner
+
+    if obj is None:
+        return None
+    if isinstance(obj, np.ndarray):
+        return obj
+    if isinstance(obj, list):
+        return [l7_leaves(v) for v in obj]
+    if isinstance(obj, Interner):
+        return dict(obj._ids)
+    if dataclasses.is_dataclass(obj):
+        out = {}
+        for f in dataclasses.fields(obj):
+            v = getattr(obj, f.name)
+            if f.name in ("specs", "device_rules"):
+                out[f.name] = [dataclasses.asdict(s) for s in v]
+            elif f.name == "host_rules":
+                continue
+            else:
+                out[f.name] = l7_leaves(v)
+        return out
+    return obj
+
+
+def assert_same_l7(port, ref, path="l7"):
+    """Every leaf of a port L7 object equals the reference's: arrays
+    (numpy, or tensors with u32 bits in int32 and u16 in int32) equal
+    in shape, dtype and value; lists element by element; the interner
+    by its map; rule specs field by field; scalars with ==."""
+    if dataclasses.is_dataclass(port) and not isinstance(port, type):
+        for f in dataclasses.fields(port):
+            assert_same_l7(getattr(port, f.name), getattr(ref, f.name),
+                           f"{path}.{f.name}")
+    elif isinstance(port, torch.Tensor):
+        want = np.asarray(ref)
+        got = port.cpu().numpy()
+        if want.dtype == np.uint32:
+            got = got.view(np.uint32)
+        elif want.dtype == np.uint16:
+            got = got.astype(np.uint16)
+        assert got.shape == want.shape, path
+        assert np.array_equal(got, want), path
+    elif isinstance(port, np.ndarray):
+        want = np.asarray(ref)
+        assert port.dtype == want.dtype, (path, port.dtype, want.dtype)
+        assert port.shape == want.shape, path
+        assert np.array_equal(port, want), path
+    elif isinstance(port, list):
+        assert len(port) == len(ref), path
+        for k, (a, b) in enumerate(zip(port, ref)):
+            assert_same_l7(a, b, f"{path}[{k}]")
+    elif hasattr(port, "_ids"):
+        assert port._ids == ref._ids, path
+    else:
+        assert port == ref, (path, port, ref)
+
+
+def as_spec(spec, module):
+    """A rule spec as `module`'s spec class (the reference's or the
+    port's), field for field."""
+    cls = (module.HTTPRuleSpec if hasattr(module, "HTTPRuleSpec")
+           else module.KafkaRuleSpec)
+    return cls(**dataclasses.asdict(spec))
+
+
+def as_torch(arrays, device="cpu"):
+    """numpy arrays -> tensors (u32 as int32 with the same bits)."""
+    from cilium_tpu_torch.device import array_tensor
+
+    return tuple(array_tensor(a, device) for a in arrays)
