@@ -5,13 +5,22 @@
 Builds the CUDA kernels from cilium_tpu_torch/csrc with nvcc (one
 process per library, started together), builds the config-5 world
 (50,000 rules, 32 endpoints, 65,536 identities) and its fleet L7
-matchers from fixed seeds, and drives four paths, each with the
+matchers from fixed seeds, and drives five paths, each with the
 launch counts set to 0 just before it and read just after:
 
   main_path  the headline datapath: PersistentPairDispatcher with
              K = 4 over 8 pairs of 2 x 2,097,152 flows (DATAPATH_PAIR),
              after the pair kernel is checked bit-exact against its
-             plain version on a full pair and two small worlds;
+             plain version on a full pair and two small worlds, and
+             on a full pair over the wide layouts (wide_pair_check);
+  churn      config 5's conntrack churn loop (replay_pool, bench.py's
+             ct_churn_tuples_per_sec): a seed pass of 2 x 2,097,152
+             picks drawn on the card, then the timed pass of
+             4 x 2,097,152, over the wide tables (DATAPATH_STEP,
+             CHURN_COMPACT, CT_DELTA); before it churn_check holds the
+             three kernels against their plain versions at full width
+             and runs 2 batches of the loop on the kernels and on the
+             plain versions; after it, churn_trace and churn_timing;
   l7_http    config 3: 1,048,576 HTTP requests against 24 rules
              through evaluate_http_batch (HTTP_MATCH);
   l7_kafka   config 4: 1,048,576 Kafka requests against 24 rules
@@ -22,22 +31,26 @@ launch counts set to 0 just before it and read just after:
              (DATAPATH_PAIR and FLEET_L7), with a traced idle share.
 
 Every kernel is held bit-exact against its plain PyTorch version at
-the path's shapes, and each L7 path against a host oracle on sampled
-rows.  Exits non-zero on any failure, and without a CUDA device.
+the path's shapes, each L7 path against a host oracle on sampled
+rows, and the churn loop's resident CT snapshot against its host
+mirror.  Exits non-zero on any failure, and without a CUDA device.
 
 The line before the last two is {"kernels": [...]}: per kernel its
 launches on its path, its error against the plain version, its time
 (CUDA events over 20 launches), the plain version's time, and the
 least time the card could take: the bytes this run's data needs read
 and written once at 3.35 TB/s, or its operations at 67 T/s, whichever
-is larger.  `library_ms` is null for all four: no single PyTorch call
-computes the datapath step, a DFA scan, the Kafka rule match or the
-fleet's routed match.  Then the card's name and power limit as
-nvidia-smi prints them, then {"ok": true, "device": {...}}.
+is larger.  `library_ms` is the time of `index_copy_` for CT_DELTA
+and null for the others: no single PyTorch call computes the fused
+datapath steps, the intent compaction, a DFA scan, the Kafka rule
+match or the fleet's routed match.  Then the card's name and power
+limit as nvidia-smi prints them, then {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
 
+import copy
+import dataclasses
 import json
 import subprocess
 import sys
@@ -54,6 +67,9 @@ PERSIST_K = 4  # bench.py's --persist-pairs
 N_PAIRS = 8
 L7_REQUESTS = 1 << 20  # configs 3 and 4 (bench.py --l7-requests: 1,000,000)
 COMBINED_STEPS = 8
+CHURN_BATCH = 1 << 21  # bench.py's seed_batch for the churn passes
+CHECK_SLOTS = 1 << 12  # a claim table small enough to collide
+CHECK_CAP = 1 << 10  # a cap below the winners of CHECK_SLOTS
 ORACLE_ROWS = 512  # bench.py _gate_combined's sample
 
 
@@ -145,6 +161,35 @@ class RowReads(TorchFunctionMode):
         return func(*args, **(kwargs or {}))
 
 
+def table_row_bytes(tables, leaf_names, run):
+    """Bytes of the table rows `run()` (a plain version) gathers: each
+    distinct row (or element) that the flows' hashes select, read once
+    and whole; a leaf read without tensor indices (a stash, the
+    prefilter) counts whole.  Returns (bytes, gathered bytes)."""
+    leaves = [(f"{plane}.{leaf}", getattr(getattr(tables, plane), leaf))
+              for plane, leaf in leaf_names]
+    rec = RowReads(leaves)
+    with rec:
+        run()
+    total = gathered = 0
+    for name, t in leaves:
+        if name in rec.units:
+            unit, idx = rec.units[name]
+            idx = torch.cat(idx)
+            total += unit * int(torch.unique(idx).numel())
+            gathered += unit * idx.numel()
+        else:
+            total += t.numel() * t.element_size()
+    return total, gathered
+
+
+def out_bytes_per_flow(dp) -> int:
+    return sum(
+        torch.empty(0, dtype=dp.VERDICT_DTYPES[c]).element_size()
+        for c in dp.VERDICT_COLUMNS
+    )
+
+
 def needed_bytes(tables, pair, dp, verdict, kernels):
     """Bytes one pair step must move for this pair's data: the flows
     read and the 15 columns written once; each distinct table row that
@@ -154,30 +199,15 @@ def needed_bytes(tables, pair, dp, verdict, kernels):
     17 KB range table); the stashes and the prefilter read whole; each
     counter entry the pair changes read and written; the telemetry
     read and written.  Returns (bytes, row-read bytes per flow)."""
-    leaves = [(f"{plane}.{leaf}", getattr(getattr(tables, plane), leaf))
-              for plane, leaf in kernels.READS]
     acc = verdict.make_counter_buffers(tables.policy)
     tel = verdict.make_telemetry_buffers(acc.device)
-    rec = RowReads(leaves)
-    with rec:
-        dp.datapath_pair_plain(tables, pair, acc, tel)
+    rows_b, gathered = table_row_bytes(
+        tables, kernels.READS,
+        lambda: dp.datapath_pair_plain(tables, pair, acc, tel))
     flows = pair.shape[0] * pair.shape[2]
-    out_b = sum(
-        torch.empty(0, dtype=dp.VERDICT_DTYPES[c]).element_size()
-        for c in dp.VERDICT_COLUMNS
-    )
-    total = pair.numel() * 4 + out_b * flows + 2 * tel.numel() * 4
-    total += 2 * 4 * int(torch.count_nonzero(acc).item())
-    gathered = 0
-    for name, t in leaves:
-        if name in rec.units:
-            unit, idx = rec.units[name]
-            idx = torch.cat(idx)
-            total += unit * int(torch.unique(idx).numel())
-            gathered += unit * idx.numel()
-        else:
-            total += t.numel() * t.element_size()
-    return total, gathered / flows
+    total = pair.numel() * 4 + out_bytes_per_flow(dp) * flows
+    total += 2 * tel.numel() * 4 + 2 * 4 * int(torch.count_nonzero(acc).item())
+    return total + rows_b, gathered / flows
 
 
 def table_leaves(tables):
@@ -199,7 +229,7 @@ def reset_counts(kernels) -> None:
 
 
 def kernel_row(kernel, source, replaces, launches, err, ms, plain_ms,
-               bound_bytes_ms, bound_ops_ms) -> dict:
+               bound_bytes_ms, bound_ops_ms, library_ms=None) -> dict:
     return {
         "name": kernel.name,
         "route": "cuda",
@@ -211,7 +241,7 @@ def kernel_row(kernel, source, replaces, launches, err, ms, plain_ms,
         "plain_ms": plain_ms,
         "bound_ms": max(bound_bytes_ms, bound_ops_ms),
         "bound_by": "bytes" if bound_bytes_ms >= bound_ops_ms else "operations",
-        "library_ms": None,
+        "library_ms": library_ms,
     }
 
 
@@ -622,6 +652,340 @@ def combined_phase(kernels, w, tables, fleet) -> dict:
                       ms, plain_ms, bb, bo)
 
 
+# -- the churn loop (config 5's replay_pool) ------------------------------------
+
+
+class PlainRoute:
+    """Within the block, the churn loop's entry points find the plain
+    versions (run on the card's tensors) where they look up
+    DATAPATH_STEP, CHURN_COMPACT and CT_DELTA; the kernels are put back
+    on exit.  Their launch counts do not move."""
+
+    def __init__(self, kernels):
+        from cilium_tpu_torch import replay as rp
+        from cilium_tpu_torch.ct.device import apply_bucket_delta_plain
+        from cilium_tpu_torch.engine import datapath as dp
+
+        def flows(pool, picks):
+            return dp.flow_batch_from_packed(pool[:, picks.long()])
+
+        self.kernels = kernels
+        self.plain = {
+            "DATAPATH_STEP": lambda tables, pool, picks: dp.datapath_step_plain(
+                tables, flows(pool, picks)),
+            "CHURN_COMPACT": lambda out, pool, picks, valid, cap, slots:
+                rp._churn_compact(out, flows(pool, picks), valid, cap, slots),
+            "CT_DELTA": lambda snap, idx, rows: apply_bucket_delta_plain(
+                snap, idx, rows),
+        }
+
+    def __enter__(self):
+        self.saved = {n: getattr(self.kernels, n) for n in self.plain}
+        for n, f in self.plain.items():
+            setattr(self.kernels, n, f)
+
+    def __exit__(self, *exc):
+        for n, k in self.saved.items():
+            setattr(self.kernels, n, k)
+
+
+def stats_fields(st) -> dict:
+    return {f: getattr(st, f) for f in (
+        "total", "allowed", "denied", "redirected", "batches", "ct_created",
+        "ct_deleted", "rounds", "intents")}
+
+
+def pinned_ct(ct):
+    out = copy.deepcopy(ct)
+    out.now = lambda: 0  # both loops stamp the same lifetimes
+    return out
+
+
+def churn_check(kernels, w, tables) -> dict:
+    """DATAPATH_STEP, CHURN_COMPACT and CT_DELTA against their plain
+    versions at full width, then 2 batches of the loop with kernels and
+    with the plain versions on two copies of the CT.  Returns the
+    inputs the timing phase reuses and the worst error."""
+    from cilium_tpu_torch import replay as rp
+    from cilium_tpu_torch.convert import ct_snapshot_to, flow_pool_to
+    from cilium_tpu_torch.ct.device import (
+        CTBucketIndex,
+        apply_bucket_delta_plain,
+    )
+    from cilium_tpu_torch.engine import datapath as dp
+
+    t = time.perf_counter()
+    pool = flow_pool_to(w.pool, "cuda")
+    gen = torch.Generator(device="cuda").manual_seed(77)
+    picks = torch.randint(0, pool.shape[1], (CHURN_BATCH,), generator=gen,
+                          device="cuda", dtype=torch.int32)
+    out = kernels.DATAPATH_STEP(tables, pool, picks)
+    flows = dp.flow_batch_from_packed(pool[:, picks.long()])
+    plain = dp.datapath_step_plain(tables, flows)
+    err_step = compare((out,), (plain,), dp)
+    valid = CHURN_BATCH - CHURN_BATCH // 128
+    headers, err_compact, intents = {}, 0, None
+    for label, cap, slots in (
+        ("default", rp._CT_INTENT_CAP, rp._CT_CLAIM_SLOTS),
+        ("small_slots", rp._CT_INTENT_CAP, CHECK_SLOTS),
+        ("small_slots_cap", CHECK_CAP, CHECK_SLOTS),
+    ):
+        h, i = kernels.CHURN_COMPACT(out, pool, picks, valid, cap, slots)
+        ph, pi = rp._churn_compact(plain, flows, valid, cap, slots)
+        err_compact = max(err_compact, int_err(h, ph, True),
+                          int_err(i, pi, True))
+        headers[label] = h.cpu().numpy().view(np.uint32).tolist()
+        if intents is None:
+            intents = i
+    # CT_DELTA on the first round's delta of the default compaction
+    ct = copy.deepcopy(w.ct)
+    index = CTBucketIndex(ct)
+    snap = ct_snapshot_to(index.full_snapshot(), "cuda")
+    ref = copy.deepcopy(snap)
+    packed = rp._fetch_intents(intents, headers["default"][0])
+    created, deleted = dp.apply_ct_writeback_host(
+        ct, packed[0].astype(bool), packed[1].astype(bool),
+        *(packed[j] for j in range(2, 10)), orig_daddr=packed[10],
+        orig_dport=packed[11], now=0)
+    idx, rows, _ = index.apply(created, deleted)
+    idx_t = torch.from_numpy(idx).cuda()
+    rows_t = torch.from_numpy(rows.view(np.int32)).cuda()
+    kernels.CT_DELTA(snap, idx_t, rows_t)
+    apply_bucket_delta_plain(ref, idx_t, rows_t)
+    mirror = torch.from_numpy(index.full_snapshot().buckets.view(np.int32))
+    err_delta = max(int_err(snap.buckets, ref.buckets, True),
+                    int_err(snap.buckets.cpu(), mirror, True))
+    phase("churn_check_kernels", t, batch=CHURN_BATCH, valid=valid,
+          step_max_abs_err=err_step, compact_max_abs_err=err_compact,
+          delta_max_abs_err=err_delta, headers=headers,
+          delta_rows=int(idx.size), created=len(created),
+          deleted=len(deleted))
+    if err_step or err_compact or err_delta:
+        raise SystemExit("churn_check: a kernel differs from its plain version")
+    n_def, _, _, rem_def = headers["default"]
+    _, _, _, rem_small = headers["small_slots"]
+    n_cut, _, _, rem_cut = headers["small_slots_cap"]
+    if not (n_def > 0 and rem_small > 0 and n_cut == CHECK_CAP
+            and rem_cut > rem_small):
+        raise SystemExit(f"churn_check: collisions, true losers or the cap "
+                         f"cut did not occur: {headers}")
+
+    # 2 batches of the loop: kernels, then the plain versions
+    t = time.perf_counter()
+    rng = np.random.default_rng(78)
+    picks_np = rng.integers(0, pool.shape[1], 2 * CHURN_BATCH).astype(
+        np.uint32)
+    maps = [pinned_ct(w.ct), pinned_ct(w.ct)]
+    reset_counts(kernels)
+    s_k = rp.replay_pool(tables, dict(w.pool), picks_np, CHURN_BATCH,
+                         ct_map=maps[0], device="cuda")
+    launched = {k.name: k.launches for k in kernels.KERNELS}
+    with PlainRoute(kernels):
+        s_p = rp.replay_pool(tables, dict(w.pool), picks_np, CHURN_BATCH,
+                             ct_map=maps[1], device="cuda")
+    torch.cuda.synchronize()
+    snaps = [m._device_churn_cache[1] for m in maps]
+    same = (
+        stats_fields(s_k) == stats_fields(s_p)
+        and list(maps[0].entries) == list(maps[1].entries)
+        and maps[0].entries == maps[1].entries
+        and torch.equal(snaps[0].buckets, snaps[1].buckets)
+        and torch.equal(snaps[0].stash, snaps[1].stash)
+    )
+    phase("churn_check_loop", t, batches=2, stats=stats_fields(s_k),
+          launches=launched, ct_entries=len(maps[0].entries),
+          equal_to_plain=same)
+    step_n = launched[kernels.DATAPATH_STEP.name]
+    if not same or step_n != s_k.rounds or launched[
+            kernels.CHURN_COMPACT.name] != s_k.rounds or not launched[
+            kernels.CT_DELTA.name]:
+        raise SystemExit("churn_check: the loop on the kernels differs from "
+                         "the plain loop, or a kernel did not launch")
+    return dict(pool=pool, picks=picks, out=out, flows=flows, plain=plain,
+                valid=valid, snap=snap, idx=idx_t, rows=rows_t,
+                err=max(err_step, err_compact, err_delta))
+
+
+def churn_phase(kernels, w, tables) -> dict:
+    """Bench's shape: a seed pass of 2 x 2,097,152 int picks, then the
+    timed pass of 4 x 2,097,152 on the same CT; the launch counts cover
+    both.  Ends with the resident snapshot against the host mirror."""
+    from cilium_tpu_torch import replay as rp
+
+    t = time.perf_counter()
+    ct = copy.deepcopy(w.ct)
+    pool = dict(w.pool)
+    before = len(ct.entries)
+    reset_counts(kernels)
+    seed = rp.replay_pool(tables, pool, 2 * CHURN_BATCH, CHURN_BATCH,
+                          ct_map=ct)
+    timed = rp.replay_pool(tables, pool, 4 * CHURN_BATCH, CHURN_BATCH,
+                           ct_map=ct)
+    torch.cuda.synchronize()
+    counts = {k.name: k.launches for k in kernels.KERNELS}
+    index, snap, _ = ct._device_churn_cache
+    full = index.full_snapshot()
+    mirror_err = max(
+        int_err(snap.buckets.cpu(), torch.from_numpy(
+            full.buckets.view(np.int32)), True),
+        int_err(snap.stash.cpu(), torch.from_numpy(
+            full.stash.view(np.int32)), True),
+    )
+    for name, st in (("seed", seed), ("timed", timed)):
+        print(f"  churn {name} " + json.dumps(dict(
+            stats_fields(st), reruns=st.reruns, seconds=st.seconds,
+            fold_seconds=st.fold_seconds,
+            tuples_per_s=st.verdicts_per_sec)), flush=True)
+    rounds = seed.rounds + timed.rounds
+    phase("churn", t, tuples_per_s=round(timed.verdicts_per_sec),
+          seconds=round(timed.seconds, 6),
+          ct_created=seed.ct_created + timed.ct_created,
+          ct_deleted=seed.ct_deleted + timed.ct_deleted,
+          ct_entries_before=before, ct_entries_after=len(ct.entries),
+          insert_failures=ct.insert_failures, rounds=rounds,
+          reruns=seed.reruns + timed.reruns, launches=counts,
+          snapshot_vs_mirror_err=mirror_err)
+    others = [k.name for k in kernels.KERNELS if k.launches and k not in (
+        kernels.DATAPATH_STEP, kernels.CHURN_COMPACT, kernels.CT_DELTA)]
+    if (counts[kernels.DATAPATH_STEP.name] != rounds
+            or counts[kernels.CHURN_COMPACT.name] != rounds
+            or not counts[kernels.CT_DELTA.name] or others):
+        raise SystemExit(f"churn: launches {counts} for {rounds} rounds")
+    if mirror_err or timed.total != 4 * CHURN_BATCH:
+        raise SystemExit("churn: the snapshot differs from the host mirror")
+    return dict(ct=ct, pool=pool, counts=counts, timed=timed)
+
+
+def churn_trace(tables, run) -> None:
+    """torch.profiler over one pass of 4 batches on the churned CT."""
+    from cilium_tpu_torch import replay as rp
+
+    t = time.perf_counter()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=acts) as prof:
+        t1 = time.perf_counter()
+        st = rp.replay_pool(tables, run["pool"], 4 * CHURN_BATCH,
+                            CHURN_BATCH, ct_map=run["ct"])
+        torch.cuda.synchronize()
+        traced_ms = (time.perf_counter() - t1) * 1e3
+    busy = device_busy(prof)
+    busy_ms = sum(busy.values())
+    for key, ms in sorted(busy.items(), key=lambda kv: -kv[1])[:8]:
+        print(f"  device {ms:.3f} ms  {key[:90]}", flush=True)
+    # the profiler slows the host's side of every round; the timed pass
+    # ran the same work (4 batches, same CT) untraced
+    untraced_ms = run["timed"].seconds * 1e3
+    phase("churn_trace", t, batches=4, rounds=st.rounds,
+          intents=st.intents, wall_ms=round(traced_ms, 3),
+          device_busy_ms=round(busy_ms, 3),
+          device_idle_share=round(1 - busy_ms / traced_ms, 4),
+          untraced_wall_ms=round(untraced_ms, 3),
+          untraced_idle_share=round(1 - busy_ms / untraced_ms, 4),
+          fold_host_s=round(st.fold_seconds, 6))
+
+
+def churn_timing(kernels, tables, chk, counts) -> list:
+    """Each churn kernel alone at full width: CUDA events over 20 warm
+    launches, its plain version, its bound (the bytes this run's data
+    needs, each read or written once, at 3.35 TB/s), and for CT_DELTA
+    the one PyTorch call that computes the same function."""
+    from cilium_tpu_torch import replay as rp
+    from cilium_tpu_torch.ct.device import apply_bucket_delta_plain
+    from cilium_tpu_torch.engine import datapath as dp
+
+    t = time.perf_counter()
+    pool, picks, out, flows = chk["pool"], chk["picks"], chk["out"], \
+        chk["flows"]
+    b = int(picks.numel())
+    # DATAPATH_STEP: picks and columns streamed, each distinct pool row
+    # and table row read once
+    step_ms = event_ms(lambda: kernels.DATAPATH_STEP(tables, pool, picks), 20)
+    step_plain = event_ms(lambda: dp.datapath_step_plain(
+        tables, dp.flow_batch_from_packed(pool[:, picks.long()])), 3)
+    rows_b, gathered = table_row_bytes(
+        tables, kernels.READS + (("policy", "id_table"),),
+        lambda: dp.datapath_step_plain(tables, flows))
+    distinct = int(torch.unique(picks).numel())
+    step_bytes = b * (4 + out_bytes_per_flow(dp)) + distinct * 32 + rows_b
+    # integer operations, counted low as for the pair: 16 per hashed word
+    # and 4 per row lane compared; a flow that is not ingress adds the LB
+    # and service-scope probes
+    pol, ipc, ct = tables.policy, tables.ipcache, tables.ct
+    ct_e = ct.buckets.shape[1] // ct.entry_words
+    l4_e = pol.l4_hash_rows.shape[1] // pol.l4_hash_stash.shape[1]
+    per_flow = 16 * 9 + 4 * (ct_e + (ipc.bucket_entries or 32) + 2 * l4_e)
+    not_in = int((flows.direction != 0).sum())
+    step_ops = per_flow * b + (16 * 6 + 4 * (ct_e + 2)) * not_in
+    # CHURN_COMPACT: every row's flags, allowed byte and proxy port; a
+    # flagged row's final address and port, pick and pool words; a
+    # winner's rev_nat and slave; the intents and header written
+    valid = chk["valid"]
+    compact_ms = event_ms(lambda: kernels.CHURN_COMPACT(
+        out, pool, picks, valid, rp._CT_INTENT_CAP, rp._CT_CLAIM_SLOTS), 20)
+    compact_plain = event_ms(lambda: rp._churn_compact(
+        chk["plain"], flows, valid), 3)
+    in_valid = torch.arange(b, device="cuda") < valid
+    flag = (out.ct_create | out.ct_delete) & in_valid
+    header, _ = kernels.CHURN_COMPACT(out, pool, picks, valid,
+                                      rp._CT_INTENT_CAP, rp._CT_CLAIM_SLOTS)
+    n_flag = int(flag.sum())
+    winners = int(header[0])
+    flag_rows = int(torch.unique(picks[flag]).numel())
+    compact_bytes = (7 * b + 12 * n_flag + 24 * flag_rows + 8 * winners
+                     + 12 * 4 * rp._CT_INTENT_CAP + 16)
+    compact_ops = 4 * b + 16 * 4 * n_flag  # flag tests; 4 hashed words
+    # CT_DELTA: the first round's padded delta (its pow2 padding repeats
+    # the first changed bucket with the same row); index_copy_ the
+    # yardstick.  The function needs the M indices and each distinct
+    # bucket's row read and written once.
+    snap, idx, rows = chk["snap"], chk["idx"], chk["rows"]
+    idx64 = idx.long()
+    delta_ms = event_ms(lambda: kernels.CT_DELTA(snap, idx, rows), 20)
+    delta_plain = event_ms(lambda: apply_bucket_delta_plain(snap, idx, rows),
+                           20)
+    library_ms = event_ms(lambda: snap.buckets.index_copy_(0, idx64, rows),
+                          20)
+    m = int(idx.numel())
+    m_distinct = int(torch.unique(idx).numel())
+    delta_bytes = m * 4 + 2 * m_distinct * rows.shape[1] * 4
+    bounds = {name: nb / HBM_BYTES_PER_S * 1e3 for name, nb in (
+        ("step", step_bytes), ("compact", compact_bytes),
+        ("delta", delta_bytes))}
+    bounds_ops = {name: n / OPS_PER_S * 1e3 for name, n in (
+        ("step", step_ops), ("compact", compact_ops))}
+    phase("churn_timing", t, step_ms=round(step_ms, 4),
+          step_plain_ms=round(step_plain, 4), step_bytes=step_bytes,
+          step_row_bytes_per_flow=round(gathered / b, 2),
+          compact_ms=round(compact_ms, 4),
+          compact_plain_ms=round(compact_plain, 4),
+          compact_bytes=compact_bytes, flagged=n_flag, winners=winners,
+          delta_ms=round(delta_ms, 4), delta_plain_ms=round(delta_plain, 4),
+          delta_library_ms=round(library_ms, 4), delta_rows=m,
+          delta_rows_distinct=m_distinct,
+          delta_bytes=delta_bytes, step_ops=step_ops,
+          compact_ops=compact_ops,
+          bound_bytes_ms={k: round(v, 4) for k, v in bounds.items()},
+          bound_ops_ms={k: round(v, 4) for k, v in bounds_ops.items()})
+    err = chk["err"]
+    src = "cilium_tpu_torch/csrc/"
+    return [
+        kernel_row(kernels.DATAPATH_STEP, src + "datapath.cu",
+                   "cilium_tpu/engine/datapath.py:604",
+                   counts[kernels.DATAPATH_STEP.name], err, step_ms,
+                   step_plain, bounds["step"], bounds_ops["step"]),
+        kernel_row(kernels.CHURN_COMPACT, src + "churn.cu",
+                   "cilium_tpu/replay.py:65",
+                   counts[kernels.CHURN_COMPACT.name], err, compact_ms,
+                   compact_plain, bounds["compact"], bounds_ops["compact"]),
+        kernel_row(kernels.CT_DELTA, src + "churn.cu",
+                   "cilium_tpu/ct/device.py:536",
+                   counts[kernels.CT_DELTA.name], err, delta_ms, delta_plain,
+                   bounds["delta"], 0.0, library_ms),
+    ]
+
+
 def device_busy(prof) -> dict:
     """Device time per kernel or copy from a profiler run, each once (a
     host op such as aten::copy_ also reports its copy's device time)
@@ -673,6 +1037,10 @@ def main() -> int:
     wide = w.host_tables()
     fleet = world.l7_fleet(w, wide.policy)
     host = world.headline_tables(w, wide)
+    # the wide layouts (3-word L4, 5-word CT, u32 ipcache planes), hot
+    # plane only: the churn loop's tables
+    wide_t = tables_to(
+        dataclasses.replace(wide, policy=split_hot(wide.policy)), "cuda")
     del wide
     tables = tables_to(host, "cuda")
     total = 0
@@ -836,22 +1204,41 @@ def main() -> int:
           kernel_ms_per_pair=round(kernel_ms, 4),
           kernel_verdicts_per_s=round(b2 / (kernel_ms / 1e3)))
 
+    # -- the pair kernel on the wide layouts: one full pair, exact
+    t = time.perf_counter()
+    err_wide = check_pairs(wide_t, full, kernels, dp, verdict)
+    phase("wide_pair_check", t, half=HALF, max_abs_err=err_wide,
+          ct_entry_words=wide_t.ct.entry_words,
+          l4_entry_words=int(wide_t.policy.l4_hash_stash.shape[1]),
+          ipcache_value_width=wide_t.ipcache.value_width)
+    if err_wide != 0:
+        raise SystemExit("kernel differs from the plain version (wide pair)")
+
     rows = [kernel_row(
         kernels.DATAPATH_PAIR, "cilium_tpu_torch/csrc/datapath.cu",
         "cilium_tpu/engine/datapath.py:801", launches,
-        max(err_full, err_small, err_stash, err_main), kernel_ms, plain_ms,
-        bound_bytes_ms, bound_ops_ms,
+        max(err_full, err_small, err_stash, err_main, err_wide), kernel_ms,
+        plain_ms, bound_bytes_ms, bound_ops_ms,
     )]
     del pairs, results, full, disp, disp_t
+    torch.cuda.empty_cache()
+
+    # -- the churn loop: checks, bench's passes, trace, kernel timings
+    chk = churn_check(kernels, w, wide_t)
+    run = churn_phase(kernels, w, wide_t)
+    churn_trace(wide_t, run)
+    rows.extend(churn_timing(kernels, wide_t, chk, run["counts"]))
+    del chk, run
     torch.cuda.empty_cache()
 
     rows.append(l7_http_phase(kernels))
     rows.append(l7_kafka_phase(kernels))
     rows.append(combined_phase(kernels, w, tables, fleet))
 
-    print("[library] library_ms is null for every kernel: no single "
-          "PyTorch call computes the fused datapath step, a DFA scan, the "
-          "Kafka rule match or the fleet's routed match", flush=True)
+    print("[library] library_ms is null except for ct_delta "
+          "(index_copy_): no single PyTorch call computes the fused "
+          "datapath steps, the intent compaction, a DFA scan, the Kafka "
+          "rule match or the fleet's routed match", flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -109,6 +109,37 @@ def tables_from_numpy(leaves: dict, device=None) -> DatapathTables:
     return tables_to(DatapathTables(**planes), device)
 
 
+def ct_snapshot_to(snapshot: CTSnapshot, device=None) -> CTSnapshot:
+    """A CT snapshot (numpy buckets and stash) -> the same snapshot on
+    `device` (None = the card)."""
+    return _plane_to(snapshot, resolve_device(device))
+
+
+def ct_snapshot_from_numpy(leaves: dict, device=None) -> CTSnapshot:
+    """The port's CTSnapshot on `device` (None = the card) from the
+    leaves of a snapshot built elsewhere: {buckets: u32 [Cb, lanes],
+    stash: u32 [S, 5], n_buckets, entry_words (default 5)}."""
+    for name in ("buckets", "stash"):
+        _check_host_value(f"ct.{name}", leaves[name])
+    snap = CTSnapshot(
+        buckets=np.asarray(leaves["buckets"], np.uint32),
+        stash=np.asarray(leaves["stash"], np.uint32),
+        n_buckets=int(leaves["n_buckets"]),
+        entry_words=int(leaves.get("entry_words", 5)),
+    )
+    return ct_snapshot_to(snap, device)
+
+
+def flow_pool_to(pool: dict, device=None) -> torch.Tensor:
+    """A flow pool's numpy columns -> its [8, P] pack (FLOW_COLUMNS
+    order, u32 bits in int32) on `device` (None = the card): the state
+    `replay.replay_pool` uploads, for handing the same pool to two
+    loops."""
+    from cilium_tpu_torch.replay import pack_flow_pool
+
+    return u32_tensor(pack_flow_pool(pool), resolve_device(device))
+
+
 # ---------------------------------------------------------------------------
 # L7 tables (l7/http.py, l7/kafka.py, l7/fleet.py)
 # ---------------------------------------------------------------------------

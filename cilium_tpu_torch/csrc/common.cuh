@@ -12,12 +12,14 @@ namespace cdp {
 // Structure's order in kernels.py; datapath_args_size() lets the
 // wrapper check that the two agree.
 struct DatapathArgs {
-  // flows: [2, 4, B] packed4 words, half 0 ingress, half 1 egress
+  // flows of the pair step: [2, 4, B] packed4 words, half 0 ingress,
+  // half 1 egress (unused by the single-batch step, see pool below)
   const uint32_t* pair;
   // prefilter ranges [pf_n]
   const uint32_t* pf_base;
   const uint32_t* pf_mask;
-  // conntrack: compact bucket rows [ct_nb, ct_lanes], 5-word stash
+  // conntrack: bucket rows [ct_nb, ct_lanes] of ct_ew-word entries,
+  // 5-word stash
   const uint32_t* ct_buckets;
   const uint32_t* ct_stash;
   // LB inline rows [lb_nb, 128] and 64-lane stash slots
@@ -27,13 +29,14 @@ struct DatapathArgs {
   const uint32_t* ipc_buckets;
   const uint32_t* ipc_stash;
   const uint32_t* ipc_range_rows;
-  // policy: compact hashed L4 tables and the l4_meta plane [E, 2, Kg]
+  // policy: hashed L4 tables of l4_ew-word entries and the l4_meta
+  // plane [E, 2, Kg]
   const uint32_t* l4_rows;
   const uint32_t* l4_stash;
   const uint32_t* l4w_rows;
   const uint32_t* l4w_stash;
   const uint32_t* l4_meta;
-  // outputs, each [2, B]
+  // outputs, each [2, B] (pair) or [B] (single batch)
   uint8_t* allowed;
   int32_t* proxy_port;
   uint8_t* match_kind;
@@ -85,6 +88,16 @@ struct DatapathArgs {
   uint32_t world_plus1;
   uint32_t world_l3_in;
   uint32_t world_l3_out;
+  // the single-batch step: flows are pool[:, picks[i]] of an [8, pool_n]
+  // pool (FLOW_COLUMNS order), sec_id = id_table[idx]
+  const uint32_t* pool;
+  const uint32_t* picks;
+  const uint32_t* id_table;
+  int32_t pool_n;
+  // entry words of the CT rows (4 compact, 5 wide) and of the hashed L4
+  // entries (2 compact, 3 wide)
+  int32_t ct_ew;
+  int32_t l4_ew;
 };
 
 constexpr uint32_t FNV_OFFSET = 2166136261u;

@@ -1,8 +1,15 @@
-// Conntrack stage (ct/device.py ct_fetch_rows + ct_probe_rows) over the
-// compact 4-word bucket rows: planar lo addr | hi addr | ports |
-// w3c = state16 << 16 | rev_nat8 << 8 | slave8, 16 entries per 64-lane
-// row, plus the 5-word stash.  Every matching lane is summed, as the
-// reference's masked sums are; the probe never stops at a first hit.
+// Conntrack stage (ct/device.py ct_fetch_rows + ct_probe_rows) over
+// either bucket-row layout, planar (word k of entry i at lane k * E + i):
+//   wide, 5 words (JAX ct/device.py:659-767): lo addr | hi addr | ports |
+//     w3 = proto << 8 | swapped << 7 | flags | w4 = rev_nat << 16 | slave,
+//     25 entries per 128-lane row (lanes 125-127 unused), empty lanes
+//     w3 = 0xFFFFFFFF, which no probe key equals;
+//   compact, 4 words: lo addr | hi addr | ports |
+//     w3c = state16 << 16 | rev_nat8 << 8 | slave8, 16 entries per 64
+//     lanes, empty lanes state16 = 0xFFFF;
+// plus the 5-word stash (its pow2 prefix, one row or more).  Every
+// matching lane is summed, as the reference's masked sums are; the probe
+// never stops at a first hit.
 #pragma once
 
 #include "common.cuh"
@@ -71,13 +78,20 @@ __device__ __forceinline__ CTResult ct_probe(const DatapathArgs& a,
 
   bool ff = false, rf = false;
   uint32_t fv = 0, rv = 0;
-  const int ne = a.ct_lanes / 4;
+  const bool wide = a.ct_ew == 5;
+  const int ne = a.ct_lanes / a.ct_ew;
   for (int e = 0; e < ne; ++e) {
     if (__ldg(row + e) == k.lo_a && __ldg(row + ne + e) == k.hi_a &&
         __ldg(row + 2 * ne + e) == k.ports) {
-      const uint32_t w3c = __ldg(row + 3 * ne + e);
-      const uint32_t w3 = w3c >> 16;
-      const uint32_t val = (((w3c >> 8) & 0xFFu) << 16) | (w3c & 0xFFu);
+      const uint32_t w3p = __ldg(row + 3 * ne + e);
+      uint32_t w3, val;
+      if (wide) {
+        w3 = w3p;
+        val = __ldg(row + 4 * ne + e);
+      } else {
+        w3 = w3p >> 16;
+        val = (((w3p >> 8) & 0xFFu) << 16) | (w3p & 0xFFu);
+      }
       if (w3 == w3_fwd) { ff = true; fv += val; }
       if (w3 == w3_rev) { rf = true; rv += val; }
     }

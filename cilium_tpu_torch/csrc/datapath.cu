@@ -1,10 +1,16 @@
-// The fused IPv4 datapath pair step, one CUDA kernel for Hopper (sm_90a).
+// The fused IPv4 datapath, two CUDA kernels for Hopper (sm_90a).
 //
-// Replaces the JAX package's jitted device program
+// DATAPATH_PAIR replaces the JAX package's jitted device program
 // `datapath_step_accum_pair_telem_packed4_stacked`
-// (cilium_tpu/engine/datapath.py: `_datapath_core` run once per
-// direction-specialized half), with its stages fused in:
+// (cilium_tpu/engine/datapath.py:801: `_datapath_core` run once per
+// direction-specialized half, with counters and telemetry).
+// DATAPATH_STEP replaces the single-batch form `datapath_step`
+// (cilium_tpu/engine/datapath.py:604, `_datapath_core` with
+// static_direction=None and emit_sec_id), as the churn program
+// (cilium_tpu/replay.py:192 `_churn_fns`) runs it over a pool gather.
+// Both fuse the stages:
 //   packed4 unpack      flow_batch_from_packed4       (engine/datapath.py)
+//   pool gather         flow_batch_from_packed        (engine/datapath.py)
 //   FNV-1a              fnv1a_device                  (engine/hashtable.py)
 //   sub-word unpack     unpack_lanes                  (engine/subword.py)
 //   prefilter           prefilter_drop                (prefilter.py)
@@ -12,21 +18,30 @@
 //   load balancer       lb_select_batch, inline       (lb/device.py)
 //   ipcache             ipcache_lookup_fused          (ipcache/lpm.py)
 //   lattice + combine   _probes, _combine             (engine/verdict.py)
-//   counters            _counter_cols + the merged scatter-add
-//   telemetry           telemetry_masks + the per-direction sums
+//   counters            _counter_cols + the merged scatter-add (pair)
+//   telemetry           telemetry_masks + the per-direction sums (pair)
+// over either table layout: compact (2-word L4 entries, 4-word CT rows,
+// sub-word ipcache planes) or wide (3-word L4 entries, 5-word 128-lane
+// CT rows, u32 ipcache planes).
 //
-// Shape: one thread per flow, grid (ceil(B / 256), 2); blockIdx.y is the
-// half (0 ingress, 1 egress), so a block never straddles the halves and
-// the telemetry row is the block's.  The ingress half runs no LB and no
-// service-scope CT probe.  The CT probe direction, the lattice direction
-// and the counter row use each flow's own direction bit.
+// Shape: one thread per flow.  The pair kernel's grid is
+// (ceil(B / 256), 2); blockIdx.y is the half (0 ingress, 1 egress), so a
+// block never straddles the halves and the telemetry row is the block's.
+// The step kernel's grid is ceil(B / 256) and each flow takes its own
+// direction word: an ingress flow (direction 0) runs no LB, any other
+// word goes through the service probe and LB.  The CT probe direction,
+// the lattice direction and the counter row use each flow's own
+// direction.
 //
 // What bounds it on an H100: random row reads.  Per flow, at the config-5
-// layouts, the thread reads one 256-byte CT row, one 256-byte ipcache row,
+// compact layouts (the wide ones read about twice the bytes), the thread
+// reads one 256-byte CT row, one 256-byte ipcache row,
 // up to three 136-byte range-class rows (only on an exact miss), two
 // 128-byte L4 rows, on egress part of one 512-byte LB row, and one
 // l4_meta word: about 1 KB gathered from tables of tens of megabytes, of
-// which 16 B of flow input and 39 B of output are streamed.  The tables
+// which 16 B of flow input and 39 B of output are streamed (the step
+// kernel streams a 4 B pick and 39 B of output, and gathers its flow's
+// 32 B of words from the pool, 1.6 MB at config 5).  The tables
 // mostly fit the 50 MB L2, so the kernel is bound by L2/DRAM sector
 // traffic of dependent gathers, not by arithmetic.  This first version
 // does the simple thing: each thread walks its own rows' lanes with
@@ -52,6 +67,94 @@ namespace cdp {
 constexpr int BLOCK = 256;
 constexpr int TELEM_COLS = 20;
 
+struct FlowOut {
+  bool pre, miss, allowed, ct_create, ct_delete;
+  uint32_t eff_daddr, eff_dport, idx;
+  int32_t rev_nat, lb_slave, proxy;
+  CTResult ct;
+  Lattice v;
+};
+
+// One flow through every stage.  `ingress` is the flow's side: an
+// ingress flow runs no service-scope CT probe and no LB (for the pair
+// step that is its half, for the single-batch step its own direction
+// == 0; skipping the LB of an ingress row gives what the reference's
+// masked LB gives it).  `dir` is the direction word the CT probe and
+// the lattice read.
+__device__ __forceinline__ FlowOut fused_flow(const DatapathArgs& a,
+                                              uint32_t saddr, uint32_t daddr,
+                                              uint32_t sport, uint32_t dport,
+                                              uint32_t proto, uint32_t ep,
+                                              uint32_t dir, bool frag,
+                                              bool ingress) {
+  FlowOut o;
+  // -- prefilter, then ONE conntrack row for both probes
+  o.pre = prefilter_drop(a, saddr);
+  const uint32_t* ct_row = ct_fetch_row(a, daddr, saddr, dport, sport, proto);
+  o.eff_daddr = daddr;
+  o.eff_dport = dport;
+  o.rev_nat = 0;
+  o.lb_slave = 0;
+  if (!ingress) {
+    const CTResult svc = ct_probe(a, ct_row, daddr, saddr, dport, sport,
+                                  proto, CT_DIR_SERVICE);
+    const LBResult lb =
+        lb_select(a, saddr, daddr, sport, dport, proto, svc.slave);
+    if (lb.found) {
+      o.eff_daddr = lb.daddr;
+      o.eff_dport = lb.dport;
+      o.rev_nat = lb.rev_nat;
+      o.lb_slave = lb.slave;
+    }
+  }
+  o.ct = ct_probe(a, ct_row, o.eff_daddr, saddr, o.eff_dport, sport, proto,
+                  dir);
+
+  // -- identity: the peer's ipcache entry, WORLD on a miss
+  const IPCResult ipc =
+      ipcache_lookup(a, ingress ? saddr : o.eff_daddr, ingress);
+  o.miss = ipc.value == 0;
+  const uint32_t vp = o.miss ? a.world_plus1 : ipc.value;
+  const bool known = vp != 0 && vp != UNKNOWN_IDX;
+  o.idx = known ? vp - 1 : static_cast<uint32_t>(a.n_ids - 1);
+  const uint32_t l3w =
+      o.miss ? (ingress ? a.world_l3_in : a.world_l3_out) : ipc.l3;
+  const bool l3_bit = ep < 32 && ((l3w >> ep) & 1u);
+
+  // -- lattice and combine
+  o.v = lattice(a, ep, dir, o.eff_dport, proto, o.idx, known, l3_bit, frag);
+  const bool pass_ct = o.ct.result == CT_REPLY;  // RELATED is never probed
+  o.allowed = !o.pre && (pass_ct || o.v.allowed);
+  o.ct_delete =
+      o.ct.result == CT_ESTABLISHED && !o.v.allowed && !pass_ct && !o.pre;
+  o.ct_create = o.ct.result == CT_NEW && o.allowed;
+  o.proxy = (o.v.allowed &&
+             (o.ct.result == CT_NEW || o.ct.result == CT_ESTABLISHED) &&
+             o.allowed)
+                ? o.v.proxy
+                : 0;
+  return o;
+}
+
+__device__ __forceinline__ void write_flow(const DatapathArgs& a, size_t o,
+                                           const FlowOut& f, uint32_t sec_id) {
+  a.allowed[o] = f.allowed;
+  a.proxy_port[o] = f.proxy;
+  a.match_kind[o] = static_cast<uint8_t>(f.v.kind);
+  a.ct_result[o] = static_cast<uint8_t>(f.ct.result);
+  a.pre_dropped[o] = f.pre;
+  a.sec_id[o] = sec_id;
+  a.final_daddr[o] = f.eff_daddr;
+  a.final_dport[o] = static_cast<int32_t>(f.eff_dport);
+  a.rev_nat[o] = f.rev_nat;
+  a.lb_slave[o] = f.lb_slave;
+  a.ct_create[o] = f.ct_create;
+  a.ct_delete[o] = f.ct_delete;
+  a.tunnel_endpoint[o] = 0u;
+  a.l4_slot[o] = f.v.j;
+  a.ipcache_miss[o] = f.miss;
+}
+
 __global__ void __launch_bounds__(BLOCK)
     datapath_pair_kernel(const DatapathArgs a) {
   const int half = blockIdx.y;
@@ -66,107 +169,50 @@ __global__ void __launch_bounds__(BLOCK)
     const uint32_t daddr = __ldg(p + a.B + i);
     const uint32_t w2 = __ldg(p + 2 * a.B + i);
     const uint32_t w3 = __ldg(p + 3 * a.B + i);
-    const uint32_t sport = w2 >> 16, dport = w2 & 0xFFFFu;
-    const uint32_t ep = w3 >> 16, proto = (w3 >> 8) & 0xFFu;
+    const uint32_t ep = w3 >> 16;
     const uint32_t dir = (w3 >> 1) & 1u;
-    const bool frag = (w3 & 1u) != 0;
-
-    // -- prefilter, then ONE conntrack row for both probes
-    const bool pre = prefilter_drop(a, saddr);
-    const uint32_t* ct_row = ct_fetch_row(a, daddr, saddr, dport, sport, proto);
-    uint32_t eff_daddr = daddr, eff_dport = dport;
-    int32_t rev_nat = 0, lb_slave = 0;
-    if (!ingress) {
-      const CTResult svc = ct_probe(a, ct_row, daddr, saddr, dport, sport,
-                                    proto, CT_DIR_SERVICE);
-      const LBResult lb =
-          lb_select(a, saddr, daddr, sport, dport, proto, svc.slave);
-      if (lb.found) {
-        eff_daddr = lb.daddr;
-        eff_dport = lb.dport;
-        rev_nat = lb.rev_nat;
-        lb_slave = lb.slave;
-      }
-    }
-    const CTResult ct =
-        ct_probe(a, ct_row, eff_daddr, saddr, eff_dport, sport, proto, dir);
-
-    // -- identity: the peer's ipcache entry, WORLD on a miss
-    const IPCResult ipc = ipcache_lookup(a, ingress ? saddr : eff_daddr, ingress);
-    const bool miss = ipc.value == 0;
-    const uint32_t vp = miss ? a.world_plus1 : ipc.value;
-    const bool known = vp != 0 && vp != UNKNOWN_IDX;
-    const uint32_t idx = known ? vp - 1 : static_cast<uint32_t>(a.n_ids - 1);
-    const uint32_t l3w =
-        miss ? (ingress ? a.world_l3_in : a.world_l3_out) : ipc.l3;
-    const bool l3_bit = ep < 32 && ((l3w >> ep) & 1u);
-
-    // -- lattice and combine
-    const Lattice v =
-        lattice(a, ep, dir, eff_dport, proto, idx, known, l3_bit, frag);
-    const bool pass_ct = ct.result == CT_REPLY;  // RELATED is never probed
-    const bool allowed = !pre && (pass_ct || v.allowed);
-    const bool ct_delete =
-        ct.result == CT_ESTABLISHED && !v.allowed && !pass_ct && !pre;
-    const bool ct_create = ct.result == CT_NEW && allowed;
-    const int32_t proxy =
-        (v.allowed && (ct.result == CT_NEW || ct.result == CT_ESTABLISHED) &&
-         allowed)
-            ? v.proxy
-            : 0;
+    const FlowOut f = fused_flow(a, saddr, daddr, w2 >> 16, w2 & 0xFFFFu,
+                                 (w3 >> 8) & 0xFFu, ep, dir, (w3 & 1u) != 0,
+                                 ingress);
 
     // -- counters: L4 hits at slot j, L3 hits at column kg + idx; an
     // out-of-range index drops its update, as an XLA scatter does
-    const bool hit_l4 = v.kind == MATCH_L4 || v.kind == MATCH_L4_WILD;
-    if (hit_l4 || v.kind == MATCH_L3) {
+    const uint32_t kind = f.v.kind;
+    const bool hit_l4 = kind == MATCH_L4 || kind == MATCH_L4_WILD;
+    if (hit_l4 || kind == MATCH_L3) {
       const int cols = a.kg + a.n_ids;
-      const int col = hit_l4 ? v.j : a.kg + static_cast<int32_t>(idx);
+      const int col = hit_l4 ? f.v.j : a.kg + static_cast<int32_t>(f.idx);
       if (ep < static_cast<uint32_t>(a.n_eps) && col >= 0 && col < cols)
         atomicAdd(a.acc + (static_cast<size_t>(ep) * 2 + dir) * cols + col, 1u);
     }
 
-    // -- outputs
-    const size_t o = static_cast<size_t>(half) * a.B + i;
-    a.allowed[o] = allowed;
-    a.proxy_port[o] = proxy;
-    a.match_kind[o] = static_cast<uint8_t>(v.kind);
-    a.ct_result[o] = static_cast<uint8_t>(ct.result);
-    a.pre_dropped[o] = pre;
-    a.sec_id[o] = idx;
-    a.final_daddr[o] = eff_daddr;
-    a.final_dport[o] = static_cast<int32_t>(eff_dport);
-    a.rev_nat[o] = rev_nat;
-    a.lb_slave[o] = lb_slave;
-    a.ct_create[o] = ct_create;
-    a.ct_delete[o] = ct_delete;
-    a.tunnel_endpoint[o] = 0u;
-    a.l4_slot[o] = v.j;
-    a.ipcache_miss[o] = miss;
+    // -- outputs: sec_id is the raw lattice index in the pair form
+    write_flow(a, static_cast<size_t>(half) * a.B + i, f, f.idx);
 
     // -- telemetry masks (engine/verdict.py telemetry_masks, in order)
-    const bool post = !allowed && !pre;
-    const bool pol_allow = v.allowed;
+    const bool post = !f.allowed && !f.pre;
+    const bool pass_ct = f.ct.result == CT_REPLY;
     const bool m[TELEM_COLS] = {
         true,
-        allowed,
-        !allowed,
-        pre,
-        post && v.kind == MATCH_NONE,
-        post && v.kind == MATCH_FRAG_DROP,
-        v.kind == MATCH_L4,
-        v.kind == MATCH_L3,
-        v.kind == MATCH_L4_WILD,
-        v.kind == MATCH_NONE,
-        v.kind == MATCH_FRAG_DROP,
-        lb_slave > 0,
-        ct.result == CT_NEW,
-        ct.result == CT_ESTABLISHED,
-        ct.result == CT_REPLY,
+        f.allowed,
+        !f.allowed,
+        f.pre,
+        post && kind == MATCH_NONE,
+        post && kind == MATCH_FRAG_DROP,
+        kind == MATCH_L4,
+        kind == MATCH_L3,
+        kind == MATCH_L4_WILD,
+        kind == MATCH_NONE,
+        kind == MATCH_FRAG_DROP,
+        f.lb_slave > 0,
+        f.ct.result == CT_NEW,
+        f.ct.result == CT_ESTABLISHED,
+        f.ct.result == CT_REPLY,
         false,  // CT_RELATED: the pair path never probes RELATED keys
-        pass_ct && !pol_allow && !pre,
-        ct_delete,
-        miss,
-        proxy > 0 && allowed,
+        pass_ct && !f.v.allowed && !f.pre,
+        f.ct_delete,
+        f.miss,
+        f.proxy > 0 && f.allowed,
     };
 #pragma unroll
     for (int c = 0; c < TELEM_COLS; ++c) tmask |= m[c] ? (1u << c) : 0u;
@@ -188,6 +234,26 @@ __global__ void __launch_bounds__(BLOCK)
     atomicAdd(a.telem + half * TELEM_COLS + threadIdx.x, s_tel[threadIdx.x]);
 }
 
+// The single-batch step: flow i is pool[:, picks[i]] (a pick past the
+// pool clamps to its last row, as an XLA gather clamps), each row takes
+// its own direction, sec_id is id_table[idx], no counters, no telemetry.
+__global__ void __launch_bounds__(BLOCK)
+    datapath_step_kernel(const DatapathArgs a) {
+  const int i = blockIdx.x * BLOCK + threadIdx.x;
+  if (i >= a.B) return;
+  const uint32_t n = static_cast<uint32_t>(a.pool_n);
+  uint32_t p = __ldg(a.picks + i);
+  p = p < n ? p : n - 1;
+  uint32_t w[8];
+#pragma unroll
+  for (int c = 0; c < 8; ++c) w[c] = __ldg(a.pool + static_cast<size_t>(c) * n + p);
+  // FLOW_COLUMNS: ep_index saddr daddr sport dport proto direction frag
+  const uint32_t dir = w[6];
+  const FlowOut f = fused_flow(a, w[1], w[2], w[3], w[4], w[5], w[0], dir,
+                               w[7] != 0, dir == CT_DIR_INGRESS);
+  write_flow(a, static_cast<size_t>(i), f, __ldg(a.id_table + f.idx));
+}
+
 }  // namespace cdp
 
 extern "C" int datapath_args_size() {
@@ -200,6 +266,17 @@ extern "C" int launch_datapath_pair(const cdp::DatapathArgs* args,
   if (args->B > 0) {
     const dim3 grid((args->B + cdp::BLOCK - 1) / cdp::BLOCK, 2);
     cdp::datapath_pair_kernel<<<grid, cdp::BLOCK, 0,
+                                static_cast<cudaStream_t>(stream)>>>(*args);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Launch one single-batch step on `stream`; returns cudaGetLastError().
+extern "C" int launch_datapath_step(const cdp::DatapathArgs* args,
+                                    void* stream) {
+  if (args->B > 0) {
+    const int grid = (args->B + cdp::BLOCK - 1) / cdp::BLOCK;
+    cdp::datapath_step_kernel<<<grid, cdp::BLOCK, 0,
                                 static_cast<cudaStream_t>(stream)>>>(*args);
   }
   return static_cast<int>(cudaGetLastError());

@@ -29,7 +29,7 @@ service-scope probe and its flow probe.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Dict, List, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -48,7 +48,7 @@ from cilium_tpu_torch.ct.table import (
     TUPLE_F_RELATED,
     TUPLE_F_SERVICE,
 )
-from cilium_tpu_torch.device import widen
+from cilium_tpu_torch.device import array_tensor, u32_tensor, widen
 from cilium_tpu_torch.engine.hashtable import (
     _fnv1a_host,
     fnv1a,
@@ -198,6 +198,50 @@ class CTBucketIndex:
             stash[i] = _pack_entry(key, self.ct.entries[key])
         return trim_ct_stash(stash)
 
+    def apply(self, created: List[CTTuple], deleted: List[CTTuple]
+              ) -> Tuple[np.ndarray, np.ndarray, Optional[np.ndarray]]:
+        """Fold create/delete key sets into the mirror; returns
+        (changed bucket indices i32 [M], their rows u32 [M, 128], the
+        new stash or None) for `apply_bucket_delta`.  M is padded to a
+        power of two (at least 8) by repeating the first changed
+        bucket: the repeated writes carry the same row."""
+        dirty = set()
+        stash_dirty = False
+        for key in deleted:
+            homes = self.key_home.pop(key, None)
+            if homes is None:
+                continue
+            for home in homes:
+                if home < 0:
+                    self.stash_keys.remove(key)
+                    stash_dirty = True
+                else:
+                    self.bucket_keys[home].remove(key)
+                    dirty.add(home)
+        for key in created:
+            homes = self.key_home.get(key)
+            if homes is None:
+                homes = self._place(key)
+            for home in homes:  # the value may have changed: re-pack
+                if home < 0:
+                    stash_dirty = True
+                else:
+                    dirty.add(home)
+        idx = np.array(sorted(dirty), dtype=np.int32)
+        rows = (
+            np.stack([self._row(b) for b in idx]) if len(idx)
+            else np.zeros((0, BUCKET_LANES), dtype=np.uint32)
+        )
+        if len(idx):
+            m = 8
+            while m < len(idx):
+                m *= 2
+            pad = m - len(idx)
+            if pad:
+                idx = np.concatenate([idx, np.full(pad, idx[0], np.int32)])
+                rows = np.concatenate([rows, np.repeat(rows[:1], pad, axis=0)])
+        return idx, rows, self._stash_rows() if stash_dirty else None
+
     def full_snapshot(self) -> CTSnapshot:
         buckets = np.zeros((self.n_buckets, BUCKET_LANES), dtype=np.uint32)
         buckets[:, 3 * ENTRIES_PER_BUCKET : 4 * ENTRIES_PER_BUCKET] = (
@@ -210,6 +254,43 @@ class CTBucketIndex:
             buckets=buckets, stash=self._stash_rows(),
             n_buckets=self.n_buckets,
         )
+
+
+def apply_bucket_delta_plain(snapshot: CTSnapshot, idx: torch.Tensor,
+                             rows: torch.Tensor) -> None:
+    """Plain version of the CT delta: rows [M, lanes] written into
+    `snapshot.buckets` at idx [M] by an index write, in place.
+    Duplicate indices carry identical rows, so the order of the writes
+    does not matter."""
+    snapshot.buckets[idx.to(torch.int64)] = rows
+
+
+def apply_bucket_delta(snapshot: CTSnapshot, idx: np.ndarray,
+                       rows: np.ndarray,
+                       stash: Optional[np.ndarray] = None) -> CTSnapshot:
+    """Write changed bucket rows (and, when given, a new stash) into a
+    device-resident snapshot, in place, and return it.  The JAX
+    reference donates the snapshot to its jitted scatter, so its update
+    is in place too.  `idx` i32 [M], `rows` u32 [M, lanes] and `stash`
+    u32 [S, 5] are CTBucketIndex.apply's numpy output; the new stash
+    replaces `snapshot.stash`.  On a CUDA snapshot the rows go through
+    the CT_DELTA kernel (kernels.py); on a CPU snapshot through
+    `apply_bucket_delta_plain`."""
+    dev = snapshot.buckets.device
+    if len(idx):
+        idx_t = array_tensor(np.asarray(idx, np.int32), dev)
+        rows_t = u32_tensor(rows, dev)
+        if dev.type == "cuda":
+            from cilium_tpu_torch import kernels
+
+            kernels.CT_DELTA(snapshot, idx_t, rows_t)
+        elif dev.type == "cpu":
+            apply_bucket_delta_plain(snapshot, idx_t, rows_t)
+        else:
+            raise ValueError(f"unsupported device {dev}")
+    if stash is not None:
+        snapshot.stash = u32_tensor(stash, dev)
+    return snapshot
 
 
 def trim_ct_stash(stash: np.ndarray) -> np.ndarray:

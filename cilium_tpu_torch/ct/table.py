@@ -5,12 +5,14 @@ Model of bpf/lib/conntrack.h and pkg/maps/ctmap: the tuple layout
 (daddr, saddr, dport, sport, nexthdr, flags), where flags carry the
 direction (TUPLE_F_OUT / TUPLE_F_IN / TUPLE_F_SERVICE) and RELATED;
 entries keep the rev-NAT index and the LB backend (slave) of
-load-balanced flows.  Only creation is modelled here: the datapath's
-lookups run on the device over a compiled snapshot (ct.device).
+load-balanced flows.  Creation, deletion by the CT write-back and GC
+are modelled here: the datapath's lookups run on the device over a
+compiled snapshot (ct.device).
 """
 
 from __future__ import annotations
 
+import time
 from dataclasses import dataclass
 from typing import Dict
 
@@ -71,6 +73,17 @@ class CTMap:
     def __init__(self, max_entries: int = MAX_ENTRIES_LOCAL) -> None:
         self.entries: Dict[CTTuple, CTEntry] = {}
         self.max_entries = max_entries
+        # the GC clock: seconds since this map was created (now())
+        self._epoch = time.monotonic()
+        # bumped by create and gc; the churn loop's device-snapshot
+        # cache (replay._ChurnDriver) gates on it and on the key set
+        self.mutations = 0
+        # creations dropped because the map was full (best effort)
+        self.insert_failures = 0
+
+    def now(self) -> int:
+        """Seconds since this map's creation (the GC clock)."""
+        return int(time.monotonic() - self._epoch)
 
     @staticmethod
     def _update_timeout(entry: CTEntry, is_tcp: bool, syn: bool,
@@ -107,14 +120,28 @@ class CTMap:
         )
         self._update_timeout(entry, tup.nexthdr == IPPROTO_TCP, tcp_syn, now)
         self.entries[key] = entry
+        self.mutations += 1
         return entry
+
+    def gc(self, now: int) -> int:
+        """Drop the entries whose lifetime ended before `now`; returns
+        how many."""
+        dead = [k for k, v in self.entries.items() if v.lifetime < now]
+        for k in dead:
+            del self.entries[k]
+        if dead:
+            self.mutations += 1
+        return len(dead)
 
     def create_best_effort(self, tup: CTTuple, dir: int, **kw) -> bool:
         """CT creation is best-effort, as ct_create4 is in the kernel
-        datapath: a full map drops this entry.  Returns True when the
+        datapath: a full map drops this entry (counted in
+        `insert_failures`) and the caller's stream goes on; the flow's
+        create retries on its next appearance.  Returns True when the
         entry landed."""
         try:
             self.create(tup, dir, **kw)
             return True
         except OverflowError:
+            self.insert_failures += 1
             return False

@@ -23,6 +23,14 @@ launches the hand-written kernel (kernels.py, csrc/datapath.cu); on a
 CPU tensor it runs `datapath_pair_plain`, the plain PyTorch version
 of the same step.  The carried counter and telemetry buffers are
 updated in place and returned.
+
+The single-batch form (the reference's `datapath_step`, which its
+churn loop runs) takes each flow's own direction, writes the identity
+as `sec_id` and keeps no counters or telemetry: `datapath_step_pool`
+over pool[:, picks] (and `datapath_step` over a FlowBatch, packed to
+such a pool) launches DATAPATH_STEP on CUDA tensors, and both
+forms' plain versions share one body, `_datapath_core`.  The host
+side of the CT write-back (`apply_ct_writeback_host`) is here too.
 """
 
 from __future__ import annotations
@@ -37,10 +45,16 @@ import torch
 from cilium_tpu_torch.ct.device import ct_fetch_rows, ct_probe_rows
 from cilium_tpu_torch.ct.table import (
     CT_ESTABLISHED,
+    CT_INGRESS,
     CT_NEW,
     CT_RELATED,
     CT_REPLY,
     CT_SERVICE,
+    TUPLE_F_IN,
+    TUPLE_F_OUT,
+    TUPLE_F_SERVICE,
+    CTMap,
+    CTTuple,
 )
 from cilium_tpu_torch.device import narrow, u32_tensor, widen
 from cilium_tpu_torch.engine.verdict import (
@@ -51,6 +65,7 @@ from cilium_tpu_torch.engine.verdict import (
 )
 from cilium_tpu_torch.ipcache.lpm import UNKNOWN_IDX, ipcache_lookup_fused
 from cilium_tpu_torch.lb.device import lb_select_batch
+from cilium_tpu_torch.maps.policymap import INGRESS
 from cilium_tpu_torch.prefilter import prefilter_drop
 
 
@@ -132,6 +147,33 @@ class DatapathVerdicts:
     ipcache_miss: torch.Tensor  # bool
 
 
+# THE column order of a packed [8, B] flow transfer (the pool pack of
+# replay.pack_flow_pool): row j is FLOW_COLUMNS[j], each a full u32 word
+FLOW_COLUMNS = (
+    "ep_index", "saddr", "daddr", "sport", "dport", "proto",
+    "direction", "is_fragment",
+)
+
+
+def flow_batch_from_packed(packed: torch.Tensor) -> FlowBatch:
+    """Plain split of [8, B] rows in FLOW_COLUMNS order (u32 bits in
+    any integer dtype).  The addresses are u32 values; the other
+    columns are the reference's int32 casts of the words, as int64;
+    `is_fragment` is any non-zero word.  No packed4 16-bit masks."""
+    sign = narrow(widen(packed)).to(torch.int64)
+    cols = dict(zip(FLOW_COLUMNS, sign))
+    return FlowBatch(
+        ep_index=cols["ep_index"],
+        saddr=widen(packed[1]),
+        daddr=widen(packed[2]),
+        sport=cols["sport"],
+        dport=cols["dport"],
+        proto=cols["proto"],
+        direction=cols["direction"],
+        is_fragment=cols["is_fragment"] != 0,
+    )
+
+
 # -- packed4: [4, B] u32 staging -----------------------------------------------
 #   row 0  saddr
 #   row 1  daddr
@@ -177,9 +219,18 @@ def flow_batch_from_packed4(packed: torch.Tensor) -> FlowBatch:
     )
 
 
-def _datapath_half(tables: DatapathTables, f: FlowBatch, ingress: bool):
-    """Plain version of one direction-specialized half.  Returns
-    (DatapathVerdicts, counter ingredients, telemetry counts [20])."""
+def _datapath_core(tables: DatapathTables, f: FlowBatch, ingress,
+                   emit_sec_id: bool):
+    """Plain version of the fused per-flow pipeline, shared by both
+    forms.  `ingress` is a bool [B] tensor (the single-batch form: each
+    row's own direction == INGRESS) or a Python bool (one half of the
+    pair form, whose ingress half runs no LB and no service-scope CT
+    probe, as bpf_lxc's ingress section does not).  With a tensor the
+    service probe and LB run for every row and apply where the row is
+    not ingress, so a direction outside {0, 1} goes through LB.
+    `emit_sec_id` writes the identity `id_table[idx]` as `sec_id`; the
+    pair form writes the raw lattice index.  Returns
+    (DatapathVerdicts, counter ingredients)."""
     if tables.tunnel is not None:
         raise ValueError("the tunnel map is not ported")
     ipc = tables.ipcache
@@ -189,15 +240,18 @@ def _datapath_half(tables: DatapathTables, f: FlowBatch, ingress: bool):
         )
     b = f.saddr.shape[0]
     dev = f.saddr.device
-    zero = torch.zeros(b, dtype=torch.int64, device=dev)
+    if isinstance(ingress, bool):
+        ing = torch.full((b,), ingress, dtype=torch.bool, device=dev)
+    else:
+        ing = ingress
 
     pre_drop = prefilter_drop(tables.prefilter, f.saddr)
     ct_rows = ct_fetch_rows(
         tables.ct, f.daddr, f.saddr, f.dport, f.sport, f.proto
     )
-    if ingress:
-        eff_daddr, eff_dport = f.daddr, f.dport
-        rev_nat, lb_slave = zero, zero
+    if ingress is True:
+        eff_daddr, eff_dport = widen(f.daddr), f.dport
+        rev_nat = lb_slave = torch.zeros(b, dtype=torch.int64, device=dev)
     else:
         _, _, svc_slave = ct_probe_rows(
             tables.ct, ct_rows, f.daddr, f.saddr, f.dport, f.sport,
@@ -207,29 +261,30 @@ def _datapath_half(tables: DatapathTables, f: FlowBatch, ingress: bool):
             tables.lb, f.saddr, f.daddr, f.sport, f.dport, f.proto,
             ct_slave=svc_slave,
         )
-        eff_daddr = torch.where(svc_found, lb_daddr, f.daddr)
-        eff_dport = torch.where(svc_found, lb_dport, f.dport)
-        rev_nat = torch.where(svc_found, lb_rev, 0)
-        lb_slave = torch.where(svc_found, slave, 0)
+        do_lb = svc_found & ~ing
+        eff_daddr = torch.where(do_lb, lb_daddr, widen(f.daddr))
+        eff_dport = torch.where(do_lb, lb_dport, f.dport)
+        rev_nat = torch.where(do_lb, lb_rev, 0)
+        lb_slave = torch.where(do_lb, slave, 0)
     ct_res, _, _ = ct_probe_rows(
         tables.ct, ct_rows, eff_daddr, f.saddr, eff_dport, f.sport,
         f.proto, f.direction,
     )
 
     # identity derivation: the peer's ipcache entry, WORLD on a miss
-    ing = torch.full((b,), ingress, dtype=torch.bool, device=dev)
-    sec_ip = f.saddr if ingress else eff_daddr
+    sec_ip = torch.where(ing, widen(f.saddr), eff_daddr)
     looked, l3_word = ipcache_lookup_fused(ipc, sec_ip, ing)
-    n = int(tables.policy.id_table.shape[0])
+    id_table = tables.policy.id_table
+    n = int(id_table.shape[0])
     miss = looked == 0
     vp = torch.where(miss, int(ipc.world_plus1), looked)
     known = (vp != 0) & (vp != int(UNKNOWN_IDX))
     idx = torch.where(known, vp - 1, n - 1)
-    world_l3 = ipc.world_l3_in if ingress else ipc.world_l3_out
-    l3_word = torch.where(miss, int(world_l3), l3_word)
+    world_l3 = torch.where(ing, int(ipc.world_l3_in), int(ipc.world_l3_out))
+    l3_word = torch.where(miss, world_l3, l3_word)
     ep = f.ep_index
     l3_bit = torch.where(
-        ep < 32, (l3_word >> ep.clamp(max=31)) & 1, 0
+        (ep >= 0) & (ep < 32), (l3_word >> ep.clamp(0, 31)) & 1, 0
     ).bool()
 
     probe1, probe2, probe3, proxy, j = _probes(
@@ -259,7 +314,7 @@ def _datapath_half(tables: DatapathTables, f: FlowBatch, ingress: bool):
         match_kind=kind,
         ct_result=ct_res,
         pre_dropped=pre_drop,
-        sec_id=narrow(idx),
+        sec_id=id_table[idx] if emit_sec_id else narrow(idx),
         final_daddr=narrow(eff_daddr),
         final_dport=eff_dport.to(torch.int32),
         rev_nat=rev_nat.to(torch.int32),
@@ -270,12 +325,64 @@ def _datapath_half(tables: DatapathTables, f: FlowBatch, ingress: bool):
         l4_slot=j.to(torch.int32),
         ipcache_miss=miss,
     )
+    return out, cols
+
+
+def _datapath_half(tables: DatapathTables, f: FlowBatch, ingress: bool):
+    """One direction-specialized half of the pair step.  Returns
+    (DatapathVerdicts, counter ingredients, telemetry counts [20])."""
+    out, cols = _datapath_core(tables, f, ingress, emit_sec_id=False)
     masks = telemetry_masks(
-        pre_drop, ct_res, kind, allowed, ct_delete, proxy_out, lb_slave,
-        miss,
+        out.pre_dropped, out.ct_result, out.match_kind, out.allowed,
+        out.ct_delete, out.proxy_port, out.lb_slave, out.ipcache_miss,
     )
     counts = torch.stack([m.sum() for m in masks])
     return out, cols, counts
+
+
+def datapath_step_plain(tables: DatapathTables,
+                        flows: FlowBatch) -> DatapathVerdicts:
+    """Plain version of the single-batch step (the reference's
+    `datapath_step`): each row takes its own direction, `sec_id` is the
+    identity, and there are no counters and no telemetry."""
+    out, _ = _datapath_core(
+        tables, flows, flows.direction == INGRESS, emit_sec_id=True
+    )
+    return out
+
+
+def datapath_step_pool(tables: DatapathTables, pool: torch.Tensor,
+                       picks: torch.Tensor) -> DatapathVerdicts:
+    """The single-batch step over the flows `pool[:, picks]` of an
+    [8, P] pool (FLOW_COLUMNS order, int32 words) and picks [B].  A
+    CUDA pool launches DATAPATH_STEP, which gathers the rows itself; a
+    CPU pool runs the plain version."""
+    if pool.device.type == "cuda":
+        from cilium_tpu_torch import kernels
+
+        return kernels.DATAPATH_STEP(tables, pool, picks)
+    if pool.device.type == "cpu":
+        return datapath_step_plain(
+            tables, flow_batch_from_packed(pool[:, picks.to(torch.int64)])
+        )
+    raise ValueError(f"unsupported device {pool.device}")
+
+
+def datapath_step(tables: DatapathTables,
+                  flows: FlowBatch) -> DatapathVerdicts:
+    """The single-batch step on a FlowBatch.  CUDA columns are packed
+    into [8, B] words and launch DATAPATH_STEP with picks 0..B-1 (a
+    pool that is already on the card goes to `datapath_step_pool`
+    without the repack); CPU columns run the plain version."""
+    dev = flows.saddr.device
+    if dev.type == "cuda":
+        pool = narrow(torch.stack([widen(getattr(flows, c))
+                                   for c in FLOW_COLUMNS]))
+        picks = torch.arange(pool.shape[1], dtype=torch.int32, device=dev)
+        return datapath_step_pool(tables, pool, picks)
+    if dev.type == "cpu":
+        return datapath_step_plain(tables, flows)
+    raise ValueError(f"unsupported device {dev}")
 
 
 def datapath_pair_plain(tables: DatapathTables, pair: torch.Tensor,
@@ -375,3 +482,99 @@ class PersistentPairDispatcher:
         staged, self._staged = self._staged, []
         results = self._run(staged) if staged else []
         return results, self.acc, self.telem
+
+
+# -- CT write-back: the host side of the churn loop ----------------------------
+
+
+def _unique_rows(cols: list, sel: np.ndarray) -> np.ndarray:
+    """The selected rows of `cols` stacked as u64 and deduplicated;
+    np.unique sorts them, and that sorted order is the order in which
+    the write-back creates entries."""
+    rows = np.stack(
+        [np.asarray(c)[sel].astype(np.uint64) for c in cols], axis=1
+    )
+    if rows.shape[0] == 0:
+        return rows
+    return np.unique(rows, axis=0)
+
+
+def apply_ct_writeback_host(ct: CTMap, create, delete, daddr, dport, saddr,
+                            sport, proto, direction, rev_nat, slave,
+                            now: int = 0, orig_daddr=None,
+                            orig_dport=None) -> tuple:
+    """Host CT mutation after a batch (all inputs host arrays): create
+    entries for NEW and allowed flows (ct_create4) and delete
+    ESTABLISHED flows the policy now denies (ct_delete4).  A
+    load-balanced flow (rev_nat > 0 and a pre-DNAT frontend that
+    differs) also gets its service-scope entry, carrying the backend
+    for stickiness, as lb4_local creates it.  Returns (created_keys,
+    deleted_keys) in creation order, for CTBucketIndex.apply."""
+    created_keys = []
+    deleted_keys = []
+    if orig_daddr is None:
+        orig_daddr, orig_dport = daddr, dport
+    create_cols = [
+        daddr, saddr, dport, sport, proto, direction, rev_nat, slave,
+        orig_daddr, orig_dport,
+    ]
+    for row in _unique_rows(create_cols, create):
+        (c_daddr, c_saddr, c_dport, c_sport, c_proto, c_dir, c_rev,
+         c_slave, c_odaddr, c_odport) = (int(v) for v in row)
+        flags = TUPLE_F_OUT if c_dir == CT_INGRESS else TUPLE_F_IN
+        key = CTTuple(c_daddr, c_saddr, c_dport, c_sport, c_proto, flags)
+        dnat = c_rev > 0 and (c_odaddr != c_daddr or c_odport != c_dport)
+        if key not in ct.entries and ct.create_best_effort(
+            CTTuple(c_daddr, c_saddr, c_dport, c_sport, c_proto), c_dir,
+            now=now, rev_nat_index=c_rev, slave=c_slave,
+            orig_daddr=c_odaddr if dnat else 0,
+            orig_dport=c_odport if dnat else 0,
+        ):
+            created_keys.append(key)
+        if dnat:
+            svc_key = CTTuple(c_odaddr, c_saddr, c_odport, c_sport, c_proto,
+                              TUPLE_F_SERVICE)
+            if svc_key not in ct.entries and ct.create_best_effort(
+                CTTuple(c_odaddr, c_saddr, c_odport, c_sport, c_proto),
+                CT_SERVICE, now=now, rev_nat_index=c_rev, slave=c_slave,
+            ):
+                created_keys.append(svc_key)
+    for row in _unique_rows([daddr, saddr, dport, sport, proto, direction],
+                            delete):
+        c_daddr, c_saddr, c_dport, c_sport, c_proto, c_dir = (
+            int(v) for v in row
+        )
+        flags = TUPLE_F_OUT if c_dir == CT_INGRESS else TUPLE_F_IN
+        key = CTTuple(c_daddr, c_saddr, c_dport, c_sport, c_proto, flags)
+        if ct.entries.pop(key, None) is not None:
+            deleted_keys.append(key)
+    return created_keys, deleted_keys
+
+
+def _host_column(t: torch.Tensor, u32: bool) -> np.ndarray:
+    a = t.cpu().numpy()
+    return a.view(np.uint32) if u32 else a
+
+
+def apply_ct_writeback(ct: CTMap, out: DatapathVerdicts, flows: FlowBatch,
+                       now: int = 0) -> tuple:
+    """apply_ct_writeback_host on a step's outputs and its flows (any
+    device; u32 columns read as unsigned); returns (created, deleted)
+    counts."""
+    created_keys, deleted_keys = apply_ct_writeback_host(
+        ct,
+        _host_column(out.ct_create, False),
+        _host_column(out.ct_delete, False),
+        _host_column(out.final_daddr, True),
+        _host_column(out.final_dport, False),
+        _host_column(flows.saddr, False),
+        _host_column(flows.sport, False),
+        _host_column(flows.proto, False),
+        _host_column(flows.direction, False),
+        _host_column(out.rev_nat, False),
+        _host_column(out.lb_slave, False),
+        now=now,
+        orig_daddr=_host_column(flows.daddr, False),
+        orig_dport=_host_column(flows.dport, False),
+    )
+    return len(created_keys), len(deleted_keys)

@@ -1,21 +1,28 @@
 """Build, binding and wrappers of the hand-written CUDA kernels.
 
-`csrc/datapath.cu` and `csrc/l7.cu` (with their headers) are each
-compiled by `nvcc` for `sm_90a` into a shared library with a plain C
-interface, at first use, into `cilium_tpu_torch/_build/` (one file per
-source digest), and bound with ctypes.  Nothing here runs at import:
-the CPU tests import this module on a machine with no `nvcc` and no
-card.
+`csrc/datapath.cu`, `csrc/l7.cu` and `csrc/churn.cu` (with their
+headers) are each compiled by `nvcc` for `sm_90a` into a shared
+library with a plain C interface, at first use, into
+`cilium_tpu_torch/_build/` (one file per source digest), and bound
+with ctypes.  Nothing here runs at import: the CPU tests import this
+module on a machine with no `nvcc` and no card.
 
 `DATAPATH_PAIR(tables, pair, acc, telem)` is the pair step on the
-card.  It checks devices, dtypes, shapes and the table layouts (the
-kernel implements the config-5 layouts only: compact 2-word L4
-entries, 4-word CT rows, the idx-form ipcache with L3 planes and
-hashed range classes, the inline LB, the range prefilter, no tunnel
-map, at most 32 endpoints) and raises on anything else.  It allocates
-the outputs with `torch.empty`, launches on the current stream
-without synchronising, raises if the launch reports an error, and
-counts its launches in `.launches`.
+card and `DATAPATH_STEP(tables, pool, picks)` the single-batch step
+over pool[:, picks].  Both check devices, dtypes, shapes and the table
+layouts (the kernels implement the compact layouts, 2-word L4 entries
+and 4-word CT rows, and the wide ones, 3-word L4 entries and 5-word CT
+rows; the idx-form ipcache with L3 planes and hashed range classes;
+the inline LB; the range prefilter; no tunnel map; at most 32
+endpoints) and raise on anything else.  They allocate the outputs with
+`torch.empty`, launch on the current stream without synchronising,
+raise if the launch reports an error, and count their launches in
+`.launches`.
+
+`CHURN_COMPACT` and `CT_DELTA` (csrc/churn.cu) are the churn loop's
+intent compaction (K22) and CT bucket delta (K18's CT part) under the
+same rules.  One CHURN_COMPACT call is four device launches (see the
+source note) and counts one.
 
 `HTTP_MATCH`, `KAFKA_MATCH` and `FLEET_L7` (csrc/l7.cu) are the L7
 matchers K16, K17a and K17b under the same rules: they check device,
@@ -50,7 +57,7 @@ from cilium_tpu_torch.prefilter import PrefilterRanges
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
-LIBRARIES = ("datapath", "l7")  # csrc/<stem>.cu, one shared library each
+LIBRARIES = ("datapath", "l7", "churn")  # csrc/<stem>.cu, one library each
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC",
@@ -81,6 +88,8 @@ _INTS2 = (
     "l4_nrows", "l4_lanes", "l4_stash_n", "l4w_nrows", "l4w_lanes",
     "l4w_stash_n", "n_eps", "kg", "n_ids",
 )
+_PTRS3 = ("pool", "picks", "id_table")
+_INTS3 = ("pool_n", "ct_ew", "l4_ew")
 
 
 class DatapathArgs(ctypes.Structure):
@@ -100,6 +109,8 @@ class DatapathArgs(ctypes.Structure):
             ("world_l3_in", ctypes.c_uint32),
             ("world_l3_out", ctypes.c_uint32),
         ]
+        + [(name, ctypes.c_void_p) for name in _PTRS3]
+        + [(name, ctypes.c_int32) for name in _INTS3]
     )
 
 
@@ -188,6 +199,200 @@ def _pow2(n: int, name: str) -> int:
     return n
 
 
+_P = ctypes.c_void_p
+_I = ctypes.c_int32
+
+
+class _Library:
+    """csrc/<stem>.cu, built and bound once for the wrappers that
+    launch its kernels; `bind` declares the C functions and checks that
+    the argument layouts agree with the source."""
+
+    stem = ""
+
+    def __init__(self) -> None:
+        self.lib = None
+        self.build_log = ""
+
+    def load(self, verbose: bool = False):
+        if self.lib is None:
+            path, self.build_log = build(self.stem, verbose=verbose)
+            lib = ctypes.CDLL(str(path))
+            self.bind(lib)
+            self.lib = lib
+        return self.lib
+
+    def bind(self, lib) -> None:
+        raise NotImplementedError
+
+    @staticmethod
+    def declare(lib, launchers) -> None:
+        """`int launch(const Args*, void* stream)` for each (name, Args)."""
+        for launch, args in launchers:
+            getattr(lib, launch).argtypes = [ctypes.POINTER(args), _P]
+            getattr(lib, launch).restype = ctypes.c_int
+
+    def launch(self, launch: str, args, device, name: str) -> None:
+        """Launch on the current stream; raise on a launch error."""
+        lib = self.load()
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = getattr(lib, launch)(ctypes.byref(args), stream)
+        if err != 0:
+            raise RuntimeError(f"{name} launch failed: CUDA error {err}")
+
+
+class _DatapathLibrary(_Library):
+    """csrc/datapath.cu: DATAPATH_PAIR and DATAPATH_STEP."""
+
+    stem = "datapath"
+
+    def bind(self, lib) -> None:
+        self.declare(lib, (("launch_datapath_pair", DatapathArgs),
+                           ("launch_datapath_step", DatapathArgs)))
+        lib.datapath_args_size.argtypes = []
+        lib.datapath_args_size.restype = ctypes.c_int
+        if lib.datapath_args_size() != ctypes.sizeof(DatapathArgs):
+            raise RuntimeError(
+                "DatapathArgs layout differs between kernels.py and "
+                "csrc/common.cuh"
+            )
+
+
+DATAPATH_LIBRARY = _DatapathLibrary()
+
+
+def _fill_tables(a: DatapathArgs, tables, dev) -> None:
+    """Check every table plane the datapath kernels read and fill its
+    part of `a`; raise on a layout the kernels do not implement."""
+    pf = tables.prefilter
+    if not isinstance(pf, PrefilterRanges):
+        raise ValueError("the kernel takes the range prefilter only")
+    a.pf_base = _ptr(pf.base, "prefilter.base", dev)
+    a.pf_mask = _ptr(pf.mask, "prefilter.mask", dev)
+    a.pf_n = int(pf.base.shape[0])
+
+    ct = tables.ct
+    ew = int(ct.entry_words)
+    if ew not in (4, 5):
+        raise ValueError(f"the kernel takes 4- or 5-word CT rows, not {ew}")
+    if ct.stash.shape[1] != 5:
+        raise ValueError("the CT stash must keep 5-word entries")
+    a.ct_buckets = _ptr(ct.buckets, "ct.buckets", dev)
+    a.ct_stash = _ptr(ct.stash, "ct.stash", dev)
+    a.ct_nb = _pow2(int(ct.n_buckets), "ct.n_buckets")
+    if ct.buckets.shape[0] != ct.n_buckets:
+        raise ValueError("ct.buckets rows differ from n_buckets")
+    a.ct_lanes = int(ct.buckets.shape[1])
+    if a.ct_lanes < ew or (ew == 4 and a.ct_lanes % 4):
+        raise ValueError("compact CT rows must hold whole 4-word entries")
+    a.ct_ew = ew
+    a.ct_stash_n = int(ct.stash.shape[0])
+
+    lb = tables.lb
+    if not isinstance(lb, LBInline):
+        raise ValueError("the kernel takes the inline LB layout only")
+    if lb.rows.shape[1] != 128 or lb.stash.shape[1] != 64:
+        raise ValueError("inline LB rows must be 128 lanes, stash 64")
+    if lb.stash.shape[0] > INLINE_STASH:
+        raise ValueError("LB stash exceeds its capacity")
+    a.lb_rows = _ptr(lb.rows, "lb.rows", dev)
+    a.lb_stash = _ptr(lb.stash, "lb.stash", dev)
+    a.lb_nb = _pow2(int(lb.n_buckets), "lb.n_buckets")
+    if lb.rows.shape[0] != lb.n_buckets:
+        raise ValueError("lb.rows differ from n_buckets")
+    a.lb_stash_n = int(lb.stash.shape[0])
+
+    ipc = tables.ipcache
+    if not (ipc.values_are_idx and ipc.l3_planes):
+        raise ValueError("the kernel takes the idx-form ipcache with L3 planes")
+    if ipc.range_rows is None:
+        raise ValueError(
+            "the kernel needs hashed range classes (no [B, P] fallback)"
+        )
+    per = int(ipc.bucket_entries) or 32
+    vw, lw = int(ipc.value_width), int(ipc.l3_width)
+    if vw not in (16, 32) or lw not in (1, 2, 4, 8, 16, 32):
+        raise ValueError(f"unsupported ipcache widths {vw}/{lw}")
+    if ipc.buckets.shape[1] < per + lanes_for(per, vw) + 2 * lanes_for(per, lw):
+        raise ValueError("ipcache bucket rows narrower than their planes")
+    if ipc.stash.shape[1] != 4:
+        raise ValueError("the ipcache stash must carry L3 columns")
+    a.ipc_buckets = _ptr(ipc.buckets, "ipcache.buckets", dev)
+    a.ipc_stash = _ptr(ipc.stash, "ipcache.stash", dev)
+    a.ipc_range_rows = _ptr(ipc.range_rows, "ipcache.range_rows", dev)
+    a.ipc_nb = _pow2(int(ipc.n_buckets), "ipcache.n_buckets")
+    if ipc.buckets.shape[0] != ipc.n_buckets:
+        raise ValueError("ipcache.buckets rows differ from n_buckets")
+    a.ipc_lanes = int(ipc.buckets.shape[1])
+    a.ipc_per, a.ipc_vw, a.ipc_lw = per, vw, lw
+    a.ipc_stash_n = int(ipc.stash.shape[0])
+    a.range_nrows = _pow2(int(ipc.range_rows.shape[0]), "range rows")
+    a.range_lanes = int(ipc.range_rows.shape[1])
+    plens = tuple(ipc.range_class_plens)
+    if len(plens) > RANGE_CLASS_MAX or any(not 1 <= p <= 32 for p in plens):
+        raise ValueError(f"unsupported range class schedule {plens}")
+    a.n_classes = len(plens)
+    for c, p in enumerate(plens):
+        a.class_plens[c] = p
+    if ipc.range_widths:
+        widths = tuple(int(w) for w in ipc.range_widths)
+        if len(widths) != 5:
+            raise ValueError("range rows must carry 5 planes")
+        e = 8
+    else:
+        e = a.range_lanes // 5
+        widths = (32,) * 5
+    off = 0
+    for p, w in enumerate(widths):
+        a.range_widths[p] = w
+        a.range_offs[p] = off
+        off += lanes_for(e, w)
+    if off > a.range_lanes:
+        raise ValueError("range rows narrower than their planes")
+    a.range_e = e
+    a.world_plus1 = int(ipc.world_plus1) & 0xFFFFFFFF
+    a.world_l3_in = int(ipc.world_l3_in) & 0xFFFFFFFF
+    a.world_l3_out = int(ipc.world_l3_out) & 0xFFFFFFFF
+
+    pol = tables.policy
+    if pol.l4_hash_rows is None:
+        raise ValueError("the dense-bitmap lattice is not ported")
+    l4_ew = l4_entry_words(pol)
+    for key, rows, stash in (
+        ("l4", pol.l4_hash_rows, pol.l4_hash_stash),
+        ("l4w", pol.l4_wild_rows, pol.l4_wild_stash),
+    ):
+        if stash.shape[1] != l4_ew or rows.shape[1] < l4_ew:
+            raise ValueError(f"policy.{key} entries are not {l4_ew}-word")
+        setattr(a, f"{key}_rows", _ptr(rows, f"policy.{key}_rows", dev))
+        setattr(a, f"{key}_stash", _ptr(stash, f"policy.{key}_stash", dev))
+        setattr(a, f"{key}_nrows", _pow2(int(rows.shape[0]), f"{key} rows"))
+        setattr(a, f"{key}_lanes", int(rows.shape[1]))
+        setattr(a, f"{key}_stash_n", int(stash.shape[0]))
+    a.l4_ew = l4_ew
+    e_count, _, kg = (int(s) for s in pol.l4_meta.shape)
+    n = int(pol.id_table.shape[0])
+    if e_count > 32:
+        raise ValueError(
+            f"{e_count} endpoints: the ipcache L3 word holds at most 32"
+        )
+    a.l4_meta = _ptr(pol.l4_meta, "policy.l4_meta", dev)
+    a.n_eps, a.kg, a.n_ids = e_count, kg, n
+    a.id_table = _ptr(pol.id_table, "policy.id_table", dev, shape=(n,))
+    if tables.tunnel is not None:
+        raise ValueError("the tunnel map is not ported")
+
+
+def _alloc_columns(a: DatapathArgs, shape, dev) -> dict:
+    cols = {
+        name: torch.empty(shape, dtype=VERDICT_DTYPES[name], device=dev)
+        for name in VERDICT_COLUMNS
+    }
+    for name, t in cols.items():
+        setattr(a, name, t.data_ptr())
+    return cols
+
+
 class DatapathPairKernel:
     """The pair step on the card (see the module docstring)."""
 
@@ -195,26 +400,9 @@ class DatapathPairKernel:
 
     def __init__(self) -> None:
         self.launches = 0
-        self.build_log = ""
-        self._lib = None
 
     def load(self, verbose: bool = False):
-        if self._lib is None:
-            path, self.build_log = build("datapath", verbose=verbose)
-            lib = ctypes.CDLL(str(path))
-            lib.launch_datapath_pair.argtypes = [
-                ctypes.POINTER(DatapathArgs), ctypes.c_void_p,
-            ]
-            lib.launch_datapath_pair.restype = ctypes.c_int
-            lib.datapath_args_size.argtypes = []
-            lib.datapath_args_size.restype = ctypes.c_int
-            if lib.datapath_args_size() != ctypes.sizeof(DatapathArgs):
-                raise RuntimeError(
-                    "DatapathArgs layout differs between kernels.py and "
-                    "csrc/common.cuh"
-                )
-            self._lib = lib
-        return self._lib
+        return DATAPATH_LIBRARY.load(verbose)
 
     def _args(self, tables, pair, acc, telem):
         """Validate everything and fill the launch arguments."""
@@ -229,118 +417,8 @@ class DatapathPairKernel:
         a = DatapathArgs()
         a.pair = _ptr(pair, "pair", dev)
         a.B = b
-
-        pf = tables.prefilter
-        if not isinstance(pf, PrefilterRanges):
-            raise ValueError("the kernel takes the range prefilter only")
-        a.pf_base = _ptr(pf.base, "prefilter.base", dev)
-        a.pf_mask = _ptr(pf.mask, "prefilter.mask", dev)
-        a.pf_n = int(pf.base.shape[0])
-
-        ct = tables.ct
-        if ct.entry_words != 4:
-            raise ValueError("the kernel takes the compact 4-word CT rows only")
-        if ct.stash.shape[1] != 5:
-            raise ValueError("the CT stash must keep 5-word entries")
-        a.ct_buckets = _ptr(ct.buckets, "ct.buckets", dev)
-        a.ct_stash = _ptr(ct.stash, "ct.stash", dev)
-        a.ct_nb = _pow2(int(ct.n_buckets), "ct.n_buckets")
-        if ct.buckets.shape[0] != ct.n_buckets:
-            raise ValueError("ct.buckets rows differ from n_buckets")
-        a.ct_lanes = int(ct.buckets.shape[1])
-        if a.ct_lanes % 4:
-            raise ValueError("compact CT rows must hold whole 4-word entries")
-        a.ct_stash_n = int(ct.stash.shape[0])
-
-        lb = tables.lb
-        if not isinstance(lb, LBInline):
-            raise ValueError("the kernel takes the inline LB layout only")
-        if lb.rows.shape[1] != 128 or lb.stash.shape[1] != 64:
-            raise ValueError("inline LB rows must be 128 lanes, stash 64")
-        if lb.stash.shape[0] > INLINE_STASH:
-            raise ValueError("LB stash exceeds its capacity")
-        a.lb_rows = _ptr(lb.rows, "lb.rows", dev)
-        a.lb_stash = _ptr(lb.stash, "lb.stash", dev)
-        a.lb_nb = _pow2(int(lb.n_buckets), "lb.n_buckets")
-        if lb.rows.shape[0] != lb.n_buckets:
-            raise ValueError("lb.rows differ from n_buckets")
-        a.lb_stash_n = int(lb.stash.shape[0])
-
-        ipc = tables.ipcache
-        if not (ipc.values_are_idx and ipc.l3_planes):
-            raise ValueError("the kernel takes the idx-form ipcache with L3 planes")
-        if ipc.range_rows is None:
-            raise ValueError(
-                "the kernel needs hashed range classes (no [B, P] fallback)"
-            )
-        per = int(ipc.bucket_entries) or 32
-        vw, lw = int(ipc.value_width), int(ipc.l3_width)
-        if vw not in (16, 32) or lw not in (1, 2, 4, 8, 16, 32):
-            raise ValueError(f"unsupported ipcache widths {vw}/{lw}")
-        if ipc.buckets.shape[1] < per + lanes_for(per, vw) + 2 * lanes_for(per, lw):
-            raise ValueError("ipcache bucket rows narrower than their planes")
-        if ipc.stash.shape[1] != 4:
-            raise ValueError("the ipcache stash must carry L3 columns")
-        a.ipc_buckets = _ptr(ipc.buckets, "ipcache.buckets", dev)
-        a.ipc_stash = _ptr(ipc.stash, "ipcache.stash", dev)
-        a.ipc_range_rows = _ptr(ipc.range_rows, "ipcache.range_rows", dev)
-        a.ipc_nb = _pow2(int(ipc.n_buckets), "ipcache.n_buckets")
-        if ipc.buckets.shape[0] != ipc.n_buckets:
-            raise ValueError("ipcache.buckets rows differ from n_buckets")
-        a.ipc_lanes = int(ipc.buckets.shape[1])
-        a.ipc_per, a.ipc_vw, a.ipc_lw = per, vw, lw
-        a.ipc_stash_n = int(ipc.stash.shape[0])
-        a.range_nrows = _pow2(int(ipc.range_rows.shape[0]), "range rows")
-        a.range_lanes = int(ipc.range_rows.shape[1])
-        plens = tuple(ipc.range_class_plens)
-        if len(plens) > RANGE_CLASS_MAX or any(not 1 <= p <= 32 for p in plens):
-            raise ValueError(f"unsupported range class schedule {plens}")
-        a.n_classes = len(plens)
-        for c, p in enumerate(plens):
-            a.class_plens[c] = p
-        if ipc.range_widths:
-            widths = tuple(int(w) for w in ipc.range_widths)
-            if len(widths) != 5:
-                raise ValueError("range rows must carry 5 planes")
-            e = 8
-        else:
-            e = a.range_lanes // 5
-            widths = (32,) * 5
-        off = 0
-        for p, w in enumerate(widths):
-            a.range_widths[p] = w
-            a.range_offs[p] = off
-            off += lanes_for(e, w)
-        if off > a.range_lanes:
-            raise ValueError("range rows narrower than their planes")
-        a.range_e = e
-        a.world_plus1 = int(ipc.world_plus1) & 0xFFFFFFFF
-        a.world_l3_in = int(ipc.world_l3_in) & 0xFFFFFFFF
-        a.world_l3_out = int(ipc.world_l3_out) & 0xFFFFFFFF
-
-        pol = tables.policy
-        if pol.l4_hash_rows is None or l4_entry_words(pol) != 2:
-            raise ValueError("the kernel takes the compact 2-word L4 entries only")
-        for key, rows, stash in (
-            ("l4", pol.l4_hash_rows, pol.l4_hash_stash),
-            ("l4w", pol.l4_wild_rows, pol.l4_wild_stash),
-        ):
-            setattr(a, f"{key}_rows", _ptr(rows, f"policy.{key}_rows", dev))
-            setattr(a, f"{key}_stash", _ptr(stash, f"policy.{key}_stash", dev))
-            setattr(a, f"{key}_nrows", _pow2(int(rows.shape[0]), f"{key} rows"))
-            setattr(a, f"{key}_lanes", int(rows.shape[1]))
-            setattr(a, f"{key}_stash_n", int(stash.shape[0]))
-        e_count, _, kg = (int(s) for s in pol.l4_meta.shape)
-        n = int(pol.id_table.shape[0])
-        if e_count > 32:
-            raise ValueError(
-                f"{e_count} endpoints: the ipcache L3 word holds at most 32"
-            )
-        a.l4_meta = _ptr(pol.l4_meta, "policy.l4_meta", dev)
-        a.n_eps, a.kg, a.n_ids = e_count, kg, n
-        if tables.tunnel is not None:
-            raise ValueError("the tunnel map is not ported")
-
+        _fill_tables(a, tables, dev)
+        e_count, kg, n = a.n_eps, a.kg, a.n_ids
         if tuple(acc.shape) != (e_count, 2, kg + n):
             raise ValueError(f"acc must be [E, 2, Kg + N], got {tuple(acc.shape)}")
         if tuple(telem.shape) != (2, TELEM_COLS):
@@ -351,35 +429,56 @@ class DatapathPairKernel:
 
     def __call__(self, tables, pair, acc, telem):
         a = self._args(tables, pair, acc, telem)
-        b = a.B
-        cols = {
-            name: torch.empty((2, b), dtype=VERDICT_DTYPES[name],
-                              device=pair.device)
-            for name in VERDICT_COLUMNS
-        }
-        for name, t in cols.items():
-            setattr(a, name, t.data_ptr())
-        lib = self.load()
-        stream = torch.cuda.current_stream(pair.device).cuda_stream
-        err = lib.launch_datapath_pair(ctypes.byref(a), stream)
-        if err != 0:
-            raise RuntimeError(f"datapath_pair launch failed: CUDA error {err}")
+        cols = _alloc_columns(a, (2, a.B), pair.device)
+        DATAPATH_LIBRARY.launch("launch_datapath_pair", a, pair.device,
+                                self.name)
         self.launches += 1
         out_i = DatapathVerdicts(**{k: v[0] for k, v in cols.items()})
         out_e = DatapathVerdicts(**{k: v[1] for k, v in cols.items()})
         return out_i, out_e, acc, telem
 
 
+class DatapathStepKernel:
+    """The single-batch step on the card: the 15 columns [B] of the
+    flows pool[:, picks] (pool int32 [8, P] in FLOW_COLUMNS order,
+    picks int32 [B]; a pick past the pool clamps to its last row)."""
+
+    name = "datapath_step"
+
+    def __init__(self) -> None:
+        self.launches = 0
+
+    def load(self, verbose: bool = False):
+        return DATAPATH_LIBRARY.load(verbose)
+
+    def __call__(self, tables, pool, picks) -> DatapathVerdicts:
+        dev = _cuda_device(pool, self.name)
+        if pool.dim() != 2 or pool.shape[0] != 8:
+            raise ValueError(f"pool must be [8, P], got {tuple(pool.shape)}")
+        n = int(pool.shape[1])
+        if not 1 <= n < 1 << 31:
+            raise ValueError(f"pool has {n} rows")
+        if picks.dim() != 1:
+            raise ValueError("picks must be [B]")
+        b = _batch(int(picks.shape[0]))
+        a = DatapathArgs()
+        a.pool = _ptr(pool, "pool", dev, shape=(8, n))
+        a.picks = _ptr(picks, "picks", dev, shape=(b,))
+        a.pool_n, a.B = n, b
+        _fill_tables(a, tables, dev)
+        cols = _alloc_columns(a, (b,), dev)
+        DATAPATH_LIBRARY.launch("launch_datapath_step", a, dev, self.name)
+        self.launches += 1
+        return DatapathVerdicts(**cols)
+
+
 DATAPATH_PAIR = DatapathPairKernel()
+DATAPATH_STEP = DatapathStepKernel()
 
 
 # ---------------------------------------------------------------------------
 # L7 matchers (csrc/l7.cu)
 # ---------------------------------------------------------------------------
-
-_P = ctypes.c_void_p
-_I = ctypes.c_int32
-
 
 class DfaGlobal(ctypes.Structure):
     _fields_ = [("trans", _P), ("classes", _P), ("accept", _P),
@@ -444,40 +543,34 @@ _L7_LAUNCHERS = (
 )
 
 
-class _L7Library:
-    """csrc/l7.cu, built and bound once for the three L7 wrappers."""
+class _L7Library(_Library):
+    """csrc/l7.cu: the three L7 wrappers."""
 
-    def __init__(self) -> None:
-        self.lib = None
-        self.build_log = ""
+    stem = "l7"
 
-    def load(self, verbose: bool = False):
-        if self.lib is None:
-            path, self.build_log = build("l7", verbose=verbose)
-            lib = ctypes.CDLL(str(path))
-            for launch, smem, args in _L7_LAUNCHERS:
-                getattr(lib, launch).argtypes = [ctypes.POINTER(args), _P]
-                getattr(lib, launch).restype = ctypes.c_int
-                getattr(lib, smem).argtypes = [ctypes.POINTER(args)]
-                getattr(lib, smem).restype = ctypes.c_longlong
-            lib.l7_smem_limit.argtypes = []
-            lib.l7_smem_limit.restype = ctypes.c_int
-            lib.l7_struct_sizes.argtypes = [ctypes.POINTER(ctypes.c_int)]
-            lib.l7_struct_sizes.restype = ctypes.c_int
-            sizes = (ctypes.c_int * 3)()
-            lib.l7_struct_sizes(sizes)
-            want = [ctypes.sizeof(a) for _, _, a in _L7_LAUNCHERS]
-            if list(sizes) != want:
-                raise RuntimeError(
-                    f"L7 argument layouts differ between kernels.py {want} "
-                    f"and csrc/l7.cu {list(sizes)}"
-                )
-            self.lib = lib
-        return self.lib
+    def bind(self, lib) -> None:
+        self.declare(lib, [(launch, args) for launch, _, args in
+                           _L7_LAUNCHERS])
+        for _, smem, args in _L7_LAUNCHERS:
+            getattr(lib, smem).argtypes = [ctypes.POINTER(args)]
+            getattr(lib, smem).restype = ctypes.c_longlong
+        lib.l7_smem_limit.argtypes = []
+        lib.l7_smem_limit.restype = ctypes.c_int
+        lib.l7_struct_sizes.argtypes = [ctypes.POINTER(ctypes.c_int)]
+        lib.l7_struct_sizes.restype = ctypes.c_int
+        sizes = (ctypes.c_int * 3)()
+        lib.l7_struct_sizes(sizes)
+        want = [ctypes.sizeof(a) for _, _, a in _L7_LAUNCHERS]
+        if list(sizes) != want:
+            raise RuntimeError(
+                f"L7 argument layouts differ between kernels.py {want} "
+                f"and csrc/l7.cu {list(sizes)}"
+            )
 
-    def launch(self, launch: str, smem: str, args, device, name: str):
+    def launch_staged(self, launch: str, smem: str, args, device,
+                      name: str) -> None:
         """Refuse tables that do not fit one block's shared memory, then
-        launch on the current stream; raise on a launch error."""
+        launch."""
         lib = self.load()
         need = getattr(lib, smem)(ctypes.byref(args))
         limit = lib.l7_smem_limit()
@@ -486,10 +579,7 @@ class _L7Library:
                 f"{name}: the staged tables take {need} B of shared memory, "
                 f"more than the {limit} B one block may use"
             )
-        stream = torch.cuda.current_stream(device).cuda_stream
-        err = getattr(lib, launch)(ctypes.byref(args), stream)
-        if err != 0:
-            raise RuntimeError(f"{name} launch failed: CUDA error {err}")
+        self.launch(launch, args, device, name)
 
 
 L7_LIBRARY = _L7Library()
@@ -627,8 +717,8 @@ class HttpMatchKernel:
         allowed = torch.empty(b, dtype=torch.bool, device=dev)
         matched = torch.empty((b, w), dtype=torch.int32, device=dev)
         a.allowed, a.matched, a.n = allowed.data_ptr(), matched.data_ptr(), b
-        L7_LIBRARY.launch("launch_http_match", "http_match_smem", a, dev,
-                          self.name)
+        L7_LIBRARY.launch_staged("launch_http_match", "http_match_smem", a,
+                                 dev, self.name)
         self.launches += 1
         return allowed, matched
 
@@ -660,8 +750,8 @@ class KafkaMatchKernel:
         allowed = torch.empty(b, dtype=torch.bool, device=dev)
         a.allowed, a.n = allowed.data_ptr(), b
         a.topic_kinds = _topic_kinds()
-        L7_LIBRARY.launch("launch_kafka_match", "kafka_match_smem", a, dev,
-                          self.name)
+        L7_LIBRARY.launch_staged("launch_kafka_match", "kafka_match_smem", a,
+                                 dev, self.name)
         self.launches += 1
         return allowed
 
@@ -711,8 +801,8 @@ class FleetL7Kernel:
         allowed = torch.empty(b, dtype=torch.bool, device=dev)
         a.allowed, a.n = allowed.data_ptr(), b
         a.topic_kinds = _topic_kinds()
-        L7_LIBRARY.launch("launch_fleet_l7", "fleet_l7_smem", a, dev,
-                          self.name)
+        L7_LIBRARY.launch_staged("launch_fleet_l7", "fleet_l7_smem", a,
+                                 dev, self.name)
         self.launches += 1
         return allowed
 
@@ -720,4 +810,151 @@ class FleetL7Kernel:
 HTTP_MATCH = HttpMatchKernel()
 KAFKA_MATCH = KafkaMatchKernel()
 FLEET_L7 = FleetL7Kernel()
-KERNELS = (DATAPATH_PAIR, HTTP_MATCH, KAFKA_MATCH, FLEET_L7)
+
+
+# ---------------------------------------------------------------------------
+# The churn loop (csrc/churn.cu)
+# ---------------------------------------------------------------------------
+
+# the step outputs CHURN_COMPACT reads, with their dtypes
+_CHURN_OUT = (
+    ("ct_create", torch.bool), ("ct_delete", torch.bool),
+    ("allowed", torch.uint8), ("proxy_port", torch.int32),
+    ("final_daddr", torch.int32), ("final_dport", torch.int32),
+    ("rev_nat", torch.int32), ("lb_slave", torch.int32),
+)
+
+
+class ChurnArgs(ctypes.Structure):
+    """Mirror of cch::ChurnArgs in csrc/churn.cu, field for field."""
+
+    _fields_ = (
+        [(name, _P) for name, _ in _CHURN_OUT]
+        + [(name, _P) for name in ("pool", "picks", "claim", "hash",
+                                   "winner", "counts", "header", "intents")]
+        + [(name, _I) for name in ("B", "valid", "cap", "slots", "pool_n")]
+    )
+
+
+class DeltaArgs(ctypes.Structure):
+    """Mirror of cch::DeltaArgs in csrc/churn.cu, field for field."""
+
+    _fields_ = [("buckets", _P), ("idx", _P), ("rows", _P), ("m", _I),
+                ("lanes", _I), ("n_buckets", _I)]
+
+
+class _ChurnLibrary(_Library):
+    """csrc/churn.cu: CHURN_COMPACT and CT_DELTA."""
+
+    stem = "churn"
+
+    def bind(self, lib) -> None:
+        self.declare(lib, (("launch_churn_compact", ChurnArgs),
+                           ("launch_ct_delta", DeltaArgs)))
+        lib.churn_blocks.argtypes = [ctypes.c_int]
+        lib.churn_blocks.restype = ctypes.c_int
+        lib.churn_struct_sizes.argtypes = [ctypes.POINTER(ctypes.c_int)]
+        lib.churn_struct_sizes.restype = ctypes.c_int
+        sizes = (ctypes.c_int * 2)()
+        lib.churn_struct_sizes(sizes)
+        want = [ctypes.sizeof(ChurnArgs), ctypes.sizeof(DeltaArgs)]
+        if list(sizes) != want:
+            raise RuntimeError(
+                f"churn argument layouts differ between kernels.py "
+                f"{want} and csrc/churn.cu {list(sizes)}"
+            )
+
+
+CHURN_LIBRARY = _ChurnLibrary()
+
+
+class ChurnCompactKernel:
+    """K22 on the card: (header int32 [4], intents int32 [12, cap]) of
+    a step's outputs over pool[:, picks], bit-exact with
+    replay._churn_compact on the same flows."""
+
+    name = "churn_compact"
+
+    def __init__(self) -> None:
+        self.launches = 0
+
+    def load(self, verbose: bool = False):
+        return CHURN_LIBRARY.load(verbose)
+
+    def __call__(self, out, pool, picks, valid: int, cap: int,
+                 claim_slots: int):
+        dev = _cuda_device(pool, self.name)
+        if pool.dim() != 2 or pool.shape[0] != 8 or pool.shape[1] < 1:
+            raise ValueError(f"pool must be [8, P >= 1], got "
+                             f"{tuple(pool.shape)}")
+        b = _batch(int(picks.shape[0]))
+        if not 0 <= int(valid) <= b:
+            raise ValueError(f"valid = {valid} outside [0, {b}]")
+        if not 1 <= int(cap) < 1 << 31:
+            raise ValueError(f"cap = {cap}")
+        slots = _pow2(int(claim_slots), "claim_slots")
+        if slots >= 1 << 31:
+            raise ValueError("claim table too large")
+        a = ChurnArgs()
+        for name, dtype in _CHURN_OUT:
+            setattr(a, name, _ptr(getattr(out, name), f"out.{name}", dev,
+                                  dtype, (b,)))
+        n = int(pool.shape[1])
+        a.pool = _ptr(pool, "pool", dev, shape=(8, n))
+        a.picks = _ptr(picks, "picks", dev, shape=(b,))
+        lib = self.load()
+        blocks = lib.churn_blocks(b)
+        scratch = dict(
+            claim=torch.empty(slots, dtype=torch.int32, device=dev),
+            hash=torch.empty(max(b, 1), dtype=torch.int32, device=dev),
+            winner=torch.empty(max(b, 1), dtype=torch.uint8, device=dev),
+            counts=torch.empty(4 * blocks, dtype=torch.int32, device=dev),
+        )
+        header = torch.empty(4, dtype=torch.int32, device=dev)
+        intents = torch.empty((12, int(cap)), dtype=torch.int32, device=dev)
+        for name, t in scratch.items():
+            setattr(a, name, t.data_ptr())
+        a.header, a.intents = header.data_ptr(), intents.data_ptr()
+        a.B, a.valid, a.cap, a.slots, a.pool_n = b, int(valid), int(cap), \
+            slots, n
+        CHURN_LIBRARY.launch("launch_churn_compact", a, dev, self.name)
+        self.launches += 1
+        return header, intents
+
+
+class CtDeltaKernel:
+    """K18's CT part on the card: rows int32 [M, lanes] written into
+    snapshot.buckets at idx int32 [M], in place; returns the
+    snapshot."""
+
+    name = "ct_delta"
+
+    def __init__(self) -> None:
+        self.launches = 0
+
+    def load(self, verbose: bool = False):
+        return CHURN_LIBRARY.load(verbose)
+
+    def __call__(self, snapshot, idx, rows):
+        buckets = snapshot.buckets
+        dev = _cuda_device(buckets, self.name)
+        if buckets.dim() != 2:
+            raise ValueError("ct.buckets must be [Cb, lanes]")
+        nb, lanes = (int(v) for v in buckets.shape)
+        m = int(idx.shape[0])
+        if m >= 1 << 31:
+            raise ValueError("delta too large")
+        a = DeltaArgs()
+        a.buckets = _ptr(buckets, "ct.buckets", dev)
+        a.idx = _ptr(idx, "idx", dev, shape=(m,))
+        a.rows = _ptr(rows, "rows", dev, shape=(m, lanes))
+        a.m, a.lanes, a.n_buckets = m, lanes, nb
+        CHURN_LIBRARY.launch("launch_ct_delta", a, dev, self.name)
+        self.launches += 1
+        return snapshot
+
+
+CHURN_COMPACT = ChurnCompactKernel()
+CT_DELTA = CtDeltaKernel()
+KERNELS = (DATAPATH_PAIR, DATAPATH_STEP, CHURN_COMPACT, CT_DELTA,
+           HTTP_MATCH, KAFKA_MATCH, FLEET_L7)

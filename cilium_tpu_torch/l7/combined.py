@@ -39,6 +39,7 @@ import torch
 
 from cilium_tpu_torch.device import array_tensor, narrow, u32_tensor
 from cilium_tpu_torch.engine.datapath import (
+    FLOW_COLUMNS,
     DatapathVerdicts,
     datapath_pair_plain,
     datapath_step_accum_pair_telem_packed4_stacked,
@@ -65,9 +66,7 @@ class L7Pool:
 def pool_to(pool: dict, http_fields, kafka_fields, device) -> L7Pool:
     """A world's pool columns and its per-row L7 fields (numpy) -> an
     L7Pool on `device`."""
-    cols = ("ep_index", "saddr", "daddr", "sport", "dport", "proto",
-            "direction", "is_fragment")
-    packed = pack_flow_records4(**{c: pool[c] for c in cols})
+    packed = pack_flow_records4(**{c: pool[c] for c in FLOW_COLUMNS})
     return L7Pool(
         packed4=u32_tensor(packed, device),
         ep_index=array_tensor(np.asarray(pool["ep_index"], np.int32), device),

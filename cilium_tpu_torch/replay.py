@@ -1,0 +1,368 @@
+"""The conntrack churn loop: flow-pool replay with CT write-back.
+
+Counterpart of the reference's `replay_pool` (its config-5
+`ct_churn_tuples_per_sec`).  The flow pool (unique flows, as real
+traffic repeats flows) is packed once into [8, P] words on the
+device; each batch is a vector of picks into it.  One round of a
+batch runs:
+
+  1. the churn step on the device: the single-batch datapath step
+     over pool[:, picks] (DATAPATH_STEP), then the intent compaction
+     (CHURN_COMPACT): a claim table keeps the first flagged row per
+     flow-hash slot, and the first `cap` winners, in row order, are
+     written as [12, cap] intent columns beside a 4-word header;
+  2. the 16-byte header copied to the host: the round's one blocking
+     synchronisation;
+  3. the intents fetched in the smallest slice bucket that holds them;
+  4. the host CT fold (apply_ct_writeback_host, then
+     CTBucketIndex.apply, in np.unique's sorted order);
+  5. the changed bucket rows written into the resident snapshot in
+     place (CT_DELTA).
+
+The round repeats (a rerun) while the header's `remaining` says that
+intents lost their slot or were cut by the cap.  On CUDA tensors the
+three kernels run, or the call raises; on CPU tensors their plain
+versions run.  Counter accumulation, the record-buffer `replay()` and
+`replay_lattice` are not ported.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import time
+from dataclasses import dataclass, field
+from typing import Dict, List
+
+import numpy as np
+import torch
+
+from cilium_tpu_torch.ct.device import CTBucketIndex, apply_bucket_delta
+from cilium_tpu_torch.device import narrow, resolve_device, u32_tensor, widen
+from cilium_tpu_torch.engine.datapath import (
+    FLOW_COLUMNS,
+    DatapathTables,
+    DatapathVerdicts,
+    FlowBatch,
+    apply_ct_writeback_host,
+    datapath_step_pool,
+    flow_batch_from_packed,
+)
+from cilium_tpu_torch.engine.hashtable import fnv1a
+
+# create/delete intents that one round may carry to the host
+_CT_INTENT_CAP = 1 << 16
+# claim-table slots of the on-device intent dedup
+_CT_CLAIM_SLOTS = 1 << 19
+# the intent fetch moves the smallest of these column slices that
+# holds the round's intents
+_CT_FETCH_BUCKETS = (1 << 10, 1 << 13, _CT_INTENT_CAP)
+
+# rows of the [12, cap] intent buffer
+INTENT_COLUMNS = (
+    "ct_create", "ct_delete", "final_daddr", "final_dport", "saddr",
+    "sport", "proto", "direction", "rev_nat", "lb_slave", "daddr", "dport",
+)
+
+_POOL_PACK_KEY = "__device_pack__"
+
+
+def churn_hash(out: DatapathVerdicts, flows: FlowBatch) -> torch.Tensor:
+    """FNV-1a of each row's post-DNAT flow words (final_daddr, saddr,
+    final_dport << 16 | sport, proto << 8 | direction): int64 [B]
+    holding the u32 hash."""
+    u = widen
+    return fnv1a(torch.stack([
+        u(out.final_daddr),
+        u(flows.saddr),
+        ((u(out.final_dport) << 16) | (u(flows.sport) & 0xFFFF)) & 0xFFFFFFFF,
+        ((u(flows.proto) << 8) | u(flows.direction)) & 0xFFFFFFFF,
+    ], dim=1))
+
+
+def _intent_columns(out: DatapathVerdicts, flows: FlowBatch):
+    src = dict(
+        ct_create=out.ct_create, ct_delete=out.ct_delete,
+        final_daddr=out.final_daddr, final_dport=out.final_dport,
+        saddr=flows.saddr, sport=flows.sport, proto=flows.proto,
+        direction=flows.direction, rev_nat=out.rev_nat,
+        lb_slave=out.lb_slave, daddr=flows.daddr, dport=flows.dport,
+    )
+    return torch.stack([widen(src[c]) for c in INTENT_COLUMNS])
+
+
+def _churn_compact(out: DatapathVerdicts, flows: FlowBatch, valid: int,
+                   cap: int = _CT_INTENT_CAP,
+                   claim_slots: int = _CT_CLAIM_SLOTS):
+    """Plain version of the intent compaction.  Rows below `valid`
+    that create or delete are flagged; each claims slot
+    `hash & (claim_slots - 1)` with its row id, and the smallest id
+    wins.  A flagged loser whose hash differs from its winner's is a
+    distinct flow (a "true loser") and needs a rerun; one with the same
+    hash is a later packet of the winner's flow.  The first `cap`
+    winners in row order become the intents.  Returns (header int32 [4]
+    = n_tx, allowed, redirected, remaining, intents int32 [12, cap]),
+    u32 bits in int32."""
+    b = int(out.ct_create.shape[0])
+    dev = out.ct_create.device
+    row_id = torch.arange(b, dtype=torch.int64, device=dev)
+    in_valid = row_id < valid
+    flag = (out.ct_create.bool() | out.ct_delete.bool()) & in_valid
+    h = churn_hash(out, flows)
+    slot = h & (claim_slots - 1)
+    claim = torch.full((claim_slots,), b, dtype=torch.int64, device=dev)
+    claim.scatter_reduce_(0, slot, torch.where(flag, row_id, b), "amin")
+    winner_row = claim[slot]
+    winner = flag & (winner_row == row_id)
+    true_loser = flag & ~winner & (h[winner_row.clamp(0, b - 1)] != h)
+    take = min(cap, b)
+    order = torch.nonzero(winner).reshape(-1)[:take]
+    intents = torch.zeros((len(INTENT_COLUMNS), cap), dtype=torch.int32,
+                          device=dev)
+    intents[:, : order.numel()] = narrow(_intent_columns(out, flows)[:, order])
+    n_win = winner.sum()
+    n_tx = n_win.clamp(max=take)
+    allowed = (widen(out.allowed) * in_valid).sum()
+    redirected = ((out.proxy_port > 0) & in_valid).sum()
+    remaining = true_loser.sum() + (n_win - n_tx)
+    header = narrow(torch.stack([n_tx, allowed, redirected, remaining]))
+    return header, intents
+
+
+def churn_compact(out: DatapathVerdicts, pool: torch.Tensor,
+                  picks: torch.Tensor, valid: int):
+    """The intent compaction of a step over pool[:, picks], at the
+    module's `_CT_INTENT_CAP` and `_CT_CLAIM_SLOTS` as they stand when
+    it is called.  CUDA tensors launch CHURN_COMPACT (which reads the
+    flow words from the pool itself); CPU tensors run `_churn_compact`."""
+    cap, claim_slots = _CT_INTENT_CAP, _CT_CLAIM_SLOTS
+    if pool.device.type == "cuda":
+        from cilium_tpu_torch import kernels
+
+        return kernels.CHURN_COMPACT(out, pool, picks, valid, cap,
+                                     claim_slots)
+    if pool.device.type == "cpu":
+        flows = flow_batch_from_packed(pool[:, picks.to(torch.int64)])
+        return _churn_compact(out, flows, valid, cap, claim_slots)
+    raise ValueError(f"unsupported device {pool.device}")
+
+
+def churn_step(tables: DatapathTables, pool: torch.Tensor,
+               picks: torch.Tensor, valid: int):
+    """Pool gather, single-batch datapath step and intent compaction:
+    (header, intents) as `_churn_compact` returns them."""
+    out = datapath_step_pool(tables, pool, picks)
+    return churn_compact(out, pool, picks, valid)
+
+
+def pack_flow_pool(pool: Dict[str, np.ndarray]) -> np.ndarray:
+    """Flow-pool columns -> the [8, P] u32 pack, rows in FLOW_COLUMNS
+    order."""
+    p = len(pool["saddr"])
+    packed = np.empty((len(FLOW_COLUMNS), p), dtype=np.uint32)
+    for j, name in enumerate(FLOW_COLUMNS):
+        packed[j] = np.asarray(pool[name]).astype(np.uint32, copy=False)
+    return packed
+
+
+def _fetch_buckets(cap: int):
+    return tuple(b for b in _CT_FETCH_BUCKETS if b < cap) + (cap,)
+
+
+def _fetch_intents(intents: torch.Tensor, k: int) -> np.ndarray:
+    """The first k intent columns as u32 numpy, copied to the host in
+    the smallest slice bucket that holds them."""
+    cap = int(intents.shape[1])
+    bucket = next(b for b in _fetch_buckets(cap) if k <= b)
+    return intents[:, :bucket].cpu().numpy().view(np.uint32)[:, :k]
+
+
+def _same_device(t: torch.Tensor, dev: torch.device) -> bool:
+    return t.device.type == dev.type and (
+        dev.type == "cpu" or t.device.index == dev.index
+    )
+
+
+@dataclass
+class ReplayStats:
+    total: int = 0
+    allowed: int = 0
+    denied: int = 0
+    redirected: int = 0
+    batches: int = 0
+    seconds: float = 0.0
+    ct_created: int = 0
+    ct_deleted: int = 0
+    # churn rounds (batches plus reruns), each round's intent count, and
+    # the host seconds of the rounds' folds (intent fetch, CT write-back,
+    # bucket index, delta launch)
+    rounds: int = 0
+    intents: List[int] = field(default_factory=list)
+    fold_seconds: float = 0.0
+
+    @property
+    def verdicts_per_sec(self) -> float:
+        return self.total / self.seconds if self.seconds else 0.0
+
+    @property
+    def reruns(self) -> int:
+        return self.rounds - self.batches
+
+
+class _ChurnDriver:
+    """The churn loop's state: the bucket index (host mirror of the
+    device snapshot) and the resident snapshot, cached on the CTMap
+    across calls.  The cache holds while the map's `mutations` counter
+    and its key set are those it was stored with; code that changes a
+    CTEntry's fields behind the map's back must
+    `del ct_map._device_churn_cache`.  Within the loop every change
+    goes through `drain`, which keeps the map, the index and the
+    snapshot in step."""
+
+    def __init__(self, ct_map, device: torch.device) -> None:
+        from cilium_tpu_torch.convert import ct_snapshot_to
+
+        self.ct_map = ct_map
+        cached = getattr(ct_map, "_device_churn_cache", None)
+        if (
+            cached is not None
+            and cached[2] == ct_map.mutations
+            and cached[0].key_home.keys() == ct_map.entries.keys()
+            and _same_device(cached[1].buckets, device)
+        ):
+            self.ct_index, self.dev_snap = cached[:2]
+        else:
+            self.ct_index = CTBucketIndex(ct_map)
+            self.dev_snap = ct_snapshot_to(
+                self.ct_index.full_snapshot(), device
+            )
+
+    def drain(self, header_d: torch.Tensor, intents_d: torch.Tensor,
+              stats: ReplayStats, valid: int, first_pass: bool) -> int:
+        """One round's host side: read the header (the sync), fold the
+        intents into the map, the index and the snapshot, and count
+        the batch on its first pass.  Returns `remaining` (> 0: the
+        caller reruns the batch)."""
+        header = header_d.cpu().numpy().view(np.uint32)
+        k, allowed, redirected, remaining = (int(v) for v in header)
+        stats.rounds += 1
+        stats.intents.append(k)
+        if first_pass:
+            stats.total += valid
+            stats.allowed += allowed
+            stats.denied += valid - allowed
+            stats.redirected += redirected
+            stats.batches += 1
+        if k:
+            t0 = time.perf_counter()
+            packed = _fetch_intents(intents_d, k)
+            created, deleted = apply_ct_writeback_host(
+                self.ct_map,
+                packed[0].astype(bool),
+                packed[1].astype(bool),
+                *(packed[j] for j in range(2, 10)),
+                orig_daddr=packed[10],
+                orig_dport=packed[11],
+                now=self.ct_map.now(),
+            )
+            stats.ct_created += len(created)
+            stats.ct_deleted += len(deleted)
+            if created or deleted:
+                idx, rows, new_stash = self.ct_index.apply(created, deleted)
+                if len(idx) or new_stash is not None:
+                    apply_bucket_delta(self.dev_snap, idx, rows, new_stash)
+            stats.fold_seconds += time.perf_counter() - t0
+        return remaining
+
+    def run_batch(self, tables: DatapathTables, pool: torch.Tensor,
+                  picks: torch.Tensor, valid: int,
+                  stats: ReplayStats) -> None:
+        first_pass = True
+        while True:
+            t = dataclasses.replace(tables, ct=self.dev_snap)
+            header, intents = churn_step(t, pool, picks, valid)
+            remaining = self.drain(header, intents, stats, valid, first_pass)
+            first_pass = False
+            if remaining == 0:
+                return
+
+    def stash(self) -> None:
+        self.ct_map._device_churn_cache = (
+            self.ct_index, self.dev_snap, self.ct_map.mutations,
+        )
+
+
+def _pool_on(pool: Dict[str, np.ndarray], dev: torch.device) -> torch.Tensor:
+    """The pool's [8, P] device pack, cached on the pool dict itself
+    (helpers that take the pool should read FLOW_COLUMNS, not
+    items()); the columns are treated as immutable once replayed."""
+    from cilium_tpu_torch.convert import flow_pool_to
+
+    packed = pool.get(_POOL_PACK_KEY)
+    if packed is None or not _same_device(packed, dev):
+        packed = flow_pool_to(pool, dev)
+        pool[_POOL_PACK_KEY] = packed
+    return packed
+
+
+def _batch_seed(base: int, batch_idx: int) -> int:
+    return ((base & 0xFFFFFFFF) << 32 | (batch_idx & 0xFFFFFFFF)) & (
+        (1 << 63) - 1
+    )
+
+
+def replay_pool(tables: DatapathTables, pool: Dict[str, np.ndarray],
+                picks, batch_size: int = 1 << 21, *, ct_map,
+                device=None) -> ReplayStats:
+    """Sustained-churn replay over a flow pool (see the module
+    docstring) with `tables` already on `device` (None = the card);
+    their CT plane is replaced by the loop's own snapshot.
+
+    `picks` is an explicit index array (uploaded as u32 per batch) or
+    an int n: n uniform picks drawn on the device with a
+    torch.Generator seeded from `len(ct_map.entries) ^ n` and the batch
+    index (not the reference's jax.random numbers).  Each batch has
+    `batch_size` rows; the last one's rows past `valid` are padding
+    that is computed but never counted.  `stats.seconds` starts after
+    the per-call set-up (tables, pool pack, snapshot cache)."""
+    dev = resolve_device(device)
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    leaf = tables.policy.id_table
+    if not (isinstance(leaf, torch.Tensor) and _same_device(leaf, dev)):
+        raise ValueError(
+            f"the tables must be tensors on {dev} (convert.tables_to)"
+        )
+    pool_dev = _pool_on(pool, dev)
+    churn = _ChurnDriver(ct_map, dev)
+    stats = ReplayStats()
+
+    def run(picks_dev, valid):
+        churn.run_batch(tables, pool_dev, picks_dev, valid, stats)
+
+    if isinstance(picks, (int, np.integer)):
+        n = int(picks)
+        base = len(ct_map.entries) ^ n
+        gen = torch.Generator(device=dev)
+        n_pool = int(pool_dev.shape[1])
+        t0 = time.perf_counter()
+        for batch_idx, start in enumerate(range(0, n, batch_size)):
+            gen.manual_seed(_batch_seed(base, batch_idx))
+            picks_dev = torch.randint(
+                0, n_pool, (batch_size,), generator=gen, device=dev,
+                dtype=torch.int32,
+            )
+            run(picks_dev, min(batch_size, n - start))
+    else:
+        picks = np.asarray(picks).astype(np.uint32, copy=False)
+        t0 = time.perf_counter()
+        for start in range(0, len(picks), batch_size):
+            chunk = picks[start : start + batch_size]
+            valid = len(chunk)
+            if valid < batch_size:
+                chunk = np.concatenate(
+                    [chunk, np.zeros(batch_size - valid, np.uint32)]
+                )
+            run(u32_tensor(chunk, dev), valid)
+    churn.stash()
+    stats.seconds = time.perf_counter() - t0
+    return stats

@@ -48,6 +48,7 @@ from cilium_tpu_torch.compiler.tables import (
 from cilium_tpu_torch.ct.device import compile_ct
 from cilium_tpu_torch.ct.table import CT_SERVICE, CTMap, CTTuple
 from cilium_tpu_torch.engine.datapath import (
+    FLOW_COLUMNS,
     DatapathTables,
     pack_flow_records4,
     subword_datapath_tables,
@@ -145,16 +146,10 @@ class World:
                     perm, p = weights[row]
                     picks = sub[perm[prng.choice(len(sub), size=half, p=p)]]
                 pair[row] = pack_flow_records4(
-                    **{c: pool[c][picks] for c in FLOW_FIELDS}
+                    **{c: pool[c][picks] for c in FLOW_COLUMNS}
                 )
             out.append(pair)
         return out
-
-
-FLOW_FIELDS = (
-    "ep_index", "saddr", "daddr", "sport", "dport", "proto", "direction",
-    "is_fragment",
-)
 
 
 def headline_tables(world: World,

@@ -35,7 +35,9 @@ def test_import_loads_no_jax_and_no_reference_module():
     """A fresh interpreter imports every module of the port; neither
     jax nor any cilium_tpu.* module may end up in sys.modules."""
     mods = list(_modules())
-    assert "cilium_tpu_torch.kernels" in mods
+    for m in ("cilium_tpu_torch.kernels", "cilium_tpu_torch.replay",
+              "cilium_tpu_torch.ct.device", "cilium_tpu_torch.convert"):
+        assert m in mods
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"
@@ -57,6 +59,7 @@ def test_import_loads_no_jax_and_no_reference_module():
 
 def test_sources_name_neither_jax_nor_the_reference():
     files = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    assert PKG / "replay.py" in files
     for path in files:
         text = path.read_text()
         hit = _FORBIDDEN.search(text)

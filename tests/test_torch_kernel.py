@@ -58,6 +58,8 @@ def test_kernel_matches_plain_version(zipf):
 @pytest.mark.cuda
 def test_kernel_refuses_layouts_it_does_not_implement():
     _need_card()
+    import dataclasses
+
     from cilium_tpu_torch import kernels, world
     from cilium_tpu_torch.compiler.tables import split_hot
     from cilium_tpu_torch.convert import tables_to
@@ -68,13 +70,17 @@ def test_kernel_refuses_layouts_it_does_not_implement():
         n_cidr_blocks=4, n_vips=2, n_pool=500, ct_max_entries=1024,
         identity_pad=256, filter_pad=16,
     )
-    wide = w.host_tables()  # 3-word L4, 5-word CT: not the kernel's
+    wide = w.host_tables()  # 3-word L4, 5-word CT: the kernels take them
     wide.policy = split_hot(wide.policy)
     tables = tables_to(wide, "cuda")
     acc = verdict.make_counter_buffers(tables.policy)
     tel = verdict.make_telemetry_buffers("cuda")
     pair = torch.from_numpy(w.pairs(seed=1, half=64, k=1)[0].view(np.int32))
-    with pytest.raises(ValueError, match="compact"):
-        kernels.DATAPATH_PAIR(tables, pair.cuda(), acc, tel)
+    kernels.DATAPATH_PAIR(tables, pair.cuda(), acc, tel)
+    # the [B, P] broadcast range fallback is not implemented
+    no_ranges = dataclasses.replace(
+        tables, ipcache=dataclasses.replace(tables.ipcache, range_rows=None))
+    with pytest.raises(ValueError, match="range classes"):
+        kernels.DATAPATH_PAIR(no_ranges, pair.cuda(), acc, tel)
     with pytest.raises(ValueError, match="CUDA"):
         kernels.DATAPATH_PAIR(tables, pair, acc, tel)
