@@ -5,7 +5,7 @@
 Builds the CUDA kernels from cilium_tpu_torch/csrc with nvcc (one
 process per library, started together), builds the config-5 world
 (50,000 rules, 32 endpoints, 65,536 identities) and its fleet L7
-matchers from fixed seeds, and drives five paths, each with the
+matchers from fixed seeds, and drives these paths, each with the
 launch counts set to 0 just before it and read just after:
 
   main_path  the headline datapath: PersistentPairDispatcher with
@@ -28,12 +28,29 @@ launch counts set to 0 just before it and read just after:
   combined   config 5's datapath + proxy step: 8 steps of
              2 x 2,097,152 flows, redirected flows compacted to
              131,072 per half and judged by the fleet L7 matchers
-             (DATAPATH_PAIR and FLEET_L7), with a traced idle share.
+             (DATAPATH_PAIR and FLEET_L7), with a traced idle share;
+  lattice    bench.py's lattice line: 8 calls of evaluate_batch on
+             config 5's 4,194,304 tuples (LATTICE), after lattice_check
+             holds LATTICE in every mode (config 5's compact and wide
+             tables, config 1's dense tables, config 2's IP mode; with
+             and without counters) and LPM_LOOKUP against their plain
+             versions;
+  replay_lattice  10,000,000 flow records of config 5's pool through
+             replay_lattice in batches of 1,048,576 with counters
+             (LATTICE), its first 2 batches also on the plain version,
+             512 sampled records against the oracle, a traced run;
+  cidr       config 2: evaluate_batch_from_ips at 100,000 tuples (16
+             calls) and 1,048,576 (8 calls), bench's 512-row oracle, and
+             lpm_lookup of the addresses (LATTICE in IP mode, LPM_LOOKUP);
+  config1_latency  config 1's 1,024 tuples through evaluate_batch, 256
+             synchronised calls, p50 and p99, every call against the
+             oracle (LATTICE); then lattice_timing.
 
 Every kernel is held bit-exact against its plain PyTorch version at
-the path's shapes, each L7 path against a host oracle on sampled
-rows, and the churn loop's resident CT snapshot against its host
-mirror.  Exits non-zero on any failure, and without a CUDA device.
+the path's shapes, each L7 and lattice path against a host oracle on
+sampled rows, and the churn loop's resident CT snapshot against its
+host mirror.  Exits non-zero on any failure, and without a CUDA
+device.
 
 The line before the last two is {"kernels": [...]}: per kernel its
 launches on its path, its error against the plain version, its time
@@ -43,7 +60,10 @@ and written once at 3.35 TB/s, or its operations at 67 T/s, whichever
 is larger.  `library_ms` is the time of `index_copy_` for CT_DELTA
 and null for the others: no single PyTorch call computes the fused
 datapath steps, the intent compaction, a DFA scan, the Kafka rule
-match or the fleet's routed match.  Then the card's name and power
+match, the fleet's routed match, the policy lattice or the two
+dependent DIR-24-8 reads.  LATTICE's launches are summed over its four
+paths, its time is config 5's compact mode; LPM_LOOKUP's time is
+config 2's 1,048,576 addresses.  Then the card's name and power
 limit as nvidia-smi prints them, then {"ok": true, "device": {...}}.
 """
 
@@ -71,6 +91,16 @@ CHURN_BATCH = 1 << 21  # bench.py's seed_batch for the churn passes
 CHECK_SLOTS = 1 << 12  # a claim table small enough to collide
 CHECK_CAP = 1 << 10  # a cap below the winners of CHECK_SLOTS
 ORACLE_ROWS = 512  # bench.py _gate_combined's sample
+LATTICE_TUPLES = 1 << 22  # bench.py's lattice line (--batch)
+LATTICE_CALLS = 8
+REPLAY_RECORDS = 10_000_000  # BASELINE.json's replay
+REPLAY_BATCH = 1 << 20  # replay_lattice's default batch
+CIDR_TUPLES = 100_000  # bench.py --cidr-tuples
+CIDR_CALLS = 16
+CIDR_BIG = 1 << 20
+CIDR_BIG_CALLS = 8
+CONFIG1_CALLS = 256
+CONFIG1_DENSE_TUPLES = 1 << 20  # config 1's distribution, at a card's width
 
 
 def phase(name: str, t0: float, **fields) -> None:
@@ -161,16 +191,15 @@ class RowReads(TorchFunctionMode):
         return func(*args, **(kwargs or {}))
 
 
-def table_row_bytes(tables, leaf_names, run):
-    """Bytes of the table rows `run()` (a plain version) gathers: each
-    distinct row (or element) that the flows' hashes select, read once
-    and whole; a leaf read without tensor indices (a stash, the
-    prefilter) counts whole.  Returns (bytes, gathered bytes)."""
-    leaves = [(f"{plane}.{leaf}", getattr(getattr(tables, plane), leaf))
-              for plane, leaf in leaf_names]
+def leaf_bytes(leaves, run):
+    """Bytes of the rows of `leaves` ([(name, tensor)]) that `run()` (a
+    plain version) gathers: each distinct row (or element) that the
+    inputs select, read once and whole; a leaf read without tensor
+    indices (a stash, the prefilter) counts whole.  Returns (bytes,
+    gathered bytes, what run() returned)."""
     rec = RowReads(leaves)
     with rec:
-        run()
+        out = run()
     total = gathered = 0
     for name, t in leaves:
         if name in rec.units:
@@ -180,7 +209,15 @@ def table_row_bytes(tables, leaf_names, run):
             gathered += unit * idx.numel()
         else:
             total += t.numel() * t.element_size()
-    return total, gathered
+    return total, gathered, out
+
+
+def table_row_bytes(tables, leaf_names, run):
+    """leaf_bytes over (plane, leaf) names of a DatapathTables.  Returns
+    (bytes, gathered bytes)."""
+    leaves = [(f"{plane}.{leaf}", getattr(getattr(tables, plane), leaf))
+              for plane, leaf in leaf_names]
+    return leaf_bytes(leaves, run)[:2]
 
 
 def out_bytes_per_flow(dp) -> int:
@@ -656,28 +693,14 @@ def combined_phase(kernels, w, tables, fleet) -> dict:
 
 
 class PlainRoute:
-    """Within the block, the churn loop's entry points find the plain
-    versions (run on the card's tensors) where they look up
-    DATAPATH_STEP, CHURN_COMPACT and CT_DELTA; the kernels are put back
-    on exit.  Their launch counts do not move."""
+    """Within the block, the entry points find the plain versions (run
+    on the card's tensors) where they look up the kernels named in
+    `plain` ({name in kernels: plain function}); the kernels are put
+    back on exit.  Their launch counts do not move."""
 
-    def __init__(self, kernels):
-        from cilium_tpu_torch import replay as rp
-        from cilium_tpu_torch.ct.device import apply_bucket_delta_plain
-        from cilium_tpu_torch.engine import datapath as dp
-
-        def flows(pool, picks):
-            return dp.flow_batch_from_packed(pool[:, picks.long()])
-
+    def __init__(self, kernels, plain: dict):
         self.kernels = kernels
-        self.plain = {
-            "DATAPATH_STEP": lambda tables, pool, picks: dp.datapath_step_plain(
-                tables, flows(pool, picks)),
-            "CHURN_COMPACT": lambda out, pool, picks, valid, cap, slots:
-                rp._churn_compact(out, flows(pool, picks), valid, cap, slots),
-            "CT_DELTA": lambda snap, idx, rows: apply_bucket_delta_plain(
-                snap, idx, rows),
-        }
+        self.plain = plain
 
     def __enter__(self):
         self.saved = {n: getattr(self.kernels, n) for n in self.plain}
@@ -687,6 +710,25 @@ class PlainRoute:
     def __exit__(self, *exc):
         for n, k in self.saved.items():
             setattr(self.kernels, n, k)
+
+
+def churn_plain() -> dict:
+    """The churn loop's kernels' plain versions, for PlainRoute."""
+    from cilium_tpu_torch import replay as rp
+    from cilium_tpu_torch.ct.device import apply_bucket_delta_plain
+    from cilium_tpu_torch.engine import datapath as dp
+
+    def flows(pool, picks):
+        return dp.flow_batch_from_packed(pool[:, picks.long()])
+
+    return {
+        "DATAPATH_STEP": lambda tables, pool, picks: dp.datapath_step_plain(
+            tables, flows(pool, picks)),
+        "CHURN_COMPACT": lambda out, pool, picks, valid, cap, slots:
+            rp._churn_compact(out, flows(pool, picks), valid, cap, slots),
+        "CT_DELTA": lambda snap, idx, rows: apply_bucket_delta_plain(
+            snap, idx, rows),
+    }
 
 
 def stats_fields(st) -> dict:
@@ -780,7 +822,7 @@ def churn_check(kernels, w, tables) -> dict:
     s_k = rp.replay_pool(tables, dict(w.pool), picks_np, CHURN_BATCH,
                          ct_map=maps[0], device="cuda")
     launched = {k.name: k.launches for k in kernels.KERNELS}
-    with PlainRoute(kernels):
+    with PlainRoute(kernels, churn_plain()):
         s_p = rp.replay_pool(tables, dict(w.pool), picks_np, CHURN_BATCH,
                              ct_map=maps[1], device="cuda")
     torch.cuda.synchronize()
@@ -984,6 +1026,453 @@ def churn_timing(kernels, tables, chk, counts) -> list:
                    counts[kernels.CT_DELTA.name], err, delta_ms, delta_plain,
                    bounds["delta"], 0.0, library_ms),
     ]
+
+
+# -- the tuple-level lattice (configs 1, 2 and config 5's lattice line) --------
+
+
+def lattice_plain(tables, batch, counters=False, lpm=None, src_ips=None):
+    """LATTICE's plain version, called as the kernel is."""
+    from cilium_tpu_torch.engine import verdict as vd
+    from cilium_tpu_torch.ipcache.lpm import lpm_lookup_plain
+
+    ids = None if lpm is None else lpm_lookup_plain(lpm, src_ips)
+    return vd._lattice_plain(tables, batch, identity=ids, counters=counters)
+
+
+def verdicts_err(got, want) -> int:
+    return max(int_err(getattr(got, c), getattr(want, c))
+               for c in ("allowed", "proxy_port", "match_kind"))
+
+
+def lattice_setup(w, tables, wide_t) -> dict:
+    """The lattice worlds on the card: config 5's policy tables (compact
+    and wide) with bench's lattice tuples; config 1 (hashed hot plane,
+    and dense without the hash) with its batch, and its distribution at
+    CONFIG1_DENSE_TUPLES; config 2's policy, DIR-24-8 tables and batches
+    drawn in bench.py config2's order (100,000 tuples, the 512 oracle
+    rows, 1,048,576 tuples); config 5's ipcache as DIR-24-8
+    (build_lpm(w.ipc_map)) with 1,048,576 of the pool's peer
+    addresses."""
+    from cilium_tpu_torch import world
+    from cilium_tpu_torch.compiler.tables import split_hot
+    from cilium_tpu_torch.convert import lpm_to, policy_tables_to
+    from cilium_tpu_torch.engine.verdict import TupleBatch
+    from cilium_tpu_torch.ipcache.lpm import build_lpm
+
+    t = time.perf_counter()
+    ex = world.example_world()
+    ex_big = world.example_world(batch=CONFIG1_DENSE_TUPLES)
+    pol1 = ex.policy_tables()
+    dense1 = dataclasses.replace(pol1, **{k: None for k in (
+        "l4_hash_rows", "l4_hash_stash", "l4_wild_rows", "l4_wild_stash")})
+    cw = world.cidr_world()
+    src_s, cols_s = cw.make_cidr_batch(CIDR_TUPLES)
+    sample = cw.rng.integers(0, CIDR_TUPLES, size=ORACLE_ROWS)
+    src_b, cols_b = cw.make_cidr_batch(CIDR_BIG)
+    pool = w.pool
+    rows = np.random.default_rng(43).integers(0, len(pool["direction"]),
+                                              CIDR_BIG)
+    peer = np.where(pool["direction"] == 0, pool["saddr"], pool["daddr"])
+    u = dict(
+        c5=TupleBatch.from_numpy(**world.lattice_tuples(w, LATTICE_TUPLES),
+                                 device="cuda"),
+        c5_policy=tables.policy, c5_wide=wide_t.policy,
+        ex=ex, c1=policy_tables_to(split_hot(pol1), "cuda"),
+        c1_batch=TupleBatch.from_numpy(**ex.tuples, device="cuda"),
+        c1_dense=policy_tables_to(dense1, "cuda"),
+        c1_big=TupleBatch.from_numpy(**ex_big.tuples, device="cuda"),
+        cw=cw, c2=policy_tables_to(split_hot(cw.policy_tables()), "cuda"),
+        c2_lpm=lpm_to(build_lpm(cw.ipc_map), "cuda"),
+        c2_small=(src_s, cols_s,
+                  torch.from_numpy(src_s.view(np.int32)).cuda(),
+                  TupleBatch.from_numpy(**cols_s, device="cuda")),
+        c2_sample=sample,
+        c2_big=(src_b, cols_b,
+                torch.from_numpy(src_b.view(np.int32)).cuda(),
+                TupleBatch.from_numpy(**cols_b, device="cuda")),
+        c5_lpm=lpm_to(build_lpm(w.ipc_map), "cuda"),
+        c5_ips=torch.from_numpy(
+            peer[rows].astype(np.uint32).view(np.int32)).cuda(),
+    )
+    torch.cuda.synchronize()
+    phase("lattice_setup", t, c5_tuples=LATTICE_TUPLES,
+          c1_identities=len(ex.identity_ids),
+          c1_l4_hash_rows=tuple(u["c1"].l4_hash_rows.shape),
+          c2_prefixes=len(cw.ipc_map), c2_blocks=int(u["c2_lpm"].l2.shape[0]),
+          c5_lpm_blocks=int(u["c5_lpm"].l2.shape[0]),
+          c5_policy_identities=int(tables.policy.id_table.shape[0]))
+    return u
+
+
+def lattice_modes(u) -> dict:
+    """LATTICE's modes at this run's shapes: (tables, batch, kwargs)."""
+    ip = dict(lpm=u["c2_lpm"], src_ips=u["c2_big"][2])
+    return {
+        "c5_compact": (u["c5_policy"], u["c5"], {}),
+        "c5_compact_counters": (u["c5_policy"], u["c5"], {"counters": True}),
+        "c5_wide": (u["c5_wide"], u["c5"], {}),
+        "c5_wide_counters": (u["c5_wide"], u["c5"], {"counters": True}),
+        "c1_dense": (u["c1_dense"], u["c1_big"], {}),
+        "c1_dense_counters": (u["c1_dense"], u["c1_big"], {"counters": True}),
+        "c2_ip": (u["c2"], u["c2_big"][3], ip),
+        "c2_ip_counters": (u["c2"], u["c2_big"][3], dict(ip, counters=True)),
+    }
+
+
+def lattice_check(kernels, u) -> int:
+    """LATTICE in every mode and LPM_LOOKUP on both DIR-24-8 tables,
+    each against its plain version on the same inputs: 0 differences."""
+    from cilium_tpu_torch.ipcache.lpm import lpm_lookup_plain
+
+    t = time.perf_counter()
+    errs = {}
+    for name, (tab, batch, kw) in lattice_modes(u).items():
+        v, acc = kernels.LATTICE(tab, batch, **kw)
+        pv, pacc = lattice_plain(tab, batch, **kw)
+        err = verdicts_err(v, pv)
+        if acc is not None:
+            err = max(err, int_err(acc, pacc, True))
+        errs[name] = err
+        del v, acc, pv, pacc
+    for name, lpm, ips in (("lpm_c2", u["c2_lpm"], u["c2_big"][2]),
+                           ("lpm_c5", u["c5_lpm"], u["c5_ips"])):
+        errs[name] = int_err(kernels.LPM_LOOKUP(lpm, ips),
+                             lpm_lookup_plain(lpm, ips), True)
+    torch.cuda.synchronize()
+    phase("lattice_check", t, max_abs_err=errs)
+    if any(errs.values()):
+        raise SystemExit(f"lattice_check: a kernel differs from its plain "
+                         f"version: {errs}")
+    return max(errs.values())
+
+
+def lattice_phase(kernels, u) -> int:
+    """bench.py's lattice_verdicts_per_sec_per_chip: 8 calls of
+    evaluate_batch on config 5's 4,194,304 tuples already on the card."""
+    from cilium_tpu_torch.engine.verdict import evaluate_batch
+
+    tab, batch = u["c5_policy"], u["c5"]
+    evaluate_batch(tab, batch)
+    torch.cuda.synchronize()
+    reset_counts(kernels)
+    t = time.perf_counter()
+    outs = [evaluate_batch(tab, batch) for _ in range(LATTICE_CALLS)]
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    launches = kernels.LATTICE.launches
+    kinds = torch.bincount(outs[0].match_kind.long(), minlength=5).tolist()
+    phase("lattice", t, calls=LATTICE_CALLS, tuples=LATTICE_TUPLES,
+          launches=launches, wall_ms=round(wall * 1e3, 4),
+          verdicts_per_s=round(LATTICE_CALLS * LATTICE_TUPLES / wall),
+          allowed=int(outs[0].allowed.sum()),
+          redirected=int((outs[0].proxy_port > 0).sum()), match_kinds=kinds)
+    if launches != LATTICE_CALLS or any(
+            not torch.equal(o.allowed, outs[0].allowed) for o in outs):
+        raise SystemExit(f"lattice: {launches} launches or unstable output")
+    return launches
+
+
+def replay_oracle(states, rec, v) -> int:
+    """Mismatches of sampled records (their columns in `rec`, their
+    verdicts in `v`) against policy_can_access, hits not counted."""
+    from cilium_tpu_torch.engine.oracle import policy_can_access
+
+    got = [getattr(v, c).cpu().numpy()
+           for c in ("allowed", "proxy_port", "match_kind")]
+    bad = 0
+    for k in range(len(rec["ep_id"])):
+        want = policy_can_access(
+            states[int(rec["ep_id"][k])], int(rec["identity"][k]),
+            int(rec["dport"][k]), int(rec["proto"][k]),
+            int(rec["direction"][k]), bool(rec["is_fragment"][k]),
+            count_hits=False)
+        bad += int((bool(got[0][k]), int(got[1][k]), int(got[2][k])) != (
+            want.allowed, want.proxy_port, want.match_kind))
+    return bad
+
+
+def replay_lattice_phase(kernels, w, u) -> int:
+    """Config 5's record replay (the north star's path): 10,000,000
+    records of lattice_records against the 50k-rule tables in batches
+    of 1,048,576 with counters; its first 2 batches again on the kernel
+    and on the plain version; 512 sampled records through
+    evaluate_batch against the oracle; a traced run of 2 batches."""
+    from cilium_tpu_torch import replay as rp
+    from cilium_tpu_torch import world
+    from cilium_tpu_torch.engine.verdict import TupleBatch, evaluate_batch
+    from cilium_tpu_torch.native.loader import (
+        FLOW_RECORD_DTYPE,
+        decode_flow_records,
+    )
+
+    t = time.perf_counter()
+    buf = world.lattice_records(w, REPLAY_RECORDS, seed=31)
+    build_s = time.perf_counter() - t
+    tab = u["c5_policy"]
+    torch.cuda.synchronize()
+    reset_counts(kernels)
+    st, l4, l3 = rp.replay_lattice(tab, buf, REPLAY_BATCH)
+    torch.cuda.synchronize()
+    launches = kernels.LATTICE.launches
+    others = {k.name: k.launches for k in kernels.KERNELS if k.launches
+              and k is not kernels.LATTICE}
+    n = st.total
+    phase("replay_lattice", t, records=n, batches=st.batches,
+          launches=launches, seconds=st.seconds,
+          records_per_s=round(n / st.seconds),
+          allowed_share=round(st.allowed / n, 6),
+          denied_share=round(st.denied / n, 6),
+          redirected_share=round(st.redirected / n, 6),
+          l4_hits=int(l4.sum()), l3_hits=int(l3.sum()),
+          host_spans_s={k: round(v, 6) for k, v in st.spans.items()},
+          records_build_s=round(build_s, 3))
+    if (launches != st.batches or others or n != REPLAY_RECORDS
+            or not 0 < st.allowed < n or st.redirected == 0):
+        raise SystemExit(f"replay_lattice: launches {launches} for "
+                         f"{st.batches} batches, others {others}, stats {st}")
+
+    # the first 2 batches on the kernel and on the plain version
+    t = time.perf_counter()
+    head = buf[: 2 * REPLAY_BATCH * FLOW_RECORD_DTYPE.itemsize]
+    s_k, k4, k3 = rp.replay_lattice(tab, head, REPLAY_BATCH)
+    with PlainRoute(kernels, {"LATTICE": lattice_plain}):
+        s_p, p4, p3 = rp.replay_lattice(tab, head, REPLAY_BATCH)
+    fields = ("total", "allowed", "denied", "redirected", "batches")
+    same = (all(getattr(s_k, f) == getattr(s_p, f) for f in fields)
+            and np.array_equal(k4, p4) and np.array_equal(k3, p3))
+    # 512 sampled records through evaluate_batch against the oracle
+    rec = decode_flow_records(buf)
+    rows = np.random.default_rng(44).integers(0, n, ORACLE_ROWS)
+    sub = {k: v[rows] for k, v in rec.items()}
+    v = evaluate_batch(tab, TupleBatch.from_numpy(
+        ep_index=sub["ep_id"].astype(np.int64), identity=sub["identity"],
+        dport=sub["dport"], proto=sub["proto"], direction=sub["direction"],
+        is_fragment=sub["is_fragment"]))
+    bad = replay_oracle(w.states, sub, v)
+    phase("replay_lattice_check", t, batches=2, equal_to_plain=same,
+          stats={f: getattr(s_k, f) for f in fields},
+          oracle_rows=ORACLE_ROWS, oracle_mismatches=bad)
+    if not same or bad:
+        raise SystemExit("replay_lattice: the kernel loop differs from the "
+                         "plain loop, or the oracle disagrees")
+
+    # where the time goes: a traced run of the same 2 batches
+    t = time.perf_counter()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=acts) as prof:
+        t1 = time.perf_counter()
+        rp.replay_lattice(tab, head, REPLAY_BATCH)
+        torch.cuda.synchronize()
+        traced_ms = (time.perf_counter() - t1) * 1e3
+    busy = device_busy(prof)
+    busy_ms = sum(busy.values())
+    for key, ms in sorted(busy.items(), key=lambda kv: -kv[1])[:8]:
+        print(f"  device {ms:.3f} ms  {key[:90]}", flush=True)
+    phase("replay_lattice_trace", t, batches=2, wall_ms=round(traced_ms, 3),
+          untraced_ms=round(s_k.seconds * 1e3, 3),
+          device_busy_ms=round(busy_ms, 3),
+          device_idle_share=round(1 - busy_ms / traced_ms, 4),
+          untraced_idle_share=round(1 - busy_ms / (s_k.seconds * 1e3), 4))
+    return launches
+
+
+def cidr_phase(kernels, u) -> tuple:
+    """Config 2 (bench.py config2): evaluate_batch_from_ips at 100,000
+    tuples (16 calls) and at 1,048,576 (8 calls), bench's 512-row oracle
+    (HostLPM + policy_can_access) on the first batch, and lpm_lookup of
+    each batch's addresses held against HostLPM on those rows."""
+    from cilium_tpu_torch.engine.hostpath import HostLPM
+    from cilium_tpu_torch.engine.oracle import policy_can_access
+    from cilium_tpu_torch.engine.verdict import evaluate_batch_from_ips
+    from cilium_tpu_torch.ipcache.lpm import lpm_lookup
+
+    t = time.perf_counter()
+    cw, tab, lpm = u["cw"], u["c2"], u["c2_lpm"]
+    src, cols, src_d, batch = u["c2_small"]
+    torch.cuda.synchronize()
+    reset_counts(kernels)
+    out = evaluate_batch_from_ips(lpm, tab, src_d, batch)
+    ids = lpm_lookup(lpm, src_d)
+    ids_big = lpm_lookup(lpm, u["c2_big"][2])
+    torch.cuda.synchronize()
+    host = HostLPM(cw.ipc_map)
+    allowed = out.allowed.cpu().numpy()
+    got_ids = ids.cpu().numpy().view(np.uint32)
+    big_src = u["c2_big"][0]
+    big_ids = ids_big.cpu().numpy().view(np.uint32)
+    bad = bad_ids = 0
+    for i in u["c2_sample"]:
+        sec = host.lookup(int(src[i]))
+        v = policy_can_access(cw.states[0], sec, int(cols["dport"][i]), 6, 0,
+                              count_hits=False)
+        bad += int(bool(allowed[i]) != v.allowed)
+        bad_ids += int(int(got_ids[i]) != sec)
+        bad_ids += int(int(big_ids[i]) != host.lookup(int(big_src[i])))
+
+    def timed(steps, src_t, b):
+        evaluate_batch_from_ips(lpm, tab, src_t, b)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        outs = [evaluate_batch_from_ips(lpm, tab, src_t, b)
+                for _ in range(steps)]
+        torch.cuda.synchronize()
+        return steps * int(src_t.numel()) / (time.perf_counter() - t0), outs
+
+    vps_small, _ = timed(CIDR_CALLS, src_d, batch)
+    vps_big, outs = timed(CIDR_BIG_CALLS, u["c2_big"][2], u["c2_big"][3])
+    counts = {k.name: k.launches for k in kernels.KERNELS if k.launches}
+    phase("cidr", t, tuples=CIDR_TUPLES, calls=CIDR_CALLS,
+          verdicts_per_s=round(vps_small), tuples_big=CIDR_BIG,
+          calls_big=CIDR_BIG_CALLS, verdicts_per_s_big=round(vps_big),
+          allowed=int(out.allowed.sum()),
+          allowed_big=int(outs[0].allowed.sum()), launches=counts,
+          oracle_rows=ORACLE_ROWS, oracle_mismatches=bad,
+          lpm_mismatches=bad_ids)
+    if bad or bad_ids or set(counts) != {kernels.LATTICE.name,
+                                         kernels.LPM_LOOKUP.name}:
+        raise SystemExit("cidr: the oracle disagrees or launches are off")
+    return counts[kernels.LATTICE.name], counts[kernels.LPM_LOOKUP.name]
+
+
+def config1_latency_phase(kernels, u) -> int:
+    """Config 1 (bench.py config1): the wall time of evaluate_batch on
+    its 1,024 tuples, each call synchronised, over CONFIG1_CALLS calls;
+    every call's verdicts held against evaluate_batch_oracle."""
+    from cilium_tpu_torch.engine.oracle import evaluate_batch_oracle
+    from cilium_tpu_torch.engine.verdict import evaluate_batch
+
+    t = time.perf_counter()
+    ex, tab, batch = u["ex"], u["c1"], u["c1_batch"]
+    for _ in range(10):
+        evaluate_batch(tab, batch)
+    torch.cuda.synchronize()
+    reset_counts(kernels)
+    times, outs = [], []
+    for _ in range(CONFIG1_CALLS):
+        t0 = time.perf_counter()
+        outs.append(evaluate_batch(tab, batch))
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    launches = kernels.LATTICE.launches
+    want = evaluate_batch_oracle(ex.states, **ex.tuples)
+    want = [torch.from_numpy(a.astype(np.int64)).cuda() for a in want]
+    bad = sum(
+        int((getattr(o, c).to(torch.int64) != wv).sum())
+        for o in outs
+        for c, wv in zip(("allowed", "proxy_port", "match_kind"), want))
+    ms = np.asarray(times) * 1e3
+    phase("config1_latency", t, tuples=len(ex.tuples["ep_index"]),
+          calls=CONFIG1_CALLS, launches=launches,
+          p50_ms=round(float(np.percentile(ms, 50)), 4),
+          p99_ms=round(float(np.percentile(ms, 99)), 4),
+          min_ms=round(float(ms.min()), 4),
+          allowed=int(outs[0].allowed.sum()), oracle_mismatches=bad)
+    if bad or launches != CONFIG1_CALLS:
+        raise SystemExit("config1_latency: verdicts differ from the oracle")
+    return launches
+
+
+def lattice_need(tab, batch, counters=False, lpm=None, src_ips=None):
+    """Bytes and integer operations LATTICE needs for this batch: 24 B
+    per tuple in and 6 B out (and 4 B per source address in IP mode);
+    each distinct table row or element the plain version gathers (the
+    two hashed rows, id_direct, l4_meta, l3_allow_bits, port_slot and
+    l4_allow_bits, l1) read once, the stashes whole, each l2 row a block
+    address selects once; each counter entry the batch changes read and
+    written.  Operations, counted low: 16 per hashed word and 4 per lane
+    or stash entry compared (two probes), 16 for a dense or DIR-24-8
+    read."""
+    from cilium_tpu_torch.device import widen
+    from cilium_tpu_torch.ipcache.lpm import BLOCK_FLAG
+
+    names = ("id_direct", "l3_allow_bits", "l4_meta") + (
+        ("port_slot", "l4_allow_bits") if tab.l4_hash_rows is None else
+        ("l4_hash_rows", "l4_hash_stash", "l4_wild_rows", "l4_wild_stash"))
+    leaves = [(f"policy.{n}", getattr(tab, n)) for n in names]
+    if lpm is not None:
+        leaves.append(("lpm.l1", lpm.l1))
+    rows_b, _, (_, acc) = leaf_bytes(leaves, lambda: lattice_plain(
+        tab, batch, counters=counters, lpm=lpm, src_ips=src_ips))
+    b = int(batch.ep_index.numel())
+    total = rows_b + b * (24 + 6)
+    ops = b * 16
+    if lpm is not None:
+        v1 = widen(lpm.l1[widen(src_ips) >> 8])
+        blocks = v1[(v1 & int(BLOCK_FLAG)) != 0] & ~int(BLOCK_FLAG)
+        total += b * 4 + 1024 * int(torch.unique(blocks).numel())
+        ops += b * 16
+    if acc is not None:
+        total += 2 * 4 * int(torch.count_nonzero(acc).item())
+    if tab.l4_hash_rows is not None:
+        ew = int(tab.l4_hash_stash.shape[1])
+        lanes = (tab.l4_hash_rows.shape[1] + tab.l4_wild_rows.shape[1]) // ew
+        ops += b * (16 * 4 + 4 * (lanes + tab.l4_hash_stash.shape[0]
+                                  + tab.l4_wild_stash.shape[0]))
+    return total, ops
+
+
+def lattice_timing(kernels, u, launches_lattice, launches_lpm, err) -> list:
+    """LATTICE in each mode and LPM_LOOKUP alone: CUDA events over 20
+    warm launches, the plain versions, and the bounds (see
+    lattice_need; LPM_LOOKUP: 8 B per address, each distinct l1 entry
+    and l2 row once)."""
+    from cilium_tpu_torch.device import widen
+    from cilium_tpu_torch.ipcache.lpm import BLOCK_FLAG, lpm_lookup_plain
+
+    t = time.perf_counter()
+    res = {}
+    for name, (tab, batch, kw) in lattice_modes(u).items():
+        ms = event_ms(lambda: kernels.LATTICE(tab, batch, **kw), 20)
+        plain_ms = event_ms(lambda: lattice_plain(tab, batch, **kw), 3)
+        need, ops = lattice_need(tab, batch, **kw)
+        res[name] = dict(
+            tuples=int(batch.ep_index.numel()), ms=ms, plain_ms=plain_ms,
+            bytes=need, ops=ops, bound_bytes_ms=need / HBM_BYTES_PER_S * 1e3,
+            bound_ops_ms=ops / OPS_PER_S * 1e3)
+    for name, lpm, ips in (("lpm_c2", u["c2_lpm"], u["c2_big"][2]),
+                           ("lpm_c5", u["c5_lpm"], u["c5_ips"])):
+        ms = event_ms(lambda: kernels.LPM_LOOKUP(lpm, ips), 20)
+        plain_ms = event_ms(lambda: lpm_lookup_plain(lpm, ips), 3)
+        cell = widen(ips) >> 8
+        v1 = widen(lpm.l1[cell])
+        blocks = v1[(v1 & int(BLOCK_FLAG)) != 0] & ~int(BLOCK_FLAG)
+        need = (8 * int(ips.numel()) + 4 * int(torch.unique(cell).numel())
+                + 1024 * int(torch.unique(blocks).numel()))
+        ops = 16 * int(ips.numel())
+        res[name] = dict(
+            addresses=int(ips.numel()), ms=ms, plain_ms=plain_ms, bytes=need,
+            ops=ops, bound_bytes_ms=need / HBM_BYTES_PER_S * 1e3,
+            bound_ops_ms=ops / OPS_PER_S * 1e3)
+    for name, r in res.items():
+        print(f"  lattice_timing {name} " + json.dumps(r), flush=True)
+    phase("lattice_timing", t, modes=len(res))
+    main, lpm = res["c5_compact"], res["lpm_c2"]
+    src = "cilium_tpu_torch/csrc/lattice.cu"
+    return [
+        kernel_row(kernels.LATTICE, src, "cilium_tpu/engine/verdict.py:432",
+                   launches_lattice, err, main["ms"], main["plain_ms"],
+                   main["bound_bytes_ms"], main["bound_ops_ms"]),
+        kernel_row(kernels.LPM_LOOKUP, src, "cilium_tpu/ipcache/lpm.py:1091",
+                   launches_lpm, err, lpm["ms"], lpm["plain_ms"],
+                   lpm["bound_bytes_ms"], lpm["bound_ops_ms"]),
+    ]
+
+
+def lattice_phases(kernels, w, tables, wide_t) -> list:
+    """The tuple-level lattice: set-up, the check, then config 5's
+    lattice line and record replay, config 2, config 1, and the kernel
+    timings.  LATTICE's launches are summed over its four paths, each
+    counted from 0."""
+    u = lattice_setup(w, tables, wide_t)
+    err = lattice_check(kernels, u)
+    n_lat = lattice_phase(kernels, u)
+    n_lat += replay_lattice_phase(kernels, w, u)
+    n_cidr, n_lpm = cidr_phase(kernels, u)
+    n_lat += n_cidr + config1_latency_phase(kernels, u)
+    return lattice_timing(kernels, u, n_lat, n_lpm, err)
 
 
 def device_busy(prof) -> dict:
@@ -1234,11 +1723,13 @@ def main() -> int:
     rows.append(l7_http_phase(kernels))
     rows.append(l7_kafka_phase(kernels))
     rows.append(combined_phase(kernels, w, tables, fleet))
+    rows.extend(lattice_phases(kernels, w, tables, wide_t))
 
     print("[library] library_ms is null except for ct_delta "
           "(index_copy_): no single PyTorch call computes the fused "
           "datapath steps, the intent compaction, a DFA scan, the Kafka "
-          "rule match or the fleet's routed match", flush=True)
+          "rule match, the fleet's routed match, the policy lattice or "
+          "the two dependent DIR-24-8 reads", flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

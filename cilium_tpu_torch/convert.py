@@ -22,7 +22,7 @@ from cilium_tpu_torch.compiler.tables import PolicyTables
 from cilium_tpu_torch.ct.device import CTSnapshot
 from cilium_tpu_torch.device import resolve_device, u32_tensor
 from cilium_tpu_torch.engine.datapath import DatapathTables
-from cilium_tpu_torch.ipcache.lpm import IPCacheDevice
+from cilium_tpu_torch.ipcache.lpm import IPCacheDevice, LPMTables
 from cilium_tpu_torch.lb.device import LBInline
 from cilium_tpu_torch.prefilter import PrefilterRanges
 
@@ -107,6 +107,42 @@ def tables_from_numpy(leaves: dict, device=None) -> DatapathTables:
     if leaves.get("tunnel") is not None:
         raise ValueError("the tunnel map is not ported")
     return tables_to(DatapathTables(**planes), device)
+
+
+def policy_tables_to(tables: PolicyTables, device=None) -> PolicyTables:
+    """Bare policy tables (numpy, as compile_map_states builds them) ->
+    the same tables on `device` (None = the card): the tables of
+    evaluate_batch and replay_lattice.  port_slot's u16 becomes int32;
+    leaves already dropped (None) stay None."""
+    return _plane_to(tables, resolve_device(device))
+
+
+def lpm_to(tables: LPMTables, device=None) -> LPMTables:
+    """DIR-24-8 tables (numpy u32) -> the same tables on `device` (None
+    = the card).  l1 is 64 MB: move it once per world, not per batch."""
+    return _plane_to(tables, resolve_device(device))
+
+
+def lpm_from_numpy(leaves: dict, device=None) -> LPMTables:
+    """The port's LPMTables on `device` (None = the card) from the
+    leaves of tables built elsewhere: {l1: u32 [2^24], l2: u32
+    [blocks, 256]}."""
+    for name in ("l1", "l2"):
+        _check_host_value(f"lpm.{name}", leaves[name])
+    return lpm_to(LPMTables(l1=np.asarray(leaves["l1"], np.uint32),
+                            l2=np.asarray(leaves["l2"], np.uint32)), device)
+
+
+def tuple_batch_to(packed: np.ndarray, device=None):
+    """One [6, B] u32 tuple pack (verdict.pack_tuples) -> a TupleBatch on
+    `device` (None = the card), in one copy; the columns are views of
+    the uploaded pack."""
+    from cilium_tpu_torch.engine.verdict import _tuple_batch_from_packed
+
+    packed = np.asarray(packed)
+    if packed.ndim != 2 or packed.shape[0] != 6:
+        raise ValueError(f"a tuple pack is [6, B], got {packed.shape}")
+    return _tuple_batch_from_packed(u32_tensor(packed, resolve_device(device)))
 
 
 def ct_snapshot_to(snapshot: CTSnapshot, device=None) -> CTSnapshot:

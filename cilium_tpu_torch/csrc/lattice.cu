@@ -1,0 +1,210 @@
+// The tuple-level policy lattice and the DIR-24-8 lookup, two CUDA
+// kernels for Hopper (sm_90a).
+//
+// LATTICE replaces the JAX package's jitted `evaluate_batch`
+// (cilium_tpu/engine/verdict.py:432 `_verdict_kernel`, K23), its counter
+// form (`:610` `_verdict_kernel_with_counters`, as cilium_tpu/replay.py
+// `replay_lattice` runs it) and, in IP mode, the fused CIDR path
+// (`:627` `_verdict_kernel_from_ips`, K20).  Per tuple, one thread:
+//   unpack        the [6, B] pack (ep, identity, dport, proto, dir, frag)
+//   ipcache       IP mode: dir24_8() over the source address, in place of
+//                 the pack's identity            (ipcache/lpm.py:1091)
+//   identity      the two-region id_direct read   (_index_identity)
+//   probes 1, 3   hashed_probes() of verdict.cuh, the datapath's own, or
+//                 without the hash the dense port_slot / l4_allow_bits /
+//                 l4_meta reads                   (_probes)
+//   probe 2       the l3_allow_bits word
+//   combine       combine() of verdict.cuh, the fragment rule included
+//   counters      optional: one atomicAdd per hit into a zeroed
+//                 [E, 2, Kg + N] buffer (an index outside the buffer,
+//                 after negative ones count from the end, drops its
+//                 update, as an XLA scatter does)
+// LPM_LOOKUP replaces `lpm_lookup` (ipcache/lpm.py:1103, the DIR-24-8
+// branch of `_lookup_kernel`): dir24_8() alone, one thread per address.
+//
+// What bounds them on an H100: dependent reads, not arithmetic.  A tuple
+// streams 24 B in and 6 B out, then reads one id_direct word, two hashed
+// L4 rows (128 B compact, 256 B wide) with a stash scan, one l4_meta word
+// (compact) and one l3_allow_bits word; IP mode adds the 4 B address, one
+// l1 word from a 64 MB table (only the cells the addresses touch) and,
+// for a block cell, one l2 word.  Config 5's policy tables are 40 MB and
+// mostly stay in the 50 MB L2, so the kernel is bound by L2 and DRAM
+// sector traffic of dependent gathers.  This first version does the
+// simple thing: read-only loads (__ldg) per thread, every matching lane
+// summed (no early exit, as the reference's masked sums), one global
+// atomicAdd per counted hit.
+#include <cuda_runtime.h>
+
+#include <cstdint>
+
+#include "common.cuh"
+#include "verdict.cuh"
+
+namespace clt {
+
+using cdp::L4Tables;
+
+constexpr int BLOCK = 256;
+constexpr uint32_t BLOCK_FLAG = 1u << 31;
+constexpr uint32_t LOCAL_ID_BASE = 1u << 24;
+constexpr uint32_t NO_INDEX = 0xFFFFFFFFu;
+constexpr uint32_t NO_SLOT = 0xFFFFu;
+
+// The field order is the ctypes Structure's order in kernels.py;
+// lattice_struct_sizes() lets the wrapper check that the two agree.
+struct LatticeArgs {
+  const uint32_t* tuples;     // [6, B] u32 words
+  const uint32_t* src_ips;    // [B] in IP mode, else null
+  const uint32_t* l1;         // [2^24] (IP mode)
+  const uint32_t* l2;         // [n_blocks, 256] (IP mode)
+  const uint32_t* id_direct;  // [direct_n]
+  const uint32_t* l3_allow;   // [E, 2, W]
+  const uint32_t* port_slot;  // [256, 65536] u16 values (dense branch)
+  const uint32_t* l4_allow;   // [E, 2, Kg, W] (dense branch)
+  L4Tables l4;                // rows null: the dense branch
+  uint8_t* allowed;           // outputs [B]
+  int32_t* proxy_port;
+  uint8_t* match_kind;
+  uint32_t* acc;              // [E, 2, Kg + N] or null
+  int32_t B;
+  int32_t n_blocks;
+  int32_t direct_n;
+  int32_t n_ids;
+  int32_t n_words;
+  uint32_t lo_len;
+};
+
+struct LpmArgs {
+  const uint32_t* l1;
+  const uint32_t* l2;
+  const uint32_t* ips;
+  uint32_t* out;
+  int32_t B;
+  int32_t n_blocks;
+};
+
+// DIR-24-8: l1[ip >> 8], and for a block cell l2[block, ip & 0xFF] (the
+// block row clamps, as an XLA gather does); 0 = no entry.
+__device__ __forceinline__ uint32_t dir24_8(const uint32_t* l1,
+                                            const uint32_t* l2, int n_blocks,
+                                            uint32_t ip) {
+  const uint32_t v1 = __ldg(l1 + (ip >> 8));
+  if (!(v1 & BLOCK_FLAG)) return v1;
+  const uint32_t last = static_cast<uint32_t>(n_blocks - 1);
+  const uint32_t b = v1 & ~BLOCK_FLAG;
+  return __ldg(l2 + static_cast<size_t>(b < last ? b : last) * 256 +
+               (ip & 0xFFu));
+}
+
+// identity -> dense index through id_direct's two regions, with the
+// reference's unsigned compares and position clamp; an unknown identity
+// gets n_ids - 1.
+__device__ __forceinline__ uint32_t index_identity(const LatticeArgs& a,
+                                                   uint32_t ident,
+                                                   bool* known) {
+  const bool local = ident >= LOCAL_ID_BASE;
+  const uint32_t off = ident - LOCAL_ID_BASE;
+  const uint32_t direct_n = static_cast<uint32_t>(a.direct_n);
+  const bool in_range = local ? off < direct_n - a.lo_len : ident < a.lo_len;
+  uint32_t pos = local ? a.lo_len + off : ident;
+  pos = pos < direct_n - 1 ? pos : direct_n - 1;
+  const uint32_t v = __ldg(a.id_direct + pos);
+  *known = in_range && v != NO_INDEX;
+  return *known ? v : static_cast<uint32_t>(a.n_ids - 1);
+}
+
+__global__ void __launch_bounds__(BLOCK) lattice_kernel(const LatticeArgs a) {
+  const int i = blockIdx.x * BLOCK + threadIdx.x;
+  if (i >= a.B) return;
+  const size_t b = static_cast<size_t>(a.B);
+  const uint32_t* t = a.tuples;
+  const int32_t ep = static_cast<int32_t>(__ldg(t + i));
+  uint32_t ident = __ldg(t + b + i);
+  const uint32_t dport = cdp::clip_u(static_cast<int32_t>(__ldg(t + 2 * b + i)),
+                                     65535);
+  const uint32_t proto = cdp::clip_u(static_cast<int32_t>(__ldg(t + 3 * b + i)),
+                                     255);
+  const int32_t dir = static_cast<int32_t>(__ldg(t + 4 * b + i));
+  const bool frag = __ldg(t + 5 * b + i) != 0;
+  if (a.src_ips) ident = dir24_8(a.l1, a.l2, a.n_blocks, __ldg(a.src_ips + i));
+
+  bool known;
+  const uint32_t idx = index_identity(a, ident, &known);
+  const uint32_t word = idx >> 5, bit = idx & 31u;
+  const int epg = cdp::gather_ix(ep, a.l4.n_eps);
+  const int dg = cdp::gather_ix(dir, 2);
+  const size_t row = static_cast<size_t>(epg) * 2 + dg;
+
+  cdp::Probes p;
+  if (a.l4.rows) {
+    p = cdp::hashed_probes(a.l4, static_cast<uint32_t>(ep),
+                           static_cast<uint32_t>(dir), dport, proto, idx,
+                           known);
+  } else {
+    const uint32_t slot = __ldg(a.port_slot + proto * 65536u + dport);
+    const bool has_port = slot != NO_SLOT;
+    p.j = has_port ? static_cast<int32_t>(slot) : 0;
+    const size_t cell = row * a.l4.kg + cdp::gather_ix(p.j, a.l4.kg);
+    const uint32_t exact = __ldg(a.l4_allow + cell * a.n_words + word);
+    const uint32_t meta = __ldg(a.l4.meta + cell);
+    p.proxy = static_cast<int32_t>(meta >> 1);
+    p.p1 = known && has_port && ((exact >> bit) & 1u);
+    p.p3 = has_port && (meta & 1u);
+  }
+  const uint32_t l3w = __ldg(a.l3_allow + row * a.n_words + word);
+  const cdp::Lattice v =
+      cdp::combine(p.p1, known && ((l3w >> bit) & 1u), p.p3, p.proxy, p.j,
+                   frag);
+  a.allowed[i] = v.allowed;
+  a.proxy_port[i] = v.proxy;
+  a.match_kind[i] = static_cast<uint8_t>(v.kind);
+
+  if (a.acc) {
+    // L4 hits count at slot j, L3 hits at column kg + idx
+    const bool hit_l4 = v.kind == cdp::MATCH_L4 || v.kind == cdp::MATCH_L4_WILD;
+    if (hit_l4 || v.kind == cdp::MATCH_L3) {
+      const int64_t cols = static_cast<int64_t>(a.l4.kg) + a.n_ids;
+      const int64_t e = ep < 0 ? static_cast<int64_t>(ep) + a.l4.n_eps : ep;
+      const int64_t d = dir < 0 ? static_cast<int64_t>(dir) + 2 : dir;
+      int64_t c = hit_l4 ? static_cast<int64_t>(v.j)
+                         : static_cast<int64_t>(a.l4.kg) + idx;
+      if (c < 0) c += cols;
+      if (e >= 0 && e < a.l4.n_eps && d >= 0 && d < 2 && c >= 0 && c < cols)
+        atomicAdd(a.acc + (e * 2 + d) * cols + c, 1u);
+    }
+  }
+}
+
+__global__ void __launch_bounds__(BLOCK) lpm_lookup_kernel(const LpmArgs a) {
+  const int i = blockIdx.x * BLOCK + threadIdx.x;
+  if (i < a.B) a.out[i] = dir24_8(a.l1, a.l2, a.n_blocks, __ldg(a.ips + i));
+}
+
+}  // namespace clt
+
+extern "C" int lattice_struct_sizes(int* out) {
+  out[0] = static_cast<int>(sizeof(cdp::L4Tables));
+  out[1] = static_cast<int>(sizeof(clt::LatticeArgs));
+  out[2] = static_cast<int>(sizeof(clt::LpmArgs));
+  return 3;
+}
+
+// Launch LATTICE on `stream`; returns cudaGetLastError().
+extern "C" int launch_lattice(const clt::LatticeArgs* args, void* stream) {
+  if (args->B > 0) {
+    const int grid = (args->B + clt::BLOCK - 1) / clt::BLOCK;
+    clt::lattice_kernel<<<grid, clt::BLOCK, 0,
+                          static_cast<cudaStream_t>(stream)>>>(*args);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Launch LPM_LOOKUP on `stream`; returns cudaGetLastError().
+extern "C" int launch_lpm_lookup(const clt::LpmArgs* args, void* stream) {
+  if (args->B > 0) {
+    const int grid = (args->B + clt::BLOCK - 1) / clt::BLOCK;
+    clt::lpm_lookup_kernel<<<grid, clt::BLOCK, 0,
+                             static_cast<cudaStream_t>(stream)>>>(*args);
+  }
+  return static_cast<int>(cudaGetLastError());
+}

@@ -7,6 +7,7 @@
 //     dir << 22 | (ep & 0x1FF) << 23, l4h_key1 = dport << 16 | proto << 8
 //     | ep >> 9, value j << 16 | proxy summed over hits.
 // The exact and wildcard probes are one row read each plus the stash.
+// Table reads take their indices as an XLA gather does (gather_ix).
 #pragma once
 
 #include "common.cuh"
@@ -89,6 +90,85 @@ __device__ __forceinline__ L4Probe l4_probe3(const uint32_t* rows, int nrows,
   return p;
 }
 
+// An XLA gather's index: negative counts from the end, then it clamps.
+__device__ __forceinline__ int gather_ix(int32_t i, int n) {
+  if (i < 0) i += n;
+  return i < 0 ? 0 : (i >= n ? n - 1 : i);
+}
+
+// dport and proto as the lattice takes them: clipped to their ranges
+__device__ __forceinline__ uint32_t clip_u(int32_t v, int32_t hi) {
+  return v < 0 ? 0u : static_cast<uint32_t>(v > hi ? hi : v);
+}
+
+// The hashed L4 tables and the l4_meta plane, as one stage reads them;
+// shared by the datapath kernels (lattice() below) and LATTICE
+// (csrc/lattice.cu).  ew is the entry word count (2 compact, 3 wide).
+struct L4Tables {
+  const uint32_t* rows;
+  const uint32_t* stash;
+  const uint32_t* wrows;
+  const uint32_t* wstash;
+  const uint32_t* meta;  // [n_eps, 2, kg]
+  int32_t nrows;
+  int32_t lanes;
+  int32_t stash_n;
+  int32_t wnrows;
+  int32_t wlanes;
+  int32_t wstash_n;
+  int32_t ew;
+  int32_t n_eps;
+  int32_t kg;
+};
+
+struct Probes {
+  bool p1, p3;
+  int32_t proxy;
+  int32_t j;
+};
+
+// Probes 1 and 3 over the hashed entry tables (engine/verdict.py
+// _probes' hashed branch): the keys take ep and dir as u32 words, the
+// compact layout's l4_meta read takes them as gather indices.  dport
+// and proto are already clipped.
+__device__ __forceinline__ Probes hashed_probes(const L4Tables& t,
+                                                uint32_t ep, uint32_t dir,
+                                                uint32_t dport,
+                                                uint32_t proto, uint32_t idx,
+                                                bool known) {
+  Probes r;
+  if (t.ew == 3) {
+    const uint32_t k1 = (dport << 16) | (proto << 8) | (ep >> 9);
+    const uint32_t dk = (dir << 22) | ((ep & 0x1FFu) << 23);
+    const L4Probe p1 = l4_probe3(t.rows, t.nrows, t.lanes, t.stash,
+                                 t.stash_n, idx | dk, k1);
+    const L4Probe p3 = l4_probe3(t.wrows, t.wnrows, t.wlanes, t.wstash,
+                                 t.wstash_n, L4H_WILD_IDX | dk, k1);
+    r.p1 = known && p1.hit;
+    r.p3 = p3.hit;
+    const uint32_t val = r.p1 ? p1.val : p3.val;
+    r.proxy = static_cast<int32_t>(val & 0xFFFFu);
+    r.j = static_cast<int32_t>(val >> 16);
+    return r;
+  }
+  const uint32_t k1 = l4c_key1(dport, proto, ep, dir);
+  const L4Probe p1 = l4_probe(t.rows, t.nrows, t.lanes, t.stash, t.stash_n,
+                              l4c_key0(idx, dport), k1);
+  const L4Probe p3 = l4_probe(t.wrows, t.wnrows, t.wlanes, t.wstash,
+                              t.wstash_n, l4c_key0(L4H_WILD_IDX, dport), k1);
+  r.p1 = known && p1.hit;
+  r.p3 = p3.hit;
+  r.j = static_cast<int32_t>(r.p1 ? p1.val : p3.val);
+  const uint32_t meta = __ldg(
+      t.meta + (static_cast<size_t>(gather_ix(static_cast<int32_t>(ep),
+                                              t.n_eps)) * 2 +
+                gather_ix(static_cast<int32_t>(dir), 2)) *
+                   t.kg +
+      gather_ix(r.j, t.kg));
+  r.proxy = (r.p1 || r.p3) ? static_cast<int32_t>(meta >> 1) : 0;
+  return r;
+}
+
 struct Lattice {
   bool allowed;
   int32_t proxy;
@@ -96,55 +176,10 @@ struct Lattice {
   int32_t j;
 };
 
-// probes 1-3 and the combine (policy.h order; fragments skip the L4
-// probes).  idx/known/l3_bit come from the idx-form ipcache.  dport and
-// proto are clamped to their ranges, and every table index as an XLA
-// gather clamps it.
-__device__ __forceinline__ Lattice lattice(const DatapathArgs& a, uint32_t ep,
-                                           uint32_t dir, uint32_t dport_w,
-                                           uint32_t proto_w, uint32_t idx,
-                                           bool known, bool l3_bit,
-                                           bool frag) {
-  const int32_t dp = static_cast<int32_t>(dport_w);
-  const int32_t pr = static_cast<int32_t>(proto_w);
-  const uint32_t dport = dp < 0 ? 0u : (dp > 65535 ? 65535u : dp);
-  const uint32_t proto = pr < 0 ? 0u : (pr > 255 ? 255u : pr);
-  bool probe1, probe3;
-  int32_t j, proxy;
-  if (a.l4_ew == 3) {
-    const uint32_t k1 = (dport << 16) | (proto << 8) | (ep >> 9);
-    const uint32_t dk = (dir << 22) | ((ep & 0x1FFu) << 23);
-    const L4Probe p1 = l4_probe3(a.l4_rows, a.l4_nrows, a.l4_lanes,
-                                 a.l4_stash, a.l4_stash_n, idx | dk, k1);
-    const L4Probe p3 =
-        l4_probe3(a.l4w_rows, a.l4w_nrows, a.l4w_lanes, a.l4w_stash,
-                  a.l4w_stash_n, L4H_WILD_IDX | dk, k1);
-    probe1 = known && p1.hit;
-    probe3 = p3.hit;
-    const uint32_t val = probe1 ? p1.val : p3.val;
-    proxy = static_cast<int32_t>(val & 0xFFFFu);
-    j = static_cast<int32_t>(val >> 16);
-  } else {
-    const uint32_t k1 = l4c_key1(dport, proto, ep, dir);
-    const L4Probe p1 = l4_probe(a.l4_rows, a.l4_nrows, a.l4_lanes, a.l4_stash,
-                                a.l4_stash_n, l4c_key0(idx, dport), k1);
-    const L4Probe p3 =
-        l4_probe(a.l4w_rows, a.l4w_nrows, a.l4w_lanes, a.l4w_stash,
-                 a.l4w_stash_n, l4c_key0(L4H_WILD_IDX, dport), k1);
-    probe1 = known && p1.hit;
-    probe3 = p3.hit;
-    j = static_cast<int32_t>(probe1 ? p1.val : p3.val);
-    // the l4_meta read clamps its indices, as an XLA gather does
-    const int jc = min(max(j, 0), a.kg - 1);
-    const int epc = min(max(static_cast<int32_t>(ep), 0), a.n_eps - 1);
-    const int32_t d = static_cast<int32_t>(dir);
-    const int dc = d < 0 ? 0 : (d > 1 ? 1 : d);
-    const uint32_t meta =
-        __ldg(a.l4_meta + (static_cast<size_t>(epc) * 2 + dc) * a.kg + jc);
-    proxy = (probe1 || probe3) ? static_cast<int32_t>(meta >> 1) : 0;
-  }
-  const bool probe2 = known && l3_bit;
-
+// The combine (policy.h order; fragments skip the L4 probes).
+__device__ __forceinline__ Lattice combine(bool probe1, bool probe2,
+                                           bool probe3, int32_t proxy,
+                                           int32_t j, bool frag) {
   const bool q1 = probe1 && !frag;
   const bool q3 = probe3 && !frag;
   Lattice r;
@@ -157,6 +192,26 @@ __device__ __forceinline__ Lattice lattice(const DatapathArgs& a, uint32_t ep,
                     : MATCH_NONE;
   r.j = j;
   return r;
+}
+
+__device__ __forceinline__ L4Tables l4_tables(const DatapathArgs& a) {
+  return L4Tables{a.l4_rows,   a.l4_stash,  a.l4w_rows, a.l4w_stash,
+                  a.l4_meta,   a.l4_nrows,  a.l4_lanes, a.l4_stash_n,
+                  a.l4w_nrows, a.l4w_lanes, a.l4w_stash_n, a.l4_ew,
+                  a.n_eps,     a.kg};
+}
+
+// The datapath's lattice: probes 1-3 and the combine, with idx, known
+// and l3_bit from the idx-form ipcache.
+__device__ __forceinline__ Lattice lattice(const DatapathArgs& a, uint32_t ep,
+                                           uint32_t dir, uint32_t dport_w,
+                                           uint32_t proto_w, uint32_t idx,
+                                           bool known, bool l3_bit,
+                                           bool frag) {
+  const Probes p = hashed_probes(
+      l4_tables(a), ep, dir, clip_u(static_cast<int32_t>(dport_w), 65535),
+      clip_u(static_cast<int32_t>(proto_w), 255), idx, known);
+  return combine(p.p1, known && l3_bit, p.p3, p.proxy, p.j, frag);
 }
 
 }  // namespace cdp

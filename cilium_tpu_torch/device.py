@@ -62,3 +62,32 @@ def narrow(t: torch.Tensor) -> torch.Tensor:
     """int64 holding a u32 value -> int32 tensor with the same bits."""
     v = t & MASK32
     return torch.where(v >= (1 << 31), v - (1 << 32), v).to(torch.int32)
+
+
+def on_device(t, dev: torch.device) -> bool:
+    """Whether `t` is a tensor on `dev` (a CUDA device without an
+    index means the current one)."""
+    if not isinstance(t, torch.Tensor) or t.device.type != dev.type:
+        return False
+    if dev.type != "cuda":
+        return True
+    want = torch.cuda.current_device() if dev.index is None else dev.index
+    return t.device.index == want
+
+
+def require_on(t, dev: torch.device, what: str) -> None:
+    """Raise unless `t` is a tensor on `dev`; `what` names the input and
+    how to move it there."""
+    if not on_device(t, dev):
+        where = t.device if isinstance(t, torch.Tensor) else type(t).__name__
+        raise ValueError(f"{what} must be tensors on {dev}, got {where}")
+
+
+def tensor_on(x, dev: torch.device, name: str) -> torch.Tensor:
+    """An entry point's array input on `dev`: a numpy array (or
+    anything numpy takes) is uploaded, u32 as int32 bits; a tensor must
+    already lie there."""
+    if isinstance(x, torch.Tensor):
+        require_on(x, dev, name)
+        return x
+    return array_tensor(x, dev)

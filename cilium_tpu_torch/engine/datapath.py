@@ -58,6 +58,7 @@ from cilium_tpu_torch.ct.table import (
 )
 from cilium_tpu_torch.device import narrow, u32_tensor, widen
 from cilium_tpu_torch.engine.verdict import (
+    _accumulate_counters,
     _combine,
     _counter_cols,
     _probes,
@@ -287,9 +288,9 @@ def _datapath_core(tables: DatapathTables, f: FlowBatch, ingress,
         (ep >= 0) & (ep < 32), (l3_word >> ep.clamp(0, 31)) & 1, 0
     ).bool()
 
-    probe1, probe2, probe3, proxy, j = _probes(
-        tables.policy, ep, f.direction, eff_dport, f.proto, idx, known,
-        l3_bit,
+    probe1, probe2, probe3, proxy, j, _ = _probes(
+        tables.policy, ep, f.direction, eff_dport, f.proto,
+        idx_known=(idx, known, l3_bit),
     )
     pol_allow, v_proxy, kind = _combine(
         probe1, probe2, probe3, proxy, f.is_fragment
@@ -397,13 +398,8 @@ def datapath_pair_plain(tables: DatapathTables, pair: torch.Tensor,
     out_e, cols_e, t_e = _datapath_half(
         tables, flow_batch_from_packed4(pair[1]), False
     )
-    e_count, _, c = acc.shape
-    ep, d, col, w = (torch.cat([a, b]) for a, b in zip(cols_i, cols_e))
-    # an out-of-range index drops its update, as an XLA scatter does
-    ok = w & (ep >= 0) & (ep < e_count) & (col >= 0) & (col < c)
-    flat = (ep[ok] * 2 + d[ok]) * c + col[ok]
-    acc.view(-1).index_add_(
-        0, flat, torch.ones_like(flat, dtype=torch.int32)
+    _accumulate_counters(
+        acc, *(torch.cat([a, b]) for a, b in zip(cols_i, cols_e))
     )
     telem.copy_(narrow(widen(telem) + torch.stack([t_i, t_e])))
     return out_i, out_e, acc, telem

@@ -1,29 +1,46 @@
 """The policy lattice, plain PyTorch version: bpf/lib/policy.h's
-3-probe verdict over the hashed L4 entry tables.
+3-probe verdict, over tuple batches and inside the fused datapath.
 
   probe 1: exact (identity, dport, proto)   [skipped for fragments]
   probe 2: L3-only (identity)               -> plain allow, no proxy
   probe 3: L4 wildcard (any identity, dport, proto)
   miss:    DROP_POLICY (DROP_FRAG_NOSUPPORT for fragments)
 
-Probes 1 and 3 are each one hashed row read plus a lane compare
-(and a stash compare).  Probe 2 reads the L3 bit the idx/l3-plane
-ipcache already delivered.  Every lane that matches is summed, as the
+The identity resolves to a dense index through the two-region
+`id_direct` table, or arrives pre-resolved with its L3 bit from the
+idx/l3-plane ipcache (the fused datapath).  With the hashed L4 entry
+tables, probes 1 and 3 are each one hashed row read plus a lane
+compare (and a stash compare); without them the dense fallback reads
+port_slot, l4_allow_bits and l4_meta.  Probe 2 reads l3_allow_bits, or
+the pre-resolved bit.  Every lane that matches is summed, as the
 reference's masked sums do; a well-formed table has at most one.
 
-Also here: the per-entry counter columns and the telemetry masks,
-shared by the plain pair step and checked against the kernel's
-epilogues.
+Table reads follow an XLA gather: a negative endpoint or direction
+counts from the end of its axis, then every index clamps to the
+table.  The counter scatter follows an XLA scatter: negative indices
+count from the end, and an update still outside the buffer is dropped.
+
+`evaluate_batch` (K23), its counter form and `evaluate_batch_from_ips`
+(K20's fused form) run the LATTICE kernel on CUDA tensors and the plain
+version here on CPU tensors.  Also here: the per-entry counter columns
+and the telemetry masks of the fused datapath.
 """
 
 from __future__ import annotations
 
+from dataclasses import dataclass
+from typing import Optional
+
+import numpy as np
 import torch
 
 from cilium_tpu_torch.compiler.tables import (
     L4C_CMP_MASK,
     L4C_WILD_IDX18,
     L4H_WILD_IDX,
+    LOCAL_ID_BASE,
+    NO_INDEX,
+    NO_SLOT,
     l4_entry_words,
 )
 from cilium_tpu_torch.ct.table import (
@@ -32,15 +49,20 @@ from cilium_tpu_torch.ct.table import (
     CT_RELATED,
     CT_REPLY,
 )
-from cilium_tpu_torch.device import widen
+from cilium_tpu_torch.device import (
+    MASK32,
+    require_on,
+    resolve_device,
+    widen,
+)
 from cilium_tpu_torch.engine.hashtable import fnv1a
-
-# Match-kind codes (engine/oracle.py of the JAX package).
-MATCH_NONE = 0
-MATCH_L4 = 1
-MATCH_L3 = 2
-MATCH_L4_WILD = 3
-MATCH_FRAG_DROP = 4
+from cilium_tpu_torch.engine.oracle import (
+    MATCH_FRAG_DROP,
+    MATCH_L3,
+    MATCH_L4,
+    MATCH_L4_WILD,
+    MATCH_NONE,
+)
 
 # Columns of the [2, TELEM_COLS] telemetry accumulator (row 0 =
 # ingress, row 1 = egress).
@@ -73,6 +95,112 @@ TELEM_NAMES = (
     "ct_related", "ct_bypass_allow", "ct_delete", "ipcache_world",
     "proxy_redirect",
 )
+
+
+@dataclass
+class TupleBatch:
+    """A batch of flow tuples (the SearchContext of the datapath), int32
+    tensors [B]: ep_index, identity (u32 bits: the source identity on
+    ingress, the destination's on egress), dport, proto, direction
+    (0 ingress, 1 egress) and a bool is_fragment.  `packed` is the
+    [6, B] int32 upload the columns are views of, when they came from
+    one; the kernel reads it."""
+
+    ep_index: torch.Tensor
+    identity: torch.Tensor
+    dport: torch.Tensor
+    proto: torch.Tensor
+    direction: torch.Tensor
+    is_fragment: torch.Tensor
+    packed: Optional[torch.Tensor] = None
+
+    @staticmethod
+    def from_numpy(ep_index, identity, dport, proto, direction,
+                   is_fragment=None, device=None) -> "TupleBatch":
+        """One [6, B] u32 pack uploaded to `device` (None = the card)
+        in a single copy.  Every column is cast through u32, as the
+        reference's pack is: an ep_index of -1 arrives as int32 -1, and
+        any nonzero fragment word is True."""
+        from cilium_tpu_torch.convert import tuple_batch_to
+
+        return tuple_batch_to(
+            pack_tuples(ep_index, identity, dport, proto, direction,
+                        is_fragment),
+            device,
+        )
+
+    def pack(self) -> torch.Tensor:
+        """The [6, B] int32 pack of the columns."""
+        if self.packed is not None:
+            return self.packed
+        return torch.stack([
+            self.ep_index.to(torch.int32), self.identity.to(torch.int32),
+            self.dport.to(torch.int32), self.proto.to(torch.int32),
+            self.direction.to(torch.int32), self.is_fragment.to(torch.int32),
+        ]).contiguous()
+
+
+def pack_tuples(ep_index, identity, dport, proto, direction,
+                is_fragment=None) -> np.ndarray:
+    """The [6, B] u32 host pack of TupleBatch.from_numpy."""
+    b = len(ep_index)
+    if is_fragment is None:
+        is_fragment = np.zeros(b, dtype=bool)
+    packed = np.empty((6, b), dtype=np.uint32)
+    packed[0] = np.asarray(ep_index).astype(np.uint32, copy=False)
+    packed[1] = np.asarray(identity, np.uint32)
+    packed[2] = np.asarray(dport).astype(np.uint32, copy=False)
+    packed[3] = np.asarray(proto).astype(np.uint32, copy=False)
+    packed[4] = np.asarray(direction).astype(np.uint32, copy=False)
+    packed[5] = np.asarray(is_fragment).astype(np.uint32)
+    return packed
+
+
+def _tuple_batch_from_packed(packed: torch.Tensor) -> TupleBatch:
+    """The columns of a [6, B] int32 pack (u32 bits), as views."""
+    return TupleBatch(
+        ep_index=packed[0], identity=packed[1], dport=packed[2],
+        proto=packed[3], direction=packed[4], is_fragment=packed[5] != 0,
+        packed=packed,
+    )
+
+
+@dataclass
+class Verdicts:
+    """Per-tuple results: allowed u8 0/1, proxy_port int32 (0 = plain
+    allow), match_kind u8 (MATCH_* codes)."""
+
+    allowed: torch.Tensor
+    proxy_port: torch.Tensor
+    match_kind: torch.Tensor
+
+
+def _gather_ix(i, n: int):
+    """An XLA gather's index: negative counts from the end, then it
+    clamps to [0, n)."""
+    return torch.where(i < 0, i + n, i).clamp(0, n - 1)
+
+
+def _index_identity(tables, identity):
+    """Identity -> dense index through the two-region id_direct table
+    ([0, lo_len) cluster-scope ids, [lo_len, end) local CIDR ids offset
+    by LOCAL_ID_BASE), with the reference's unsigned compares and its
+    position clamp.  `identity` int64 holding u32 values.  Returns
+    (idx int64, known bool); an unknown identity gets idx n - 1."""
+    n = int(tables.id_table.shape[0])
+    direct_sz = int(tables.id_direct.shape[0])
+    lo_len = int(tables.id_lo_len) & MASK32
+    is_local = identity >= LOCAL_ID_BASE
+    local_off = (identity - LOCAL_ID_BASE) & MASK32
+    pos = torch.where(is_local, (lo_len + local_off) & MASK32, identity)
+    in_range = torch.where(
+        is_local,
+        local_off < ((direct_sz - lo_len) & MASK32),
+        identity < lo_len,
+    )
+    v = widen(tables.id_direct[pos.clamp(max=direct_sz - 1)])
+    known = in_range & (v != int(NO_INDEX))
+    return torch.where(known, v, n - 1), known
 
 
 def l4hash_probe_keys(entry_words: int, ep, dirn, idx, dport, proto):
@@ -145,44 +273,71 @@ def l4hash_value_decode(tables, ep, dirn, probe1, val1, hit3, val3,
                         entry_words: int):
     """(proxy, j) from the exact/wild probe values.  The compact
     layout rebuilds proxy from one l4_meta read at [ep, dir, j]
-    (indices clamped to the table, as an XLA gather clamps)."""
+    (indices as an XLA gather takes them, see _gather_ix)."""
     val = torch.where(probe1, val1, val3)
     if entry_words == 3:
         return val & 0xFFFF, val >> 16
-    j = val
-    j32 = torch.where(j >= (1 << 31), j - (1 << 32), j)  # as int32
+    j32 = torch.where(val >= (1 << 31), val - (1 << 32), val)  # as int32
     e_count, _, kg = tables.l4_meta.shape
-    meta = widen(
-        tables.l4_meta[
-            ep.clamp(0, e_count - 1), dirn.clamp(0, 1), j32.clamp(0, kg - 1)
-        ]
-    )
+    meta = widen(tables.l4_meta[
+        _gather_ix(ep, e_count), _gather_ix(dirn, 2), _gather_ix(j32, kg)
+    ])
     proxy = torch.where(probe1 | hit3, meta >> 1, 0)
     return proxy, j32
 
 
-def _probes(tables, ep, dirn, dport, proto, idx, known, l3_bit):
-    """The three map probes with a pre-resolved identity index (from
-    the idx-form ipcache) and L3 bit.  All inputs int64 / bool.
-    Returns (probe1, probe2, probe3, proxy, j)."""
-    if tables.l4_hash_rows is None:
-        raise ValueError("the dense-bitmap lattice is not ported")
+def _probes(tables, ep, dirn, dport, proto, identity=None, idx_known=None):
+    """The three map probes (policy.h:46).  ep, dirn: int64 as the
+    tuple's int32 words (table reads take them as _gather_ix does, the
+    hash keys their u32 bits); dport, proto int64, clipped here.  The
+    identity is either `identity` (int64 u32 values), resolved through
+    id_direct, or `idx_known` = (idx, known[, l3_bit]) pre-resolved by
+    the idx-form ipcache: then id_direct is not read, and with l3_bit
+    l3_allow_bits is not read either.  With `l4_hash_rows` None the
+    dense fallback takes the place of the hashed probes.  Returns
+    (probe1, probe2, probe3, proxy, j, idx)."""
+    l3_bit = None
+    if idx_known is None:
+        idx, known = _index_identity(tables, identity)
+    else:
+        idx, known = idx_known[0], idx_known[1]
+        if len(idx_known) > 2:
+            l3_bit = idx_known[2]
+    word, bit = idx >> 5, idx & 31
     proto = proto.clamp(0, 255)
     dport = dport.clamp(0, 65535)
-    entry_words = l4_entry_words(tables)
-    hit1, val1 = _l4hash_probe(
-        tables.l4_hash_rows, tables.l4_hash_stash, ep, dirn, idx, dport,
-        proto,
-    )
-    hit3, val3 = _l4hash_probe(
-        tables.l4_wild_rows, tables.l4_wild_stash, ep, dirn,
-        torch.full_like(idx, int(L4H_WILD_IDX)), dport, proto,
-    )
-    probe1 = known & hit1
-    proxy, j = l4hash_value_decode(
-        tables, ep, dirn, probe1, val1, hit3, val3, entry_words
-    )
-    return probe1, known & l3_bit, hit3, proxy, j
+    e_count, _, kg = tables.l4_meta.shape
+    epg, dg = _gather_ix(ep, e_count), _gather_ix(dirn, 2)
+    if tables.l4_hash_rows is not None:
+        # an unknown identity resolves to the in-range fallback idx and
+        # probe 1 is masked by `known`; the wildcard probe is not
+        ep32, d32 = ep & MASK32, dirn & MASK32
+        hit1, val1 = _l4hash_probe(
+            tables.l4_hash_rows, tables.l4_hash_stash, ep32, d32, idx, dport,
+            proto,
+        )
+        hit3, val3 = _l4hash_probe(
+            tables.l4_wild_rows, tables.l4_wild_stash, ep32, d32,
+            torch.full_like(idx, int(L4H_WILD_IDX)), dport, proto,
+        )
+        probe1 = known & hit1
+        probe3 = hit3
+        proxy, j = l4hash_value_decode(
+            tables, ep, dirn, probe1, val1, hit3, val3, l4_entry_words(tables)
+        )
+    else:
+        slot = tables.port_slot[proto, dport].to(torch.int64)
+        has_port = slot != int(NO_SLOT)
+        j = torch.where(has_port, slot, 0)
+        jg = _gather_ix(j, kg)
+        exact = widen(tables.l4_allow_bits[epg, dg, jg, word])
+        meta = widen(tables.l4_meta[epg, dg, jg])
+        proxy = meta >> 1
+        probe1 = known & has_port & ((exact >> bit) & 1).bool()
+        probe3 = has_port & (meta & 1).bool()
+    if l3_bit is None:
+        l3_bit = ((widen(tables.l3_allow_bits[epg, dg, word]) >> bit) & 1).bool()
+    return probe1, known & l3_bit, probe3, proxy, j, idx
 
 
 def _combine(probe1, probe2, probe3, proxy, frag):
@@ -213,6 +368,118 @@ def _counter_cols(kind, ep, dirn, j, idx, kg: int):
     hit_l3 = kind == MATCH_L3
     col = torch.where(hit_l4, j, kg + idx)
     return ep, dirn, col, (hit_l4 | hit_l3)
+
+
+def _accumulate_counters(acc, ep, dirn, col, weight):
+    """Add each weighted hit into the counter buffer acc [E, 2, C] in
+    place, as an XLA scatter-add does: a negative index counts from the
+    end of its axis, and an update still outside the buffer is
+    dropped."""
+    e_count, two, c = acc.shape
+    ix = [torch.where(i < 0, i + n, i)
+          for i, n in ((ep, e_count), (dirn, two), (col, c))]
+    ok = weight
+    for i, n in zip(ix, (e_count, two, c)):
+        ok = ok & (i >= 0) & (i < n)
+    flat = (ix[0][ok] * two + ix[1][ok]) * c + ix[2][ok]
+    acc.view(-1).index_add_(0, flat, torch.ones_like(flat, dtype=torch.int32))
+    return acc
+
+
+def split_counters(acc, tables):
+    """The flat buffer as (l4 [E, 2, Kg], l3 [E, 2, N]) views."""
+    kg = tables.l4_meta.shape[2]
+    return acc[:, :, :kg], acc[:, :, kg:]
+
+
+def _lattice_plain(tables, batch: TupleBatch, identity=None,
+                   counters: bool = False):
+    """Plain version of the tuple-batch lattice: Verdicts, and with
+    `counters` the fresh [E, 2, Kg + N] hit buffer.  `identity`
+    (int64 u32 values) replaces the batch's identity column."""
+    ep = batch.ep_index.to(torch.int64)
+    dirn = batch.direction.to(torch.int64)
+    if identity is None:
+        identity = widen(batch.identity)
+    probe1, probe2, probe3, proxy, j, idx = _probes(
+        tables, ep, dirn, batch.dport.to(torch.int64),
+        batch.proto.to(torch.int64), identity=identity,
+    )
+    allowed, proxy_out, kind = _combine(
+        probe1, probe2, probe3, proxy, batch.is_fragment.bool()
+    )
+    v = Verdicts(allowed=allowed.to(torch.uint8),
+                 proxy_port=proxy_out.to(torch.int32), match_kind=kind)
+    if not counters:
+        return v, None
+    acc = make_counter_buffers(tables)
+    kg = int(tables.l4_meta.shape[2])
+    _accumulate_counters(acc, *_counter_cols(kind, ep, dirn, j, idx, kg))
+    return v, acc
+
+
+def _verdict_kernel(tables, batch: TupleBatch) -> Verdicts:
+    """Plain version of the reference's `_verdict_kernel`."""
+    return _lattice_plain(tables, batch)[0]
+
+
+def _verdict_kernel_with_counters(tables, batch: TupleBatch):
+    """Plain version of the counter form: (Verdicts, l4 [E, 2, Kg],
+    l3 [E, 2, N]) of fresh per-batch counters."""
+    v, acc = _lattice_plain(tables, batch, counters=True)
+    return (v, *split_counters(acc, tables))
+
+
+def _lattice_device(tables, batch: TupleBatch, device) -> torch.device:
+    dev = resolve_device(device)
+    require_on(batch.ep_index, dev,
+               "the tuple batch (TupleBatch.from_numpy(..., device))")
+    require_on(tables.l3_allow_bits, dev,
+               "the policy tables (convert.policy_tables_to)")
+    return dev
+
+
+def evaluate_batch(tables, batch: TupleBatch, device=None) -> Verdicts:
+    """The tuple-batch lattice (K23) on `device` (None = the card),
+    where `tables` (PolicyTables) and `batch` must already lie.  A CUDA
+    device launches LATTICE; the CPU runs the plain version."""
+    if _lattice_device(tables, batch, device).type == "cuda":
+        from cilium_tpu_torch import kernels
+
+        return kernels.LATTICE(tables, batch)[0]
+    return _verdict_kernel(tables, batch)
+
+
+def evaluate_batch_with_counters(tables, batch: TupleBatch, device=None):
+    """The counter form of evaluate_batch: (Verdicts, l4 [E, 2, Kg],
+    l3 [E, 2, N]) of this batch's hits (u32 bits in int32)."""
+    if _lattice_device(tables, batch, device).type == "cuda":
+        from cilium_tpu_torch import kernels
+
+        v, acc = kernels.LATTICE(tables, batch, counters=True)
+        return (v, *split_counters(acc, tables))
+    return _verdict_kernel_with_counters(tables, batch)
+
+
+def evaluate_batch_from_ips(lpm_tables, policy_tables, src_ips,
+                            batch: TupleBatch, device=None) -> Verdicts:
+    """The CIDR path (K20's fused form): each tuple's identity is the
+    DIR-24-8 lookup of its source address (0 when the ipcache misses),
+    then the lattice; the batch's identity column is ignored.  All
+    inputs lie on `device` (None = the card): a CUDA device launches
+    LATTICE in IP mode, the CPU runs the plain versions."""
+    from cilium_tpu_torch.ipcache.lpm import lpm_lookup_plain
+
+    dev = _lattice_device(policy_tables, batch, device)
+    require_on(src_ips, dev, "src_ips")
+    require_on(lpm_tables.l1, dev, "the LPM tables (convert.lpm_to)")
+    if dev.type == "cuda":
+        from cilium_tpu_torch import kernels
+
+        return kernels.LATTICE(policy_tables, batch, lpm=lpm_tables,
+                               src_ips=src_ips)[0]
+    ids = lpm_lookup_plain(lpm_tables, src_ips)
+    return _lattice_plain(policy_tables, batch, identity=ids)[0]
 
 
 def telemetry_masks(pre_dropped, ct_result, match_kind, allowed, ct_delete,

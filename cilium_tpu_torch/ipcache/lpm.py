@@ -14,9 +14,13 @@ most 32 endpoints each entry also carries per-endpoint L3-allow
 bitmasks, one u32 per direction.  `subword_ipcache` packs the value
 and L3 planes to the fewest bits their values need.
 
-Only the bucketized form is ported: where the reference would choose
-its DIR-24-8 fallback (more than MAX_RANGES non-/32 prefixes),
-`build_ipcache` raises.
+The DIR-24-8 form (`build_lpm`, `lpm_lookup`) is the standalone
+IPv4 -> identity lookup of the CIDR path: two dependent reads per
+address, `l1[ip >> 8]` and, when that entry points at a block,
+`l2[block, ip & 0xFF]`.  Where the reference's bucketized build would
+fall back to it (more than MAX_RANGES non-/32 prefixes),
+`build_ipcache` raises: the fused datapath does not read DIR-24-8
+tables yet.
 """
 
 from __future__ import annotations
@@ -29,7 +33,13 @@ from typing import Dict, Tuple
 import numpy as np
 import torch
 
-from cilium_tpu_torch.device import widen
+from cilium_tpu_torch.device import (
+    narrow,
+    require_on,
+    resolve_device,
+    tensor_on,
+    widen,
+)
 from cilium_tpu_torch.engine import subword as sw
 from cilium_tpu_torch.engine.hashtable import (
     _fnv1a_host,
@@ -49,6 +59,124 @@ _EMPTY_IP = np.uint32(0xFFFFFFFF)
 # idx-form sentinel: the entry exists but its identity is outside the
 # policy universe — not a miss (which falls back to WORLD)
 UNKNOWN_IDX = np.uint32(0xFFFFFFFF)
+
+
+# -- DIR-24-8 ------------------------------------------------------------------
+L1_BITS = 24
+L1_SIZE = 1 << L1_BITS
+BLOCK_FLAG = np.uint32(1 << 31)
+
+
+@dataclass
+class LPMTables:
+    """DIR-24-8 tables: numpy u32 as built, int32 tensors (u32 bits)
+    once moved with convert.lpm_to.
+
+      l1  u32 [2^24]         indexed by ip >> 8: bit 31 clear is the
+                             identity of the whole /24 cell, bit 31 set
+                             a block index into l2
+      l2  u32 [blocks, 256]  indexed by (block, ip & 0xFF)
+
+    Identity 0 marks "no entry"."""
+
+    l1: object
+    l2: object
+
+
+def build_lpm(prefix_to_id: Dict[str, int]) -> LPMTables:
+    """Lower {ipv4 cidr -> identity} to DIR-24-8 tables.  Prefixes are
+    painted shortest first (sorted as (plen, base, id) tuples, so of two
+    strings that normalise to one network the larger id lands last);
+    each /24 cell holding a longer prefix becomes a 256-entry block
+    seeded with the cell's cover.  IPv6 prefixes are skipped; an
+    identity of 2^31 or more raises."""
+    parsed = []
+    for cidr, num_id in prefix_to_id.items():
+        net = ipaddress.ip_network(cidr, strict=False)
+        if net.version != 4:
+            continue
+        if num_id >= 1 << 31:
+            raise ValueError(f"identity {num_id} exceeds 31-bit LPM range")
+        parsed.append((net.prefixlen, int(net.network_address), num_id))
+    parsed.sort()
+
+    l1 = np.zeros(L1_SIZE, dtype=np.uint32)
+    blocks = []
+    block_of_cell: Dict[int, int] = {}
+    for plen, base, num_id in parsed:
+        if plen <= L1_BITS:
+            lo = base >> (32 - L1_BITS)
+            cells = np.arange(lo, lo + (1 << (L1_BITS - plen)))
+            # paint plain cells; descend into cells that are blocks
+            ptr = (l1[cells] & BLOCK_FLAG) != 0
+            l1[cells[~ptr]] = num_id
+            for cell in cells[ptr]:
+                blocks[int(l1[cell] & ~BLOCK_FLAG)][:] = num_id
+        else:
+            cell = base >> 8
+            bi = block_of_cell.get(cell)
+            if bi is None:
+                bi = len(blocks)
+                seed = l1[cell]
+                if seed & BLOCK_FLAG:
+                    raise AssertionError("cell already a block")
+                blocks.append(np.full(256, seed, dtype=np.uint32))
+                block_of_cell[cell] = bi
+                l1[cell] = BLOCK_FLAG | np.uint32(bi)
+            lo = base & 0xFF
+            blocks[bi][lo : lo + (1 << (32 - plen))] = num_id
+    l2 = np.stack(blocks) if blocks else np.zeros((1, 256), dtype=np.uint32)
+    return LPMTables(l1=l1, l2=l2)
+
+
+def lookup_host(prefix_to_id: Dict[str, int], ip: str) -> int:
+    """Host reference LPM over the mapping itself (the oracle of
+    build_lpm and lpm_lookup): the longest prefix holding `ip`, 0 when
+    none does."""
+    addr = ipaddress.ip_address(ip)
+    best_len, best_id = -1, 0
+    for cidr, num_id in prefix_to_id.items():
+        net = ipaddress.ip_network(cidr, strict=False)
+        if net.version != addr.version:
+            continue
+        if addr in net and net.prefixlen > best_len:
+            best_len, best_id = net.prefixlen, num_id
+    return best_id
+
+
+def lpm_lookup_plain(tables: LPMTables, ips: torch.Tensor) -> torch.Tensor:
+    """Plain version of the DIR-24-8 lookup: ips [B] (u32 bits) ->
+    identities int64 [B] holding u32 values.  The block read clamps
+    its row, as an XLA gather does."""
+    ips = widen(ips)
+    v1 = widen(tables.l1[ips >> 8])
+    is_block = (v1 & int(BLOCK_FLAG)) != 0
+    block = torch.where(is_block, v1 & ~int(BLOCK_FLAG), 0)
+    block = block.clamp(max=int(tables.l2.shape[0]) - 1)
+    v2 = widen(tables.l2[block, ips & 0xFF])
+    return torch.where(is_block, v2, v1)
+
+
+def lpm_lookup(tables, ips, device=None) -> torch.Tensor:
+    """Batched IPv4 -> identity on `device` (None = the card): int32
+    [B] holding u32 identities, 0 = no entry.  `tables` are LPMTables
+    already on that device (convert.lpm_to); `ips` a tensor there or a
+    numpy array, uploaded.  A CUDA device launches LPM_LOOKUP; the CPU
+    runs the plain version."""
+    if isinstance(tables, IPCacheDevice):
+        raise TypeError(
+            "lpm_lookup over the bucketized IPCacheDevice is not ported "
+            "(ROADMAP queue 1: the generic IPCacheDevice lookup); pass "
+            "DIR-24-8 LPMTables"
+        )
+    dev = resolve_device(device)
+    ips = tensor_on(ips, dev, "ips")
+    require_on(tables.l1, dev, "the LPM tables (convert.lpm_to)")
+    if dev.type == "cuda":
+        from cilium_tpu_torch import kernels
+
+        return kernels.LPM_LOOKUP(tables, ips)
+    return narrow(lpm_lookup_plain(tables, ips))
 
 
 @dataclass

@@ -1,7 +1,7 @@
 """Build, binding and wrappers of the hand-written CUDA kernels.
 
-`csrc/datapath.cu`, `csrc/l7.cu` and `csrc/churn.cu` (with their
-headers) are each compiled by `nvcc` for `sm_90a` into a shared
+`csrc/datapath.cu`, `csrc/l7.cu`, `csrc/churn.cu` and
+`csrc/lattice.cu` (with their headers) are each compiled by `nvcc` for `sm_90a` into a shared
 library with a plain C interface, at first use, into
 `cilium_tpu_torch/_build/` (one file per source digest), and bound
 with ctypes.  Nothing here runs at import: the CPU tests import this
@@ -30,6 +30,10 @@ dtype, shape and limits (the staged tables must fit one block's
 shared memory) and raise on anything else, allocate their outputs,
 launch on the current stream, raise on a launch error and count
 `.launches`.
+
+`LATTICE` and `LPM_LOOKUP` (csrc/lattice.cu) are the tuple-level
+lattice (K23; with `lpm` and `src_ips`, K20's fused CIDR form) and the
+DIR-24-8 lookup (K20), under the same rules.
 """
 
 from __future__ import annotations
@@ -57,7 +61,8 @@ from cilium_tpu_torch.prefilter import PrefilterRanges
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
-LIBRARIES = ("datapath", "l7", "churn")  # csrc/<stem>.cu, one library each
+# csrc/<stem>.cu, one library each
+LIBRARIES = ("datapath", "l7", "churn", "lattice")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC",
@@ -356,20 +361,12 @@ def _fill_tables(a: DatapathArgs, tables, dev) -> None:
 
     pol = tables.policy
     if pol.l4_hash_rows is None:
-        raise ValueError("the dense-bitmap lattice is not ported")
-    l4_ew = l4_entry_words(pol)
-    for key, rows, stash in (
-        ("l4", pol.l4_hash_rows, pol.l4_hash_stash),
-        ("l4w", pol.l4_wild_rows, pol.l4_wild_stash),
-    ):
-        if stash.shape[1] != l4_ew or rows.shape[1] < l4_ew:
-            raise ValueError(f"policy.{key} entries are not {l4_ew}-word")
-        setattr(a, f"{key}_rows", _ptr(rows, f"policy.{key}_rows", dev))
-        setattr(a, f"{key}_stash", _ptr(stash, f"policy.{key}_stash", dev))
-        setattr(a, f"{key}_nrows", _pow2(int(rows.shape[0]), f"{key} rows"))
-        setattr(a, f"{key}_lanes", int(rows.shape[1]))
-        setattr(a, f"{key}_stash_n", int(stash.shape[0]))
-    a.l4_ew = l4_ew
+        raise ValueError("the datapath kernels take the hashed L4 tables")
+    l4 = _l4_tables(pol, dev)
+    for key, pre in (("l4", ""), ("l4w", "w")):
+        for f in ("rows", "stash", "nrows", "lanes", "stash_n"):
+            setattr(a, f"{key}_{f}", getattr(l4, pre + f))
+    a.l4_ew = l4.ew
     e_count, _, kg = (int(s) for s in pol.l4_meta.shape)
     n = int(pol.id_table.shape[0])
     if e_count > 32:
@@ -381,6 +378,46 @@ def _fill_tables(a: DatapathArgs, tables, dev) -> None:
     a.id_table = _ptr(pol.id_table, "policy.id_table", dev, shape=(n,))
     if tables.tunnel is not None:
         raise ValueError("the tunnel map is not ported")
+
+
+class L4TablesArgs(ctypes.Structure):
+    """Mirror of cdp::L4Tables in csrc/verdict.cuh, field for field."""
+
+    _fields_ = (
+        [(name, ctypes.c_void_p)
+         for name in ("rows", "stash", "wrows", "wstash", "meta")]
+        + [(name, ctypes.c_int32) for name in (
+            "nrows", "lanes", "stash_n", "wnrows", "wlanes", "wstash_n",
+            "ew", "n_eps", "kg")]
+    )
+
+
+def _l4_tables(pol, dev) -> L4TablesArgs:
+    """Check the policy tables' hashed L4 pair (when present) and
+    l4_meta plane, and fill an L4Tables; rows stay null without the
+    hash (the dense branch)."""
+    t = L4TablesArgs()
+    t.meta = _ptr(pol.l4_meta, "policy.l4_meta", dev)
+    if pol.l4_meta.dim() != 3 or pol.l4_meta.shape[1] != 2:
+        raise ValueError("policy.l4_meta must be [E, 2, Kg]")
+    t.n_eps, _, t.kg = (int(v) for v in pol.l4_meta.shape)
+    if t.n_eps < 1 or t.kg < 1:
+        raise ValueError("policy.l4_meta is empty")
+    if pol.l4_hash_rows is None:
+        return t
+    t.ew = l4_entry_words(pol)
+    for pre, key, rows, stash in (
+        ("", "l4", pol.l4_hash_rows, pol.l4_hash_stash),
+        ("w", "l4w", pol.l4_wild_rows, pol.l4_wild_stash),
+    ):
+        if stash.shape[1] != t.ew or rows.shape[1] < t.ew:
+            raise ValueError(f"policy.{key} entries are not {t.ew}-word")
+        setattr(t, pre + "rows", _ptr(rows, f"policy.{key}_rows", dev))
+        setattr(t, pre + "stash", _ptr(stash, f"policy.{key}_stash", dev))
+        setattr(t, pre + "nrows", _pow2(int(rows.shape[0]), f"{key} rows"))
+        setattr(t, pre + "lanes", int(rows.shape[1]))
+        setattr(t, pre + "stash_n", int(stash.shape[0]))
+    return t
 
 
 def _alloc_columns(a: DatapathArgs, shape, dev) -> dict:
@@ -956,5 +993,173 @@ class CtDeltaKernel:
 
 CHURN_COMPACT = ChurnCompactKernel()
 CT_DELTA = CtDeltaKernel()
+
+
+# ---------------------------------------------------------------------------
+# The tuple-level lattice and the DIR-24-8 lookup (csrc/lattice.cu)
+# ---------------------------------------------------------------------------
+
+
+class LatticeArgs(ctypes.Structure):
+    """Mirror of clt::LatticeArgs in csrc/lattice.cu, field for field."""
+
+    _fields_ = (
+        [(name, _P) for name in ("tuples", "src_ips", "l1", "l2", "id_direct",
+                                 "l3_allow", "port_slot", "l4_allow")]
+        + [("l4", L4TablesArgs)]
+        + [(name, _P) for name in ("allowed", "proxy_port", "match_kind",
+                                   "acc")]
+        + [(name, _I) for name in ("B", "n_blocks", "direct_n", "n_ids",
+                                   "n_words")]
+        + [("lo_len", ctypes.c_uint32)]
+    )
+
+
+class LpmArgs(ctypes.Structure):
+    """Mirror of clt::LpmArgs in csrc/lattice.cu, field for field."""
+
+    _fields_ = [("l1", _P), ("l2", _P), ("ips", _P), ("out", _P), ("B", _I),
+                ("n_blocks", _I)]
+
+
+class _LatticeLibrary(_Library):
+    """csrc/lattice.cu: LATTICE and LPM_LOOKUP."""
+
+    stem = "lattice"
+
+    def bind(self, lib) -> None:
+        self.declare(lib, (("launch_lattice", LatticeArgs),
+                           ("launch_lpm_lookup", LpmArgs)))
+        lib.lattice_struct_sizes.argtypes = [ctypes.POINTER(ctypes.c_int)]
+        lib.lattice_struct_sizes.restype = ctypes.c_int
+        sizes = (ctypes.c_int * 3)()
+        lib.lattice_struct_sizes(sizes)
+        want = [ctypes.sizeof(a) for a in (L4TablesArgs, LatticeArgs,
+                                           LpmArgs)]
+        if list(sizes) != want:
+            raise RuntimeError(
+                f"lattice argument layouts differ between kernels.py "
+                f"{want} and csrc/lattice.cu {list(sizes)}"
+            )
+
+
+LATTICE_LIBRARY = _LatticeLibrary()
+
+
+def _lpm_tables(tables, dev):
+    """Check DIR-24-8 tables; returns (l1 ptr, l2 ptr, n_blocks)."""
+    from cilium_tpu_torch.ipcache.lpm import L1_SIZE
+
+    l2 = tables.l2
+    if l2.dim() != 2 or l2.shape[1] != 256 or l2.shape[0] < 1:
+        raise ValueError(f"lpm.l2 must be [blocks >= 1, 256], got "
+                         f"{tuple(l2.shape)}")
+    if l2.shape[0] >= 1 << 31:
+        raise ValueError("lpm.l2 has too many blocks")
+    return (_ptr(tables.l1, "lpm.l1", dev, shape=(L1_SIZE,)),
+            _ptr(l2, "lpm.l2", dev), int(l2.shape[0]))
+
+
+class LatticeKernel:
+    """K23 on the card, and K20's fused form with `lpm` and `src_ips`:
+    (Verdicts [B], acc int32 [E, 2, Kg + N] or None) of a TupleBatch
+    against PolicyTables, hashed (3- or 2-word entries) or dense (no
+    hash: port_slot and l4_allow_bits).  With `counters` the hits land
+    in a fresh zeroed buffer (split with verdict.split_counters)."""
+
+    name = "lattice"
+
+    def __init__(self) -> None:
+        self.launches = 0
+
+    def load(self, verbose: bool = False):
+        return LATTICE_LIBRARY.load(verbose)
+
+    def __call__(self, tables, batch, counters: bool = False, lpm=None,
+                 src_ips=None):
+        from cilium_tpu_torch.engine.verdict import Verdicts
+
+        packed = batch.pack()
+        dev = _cuda_device(packed, self.name)
+        if packed.dim() != 2 or packed.shape[0] != 6:
+            raise ValueError(f"the tuple pack must be [6, B], got "
+                             f"{tuple(packed.shape)}")
+        b = _batch(int(packed.shape[1]))
+        a = LatticeArgs()
+        a.tuples = _ptr(packed, "tuples", dev, shape=(6, b))
+        a.B = b
+        if (lpm is None) != (src_ips is None):
+            raise ValueError("IP mode takes both lpm and src_ips")
+        if lpm is not None:
+            a.src_ips = _ptr(src_ips, "src_ips", dev, shape=(b,))
+            a.l1, a.l2, a.n_blocks = _lpm_tables(lpm, dev)
+        a.l4 = _l4_tables(tables, dev)
+        e_count, kg = a.l4.n_eps, a.l4.kg
+        n = int(tables.id_table.shape[0])
+        if n < 32 or n % 32 or n >= 1 << 31:
+            raise ValueError(f"{n} identities: not a positive multiple of 32")
+        w = n // 32
+        a.n_ids, a.n_words = n, w
+        direct_n = int(tables.id_direct.shape[0])
+        if not 1 <= direct_n < 1 << 31:
+            raise ValueError(f"id_direct has {direct_n} entries")
+        a.id_direct = _ptr(tables.id_direct, "policy.id_direct", dev,
+                           shape=(direct_n,))
+        a.direct_n = direct_n
+        a.lo_len = int(tables.id_lo_len) & 0xFFFFFFFF
+        a.l3_allow = _ptr(tables.l3_allow_bits, "policy.l3_allow_bits", dev,
+                          shape=(e_count, 2, w))
+        if tables.l4_hash_rows is None:
+            a.port_slot = _ptr(tables.port_slot, "policy.port_slot", dev,
+                               shape=(256, 65536))
+            a.l4_allow = _ptr(tables.l4_allow_bits, "policy.l4_allow_bits",
+                              dev, shape=(e_count, 2, kg, w))
+        out = Verdicts(
+            allowed=torch.empty(b, dtype=torch.uint8, device=dev),
+            proxy_port=torch.empty(b, dtype=torch.int32, device=dev),
+            match_kind=torch.empty(b, dtype=torch.uint8, device=dev),
+        )
+        a.allowed = out.allowed.data_ptr()
+        a.proxy_port = out.proxy_port.data_ptr()
+        a.match_kind = out.match_kind.data_ptr()
+        acc = None
+        if counters:
+            acc = torch.zeros((e_count, 2, kg + n), dtype=torch.int32,
+                              device=dev)
+            a.acc = acc.data_ptr()
+        LATTICE_LIBRARY.launch("launch_lattice", a, dev, self.name)
+        self.launches += 1
+        return out, acc
+
+
+class LpmLookupKernel:
+    """K20's DIR-24-8 lookup on the card: ips int32 [B] (u32 bits) ->
+    identities int32 [B] (u32 bits, 0 = no entry)."""
+
+    name = "lpm_lookup"
+
+    def __init__(self) -> None:
+        self.launches = 0
+
+    def load(self, verbose: bool = False):
+        return LATTICE_LIBRARY.load(verbose)
+
+    def __call__(self, tables, ips):
+        dev = _cuda_device(ips, self.name)
+        if ips.dim() != 1:
+            raise ValueError("ips must be [B]")
+        b = _batch(int(ips.shape[0]))
+        a = LpmArgs()
+        a.l1, a.l2, a.n_blocks = _lpm_tables(tables, dev)
+        a.ips = _ptr(ips, "ips", dev, shape=(b,))
+        out = torch.empty(b, dtype=torch.int32, device=dev)
+        a.out, a.B = out.data_ptr(), b
+        LATTICE_LIBRARY.launch("launch_lpm_lookup", a, dev, self.name)
+        self.launches += 1
+        return out
+
+
+LATTICE = LatticeKernel()
+LPM_LOOKUP = LpmLookupKernel()
 KERNELS = (DATAPATH_PAIR, DATAPATH_STEP, CHURN_COMPACT, CT_DELTA,
-           HTTP_MATCH, KAFKA_MATCH, FLEET_L7)
+           HTTP_MATCH, KAFKA_MATCH, FLEET_L7, LATTICE, LPM_LOOKUP)

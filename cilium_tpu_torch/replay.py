@@ -1,4 +1,14 @@
-"""The conntrack churn loop: flow-pool replay with CT write-back.
+"""Replay: the conntrack churn loop over a flow pool, and the record
+replay through the bare policy lattice.
+
+`replay_lattice` is the post-hoc Hubble audit path: flow records (the
+identity already resolved in each record) are decoded, cut into padded
+batches, uploaded as one [6, B] pack each and judged by the tuple
+lattice with per-batch counters (the LATTICE kernel on the card), up to
+four batches in flight; each drained batch adds its verdict tallies to
+the stats and its counters to u64 host totals.
+
+The churn loop is the counterpart of the reference's `replay_pool`.
 
 Counterpart of the reference's `replay_pool` (its config-5
 `ct_churn_tuples_per_sec`).  The flow pool (unique flows, as real
@@ -22,8 +32,8 @@ batch runs:
 The round repeats (a rerun) while the header's `remaining` says that
 intents lost their slot or were cut by the cap.  On CUDA tensors the
 three kernels run, or the call raises; on CPU tensors their plain
-versions run.  Counter accumulation, the record-buffer `replay()` and
-`replay_lattice` are not ported.
+versions run.  The record-buffer `replay()` through the fused datapath
+is not ported.
 """
 
 from __future__ import annotations
@@ -31,13 +41,20 @@ from __future__ import annotations
 import dataclasses
 import time
 from dataclasses import dataclass, field
-from typing import Dict, List
+from typing import Dict, Iterator, List, Optional, Tuple
 
 import numpy as np
 import torch
 
 from cilium_tpu_torch.ct.device import CTBucketIndex, apply_bucket_delta
-from cilium_tpu_torch.device import narrow, resolve_device, u32_tensor, widen
+from cilium_tpu_torch.device import (
+    narrow,
+    on_device,
+    require_on,
+    resolve_device,
+    u32_tensor,
+    widen,
+)
 from cilium_tpu_torch.engine.datapath import (
     FLOW_COLUMNS,
     DatapathTables,
@@ -48,6 +65,12 @@ from cilium_tpu_torch.engine.datapath import (
     flow_batch_from_packed,
 )
 from cilium_tpu_torch.engine.hashtable import fnv1a
+from cilium_tpu_torch.engine.verdict import (
+    TupleBatch,
+    evaluate_batch,
+    evaluate_batch_with_counters,
+)
+from cilium_tpu_torch.native.loader import decode_flow_records
 
 # create/delete intents that one round may carry to the host
 _CT_INTENT_CAP = 1 << 16
@@ -176,12 +199,6 @@ def _fetch_intents(intents: torch.Tensor, k: int) -> np.ndarray:
     return intents[:, :bucket].cpu().numpy().view(np.uint32)[:, :k]
 
 
-def _same_device(t: torch.Tensor, dev: torch.device) -> bool:
-    return t.device.type == dev.type and (
-        dev.type == "cpu" or t.device.index == dev.index
-    )
-
-
 @dataclass
 class ReplayStats:
     total: int = 0
@@ -198,6 +215,10 @@ class ReplayStats:
     rounds: int = 0
     intents: List[int] = field(default_factory=list)
     fold_seconds: float = 0.0
+    # replay_lattice's host seconds by span: decode (the record
+    # columns), pack (a batch's pack and its upload), dispatch (the
+    # lattice launch), drain (tallies and counters fetched and summed)
+    spans: Dict[str, float] = field(default_factory=dict)
 
     @property
     def verdicts_per_sec(self) -> float:
@@ -227,7 +248,7 @@ class _ChurnDriver:
             cached is not None
             and cached[2] == ct_map.mutations
             and cached[0].key_home.keys() == ct_map.entries.keys()
-            and _same_device(cached[1].buckets, device)
+            and on_device(cached[1].buckets, device)
         ):
             self.ct_index, self.dev_snap = cached[:2]
         else:
@@ -298,7 +319,7 @@ def _pool_on(pool: Dict[str, np.ndarray], dev: torch.device) -> torch.Tensor:
     from cilium_tpu_torch.convert import flow_pool_to
 
     packed = pool.get(_POOL_PACK_KEY)
-    if packed is None or not _same_device(packed, dev):
+    if packed is None or not on_device(packed, dev):
         packed = flow_pool_to(pool, dev)
         pool[_POOL_PACK_KEY] = packed
     return packed
@@ -327,11 +348,7 @@ def replay_pool(tables: DatapathTables, pool: Dict[str, np.ndarray],
     dev = resolve_device(device)
     if dev.type == "cuda" and dev.index is None:
         dev = torch.device("cuda", torch.cuda.current_device())
-    leaf = tables.policy.id_table
-    if not (isinstance(leaf, torch.Tensor) and _same_device(leaf, dev)):
-        raise ValueError(
-            f"the tables must be tensors on {dev} (convert.tables_to)"
-        )
+    require_on(tables.policy.id_table, dev, "the tables (convert.tables_to)")
     pool_dev = _pool_on(pool, dev)
     churn = _ChurnDriver(ct_map, dev)
     stats = ReplayStats()
@@ -366,3 +383,176 @@ def replay_pool(tables: DatapathTables, pool: Dict[str, np.ndarray],
     churn.stash()
     stats.seconds = time.perf_counter() - t0
     return stats
+
+
+# -- record replay through the bare lattice --------------------------------------
+
+
+def _ep_index_of(rec, ep_map: Optional[Dict[int, int]]) -> np.ndarray:
+    """Record endpoint ids -> endpoint-axis indices (int32): through
+    `ep_map`'s LUT, unknown ids going to 0; without it the id itself,
+    so an id of 2^31 or more wraps negative."""
+    ep_index = rec["ep_id"].astype(np.int64)  # no wrap before the LUT
+    if ep_map is not None:
+        lut = np.zeros(max(ep_map.keys(), default=0) + 1, dtype=np.int32)
+        for ep_id, idx in ep_map.items():
+            lut[ep_id] = idx
+        in_range = ep_index < len(lut)
+        ep_index = np.where(
+            in_range, lut[np.minimum(ep_index, len(lut) - 1)], 0
+        )
+    return ep_index.astype(np.int32)
+
+
+def _batch_slices(n: int, batch_size: int):
+    for start in range(0, n, batch_size):
+        yield start, min(start + batch_size, n)
+
+
+def _padded(a: np.ndarray, start: int, end: int, size: int, fill=0):
+    chunk = a[start:end]
+    pad = size - (end - start)
+    if pad:
+        chunk = np.concatenate([chunk, np.full(pad, fill, dtype=a.dtype)])
+    return chunk
+
+
+def read_batches(buf: bytes, batch_size: int,
+                 ep_map: Optional[Dict[int, int]] = None,
+                 device=None) -> Iterator[Tuple[TupleBatch, int]]:
+    """Decode flow records and yield (TupleBatch on `device`, valid):
+    batches of `batch_size` rows, the last padded with zeros (fragment
+    flag False) past its `valid` rows."""
+    return read_batches_from_rec(
+        decode_flow_records(buf), batch_size, ep_map, device=device
+    )
+
+
+def read_batches_from_rec(rec: Dict[str, np.ndarray], batch_size: int,
+                          ep_map: Optional[Dict[int, int]] = None,
+                          ep_index: Optional[np.ndarray] = None,
+                          device=None) -> Iterator[Tuple[TupleBatch, int]]:
+    """read_batches over already-decoded record columns; `ep_index`
+    supplies an endpoint-axis translation already computed."""
+    n = len(rec["ep_id"])
+    if ep_index is None:
+        ep_index = _ep_index_of(rec, ep_map)
+    # each column cast once, not once per batch
+    cols = dict(
+        ep_index=ep_index,
+        identity=rec["identity"],
+        dport=rec["dport"].astype(np.int32),
+        proto=rec["proto"].astype(np.int32),
+        direction=rec["direction"].astype(np.int32),
+        is_fragment=rec["is_fragment"].astype(bool),
+    )
+    for start, end in _batch_slices(n, batch_size):
+        yield (
+            TupleBatch.from_numpy(
+                **{k: _padded(a, start, end, batch_size) for k, a in
+                   cols.items()},
+                device=device,
+            ),
+            end - start,
+        )
+
+
+class _CounterAccumulator:
+    """u64 host totals of the per-batch u32 counters."""
+
+    l4: Optional[np.ndarray] = None
+    l3: Optional[np.ndarray] = None
+
+    def add(self, l4_counts: torch.Tensor, l3_counts: torch.Tensor) -> None:
+        l4 = l4_counts.cpu().numpy().view(np.uint32).astype(np.uint64)
+        l3 = l3_counts.cpu().numpy().view(np.uint32).astype(np.uint64)
+        if self.l4 is None:
+            self.l4, self.l3 = l4, l3
+        else:
+            self.l4 += l4
+            self.l3 += l3
+
+
+def _tally(verdicts, valid: int, stats: ReplayStats) -> None:
+    """Count a batch's first `valid` rows (padding never counts)."""
+    allowed = int(verdicts.allowed[:valid].sum())
+    stats.total += int(valid)
+    stats.allowed += allowed
+    stats.denied += int(valid) - allowed
+    stats.redirected += int((verdicts.proxy_port[:valid] > 0).sum())
+
+
+def _drain(item, stats: ReplayStats,
+           acc: Optional[_CounterAccumulator]) -> None:
+    """A finished batch: tally its rows; add its counters, padding rows'
+    hits included, as the reference does."""
+    (verdicts, l4_counts, l3_counts), valid = item
+    _tally(verdicts, valid, stats)
+    if acc is not None:
+        acc.add(l4_counts, l3_counts)
+
+
+def replay_lattice(tables, buf: bytes, batch_size: int = 1 << 20,
+                   accumulate_counters: bool = True,
+                   ep_map: Optional[Dict[int, int]] = None, *,
+                   device=None) -> tuple:
+    """Replay flow records through the bare policy lattice on `device`
+    (None = the card), where the PolicyTables must already lie
+    (convert.policy_tables_to).  Returns (stats, l4, l3): the u64 hit
+    totals [E, 2, Kg] and [E, 2, N] over every batch, or None, None
+    without `accumulate_counters` (which then runs the lattice without
+    its counters).  `stats.seconds` covers decode, upload, the lattice
+    and the drains; `stats.spans` splits it."""
+    dev = resolve_device(device)
+    require_on(tables.l3_allow_bits, dev,
+               "the policy tables (convert.policy_tables_to)")
+    stats = ReplayStats()
+    acc = _CounterAccumulator() if accumulate_counters else None
+
+    def step(batch):
+        if acc is None:
+            return evaluate_batch(tables, batch, dev), None, None
+        return evaluate_batch_with_counters(tables, batch, dev)
+
+    spans = stats.spans = dict.fromkeys(
+        ("decode", "pack", "dispatch", "drain"), 0.0)
+
+    def timed(span, fn, *args):
+        t = time.perf_counter()
+        out = fn(*args)
+        spans[span] += time.perf_counter() - t
+        return out
+
+    pending = []  # pipelined dispatch, at most 4 batches in flight
+    t0 = time.perf_counter()
+    batches = timed("decode", read_batches, buf, batch_size, ep_map, dev)
+    while (item := timed("pack", next, batches, None)) is not None:
+        batch, valid = item
+        pending.append((timed("dispatch", step, batch), valid))
+        stats.batches += 1
+        if len(pending) >= 4:
+            timed("drain", _drain, pending.pop(0), stats, acc)
+    while pending:
+        timed("drain", _drain, pending.pop(0), stats, acc)
+    stats.seconds = time.perf_counter() - t0
+    if acc is None:
+        return stats, None, None
+    return stats, acc.l4, acc.l3
+
+
+def slot_keys_from_tables(tables) -> Dict[int, Tuple[int, int]]:
+    """Global L4 slot -> (dport, proto), read back from the compiled
+    port_slot table (numpy or a tensor): the inverse of the slot
+    assignment in compiler.tables.lower_map_state."""
+    from cilium_tpu_torch.compiler.tables import NO_SLOT
+
+    port_slot = tables.port_slot
+    if isinstance(port_slot, torch.Tensor):
+        port_slot = port_slot.cpu().numpy()
+    port_slot = np.asarray(port_slot)
+    protos, dports = np.nonzero(port_slot != int(NO_SLOT))
+    slots = port_slot[protos, dports]
+    return {
+        int(j): (int(dport), int(proto))
+        for j, dport, proto in zip(slots, dports, protos)
+    }

@@ -29,6 +29,12 @@ BPF maps the agent writes, without the control plane:
     the pool, uniform or Zipf-ranked.
 
 Everything is drawn from one numpy Generator seeded by `seed`.
+
+The bare policy lattice has worlds of its own, at the same level:
+`example_world` (config 1), `cidr_world` (config 2, with its DIR-24-8
+mapping and tuple generator), and over config 5: `lattice_tuples`
+(bench.py's lattice line) and `lattice_records` (flow records drawn
+from the pool, each carrying its peer's identity).
 """
 
 from __future__ import annotations
@@ -607,4 +613,146 @@ def kafka_request_world(n: int = 1 << 20, seed: int = 17) -> RequestWorld:
         ident=ident, known=np.ones(n, dtype=bool),
         fields=tuple(np.asarray(a)[pick] for a in packed),
         sample=sample,
+    )
+
+
+# -- the bare policy lattice ------------------------------------------------------
+
+FRAG_SHARE = 0.02  # fragments among lattice_records (the pool's share)
+
+
+@dataclass
+class LatticeWorld:
+    """Map states over one identity universe for the bare lattice
+    (configs 1 and 2): `tuples` is config 1's batch; `ipc_map` and
+    `rng` drive config 2's CIDR batches."""
+
+    states: list
+    identity_ids: List[int]
+    identity_pad: int = 1024
+    filter_pad: int = 64
+    tuples: Optional[dict] = None
+    ipc_map: Dict[str, int] = field(default_factory=dict)
+    rng: Optional[np.random.Generator] = None
+
+    def policy_tables(self):
+        """The compiled PolicyTables (host numpy, hashed and dense
+        leaves both)."""
+        return compile_map_states(
+            self.states, self.identity_ids, identity_pad=self.identity_pad,
+            filter_pad=self.filter_pad,
+        )
+
+    def make_cidr_batch(self, count: int):
+        """Config 2's tuple distribution (bench.py config2's
+        make_cidr_batch, drawn from the world's generator): source
+        addresses uniform over 10.0.0.0/8 and tuple columns for endpoint
+        0, ingress, TCP to 443 or 80.  Returns (addrs u32, columns)."""
+        rng = self.rng
+        addrs = (0x0A000000 | rng.integers(0, 1 << 24, size=count)).astype(
+            np.uint32)
+        return addrs, dict(
+            ep_index=np.zeros(count, np.int32),
+            identity=np.zeros(count, np.uint32),
+            dport=rng.choice([443, 80], size=count),
+            proto=np.full(count, 6),
+            direction=np.zeros(count, np.int64),
+        )
+
+
+def example_world(n_identities: int = 64, batch: int = 1024) -> LatticeWorld:
+    """Config 1 (__graft_entry__._build_example, bench.py config1): one
+    endpoint (app=server) whose ingress admits app=client (identity 256)
+    on TCP 80 and app=peer (257) at L3, written as the map state the
+    policy repository computes for it; 64 identities (256, 257, then
+    300 on); identity_pad 64, filter_pad 8; `batch` tuples drawn with
+    seed 0."""
+    ids = [256, 257] + [300 + i for i in range(n_identities - 2)]
+    state = {
+        PolicyKey(256, 80, 6, INGRESS): PolicyMapStateEntry(),
+        PolicyKey(257, 0, 0, INGRESS): PolicyMapStateEntry(),
+    }
+    rng = np.random.default_rng(0)
+    arr = np.asarray(ids, dtype=np.uint32)
+    tuples = dict(
+        ep_index=np.zeros(batch, np.int32),
+        identity=rng.choice(arr, size=batch),
+        dport=rng.choice([80, 443], size=batch),
+        proto=np.full(batch, 6),
+        direction=np.zeros(batch, np.int64),
+    )
+    return LatticeWorld(states=[state], identity_ids=ids, identity_pad=64,
+                        filter_pad=8, tuples=tuples)
+
+
+def cidr_world(n16: int = 64, n24: int = 4096, n32: int = 16384,
+               seed: int = 11) -> LatticeWorld:
+    """Config 2 (bench.py config2): /16s, /24s and /32s over 10.0.0.0/8
+    (20,544 prefixes at the defaults), each with its own local CIDR
+    identity; one endpoint admitting every second identity on TCP 443
+    and every fifth at L3, on ingress.  The generator behind
+    make_cidr_batch is seeded with `seed`."""
+    base_local = LOCAL_ID_BASE
+    mapping: Dict[str, int] = {}
+    ids: List[int] = []
+
+    def add(cidr):
+        mapping[cidr] = base_local + len(ids)
+        ids.append(base_local + len(ids))
+
+    for i in range(n16):
+        add(f"10.{i}.0.0/16")
+    for i in range(n24):
+        add(f"10.{64 + i // 256}.{i % 256}.0/24")
+    for i in range(n32):
+        a, b = 128 + i // 8192, (i // 32) % 256
+        add(f"10.{a}.{b}.{i % 32 * 8}/32")
+    state = {}
+    for num_id in ids[::2]:
+        state[PolicyKey(num_id, 443, 6, INGRESS)] = PolicyMapStateEntry()
+    for num_id in ids[::5]:
+        state[PolicyKey(num_id, 0, 0, INGRESS)] = PolicyMapStateEntry()
+    return LatticeWorld(states=[state], identity_ids=ids, identity_pad=1024,
+                        ipc_map=mapping, rng=np.random.default_rng(seed))
+
+
+def lattice_tuples(w: World, n: int, seed: int = 1) -> dict:
+    """bench.py's lattice line over config 5: endpoints, identities
+    (256 on), dports in [1, 65535), TCP or UDP and directions uniform;
+    tuple columns as numpy arrays."""
+    rng = np.random.default_rng(seed)
+    return dict(
+        ep_index=rng.integers(0, w.meta["endpoints"], size=n),
+        identity=rng.integers(256, 256 + w.meta["identities"],
+                              size=n).astype(np.uint32),
+        dport=rng.integers(1, 65535, size=n),
+        proto=rng.choice([6, 17], size=n),
+        direction=rng.integers(0, 2, size=n),
+    )
+
+
+def lattice_records(w: World, n: int, seed: int = 31) -> bytes:
+    """`n` flow records drawn uniformly from the world's flow pool: each
+    carries its row's endpoint (as the record's ep_id), addresses,
+    ports, proto and direction, the identity of its remote peer (the
+    source on ingress, the destination on egress) as the plain
+    lpm_lookup over build_lpm(w.ipc_map) resolves it (0 where it
+    misses), and a fragment flag drawn with share FRAG_SHARE."""
+    from cilium_tpu_torch.convert import lpm_to
+    from cilium_tpu_torch.ipcache.lpm import build_lpm, lpm_lookup
+    from cilium_tpu_torch.native.loader import encode_flow_records
+
+    pool = w.pool
+    peer = np.where(pool["direction"] == INGRESS, pool["saddr"],
+                    pool["daddr"]).astype(np.uint32)
+    lpm = lpm_to(build_lpm(w.ipc_map), "cpu")
+    peer_id = lpm_lookup(lpm, peer, device="cpu").numpy().view(np.uint32)
+    rng = np.random.default_rng(seed)
+    picks = rng.integers(0, len(peer), size=n)
+    return encode_flow_records(
+        ep_id=pool["ep_index"][picks], identity=peer_id[picks],
+        saddr=pool["saddr"][picks], daddr=pool["daddr"][picks],
+        sport=pool["sport"][picks], dport=pool["dport"][picks],
+        proto=pool["proto"][picks], direction=pool["direction"][picks],
+        is_fragment=rng.random(n) < FRAG_SHARE,
     )

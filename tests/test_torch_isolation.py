@@ -74,10 +74,51 @@ def test_sources_name_neither_jax_nor_the_reference():
 
 def test_entry_points_default_to_the_card():
     """device=None means the card: without one it raises instead of
-    quietly running on the CPU; with one the tables land on it."""
+    quietly running on the CPU; with one the tables land on it.  The
+    lattice's entry points (evaluate_batch, evaluate_batch_from_ips,
+    lpm_lookup, replay_lattice) take device=None the same way."""
+    import numpy as np
+
     from cilium_tpu_torch import world
-    from cilium_tpu_torch.convert import tables_to
+    from cilium_tpu_torch.convert import lpm_to, policy_tables_to, tables_to
     from cilium_tpu_torch.device import resolve_device
+    from cilium_tpu_torch.engine.verdict import (
+        TupleBatch,
+        evaluate_batch,
+        evaluate_batch_from_ips,
+    )
+    from cilium_tpu_torch.ipcache.lpm import build_lpm, lpm_lookup
+    from cilium_tpu_torch.native.loader import encode_flow_records
+    from cilium_tpu_torch.replay import replay_lattice
+
+    ex = world.example_world(batch=16)
+    pol = policy_tables_to(ex.policy_tables(), "cpu")
+    batch = TupleBatch.from_numpy(**ex.tuples, device="cpu")
+    lpm = lpm_to(build_lpm({"10.0.0.0/8": 256}), "cpu")
+    ips = np.full(16, 0x0A000001, np.uint32)
+    buf = encode_flow_records(
+        ep_id=ex.tuples["ep_index"], identity=ex.tuples["identity"],
+        saddr=ips, daddr=ips, sport=np.zeros(16), dport=ex.tuples["dport"],
+        proto=ex.tuples["proto"], direction=ex.tuples["direction"],
+        is_fragment=np.zeros(16))
+    calls = [
+        lambda d: evaluate_batch(pol, batch, device=d),
+        lambda d: evaluate_batch_from_ips(
+            lpm, pol, torch.from_numpy(ips.view(np.int32)), batch, device=d),
+        lambda d: lpm_lookup(lpm, ips, device=d),
+        lambda d: replay_lattice(pol, buf, 8, device=d),
+        lambda d: TupleBatch.from_numpy(**ex.tuples, device=d),
+    ]
+    for call in calls:
+        if torch.cuda.is_available():
+            # the CPU inputs are refused on the card, never run there
+            if call is not calls[-1]:
+                with pytest.raises(ValueError, match="must be tensors on"):
+                    call(None)
+        else:
+            with pytest.raises(RuntimeError, match="no CUDA device"):
+                call(None)
+        assert call("cpu") is not None
 
     w = world.make_world(
         seed=1, n_rules=50, n_endpoints=2, n_identities=64, n_cidr_blocks=4,
