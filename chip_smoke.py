@@ -44,7 +44,17 @@ launch counts set to 0 just before it and read just after:
              lpm_lookup of the addresses (LATTICE in IP mode, LPM_LOOKUP);
   config1_latency  config 1's 1,024 tuples through evaluate_batch, 256
              synchronised calls, p50 and p99, every call against the
-             oracle (LATTICE); then lattice_timing.
+             oracle (LATTICE); then lattice_timing;
+  config6    bench.py's config 6, the fused IPv6 datapath: 1,048,576 v6
+             flows through datapath6_step, one call against bench's
+             256-row composed oracle, then 8 calls timed (DATAPATH6);
+             before it config6_check holds DATAPATH6 against its plain
+             version on those flows, with the 256-node tunnel map, and
+             on both passes of the conntrack variant (a 65,536-flow
+             slice written back, then the slice and its reverses), and
+             DATAPATH_PAIR and DATAPATH_STEP against theirs on config 5's
+             tables with the same tunnel map (overlay mode); after it
+             config6_timing.
 
 Every kernel is held bit-exact against its plain PyTorch version at
 the path's shapes, each L7 and lattice path against a host oracle on
@@ -60,10 +70,15 @@ and written once at 3.35 TB/s, or its operations at 67 T/s, whichever
 is larger.  `library_ms` is the time of `index_copy_` for CT_DELTA
 and null for the others: no single PyTorch call computes the fused
 datapath steps, the intent compaction, a DFA scan, the Kafka rule
-match, the fleet's routed match, the policy lattice or the two
-dependent DIR-24-8 reads.  LATTICE's launches are summed over its four
-paths, its time is config 5's compact mode; LPM_LOOKUP's time is
-config 2's 1,048,576 addresses.  Then the card's name and power
+match, the fleet's routed match, the policy lattice, the two
+dependent DIR-24-8 reads or the v6 program.  LATTICE's launches are
+summed over its four paths, its time is config 5's compact mode;
+LPM_LOOKUP's time is config 2's 1,048,576 addresses; DATAPATH6's is
+config 6's 1,048,576 flows.  The DATAPATH_PAIR and DATAPATH_STEP rows
+also carry their time in overlay mode (`tunnel_ms`, `tunnel_plain_ms`,
+`tunnel_bound_ms`: the same bound plus the 3 KB map read whole,
+`tunnel_max_abs_err`), and DATAPATH6's row its time, plain time and
+bound with the tunnel map.  Then the card's name and power
 limit as nvidia-smi prints them, then {"ok": true, "device": {...}}.
 """
 
@@ -101,6 +116,22 @@ CIDR_BIG = 1 << 20
 CIDR_BIG_CALLS = 8
 CONFIG1_CALLS = 256
 CONFIG1_DENSE_TUPLES = 1 << 20  # config 1's distribution, at a card's width
+CONFIG6_FLOWS = 1 << 20  # bench.py config 6's batch
+CONFIG6_CALLS = 8
+CONFIG6_SLICE = 1 << 16  # the conntrack variant's slice
+# the v6 table leaves DATAPATH6 reads: (plane, leaf)
+READS6 = (
+    ("prefilter", "base"), ("prefilter", "mask"),
+    ("ipcache", "buckets"), ("ipcache", "stash"), ("ipcache", "range_base"),
+    ("ipcache", "range_mask"), ("ipcache", "range_plen"),
+    ("ipcache", "range_value"),
+    ("ct", "buckets"), ("ct", "stash"), ("lb", "rows"), ("lb", "stash"),
+    ("tunnel", "base"), ("tunnel", "mask"), ("tunnel", "endpoint"),
+    ("policy", "id_direct"), ("policy", "l3_allow_bits"),
+    ("policy", "l4_hash_rows"), ("policy", "l4_hash_stash"),
+    ("policy", "l4_wild_rows"), ("policy", "l4_wild_stash"),
+    ("policy", "l4_meta"),
+)
 
 
 def phase(name: str, t0: float, **fields) -> None:
@@ -1475,6 +1506,292 @@ def lattice_phases(kernels, w, tables, wide_t) -> list:
     return lattice_timing(kernels, u, n_lat, n_lpm, err)
 
 
+def verdicts6_err(got, want) -> int:
+    """Max |difference| over the 13 Datapath6Verdicts columns (u32
+    columns as unsigned); 0 means bit-exact."""
+    from cilium_tpu_torch.engine import datapath6 as d6
+
+    return max(int_err(getattr(got, c), getattr(want, c),
+                       c in d6.U32_COLUMNS6) for c in d6.VERDICT6_COLUMNS)
+
+
+def config6_setup() -> dict:
+    """bench.py's config 6 (world.config6_world at 1,048,576 flows) and
+    the 256-node overlay on the card: the tables with and without the
+    tunnel map (the policy's hot plane: the hashed lattice), the
+    flows."""
+    from cilium_tpu_torch import world
+    from cilium_tpu_torch.compiler.tables import split_hot
+    from cilium_tpu_torch.convert import datapath6_tables_to
+    from cilium_tpu_torch.engine.datapath6 import FlowBatch6
+
+    t = time.perf_counter()
+    w6 = world.config6_world(CONFIG6_FLOWS)
+    tm = world.tunnel_map()
+    host = w6.host_tables(tunnel=tm)
+    host.policy = split_hot(host.policy)
+    tunnel = datapath6_tables_to(host, "cuda")
+    u = dict(w6=w6, tm=tm, tunnel=tunnel,
+             tables=dataclasses.replace(tunnel, tunnel=None),
+             flows=FlowBatch6.from_numpy(**w6.flows, device="cuda"))
+    total = sum(v.numel() * v.element_size()
+                for _, v in table_leaves(tunnel))
+    phase("config6_setup", t, flows=CONFIG6_FLOWS,
+          identities=len(w6.identity_ids), prefixes=len(w6.ipc_map),
+          ct_buckets=int(tunnel.ct.n_buckets),
+          ipcache_buckets=int(tunnel.ipcache.n_buckets),
+          tunnel_ranges=int(tunnel.tunnel.endpoint.shape[0]),
+          table_bytes=total)
+    return u
+
+
+def config6_check(kernels, u, w, tables, wide_t) -> dict:
+    """DATAPATH6 against its plain version on config 6's 1,048,576
+    flows, with the tunnel map, and on both passes of the conntrack
+    variant (a 65,536-flow slice written back, CT6 recompiled, then the
+    slice and its reverses); DATAPATH_PAIR and DATAPATH_STEP against
+    theirs on config 5's tables with the 256-node tunnel map.  Returns
+    the errors and the overlay inputs for the timings."""
+    from cilium_tpu_torch import world
+    from cilium_tpu_torch.convert import flow_pool_to, plane_to
+    from cilium_tpu_torch.engine import datapath as dp
+    from cilium_tpu_torch.engine import datapath6 as d6
+    from cilium_tpu_torch.engine import verdict
+
+    t = time.perf_counter()
+    errs = {}
+    for name in ("tables", "tunnel"):
+        got = kernels.DATAPATH6(u[name], u["flows"])
+        errs[name] = verdicts6_err(got, d6.datapath6_plain(u[name], u["flows"]))
+    tunnelled6 = int((got.tunnel_endpoint != 0).sum().item())
+    head = d6.FlowBatch6(**{
+        f.name: getattr(u["flows"], f.name)[:CONFIG6_SLICE]
+        for f in dataclasses.fields(d6.FlowBatch6)})
+    first = kernels.DATAPATH6(u["tables"], head)
+    errs["ct_first"] = verdicts6_err(first, d6.datapath6_plain(u["tables"],
+                                                               head))
+    ct, second = world.config6_ct_pass(u["w6"].flows, first, CONFIG6_SLICE)
+    ct_tables = dataclasses.replace(
+        u["tables"], ct=plane_to(d6.compile_ct6(ct), "cuda"))
+    flows2 = d6.FlowBatch6.from_numpy(**second, device="cuda")
+    got2 = kernels.DATAPATH6(ct_tables, flows2)
+    errs["ct_second"] = verdicts6_err(got2, d6.datapath6_plain(ct_tables,
+                                                               flows2))
+    ct_results = torch.bincount(got2.ct_result.long(), minlength=4).tolist()
+    sticky = int(((got2.lb_slave[:CONFIG6_SLICE] > 0)
+                  & (got2.ct_result[:CONFIG6_SLICE] == 1)).sum().item())
+
+    # v4 overlay mode: config 5's tables with the same 256 nodes
+    tun4 = plane_to(u["tm"].tables(), "cuda")
+    tables_tun = dataclasses.replace(tables, tunnel=tun4)
+    wide_tun = dataclasses.replace(wide_t, tunnel=tun4)
+    pair = w.pairs(seed=43, half=HALF, k=1)
+    errs["pair_tunnel"] = check_pairs(tables_tun, pair, kernels, dp, verdict)
+    pair_dev = torch.from_numpy(pair[0].view(np.int32)).cuda()
+    pool = flow_pool_to(w.pool, "cuda")
+    picks = torch.randint(0, pool.shape[1], (CHURN_BATCH,), device="cuda",
+                          generator=torch.Generator("cuda").manual_seed(6),
+                          dtype=torch.int32)
+    got4 = kernels.DATAPATH_STEP(wide_tun, pool, picks)
+    want4 = dp.datapath_step_plain(
+        wide_tun, dp.flow_batch_from_packed(pool[:, picks.long()]))
+    errs["step_tunnel"] = compare((got4,), (want4,), dp)
+    tunnelled4 = int((got4.tunnel_endpoint != 0).sum().item())
+    torch.cuda.synchronize()
+    phase("config6_check", t, max_abs_err=errs, slice=CONFIG6_SLICE,
+          ct_entries=len(ct.entries), second_pass=int(flows2.saddr.shape[0]),
+          second_ct_results=ct_results, sticky_established=sticky,
+          tunnelled_v6=tunnelled6, tunnelled_v4_step=tunnelled4)
+    if any(errs.values()):
+        raise SystemExit(f"a kernel differs from its plain version: {errs}")
+    if not (ct_results[1] and ct_results[2] and sticky and tunnelled6
+            and tunnelled4):
+        raise SystemExit("the config-6 variants missed a stage")
+    return dict(errs=errs, tables_tun=tables_tun, wide_tun=wide_tun,
+                pair_dev=pair_dev, pool=pool, picks=picks)
+
+
+def config6_oracle(w6, out) -> int:
+    """bench.py config 6's composed oracle (:2879-2901) on its 256
+    sampled rows: the host LB (lb6_lookup_host, slave_for_host), the
+    host LPM (lookup_host6, WORLD when it misses) and the map state's
+    verdict (policy_can_access).  Returns the mismatches."""
+    import ipaddress
+
+    from cilium_tpu_torch.compiler.tables import RESERVED_WORLD
+    from cilium_tpu_torch.engine.oracle import policy_can_access
+    from cilium_tpu_torch.ipcache.lpm6 import int_of_limbs, lookup_host6
+    from cilium_tpu_torch.lb.device6 import lb6_lookup_host, slave_for_host
+
+    allowed = out.allowed.cpu().numpy()
+    slave = out.lb_slave.cpu().numpy()
+    f = w6.flows
+    bad = 0
+    for i in w6.sample:
+        s = str(ipaddress.IPv6Address(int_of_limbs(f["saddr"][i])))
+        d = str(ipaddress.IPv6Address(int_of_limbs(f["daddr"][i])))
+        dirn, eff_d, eff_p = int(f["direction"][i]), d, int(f["dport"][i])
+        if dirn == 1:
+            svc = lb6_lookup_host(w6.mgr, d, eff_p, 6)
+            if svc is not None and svc.backends:
+                sl = slave_for_host(svc, s, d, int(f["sport"][i]), eff_p, 6)
+                bad += int(slave[i]) != sl
+                eff_d = svc.backends[sl - 1].addr.ip
+                eff_p = svc.backends[sl - 1].addr.port
+        sec = lookup_host6(w6.ipc_map, s if dirn == 0 else eff_d)
+        v = policy_can_access(w6.states[0], sec or RESERVED_WORLD, eff_p, 6,
+                              dirn)
+        bad += bool(allowed[i]) != v.allowed
+    return bad
+
+
+def config6_phase(kernels, u) -> int:
+    """Config 6 through the entry point: one call held against bench's
+    composed oracle, then bench's timed loop, 8 calls of
+    datapath6_step on the flows already on the card, synchronised at
+    the end as bench.py's block_until_ready is.  Returns DATAPATH6's
+    launches on this path."""
+    from cilium_tpu_torch.engine.datapath6 import datapath6_step
+
+    tables, flows = u["tables"], u["flows"]
+    torch.cuda.synchronize()
+    reset_counts(kernels)
+    t = time.perf_counter()
+    out = datapath6_step(tables, flows)
+    mismatches = config6_oracle(u["w6"], out)
+    t1 = time.perf_counter()
+    outs = [datapath6_step(tables, flows) for _ in range(CONFIG6_CALLS)]
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t1
+    launches = kernels.DATAPATH6.launches
+    others = {k.name: k.launches for k in kernels.KERNELS
+              if k is not kernels.DATAPATH6}
+    phase("config6", t, calls=CONFIG6_CALLS, flows=CONFIG6_FLOWS,
+          launches=launches, wall_ms=round(wall * 1e3, 4),
+          verdicts_per_s=round(CONFIG6_CALLS * CONFIG6_FLOWS / wall),
+          allowed=int(outs[-1].allowed.sum().item()),
+          lb_dnat=int((outs[-1].lb_slave > 0).sum().item()),
+          oracle_rows=len(u["w6"].sample), oracle_mismatches=mismatches)
+    if launches != CONFIG6_CALLS + 1 or any(others.values()) or mismatches:
+        raise SystemExit(f"config 6: {launches} DATAPATH6 launches, others "
+                         f"{others}, {mismatches} oracle mismatches")
+    return launches
+
+
+def datapath6_need(tables, flows):
+    """Bytes and integer operations DATAPATH6 needs for these flows: 53 B
+    of columns in and 46 B out a flow; each distinct table row or word
+    the plain version gathers (the CT6, ipcache6 and LB6 rows, the two
+    hashed L4 rows, id_direct, l3_allow_bits) read once; the stashes,
+    the ranges and the tunnel map whole.  Operations, counted low: 16
+    per hashed word and 4 per lane word compared; a flow hashes 18
+    words (CT6 10, ipcache6 4, two L4 probes 2 each) and compares a CT6
+    row (11 entries x 9 key words), an ipcache6 row (25 x 4), the
+    ranges (4 a range) and two L4 rows; a non-ingress flow with a v6 LB
+    adds 25 hashed words (service CT6 10, LB key 5, flow hash 10), a CT6
+    row and the LB row's 2 slots (5 words each); with a tunnel map an
+    allowed non-ingress flow compares 4 limbs a range."""
+    from cilium_tpu_torch.engine import datapath6 as d6
+
+    leaves = []
+    for plane, leaf in READS6:
+        obj = getattr(tables, plane)
+        if obj is not None and getattr(obj, leaf, None) is not None:
+            leaves.append((f"{plane}.{leaf}", getattr(obj, leaf)))
+    rows_b, gathered, out = leaf_bytes(
+        leaves, lambda: d6.datapath6_plain(tables, flows))
+    b = int(flows.saddr.shape[0])
+    pol = tables.policy
+    n_ranges = int(tables.ipcache.range_base.shape[0])
+    l4_lanes = (pol.l4_hash_rows.shape[1] + pol.l4_wild_rows.shape[1]) // int(
+        pol.l4_hash_stash.shape[1])
+    ops = b * (16 * 18 + 4 * (11 * 9 + 25 * 4 + 4 * n_ranges + l4_lanes))
+    if tables.lb is not None:
+        non_ingress = int((flows.direction != 0).sum().item())
+        ops += non_ingress * (16 * 25 + 4 * (11 * 9 + 2 * 5))
+    if tables.tunnel is not None:
+        scans = int((out.allowed.bool() & (flows.direction != 0)).sum().item())
+        ops += scans * 4 * int(tables.tunnel.endpoint.shape[0])
+    return rows_b + 99 * b, ops, gathered / b
+
+
+def config6_timing(kernels, u, chk, launches6) -> tuple:
+    """DATAPATH6's time over 20 launches on config 6's flows (with and
+    without the tunnel map), the plain version's, and the bound (see
+    datapath6_need); then DATAPATH_PAIR and DATAPATH_STEP in overlay
+    mode (the pair of config6_check, 2,097,152 picks of the pool).
+    Returns (DATAPATH6's row, the overlay times)."""
+    from cilium_tpu_torch.engine import datapath as dp
+    from cilium_tpu_torch.engine import datapath6 as d6
+    from cilium_tpu_torch.engine import verdict
+
+    t = time.perf_counter()
+    tables, flows = u["tables"], u["flows"]
+    ms = event_ms(lambda: kernels.DATAPATH6(tables, flows), 20)
+    plain_ms = event_ms(lambda: d6.datapath6_plain(tables, flows), 3)
+    tunnel_ms = event_ms(lambda: kernels.DATAPATH6(u["tunnel"], flows), 20)
+    tunnel_plain_ms = event_ms(
+        lambda: d6.datapath6_plain(u["tunnel"], flows), 3)
+    need, ops, gathered = datapath6_need(tables, flows)
+    bb, bo = need / HBM_BYTES_PER_S * 1e3, ops / OPS_PER_S * 1e3
+    t_need, t_ops, _ = datapath6_need(u["tunnel"], flows)
+    tunnel_bound_ms = max(t_need / HBM_BYTES_PER_S, t_ops / OPS_PER_S) * 1e3
+    acc = verdict.make_counter_buffers(chk["tables_tun"].policy)
+    tel = verdict.make_telemetry_buffers(acc.device)
+    pair_dev, pool, picks = chk["pair_dev"], chk["pool"], chk["picks"]
+    overlay = dict(
+        pair_ms=event_ms(lambda: kernels.DATAPATH_PAIR(
+            chk["tables_tun"], pair_dev, acc, tel), 20),
+        pair_plain_ms=event_ms(lambda: dp.datapath_pair_plain(
+            chk["tables_tun"], pair_dev, acc, tel), 3),
+        step_ms=event_ms(lambda: kernels.DATAPATH_STEP(
+            chk["wide_tun"], pool, picks), 20),
+        step_plain_ms=event_ms(lambda: dp.datapath_step_plain(
+            chk["wide_tun"], dp.flow_batch_from_packed(pool[:, picks.long()])),
+            3),
+    )
+    phase("config6_timing", t, ms=round(ms, 4), plain_ms=round(plain_ms, 4),
+          tunnel_ms=round(tunnel_ms, 4),
+          tunnel_plain_ms=round(tunnel_plain_ms, 4),
+          tunnel_bound_ms=round(tunnel_bound_ms, 4), tunnel_ops=t_ops,
+          bytes=need, ops=ops,
+          row_bytes_per_flow=round(gathered, 2),
+          bound_bytes_ms=round(bb, 4), bound_ops_ms=round(bo, 4),
+          kernel_verdicts_per_s=round(CONFIG6_FLOWS / (ms / 1e3)),
+          overlay={k: round(v, 4) for k, v in overlay.items()})
+    row = kernel_row(kernels.DATAPATH6, "cilium_tpu_torch/csrc/datapath6.cu",
+                     "cilium_tpu/engine/datapath6.py:452", launches6,
+                     max(chk["errs"]["tables"], chk["errs"]["tunnel"],
+                         chk["errs"]["ct_first"], chk["errs"]["ct_second"]),
+                     ms, plain_ms, bb, bo)
+    row["tunnel_ms"] = tunnel_ms
+    row["tunnel_plain_ms"] = tunnel_plain_ms
+    row["tunnel_bound_ms"] = tunnel_bound_ms
+    return row, overlay
+
+
+def config6_phases(kernels, w, tables, wide_t, rows) -> None:
+    """Config 6 and overlay mode: set-up, the checks, bench's path, the
+    timings.  Appends DATAPATH6's row to `rows` and notes the overlay
+    times in the DATAPATH_PAIR and DATAPATH_STEP rows."""
+    u = config6_setup()
+    chk = config6_check(kernels, u, w, tables, wide_t)
+    launches6 = config6_phase(kernels, u)
+    row, overlay = config6_timing(kernels, u, chk, launches6)
+    # overlay mode reads the same rows plus the v4 map, whole
+    tun = chk["tables_tun"].tunnel
+    map_ms = sum(v.numel() * v.element_size()
+                 for v in (tun.base, tun.mask, tun.endpoint)) / HBM_BYTES_PER_S * 1e3
+    for r in rows:
+        kind = {"datapath_pair": "pair", "datapath_step": "step"}.get(r["name"])
+        if kind:
+            r["tunnel_ms"] = overlay[f"{kind}_ms"]
+            r["tunnel_plain_ms"] = overlay[f"{kind}_plain_ms"]
+            r["tunnel_bound_ms"] = r["bound_ms"] + map_ms
+            r["tunnel_max_abs_err"] = chk["errs"][f"{kind}_tunnel"]
+    rows.append(row)
+
+
 def device_busy(prof) -> dict:
     """Device time per kernel or copy from a profiler run, each once (a
     host op such as aten::copy_ also reports its copy's device time)
@@ -1724,10 +2041,12 @@ def main() -> int:
     rows.append(l7_kafka_phase(kernels))
     rows.append(combined_phase(kernels, w, tables, fleet))
     rows.extend(lattice_phases(kernels, w, tables, wide_t))
+    torch.cuda.empty_cache()
+    config6_phases(kernels, w, tables, wide_t, rows)
 
     print("[library] library_ms is null except for ct_delta "
           "(index_copy_): no single PyTorch call computes the fused "
-          "datapath steps, the intent compaction, a DFA scan, the Kafka "
+          "datapath steps (v4 or v6), the intent compaction, a DFA scan, the Kafka "
           "rule match, the fleet's routed match, the policy lattice or "
           "the two dependent DIR-24-8 reads", flush=True)
     print(json.dumps({"kernels": rows}), flush=True)

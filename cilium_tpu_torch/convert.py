@@ -5,6 +5,8 @@ device.  `tables_from_numpy` takes the leaves of tables built
 elsewhere (the JAX package's `DatapathTables`, handed over as numpy
 arrays and Python scalars) and builds this package's tables from
 them: the carried-across form of the same compiled maps.
+`datapath6_tables_to` and `datapath6_tables_from_numpy` do the same
+for the v6 program's tables, `flow_batch6_to` moves a v6 flow batch.
 
 Every u32 array becomes an int32 tensor holding the same bits; static
 layout facts (bucket counts, widths, class schedules) stay Python
@@ -22,16 +24,35 @@ from cilium_tpu_torch.compiler.tables import PolicyTables
 from cilium_tpu_torch.ct.device import CTSnapshot
 from cilium_tpu_torch.device import resolve_device, u32_tensor
 from cilium_tpu_torch.engine.datapath import DatapathTables
+from cilium_tpu_torch.engine.datapath6 import (
+    CT6Snapshot,
+    Datapath6Tables,
+    FlowBatch6,
+    Prefilter6,
+)
 from cilium_tpu_torch.ipcache.lpm import IPCacheDevice, LPMTables
+from cilium_tpu_torch.ipcache.lpm6 import IPCache6Device
 from cilium_tpu_torch.lb.device import LBInline
+from cilium_tpu_torch.lb.device6 import LB6Inline
 from cilium_tpu_torch.prefilter import PrefilterRanges
+from cilium_tpu_torch.tunnel import TunnelTables, TunnelTables6
 
+# (plane, class, may be None) of each table set
 _PLANES = (
-    ("prefilter", PrefilterRanges),
-    ("ipcache", IPCacheDevice),
-    ("ct", CTSnapshot),
-    ("lb", LBInline),
-    ("policy", PolicyTables),
+    ("prefilter", PrefilterRanges, False),
+    ("ipcache", IPCacheDevice, False),
+    ("ct", CTSnapshot, False),
+    ("lb", LBInline, False),
+    ("policy", PolicyTables, False),
+    ("tunnel", TunnelTables, True),
+)
+_PLANES6 = (
+    ("prefilter", Prefilter6, False),
+    ("ipcache", IPCache6Device, False),
+    ("ct", CT6Snapshot, False),
+    ("policy", PolicyTables, False),
+    ("tunnel", TunnelTables6, True),
+    ("lb", LB6Inline, True),
 )
 
 
@@ -48,6 +69,8 @@ def _leaf_to(value, device):
 
 
 def _plane_to(plane, device):
+    if plane is None:
+        return None
     return dataclasses.replace(
         plane,
         **{
@@ -57,15 +80,24 @@ def _plane_to(plane, device):
     )
 
 
+def _tables_to(cls, planes, tables, device):
+    dev = resolve_device(device)
+    return cls(**{name: _plane_to(getattr(tables, name), dev)
+                  for name, _, _ in planes})
+
+
 def tables_to(tables: DatapathTables, device=None) -> DatapathTables:
     """Host-built tables -> the same tables on `device` (None = the
-    card).  Cold leaves already dropped (None) stay None."""
-    dev = resolve_device(device)
-    if tables.tunnel is not None:
-        raise ValueError("the tunnel map is not ported")
-    return DatapathTables(
-        **{name: _plane_to(getattr(tables, name), dev) for name, _ in _PLANES}
-    )
+    card).  Cold leaves already dropped (None) stay None, and so does
+    an absent tunnel map."""
+    return _tables_to(DatapathTables, _PLANES, tables, device)
+
+
+def datapath6_tables_to(tables: Datapath6Tables,
+                        device=None) -> Datapath6Tables:
+    """Host-built v6 tables -> the same tables on `device` (None = the
+    card); an absent tunnel map or LB stays None."""
+    return _tables_to(Datapath6Tables, _PLANES6, tables, device)
 
 
 def _check_host_value(path: str, value) -> None:
@@ -79,20 +111,15 @@ def _check_host_value(path: str, value) -> None:
         )
 
 
-def tables_from_numpy(leaves: dict, device=None) -> DatapathTables:
-    """Build the port's tables from a dict of planes, each a dict of
-    leaf name -> numpy array or Python scalar, keyed as the JAX
-    package's table fields are: {"prefilter": {base, mask},
-    "ipcache": {buckets, stash, range_*, n_buckets, values_are_idx,
-    world_plus1, l3_planes, world_l3_*, range_rows,
-    range_class_plens, bucket_entries, value_width, l3_width,
-    range_widths}, "ct": {buckets, stash, n_buckets, entry_words},
-    "lb": {rows, stash, n_buckets}, "policy": {id_table, ...}}.
-    Leaves the port does not carry (the policy `generation` stamp)
-    are ignored; a missing leaf the port needs raises."""
-    planes = {}
-    for name, cls in _PLANES:
-        src = leaves[name]
+def _planes_from_numpy(leaves: dict, planes) -> dict:
+    out = {}
+    for name, cls, optional in planes:
+        src = leaves.get(name)
+        if src is None:
+            if not optional:
+                raise KeyError(f"{name} missing")
+            out[name] = None
+            continue
         kwargs = {}
         for f in dataclasses.fields(cls):
             if f.name in src:
@@ -103,10 +130,54 @@ def tables_from_numpy(leaves: dict, device=None) -> DatapathTables:
                 kwargs[f.name] = value
             elif f.default is dataclasses.MISSING:
                 raise KeyError(f"{name}.{f.name} missing")
-        planes[name] = cls(**kwargs)
-    if leaves.get("tunnel") is not None:
-        raise ValueError("the tunnel map is not ported")
-    return tables_to(DatapathTables(**planes), device)
+        out[name] = cls(**kwargs)
+    return out
+
+
+def tables_from_numpy(leaves: dict, device=None) -> DatapathTables:
+    """Build the port's tables from a dict of planes, each a dict of
+    leaf name -> numpy array or Python scalar, keyed as the JAX
+    package's table fields are: {"prefilter": {base, mask},
+    "ipcache": {buckets, stash, range_*, n_buckets, values_are_idx,
+    world_plus1, l3_planes, world_l3_*, range_rows,
+    range_class_plens, bucket_entries, value_width, l3_width,
+    range_widths}, "ct": {buckets, stash, n_buckets, entry_words},
+    "lb": {rows, stash, n_buckets}, "policy": {id_table, ...},
+    "tunnel": {base, mask, endpoint} or None}.  Leaves the port does not
+    carry (the policy `generation` stamp) are ignored; a missing leaf
+    the port needs raises."""
+    return tables_to(DatapathTables(**_planes_from_numpy(leaves, _PLANES)),
+                     device)
+
+
+def datapath6_tables_from_numpy(leaves: dict,
+                                device=None) -> Datapath6Tables:
+    """The port's v6 tables on `device` (None = the card) from the JAX
+    package's compiled v6 leaves: {"prefilter": {base, mask},
+    "ipcache": {buckets, stash, range_base, range_mask, range_plen,
+    range_value, n_buckets}, "ct": {buckets, stash, n_buckets},
+    "policy": {id_table, ...}, "tunnel": {base, mask, endpoint} or
+    None, "lb": {rows, stash, n_buckets} or None}."""
+    return datapath6_tables_to(
+        Datapath6Tables(**_planes_from_numpy(leaves, _PLANES6)), device)
+
+
+def flow_batch6_to(flows: FlowBatch6, device=None) -> FlowBatch6:
+    """A v6 flow batch -> the same columns on `device` (None = the
+    card)."""
+    dev = resolve_device(device)
+    return FlowBatch6(**{
+        f.name: getattr(flows, f.name).to(dev)
+        for f in dataclasses.fields(FlowBatch6)
+    })
+
+
+def plane_to(plane, device=None):
+    """One table plane (any of the dataclasses above, numpy leaves) ->
+    the same plane on `device` (None = the card): for swapping one
+    plane of tables already there, a recompiled CT6 snapshot or a
+    tunnel map."""
+    return _plane_to(plane, resolve_device(device))
 
 
 def policy_tables_to(tables: PolicyTables, device=None) -> PolicyTables:

@@ -1,5 +1,6 @@
-// Shared pieces of the fused datapath kernel: the launch arguments,
-// FNV-1a (engine/hashtable.py) and the sub-word lane unpack
+// Shared pieces of the fused datapath kernels: the launch arguments,
+// FNV-1a (engine/hashtable.py), the masked-range match of the prefilters,
+// the v6 ipcache ranges and the tunnel maps, and the sub-word lane unpack
 // (engine/subword.py).
 #pragma once
 
@@ -98,6 +99,12 @@ struct DatapathArgs {
   // entries (2 compact, 3 wide)
   int32_t ct_ew;
   int32_t l4_ew;
+  // overlay mode: the v4 tunnel map's ranges [tun_n] and their endpoints;
+  // tun_base null = no tunnel map (tunnel_endpoint written 0)
+  const uint32_t* tun_base;
+  const uint32_t* tun_mask;
+  const uint32_t* tun_endpoint;
+  int32_t tun_n;
 };
 
 constexpr uint32_t FNV_OFFSET = 2166136261u;
@@ -121,6 +128,27 @@ __device__ __forceinline__ uint32_t fnv1a2(uint32_t a, uint32_t b) {
 __device__ __forceinline__ uint32_t fnv1a4(uint32_t a, uint32_t b,
                                            uint32_t c, uint32_t d) {
   return fnv1a_word(fnv1a_word(fnv1a2(a, b), c), d);
+}
+
+// FNV-1a over n words
+__device__ __forceinline__ uint32_t fnv1a_n(const uint32_t* w, int n) {
+  uint32_t h = FNV_OFFSET;
+  for (int k = 0; k < n; ++k) h = fnv1a_word(h, w[k]);
+  return h;
+}
+
+// Whether an address of L u32 limbs lies in range p of a masked-range
+// table (base, mask [n, L]): every (limb & mask) == base.  Padding rows
+// (mask 0, base limb0 1) never match.
+template <int L>
+__device__ __forceinline__ bool range_match(const uint32_t* base,
+                                            const uint32_t* mask, int p,
+                                            const uint32_t* ip) {
+  bool m = true;
+#pragma unroll
+  for (int l = 0; l < L; ++l)
+    m &= (ip[l] & __ldg(mask + p * L + l)) == __ldg(base + p * L + l);
+  return m;
 }
 
 // field k of a plane holding 32 / width fields of `width` bits per lane

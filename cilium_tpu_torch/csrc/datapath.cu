@@ -20,6 +20,7 @@
 //   lattice + combine   _probes, _combine             (engine/verdict.py)
 //   counters            _counter_cols + the merged scatter-add (pair)
 //   telemetry           telemetry_masks + the per-direction sums (pair)
+//   tunnel              tunnel_select, in overlay mode  (tunnel.py)
 // over either table layout: compact (2-word L4 entries, 4-word CT rows,
 // sub-word ipcache planes) or wide (3-word L4 entries, 5-word 128-lane
 // CT rows, u32 ipcache planes).
@@ -31,7 +32,11 @@
 // direction word: an ingress flow (direction 0) runs no LB, any other
 // word goes through the service probe and LB.  The CT probe direction,
 // the lattice direction and the counter row use each flow's own
-// direction.
+// direction.  With a tunnel map (overlay mode, tun_base not null) an
+// allowed flow that is not ingress (the egress half; a step flow whose
+// direction is not 0) scans the map's ranges for its post-DNAT
+// destination's node (tunnel.cuh); without one the column is 0 and the
+// stage costs a null test.
 //
 // What bounds it on an H100: random row reads.  Per flow, at the config-5
 // compact layouts (the wide ones read about twice the bytes), the thread
@@ -60,6 +65,7 @@
 #include "ipcache.cuh"
 #include "lb.cuh"
 #include "prefilter.cuh"
+#include "tunnel.cuh"
 #include "verdict.cuh"
 
 namespace cdp {
@@ -69,7 +75,7 @@ constexpr int TELEM_COLS = 20;
 
 struct FlowOut {
   bool pre, miss, allowed, ct_create, ct_delete;
-  uint32_t eff_daddr, eff_dport, idx;
+  uint32_t eff_daddr, eff_dport, idx, tunnel;
   int32_t rev_nat, lb_slave, proxy;
   CTResult ct;
   Lattice v;
@@ -133,6 +139,12 @@ __device__ __forceinline__ FlowOut fused_flow(const DatapathArgs& a,
              o.allowed)
                 ? o.v.proxy
                 : 0;
+  // -- overlay: the tunnel endpoint of an allowed flow that is not ingress
+  const uint32_t dst[1] = {o.eff_daddr};
+  o.tunnel = (a.tun_base && o.allowed && !ingress)
+                 ? tunnel_select<1>(a.tun_base, a.tun_mask, a.tun_endpoint,
+                                    a.tun_n, dst, 0u)
+                 : 0u;
   return o;
 }
 
@@ -150,7 +162,7 @@ __device__ __forceinline__ void write_flow(const DatapathArgs& a, size_t o,
   a.lb_slave[o] = f.lb_slave;
   a.ct_create[o] = f.ct_create;
   a.ct_delete[o] = f.ct_delete;
-  a.tunnel_endpoint[o] = 0u;
+  a.tunnel_endpoint[o] = f.tunnel;
   a.l4_slot[o] = f.v.j;
   a.ipcache_miss[o] = f.miss;
 }

@@ -9,12 +9,12 @@
 //   unpack        the [6, B] pack (ep, identity, dport, proto, dir, frag)
 //   ipcache       IP mode: dir24_8() over the source address, in place of
 //                 the pack's identity            (ipcache/lpm.py:1091)
-//   identity      the two-region id_direct read   (_index_identity)
-//   probes 1, 3   hashed_probes() of verdict.cuh, the datapath's own, or
-//                 without the hash the dense port_slot / l4_allow_bits /
-//                 l4_meta reads                   (_probes)
-//   probe 2       the l3_allow_bits word
-//   combine       combine() of verdict.cuh, the fragment rule included
+//   lattice       tuple_verdict() of verdict.cuh, shared with DATAPATH6:
+//                 the two-region id_direct read (_index_identity), the
+//                 hashed probes or without the hash the dense port_slot /
+//                 l4_allow_bits / l4_meta reads (_probes), the
+//                 l3_allow_bits word and the combine, the fragment rule
+//                 included
 //   counters      optional: one atomicAdd per hit into a zeroed
 //                 [E, 2, Kg + N] buffer (an index outside the buffer,
 //                 after negative ones count from the end, drops its
@@ -42,13 +42,10 @@
 
 namespace clt {
 
-using cdp::L4Tables;
+using cdp::PolicyView;
 
 constexpr int BLOCK = 256;
 constexpr uint32_t BLOCK_FLAG = 1u << 31;
-constexpr uint32_t LOCAL_ID_BASE = 1u << 24;
-constexpr uint32_t NO_INDEX = 0xFFFFFFFFu;
-constexpr uint32_t NO_SLOT = 0xFFFFu;
 
 // The field order is the ctypes Structure's order in kernels.py;
 // lattice_struct_sizes() lets the wrapper check that the two agree.
@@ -57,21 +54,13 @@ struct LatticeArgs {
   const uint32_t* src_ips;    // [B] in IP mode, else null
   const uint32_t* l1;         // [2^24] (IP mode)
   const uint32_t* l2;         // [n_blocks, 256] (IP mode)
-  const uint32_t* id_direct;  // [direct_n]
-  const uint32_t* l3_allow;   // [E, 2, W]
-  const uint32_t* port_slot;  // [256, 65536] u16 values (dense branch)
-  const uint32_t* l4_allow;   // [E, 2, Kg, W] (dense branch)
-  L4Tables l4;                // rows null: the dense branch
+  PolicyView pol;
   uint8_t* allowed;           // outputs [B]
   int32_t* proxy_port;
   uint8_t* match_kind;
   uint32_t* acc;              // [E, 2, Kg + N] or null
   int32_t B;
   int32_t n_blocks;
-  int32_t direct_n;
-  int32_t n_ids;
-  int32_t n_words;
-  uint32_t lo_len;
 };
 
 struct LpmArgs {
@@ -96,23 +85,6 @@ __device__ __forceinline__ uint32_t dir24_8(const uint32_t* l1,
                (ip & 0xFFu));
 }
 
-// identity -> dense index through id_direct's two regions, with the
-// reference's unsigned compares and position clamp; an unknown identity
-// gets n_ids - 1.
-__device__ __forceinline__ uint32_t index_identity(const LatticeArgs& a,
-                                                   uint32_t ident,
-                                                   bool* known) {
-  const bool local = ident >= LOCAL_ID_BASE;
-  const uint32_t off = ident - LOCAL_ID_BASE;
-  const uint32_t direct_n = static_cast<uint32_t>(a.direct_n);
-  const bool in_range = local ? off < direct_n - a.lo_len : ident < a.lo_len;
-  uint32_t pos = local ? a.lo_len + off : ident;
-  pos = pos < direct_n - 1 ? pos : direct_n - 1;
-  const uint32_t v = __ldg(a.id_direct + pos);
-  *known = in_range && v != NO_INDEX;
-  return *known ? v : static_cast<uint32_t>(a.n_ids - 1);
-}
-
 __global__ void __launch_bounds__(BLOCK) lattice_kernel(const LatticeArgs a) {
   const int i = blockIdx.x * BLOCK + threadIdx.x;
   if (i >= a.B) return;
@@ -128,33 +100,9 @@ __global__ void __launch_bounds__(BLOCK) lattice_kernel(const LatticeArgs a) {
   const bool frag = __ldg(t + 5 * b + i) != 0;
   if (a.src_ips) ident = dir24_8(a.l1, a.l2, a.n_blocks, __ldg(a.src_ips + i));
 
-  bool known;
-  const uint32_t idx = index_identity(a, ident, &known);
-  const uint32_t word = idx >> 5, bit = idx & 31u;
-  const int epg = cdp::gather_ix(ep, a.l4.n_eps);
-  const int dg = cdp::gather_ix(dir, 2);
-  const size_t row = static_cast<size_t>(epg) * 2 + dg;
-
-  cdp::Probes p;
-  if (a.l4.rows) {
-    p = cdp::hashed_probes(a.l4, static_cast<uint32_t>(ep),
-                           static_cast<uint32_t>(dir), dport, proto, idx,
-                           known);
-  } else {
-    const uint32_t slot = __ldg(a.port_slot + proto * 65536u + dport);
-    const bool has_port = slot != NO_SLOT;
-    p.j = has_port ? static_cast<int32_t>(slot) : 0;
-    const size_t cell = row * a.l4.kg + cdp::gather_ix(p.j, a.l4.kg);
-    const uint32_t exact = __ldg(a.l4_allow + cell * a.n_words + word);
-    const uint32_t meta = __ldg(a.l4.meta + cell);
-    p.proxy = static_cast<int32_t>(meta >> 1);
-    p.p1 = known && has_port && ((exact >> bit) & 1u);
-    p.p3 = has_port && (meta & 1u);
-  }
-  const uint32_t l3w = __ldg(a.l3_allow + row * a.n_words + word);
-  const cdp::Lattice v =
-      cdp::combine(p.p1, known && ((l3w >> bit) & 1u), p.p3, p.proxy, p.j,
-                   frag);
+  uint32_t idx;
+  const cdp::Lattice v = cdp::tuple_verdict(a.pol, ep, dir, dport, proto,
+                                            ident, frag, &idx);
   a.allowed[i] = v.allowed;
   a.proxy_port[i] = v.proxy;
   a.match_kind[i] = static_cast<uint8_t>(v.kind);
@@ -163,13 +111,14 @@ __global__ void __launch_bounds__(BLOCK) lattice_kernel(const LatticeArgs a) {
     // L4 hits count at slot j, L3 hits at column kg + idx
     const bool hit_l4 = v.kind == cdp::MATCH_L4 || v.kind == cdp::MATCH_L4_WILD;
     if (hit_l4 || v.kind == cdp::MATCH_L3) {
-      const int64_t cols = static_cast<int64_t>(a.l4.kg) + a.n_ids;
-      const int64_t e = ep < 0 ? static_cast<int64_t>(ep) + a.l4.n_eps : ep;
+      const cdp::L4Tables& l4 = a.pol.l4;
+      const int64_t cols = static_cast<int64_t>(l4.kg) + a.pol.n_ids;
+      const int64_t e = ep < 0 ? static_cast<int64_t>(ep) + l4.n_eps : ep;
       const int64_t d = dir < 0 ? static_cast<int64_t>(dir) + 2 : dir;
       int64_t c = hit_l4 ? static_cast<int64_t>(v.j)
-                         : static_cast<int64_t>(a.l4.kg) + idx;
+                         : static_cast<int64_t>(l4.kg) + idx;
       if (c < 0) c += cols;
-      if (e >= 0 && e < a.l4.n_eps && d >= 0 && d < 2 && c >= 0 && c < cols)
+      if (e >= 0 && e < l4.n_eps && d >= 0 && d < 2 && c >= 0 && c < cols)
         atomicAdd(a.acc + (e * 2 + d) * cols + c, 1u);
     }
   }
@@ -184,9 +133,10 @@ __global__ void __launch_bounds__(BLOCK) lpm_lookup_kernel(const LpmArgs a) {
 
 extern "C" int lattice_struct_sizes(int* out) {
   out[0] = static_cast<int>(sizeof(cdp::L4Tables));
-  out[1] = static_cast<int>(sizeof(clt::LatticeArgs));
-  out[2] = static_cast<int>(sizeof(clt::LpmArgs));
-  return 3;
+  out[1] = static_cast<int>(sizeof(cdp::PolicyView));
+  out[2] = static_cast<int>(sizeof(clt::LatticeArgs));
+  out[3] = static_cast<int>(sizeof(clt::LpmArgs));
+  return 4;
 }
 
 // Launch LATTICE on `stream`; returns cudaGetLastError().

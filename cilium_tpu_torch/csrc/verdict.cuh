@@ -8,6 +8,10 @@
 //     | ep >> 9, value j << 16 | proxy summed over hits.
 // The exact and wildcard probes are one row read each plus the stash.
 // Table reads take their indices as an XLA gather does (gather_ix).
+// PolicyView and tuple_verdict() are the whole lattice of one tuple from
+// its raw identity (identity index through id_direct, then the hashed or
+// dense probes, probe 2 and the combine), shared by LATTICE
+// (csrc/lattice.cu) and DATAPATH6 (csrc/datapath6.cu).
 #pragma once
 
 #include "common.cuh"
@@ -192,6 +196,76 @@ __device__ __forceinline__ Lattice combine(bool probe1, bool probe2,
                     : MATCH_NONE;
   r.j = j;
   return r;
+}
+
+// The policy tables as the tuple lattice reads them.  The field order is
+// the ctypes Structure's order in kernels.py (PolicyViewArgs).
+struct PolicyView {
+  const uint32_t* id_direct;  // [direct_n]
+  const uint32_t* l3_allow;   // [E, 2, W]
+  const uint32_t* port_slot;  // [256, 65536] u16 values (dense branch)
+  const uint32_t* l4_allow;   // [E, 2, Kg, W] (dense branch)
+  L4Tables l4;                // rows null: the dense branch
+  int32_t direct_n;
+  int32_t n_ids;
+  int32_t n_words;
+  uint32_t lo_len;
+};
+
+constexpr uint32_t LOCAL_ID_BASE = 1u << 24;
+constexpr uint32_t NO_INDEX = 0xFFFFFFFFu;
+constexpr uint32_t NO_SLOT = 0xFFFFu;
+
+// identity -> dense index through id_direct's two regions, with the
+// reference's unsigned compares and position clamp; an unknown identity
+// gets n_ids - 1 (engine/verdict.py _index_identity).
+__device__ __forceinline__ uint32_t index_identity(const PolicyView& p,
+                                                   uint32_t ident,
+                                                   bool* known) {
+  const bool local = ident >= LOCAL_ID_BASE;
+  const uint32_t off = ident - LOCAL_ID_BASE;
+  const uint32_t direct_n = static_cast<uint32_t>(p.direct_n);
+  const bool in_range = local ? off < direct_n - p.lo_len : ident < p.lo_len;
+  uint32_t pos = local ? p.lo_len + off : ident;
+  pos = pos < direct_n - 1 ? pos : direct_n - 1;
+  const uint32_t v = __ldg(p.id_direct + pos);
+  *known = in_range && v != NO_INDEX;
+  return *known ? v : static_cast<uint32_t>(p.n_ids - 1);
+}
+
+// The lattice of one tuple (engine/verdict.py _probes + _combine): ep and
+// dir are the tuple's int32 words, dport and proto already clipped to
+// their ranges.  Writes the identity index to *idx (the counters' L3
+// column).
+__device__ __forceinline__ Lattice tuple_verdict(const PolicyView& p,
+                                                 int32_t ep, int32_t dir,
+                                                 uint32_t dport,
+                                                 uint32_t proto,
+                                                 uint32_t ident, bool frag,
+                                                 uint32_t* idx) {
+  bool known;
+  *idx = index_identity(p, ident, &known);
+  const uint32_t word = *idx >> 5, bit = *idx & 31u;
+  const size_t row = static_cast<size_t>(gather_ix(ep, p.l4.n_eps)) * 2 +
+                     gather_ix(dir, 2);
+  Probes q;
+  if (p.l4.rows) {
+    q = hashed_probes(p.l4, static_cast<uint32_t>(ep),
+                      static_cast<uint32_t>(dir), dport, proto, *idx, known);
+  } else {
+    const uint32_t slot = __ldg(p.port_slot + proto * 65536u + dport);
+    const bool has_port = slot != NO_SLOT;
+    q.j = has_port ? static_cast<int32_t>(slot) : 0;
+    const size_t cell = row * p.l4.kg + gather_ix(q.j, p.l4.kg);
+    const uint32_t exact = __ldg(p.l4_allow + cell * p.n_words + word);
+    const uint32_t meta = __ldg(p.l4.meta + cell);
+    q.proxy = static_cast<int32_t>(meta >> 1);
+    q.p1 = known && has_port && ((exact >> bit) & 1u);
+    q.p3 = has_port && (meta & 1u);
+  }
+  const uint32_t l3w = __ldg(p.l3_allow + row * p.n_words + word);
+  return combine(q.p1, known && ((l3w >> bit) & 1u), q.p3, q.proxy, q.j,
+                 frag);
 }
 
 __device__ __forceinline__ L4Tables l4_tables(const DatapathArgs& a) {

@@ -16,7 +16,9 @@ service-scope CT probe).  Per flow:
   5. ipcache lookup of the peer: the lattice index and the L3 bit;
   6. the 3-probe policy lattice and its combine;
   7. counter scatter-add into the carried [E, 2, Kg + N] buffer;
-  8. per-direction telemetry sums into the carried [2, 20] buffer.
+  8. per-direction telemetry sums into the carried [2, 20] buffer;
+  9. with a tunnel map (overlay mode), the tunnel endpoint of an
+     allowed egress flow, on its post-DNAT destination.
 
 On a CUDA tensor `datapath_step_accum_pair_telem_packed4_stacked`
 launches the hand-written kernel (kernels.py, csrc/datapath.cu); on a
@@ -68,12 +70,14 @@ from cilium_tpu_torch.ipcache.lpm import UNKNOWN_IDX, ipcache_lookup_fused
 from cilium_tpu_torch.lb.device import lb_select_batch
 from cilium_tpu_torch.maps.policymap import INGRESS
 from cilium_tpu_torch.prefilter import prefilter_drop
+from cilium_tpu_torch.tunnel import tunnel_select
 
 
 @dataclass
 class DatapathTables:
     """Everything the fused step reads: the pinned maps a bpf_lxc
-    program sees.  `tunnel` None is the no-overlay program."""
+    program sees.  `tunnel` (TunnelTables) None is the no-overlay
+    program."""
 
     prefilter: object  # PrefilterRanges
     ipcache: object  # IPCacheDevice
@@ -230,10 +234,11 @@ def _datapath_core(tables: DatapathTables, f: FlowBatch, ingress,
     service probe and LB run for every row and apply where the row is
     not ingress, so a direction outside {0, 1} goes through LB.
     `emit_sec_id` writes the identity `id_table[idx]` as `sec_id`; the
-    pair form writes the raw lattice index.  Returns
-    (DatapathVerdicts, counter ingredients)."""
-    if tables.tunnel is not None:
-        raise ValueError("the tunnel map is not ported")
+    pair form writes the raw lattice index.  With a tunnel map, an
+    allowed flow that is not ingress gets its post-DNAT destination's
+    tunnel endpoint (the local node's IP is 0); the ingress half of the
+    pair form runs no tunnel stage.  Returns (DatapathVerdicts, counter
+    ingredients)."""
     ipc = tables.ipcache
     if not (ipc.values_are_idx and ipc.l3_planes):
         raise ValueError(
@@ -309,6 +314,12 @@ def _datapath_core(tables: DatapathTables, f: FlowBatch, ingress,
         & allowed,
         v_proxy, 0,
     )
+    if tables.tunnel is not None and ingress is not True:
+        tunnel_ep = torch.where(
+            allowed & ~ing, tunnel_select(tables.tunnel, eff_daddr), 0
+        )
+    else:
+        tunnel_ep = torch.zeros(b, dtype=torch.int64, device=dev)
     out = DatapathVerdicts(
         allowed=allowed.to(torch.uint8),
         proxy_port=proxy_out.to(torch.int32),
@@ -322,7 +333,7 @@ def _datapath_core(tables: DatapathTables, f: FlowBatch, ingress,
         lb_slave=lb_slave.to(torch.int32),
         ct_create=ct_create,
         ct_delete=ct_delete,
-        tunnel_endpoint=torch.zeros(b, dtype=torch.int32, device=dev),
+        tunnel_endpoint=narrow(tunnel_ep),
         l4_slot=j.to(torch.int32),
         ipcache_miss=miss,
     )

@@ -1,8 +1,9 @@
 """Build, binding and wrappers of the hand-written CUDA kernels.
 
-`csrc/datapath.cu`, `csrc/l7.cu`, `csrc/churn.cu` and
-`csrc/lattice.cu` (with their headers) are each compiled by `nvcc` for `sm_90a` into a shared
-library with a plain C interface, at first use, into
+`csrc/datapath.cu`, `csrc/l7.cu`, `csrc/churn.cu`, `csrc/lattice.cu`
+and `csrc/datapath6.cu` (with their headers) are each compiled by
+`nvcc` for `sm_90a` into a shared library with a plain C interface, at
+first use, into
 `cilium_tpu_torch/_build/` (one file per source digest), and bound
 with ctypes.  Nothing here runs at import: the CPU tests import this
 module on a machine with no `nvcc` and no card.
@@ -13,11 +14,11 @@ over pool[:, picks].  Both check devices, dtypes, shapes and the table
 layouts (the kernels implement the compact layouts, 2-word L4 entries
 and 4-word CT rows, and the wide ones, 3-word L4 entries and 5-word CT
 rows; the idx-form ipcache with L3 planes and hashed range classes;
-the inline LB; the range prefilter; no tunnel map; at most 32
-endpoints) and raise on anything else.  They allocate the outputs with
-`torch.empty`, launch on the current stream without synchronising,
-raise if the launch reports an error, and count their launches in
-`.launches`.
+the inline LB; the range prefilter; with or without a v4 tunnel map,
+overlay mode; at most 32 endpoints) and raise on anything else.  They
+allocate the outputs with `torch.empty`, launch on the current stream
+without synchronising, raise if the launch reports an error, and count
+their launches in `.launches`.
 
 `CHURN_COMPACT` and `CT_DELTA` (csrc/churn.cu) are the churn loop's
 intent compaction (K22) and CT bucket delta (K18's CT part) under the
@@ -34,6 +35,12 @@ launch on the current stream, raise on a launch error and count
 `LATTICE` and `LPM_LOOKUP` (csrc/lattice.cu) are the tuple-level
 lattice (K23; with `lpm` and `src_ips`, K20's fused CIDR form) and the
 DIR-24-8 lookup (K20), under the same rules.
+
+`DATAPATH6(tables, flows)` (csrc/datapath6.cu) is the fused IPv6
+program (K15, with the v6 tunnel stage of K11) over Datapath6Tables and
+a FlowBatch6, under the same rules: it checks every table plane and
+flow column, allocates the 13 columns, launches on the current stream,
+raises on a launch error and counts `.launches`.
 """
 
 from __future__ import annotations
@@ -58,11 +65,12 @@ from cilium_tpu_torch.engine.verdict import TELEM_COLS
 from cilium_tpu_torch.ipcache.lpm import RANGE_CLASS_MAX
 from cilium_tpu_torch.lb.device import INLINE_STASH, LBInline
 from cilium_tpu_torch.prefilter import PrefilterRanges
+from cilium_tpu_torch.tunnel import TunnelTables, TunnelTables6
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
 # csrc/<stem>.cu, one library each
-LIBRARIES = ("datapath", "l7", "churn", "lattice")
+LIBRARIES = ("datapath", "l7", "churn", "lattice", "datapath6")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC",
@@ -95,6 +103,7 @@ _INTS2 = (
 )
 _PTRS3 = ("pool", "picks", "id_table")
 _INTS3 = ("pool_n", "ct_ew", "l4_ew")
+_PTRS4 = ("tun_base", "tun_mask", "tun_endpoint")
 
 
 class DatapathArgs(ctypes.Structure):
@@ -116,6 +125,8 @@ class DatapathArgs(ctypes.Structure):
         ]
         + [(name, ctypes.c_void_p) for name in _PTRS3]
         + [(name, ctypes.c_int32) for name in _INTS3]
+        + [(name, ctypes.c_void_p) for name in _PTRS4]
+        + [("tun_n", ctypes.c_int32)]
     )
 
 
@@ -377,7 +388,23 @@ def _fill_tables(a: DatapathArgs, tables, dev) -> None:
     a.n_eps, a.kg, a.n_ids = e_count, kg, n
     a.id_table = _ptr(pol.id_table, "policy.id_table", dev, shape=(n,))
     if tables.tunnel is not None:
-        raise ValueError("the tunnel map is not ported")
+        a.tun_base, a.tun_mask, a.tun_endpoint, a.tun_n = _tunnel_ranges(
+            tables.tunnel, TunnelTables, 1, dev)
+
+
+def _tunnel_ranges(tun, cls, limbs: int, dev):
+    """Check a tunnel map's lowered form (base, mask [P] or [P, 4],
+    endpoint [P]); returns (base, mask, endpoint pointers, P)."""
+    if not isinstance(tun, cls):
+        raise ValueError(f"the tunnel map must be {cls.__name__}")
+    ep = tun.endpoint
+    p = int(ep.shape[0]) if isinstance(ep, torch.Tensor) and ep.dim() == 1 else 0
+    if not 1 <= p < 1 << 31:
+        raise ValueError("tunnel.endpoint must be a tensor [P >= 1]")
+    shape = (p,) if limbs == 1 else (p, limbs)
+    return (_ptr(tun.base, "tunnel.base", dev, shape=shape),
+            _ptr(tun.mask, "tunnel.mask", dev, shape=shape),
+            _ptr(tun.endpoint, "tunnel.endpoint", dev, shape=(p,)), p)
 
 
 class L4TablesArgs(ctypes.Structure):
@@ -1000,18 +1027,56 @@ CT_DELTA = CtDeltaKernel()
 # ---------------------------------------------------------------------------
 
 
+class PolicyViewArgs(ctypes.Structure):
+    """Mirror of cdp::PolicyView in csrc/verdict.cuh, field for field."""
+
+    _fields_ = (
+        [(name, _P) for name in ("id_direct", "l3_allow", "port_slot",
+                                 "l4_allow")]
+        + [("l4", L4TablesArgs)]
+        + [(name, _I) for name in ("direct_n", "n_ids", "n_words")]
+        + [("lo_len", ctypes.c_uint32)]
+    )
+
+
+def _policy_view(tables, dev) -> PolicyViewArgs:
+    """Check the policy tables the tuple lattice reads (hashed L4
+    tables, or without them the dense port_slot and l4_allow_bits) and
+    fill a PolicyView."""
+    v = PolicyViewArgs()
+    v.l4 = _l4_tables(tables, dev)
+    e_count, kg = v.l4.n_eps, v.l4.kg
+    n = int(tables.id_table.shape[0])
+    if n < 32 or n % 32 or n >= 1 << 31:
+        raise ValueError(f"{n} identities: not a positive multiple of 32")
+    w = n // 32
+    v.n_ids, v.n_words = n, w
+    direct_n = int(tables.id_direct.shape[0])
+    if not 1 <= direct_n < 1 << 31:
+        raise ValueError(f"id_direct has {direct_n} entries")
+    v.id_direct = _ptr(tables.id_direct, "policy.id_direct", dev,
+                       shape=(direct_n,))
+    v.direct_n = direct_n
+    v.lo_len = int(tables.id_lo_len) & 0xFFFFFFFF
+    v.l3_allow = _ptr(tables.l3_allow_bits, "policy.l3_allow_bits", dev,
+                      shape=(e_count, 2, w))
+    if tables.l4_hash_rows is None:
+        v.port_slot = _ptr(tables.port_slot, "policy.port_slot", dev,
+                           shape=(256, 65536))
+        v.l4_allow = _ptr(tables.l4_allow_bits, "policy.l4_allow_bits",
+                          dev, shape=(e_count, 2, kg, w))
+    return v
+
+
 class LatticeArgs(ctypes.Structure):
     """Mirror of clt::LatticeArgs in csrc/lattice.cu, field for field."""
 
     _fields_ = (
-        [(name, _P) for name in ("tuples", "src_ips", "l1", "l2", "id_direct",
-                                 "l3_allow", "port_slot", "l4_allow")]
-        + [("l4", L4TablesArgs)]
+        [(name, _P) for name in ("tuples", "src_ips", "l1", "l2")]
+        + [("pol", PolicyViewArgs)]
         + [(name, _P) for name in ("allowed", "proxy_port", "match_kind",
                                    "acc")]
-        + [(name, _I) for name in ("B", "n_blocks", "direct_n", "n_ids",
-                                   "n_words")]
-        + [("lo_len", ctypes.c_uint32)]
+        + [(name, _I) for name in ("B", "n_blocks")]
     )
 
 
@@ -1032,10 +1097,10 @@ class _LatticeLibrary(_Library):
                            ("launch_lpm_lookup", LpmArgs)))
         lib.lattice_struct_sizes.argtypes = [ctypes.POINTER(ctypes.c_int)]
         lib.lattice_struct_sizes.restype = ctypes.c_int
-        sizes = (ctypes.c_int * 3)()
+        sizes = (ctypes.c_int * 4)()
         lib.lattice_struct_sizes(sizes)
-        want = [ctypes.sizeof(a) for a in (L4TablesArgs, LatticeArgs,
-                                           LpmArgs)]
+        want = [ctypes.sizeof(a) for a in (L4TablesArgs, PolicyViewArgs,
+                                           LatticeArgs, LpmArgs)]
         if list(sizes) != want:
             raise RuntimeError(
                 f"lattice argument layouts differ between kernels.py "
@@ -1093,27 +1158,8 @@ class LatticeKernel:
         if lpm is not None:
             a.src_ips = _ptr(src_ips, "src_ips", dev, shape=(b,))
             a.l1, a.l2, a.n_blocks = _lpm_tables(lpm, dev)
-        a.l4 = _l4_tables(tables, dev)
-        e_count, kg = a.l4.n_eps, a.l4.kg
-        n = int(tables.id_table.shape[0])
-        if n < 32 or n % 32 or n >= 1 << 31:
-            raise ValueError(f"{n} identities: not a positive multiple of 32")
-        w = n // 32
-        a.n_ids, a.n_words = n, w
-        direct_n = int(tables.id_direct.shape[0])
-        if not 1 <= direct_n < 1 << 31:
-            raise ValueError(f"id_direct has {direct_n} entries")
-        a.id_direct = _ptr(tables.id_direct, "policy.id_direct", dev,
-                           shape=(direct_n,))
-        a.direct_n = direct_n
-        a.lo_len = int(tables.id_lo_len) & 0xFFFFFFFF
-        a.l3_allow = _ptr(tables.l3_allow_bits, "policy.l3_allow_bits", dev,
-                          shape=(e_count, 2, w))
-        if tables.l4_hash_rows is None:
-            a.port_slot = _ptr(tables.port_slot, "policy.port_slot", dev,
-                               shape=(256, 65536))
-            a.l4_allow = _ptr(tables.l4_allow_bits, "policy.l4_allow_bits",
-                              dev, shape=(e_count, 2, kg, w))
+        a.pol = _policy_view(tables, dev)
+        e_count, kg, n = a.pol.l4.n_eps, a.pol.l4.kg, a.pol.n_ids
         out = Verdicts(
             allowed=torch.empty(b, dtype=torch.uint8, device=dev),
             proxy_port=torch.empty(b, dtype=torch.int32, device=dev),
@@ -1161,5 +1207,204 @@ class LpmLookupKernel:
 
 LATTICE = LatticeKernel()
 LPM_LOOKUP = LpmLookupKernel()
+
+
+# ---------------------------------------------------------------------------
+# The fused IPv6 datapath (csrc/datapath6.cu)
+# ---------------------------------------------------------------------------
+
+
+class IPCache6TableArgs(ctypes.Structure):
+    """Mirror of cdp::IPCache6Table in csrc/ipcache6.cuh."""
+
+    _fields_ = (
+        [(name, _P) for name in ("buckets", "stash", "range_base",
+                                 "range_mask", "range_plen", "range_value")]
+        + [(name, _I) for name in ("nb", "stash_n", "n_ranges")]
+    )
+
+
+class CT6TableArgs(ctypes.Structure):
+    """Mirror of cdp::CT6Table in csrc/ct6.cuh."""
+
+    _fields_ = [("buckets", _P), ("stash", _P), ("nb", _I), ("stash_n", _I)]
+
+
+class LB6TableArgs(ctypes.Structure):
+    """Mirror of cdp::LB6Table in csrc/lb6.cuh."""
+
+    _fields_ = [("rows", _P), ("stash", _P), ("nb", _I), ("stash_n", _I)]
+
+
+_FLOW6 = (("ep_index", torch.int32, False), ("saddr", torch.int32, True),
+          ("daddr", torch.int32, True), ("sport", torch.int32, False),
+          ("dport", torch.int32, False), ("proto", torch.int32, False),
+          ("direction", torch.int32, False),
+          ("is_fragment", torch.bool, False))
+
+
+class Datapath6Args(ctypes.Structure):
+    """Mirror of cdp::Datapath6Args in csrc/datapath6.cu."""
+
+    _fields_ = (
+        [(name, _P) for name, _, _ in _FLOW6]
+        + [(name, _P) for name in ("pf_base", "pf_mask", "tun_base",
+                                   "tun_mask", "tun_endpoint")]
+        + [("ipc", IPCache6TableArgs), ("ct", CT6TableArgs),
+           ("lb", LB6TableArgs), ("pol", PolicyViewArgs)]
+        + [(name, _P) for name in (
+            "allowed", "proxy_port", "match_kind", "ct_result", "pre_dropped",
+            "sec_id", "ct_create", "ct_delete", "tunnel_endpoint",
+            "final_daddr", "final_dport", "rev_nat", "lb_slave")]
+        + [(name, _I) for name in ("B", "pf_n", "tun_n")]
+    )
+
+
+class _Datapath6Library(_Library):
+    """csrc/datapath6.cu: DATAPATH6."""
+
+    stem = "datapath6"
+
+    def bind(self, lib) -> None:
+        self.declare(lib, (("launch_datapath6", Datapath6Args),))
+        lib.datapath6_struct_sizes.argtypes = [ctypes.POINTER(ctypes.c_int)]
+        lib.datapath6_struct_sizes.restype = ctypes.c_int
+        sizes = (ctypes.c_int * 6)()
+        lib.datapath6_struct_sizes(sizes)
+        want = [ctypes.sizeof(a) for a in (
+            L4TablesArgs, PolicyViewArgs, IPCache6TableArgs, CT6TableArgs,
+            LB6TableArgs, Datapath6Args)]
+        if list(sizes) != want:
+            raise RuntimeError(
+                f"datapath6 argument layouts differ between kernels.py "
+                f"{want} and csrc/datapath6.cu {list(sizes)}"
+            )
+
+
+DATAPATH6_LIBRARY = _Datapath6Library()
+
+
+def _rows_of(t, name: str, dev, width: int) -> int:
+    """Rows of a [R, width] table leaf (R >= 1), checked."""
+    if not isinstance(t, torch.Tensor) or t.dim() != 2 or t.shape[1] != width:
+        got = tuple(t.shape) if isinstance(t, torch.Tensor) else type(t)
+        raise ValueError(f"{name} must be [R, {width}], got {got}")
+    r = int(t.shape[0])
+    if not 1 <= r < 1 << 31:
+        raise ValueError(f"{name} has {r} rows")
+    _ptr(t, name, dev)
+    return r
+
+
+def _fill_tables6(a: Datapath6Args, tables, dev) -> None:
+    """Check every plane DATAPATH6 reads and fill its part of `a`."""
+    from cilium_tpu_torch.engine.datapath6 import (
+        CT6_ENTRY_WORDS,
+        CT6Snapshot,
+        Prefilter6,
+    )
+    from cilium_tpu_torch.ipcache.lpm6 import IPCache6Device
+    from cilium_tpu_torch.lb.device6 import (
+        INLINE6_SLOT,
+        INLINE6_STASH,
+        LB6Inline,
+    )
+
+    pf = tables.prefilter
+    if not isinstance(pf, Prefilter6):
+        raise ValueError("the prefilter must be Prefilter6")
+    a.pf_n = _rows_of(pf.base, "prefilter.base", dev, 4)
+    a.pf_base = pf.base.data_ptr()
+    a.pf_mask = _ptr(pf.mask, "prefilter.mask", dev, shape=(a.pf_n, 4))
+
+    ipc = tables.ipcache
+    if not isinstance(ipc, IPCache6Device):
+        raise ValueError("the ipcache must be IPCache6Device")
+    t = a.ipc
+    t.nb = _pow2(_rows_of(ipc.buckets, "ipcache.buckets", dev, 128),
+                 "ipcache buckets")
+    if t.nb != ipc.n_buckets:
+        raise ValueError("ipcache.buckets rows differ from n_buckets")
+    t.buckets = ipc.buckets.data_ptr()
+    t.stash_n = _rows_of(ipc.stash, "ipcache.stash", dev, 5)
+    t.stash = ipc.stash.data_ptr()
+    t.n_ranges = _rows_of(ipc.range_base, "ipcache.range_base", dev, 4)
+    t.range_base = ipc.range_base.data_ptr()
+    p = t.n_ranges
+    t.range_mask = _ptr(ipc.range_mask, "ipcache.range_mask", dev,
+                        shape=(p, 4))
+    t.range_plen = _ptr(ipc.range_plen, "ipcache.range_plen", dev, shape=(p,))
+    t.range_value = _ptr(ipc.range_value, "ipcache.range_value", dev,
+                         shape=(p,))
+
+    ct = tables.ct
+    if not isinstance(ct, CT6Snapshot):
+        raise ValueError("the conntrack must be CT6Snapshot")
+    a.ct.nb = _pow2(_rows_of(ct.buckets, "ct.buckets", dev, 128), "ct buckets")
+    if a.ct.nb != ct.n_buckets:
+        raise ValueError("ct.buckets rows differ from n_buckets")
+    a.ct.buckets = ct.buckets.data_ptr()
+    a.ct.stash_n = _rows_of(ct.stash, "ct.stash", dev, CT6_ENTRY_WORDS)
+    a.ct.stash = ct.stash.data_ptr()
+
+    lb = tables.lb
+    if lb is not None:
+        if not isinstance(lb, LB6Inline):
+            raise ValueError("the LB must be LB6Inline")
+        a.lb.nb = _pow2(_rows_of(lb.rows, "lb.rows", dev, 128), "lb rows")
+        if a.lb.nb != lb.n_buckets:
+            raise ValueError("lb.rows differ from n_buckets")
+        a.lb.rows = lb.rows.data_ptr()
+        a.lb.stash_n = _rows_of(lb.stash, "lb.stash", dev, INLINE6_SLOT)
+        if a.lb.stash_n > INLINE6_STASH:
+            raise ValueError("LB6 stash exceeds its capacity")
+        a.lb.stash = lb.stash.data_ptr()
+
+    if tables.tunnel is not None:
+        a.tun_base, a.tun_mask, a.tun_endpoint, a.tun_n = _tunnel_ranges(
+            tables.tunnel, TunnelTables6, 4, dev)
+    a.pol = _policy_view(tables.policy, dev)
+
+
+class Datapath6Kernel:
+    """K15 on the card: the 13 Datapath6Verdicts columns of a FlowBatch6
+    (int32 columns, addresses [B, 4]) against Datapath6Tables."""
+
+    name = "datapath6"
+
+    def __init__(self) -> None:
+        self.launches = 0
+
+    def load(self, verbose: bool = False):
+        return DATAPATH6_LIBRARY.load(verbose)
+
+    def __call__(self, tables, flows):
+        from cilium_tpu_torch.engine.datapath6 import (
+            VERDICT6_COLUMNS,
+            VERDICT6_DTYPES,
+            Datapath6Verdicts,
+        )
+
+        dev = _cuda_device(flows.saddr, self.name)
+        b = _batch(int(flows.saddr.shape[0]))
+        a = Datapath6Args()
+        for name, dtype, limbs in _FLOW6:
+            shape = (b, 4) if limbs else (b,)
+            setattr(a, name, _ptr(getattr(flows, name), f"flows.{name}", dev,
+                                  dtype, shape))
+        a.B = b
+        _fill_tables6(a, tables, dev)
+        cols = {}
+        for name in VERDICT6_COLUMNS:
+            shape = (b, 4) if name == "final_daddr" else (b,)
+            cols[name] = torch.empty(shape, dtype=VERDICT6_DTYPES[name],
+                                     device=dev)
+            setattr(a, name, cols[name].data_ptr())
+        DATAPATH6_LIBRARY.launch("launch_datapath6", a, dev, self.name)
+        self.launches += 1
+        return Datapath6Verdicts(**cols)
+
+
+DATAPATH6 = Datapath6Kernel()
 KERNELS = (DATAPATH_PAIR, DATAPATH_STEP, CHURN_COMPACT, CT_DELTA,
-           HTTP_MATCH, KAFKA_MATCH, FLEET_L7, LATTICE, LPM_LOOKUP)
+           HTTP_MATCH, KAFKA_MATCH, FLEET_L7, LATTICE, LPM_LOOKUP, DATAPATH6)

@@ -30,6 +30,11 @@ BPF maps the agent writes, without the control plane:
 
 Everything is drawn from one numpy Generator seeded by `seed`.
 
+`config6_world` is bench.py's config 6, the fused IPv6 datapath, at
+the same level; `config6_ct_pass` builds its conntrack variant and
+`tunnel_map` the overlay of 256 remote nodes that both config 5 and
+config 6 can run with.
+
 The bare policy lattice has worlds of its own, at the same level:
 `example_world` (config 1), `cidr_world` (config 2, with its DIR-24-8
 mapping and tuple generator), and over config 5: `lattice_tuples`
@@ -72,6 +77,7 @@ from cilium_tpu_torch.maps.policymap import (
     PolicyMapStateEntry,
 )
 from cilium_tpu_torch.prefilter import build_prefilter
+from cilium_tpu_torch.tunnel import TunnelMap
 
 RESERVED_HOST = 1
 HTTP_PORTS = tuple(range(8000, 8016))
@@ -756,3 +762,160 @@ def lattice_records(w: World, n: int, seed: int = 31) -> bytes:
         proto=pool["proto"][picks], direction=pool["direction"][picks],
         is_fragment=rng.random(n) < FRAG_SHARE,
     )
+
+
+# -- overlay mode ------------------------------------------------------------------
+
+TUNNEL_NODES = 256
+
+
+def tunnel_map(n_nodes: int = TUNNEL_NODES) -> TunnelMap:
+    """The overlay of `n_nodes` remote nodes, both families in one map:
+    node k has the node IP 192.168.k.1 (the v4 underlay), the v4 pod
+    CIDR 10.251.k.0/24 (over config 5's UNKNOWN_RANGE) and the v6 pod
+    CIDR of config 6's address i = 16 k, 2001:db8:{i >> 8}:{i & 0xFF}::/64
+    (a 16th of config 6's addresses live on remote nodes)."""
+    tm = TunnelMap()
+    for k in range(n_nodes):
+        node_ip = f"192.168.{k}.1"
+        i = 16 * k
+        tm.set_tunnel_endpoint(f"10.251.{k}.0/24", node_ip)
+        tm.set_tunnel_endpoint(f"2001:db8:{i >> 8:x}:{i & 0xFF:x}::/64",
+                               node_ip)
+    return tm
+
+
+# -- config 6: the fused IPv6 datapath ------------------------------------------
+
+CONFIG6_VIP = "fd00:77::1"
+
+
+@dataclass
+class World6:
+    """bench.py's config 6 at the map-state level: one endpoint's
+    policy state over the identities, the v6 ipcache, the prefilter,
+    the VIP with its backends, and the flows (FlowBatch6.from_numpy's
+    numpy columns); `sample` are bench's 256 composed-oracle rows."""
+
+    states: list
+    identity_ids: List[int]
+    ipc_map: Dict[str, int]
+    prefilter_cidrs: List[str]
+    mgr: ServiceManager
+    addrs: List[str]
+    flows: Dict[str, np.ndarray]
+    sample: np.ndarray
+    identity_pad: int = 1024
+
+    def host_tables(self, ct: Optional[CTMap] = None,
+                    tunnel: Optional[TunnelMap] = None):
+        """The compiled v6 tables (host numpy): CT6 from `ct` (an empty
+        map by default), the tunnel map's v6 half when one is given."""
+        from cilium_tpu_torch.engine.datapath6 import (
+            Datapath6Tables,
+            build_prefilter6,
+            compile_ct6,
+        )
+        from cilium_tpu_torch.ipcache.lpm6 import build_ipcache6
+        from cilium_tpu_torch.lb.device6 import compile_lb6
+
+        return Datapath6Tables(
+            prefilter=build_prefilter6(self.prefilter_cidrs),
+            ipcache=build_ipcache6(self.ipc_map),
+            ct=compile_ct6(CTMap() if ct is None else ct),
+            policy=compile_map_states(self.states, self.identity_ids,
+                                      identity_pad=self.identity_pad),
+            tunnel=None if tunnel is None else tunnel.tables6(),
+            lb=compile_lb6(self.mgr),
+        )
+
+
+def config6_world(n: int, seed: int = 29) -> World6:
+    """bench.py config 6 (`config6`), draw for draw from one Generator
+    seeded by `seed`: 4,096 identities from 4096, one /128 each under
+    2001:db8::/32 plus fd00::/8 for the first; 64 ports from
+    [1000, 30000); ingress L4 rules for every second identity, ingress
+    L3 for every fifth, egress TCP 8443 for every third; the VIP
+    fd00:77::1 port 443 onto the first 4 addresses at 8443; the
+    prefilter 2600:1::/32; `n` flows from endpoint 0, TCP, 10 % to the
+    VIP (egress), the rest half egress; then the 256 oracle rows."""
+    from cilium_tpu_torch.ipcache.lpm6 import ip6_limbs
+
+    rng = np.random.default_rng(seed)
+    base_id, n_ident = 4096, 4096
+    ids = list(range(base_id, base_id + n_ident))
+    ipc_map: Dict[str, int] = {}
+    addrs = []
+    for i, num_id in enumerate(ids):
+        a = f"2001:db8:{i >> 8:x}:{i & 0xFF:x}::{(i % 9) + 1:x}"
+        ipc_map[f"{a}/128"] = num_id
+        addrs.append(a)
+    ipc_map["fd00::/8"] = ids[0]
+
+    state = {}
+    ports = rng.choice(np.arange(1000, 30000), size=64, replace=False)
+    plain = PolicyMapStateEntry()
+    for num_id in ids[::2]:
+        p = int(ports[num_id % len(ports)])
+        state[PolicyKey(num_id, p, 6, INGRESS)] = plain
+    for num_id in ids[::5]:
+        state[PolicyKey(num_id, 0, 0, INGRESS)] = plain
+    for num_id in ids[::3]:
+        state[PolicyKey(num_id, 8443, 6, EGRESS)] = plain
+
+    mgr = ServiceManager()
+    mgr.upsert(L3n4Addr(CONFIG6_VIP, 443, 6),
+               [L3n4Addr(b, 8443, 6) for b in addrs[:4]])
+
+    limbs = np.array([ip6_limbs(a) for a in addrs], np.uint32)
+    pick = rng.integers(0, len(addrs), size=n)
+    saddr = limbs[pick]
+    to_vip = rng.random(n) < 0.1
+    dpick = rng.integers(0, len(addrs), size=n)
+    daddr = limbs[dpick]
+    daddr[to_vip] = ip6_limbs(CONFIG6_VIP)
+    direction = (rng.random(n) < 0.5).astype(np.int64)
+    direction[to_vip] = 1
+    dport = rng.choice(ports, size=n).astype(np.int64)
+    dport[to_vip] = 443
+    flows = dict(
+        ep_index=np.zeros(n, np.int32), saddr=saddr, daddr=daddr,
+        sport=rng.integers(1024, 60000, size=n), dport=dport,
+        proto=np.full(n, 6), direction=direction,
+    )
+    sample = rng.integers(0, n, size=256)
+    return World6(
+        states=[state], identity_ids=ids, ipc_map=ipc_map,
+        prefilter_cidrs=["2600:1::/32"], mgr=mgr, addrs=addrs, flows=flows,
+        sample=sample,
+    )
+
+
+def config6_ct_pass(flows: Dict[str, np.ndarray], out, count: int):
+    """Config 6's conntrack variant, from a first pass `out`
+    (Datapath6Verdicts, any device) over the first `count` rows of
+    `flows`: those rows are written back into a fresh CTMap with
+    apply_ct_writeback6.  Returns (the map, the second pass's flows):
+    the same rows, then their reverses (post-DNAT destination as the
+    source, ports swapped, direction flipped), which take ESTABLISHED,
+    REPLY and service-stickiness hits once CT6 is compiled from the
+    map."""
+    from cilium_tpu_torch.engine.datapath6 import (
+        FlowBatch6,
+        apply_ct_writeback6,
+    )
+
+    head = {k: np.asarray(v)[:count] for k, v in flows.items()}
+    ct = CTMap()
+    apply_ct_writeback6(ct, out, FlowBatch6.from_numpy(**head, device="cpu"))
+    fdaddr = out.final_daddr.cpu().numpy().view(np.uint32)
+    rev = dict(
+        ep_index=head["ep_index"], saddr=fdaddr, daddr=head["saddr"],
+        sport=out.final_dport.cpu().numpy(), dport=head["sport"],
+        proto=head["proto"], direction=1 - np.asarray(head["direction"]),
+    )
+    second = {
+        k: np.concatenate([head[k], np.asarray(rev[k]).astype(head[k].dtype)])
+        for k in head
+    }
+    return ct, second

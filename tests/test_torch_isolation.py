@@ -36,7 +36,10 @@ def test_import_loads_no_jax_and_no_reference_module():
     jax nor any cilium_tpu.* module may end up in sys.modules."""
     mods = list(_modules())
     for m in ("cilium_tpu_torch.kernels", "cilium_tpu_torch.replay",
-              "cilium_tpu_torch.ct.device", "cilium_tpu_torch.convert"):
+              "cilium_tpu_torch.ct.device", "cilium_tpu_torch.convert",
+              "cilium_tpu_torch.engine.datapath6",
+              "cilium_tpu_torch.ipcache.lpm6", "cilium_tpu_torch.lb.device6",
+              "cilium_tpu_torch.tunnel"):
         assert m in mods
     code = (
         "import importlib, sys\n"

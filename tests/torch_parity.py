@@ -159,7 +159,11 @@ def jax_leaves(tables) -> dict:
             else:
                 leaves[f.name] = np.asarray(v)
         out[plane] = leaves
-    out["tunnel"] = None
+    tun = tables.tunnel
+    out["tunnel"] = None if tun is None else {
+        f.name: np.asarray(getattr(tun, f.name))
+        for f in dataclasses.fields(tun)
+    }
     return out
 
 
