@@ -54,7 +54,27 @@ launch counts set to 0 just before it and read just after:
              slice written back, then the slice and its reverses), and
              DATAPATH_PAIR and DATAPATH_STEP against theirs on config 5's
              tables with the same tunnel map (overlay mode); after it
-             config6_timing.
+             config6_timing;
+  replay     the north star, config 5's fused record replay: 10,000,000
+             flow records of the pool through replay() in batches of
+             1,048,576 with counters and telemetry (DATAPATH_STEP in its
+             accumulate forms), after forms_check holds every
+             single-batch form and the unpacked pair forms against their
+             plain versions on 1,048,576 flows over the headline and
+             wide tables, and replay_check the whole replay on the card
+             against the plain loop (stats, u64 counters, telemetry,
+             the metrics registry's increments) and 512 sampled pool
+             rows against the composed host oracle; then replay_trace
+             and replay_churn: replay(ct_map=...) over 2 x 2,097,152
+             records of pool rows on the wide tables (DATAPATH_STEP,
+             CHURN_COMPACT, CT_DELTA), first against the plain loop,
+             then timed.
+
+The churn path's int picks are drawn on the card by PICK_DRAW, the
+reference's threefry2x32 randint; churn_check also runs 2 int-pick
+batches on the kernels and on the plain versions (the same picks), and
+prng_check holds PICK_DRAW against the plain draw on 2,097,152 picks
+for 4 keys at the pool's size and at 3,000,017.
 
 Every kernel is held bit-exact against its plain PyTorch version at
 the path's shapes, each L7 and lattice path against a host oracle on
@@ -67,8 +87,9 @@ launches on its path, its error against the plain version, its time
 (CUDA events over 20 launches), the plain version's time, and the
 least time the card could take: the bytes this run's data needs read
 and written once at 3.35 TB/s, or its operations at 67 T/s, whichever
-is larger.  `library_ms` is the time of `index_copy_` for CT_DELTA
-and null for the others: no single PyTorch call computes the fused
+is larger.  `library_ms` is the time of `index_copy_` for CT_DELTA,
+of `torch.randint` for PICK_DRAW (other numbers on the same shape: a
+time only) and null for the others: no single PyTorch call computes the fused
 datapath steps, the intent compaction, a DFA scan, the Kafka rule
 match, the fleet's routed match, the policy lattice, the two
 dependent DIR-24-8 reads or the v6 program.  LATTICE's launches are
@@ -78,8 +99,12 @@ config 6's 1,048,576 flows.  The DATAPATH_PAIR and DATAPATH_STEP rows
 also carry their time in overlay mode (`tunnel_ms`, `tunnel_plain_ms`,
 `tunnel_bound_ms`: the same bound plus the 3 KB map read whole,
 `tunnel_max_abs_err`), and DATAPATH6's row its time, plain time and
-bound with the tunnel map.  Then the card's name and power
-limit as nvidia-smi prints them, then {"ok": true, "device": {...}}.
+bound with the tunnel map.  DATAPATH_STEP's launches are summed over
+its three paths (churn, replay, replay_churn; `launches_by_path`), and
+its replay modes' times, plain times and bounds are the line
+{"datapath_step_modes": ...} just before.  Then the card's name and
+power limit as nvidia-smi prints them, then {"ok": true, "device":
+{...}}.
 """
 
 from __future__ import annotations
@@ -119,6 +144,14 @@ CONFIG1_DENSE_TUPLES = 1 << 20  # config 1's distribution, at a card's width
 CONFIG6_FLOWS = 1 << 20  # bench.py config 6's batch
 CONFIG6_CALLS = 8
 CONFIG6_SLICE = 1 << 16  # the conntrack variant's slice
+PICK_SPAN_WRAP = 3_000_017  # a pool past 65,536 rows: randint's square wraps
+PICK_KEYS = 4
+FORMS_FLOWS = 1 << 20  # forms_check's config-5 flows
+FORMS_DIR2 = 64  # of them with direction 2
+REPLAY_CHURN_BATCH = 1 << 21
+REPLAY_HEAD_BATCHES = 2  # replay_trace's records
+TELEM_METRICS = ("forward_count", "drop_count", "policy_verdict_total",
+                 "datapath_stage_total")
 # the v6 table leaves DATAPATH6 reads: (plane, leaf)
 READS6 = (
     ("prefilter", "base"), ("prefilter", "mask"),
@@ -743,23 +776,47 @@ class PlainRoute:
             setattr(self.kernels, n, k)
 
 
+def step_plain(tables, pool, picks=None, **form):
+    """DATAPATH_STEP's plain version, called as the kernel is (every
+    form; `picks` None reads the pack directly)."""
+    from cilium_tpu_torch.engine import datapath as dp
+
+    flows = dp.flow_batch_from_packed(
+        pool if picks is None else pool[:, picks.long()])
+    return dp.datapath_step_plain(tables, flows, **form)
+
+
 def churn_plain() -> dict:
     """The churn loop's kernels' plain versions, for PlainRoute."""
     from cilium_tpu_torch import replay as rp
     from cilium_tpu_torch.ct.device import apply_bucket_delta_plain
     from cilium_tpu_torch.engine import datapath as dp
+    from cilium_tpu_torch.prng import pick_draw_plain
 
     def flows(pool, picks):
         return dp.flow_batch_from_packed(pool[:, picks.long()])
 
     return {
-        "DATAPATH_STEP": lambda tables, pool, picks: dp.datapath_step_plain(
-            tables, flows(pool, picks)),
+        "DATAPATH_STEP": step_plain,
         "CHURN_COMPACT": lambda out, pool, picks, valid, cap, slots:
             rp._churn_compact(out, flows(pool, picks), valid, cap, slots),
         "CT_DELTA": lambda snap, idx, rows: apply_bucket_delta_plain(
             snap, idx, rows),
+        "PICK_DRAW": pick_draw_plain,
     }
+
+
+def same_loops(maps, stats) -> bool:
+    """Two churn runs agree: stats, every CT entry in order, and the
+    resident snapshots byte for byte."""
+    snaps = [m._device_churn_cache[1] for m in maps]
+    return (
+        stats_fields(stats[0]) == stats_fields(stats[1])
+        and list(maps[0].entries) == list(maps[1].entries)
+        and maps[0].entries == maps[1].entries
+        and torch.equal(snaps[0].buckets, snaps[1].buckets)
+        and torch.equal(snaps[0].stash, snaps[1].stash)
+    )
 
 
 def stats_fields(st) -> dict:
@@ -857,14 +914,7 @@ def churn_check(kernels, w, tables) -> dict:
         s_p = rp.replay_pool(tables, dict(w.pool), picks_np, CHURN_BATCH,
                              ct_map=maps[1], device="cuda")
     torch.cuda.synchronize()
-    snaps = [m._device_churn_cache[1] for m in maps]
-    same = (
-        stats_fields(s_k) == stats_fields(s_p)
-        and list(maps[0].entries) == list(maps[1].entries)
-        and maps[0].entries == maps[1].entries
-        and torch.equal(snaps[0].buckets, snaps[1].buckets)
-        and torch.equal(snaps[0].stash, snaps[1].stash)
-    )
+    same = same_loops(maps, (s_k, s_p))
     phase("churn_check_loop", t, batches=2, stats=stats_fields(s_k),
           launches=launched, ct_entries=len(maps[0].entries),
           equal_to_plain=same)
@@ -874,6 +924,27 @@ def churn_check(kernels, w, tables) -> dict:
             kernels.CT_DELTA.name]:
         raise SystemExit("churn_check: the loop on the kernels differs from "
                          "the plain loop, or a kernel did not launch")
+
+    # 2 batches of int picks: the picks drawn by PICK_DRAW and by the
+    # plain draw are the reference's threefry numbers, so both loops
+    # take the same flows
+    t = time.perf_counter()
+    maps = [pinned_ct(w.ct), pinned_ct(w.ct)]
+    reset_counts(kernels)
+    s_k = rp.replay_pool(tables, dict(w.pool), 2 * CHURN_BATCH, CHURN_BATCH,
+                         ct_map=maps[0], device="cuda")
+    drawn = kernels.PICK_DRAW.launches
+    with PlainRoute(kernels, churn_plain()):
+        s_p = rp.replay_pool(tables, dict(w.pool), 2 * CHURN_BATCH,
+                             CHURN_BATCH, ct_map=maps[1], device="cuda")
+    torch.cuda.synchronize()
+    same_int = same_loops(maps, (s_k, s_p))
+    phase("churn_check_int_picks", t, batches=2, stats=stats_fields(s_k),
+          pick_draw_launches=drawn, ct_entries=len(maps[0].entries),
+          equal_to_plain=same_int)
+    if not same_int or drawn != 2 or kernels.PICK_DRAW.launches != 2:
+        raise SystemExit("churn_check: the int-pick loop on the kernels "
+                         "differs from the plain loop")
     return dict(pool=pool, picks=picks, out=out, flows=flows, plain=plain,
                 valid=valid, snap=snap, idx=idx_t, rows=rows_t,
                 err=max(err_step, err_compact, err_delta))
@@ -918,10 +989,13 @@ def churn_phase(kernels, w, tables) -> dict:
           insert_failures=ct.insert_failures, rounds=rounds,
           reruns=seed.reruns + timed.reruns, launches=counts,
           snapshot_vs_mirror_err=mirror_err)
+    # one PICK_DRAW a batch: the int picks are drawn on the card
     others = [k.name for k in kernels.KERNELS if k.launches and k not in (
-        kernels.DATAPATH_STEP, kernels.CHURN_COMPACT, kernels.CT_DELTA)]
+        kernels.DATAPATH_STEP, kernels.CHURN_COMPACT, kernels.CT_DELTA,
+        kernels.PICK_DRAW)]
     if (counts[kernels.DATAPATH_STEP.name] != rounds
             or counts[kernels.CHURN_COMPACT.name] != rounds
+            or counts[kernels.PICK_DRAW.name] != seed.batches + timed.batches
             or not counts[kernels.CT_DELTA.name] or others):
         raise SystemExit(f"churn: launches {counts} for {rounds} rounds")
     if mirror_err or timed.total != 4 * CHURN_BATCH:
@@ -1057,6 +1131,60 @@ def churn_timing(kernels, tables, chk, counts) -> list:
                    counts[kernels.CT_DELTA.name], err, delta_ms, delta_plain,
                    bounds["delta"], 0.0, library_ms),
     ]
+
+
+# -- the churn loop's pick draw (PICK_DRAW) --------------------------------------
+
+
+def prng_check(kernels, w, counts) -> dict:
+    """PICK_DRAW against the plain draw, bit for bit, on CHURN_BATCH
+    picks for PICK_KEYS batch keys (PRNGKey(len(ct) ^ n) folded with
+    batches 0..3), with P the pool's rows and PICK_SPAN_WRAP (where
+    randint's u32 square wraps to 0); then its time beside its bound
+    (4 B a pick written, or its operations counted low) and the time of
+    torch.randint on the same shape, which draws other numbers (a time
+    only, not the same function).  `counts` are the churn path's
+    launches."""
+    from cilium_tpu_torch import prng
+
+    t = time.perf_counter()
+    n_pool = len(w.pool["saddr"])
+    base = prng.prng_key(len(w.ct.entries) ^ (4 * CHURN_BATCH))
+    keys = [prng.fold_in(base, b) for b in range(PICK_KEYS)]
+    errs = {}
+    for span in (n_pool, PICK_SPAN_WRAP):
+        errs[span] = max(
+            int_err(prng.randint_u32(key, CHURN_BATCH, span),
+                    prng.randint_u32_plain(key, CHURN_BATCH, span, "cuda"),
+                    True)
+            for key in keys)
+    first = prng.randint_u32(keys[0], CHURN_BATCH, n_pool)
+    spread = int(torch.unique(first).numel())
+    sub = prng.split(keys[0])
+    ms = event_ms(lambda: kernels.PICK_DRAW(sub, CHURN_BATCH, n_pool, "cuda"),
+                  20)
+    plain_ms = event_ms(lambda: prng.pick_draw_plain(sub, CHURN_BATCH, n_pool,
+                                                     "cuda"), 3)
+    library_ms = event_ms(lambda: torch.randint(
+        0, n_pool, (CHURN_BATCH,), device="cuda", dtype=torch.int32), 20)
+    out_bytes = 4 * CHURN_BATCH
+    # two threefry2x32 a pick: 20 rounds of add, rotate (two shifts and
+    # an or) and xor, 5 key injections of 3 adds; then 3 remainders, a
+    # multiply and an add
+    ops = CHURN_BATCH * (2 * (20 * 5 + 5 * 3) + 5)
+    bb = out_bytes / HBM_BYTES_PER_S * 1e3
+    bo = ops / OPS_PER_S * 1e3
+    phase("prng_check", t, picks=CHURN_BATCH, keys=PICK_KEYS,
+          max_abs_err=errs, distinct_picks=spread, ms=round(ms, 4),
+          plain_ms=round(plain_ms, 4), library_ms=round(library_ms, 4),
+          bytes=out_bytes, ops=ops, bound_bytes_ms=round(bb, 6),
+          bound_ops_ms=round(bo, 6))
+    if any(errs.values()) or spread < n_pool // 2:
+        raise SystemExit(f"prng_check: PICK_DRAW differs from the plain draw "
+                         f"{errs}, or draws {spread} distinct picks")
+    return kernel_row(kernels.PICK_DRAW, "cilium_tpu_torch/csrc/prng.cu",
+                      "cilium_tpu/replay.py:231", counts[kernels.PICK_DRAW.name],
+                      max(errs.values()), ms, plain_ms, bb, bo, library_ms)
 
 
 # -- the tuple-level lattice (configs 1, 2 and config 5's lattice line) --------
@@ -1308,6 +1436,421 @@ def replay_lattice_phase(kernels, w, u) -> int:
           device_idle_share=round(1 - busy_ms / traced_ms, 4),
           untraced_idle_share=round(1 - busy_ms / (s_k.seconds * 1e3), 4))
     return launches
+
+
+# -- the fused record replay (replay(): config 5's north star) --------------------
+
+
+def forms_flows(w, n: int, seed: int):
+    """n config-5 pool flows on the card: n / 2 drawn from the pool's
+    ingress rows, then n / 2 from its egress rows.  Returns (the step
+    forms' FlowBatch, whose last FORMS_DIR2 rows have direction 2; the
+    ingress half; the egress half)."""
+    from cilium_tpu_torch import replay as rp
+    from cilium_tpu_torch.engine import datapath as dp
+
+    def on_card(words):
+        return dp.flow_batch_from_packed(
+            torch.from_numpy(np.ascontiguousarray(words).view(np.int32)).cuda())
+
+    rng = np.random.default_rng(seed)
+    halves = []
+    for d in (0, 1):
+        sub = np.nonzero(w.pool["direction"] == d)[0]
+        halves.append(sub[rng.integers(0, len(sub), n // 2)])
+    words = rp.pack_flow_pool(
+        {c: w.pool[c][np.concatenate(halves)] for c in dp.FLOW_COLUMNS})
+    split = [on_card(words[:, k * (n // 2):(k + 1) * (n // 2)])
+             for k in (0, 1)]
+    words[dp.FLOW_COLUMNS.index("direction"), -FORMS_DIR2:] = 2
+    return on_card(words), split[0], split[1]
+
+
+# the single-batch forms: (name, entry point's form, emits sec_id)
+STEP_FORMS = (
+    ("step", {}, True),
+    ("with_counters", {"acc": True}, True),
+    ("accum", {"acc": True}, False),
+    ("accum_ingress", {"acc": True, "static_dir": 0}, False),
+    ("accum_egress", {"acc": True, "static_dir": 1}, False),
+    ("telem", {"telem": True}, True),
+    ("accum_telem", {"acc": True, "telem": True}, False),
+)
+
+
+def run_form(dp, verdict, tables, flows, name):
+    """Form `name` through its entry point (the kernel on the card) and
+    its plain version on the same inputs: ((out, acc, telem) of each)."""
+    _, form, emit = next(f for f in STEP_FORMS if f[0] == name)
+    fresh = lambda: (verdict.make_counter_buffers(tables.policy) + 1
+                     if form.get("acc") else None)
+    acc_k, acc_p = fresh(), fresh()
+    tel_k = tel_p = None
+    if form.get("telem"):
+        tel_k = verdict.make_telemetry_buffers("cuda") + 2
+        tel_p = tel_k.clone()
+    static = form.get("static_dir")
+    if name == "step":
+        got = dp.datapath_step(tables, flows)
+    elif name == "with_counters":
+        got, l4, l3 = dp.datapath_step_with_counters(tables, flows)
+        acc_k = torch.cat([l4, l3], dim=2) + 1
+    elif name == "telem":
+        got, trow = dp.datapath_step_telem(tables, flows)
+        tel_k = trow + 2
+    elif name == "accum_telem":
+        got, _, _ = dp.datapath_step_accum_telem(tables, flows, acc_k, tel_k)
+    else:
+        entry = {None: dp.datapath_step_accum,
+                 0: dp.datapath_step_accum_ingress,
+                 1: dp.datapath_step_accum_egress}[static]
+        got, _ = entry(tables, flows, acc_k)
+    want = dp.datapath_step_plain(tables, flows, acc=acc_p, telem=tel_p,
+                                  emit_sec_id=emit, static_dir=static)
+    return (got, acc_k, tel_k), (want, acc_p, tel_p)
+
+
+def forms_err(dp, k, p) -> int:
+    err = compare((k[0],), (p[0],), dp)
+    for a, b in zip(k[1:], p[1:]):
+        if a is not None:
+            err = max(err, buf_err(a, b))
+    return err
+
+
+def forms_check(kernels, w, tables, wide_t) -> dict:
+    """Every single-batch form (DATAPATH_STEP) and the unpacked pair
+    forms (DATAPATH_PAIR) on the card against their plain versions, on
+    FORMS_FLOWS config-5 flows (half ingress, half egress, FORMS_DIR2 of
+    them with direction 2), over the headline and the wide tables: the
+    15 columns, the counters and the telemetry, 0 differences."""
+    from cilium_tpu_torch.engine import datapath as dp
+    from cilium_tpu_torch.engine import verdict
+
+    t = time.perf_counter()
+    flows, f_in, f_eg = forms_flows(w, FORMS_FLOWS, seed=47)
+    errs = {}
+    for label, tabs in (("compact", tables), ("wide", wide_t)):
+        for name, _, _ in STEP_FORMS:
+            k, p = run_form(dp, verdict, tabs, flows, name)
+            errs[f"{label}_{name}"] = forms_err(dp, k, p)
+            del k, p
+        for name in ("accum_pair", "accum_pair_telem",
+                     "accum_pair_telem_packed4"):
+            acc_k = verdict.make_counter_buffers(tabs.policy)
+            tel_k = verdict.make_telemetry_buffers("cuda")
+            acc_p, tel_p = acc_k.clone(), tel_k.clone()
+            if name == "accum_pair":
+                ki, ke, _ = dp.datapath_step_accum_pair(tabs, f_in, f_eg,
+                                                        acc_k)
+                tel_k = tel_p = None
+            elif name == "accum_pair_telem":
+                ki, ke, _, _ = dp.datapath_step_accum_pair_telem(
+                    tabs, f_in, f_eg, acc_k, tel_k)
+            else:
+                ki, ke, _, _ = dp.datapath_step_accum_pair_telem_packed4(
+                    tabs, dp.pack_flow_batch4(f_in), dp.pack_flow_batch4(f_eg),
+                    acc_k, tel_k)
+            pi, pe = dp._pair_plain(tabs, f_in, f_eg, acc_p, tel_p)
+            err = max(compare((ki, ke), (pi, pe), dp), buf_err(acc_k, acc_p))
+            if tel_k is not None:
+                err = max(err, buf_err(tel_k, tel_p))
+            errs[f"{label}_{name}"] = err
+    torch.cuda.synchronize()
+    dir2 = int((flows.direction == 2).sum())
+    phase("forms_check", t, flows=FORMS_FLOWS, direction_2_rows=dir2,
+          max_abs_err=errs)
+    if any(errs.values()):
+        raise SystemExit(f"forms_check: a form differs from its plain "
+                         f"version: {errs}")
+    return dict(flows=flows, err=max(errs.values()))
+
+
+def registry_values() -> dict:
+    from cilium_tpu_torch import metrics
+
+    return {name: dict(getattr(metrics.registry, name)._values)
+            for name in TELEM_METRICS}
+
+
+def registry_deltas(before, after) -> dict:
+    return {name: {"|".join(k): v - before[name].get(k, 0.0)
+                   for k, v in after[name].items()
+                   if v != before[name].get(k, 0.0)}
+            for name in TELEM_METRICS}
+
+
+def replay_run(tables, buf, batch, **kw):
+    """replay() with counters and telemetry, synchronised; returns
+    (stats, l4, l3, the registry's increments)."""
+    from cilium_tpu_torch import replay as rp
+
+    before = registry_values()
+    st, l4, l3 = rp.replay(tables, buf, batch, collect_telemetry=True, **kw)
+    torch.cuda.synchronize()
+    return st, l4, l3, registry_deltas(before, registry_values())
+
+
+REPLAY_FIELDS = ("total", "allowed", "denied", "redirected", "batches")
+
+
+def replay_check(kernels, w, tables, buf) -> int:
+    """replay() on the card against the plain loop on the card (every
+    DATAPATH_STEP launch routed to its plain version) over the same
+    records: stats, u64 counters, telemetry and the metrics registry's
+    increments, 0 differences.  Then ORACLE_ROWS sampled pool rows
+    through read_flow_batches and datapath_step against
+    composed_oracle and its stages, as bench.py's config-5 gate does."""
+    from cilium_tpu_torch import replay as rp
+    from cilium_tpu_torch import world
+    from cilium_tpu_torch.engine import datapath as dp
+    from cilium_tpu_torch.engine.hostpath import composed_oracle
+
+    t = time.perf_counter()
+    k = replay_run(tables, buf, REPLAY_BATCH)
+    with PlainRoute(kernels, {"DATAPATH_STEP": step_plain}):
+        p = replay_run(tables, buf, REPLAY_BATCH)
+    same = {
+        "stats": all(getattr(k[0], f) == getattr(p[0], f)
+                     for f in REPLAY_FIELDS),
+        "l4": np.array_equal(k[1], p[1]),
+        "l3": np.array_equal(k[2], p[2]),
+        "telemetry": np.array_equal(k[0].telemetry, p[0].telemetry),
+        "registry": k[3] == p[3],
+    }
+    rows = np.random.default_rng(45).integers(0, len(w.pool["saddr"]),
+                                              ORACLE_ROWS)
+    flows, _ = next(rp.read_flow_batches(world.pool_records(w, rows),
+                                         ORACLE_ROWS))
+    out = dp.datapath_step(tables, flows)
+    allow, proxy, sec, stages = composed_oracle(
+        world.oracle_context(w), w.states, w.pool, list(rows),
+        return_stages=True)
+    got = {c: getattr(out, c).cpu().numpy() for c in dp.VERDICT_COLUMNS}
+    bad = ((got["allowed"] != allow) | (got["proxy_port"] != proxy)
+           | (got["sec_id"].view(np.uint32) != sec)
+           | (got["pre_dropped"] != stages["pre_drop"])
+           | (got["ct_result"] != stages["ct_res"])
+           | (got["match_kind"] != stages["match_kind"])
+           | (got["ipcache_miss"] != stages["ipcache_miss"])
+           | ((got["lb_slave"] > 0) != stages["lb_hit"]))
+    phase("replay_check", t, records=k[0].total, batches=k[0].batches,
+          equal_to_plain=same, oracle_rows=ORACLE_ROWS,
+          oracle_mismatches=int(bad.sum()),
+          oracle_lb_hits=int(stages["lb_hit"].sum()),
+          oracle_ct_hits=int((stages["ct_res"] != 0).sum()))
+    if not all(same.values()) or bad.any():
+        raise SystemExit("replay_check: replay() on the card differs from the "
+                         "plain loop, or the composed oracle disagrees")
+    return 0
+
+
+def replay_phase(kernels, tables, buf) -> dict:
+    """The timed replay of REPLAY_RECORDS records in batches of
+    REPLAY_BATCH with counters and telemetry: records/s, spans, stats;
+    the launches of this run alone."""
+    from cilium_tpu_torch.telemetry import telemetry_summary
+
+    torch.cuda.synchronize()
+    reset_counts(kernels)
+    t = time.perf_counter()
+    st, l4, l3, deltas = replay_run(tables, buf, REPLAY_BATCH)
+    launches = kernels.DATAPATH_STEP.launches
+    others = {k.name: k.launches for k in kernels.KERNELS
+              if k.launches and k is not kernels.DATAPATH_STEP}
+    n = st.total
+    tel = st.telemetry
+    print("  replay telemetry " + json.dumps(telemetry_summary(tel)),
+          flush=True)
+    phase("replay", t, records=n, batches=st.batches, launches=launches,
+          seconds=st.seconds, records_per_s=round(n / st.seconds),
+          spans_s={k: round(v, 6) for k, v in st.spans.report().items()},
+          allowed=st.allowed, denied=st.denied, redirected=st.redirected,
+          l4_hits=int(l4.sum()), l3_hits=int(l3.sum()),
+          registry_forward=sum(deltas["forward_count"].values()))
+    if (launches != st.batches or others or n != REPLAY_RECORDS
+            or not 0 < st.allowed < n or st.redirected == 0
+            or int(tel[:, 0].sum()) != n):
+        raise SystemExit(f"replay: launches {launches} for {st.batches} "
+                         f"batches, others {others}, stats {st}")
+    return dict(launches=launches, seconds=st.seconds)
+
+
+def replay_trace(tables, buf) -> None:
+    """torch.profiler over the first REPLAY_HEAD_BATCHES batches of the
+    replay: the device's idle share and the top device operations."""
+    from cilium_tpu_torch.native.loader import FLOW_RECORD_DTYPE
+
+    t = time.perf_counter()
+    head = buf[: REPLAY_HEAD_BATCHES * REPLAY_BATCH
+               * FLOW_RECORD_DTYPE.itemsize]
+    untraced = replay_run(tables, head, REPLAY_BATCH)[0].seconds * 1e3
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t1 = time.perf_counter()
+        replay_run(tables, head, REPLAY_BATCH)
+        traced_ms = (time.perf_counter() - t1) * 1e3
+    busy = device_busy(prof)
+    busy_ms = sum(busy.values())
+    for key, ms in sorted(busy.items(), key=lambda kv: -kv[1])[:8]:
+        print(f"  device {ms:.3f} ms  {key[:90]}", flush=True)
+    phase("replay_trace", t, batches=REPLAY_HEAD_BATCHES,
+          wall_ms=round(traced_ms, 3), untraced_ms=round(untraced, 3),
+          device_busy_ms=round(busy_ms, 3),
+          device_idle_share=round(1 - busy_ms / traced_ms, 4),
+          untraced_idle_share=round(1 - busy_ms / untraced, 4))
+
+
+def replay_churn(kernels, w, wide_t) -> dict:
+    """replay(ct_map=...) over 2 x REPLAY_CHURN_BATCH records of pool
+    rows drawn uniformly (each flow with its own fragment flag, as
+    bench.py's encode_pool_sample writes them) on the wide tables: first
+    the card against the plain loop on the card (DATAPATH_STEP,
+    CHURN_COMPACT and CT_DELTA routed to their plain versions), stats,
+    counters, every CT entry and the snapshots, and the snapshot against
+    its host mirror; then the timed pass on a fresh copy of the CT, with
+    its launches.  (Records that carry one flow both as a fragment and
+    not make the reference's churn mode rerun a batch without end: the
+    fragment row deletes what the other creates; ROADMAP queue 3.)"""
+    from cilium_tpu_torch import replay as rp
+    from cilium_tpu_torch import world
+
+    t = time.perf_counter()
+    rows = np.random.default_rng(37).integers(0, len(w.pool["saddr"]),
+                                              2 * REPLAY_CHURN_BATCH)
+    buf = world.pool_records(w, rows)
+    maps = [pinned_ct(w.ct), pinned_ct(w.ct)]
+    k = rp.replay(wide_t, buf, REPLAY_CHURN_BATCH, ct_map=maps[0])
+    with PlainRoute(kernels, churn_plain()):
+        p = rp.replay(wide_t, buf, REPLAY_CHURN_BATCH, ct_map=maps[1])
+    torch.cuda.synchronize()
+    index, snap, _ = maps[0]._device_churn_cache
+    full = index.full_snapshot()
+    mirror_err = max(
+        int_err(snap.buckets.cpu(), torch.from_numpy(
+            full.buckets.view(np.int32)), True),
+        int_err(snap.stash.cpu(), torch.from_numpy(
+            full.stash.view(np.int32)), True))
+    same = (same_loops(maps, (k[0], p[0])) and np.array_equal(k[1], p[1])
+            and np.array_equal(k[2], p[2]))
+    phase("replay_churn_check", t, batches=k[0].batches,
+          stats=stats_fields(k[0]), equal_to_plain=same,
+          snapshot_vs_mirror_err=mirror_err,
+          ct_entries=len(maps[0].entries))
+    if not same or mirror_err or k[0].ct_created == 0:
+        raise SystemExit("replay_churn: the card differs from the plain loop "
+                         "or the snapshot from its mirror")
+
+    ct = copy.deepcopy(w.ct)
+    torch.cuda.synchronize()
+    reset_counts(kernels)
+    t = time.perf_counter()
+    st, l4, _ = rp.replay(wide_t, buf, REPLAY_CHURN_BATCH, ct_map=ct)
+    torch.cuda.synchronize()
+    counts = {kk.name: kk.launches for kk in kernels.KERNELS if kk.launches}
+    phase("replay_churn", t, records=st.total, batches=st.batches,
+          records_per_s=round(st.total / st.seconds),
+          seconds=round(st.seconds, 6), rounds=st.rounds, reruns=st.reruns,
+          intents=st.intents, fold_seconds=round(st.fold_seconds, 6),
+          ct_created=st.ct_created, ct_deleted=st.ct_deleted,
+          l4_hits=int(l4.sum()),
+          spans_s={kk: round(v, 6) for kk, v in st.spans.report().items()},
+          launches=counts)
+    allowed = {kernels.DATAPATH_STEP.name, kernels.CHURN_COMPACT.name,
+               kernels.CT_DELTA.name}
+    if (counts.get(kernels.DATAPATH_STEP.name) != st.rounds
+            or counts.get(kernels.CHURN_COMPACT.name) != st.rounds
+            or set(counts) - allowed or st.total != 2 * REPLAY_CHURN_BATCH):
+        raise SystemExit(f"replay_churn: launches {counts} for {st.rounds} "
+                         f"rounds")
+    return dict(launches=counts.get(kernels.DATAPATH_STEP.name, 0),
+                err=0)
+
+
+def step_form_timing(kernels, tables, flows) -> dict:
+    """DATAPATH_STEP in the replay's modes on FORMS_FLOWS flows (direct
+    [8, B] pack): CUDA events over 20 launches, the plain version's time
+    and the bound (the pack read and the columns written once, each
+    distinct table row the flows select read once, each counter entry
+    the form changes read and written, the telemetry read and written;
+    or the operations counted low as churn_timing counts them)."""
+    from cilium_tpu_torch.engine import datapath as dp
+    from cilium_tpu_torch.engine import verdict
+
+    t = time.perf_counter()
+    pack = dp.pack_flow_batch(flows)
+    b = int(pack.shape[1])
+    pol, ipc, ct = tables.policy, tables.ipcache, tables.ct
+    ct_e = ct.buckets.shape[1] // ct.entry_words
+    l4_e = pol.l4_hash_rows.shape[1] // pol.l4_hash_stash.shape[1]
+    per_flow = 16 * 9 + 4 * (ct_e + (ipc.bucket_entries or 32) + 2 * l4_e)
+    egress_ops = 16 * 6 + 4 * (ct_e + 2)
+    acc = verdict.make_counter_buffers(pol)
+    tel = verdict.make_telemetry_buffers("cuda")
+    modes = {}
+    for name, form, emit in STEP_FORMS:
+        if name == "with_counters":
+            continue
+        kw = dict(emit_sec_id=emit, static_dir=form.get("static_dir"))
+        if form.get("acc"):
+            kw["acc"] = acc
+        if form.get("telem"):
+            kw["telem"] = tel
+        ms = event_ms(lambda: kernels.DATAPATH_STEP(tables, pack, None, **kw),
+                      20)
+        plain_ms = event_ms(lambda: step_plain(tables, pack, None, **kw), 3)
+        fresh = dict(kw)
+        if "acc" in kw:
+            fresh["acc"] = verdict.make_counter_buffers(pol)
+        if "telem" in kw:
+            fresh["telem"] = verdict.make_telemetry_buffers("cuda")
+        leaves = kernels.READS + ((("policy", "id_table"),) if emit else ())
+        rows_b, _ = table_row_bytes(
+            tables, leaves, lambda: step_plain(tables, pack, None, **fresh))
+        need = b * (32 + out_bytes_per_flow(dp)) + rows_b
+        if "acc" in fresh:
+            need += 8 * int(torch.count_nonzero(fresh["acc"]).item())
+        if "telem" in fresh:
+            need += 2 * 4 * fresh["telem"].numel()
+        static = form.get("static_dir")
+        not_in = {0: 0, 1: b}.get(static, int((flows.direction != 0).sum()))
+        ops = per_flow * b + egress_ops * not_in
+        bb = need / HBM_BYTES_PER_S * 1e3
+        bo = ops / OPS_PER_S * 1e3
+        modes[name] = dict(ms=round(ms, 4), plain_ms=round(plain_ms, 4),
+                           bytes=need, ops=ops,
+                           bound_ms=round(max(bb, bo), 6),
+                           bound_by="bytes" if bb >= bo else "operations")
+    phase("step_form_timing", t, flows=b)
+    return modes
+
+
+def replay_phases(kernels, w, tables, wide_t, rows) -> None:
+    """The fused record replay: forms_check, replay_check, replay,
+    replay_trace, replay_churn, the forms' timings.  Notes the replay
+    paths' launches and errors in the DATAPATH_STEP row and prints the
+    forms' times on a line of their own."""
+    from cilium_tpu_torch import world
+
+    chk = forms_check(kernels, w, tables, wide_t)
+    t = time.perf_counter()
+    buf = world.lattice_records(w, REPLAY_RECORDS, seed=31)
+    phase("replay_records", t, records=REPLAY_RECORDS, bytes=len(buf))
+    replay_check(kernels, w, tables, buf)
+    run = replay_phase(kernels, tables, buf)
+    replay_trace(tables, buf)
+    del buf
+    churn = replay_churn(kernels, w, wide_t)
+    modes = step_form_timing(kernels, tables, chk["flows"])
+    print(json.dumps({"datapath_step_modes": modes}), flush=True)
+    for r in rows:
+        if r["name"] == kernels.DATAPATH_STEP.name:
+            r["launches_by_path"] = {"churn": r["launches"],
+                                     "replay": run["launches"],
+                                     "replay_churn": churn["launches"]}
+            r["launches"] = sum(r["launches_by_path"].values())
+            r["max_abs_err"] = max(r["max_abs_err"], chk["err"])
 
 
 def cidr_phase(kernels, u) -> tuple:
@@ -2034,6 +2577,7 @@ def main() -> int:
     run = churn_phase(kernels, w, wide_t)
     churn_trace(wide_t, run)
     rows.extend(churn_timing(kernels, wide_t, chk, run["counts"]))
+    rows.append(prng_check(kernels, w, run["counts"]))
     del chk, run
     torch.cuda.empty_cache()
 
@@ -2043,12 +2587,15 @@ def main() -> int:
     rows.extend(lattice_phases(kernels, w, tables, wide_t))
     torch.cuda.empty_cache()
     config6_phases(kernels, w, tables, wide_t, rows)
+    torch.cuda.empty_cache()
+    replay_phases(kernels, w, tables, wide_t, rows)
 
     print("[library] library_ms is null except for ct_delta "
-          "(index_copy_): no single PyTorch call computes the fused "
-          "datapath steps (v4 or v6), the intent compaction, a DFA scan, the Kafka "
-          "rule match, the fleet's routed match, the policy lattice or "
-          "the two dependent DIR-24-8 reads", flush=True)
+          "(index_copy_) and pick_draw (torch.randint on the same shape: "
+          "other numbers, so a time only): no single PyTorch call computes "
+          "the fused datapath steps (v4 or v6), the intent compaction, a "
+          "DFA scan, the Kafka rule match, the fleet's routed match, the "
+          "policy lattice or the two dependent DIR-24-8 reads", flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -105,6 +105,14 @@ struct DatapathArgs {
   const uint32_t* tun_mask;
   const uint32_t* tun_endpoint;
   int32_t tun_n;
+  // the single-batch step's forms: static_dir -1 takes each flow's own
+  // direction, 0 runs every flow as ingress (no LB, no tunnel), 1 as
+  // egress; emit_sec_id 1 writes id_table[idx] as sec_id, 0 the raw
+  // index; picks null reads flow i straight from pool[:, i] (the
+  // record replay's [8, B] pack); acc and telem null skip the counters
+  // and the telemetry
+  int32_t static_dir;
+  int32_t emit_sec_id;
 };
 
 constexpr uint32_t FNV_OFFSET = 2166136261u;

@@ -4,10 +4,16 @@
 // `datapath_step_accum_pair_telem_packed4_stacked`
 // (cilium_tpu/engine/datapath.py:801: `_datapath_core` run once per
 // direction-specialized half, with counters and telemetry).
-// DATAPATH_STEP replaces the single-batch form `datapath_step`
-// (cilium_tpu/engine/datapath.py:604, `_datapath_core` with
-// static_direction=None and emit_sec_id), as the churn program
-// (cilium_tpu/replay.py:192 `_churn_fns`) runs it over a pool gather.
+// DATAPATH_STEP replaces the single-batch forms of
+// cilium_tpu/engine/datapath.py: `datapath_step` (:604, `_datapath_core`
+// with static_direction=None and emit_sec_id), as the churn program
+// (cilium_tpu/replay.py:192 `_churn_fns`) runs it over a pool gather, and
+// the accumulate forms `_datapath_kernel_with_counters` (:610),
+// `_datapath_kernel_accum` (:622), `_accum_dir_kernel` (:643),
+// `_datapath_kernel_telem` (:703) and `_datapath_kernel_accum_telem`
+// (:711), as the record replay (cilium_tpu/replay.py:514) runs them.  The
+// forms are runtime flags of the one kernel (DatapathArgs: static_dir,
+// emit_sec_id, acc, telem, picks null for a direct [8, B] pack).
 // Both fuse the stages:
 //   packed4 unpack      flow_batch_from_packed4       (engine/datapath.py)
 //   pool gather         flow_batch_from_packed        (engine/datapath.py)
@@ -18,8 +24,8 @@
 //   load balancer       lb_select_batch, inline       (lb/device.py)
 //   ipcache             ipcache_lookup_fused          (ipcache/lpm.py)
 //   lattice + combine   _probes, _combine             (engine/verdict.py)
-//   counters            _counter_cols + the merged scatter-add (pair)
-//   telemetry           telemetry_masks + the per-direction sums (pair)
+//   counters            _counter_cols + the scatter-add (pair, forms)
+//   telemetry           telemetry_masks + the per-direction sums
 //   tunnel              tunnel_select, in overlay mode  (tunnel.py)
 // over either table layout: compact (2-word L4 entries, 4-word CT rows,
 // sub-word ipcache planes) or wide (3-word L4 entries, 5-word 128-lane
@@ -29,8 +35,9 @@
 // (ceil(B / 256), 2); blockIdx.y is the half (0 ingress, 1 egress), so a
 // block never straddles the halves and the telemetry row is the block's.
 // The step kernel's grid is ceil(B / 256) and each flow takes its own
-// direction word: an ingress flow (direction 0) runs no LB, any other
-// word goes through the service probe and LB.  The CT probe direction,
+// direction word (or the static one of a per-direction form): an ingress
+// flow (direction 0) runs no LB, any other word goes through the service
+// probe and LB; its telemetry block sums both rows.  The CT probe direction,
 // the lattice direction and the counter row use each flow's own
 // direction.  With a tunnel map (overlay mode, tun_base not null) an
 // allowed flow that is not ingress (the egress half; a step flow whose
@@ -167,6 +174,65 @@ __device__ __forceinline__ void write_flow(const DatapathArgs& a, size_t o,
   a.ipcache_miss[o] = f.miss;
 }
 
+// Bit c set = the flow counts in telemetry column c (engine/verdict.py
+// telemetry_masks, in order).
+__device__ __forceinline__ uint32_t telemetry_bits(const FlowOut& f) {
+  const uint32_t kind = f.v.kind;
+  const bool post = !f.allowed && !f.pre;
+  const bool pass_ct = f.ct.result == CT_REPLY;
+  const bool m[TELEM_COLS] = {
+      true,
+      f.allowed,
+      !f.allowed,
+      f.pre,
+      post && kind == MATCH_NONE,
+      post && kind == MATCH_FRAG_DROP,
+      kind == MATCH_L4,
+      kind == MATCH_L3,
+      kind == MATCH_L4_WILD,
+      kind == MATCH_NONE,
+      kind == MATCH_FRAG_DROP,
+      f.lb_slave > 0,
+      f.ct.result == CT_NEW,
+      f.ct.result == CT_ESTABLISHED,
+      f.ct.result == CT_REPLY,
+      false,  // CT_RELATED: the datapath never probes RELATED keys
+      pass_ct && !f.v.allowed && !f.pre,
+      f.ct_delete,
+      f.miss,
+      f.proxy > 0 && f.allowed,
+  };
+  uint32_t bits = 0;
+#pragma unroll
+  for (int c = 0; c < TELEM_COLS; ++c) bits |= m[c] ? (1u << c) : 0u;
+  return bits;
+}
+
+// The single-batch step's telemetry epilogue, called by every thread of
+// the block (its flows may fall in either row): warp ballots per row, a
+// block sum in shared memory, then one atomicAdd per block, row and
+// column.  `row` is the flow's telemetry row (0 ingress,
+// 1 egress); `bits` is 0 for a thread past the batch.
+__device__ __forceinline__ void telemetry_rows_epilogue(uint32_t* telem,
+                                                   uint32_t bits, int row) {
+  __shared__ uint32_t s_rows[2 * TELEM_COLS];
+  if (threadIdx.x < 2 * TELEM_COLS) s_rows[threadIdx.x] = 0;
+  __syncthreads();
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int c = 0; c < TELEM_COLS; ++c) {
+    const bool on = (bits >> c) & 1u;
+    const uint32_t b0 = __ballot_sync(0xFFFFFFFFu, on && row == 0);
+    const uint32_t b1 = __ballot_sync(0xFFFFFFFFu, on && row == 1);
+    if (lane == 0 && b0) atomicAdd(&s_rows[c], static_cast<uint32_t>(__popc(b0)));
+    if (lane == 0 && b1)
+      atomicAdd(&s_rows[TELEM_COLS + c], static_cast<uint32_t>(__popc(b1)));
+  }
+  __syncthreads();
+  if (threadIdx.x < 2 * TELEM_COLS && s_rows[threadIdx.x])
+    atomicAdd(telem + threadIdx.x, s_rows[threadIdx.x]);
+}
+
 __global__ void __launch_bounds__(BLOCK)
     datapath_pair_kernel(const DatapathArgs a) {
   const int half = blockIdx.y;
@@ -200,38 +266,12 @@ __global__ void __launch_bounds__(BLOCK)
 
     // -- outputs: sec_id is the raw lattice index in the pair form
     write_flow(a, static_cast<size_t>(half) * a.B + i, f, f.idx);
-
-    // -- telemetry masks (engine/verdict.py telemetry_masks, in order)
-    const bool post = !f.allowed && !f.pre;
-    const bool pass_ct = f.ct.result == CT_REPLY;
-    const bool m[TELEM_COLS] = {
-        true,
-        f.allowed,
-        !f.allowed,
-        f.pre,
-        post && kind == MATCH_NONE,
-        post && kind == MATCH_FRAG_DROP,
-        kind == MATCH_L4,
-        kind == MATCH_L3,
-        kind == MATCH_L4_WILD,
-        kind == MATCH_NONE,
-        kind == MATCH_FRAG_DROP,
-        f.lb_slave > 0,
-        f.ct.result == CT_NEW,
-        f.ct.result == CT_ESTABLISHED,
-        f.ct.result == CT_REPLY,
-        false,  // CT_RELATED: the pair path never probes RELATED keys
-        pass_ct && !f.v.allowed && !f.pre,
-        f.ct_delete,
-        f.miss,
-        f.proxy > 0 && f.allowed,
-    };
-#pragma unroll
-    for (int c = 0; c < TELEM_COLS; ++c) tmask |= m[c] ? (1u << c) : 0u;
+    tmask = telemetry_bits(f);
   }
 
   // -- telemetry epilogue: warp ballots, a block sum in shared memory,
-  // then one atomicAdd per block and column
+  // then one atomicAdd per block and column (a block never straddles
+  // the halves, so the row is the block's)
   __shared__ uint32_t s_tel[TELEM_COLS];
   if (threadIdx.x < TELEM_COLS) s_tel[threadIdx.x] = 0;
   __syncthreads();
@@ -246,24 +286,68 @@ __global__ void __launch_bounds__(BLOCK)
     atomicAdd(a.telem + half * TELEM_COLS + threadIdx.x, s_tel[threadIdx.x]);
 }
 
-// The single-batch step: flow i is pool[:, picks[i]] (a pick past the
-// pool clamps to its last row, as an XLA gather clamps), each row takes
-// its own direction, sec_id is id_table[idx], no counters, no telemetry.
+// The counter scatter-add of the single-batch forms, with an XLA
+// scatter's indexing: ep and dir are the flow's int32 words, the column
+// slot j (an L4 hit) or kg + idx (an L3 hit); a negative index counts
+// from the end of its axis, and an update still outside the buffer is
+// dropped (engine/verdict.py _accumulate_counters).
+__device__ __forceinline__ void count_hit(const DatapathArgs& a,
+                                          const FlowOut& f, uint32_t ep_w,
+                                          uint32_t dir_w) {
+  const uint32_t kind = f.v.kind;
+  const bool hit_l4 = kind == MATCH_L4 || kind == MATCH_L4_WILD;
+  if (!hit_l4 && kind != MATCH_L3) return;
+  const int64_t cols = static_cast<int64_t>(a.kg) + a.n_ids;
+  int64_t e = static_cast<int32_t>(ep_w);
+  int64_t d = static_cast<int32_t>(dir_w);
+  int64_t c = hit_l4 ? static_cast<int64_t>(f.v.j)
+                     : a.kg + static_cast<int64_t>(static_cast<int32_t>(f.idx));
+  e += e < 0 ? a.n_eps : 0;
+  d += d < 0 ? 2 : 0;
+  c += c < 0 ? cols : 0;
+  if (e < 0 || e >= a.n_eps || d < 0 || d >= 2 || c < 0 || c >= cols) return;
+  atomicAdd(a.acc + (e * 2 + d) * cols + c, 1u);
+}
+
+// The single-batch step and its forms: flow i is pool[:, picks[i]] (a
+// pick past the pool clamps to its last row, as an XLA gather clamps),
+// or pool[:, i] without picks.  The flow runs as its own direction
+// (static_dir -1) or as the static one; sec_id is id_table[idx] or the
+// raw index; with acc each lattice hit is counted, with telem each flow
+// counts in its telemetry row: the ingress row when it runs as ingress,
+// else the egress row (the reference's egress row is the column total
+// minus the ingress row, so a direction word outside {0, 1} lands there).
 __global__ void __launch_bounds__(BLOCK)
     datapath_step_kernel(const DatapathArgs a) {
   const int i = blockIdx.x * BLOCK + threadIdx.x;
-  if (i >= a.B) return;
-  const uint32_t n = static_cast<uint32_t>(a.pool_n);
-  uint32_t p = __ldg(a.picks + i);
-  p = p < n ? p : n - 1;
-  uint32_t w[8];
+  uint32_t tmask = 0;
+  int row = 0;
+  if (i < a.B) {
+    uint32_t p = static_cast<uint32_t>(i);
+    if (a.picks) {
+      const uint32_t n = static_cast<uint32_t>(a.pool_n);
+      p = __ldg(a.picks + i);
+      p = p < n ? p : n - 1;
+    }
+    uint32_t w[8];
 #pragma unroll
-  for (int c = 0; c < 8; ++c) w[c] = __ldg(a.pool + static_cast<size_t>(c) * n + p);
-  // FLOW_COLUMNS: ep_index saddr daddr sport dport proto direction frag
-  const uint32_t dir = w[6];
-  const FlowOut f = fused_flow(a, w[1], w[2], w[3], w[4], w[5], w[0], dir,
-                               w[7] != 0, dir == CT_DIR_INGRESS);
-  write_flow(a, static_cast<size_t>(i), f, __ldg(a.id_table + f.idx));
+    for (int c = 0; c < 8; ++c)
+      w[c] = __ldg(a.pool + static_cast<size_t>(c) * a.pool_n + p);
+    // FLOW_COLUMNS: ep_index saddr daddr sport dport proto direction frag
+    const uint32_t dir = w[6];
+    const bool ingress =
+        a.static_dir < 0 ? dir == CT_DIR_INGRESS : a.static_dir == 0;
+    const FlowOut f = fused_flow(a, w[1], w[2], w[3], w[4], w[5], w[0], dir,
+                                 w[7] != 0, ingress);
+    if (a.acc) count_hit(a, f, w[0], dir);
+    write_flow(a, static_cast<size_t>(i), f,
+               a.emit_sec_id ? __ldg(a.id_table + f.idx) : f.idx);
+    if (a.telem) {
+      tmask = telemetry_bits(f);
+      row = ingress ? 0 : 1;
+    }
+  }
+  if (a.telem) telemetry_rows_epilogue(a.telem, tmask, row);
 }
 
 }  // namespace cdp

@@ -26,20 +26,30 @@ CPU tensor it runs `datapath_pair_plain`, the plain PyTorch version
 of the same step.  The carried counter and telemetry buffers are
 updated in place and returned.
 
-The single-batch form (the reference's `datapath_step`, which its
+The single-batch step (the reference's `datapath_step`, which its
 churn loop runs) takes each flow's own direction, writes the identity
-as `sec_id` and keeps no counters or telemetry: `datapath_step_pool`
-over pool[:, picks] (and `datapath_step` over a FlowBatch, packed to
-such a pool) launches DATAPATH_STEP on CUDA tensors, and both
-forms' plain versions share one body, `_datapath_core`.  The host
-side of the CT write-back (`apply_ct_writeback_host`) is here too.
+as `sec_id` and keeps no counters or telemetry.  Its forms, named as
+the reference names them, add to that: `datapath_step_with_counters`
+(fresh counters), `datapath_step_accum` (hits into a carried counter
+buffer, the raw lattice index as `sec_id`), its per-direction
+`_ingress` and `_egress` forms (a static direction: the ingress form
+runs no service probe, no LB and no tunnel stage),
+`datapath_step_telem` and `datapath_step_accum_telem` (the [2, 20]
+telemetry sums).  On CUDA tensors each launches DATAPATH_STEP, over a
+FlowBatch's [8, B] word pack or over pool[:, picks]
+(`datapath_step_pool`); on CPU tensors `datapath_step_plain` runs it.
+The unpacked pair forms (`datapath_step_accum_pair`, `_pair_telem`,
+`_pair_telem_packed4`) pack their halves into a packed4 pair and
+launch DATAPATH_PAIR.  Every plain version shares one body,
+`_datapath_core`.  The host side of the CT write-back
+(`apply_ct_writeback_host`) is here too.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from dataclasses import dataclass
-from typing import List
+from dataclasses import dataclass, field
+from typing import List, Optional
 
 import numpy as np
 import torch
@@ -64,11 +74,14 @@ from cilium_tpu_torch.engine.verdict import (
     _combine,
     _counter_cols,
     _probes,
+    make_counter_buffers,
+    make_telemetry_buffers,
+    split_counters,
     telemetry_masks,
 )
 from cilium_tpu_torch.ipcache.lpm import UNKNOWN_IDX, ipcache_lookup_fused
 from cilium_tpu_torch.lb.device import lb_select_batch
-from cilium_tpu_torch.maps.policymap import INGRESS
+from cilium_tpu_torch.maps.policymap import EGRESS, INGRESS
 from cilium_tpu_torch.prefilter import prefilter_drop
 from cilium_tpu_torch.tunnel import tunnel_select
 
@@ -90,7 +103,9 @@ class DatapathTables:
 @dataclass
 class FlowBatch:
     """Raw 5-tuple flows as int64 columns (u32 values for the
-    addresses)."""
+    addresses).  `packed` is the int32 [8, B] word pack the columns were
+    split from, when they were (`flow_batch_from_packed`): the card's
+    forms launch on it without packing again."""
 
     ep_index: torch.Tensor
     saddr: torch.Tensor
@@ -100,6 +115,8 @@ class FlowBatch:
     proto: torch.Tensor
     direction: torch.Tensor  # 0 = ingress, 1 = egress
     is_fragment: torch.Tensor  # bool
+    packed: Optional[torch.Tensor] = field(default=None, repr=False,
+                                           compare=False)
 
 
 VERDICT_COLUMNS = (
@@ -176,7 +193,18 @@ def flow_batch_from_packed(packed: torch.Tensor) -> FlowBatch:
         proto=cols["proto"],
         direction=cols["direction"],
         is_fragment=cols["is_fragment"] != 0,
+        packed=packed if packed.dtype == torch.int32 else None,
     )
+
+
+def pack_flow_batch(flows: FlowBatch) -> torch.Tensor:
+    """The [8, B] int32 word pack of a FlowBatch (FLOW_COLUMNS order):
+    the pack it was split from, or its columns stacked on their
+    device."""
+    if flows.packed is not None and flows.packed.is_contiguous():
+        return flows.packed
+    return narrow(torch.stack([widen(getattr(flows, c))
+                               for c in FLOW_COLUMNS]))
 
 
 # -- packed4: [4, B] u32 staging -----------------------------------------------
@@ -352,15 +380,59 @@ def _datapath_half(tables: DatapathTables, f: FlowBatch, ingress: bool):
     return out, cols, counts
 
 
-def datapath_step_plain(tables: DatapathTables,
-                        flows: FlowBatch) -> DatapathVerdicts:
-    """Plain version of the single-batch step (the reference's
-    `datapath_step`): each row takes its own direction, `sec_id` is the
-    identity, and there are no counters and no telemetry."""
-    out, _ = _datapath_core(
-        tables, flows, flows.direction == INGRESS, emit_sec_id=True
+def _telemetry_rows(out: DatapathVerdicts, ingress) -> torch.Tensor:
+    """The [2, 20] telemetry sums (int64) of one single-batch step, as
+    the reference forms them: the ingress row sums each mask over the
+    rows that run as ingress, the egress row is the column total minus
+    that row, so a direction word outside {0, 1} counts as egress."""
+    masks = telemetry_masks(
+        out.pre_dropped, out.ct_result, out.match_kind, out.allowed,
+        out.ct_delete, out.proxy_port, out.lb_slave, out.ipcache_miss,
     )
+    if isinstance(ingress, bool):
+        ingress = torch.full_like(out.pre_dropped, ingress)
+    row_in = torch.stack([(m & ingress).sum() for m in masks])
+    total = torch.stack([m.sum() for m in masks])
+    return torch.stack([row_in, total - row_in])
+
+
+def datapath_step_plain(tables: DatapathTables, flows: FlowBatch, *,
+                        acc: Optional[torch.Tensor] = None,
+                        telem: Optional[torch.Tensor] = None,
+                        emit_sec_id: bool = True,
+                        static_dir=None) -> DatapathVerdicts:
+    """Plain version of the single-batch step and its forms (the
+    reference's `_datapath_core` without the pair split).  Each row
+    takes its own direction, or with `static_dir` (INGRESS or EGRESS)
+    runs as that side; `sec_id` is the identity or, without
+    `emit_sec_id`, the raw lattice index; `acc` [E, 2, Kg + N] takes
+    the counter hits (an XLA scatter's indexing) and `telem` [2, 20] the
+    telemetry sums, both in place."""
+    if static_dir is None:
+        ingress = flows.direction == INGRESS
+    else:
+        ingress = static_dir == INGRESS
+    out, cols = _datapath_core(tables, flows, ingress, emit_sec_id)
+    if acc is not None:
+        _accumulate_counters(acc, *cols)
+    if telem is not None:
+        telem.copy_(narrow(widen(telem) + _telemetry_rows(out, ingress)))
     return out
+
+
+def _step(tables: DatapathTables, flows: FlowBatch, **form) -> DatapathVerdicts:
+    """One single-batch form on the flows' device: CUDA flows launch
+    DATAPATH_STEP on their [8, B] pack (direct mode, no picks), CPU
+    flows run the plain version."""
+    dev = flows.saddr.device
+    if dev.type == "cuda":
+        from cilium_tpu_torch import kernels
+
+        return kernels.DATAPATH_STEP(tables, pack_flow_batch(flows), None,
+                                     **form)
+    if dev.type == "cpu":
+        return datapath_step_plain(tables, flows, **form)
+    raise ValueError(f"unsupported device {dev}")
 
 
 def datapath_step_pool(tables: DatapathTables, pool: torch.Tensor,
@@ -382,19 +454,70 @@ def datapath_step_pool(tables: DatapathTables, pool: torch.Tensor,
 
 def datapath_step(tables: DatapathTables,
                   flows: FlowBatch) -> DatapathVerdicts:
-    """The single-batch step on a FlowBatch.  CUDA columns are packed
-    into [8, B] words and launch DATAPATH_STEP with picks 0..B-1 (a
-    pool that is already on the card goes to `datapath_step_pool`
-    without the repack); CPU columns run the plain version."""
-    dev = flows.saddr.device
-    if dev.type == "cuda":
-        pool = narrow(torch.stack([widen(getattr(flows, c))
-                                   for c in FLOW_COLUMNS]))
-        picks = torch.arange(pool.shape[1], dtype=torch.int32, device=dev)
-        return datapath_step_pool(tables, pool, picks)
-    if dev.type == "cpu":
-        return datapath_step_plain(tables, flows)
-    raise ValueError(f"unsupported device {dev}")
+    """The single-batch step (the reference's `datapath_step`): each
+    flow its own direction, `sec_id` the identity, no counters and no
+    telemetry.  CUDA flows launch DATAPATH_STEP on their [8, B] pack;
+    CPU flows run the plain version."""
+    return _step(tables, flows)
+
+
+def datapath_step_with_counters(tables: DatapathTables, flows: FlowBatch):
+    """The step with fresh per-batch counters (`sec_id` the identity):
+    (out, l4 [E, 2, Kg], l3 [E, 2, N])."""
+    acc = make_counter_buffers(tables.policy)
+    out = _step(tables, flows, acc=acc)
+    return (out, *split_counters(acc, tables.policy))
+
+
+def datapath_step_accum(tables: DatapathTables, flows: FlowBatch,
+                        acc: torch.Tensor):
+    """The streaming step: counter hits into the carried `acc`
+    [E, 2, Kg + N], in place; `sec_id` the raw lattice index.  Returns
+    (out, acc)."""
+    return _step(tables, flows, acc=acc, emit_sec_id=False), acc
+
+
+def datapath_step_accum_ingress(tables: DatapathTables, flows: FlowBatch,
+                                acc: torch.Tensor):
+    """datapath_step_accum with every flow run as ingress: no service
+    probe, no LB, no tunnel stage."""
+    return _step(tables, flows, acc=acc, emit_sec_id=False,
+                 static_dir=INGRESS), acc
+
+
+def datapath_step_accum_egress(tables: DatapathTables, flows: FlowBatch,
+                               acc: torch.Tensor):
+    """datapath_step_accum with every flow run as egress."""
+    return _step(tables, flows, acc=acc, emit_sec_id=False,
+                 static_dir=EGRESS), acc
+
+
+def datapath_step_telem(tables: DatapathTables, flows: FlowBatch):
+    """The step (`sec_id` the identity) and this batch's [2, 20]
+    telemetry sums (u32 bits in int32): (out, telem)."""
+    telem = make_telemetry_buffers(flows.saddr.device)
+    return _step(tables, flows, telem=telem), telem
+
+
+def datapath_step_accum_telem(tables: DatapathTables, flows: FlowBatch,
+                              acc: torch.Tensor, telem: torch.Tensor):
+    """The streaming step with telemetry: counter hits into `acc` and
+    the batch's telemetry sums into `telem`, both carried and updated in
+    place.  Returns (out, acc, telem)."""
+    out = _step(tables, flows, acc=acc, telem=telem, emit_sec_id=False)
+    return out, acc, telem
+
+
+def _pair_plain(tables: DatapathTables, f_in: FlowBatch, f_eg: FlowBatch,
+                acc: torch.Tensor, telem: Optional[torch.Tensor]):
+    out_i, cols_i, t_i = _datapath_half(tables, f_in, True)
+    out_e, cols_e, t_e = _datapath_half(tables, f_eg, False)
+    _accumulate_counters(
+        acc, *(torch.cat([a, b]) for a, b in zip(cols_i, cols_e))
+    )
+    if telem is not None:
+        telem.copy_(narrow(widen(telem) + torch.stack([t_i, t_e])))
+    return out_i, out_e
 
 
 def datapath_pair_plain(tables: DatapathTables, pair: torch.Tensor,
@@ -403,16 +526,10 @@ def datapath_pair_plain(tables: DatapathTables, pair: torch.Tensor,
     bits in int32; half 0 ingress, half 1 egress).  Updates `acc`
     [E, 2, Kg + N] and `telem` [2, 20] in place and returns
     (out_in, out_eg, acc, telem)."""
-    out_i, cols_i, t_i = _datapath_half(
-        tables, flow_batch_from_packed4(pair[0]), True
+    out_i, out_e = _pair_plain(
+        tables, flow_batch_from_packed4(pair[0]),
+        flow_batch_from_packed4(pair[1]), acc, telem,
     )
-    out_e, cols_e, t_e = _datapath_half(
-        tables, flow_batch_from_packed4(pair[1]), False
-    )
-    _accumulate_counters(
-        acc, *(torch.cat([a, b]) for a, b in zip(cols_i, cols_e))
-    )
-    telem.copy_(narrow(widen(telem) + torch.stack([t_i, t_e])))
     return out_i, out_e, acc, telem
 
 
@@ -430,6 +547,74 @@ def datapath_step_accum_pair_telem_packed4_stacked(
     if pair.device.type == "cpu":
         return datapath_pair_plain(tables, pair, acc, telem)
     raise ValueError(f"unsupported device {pair.device}")
+
+
+def datapath_step_accum_pair_telem_packed4(tables: DatapathTables,
+                                           packed_in: torch.Tensor,
+                                           packed_eg: torch.Tensor,
+                                           acc: torch.Tensor,
+                                           telem: torch.Tensor):
+    """The pair step on two packed4 halves [4, B]: stacked into one
+    [2, 4, B] pair.  Returns (out_in, out_eg, acc, telem)."""
+    return datapath_step_accum_pair_telem_packed4_stacked(
+        tables, torch.stack([packed_in, packed_eg]), acc, telem)
+
+
+def pack_flow_batch4(flows: FlowBatch) -> torch.Tensor:
+    """A FlowBatch as one packed4 half [4, B] (int32 words) on its
+    device.  Raises where a flow does not fit its packed4 field (ep_index
+    16 bits, ports 16, proto 8, direction 0 or 1): the pair kernel would
+    read another flow."""
+    ep, sp, dp_, pr, d = (getattr(flows, c).to(torch.int64) for c in (
+        "ep_index", "sport", "dport", "proto", "direction"))
+    fits = ((ep >= 0) & (ep < 1 << 16) & (sp >= 0) & (sp < 1 << 16)
+            & (dp_ >= 0) & (dp_ < 1 << 16) & (pr >= 0) & (pr < 1 << 8)
+            & ((d == 0) | (d == 1)))
+    if not bool(fits.all()):
+        raise ValueError("flows outside the packed4 fields (ep_index, ports, "
+                         "proto or direction) cannot take the pair kernel")
+    frag = flows.is_fragment.to(torch.int64)
+    return narrow(torch.stack([
+        widen(flows.saddr), widen(flows.daddr), (sp << 16) | dp_,
+        (ep << 16) | (pr << 8) | (d << 1) | frag,
+    ]))
+
+
+def _pair_step(tables, flows_in: FlowBatch, flows_eg: FlowBatch, acc,
+               telem):
+    """The unpacked pair forms: CUDA halves are packed into one
+    [2, 4, B] pair and launch DATAPATH_PAIR (`telem` None gets a scratch
+    buffer); CPU halves run both direction-specialized halves plainly,
+    with one merged counter scatter."""
+    dev = flows_in.saddr.device
+    if dev.type == "cuda":
+        if flows_in.saddr.shape != flows_eg.saddr.shape:
+            raise ValueError("the pair kernel takes halves of one length")
+        pair = torch.stack([pack_flow_batch4(flows_in),
+                            pack_flow_batch4(flows_eg)])
+        scratch = make_telemetry_buffers(dev) if telem is None else telem
+        out_i, out_e, _, _ = datapath_step_accum_pair_telem_packed4_stacked(
+            tables, pair, acc, scratch)
+        return out_i, out_e
+    if dev.type == "cpu":
+        return _pair_plain(tables, flows_in, flows_eg, acc, telem)
+    raise ValueError(f"unsupported device {dev}")
+
+
+def datapath_step_accum_pair(tables: DatapathTables, flows_in: FlowBatch,
+                             flows_eg: FlowBatch, acc: torch.Tensor):
+    """Both direction-specialized halves in one step with one merged
+    counter scatter: (out_in, out_eg, acc)."""
+    return (*_pair_step(tables, flows_in, flows_eg, acc, None), acc)
+
+
+def datapath_step_accum_pair_telem(tables: DatapathTables,
+                                   flows_in: FlowBatch, flows_eg: FlowBatch,
+                                   acc: torch.Tensor, telem: torch.Tensor):
+    """datapath_step_accum_pair with the halves' telemetry sums in the
+    carried `telem` (ingress half in row 0, egress half in row 1):
+    (out_in, out_eg, acc, telem)."""
+    return (*_pair_step(tables, flows_in, flows_eg, acc, telem), acc, telem)
 
 
 def subword_datapath_tables(dtables: DatapathTables) -> DatapathTables:

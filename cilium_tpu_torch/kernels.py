@@ -1,16 +1,19 @@
 """Build, binding and wrappers of the hand-written CUDA kernels.
 
-`csrc/datapath.cu`, `csrc/l7.cu`, `csrc/churn.cu`, `csrc/lattice.cu`
-and `csrc/datapath6.cu` (with their headers) are each compiled by
-`nvcc` for `sm_90a` into a shared library with a plain C interface, at
-first use, into
-`cilium_tpu_torch/_build/` (one file per source digest), and bound
+`csrc/datapath.cu`, `csrc/l7.cu`, `csrc/churn.cu`, `csrc/lattice.cu`,
+`csrc/datapath6.cu` and `csrc/prng.cu` (with their headers) are each
+compiled by `nvcc` for `sm_90a` into a shared library with a plain C
+interface, at first use, into `cilium_tpu_torch/_build/` (one file per
+source digest), and bound
 with ctypes.  Nothing here runs at import: the CPU tests import this
 module on a machine with no `nvcc` and no card.
 
 `DATAPATH_PAIR(tables, pair, acc, telem)` is the pair step on the
 card and `DATAPATH_STEP(tables, pool, picks)` the single-batch step
-over pool[:, picks].  Both check devices, dtypes, shapes and the table
+over pool[:, picks] (or over an [8, B] pack with `picks=None`), in
+each of its forms: a static direction, the raw index or the identity
+as sec_id, counters into a carried `acc`, telemetry into a carried
+`telem`.  Both check devices, dtypes, shapes and the table
 layouts (the kernels implement the compact layouts, 2-word L4 entries
 and 4-word CT rows, and the wide ones, 3-word L4 entries and 5-word CT
 rows; the idx-form ipcache with L3 planes and hashed range classes;
@@ -35,6 +38,10 @@ launch on the current stream, raise on a launch error and count
 `LATTICE` and `LPM_LOOKUP` (csrc/lattice.cu) are the tuple-level
 lattice (K23; with `lpm` and `src_ips`, K20's fused CIDR form) and the
 DIR-24-8 lookup (K20), under the same rules.
+
+`PICK_DRAW(subkeys, n, span, device)` (csrc/prng.cu) is the churn
+loop's threefry2x32 uniform draw (K22's picks, see prng.py), under the
+same rules.
 
 `DATAPATH6(tables, flows)` (csrc/datapath6.cu) is the fused IPv6
 program (K15, with the v6 tunnel stage of K11) over Datapath6Tables and
@@ -70,7 +77,7 @@ from cilium_tpu_torch.tunnel import TunnelTables, TunnelTables6
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
 # csrc/<stem>.cu, one library each
-LIBRARIES = ("datapath", "l7", "churn", "lattice", "datapath6")
+LIBRARIES = ("datapath", "l7", "churn", "lattice", "datapath6", "prng")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC",
@@ -126,7 +133,8 @@ class DatapathArgs(ctypes.Structure):
         + [(name, ctypes.c_void_p) for name in _PTRS3]
         + [(name, ctypes.c_int32) for name in _INTS3]
         + [(name, ctypes.c_void_p) for name in _PTRS4]
-        + [("tun_n", ctypes.c_int32)]
+        + [("tun_n", ctypes.c_int32), ("static_dir", ctypes.c_int32),
+           ("emit_sec_id", ctypes.c_int32)]
     )
 
 
@@ -505,7 +513,12 @@ class DatapathPairKernel:
 class DatapathStepKernel:
     """The single-batch step on the card: the 15 columns [B] of the
     flows pool[:, picks] (pool int32 [8, P] in FLOW_COLUMNS order,
-    picks int32 [B]; a pick past the pool clamps to its last row)."""
+    picks int32 [B]; a pick past the pool clamps to its last row), or
+    with `picks=None` of the flows pool[:, i] of an [8, B] pack.  The
+    forms: `static_dir` None takes each flow's direction, INGRESS (0) or
+    EGRESS (1) runs every flow as that side; `emit_sec_id` writes the
+    identity or the raw lattice index; `acc` [E, 2, Kg + N] takes the
+    counter hits and `telem` [2, 20] the telemetry sums, in place."""
 
     name = "datapath_step"
 
@@ -515,21 +528,37 @@ class DatapathStepKernel:
     def load(self, verbose: bool = False):
         return DATAPATH_LIBRARY.load(verbose)
 
-    def __call__(self, tables, pool, picks) -> DatapathVerdicts:
+    def __call__(self, tables, pool, picks=None, *, acc=None, telem=None,
+                 emit_sec_id: bool = True,
+                 static_dir=None) -> DatapathVerdicts:
         dev = _cuda_device(pool, self.name)
         if pool.dim() != 2 or pool.shape[0] != 8:
             raise ValueError(f"pool must be [8, P], got {tuple(pool.shape)}")
         n = int(pool.shape[1])
-        if not 1 <= n < 1 << 31:
-            raise ValueError(f"pool has {n} rows")
-        if picks.dim() != 1:
-            raise ValueError("picks must be [B]")
-        b = _batch(int(picks.shape[0]))
+        if picks is None:
+            b = _batch(n)
+        else:
+            if not 1 <= n < 1 << 31:
+                raise ValueError(f"pool has {n} rows")
+            if picks.dim() != 1:
+                raise ValueError("picks must be [B]")
+            b = _batch(int(picks.shape[0]))
+        if static_dir not in (None, 0, 1):
+            raise ValueError(f"static_dir must be None, 0 or 1, not "
+                             f"{static_dir!r}")
         a = DatapathArgs()
         a.pool = _ptr(pool, "pool", dev, shape=(8, n))
-        a.picks = _ptr(picks, "picks", dev, shape=(b,))
+        if picks is not None:
+            a.picks = _ptr(picks, "picks", dev, shape=(b,))
         a.pool_n, a.B = n, b
+        a.static_dir = -1 if static_dir is None else int(static_dir)
+        a.emit_sec_id = int(bool(emit_sec_id))
         _fill_tables(a, tables, dev)
+        if acc is not None:
+            a.acc = _ptr(acc, "acc", dev,
+                         shape=(a.n_eps, 2, a.kg + a.n_ids))
+        if telem is not None:
+            a.telem = _ptr(telem, "telem", dev, shape=(2, TELEM_COLS))
         cols = _alloc_columns(a, (b,), dev)
         DATAPATH_LIBRARY.launch("launch_datapath_step", a, dev, self.name)
         self.launches += 1
@@ -1406,5 +1435,76 @@ class Datapath6Kernel:
 
 
 DATAPATH6 = Datapath6Kernel()
+
+
+# ---------------------------------------------------------------------------
+# The churn loop's pick draw (csrc/prng.cu)
+# ---------------------------------------------------------------------------
+
+
+class PickArgs(ctypes.Structure):
+    """Mirror of cpr::PickArgs in csrc/prng.cu, field for field."""
+
+    _fields_ = [("picks", _P), ("k1", ctypes.c_uint32 * 2),
+                ("k2", ctypes.c_uint32 * 2), ("span", ctypes.c_uint32),
+                ("mult", ctypes.c_uint32), ("n", ctypes.c_int64)]
+
+
+class _PrngLibrary(_Library):
+    """csrc/prng.cu: PICK_DRAW."""
+
+    stem = "prng"
+
+    def bind(self, lib) -> None:
+        self.declare(lib, (("launch_pick_draw", PickArgs),))
+        lib.prng_args_size.argtypes = []
+        lib.prng_args_size.restype = ctypes.c_int
+        if lib.prng_args_size() != ctypes.sizeof(PickArgs):
+            raise RuntimeError(
+                "PickArgs layout differs between kernels.py and csrc/prng.cu"
+            )
+
+
+PRNG_LIBRARY = _PrngLibrary()
+
+
+class PickDrawKernel:
+    """K22's draw on the card: int32 [n] with the u32 picks of
+    `randint(key, (n,), 0, span, uint32)`, from the key's two split
+    subkeys ((k1, k2) as prng.split returns them)."""
+
+    name = "pick_draw"
+
+    def __init__(self) -> None:
+        self.launches = 0
+
+    def load(self, verbose: bool = False):
+        return PRNG_LIBRARY.load(verbose)
+
+    def __call__(self, subkeys, n: int, span: int, device):
+        from cilium_tpu_torch.prng import randint_multiplier
+
+        dev = torch.device(device)
+        if dev.type != "cuda":
+            raise ValueError(f"{self.name}: the kernel runs on CUDA, got {dev}")
+        if dev.index is None:
+            dev = torch.device("cuda", torch.cuda.current_device())
+        n, span = int(n), int(span)
+        if not 0 <= n < 1 << 40:
+            raise ValueError(f"{self.name}: n = {n}")
+        if not 1 <= span <= 0xFFFFFFFF:
+            raise ValueError(f"{self.name}: span = {span}")
+        a = PickArgs()
+        (a.k1[0], a.k1[1]), (a.k2[0], a.k2[1]) = subkeys
+        a.span, a.mult, a.n = span, randint_multiplier(span), n
+        picks = torch.empty(n, dtype=torch.int32, device=dev)
+        a.picks = picks.data_ptr()
+        PRNG_LIBRARY.launch("launch_pick_draw", a, dev, self.name)
+        self.launches += 1
+        return picks
+
+
+PICK_DRAW = PickDrawKernel()
 KERNELS = (DATAPATH_PAIR, DATAPATH_STEP, CHURN_COMPACT, CT_DELTA,
-           HTTP_MATCH, KAFKA_MATCH, FLEET_L7, LATTICE, LPM_LOOKUP, DATAPATH6)
+           HTTP_MATCH, KAFKA_MATCH, FLEET_L7, LATTICE, LPM_LOOKUP, DATAPATH6,
+           PICK_DRAW)

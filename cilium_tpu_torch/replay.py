@@ -1,5 +1,23 @@
-"""Replay: the conntrack churn loop over a flow pool, and the record
-replay through the bare policy lattice.
+"""Replay: flow records through the fused datapath, the conntrack churn
+loop over a flow pool, and the record replay through the bare policy
+lattice.
+
+`replay` is the reference's `replay()`, the workload the repo was built
+for: flow records are decoded, cut into padded batches and uploaded as
+one [8, B] word pack each (`read_flow_batches`), and each batch runs the
+fused single-batch step (DATAPATH_STEP on the card) with its counter
+hits scattered into a carried u32 buffer, folded into host u64 sums
+every `max(1, 2^31 // batch_size)` batches and at the end, so that no
+cell can wrap.  With `collect_telemetry` a full batch also sums its
+[2, 20] telemetry on the device; a partial tail batch (whose padding
+the device sums would count) and the no-counter path fold it on the
+host over the valid rows.  The folded histogram lands in
+`stats.telemetry` and in the metrics registry.  Up to four batches are
+in flight.  With `ct_map` it runs in churn mode: each batch runs the
+counter-carrying step, then the intent compaction over its pack, and
+the rounds of the churn loop below write the CT back before the next
+batch, so a flow that batch i creates is ESTABLISHED from batch i + 1
+on; convergence reruns take the plain step.
 
 `replay_lattice` is the post-hoc Hubble audit path: flow records (the
 identity already resolved in each record) are decoded, cut into padded
@@ -8,13 +26,12 @@ lattice with per-batch counters (the LATTICE kernel on the card), up to
 four batches in flight; each drained batch adds its verdict tallies to
 the stats and its counters to u64 host totals.
 
-The churn loop is the counterpart of the reference's `replay_pool`.
-
-Counterpart of the reference's `replay_pool` (its config-5
-`ct_churn_tuples_per_sec`).  The flow pool (unique flows, as real
-traffic repeats flows) is packed once into [8, P] words on the
-device; each batch is a vector of picks into it.  One round of a
-batch runs:
+The churn loop is the counterpart of the reference's `replay_pool`
+(its config-5 `ct_churn_tuples_per_sec`).  The flow pool (unique flows,
+as real traffic repeats flows) is packed once into [8, P] words on the
+device; each batch is a vector of picks into it, explicit or drawn on
+the device with the reference's threefry draw (prng.py, PICK_DRAW).
+One round of a batch runs:
 
   1. the churn step on the device: the single-batch datapath step
      over pool[:, picks] (DATAPATH_STEP), then the intent compaction
@@ -31,9 +48,12 @@ batch runs:
 
 The round repeats (a rerun) while the header's `remaining` says that
 intents lost their slot or were cut by the cap.  On CUDA tensors the
-three kernels run, or the call raises; on CPU tensors their plain
-versions run.  The record-buffer `replay()` through the fused datapath
-is not ported.
+kernels run, or the call raises; on CPU tensors their plain versions
+run.  `replay`'s `manager=` (the stale-table check) waits for the
+control plane and its `flow_store=` (flow capture) for the flow plane:
+each raises NotImplementedError.  The reference's `_guarded_dispatch`
+retry seam waits for the resilience plane; without an injected fault
+it passes every dispatch straight through, as here.
 """
 
 from __future__ import annotations
@@ -61,17 +81,28 @@ from cilium_tpu_torch.engine.datapath import (
     DatapathVerdicts,
     FlowBatch,
     apply_ct_writeback_host,
+    datapath_step,
+    datapath_step_accum,
+    datapath_step_accum_telem,
     datapath_step_pool,
     flow_batch_from_packed,
+    pack_flow_batch,
 )
 from cilium_tpu_torch.engine.hashtable import fnv1a
 from cilium_tpu_torch.engine.verdict import (
+    TELEM_COLS,
     TupleBatch,
     evaluate_batch,
     evaluate_batch_with_counters,
+    make_counter_buffers,
+    make_telemetry_buffers,
 )
 from cilium_tpu_torch.native.loader import decode_flow_records
+from cilium_tpu_torch.prng import fold_in, prng_key, randint_u32
 
+# fold the carried u32 counter buffer into host u64 sums before any cell
+# could gain 2^31 increments (a batch adds at most batch_size to a cell)
+_COUNTER_FOLD_MAX_INCR = 1 << 31
 # create/delete intents that one round may carry to the host
 _CT_INTENT_CAP = 1 << 16
 # claim-table slots of the on-device intent dedup
@@ -215,10 +246,17 @@ class ReplayStats:
     rounds: int = 0
     intents: List[int] = field(default_factory=list)
     fold_seconds: float = 0.0
-    # replay_lattice's host seconds by span: decode (the record
-    # columns), pack (a batch's pack and its upload), dispatch (the
-    # lattice launch), drain (tallies and counters fetched and summed)
-    spans: Dict[str, float] = field(default_factory=dict)
+    # host seconds by span.  replay_lattice: a dict of decode (the
+    # record columns), pack (a batch's pack and its upload), dispatch
+    # (the lattice launch), drain (tallies and counters fetched and
+    # summed).  replay: a SpanStats of host_pack (decode, then each
+    # batch's pack and upload), dispatch (the step's launch; in churn
+    # mode with the compaction) and drain (tallies and telemetry folds;
+    # in churn mode the rounds' CT folds)
+    spans: object = field(default_factory=dict)
+    # replay(collect_telemetry=True): the [2, 20] u64 histogram of the
+    # replayed flows
+    telemetry: object = None
 
     @property
     def verdicts_per_sec(self) -> float:
@@ -325,12 +363,6 @@ def _pool_on(pool: Dict[str, np.ndarray], dev: torch.device) -> torch.Tensor:
     return packed
 
 
-def _batch_seed(base: int, batch_idx: int) -> int:
-    return ((base & 0xFFFFFFFF) << 32 | (batch_idx & 0xFFFFFFFF)) & (
-        (1 << 63) - 1
-    )
-
-
 def replay_pool(tables: DatapathTables, pool: Dict[str, np.ndarray],
                 picks, batch_size: int = 1 << 21, *, ct_map,
                 device=None) -> ReplayStats:
@@ -339,12 +371,13 @@ def replay_pool(tables: DatapathTables, pool: Dict[str, np.ndarray],
     their CT plane is replaced by the loop's own snapshot.
 
     `picks` is an explicit index array (uploaded as u32 per batch) or
-    an int n: n uniform picks drawn on the device with a
-    torch.Generator seeded from `len(ct_map.entries) ^ n` and the batch
-    index (not the reference's jax.random numbers).  Each batch has
-    `batch_size` rows; the last one's rows past `valid` are padding
-    that is computed but never counted.  `stats.seconds` starts after
-    the per-call set-up (tables, pool pack, snapshot cache)."""
+    an int n: n uniform picks drawn on the device, the reference's
+    numbers: batch i draws `randint(fold_in(PRNGKey(len(ct) ^ n), i),
+    (batch_size,), 0, P, uint32)` under threefry2x32 (prng.py; PICK_DRAW
+    on the card).  Each batch has `batch_size` rows; the last one's rows
+    past `valid` are padding that is computed but never counted.
+    `stats.seconds` starts after the per-call set-up (tables, pool
+    pack, snapshot cache)."""
     dev = resolve_device(device)
     if dev.type == "cuda" and dev.index is None:
         dev = torch.device("cuda", torch.cuda.current_device())
@@ -358,16 +391,12 @@ def replay_pool(tables: DatapathTables, pool: Dict[str, np.ndarray],
 
     if isinstance(picks, (int, np.integer)):
         n = int(picks)
-        base = len(ct_map.entries) ^ n
-        gen = torch.Generator(device=dev)
+        base_key = prng_key(len(ct_map.entries) ^ n)
         n_pool = int(pool_dev.shape[1])
         t0 = time.perf_counter()
         for batch_idx, start in enumerate(range(0, n, batch_size)):
-            gen.manual_seed(_batch_seed(base, batch_idx))
-            picks_dev = torch.randint(
-                0, n_pool, (batch_size,), generator=gen, device=dev,
-                dtype=torch.int32,
-            )
+            picks_dev = randint_u32(fold_in(base_key, batch_idx), batch_size,
+                                    n_pool, dev)
             run(picks_dev, min(batch_size, n - start))
     else:
         picks = np.asarray(picks).astype(np.uint32, copy=False)
@@ -538,6 +567,208 @@ def replay_lattice(tables, buf: bytes, batch_size: int = 1 << 20,
     if acc is None:
         return stats, None, None
     return stats, acc.l4, acc.l3
+
+
+# -- record replay through the fused datapath ------------------------------------
+
+
+def read_flow_batches(buf: bytes, batch_size: int,
+                      ep_map: Optional[Dict[int, int]] = None,
+                      device=None) -> Iterator[Tuple[FlowBatch, int]]:
+    """Decode flow records and yield (FlowBatch on `device`, valid):
+    batches of `batch_size` raw 5-tuples (identity is derived on the
+    device, by the ipcache stage of the fused step), the last padded
+    with zero rows past its `valid` ones.  Each batch moves as one
+    [8, B] u32 pack (FLOW_COLUMNS order), the words the reference's
+    int32 casts give; the columns are cast once, not per batch."""
+    dev = resolve_device(device)
+    rec = decode_flow_records(buf)
+    n = len(rec["ep_id"])
+    cols = dict(
+        ep_index=_ep_index_of(rec, ep_map),
+        saddr=rec["saddr"],
+        daddr=rec["daddr"],
+        sport=rec["sport"].astype(np.int32),
+        dport=rec["dport"].astype(np.int32),
+        proto=rec["proto"].astype(np.int32),
+        direction=rec["direction"].astype(np.int32),
+        is_fragment=rec["is_fragment"].astype(bool),
+    )
+    words = np.empty((len(FLOW_COLUMNS), n), dtype=np.uint32)
+    for j, name in enumerate(FLOW_COLUMNS):
+        words[j] = cols[name].astype(np.uint32)
+    for start, end in _batch_slices(n, batch_size):
+        if end - start == batch_size:
+            chunk = words[:, start:end]
+        else:
+            chunk = np.zeros((len(FLOW_COLUMNS), batch_size), np.uint32)
+            chunk[:, : end - start] = words[:, start:end]
+        yield flow_batch_from_packed(u32_tensor(chunk, dev)), end - start
+
+
+def _drain_fused(item, stats: ReplayStats) -> None:
+    """A finished fused batch: its counters live in the carried buffer,
+    so only the tallies of its first `valid` rows are taken."""
+    verdicts, valid = item
+    _tally(verdicts, valid, stats)
+
+
+def replay(tables: DatapathTables, buf: bytes, batch_size: int = 1 << 20,
+           accumulate_counters: bool = True,
+           ep_map: Optional[Dict[int, int]] = None, manager=None,
+           ct_map=None, collect_telemetry: bool = False, flow_store=None,
+           *, device=None) -> tuple:
+    """Replay flow records through the fused datapath step on `device`
+    (None = the card), where the DatapathTables must already lie
+    (convert.tables_to); see the module docstring.  Returns (stats, l4,
+    l3): the u64 hit totals [E, 2, Kg] and [E, 2, N] over every batch,
+    padding rows' hits included as in the reference, or (stats, None,
+    None) without `accumulate_counters`.  `collect_telemetry` is not
+    offered in churn mode (`ct_map`), as in the reference.  `stats.spans`
+    is a SpanStats; `stats.seconds` covers decode, upload, the steps and
+    the drains."""
+    from cilium_tpu_torch.metrics import registry as metrics
+    from cilium_tpu_torch.spanstat import SpanStats
+    from cilium_tpu_torch.telemetry import (
+        fold_telemetry,
+        telemetry_from_outputs,
+    )
+
+    if manager is not None:
+        raise NotImplementedError(
+            "replay(manager=...) waits for the control plane (ROADMAP "
+            "queue 1 item 4): the port has no endpoint manager whose "
+            "stale-table check it could run")
+    if flow_store is not None:
+        raise NotImplementedError(
+            "replay(flow_store=...) waits for the flow plane (ROADMAP "
+            "queue 1 item 6): the port has no flow store")
+    dev = resolve_device(device)
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    require_on(tables.policy.id_table, dev, "the tables (convert.tables_to)")
+    stats = ReplayStats()
+    spans = stats.spans = SpanStats()
+    fold_every = max(1, _COUNTER_FOLD_MAX_INCR // max(batch_size, 1))
+    acc = make_counter_buffers(tables.policy) if accumulate_counters else None
+    acc_total = None
+    since_fold = 0
+    telem_dev = telem_total = None
+    if collect_telemetry and ct_map is None:
+        telem_total = np.zeros((2, TELEM_COLS), np.uint64)
+        if accumulate_counters:
+            telem_dev = make_telemetry_buffers(dev)
+
+    def host_u64(t: torch.Tensor) -> np.ndarray:
+        return t.cpu().numpy().view(np.uint32).astype(np.uint64)
+
+    def fold_counters() -> None:
+        # the telemetry buffer wraps at the same u32 horizon: same cadence
+        nonlocal acc_total, since_fold, telem_total
+        host = host_u64(acc)
+        acc_total = host if acc_total is None else acc_total + host
+        acc.zero_()
+        if telem_dev is not None:
+            telem_total = telem_total + host_u64(telem_dev)
+            telem_dev.zero_()
+        since_fold = 0
+
+    def counted() -> None:
+        nonlocal since_fold
+        since_fold += 1
+        if since_fold >= fold_every:
+            fold_counters()
+
+    def drain_item(item) -> None:
+        nonlocal telem_total
+        out, valid, fold_direction = item
+        spans.span("drain").start()
+        _drain_fused((out, valid), stats)
+        if fold_direction is not None:
+            telem_total = telem_total + telemetry_from_outputs(
+                out, fold_direction, valid=valid)
+        spans.span("drain").end()
+
+    churn = picks = None
+    if ct_map is not None:
+        churn = _ChurnDriver(ct_map, dev)
+        picks = torch.arange(batch_size, dtype=torch.int32, device=dev)
+
+    pending = []  # pipelined dispatch, at most 4 batches in flight
+    t0 = time.perf_counter()
+    # a generator: the decode runs in the first host_pack span
+    batches = read_flow_batches(buf, batch_size, ep_map, dev)
+    while True:
+        spans.span("host_pack").start()
+        item = next(batches, None)
+        spans.span("host_pack").end(success=item is not None)
+        if item is None:
+            break
+        flows, valid = item
+        iter_t0 = time.perf_counter()
+        if churn is not None:
+            # the counter-carrying step on the first pass, the plain
+            # step on convergence reruns; the compaction reads the pack
+            pack = pack_flow_batch(flows)
+            first_pass = True
+            while True:
+                t = dataclasses.replace(tables, ct=churn.dev_snap)
+                spans.span("dispatch").start()
+                if first_pass and acc is not None:
+                    out, _ = datapath_step_accum(t, flows, acc)
+                    header, intents = churn_compact(out, pack, picks, valid)
+                    counted()
+                else:
+                    header, intents = churn_step(t, pack, picks, valid)
+                spans.span("dispatch").end()
+                spans.span("drain").start()
+                remaining = churn.drain(header, intents, stats, valid,
+                                        first_pass)
+                spans.span("drain").end()
+                first_pass = False
+                if remaining == 0:
+                    break
+            metrics.batch_duration.observe(time.perf_counter() - iter_t0)
+            continue
+        fold_direction = None
+        spans.span("dispatch").start()
+        if acc is not None:
+            if telem_dev is not None and valid == batch_size:
+                out, _, _ = datapath_step_accum_telem(tables, flows, acc,
+                                                      telem_dev)
+            else:
+                out, _ = datapath_step_accum(tables, flows, acc)
+                if telem_total is not None:
+                    # a partial tail: the device sums would count its
+                    # padding rows, so it folds on the host
+                    fold_direction = flows.direction
+            counted()
+        else:
+            out = datapath_step(tables, flows)
+            if telem_total is not None:
+                fold_direction = flows.direction
+        spans.span("dispatch").end()
+        pending.append((out, valid, fold_direction))
+        stats.batches += 1
+        if len(pending) >= 4:
+            drain_item(pending.pop(0))
+        metrics.batch_duration.observe(time.perf_counter() - iter_t0)
+    while pending:
+        drain_item(pending.pop(0))
+    if churn is not None:
+        churn.stash()
+    if telem_total is not None:
+        if telem_dev is not None:
+            telem_total = telem_total + host_u64(telem_dev)
+            telem_dev = None  # the closing counter fold must not add it again
+        stats.telemetry = telem_total
+        fold_telemetry(telem_total)
+    stats.seconds = time.perf_counter() - t0
+    if acc is None:
+        return stats, None, None
+    fold_counters()
+    kg = int(tables.policy.l4_meta.shape[2])
+    return stats, acc_total[:, :, :kg], acc_total[:, :, kg:]
 
 
 def slot_keys_from_tables(tables) -> Dict[int, Tuple[int, int]]:

@@ -39,7 +39,9 @@ The bare policy lattice has worlds of its own, at the same level:
 `example_world` (config 1), `cidr_world` (config 2, with its DIR-24-8
 mapping and tuple generator), and over config 5: `lattice_tuples`
 (bench.py's lattice line) and `lattice_records` (flow records drawn
-from the pool, each carrying its peer's identity).
+from the pool, each carrying its peer's identity).  `pool_records` and
+`oracle_context` serve the fused record replay and its composed host
+oracle.
 """
 
 from __future__ import annotations
@@ -762,6 +764,33 @@ def lattice_records(w: World, n: int, seed: int = 31) -> bytes:
         proto=pool["proto"][picks], direction=pool["direction"][picks],
         is_fragment=rng.random(n) < FRAG_SHARE,
     )
+
+
+def pool_records(w: World, rows) -> bytes:
+    """The flow pool's `rows` as flow records (identity 0: the fused
+    replay derives it on the device), as bench.py's encode_pool_sample
+    writes them."""
+    from cilium_tpu_torch.native.loader import encode_flow_records
+
+    rows = np.asarray(rows)
+    pool = w.pool
+    return encode_flow_records(
+        ep_id=pool["ep_index"][rows], identity=np.zeros(len(rows), np.uint32),
+        **{c: pool[c][rows] for c in FLOW_COLUMNS if c != "ep_index"},
+    )
+
+
+def oracle_context(w: World) -> dict:
+    """The host maps hostpath.composed_oracle reads: the prefilter and
+    the ipcache as host LPMs, the CT map and the service manager."""
+    from cilium_tpu_torch.engine.hostpath import HostLPM
+
+    return {
+        "prefilter": HostLPM({c: 1 for c in w.prefilter_cidrs}),
+        "ipcache": HostLPM(w.ipc_map),
+        "ct": w.ct,
+        "mgr": w.mgr,
+    }
 
 
 # -- overlay mode ------------------------------------------------------------------

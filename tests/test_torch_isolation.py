@@ -39,7 +39,10 @@ def test_import_loads_no_jax_and_no_reference_module():
               "cilium_tpu_torch.ct.device", "cilium_tpu_torch.convert",
               "cilium_tpu_torch.engine.datapath6",
               "cilium_tpu_torch.ipcache.lpm6", "cilium_tpu_torch.lb.device6",
-              "cilium_tpu_torch.tunnel"):
+              "cilium_tpu_torch.tunnel", "cilium_tpu_torch.prng",
+              "cilium_tpu_torch.telemetry", "cilium_tpu_torch.metrics",
+              "cilium_tpu_torch.spanstat",
+              "cilium_tpu_torch.monitor.events"):
         assert m in mods
     code = (
         "import importlib, sys\n"
