@@ -68,7 +68,24 @@ launch counts set to 0 just before it and read just after:
              and replay_churn: replay(ct_map=...) over 2 x 2,097,152
              records of pool rows on the wide tables (DATAPATH_STEP,
              CHURN_COMPACT, CT_DELTA), first against the plain loop,
-             then timed.
+             then timed;
+  node, node_lpm  the node-scale worlds (world.node_world: 110
+             endpoints, 1,024 prefilter CIDRs, a 64-backend VIP, CIDR
+             identities over 8 prefix lengths; node_lpm with 4,096 /24
+             CIDR identities), whose tables take the DIR-24-8
+             prefilter, the classic LB and the idx ipcache without L3
+             planes with the [B, P] range scan (node) or a DIR-24-8
+             ipcache (node_lpm): 8 pairs through
+             PersistentPairDispatcher (K = 4, DATAPATH_PAIR), verdicts/s
+             and a traced idle share; before it node_world asserts the
+             layouts and node_check holds DATAPATH_PAIR (2 full pairs)
+             and DATAPATH_STEP's forms (1,048,576 flows) against their
+             plain versions, replay() (2 batches) and int-pick
+             replay_pool (2 x 2,097,152, wide tables) against the plain
+             loops with the snapshot against its mirror, and 512 pool
+             rows against the composed oracle; after it node_timing
+             times both kernels on the world's layouts, and config 5's
+             again in the same run.
 
 The churn path's int picks are drawn on the card by PICK_DRAW, the
 reference's threefry2x32 randint; churn_check also runs 2 int-pick
@@ -102,7 +119,11 @@ also carry their time in overlay mode (`tunnel_ms`, `tunnel_plain_ms`,
 bound with the tunnel map.  DATAPATH_STEP's launches are summed over
 its three paths (churn, replay, replay_churn; `launches_by_path`), and
 its replay modes' times, plain times and bounds are the line
-{"datapath_step_modes": ...} just before.  Then the card's name and
+{"datapath_step_modes": ...} just before.  DATAPATH_PAIR's launches
+are summed over the main path and the two node paths
+(`launches_by_path`); both datapath rows carry `by_layout`: per layout
+instantiation (kernels.layout_name) and world, the time, plain time,
+bytes, operations and bound of node_timing.  Then the card's name and
 power limit as nvidia-smi prints them, then {"ok": true, "device":
 {...}}.
 """
@@ -303,12 +324,57 @@ def needed_bytes(tables, pair, dp, verdict, kernels):
     acc = verdict.make_counter_buffers(tables.policy)
     tel = verdict.make_telemetry_buffers(acc.device)
     rows_b, gathered = table_row_bytes(
-        tables, kernels.READS,
+        tables, kernels.datapath_reads(tables),
         lambda: dp.datapath_pair_plain(tables, pair, acc, tel))
     flows = pair.shape[0] * pair.shape[2]
     total = pair.numel() * 4 + out_bytes_per_flow(dp) * flows
     total += 2 * tel.numel() * 4 + 2 * 4 * int(torch.count_nonzero(acc).item())
     return total + rows_b, gathered / flows
+
+
+def flow_ops(tables):
+    """Integer operations a flow needs, counted low: 16 per hashed word
+    (4 byte steps of shift, mask, xor, multiply) and 4 per row lane
+    compared.  Every flow hashes the CT key (4 words), the ipcache key
+    (1, none with DIR-24-8) and two L4 keys (2 each) and compares a CT
+    row, an ipcache row and two L4 rows; a flow that is not ingress adds
+    6 hashed words (LB service 2, flow 4), the service-scope CT probe
+    and the LB row's slots (2 inline, 32 classic entries).  Returns
+    (per flow, per flow that is not ingress); the [B, P] scan's
+    compares are counted apart (scan_flows)."""
+    from cilium_tpu_torch.ipcache.lpm import IPCacheDevice
+    from cilium_tpu_torch.lb.device import LBTables
+
+    pol, ipc, ct = tables.policy, tables.ipcache, tables.ct
+    ct_e = ct.buckets.shape[1] // ct.entry_words
+    l4_e = pol.l4_hash_rows.shape[1] // pol.l4_hash_stash.shape[1]
+    if isinstance(ipc, IPCacheDevice):
+        words = 1
+        lanes = ipc.bucket_entries or (32 if ipc.l3_planes else 64)
+    else:
+        words, lanes = 0, 0
+    lb = 32 if isinstance(tables.lb, LBTables) else 2
+    return (16 * (8 + words) + 4 * (ct_e + lanes + 2 * l4_e),
+            16 * 6 + 4 * (ct_e + lb))
+
+
+def scan_ops(tables, flows, out) -> int:
+    """The [B, P] scan's operations for these flows: 2 (mask, compare)
+    per range for each flow whose peer misses the exact ipcache table;
+    0 with range classes or DIR-24-8."""
+    from cilium_tpu_torch.device import widen
+    from cilium_tpu_torch.engine.hashtable import fnv1a
+    from cilium_tpu_torch.ipcache import lpm
+
+    ipc = tables.ipcache
+    if not isinstance(ipc, lpm.IPCacheDevice) or ipc.range_rows is not None:
+        return 0
+    ing = flows.direction == 0
+    peer = torch.where(ing, widen(flows.saddr), widen(out.final_daddr))
+    rows = ipc.buckets[fnv1a(peer[:, None]) & (ipc.n_buckets - 1)]
+    found = (lpm.ipcache_bucket_parts(ipc, rows, peer, ing)[0]
+             | lpm.ipcache_stash_parts(ipc, peer, ing)[0])
+    return 2 * int(ipc.range_base.shape[0]) * int((~found).sum())
 
 
 def table_leaves(tables):
@@ -1052,19 +1118,14 @@ def churn_timing(kernels, tables, chk, counts) -> list:
     step_plain = event_ms(lambda: dp.datapath_step_plain(
         tables, dp.flow_batch_from_packed(pool[:, picks.long()])), 3)
     rows_b, gathered = table_row_bytes(
-        tables, kernels.READS + (("policy", "id_table"),),
+        tables, kernels.datapath_reads(tables) + (("policy", "id_table"),),
         lambda: dp.datapath_step_plain(tables, flows))
     distinct = int(torch.unique(picks).numel())
     step_bytes = b * (4 + out_bytes_per_flow(dp)) + distinct * 32 + rows_b
-    # integer operations, counted low as for the pair: 16 per hashed word
-    # and 4 per row lane compared; a flow that is not ingress adds the LB
-    # and service-scope probes
-    pol, ipc, ct = tables.policy, tables.ipcache, tables.ct
-    ct_e = ct.buckets.shape[1] // ct.entry_words
-    l4_e = pol.l4_hash_rows.shape[1] // pol.l4_hash_stash.shape[1]
-    per_flow = 16 * 9 + 4 * (ct_e + (ipc.bucket_entries or 32) + 2 * l4_e)
+    # integer operations, counted low as for the pair (flow_ops)
+    per_flow, egress_ops = flow_ops(tables)
     not_in = int((flows.direction != 0).sum())
-    step_ops = per_flow * b + (16 * 6 + 4 * (ct_e + 2)) * not_in
+    step_ops = per_flow * b + egress_ops * not_in
     # CHURN_COMPACT: every row's flags, allowed byte and proxy port; a
     # flagged row's final address and port, pick and pool words; a
     # winner's rev_nat and slave; the intents and header written
@@ -1781,11 +1842,8 @@ def step_form_timing(kernels, tables, flows) -> dict:
     t = time.perf_counter()
     pack = dp.pack_flow_batch(flows)
     b = int(pack.shape[1])
-    pol, ipc, ct = tables.policy, tables.ipcache, tables.ct
-    ct_e = ct.buckets.shape[1] // ct.entry_words
-    l4_e = pol.l4_hash_rows.shape[1] // pol.l4_hash_stash.shape[1]
-    per_flow = 16 * 9 + 4 * (ct_e + (ipc.bucket_entries or 32) + 2 * l4_e)
-    egress_ops = 16 * 6 + 4 * (ct_e + 2)
+    pol = tables.policy
+    per_flow, egress_ops = flow_ops(tables)
     acc = verdict.make_counter_buffers(pol)
     tel = verdict.make_telemetry_buffers("cuda")
     modes = {}
@@ -1805,7 +1863,8 @@ def step_form_timing(kernels, tables, flows) -> dict:
             fresh["acc"] = verdict.make_counter_buffers(pol)
         if "telem" in kw:
             fresh["telem"] = verdict.make_telemetry_buffers("cuda")
-        leaves = kernels.READS + ((("policy", "id_table"),) if emit else ())
+        leaves = kernels.datapath_reads(tables) + (
+            (("policy", "id_table"),) if emit else ())
         rows_b, _ = table_row_bytes(
             tables, leaves, lambda: step_plain(tables, pack, None, **fresh))
         need = b * (32 + out_bytes_per_flow(dp)) + rows_b
@@ -2335,6 +2394,430 @@ def config6_phases(kernels, w, tables, wide_t, rows) -> None:
     rows.append(row)
 
 
+# -- node-scale worlds: the datapath's remaining table layouts -------------------
+
+NODE_WORLDS = ("node", "node_lpm")
+
+
+def node_world_phase(kernels, label: str) -> dict:
+    """Build world.node_world (node_lpm: lpm=True) at full width, its
+    headline (sub-word, hot plane) and wide tables on the card, and
+    assert the layout each plane took: the DIR-24-8 prefilter, the
+    classic LB, and the idx ipcache without L3 planes and with the
+    [B, P] scan (node) or the DIR-24-8 ipcache (node_lpm)."""
+    from cilium_tpu_torch import world
+    from cilium_tpu_torch.compiler.tables import split_hot
+    from cilium_tpu_torch.convert import tables_to
+    from cilium_tpu_torch.engine import datapath as dp
+    from cilium_tpu_torch.ipcache.lpm import IPCacheDevice, LPMTables
+    from cilium_tpu_torch.lb.device import LBTables
+
+    t = time.perf_counter()
+    w = world.node_world(lpm=label == "node_lpm")
+    wide = w.host_tables()
+    host = dp.subword_datapath_tables(wide)  # raises if a plane does not fit
+    host.policy = split_hot(host.policy)
+    ipc = host.ipcache
+    layout = {
+        "prefilter": type(host.prefilter).__name__,
+        "prefilter_cidrs": len(w.prefilter_cidrs),
+        "lb": type(host.lb).__name__,
+        "ipcache": type(ipc).__name__,
+        "ipcache_l3_planes": getattr(ipc, "l3_planes", None),
+        "ipcache_range_classes": getattr(ipc, "range_rows", None) is not None,
+        "ranges": (int(ipc.range_base.shape[0])
+                   if isinstance(ipc, IPCacheDevice) else None),
+    }
+    want_ipc = (isinstance(ipc, LPMTables) if label == "node_lpm" else (
+        isinstance(ipc, IPCacheDevice) and ipc.values_are_idx
+        and not ipc.l3_planes and ipc.range_rows is None))
+    if not (isinstance(host.prefilter, LPMTables)
+            and isinstance(host.lb, LBTables) and want_ipc):
+        raise SystemExit(f"{label}: a plane took another layout: {layout}")
+    wide_t = tables_to(
+        dataclasses.replace(wide, policy=split_hot(wide.policy)), "cuda")
+    tables = tables_to(host, "cuda")
+    del wide, host
+    nbytes = sum(v.numel() * v.element_size()
+                 for _, v in table_leaves(tables))
+    names = {"headline": kernels.datapath_layout(tables),
+             "wide": kernels.datapath_layout(wide_t)}
+    phase("node_world", t, world=label, **w.meta, table_bytes=nbytes,
+          layout=json.dumps(layout), kernel_layouts=json.dumps(names))
+    return dict(w=w, tables=tables, wide_t=wide_t, layout=names["headline"],
+                wide_layout=names["wide"])
+
+
+def oracle_mismatches(w, tables, rows) -> tuple:
+    """ORACLE_ROWS pool rows through read_flow_batches and datapath_step
+    against composed_oracle and its stages.  The oracle's sec_id is the
+    raw identity; the idx-form ipcache gives an identity outside the
+    policy universe the parking index's identity id_table[N - 1] (the
+    reference's specialize_ipcache_to_idx), so there the expected sec_id
+    is that.  Returns (mismatched rows, stages)."""
+    from cilium_tpu_torch import replay as rp
+    from cilium_tpu_torch import world
+    from cilium_tpu_torch.engine import datapath as dp
+    from cilium_tpu_torch.engine.hostpath import composed_oracle
+    from cilium_tpu_torch.ipcache.lpm import IPCacheDevice
+
+    flows, _ = next(rp.read_flow_batches(world.pool_records(w, rows),
+                                         len(rows)))
+    out = dp.datapath_step(tables, flows)
+    allow, proxy, sec, stages = composed_oracle(
+        world.oracle_context(w), w.states, w.pool, list(rows),
+        return_stages=True)
+    known = np.isin(sec, np.asarray(w.identity_ids, np.uint32))
+    stages["outside_universe"] = ~known
+    if isinstance(tables.ipcache, IPCacheDevice) and (
+            tables.ipcache.values_are_idx):
+        id_table = tables.policy.id_table.cpu().numpy().view(np.uint32)
+        sec = np.where(known, sec, id_table[-1])
+    got = {c: getattr(out, c).cpu().numpy() for c in dp.VERDICT_COLUMNS}
+    bad = ((got["allowed"] != allow) | (got["proxy_port"] != proxy)
+           | (got["sec_id"].view(np.uint32) != sec)
+           | (got["pre_dropped"] != stages["pre_drop"])
+           | (got["ct_result"] != stages["ct_res"])
+           | (got["match_kind"] != stages["match_kind"])
+           | (got["ipcache_miss"] != stages["ipcache_miss"])
+           | ((got["lb_slave"] > 0) != stages["lb_hit"]))
+    return int(bad.sum()), stages
+
+
+def node_check(kernels, label: str, nw: dict) -> int:
+    """0 differences required everywhere: DATAPATH_PAIR over 2 pairs of
+    2 x 2,097,152 flows and DATAPATH_STEP's forms over 1,048,576 flows
+    against their plain versions on the card (15 columns, counters,
+    telemetry); replay() over 2 batches and replay_pool with 2 int-pick
+    batches of 2,097,152 on the wide tables against the plain loops (CT
+    entries, snapshots, and the snapshot against its host mirror); 512
+    pool rows against the composed oracle.  Returns the worst error."""
+    from cilium_tpu_torch import replay as rp
+    from cilium_tpu_torch import world
+    from cilium_tpu_torch.engine import datapath as dp
+    from cilium_tpu_torch.engine import verdict
+
+    w, tables, wide_t = nw["w"], nw["tables"], nw["wide_t"]
+    t = time.perf_counter()
+    err_pair = check_pairs(tables, w.pairs(seed=51, half=HALF, k=2), kernels,
+                           dp, verdict)
+    flows, _, _ = forms_flows(w, FORMS_FLOWS, seed=53)
+    errs = {}
+    for name, _, _ in STEP_FORMS:
+        k, p = run_form(dp, verdict, tables, flows, name)
+        errs[name] = forms_err(dp, k, p)
+        del k, p
+    torch.cuda.synchronize()
+    buf = world.lattice_records(w, 2 * REPLAY_BATCH, seed=55)
+    k = replay_run(tables, buf, REPLAY_BATCH)
+    with PlainRoute(kernels, {"DATAPATH_STEP": step_plain}):
+        p = replay_run(tables, buf, REPLAY_BATCH)
+    same_replay = (all(getattr(k[0], f) == getattr(p[0], f)
+                       for f in REPLAY_FIELDS)
+                   and np.array_equal(k[1], p[1])
+                   and np.array_equal(k[2], p[2])
+                   and np.array_equal(k[0].telemetry, p[0].telemetry)
+                   and k[3] == p[3])
+    maps = [pinned_ct(w.ct), pinned_ct(w.ct)]
+    s_k = rp.replay_pool(wide_t, dict(w.pool), 2 * CHURN_BATCH, CHURN_BATCH,
+                         ct_map=maps[0], device="cuda")
+    with PlainRoute(kernels, churn_plain()):
+        s_p = rp.replay_pool(wide_t, dict(w.pool), 2 * CHURN_BATCH,
+                             CHURN_BATCH, ct_map=maps[1], device="cuda")
+    torch.cuda.synchronize()
+    same_pool = same_loops(maps, (s_k, s_p))
+    index, snap, _ = maps[0]._device_churn_cache
+    full = index.full_snapshot()
+    mirror_err = max(
+        int_err(snap.buckets.cpu(), torch.from_numpy(
+            full.buckets.view(np.int32)), True),
+        int_err(snap.stash.cpu(), torch.from_numpy(
+            full.stash.view(np.int32)), True))
+    rows = np.random.default_rng(57).integers(0, len(w.pool["saddr"]),
+                                              ORACLE_ROWS)
+    bad, stages = oracle_mismatches(w, tables, rows)
+    err = max(err_pair, max(errs.values()))
+    phase("node_check", t, world=label, pair_max_abs_err=err_pair,
+          forms_max_abs_err=errs, replay_equal_to_plain=same_replay,
+          replay_records=k[0].total, pool_equal_to_plain=same_pool,
+          pool_stats=stats_fields(s_k), snapshot_vs_mirror_err=mirror_err,
+          oracle_rows=ORACLE_ROWS, oracle_mismatches=bad,
+          oracle_lb_hits=int(stages["lb_hit"].sum()),
+          oracle_pre_drops=int(stages["pre_drop"].sum()),
+          oracle_ipcache_misses=int(stages["ipcache_miss"].sum()),
+          oracle_outside_universe=int(stages["outside_universe"].sum()))
+    if (err or not same_replay or not same_pool or mirror_err or bad
+            or s_k.ct_created == 0):
+        raise SystemExit(f"node_check ({label}): a kernel differs from its "
+                         f"plain version, or the oracle disagrees")
+    return err
+
+
+def node_path(kernels, label: str, nw: dict) -> dict:
+    """The node world's pair path: N_PAIRS pairs of 2 x 2,097,152 flows
+    through PersistentPairDispatcher (K = PERSIST_K), the launch counts
+    set to 0 just before and read just after; its outputs against the
+    plain version; then one traced run of the same loop for the device's
+    idle share, and one with CUDA events around each pair's copy and
+    kernel (the device's busy time without the profiler)."""
+    from cilium_tpu_torch.device import u32_tensor
+    from cilium_tpu_torch.engine import datapath as dp
+    from cilium_tpu_torch.engine import verdict
+
+    w, tables = nw["w"], nw["tables"]
+    pairs = w.pairs(seed=59, half=HALF, k=N_PAIRS)
+    acc = verdict.make_counter_buffers(tables.policy)
+    tel = verdict.make_telemetry_buffers(acc.device)
+    disp = dp.PersistentPairDispatcher(tables, PERSIST_K, acc, tel)
+    torch.cuda.synchronize()
+    reset_counts(kernels)
+    t = time.perf_counter()
+    results = []
+    for p in pairs:
+        results.extend(disp.submit(p))
+    rem, acc, tel = disp.flush()
+    results.extend(rem)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    launches = kernels.DATAPATH_PAIR.launches
+    others = {k.name: k.launches for k in kernels.KERNELS
+              if k.launches and k is not kernels.DATAPATH_PAIR}
+    flows = N_PAIRS * 2 * HALF
+    acc_p = verdict.make_counter_buffers(tables.policy)
+    tel_p = verdict.make_telemetry_buffers(acc_p.device)
+    err = 0
+    for p, got in zip(pairs, results):
+        pt = torch.from_numpy(p.view(np.int32)).cuda()
+        pi, pe, acc_p, tel_p = dp.datapath_pair_plain(tables, pt, acc_p, tel_p)
+        err = max(err, compare(got, (pi, pe), dp))
+    torch.cuda.synchronize()
+    err = max(err, buf_err(acc, acc_p), buf_err(tel, tel_p))
+    telem = (tel.cpu().to(torch.int64) & 0xFFFFFFFF).sum(dim=0).tolist()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    disp_t = dp.PersistentPairDispatcher(
+        tables, PERSIST_K, verdict.make_counter_buffers(tables.policy),
+        verdict.make_telemetry_buffers(acc.device))
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=acts) as prof:
+        t1 = time.perf_counter()
+        for p in pairs:
+            disp_t.submit(p)
+        disp_t.flush()
+        torch.cuda.synchronize()
+        traced_ms = (time.perf_counter() - t1) * 1e3
+    busy = device_busy(prof)
+    busy_ms = sum(busy.values())
+    for key, ms in sorted(busy.items(), key=lambda kv: -kv[1])[:4]:
+        print(f"  device {ms:.3f} ms  {key[:90]}", flush=True)
+    # the same loop timed by CUDA events: each pair's copy and kernel
+    # bracketed on the stream (the profiler's later sessions in one
+    # process can miss device rows)
+    marks = []
+    acc_e = verdict.make_counter_buffers(tables.policy)
+    tel_e = verdict.make_telemetry_buffers(acc.device)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    for p in pairs:
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        _, _, acc_e, tel_e = dp.datapath_step_accum_pair_telem_packed4_stacked(
+            tables, u32_tensor(p, acc_e.device), acc_e, tel_e)
+        end.record()
+        marks.append((start, end))
+    torch.cuda.synchronize()
+    events_wall_ms = (time.perf_counter() - t1) * 1e3
+    events_busy_ms = sum(a.elapsed_time(b) for a, b in marks)
+    phase("node", t, world=label, pairs=N_PAIRS, k=PERSIST_K,
+          launches=launches, verdicts_per_s=round(flows / wall),
+          wall_s=round(wall, 6), max_abs_err=err,
+          traced_wall_ms=round(traced_ms, 3), device_busy_ms=round(busy_ms, 3),
+          device_idle_share=round(1 - busy_ms / traced_ms, 4),
+          events_wall_ms=round(events_wall_ms, 3),
+          events_busy_ms=round(events_busy_ms, 3),
+          events_idle_share=round(1 - events_busy_ms / events_wall_ms, 4),
+          telemetry=json.dumps(dict(zip(verdict.TELEM_NAMES, telem))))
+    if (launches != N_PAIRS or others or len(results) != N_PAIRS or err
+            or telem[verdict.TELEM_TOTAL] != flows):
+        raise SystemExit(f"node ({label}): {launches} launches for "
+                         f"{N_PAIRS} pairs, others {others}, error {err}")
+    return dict(launches=launches, err=err)
+
+
+def datapath_timing(kernels, tables, wide_t, pair, pool, picks) -> dict:
+    """DATAPATH_PAIR on one full pair (headline tables) and DATAPATH_STEP
+    on CHURN_BATCH pool picks (wide tables): CUDA events over 20
+    launches, the plain version's time, and each bound: the bytes this
+    run's data needs (needed_bytes' count: the stream once, each
+    distinct table row or word the flows select once, stashes and scan
+    ranges whole, changed counters read and written) at 3.35 TB/s, or
+    the operations (flow_ops, scan_ops) at 67 T/s, whichever is larger.
+    Scratch carries; launches not counted."""
+    from cilium_tpu_torch.engine import datapath as dp
+    from cilium_tpu_torch.engine import verdict
+
+    acc = verdict.make_counter_buffers(tables.policy)
+    tel = verdict.make_telemetry_buffers(acc.device)
+    pair_ms = event_ms(lambda: kernels.DATAPATH_PAIR(tables, pair, acc, tel),
+                       20)
+    pair_plain = event_ms(
+        lambda: dp.datapath_pair_plain(tables, pair, acc, tel), 3)
+    pair_bytes, per_flow_rows = needed_bytes(tables, pair, dp, verdict,
+                                             kernels)
+    per_flow, egress = flow_ops(tables)
+    half = int(pair.shape[2])
+    halves = [dp.flow_batch_from_packed4(pair[h]) for h in (0, 1)]
+    outs = dp.datapath_pair_plain(tables, pair, acc.clone(), tel.clone())
+    pair_ops = per_flow * 2 * half + egress * half + sum(
+        scan_ops(tables, f, o) for f, o in zip(halves, outs[:2]))
+    b = int(picks.numel())
+    flows = dp.flow_batch_from_packed(pool[:, picks.long()])
+    step_ms = event_ms(lambda: kernels.DATAPATH_STEP(wide_t, pool, picks), 20)
+    step_plain = event_ms(lambda: dp.datapath_step_plain(
+        wide_t, dp.flow_batch_from_packed(pool[:, picks.long()])), 3)
+    rows_b, _ = table_row_bytes(
+        wide_t, kernels.datapath_reads(wide_t) + (("policy", "id_table"),),
+        lambda: dp.datapath_step_plain(wide_t, flows))
+    step_bytes = (b * (4 + out_bytes_per_flow(dp))
+                  + int(torch.unique(picks).numel()) * 32 + rows_b)
+    out = dp.datapath_step_plain(wide_t, flows)
+    per_flow, egress = flow_ops(wide_t)
+    step_ops = (per_flow * b + egress * int((flows.direction != 0).sum())
+                + scan_ops(wide_t, flows, out))
+
+    def row(ms, plain, nb, ops):
+        bb, bo = nb / HBM_BYTES_PER_S * 1e3, ops / OPS_PER_S * 1e3
+        return dict(ms=round(ms, 4), plain_ms=round(plain, 4), bytes=nb,
+                    ops=ops, bound_ms=round(max(bb, bo), 6),
+                    bound_by="bytes" if bb >= bo else "operations")
+
+    return dict(pair=row(pair_ms, pair_plain, pair_bytes, pair_ops),
+                pair_row_bytes_per_flow=round(per_flow_rows, 2),
+                step=row(step_ms, step_plain, step_bytes, step_ops))
+
+
+def plane_timing(kernels, w5, tables5, pair, node_prefilter) -> dict:
+    """DATAPATH_PAIR on config 5's headline tables with one plane at a
+    time in a node layout, on the same full pair: the node world's
+    DIR-24-8 prefilter; config 5's services in the classic LB; its
+    ipcache without range classes (the [B, P] scan over its ranges);
+    its ipcache map as DIR-24-8 (the generic branch).  Each against its
+    plain version on that pair (0 differences), then its time, plain
+    time and bound as datapath_timing counts them."""
+    from cilium_tpu_torch.convert import plane_to
+    from cilium_tpu_torch.engine import datapath as dp
+    from cilium_tpu_torch.engine import verdict
+    from cilium_tpu_torch.ipcache.lpm import build_lpm
+    from cilium_tpu_torch.lb.device import compile_lb_classic
+
+    variants = {
+        "prefilter dir24_8": dataclasses.replace(
+            tables5, prefilter=node_prefilter),
+        "lb classic": dataclasses.replace(
+            tables5, lb=plane_to(compile_lb_classic(w5.mgr), "cuda")),
+        "ipcache scan": dataclasses.replace(
+            tables5, ipcache=dataclasses.replace(tables5.ipcache,
+                                                 range_rows=None)),
+        "ipcache dir24_8": dataclasses.replace(
+            tables5, ipcache=plane_to(build_lpm(w5.ipc_map), "cuda")),
+    }
+    out = {}
+    for name, tabs in variants.items():
+        acc = verdict.make_counter_buffers(tabs.policy)
+        tel = verdict.make_telemetry_buffers(acc.device)
+        k = kernels.DATAPATH_PAIR(tabs, pair, acc.clone(), tel.clone())
+        p = dp.datapath_pair_plain(tabs, pair, acc.clone(), tel.clone())
+        err = max(compare(k[:2], p[:2], dp), buf_err(k[2], p[2]),
+                  buf_err(k[3], p[3]))
+        ms = event_ms(lambda: kernels.DATAPATH_PAIR(tabs, pair, acc, tel), 20)
+        plain = event_ms(lambda: dp.datapath_pair_plain(tabs, pair, acc, tel),
+                         3)
+        nb, _ = needed_bytes(tabs, pair, dp, verdict, kernels)
+        per_flow, egress = flow_ops(tabs)
+        half = int(pair.shape[2])
+        halves = [dp.flow_batch_from_packed4(pair[h]) for h in (0, 1)]
+        ops = per_flow * 2 * half + egress * half + sum(
+            scan_ops(tabs, f, o) for f, o in zip(halves, p[:2]))
+        bb, bo = nb / HBM_BYTES_PER_S * 1e3, ops / OPS_PER_S * 1e3
+        out[name] = dict(layout=kernels.datapath_layout(tabs),
+                         max_abs_err=err, ms=round(ms, 4),
+                         plain_ms=round(plain, 4), bytes=nb, ops=ops,
+                         bound_ms=round(max(bb, bo), 6),
+                         bound_by="bytes" if bb >= bo else "operations")
+    return out
+
+
+def node_phases(kernels, w5, tables5, wide5, rows) -> None:
+    """Both node worlds (node_world, node_check, node, node_timing), then
+    config 5's DATAPATH_PAIR and DATAPATH_STEP timed again in the same
+    run, and the pair with one node-layout plane at a time
+    (node_planes); the results go into the two kernels' rows: launches
+    of each world's path (`launches_by_path`), the worst error, per
+    layout instantiation the time, plain time and bound (`by_layout`),
+    and per swapped plane (`by_plane`)."""
+    from cilium_tpu_torch.convert import flow_pool_to
+
+    timing, launches, err = {}, {}, 0
+    for label in NODE_WORLDS:
+        nw = node_world_phase(kernels, label)
+        err = max(err, node_check(kernels, label, nw))
+        run = node_path(kernels, label, nw)
+        launches[label] = run["launches"]
+        t = time.perf_counter()
+        w = nw["w"]
+        pair = torch.from_numpy(w.pairs(seed=61, half=HALF, k=1)[0].view(
+            np.int32)).cuda()
+        pool = flow_pool_to(w.pool, "cuda")
+        gen = torch.Generator(device="cuda").manual_seed(63)
+        picks = torch.randint(0, pool.shape[1], (CHURN_BATCH,), generator=gen,
+                              device="cuda", dtype=torch.int32)
+        res = datapath_timing(kernels, nw["tables"], nw["wide_t"], pair, pool,
+                              picks)
+        timing[label] = dict(res, pair_layout=nw["layout"],
+                             step_layout=nw["wide_layout"])
+        if label == "node":
+            node_prefilter = nw["tables"].prefilter
+        phase("node_timing", t, world=label, **{
+            k: json.dumps(v) if isinstance(v, dict) else v
+            for k, v in timing[label].items()})
+        del nw, pair, pool, picks
+        torch.cuda.empty_cache()
+    # config 5 again, in the same run as the node worlds
+    t = time.perf_counter()
+    pair = torch.from_numpy(w5.pairs(seed=41, half=HALF, k=1)[0].view(
+        np.int32)).cuda()
+    pool = flow_pool_to(w5.pool, "cuda")
+    gen = torch.Generator(device="cuda").manual_seed(77)
+    picks = torch.randint(0, pool.shape[1], (CHURN_BATCH,), generator=gen,
+                          device="cuda", dtype=torch.int32)
+    res = datapath_timing(kernels, tables5, wide5, pair, pool, picks)
+    timing["config5"] = dict(res,
+                             pair_layout=kernels.datapath_layout(tables5),
+                             step_layout=kernels.datapath_layout(wide5))
+    phase("node_timing", t, world="config5", **{
+        k: json.dumps(v) if isinstance(v, dict) else v
+        for k, v in timing["config5"].items()})
+    t = time.perf_counter()
+    planes = plane_timing(kernels, w5, tables5, pair, node_prefilter)
+    phase("node_planes", t, **{k: json.dumps(v) for k, v in planes.items()})
+    err = max([err] + [v["max_abs_err"] for v in planes.values()])
+    for r in rows:
+        if r["name"] in (kernels.DATAPATH_PAIR.name,
+                         kernels.DATAPATH_STEP.name):
+            key = "pair" if r["name"] == kernels.DATAPATH_PAIR.name else "step"
+            r["by_layout"] = {
+                f"{tm[key + '_layout']} ({label})": tm[key]
+                for label, tm in timing.items()}
+            r["max_abs_err"] = max(r["max_abs_err"], err)
+        if r["name"] == kernels.DATAPATH_PAIR.name:
+            r["by_plane"] = {k: {f: v[f] for f in (
+                "layout", "ms", "plain_ms", "bound_ms", "bound_by")}
+                for k, v in planes.items()}
+            r["launches_by_path"] = {"main": r["launches"], **launches}
+            r["launches"] = sum(r["launches_by_path"].values())
+
+
 def device_busy(prof) -> dict:
     """Device time per kernel or copy from a profiler run, each once (a
     host op such as aten::copy_ also reports its copy's device time)
@@ -2530,18 +3013,8 @@ def main() -> int:
     bytes_moved, gathered_per_flow = needed_bytes(
         tables, pair_dev, dp, verdict, kernels
     )
-    # integer operations the flows need, counted low: 16 per hashed word
-    # (4 byte steps of shift, mask, xor, multiply) and 4 per row lane
-    # compared; every flow hashes 9 words (CT 4, ipcache 1, two L4
-    # probes 2 each) and compares a CT row, an ipcache row and two L4
-    # rows; an egress flow adds 6 hashed words (LB service 2, flow 4),
-    # the service-scope CT probe and the LB row's 2 slots
-    pol, ipc, ct = tables.policy, tables.ipcache, tables.ct
-    ct_e = ct.buckets.shape[1] // 4
-    per_flow_ops = 16 * 9 + 4 * (
-        ct_e + ipc.bucket_entries + 2 * (pol.l4_hash_rows.shape[1] // 2)
-    )
-    egress_ops = 16 * 6 + 4 * (ct_e + 2)
+    # integer operations the flows need, counted low (flow_ops)
+    per_flow_ops, egress_ops = flow_ops(tables)
     ops = per_flow_ops * b2 + egress_ops * HALF
     bound_bytes_ms = bytes_moved / HBM_BYTES_PER_S * 1e3
     bound_ops_ms = ops / OPS_PER_S * 1e3
@@ -2589,6 +3062,8 @@ def main() -> int:
     config6_phases(kernels, w, tables, wide_t, rows)
     torch.cuda.empty_cache()
     replay_phases(kernels, w, tables, wide_t, rows)
+    torch.cuda.empty_cache()
+    node_phases(kernels, w, tables, wide_t, rows)
 
     print("[library] library_ms is null except for ct_delta "
           "(index_copy_) and pick_draw (torch.randint on the same shape: "

@@ -32,17 +32,18 @@ from cilium_tpu_torch.engine.datapath6 import (
 )
 from cilium_tpu_torch.ipcache.lpm import IPCacheDevice, LPMTables
 from cilium_tpu_torch.ipcache.lpm6 import IPCache6Device
-from cilium_tpu_torch.lb.device import LBInline
+from cilium_tpu_torch.lb.device import LBInline, LBTables
 from cilium_tpu_torch.lb.device6 import LB6Inline
 from cilium_tpu_torch.prefilter import PrefilterRanges
 from cilium_tpu_torch.tunnel import TunnelTables, TunnelTables6
 
-# (plane, class, may be None) of each table set
+# (plane, class or classes, may be None) of each table set; of several
+# classes a plane takes the first whose required leaves are all given
 _PLANES = (
-    ("prefilter", PrefilterRanges, False),
-    ("ipcache", IPCacheDevice, False),
+    ("prefilter", (PrefilterRanges, LPMTables), False),
+    ("ipcache", (IPCacheDevice, LPMTables), False),
     ("ct", CTSnapshot, False),
-    ("lb", LBInline, False),
+    ("lb", (LBInline, LBTables), False),
     ("policy", PolicyTables, False),
     ("tunnel", TunnelTables, True),
 )
@@ -120,6 +121,10 @@ def _planes_from_numpy(leaves: dict, planes) -> dict:
                 raise KeyError(f"{name} missing")
             out[name] = None
             continue
+        if isinstance(cls, tuple):
+            cls = next((c for c in cls if all(
+                f.name in src for f in dataclasses.fields(c)
+                if f.default is dataclasses.MISSING)), cls[0])
         kwargs = {}
         for f in dataclasses.fields(cls):
             if f.name in src:
@@ -137,12 +142,13 @@ def _planes_from_numpy(leaves: dict, planes) -> dict:
 def tables_from_numpy(leaves: dict, device=None) -> DatapathTables:
     """Build the port's tables from a dict of planes, each a dict of
     leaf name -> numpy array or Python scalar, keyed as the JAX
-    package's table fields are: {"prefilter": {base, mask},
-    "ipcache": {buckets, stash, range_*, n_buckets, values_are_idx,
-    world_plus1, l3_planes, world_l3_*, range_rows,
+    package's table fields are: {"prefilter": {base, mask} or the
+    DIR-24-8 {l1, l2}, "ipcache": {buckets, stash, range_*, n_buckets,
+    values_are_idx, world_plus1, l3_planes, world_l3_*, range_rows,
     range_class_plens, bucket_entries, value_width, l3_width,
-    range_widths}, "ct": {buckets, stash, n_buckets, entry_words},
-    "lb": {rows, stash, n_buckets}, "policy": {id_table, ...},
+    range_widths} or {l1, l2}, "ct": {buckets, stash, n_buckets,
+    entry_words}, "lb": {rows, stash, n_buckets} (inline) or {buckets,
+    stash, backend_rows, n_buckets} (classic), "policy": {id_table, ...},
     "tunnel": {base, mask, endpoint} or None}.  Leaves the port does not
     carry (the policy `generation` stamp) are ignored; a missing leaf
     the port needs raises."""

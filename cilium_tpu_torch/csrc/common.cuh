@@ -1,12 +1,32 @@
-// Shared pieces of the fused datapath kernels: the launch arguments,
-// FNV-1a (engine/hashtable.py), the masked-range match of the prefilters,
-// the v6 ipcache ranges and the tunnel maps, and the sub-word lane unpack
-// (engine/subword.py).
+// Shared pieces of the fused datapath kernels: the launch arguments and
+// their table layouts, FNV-1a (engine/hashtable.py), the masked-range
+// match of the prefilters, the v6 ipcache ranges and the tunnel maps, the
+// sub-word lane unpack (engine/subword.py) and the DIR-24-8 lookup
+// (ipcache/lpm.py lpm_lookup_plain) of the CIDR path, the large
+// prefilter and the range-heavy ipcache.
 #pragma once
 
 #include <cstdint>
 
 namespace cdp {
+
+// The table layouts of the v4 datapath, one template parameter per
+// plane (kernels.py _fill_tables picks the instantiation):
+//   prefilter  PF_RANGES the (base, mask) compare list, PF_LPM DIR-24-8
+//   LB         LB_INLINE one row per service slot, LB_CLASSIC bucket
+//              entries plus a backend row
+//   ipcache    IPC_IDX_PLANES idx values with per-endpoint L3 words (at
+//              most 32 endpoints), IPC_IDX idx values alone (probe 2
+//              reads l3_allow_bits), IPC_GENERIC raw identities (the
+//              lattice resolves the index through id_direct), from a
+//              bucketized table or from DIR-24-8 (ipc_l1 not null)
+// The ipcache's non-/32 ranges are hashed classes (ipc_range_rows not
+// null) or the [B, P] scan (range_base not null), a runtime choice:
+// both run only on an exact miss.
+constexpr int PF_RANGES = 0, PF_LPM = 1;
+constexpr int LB_INLINE = 0, LB_CLASSIC = 1;
+constexpr int IPC_IDX_PLANES = 0, IPC_IDX = 1, IPC_GENERIC = 2;
+constexpr int N_LAYOUTS = 2 * 2 * 3;  // layout = PF + 2 LB + 4 IPC
 
 // Every table leaf is a u32 word array (int32 tensors holding the same
 // bits on the PyTorch side).  The field order here is the ctypes
@@ -113,6 +133,42 @@ struct DatapathArgs {
   // and the telemetry
   int32_t static_dir;
   int32_t emit_sec_id;
+  // the instantiation (PF + 2 LB + 4 IPC, see above)
+  int32_t layout;
+  // PF_LPM: the prefilter's DIR-24-8 tables (l1 [2^24], l2 [pf_blocks,
+  // 256]); a nonzero lookup drops
+  const uint32_t* pf_l1;
+  const uint32_t* pf_l2;
+  int32_t pf_blocks;
+  // LB_CLASSIC: lb_rows are the service bucket rows [lb_nb, 128] of 32
+  // planar 4-word entries, lb_stash the [lb_stash_n, 4] entries, and
+  // these the backend rows [lb_backend_n, 128]
+  const uint32_t* lb_backends;
+  int32_t lb_backend_n;
+  // the ipcache stash's columns (4 with L3 words, else 2)
+  int32_t ipc_stash_w;
+  // IPC_GENERIC from DIR-24-8: ipc_l1 [2^24], ipc_l2 [ipc_blocks, 256]
+  const uint32_t* ipc_l1;
+  const uint32_t* ipc_l2;
+  int32_t ipc_blocks;
+  // the [B, P] range scan (range_base not null): n_ranges ranges, stored
+  // plen + 1, values, and with L3 planes the per-endpoint words; staged
+  // in shared memory per block
+  const uint32_t* range_base;
+  const uint32_t* range_mask;
+  const uint32_t* range_plen;
+  const uint32_t* range_value;
+  const uint32_t* range_l3_in;
+  const uint32_t* range_l3_out;
+  int32_t n_ranges;
+  // probe 2 without L3 planes: l3_allow_bits [n_eps, 2, n_words]; and
+  // IPC_GENERIC's identity -> index table id_direct [direct_n] (two
+  // regions split at lo_len)
+  const uint32_t* l3_allow;
+  const uint32_t* id_direct;
+  int32_t n_words;
+  int32_t direct_n;
+  uint32_t lo_len;
 };
 
 constexpr uint32_t FNV_OFFSET = 2166136261u;
@@ -170,6 +226,21 @@ __device__ __forceinline__ uint32_t unpack_lane(const uint32_t* plane, int k,
 __device__ __forceinline__ int lanes_for(int entries, int width) {
   const int per = 32 / width;
   return (entries + per - 1) / per;
+}
+
+constexpr uint32_t BLOCK_FLAG = 1u << 31;
+
+// DIR-24-8: l1[ip >> 8], and for a block cell l2[block, ip & 0xFF] (the
+// block row clamps, as an XLA gather does); 0 = no entry.
+__device__ __forceinline__ uint32_t dir24_8(const uint32_t* l1,
+                                            const uint32_t* l2, int n_blocks,
+                                            uint32_t ip) {
+  const uint32_t v1 = __ldg(l1 + (ip >> 8));
+  if (!(v1 & BLOCK_FLAG)) return v1;
+  const uint32_t last = static_cast<uint32_t>(n_blocks - 1);
+  const uint32_t b = v1 & ~BLOCK_FLAG;
+  return __ldg(l2 + static_cast<size_t>(b < last ? b : last) * 256 +
+               (ip & 0xFFu));
 }
 
 }  // namespace cdp

@@ -21,15 +21,27 @@
 //   sub-word unpack     unpack_lanes                  (engine/subword.py)
 //   prefilter           prefilter_drop                (prefilter.py)
 //   conntrack           ct_fetch_rows, ct_probe_rows  (ct/device.py)
-//   load balancer       lb_select_batch, inline       (lb/device.py)
-//   ipcache             ipcache_lookup_fused          (ipcache/lpm.py)
-//   lattice + combine   _probes, _combine             (engine/verdict.py)
+//   load balancer       lb_select_batch               (lb/device.py)
+//   ipcache             ipcache_lookup_fused,         (ipcache/lpm.py)
+//                       _lookup_kernel (generic form)
+//   identity branch     _datapath_core :432-480       (engine/datapath.py)
+//   lattice + combine   _probes, _index_identity,     (engine/verdict.py)
+//                       _combine
 //   counters            _counter_cols + the scatter-add (pair, forms)
 //   telemetry           telemetry_masks + the per-direction sums
 //   tunnel              tunnel_select, in overlay mode  (tunnel.py)
-// over either table layout: compact (2-word L4 entries, 4-word CT rows,
+// over either entry layout: compact (2-word L4 entries, 4-word CT rows,
 // sub-word ipcache planes) or wide (3-word L4 entries, 5-word 128-lane
-// CT rows, u32 ipcache planes).
+// CT rows, u32 ipcache planes); and over every table layout the agent's
+// builders pick (common.cuh): the range or DIR-24-8 prefilter, the
+// inline or classic LB, the idx ipcache with or without L3 planes (past
+// 32 endpoints probe 2 reads l3_allow_bits), or the generic one (raw
+// identities, DIR-24-8 past 512 ranges: a miss is WORLD, the index comes
+// from id_direct, sec_id is the identity in every form); its ranges by
+// hashed classes or by the [B, P] scan.  Each kernel is a template over
+// the three plane layouts, instantiated 12 times (launch_pair/step pick
+// one by DatapathArgs.layout); the range lookup is a runtime branch, taken
+// only on an exact miss.
 //
 // Shape: one thread per flow.  The pair kernel's grid is
 // (ceil(B / 256), 2); blockIdx.y is the half (0 ingress, 1 egress), so a
@@ -62,7 +74,14 @@
 // per hit, and the 20 telemetry columns are reduced per warp with
 // __ballot_sync/__popc and per block in shared memory before one
 // atomicAdd per block and column.  Staging rows through shared memory
-// with cp.async/TMA and a persistent grid are later work.
+// with cp.async/TMA and a persistent grid are later work.  The node-scale
+// layouts add, per flow: PF_LPM one l1 word from a 64 MB table (most of
+// it outside L2) and on a block cell an l2 word, in place of a compare
+// per listed prefix; LB_CLASSIC a 512-byte bucket row and a dependent
+// backend row on a service hit; IPC_IDX one l3_allow_bits word;
+// IPC_GENERIC one id_direct word, or with DIR-24-8 the two reads in place
+// of the bucket row; the [B, P] scan up to 512 compares from shared
+// memory on an exact miss (each block stages the ranges once, 8-12 KB).
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -82,7 +101,7 @@ constexpr int TELEM_COLS = 20;
 
 struct FlowOut {
   bool pre, miss, allowed, ct_create, ct_delete;
-  uint32_t eff_daddr, eff_dport, idx, tunnel;
+  uint32_t eff_daddr, eff_dport, idx, ident, tunnel;
   int32_t rev_nat, lb_slave, proxy;
   CTResult ct;
   Lattice v;
@@ -93,7 +112,8 @@ struct FlowOut {
 // step that is its half, for the single-batch step its own direction
 // == 0; skipping the LB of an ingress row gives what the reference's
 // masked LB gives it).  `dir` is the direction word the CT probe and
-// the lattice read.
+// the lattice read.  PF, LB and IPC are the table layouts (common.cuh).
+template <int PF, int LB, int IPC>
 __device__ __forceinline__ FlowOut fused_flow(const DatapathArgs& a,
                                               uint32_t saddr, uint32_t daddr,
                                               uint32_t sport, uint32_t dport,
@@ -102,7 +122,7 @@ __device__ __forceinline__ FlowOut fused_flow(const DatapathArgs& a,
                                               bool ingress) {
   FlowOut o;
   // -- prefilter, then ONE conntrack row for both probes
-  o.pre = prefilter_drop(a, saddr);
+  o.pre = prefilter_drop<PF>(a, saddr);
   const uint32_t* ct_row = ct_fetch_row(a, daddr, saddr, dport, sport, proto);
   o.eff_daddr = daddr;
   o.eff_dport = dport;
@@ -112,7 +132,10 @@ __device__ __forceinline__ FlowOut fused_flow(const DatapathArgs& a,
     const CTResult svc = ct_probe(a, ct_row, daddr, saddr, dport, sport,
                                   proto, CT_DIR_SERVICE);
     const LBResult lb =
-        lb_select(a, saddr, daddr, sport, dport, proto, svc.slave);
+        LB == LB_CLASSIC
+            ? lb_select_classic(a, saddr, daddr, sport, dport, proto,
+                                svc.slave)
+            : lb_select(a, saddr, daddr, sport, dport, proto, svc.slave);
     if (lb.found) {
       o.eff_daddr = lb.daddr;
       o.eff_dport = lb.dport;
@@ -125,14 +148,27 @@ __device__ __forceinline__ FlowOut fused_flow(const DatapathArgs& a,
 
   // -- identity: the peer's ipcache entry, WORLD on a miss
   const IPCResult ipc =
-      ipcache_lookup(a, ingress ? saddr : o.eff_daddr, ingress);
+      ipcache_lookup<IPC>(a, ingress ? saddr : o.eff_daddr, ingress);
   o.miss = ipc.value == 0;
-  const uint32_t vp = o.miss ? a.world_plus1 : ipc.value;
-  const bool known = vp != 0 && vp != UNKNOWN_IDX;
-  o.idx = known ? vp - 1 : static_cast<uint32_t>(a.n_ids - 1);
-  const uint32_t l3w =
-      o.miss ? (ingress ? a.world_l3_in : a.world_l3_out) : ipc.l3;
-  const bool l3_bit = ep < 32 && ((l3w >> ep) & 1u);
+  bool known, l3_bit;
+  if (IPC == IPC_GENERIC) {
+    // the raw identity (sec_id in every form), indexed through id_direct
+    o.ident = o.miss ? RESERVED_WORLD : ipc.value;
+    o.idx = index_identity(a.id_direct, a.direct_n, a.lo_len, a.n_ids,
+                           o.ident, &known);
+  } else {
+    const uint32_t vp = o.miss ? a.world_plus1 : ipc.value;
+    known = vp != 0 && vp != UNKNOWN_IDX;
+    o.idx = known ? vp - 1 : static_cast<uint32_t>(a.n_ids - 1);
+    o.ident = 0;
+  }
+  if (IPC == IPC_IDX_PLANES) {
+    const uint32_t l3w =
+        o.miss ? (ingress ? a.world_l3_in : a.world_l3_out) : ipc.l3;
+    l3_bit = ep < 32 && ((l3w >> ep) & 1u);
+  } else {
+    l3_bit = l3_allow_bit(a, ep, dir, o.idx);
+  }
 
   // -- lattice and combine
   o.v = lattice(a, ep, dir, o.eff_dport, proto, o.idx, known, l3_bit, frag);
@@ -233,8 +269,10 @@ __device__ __forceinline__ void telemetry_rows_epilogue(uint32_t* telem,
     atomicAdd(telem + threadIdx.x, s_rows[threadIdx.x]);
 }
 
+template <int PF, int LB, int IPC>
 __global__ void __launch_bounds__(BLOCK)
     datapath_pair_kernel(const DatapathArgs a) {
+  stage_ranges(a);
   const int half = blockIdx.y;
   const bool ingress = half == 0;
   const int i = blockIdx.x * BLOCK + threadIdx.x;
@@ -249,9 +287,9 @@ __global__ void __launch_bounds__(BLOCK)
     const uint32_t w3 = __ldg(p + 3 * a.B + i);
     const uint32_t ep = w3 >> 16;
     const uint32_t dir = (w3 >> 1) & 1u;
-    const FlowOut f = fused_flow(a, saddr, daddr, w2 >> 16, w2 & 0xFFFFu,
-                                 (w3 >> 8) & 0xFFu, ep, dir, (w3 & 1u) != 0,
-                                 ingress);
+    const FlowOut f = fused_flow<PF, LB, IPC>(
+        a, saddr, daddr, w2 >> 16, w2 & 0xFFFFu, (w3 >> 8) & 0xFFu, ep, dir,
+        (w3 & 1u) != 0, ingress);
 
     // -- counters: L4 hits at slot j, L3 hits at column kg + idx; an
     // out-of-range index drops its update, as an XLA scatter does
@@ -264,8 +302,10 @@ __global__ void __launch_bounds__(BLOCK)
         atomicAdd(a.acc + (static_cast<size_t>(ep) * 2 + dir) * cols + col, 1u);
     }
 
-    // -- outputs: sec_id is the raw lattice index in the pair form
-    write_flow(a, static_cast<size_t>(half) * a.B + i, f, f.idx);
+    // -- outputs: sec_id is the raw lattice index in the pair form (the
+    // identity in the generic form)
+    write_flow(a, static_cast<size_t>(half) * a.B + i, f,
+               IPC == IPC_GENERIC ? f.ident : f.idx);
     tmask = telemetry_bits(f);
   }
 
@@ -317,8 +357,10 @@ __device__ __forceinline__ void count_hit(const DatapathArgs& a,
 // counts in its telemetry row: the ingress row when it runs as ingress,
 // else the egress row (the reference's egress row is the column total
 // minus the ingress row, so a direction word outside {0, 1} lands there).
+template <int PF, int LB, int IPC>
 __global__ void __launch_bounds__(BLOCK)
     datapath_step_kernel(const DatapathArgs a) {
+  stage_ranges(a);
   const int i = blockIdx.x * BLOCK + threadIdx.x;
   uint32_t tmask = 0;
   int row = 0;
@@ -337,11 +379,13 @@ __global__ void __launch_bounds__(BLOCK)
     const uint32_t dir = w[6];
     const bool ingress =
         a.static_dir < 0 ? dir == CT_DIR_INGRESS : a.static_dir == 0;
-    const FlowOut f = fused_flow(a, w[1], w[2], w[3], w[4], w[5], w[0], dir,
-                                 w[7] != 0, ingress);
+    const FlowOut f = fused_flow<PF, LB, IPC>(a, w[1], w[2], w[3], w[4], w[5],
+                                              w[0], dir, w[7] != 0, ingress);
     if (a.acc) count_hit(a, f, w[0], dir);
     write_flow(a, static_cast<size_t>(i), f,
-               a.emit_sec_id ? __ldg(a.id_table + f.idx) : f.idx);
+               IPC == IPC_GENERIC ? f.ident
+               : a.emit_sec_id    ? __ldg(a.id_table + f.idx)
+                                  : f.idx);
     if (a.telem) {
       tmask = telemetry_bits(f);
       row = ingress ? 0 : 1;
@@ -350,30 +394,56 @@ __global__ void __launch_bounds__(BLOCK)
   if (a.telem) telemetry_rows_epilogue(a.telem, tmask, row);
 }
 
+// One launcher per kernel and layout: LAYOUT = PF + 2 LB + 4 IPC.
+template <int LAYOUT>
+void launch_pair(const DatapathArgs& a, cudaStream_t stream) {
+  const dim3 grid((a.B + BLOCK - 1) / BLOCK, 2);
+  datapath_pair_kernel<LAYOUT & 1, (LAYOUT >> 1) & 1, (LAYOUT >> 2)>
+      <<<grid, BLOCK, scan_smem_bytes(a), stream>>>(a);
+}
+
+template <int LAYOUT>
+void launch_step(const DatapathArgs& a, cudaStream_t stream) {
+  const int grid = (a.B + BLOCK - 1) / BLOCK;
+  datapath_step_kernel<LAYOUT & 1, (LAYOUT >> 1) & 1, (LAYOUT >> 2)>
+      <<<grid, BLOCK, scan_smem_bytes(a), stream>>>(a);
+}
+
+using Launcher = void (*)(const DatapathArgs&, cudaStream_t);
+
+template <int... L>
+struct Launchers {
+  static constexpr Launcher pair[sizeof...(L)] = {launch_pair<L>...};
+  static constexpr Launcher step[sizeof...(L)] = {launch_step<L>...};
+};
+using AllLayouts = Launchers<0, 1, 2, 3, 4, 5, 6, 7, 8, 9, 10, 11>;
+static_assert(N_LAYOUTS == 12, "one launcher per layout");
+
 }  // namespace cdp
 
 extern "C" int datapath_args_size() {
   return static_cast<int>(sizeof(cdp::DatapathArgs));
 }
 
-// Launch one pair step on `stream`; returns cudaGetLastError().
+// Launch one pair step on `stream`; returns cudaGetLastError() (an
+// unknown layout: cudaErrorInvalidValue).
 extern "C" int launch_datapath_pair(const cdp::DatapathArgs* args,
                                     void* stream) {
-  if (args->B > 0) {
-    const dim3 grid((args->B + cdp::BLOCK - 1) / cdp::BLOCK, 2);
-    cdp::datapath_pair_kernel<<<grid, cdp::BLOCK, 0,
-                                static_cast<cudaStream_t>(stream)>>>(*args);
-  }
+  if (args->layout < 0 || args->layout >= cdp::N_LAYOUTS)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (args->B > 0)
+    cdp::AllLayouts::pair[args->layout](*args,
+                                        static_cast<cudaStream_t>(stream));
   return static_cast<int>(cudaGetLastError());
 }
 
 // Launch one single-batch step on `stream`; returns cudaGetLastError().
 extern "C" int launch_datapath_step(const cdp::DatapathArgs* args,
                                     void* stream) {
-  if (args->B > 0) {
-    const int grid = (args->B + cdp::BLOCK - 1) / cdp::BLOCK;
-    cdp::datapath_step_kernel<<<grid, cdp::BLOCK, 0,
-                                static_cast<cudaStream_t>(stream)>>>(*args);
-  }
+  if (args->layout < 0 || args->layout >= cdp::N_LAYOUTS)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (args->B > 0)
+    cdp::AllLayouts::step[args->layout](*args,
+                                        static_cast<cudaStream_t>(stream));
   return static_cast<int>(cudaGetLastError());
 }

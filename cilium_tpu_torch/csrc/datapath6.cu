@@ -57,7 +57,6 @@
 namespace cdp {
 
 constexpr int BLOCK6 = 256;
-constexpr uint32_t RESERVED_WORLD = 2;
 
 // The field order is the ctypes Structure's order in kernels.py;
 // datapath6_struct_sizes() lets the wrapper check that the two agree.

@@ -7,8 +7,8 @@
 // `replay_lattice` runs it) and, in IP mode, the fused CIDR path
 // (`:627` `_verdict_kernel_from_ips`, K20).  Per tuple, one thread:
 //   unpack        the [6, B] pack (ep, identity, dport, proto, dir, frag)
-//   ipcache       IP mode: dir24_8() over the source address, in place of
-//                 the pack's identity            (ipcache/lpm.py:1091)
+//   ipcache       IP mode: dir24_8() (common.cuh) over the source address,
+//                 in place of the pack's identity (ipcache/lpm.py:1091)
 //   lattice       tuple_verdict() of verdict.cuh, shared with DATAPATH6:
 //                 the two-region id_direct read (_index_identity), the
 //                 hashed probes or without the hash the dense port_slot /
@@ -42,10 +42,10 @@
 
 namespace clt {
 
+using cdp::dir24_8;
 using cdp::PolicyView;
 
 constexpr int BLOCK = 256;
-constexpr uint32_t BLOCK_FLAG = 1u << 31;
 
 // The field order is the ctypes Structure's order in kernels.py;
 // lattice_struct_sizes() lets the wrapper check that the two agree.
@@ -71,19 +71,6 @@ struct LpmArgs {
   int32_t B;
   int32_t n_blocks;
 };
-
-// DIR-24-8: l1[ip >> 8], and for a block cell l2[block, ip & 0xFF] (the
-// block row clamps, as an XLA gather does); 0 = no entry.
-__device__ __forceinline__ uint32_t dir24_8(const uint32_t* l1,
-                                            const uint32_t* l2, int n_blocks,
-                                            uint32_t ip) {
-  const uint32_t v1 = __ldg(l1 + (ip >> 8));
-  if (!(v1 & BLOCK_FLAG)) return v1;
-  const uint32_t last = static_cast<uint32_t>(n_blocks - 1);
-  const uint32_t b = v1 & ~BLOCK_FLAG;
-  return __ldg(l2 + static_cast<size_t>(b < last ? b : last) * 256 +
-               (ip & 0xFFu));
-}
 
 __global__ void __launch_bounds__(BLOCK) lattice_kernel(const LatticeArgs a) {
   const int i = blockIdx.x * BLOCK + threadIdx.x;

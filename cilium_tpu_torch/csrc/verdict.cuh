@@ -214,23 +214,34 @@ struct PolicyView {
 
 constexpr uint32_t LOCAL_ID_BASE = 1u << 24;
 constexpr uint32_t NO_INDEX = 0xFFFFFFFFu;
+constexpr uint32_t RESERVED_WORLD = 2;  // an ipcache miss's identity
 constexpr uint32_t NO_SLOT = 0xFFFFu;
 
 // identity -> dense index through id_direct's two regions, with the
 // reference's unsigned compares and position clamp; an unknown identity
 // gets n_ids - 1 (engine/verdict.py _index_identity).
-__device__ __forceinline__ uint32_t index_identity(const PolicyView& p,
+__device__ __forceinline__ uint32_t index_identity(const uint32_t* id_direct,
+                                                   int32_t direct_n_i,
+                                                   uint32_t lo_len,
+                                                   int32_t n_ids,
                                                    uint32_t ident,
                                                    bool* known) {
   const bool local = ident >= LOCAL_ID_BASE;
   const uint32_t off = ident - LOCAL_ID_BASE;
-  const uint32_t direct_n = static_cast<uint32_t>(p.direct_n);
-  const bool in_range = local ? off < direct_n - p.lo_len : ident < p.lo_len;
-  uint32_t pos = local ? p.lo_len + off : ident;
+  const uint32_t direct_n = static_cast<uint32_t>(direct_n_i);
+  const bool in_range = local ? off < direct_n - lo_len : ident < lo_len;
+  uint32_t pos = local ? lo_len + off : ident;
   pos = pos < direct_n - 1 ? pos : direct_n - 1;
-  const uint32_t v = __ldg(p.id_direct + pos);
+  const uint32_t v = __ldg(id_direct + pos);
   *known = in_range && v != NO_INDEX;
-  return *known ? v : static_cast<uint32_t>(p.n_ids - 1);
+  return *known ? v : static_cast<uint32_t>(n_ids - 1);
+}
+
+__device__ __forceinline__ uint32_t index_identity(const PolicyView& p,
+                                                   uint32_t ident,
+                                                   bool* known) {
+  return index_identity(p.id_direct, p.direct_n, p.lo_len, p.n_ids, ident,
+                        known);
 }
 
 // The lattice of one tuple (engine/verdict.py _probes + _combine): ep and
@@ -275,8 +286,22 @@ __device__ __forceinline__ L4Tables l4_tables(const DatapathArgs& a) {
                   a.n_eps,     a.kg};
 }
 
-// The datapath's lattice: probes 1-3 and the combine, with idx, known
-// and l3_bit from the idx-form ipcache.
+// Probe 2's bit from l3_allow_bits [n_eps, 2, n_words] (the datapath
+// without L3 planes): endpoint, direction and word (idx as int32 >> 5)
+// taken as an XLA gather takes them.
+__device__ __forceinline__ bool l3_allow_bit(const DatapathArgs& a,
+                                             uint32_t ep, uint32_t dir,
+                                             uint32_t idx) {
+  const size_t row =
+      static_cast<size_t>(gather_ix(static_cast<int32_t>(ep), a.n_eps)) * 2 +
+      gather_ix(static_cast<int32_t>(dir), 2);
+  const int word = gather_ix(static_cast<int32_t>(idx) >> 5, a.n_words);
+  return (__ldg(a.l3_allow + row * a.n_words + word) >> (idx & 31u)) & 1u;
+}
+
+// The datapath's lattice: probes 1-3 and the combine, with idx and known
+// from the ipcache (or id_direct) and l3_bit from the ipcache's L3 word
+// or l3_allow_bit.
 __device__ __forceinline__ Lattice lattice(const DatapathArgs& a, uint32_t ep,
                                            uint32_t dir, uint32_t dport_w,
                                            uint32_t proto_w, uint32_t idx,

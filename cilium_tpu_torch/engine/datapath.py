@@ -13,7 +13,9 @@ service-scope CT probe).  Per flow:
   3. one conntrack bucket row, fetched by the original tuple, probed
      for the service-scope key (egress) and then for the flow key;
   4. LB service select and DNAT (egress only);
-  5. ipcache lookup of the peer: the lattice index and the L3 bit;
+  5. ipcache lookup of the peer: the lattice index and the L3 bit
+     (the idx forms), or the raw identity, WORLD on a miss, indexed
+     through id_direct (the generic form: a DIR-24-8 ipcache);
   6. the 3-probe policy lattice and its combine;
   7. counter scatter-add into the carried [E, 2, Kg + N] buffer;
   8. per-direction telemetry sums into the carried [2, 20] buffer;
@@ -79,7 +81,13 @@ from cilium_tpu_torch.engine.verdict import (
     split_counters,
     telemetry_masks,
 )
-from cilium_tpu_torch.ipcache.lpm import UNKNOWN_IDX, ipcache_lookup_fused
+from cilium_tpu_torch.compiler.tables import RESERVED_WORLD
+from cilium_tpu_torch.ipcache.lpm import (
+    UNKNOWN_IDX,
+    IPCacheDevice,
+    ipcache_lookup_fused,
+    lookup_plain,
+)
 from cilium_tpu_torch.lb.device import lb_select_batch
 from cilium_tpu_torch.maps.policymap import EGRESS, INGRESS
 from cilium_tpu_torch.prefilter import prefilter_drop
@@ -92,10 +100,10 @@ class DatapathTables:
     program sees.  `tunnel` (TunnelTables) None is the no-overlay
     program."""
 
-    prefilter: object  # PrefilterRanges
-    ipcache: object  # IPCacheDevice
+    prefilter: object  # PrefilterRanges or LPMTables
+    ipcache: object  # IPCacheDevice or LPMTables
     ct: object  # CTSnapshot
-    lb: object  # LBInline
+    lb: object  # LBInline or LBTables
     policy: object  # PolicyTables
     tunnel: object = None
 
@@ -262,16 +270,15 @@ def _datapath_core(tables: DatapathTables, f: FlowBatch, ingress,
     service probe and LB run for every row and apply where the row is
     not ingress, so a direction outside {0, 1} goes through LB.
     `emit_sec_id` writes the identity `id_table[idx]` as `sec_id`; the
-    pair form writes the raw lattice index.  With a tunnel map, an
-    allowed flow that is not ingress gets its post-DNAT destination's
-    tunnel endpoint (the local node's IP is 0); the ingress half of the
-    pair form runs no tunnel stage.  Returns (DatapathVerdicts, counter
-    ingredients)."""
+    pair form writes the raw lattice index.  With a generic ipcache (not
+    the idx form) `sec_id` is the looked-up identity in every form
+    (WORLD on a miss), and the lattice resolves its index through
+    id_direct.  Every table layout the builders pick is taken.  With a
+    tunnel map, an allowed flow that is not ingress gets its post-DNAT
+    destination's tunnel endpoint (the local node's IP is 0); the
+    ingress half of the pair form runs no tunnel stage.  Returns
+    (DatapathVerdicts, counter ingredients)."""
     ipc = tables.ipcache
-    if not (ipc.values_are_idx and ipc.l3_planes):
-        raise ValueError(
-            "the plain datapath needs the idx-form ipcache with L3 planes"
-        )
     b = f.saddr.shape[0]
     dev = f.saddr.device
     if isinstance(ingress, bool):
@@ -307,24 +314,43 @@ def _datapath_core(tables: DatapathTables, f: FlowBatch, ingress,
 
     # identity derivation: the peer's ipcache entry, WORLD on a miss
     sec_ip = torch.where(ing, widen(f.saddr), eff_daddr)
-    looked, l3_word = ipcache_lookup_fused(ipc, sec_ip, ing)
     id_table = tables.policy.id_table
-    n = int(id_table.shape[0])
-    miss = looked == 0
-    vp = torch.where(miss, int(ipc.world_plus1), looked)
-    known = (vp != 0) & (vp != int(UNKNOWN_IDX))
-    idx = torch.where(known, vp - 1, n - 1)
-    world_l3 = torch.where(ing, int(ipc.world_l3_in), int(ipc.world_l3_out))
-    l3_word = torch.where(miss, world_l3, l3_word)
     ep = f.ep_index
-    l3_bit = torch.where(
-        (ep >= 0) & (ep < 32), (l3_word >> ep.clamp(0, 31)) & 1, 0
-    ).bool()
-
-    probe1, probe2, probe3, proxy, j, _ = _probes(
-        tables.policy, ep, f.direction, eff_dport, f.proto,
-        idx_known=(idx, known, l3_bit),
-    )
+    if isinstance(ipc, IPCacheDevice) and ipc.values_are_idx:
+        # the idx form: the entry is the lattice index + 1
+        looked, l3_word = ipcache_lookup_fused(ipc, sec_ip, ing)
+        n = int(id_table.shape[0])
+        miss = looked == 0
+        vp = torch.where(miss, int(ipc.world_plus1), looked)
+        known = (vp != 0) & (vp != int(UNKNOWN_IDX))
+        idx = torch.where(known, vp - 1, n - 1)
+        if l3_word is None:
+            idx_known = (idx, known)
+        else:
+            world_l3 = torch.where(ing, int(ipc.world_l3_in),
+                                   int(ipc.world_l3_out))
+            l3_word = torch.where(miss, world_l3, l3_word)
+            l3_bit = torch.where(
+                (ep >= 0) & (ep < 32), (l3_word >> ep.clamp(0, 31)) & 1, 0
+            ).bool()
+            idx_known = (idx, known, l3_bit)
+        probe1, probe2, probe3, proxy, j, _ = _probes(
+            tables.policy, ep, f.direction, eff_dport, f.proto,
+            idx_known=idx_known,
+        )
+        sec_id = id_table[idx] if emit_sec_id else narrow(idx)
+    else:
+        # the generic form (DIR-24-8, or a raw-identity IPCacheDevice):
+        # the identity itself, resolved to its index by the lattice;
+        # sec_id is the identity in every form
+        looked = lookup_plain(ipc, sec_ip)
+        miss = looked == 0
+        ident = torch.where(miss, RESERVED_WORLD, looked)
+        probe1, probe2, probe3, proxy, j, idx = _probes(
+            tables.policy, ep, f.direction, eff_dport, f.proto,
+            identity=ident,
+        )
+        sec_id = narrow(ident)
     pol_allow, v_proxy, kind = _combine(
         probe1, probe2, probe3, proxy, f.is_fragment
     )
@@ -354,7 +380,7 @@ def _datapath_core(tables: DatapathTables, f: FlowBatch, ingress,
         match_kind=kind,
         ct_result=ct_res,
         pre_dropped=pre_drop,
-        sec_id=id_table[idx] if emit_sec_id else narrow(idx),
+        sec_id=sec_id,
         final_daddr=narrow(eff_daddr),
         final_dport=eff_dport.to(torch.int32),
         rev_nat=rev_nat.to(torch.int32),

@@ -303,7 +303,10 @@ def _probes(tables, ep, dirn, dport, proto, identity=None, idx_known=None):
         idx, known = idx_known[0], idx_known[1]
         if len(idx_known) > 2:
             l3_bit = idx_known[2]
-    word, bit = idx >> 5, idx & 31
+    # the word read takes idx as the reference's int32 index does
+    idx32 = torch.where(idx >= 1 << 31, idx - (1 << 32), idx)
+    word = _gather_ix(idx32 >> 5, int(tables.l3_allow_bits.shape[2]))
+    bit = idx & 31
     proto = proto.clamp(0, 255)
     dport = dport.clamp(0, 65535)
     e_count, _, kg = tables.l4_meta.shape

@@ -5,22 +5,24 @@ ipcache_lookup4).  The /32 population (the bulk of a real ipcache)
 lives in hash-bucket rows resolved by one row read plus a small
 stash; the few hundred at most wider prefixes live in a hashed
 range-class table: one row per (masked base, prefix length), probed
-once per distinct length, longest first.
+once per distinct length, longest first.  Past RANGE_CLASS_MAX
+distinct lengths there is no class table (`range_rows` None) and the
+lookup scans every range per address, keeping the longest match.
 
 The fused datapath reads the idx form (`specialize_ipcache_to_idx`):
 values are the dense policy identity index + 1 (0 = miss,
 UNKNOWN_IDX = an identity outside the policy universe), and with at
 most 32 endpoints each entry also carries per-endpoint L3-allow
-bitmasks, one u32 per direction.  `subword_ipcache` packs the value
-and L3 planes to the fewest bits their values need.
+bitmasks, one u32 per direction; past 32 endpoints it carries the
+index alone and the lattice reads l3_allow_bits.  `subword_ipcache`
+packs the value and L3 planes to the fewest bits their values need.
 
 The DIR-24-8 form (`build_lpm`, `lpm_lookup`) is the standalone
 IPv4 -> identity lookup of the CIDR path: two dependent reads per
 address, `l1[ip >> 8]` and, when that entry points at a block,
-`l2[block, ip & 0xFF]`.  Where the reference's bucketized build would
-fall back to it (more than MAX_RANGES non-/32 prefixes),
-`build_ipcache` raises: the fused datapath does not read DIR-24-8
-tables yet.
+`l2[block, ip & 0xFF]`.  `build_ipcache` falls back to it past
+MAX_RANGES non-/32 prefixes, and the fused datapath then reads the
+raw identity from it (`lookup_plain`).
 """
 
 from __future__ import annotations
@@ -255,9 +257,9 @@ def _trim_ip_stash(stash: np.ndarray, fill: int) -> np.ndarray:
     return trim_pow2_prefix(stash, fill)
 
 
-def build_ipcache(prefix_to_id: Dict[str, int]) -> IPCacheDevice:
-    """Lower {ipv4 cidr -> identity} to the bucketized form.  Raises
-    where the reference would fall back to DIR-24-8."""
+def build_ipcache(prefix_to_id: Dict[str, int]):
+    """Lower {ipv4 cidr -> identity} to the bucketized form, or to
+    DIR-24-8 (LPMTables) past MAX_RANGES non-/32 prefixes."""
     exact_map: Dict[int, int] = {}
     range_map: Dict[Tuple[int, int], int] = {}
     for cidr, num_id in prefix_to_id.items():
@@ -281,10 +283,7 @@ def build_ipcache(prefix_to_id: Dict[str, int]) -> IPCacheDevice:
         for (pl, base_addr), num_id in sorted(range_map.items())
     ]
     if len(ranges) > MAX_RANGES:
-        raise ValueError(
-            f"{len(ranges)} non-/32 prefixes exceed {MAX_RANGES}: the "
-            f"DIR-24-8 form is not ported"
-        )
+        return build_lpm(prefix_to_id)
     nb = 16
     while nb * 16 < max(len(exact), 1):
         nb *= 2
@@ -331,12 +330,15 @@ def build_ipcache(prefix_to_id: Dict[str, int]) -> IPCacheDevice:
     )
 
 
-def specialize_ipcache_to_idx(dev: IPCacheDevice,
-                              policy_tables) -> IPCacheDevice:
+def specialize_ipcache_to_idx(dev, policy_tables):
     """Map every stored identity through the policy tables' direct
     index: values become idx + 1 (0 stays 0, identities outside the
     universe become UNKNOWN_IDX).  With at most 32 endpoints entries
-    also carry per-endpoint L3-only allow bitmasks."""
+    also carry per-endpoint L3-only allow bitmasks; past 32 the
+    buckets keep the generic 64 x 2 layout with idx values.  A
+    DIR-24-8 input is returned unchanged."""
+    if not isinstance(dev, IPCacheDevice):
+        return dev
     from cilium_tpu_torch.compiler.tables import (
         LOCAL_ID_BASE,
         NO_INDEX,
@@ -611,16 +613,18 @@ def range_class_key(ips, sp: int):
     return w0, h
 
 
-def range_row_parts(row, w0, sp: int, widths=()):
-    """Lane compares of one fetched range-class row (5 planes: base,
-    plen, value, l3_in, l3_out).  Returns (hit, val, l3_in, l3_out)."""
+def range_row_parts(row, w0, sp: int, planes: int, widths=()):
+    """Lane compares of one fetched range-class row of `planes` planes
+    (base, plen, value, then with 5 the l3_in and l3_out words).
+    Returns (hit, val, l3_in, l3_out); the L3 sums are zero with 3."""
+    zero = torch.zeros_like(w0)
     if not widths:
-        e = row.shape[1] // 5
+        e = row.shape[1] // planes
         r = widen(row)
         hit = (r[:, :e] == w0[:, None]) & (r[:, e : 2 * e] == int(sp))
 
         def msum(p):
-            return _msum(hit, r[:, p * e : (p + 1) * e])
+            return _msum(hit, r[:, p * e : (p + 1) * e]) if p < planes else zero
 
         return hit.any(dim=1), msum(2), msum(3), msum(4)
     e = RANGE_ENTRIES_PER_BUCKET
@@ -641,6 +645,8 @@ def range_row_parts(row, w0, sp: int, widths=()):
         val = torch.where(
             found & (val == int(_VAL16_UNKNOWN)), int(UNKNOWN_IDX), val
         )
+    if len(widths) < 5:
+        return found, val, zero, zero
     return found, val, _msum(hit, plane(3)), _msum(hit, plane(4))
 
 
@@ -663,23 +669,27 @@ def _range_hash_probe(dev: IPCacheDevice, ips):
     """One row read + lane compares per distinct prefix length,
     longest first.  Returns (found, value, l3_in, l3_out)."""
     n_rows = dev.range_rows.shape[0]
+    planes = 5 if dev.l3_planes else 3
     classes = []
     for sp in dev.range_class_plens:
         w0, h = range_class_key(ips, sp)
         row = dev.range_rows[h & (n_rows - 1)]
-        classes.append(range_row_parts(row, w0, sp, dev.range_widths))
+        classes.append(range_row_parts(row, w0, sp, planes, dev.range_widths))
     return range_take_fold(classes, ips)
 
 
-def ipcache_bucket_parts(dev: IPCacheDevice, rows, ips, ingress):
-    """Exact-/32 parts from fetched bucket rows, either layout:
-    (found, val, l3 selected by `ingress`)."""
+def ipcache_bucket_parts(dev: IPCacheDevice, rows, ips, ingress=None):
+    """Exact-/32 parts from fetched bucket rows, any layout: (found,
+    val, l3 selected by `ingress`; zeros without L3 planes)."""
     sub = bool(dev.bucket_entries)
-    per = dev.bucket_entries if sub else 32
+    per = (dev.bucket_entries if sub
+           else (32 if dev.l3_planes else IP_ENTRIES_PER_BUCKET))
     hit = widen(rows[:, :per]) == ips[:, None]
     found = hit.any(dim=1)
     if not sub:
         val = _msum(hit, widen(rows[:, per : 2 * per]))
+        if not dev.l3_planes:
+            return found, val, torch.zeros_like(ips)
         l3_plane = torch.where(
             ingress[:, None],
             widen(rows[:, 2 * per : 3 * per]),
@@ -693,6 +703,8 @@ def ipcache_bucket_parts(dev: IPCacheDevice, rows, ips, ingress):
         val = torch.where(
             found & (val == int(_VAL16_UNKNOWN)), int(UNKNOWN_IDX), val
         )
+    if not dev.l3_planes:
+        return found, val, torch.zeros_like(ips)
     off = per + lanes_v
     lanes_l = sw.lanes_for(per, lw)
     l3i = sw.unpack_lanes(rows[:, off : off + lanes_l], lw, per)
@@ -700,28 +712,55 @@ def ipcache_bucket_parts(dev: IPCacheDevice, rows, ips, ingress):
     return found, val, _msum(hit, torch.where(ingress[:, None], l3i, l3o))
 
 
-def ipcache_stash_parts(dev: IPCacheDevice, ips, ingress):
+def ipcache_stash_parts(dev: IPCacheDevice, ips, ingress=None):
     stash = widen(dev.stash)
     s_hit = stash[None, :, 0] == ips[:, None]
 
     def ssum(col):
         return _msum(s_hit, stash[None, :, col])
 
-    l3 = torch.where(ingress, ssum(2), ssum(3))
+    l3 = (torch.where(ingress, ssum(2), ssum(3)) if dev.l3_planes
+          else torch.zeros_like(ips))
     return s_hit.any(dim=1), ssum(1), l3
 
 
-def ipcache_lookup_fused(dev: IPCacheDevice, ips, ingress):
-    """One bucket row read + stash + range classes, on an ipcache
-    with L3 planes.  Returns (value int64 (0 = miss), l3_word int64).
-    `ingress` is a bool tensor [B] selecting the L3 plane."""
-    if not dev.l3_planes:
-        raise ValueError("the plain lookup needs an ipcache with L3 planes")
-    if dev.range_rows is None:
-        raise ValueError(
-            "the [B, P] broadcast range fallback is not ported: the "
-            "ipcache needs hashed range classes"
-        )
+# rows of one [B, P] scan chunk: at most 2^24 compares held at once
+_SCAN_CELLS = 1 << 24
+
+
+def _range_scan(dev: IPCacheDevice, ips):
+    """The [B, P] scan of a table without range classes: every range
+    compared, the longest match kept (plen stored + 1, so padding never
+    wins) and the u32 masked sums taken at the winning length (ranges
+    of one length never overlap).  Chunked over the addresses so the
+    compares stay bounded.  Returns (found, value, l3_in, l3_out)."""
+    base, mask = widen(dev.range_base), widen(dev.range_mask)
+    plen, value = widen(dev.range_plen), widen(dev.range_value)
+    l3 = dev.l3_planes
+    if l3:
+        r_l3i, r_l3o = widen(dev.range_l3_in), widen(dev.range_l3_out)
+    step = max(1, _SCAN_CELLS // max(int(plen.shape[0]), 1))
+    parts = []
+    for s in range(0, max(int(ips.shape[0]), 1), step):
+        x = ips[s : s + step]
+        match = (x[:, None] & mask[None, :]) == base[None, :]
+        best = torch.where(match, plen[None, :], 0).amax(dim=1)
+        sel = match & (plen[None, :] == best[:, None])
+        zero = torch.zeros_like(x)
+        parts.append((
+            best > 0,
+            _msum(sel, value[None, :]),
+            _msum(sel, r_l3i[None, :]) if l3 else zero,
+            _msum(sel, r_l3o[None, :]) if l3 else zero,
+        ))
+    return tuple(torch.cat(c) for c in zip(*parts))
+
+
+def ipcache_lookup_fused(dev: IPCacheDevice, ips, ingress=None):
+    """One bucket row read + stash, then the range classes (or the
+    [B, P] scan without them).  Returns (value int64 (0 = miss),
+    l3_word int64 or None): the L3 word of the `ingress` (bool [B])
+    plane where the table carries L3 planes, else None."""
     ips = widen(ips)
     h = fnv1a(ips[:, None])
     rows = dev.buckets[h & (dev.n_buckets - 1)]
@@ -729,13 +768,30 @@ def ipcache_lookup_fused(dev: IPCacheDevice, ips, ingress):
     s_found, s_val, s_l3 = ipcache_stash_parts(dev, ips, ingress)
     exact_found = b_found | s_found
     exact_val = (b_val + s_val) & 0xFFFFFFFF
-    range_found, range_val, r_l3i, r_l3o = _range_hash_probe(dev, ips)
+    if dev.range_rows is not None:
+        range_found, range_val, r_l3i, r_l3o = _range_hash_probe(dev, ips)
+    else:
+        range_found, range_val, r_l3i, r_l3o = _range_scan(dev, ips)
     value = torch.where(
         exact_found, exact_val, torch.where(range_found, range_val, 0)
     )
+    if not dev.l3_planes:
+        return value, None
     l3_exact = (b_l3 + s_l3) & 0xFFFFFFFF
     l3_range = torch.where(ingress, r_l3i, r_l3o)
     l3 = torch.where(
         exact_found, l3_exact, torch.where(range_found, l3_range, 0)
     )
     return value, l3
+
+
+def lookup_plain(tables, ips) -> torch.Tensor:
+    """Plain version of the reference's generic `_lookup_kernel`: ips
+    [B] (u32 bits) -> values int64 [B] holding u32 (0 = no entry), from
+    an IPCacheDevice of any form (the ingress L3 plane where there are
+    planes; only the value is returned) or from DIR-24-8 LPMTables."""
+    if isinstance(tables, IPCacheDevice):
+        ips = widen(ips)
+        ingress = torch.ones(ips.shape, dtype=torch.bool, device=ips.device)
+        return ipcache_lookup_fused(tables, ips, ingress)[0]
+    return lpm_lookup_plain(tables, ips)

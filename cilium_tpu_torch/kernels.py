@@ -13,15 +13,20 @@ card and `DATAPATH_STEP(tables, pool, picks)` the single-batch step
 over pool[:, picks] (or over an [8, B] pack with `picks=None`), in
 each of its forms: a static direction, the raw index or the identity
 as sec_id, counters into a carried `acc`, telemetry into a carried
-`telem`.  Both check devices, dtypes, shapes and the table
-layouts (the kernels implement the compact layouts, 2-word L4 entries
-and 4-word CT rows, and the wide ones, 3-word L4 entries and 5-word CT
-rows; the idx-form ipcache with L3 planes and hashed range classes;
-the inline LB; the range prefilter; with or without a v4 tunnel map,
-overlay mode; at most 32 endpoints) and raise on anything else.  They
-allocate the outputs with `torch.empty`, launch on the current stream
-without synchronising, raise if the launch reports an error, and count
-their launches in `.launches`.
+`telem`.  Both check devices, dtypes, shapes and the table layouts and
+raise on anything else.  The kernels implement the compact entry
+layouts (2-word L4 entries, 4-word CT rows) and the wide ones (3-word
+L4 entries, 5-word CT rows), with or without a v4 tunnel map (overlay
+mode), over every plane layout the agent's builders pick: the range
+or DIR-24-8 prefilter, the inline or classic LB, the idx ipcache with
+or without L3 planes or the generic one (raw identities, bucketized or
+DIR-24-8), its ranges by hashed classes or the [B, P] scan.  The
+dense lattice (policy tables without the hashed L4 entries) is not
+implemented.  `_fill_tables` picks one of the kernels' 12 layout
+instantiations (`layout_name`).  They allocate the outputs with
+`torch.empty`, launch on the current stream without synchronising,
+raise if the launch reports an error, and count their launches in
+`.launches`.
 
 `CHURN_COMPACT` and `CT_DELTA` (csrc/churn.cu) are the churn loop's
 intent compaction (K22) and CT bucket delta (K18's CT part) under the
@@ -69,8 +74,13 @@ from cilium_tpu_torch.engine.datapath import (
 )
 from cilium_tpu_torch.engine.subword import lanes_for
 from cilium_tpu_torch.engine.verdict import TELEM_COLS
-from cilium_tpu_torch.ipcache.lpm import RANGE_CLASS_MAX
-from cilium_tpu_torch.lb.device import INLINE_STASH, LBInline
+from cilium_tpu_torch.ipcache.lpm import (
+    MAX_RANGES,
+    RANGE_CLASS_MAX,
+    IPCacheDevice,
+    LPMTables,
+)
+from cilium_tpu_torch.lb.device import INLINE_STASH, LBInline, LBTables
 from cilium_tpu_torch.prefilter import PrefilterRanges
 from cilium_tpu_torch.tunnel import TunnelTables, TunnelTables6
 
@@ -83,16 +93,62 @@ NVCC_FLAGS = (
     "-shared", "-Xcompiler", "-fPIC",
 )
 
-# the table leaves the kernel reads: (plane, leaf)
-READS = (
-    ("prefilter", "base"), ("prefilter", "mask"),
-    ("ct", "buckets"), ("ct", "stash"),
-    ("lb", "rows"), ("lb", "stash"),
-    ("ipcache", "buckets"), ("ipcache", "stash"), ("ipcache", "range_rows"),
-    ("policy", "l4_hash_rows"), ("policy", "l4_hash_stash"),
-    ("policy", "l4_wild_rows"), ("policy", "l4_wild_stash"),
-    ("policy", "l4_meta"),
-)
+# the plane layouts of csrc/common.cuh; layout = PF + 2 LB + 4 IPC
+PF_RANGES, PF_LPM = 0, 1
+LB_INLINE, LB_CLASSIC = 0, 1
+IPC_IDX_PLANES, IPC_IDX, IPC_GENERIC = 0, 1, 2
+_PF_NAMES = ("ranges", "dir24_8")
+_LB_NAMES = ("inline", "classic")
+_IPC_NAMES = ("idx_planes", "idx", "generic")
+
+
+def layout_name(layout: int) -> str:
+    """The instantiation's name, e.g. "dir24_8/classic/idx"."""
+    return "/".join((_PF_NAMES[layout & 1], _LB_NAMES[(layout >> 1) & 1],
+                     _IPC_NAMES[layout >> 2]))
+
+
+def datapath_layout(tables) -> str:
+    """The instantiation DATAPATH_PAIR and DATAPATH_STEP take for these
+    tables (on the card), by name, with "+scan" where the ipcache's
+    ranges take the [B, P] scan; raises where _fill_tables does."""
+    a = DatapathArgs()
+    _fill_tables(a, tables, tables.policy.id_table.device)
+    return layout_name(a.layout) + ("+scan" if a.range_base else "")
+
+
+def datapath_reads(tables) -> tuple:
+    """The table leaves the datapath kernels read for these tables'
+    layouts: (plane, leaf) pairs."""
+    pf = (("prefilter", "l1"), ("prefilter", "l2")) if isinstance(
+        tables.prefilter, LPMTables) else (("prefilter", "base"),
+                                           ("prefilter", "mask"))
+    lb = (("lb", "buckets"), ("lb", "stash"), ("lb", "backend_rows")) if (
+        isinstance(tables.lb, LBTables)) else (("lb", "rows"), ("lb", "stash"))
+    ipc = tables.ipcache
+    if isinstance(ipc, LPMTables):
+        ic = (("ipcache", "l1"), ("ipcache", "l2"))
+    else:
+        ic = (("ipcache", "buckets"), ("ipcache", "stash"))
+        if ipc.range_rows is not None:
+            ic += (("ipcache", "range_rows"),)
+        else:
+            ic += tuple(("ipcache", f"range_{k}") for k in (
+                "base", "mask", "plen", "value")
+                + (("l3_in", "l3_out") if ipc.l3_planes else ()))
+    pol = (("policy", "l4_hash_rows"), ("policy", "l4_hash_stash"),
+           ("policy", "l4_wild_rows"), ("policy", "l4_wild_stash"),
+           ("policy", "l4_meta"))
+    idx_form = isinstance(ipc, IPCacheDevice) and ipc.values_are_idx
+    if not (idx_form and ipc.l3_planes):
+        pol += (("policy", "l3_allow_bits"),)
+    if not idx_form:
+        pol += (("policy", "id_direct"),)
+    return pf + (("ct", "buckets"), ("ct", "stash")) + lb + ic + pol
+
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int32
 
 _PTRS = (
     "pair", "pf_base", "pf_mask", "ct_buckets", "ct_stash", "lb_rows",
@@ -134,7 +190,14 @@ class DatapathArgs(ctypes.Structure):
         + [(name, ctypes.c_int32) for name in _INTS3]
         + [(name, ctypes.c_void_p) for name in _PTRS4]
         + [("tun_n", ctypes.c_int32), ("static_dir", ctypes.c_int32),
-           ("emit_sec_id", ctypes.c_int32)]
+           ("emit_sec_id", ctypes.c_int32), ("layout", ctypes.c_int32)]
+        + [("pf_l1", _P), ("pf_l2", _P), ("pf_blocks", _I),
+           ("lb_backends", _P), ("lb_backend_n", _I), ("ipc_stash_w", _I),
+           ("ipc_l1", _P), ("ipc_l2", _P), ("ipc_blocks", _I)]
+        + [(f"range_{k}", _P) for k in ("base", "mask", "plen", "value",
+                                        "l3_in", "l3_out")]
+        + [("n_ranges", _I), ("l3_allow", _P), ("id_direct", _P),
+           ("n_words", _I), ("direct_n", _I), ("lo_len", ctypes.c_uint32)]
     )
 
 
@@ -223,10 +286,6 @@ def _pow2(n: int, name: str) -> int:
     return n
 
 
-_P = ctypes.c_void_p
-_I = ctypes.c_int32
-
-
 class _Library:
     """csrc/<stem>.cu, built and bound once for the wrappers that
     launch its kernels; `bind` declares the C functions and checks that
@@ -286,14 +345,21 @@ DATAPATH_LIBRARY = _DatapathLibrary()
 
 
 def _fill_tables(a: DatapathArgs, tables, dev) -> None:
-    """Check every table plane the datapath kernels read and fill its
-    part of `a`; raise on a layout the kernels do not implement."""
+    """Check every table plane the datapath kernels read, fill its part
+    of `a` and pick the layout instantiation; raise on a layout the
+    kernels do not implement."""
     pf = tables.prefilter
-    if not isinstance(pf, PrefilterRanges):
-        raise ValueError("the kernel takes the range prefilter only")
-    a.pf_base = _ptr(pf.base, "prefilter.base", dev)
-    a.pf_mask = _ptr(pf.mask, "prefilter.mask", dev)
-    a.pf_n = int(pf.base.shape[0])
+    if isinstance(pf, PrefilterRanges):
+        a.pf_base = _ptr(pf.base, "prefilter.base", dev)
+        a.pf_mask = _ptr(pf.mask, "prefilter.mask", dev,
+                         shape=tuple(pf.base.shape))
+        a.pf_n = int(pf.base.shape[0])
+        pf_form = PF_RANGES
+    elif isinstance(pf, LPMTables):
+        a.pf_l1, a.pf_l2, a.pf_blocks = _lpm_tables(pf, dev)
+        pf_form = PF_LPM
+    else:
+        raise ValueError(f"unknown prefilter form {type(pf).__name__}")
 
     ct = tables.ct
     ew = int(ct.entry_words)
@@ -312,44 +378,135 @@ def _fill_tables(a: DatapathArgs, tables, dev) -> None:
     a.ct_ew = ew
     a.ct_stash_n = int(ct.stash.shape[0])
 
-    lb = tables.lb
-    if not isinstance(lb, LBInline):
-        raise ValueError("the kernel takes the inline LB layout only")
-    if lb.rows.shape[1] != 128 or lb.stash.shape[1] != 64:
-        raise ValueError("inline LB rows must be 128 lanes, stash 64")
-    if lb.stash.shape[0] > INLINE_STASH:
-        raise ValueError("LB stash exceeds its capacity")
-    a.lb_rows = _ptr(lb.rows, "lb.rows", dev)
-    a.lb_stash = _ptr(lb.stash, "lb.stash", dev)
-    a.lb_nb = _pow2(int(lb.n_buckets), "lb.n_buckets")
-    if lb.rows.shape[0] != lb.n_buckets:
-        raise ValueError("lb.rows differ from n_buckets")
-    a.lb_stash_n = int(lb.stash.shape[0])
+    lb_form = _fill_lb(a, tables.lb, dev)
+    ipc_form = _fill_ipcache(a, tables.ipcache, dev)
 
-    ipc = tables.ipcache
-    if not (ipc.values_are_idx and ipc.l3_planes):
-        raise ValueError("the kernel takes the idx-form ipcache with L3 planes")
-    if ipc.range_rows is None:
+    pol = tables.policy
+    if pol.l4_hash_rows is None:
         raise ValueError(
-            "the kernel needs hashed range classes (no [B, P] fallback)"
+            "the datapath kernels take the hashed L4 tables (the dense "
+            "lattice inside the datapath is not implemented)"
         )
-    per = int(ipc.bucket_entries) or 32
-    vw, lw = int(ipc.value_width), int(ipc.l3_width)
+    l4 = _l4_tables(pol, dev)
+    for key, pre in (("l4", ""), ("l4w", "w")):
+        for f in ("rows", "stash", "nrows", "lanes", "stash_n"):
+            setattr(a, f"{key}_{f}", getattr(l4, pre + f))
+    a.l4_ew = l4.ew
+    e_count, _, kg = (int(s) for s in pol.l4_meta.shape)
+    n = int(pol.id_table.shape[0])
+    a.l4_meta = _ptr(pol.l4_meta, "policy.l4_meta", dev)
+    a.n_eps, a.kg, a.n_ids = e_count, kg, n
+    a.id_table = _ptr(pol.id_table, "policy.id_table", dev, shape=(n,))
+    l3 = pol.l3_allow_bits
+    a.n_words = int(l3.shape[2]) if l3.dim() == 3 else 0
+    if a.n_words < 1:
+        raise ValueError("policy.l3_allow_bits must be [E, 2, W >= 1]")
+    a.l3_allow = _ptr(l3, "policy.l3_allow_bits", dev,
+                      shape=(e_count, 2, a.n_words))
+    direct_n = int(pol.id_direct.shape[0])
+    if not 1 <= direct_n < 1 << 31:
+        raise ValueError(f"id_direct has {direct_n} entries")
+    a.id_direct = _ptr(pol.id_direct, "policy.id_direct", dev,
+                       shape=(direct_n,))
+    a.direct_n = direct_n
+    a.lo_len = int(pol.id_lo_len) & 0xFFFFFFFF
+    if tables.tunnel is not None:
+        a.tun_base, a.tun_mask, a.tun_endpoint, a.tun_n = _tunnel_ranges(
+            tables.tunnel, TunnelTables, 1, dev)
+    a.layout = pf_form + 2 * lb_form + 4 * ipc_form
+
+
+def _fill_lb(a: DatapathArgs, lb, dev) -> int:
+    """The LB plane: inline slots, or classic bucket entries and backend
+    rows.  Returns its layout."""
+    if isinstance(lb, LBInline):
+        if lb.rows.shape[1] != 128 or lb.stash.shape[1] != 64:
+            raise ValueError("inline LB rows must be 128 lanes, stash 64")
+        if lb.stash.shape[0] > INLINE_STASH:
+            raise ValueError("LB stash exceeds its capacity")
+        a.lb_rows = _ptr(lb.rows, "lb.rows", dev)
+        a.lb_stash = _ptr(lb.stash, "lb.stash", dev)
+        a.lb_nb = _pow2(int(lb.n_buckets), "lb.n_buckets")
+        if lb.rows.shape[0] != lb.n_buckets:
+            raise ValueError("lb.rows differ from n_buckets")
+        a.lb_stash_n = int(lb.stash.shape[0])
+        return LB_INLINE
+    if isinstance(lb, LBTables):
+        a.lb_nb = _pow2(_rows_of(lb.buckets, "lb.buckets", dev, 128),
+                        "lb buckets")
+        if a.lb_nb != lb.n_buckets:
+            raise ValueError("lb.buckets rows differ from n_buckets")
+        a.lb_rows = lb.buckets.data_ptr()
+        a.lb_stash_n = _rows_of(lb.stash, "lb.stash", dev, 4)
+        a.lb_stash = lb.stash.data_ptr()
+        a.lb_backend_n = _rows_of(lb.backend_rows, "lb.backend_rows", dev, 128)
+        a.lb_backends = lb.backend_rows.data_ptr()
+        return LB_CLASSIC
+    raise ValueError(f"unknown LB layout {type(lb).__name__}")
+
+
+def _fill_ipcache(a: DatapathArgs, ipc, dev) -> int:
+    """The ipcache plane: DIR-24-8 (generic), or bucket rows and stash
+    with hashed range classes or the [B, P] scan.  Returns its
+    layout."""
+    if isinstance(ipc, LPMTables):
+        a.ipc_l1, a.ipc_l2, a.ipc_blocks = _lpm_tables(ipc, dev)
+        return IPC_GENERIC
+    if not isinstance(ipc, IPCacheDevice):
+        raise ValueError(f"unknown ipcache form {type(ipc).__name__}")
+    planes = bool(ipc.l3_planes)
+    if ipc.values_are_idx:
+        form = IPC_IDX_PLANES if planes else IPC_IDX
+    else:
+        form = IPC_GENERIC
+    sub = int(ipc.bucket_entries)
+    per = sub or (32 if planes else 64)
+    vw, lw = (int(ipc.value_width), int(ipc.l3_width)) if sub else (32, 32)
     if vw not in (16, 32) or lw not in (1, 2, 4, 8, 16, 32):
         raise ValueError(f"unsupported ipcache widths {vw}/{lw}")
-    if ipc.buckets.shape[1] < per + lanes_for(per, vw) + 2 * lanes_for(per, lw):
+    lanes = per + lanes_for(per, vw) + (2 * lanes_for(per, lw) if planes else 0)
+    if ipc.buckets.dim() != 2 or ipc.buckets.shape[1] < lanes:
         raise ValueError("ipcache bucket rows narrower than their planes")
-    if ipc.stash.shape[1] != 4:
-        raise ValueError("the ipcache stash must carry L3 columns")
+    stash_w = 4 if planes else 2
+    if ipc.stash.dim() != 2 or ipc.stash.shape[1] < stash_w:
+        raise ValueError(f"the ipcache stash needs {stash_w} columns")
     a.ipc_buckets = _ptr(ipc.buckets, "ipcache.buckets", dev)
     a.ipc_stash = _ptr(ipc.stash, "ipcache.stash", dev)
-    a.ipc_range_rows = _ptr(ipc.range_rows, "ipcache.range_rows", dev)
+    a.ipc_stash_w = int(ipc.stash.shape[1])
     a.ipc_nb = _pow2(int(ipc.n_buckets), "ipcache.n_buckets")
     if ipc.buckets.shape[0] != ipc.n_buckets:
         raise ValueError("ipcache.buckets rows differ from n_buckets")
     a.ipc_lanes = int(ipc.buckets.shape[1])
     a.ipc_per, a.ipc_vw, a.ipc_lw = per, vw, lw
     a.ipc_stash_n = int(ipc.stash.shape[0])
+    if ipc.range_rows is None:
+        _fill_range_scan(a, ipc, planes, dev)
+    else:
+        _fill_range_classes(a, ipc, 5 if planes else 3, dev)
+    a.world_plus1 = int(ipc.world_plus1) & 0xFFFFFFFF
+    a.world_l3_in = int(ipc.world_l3_in) & 0xFFFFFFFF
+    a.world_l3_out = int(ipc.world_l3_out) & 0xFFFFFFFF
+    return form
+
+
+def _fill_range_scan(a: DatapathArgs, ipc, planes: bool, dev) -> None:
+    """The [B, P] scan's ranges (staged per block in shared memory)."""
+    p = int(ipc.range_base.shape[0]) if ipc.range_base.dim() == 1 else 0
+    if not 1 <= p <= MAX_RANGES:
+        raise ValueError(f"the range scan takes 1 to {MAX_RANGES} ranges, "
+                         f"got {p}")
+    names = ("base", "mask", "plen", "value") + (
+        ("l3_in", "l3_out") if planes else ())
+    for k in names:
+        setattr(a, f"range_{k}", _ptr(getattr(ipc, f"range_{k}"),
+                                      f"ipcache.range_{k}", dev, shape=(p,)))
+    a.n_ranges = p
+
+
+def _fill_range_classes(a: DatapathArgs, ipc, planes: int, dev) -> None:
+    """The hashed range-class rows: `planes` planes (base, plen, value
+    and with 5 the L3 words), u32 or sub-word."""
+    a.ipc_range_rows = _ptr(ipc.range_rows, "ipcache.range_rows", dev)
     a.range_nrows = _pow2(int(ipc.range_rows.shape[0]), "range rows")
     a.range_lanes = int(ipc.range_rows.shape[1])
     plens = tuple(ipc.range_class_plens)
@@ -360,12 +517,12 @@ def _fill_tables(a: DatapathArgs, tables, dev) -> None:
         a.class_plens[c] = p
     if ipc.range_widths:
         widths = tuple(int(w) for w in ipc.range_widths)
-        if len(widths) != 5:
-            raise ValueError("range rows must carry 5 planes")
+        if len(widths) != planes:
+            raise ValueError(f"range rows must carry {planes} planes")
         e = 8
     else:
-        e = a.range_lanes // 5
-        widths = (32,) * 5
+        e = a.range_lanes // planes
+        widths = (32,) * planes
     off = 0
     for p, w in enumerate(widths):
         a.range_widths[p] = w
@@ -374,30 +531,6 @@ def _fill_tables(a: DatapathArgs, tables, dev) -> None:
     if off > a.range_lanes:
         raise ValueError("range rows narrower than their planes")
     a.range_e = e
-    a.world_plus1 = int(ipc.world_plus1) & 0xFFFFFFFF
-    a.world_l3_in = int(ipc.world_l3_in) & 0xFFFFFFFF
-    a.world_l3_out = int(ipc.world_l3_out) & 0xFFFFFFFF
-
-    pol = tables.policy
-    if pol.l4_hash_rows is None:
-        raise ValueError("the datapath kernels take the hashed L4 tables")
-    l4 = _l4_tables(pol, dev)
-    for key, pre in (("l4", ""), ("l4w", "w")):
-        for f in ("rows", "stash", "nrows", "lanes", "stash_n"):
-            setattr(a, f"{key}_{f}", getattr(l4, pre + f))
-    a.l4_ew = l4.ew
-    e_count, _, kg = (int(s) for s in pol.l4_meta.shape)
-    n = int(pol.id_table.shape[0])
-    if e_count > 32:
-        raise ValueError(
-            f"{e_count} endpoints: the ipcache L3 word holds at most 32"
-        )
-    a.l4_meta = _ptr(pol.l4_meta, "policy.l4_meta", dev)
-    a.n_eps, a.kg, a.n_ids = e_count, kg, n
-    a.id_table = _ptr(pol.id_table, "policy.id_table", dev, shape=(n,))
-    if tables.tunnel is not None:
-        a.tun_base, a.tun_mask, a.tun_endpoint, a.tun_n = _tunnel_ranges(
-            tables.tunnel, TunnelTables, 1, dev)
 
 
 def _tunnel_ranges(tun, cls, limbs: int, dev):

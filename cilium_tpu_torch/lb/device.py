@@ -1,4 +1,4 @@
-"""Device load balancer: the inline service rows and the plain select.
+"""Device load balancer: the service layouts and the plain select.
 
 Semantics of bpf/lib/lb.h: an exact (vip, dport, proto) service match
 (lb4_lookup_service), backend `slave = flow_hash % count + 1`
@@ -13,6 +13,17 @@ Inline layout: each 128-lane row holds two 64-lane service slots,
   lanes [44, 64) = backend ports, two per lane (low half = even),
 so one row read resolves the service and its backends.  A small stash
 of 64-lane slots takes the rows' overflow.
+
+Classic layout (`LBTables`), which `compile_lb` takes for every service
+once one has more than INLINE_MAX_BACKENDS backends: bucket rows of
+SVC_PER_BUCKET four-word service entries, planar (lanes [32k, 32k+32)
+hold word k of entries 0..31),
+  w0 vip, w1 dport << 16 | proto, w2 rev_nat << 16 | backend count,
+  w3 the service's backend row,
+plus a stash of SVC_STASH entries, and one 128-lane backend row per
+service: lanes [0, 64) backend ips, lanes [64, 96) backend ports two
+per lane (low half = even backend).  A flow reads its bucket row, then
+the backend row the entry names: two dependent row reads.
 """
 
 from __future__ import annotations
@@ -30,7 +41,11 @@ from cilium_tpu_torch.engine.hashtable import (
 )
 from cilium_tpu_torch.lb.service import ServiceManager
 
+MAX_BACKENDS = 64
+SVC_ENTRY_WORDS = 4
 BUCKET_LANES = 128
+SVC_PER_BUCKET = BUCKET_LANES // SVC_ENTRY_WORDS  # 32
+SVC_STASH = 64
 _EMPTY_W1 = np.uint32(0xFFFFFFFF)  # dport<<16|proto can't be all-ones
 INLINE_MAX_BACKENDS = 40
 INLINE_SLOT = 64
@@ -43,6 +58,16 @@ class LBInline:
 
     rows: object  # u32 [R, 128] — two 64-lane service slots per row
     stash: object  # u32 [S, 64]
+    n_buckets: int
+
+
+@dataclass
+class LBTables:
+    """Classic layout: service bucket rows + stash + backend rows."""
+
+    buckets: object  # u32 [Cs, 128]
+    stash: object  # u32 [SVC_STASH, 4]
+    backend_rows: object  # u32 [S, 128]
     n_buckets: int
 
 
@@ -65,7 +90,7 @@ def _svc_slot(svc) -> np.ndarray:
 def compile_lb_inline(mgr: ServiceManager) -> "LBInline | None":
     """Inline single-read layout; None if any service exceeds the
     inline backend budget or the hash cannot separate the frontends
-    (the classic two-read layout is not ported)."""
+    (compile_lb then takes the classic layout)."""
     services = sorted(mgr.by_frontend.values(), key=lambda s: s.id)
     if any(len(s.backends) > INLINE_MAX_BACKENDS for s in services):
         return None
@@ -108,6 +133,69 @@ def compile_lb_inline(mgr: ServiceManager) -> "LBInline | None":
             )
         nb *= 2
     return None
+
+
+def compile_lb(mgr: ServiceManager):
+    """The service map for the datapath: the inline single-read layout
+    when every service fits its backend budget, else the classic
+    layout for all services."""
+    inline = compile_lb_inline(mgr)
+    if inline is not None:
+        return inline
+    return compile_lb_classic(mgr)
+
+
+def compile_lb_classic(mgr: ServiceManager) -> LBTables:
+    """The classic two-read layout (module docstring).  Raises past
+    MAX_BACKENDS backends for one service, or when a bucket and the
+    stash overflow."""
+    services = sorted(mgr.by_frontend.values(), key=lambda s: s.id)
+    nb = 16
+    while nb * 8 < max(len(services), 1):
+        nb *= 2
+    buckets = np.zeros((nb, BUCKET_LANES), dtype=np.uint32)
+    buckets[:, SVC_PER_BUCKET : 2 * SVC_PER_BUCKET] = _EMPTY_W1
+    stash = np.zeros((SVC_STASH, SVC_ENTRY_WORDS), dtype=np.uint32)
+    stash[:, 1] = _EMPTY_W1
+    fill = [0] * nb
+    stash_fill = 0
+    backend_rows = np.zeros(
+        (max(len(services), 1), BUCKET_LANES), dtype=np.uint32
+    )
+    for row_idx, svc in enumerate(services):
+        if len(svc.backends) > MAX_BACKENDS:
+            raise ValueError(
+                f"service {svc.frontend} has more than {MAX_BACKENDS} "
+                f"backends"
+            )
+        vip = svc.frontend.ip_u32()
+        w1 = ((svc.frontend.port & 0xFFFF) << 16) | (
+            svc.frontend.protocol & 0xFF
+        )
+        for j, backend in enumerate(svc.backends):
+            backend_rows[row_idx, j] = backend.addr.ip_u32()
+            backend_rows[row_idx, 64 + (j >> 1)] |= np.uint32(
+                (backend.addr.port & 0xFFFF) << (16 * (j & 1))
+            )
+        entry = (
+            vip,
+            w1,
+            ((svc.id & 0xFFFF) << 16) | (len(svc.backends) & 0xFFFF),
+            row_idx,
+        )
+        words = np.array([[vip, w1]], dtype=np.uint32)
+        b = int(_fnv1a_host(words)[0]) & (nb - 1)
+        if fill[b] < SVC_PER_BUCKET:
+            for k in range(SVC_ENTRY_WORDS):
+                buckets[b, k * SVC_PER_BUCKET + fill[b]] = entry[k]
+            fill[b] += 1
+        elif stash_fill < SVC_STASH:
+            stash[stash_fill] = entry
+            stash_fill += 1
+        else:
+            raise ValueError("LB service bucket and stash overflow")
+    return LBTables(buckets=buckets, stash=stash, backend_rows=backend_rows,
+                    n_buckets=nb)
 
 
 # -- plain device select (int64 tensors holding u32 values) ------------------
@@ -187,13 +275,74 @@ def lb_slot_outputs(slot, found, fh, ct_slave=None):
     )
 
 
-def lb_select_batch(tables: LBInline, saddr, daddr, sport, dport, proto,
+def _lb_select_classic(tables: LBTables, saddr, daddr, sport, dport, proto,
+                       ct_slave=None):
+    """Classic-layout select: the bucket row and the stash give the
+    entry's meta and backend row (u32 masked sums over the hits), then
+    one backend row read at the clamped row and a masked lane sum over
+    its MAX_BACKENDS address lanes and port-pair lanes."""
+    vip, w1 = lb_service_key(daddr, dport, proto)
+    h = fnv1a(torch.stack([vip, w1], dim=1))
+    rows = widen(tables.buckets[h & (tables.n_buckets - 1)])
+    p = SVC_PER_BUCKET
+    ent = [rows[:, k * p : (k + 1) * p] for k in range(SVC_ENTRY_WORDS)]
+    hit = (ent[0] == vip[:, None]) & (ent[1] == w1[:, None])
+    stash = widen(tables.stash)
+    s_hit = (stash[None, :, 0] == vip[:, None]) & (
+        stash[None, :, 1] == w1[:, None]
+    )
+
+    def pick(col):
+        return (
+            torch.where(hit, ent[col], 0).sum(dim=1)
+            + torch.where(s_hit, stash[None, :, col], 0).sum(dim=1)
+        ) & 0xFFFFFFFF
+
+    found = hit.any(dim=1) | s_hit.any(dim=1)
+    meta = pick(2)
+    base = pick(3)
+    count = meta & 0xFFFF
+    rev_nat = meta >> 16
+    found = found & (count > 0)
+    fh = flow_hash(saddr, daddr, sport, dport, proto)
+    slave = fh % torch.clamp(count, min=1) + 1
+    if ct_slave is not None:
+        ct_slave = ct_slave.to(torch.int64)
+        reuse = (ct_slave > 0) & (ct_slave <= count)
+        slave = torch.where(reuse, ct_slave, slave)
+    # the reference's row index is the sum as int32, then clipped
+    base32 = torch.where(base >= 1 << 31, base - (1 << 32), base)
+    row_idx = base32.clamp(0, int(tables.backend_rows.shape[0]) - 1)
+    brow = widen(tables.backend_rows[row_idx])
+    k = slave - 1
+    lane = torch.arange(MAX_BACKENDS, device=brow.device)
+    new_daddr = torch.where(
+        lane[None, :] == k[:, None], brow[:, :MAX_BACKENDS], 0
+    ).sum(dim=1) & 0xFFFFFFFF
+    plane = torch.arange(MAX_BACKENDS // 2, device=brow.device)
+    port_pair = torch.where(
+        plane[None, :] == (k >> 1)[:, None],
+        brow[:, MAX_BACKENDS : MAX_BACKENDS + MAX_BACKENDS // 2], 0,
+    ).sum(dim=1) & 0xFFFFFFFF
+    new_dport = (port_pair >> (16 * (k & 1))) & 0xFFFF
+    new_daddr = torch.where(found, new_daddr, widen(daddr))
+    new_dport = torch.where(found, new_dport, dport.to(torch.int64))
+    rev_nat = torch.where(found, rev_nat, 0)
+    slave = torch.where(found, slave, 0)
+    return found, slave, new_daddr, new_dport, rev_nat
+
+
+def lb_select_batch(tables, saddr, daddr, sport, dport, proto,
                     ct_slave=None):
     """Returns (is_service bool, slave i64, new_daddr i64 (u32),
     new_dport i64, rev_nat i64).  Non-service flows pass through with
-    their original daddr/dport and rev_nat 0."""
+    their original daddr/dport and rev_nat 0.  Dispatches on the
+    layout: LBInline (one row read) or LBTables (two)."""
+    if isinstance(tables, LBTables):
+        return _lb_select_classic(tables, saddr, daddr, sport, dport, proto,
+                                  ct_slave)
     if not isinstance(tables, LBInline):
-        raise ValueError("only the inline LB layout is ported")
+        raise ValueError(f"unknown LB layout {type(tables).__name__}")
     vip, w1 = lb_service_key(daddr, dport, proto)
     h = fnv1a(torch.stack([vip, w1], dim=1))
     rows = tables.rows[h & (tables.n_buckets - 1)]

@@ -30,6 +30,12 @@ BPF maps the agent writes, without the control plane:
 
 Everything is drawn from one numpy Generator seeded by `seed`.
 
+`node_world` is config 5's rule mix on a node past every table
+threshold of the agent's builders (110 endpoints, 1,024 prefilter
+CIDRs, a 64-backend VIP, CIDR identities over 8 prefix lengths, or
+with `lpm` 4,096 /24 CIDR identities); its extra draws come from a
+second Generator.
+
 `config6_world` is bench.py's config 6, the fused IPv6 datapath, at
 the same level; `config6_ct_pass` builds its conntrack variant and
 `tunnel_map` the overlay of 256 remote nodes that both config 5 and
@@ -70,7 +76,7 @@ from cilium_tpu_torch.ipcache.lpm import (
     build_ipcache,
     specialize_ipcache_to_idx,
 )
-from cilium_tpu_torch.lb.device import compile_lb_inline
+from cilium_tpu_torch.lb.device import compile_lb
 from cilium_tpu_torch.lb.service import L3n4Addr, ServiceManager
 from cilium_tpu_torch.maps.policymap import (
     EGRESS,
@@ -88,6 +94,14 @@ WILD_PORTS = ((53, 17), (9100, 6))  # any identity may reach these
 PREFILTER_CIDR = "203.0.113.0/24"
 UNKNOWN_RANGE = "10.251.0.0/16"
 UNKNOWN_IDENTITY = 200  # never allocated: outside the policy universe
+# CIDR identity blocks of a length other than /24 are laid out from
+# these bases, one region per length ((first octet, octets spanned));
+# /24 blocks are 198.18.0.0/24, 198.18.1.0/24, ... in block order
+_CIDR_REGIONS = {8: (20, 44), 12: (64, 6), 16: (70, 2), 20: (72, 2),
+                 28: (74, 1)}
+# first octets of a drawn blocklist (203 holds PREFILTER_CIDR)
+_BLOCK_OCTETS = tuple(o for o in range(200, 224) if o != 203)
+BIG_VIP = "172.16.1.1"
 
 
 def _ip(s: str) -> int:
@@ -116,19 +130,18 @@ class World:
     team_members: list = field(default_factory=list)
 
     def host_tables(self) -> DatapathTables:
-        """The compiled maps in their wide layouts (host numpy)."""
+        """The compiled maps in their wide layouts (host numpy), each
+        plane in the layout its dispatching builder picks for its size,
+        as the agent assembles them (cilium_tpu/daemon.py:2255)."""
         pol = compile_map_states(
             self.states, self.identity_ids, identity_pad=self.identity_pad,
             filter_pad=self.filter_pad,
         )
-        lb = compile_lb_inline(self.mgr)
-        if lb is None:
-            raise ValueError("services do not fit the inline LB layout")
         return DatapathTables(
             prefilter=build_prefilter(self.prefilter_cidrs),
             ipcache=specialize_ipcache_to_idx(build_ipcache(self.ipc_map), pol),
             ct=compile_ct(self.ct),
-            lb=lb,
+            lb=compile_lb(self.mgr),
             policy=pol,
         )
 
@@ -177,14 +190,59 @@ def headline_tables(world: World,
     return sub
 
 
+def _cidr_blocks(n: int, plens) -> list:
+    """(base u32, prefix length) of CIDR block b = 0..n-1: lengths in
+    turn from `plens`, /24 blocks at 198.18.0.0 + 256 b, the others
+    packed into their length's region."""
+    out = []
+    for b in range(n):
+        plen = int(plens[b % len(plens)])
+        if plen == 24:
+            out.append((_ip("198.18.0.0") + (b << 8), plen))
+            continue
+        if plen not in _CIDR_REGIONS:
+            raise ValueError(f"no region for /{plen} CIDR blocks")
+        octet, span = _CIDR_REGIONS[plen]
+        k = b // len(plens)
+        if k >= span << (plen - 8):
+            raise ValueError(f"too many /{plen} CIDR blocks")
+        out.append(((octet << 24) + (k << (32 - plen)), plen))
+    return out
+
+
+def _blocklist(rng: np.random.Generator, n: int) -> List[str]:
+    """`n` distinct v4 CIDRs of /16 to /24 under _BLOCK_OCTETS, sorted."""
+    out = set()
+    while len(out) < n:
+        plen = int(rng.integers(16, 25))
+        first = int(rng.choice(_BLOCK_OCTETS))
+        rest = int(rng.integers(0, 1 << 24)) & ~((1 << (32 - plen)) - 1)
+        out.add(f"{_ip_str((first << 24) | rest)}/{plen}")
+    return sorted(out)
+
+
 def make_world(seed: int = 5, n_rules: int = 50_000, n_endpoints: int = 32,
                n_identities: int = 65_536, team_size: int = 16,
                n_cidr_blocks: int = 256, n_vips: int = 16,
                n_pool: int = 50_000, ct_max_entries: int = 65_536,
-               identity_pad: int = 1024, filter_pad: int = 64) -> World:
+               identity_pad: int = 1024, filter_pad: int = 64,
+               cidr_plens=(24,), n_blocklist: int = 0,
+               big_vip_backends: int = 0) -> World:
     """Build the world (see the module docstring); the defaults are
-    config 5's scale."""
+    config 5's scale.  The node-scale options (node_world) keep every
+    draw of the main generator and take theirs from a second one, so a
+    world without them is config 5's draw for draw: `cidr_plens`, the
+    prefix lengths of the CIDR identity blocks in turn; `n_blocklist`
+    more prefilter CIDRs (/16 to /24); `big_vip_backends`, one more VIP,
+    BIG_VIP:80, with that many backends over the endpoints.  With any
+    of them the pool's CIDR-range sources are drawn from every block,
+    half its prefiltered sources from the blocklist, and a third of its
+    VIP flows go to BIG_VIP."""
     rng = np.random.default_rng(seed)
+    extras = (tuple(cidr_plens) != (24,) or n_blocklist > 0
+              or big_vip_backends > 0 or n_cidr_blocks > 256)
+    rng2 = np.random.default_rng([seed, 7])
+    cidr_blocks = _cidr_blocks(n_cidr_blocks, cidr_plens)
     e_count = n_endpoints
 
     # -- identities and their addresses
@@ -208,8 +266,8 @@ def make_world(seed: int = 5, n_rules: int = 50_000, n_endpoints: int = 32,
         ipc_map[_ip_str(ep_ip[i]) + "/32"] = ep_ident[i]
     for i in range(n_cluster):
         ipc_map[_ip_str(id_ip[i]) + "/32"] = int(cluster_ident[i])
-    for b in range(n_cidr_blocks):
-        ipc_map[f"198.18.{b}.0/24"] = LOCAL_ID_BASE + b
+    for b, (base, plen) in enumerate(cidr_blocks):
+        ipc_map[f"{_ip_str(base)}/{plen}"] = LOCAL_ID_BASE + b
     ipc_map["198.18.0.0/16"] = LOCAL_ID_BASE + n_cidr_blocks
     ipc_map["100.64.0.0/10"] = LOCAL_ID_BASE + n_cidr_blocks + 1
     ipc_map[UNKNOWN_RANGE] = UNKNOWN_IDENTITY
@@ -286,6 +344,14 @@ def make_world(seed: int = 5, n_rules: int = 50_000, n_endpoints: int = 32,
         mgr.upsert(L3n4Addr(vip, 80, 6), backends)
         vips.append(_ip(vip))
         backends_of.append(backends)
+    if big_vip_backends:
+        perm = rng2.permutation(e_count)
+        mgr.upsert(L3n4Addr(BIG_VIP, 80, 6), [
+            L3n4Addr(_ip_str(ep_ip[int(perm[j % e_count])]),
+                     8080 + j // e_count, 6)
+            for j in range(big_vip_backends)
+        ])
+    blocklist = _blocklist(rng2, n_blocklist)
 
     # -- the flow pool (bench.py make_flow_pool's shares)
     n = n_pool
@@ -310,6 +376,22 @@ def make_world(seed: int = 5, n_rules: int = 50_000, n_endpoints: int = 32,
         (r >= 0.075) & (r < 0.08),
         _ip("10.251.0.0") + rng.integers(0, 1 << 16, n), peer,
     ).astype(np.uint32)
+    if extras:
+        # CIDR-range sources from every block, of every length
+        rows = np.nonzero((r >= 0.05) & (r < 0.07))[0]
+        blk = rng2.integers(0, n_cidr_blocks, size=len(rows))
+        base = np.array([b for b, _ in cidr_blocks], np.int64)[blk]
+        span = 1 << (32 - np.array([p for _, p in cidr_blocks], np.int64)[blk])
+        peer[rows] = (base + rng2.integers(0, span)).astype(np.uint32)
+        if blocklist:
+            # half the prefiltered sources from the blocklist
+            rows = np.nonzero(r < 0.02)[0]
+            rows = rows[rng2.random(len(rows)) < 0.5]
+            nets = [ipaddress.ip_network(c) for c in blocklist]
+            pick = rng2.integers(0, len(nets), size=len(rows))
+            off = rng2.integers(0, 1 << 8, size=len(rows))
+            peer[rows] = [int(nets[k].network_address) + int(o)
+                          % nets[k].num_addresses for k, o in zip(pick, off)]
     to_vip = (direction == EGRESS) & (rng.random(n) < 0.10)
     vip_idx = rng.integers(0, len(vips), size=n)
     vip_arr = np.asarray(vips, np.uint32)
@@ -318,6 +400,8 @@ def make_world(seed: int = 5, n_rules: int = 50_000, n_endpoints: int = 32,
         direction == INGRESS, ep_ip[pick_ep],
         np.where(to_vip, vip_arr[vip_idx], peer),
     )
+    if big_vip_backends:
+        daddr[to_vip & (rng2.random(n) < 1 / 3)] = _ip(BIG_VIP)
     all_ports = (
         [(int(p), 6) for p in plain_ports] + [(int(p), 17) for p in plain_ports]
         + [(p, 6) for p in l7_ports] + list(WILD_PORTS)
@@ -403,7 +487,7 @@ def make_world(seed: int = 5, n_rules: int = 50_000, n_endpoints: int = 32,
         states=states,
         identity_ids=identity_ids,
         ipc_map=ipc_map,
-        prefilter_cidrs=[PREFILTER_CIDR],
+        prefilter_cidrs=[PREFILTER_CIDR] + blocklist,
         ct=ct,
         mgr=mgr,
         pool=pool,
@@ -418,6 +502,40 @@ def make_world(seed: int = 5, n_rules: int = 50_000, n_endpoints: int = 32,
         l7_rules=l7_pairs,
         team_members=team_members,
     )
+
+
+# -- node-scale worlds -------------------------------------------------------------
+
+NODE_ENDPOINTS = 110  # the kubelet's default --max-pods
+NODE_BLOCKLIST = 1024  # prefilter CIDRs, the size of a public DROP list
+NODE_BIG_VIP_BACKENDS = 64  # the classic LB's per-service limit
+NODE_CIDR_PLENS = (8, 12, 16, 20, 24, 28)
+NODE_LPM_CIDRS = 4096  # /24 CIDR identities: past the ipcache's 512 ranges
+
+
+def node_world(lpm: bool = False, seed: int = 5, **kw) -> World:
+    """A node-scale world: config 5's rule mix, identities and teams
+    (seed 5, 50,000 rules, 65,536 identities in teams of 16) on a node
+    of NODE_ENDPOINTS endpoints, with a prefilter of NODE_BLOCKLIST
+    CIDRs (203.0.113.0/24 and 1,023 drawn /16 to /24), config 5's 16
+    VIPs and BIG_VIP with NODE_BIG_VIP_BACKENDS backends, and 256 CIDR
+    identity blocks over NODE_CIDR_PLENS (with config 5's /16, /10 and
+    unknown /16: 259 ranges over 8 lengths).  Each table takes the
+    layout the agent's builders pick past their thresholds: the idx
+    ipcache without L3 planes (more than 32 endpoints) and with the
+    [B, P] range scan (more than 4 lengths), the DIR-24-8 prefilter
+    (more than 128 CIDRs), the classic LB (more than 40 backends).
+    `lpm` is the `node_lpm` deployment: NODE_LPM_CIDRS /24 CIDR
+    identities instead of the 256 blocks, so the ipcache holds more
+    than 512 ranges and is DIR-24-8 itself.  `kw` overrides
+    make_world's arguments (the tests' small nodes)."""
+    args = dict(n_endpoints=NODE_ENDPOINTS, n_blocklist=NODE_BLOCKLIST - 1,
+                big_vip_backends=NODE_BIG_VIP_BACKENDS,
+                cidr_plens=NODE_CIDR_PLENS)
+    if lpm:
+        args.update(n_cidr_blocks=NODE_LPM_CIDRS, cidr_plens=(24,))
+    args.update(kw)
+    return make_world(seed=seed, **args)
 
 
 # -- the L7 side ---------------------------------------------------------------

@@ -638,8 +638,8 @@ def test_churn_loop_raises_on_a_layout_the_kernels_refuse():
     loop raise instead of running the plain version."""
     _need_card()
     w, tables = _card_world()
-    bad = dataclasses.replace(
-        tables, ipcache=dataclasses.replace(tables.ipcache, range_rows=None))
-    with pytest.raises(ValueError, match="range classes"):
+    bad = dataclasses.replace(tables, policy=dataclasses.replace(
+        tables.policy, l4_hash_rows=None))
+    with pytest.raises(ValueError, match="dense lattice"):
         trp.replay_pool(bad, dict(w.pool), 1000, batch_size=1000,
                         ct_map=convert_ct_port(w.ct), device="cuda")

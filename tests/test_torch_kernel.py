@@ -77,10 +77,24 @@ def test_kernel_refuses_layouts_it_does_not_implement():
     tel = verdict.make_telemetry_buffers("cuda")
     pair = torch.from_numpy(w.pairs(seed=1, half=64, k=1)[0].view(np.int32))
     kernels.DATAPATH_PAIR(tables, pair.cuda(), acc, tel)
-    # the [B, P] broadcast range fallback is not implemented
+    # without range classes the kernel scans every range ([B, P]), as
+    # the plain version does
+    from cilium_tpu_torch.engine import datapath as dp
+
     no_ranges = dataclasses.replace(
         tables, ipcache=dataclasses.replace(tables.ipcache, range_rows=None))
-    with pytest.raises(ValueError, match="range classes"):
-        kernels.DATAPATH_PAIR(no_ranges, pair.cuda(), acc, tel)
+    got = kernels.DATAPATH_PAIR(no_ranges, pair.cuda(), acc.clone(),
+                                tel.clone())
+    want = dp.datapath_pair_plain(no_ranges, pair.cuda(), acc.clone(),
+                                  tel.clone())
+    for g, p in zip(got[:2], want[:2]):
+        for col in dp.VERDICT_COLUMNS:
+            assert torch.equal(getattr(g, col), getattr(p, col)), col
+    assert torch.equal(got[2], want[2]) and torch.equal(got[3], want[3])
+    # the dense lattice inside the datapath is not implemented
+    dense = dataclasses.replace(tables, policy=dataclasses.replace(
+        tables.policy, l4_hash_rows=None))
+    with pytest.raises(ValueError, match="dense lattice"):
+        kernels.DATAPATH_PAIR(dense, pair.cuda(), acc, tel)
     with pytest.raises(ValueError, match="CUDA"):
         kernels.DATAPATH_PAIR(tables, pair, acc, tel)

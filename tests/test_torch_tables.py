@@ -190,8 +190,9 @@ def test_narrow_lanes_spill_to_stashes():
 
 def test_refusals_match_reference():
     """Where the reference keeps a wide layout the port refuses the
-    same way; where the reference would take a form the port does not
-    carry (DIR-24-8), the port raises instead."""
+    same way; where the reference falls back to DIR-24-8 (more than 512
+    ranges for the ipcache, more than 128 CIDRs for the prefilter) the
+    port builds the same tables."""
     w = world.make_world(seed=1, **SMALL)
     pol = w.host_tables().policy
     many = [type(w.states[0])(w.states[0]) for _ in range(300)]
@@ -207,10 +208,13 @@ def test_refusals_match_reference():
             )
         )
     ranges = {f"100.{a}.{b}.0/24": 5 for a in range(3) for b in range(200)}
-    with pytest.raises(ValueError, match="DIR-24-8"):
-        tlpm.build_ipcache(ranges)
-    with pytest.raises(ValueError, match="DIR-24-8"):
-        tpf.build_prefilter([f"100.{a}.0.0/16" for a in range(200)])
+    got = tlpm.build_ipcache(ranges)
+    assert isinstance(got, tlpm.LPMTables)
+    assert_same_leaves(got, jlpm.build_ipcache(ranges), "build_ipcache")
+    cidrs = [f"100.{a}.0.0/16" for a in range(200)]
+    got = tpf.build_prefilter(cidrs)
+    assert isinstance(got, tlpm.LPMTables)
+    assert_same_leaves(got, jpf.build_prefilter(cidrs), "build_prefilter")
     assert pol.l4_hash_rows is not None
 
 

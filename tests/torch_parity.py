@@ -95,11 +95,13 @@ def port_inputs(states, ct, mgr):
 
 
 def jax_host_tables(world, subword: bool):
-    """The JAX builders on a port World's inputs."""
+    """The JAX builders on a port World's inputs, each plane in the
+    layout its dispatching builder picks, as the daemon assembles them
+    (cilium_tpu/daemon.py:2255)."""
     from cilium_tpu.compiler.tables import compile_map_states
     from cilium_tpu.ct.device import compile_ct
     from cilium_tpu.ipcache.lpm import build_ipcache, specialize_ipcache_to_idx
-    from cilium_tpu.lb.device import compile_lb_inline
+    from cilium_tpu.lb.device import compile_lb
     from cilium_tpu.prefilter import build_prefilter
 
     inp = jax_inputs(world)
@@ -111,7 +113,7 @@ def jax_host_tables(world, subword: bool):
         prefilter=build_prefilter(world.prefilter_cidrs),
         ipcache=specialize_ipcache_to_idx(build_ipcache(world.ipc_map), pol),
         ct=compile_ct(inp["ct"]),
-        lb=compile_lb_inline(inp["mgr"]),
+        lb=compile_lb(inp["mgr"]),
         policy=pol,
     )
     if subword:
