@@ -85,7 +85,25 @@ launch counts set to 0 just before it and read just after:
              loops with the snapshot against its mirror, and 512 pool
              rows against the composed oracle; after it node_timing
              times both kernels on the world's layouts, and config 5's
-             again in the same run.
+             again in the same run;
+  memo       config 5's memoized headline pair (bench.py's timed memo
+             loop): 8 Zipf(1.1) pairs of 2 x 2,097,152 flows through
+             memo_pair_packed4 behind AsyncBatchDispatcher (depth 2),
+             rep_cap 524,288, a 16,384-row verdict cache
+             (DATAPATH_PAIR_MEMO's front and back passes, MEMO_DEDUP and
+             MEMO_CACHE per half), hit rate, dedup factor, and the
+             uncached headline on the same pairs in turns; before it
+             memo_check runs bench.py's memo gates at rep_cap 2,097,152
+             (uniform cold and warm, Zipf twice) against the plain
+             memoized pair and the uncached DATAPATH_PAIR, each memo kernel
+             against its plain version, a stamp flush onto a rebuilt
+             policy (0 hits, then hits), an overflow at rep_cap 1,024 and
+             memo_evaluate against LATTICE and its plain version on
+             4,194,304 Zipf tuples;
+  memo_lattice  memo_evaluate (the daemon's serving shape) through a
+             VerdictCache, 8 calls on those tuples (MEMO_KEYS_LATTICE,
+             MEMO_DEDUP, MEMO_CACHE), and LATTICE's uncached line; then
+             memo_timing.
 
 The churn path's int picks are drawn on the card by PICK_DRAW, the
 reference's threefry2x32 randint; churn_check also runs 2 int-pick
@@ -105,11 +123,12 @@ launches on its path, its error against the plain version, its time
 least time the card could take: the bytes this run's data needs read
 and written once at 3.35 TB/s, or its operations at 67 T/s, whichever
 is larger.  `library_ms` is the time of `index_copy_` for CT_DELTA,
-of `torch.randint` for PICK_DRAW (other numbers on the same shape: a
-time only) and null for the others: no single PyTorch call computes the fused
-datapath steps, the intent compaction, a DFA scan, the Kafka rule
-match, the fleet's routed match, the policy lattice, the two
-dependent DIR-24-8 reads or the v6 program.  LATTICE's launches are
+of `torch.unique` for MEMO_DEDUP, of `torch.randint` for PICK_DRAW
+(other numbers on the same shape: a time only) and null for the others:
+no single PyTorch call computes the fused datapath steps, the intent
+compaction, a DFA scan, the Kafka rule match, the fleet's routed match,
+the policy lattice, the two dependent DIR-24-8 reads, the v6 program,
+the verdict cache or the memo's key words.  LATTICE's launches are
 summed over its four paths, its time is config 5's compact mode;
 LPM_LOOKUP's time is config 2's 1,048,576 addresses; DATAPATH6's is
 config 6's 1,048,576 flows.  The DATAPATH_PAIR and DATAPATH_STEP rows
@@ -125,7 +144,13 @@ are summed over the main path and the two node paths
 instantiation (kernels.layout_name) and world, the time, plain time,
 bytes, operations and bound of node_timing.  Then the card's name and
 power limit as nvidia-smi prints them, then {"ok": true, "device":
-{...}}.
+{...}}.  The memo rows: DATAPATH_PAIR_MEMO's time is its front and back
+passes on one Zipf pair (`front_ms`, `back_ms`; `memo_pair_ms` the whole
+memoized pair, `uncached_pair_ms` DATAPATH_PAIR on the same pair) and its
+plain time the whole plain memoized pair; MEMO_DEDUP's and MEMO_CACHE's
+times are one half's at rep_cap 524,288, MEMO_DEDUP's library call
+`torch.unique(keys, dim=0, return_inverse=True)`; MEMO_KEYS_LATTICE's
+time is its keys and combine launches on 4,194,304 tuples.
 """
 
 from __future__ import annotations
@@ -2818,6 +2843,633 @@ def node_phases(kernels, w5, tables5, wide5, rows) -> None:
             r["launches"] = sum(r["launches_by_path"].values())
 
 
+MEMO_ROWS = 1 << 14  # bench.py's VerdictCache(n_rows=1 << 14)
+MEMO_REP_CAP = max(HALF >> 2, 1 << 10)  # bench.py's memo_rep_cap
+MEMO_OVERFLOW_CAP = 1 << 10
+MEMO_ZIPF_S = 1.1  # bench.py --zipf-s
+MEMO_PAIRS = 8
+MEMO_DEPTH = 2  # the AsyncBatchDispatcher's depth
+MEMO_TUPLES = 1 << 22  # memo_evaluate's Zipf tuples
+MEMO_CALLS = 8
+MEMO_KERNELS = ("datapath_pair_memo", "memo_dedup", "memo_cache",
+                "memo_keys_lattice")
+
+
+def memo_err(k, p, dp) -> int:
+    """Max difference between two memoized pairs' outputs: the 15
+    columns of both halves, the counters, the telemetry, the rows, the
+    hit flags and the stats."""
+    return max(compare(k[:2], p[:2], dp), buf_err(k[2], p[2]),
+               buf_err(k[3], p[3]), int_err(k[4], p[4], u32=True),
+               int_err(k[5], p[5]), int_err(k[6], p[6]),
+               int_err(k[7], p[7], u32=True))
+
+
+def memo_gate(kernels, tables, pair_host, cache, rep_cap):
+    """One pair through the memoized kernels, the plain memoized pair
+    and the uncached DATAPATH_PAIR, from fresh carries and the cache's
+    rows (bench.py's _memo_gate): returns (stats row, error against the
+    plain version, error against the uncached pair over the 15 columns,
+    the counters and the telemetry, hits consistent with the stats)."""
+    from cilium_tpu_torch.engine import datapath as dp
+    from cilium_tpu_torch.engine import memo
+    from cilium_tpu_torch.engine import verdict
+
+    pt = torch.from_numpy(pair_host.view(np.int32)).cuda()
+    stamp, rows = cache.acquire()
+    acc = verdict.make_counter_buffers(tables.policy)
+    tel = verdict.make_telemetry_buffers("cuda")
+    bufs = [(acc.clone(), tel.clone()) for _ in range(3)]
+    k = memo.memo_pair_packed4(tables, pt, rows, *bufs[0], rep_cap)
+    p = memo.memo_pair_plain(tables, pt, rows, *bufs[1], rep_cap)
+    u = kernels.DATAPATH_PAIR(tables, pt, *bufs[2])
+    torch.cuda.synchronize()
+    row = cache.account(k[7])
+    err_ref = max(compare(k[:2], u[:2], dp), buf_err(k[2], u[2]),
+                  buf_err(k[3], u[3]))
+    hits = int(k[5].sum().item() + k[6].sum().item()) == row["hits"]
+    cache.commit(stamp, k[4])
+    return row, memo_err(k, p, dp), err_ref, hits
+
+
+def memo_pair_inputs(keys):
+    """The plain lattice inputs of a pair half from its key words (exact
+    for packed4 flows: ep < 2^16, direction 0 or 1)."""
+    from cilium_tpu_torch.device import widen
+
+    k0, k1, k2 = (widen(keys[i]) for i in range(3))
+    return dict(keys=(k0, k1, k2), idx=k0, known=((k1 >> 1) & 1).bool(),
+                l3_bit=(k1 & 1).bool(), ep=k2 >> 1, dirn=k2 & 1,
+                dport=k1 >> 16, proto=(k1 >> 8) & 0xFF)
+
+
+def groups_to_card(g):
+    """dedup_groups' plain dict as MEMO_CACHE takes MEMO_DEDUP's."""
+    i32 = lambda x: x.to(torch.int32).contiguous()
+    dev = g["srow"].device
+    return dict(srow=i32(g["srow"]), gid=i32(g["gid"]),
+                rep_orig=i32(g["rep_orig"]),
+                n_unique=torch.tensor([g["n_unique"]], dtype=torch.int32,
+                                      device=dev),
+                overflow=torch.tensor([g["overflow"]], dtype=torch.int32,
+                                      device=dev))
+
+
+def dedup_err(k, p) -> int:
+    err = max(int_err(k[n], p[n]) for n in ("srow", "gid", "rep_orig",
+                                            "rep_valid"))
+    return max(err, abs(int(k["n_unique"].item()) - p["n_unique"]),
+               abs(int(k["overflow"].item()) - p["overflow"]))
+
+
+def memo_keys_plain(pol, batch):
+    """MEMO_KEYS_LATTICE's keys mode, plain: [3, B] int64 u32 values."""
+    from cilium_tpu_torch.device import widen
+    from cilium_tpu_torch.engine import memo
+    from cilium_tpu_torch.engine.verdict import _index_identity
+
+    idx, known = _index_identity(pol, widen(batch.identity))
+    return torch.stack(memo.memo_key_words(
+        idx, known, None, batch.ep_index.to(torch.int64),
+        batch.direction.to(torch.int64),
+        batch.dport.to(torch.int64).clamp(0, 65535),
+        batch.proto.to(torch.int64).clamp(0, 255)))
+
+
+def memo_policy_churn(w, tables):
+    """The stamp flush's new epoch: config 5's policy rebuilt with one
+    more map-state entry (endpoint 0 admits identity_ids[10] on TCP
+    4311, ingress), in the headline layout, beside the other planes."""
+    from cilium_tpu_torch.compiler.tables import (
+        compile_map_states,
+        repack_l4_subword,
+        split_hot,
+    )
+    from cilium_tpu_torch.convert import policy_tables_to
+    from cilium_tpu_torch.maps.policymap import (
+        PolicyKey,
+        PolicyMapStateEntry,
+    )
+
+    states = list(w.states)
+    states[0] = dict(states[0])
+    states[0][PolicyKey(int(w.identity_ids[10]), 4311, 6, 0)] = (
+        PolicyMapStateEntry())
+    pol = compile_map_states(states, w.identity_ids,
+                             identity_pad=w.identity_pad,
+                             filter_pad=w.filter_pad)
+    pol = policy_tables_to(split_hot(repack_l4_subword(pol)), "cuda")
+    return dataclasses.replace(tables, policy=pol)
+
+
+def memo_zipf_tuples(w, n: int, seed: int) -> dict:
+    """`n` lattice tuples whose rows are drawn rank-Zipf(1.1) from 65,536
+    of bench's lattice tuples."""
+    from cilium_tpu_torch import world
+
+    base = world.lattice_tuples(w, 1 << 16, seed=seed)
+    picks = world.zipf_picks(np.random.default_rng(seed + 1), 1 << 16, n,
+                             MEMO_ZIPF_S)
+    return {k: v[picks] for k, v in base.items()}
+
+
+def memo_check(kernels, w, tables) -> dict:
+    """memo_check: bench.py's memo gates on the card at rep_cap = HALF
+    (uniform cold and warm, Zipf twice) and once more on the Zipf pair
+    at the timed loop's rep_cap (MEMO_REP_CAP), each new kernel against its
+    plain version on the Zipf pair's keys, the stamp flush onto a
+    rebuilt policy (0 hits, then hits), the overflow case (rep_cap
+    1,024: stats, and the carried state unchanged) and memo_evaluate
+    against LATTICE and its plain version on 4,194,304 Zipf tuples
+    (cold and warm).  The limit is 0 differences."""
+    from cilium_tpu_torch import world
+    from cilium_tpu_torch.compiler.tables import tables_layout_version
+    from cilium_tpu_torch.convert import cache_rows_to
+    from cilium_tpu_torch.device import widen
+    from cilium_tpu_torch.engine import memo
+    from cilium_tpu_torch.engine import verdict
+    from cilium_tpu_torch.engine.verdict import TupleBatch
+
+    t = time.perf_counter()
+    cache = memo.VerdictCache(n_rows=MEMO_ROWS, device="cuda")
+    cache.ensure((1, tables_layout_version(tables.policy)))
+    uni = w.pairs(seed=41, half=HALF, k=1)[0]
+    zp = world.zipf_pairs(w, np.random.default_rng(53), HALF, 1,
+                          MEMO_ZIPF_S)[0]
+    err_plain = err_ref = 0
+    hits = {}
+    consistent = True
+    # the last gate runs at the timed loop's rep_cap
+    for tag, pair, cap in (("uniform_cold", uni, HALF),
+                           ("uniform_warm", uni, HALF), ("zipf", zp, HALF),
+                           ("zipf_warm", zp, HALF),
+                           ("zipf_timed_cap", zp, MEMO_REP_CAP)):
+        row, ep_, er, ok = memo_gate(kernels, tables, pair, cache, cap)
+        err_plain, err_ref = max(err_plain, ep_), max(err_ref, er)
+        consistent &= ok and row["overflow"] == 0
+        hits[tag] = row["hits"]
+    gate_rows = dict(cache.snapshot())
+
+    # each new kernel against its plain version on the Zipf pair's keys
+    pt = torch.from_numpy(zp.view(np.int32)).cuda()
+    front = kernels.DATAPATH_PAIR_MEMO.front(tables, pt)
+    keys = front.keys[0]
+    g_k = kernels.MEMO_DEDUP(keys, HALF)
+    inp = memo_pair_inputs(keys)
+    g_p = memo.dedup_groups(*inp["keys"], HALF)
+    err_dedup = dedup_err(g_k, g_p)
+    rows = cache.rows
+    out_k = torch.empty_like(rows)
+    st_k = torch.empty(memo.STATS, dtype=torch.int32, device="cuda")
+    v0, v1, hit = kernels.MEMO_CACHE(
+        tables.policy, keys, groups_to_card(g_p), rows, out_k, st_k,
+        rep_cap=HALF, has_l3=front.has_l3)
+    pv0, pv1, phit, prow, pst = memo.memo_cache_plain(
+        tables.policy, rows, inp["keys"], g_p, inp["idx"], inp["known"],
+        inp["l3_bit"] if front.has_l3 else None, inp["ep"], inp["dirn"],
+        inp["dport"], inp["proto"], HALF)
+    err_cache = max(int_err(v0, pv0, u32=True), int_err(v1, pv1, u32=True),
+                    int_err(hit, phit), int_err(out_k, prow, u32=True),
+                    int_err(st_k, pst, u32=True))
+
+    # the stamp flush: a new epoch's policy, 0 hits, then hits again
+    tables2 = memo_policy_churn(w, tables)
+    stamp2 = (2, tables_layout_version(tables2.policy))
+    flushed = cache.ensure(stamp2) and cache.flushes == 1
+    for tag in ("flush", "flush_warm"):
+        row, ep_, er, ok = memo_gate(kernels, tables2, zp, cache, HALF)
+        err_plain, err_ref = max(err_plain, ep_), max(err_ref, er)
+        consistent &= ok and row["overflow"] == 0
+        hits[tag] = row["hits"]
+    del tables2
+
+    # overflow: the stats report it, the carried state stays as it was
+    pu = torch.from_numpy(uni.view(np.int32)).cuda()
+    acc = verdict.make_counter_buffers(tables.policy)
+    tel = verdict.make_telemetry_buffers("cuda")
+    rows0 = cache.rows.clone()
+    k = memo.memo_pair_packed4(tables, pu, cache.rows, acc, tel,
+                               MEMO_OVERFLOW_CAP)
+    p = memo.memo_pair_plain(tables, pu, cache.rows, acc.clone(),
+                             tel.clone(), MEMO_OVERFLOW_CAP)
+    torch.cuda.synchronize()
+    overflow = int(k[7][memo.STAT_OVERFLOW].item())
+    err_over = max(int_err(k[7], p[7], u32=True),
+                   buf_err(k[2], torch.zeros_like(acc)),
+                   buf_err(k[3], torch.zeros_like(tel)),
+                   int_err(k[4], rows0, u32=True),
+                   int_err(p[4], rows0, u32=True))
+
+    # memo_evaluate against LATTICE and its plain version
+    cols = memo_zipf_tuples(w, MEMO_TUPLES, 61)
+    batch = TupleBatch.from_numpy(**cols, device="cuda")
+    pol = tables.policy
+    rows_e = cache_rows_to(memo.make_cache_rows(MEMO_ROWS), "cuda")
+    err_eval = err_eval_ref = 0
+    eval_hits = []
+    for _ in range(2):
+        v, rows2, hit_e, st = memo.memo_evaluate(pol, batch, rows_e,
+                                                 rep_cap=MEMO_TUPLES)
+        pv, prows, phit_e, pst_e = memo.memo_evaluate_plain(
+            pol, batch, rows_e, MEMO_TUPLES)
+        lv = kernels.LATTICE(pol, batch)[0]
+        torch.cuda.synchronize()
+        err_eval = max(err_eval, verdicts_err(v, pv),
+                       int_err(rows2, prows, u32=True),
+                       int_err(hit_e, phit_e), int_err(st, pst_e, u32=True))
+        err_eval_ref = max(err_eval_ref, verdicts_err(v, lv))
+        eval_hits.append(int(st[memo.STAT_HIT].item()))
+        rows_e = rows2
+    k_keys = kernels.MEMO_KEYS_LATTICE.keys(pol, batch.pack())
+    err_keys = int_err(widen(k_keys), memo_keys_plain(pol, batch))
+    torch.cuda.synchronize()
+
+    ok = (err_plain == 0 and err_ref == 0 and consistent and flushed
+          and hits["uniform_cold"] == 0 and hits["uniform_warm"] > 0
+          and hits["zipf_warm"] > 0 and hits["zipf_timed_cap"] > 0
+          and hits["flush"] == 0
+          and hits["flush_warm"] > 0 and overflow > 0 and err_over == 0
+          and err_dedup == 0 and err_cache == 0 and err_eval == 0
+          and err_eval_ref == 0 and err_keys == 0 and eval_hits[0] == 0
+          and eval_hits[1] > 0)
+    phase("memo_check", t, rep_cap=HALF, timed_rep_cap=MEMO_REP_CAP,
+          rows=MEMO_ROWS,
+          hits=json.dumps(hits), pair_vs_plain_err=err_plain,
+          pair_vs_uncached_err=err_ref, hits_consistent=consistent,
+          flushed=flushed, dedup_err=err_dedup, cache_err=err_cache,
+          overflow_cap=MEMO_OVERFLOW_CAP, overflow=overflow,
+          overflow_err=err_over, evaluate_tuples=MEMO_TUPLES,
+          evaluate_vs_plain_err=err_eval,
+          evaluate_vs_lattice_err=err_eval_ref, evaluate_hits=eval_hits,
+          keys_err=err_keys, gate_cache=json.dumps(gate_rows))
+    if not ok:
+        raise SystemExit("memo_check failed")
+    return dict(err_pair=max(err_plain, err_ref, err_over), err_dedup=err_dedup,
+                err_cache=err_cache, err_keys=max(err_keys, err_eval),
+                batch=batch, zp=zp)
+
+
+def memo_loop(kernels, tables, pairs, memo_on: bool) -> dict:
+    """The headline's double-buffered staging loop (AsyncBatchDispatcher,
+    depth 2) over `pairs`, with the memo plane in front of the lattice
+    (rep_cap MEMO_REP_CAP, a fresh 16,384-row cache warmed by one pair)
+    or uncached (DATAPATH_PAIR); launch counts set to 0 just before the
+    timed pairs and read just after."""
+    from cilium_tpu_torch.convert import cache_rows_to
+    from cilium_tpu_torch.device import u32_tensor
+    from cilium_tpu_torch.engine import datapath as dp
+    from cilium_tpu_torch.engine import memo
+    from cilium_tpu_torch.engine import verdict
+    from cilium_tpu_torch.engine.publish import AsyncBatchDispatcher
+
+    st = dict(acc=verdict.make_counter_buffers(tables.policy),
+              tel=verdict.make_telemetry_buffers("cuda"),
+              rows=cache_rows_to(memo.make_cache_rows(MEMO_ROWS), "cuda"))
+    stats = []
+
+    def dispatch(pt, acc, tel):
+        if not memo_on:
+            return dp.datapath_step_accum_pair_telem_packed4_stacked(
+                tables, pt, acc, tel)[:2]
+        out = memo.memo_pair_packed4(tables, pt, st["rows"], acc, tel,
+                                     MEMO_REP_CAP)
+        st["rows"] = out[4]
+        stats.append(out[7])
+        return out[:2]
+
+    # warm-up (first touch of the cache) into scratch carries
+    dispatch(u32_tensor(pairs[0], "cuda"), st["acc"].clone(),
+             st["tel"].clone())
+    torch.cuda.synchronize()
+    stats.clear()
+    disp = AsyncBatchDispatcher(
+        pack_fn=lambda p: (u32_tensor(p, "cuda"),),
+        dispatch_fn=lambda pt: dispatch(pt, st["acc"], st["tel"]),
+        depth=MEMO_DEPTH)
+    reset_counts(kernels)
+    t0 = time.perf_counter()
+    done = []
+    for p in pairs:
+        done.extend(disp.submit((p,)))
+    done.extend(disp.flush())
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = {k.name: k.launches for k in kernels.KERNELS}
+    if any(exc is not None for _, _, exc in done) or len(done) != len(pairs):
+        raise SystemExit("memo loop: a batch failed")
+    folded = ((torch.stack(stats).to(torch.int64) & 0xFFFFFFFF).sum(dim=0)
+              .tolist() if stats else None)
+    return dict(wall=wall, acc=st["acc"], tel=st["tel"], counts=counts,
+                folded=folded,
+                overflow_batches=sum(int(s[memo.STAT_OVERFLOW].item()) > 0
+                                     for s in stats),
+                verdicts_per_s=len(pairs) * 2 * HALF / wall)
+
+
+def memo_path(kernels, w, tables) -> dict:
+    """memo: bench.py's timed memo loop on the card: 8 Zipf(1.1) pairs
+    through the memoized pair (rep_cap 524,288, 16,384 cache rows), and
+    the uncached headline on the same pairs, in turns (uncached, memo,
+    memo, uncached).  The memoized loop's counters and telemetry must
+    equal the uncached loop's, and only the memo kernels may launch."""
+    from cilium_tpu_torch import world
+    from cilium_tpu_torch.engine import memo
+
+    t = time.perf_counter()
+    pairs = world.zipf_pairs(w, np.random.default_rng(59), HALF, MEMO_PAIRS,
+                             MEMO_ZIPF_S)
+    runs = [memo_loop(kernels, tables, pairs, on)
+            for on in (False, True, True, False)]
+    memo_runs = runs[1:3]
+    want = {"datapath_pair_memo": 2 * MEMO_PAIRS, "memo_dedup": 2 * MEMO_PAIRS,
+            "memo_cache": 2 * MEMO_PAIRS}
+    launches_ok = all(
+        all(r["counts"][n] == want.get(n, 0) for n in r["counts"])
+        for r in memo_runs)
+    err = max(max(buf_err(r["acc"], runs[0]["acc"]),
+                  buf_err(r["tel"], runs[0]["tel"])) for r in memo_runs)
+    f = memo_runs[0]["folded"]
+    hit_rate = f[memo.STAT_HIT] / max(f[memo.STAT_TUPLES], 1)
+    dedup = f[memo.STAT_TUPLES] / max(f[memo.STAT_UNIQUE], 1)
+    phase("memo", t, pairs=MEMO_PAIRS, depth=MEMO_DEPTH,
+          rep_cap=MEMO_REP_CAP, rows=MEMO_ROWS, zipf_s=MEMO_ZIPF_S,
+          verdicts_per_s=[round(r["verdicts_per_s"]) for r in memo_runs],
+          uncached_verdicts_per_s=[round(runs[i]["verdicts_per_s"])
+                                   for i in (0, 3)],
+          hit_rate=round(hit_rate, 6), dedup_factor=round(dedup, 2),
+          unique_keys_per_batch=round(f[memo.STAT_UNIQUE] / MEMO_PAIRS / 2),
+          insertions=f[memo.STAT_INSERT],
+          overflow_batches=[r["overflow_batches"] for r in memo_runs],
+          launches=json.dumps(memo_runs[0]["counts"]),
+          counters_vs_uncached_err=err)
+    if not launches_ok or err or any(r["overflow_batches"] for r in memo_runs):
+        raise SystemExit("memo: wrong launches, an overflow, or counters "
+                         "that differ from the uncached loop")
+    return dict(launches=memo_runs[0]["counts"], pairs=pairs)
+
+
+def memo_lattice_path(kernels, tables, batch) -> dict:
+    """memo_lattice: memo_evaluate (the daemon's serving shape) through
+    a VerdictCache over 4,194,304 Zipf tuples, 8 calls, and LATTICE's
+    uncached line on the same tuples; the last call's verdicts against
+    LATTICE's (0 differences)."""
+    from cilium_tpu_torch.compiler.tables import tables_layout_version
+    from cilium_tpu_torch.engine import memo
+
+    t = time.perf_counter()
+    pol = tables.policy
+    cache = memo.VerdictCache(n_rows=MEMO_ROWS, device="cuda")
+    cache.ensure((1, tables_layout_version(pol)))
+    torch.cuda.synchronize()
+    reset_counts(kernels)
+    t0 = time.perf_counter()
+    stats = []
+    for _ in range(MEMO_CALLS):
+        stamp, rows = cache.acquire()
+        v, rows2, _, st = memo.memo_evaluate(pol, batch, rows,
+                                             rep_cap=MEMO_TUPLES)
+        cache.commit(stamp, rows2)
+        stats.append(st)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = {k.name: k.launches for k in kernels.KERNELS}
+    for st in stats:
+        cache.account(st)
+    t1 = time.perf_counter()
+    for _ in range(MEMO_CALLS):
+        lv = kernels.LATTICE(pol, batch)[0]
+    torch.cuda.synchronize()
+    wall_u = time.perf_counter() - t1
+    err = verdicts_err(v, lv)
+    want = {"memo_keys_lattice": 2 * MEMO_CALLS, "memo_dedup": MEMO_CALLS,
+            "memo_cache": MEMO_CALLS}
+    snap = cache.snapshot()
+    phase("memo_lattice", t, calls=MEMO_CALLS, tuples=MEMO_TUPLES,
+          verdicts_per_s=round(MEMO_CALLS * MEMO_TUPLES / wall),
+          uncached_verdicts_per_s=round(MEMO_CALLS * MEMO_TUPLES / wall_u),
+          hit_rate=round(snap["hit_rate"], 6),
+          dedup_factor=round(snap["dedup_factor"], 2),
+          launches=json.dumps(counts), max_abs_err=err)
+    if err or any(counts[n] != want.get(n, 0) for n in counts):
+        raise SystemExit("memo_lattice: wrong launches or verdicts")
+    return counts
+
+
+def memo_mode_plain(tables, pair, vals, acc, tel):
+    """DATAPATH_PAIR's memo mode (its front and back passes), plain: both
+    packed4 halves through the fused pipeline with stage 6's lattice
+    outputs read from the memo's value words vals int32 [2, 2, B] (v0,
+    v1 per half); the counters and telemetry accumulate into `acc` and
+    `tel` in place.  Returns (out_in, out_eg)."""
+    from cilium_tpu_torch.device import narrow, widen
+    from cilium_tpu_torch.engine import datapath as dp
+    from cilium_tpu_torch.engine import memo
+    from cilium_tpu_torch.engine.verdict import (
+        _accumulate_counters,
+        _index_identity,
+    )
+
+    halves = []
+    for h in (0, 1):
+        words = memo.unpack_value_words(widen(vals[h, 0]), widen(vals[h, 1]))
+
+        def fn(pol, ep, dirn, dport, proto, identity=None, idx_known=None,
+               words=words):
+            idx = (idx_known[0] if idx_known is not None
+                   else _index_identity(pol, identity)[0])
+            return (*words, idx)
+
+        halves.append(dp._datapath_half(
+            tables, dp.flow_batch_from_packed4(pair[h]), h == 0,
+            lattice_fn=fn))
+    (out_i, cols_i, t_i), (out_e, cols_e, t_e) = halves
+    _accumulate_counters(
+        acc, *(torch.cat([a, b]) for a, b in zip(cols_i, cols_e)))
+    tel.copy_(narrow(widen(tel) + torch.stack([t_i, t_e])))
+    return out_i, out_e
+
+
+def memo_timing(kernels, tables, chk, path, lat_counts) -> list:
+    """memo_timing: each memo kernel on a Zipf pair (rep_cap 524,288, a
+    warm cache): CUDA events over 20 launches, the plain version's
+    time, the byte bound (the stream once, each distinct table or cache
+    row the plain version gathers once, outputs written once), and
+    torch.unique's time for MEMO_DEDUP; the four kernels' rows."""
+    from cilium_tpu_torch.device import widen
+    from cilium_tpu_torch.engine import datapath as dp
+    from cilium_tpu_torch.engine import memo
+    from cilium_tpu_torch.engine import verdict
+
+    t = time.perf_counter()
+    pol = tables.policy
+    pt = torch.from_numpy(path["pairs"][0].view(np.int32)).cuda()
+    acc = verdict.make_counter_buffers(pol)
+    tel = verdict.make_telemetry_buffers("cuda")
+    rows = torch.from_numpy(memo.make_cache_rows(MEMO_ROWS).view(np.int32)
+                            ).cuda()
+    rows = memo.memo_pair_packed4(tables, pt, rows, acc, tel,
+                                  MEMO_REP_CAP)[4]  # warm
+    front = kernels.DATAPATH_PAIR_MEMO.front(tables, pt)
+    keys = front.keys[0]
+    g = kernels.MEMO_DEDUP(keys, MEMO_REP_CAP)
+    out_rows = torch.empty_like(rows)
+    stats = torch.empty(memo.STATS, dtype=torch.int32, device="cuda")
+    vals = torch.empty((2, 2, HALF), dtype=torch.int32, device="cuda")
+    hits = torch.empty((2, HALF), dtype=torch.bool, device="cuda")
+
+    def cache_call(h, gh):
+        return kernels.MEMO_CACHE(
+            pol, front.keys[h], gh, rows, out_rows, stats,
+            rep_cap=MEMO_REP_CAP, has_l3=front.has_l3, accumulate=h == 1,
+            out=(vals[h, 0], vals[h, 1], hits[h]))
+
+    cache_call(0, g)
+    cache_call(1, kernels.MEMO_DEDUP(front.keys[1], MEMO_REP_CAP))
+    # the front and back passes against their plain version on these
+    # value words, from fresh carries
+    bufs = [(acc.clone().zero_(), tel.clone().zero_()) for _ in range(2)]
+    mode_k = kernels.DATAPATH_PAIR_MEMO.back(tables, pt, front, vals,
+                                             *bufs[0], stats)
+    mode_p = memo_mode_plain(tables, pt, vals, *bufs[1])
+    torch.cuda.synchronize()
+    err_mode = max(compare(mode_k, mode_p, dp), buf_err(*(x[0] for x in bufs)),
+                   buf_err(*(x[1] for x in bufs)))
+    if err_mode:
+        raise SystemExit(f"memo_timing: the memo mode differs from its plain "
+                         f"version by {err_mode}")
+    mode_plain_ms = event_ms(lambda: memo_mode_plain(
+        tables, pt, vals, acc.clone(), tel.clone()), 2)
+    front_ms = event_ms(lambda: kernels.DATAPATH_PAIR_MEMO.front(tables, pt),
+                        20)
+    back_ms = event_ms(lambda: kernels.DATAPATH_PAIR_MEMO.back(
+        tables, pt, front, vals, acc, tel, stats), 20)
+    dedup_ms = event_ms(lambda: kernels.MEMO_DEDUP(keys, MEMO_REP_CAP), 20)
+    cache_ms = event_ms(lambda: cache_call(0, g), 20)
+    pair_ms = event_ms(lambda: memo.memo_pair_packed4(
+        tables, pt, rows, acc, tel, MEMO_REP_CAP), 20)
+    uncached_ms = event_ms(lambda: kernels.DATAPATH_PAIR(tables, pt, acc, tel),
+                           20)
+    unique_ms = event_ms(lambda: torch.unique(keys.t(), dim=0,
+                                              return_inverse=True), 20)
+    inp = memo_pair_inputs(keys)
+    g_p = memo.dedup_groups(*inp["keys"], MEMO_REP_CAP)
+    dedup_plain = event_ms(lambda: memo.dedup_groups(*inp["keys"],
+                                                     MEMO_REP_CAP), 3)
+
+    def cache_plain():
+        return memo.memo_cache_plain(
+            pol, rows, inp["keys"], g_p, inp["idx"], inp["known"],
+            inp["l3_bit"] if front.has_l3 else None, inp["ep"], inp["dirn"],
+            inp["dport"], inp["proto"], MEMO_REP_CAP)
+
+    cache_plain_ms = event_ms(cache_plain, 3)
+    pair_plain = event_ms(lambda: memo.memo_pair_plain(
+        tables, pt, rows, acc.clone(), tel.clone(), MEMO_REP_CAP), 2)
+    batch = chk["batch"]
+    packed = batch.pack()
+    kv = kernels.MEMO_KEYS_LATTICE.keys(pol, packed)
+    keys_ms = event_ms(lambda: kernels.MEMO_KEYS_LATTICE.keys(pol, packed), 20)
+    v0 = torch.zeros(MEMO_TUPLES, dtype=torch.int32, device="cuda")
+    comb_ms = event_ms(lambda: kernels.MEMO_KEYS_LATTICE.combine(v0, v0,
+                                                                 packed), 20)
+    keys_plain = event_ms(lambda: memo_keys_plain(pol, batch), 3)
+
+    # -- bounds: what each function's inputs and outputs need moved
+    b = HALF
+    n_valid = min(int(g["n_unique"].item()), MEMO_REP_CAP)
+    dedup_bytes = b * (12 + 8) + (MEMO_REP_CAP + 1) * 4 + MEMO_REP_CAP + 8
+    leaves = [("cache.rows", rows)] + [
+        (f"policy.{n}", getattr(pol, n)) for n in (
+            "l4_hash_rows", "l4_hash_stash", "l4_wild_rows", "l4_wild_stash",
+            "l4_meta")]
+    rows_b, _, (_, _, _, rows_new, _) = leaf_bytes(leaves, cache_plain)
+    changed = int((rows_new != rows).any(dim=1).sum().item())
+    cache_bytes = (b * (8 + 9) + n_valid * (4 + 12) + rows_b
+                   + changed * rows.shape[1] * 4)
+    no_lattice = tuple(x for x in kernels.datapath_reads(tables)
+                       if x[0] != "policy")
+    tab_b, _ = table_row_bytes(tables, no_lattice, lambda: (
+        dp.datapath_pair_plain(tables, pt, acc.clone(), tel.clone())))
+    flows = 2 * b
+    front_back_bytes = (flows * (16 + out_bytes_per_flow(dp) + 12 + 8) + tab_b
+                        + 2 * 4 * int(torch.count_nonzero(acc).item())
+                        + 2 * tel.numel() * 4)
+    per_flow, egress = flow_ops(tables)
+    l4_e = pol.l4_hash_rows.shape[1] // pol.l4_hash_stash.shape[1]
+    mode_ops = (per_flow - 2 * (16 * 2 + 4 * l4_e)) * flows + egress * b
+    ident = widen(batch.identity)
+    keys_bytes = (MEMO_TUPLES * (20 + 12 + 12 + 6)
+                  + 4 * int(torch.unique(ident).numel()))
+    mb = lambda n: n / HBM_BYTES_PER_S * 1e3
+    mo = lambda n: n / OPS_PER_S * 1e3
+    per_pair = {n: path["launches"][n] / MEMO_PAIRS
+                for n in ("datapath_pair_memo", "memo_dedup", "memo_cache")}
+    phase("memo_timing", t, front_ms=round(front_ms, 4),
+          back_ms=round(back_ms, 4), dedup_ms=round(dedup_ms, 4),
+          cache_ms=round(cache_ms, 4), memo_pair_ms=round(pair_ms, 4),
+          uncached_pair_ms=round(uncached_ms, 4),
+          unique_ms=round(unique_ms, 4), dedup_plain_ms=round(dedup_plain, 4),
+          cache_plain_ms=round(cache_plain_ms, 4),
+          memo_pair_plain_ms=round(pair_plain, 4),
+          memo_mode_plain_ms=round(mode_plain_ms, 4), memo_mode_err=err_mode,
+          keys_ms=round(keys_ms, 4),
+          combine_ms=round(comb_ms, 4), keys_plain_ms=round(keys_plain, 4),
+          representatives=n_valid, dedup_bytes=dedup_bytes,
+          cache_bytes=cache_bytes, memo_mode_bytes=front_back_bytes,
+          keys_bytes=keys_bytes, launches_per_pair=json.dumps(per_pair))
+    del kv
+    rows_out = [
+        dict(kernel_row(
+            kernels.DATAPATH_PAIR_MEMO, "cilium_tpu_torch/csrc/datapath.cu",
+            "cilium_tpu/engine/memo.py:781",
+            path["launches"]["datapath_pair_memo"], max(chk["err_pair"],
+                                                         err_mode),
+            front_ms + back_ms, mode_plain_ms, mb(front_back_bytes),
+            mo(mode_ops)),
+            front_ms=front_ms, back_ms=back_ms, memo_pair_ms=pair_ms,
+            memo_pair_plain_ms=pair_plain, uncached_pair_ms=uncached_ms,
+            plain_of="the front and back passes, plain, on the same value "
+                     "words",
+            launches_per_pair=per_pair["datapath_pair_memo"]),
+        dict(kernel_row(
+            kernels.MEMO_DEDUP, "cilium_tpu_torch/csrc/memo.cu",
+            "cilium_tpu/engine/memo.py:205",
+            path["launches"]["memo_dedup"] + lat_counts["memo_dedup"],
+            chk["err_dedup"], dedup_ms, dedup_plain, mb(dedup_bytes),
+            mo(3 * b), library_ms=unique_ms),
+            launches_by_path={"memo": path["launches"]["memo_dedup"],
+                              "memo_lattice": lat_counts["memo_dedup"]},
+            launches_per_pair=per_pair["memo_dedup"]),
+        dict(kernel_row(
+            kernels.MEMO_CACHE, "cilium_tpu_torch/csrc/memo.cu",
+            "cilium_tpu/engine/memo.py:326",
+            path["launches"]["memo_cache"] + lat_counts["memo_cache"],
+            chk["err_cache"], cache_ms, cache_plain_ms, mb(cache_bytes),
+            mo(n_valid * (16 * 3 + 4 * 8))),
+            launches_by_path={"memo": path["launches"]["memo_cache"],
+                              "memo_lattice": lat_counts["memo_cache"]},
+            launches_per_pair=per_pair["memo_cache"]),
+        dict(kernel_row(
+            kernels.MEMO_KEYS_LATTICE, "cilium_tpu_torch/csrc/memo.cu",
+            "cilium_tpu/engine/memo.py:673",
+            lat_counts["memo_keys_lattice"], chk["err_keys"],
+            keys_ms + comb_ms, keys_plain, mb(keys_bytes),
+            mo(MEMO_TUPLES * 8)),
+            keys_ms=keys_ms, combine_ms=comb_ms),
+    ]
+    return rows_out
+
+
+def memo_phases(kernels, w, tables, rows) -> None:
+    """The verdict memo's phases (memo_check, memo, memo_lattice,
+    memo_timing) on config 5's compact tables; their kernels' rows go
+    into `rows`."""
+    chk = memo_check(kernels, w, tables)
+    path = memo_path(kernels, w, tables)
+    lat = memo_lattice_path(kernels, tables, chk["batch"])
+    rows.extend(memo_timing(kernels, tables, chk, path, lat))
+
+
 def device_busy(prof) -> dict:
     """Device time per kernel or copy from a profiler run, each once (a
     host op such as aten::copy_ also reports its copy's device time)
@@ -3064,13 +3716,17 @@ def main() -> int:
     replay_phases(kernels, w, tables, wide_t, rows)
     torch.cuda.empty_cache()
     node_phases(kernels, w, tables, wide_t, rows)
+    torch.cuda.empty_cache()
+    memo_phases(kernels, w, tables, rows)
 
     print("[library] library_ms is null except for ct_delta "
-          "(index_copy_) and pick_draw (torch.randint on the same shape: "
+          "(index_copy_), memo_dedup (torch.unique of the key rows with the "
+          "inverse) and pick_draw (torch.randint on the same shape: "
           "other numbers, so a time only): no single PyTorch call computes "
           "the fused datapath steps (v4 or v6), the intent compaction, a "
           "DFA scan, the Kafka rule match, the fleet's routed match, the "
-          "policy lattice or the two dependent DIR-24-8 reads", flush=True)
+          "policy lattice, the two dependent DIR-24-8 reads, the verdict "
+          "cache or the memo's key words", flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -270,6 +270,28 @@ def split_hot(tables: PolicyTables) -> PolicyTables:
     return dataclasses.replace(tables, **{leaf: None for leaf in COLD_LEAVES})
 
 
+def tables_layout_version(tables) -> int:
+    """Layout stamp of a PolicyTables: the hashed tables' pack widths,
+    the dropped cold leaves and the compact-entry bit (the reference's
+    compiler/tables.py tables_layout_version).  Tables with different
+    stamps differ in their leaf set or lane widths; the verdict cache's
+    epoch stamp carries it."""
+    if tables is None:
+        return 0
+    rows = getattr(tables, "l4_hash_rows", None)
+    wrows = getattr(tables, "l4_wild_rows", None)
+    lanes = 0 if rows is None else int(rows.shape[1])
+    wlanes = 0 if wrows is None else int(wrows.shape[1])
+    cold_bits = 0
+    for i, leaf in enumerate(COLD_LEAVES):
+        if getattr(tables, leaf, None) is None:
+            cold_bits |= 1 << i
+    compact_bit = (
+        1 if l4_entry_words(tables) == 2 else 0
+    ) if getattr(tables, "l4_hash_stash", None) is not None else 0
+    return lanes | (wlanes << 11) | (cold_bits << 22) | (compact_bit << 24)
+
+
 def place_l4_hash_compact(cw0, cw1_key, j, h, min_rows: int,
                           lanes: int = L4C_LANES):
     """Compact sibling of place_l4_hash: 2-word planar entries (cw0

@@ -222,6 +222,32 @@ def tuple_batch_to(packed: np.ndarray, device=None):
     return _tuple_batch_from_packed(u32_tensor(packed, resolve_device(device)))
 
 
+def cache_rows_to(rows, device=None) -> torch.Tensor:
+    """Verdict-cache rows (numpy u32 [n_rows + 1, W], as
+    memo.make_cache_rows builds them or carried out of another cache)
+    -> an int32 tensor with the same bits on `device` (None = the
+    card).  Checks that the width is one of the three row layouts."""
+    from cilium_tpu_torch.engine.memo import CACHE_WORDS, cache_layout
+
+    rows = np.asarray(rows)
+    if rows.ndim != 2 or rows.shape[0] < 2:
+        raise ValueError(f"cache rows are [n_rows + 1, W], got {rows.shape}")
+    n_rows = rows.shape[0] - 1
+    if n_rows & (n_rows - 1):
+        raise ValueError(f"cache rows must be a power of two: {n_rows}")
+    e, ranked, subw = cache_layout(rows)
+    want = (4 * e + e // 8 + 1 if subw
+            else CACHE_WORDS * e + (1 if ranked else 0))
+    if e < 1 or rows.shape[1] != want:
+        raise ValueError(f"no cache row layout is {rows.shape[1]} words wide")
+    return u32_tensor(rows, resolve_device(device))
+
+
+def cache_rows_to_numpy(rows: torch.Tensor) -> np.ndarray:
+    """Cache rows on any device -> numpy u32, the reference's form."""
+    return rows.detach().cpu().numpy().view(np.uint32).copy()
+
+
 def ct_snapshot_to(snapshot: CTSnapshot, device=None) -> CTSnapshot:
     """A CT snapshot (numpy buckets and stash) -> the same snapshot on
     `device` (None = the card)."""

@@ -169,6 +169,17 @@ struct DatapathArgs {
   int32_t n_words;
   int32_t direct_n;
   uint32_t lo_len;
+  // the pair step's memo mode (csrc/datapath.cu): memo 1 is the front
+  // pass, which runs stages 1-5, writes the lattice-free columns and the
+  // three policy-key words memo_keys [2, 3, B]; memo 2 is the back pass,
+  // which reads those columns, the keys and the memo's value words
+  // memo_vals [2, 2, B] (v0, v1) and runs the combine, the counters and
+  // the telemetry (both only when memo_stats [5] shows no overflow) and
+  // the tunnel stage; memo 0 is the plain pair step
+  uint32_t* memo_keys;
+  const uint32_t* memo_vals;
+  const uint32_t* memo_stats;
+  int32_t memo;
 };
 
 constexpr uint32_t FNV_OFFSET = 2166136261u;

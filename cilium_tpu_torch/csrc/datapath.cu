@@ -14,6 +14,13 @@
 // (:711), as the record replay (cilium_tpu/replay.py:514) runs them.  The
 // forms are runtime flags of the one kernel (DatapathArgs: static_dir,
 // emit_sec_id, acc, telem, picks null for a direct [8, B] pack).
+// DATAPATH_PAIR's memo mode (DatapathArgs.memo) is the pair step with the
+// verdict memo of csrc/memo.cu in place of the lattice, as
+// cilium_tpu/engine/memo.py:781 `memo_pair_packed4_kernel` runs
+// `_datapath_core` with its `lattice_fn`: a front pass (stages 1-5, the
+// columns that do not depend on the lattice and the policy-key words; a
+// template flag on the pair kernel) and a back pass (the combine,
+// counters, telemetry and tunnel from the memo's value words).
 // Both fuse the stages:
 //   packed4 unpack      flow_batch_from_packed4       (engine/datapath.py)
 //   pool gather         flow_batch_from_packed        (engine/datapath.py)
@@ -107,19 +114,21 @@ struct FlowOut {
   Lattice v;
 };
 
-// One flow through every stage.  `ingress` is the flow's side: an
-// ingress flow runs no service-scope CT probe and no LB (for the pair
-// step that is its half, for the single-batch step its own direction
-// == 0; skipping the LB of an ingress row gives what the reference's
-// masked LB gives it).  `dir` is the direction word the CT probe and
-// the lattice read.  PF, LB and IPC are the table layouts (common.cuh).
+// Stages 1-5 of one flow: prefilter, conntrack, LB, ipcache and the
+// identity index.  `ingress` is the flow's side: an ingress flow runs no
+// service-scope CT probe and no LB (for the pair step that is its half,
+// for the single-batch step its own direction == 0; skipping the LB of
+// an ingress row gives what the reference's masked LB gives it).  `dir`
+// is the direction word the CT probe and the lattice read.  Writes the
+// lattice's `known` and L3 bit.  PF, LB and IPC are the table layouts
+// (common.cuh).
 template <int PF, int LB, int IPC>
-__device__ __forceinline__ FlowOut fused_flow(const DatapathArgs& a,
-                                              uint32_t saddr, uint32_t daddr,
-                                              uint32_t sport, uint32_t dport,
-                                              uint32_t proto, uint32_t ep,
-                                              uint32_t dir, bool frag,
-                                              bool ingress) {
+__device__ __forceinline__ FlowOut fused_front(const DatapathArgs& a,
+                                               uint32_t saddr, uint32_t daddr,
+                                               uint32_t sport, uint32_t dport,
+                                               uint32_t proto, uint32_t ep,
+                                               uint32_t dir, bool ingress,
+                                               bool* known, bool* l3_bit) {
   FlowOut o;
   // -- prefilter, then ONE conntrack row for both probes
   o.pre = prefilter_drop<PF>(a, saddr);
@@ -150,28 +159,32 @@ __device__ __forceinline__ FlowOut fused_flow(const DatapathArgs& a,
   const IPCResult ipc =
       ipcache_lookup<IPC>(a, ingress ? saddr : o.eff_daddr, ingress);
   o.miss = ipc.value == 0;
-  bool known, l3_bit;
   if (IPC == IPC_GENERIC) {
     // the raw identity (sec_id in every form), indexed through id_direct
     o.ident = o.miss ? RESERVED_WORLD : ipc.value;
     o.idx = index_identity(a.id_direct, a.direct_n, a.lo_len, a.n_ids,
-                           o.ident, &known);
+                           o.ident, known);
   } else {
     const uint32_t vp = o.miss ? a.world_plus1 : ipc.value;
-    known = vp != 0 && vp != UNKNOWN_IDX;
-    o.idx = known ? vp - 1 : static_cast<uint32_t>(a.n_ids - 1);
+    *known = vp != 0 && vp != UNKNOWN_IDX;
+    o.idx = *known ? vp - 1 : static_cast<uint32_t>(a.n_ids - 1);
     o.ident = 0;
   }
   if (IPC == IPC_IDX_PLANES) {
     const uint32_t l3w =
         o.miss ? (ingress ? a.world_l3_in : a.world_l3_out) : ipc.l3;
-    l3_bit = ep < 32 && ((l3w >> ep) & 1u);
+    *l3_bit = ep < 32 && ((l3w >> ep) & 1u);
   } else {
-    l3_bit = l3_allow_bit(a, ep, dir, o.idx);
+    *l3_bit = l3_allow_bit(a, ep, dir, o.idx);
   }
+  return o;
+}
 
-  // -- lattice and combine
-  o.v = lattice(a, ep, dir, o.eff_dport, proto, o.idx, known, l3_bit, frag);
+// What follows the lattice: the combine with the CT result and the
+// prefilter, and in overlay mode the tunnel endpoint of an allowed flow
+// that is not ingress.  `o.v` holds the lattice's verdict.
+__device__ __forceinline__ void fused_back(const DatapathArgs& a, FlowOut& o,
+                                           bool ingress) {
   const bool pass_ct = o.ct.result == CT_REPLY;  // RELATED is never probed
   o.allowed = !o.pre && (pass_ct || o.v.allowed);
   o.ct_delete =
@@ -182,12 +195,26 @@ __device__ __forceinline__ FlowOut fused_flow(const DatapathArgs& a,
              o.allowed)
                 ? o.v.proxy
                 : 0;
-  // -- overlay: the tunnel endpoint of an allowed flow that is not ingress
   const uint32_t dst[1] = {o.eff_daddr};
   o.tunnel = (a.tun_base && o.allowed && !ingress)
                  ? tunnel_select<1>(a.tun_base, a.tun_mask, a.tun_endpoint,
                                     a.tun_n, dst, 0u)
                  : 0u;
+}
+
+// One flow through every stage: fused_front, the lattice, fused_back.
+template <int PF, int LB, int IPC>
+__device__ __forceinline__ FlowOut fused_flow(const DatapathArgs& a,
+                                              uint32_t saddr, uint32_t daddr,
+                                              uint32_t sport, uint32_t dport,
+                                              uint32_t proto, uint32_t ep,
+                                              uint32_t dir, bool frag,
+                                              bool ingress) {
+  bool known, l3_bit;
+  FlowOut o = fused_front<PF, LB, IPC>(a, saddr, daddr, sport, dport, proto,
+                                       ep, dir, ingress, &known, &l3_bit);
+  o.v = lattice(a, ep, dir, o.eff_dport, proto, o.idx, known, l3_bit, frag);
+  fused_back(a, o, ingress);
   return o;
 }
 
@@ -269,7 +296,45 @@ __device__ __forceinline__ void telemetry_rows_epilogue(uint32_t* telem,
     atomicAdd(telem + threadIdx.x, s_rows[threadIdx.x]);
 }
 
+// The memo mode's front pass (MODE 1) of one pair flow: stages 1-5, the
+// columns that do not depend on the lattice, and the three policy-key
+// words of the verdict memo (engine/memo.py memo_key_words: k0 the
+// index, k1 dport << 16 | proto << 8 | known << 1 | the L3 bit where the
+// ipcache carries one, k2 ep << 1 | dir).
 template <int PF, int LB, int IPC>
+__device__ __forceinline__ void memo_front_flow(const DatapathArgs& a,
+                                                int half, int i,
+                                                uint32_t saddr, uint32_t daddr,
+                                                uint32_t w2, uint32_t w3,
+                                                bool ingress) {
+  const uint32_t ep = w3 >> 16;
+  const uint32_t dir = (w3 >> 1) & 1u;
+  const uint32_t proto = (w3 >> 8) & 0xFFu;
+  bool known, l3_bit;
+  const FlowOut f = fused_front<PF, LB, IPC>(a, saddr, daddr, w2 >> 16,
+                                             w2 & 0xFFFFu, proto, ep, dir,
+                                             ingress, &known, &l3_bit);
+  const size_t o = static_cast<size_t>(half) * a.B + i;
+  a.ct_result[o] = static_cast<uint8_t>(f.ct.result);
+  a.pre_dropped[o] = f.pre;
+  a.sec_id[o] = IPC == IPC_GENERIC ? f.ident : f.idx;
+  a.final_daddr[o] = f.eff_daddr;
+  a.final_dport[o] = static_cast<int32_t>(f.eff_dport);
+  a.rev_nat[o] = f.rev_nat;
+  a.lb_slave[o] = f.lb_slave;
+  a.ipcache_miss[o] = f.miss;
+  const size_t b = static_cast<size_t>(a.B);
+  uint32_t* k = a.memo_keys + static_cast<size_t>(half) * 3 * b + i;
+  k[0] = f.idx;
+  k[b] = (clip_u(static_cast<int32_t>(f.eff_dport), 65535) << 16) |
+         (proto << 8) | (known ? 2u : 0u) |
+         (IPC == IPC_IDX_PLANES && l3_bit ? 1u : 0u);
+  k[2 * b] = (ep << 1) | dir;
+}
+
+// The pair step (MODE 0), or the memo mode's front pass (MODE 1: no
+// lattice, no counters, no telemetry).
+template <int PF, int LB, int IPC, int MODE>
 __global__ void __launch_bounds__(BLOCK)
     datapath_pair_kernel(const DatapathArgs a) {
   stage_ranges(a);
@@ -278,6 +343,15 @@ __global__ void __launch_bounds__(BLOCK)
   const int i = blockIdx.x * BLOCK + threadIdx.x;
   uint32_t tmask = 0;  // bit c set = this flow counts in telemetry column c
 
+  if (MODE == 1) {
+    if (i < a.B) {
+      const uint32_t* p = a.pair + static_cast<size_t>(half) * 4 * a.B;
+      memo_front_flow<PF, LB, IPC>(a, half, i, __ldg(p + i),
+                                   __ldg(p + a.B + i), __ldg(p + 2 * a.B + i),
+                                   __ldg(p + 3 * a.B + i), ingress);
+    }
+    return;
+  }
   if (i < a.B) {
     // -- packed4 unpack
     const uint32_t* p = a.pair + static_cast<size_t>(half) * 4 * a.B;
@@ -323,6 +397,72 @@ __global__ void __launch_bounds__(BLOCK)
   }
   __syncthreads();
   if (threadIdx.x < TELEM_COLS && s_tel[threadIdx.x])
+    atomicAdd(a.telem + half * TELEM_COLS + threadIdx.x, s_tel[threadIdx.x]);
+}
+
+// The memo mode's back pass: the lattice-free columns the front pass
+// wrote, the policy-key words and the memo's value words (v0 = j << 16 |
+// proxy, v1 = the three probe bits, engine/memo.py pack_value_words) in
+// place of the lattice, then the combine, fused_back, the counters and
+// the telemetry, both skipped when the memo's summed stats show an
+// overflow (the reference commits its carried state only then).
+__global__ void __launch_bounds__(BLOCK)
+    datapath_pair_memo_back_kernel(const DatapathArgs a) {
+  const int half = blockIdx.y;
+  const bool ingress = half == 0;
+  const int i = blockIdx.x * BLOCK + threadIdx.x;
+  const bool ok = __ldg(a.memo_stats + 3) == 0;  // STAT_OVERFLOW
+  uint32_t tmask = 0;
+  if (i < a.B) {
+    const size_t b = static_cast<size_t>(a.B);
+    const size_t o = static_cast<size_t>(half) * b + i;
+    const uint32_t* k = a.memo_keys + static_cast<size_t>(half) * 3 * b + i;
+    const uint32_t* v = a.memo_vals + static_cast<size_t>(half) * 2 * b + i;
+    const uint32_t idx = __ldg(k), k2 = __ldg(k + 2 * b);
+    const uint32_t ep = k2 >> 1, dir = k2 & 1u;
+    const uint32_t v0 = __ldg(v), v1 = __ldg(v + b);
+    const bool frag =
+        (__ldg(a.pair + static_cast<size_t>(half) * 4 * b + 3 * b + i) & 1u) !=
+        0;
+    FlowOut f;
+    f.pre = a.pre_dropped[o] != 0;
+    f.miss = a.ipcache_miss[o] != 0;
+    f.ct.result = a.ct_result[o];
+    f.eff_daddr = a.final_daddr[o];
+    f.lb_slave = a.lb_slave[o];
+    f.idx = idx;
+    f.v = combine((v1 & 1u) != 0, (v1 & 2u) != 0, (v1 & 4u) != 0,
+                  static_cast<int32_t>(v0 & 0xFFFFu),
+                  static_cast<int32_t>(v0 >> 16), frag);
+    fused_back(a, f, ingress);
+    const uint32_t kind = f.v.kind;
+    const bool hit_l4 = kind == MATCH_L4 || kind == MATCH_L4_WILD;
+    if (ok && (hit_l4 || kind == MATCH_L3)) {
+      const int cols = a.kg + a.n_ids;
+      const int col = hit_l4 ? f.v.j : a.kg + static_cast<int32_t>(idx);
+      if (ep < static_cast<uint32_t>(a.n_eps) && col >= 0 && col < cols)
+        atomicAdd(a.acc + (static_cast<size_t>(ep) * 2 + dir) * cols + col, 1u);
+    }
+    a.allowed[o] = f.allowed;
+    a.proxy_port[o] = f.proxy;
+    a.match_kind[o] = static_cast<uint8_t>(kind);
+    a.ct_create[o] = f.ct_create;
+    a.ct_delete[o] = f.ct_delete;
+    a.tunnel_endpoint[o] = f.tunnel;
+    a.l4_slot[o] = f.v.j;
+    tmask = telemetry_bits(f);
+  }
+  __shared__ uint32_t s_tel[TELEM_COLS];
+  if (threadIdx.x < TELEM_COLS) s_tel[threadIdx.x] = 0;
+  __syncthreads();
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int c = 0; c < TELEM_COLS; ++c) {
+    const uint32_t bb = __ballot_sync(0xFFFFFFFFu, (tmask >> c) & 1u);
+    if (lane == 0 && bb) atomicAdd(&s_tel[c], static_cast<uint32_t>(__popc(bb)));
+  }
+  __syncthreads();
+  if (ok && threadIdx.x < TELEM_COLS && s_tel[threadIdx.x])
     atomicAdd(a.telem + half * TELEM_COLS + threadIdx.x, s_tel[threadIdx.x]);
 }
 
@@ -398,8 +538,13 @@ __global__ void __launch_bounds__(BLOCK)
 template <int LAYOUT>
 void launch_pair(const DatapathArgs& a, cudaStream_t stream) {
   const dim3 grid((a.B + BLOCK - 1) / BLOCK, 2);
-  datapath_pair_kernel<LAYOUT & 1, (LAYOUT >> 1) & 1, (LAYOUT >> 2)>
-      <<<grid, BLOCK, scan_smem_bytes(a), stream>>>(a);
+  if (a.memo == 1) {
+    datapath_pair_kernel<LAYOUT & 1, (LAYOUT >> 1) & 1, (LAYOUT >> 2), 1>
+        <<<grid, BLOCK, scan_smem_bytes(a), stream>>>(a);
+  } else {
+    datapath_pair_kernel<LAYOUT & 1, (LAYOUT >> 1) & 1, (LAYOUT >> 2), 0>
+        <<<grid, BLOCK, scan_smem_bytes(a), stream>>>(a);
+  }
 }
 
 template <int LAYOUT>
@@ -427,13 +572,21 @@ extern "C" int datapath_args_size() {
 
 // Launch one pair step on `stream`; returns cudaGetLastError() (an
 // unknown layout: cudaErrorInvalidValue).
+// (memo 2, the memo mode's back pass, reads no table layout.)
 extern "C" int launch_datapath_pair(const cdp::DatapathArgs* args,
                                     void* stream) {
-  if (args->layout < 0 || args->layout >= cdp::N_LAYOUTS)
+  if (args->layout < 0 || args->layout >= cdp::N_LAYOUTS ||
+      args->memo < 0 || args->memo > 2)
     return static_cast<int>(cudaErrorInvalidValue);
-  if (args->B > 0)
+  if (args->B > 0 && args->memo == 2) {
+    const dim3 grid((args->B + cdp::BLOCK - 1) / cdp::BLOCK, 2);
+    cdp::datapath_pair_memo_back_kernel<<<grid, cdp::BLOCK, 0,
+                                          static_cast<cudaStream_t>(stream)>>>(
+        *args);
+  } else if (args->B > 0) {
     cdp::AllLayouts::pair[args->layout](*args,
                                         static_cast<cudaStream_t>(stream));
+  }
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -244,6 +244,51 @@ __device__ __forceinline__ uint32_t index_identity(const PolicyView& p,
                         known);
 }
 
+// The three probes of one tuple from its resolved identity index
+// (engine/verdict.py _probes with idx_known): ep and dir are the
+// tuple's int32 words, dport and proto already clipped.  `l3_bit` < 0
+// reads probe 2's bit from l3_allow_bits (word idx >> 5 taken as a gather
+// index), else it is the ipcache's L3 bit.  Shared by tuple_verdict()
+// and the verdict memo's lattice on missed keys (csrc/memo.cu).
+struct ProbeBits {
+  bool p1, p2, p3;
+  int32_t proxy;
+  int32_t j;
+};
+
+__device__ __forceinline__ ProbeBits index_probes(const PolicyView& p,
+                                                  int32_t ep, int32_t dir,
+                                                  uint32_t dport,
+                                                  uint32_t proto, uint32_t idx,
+                                                  bool known, int l3_bit) {
+  const int word = gather_ix(static_cast<int32_t>(idx) >> 5, p.n_words);
+  const uint32_t bit = idx & 31u;
+  const size_t row = static_cast<size_t>(gather_ix(ep, p.l4.n_eps)) * 2 +
+                     gather_ix(dir, 2);
+  Probes q;
+  if (p.l4.rows) {
+    q = hashed_probes(p.l4, static_cast<uint32_t>(ep),
+                      static_cast<uint32_t>(dir), dport, proto, idx, known);
+  } else {
+    const uint32_t slot = __ldg(p.port_slot + proto * 65536u + dport);
+    const bool has_port = slot != NO_SLOT;
+    q.j = has_port ? static_cast<int32_t>(slot) : 0;
+    const size_t cell = row * p.l4.kg + gather_ix(q.j, p.l4.kg);
+    const uint32_t exact = __ldg(p.l4_allow + cell * p.n_words + word);
+    const uint32_t meta = __ldg(p.l4.meta + cell);
+    q.proxy = static_cast<int32_t>(meta >> 1);
+    q.p1 = known && has_port && ((exact >> bit) & 1u);
+    q.p3 = has_port && (meta & 1u);
+  }
+  bool l3;
+  if (l3_bit < 0) {
+    l3 = (__ldg(p.l3_allow + row * p.n_words + word) >> bit) & 1u;
+  } else {
+    l3 = l3_bit != 0;
+  }
+  return ProbeBits{q.p1, known && l3, q.p3, q.proxy, q.j};
+}
+
 // The lattice of one tuple (engine/verdict.py _probes + _combine): ep and
 // dir are the tuple's int32 words, dport and proto already clipped to
 // their ranges.  Writes the identity index to *idx (the counters' L3
@@ -256,27 +301,8 @@ __device__ __forceinline__ Lattice tuple_verdict(const PolicyView& p,
                                                  uint32_t* idx) {
   bool known;
   *idx = index_identity(p, ident, &known);
-  const uint32_t word = *idx >> 5, bit = *idx & 31u;
-  const size_t row = static_cast<size_t>(gather_ix(ep, p.l4.n_eps)) * 2 +
-                     gather_ix(dir, 2);
-  Probes q;
-  if (p.l4.rows) {
-    q = hashed_probes(p.l4, static_cast<uint32_t>(ep),
-                      static_cast<uint32_t>(dir), dport, proto, *idx, known);
-  } else {
-    const uint32_t slot = __ldg(p.port_slot + proto * 65536u + dport);
-    const bool has_port = slot != NO_SLOT;
-    q.j = has_port ? static_cast<int32_t>(slot) : 0;
-    const size_t cell = row * p.l4.kg + gather_ix(q.j, p.l4.kg);
-    const uint32_t exact = __ldg(p.l4_allow + cell * p.n_words + word);
-    const uint32_t meta = __ldg(p.l4.meta + cell);
-    q.proxy = static_cast<int32_t>(meta >> 1);
-    q.p1 = known && has_port && ((exact >> bit) & 1u);
-    q.p3 = has_port && (meta & 1u);
-  }
-  const uint32_t l3w = __ldg(p.l3_allow + row * p.n_words + word);
-  return combine(q.p1, known && ((l3w >> bit) & 1u), q.p3, q.proxy, q.j,
-                 frag);
+  const ProbeBits b = index_probes(p, ep, dir, dport, proto, *idx, known, -1);
+  return combine(b.p1, b.p2, b.p3, b.proxy, b.j, frag);
 }
 
 __device__ __forceinline__ L4Tables l4_tables(const DatapathArgs& a) {

@@ -261,7 +261,7 @@ def flow_batch_from_packed4(packed: torch.Tensor) -> FlowBatch:
 
 
 def _datapath_core(tables: DatapathTables, f: FlowBatch, ingress,
-                   emit_sec_id: bool):
+                   emit_sec_id: bool, lattice_fn=None):
     """Plain version of the fused per-flow pipeline, shared by both
     forms.  `ingress` is a bool [B] tensor (the single-batch form: each
     row's own direction == INGRESS) or a Python bool (one half of the
@@ -316,6 +316,7 @@ def _datapath_core(tables: DatapathTables, f: FlowBatch, ingress,
     sec_ip = torch.where(ing, widen(f.saddr), eff_daddr)
     id_table = tables.policy.id_table
     ep = f.ep_index
+    lattice = _probes if lattice_fn is None else lattice_fn
     if isinstance(ipc, IPCacheDevice) and ipc.values_are_idx:
         # the idx form: the entry is the lattice index + 1
         looked, l3_word = ipcache_lookup_fused(ipc, sec_ip, ing)
@@ -334,7 +335,7 @@ def _datapath_core(tables: DatapathTables, f: FlowBatch, ingress,
                 (ep >= 0) & (ep < 32), (l3_word >> ep.clamp(0, 31)) & 1, 0
             ).bool()
             idx_known = (idx, known, l3_bit)
-        probe1, probe2, probe3, proxy, j, _ = _probes(
+        probe1, probe2, probe3, proxy, j, _ = lattice(
             tables.policy, ep, f.direction, eff_dport, f.proto,
             idx_known=idx_known,
         )
@@ -346,7 +347,7 @@ def _datapath_core(tables: DatapathTables, f: FlowBatch, ingress,
         looked = lookup_plain(ipc, sec_ip)
         miss = looked == 0
         ident = torch.where(miss, RESERVED_WORLD, looked)
-        probe1, probe2, probe3, proxy, j, idx = _probes(
+        probe1, probe2, probe3, proxy, j, idx = lattice(
             tables.policy, ep, f.direction, eff_dport, f.proto,
             identity=ident,
         )
@@ -394,10 +395,12 @@ def _datapath_core(tables: DatapathTables, f: FlowBatch, ingress,
     return out, cols
 
 
-def _datapath_half(tables: DatapathTables, f: FlowBatch, ingress: bool):
+def _datapath_half(tables: DatapathTables, f: FlowBatch, ingress: bool,
+                   lattice_fn=None):
     """One direction-specialized half of the pair step.  Returns
     (DatapathVerdicts, counter ingredients, telemetry counts [20])."""
-    out, cols = _datapath_core(tables, f, ingress, emit_sec_id=False)
+    out, cols = _datapath_core(tables, f, ingress, emit_sec_id=False,
+                               lattice_fn=lattice_fn)
     masks = telemetry_masks(
         out.pre_dropped, out.ct_result, out.match_kind, out.allowed,
         out.ct_delete, out.proxy_port, out.lb_slave, out.ipcache_miss,

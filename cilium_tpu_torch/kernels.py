@@ -1,12 +1,12 @@
 """Build, binding and wrappers of the hand-written CUDA kernels.
 
 `csrc/datapath.cu`, `csrc/l7.cu`, `csrc/churn.cu`, `csrc/lattice.cu`,
-`csrc/datapath6.cu` and `csrc/prng.cu` (with their headers) are each
-compiled by `nvcc` for `sm_90a` into a shared library with a plain C
-interface, at first use, into `cilium_tpu_torch/_build/` (one file per
-source digest), and bound
-with ctypes.  Nothing here runs at import: the CPU tests import this
-module on a machine with no `nvcc` and no card.
+`csrc/datapath6.cu`, `csrc/prng.cu` and `csrc/memo.cu` (with their
+headers) are each compiled by `nvcc` for `sm_90a` into a shared library
+with a plain C interface, at first use, into `cilium_tpu_torch/_build/`
+(one file per source digest), and bound with ctypes.  Nothing here runs
+at import: the CPU tests import this module on a machine with no `nvcc`
+and no card.
 
 `DATAPATH_PAIR(tables, pair, acc, telem)` is the pair step on the
 card and `DATAPATH_STEP(tables, pool, picks)` the single-batch step
@@ -48,6 +48,13 @@ DIR-24-8 lookup (K20), under the same rules.
 loop's threefry2x32 uniform draw (K22's picks, see prng.py), under the
 same rules.
 
+`MEMO_DEDUP`, `MEMO_CACHE` and `MEMO_KEYS_LATTICE` (csrc/memo.cu) are
+the verdict memo's levels A and B and memo_evaluate's key words and
+combine (K14); `DATAPATH_PAIR_MEMO` launches DATAPATH_PAIR's memo mode
+(its front and back passes).  engine/memo.py strings them together.
+Each call counts one launch, though each runs several device kernels in
+order on the current stream.
+
 `DATAPATH6(tables, flows)` (csrc/datapath6.cu) is the fused IPv6
 program (K15, with the v6 tunnel stage of K11) over Datapath6Tables and
 a FlowBatch6, under the same rules: it checks every table plane and
@@ -87,7 +94,8 @@ from cilium_tpu_torch.tunnel import TunnelTables, TunnelTables6
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
 # csrc/<stem>.cu, one library each
-LIBRARIES = ("datapath", "l7", "churn", "lattice", "datapath6", "prng")
+LIBRARIES = ("datapath", "l7", "churn", "lattice", "datapath6", "prng",
+             "memo")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC",
@@ -198,6 +206,8 @@ class DatapathArgs(ctypes.Structure):
                                         "l3_in", "l3_out")]
         + [("n_ranges", _I), ("l3_allow", _P), ("id_direct", _P),
            ("n_words", _I), ("direct_n", _I), ("lo_len", ctypes.c_uint32)]
+        + [("memo_keys", _P), ("memo_vals", _P), ("memo_stats", _P),
+           ("memo", _I)]
     )
 
 
@@ -1638,6 +1648,376 @@ class PickDrawKernel:
 
 
 PICK_DRAW = PickDrawKernel()
+
+
+# ---------------------------------------------------------------------------
+# The verdict memo (csrc/memo.cu, and DATAPATH_PAIR's memo mode)
+# ---------------------------------------------------------------------------
+
+_RADIX = 256
+_RADIX_TILE = 4096  # csrc/memo.cu TILE
+_SCAN_TILE = 1024  # csrc/memo.cu SCAN_TILE
+
+
+class SortArgs(ctypes.Structure):
+    """Mirror of cmm::SortArgs in csrc/memo.cu, field for field."""
+
+    _fields_ = [("key", (_P * 3) * 2), ("val", _P * 2), ("hist", _P),
+                ("digits", _P), ("parity", _P), ("n", _P), ("cap", _I),
+                ("n_blocks", _I)]
+
+
+class DedupArgs(ctypes.Structure):
+    """Mirror of cmm::DedupArgs in csrc/memo.cu, field for field."""
+
+    _fields_ = (
+        [("keys", _P), ("sort", SortArgs)]
+        + [(name, _P) for name in (
+            "flags", "prefix", "sums", "n_elems", "srow", "gid", "n_unique",
+            "rep_orig", "rep_valid", "overflow")]
+        + [("B", _I), ("rep_cap", _I)]
+    )
+
+
+class CacheArgs(ctypes.Structure):
+    """Mirror of cmm::CacheArgs in csrc/memo.cu, field for field."""
+
+    _fields_ = (
+        [("pol", PolicyViewArgs)]
+        + [(name, _P) for name in (
+            "keys", "ep_w", "dir_w", "srow", "gid", "rep_orig", "n_unique",
+            "dedup_overflow", "rows_in", "rows_out", "restore", "v0", "v1",
+            "hit", "stats", "r_hit", "r_hit_lane", "r_ins_lane", "r_do_ins",
+            "r_bucket", "r_rank_word", "r_empty", "rv0", "rv1")]
+        + [("sort", SortArgs), ("counters", _P)]
+        + [(name, _I) for name in (
+            "B", "rep_cap", "n_rows", "width", "entries",
+            "ranked", "subword", "has_l3", "accumulate", "bucket_passes")]
+    )
+
+
+class KeysArgs(ctypes.Structure):
+    """Mirror of cmm::KeysArgs in csrc/memo.cu, field for field."""
+
+    _fields_ = [("tuples", _P), ("pol", PolicyViewArgs), ("keys", _P),
+                ("v0", _P), ("v1", _P), ("allowed", _P), ("proxy_port", _P),
+                ("match_kind", _P), ("B", _I), ("mode", _I)]
+
+
+class _MemoLibrary(_Library):
+    """csrc/memo.cu: MEMO_DEDUP, MEMO_CACHE and MEMO_KEYS_LATTICE."""
+
+    stem = "memo"
+
+    def bind(self, lib) -> None:
+        self.declare(lib, (("launch_memo_dedup", DedupArgs),
+                           ("launch_memo_cache", CacheArgs),
+                           ("launch_memo_keys", KeysArgs)))
+        lib.memo_struct_sizes.argtypes = [ctypes.POINTER(ctypes.c_int)]
+        lib.memo_struct_sizes.restype = ctypes.c_int
+        sizes = (ctypes.c_int * 5)()
+        lib.memo_struct_sizes(sizes)
+        want = [ctypes.sizeof(a) for a in (SortArgs, DedupArgs, CacheArgs,
+                                           KeysArgs, PolicyViewArgs)]
+        if list(sizes) != want:
+            raise RuntimeError(
+                f"memo argument layouts differ between kernels.py {want} "
+                f"and csrc/memo.cu {list(sizes)}"
+            )
+
+
+MEMO_LIBRARY = _MemoLibrary()
+
+
+def _sort_args(cap: int, key_words: int, passes: int, n_ptr: int,
+               dev) -> tuple:
+    """A SortArgs over `cap` elements of `key_words` key words and its
+    buffers (kept alive by the caller)."""
+    n_blocks = max((cap + _RADIX_TILE - 1) // _RADIX_TILE, 1)
+    bufs = [torch.empty((2, key_words + 1, cap), dtype=torch.int32,
+                        device=dev),
+            torch.empty(_RADIX * (n_blocks + 2), dtype=torch.int32,
+                        device=dev),
+            torch.empty(passes + 1, dtype=torch.int32, device=dev)]
+    s = SortArgs()
+    for side in (0, 1):
+        for w in range(key_words):
+            s.key[side][w] = bufs[0][side, w].data_ptr()
+        s.val[side] = bufs[0][side, key_words].data_ptr()
+    s.hist, s.parity, s.n = bufs[1].data_ptr(), bufs[2].data_ptr(), n_ptr
+    s.digits = bufs[1][_RADIX * n_blocks:].data_ptr()
+    s.cap, s.n_blocks = cap, n_blocks
+    return s, bufs
+
+
+def _keys3(keys, name: str):
+    dev = _cuda_device(keys, name)
+    if keys.dim() != 2 or keys.shape[0] != 3:
+        raise ValueError(f"{name}: keys must be [3, B], got "
+                         f"{tuple(keys.shape)}")
+    b = int(keys.shape[1])
+    if not 1 <= b < 1 << 31:
+        raise ValueError(f"{name}: batch of {b}")
+    _ptr(keys, "keys", dev)
+    return dev, b
+
+
+class MemoDedupKernel:
+    """K14's level A on the card: memo.dedup_groups of the key words
+    keys int32 [3, B] (u32 bits).  Returns the dict of dedup_groups with
+    tensors: srow, gid int32 [B], n_unique int32 [1], rep_orig int32
+    [rep_cap + 1], rep_valid bool [rep_cap], overflow int32 [1]."""
+
+    name = "memo_dedup"
+
+    def __init__(self) -> None:
+        self.launches = 0
+
+    def load(self, verbose: bool = False):
+        return MEMO_LIBRARY.load(verbose)
+
+    def __call__(self, keys, rep_cap: int) -> dict:
+        dev, b = _keys3(keys, self.name)
+        rep_cap = int(rep_cap)
+        if not 1 <= rep_cap < (1 << 31) - 1:
+            raise ValueError(f"{self.name}: rep_cap = {rep_cap}")
+        ints = torch.empty(3, dtype=torch.int32, device=dev)
+        out = dict(
+            srow=torch.empty(b, dtype=torch.int32, device=dev),
+            gid=torch.empty(b, dtype=torch.int32, device=dev),
+            n_unique=ints[0:1], overflow=ints[1:2],
+            rep_orig=torch.empty(rep_cap + 1, dtype=torch.int32, device=dev),
+            rep_valid=torch.empty(rep_cap, dtype=torch.bool, device=dev),
+        )
+        a = DedupArgs()
+        a.sort, sort_bufs = _sort_args(b, 3, 12, ints[2:3].data_ptr(), dev)
+        scratch = torch.empty((2, b), dtype=torch.int32, device=dev)
+        sums = torch.empty(max((b + _SCAN_TILE - 1) // _SCAN_TILE, 1),
+                           dtype=torch.int32, device=dev)
+        a.keys = keys.data_ptr()
+        a.flags, a.prefix = scratch[0].data_ptr(), scratch[1].data_ptr()
+        a.sums, a.n_elems = sums.data_ptr(), ints[2:3].data_ptr()
+        for name, t in out.items():
+            setattr(a, name, t.data_ptr())
+        a.B, a.rep_cap = b, rep_cap
+        MEMO_LIBRARY.launch("launch_memo_dedup", a, dev, self.name)
+        self.launches += 1
+        # the scratch may be freed now: the caching allocator hands it
+        # only to work queued after these kernels on the same stream
+        del sort_bufs, scratch, sums
+        return out
+
+
+class MemoCacheKernel:
+    """K14's level B on the card: the probe of each representative of
+    MEMO_DEDUP's groups `g` in rows_in ([n_rows + 1, W] int32, any of the
+    three layouts), the insert lanes, the lattice (index_probes over the
+    policy tables `pol`) on the missed representatives, the commit into
+    rows_out (which the rows are first copied into when it is another
+    buffer) when nothing overflowed, and the scatter-back.
+    Writes the stats row into `stats` int32 [5] (added to it with
+    `accumulate`); with `restore` copies those rows back into rows_out
+    when the stats show an overflow.  `has_l3`: key bit 0 is the
+    ipcache's L3 bit (else probe 2 reads l3_allow_bits); `ep_dir`: the
+    tuples' endpoint and direction words [B] (else decoded from k2).
+    Returns (v0, v1 int32 [B], hit bool [B]), into `out` when given."""
+
+    name = "memo_cache"
+
+    def __init__(self) -> None:
+        self.launches = 0
+
+    def load(self, verbose: bool = False):
+        return MEMO_LIBRARY.load(verbose)
+
+    def __call__(self, pol, keys, g, rows_in, rows_out, stats, *,
+                 rep_cap: int, has_l3: bool,
+                 accumulate: bool = False, restore=None, ep_dir=None,
+                 out=None):
+        from cilium_tpu_torch.engine.memo import cache_layout, rank_column
+
+        dev, b = _keys3(keys, self.name)
+        rep_cap = int(rep_cap)
+        if not 1 <= rep_cap < 1 << 31:
+            raise ValueError(f"{self.name}: rep_cap {rep_cap}")
+        if rows_in.dim() != 2 or rows_in.shape[0] < 2:
+            raise ValueError(f"{self.name}: rows must be [n_rows + 1, W]")
+        n_rows = _pow2(int(rows_in.shape[0]) - 1, "cache rows")
+        width = int(rows_in.shape[1])
+        e, ranked, subw = cache_layout(rows_in)
+        if not 1 <= e <= 32 or rank_column(rows_in) + int(ranked) > width:
+            raise ValueError(f"{self.name}: no row layout is {width} wide")
+        a = CacheArgs()
+        a.pol = _policy_view(pol, dev)
+        a.keys = keys.data_ptr()
+        if ep_dir is not None:
+            a.ep_w = _ptr(ep_dir[0], "ep words", dev, shape=(b,))
+            a.dir_w = _ptr(ep_dir[1], "direction words", dev, shape=(b,))
+        a.srow = _ptr(g["srow"], "srow", dev, shape=(b,))
+        a.gid = _ptr(g["gid"], "gid", dev, shape=(b,))
+        a.rep_orig = _ptr(g["rep_orig"], "rep_orig", dev, shape=(rep_cap + 1,))
+        a.n_unique = _ptr(g["n_unique"], "n_unique", dev, shape=(1,))
+        a.dedup_overflow = _ptr(g["overflow"], "overflow", dev, shape=(1,))
+        shape = tuple(rows_in.shape)
+        a.rows_in = _ptr(rows_in, "rows_in", dev)
+        a.rows_out = _ptr(rows_out, "rows_out", dev, shape=shape)
+        if restore is not None:
+            a.restore = _ptr(restore, "restore", dev, shape=shape)
+        a.stats = _ptr(stats, "stats", dev, shape=(5,))
+        if out is None:
+            out = (torch.empty(b, dtype=torch.int32, device=dev),
+                   torch.empty(b, dtype=torch.int32, device=dev),
+                   torch.empty(b, dtype=torch.bool, device=dev))
+        a.v0 = _ptr(out[0], "v0", dev, shape=(b,))
+        a.v1 = _ptr(out[1], "v1", dev, shape=(b,))
+        a.hit = _ptr(out[2], "hit", dev, dtype=torch.bool, shape=(b,))
+        bytes4 = torch.empty((5, rep_cap), dtype=torch.int32, device=dev)
+        bytes1 = torch.empty((4, rep_cap), dtype=torch.uint8, device=dev)
+        for k, name in enumerate(("r_hit", "r_hit_lane", "r_ins_lane",
+                                  "r_do_ins")):
+            setattr(a, name, bytes1[k].data_ptr())
+        for k, name in enumerate(("r_bucket", "r_rank_word", "r_empty",
+                                  "rv0", "rv1")):
+            setattr(a, name, bytes4[k].data_ptr())
+        counters = torch.empty(3, dtype=torch.int32, device=dev)
+        a.counters = counters.data_ptr()
+        passes = max((max(n_rows.bit_length() - 1, 1) + 7) // 8, 1)
+        a.sort, sort_bufs = _sort_args(rep_cap, 1, passes,
+                                       counters.data_ptr(), dev)
+        a.B, a.rep_cap, a.n_rows, a.width = b, rep_cap, n_rows, width
+        a.entries, a.ranked, a.subword = e, int(ranked), int(subw)
+        a.has_l3 = int(bool(has_l3))
+        a.accumulate, a.bucket_passes = int(bool(accumulate)), passes
+        MEMO_LIBRARY.launch("launch_memo_cache", a, dev, self.name)
+        self.launches += 1
+        del bytes4, bytes1, counters, sort_bufs
+        return out
+
+
+class MemoKeysLatticeKernel:
+    """memo_evaluate's front and back on the card: `keys(pol, packed)`
+    gives the key words int32 [3, B] of a [6, B] tuple pack (the identity
+    index through id_direct, memo.memo_key_words without an L3 bit);
+    `combine(v0, v1, packed)` the Verdicts of the memo's value words and
+    the pack's fragment words.  Each call is one launch."""
+
+    name = "memo_keys_lattice"
+
+    def __init__(self) -> None:
+        self.launches = 0
+
+    def load(self, verbose: bool = False):
+        return MEMO_LIBRARY.load(verbose)
+
+    def _args(self, pol, packed, mode: int):
+        dev = _cuda_device(packed, self.name)
+        if packed.dim() != 2 or packed.shape[0] != 6:
+            raise ValueError(f"{self.name}: the tuple pack must be [6, B]")
+        b = _batch(int(packed.shape[1]))
+        a = KeysArgs()
+        a.tuples = _ptr(packed, "tuples", dev, shape=(6, b))
+        if pol is not None:
+            a.pol = _policy_view(pol, dev)
+        a.B, a.mode = b, mode
+        return a, dev, b
+
+    def keys(self, pol, packed):
+        a, dev, b = self._args(pol, packed, 0)
+        keys = torch.empty((3, b), dtype=torch.int32, device=dev)
+        a.keys = keys.data_ptr()
+        MEMO_LIBRARY.launch("launch_memo_keys", a, dev, self.name)
+        self.launches += 1
+        return keys
+
+    def combine(self, v0, v1, packed):
+        from cilium_tpu_torch.engine.verdict import Verdicts
+
+        a, dev, b = self._args(None, packed, 1)
+        a.v0 = _ptr(v0, "v0", dev, shape=(b,))
+        a.v1 = _ptr(v1, "v1", dev, shape=(b,))
+        v = Verdicts(
+            allowed=torch.empty(b, dtype=torch.uint8, device=dev),
+            proxy_port=torch.empty(b, dtype=torch.int32, device=dev),
+            match_kind=torch.empty(b, dtype=torch.uint8, device=dev),
+        )
+        a.allowed = v.allowed.data_ptr()
+        a.proxy_port = v.proxy_port.data_ptr()
+        a.match_kind = v.match_kind.data_ptr()
+        MEMO_LIBRARY.launch("launch_memo_keys", a, dev, self.name)
+        self.launches += 1
+        return v
+
+
+class MemoFront:
+    """What DATAPATH_PAIR's memo front pass leaves for the back pass: the
+    launch arguments, the 15 columns (8 of them written), the key words
+    int32 [2, 3, B] and whether key bit 0 is the ipcache's L3 bit."""
+
+    def __init__(self, args, cols, keys, has_l3: bool) -> None:
+        self.args = args
+        self.cols = cols
+        self.keys = keys
+        self.has_l3 = has_l3
+
+
+class DatapathPairMemoKernel:
+    """DATAPATH_PAIR's memo mode (csrc/datapath.cu) on the card.
+    `front(tables, pair)` runs stages 1-5 of both halves, writes the
+    columns that do not depend on the lattice and the policy-key words,
+    and returns a MemoFront; `back(tables, pair, front, vals, acc, telem,
+    stats)` takes the memo's value words vals int32 [2, 2, B] (v0, v1 per
+    half) and the summed stats int32 [5], runs the combine, the tunnel
+    stage, the counters into `acc` and the telemetry into `telem` (both
+    only when the stats show no overflow) and returns (out_in, out_eg).
+    Each pass is one launch."""
+
+    name = "datapath_pair_memo"
+
+    def __init__(self) -> None:
+        self.launches = 0
+
+    def load(self, verbose: bool = False):
+        return DATAPATH_LIBRARY.load(verbose)
+
+    def front(self, tables, pair) -> MemoFront:
+        dev = _cuda_device(pair, self.name)
+        if pair.dim() != 3 or pair.shape[:2] != (2, 4):
+            raise ValueError(f"pair must be [2, 4, B], got {tuple(pair.shape)}")
+        b = _batch(int(pair.shape[2]))
+        a = DatapathArgs()
+        a.pair = _ptr(pair, "pair", dev)
+        a.B = b
+        _fill_tables(a, tables, dev)
+        cols = _alloc_columns(a, (2, b), dev)
+        keys = torch.empty((2, 3, b), dtype=torch.int32, device=dev)
+        a.memo_keys, a.memo = keys.data_ptr(), 1
+        DATAPATH_LIBRARY.launch("launch_datapath_pair", a, dev, self.name)
+        self.launches += 1
+        return MemoFront(a, cols, keys, (a.layout >> 2) == IPC_IDX_PLANES)
+
+    def back(self, tables, pair, front: MemoFront, vals, acc, telem, stats):
+        dev = _cuda_device(pair, self.name)
+        a = front.args
+        b = int(a.B)
+        if a.pair != pair.data_ptr():
+            raise ValueError("back() takes the pair its front() ran on")
+        a.memo_vals = _ptr(vals, "vals", dev, shape=(2, 2, b))
+        a.memo_stats = _ptr(stats, "stats", dev, shape=(5,))
+        a.acc = _ptr(acc, "acc", dev, shape=(a.n_eps, 2, a.kg + a.n_ids))
+        a.telem = _ptr(telem, "telem", dev, shape=(2, TELEM_COLS))
+        a.memo = 2
+        DATAPATH_LIBRARY.launch("launch_datapath_pair", a, dev, self.name)
+        self.launches += 1
+        cols = front.cols
+        return (DatapathVerdicts(**{k: v[0] for k, v in cols.items()}),
+                DatapathVerdicts(**{k: v[1] for k, v in cols.items()}))
+
+
+MEMO_DEDUP = MemoDedupKernel()
+MEMO_CACHE = MemoCacheKernel()
+MEMO_KEYS_LATTICE = MemoKeysLatticeKernel()
+DATAPATH_PAIR_MEMO = DatapathPairMemoKernel()
 KERNELS = (DATAPATH_PAIR, DATAPATH_STEP, CHURN_COMPACT, CT_DELTA,
            HTTP_MATCH, KAFKA_MATCH, FLEET_L7, LATTICE, LPM_LOOKUP, DATAPATH6,
-           PICK_DRAW)
+           PICK_DRAW, DATAPATH_PAIR_MEMO, MEMO_DEDUP, MEMO_CACHE,
+           MEMO_KEYS_LATTICE)

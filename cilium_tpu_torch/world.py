@@ -179,6 +179,36 @@ class World:
         return out
 
 
+def zipf_picks(prng, n: int, size: int, s: float) -> np.ndarray:
+    """Ranked-Zipf sample of `size` rows of n: rank r (1-based) drawn
+    with probability r^-s (normalised), ranks mapped through a random
+    permutation so the head rows are arbitrary rows (bench.py's
+    zipf_picks, draw for draw)."""
+    ranks = np.arange(1, n + 1, dtype=np.float64)
+    w = ranks ** -float(s)
+    w /= w.sum()
+    perm = prng.permutation(n)
+    return perm[prng.choice(n, size=size, p=w)]
+
+
+def zipf_pairs(world: World, prng, half: int, k: int,
+               s: float) -> List[np.ndarray]:
+    """k packed4 pairs [2, 4, half] u32 whose halves draw the pool's
+    ingress and egress rows by zipf_picks(s), a new permutation for
+    every half, as bench.py's memo section draws its Zipf pairs."""
+    pool = world.pool
+    subsets = [np.nonzero(pool["direction"] == d)[0] for d in (INGRESS, EGRESS)]
+    out = []
+    for _ in range(k):
+        pair = np.empty((2, 4, half), np.uint32)
+        for row, sub in enumerate(subsets):
+            picks = sub[zipf_picks(prng, len(sub), half, s)]
+            pair[row] = pack_flow_records4(
+                **{c: pool[c][picks] for c in FLOW_COLUMNS})
+        out.append(pair)
+    return out
+
+
 def headline_tables(world: World,
                     wide: Optional[DatapathTables] = None) -> DatapathTables:
     """The config-5 headline layout (host numpy): every sub-word
