@@ -86,6 +86,23 @@ launch counts set to 0 just before it and read just after:
              rows against the composed oracle; after it node_timing
              times both kernels on the world's layouts, and config 5's
              again in the same run;
+  publish    policy publication (bench.py's delta_update_ms): config 5's
+             map states as MapStateArrays through the port's
+             FleetCompiler and a default DeviceTableStore on the card;
+             two full uploads, bench's 3 priming one-rule steps (team 0
+             -> endpoint 0 on TCP 4301-4303), 8 timed ones (4304-4311),
+             4 removals (the first around a memo stamp flush: 0 hits on
+             the new epoch, equal to LATTICE, then hits), one step that
+             grows the identity universe (id_table and id_direct
+             scatter) and one that adds 64 ports past the slot pad (Kg
+             grows: whole leaves replaced inside a delta publish)
+             (PUBLISH_SCATTER).  After every publish each epoch leaf
+             equals its host compile, the previous epoch its snapshot,
+             PUBLISH_SCATTER its plain version on the same payloads and
+             base, LATTICE on the live epoch LATTICE on a fresh full
+             upload (bench's 4,194,304 tuples and probes of every
+             change, which flip as the map states say), and the epoch
+             two publishes back is refused; then publish_timing;
   memo       config 5's memoized headline pair (bench.py's timed memo
              loop): 8 Zipf(1.1) pairs of 2 x 2,097,152 flows through
              memo_pair_packed4 behind AsyncBatchDispatcher (depth 2),
@@ -96,8 +113,9 @@ launch counts set to 0 just before it and read just after:
              memo_check runs bench.py's memo gates at rep_cap 2,097,152
              (uniform cold and warm, Zipf twice) against the plain
              memoized pair and the uncached DATAPATH_PAIR, each memo kernel
-             against its plain version, a stamp flush onto a rebuilt
-             policy (0 hits, then hits), an overflow at rep_cap 1,024 and
+             against its plain version, a stamp flush onto the policy of
+             a delta publish through the publish phase's compiler and
+             store (0 hits, then hits), an overflow at rep_cap 1,024 and
              memo_evaluate against LATTICE and its plain version on
              4,194,304 Zipf tuples;
   memo_lattice  memo_evaluate (the daemon's serving shape) through a
@@ -123,7 +141,9 @@ launches on its path, its error against the plain version, its time
 least time the card could take: the bytes this run's data needs read
 and written once at 3.35 TB/s, or its operations at 67 T/s, whichever
 is larger.  `library_ms` is the time of `index_copy_` for CT_DELTA,
-of `torch.unique` for MEMO_DEDUP, of `torch.randint` for PICK_DRAW
+of `torch.unique` for MEMO_DEDUP, of one `index_put_` per leaf for
+PUBLISH_SCATTER (on in-range payloads: a time only, torch raises where
+jax drops), of `torch.randint` for PICK_DRAW
 (other numbers on the same shape: a time only) and null for the others:
 no single PyTorch call computes the fused datapath steps, the intent
 compaction, a DFA scan, the Kafka rule match, the fleet's routed match,
@@ -151,6 +171,9 @@ plain time the whole plain memoized pair; MEMO_DEDUP's and MEMO_CACHE's
 times are one half's at rep_cap 524,288, MEMO_DEDUP's library call
 `torch.unique(keys, dim=0, return_inverse=True)`; MEMO_KEYS_LATTICE's
 time is its keys and combine launches on 4,194,304 tuples.
+PUBLISH_SCATTER's time is one launch on the last timed step's payloads
+(every scattered leaf) and base epoch, its bound their index and value
+bytes read and the destination rows written once.
 """
 
 from __future__ import annotations
@@ -2843,6 +2866,383 @@ def node_phases(kernels, w5, tables5, wide5, rows) -> None:
             r["launches"] = sum(r["launches_by_path"].values())
 
 
+# -- policy publication ----------------------------------------------------------
+
+PUBLISH_PRIME_PORTS = (4301, 4302, 4303)  # bench.py:1390-1394
+PUBLISH_TIMED_PORTS = tuple(range(4304, 4312))
+PUBLISH_REMOVE_PORTS = (4311, 4310, 4309, 4308)
+PUBLISH_NEW_IDS = tuple(range(70_000, 70_064))  # inside the identity pad
+PUBLISH_NEW_PORTS = 64
+PUBLISH_NEW_PORT_BASE = 40_000
+PUBLISH_MEMO_PORT = 4312  # memo_check's delta publish
+# bench.py:1400-1412's leaf list, and the stamp
+PUBLISH_LEAVES = ("id_table", "id_direct", "id_lo_len", "port_slot",
+                  "l4_meta", "l4_allow_bits", "l3_allow_bits", "l4_hash_rows",
+                  "l4_hash_stash", "l4_wild_rows", "l4_wild_stash",
+                  "generation")
+M32 = 0xFFFFFFFF
+
+
+def host_copy(t):
+    """Host PolicyTables copied out of FleetCompiler's ping-pong
+    buffers (the compiler overwrites them two compiles later)."""
+    return dataclasses.replace(t, **{
+        f.name: np.array(getattr(t, f.name), copy=True)
+        for f in dataclasses.fields(t)
+        if isinstance(getattr(t, f.name), np.ndarray)})
+
+
+def epoch_err(dev, host) -> int:
+    """Words of a device epoch that differ from the host tables it was
+    published from, over PUBLISH_LEAVES (the stamp by its low 32
+    bits); 0 means equal."""
+    from cilium_tpu_torch.convert import _leaf_to
+
+    bad = 0
+    for name in PUBLISH_LEAVES:
+        a, b = getattr(dev, name), getattr(host, name)
+        if name in ("generation", "id_lo_len"):
+            bad += int((int(a) & M32) != (int(b) & M32))
+            continue
+        want = _leaf_to(np.asarray(b), "cuda")
+        if tuple(a.shape) != tuple(want.shape):
+            bad += max(a.numel(), want.numel())
+            continue
+        bad += int((a != want).sum().item())
+    return bad
+
+
+def probe_cols(pub) -> tuple:
+    """Probe tuples of every change the phase makes, and whether the
+    current map states allow each: (columns, allowed bool [P]).  An
+    ingress tuple of (endpoint, identity, TCP port) is allowed by its
+    exact key or its identity's L3 key (no wildcard entry covers these
+    ports)."""
+    from cilium_tpu_torch.maps.policymap import INGRESS, pack_keys
+
+    w = pub["w"]
+    team = [int(m) for m in w.team_members[0]]
+    ports = (PUBLISH_PRIME_PORTS + PUBLISH_TIMED_PORTS + (PUBLISH_MEMO_PORT,)
+             + tuple(PUBLISH_NEW_PORT_BASE + i
+                     for i in range(PUBLISH_NEW_PORTS)))
+    ep = [0] * (len(team) * len(ports)) + [1] * len(PUBLISH_NEW_IDS)
+    ident = team * len(ports) + list(PUBLISH_NEW_IDS)
+    dport = [p for p in ports for _ in team] + [80] * len(PUBLISH_NEW_IDS)
+    ep, ident, dport = (np.asarray(v, np.int64) for v in (ep, ident, dport))
+    allowed = np.zeros(len(ep), bool)
+    for e in (0, 1):
+        st = pub["states"][e]
+        sel = ep == e
+        for key in (pack_keys(ident[sel], dport[sel], 6, INGRESS),
+                    pack_keys(ident[sel], 0, 0, INGRESS)):
+            allowed[sel] |= np.isin(key, st.keys_packed)
+    cols = dict(ep_index=ep, identity=ident.astype(np.uint32), dport=dport,
+                proto=np.full(len(ep), 6), direction=np.zeros(len(ep),
+                                                               np.int64))
+    return cols, allowed
+
+
+def publish_step(pub, states, dirty, ids=None, keep=False) -> dict:
+    """One policy update through the port: the fleet's map states
+    (`dirty` endpoints' tokens bumped) -> FleetCompiler.compile ->
+    delta_for against the store's spare epoch -> DeviceTableStore.publish,
+    each timed; then every check of the publish phase.  Returns the
+    step's record; with `keep` it holds the scatter's payloads and its
+    base leaves (for the kernel's timing)."""
+    from cilium_tpu_torch.compiler.delta import tables_nbytes
+    from cilium_tpu_torch.convert import policy_tables_to
+    from cilium_tpu_torch.engine.publish import (
+        StaleEpochError,
+        delta_payloads,
+        scatter_segments_plain,
+    )
+    from cilium_tpu_torch.engine.verdict import TupleBatch, evaluate_batch
+
+    fc, store = pub["fc"], pub["store"]
+    for e in dirty:
+        pub["tokens"][e] += 1
+    pub["states"] = states
+    if ids is not None:
+        pub["ids"] = ids
+    prev = store.current()
+    t0 = time.perf_counter()
+    host, _ = fc.compile(
+        [(e, s, pub["tokens"][e]) for e, s in enumerate(states)], pub["ids"])
+    t1 = time.perf_counter()
+    delta = fc.delta_for(store.spare_stamp(), host)
+    t2 = time.perf_counter()
+    base = None
+    if delta is not None:
+        # the spare's leaves before the scatter writes them (the plain
+        # version's input)
+        spare = store.get(store.spare_stamp())
+        base = {n: getattr(spare, n).clone() for n in delta.updates}
+        torch.cuda.synchronize()
+    t3 = time.perf_counter()
+    dev, st = store.publish(host, delta)
+    t4 = time.perf_counter()
+    snap = host_copy(host)
+    rec = dict(mode=st.mode, compile_ms=(t1 - t0) * 1e3,
+               delta_ms=(t2 - t1) * 1e3, publish_ms=(t4 - t3) * 1e3,
+               bytes_h2d=st.bytes_h2d, full_bytes=tables_nbytes(host),
+               scatter_leaves=st.scatter_leaves,
+               replaced_leaves=st.replaced_leaves,
+               kg=int(host.l4_meta.shape[2]),
+               w=int(host.l3_allow_bits.shape[2]))
+    # every leaf of the live epoch against the host compile; the
+    # previous epoch (still live) against the snapshot it came from
+    rec["live_err"] = epoch_err(dev, snap)
+    rec["prev_err"] = (epoch_err(prev[1], pub["snaps"][-1])
+                       if prev is not None else 0)
+    # PUBLISH_SCATTER against its plain version on the same payloads and
+    # base epoch
+    rec["scatter_err"] = 0
+    if base is not None:
+        payloads = delta_payloads(delta, "cuda")
+        scatter_segments_plain([(base[n], idx, vals)
+                                for n, (idx, vals) in payloads.items()])
+        rec["scatter_err"] = max([int_err(base[n], getattr(dev, n),
+                                          u32=True) for n in base] + [0])
+        if keep:
+            rec["payloads"], rec["base"] = payloads, base
+        del payloads
+    # LATTICE on the live epoch against a fresh full upload of the host
+    # tables, on bench's tuples and on the probes of every change
+    fresh = policy_tables_to(snap, "cuda")
+    cols, allowed = probe_cols(pub)
+    probe = TupleBatch.from_numpy(**cols, device="cuda")
+    rec["lattice_err"] = max(
+        verdicts_err(evaluate_batch(dev, b), evaluate_batch(fresh, b))
+        for b in (pub["batch"], probe))
+    got = evaluate_batch(dev, probe).allowed.cpu().numpy().astype(bool)
+    rec["probe_err"] = int((got != allowed).sum())
+    rec["probe_allowed"] = allowed
+    del fresh
+    # the epoch two publishes back is refused
+    pub["epochs"].append(dev)
+    rec["stale_refused"] = True
+    if len(pub["epochs"]) >= 3:
+        try:
+            store.check_current(pub["epochs"][-3])
+            rec["stale_refused"] = False
+        except StaleEpochError:
+            pass
+        store.check_current(pub["epochs"][-2])
+    pub["snaps"] = (pub["snaps"] + [snap])[-2:]
+    pub["epochs"] = pub["epochs"][-3:]
+    rec["ok"] = (rec["live_err"] == 0 and rec["prev_err"] == 0
+                 and rec["scatter_err"] == 0 and rec["lattice_err"] == 0
+                 and rec["probe_err"] == 0 and rec["stale_refused"])
+    return rec
+
+
+def step_line(label, rec) -> None:
+    print(f"  publish {label}: " + " ".join(
+        f"{k}={round(v, 3) if isinstance(v, float) else v}"
+        for k, v in rec.items()
+        if k not in ("payloads", "base", "probe_allowed")), flush=True)
+
+
+def memo_serve(cache, pol, batch) -> tuple:
+    """One memo_evaluate through a VerdictCache (the daemon's serving
+    shape): (Verdicts, the stats row)."""
+    from cilium_tpu_torch.engine import memo
+
+    stamp, rows = cache.acquire()
+    v, rows2, _, st = memo.memo_evaluate(pol, batch, rows,
+                                         rep_cap=MEMO_TUPLES)
+    row = cache.account(st)
+    cache.commit(stamp, rows2)
+    return v, row
+
+
+def memo_stamp(pol) -> tuple:
+    """The verdict cache's stamp of a policy epoch, as bench.py forms it
+    (`_memo_stamp`): the generation's low 32 bits and the layout."""
+    from cilium_tpu_torch.compiler.tables import tables_layout_version
+
+    return int(pol.generation) & M32, tables_layout_version(pol)
+
+
+def publish_phases(kernels, w, rows) -> dict:
+    """publish: config 5's map states (MapStateArrays) through the
+    port's FleetCompiler and a default DeviceTableStore on the card:
+    two full publishes, bench.py's 3 priming one-rule steps, 8 timed
+    ones, 4 removals (the first around a memo stamp flush), one step
+    that grows the identity universe and one that adds 64 ports past the
+    slot pad; every step checked (publish_step).  Launch counts are set
+    to 0 just before the steps and read just after.  Appends
+    PUBLISH_SCATTER's row; returns the compiler and store for memo_check."""
+    from cilium_tpu_torch import world
+    from cilium_tpu_torch.compiler.tables import FleetCompiler
+    from cilium_tpu_torch.engine import memo
+    from cilium_tpu_torch.engine.publish import (
+        DeviceTableStore,
+        _resident_bytes,
+        scatter_segments_plain,
+    )
+    from cilium_tpu_torch.engine.verdict import TupleBatch, evaluate_batch
+
+    t = time.perf_counter()
+    arrays = world.map_state_arrays(w.states)
+    lt = world.lattice_tuples(w, LATTICE_TUPLES)
+    pub = dict(w=w, fc=FleetCompiler(identity_pad=w.identity_pad,
+                                     filter_pad=w.filter_pad),
+               store=DeviceTableStore(), tokens=[0] * len(arrays),
+               ids=list(w.identity_ids), states=arrays, snaps=[], epochs=[],
+               batch=TupleBatch.from_numpy(**lt, device="cuda"))
+    setup_s = time.perf_counter() - t
+    full = [publish_step(pub, arrays, range(len(arrays))),
+            publish_step(pub, arrays, ())]
+    for i, rec in enumerate(full):
+        step_line(f"full{i}", rec)
+    phase("publish_setup", t, endpoints=len(arrays),
+          entries=sum(len(a) for a in arrays), arrays_s=round(setup_s, 3),
+          full_modes=[r["mode"] for r in full],
+          full_compile_ms=[round(r["compile_ms"], 3) for r in full],
+          full_upload_ms=[round(r["publish_ms"], 3) for r in full],
+          full_bytes=full[0]["full_bytes"])
+
+    t = time.perf_counter()
+    reset_counts(kernels)
+    steps = []
+
+    def one_rule(label, port, remove=False, keep=False):
+        states = world.one_rule_states(w, port, states=pub["states"],
+                                       remove=remove)
+        rec = publish_step(pub, states, (0,), keep=keep)
+        step_line(label, rec)
+        steps.append((label, rec))
+        return rec
+
+    for port in PUBLISH_PRIME_PORTS:
+        one_rule(f"prime{port}", port)
+    timed = [one_rule(f"timed{port}", port,
+                      keep=port == PUBLISH_TIMED_PORTS[-1])
+             for port in PUBLISH_TIMED_PORTS]
+
+    # a memo stamp flush around the first removal: warm the cache on the
+    # live epoch, publish, then the new stamp must flush it
+    cache = memo.VerdictCache(n_rows=MEMO_ROWS, device="cuda")
+    zt = TupleBatch.from_numpy(**memo_zipf_tuples(w, MEMO_TUPLES, 67),
+                               device="cuda")
+    live = pub["store"].current()[1]
+    cache.ensure(memo_stamp(live))
+    warm = [memo_serve(cache, live, zt)[1]["hits"] for _ in range(2)]
+    flushes = cache.flushes
+    removed = [one_rule(f"remove{PUBLISH_REMOVE_PORTS[0]}",
+                        PUBLISH_REMOVE_PORTS[0], remove=True)]
+    live = pub["store"].current()[1]
+    flushed = cache.ensure(memo_stamp(live)) and cache.flushes == flushes + 1
+    v0, r0 = memo_serve(cache, live, zt)
+    memo_err = verdicts_err(v0, evaluate_batch(live, zt))
+    v1, r1 = memo_serve(cache, live, zt)
+    memo_err = max(memo_err, verdicts_err(v1, evaluate_batch(live, zt)))
+    memo_ok = (flushed and warm[1] > 0 and r0["hits"] == 0
+               and r1["hits"] > 0 and memo_err == 0)
+    print(f"  publish memo flush: warm_hits={warm} flushed={flushed} "
+          f"hits_after={[r0['hits'], r1['hits']]} err={memo_err}",
+          flush=True)
+    del zt, cache
+    for port in PUBLISH_REMOVE_PORTS[1:]:
+        removed.append(one_rule(f"remove{port}", port, remove=True))
+
+    # the identity universe grows inside its pad (id_table and id_direct
+    # scatter); endpoint 1 admits the new identities at L3
+    from cilium_tpu_torch.maps.policymap import INGRESS, MapStateArrays, pack_keys
+
+    st1 = pub["states"][1]
+    new_keys = pack_keys(PUBLISH_NEW_IDS, 0, 0, INGRESS)
+    states = list(pub["states"])
+    states[1] = MapStateArrays.build(
+        np.concatenate([st1.keys_packed, new_keys]),
+        np.concatenate([st1.proxy, np.zeros(len(new_keys), np.uint32)]))
+    grow = publish_step(pub, states, (1,),
+                        ids=pub["ids"] + list(PUBLISH_NEW_IDS))
+    step_line("identities", grow)
+    steps.append(("identities", grow))
+    # 64 new ports past the slot pad: Kg grows, whole leaves replaced
+    states = pub["states"]
+    for i in range(PUBLISH_NEW_PORTS):
+        states = world.one_rule_states(w, PUBLISH_NEW_PORT_BASE + i,
+                                       states=states)
+    kg_before = grow["kg"]
+    ports = publish_step(pub, states, (0,))
+    step_line("ports", ports)
+    steps.append(("ports", ports))
+    torch.cuda.synchronize()
+    launches = kernels.PUBLISH_SCATTER.launches
+    path_s = time.perf_counter() - t
+
+    delta_steps = [r for _, r in steps]
+    scatters = sum(r["scatter_leaves"] > 0 for r in delta_steps)
+    flips = int(sum((~steps[i - 1][1]["probe_allowed"]
+                     & steps[i][1]["probe_allowed"]).sum()
+                    for i in range(1, len(steps))))
+    med = lambda k: float(np.median([r[k] for r in timed]))
+    live = pub["store"].current()[1]
+    ok = (all(r["ok"] for r in full + delta_steps)
+          and all(r["mode"] == "full" for r in full)
+          and all(r["mode"] == "delta" for r in delta_steps)
+          and launches == scatters > 0 and memo_ok and flips > 0
+          and grow["scatter_leaves"] > 0
+          and ports["kg"] > kg_before and ports["replaced_leaves"] > 1)
+    phase("publish", t, steps=len(steps), launches=launches,
+          delta_scatters=scatters, path_s=round(path_s, 3),
+          compile_ms=round(med("compile_ms"), 3),
+          delta_for_ms=round(med("delta_ms"), 3),
+          publish_ms=round(med("publish_ms"), 3),
+          update_ms=round(med("compile_ms") + med("delta_ms")
+                          + med("publish_ms"), 3),
+          bytes_h2d=int(np.median([r["bytes_h2d"] for r in timed])),
+          tables_nbytes=timed[-1]["full_bytes"],
+          scatter_leaves=timed[-1]["scatter_leaves"],
+          replaced_leaves=timed[-1]["replaced_leaves"],
+          identity_step=json.dumps({k: grow[k] for k in (
+              "bytes_h2d", "scatter_leaves", "replaced_leaves")}),
+          port_step=json.dumps({k: ports[k] for k in (
+              "kg", "bytes_h2d", "scatter_leaves", "replaced_leaves")}),
+          kg=[kg_before, ports["kg"]], w=ports["w"],
+          epoch_bytes=_resident_bytes(live),
+          store_bytes=json.dumps(pub["store"].chip_bytes()),
+          probe_flips=flips, memo_flush=memo_ok, ok=ok)
+    if not ok:
+        raise SystemExit("publish failed")
+
+    # PUBLISH_SCATTER on the last timed step's payloads and base epoch:
+    # the kernel, the plain version and one index_put_ per leaf (the
+    # payloads are in range: torch would raise where jax drops)
+    t = time.perf_counter()
+    last = timed[-1]
+    segs = [(last["base"][n].clone(), idx, vals)
+            for n, (idx, vals) in last["payloads"].items()]
+    plain = [(d.clone(), i, v) for d, i, v in segs]
+    lib = [(d.clone(), i, v) for d, i, v in segs]
+    ms = event_ms(lambda: kernels.PUBLISH_SCATTER(segs), 20)
+    plain_ms = event_ms(lambda: scatter_segments_plain(plain), 20)
+    library_ms = event_ms(
+        lambda: [d.index_put_(i, v) for d, i, v in lib], 20)
+    err = max(max(r["scatter_err"] for r in delta_steps),
+              max(int_err(a[0], b[0], u32=True) for a, b in zip(segs, plain)))
+    payload_bytes = sum(nbytes(*i) + 2 * nbytes(v) for _, i, v in segs)
+    bound_ms = payload_bytes / HBM_BYTES_PER_S * 1e3
+    phase("publish_timing", t, ms=round(ms, 4), plain_ms=round(plain_ms, 4),
+          library_ms=round(library_ms, 4), bound_ms=round(bound_ms, 4),
+          payload_bytes=payload_bytes, leaves=[n for n in last["payloads"]],
+          max_abs_err=err)
+    if err:
+        raise SystemExit("PUBLISH_SCATTER differs from its plain version")
+    rows.append(dict(kernel_row(
+        kernels.PUBLISH_SCATTER, "cilium_tpu_torch/csrc/publish.cu",
+        "cilium_tpu/engine/publish.py:232", launches, err, ms, plain_ms,
+        bound_ms, 0.0, library_ms=library_ms),
+        leaves=len(segs), payload_bytes=payload_bytes))
+    last.pop("payloads")
+    last.pop("base")
+    del segs, plain, lib, timed, steps
+    return pub
+
+
 MEMO_ROWS = 1 << 14  # bench.py's VerdictCache(n_rows=1 << 14)
 MEMO_REP_CAP = max(HALF >> 2, 1 << 10)  # bench.py's memo_rep_cap
 MEMO_OVERFLOW_CAP = 1 << 10
@@ -2936,30 +3336,24 @@ def memo_keys_plain(pol, batch):
         batch.proto.to(torch.int64).clamp(0, 255)))
 
 
-def memo_policy_churn(w, tables):
-    """The stamp flush's new epoch: config 5's policy rebuilt with one
-    more map-state entry (endpoint 0 admits identity_ids[10] on TCP
-    4311, ingress), in the headline layout, beside the other planes."""
-    from cilium_tpu_torch.compiler.tables import (
-        compile_map_states,
-        repack_l4_subword,
-        split_hot,
-    )
+def memo_policy_churn(w, tables, pub):
+    """The stamp flush's new epoch: one more one-rule update (team 0 ->
+    endpoint 0 on TCP PUBLISH_MEMO_PORT) published through the publish
+    phase's FleetCompiler and DeviceTableStore (a delta publish, every
+    publish_step check), its host tables in the headline layout beside
+    the other planes, as bench.py's memo section repacks the daemon's
+    published tables.  The policy keeps the epoch's generation stamp."""
+    from cilium_tpu_torch import world
+    from cilium_tpu_torch.compiler.tables import repack_l4_subword, split_hot
     from cilium_tpu_torch.convert import policy_tables_to
-    from cilium_tpu_torch.maps.policymap import (
-        PolicyKey,
-        PolicyMapStateEntry,
-    )
 
-    states = list(w.states)
-    states[0] = dict(states[0])
-    states[0][PolicyKey(int(w.identity_ids[10]), 4311, 6, 0)] = (
-        PolicyMapStateEntry())
-    pol = compile_map_states(states, w.identity_ids,
-                             identity_pad=w.identity_pad,
-                             filter_pad=w.filter_pad)
-    pol = policy_tables_to(split_hot(repack_l4_subword(pol)), "cuda")
-    return dataclasses.replace(tables, policy=pol)
+    states = world.one_rule_states(w, PUBLISH_MEMO_PORT, states=pub["states"])
+    rec = publish_step(pub, states, (0,))
+    step_line("memo", rec)
+    if rec["mode"] != "delta" or not rec["ok"]:
+        raise SystemExit("memo_check's delta publish failed")
+    pol = split_hot(repack_l4_subword(pub["snaps"][-1]))
+    return dataclasses.replace(tables, policy=policy_tables_to(pol, "cuda"))
 
 
 def memo_zipf_tuples(w, n: int, seed: int) -> dict:
@@ -2973,17 +3367,18 @@ def memo_zipf_tuples(w, n: int, seed: int) -> dict:
     return {k: v[picks] for k, v in base.items()}
 
 
-def memo_check(kernels, w, tables) -> dict:
+def memo_check(kernels, w, tables, pub) -> dict:
     """memo_check: bench.py's memo gates on the card at rep_cap = HALF
     (uniform cold and warm, Zipf twice) and once more on the Zipf pair
     at the timed loop's rep_cap (MEMO_REP_CAP), each new kernel against its
-    plain version on the Zipf pair's keys, the stamp flush onto a
-    rebuilt policy (0 hits, then hits), the overflow case (rep_cap
+    plain version on the Zipf pair's keys, the stamp flush onto the
+    policy of a delta publish through the port's FleetCompiler and
+    DeviceTableStore (memo_policy_churn; the cache's stamp is bench.py's
+    `_memo_stamp`: 0 hits, then hits), the overflow case (rep_cap
     1,024: stats, and the carried state unchanged) and memo_evaluate
     against LATTICE and its plain version on 4,194,304 Zipf tuples
     (cold and warm).  The limit is 0 differences."""
     from cilium_tpu_torch import world
-    from cilium_tpu_torch.compiler.tables import tables_layout_version
     from cilium_tpu_torch.convert import cache_rows_to
     from cilium_tpu_torch.device import widen
     from cilium_tpu_torch.engine import memo
@@ -2992,7 +3387,7 @@ def memo_check(kernels, w, tables) -> dict:
 
     t = time.perf_counter()
     cache = memo.VerdictCache(n_rows=MEMO_ROWS, device="cuda")
-    cache.ensure((1, tables_layout_version(tables.policy)))
+    cache.ensure(memo_stamp(tables.policy))
     uni = w.pairs(seed=41, half=HALF, k=1)[0]
     zp = world.zipf_pairs(w, np.random.default_rng(53), HALF, 1,
                           MEMO_ZIPF_S)[0]
@@ -3033,9 +3428,10 @@ def memo_check(kernels, w, tables) -> dict:
                     int_err(st_k, pst, u32=True))
 
     # the stamp flush: a new epoch's policy, 0 hits, then hits again
-    tables2 = memo_policy_churn(w, tables)
-    stamp2 = (2, tables_layout_version(tables2.policy))
-    flushed = cache.ensure(stamp2) and cache.flushes == 1
+    tables2 = memo_policy_churn(w, tables, pub)
+    stamp2 = memo_stamp(tables2.policy)
+    flushed = (stamp2[0] == pub["store"].current_stamp() & M32
+               and cache.ensure(stamp2) and cache.flushes == 1)
     for tag in ("flush", "flush_warm"):
         row, ep_, er, ok = memo_gate(kernels, tables2, zp, cache, HALF)
         err_plain, err_ref = max(err_plain, ep_), max(err_ref, er)
@@ -3213,13 +3609,12 @@ def memo_lattice_path(kernels, tables, batch) -> dict:
     a VerdictCache over 4,194,304 Zipf tuples, 8 calls, and LATTICE's
     uncached line on the same tuples; the last call's verdicts against
     LATTICE's (0 differences)."""
-    from cilium_tpu_torch.compiler.tables import tables_layout_version
     from cilium_tpu_torch.engine import memo
 
     t = time.perf_counter()
     pol = tables.policy
     cache = memo.VerdictCache(n_rows=MEMO_ROWS, device="cuda")
-    cache.ensure((1, tables_layout_version(pol)))
+    cache.ensure(memo_stamp(pol))
     torch.cuda.synchronize()
     reset_counts(kernels)
     t0 = time.perf_counter()
@@ -3460,11 +3855,11 @@ def memo_timing(kernels, tables, chk, path, lat_counts) -> list:
     return rows_out
 
 
-def memo_phases(kernels, w, tables, rows) -> None:
+def memo_phases(kernels, w, tables, rows, pub) -> None:
     """The verdict memo's phases (memo_check, memo, memo_lattice,
     memo_timing) on config 5's compact tables; their kernels' rows go
-    into `rows`."""
-    chk = memo_check(kernels, w, tables)
+    into `rows`.  `pub` is publish_phases' compiler and store."""
+    chk = memo_check(kernels, w, tables, pub)
     path = memo_path(kernels, w, tables)
     lat = memo_lattice_path(kernels, tables, chk["batch"])
     rows.extend(memo_timing(kernels, tables, chk, path, lat))
@@ -3717,11 +4112,14 @@ def main() -> int:
     torch.cuda.empty_cache()
     node_phases(kernels, w, tables, wide_t, rows)
     torch.cuda.empty_cache()
-    memo_phases(kernels, w, tables, rows)
+    pub = publish_phases(kernels, w, rows)
+    torch.cuda.empty_cache()
+    memo_phases(kernels, w, tables, rows, pub)
 
     print("[library] library_ms is null except for ct_delta "
           "(index_copy_), memo_dedup (torch.unique of the key rows with the "
-          "inverse) and pick_draw (torch.randint on the same shape: "
+          "inverse), publish_scatter (one index_put_ per leaf on in-range "
+          "payloads: a time only) and pick_draw (torch.randint on the same shape: "
           "other numbers, so a time only): no single PyTorch call computes "
           "the fused datapath steps (v4 or v6), the intent compaction, a "
           "DFA scan, the Kafka rule match, the fleet's routed match, the "

@@ -25,13 +25,22 @@ j beside the key and rebuilds the proxy port from `l4_meta`:
   (empty lanes hold cw1 = 1 << 31)
 
 The stash width (3 or 2 columns) is the layout marker.
+
+`FleetCompiler` is the daemon's incremental lowering: it caches the
+identity universe (arrival order), the slot space (first-seen order)
+and each endpoint's rows by state token, stamps every compile with a
+generation, and records what each compile changed so that `delta_for`
+can describe the change between two publishes (compiler/delta.py).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import itertools
+import threading
+from collections import deque
 from dataclasses import dataclass
-from typing import Dict, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -40,7 +49,11 @@ from cilium_tpu_torch.engine.hashtable import (
     FNV_PRIME,
     trim_pow2_prefix,
 )
-from cilium_tpu_torch.maps.policymap import PolicyMapState
+from cilium_tpu_torch.maps.policymap import (
+    MapStateArrays,
+    PolicyMapState,
+    unpack_keys,
+)
 
 # Sentinel for padded slots of the sorted identity table.
 PAD_ID = np.uint32(0xFFFFFFFF)
@@ -51,7 +64,8 @@ NO_SLOT = np.uint16(0xFFFF)
 # Cap on direct-table sizes (2^22 u32 = 16 MB).
 MAX_DIRECT = 1 << 22
 
-# Local (CIDR) identities live in a dedicated high id range.
+# Local (CIDR) identities live in a dedicated high id range
+# (the reference's IdentityAllocator.LOCAL_IDENTITY_BASE).
 LOCAL_ID_BASE = 1 << 24
 # The reserved WORLD identity (pkg/identity numericidentity.go).
 RESERVED_WORLD = 2
@@ -67,6 +81,10 @@ L4C_WILD_IDX18 = np.uint32((1 << 18) - 1)
 L4C_KEY_MASK = np.uint32((1 << 19) - 1)
 L4C_EMPTY_W1 = np.uint32(1 << 31)
 L4C_CMP_MASK = np.uint32(L4C_KEY_MASK | L4C_EMPTY_W1)
+
+# FleetCompiler instance nonces: a generation stamp is nonce << 32 |
+# publish counter, so stamps of two compilers never compare.
+_COMPILER_NONCE = itertools.count(1)
 
 # the dense-bitmap fallback leaves the hashed probes never read
 COLD_LEAVES = ("port_slot", "l4_allow_bits")
@@ -174,7 +192,11 @@ def _bucket_ranks(h: np.ndarray, n_rows: int, entries: int):
 
 
 def place_l4_hash(w0, w1, value, h, min_rows: int, lanes: int = L4H_LANES):
-    """Bucket placement of 3-word entries: (rows, stash untrimmed)."""
+    """Bucket placement of 3-word entries: (rows, stash untrimmed,
+    overflow positions, buckets).  The one layout implementation,
+    shared by build_l4_hash and the incremental tables of
+    compiler/delta.py (which keep the last two as their per-bucket
+    overflow state)."""
     t = len(w0)
     entries = l4h_entries(lanes)
     n_rows = _pow2_at_least(max(t // l4h_load(lanes), 1), min_rows)
@@ -193,7 +215,7 @@ def place_l4_hash(w0, w1, value, h, min_rows: int, lanes: int = L4H_LANES):
     stash[: len(so), 0] = w0[so]
     stash[: len(so), 1] = w1[so]
     stash[: len(so), 2] = value[so]
-    return rows, stash
+    return rows, stash, so, (h & np.uint32(n_rows - 1)).astype(np.int64)
 
 
 def build_l4_hash(ep, d, idx, dport, proto, value, min_rows: int = 64,
@@ -208,7 +230,8 @@ def build_l4_hash(ep, d, idx, dport, proto, value, min_rows: int = 64,
     w0 = l4h_key0(idx, d, ep)
     w1 = l4h_key1(dport, proto, ep)
     h = _fnv1a_host_2(w0, w1)
-    rows, stash = place_l4_hash(w0, w1, value, h, min_rows, lanes=lanes)
+    rows, stash, _, _ = place_l4_hash(w0, w1, value, h, min_rows,
+                                      lanes=lanes)
     return rows, trim_stash(stash)
 
 
@@ -242,6 +265,7 @@ class PolicyTables:
       l4_meta        u32 [E, 2, Kg]     proxy_port << 1 | wildcard
       l4_allow_bits  u32 [E, 2, Kg, W]  per-identity allow (cold)
       l3_allow_bits  u32 [E, 2, W]      L3-only allow
+      generation     u64 scalar         publish stamp (0 = unstamped)
       l4_hash_rows / l4_hash_stash      exact hashed entries
       l4_wild_rows / l4_wild_stash      wildcard hashed entries
     """
@@ -253,6 +277,10 @@ class PolicyTables:
     l4_meta: object
     l4_allow_bits: object
     l3_allow_bits: object
+    # publish-generation stamp (FleetCompiler): nonce << 32 | publish
+    # counter, a numpy u64 scalar on the host and a Python int on a
+    # device; 0 = unstamped (one-shot compiles)
+    generation: object = np.uint64(0)
     l4_hash_rows: object = None
     l4_hash_stash: object = None
     l4_wild_rows: object = None
@@ -607,3 +635,618 @@ def compile_map_states(states: Sequence[PolicyMapState],
         filter_pad,
         hash_lanes=hash_lanes,
     )
+
+
+class FleetCompiler:
+    """Incremental fleet lowering, the daemon's compiler.
+
+    The one-shot path rebuilds everything per policy event.  This
+    compiler caches each piece keyed on what invalidates it:
+
+      * identity universe: arrival-ordered and append-only, so adding
+        an identity appends an index and existing bit rows stay valid;
+        removing one forces a full reset;
+      * L4 slot space: new (dport, proto) keys append slots in
+        first-seen order; `port_slot` cells are written once;
+      * per-endpoint rows: relowered only when the endpoint's state
+        token changes, padded lazily when the buckets grow.
+
+    Its tables equal compile_map_states' in verdicts, not byte for byte
+    (slot and identity order differ).  Every compile is stamped with a
+    generation (`nonce << 32 | counter`) and recorded, so that
+    `delta_for` can describe the change since an earlier publish.
+
+    The stacked rows and `port_slot` ping-pong between two host
+    buffers: tables one compile old stay intact, older ones are
+    overwritten in place (`check_tables_current`).  A caller that keeps
+    host tables across two compiles copies them.
+    """
+
+    def __init__(self, identity_pad: int = 1024, filter_pad: int = 64
+                 ) -> None:
+        self.identity_pad = identity_pad
+        self.filter_pad = filter_pad
+        # publish generation; survives _reset() (it counts publishes)
+        self._generation = 0
+        self._instance_nonce = next(_COMPILER_NONCE)
+        self._compile_lock = threading.Lock()
+        self._reset()
+
+    def _reset(self) -> None:
+        from cilium_tpu_torch.compiler.delta import IncrementalHashPair
+
+        # a reset mid-compile invalidates every delta precondition
+        # captured before it
+        self._reset_count = getattr(self, "_reset_count", 0) + 1
+        self._id_list: List[int] = []
+        self._id_index: Dict[int, int] = {}
+        self._slot_of: Dict[Tuple[int, int], int] = {}
+        self._slot_list: List[Tuple[int, int]] = []  # arrival order
+        self._hash_pair = IncrementalHashPair()
+        # the last compile's shape class, the change records delta_for
+        # merges, and the caller's universe version
+        self._shape_state: Optional[dict] = None
+        self._pub_records = deque(maxlen=8)
+        self._universe_token = None
+        self._slot_lut_cache = None
+        # double-buffered port_slot: each buffer knows how many slots it
+        # holds; catching up writes only the new cells
+        self._port_slot_bufs = [
+            {"arr": np.full((256, 65536), NO_SLOT, dtype=np.uint16),
+             "applied": 0}
+            for _ in range(2)
+        ]
+        self._port_slot_flip = 0
+        # ep_id -> dict(token, kg, w, meta, l4, l3, ent)
+        self._rows: Dict[int, dict] = {}
+        # double-buffered stacked tensors: each records the token its
+        # copy of every endpoint's rows reflects
+        self._stack_bufs: List[Optional[dict]] = [None, None]
+        self._stack_flip = 0
+        self._id_table: np.ndarray = None
+        self._id_direct: np.ndarray = None
+        self._id_lo_len: int = 0
+        self._id_tables_dirty = True
+
+    # -- identity universe ---------------------------------------------------
+
+    def _sync_universe(self, identity_ids: Sequence[int]) -> None:
+        want = set(int(i) for i in identity_ids)
+        if not want >= self._id_index.keys():
+            # removal: indices would shift, so reset
+            self._reset()
+        new = want - self._id_index.keys()
+        if new:
+            for num_id in sorted(new):
+                self._id_index[num_id] = len(self._id_list)
+                self._id_list.append(num_id)
+            self._id_tables_dirty = True
+
+    def _padded_n(self) -> int:
+        n = _round_up(max(len(self._id_list), 1), self.identity_pad)
+        return _round_up(n, 32)
+
+    def identity_index(self) -> Tuple[Dict[int, int], int]:
+        """(identity id -> dense index, padded identity count) of the
+        current universe: the index space of the tables' id_direct."""
+        return dict(self._id_index), self._padded_n()
+
+    def _ensure_id_tables(self) -> None:
+        if not self._id_tables_dirty and self._id_table is not None:
+            return
+        n = self._padded_n()
+        if n >= int(L4H_WILD_IDX):
+            raise ValueError(
+                "identity axis too large for the hashed L4 probe "
+                f"(n={n}, cap={int(L4H_WILD_IDX)})"
+            )
+        table = np.full((n,), PAD_ID, dtype=np.uint32)
+        table[: len(self._id_list)] = np.asarray(self._id_list,
+                                                 dtype=np.uint32)
+        # arrival order, never sorted: the direct index maps each id to
+        # its position in this table
+        self._id_direct, self._id_lo_len = _build_direct_index(table)
+        self._id_table = table
+        self._id_tables_dirty = False
+
+    # -- slot space ----------------------------------------------------------
+
+    def _ensure_slots(self, state) -> bool:
+        """Append slots for unseen (dport, proto) keys; True if the slot
+        space grew."""
+        grew = False
+        if isinstance(state, MapStateArrays):
+            _, dport, proto, _ = unpack_keys(state.keys_packed)
+            nonl3 = (dport != 0) | (proto != 0)
+            pairs = np.unique(
+                (dport[nonl3].astype(np.int64) << 8) | proto[nonl3]
+            )
+            keys = [(p >> 8, p & 0xFF) for p in pairs.tolist()]
+        else:
+            keys = [(k.dest_port, k.nexthdr) for k in state
+                    if not k.is_l3_only()]
+        for key in keys:
+            if key not in self._slot_of:
+                self._slot_of[key] = len(self._slot_list)
+                self._slot_list.append(key)
+                grew = True
+        return grew
+
+    def _current_port_slot(self) -> np.ndarray:
+        """Flip to the standby port_slot buffer and catch it up with the
+        slots appended since it was last handed out."""
+        buf = self._port_slot_bufs[self._port_slot_flip]
+        if buf["applied"] == len(self._slot_list):
+            return buf["arr"]
+        self._port_slot_flip ^= 1
+        buf = self._port_slot_bufs[self._port_slot_flip]
+        for j in range(buf["applied"], len(self._slot_list)):
+            dport, proto = self._slot_list[j]
+            buf["arr"][proto & 0xFF, dport] = j
+        buf["applied"] = len(self._slot_list)
+        return buf["arr"]
+
+    def _padded_kg(self) -> int:
+        return _round_up(max(len(self._slot_of), 1), self.filter_pad)
+
+    def _slot_pair_lut(self) -> Tuple[np.ndarray, np.ndarray]:
+        """(sorted packed dport << 8 | proto pairs, slot of each sorted
+        position), rebuilt only when the slot list grows."""
+        cached = self._slot_lut_cache
+        if cached is not None and cached[0] == len(self._slot_list):
+            return cached[1], cached[2]
+        pairs = np.asarray(
+            [(dp << 8) | pr for dp, pr in self._slot_list], np.int64
+        )
+        order = np.argsort(pairs, kind="stable")
+        self._slot_lut_cache = (len(self._slot_list), pairs[order], order)
+        return self._slot_lut_cache[1], self._slot_lut_cache[2]
+
+    # -- per-endpoint rows ---------------------------------------------------
+
+    @staticmethod
+    def _empty_ent() -> dict:
+        return {k: np.zeros(0, np.uint32)
+                for k in ("d", "idx", "dport", "proto", "val")}
+
+    def _lower_rows_arrays(self, state: MapStateArrays) -> dict:
+        """The row lowering as array scatters (np.bitwise_or.at): rows
+        bit-identical to the dict path's."""
+        n = self._padded_n()
+        w = n // 32
+        kg = self._padded_kg()
+        meta = np.zeros((2, kg), dtype=np.uint32)
+        l4 = np.zeros((2, kg, w), dtype=np.uint32)
+        l3 = np.zeros((2, w), dtype=np.uint32)
+        m = len(state.keys_packed)
+        out = {"kg": kg, "w": w, "meta": meta, "l4": l4, "l3": l3,
+               "ent": self._empty_ent()}
+        if m == 0:
+            return out
+
+        ident, dport, proto, d = unpack_keys(state.keys_packed)
+        l3_mask = (dport == 0) & (proto == 0)
+        wild_mask = (ident == 0) & ~l3_mask
+
+        # identity -> dense index through the arrival-ordered direct table
+        ident64 = ident.astype(np.int64)
+        is_local = ident64 >= LOCAL_ID_BASE
+        pos = np.where(is_local, self._id_lo_len + ident64 - LOCAL_ID_BASE,
+                       ident64)
+        idx = np.full(m, NO_INDEX, dtype=np.uint32)
+        in_range = (pos >= 0) & (pos < len(self._id_direct))
+        idx[in_range] = self._id_direct[pos[in_range]]
+        bad = ~wild_mask & (idx == NO_INDEX)
+        if bad.any():
+            missing = int(ident[np.argmax(bad)])
+            raise ValueError(
+                f"identity {missing} in map state but not in the "
+                f"identity universe (universe/table skew)"
+            )
+        word = (idx >> 5).astype(np.int64)
+        bit = (np.uint32(1) << (idx & np.uint32(31))).astype(np.uint32)
+
+        np.bitwise_or.at(
+            l3.reshape(-1),
+            d[l3_mask].astype(np.int64) * w + word[l3_mask],
+            bit[l3_mask],
+        )
+
+        sel4 = ~l3_mask
+        if not sel4.any():
+            return out
+        sorted_pairs, order = self._slot_pair_lut()
+        pair = (dport[sel4].astype(np.int64) << 8) | proto[sel4]
+        j = order[np.searchsorted(sorted_pairs, pair)].astype(np.int64)
+        dj = d[sel4].astype(np.int64) * kg + j
+        proxy4 = state.proxy[sel4].astype(np.int64)
+        # one proxy port per (direction, slot)
+        uniq_pairs = np.unique(np.stack([dj, proxy4], axis=1), axis=0)
+        if len(np.unique(uniq_pairs[:, 0])) != len(uniq_pairs):
+            dup = uniq_pairs[:, 0][
+                np.nonzero(np.diff(uniq_pairs[:, 0]) == 0)[0][0]
+            ]
+            dpp, prr = self._slot_list[int(dup) % kg]
+            raise ValueError(
+                f"conflicting proxy ports for slot "
+                f"{(dpp, prr, int(dup) // kg)}"
+            )
+        np.bitwise_or.at(
+            meta.reshape(-1), dj,
+            (proxy4.astype(np.uint32) << np.uint32(1))
+            | wild_mask[sel4].astype(np.uint32),
+        )
+        setbits = sel4 & ~wild_mask
+        if setbits.any():
+            dj_all = np.full(m, -1, np.int64)
+            dj_all[sel4] = dj
+            np.bitwise_or.at(
+                l4.reshape(-1), dj_all[setbits] * w + word[setbits],
+                bit[setbits],
+            )
+        # the hashed probe's entry columns (the endpoint bits are added
+        # at stack time)
+        ent_idx = idx[sel4].copy()
+        ent_idx[wild_mask[sel4]] = L4H_WILD_IDX
+        out["ent"] = {
+            "d": d[sel4].astype(np.uint32),
+            "idx": ent_idx.astype(np.uint32),
+            "dport": dport[sel4].astype(np.uint32),
+            "proto": proto[sel4].astype(np.uint32),
+            "val": ((j.astype(np.uint32) << np.uint32(16))
+                    | proxy4.astype(np.uint32)),
+        }
+        return out
+
+    def _lower_rows(self, state) -> dict:
+        if isinstance(state, MapStateArrays):
+            return self._lower_rows_arrays(state)
+        n = self._padded_n()
+        w = n // 32
+        kg = self._padded_kg()
+        meta = np.zeros((2, kg), dtype=np.uint32)
+        l4 = np.zeros((2, kg, w), dtype=np.uint32)
+        l3 = np.zeros((2, w), dtype=np.uint32)
+        proxy_seen: Dict[Tuple[int, int], int] = {}
+        cols = {k: [] for k in ("d", "idx", "dport", "proto", "val")}
+
+        def index_of(num_id: int) -> int:
+            idx = self._id_index.get(num_id)
+            if idx is None:
+                raise ValueError(
+                    f"identity {num_id} in map state but not in the "
+                    f"identity universe (universe/table skew)"
+                )
+            return idx
+
+        for key, entry in state.items():
+            d = key.traffic_direction
+            if key.is_l3_only():
+                idx = index_of(key.identity)
+                l3[d, idx >> 5] |= np.uint32(1 << (idx & 31))
+                continue
+            j = self._slot_of[(key.dest_port, key.nexthdr)]
+            prev = proxy_seen.setdefault((d, j), entry.proxy_port)
+            if prev != entry.proxy_port:
+                raise ValueError(
+                    f"conflicting proxy ports for slot "
+                    f"{(key.dest_port, key.nexthdr, d)}: "
+                    f"{prev} vs {entry.proxy_port}"
+                )
+            meta[d, j] |= np.uint32(entry.proxy_port << 1)
+            if key.identity == 0:
+                meta[d, j] |= np.uint32(1)
+                idx = int(L4H_WILD_IDX)
+            else:
+                idx = index_of(key.identity)
+                l4[d, j, idx >> 5] |= np.uint32(1 << (idx & 31))
+            cols["d"].append(d)
+            cols["idx"].append(idx)
+            cols["dport"].append(key.dest_port)
+            cols["proto"].append(key.nexthdr)
+            cols["val"].append((j << 16) | entry.proxy_port)
+        ent = {k: np.asarray(v, np.uint32) for k, v in cols.items()}
+        return {"kg": kg, "w": w, "meta": meta, "l4": l4, "l3": l3,
+                "ent": ent}
+
+    @staticmethod
+    def _pad_rows(rows: dict, kg: int, w: int) -> dict:
+        """Grow cached rows to the current buckets (zero columns for new
+        slots and identity words keep the old bits valid)."""
+        if rows["kg"] == kg and rows["w"] == w:
+            return rows
+        dk, dw = kg - rows["kg"], w - rows["w"]
+        return dict(
+            rows, kg=kg, w=w,
+            meta=np.pad(rows["meta"], ((0, 0), (0, dk))),
+            l4=np.pad(rows["l4"], ((0, 0), (0, dk), (0, dw))),
+            l3=np.pad(rows["l3"], ((0, 0), (0, dw))),
+        )
+
+    # -- compile -------------------------------------------------------------
+
+    def compile(self, endpoints, identity_ids: Sequence[int],
+                universe_token=None) -> Tuple[PolicyTables, Dict[int, int]]:
+        """Lower the fleet incrementally.  `endpoints` is
+        [(ep_id, map state (dict or MapStateArrays), state token)]; an
+        endpoint's rows are relowered only when its token differs from
+        the cached one.  A `universe_token` equal to the previous
+        compile's skips the identity-set diff (the caller warrants the
+        ids are unchanged).  Returns (tables, ep_id -> endpoint-axis
+        index)."""
+        with self._compile_lock:
+            return self._compile_locked(endpoints, identity_ids,
+                                        universe_token)
+
+    def _compile_locked(self, endpoints, identity_ids, universe_token=None):
+        prev_id_len = len(self._id_list)
+        prev_slots = len(self._slot_list)
+        shape_prev = self._shape_state
+        reset_before = self._reset_count
+        if (universe_token is None or self._universe_token is None
+                or universe_token != self._universe_token):
+            self._sync_universe(identity_ids)
+            if self._reset_count != reset_before:  # _reset() ran
+                prev_id_len = 0
+                prev_slots = 0
+                shape_prev = None
+            self._universe_token = universe_token
+
+        live = {ep_id for ep_id, _, _ in endpoints}
+        for gone in set(self._rows) - live:
+            del self._rows[gone]
+
+        dirty = []
+        for ep_id, state, token in endpoints:
+            cached = self._rows.get(ep_id)
+            if cached is None or cached["token"] != token:
+                dirty.append((ep_id, state, token))
+                self._ensure_slots(state)
+
+        self._ensure_id_tables()
+        n = self._padded_n()
+        w = n // 32
+        kg = self._padded_kg()
+
+        for ep_id, state, token in dirty:
+            rows = self._lower_rows(state)
+            rows["token"] = token
+            self._rows[ep_id] = rows
+
+        order = sorted(live)
+        index = {ep_id: i for i, ep_id in enumerate(order)}
+        if order:
+            for ep_id in order:
+                self._rows[ep_id] = self._pad_rows(self._rows[ep_id], kg, w)
+            l4_meta, l4_bits, l3_bits = self._stacked(order, kg, w)
+        else:
+            l4_meta = np.zeros((1, 2, kg), dtype=np.uint32)
+            l4_bits = np.zeros((1, 2, kg, w), dtype=np.uint32)
+            l3_bits = np.zeros((1, 2, w), dtype=np.uint32)
+
+        (hash_rows, hash_stash, wild_rows, wild_stash), hash_info = (
+            self._hash_pair.build(order, self._rows,
+                                  [ep_id for ep_id, _, _ in dirty])
+        )
+        self._generation += 1
+        tables = PolicyTables(
+            id_table=self._id_table,
+            id_direct=self._id_direct,
+            id_lo_len=np.int32(self._id_lo_len),
+            port_slot=self._current_port_slot(),
+            l4_meta=l4_meta,
+            l4_allow_bits=l4_bits,
+            l3_allow_bits=l3_bits,
+            generation=np.uint64(
+                (self._instance_nonce << 32) | self._generation),
+            l4_hash_rows=hash_rows,
+            l4_hash_stash=hash_stash,
+            l4_wild_rows=wild_rows,
+            l4_wild_stash=wild_stash,
+        )
+        self._record_publish(shape_prev, order, index, dirty, n, w, kg,
+                             prev_id_len, prev_slots, hash_info)
+        return tables, index
+
+    # -- delta publication records -------------------------------------------
+
+    def _record_publish(self, shape_prev, order, index, dirty, n, w, kg,
+                        prev_id_len, prev_slots, hash_info) -> None:
+        """Append the change record delta_for merges: per leaf, the
+        indices changed since the previous compile, or None when the
+        leaf's shape class moved and it must ship whole."""
+        order_t = tuple(order)
+        direct_len = (len(self._id_direct)
+                      if self._id_direct is not None else 0)
+        shape_now = {"order": order_t, "kg": kg, "w": w, "n": n,
+                     "direct_len": direct_len, "lo_len": self._id_lo_len}
+        stack_full = (
+            shape_prev is None
+            or shape_prev["order"] != order_t
+            or shape_prev["kg"] != kg
+            or shape_prev["w"] != w
+        )
+        id_full = shape_prev is None or shape_prev["n"] != n
+        direct_full = (
+            shape_prev is None
+            or shape_prev["direct_len"] != direct_len
+            or shape_prev["lo_len"] != self._id_lo_len
+        )
+        direct_pos = None
+        if not direct_full:
+            direct_pos = np.asarray(
+                [i if i < LOCAL_ID_BASE
+                 else self._id_lo_len + i - LOCAL_ID_BASE
+                 for i in self._id_list[prev_id_len:]],
+                np.int64,
+            )
+        self._pub_records.append({
+            "gen": self._generation,
+            "stack": (None if stack_full
+                      else sorted({index[ep_id] for ep_id, _, _ in dirty})),
+            "id_table": (None if id_full
+                         else (prev_id_len, len(self._id_list))),
+            "id_direct": direct_pos,
+            "slots": (prev_slots, len(self._slot_list)),
+            "hash_exact": hash_info.get("exact"),
+            "hash_exact_stash": hash_info.get("exact_stash", True),
+            "hash_wild": hash_info.get("wild"),
+            "hash_wild_stash": hash_info.get("wild_stash", True),
+        })
+        self._shape_state = shape_now
+
+    def delta_for(self, base_stamp: Optional[int], tables: PolicyTables):
+        """TableDelta of every change from the publish stamped
+        `base_stamp` to `tables` (this compiler's latest compile), or
+        None when none can be derived (unknown base, a record gap, another
+        compiler) and the caller must upload in full.  Scatter values
+        are fresh copies taken from `tables`."""
+        from cilium_tpu_torch.compiler.delta import LeafUpdate, TableDelta
+
+        with self._compile_lock:
+            if not base_stamp:
+                return None
+            if (base_stamp >> 32) != self._instance_nonce:
+                return None
+            cur_stamp = int(np.asarray(tables.generation))
+            if cur_stamp != (self._instance_nonce << 32) | self._generation:
+                return None
+            layout = tables_layout_version(tables)
+            base_gen = base_stamp & 0xFFFFFFFF
+            if base_gen == self._generation:
+                return TableDelta(base_stamp, cur_stamp, layout=layout)
+            recs = [r for r in self._pub_records
+                    if base_gen < r["gen"] <= self._generation]
+            if len(recs) != self._generation - base_gen:
+                return None  # record gap (reset or deque overflow)
+            delta = TableDelta(base_stamp, cur_stamp, layout=layout)
+            delta.replace["generation"] = np.uint64(cur_stamp)
+
+            def scatter1(name, arr, idx_list):
+                idx = np.asarray(sorted(idx_list), np.int64)
+                if len(idx):
+                    delta.updates[name] = LeafUpdate((idx,), arr[idx])
+
+            # stacked per-endpoint rows
+            if any(r["stack"] is None for r in recs):
+                delta.replace["l4_meta"] = tables.l4_meta
+                delta.replace["l4_allow_bits"] = tables.l4_allow_bits
+                delta.replace["l3_allow_bits"] = tables.l3_allow_bits
+            else:
+                rows = set()
+                for r in recs:
+                    rows.update(r["stack"])
+                scatter1("l4_meta", tables.l4_meta, rows)
+                scatter1("l4_allow_bits", tables.l4_allow_bits, rows)
+                scatter1("l3_allow_bits", tables.l3_allow_bits, rows)
+
+            # identity universe
+            if any(r["id_table"] is None for r in recs):
+                delta.replace["id_table"] = tables.id_table
+            else:
+                lo = min(r["id_table"][0] for r in recs)
+                hi = max(r["id_table"][1] for r in recs)
+                if hi > lo:
+                    delta.updates["id_table"] = LeafUpdate(
+                        (np.arange(lo, hi, dtype=np.int64),),
+                        tables.id_table[lo:hi].copy(),
+                    )
+            if any(r["id_direct"] is None for r in recs):
+                delta.replace["id_direct"] = tables.id_direct
+                delta.replace["id_lo_len"] = np.int32(self._id_lo_len)
+            else:
+                pos = np.unique(np.concatenate(
+                    [r["id_direct"] for r in recs] + [np.zeros(0, np.int64)]
+                ))
+                if len(pos):
+                    delta.updates["id_direct"] = LeafUpdate(
+                        (pos,), tables.id_direct[pos])
+
+            # (proto, dport) -> slot cells: append-only, written once
+            slot_lo = min(r["slots"][0] for r in recs)
+            slot_hi = max(r["slots"][1] for r in recs)
+            if slot_hi > slot_lo:
+                cells = self._slot_list[slot_lo:slot_hi]
+                delta.updates["port_slot"] = LeafUpdate(
+                    (np.asarray([pr & 0xFF for _, pr in cells], np.int64),
+                     np.asarray([dp for dp, _ in cells], np.int64)),
+                    np.arange(slot_lo, slot_hi, dtype=np.uint16),
+                )
+
+            # hashed entry tables
+            for leaf, stash_leaf, key, table in (
+                ("l4_hash_rows", "l4_hash_stash", "hash_exact",
+                 self._hash_pair.exact),
+                ("l4_wild_rows", "l4_wild_stash", "hash_wild",
+                 self._hash_pair.wild),
+            ):
+                arr = getattr(tables, leaf)
+                if (any(r[key] is None for r in recs)
+                        or arr.shape[0] != table.n_rows):
+                    delta.replace[leaf] = arr
+                    delta.replace[stash_leaf] = getattr(tables, stash_leaf)
+                    continue
+                rows = set()
+                for r in recs:
+                    rows.update(r[key])
+                scatter1(leaf, arr, rows)
+                if any(r[key + "_stash"] for r in recs):
+                    delta.replace[stash_leaf] = getattr(tables, stash_leaf)
+            return delta
+
+    def check_tables_current(self, tables) -> None:
+        """Raise ValueError for tables of this compiler two or more
+        compiles old: their stacked buffers have been rewritten in
+        place, so verdicts from them would be silently wrong.  Unstamped
+        tables and another compiler's are accepted."""
+        raw = getattr(tables, "generation", None)
+        stamp = int(np.asarray(raw)) if raw is not None else 0
+        if stamp == 0 or (stamp >> 32) != self._instance_nonce:
+            return
+        gen = stamp & 0xFFFFFFFF
+        if self._generation - gen > 1:
+            raise ValueError(
+                f"stale PolicyTables: generation {gen} is "
+                f"{self._generation - gen} publishes old (max 1 — "
+                f"double-buffered rows have been overwritten)"
+            )
+
+    def _stacked(self, order: List[int], kg: int, w: int):
+        """Write rows into the standby stacked buffer, copying only the
+        endpoints whose token differs from what that buffer holds; a
+        full stack only when the endpoint set or the shapes change."""
+        self._stack_flip ^= 1
+        buf = self._stack_bufs[self._stack_flip]
+        shape_key = (tuple(order), kg, w)
+        if buf is None or buf["shape_key"] != shape_key:
+            e = len(order)
+            buf = {
+                "shape_key": shape_key,
+                "meta": np.empty((e, 2, kg), dtype=np.uint32),
+                "l4": np.empty((e, 2, kg, w), dtype=np.uint32),
+                "l3": np.empty((e, 2, w), dtype=np.uint32),
+                "tokens": {},
+            }
+            self._stack_bufs[self._stack_flip] = buf
+        tokens = buf["tokens"]
+        for i, ep_id in enumerate(order):
+            rows = self._rows[ep_id]
+            if tokens.get(ep_id) == rows["token"]:
+                continue
+            buf["meta"][i] = rows["meta"]
+            buf["l4"][i] = rows["l4"]
+            buf["l3"][i] = rows["l3"]
+            tokens[ep_id] = rows["token"]
+        # pre-warm the other buffer now, so the next compile copies
+        # only the endpoints dirtied in between
+        other_i = self._stack_flip ^ 1
+        other = self._stack_bufs[other_i]
+        if other is None or other["shape_key"] != shape_key:
+            self._stack_bufs[other_i] = {
+                "shape_key": shape_key,
+                "meta": buf["meta"].copy(),
+                "l4": buf["l4"].copy(),
+                "l3": buf["l3"].copy(),
+                "tokens": dict(tokens),
+            }
+        return buf["meta"], buf["l4"], buf["l3"]

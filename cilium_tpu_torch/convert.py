@@ -9,8 +9,9 @@ them: the carried-across form of the same compiled maps.
 for the v6 program's tables, `flow_batch6_to` moves a v6 flow batch.
 
 Every u32 array becomes an int32 tensor holding the same bits; static
-layout facts (bucket counts, widths, class schedules) stay Python
-scalars and tuples.
+layout facts (bucket counts, widths, class schedules) and scalar leaves
+(the policy's `id_lo_len` and its `generation` stamp) become Python
+ints.
 """
 
 from __future__ import annotations
@@ -58,6 +59,9 @@ _PLANES6 = (
 
 
 def _leaf_to(value, device):
+    """One host leaf on `device`: a u32 array as int32 bits (a fresh
+    tensor, never an alias of `value`), a u16 array widened to int32, a
+    numpy scalar or 0-d array as a Python int."""
     if isinstance(value, np.ndarray) and value.ndim > 0:
         if value.dtype == np.uint32:
             return u32_tensor(value, device)
@@ -148,10 +152,10 @@ def tables_from_numpy(leaves: dict, device=None) -> DatapathTables:
     range_class_plens, bucket_entries, value_width, l3_width,
     range_widths} or {l1, l2}, "ct": {buckets, stash, n_buckets,
     entry_words}, "lb": {rows, stash, n_buckets} (inline) or {buckets,
-    stash, backend_rows, n_buckets} (classic), "policy": {id_table, ...},
-    "tunnel": {base, mask, endpoint} or None}.  Leaves the port does not
-    carry (the policy `generation` stamp) are ignored; a missing leaf
-    the port needs raises."""
+    stash, backend_rows, n_buckets} (classic), "policy": {id_table, ...,
+    generation (optional, the publish stamp, carried as a Python int)},
+    "tunnel": {base, mask, endpoint} or None}.  A missing leaf the port
+    needs raises."""
     return tables_to(DatapathTables(**_planes_from_numpy(leaves, _PLANES)),
                      device)
 
@@ -189,8 +193,9 @@ def plane_to(plane, device=None):
 def policy_tables_to(tables: PolicyTables, device=None) -> PolicyTables:
     """Bare policy tables (numpy, as compile_map_states builds them) ->
     the same tables on `device` (None = the card): the tables of
-    evaluate_batch and replay_lattice.  port_slot's u16 becomes int32;
-    leaves already dropped (None) stay None."""
+    evaluate_batch and replay_lattice.  port_slot's u16 becomes int32,
+    the `generation` stamp a Python int; leaves already dropped (None)
+    stay None."""
     return _plane_to(tables, resolve_device(device))
 
 

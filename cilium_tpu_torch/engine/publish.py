@@ -1,15 +1,51 @@
-"""Batch dispatch: the double-buffered async pipeline and the pow2 size
-class (the reference's engine/publish.py `AsyncBatchDispatcher` and
-`next_pow2`).  The device table store of that module
-(`DeviceTableStore`, its epochs and delta scatters) is not here yet.
+"""Device-resident table epochs and batch dispatch (the reference's
+engine/publish.py, single-device).
+
+`DeviceTableStore` keeps two epochs of PolicyTables on one device,
+ping-ponging (the realized/backup map shuffle of Cilium's
+pkg/datapath/ipcache/listener.go):
+
+  * `publish(tables, delta)` installs the new generation into the SPARE
+    epoch.  With a TableDelta that starts at the spare's stamp
+    (FleetCompiler.delta_for), the changed rows are written into the
+    spare's own tensors in place (on the card by PUBLISH_SCATTER, one
+    launch for every scattered leaf; on the CPU by
+    `scatter_segments_plain`), leaves whose shape class moved are
+    uploaded fresh, and the generation is stamped: bytes shipped follow
+    the change, not the world.  Without a usable delta it uploads in
+    full.
+  * batches dispatched against the CURRENT epoch finish on it
+    untouched: only the spare's tensors are written.
+  * `check_current` raises for tables whose epoch has since been
+    written over (StaleEpochError).
+
+The scatter follows jax's `.at[idx].set(values)` on the reference's
+spare epoch, not torch's indexing: a negative index counts from the end
+once, and a row with any index still outside its axis is dropped.
+
+`AsyncBatchDispatcher` is the double-buffered async batch pipeline and
+`next_pow2` the pow2 size class of every padded payload.
 """
 
 from __future__ import annotations
 
+import dataclasses
+import threading
+import time
 from collections import deque
+from dataclasses import dataclass
+from typing import Dict, Optional, Tuple
 
+import numpy as np
 import torch
 
+from cilium_tpu_torch.compiler.delta import TableDelta, tables_nbytes
+from cilium_tpu_torch.compiler.tables import (
+    PolicyTables,
+    tables_layout_version,
+)
+from cilium_tpu_torch.device import array_tensor, resolve_device
+from cilium_tpu_torch.metrics import registry as metrics
 
 def next_pow2(n: int) -> int:
     """Smallest power of two >= n (>= 1)."""
@@ -17,6 +53,296 @@ def next_pow2(n: int) -> int:
     while size < n:
         size <<= 1
     return size
+
+
+def _pad_pow2(update):
+    """A LeafUpdate's payload padded to the next power of two by
+    repeating its last index and row (duplicate identical writes give
+    the same bits): (idx tuple, values)."""
+    k = len(update.values)
+    size = next_pow2(k)
+    if size == k:
+        return update.idx, update.values
+    pad = size - k
+    idx = tuple(np.concatenate([i, np.repeat(i[-1:], pad)])
+                for i in update.idx)
+    values = np.concatenate(
+        [update.values, np.repeat(update.values[-1:], pad, axis=0)])
+    return idx, values
+
+
+def delta_payloads(delta: TableDelta, device) -> dict:
+    """The scatter payloads of `delta` on `device`, each padded to the
+    next power of two (_pad_pow2): {leaf: (idx, values)}, idx a tuple
+    of int64 tensors, values int32 (u32 bits; u16 widened), in leaf-name
+    order."""
+    from cilium_tpu_torch.convert import _leaf_to
+
+    dev = resolve_device(device)
+    out = {}
+    for name in sorted(delta.updates):
+        idx, values = _pad_pow2(delta.updates[name])
+        out[name] = (tuple(array_tensor(np.asarray(i, np.int64), dev)
+                           for i in idx),
+                     _leaf_to(values, dev))
+    return out
+
+
+def scatter_segments_plain(segments) -> None:
+    """PUBLISH_SCATTER's plain version: for each (dst, idx, values) of
+    `segments`, in place, dst[idx] = values with jax's scatter rules: an
+    index below 0 gets its axis size added once, and a row with any
+    index still outside [0, size) is dropped.  `idx` is a tuple of
+    int64 tensors, one per indexed leading axis; `values` has dst's
+    trailing shape and dst's dtype."""
+    for dst, idx, values in segments:
+        keep = torch.ones(values.shape[0], dtype=torch.bool,
+                          device=values.device)
+        norm = []
+        for axis, i in enumerate(idx):
+            size = int(dst.shape[axis])
+            i = torch.where(i < 0, i + size, i)
+            keep &= (i >= 0) & (i < size)
+            norm.append(i)
+        dst[tuple(i[keep] for i in norm)] = values[keep]
+
+
+def publish_scatter(segments) -> None:
+    """Write every segment in place: PUBLISH_SCATTER when the
+    destinations lie on a CUDA device (one launch for all), the plain
+    version on the CPU."""
+    if not segments:
+        return
+    dev = segments[0][0].device
+    if dev.type == "cuda":
+        from cilium_tpu_torch import kernels
+
+        kernels.PUBLISH_SCATTER(segments)
+    elif dev.type == "cpu":
+        scatter_segments_plain(segments)
+    else:
+        raise ValueError(f"unsupported device {dev}")
+
+
+def _resident_bytes(tables) -> int:
+    """Bytes of the tensors one device epoch holds."""
+    total = 0
+    for f in dataclasses.fields(tables):
+        leaf = getattr(tables, f.name)
+        if isinstance(leaf, torch.Tensor):
+            total += leaf.numel() * leaf.element_size()
+    return total
+
+
+@dataclass
+class PublishStats:
+    epoch: int
+    mode: str  # "full" | "delta"
+    bytes_h2d: int
+    seconds: float
+    scatter_leaves: int = 0
+    replaced_leaves: int = 0
+
+
+class StaleEpochError(ValueError):
+    pass
+
+
+class DeviceTableStore:
+    """Two PolicyTables epochs on one device (None = the card) with
+    scatter-delta publication (see the module docstring).
+
+    Each epoch carries its layout stamp (tables_layout_version): a
+    delta recorded against another layout, or onto a spare epoch of
+    another layout, is refused and the publish uploads in full.
+
+    A failed scatter de-registers the spare slot (its rows can no
+    longer be trusted; the next publish uploads in full) and raises:
+    it is never answered with a full upload."""
+
+    def __init__(self, device=None) -> None:
+        self._lock = threading.Lock()
+        # each slot: dict(tables=<device PolicyTables>, stamp, epoch,
+        # nbytes (host), layout, resident (device bytes))
+        self._slots = [None, None]
+        self._cur = 0
+        self._epoch = 0
+        self._device = resolve_device(device)
+
+    def _sync(self) -> None:
+        """Wait for the device's queued work (the reference's
+        block_until_ready): the epoch is complete when publish returns."""
+        if self._device.type == "cuda":
+            torch.cuda.current_stream(self._device).synchronize()
+
+    # -- publication ---------------------------------------------------------
+
+    def publish(self, tables: PolicyTables,
+                delta: Optional[TableDelta] = None
+                ) -> Tuple[PolicyTables, PublishStats]:
+        """Install `tables` (host arrays) as the new current epoch.
+        `delta` must describe every change from the SPARE slot's stamp
+        to `tables` (FleetCompiler.delta_for); anything else, or None,
+        uploads in full.  Returns (the device epoch, PublishStats)."""
+        with self._lock:
+            t0 = time.perf_counter()
+            layout = tables_layout_version(tables)
+            spare_i = self._cur ^ 1
+            spare = self._slots[spare_i]
+            stamp = int(np.asarray(tables.generation))
+            use_delta = (
+                delta is not None
+                and spare is not None
+                and spare["stamp"] == delta.base_stamp
+                and stamp == delta.new_stamp
+                # a delta's indices mean something only against the
+                # layout the spare epoch holds
+                and spare["layout"] == layout == delta.layout
+            )
+            if use_delta:
+                try:
+                    dev, stats = self._publish_delta(spare["tables"],
+                                                     tables, delta)
+                except Exception:
+                    # the scatter may have written part of the spare's
+                    # tensors: de-register the slot so the next publish
+                    # uploads in full instead of scattering into it
+                    self._slots[spare_i] = None
+                    self._sample_bytes()
+                    raise
+                metrics.device_table_retired_bytes.inc(
+                    value=spare.get("nbytes", 0))
+            else:
+                from cilium_tpu_torch.convert import policy_tables_to
+
+                dev = policy_tables_to(tables, self._device)
+                self._sync()
+                stats = PublishStats(epoch=0, mode="full",
+                                     bytes_h2d=tables_nbytes(tables),
+                                     seconds=0.0)
+            self._epoch += 1
+            self._slots[spare_i] = {
+                "tables": dev, "stamp": stamp, "epoch": self._epoch,
+                "nbytes": tables_nbytes(tables), "layout": layout,
+                "resident": _resident_bytes(dev),
+            }
+            self._cur = spare_i
+            stats.epoch = self._epoch
+            stats.seconds = time.perf_counter() - t0
+            self._sample_bytes()
+            return dev, stats
+
+    def _sample_bytes(self) -> None:
+        """cilium_device_table_bytes{epoch} and
+        cilium_device_table_bytes_per_chip{chip}, sampled at every
+        publish (the caller holds the lock)."""
+        cur = self._slots[self._cur]
+        spare = self._slots[self._cur ^ 1]
+        metrics.device_table_bytes.set("live",
+                                       value=(cur or {}).get("nbytes", 0))
+        metrics.device_table_bytes.set("standby",
+                                       value=(spare or {}).get("nbytes", 0))
+        metrics.device_table_bytes_per_chip.set(
+            str(self._device.index or 0), value=self._resident_locked())
+
+    def _publish_delta(self, spare_dev: PolicyTables, tables: PolicyTables,
+                       delta: TableDelta):
+        from cilium_tpu_torch.convert import _leaf_to
+
+        n_scatter = n_replace = bytes_h2d = 0
+        # whole-leaf replacements are fresh uploads swapped into the
+        # epoch (the spare's old tensor is dropped)
+        replaced = {}
+        for name, arr in delta.replace.items():
+            replaced[name] = _leaf_to(arr, self._device)
+            bytes_h2d += np.asarray(arr).nbytes
+            n_replace += 1
+        base = dataclasses.replace(spare_dev, **replaced)
+        payloads = delta_payloads(delta, self._device)
+        for name in payloads:
+            bytes_h2d += delta.updates[name].nbytes
+            n_scatter += 1
+        # the spare's own tensors, written in place
+        publish_scatter([(getattr(base, name), idx, values)
+                         for name, (idx, values) in payloads.items()])
+        dev = dataclasses.replace(
+            base, generation=int(np.asarray(tables.generation)))
+        self._sync()
+        return dev, PublishStats(
+            epoch=0, mode="delta", bytes_h2d=bytes_h2d, seconds=0.0,
+            scatter_leaves=n_scatter, replaced_leaves=n_replace,
+        )
+
+    # -- consumers -----------------------------------------------------------
+
+    def current(self) -> Optional[Tuple[int, PolicyTables]]:
+        with self._lock:
+            slot = self._slots[self._cur]
+            if slot is None:
+                return None
+            return slot["epoch"], slot["tables"]
+
+    def current_stamp(self) -> Optional[int]:
+        with self._lock:
+            slot = self._slots[self._cur]
+            return None if slot is None else slot["stamp"]
+
+    def get(self, stamp: int) -> Optional[PolicyTables]:
+        """The resident epoch carrying `stamp`, if any."""
+        with self._lock:
+            for slot in self._slots:
+                if slot is not None and slot["stamp"] == stamp:
+                    return slot["tables"]
+            return None
+
+    def spare_stamp(self) -> Optional[int]:
+        """The standby epoch's stamp: the base the next delta must
+        start at."""
+        with self._lock:
+            spare = self._slots[self._cur ^ 1]
+            return None if spare is None else spare["stamp"]
+
+    def live_stamps(self) -> Tuple[int, ...]:
+        with self._lock:
+            return tuple(s["stamp"] for s in self._slots if s is not None)
+
+    def chip_bytes(self) -> Dict[int, int]:
+        """Resident bytes over both epochs, by device ordinal."""
+        with self._lock:
+            return {self._device.index or 0: self._resident_locked()}
+
+    def _resident_locked(self) -> int:
+        return sum(slot["resident"] for slot in self._slots
+                   if slot is not None)
+
+    @staticmethod
+    def _norm(stamp: int) -> int:
+        # the reference's device generation keeps the low 32 bits (the
+        # publish counter); stamps are store-scoped, so comparing those
+        # stays unambiguous
+        return int(stamp) & 0xFFFFFFFF
+
+    def holds(self, tables) -> bool:
+        """True when `tables` IS one of the live epochs (object
+        identity: a host snapshot may share a stamp with an epoch)."""
+        with self._lock:
+            return any(slot is not None and slot["tables"] is tables
+                       for slot in self._slots)
+
+    def check_current(self, tables) -> None:
+        """Raise StaleEpochError unless `tables` carries the stamp of
+        one of the two live epochs: an older epoch's tensors have been
+        written over by a newer publish."""
+        raw = getattr(tables, "generation", None)
+        stamp = self._norm(int(np.asarray(raw)) if raw is not None else 0)
+        live = self.live_stamps()
+        if not live or stamp in {self._norm(s) for s in live}:
+            return
+        raise StaleEpochError(
+            f"stale device epoch: generation {stamp} is no longer "
+            f"resident (live epochs: {live}) — its tensors were "
+            f"written over by a newer publish"
+        )
 
 
 def _has_cuda_tensor(out) -> bool:

@@ -1,8 +1,8 @@
 """Build, binding and wrappers of the hand-written CUDA kernels.
 
 `csrc/datapath.cu`, `csrc/l7.cu`, `csrc/churn.cu`, `csrc/lattice.cu`,
-`csrc/datapath6.cu`, `csrc/prng.cu` and `csrc/memo.cu` (with their
-headers) are each compiled by `nvcc` for `sm_90a` into a shared library
+`csrc/datapath6.cu`, `csrc/prng.cu`, `csrc/memo.cu` and
+`csrc/publish.cu` (with their headers) are each compiled by `nvcc` for `sm_90a` into a shared library
 with a plain C interface, at first use, into `cilium_tpu_torch/_build/`
 (one file per source digest), and bound with ctypes.  Nothing here runs
 at import: the CPU tests import this module on a machine with no `nvcc`
@@ -55,6 +55,12 @@ combine (K14); `DATAPATH_PAIR_MEMO` launches DATAPATH_PAIR's memo mode
 Each call counts one launch, though each runs several device kernels in
 order on the current stream.
 
+`PUBLISH_SCATTER(segments)` (csrc/publish.cu) is the device table
+store's delta scatter (K18 publish): every scattered leaf of a publish
+written in place into the spare epoch's tensors, in one launch, with
+jax's scatter rules (engine/publish.py `scatter_segments_plain` is its
+plain version).
+
 `DATAPATH6(tables, flows)` (csrc/datapath6.cu) is the fused IPv6
 program (K15, with the v6 tunnel stage of K11) over Datapath6Tables and
 a FlowBatch6, under the same rules: it checks every table plane and
@@ -95,7 +101,7 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
 # csrc/<stem>.cu, one library each
 LIBRARIES = ("datapath", "l7", "churn", "lattice", "datapath6", "prng",
-             "memo")
+             "memo", "publish")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC",
@@ -2017,7 +2023,113 @@ MEMO_DEDUP = MemoDedupKernel()
 MEMO_CACHE = MemoCacheKernel()
 MEMO_KEYS_LATTICE = MemoKeysLatticeKernel()
 DATAPATH_PAIR_MEMO = DatapathPairMemoKernel()
+
+
+# ---------------------------------------------------------------------------
+# The device table store's delta scatter (csrc/publish.cu)
+# ---------------------------------------------------------------------------
+
+MAX_SCATTER_SEGMENTS = 16  # csrc/publish.cu MAX_SEGMENTS
+
+
+class ScatterSegment(ctypes.Structure):
+    """Mirror of cpub::Segment in csrc/publish.cu, field for field."""
+
+    _fields_ = (
+        [(name, _P) for name in ("dst", "idx0", "idx1", "values")]
+        + [(name, ctypes.c_int64) for name in ("size0", "size1", "rows",
+                                               "words", "start")]
+        + [("axes", _I), ("pad", _I)]
+    )
+
+
+class ScatterArgs(ctypes.Structure):
+    """Mirror of cpub::ScatterArgs in csrc/publish.cu, field for field."""
+
+    _fields_ = [("seg", ScatterSegment * MAX_SCATTER_SEGMENTS),
+                ("n_seg", _I), ("pad", _I), ("total", ctypes.c_int64)]
+
+
+class _PublishLibrary(_Library):
+    """csrc/publish.cu: PUBLISH_SCATTER."""
+
+    stem = "publish"
+
+    def bind(self, lib) -> None:
+        self.declare(lib, (("launch_publish_scatter", ScatterArgs),))
+        lib.publish_struct_sizes.argtypes = [ctypes.POINTER(ctypes.c_int)]
+        lib.publish_struct_sizes.restype = ctypes.c_int
+        sizes = (ctypes.c_int * 2)()
+        lib.publish_struct_sizes(sizes)
+        want = [ctypes.sizeof(ScatterSegment), ctypes.sizeof(ScatterArgs)]
+        if list(sizes) != want:
+            raise RuntimeError(
+                f"publish argument layouts differ between kernels.py "
+                f"{want} and csrc/publish.cu {list(sizes)}"
+            )
+
+
+PUBLISH_LIBRARY = _PublishLibrary()
+
+
+class PublishScatterKernel:
+    """K18's publish scatter on the card: for each (dst, idx, values) of
+    `segments`, dst[idx] = values in place, in one launch, with
+    scatter_segments_plain's rules (negative indices count from the end
+    once, a row with an index out of range is dropped).  dst is an
+    int32 tensor; idx a tuple of 1 or 2 int64 [R] tensors (the indexed
+    leading axes); values int32 [R, *dst.shape[len(idx):]]."""
+
+    name = "publish_scatter"
+
+    def __init__(self) -> None:
+        self.launches = 0
+
+    def load(self, verbose: bool = False):
+        return PUBLISH_LIBRARY.load(verbose)
+
+    def __call__(self, segments):
+        segments = [s for s in segments if int(s[2].shape[0]) > 0]
+        if not segments:
+            return
+        if len(segments) > MAX_SCATTER_SEGMENTS:
+            raise ValueError(f"{len(segments)} leaves in one scatter, at "
+                             f"most {MAX_SCATTER_SEGMENTS}")
+        dev = _cuda_device(segments[0][0], self.name)
+        a = ScatterArgs()
+        total = 0
+        for k, (dst, idx, values) in enumerate(segments):
+            axes = len(idx)
+            if axes not in (1, 2) or dst.dim() < axes:
+                raise ValueError(f"segment {k}: {axes} indexed axes of a "
+                                 f"{dst.dim()}-d leaf")
+            rows = int(values.shape[0])
+            tail = tuple(int(v) for v in dst.shape[axes:])
+            g = a.seg[k]
+            g.dst = _ptr(dst, f"segment {k} dst", dev)
+            g.values = _ptr(values, f"segment {k} values", dev,
+                            shape=(rows,) + tail)
+            g.idx0 = _ptr(idx[0], f"segment {k} idx[0]", dev, torch.int64,
+                          (rows,))
+            if axes == 2:
+                g.idx1 = _ptr(idx[1], f"segment {k} idx[1]", dev,
+                              torch.int64, (rows,))
+            g.size0 = int(dst.shape[0])
+            g.size1 = int(dst.shape[1]) if axes == 2 else 1
+            g.words = 1
+            for v in tail:
+                g.words *= v
+            g.rows, g.start, g.axes = rows, total, axes
+            total += rows * g.words
+        a.n_seg, a.total = len(segments), total
+        if total >= 1 << 62:
+            raise ValueError("scatter too large")
+        PUBLISH_LIBRARY.launch("launch_publish_scatter", a, dev, self.name)
+        self.launches += 1
+
+
+PUBLISH_SCATTER = PublishScatterKernel()
 KERNELS = (DATAPATH_PAIR, DATAPATH_STEP, CHURN_COMPACT, CT_DELTA,
            HTTP_MATCH, KAFKA_MATCH, FLEET_L7, LATTICE, LPM_LOOKUP, DATAPATH6,
            PICK_DRAW, DATAPATH_PAIR_MEMO, MEMO_DEDUP, MEMO_CACHE,
-           MEMO_KEYS_LATTICE)
+           MEMO_KEYS_LATTICE, PUBLISH_SCATTER)

@@ -48,6 +48,10 @@ mapping and tuple generator), and over config 5: `lattice_tuples`
 from the pool, each carrying its peer's identity).  `pool_records` and
 `oracle_context` serve the fused record replay and its composed host
 oracle.
+
+Policy publication takes config 5's states as `map_state_arrays` (the
+daemon endpoints' form) and churns them with `one_rule_states`,
+bench.py's one-rule update at map-state level.
 """
 
 from __future__ import annotations
@@ -81,8 +85,10 @@ from cilium_tpu_torch.lb.service import L3n4Addr, ServiceManager
 from cilium_tpu_torch.maps.policymap import (
     EGRESS,
     INGRESS,
+    MapStateArrays,
     PolicyKey,
     PolicyMapStateEntry,
+    pack_keys,
 )
 from cilium_tpu_torch.prefilter import build_prefilter
 from cilium_tpu_torch.tunnel import TunnelMap
@@ -870,6 +876,60 @@ def cidr_world(n16: int = 64, n24: int = 4096, n32: int = 16384,
         state[PolicyKey(num_id, 0, 0, INGRESS)] = PolicyMapStateEntry()
     return LatticeWorld(states=[state], identity_ids=ids, identity_pad=1024,
                         ipc_map=mapping, rng=np.random.default_rng(seed))
+
+
+def map_state_arrays(states) -> list:
+    """Each map state as MapStateArrays, the form the daemon's endpoints
+    hold and FleetCompiler lowers with array operations.  Built from
+    the key columns (MapStateArrays.build) rather than from_dict's
+    per-entry sort; equal to it for states whose counters are 0."""
+    out = []
+    for st in states:
+        if isinstance(st, MapStateArrays):
+            out.append(st)
+            continue
+        n = len(st)
+        col = lambda f: np.fromiter((f(k) for k in st), np.int64, n)
+        keys = pack_keys(col(lambda k: k.identity), col(lambda k: k.dest_port),
+                         col(lambda k: k.nexthdr),
+                         col(lambda k: k.traffic_direction))
+        proxy = np.fromiter((v.proxy_port for v in st.values()), np.int64, n)
+        out.append(MapStateArrays.build(keys, proxy))
+    return out
+
+
+def one_rule_states(w: World, port: int, team: int = 0, endpoint: int = 0,
+                    states=None, remove: bool = False) -> list:
+    """bench.py's churn unit `add_one_rule` (team t0 -> app0 on one TCP
+    port) at map-state level: a copy of `states` (default w.states) in
+    which endpoint `endpoint`'s ingress state gains PolicyKey(m, port,
+    6, INGRESS) for every identity m of team `team` (bench's world
+    names endpoint i app{i}), or with `remove` loses those keys.  Only
+    that endpoint's state is a new object, of the same kind (dict or
+    MapStateArrays); the caller bumps its state token."""
+    states = list(w.states if states is None else states)
+    members = [int(m) for m in w.team_members[team]]
+    st = states[endpoint]
+    if isinstance(st, MapStateArrays):
+        keys = pack_keys(members, port, 6, INGRESS)
+        if remove:
+            keep = ~np.isin(st.keys_packed, keys)
+            new = MapStateArrays(st.keys_packed[keep], st.proxy[keep],
+                                 st.packets[keep], st.bytes[keep])
+        else:
+            new = MapStateArrays.build(
+                np.concatenate([st.keys_packed, keys]),
+                np.concatenate([st.proxy, np.zeros(len(keys), np.uint32)]))
+    else:
+        new = dict(st)
+        for m in members:
+            key = PolicyKey(m, port, 6, INGRESS)
+            if remove:
+                new.pop(key, None)
+            else:
+                new[key] = PolicyMapStateEntry()
+    states[endpoint] = new
+    return states
 
 
 def lattice_tuples(w: World, n: int, seed: int = 1) -> dict:
