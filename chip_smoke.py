@@ -25,6 +25,22 @@ launch counts set to 0 just before it and read just after:
              through evaluate_http_batch (HTTP_MATCH);
   l7_kafka   config 4: 1,048,576 Kafka requests against 24 rules
              through evaluate_kafka_batch (KAFKA_MATCH);
+  l7_proxy   the L7 proxy from rules (world.proxy_world): 75 JSON rules
+             (24 HTTP on TCP/80 with config 3's patterns, 24 Kafka on
+             TCP/9092 with config 4's, 24 memcached on TCP/11211, one
+             egress HTTP) through rules_from_json, Repository and
+             resolve_l4_policy for one server endpoint, 1,024
+             identities from labels, the four redirects compiled by
+             Proxy.update_endpoint_redirects onto the card
+             (proxy_setup, timed); then 1,048,576 requests per parser
+             through verdict_http, verdict_kafka and verdict_generic
+             (HTTP_MATCH, KAFKA_MATCH, MEMCACHE_MATCH; the egress
+             redirect through verdict_http), each against the same call
+             on the plain versions (the entry points' kernels swapped
+             for them) and 256 rows against the host matchers, the
+             memcached rows flagged for the host against the plain
+             version's; then proxy_timing holds MEMCACHE_MATCH against
+             its plain version at the world's 25 rules and at 70;
   combined   config 5's datapath + proxy step: 8 steps of
              2 x 2,097,152 flows, redirected flows compacted to
              131,072 per half and judged by the fleet L7 matchers
@@ -148,7 +164,7 @@ jax drops), of `torch.randint` for PICK_DRAW
 no single PyTorch call computes the fused datapath steps, the intent
 compaction, a DFA scan, the Kafka rule match, the fleet's routed match,
 the policy lattice, the two dependent DIR-24-8 reads, the v6 program,
-the verdict cache or the memo's key words.  LATTICE's launches are
+the verdict cache, the memo's key words or the memcached rule match.  LATTICE's launches are
 summed over its four paths, its time is config 5's compact mode;
 LPM_LOOKUP's time is config 2's 1,048,576 addresses; DATAPATH6's is
 config 6's 1,048,576 flows.  The DATAPATH_PAIR and DATAPATH_STEP rows
@@ -173,11 +189,17 @@ times are one half's at rep_cap 524,288, MEMO_DEDUP's library call
 time is its keys and combine launches on 4,194,304 tuples.
 PUBLISH_SCATTER's time is one launch on the last timed step's payloads
 (every scattered leaf) and base epoch, its bound their index and value
-bytes read and the destination rows written once.
+bytes read and the destination rows written once.  HTTP_MATCH's and
+KAFKA_MATCH's launches are summed over configs 3 and 4 and the proxy
+path (`launches_by_path`); MEMCACHE_MATCH's time is one launch on the
+proxy's 1,048,576 packed memcached requests against its 25 rules
+(`wide_ms` at 70 rules), its bound those requests' 15 bytes each, each
+distinct identity row and the rule columns, read or written once.
 """
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import dataclasses
 import json
@@ -570,13 +592,13 @@ def l7_http_phase(kernels) -> dict:
     plain version (allowed and matched), the host oracle, times and the
     bound."""
     from cilium_tpu_torch import world
-    from cilium_tpu_torch.convert import http_tables_to
+    from cilium_tpu_torch.convert import l7_tables_to
     from cilium_tpu_torch.device import array_tensor
     from cilium_tpu_torch.l7 import http
 
     t = time.perf_counter()
     hw = world.http_request_world(n=L7_REQUESTS)
-    tables = http_tables_to(hw.policy.tables, "cuda")
+    tables = l7_tables_to(hw.policy.tables, "cuda")
     args = tuple(array_tensor(a, "cuda")
                  for a in (*hw.fields, hw.ident, hw.known))
     torch.cuda.synchronize()
@@ -612,13 +634,13 @@ def l7_kafka_phase(kernels) -> dict:
     """Config 4 through evaluate_kafka_batch, checked and timed as the
     HTTP phase is."""
     from cilium_tpu_torch import world
-    from cilium_tpu_torch.convert import kafka_tables_to
+    from cilium_tpu_torch.convert import l7_tables_to
     from cilium_tpu_torch.device import array_tensor
     from cilium_tpu_torch.l7 import kafka
 
     t = time.perf_counter()
     kw = world.kafka_request_world(n=L7_REQUESTS)
-    tables = kafka_tables_to(kw.policy, "cuda")
+    tables = l7_tables_to(kw.policy, "cuda")
     args = tuple(array_tensor(a, "cuda")
                  for a in (*kw.fields, kw.ident, kw.known))
     torch.cuda.synchronize()
@@ -647,6 +669,292 @@ def l7_kafka_phase(kernels) -> dict:
     return kernel_row(kernels.KAFKA_MATCH, "cilium_tpu_torch/csrc/l7.cu",
                       "cilium_tpu/l7/kafka.py:265", launches, err, ms,
                       plain_ms, bb, bo)
+
+
+PROXY_REQUESTS = 1 << 20  # per parser, configs 3 and 4's width
+PROXY_ORACLE_ROWS = 256
+MEMCACHE_WIDE_RULES = 70  # MEMCACHE_MATCH's second check: three words
+
+
+@contextlib.contextmanager
+def plain_route(kernels):
+    """The L7 entry points answer with their plain versions on the same
+    card tensors (no launch counted) while the context is open."""
+    from cilium_tpu_torch.l7 import http, kafka, memcached
+
+    saved = (kernels.HTTP_MATCH, kernels.KAFKA_MATCH, kernels.MEMCACHE_MATCH)
+    kernels.HTTP_MATCH = http.evaluate_http_batch_plain
+    kernels.KAFKA_MATCH = kafka.evaluate_kafka_batch_plain
+    kernels.MEMCACHE_MATCH = memcached.memcache_match_plain
+    try:
+        yield
+    finally:
+        (kernels.HTTP_MATCH, kernels.KAFKA_MATCH,
+         kernels.MEMCACHE_MATCH) = saved
+
+
+def proxy_setup_phase(kernels):
+    """The proxy world from rules on the card: JSON rules, repository,
+    1,024 identities from labels, resolve_l4_policy, the four redirects'
+    compiles (world.proxy_setup)."""
+    from cilium_tpu_torch import world
+
+    t = time.perf_counter()
+    pw = world.proxy_world(n_requests=PROXY_REQUESTS)
+    made = time.perf_counter() - t
+    ps = world.proxy_setup(pw)
+    torch.cuda.synchronize()
+    reds = ps.redirects
+    if any(r is None for r in reds.values()):
+        raise SystemExit(f"proxy_setup: a redirect is missing: {reds}")
+    gt = reds["memcache"].generic_tables
+    phase("proxy_setup", t, rules=len(ps.repo.rules),
+          identities=len(ps.cache), universe=len(ps.id_table),
+          redirects=len(ps.endpoint.realized_redirects),
+          ports=sorted(ps.endpoint.realized_redirects.values()),
+          http_rules=reds["http"].http_policy.tables.n_rules,
+          kafka_rules=reds["kafka"].kafka_tables.n_rules,
+          memcache_rules=len(gt.specs),
+          memcache_host_rules=sum(not s.device_expressible
+                                  for s in gt.specs),
+          world_s=round(made, 3),
+          **{f"{k}_s": round(v, 4) for k, v in ps.seconds.items()},
+          compile_from_rules_s=round(sum(ps.seconds.values()), 4),
+          device=str(ps.proxy.device))
+    if ps.proxy.device.type != "cuda":
+        raise SystemExit("proxy_setup: the proxy is not on the card")
+    return pw, ps
+
+
+def proxy_host_oracle(parser, red, reqs, ident, known, allowed) -> int:
+    """Mismatches of `allowed` against the host matchers on sampled
+    rows: HTTP full matches over every rule of the redirect, Kafka's
+    MatchesRule, proxylib's policymap matching."""
+    from cilium_tpu_torch.l7 import kafka, proxylib
+    from cilium_tpu_torch.l7.http import http_rule_matches_host
+
+    rows = np.random.default_rng(7).integers(0, len(reqs),
+                                             size=PROXY_ORACLE_ROWS)
+    bad = 0
+    for i in rows.tolist():
+        k, n = bool(known[i]), int(ident[i])
+        if parser == "http":
+            pol = red.http_policy
+            want = k and any(
+                n in spec.identity_indices
+                and http_rule_matches_host(spec, *reqs[i])
+                for spec in pol.device_rules + pol.host_rules)
+        elif parser == "kafka":
+            want = k and kafka.matches_rules_host(
+                reqs[i], red.kafka_tables.specs, n)
+        else:
+            want = k and proxylib.matches_rules_host(
+                red.generic_tables, reqs[i], n)
+        bad += int(bool(allowed[i]) != want)
+    return bad
+
+
+def proxy_pack_s(parser, red, reqs) -> float:
+    """Wall seconds of the verdict call's host pack alone (the
+    reference's Python loop over the requests)."""
+    from cilium_tpu_torch.l7.http import pad_requests, trim_packed
+    from cilium_tpu_torch.l7.kafka import pad_kafka_requests
+
+    t = time.perf_counter()
+    if parser == "http":
+        m, ml, p, pl, h, hl, _ = pad_requests(reqs)
+        trim_packed(m, ml), trim_packed(p, pl), trim_packed(h, hl)
+    elif parser == "kafka":
+        pad_kafka_requests(red.kafka_tables, reqs)
+    else:
+        red.generic_tables.device.pack(reqs)
+    return time.perf_counter() - t
+
+
+PROXY_CALLS = (("http", "verdict_http", "http_match"),
+               ("kafka", "verdict_kafka", "kafka_match"),
+               ("memcache", "verdict_generic", "memcache_match"))
+
+
+def l7_proxy_phase(kernels, pw, ps) -> dict:
+    """Each parser's 1,048,576 requests through the proxy's verdict call
+    on the card (log=False): its kernel must launch; the verdicts equal
+    the same call on the plain versions and the host matchers on 256
+    rows; the memcached rows flagged for the host are exactly the plain
+    version's, and some of them end allowed by a prefix or regex rule.
+    Returns the launches per parser and the memcached requests' packed
+    columns on the card."""
+    from cilium_tpu_torch import world
+    from cilium_tpu_torch.device import array_tensor
+    from cilium_tpu_torch.l7 import memcached
+
+    out = {}
+    for parser, method, kname in PROXY_CALLS:
+        t = time.perf_counter()
+        reqs, ident, known = world.proxy_requests(pw, parser)
+        red = ps.redirects[parser]
+        call = getattr(ps.proxy, method)
+        kernel = {k.name: k for k in kernels.KERNELS}[kname]
+        torch.cuda.synchronize()
+        reset_counts(kernels)
+        t1 = time.perf_counter()
+        allowed = call(red, reqs, ident, known, log=False)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t1
+        launches = kernel.launches
+        others = {k.name: k.launches for k in kernels.KERNELS
+                  if k is not kernel and k.launches}
+        pack_s = proxy_pack_s(parser, red, reqs)
+        with plain_route(kernels):
+            t2 = time.perf_counter()
+            plain = call(red, reqs, ident, known, log=False)
+            plain_wall = time.perf_counter() - t2
+        diff = int((np.asarray(allowed) != np.asarray(plain)).sum())
+        mismatches = proxy_host_oracle(parser, red, reqs, ident, known,
+                                       allowed)
+        extra = {}
+        if parser == "memcache":
+            tab = red.generic_tables.device
+            opcode, key_id = tab.pack(reqs)
+            cols = [array_tensor(a, "cuda") for a in
+                    (opcode, key_id, ident.astype(np.int32), known)]
+            ka, kh = kernels.MEMCACHE_MATCH(tab, *cols)
+            pa, ph = memcached.memcache_match_plain(tab, *cols)
+            host_rows = kh.cpu().numpy()
+            extra = dict(
+                needs_host=int(host_rows.sum()),
+                needs_host_diff=int((kh != ph).sum()),
+                device_allowed_diff=int((ka != pa).sum()),
+                host_allowed=int((host_rows & np.asarray(allowed)).sum()),
+            )
+        n_allowed = int(np.asarray(allowed).sum())
+        phase(f"l7_proxy_{parser}", t, requests=len(reqs), launches=launches,
+              others=others, allowed=n_allowed, plain_diff=diff,
+              oracle_rows=PROXY_ORACLE_ROWS, oracle_mismatches=mismatches,
+              verdict_s=round(wall, 4), pack_s=round(pack_s, 4),
+              plain_verdict_s=round(plain_wall, 4),
+              requests_per_s=round(len(reqs) / wall), **extra)
+        if (launches < 1 or others or diff or mismatches
+                or not 0 < n_allowed < len(reqs)):
+            raise SystemExit(f"l7_proxy_{parser}: the kernel did not launch, "
+                             "or the verdicts disagree, or the mix is empty")
+        if parser == "memcache" and (
+            extra["needs_host_diff"] or extra["device_allowed_diff"]
+            or not extra["needs_host"] or not extra["host_allowed"]
+        ):
+            raise SystemExit("l7_proxy_memcache: the host rows differ from "
+                             "the plain version's, or none ends allowed")
+        out[parser] = launches
+    # the egress redirect: HTTP_MATCH again, against the plain route
+    reqs, ident, known = world.proxy_requests(pw, "http")
+    t = time.perf_counter()
+    reset_counts(kernels)
+    eg = ps.proxy.verdict_http(ps.redirects["http_egress"], reqs, ident,
+                               known, log=False)
+    launches = kernels.HTTP_MATCH.launches
+    with plain_route(kernels):
+        eg_plain = ps.proxy.verdict_http(ps.redirects["http_egress"], reqs,
+                                         ident, known, log=False)
+    diff = int((eg != eg_plain).sum())
+    phase("l7_proxy_http_egress", t, launches=launches,
+          allowed=int(eg.sum()), plain_diff=diff)
+    if launches != 1 or diff or not 0 < int(eg.sum()) < len(reqs):
+        raise SystemExit("l7_proxy_http_egress: launch, difference or mix")
+    out["http"] += launches
+    return out, cols
+
+
+def memcache_need(tab, cols):
+    """Bytes and integer operations MEMCACHE_MATCH needs: per request
+    the opcode, key id and identity index (4 B each) and the known flag
+    read, the two verdict bytes written; each distinct identity row's
+    W words read once; the R rule columns (32 + 4 + 1 B) read once;
+    operations: 8 per rule bit the known requests' rows carry, 10 per
+    request."""
+    opcode, key_id, ident, known = cols
+    b = int(opcode.numel())
+    n, w = (int(v) for v in tab.ident_rules.shape)
+    idx = ident.to(torch.int64).clamp(0, n - 1)
+    distinct = int(torch.unique(idx).numel())
+    bits = int((popcount(tab.ident_rules[idx]) * known.to(torch.int64)).sum())
+    need = b * (4 + 4 + 4 + 1 + 2) + distinct * 4 * w + len(tab.specs) * 37
+    return need, 8 * bits + 10 * b
+
+
+def memcache_wide_tables(n_identities: int):
+    """70 memcached rules (three membership words) over the proxy's
+    universe, from compile_rules: world.memcache_rule's split of exact
+    keys, prefixes, regexes and bare opcodes, each rule's 64 identities
+    drawn from a fixed seed."""
+    from cilium_tpu_torch import world
+    from cilium_tpu_torch.convert import l7_tables_to
+    from cilium_tpu_torch.l7 import memcached
+
+    rng = np.random.default_rng(71)
+    specs = []
+    for j in range(MEMCACHE_WIDE_RULES):
+        d = world.memcache_rule(j, MEMCACHE_WIDE_RULES)
+        idx = rng.integers(0, n_identities, size=64).tolist()
+        specs.extend(memcached.compile_rules([d], idx))
+    return l7_tables_to(memcached.compile_device(specs, n_identities), "cuda")
+
+
+def proxy_timing(kernels, ps, cols, launches) -> dict:
+    """MEMCACHE_MATCH alone on the proxy's packed memcached columns:
+    against its plain version at the world's R and at R = 70, its time
+    (CUDA events over 20 launches), the plain time and the bound."""
+    from cilium_tpu_torch.l7.memcached import memcache_match_plain
+
+    t = time.perf_counter()
+    tab = ps.redirects["memcache"].generic_tables.device
+    wide = memcache_wide_tables(int(tab.ident_rules.shape[0]))
+    # both tables read the same packed columns (key ids of the world's
+    # interner): a check of the kernel against its plain version
+    err = 0
+    for which, tb in (("world", tab), ("wide", wide)):
+        ka, kh = kernels.MEMCACHE_MATCH(tb, *cols)
+        pa, ph = memcache_match_plain(tb, *cols)
+        e = max(int_err(ka, pa), int_err(kh, ph))
+        err = max(err, e)
+        print(f"  memcache_match {which}: rules={len(tb.specs)} "
+              f"words={int(tb.ident_rules.shape[1])} max_abs_err={e} "
+              f"allowed={int(ka.sum())} needs_host={int(kh.sum())}",
+              flush=True)
+    ms = event_ms(lambda: kernels.MEMCACHE_MATCH(tab, *cols), 20)
+    plain_ms = event_ms(lambda: memcache_match_plain(tab, *cols), 3)
+    wide_ms = event_ms(lambda: kernels.MEMCACHE_MATCH(wide, *cols), 20)
+    need, ops = memcache_need(tab, cols)
+    bb, bo = need / HBM_BYTES_PER_S * 1e3, ops / OPS_PER_S * 1e3
+    b = int(cols[0].numel())
+    phase("proxy_timing", t, requests=b, rules=len(tab.specs),
+          max_abs_err=err, ms=round(ms, 4), plain_ms=round(plain_ms, 4),
+          wide_ms=round(wide_ms, 4), bytes=need, ops=ops,
+          bound_bytes_ms=round(bb, 4), bound_ops_ms=round(bo, 4),
+          requests_per_s=round(b / (ms / 1e3)))
+    if err:
+        raise SystemExit("proxy_timing: MEMCACHE_MATCH differs from plain")
+    row = kernel_row(kernels.MEMCACHE_MATCH, "cilium_tpu_torch/csrc/l7.cu",
+                     "cilium_tpu/l7/memcached.py:241", launches, err, ms,
+                     plain_ms, bb, bo)
+    row["wide_ms"] = wide_ms
+    return row
+
+
+def proxy_phases(kernels, http_row, kafka_row) -> dict:
+    """The L7 proxy from rules (proxy_setup, l7_proxy, proxy_timing);
+    adds the proxy path's launches to the HTTP_MATCH and KAFKA_MATCH
+    rows (`launches_by_path`) and returns MEMCACHE_MATCH's row."""
+    pw, ps = proxy_setup_phase(kernels)
+    got, cols = l7_proxy_phase(kernels, pw, ps)
+    for row, parser, phase_name in ((http_row, "http", "l7_http"),
+                                    (kafka_row, "kafka", "l7_kafka")):
+        row["launches_by_path"] = {phase_name: row["launches"],
+                                   "l7_proxy": got[parser]}
+        row["launches"] = sum(row["launches_by_path"].values())
+    row = proxy_timing(kernels, ps, cols, got["memcache"])
+    del pw, ps, got, cols
+    torch.cuda.empty_cache()
+    return row
 
 
 def combined_oracle(w, fleet, reqs, kreqs, id_table, picks, out,
@@ -713,7 +1021,7 @@ def combined_phase(kernels, w, tables, fleet) -> dict:
     docstring): checks, the 8-step loop, its trace, and FLEET_L7 alone
     against its plain version, timed, with its bound."""
     from cilium_tpu_torch import world
-    from cilium_tpu_torch.convert import fleet_to
+    from cilium_tpu_torch.convert import l7_tables_to
     from cilium_tpu_torch.engine import datapath as dp
     from cilium_tpu_torch.engine import verdict
     from cilium_tpu_torch.l7 import combined as cb
@@ -726,7 +1034,7 @@ def combined_phase(kernels, w, tables, fleet) -> dict:
 
     t = time.perf_counter()
     reqs, kreqs, hf, kf = world.l7_payloads(w, fleet)
-    fd = fleet_to(fleet, "cuda")
+    fd = l7_tables_to(fleet, "cuda")
     pool = cb.pool_to(w.pool, hf, kf, "cuda")
     dirs = [torch.from_numpy(np.nonzero(w.pool["direction"] == d)[0]).cuda()
             for d in (0, 1)]
@@ -4103,6 +4411,7 @@ def main() -> int:
 
     rows.append(l7_http_phase(kernels))
     rows.append(l7_kafka_phase(kernels))
+    rows.append(proxy_phases(kernels, rows[-2], rows[-1]))
     rows.append(combined_phase(kernels, w, tables, fleet))
     rows.extend(lattice_phases(kernels, w, tables, wide_t))
     torch.cuda.empty_cache()
@@ -4124,7 +4433,8 @@ def main() -> int:
           "the fused datapath steps (v4 or v6), the intent compaction, a "
           "DFA scan, the Kafka rule match, the fleet's routed match, the "
           "policy lattice, the two dependent DIR-24-8 reads, the verdict "
-          "cache or the memo's key words", flush=True)
+          "cache, the memo's key words or the memcached rule match",
+          flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

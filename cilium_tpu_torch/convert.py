@@ -316,22 +316,12 @@ def _l7_to(obj, device):
     return obj
 
 
-def http_tables_to(tables, device=None):
-    """Host HTTPTables -> the same tables with tensor leaves on `device`
-    (None = the card)."""
-    return _l7_to(tables, resolve_device(device))
-
-
-def kafka_tables_to(tables, device=None):
-    """Host KafkaTables -> the same tables with tensor leaves on
+def l7_tables_to(tables, device=None):
+    """Any host L7 table set (HTTPTables or HTTPPolicy, KafkaTables,
+    FleetL7, a generic parser's device tables such as
+    MemcacheDeviceTables) -> the same tables with tensor leaves on
     `device` (None = the card)."""
     return _l7_to(tables, resolve_device(device))
-
-
-def fleet_to(fleet, device=None):
-    """Host FleetL7 -> the same fleet with tensor leaves on `device`
-    (None = the card)."""
-    return _l7_to(fleet, resolve_device(device))
 
 
 def _dfa_from_numpy(leaves: dict):
@@ -412,14 +402,14 @@ def http_tables_from_numpy(leaves: dict, device=None):
     """The port's HTTPTables on `device` (None = the card) from the
     leaves of tables compiled elsewhere (see _http_host_from_numpy),
     as numpy arrays and Python scalars."""
-    return http_tables_to(_http_host_from_numpy(leaves), device)
+    return l7_tables_to(_http_host_from_numpy(leaves), device)
 
 
 def kafka_tables_from_numpy(leaves: dict, device=None):
     """The port's KafkaTables on `device` (None = the card) from the
     leaves of tables compiled elsewhere (see _kafka_host_from_numpy),
     the interner's string -> id map included."""
-    return kafka_tables_to(_kafka_host_from_numpy(leaves), device)
+    return l7_tables_to(_kafka_host_from_numpy(leaves), device)
 
 
 def fleet_from_numpy(leaves: dict, device=None):
@@ -450,4 +440,4 @@ def fleet_from_numpy(leaves: dict, device=None):
         scope_kafka=np.asarray(leaves["scope_kafka"]),
         parser_kind=np.asarray(leaves["parser_kind"]),
     )
-    return fleet_to(fleet, device)
+    return l7_tables_to(fleet, device)

@@ -1,12 +1,14 @@
-// L7 policy on the card: three CUDA kernels for Hopper (sm_90a).
+// L7 policy on the card: four CUDA kernels for Hopper (sm_90a).
 //
-//   http_match_kernel   K16  replaces evaluate_http_batch
-//                            (cilium_tpu/l7/http.py, with _dfa_scan,
-//                            _dfa_scan_strided and _mxu_lookup)
-//   kafka_match_kernel  K17a replaces evaluate_kafka_batch
-//                            (cilium_tpu/l7/kafka.py)
-//   fleet_l7_kernel     K17b replaces evaluate_fleet_l7
-//                            (cilium_tpu/l7/fleet.py)
+//   http_match_kernel      K16  replaces evaluate_http_batch
+//                               (cilium_tpu/l7/http.py, with _dfa_scan,
+//                               _dfa_scan_strided and _mxu_lookup)
+//   kafka_match_kernel     K17a replaces evaluate_kafka_batch
+//                               (cilium_tpu/l7/kafka.py)
+//   fleet_l7_kernel        K17b replaces evaluate_fleet_l7
+//                               (cilium_tpu/l7/fleet.py)
+//   memcache_match_kernel  K17c replaces MemcacheDeviceTables.evaluate's
+//                               device part (cilium_tpu/l7/memcached.py)
 //
 // Shape: one thread per request (or per compacted redirected flow),
 // blocks of 256.  Each block first stages the tables it reads often
@@ -24,6 +26,14 @@
 // from its own row: threads of a warp touch 32 different rows, so the
 // loads do not coalesce; that, and not arithmetic, is the first thing
 // to change when the kernels are made fast.
+//
+// The memcached match stages the rule columns (256-bit opcode mask,
+// exact key id, device flag) in dynamic shared memory a tile of
+// min(R, MC_TILE) rules at a time, so a short table reserves only what
+// it holds; each thread then walks only the rules whose
+// bit is set in its identity's row, reading each row word once.  It
+// stops at the first live device rule (allowed); a host-only rule it
+// passes sets needs_host, which an allow clears.
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -80,6 +90,35 @@ struct FleetArgs {
   int32_t kg;
   int32_t n;
 };
+
+struct MemcacheArgs {
+  const uint32_t* opcode_mask;  // [R, 8] 256-bit opcode mask per rule
+  const uint32_t* rule_key;     // [R] interned exact key, 0 = any
+  const uint8_t* device_ok;     // [R] 0 = prefix/regex rule (host only)
+  const uint32_t* ident_rules;  // [N, W] rule-membership bits
+  const int32_t* opcode;        // [B] raw opcode, -1 = absent
+  const uint32_t* key_id;       // [B] interned key, 0 = absent/unseen
+  const int32_t* ident_idx;     // [B]
+  const uint8_t* known;         // [B]
+  uint8_t* allowed;             // [B]
+  uint8_t* needs_host;          // [B]
+  int32_t n_rules;              // R (never the padded row of R = 0)
+  int32_t n_ident;              // N
+  int32_t n_words;              // W >= ceil(R / 32)
+  int32_t n;                    // B
+};
+
+constexpr int MC_TILE = 1024;  // most rules per shared-memory tile (37 KB)
+
+// Rules per tile: all R when they fit one tile, else MC_TILE.
+__host__ __device__ inline int memcache_tile(const MemcacheArgs& a) {
+  return a.n_rules < MC_TILE ? a.n_rules : MC_TILE;
+}
+
+// A tile's mask words, key ids and device flags: 37 bytes a rule.
+inline size_t memcache_smem_bytes(const MemcacheArgs& a) {
+  return static_cast<size_t>(memcache_tile(a)) * (8 * 4 + 4 + 1);
+}
 
 inline size_t fleet_smem_bytes(const FleetArgs& a) {
   return (a.has_http ? http_smem_bytes(a.http) : 0) +
@@ -147,6 +186,75 @@ __global__ void __launch_bounds__(BLOCK) fleet_l7_kernel(const FleetArgs a) {
   a.allowed[i] = ok;
 }
 
+__global__ void __launch_bounds__(BLOCK)
+    memcache_match_kernel(const MemcacheArgs a) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int tile = memcache_tile(a);
+  uint32_t* s_mask = reinterpret_cast<uint32_t*>(smem);
+  uint32_t* s_key = s_mask + static_cast<size_t>(tile) * 8;
+  uint8_t* s_ok = reinterpret_cast<uint8_t*>(s_key + tile);
+  const size_t i = static_cast<size_t>(blockIdx.x) * BLOCK + threadIdx.x;
+  const bool live = i < static_cast<size_t>(a.n);
+  int32_t raw = -1;
+  uint32_t key = 0;
+  int32_t ident = 0;
+  bool known = false;
+  if (live) {
+    raw = __ldg(a.opcode + i);
+    key = __ldg(a.key_id + i);
+    ident = __ldg(a.ident_idx + i);
+    known = __ldg(a.known + i) != 0;
+  }
+  // the mask word and bit of the opcode clipped to [0, 255]; a negative
+  // raw opcode matches no rule
+  const int op = raw < 0 ? 0 : (raw > 255 ? 255 : raw);
+  const int op_word = op >> 5;
+  const uint32_t op_bit = static_cast<uint32_t>(op & 31);
+  // the identity row, clipped to [0, N - 1]; `known` masks it
+  const int32_t row = ident < 0 ? 0 : (ident >= a.n_ident ? a.n_ident - 1
+                                                          : ident);
+  const uint32_t* irow =
+      a.ident_rules + static_cast<size_t>(row) * static_cast<size_t>(a.n_words);
+  bool ok = false;
+  bool host = false;
+  for (int t0 = 0; t0 < a.n_rules; t0 += tile) {
+    const int tn = min(tile, a.n_rules - t0);
+    __syncthreads();  // the previous tile is no longer read
+    for (int k = threadIdx.x; k < tn; k += BLOCK) {
+      s_key[k] = __ldg(a.rule_key + t0 + k);
+      s_ok[k] = __ldg(a.device_ok + t0 + k);
+    }
+    for (int k = threadIdx.x; k < tn * 8; k += BLOCK) {
+      s_mask[k] = __ldg(a.opcode_mask + static_cast<size_t>(t0) * 8 + k);
+    }
+    __syncthreads();
+    if (!live || !known || ok) continue;
+    // one tile holds every rule, or MC_TILE (a multiple of 32) of them:
+    // a tile's rules are whole words
+    const int w_end = (t0 + tn + 31) >> 5;
+    for (int w = t0 >> 5; w < w_end && !ok; ++w) {
+      uint32_t bits = __ldg(irow + w);
+      const int past = a.n_rules - (w << 5);  // rules left from this word
+      if (past < 32) bits &= (1u << past) - 1u;
+      while (bits != 0u) {
+        const int j = (w << 5) + __ffs(bits) - 1 - t0;
+        bits &= bits - 1u;
+        if (!s_ok[j]) {
+          host = true;
+        } else if (raw >= 0 && ((s_mask[j * 8 + op_word] >> op_bit) & 1u) &&
+                   (s_key[j] == 0u || s_key[j] == key)) {
+          ok = true;
+          break;
+        }
+      }
+    }
+  }
+  if (live) {
+    a.allowed[i] = ok;
+    a.needs_host[i] = host && !ok;
+  }
+}
+
 // Sets the kernel's dynamic shared memory and launches it; returns
 // cudaGetLastError(), or cudaErrorInvalidValue when the tables do not
 // fit one block's shared memory (the wrapper checks that first).
@@ -173,7 +281,8 @@ extern "C" int l7_struct_sizes(int* out) {
   out[0] = static_cast<int>(sizeof(cl7::HttpArgs));
   out[1] = static_cast<int>(sizeof(cl7::KafkaArgs));
   out[2] = static_cast<int>(sizeof(cl7::FleetArgs));
-  return 3;
+  out[3] = static_cast<int>(sizeof(cl7::MemcacheArgs));
+  return 4;
 }
 
 // The most dynamic shared memory one block may use on the current card.
@@ -210,4 +319,10 @@ extern "C" int launch_kafka_match(const cl7::KafkaArgs* a, void* stream) {
 extern "C" int launch_fleet_l7(const cl7::FleetArgs* a, void* stream) {
   return cl7::launch(cl7::fleet_l7_kernel, *a, cl7::fleet_smem_bytes(*a),
                      stream);
+}
+
+extern "C" int launch_memcache_match(const cl7::MemcacheArgs* a,
+                                     void* stream) {
+  return cl7::launch(cl7::memcache_match_kernel, *a,
+                     cl7::memcache_smem_bytes(*a), stream);
 }

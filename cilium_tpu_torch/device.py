@@ -91,3 +91,14 @@ def tensor_on(x, dev: torch.device, name: str) -> torch.Tensor:
         require_on(x, dev, name)
         return x
     return array_tensor(x, dev)
+
+
+def table_device(leaf, what: str) -> torch.device:
+    """The device of a table set, read from one of its leaves; tables
+    still in numpy raise (move them with `convert` first)."""
+    if not isinstance(leaf, torch.Tensor):
+        raise ValueError(
+            f"{what} are {type(leaf).__name__}s, not tensors: move them "
+            "to a device with convert first"
+        )
+    return leaf.device

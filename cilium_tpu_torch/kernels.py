@@ -33,12 +33,13 @@ intent compaction (K22) and CT bucket delta (K18's CT part) under the
 same rules.  One CHURN_COMPACT call is four device launches (see the
 source note) and counts one.
 
-`HTTP_MATCH`, `KAFKA_MATCH` and `FLEET_L7` (csrc/l7.cu) are the L7
-matchers K16, K17a and K17b under the same rules: they check device,
-dtype, shape and limits (the staged tables must fit one block's
-shared memory) and raise on anything else, allocate their outputs,
-launch on the current stream, raise on a launch error and count
-`.launches`.
+`HTTP_MATCH`, `KAFKA_MATCH`, `FLEET_L7` and `MEMCACHE_MATCH`
+(csrc/l7.cu) are the L7 matchers K16, K17a, K17b and K17c under the
+same rules: they check device, dtype, shape and limits (the staged
+tables must fit one block's shared memory; MEMCACHE_MATCH stages its
+rules in tiles of at most 1,024) and raise on anything else, allocate their
+outputs, launch on the current stream, raise on a launch error and
+count `.launches`.
 
 `LATTICE` and `LPM_LOOKUP` (csrc/lattice.cu) are the tuple-level
 lattice (K23; with `lpm` and `src_ips`, K20's fused CIDR form) and the
@@ -778,6 +779,17 @@ class FleetArgs(ctypes.Structure):
                 ("has_kafka", _I), ("n_scopes", _I), ("kg", _I), ("n", _I)]
 
 
+class MemcacheArgs(ctypes.Structure):
+    """Mirror of cl7::MemcacheArgs in csrc/l7.cu, field for field."""
+
+    _fields_ = [("opcode_mask", _P), ("rule_key", _P), ("device_ok", _P),
+                ("ident_rules", _P), ("opcode", _P), ("key_id", _P),
+                ("ident_idx", _P), ("known", _P), ("allowed", _P),
+                ("needs_host", _P), ("n_rules", _I), ("n_ident", _I),
+                ("n_words", _I), ("n", _I)]
+
+
+# (launcher, its shared-memory size function, Args): the staged kernels
 _L7_LAUNCHERS = (
     ("launch_http_match", "http_match_smem", HttpArgs),
     ("launch_kafka_match", "kafka_match_smem", KafkaArgs),
@@ -786,13 +798,14 @@ _L7_LAUNCHERS = (
 
 
 class _L7Library(_Library):
-    """csrc/l7.cu: the three L7 wrappers."""
+    """csrc/l7.cu: the four L7 wrappers."""
 
     stem = "l7"
 
     def bind(self, lib) -> None:
         self.declare(lib, [(launch, args) for launch, _, args in
-                           _L7_LAUNCHERS])
+                           _L7_LAUNCHERS]
+                     + [("launch_memcache_match", MemcacheArgs)])
         for _, smem, args in _L7_LAUNCHERS:
             getattr(lib, smem).argtypes = [ctypes.POINTER(args)]
             getattr(lib, smem).restype = ctypes.c_longlong
@@ -800,9 +813,10 @@ class _L7Library(_Library):
         lib.l7_smem_limit.restype = ctypes.c_int
         lib.l7_struct_sizes.argtypes = [ctypes.POINTER(ctypes.c_int)]
         lib.l7_struct_sizes.restype = ctypes.c_int
-        sizes = (ctypes.c_int * 3)()
+        sizes = (ctypes.c_int * 4)()
         lib.l7_struct_sizes(sizes)
         want = [ctypes.sizeof(a) for _, _, a in _L7_LAUNCHERS]
+        want.append(ctypes.sizeof(MemcacheArgs))
         if list(sizes) != want:
             raise RuntimeError(
                 f"L7 argument layouts differ between kernels.py {want} "
@@ -1049,9 +1063,58 @@ class FleetL7Kernel:
         return allowed
 
 
+class MemcacheMatchKernel:
+    """K17c on the card: (allowed bool [B], needs_host bool [B]) over
+    the first R = len(tables.specs) rules (R >= 1; the entry point
+    answers an empty rule set without a launch)."""
+
+    name = "memcache_match"
+
+    def __init__(self) -> None:
+        self.launches = 0
+
+    def load(self, verbose: bool = False):
+        return L7_LIBRARY.load(verbose)
+
+    def __call__(self, tables, opcode, key_id, ident_idx, known):
+        dev = _cuda_device(opcode, self.name)
+        b = _batch(int(opcode.shape[0]))
+        r = len(tables.specs)
+        if r < 1:
+            raise ValueError("memcache_match needs at least one rule")
+        ident = tables.ident_rules
+        if ident.dim() != 2 or ident.shape[0] < 1:
+            raise ValueError("ident_rules must be [N >= 1, W]")
+        n, w = (int(v) for v in ident.shape)
+        if w * 32 < r:
+            raise ValueError(f"ident_rules has {w} words for {r} rules")
+        if tables.opcode_mask.dim() != 2 or tables.opcode_mask.shape[0] < r:
+            raise ValueError(f"opcode_mask must be [R >= {r}, 8]")
+        a = MemcacheArgs()
+        a.opcode_mask = _ptr(tables.opcode_mask[:r], "opcode_mask", dev,
+                             torch.int32, (r, 8))
+        a.rule_key = _ptr(tables.key_id[:r], "key_id", dev, torch.int32,
+                          (r,))
+        a.device_ok = _ptr(tables.device_ok[:r], "device_ok", dev,
+                           torch.bool, (r,))
+        a.ident_rules = _ptr(ident, "ident_rules", dev, torch.int32)
+        a.opcode = _ptr(opcode, "opcode", dev, torch.int32, (b,))
+        a.key_id = _ptr(key_id, "key_id", dev, torch.int32, (b,))
+        a.ident_idx = _ptr(ident_idx, "ident_idx", dev, torch.int32, (b,))
+        a.known = _ptr(known, "known", dev, torch.bool, (b,))
+        allowed = torch.empty(b, dtype=torch.bool, device=dev)
+        needs_host = torch.empty(b, dtype=torch.bool, device=dev)
+        a.allowed, a.needs_host = allowed.data_ptr(), needs_host.data_ptr()
+        a.n_rules, a.n_ident, a.n_words, a.n = r, n, w, b
+        L7_LIBRARY.launch("launch_memcache_match", a, dev, self.name)
+        self.launches += 1
+        return allowed, needs_host
+
+
 HTTP_MATCH = HttpMatchKernel()
 KAFKA_MATCH = KafkaMatchKernel()
 FLEET_L7 = FleetL7Kernel()
+MEMCACHE_MATCH = MemcacheMatchKernel()
 
 
 # ---------------------------------------------------------------------------
@@ -2132,4 +2195,4 @@ PUBLISH_SCATTER = PublishScatterKernel()
 KERNELS = (DATAPATH_PAIR, DATAPATH_STEP, CHURN_COMPACT, CT_DELTA,
            HTTP_MATCH, KAFKA_MATCH, FLEET_L7, LATTICE, LPM_LOOKUP, DATAPATH6,
            PICK_DRAW, DATAPATH_PAIR_MEMO, MEMO_DEDUP, MEMO_CACHE,
-           MEMO_KEYS_LATTICE, PUBLISH_SCATTER)
+           MEMO_KEYS_LATTICE, PUBLISH_SCATTER, MEMCACHE_MATCH)

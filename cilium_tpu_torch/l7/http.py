@@ -29,7 +29,7 @@ the strided scan when a strided DFA is present, the byte scan
 otherwise.  Both end in the same state (padding maps to the identity
 class of the strided form), so the outputs are equal.
 
-Tables are numpy as compiled; `convert.http_tables_to` moves them to
+Tables are numpy as compiled; `convert.l7_tables_to` moves them to
 a device (u32 words as int32 tensors with the same bits, u16 as
 int32, u8 as uint8).
 """
@@ -42,6 +42,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from cilium_tpu_torch.device import array_tensor, table_device
 from cilium_tpu_torch.l7.regex_dfa import (
     DFA,
     RegexTooComplex,
@@ -103,6 +104,59 @@ class HTTPPolicy:
     # requests (fields beyond the padded budgets) re-evaluate against
     # these with re.fullmatch instead of the truncated tensors.
     device_rules: List[HTTPRuleSpec] = field(default_factory=list)
+
+
+def resolve_selector_indices(
+    selector, identity_cache, id_index, selector_cache=None
+) -> List[int]:
+    """selector → dense identity indices.  With a SelectorCache the
+    resolution is one memoized set lookup (O(matched)); without, it
+    falls back to the per-identity matches() walk — identical result,
+    O(identities)."""
+    if selector_cache is not None:
+        return [
+            id_index[num_id]
+            for num_id in selector_cache.matches(selector)
+            if num_id in id_index
+        ]
+    return [
+        id_index[num_id]
+        for num_id, labels in identity_cache.items()
+        if selector.matches(labels) and num_id in id_index
+    ]
+
+
+def specs_from_filter(
+    l4_filter, identity_cache, id_index, selector_cache=None
+) -> List["HTTPRuleSpec"]:
+    """L4Filter.l7_rules_per_ep (selector → L7Rules, pkg/policy/l4.go:31)
+    → flat HTTPRuleSpec list over the identity universe.
+
+    A selector entry with EMPTY L7Rules becomes an allow-all
+    pseudo-rule (all fields absent ⇒ matches every request) — the
+    L3-override / wildcard entries of createL4IngressFilter
+    (l4.go:209) and wildcardL3L4Rules (repository.go:170).
+    """
+    specs: List[HTTPRuleSpec] = []
+    for selector, l7 in l4_filter.l7_rules_per_ep.items():
+        indices = resolve_selector_indices(
+            selector, identity_cache, id_index, selector_cache
+        )
+        http_rules = l7.http or []
+        if not http_rules:
+            specs.append(HTTPRuleSpec(identity_indices=indices))
+            continue
+        for rule in http_rules:
+            specs.append(
+                HTTPRuleSpec(
+                    identity_indices=indices,
+                    path=rule.path or "",
+                    method=rule.method or "",
+                    host=rule.host or "",
+                    headers=tuple(rule.headers or ()),
+                )
+            )
+    return specs
 
 
 def _dedupe_specs(rules: List[HTTPRuleSpec]) -> List[HTTPRuleSpec]:
@@ -345,8 +399,8 @@ def pad_requests(
     A field longer than its budget is NOT silently truncated into the
     tensors-with-shorter-length (that would corrupt full-match
     semantics in both directions); the row is flagged `overflow` and
-    must be routed to the host matcher (the reference's
-    evaluate_with_host_fallback, not ported yet).  The tensor row still carries the truncated prefix so
+    must be routed to the host matcher (evaluate_with_host_fallback
+    does this).  The tensor row still carries the truncated prefix so
     shapes stay static, but its device verdict is discarded."""
     b = len(requests)
     method = np.zeros((b, lm), dtype=np.uint8)
@@ -510,3 +564,72 @@ def evaluate_http_batch(tables: HTTPTables, method, method_len, path,
     if method.device.type == "cpu":
         return evaluate_http_batch_plain(*args, scope_bits=scope_bits)
     raise ValueError(f"unsupported device {method.device}")
+
+
+def evaluate_with_host_fallback(
+    policy: HTTPPolicy,
+    requests: Sequence[Tuple[bytes, bytes, bytes]],
+    ident_idx,  # i32 [B] identity index
+    known,  # bool [B]
+    headers: Optional[Sequence[Optional[Dict[str, str]]]] = None,
+    lm: int = 16,
+    lp: int = 128,
+    lh: int = 64,
+) -> np.ndarray:
+    """Full HTTP policy verdict: the device scan + host-side merge, on
+    the device that `policy.tables` lies on (`convert.l7_tables_to`).
+
+    Reference semantics (pkg/envoy/server.go:316,448 +
+    envoy/cilium_l7policy.cc): a request is allowed if ANY rule of the
+    filter matches — including header-carrying rules, which the device
+    tables exclude.  The requests are packed on the host
+    (`pad_requests`, `trim_packed`), uploaded with `ident_idx` (as i32,
+    as jnp.asarray takes it) and `known`, and judged by
+    `evaluate_http_batch`; then three host merges over that verdict:
+
+      1. header rules (policy.host_rules): evaluated with re.fullmatch
+         + header present/exact checks, OR-ed into the device verdict;
+      2. overflow rows (fields beyond the padded budgets): the device
+         verdict for those rows is discarded and recomputed from
+         policy.device_rules host-side — never decided from truncated
+         bytes;
+      3. unknown identities stay denied.
+
+    Returns allowed bool [B] (numpy).
+    """
+    dev = table_device(policy.tables.ident_rules, "HTTP tables")
+    packed = pad_requests(requests, lm=lm, lp=lp, lh=lh)
+    m, mlen, p, plen, h, hlen, overflow = packed
+    ident_idx = np.asarray(ident_idx)
+    known = np.asarray(known)
+    fields = (
+        trim_packed(m, mlen), mlen, trim_packed(p, plen), plen,
+        trim_packed(h, hlen), hlen,
+        ident_idx.astype(np.int32), known.astype(bool),
+    )
+    allowed_dev, _ = evaluate_http_batch(
+        policy.tables, *(array_tensor(a, dev) for a in fields)
+    )
+    allowed = allowed_dev.cpu().numpy().copy()
+
+    # 2: overflowed rows re-evaluate the device rules host-side.
+    for i in np.nonzero(overflow)[0]:
+        mm, pp, hh = requests[i]
+        allowed[i] = bool(known[i]) and any(
+            int(ident_idx[i]) in spec.identity_indices
+            and http_rule_matches_host(spec, mm, pp, hh)
+            for spec in policy.device_rules
+        )
+
+    # 1: header rules can only widen (OR semantics across rules).
+    if policy.host_rules:
+        for i in np.nonzero(~allowed & known)[0]:
+            mm, pp, hh = requests[i]
+            hdrs = headers[i] if headers is not None else None
+            if any(
+                int(ident_idx[i]) in spec.identity_indices
+                and http_rule_matches_host(spec, mm, pp, hh, hdrs)
+                for spec in policy.host_rules
+            ):
+                allowed[i] = True
+    return allowed

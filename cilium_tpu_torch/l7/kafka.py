@@ -27,7 +27,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from cilium_tpu_torch.device import widen
+from cilium_tpu_torch.device import array_tensor, table_device, widen
 
 # Sanity ceiling only (ident_rules masks are multi-word; base matrix
 # is [B, R] regardless) — not a semantic limit.
@@ -107,6 +107,17 @@ class KafkaTables:
     # Deduped specs retained for the host path (requests with more
     # topics than the tensor rows hold re-run MatchesRule host-side).
     specs: List[KafkaRuleSpec] = field(default_factory=list)
+
+
+def rule_spec_from_port_rule(rule, identity_indices) -> KafkaRuleSpec:
+    """PortRuleKafka (sanitized) → spec."""
+    return KafkaRuleSpec(
+        identity_indices=identity_indices,
+        api_keys=tuple(rule.api_key_int),
+        api_version=rule.api_version_int,
+        client_id=rule.client_id,
+        topic=rule.topic,
+    )
 
 
 def _dedupe_specs(specs: Sequence[KafkaRuleSpec]) -> List[KafkaRuleSpec]:
@@ -197,8 +208,8 @@ def pad_kafka_requests(
 
     A request with more unique topics than the tensor row holds is
     FLAGGED `overflow` (last return) — its device verdict must be
-    discarded and the request re-run through matches_rules_host (the
-    reference's evaluate_with_host_fallback, not ported yet)."""
+    discarded and the request re-run through matches_rules_host
+    (evaluate_with_host_fallback does this)."""
     b = len(requests)
     kind = np.zeros(b, dtype=np.int32)
     version = np.zeros(b, dtype=np.int32)
@@ -278,6 +289,34 @@ def matches_rules_host(
                 if not remaining:
                     return True
     return False
+
+
+def evaluate_with_host_fallback(
+    tables: KafkaTables,
+    requests: Sequence[KafkaRequest],
+    ident_idx,
+    known,
+) -> np.ndarray:
+    """Full Kafka verdict on the device the tables lie on
+    (`convert.l7_tables_to`): the requests packed on the host
+    (`pad_kafka_requests`), uploaded with `ident_idx` (as i32) and
+    `known`, judged by `evaluate_kafka_batch`, and the requests whose
+    topic list exceeds the tensor rows re-run host-side.  Returns
+    allowed bool [B] (numpy)."""
+    dev = table_device(tables.ident_rules, "Kafka tables")
+    packed = pad_kafka_requests(tables, requests)
+    overflow = packed[-1]
+    ident_idx = np.asarray(ident_idx)
+    known = np.asarray(known)
+    fields = (*packed, ident_idx.astype(np.int32), known.astype(bool))
+    allowed = evaluate_kafka_batch(
+        tables, *(array_tensor(a, dev) for a in fields)
+    ).cpu().numpy().copy()
+    for i in np.nonzero(overflow)[0]:
+        allowed[i] = bool(known[i]) and matches_rules_host(
+            requests[i], tables.specs, int(ident_idx[i])
+        )
+    return allowed
 
 
 # ---------------------------------------------------------------------------

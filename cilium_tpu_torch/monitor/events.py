@@ -1,15 +1,22 @@
-"""Monitor event names the telemetry fold needs.
+"""Monitor event names the telemetry fold needs, and the L7 access-log
+record.
 
 The port's copy of the reference's `DROP_REASONS` table and
 `drop_reason_name` (monitor/events.py): the canonical bpf/lib/common.h
 drop-reason strings that `cilium monitor` prints and that label
-cilium_drop_count_total.  The event payload types wait for the
-observability plane.
+cilium_drop_count_total; and `LogRecordNotify`, the proxy's access-log
+record (pkg/proxy/accesslog), with its message type id.  The other
+event payload types and the monitor bus wait for the observability
+plane.
 """
 
 from __future__ import annotations
 
+from dataclasses import dataclass
 from typing import Dict
+
+# agent-level message type of an access-log record (pkg/monitor/messages.go)
+NOTIFY_LOG_RECORD = 6
 
 # bpf/lib/common.h:237-269 drop reasons (negative datapath returns).
 DROP_REASONS: Dict[int, str] = {
@@ -58,3 +65,15 @@ DROP_OVERLOAD = -163
 def drop_reason_name(code: int) -> str:
     """pkg/monitor/datapath_drop.go dropReason."""
     return DROP_REASONS.get(code, f"unknown ({code})")
+
+
+@dataclass
+class LogRecordNotify:
+    """L7 access-log record reference (pkg/proxy/accesslog)."""
+
+    endpoint_id: int
+    l7_proto: str
+    verdict: str
+    info: str = ""
+
+    type: int = NOTIFY_LOG_RECORD

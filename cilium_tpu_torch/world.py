@@ -52,11 +52,19 @@ oracle.
 Policy publication takes config 5's states as `map_state_arrays` (the
 daemon endpoints' form) and churns them with `one_rule_states`,
 bench.py's one-rule update at map-state level.
+
+`proxy_world` starts from rules instead: the L7 proxy's redirects of
+one server endpoint, with configs 3 and 4's HTTP and Kafka rules and
+24 memcached rules written as JSON, identities allocated from labels,
+and request templates for all three parsers.
 """
 
 from __future__ import annotations
 
 import ipaddress
+import json
+import time
+import types
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional
 
@@ -64,7 +72,9 @@ import numpy as np
 
 from cilium_tpu_torch.compiler.tables import (
     LOCAL_ID_BASE,
+    PAD_ID,
     RESERVED_WORLD,
+    build_id_table,
     compile_map_states,
     split_hot,
 )
@@ -1156,3 +1166,268 @@ def config6_ct_pass(flows: Dict[str, np.ndarray], out, count: int):
         for k in head
     }
     return ct, second
+
+
+# -- the L7 proxy from rules ---------------------------------------------------
+
+PROXY_TEAMS = 64
+PROXY_RULES = 24  # rules per parser, as in configs 3 and 4
+MEMCACHE_OPS = ("get", "set", "readGroup", "delete", "writeGroup", "getk",
+                "add", "increment")
+PROXY_UNKNOWN_SHARE = 0.01
+
+
+@dataclass
+class ProxyWorld:
+    """One server endpoint's L7 policy from rules (`rules_json`, for
+    rules_from_json), over identities allocated from labels
+    (`identity_labels`, in allocation order), with request templates
+    for the three parsers and, per parser, each request's template
+    pick, identity index and known flag (`draws[parser] = (pick,
+    ident, known)`), drawn over a universe of `n_universe` indices."""
+
+    rules_json: str
+    identity_labels: List[List[str]]
+    server_labels: tuple
+    http_templates: list  # (method, path, host) bytes
+    kafka_templates: list  # (kind, version, client_id, topics, parsed)
+    memcache_wire: bytes  # the memcached templates as request frames
+    draws: Dict[str, tuple]
+    n_universe: int
+
+
+def _rule(team, port: int, rules, name: str, egress: bool = False):
+    """One rule of the server: `team` (an int, or a list of ints as a
+    matchExpressions In) on TCP `port`, with L7 `rules` or none."""
+    if isinstance(team, int):
+        peer = {"matchLabels": {"k8s:team": f"t{team}"}}
+    else:
+        peer = {"matchExpressions": [{"key": "k8s:team", "operator": "In",
+                                      "values": [f"t{t}" for t in team]}]}
+    block = {"toPorts": [{"ports": [{"port": str(port), "protocol": "TCP"}]}]}
+    if rules is not None:
+        block["toPorts"][0]["rules"] = rules
+    if egress:
+        block["toEndpoints"] = [peer]
+    else:
+        block["fromEndpoints"] = [peer]
+    return {
+        "endpointSelector": {"matchLabels": {"k8s:app": "server"}},
+        "egress" if egress else "ingress": [block],
+        "labels": [f"k8s:policy={name}"],
+    }
+
+
+def memcache_rule(i: int, n_rules: int) -> dict:
+    """Memcached rule i of n: an OPCODE_MAP name or group, and two
+    thirds keyExact, a sixth keyPrefix, then keyRegex, then no key."""
+    n_exact, n_prefix = (2 * n_rules) // 3, n_rules // 6
+    n_regex = max((n_rules - n_exact - n_prefix) // 2, 1)
+    rule = {"opCode": MEMCACHE_OPS[i % len(MEMCACHE_OPS)]}
+    if i < n_exact:
+        rule["keyExact"] = f"key{i}"
+    elif i < n_exact + n_prefix:
+        rule["keyPrefix"] = f"pre{i}"
+    elif i < n_exact + n_prefix + n_regex:
+        rule["keyRegex"] = f"^rx{i}[0-9]+$"
+    return rule
+
+
+def proxy_rules() -> list:
+    """The JSON rules: PROXY_RULES each of HTTP on TCP/80 (config 3's
+    methods, paths and hosts), Kafka on TCP/9092 (config 4's API keys
+    and topics) and memcached on TCP/11211 (OPCODE_MAP names and groups;
+    two thirds keyExact, then keyPrefix, keyRegex, no key), each
+    allowing one team; on 11211 also an entry with an empty `l7` list
+    and an L4-only rule (the wildcard pass makes it an L7 allow-all);
+    and one egress HTTP rule on TCP/8080 to every fourth team."""
+    n_rules = PROXY_RULES
+    out = []
+    for i in range(n_rules):
+        out.append(_rule(i % PROXY_TEAMS, 80, {"http": [{
+            "method": "GET|POST" if i % 3 else "GET",
+            "path": f"/api/v{i % 4}/[a-z]+(/[0-9]+)?",
+            "host": "" if i % 2 else r"svc[0-9]+\.cluster\.local",
+        }]}, f"http-{i}"))
+    for i in range(n_rules):
+        topic = {"topic": f"topic{i % 16}"} if i % 3 else {}
+        keys = ["produce"] if i % 2 else ["fetch", "offsets", "metadata"]
+        out.append(_rule((n_rules + i) % PROXY_TEAMS, 9092, {"kafka": [
+            {"apiKey": k, **topic} for k in keys]}, f"kafka-{i}"))
+    for i in range(n_rules):
+        out.append(_rule((2 * n_rules + i) % PROXY_TEAMS, 11211, {
+            "l7proto": "binarymemcache", "l7": [memcache_rule(i, n_rules)]},
+            f"memcache-{i}"))
+    out.append(_rule(PROXY_TEAMS - 2, 11211, {
+        "l7proto": "binarymemcache", "l7": []}, "memcache-empty"))
+    out.append(_rule(PROXY_TEAMS - 1, 11211, None, "memcache-l4"))
+    out.append(_rule(list(range(0, PROXY_TEAMS, 4)), 8080, {"http": [{
+        "method": "GET|PUT", "path": "/(api|out)/.*"}]}, "http-egress",
+        egress=True))
+    return out
+
+
+def _memcache_frames(rng, count: int = 256) -> bytes:
+    """`count` request frames, each aimed at rule i % (PROXY_RULES + 2):
+    three times in four with one of the rule's opcodes (else any of
+    the rules' opcodes, quit, noop or 255), four times in five with a
+    key the rule's matcher takes (else another key)."""
+    from cilium_tpu_torch.l7.memcached import OPCODE_MAP, encode_request
+
+    ops = sorted({op for name in MEMCACHE_OPS for op in OPCODE_MAP[name]})
+    ops += [7, 10, 255]  # quit, noop and an opcode no rule names
+    frames = []
+    for i in range(count):
+        j = i % (PROXY_RULES + 2)
+        rule = (memcache_rule(j, PROXY_RULES) if j < PROXY_RULES
+                else {"opCode": "get"})
+        own = OPCODE_MAP[rule["opCode"]]
+        op = (own[int(rng.integers(0, len(own)))] if rng.random() < 0.75
+              else int(rng.choice(ops)))
+        if rng.random() < 0.2:
+            key = f"other{i % 7}"
+        elif "keyExact" in rule:
+            key = rule["keyExact"]
+        elif "keyPrefix" in rule:
+            key = f"{rule['keyPrefix']}x{i}"
+        elif "keyRegex" in rule:
+            key = f"rx{j}{i}"
+        else:
+            key = f"free{i}"
+        extras = b"\0" * 4 if i % 5 == 0 else b""
+        frames.append(encode_request(op, key, extras, b"v" * int(i % 3)))
+    return b"".join(frames)
+
+
+def proxy_world(n_identities: int = 1024, n_requests: int = 1 << 20,
+                seed: int = 19) -> ProxyWorld:
+    """The proxy's world at configs 3 and 4's widths by default:
+    `n_identities` identities labelled `k8s:team=t{i % 64}`,
+    `k8s:svc=s{i}`, the rules of `proxy_rules`, 256 templates per
+    parser (config 3's HTTP draws, config 4's Kafka draws, memcached
+    frames from encode_request) and `n_requests` requests per parser,
+    their identity indices drawn over the universe (the allocated
+    identities and the 5 reserved ones), 1 % unknown."""
+    rng = np.random.default_rng(seed)
+    identity_labels = [[f"k8s:team=t{i % PROXY_TEAMS}", f"k8s:svc=s{i}"]
+                       for i in range(n_identities)]
+    n_universe = n_identities + 5  # the reserved identities 1-5
+    http = []
+    for i in range(256):
+        method = rng.choice(["GET", "POST", "PUT", "DELETE"])
+        path = rng.choice([
+            f"/api/v{i % 4}/users/{i}", f"/api/v{i % 4}/items", "/health",
+            "/api/v9/nope", f"/api/v{i % 4}/x" + "y" * int(rng.integers(0, 40)),
+            "/out/" + "z" * int(rng.integers(0, 200)),
+        ])
+        host = rng.choice([f"svc{i % 8}.cluster.local", "evil.example.com", ""])
+        http.append((method.encode(), path.encode(), host.encode()))
+    kafka = []
+    for i in range(256):
+        count = int(rng.integers(0, 3)) if i % 64 else 10  # some overflow
+        kafka.append((
+            int(rng.choice([0, 1, 2, 3, 8, 9])), 0, f"client{i % 4}",
+            tuple(f"topic{int(t)}" for t in rng.integers(0, 24, size=count)),
+            bool(i % 16),
+        ))
+    wire = _memcache_frames(rng)
+    draws = {}
+    for parser in ("http", "kafka", "memcache"):
+        pick = rng.integers(0, 256, size=n_requests)
+        ident = rng.integers(0, n_universe, size=n_requests).astype(np.int32)
+        known = rng.random(n_requests) >= PROXY_UNKNOWN_SHARE
+        draws[parser] = (pick, ident, known)
+    return ProxyWorld(
+        rules_json=json.dumps(proxy_rules()),
+        identity_labels=identity_labels, server_labels=("k8s:app=server",),
+        http_templates=http, kafka_templates=kafka, memcache_wire=wire,
+        draws=draws, n_universe=n_universe,
+    )
+
+
+PROXY_ENDPOINT_ID = 4242
+# the universe's padding: build_id_table's row count for the proxy world
+PROXY_IDENTITY_PAD = 1024
+
+
+def proxy_setup(pw: ProxyWorld, device=None, wait_group=None):
+    """The world's rules through the port's control plane onto a Proxy
+    on `device`: rules_from_json, sanitize, Repository.add_list,
+    identities from the labels (IdentityAllocator), the universe index
+    from build_id_table (FleetCompiler's), resolve_l4_policy for the
+    server's labels, and update_endpoint_redirects for an endpoint
+    object carrying `id`, `desired_l4_policy` and
+    `realized_redirects`.  Returns a namespace with the repository,
+    allocator, id_table, id_index, policy, endpoint, proxy, the
+    redirects by parser ("http", "kafka", "memcache", "http_egress") and
+    the wall seconds of each step (`seconds`: rules, identities,
+    resolve, redirects; with a `wait_group`, redirects includes the
+    wait for the asynchronous compiles)."""
+    from cilium_tpu_torch.compiler.mapstate import resolve_l4_policy
+    from cilium_tpu_torch.identity import IdentityAllocator
+    from cilium_tpu_torch.labels import LabelArray, Labels
+    from cilium_tpu_torch.policy.api import rules_from_json
+    from cilium_tpu_torch.policy.repository import Repository
+    from cilium_tpu_torch.proxy import Proxy
+
+    seconds = {}
+    t = time.perf_counter()
+    rules = rules_from_json(pw.rules_json)
+    for r in rules:
+        r.sanitize()
+    repo = Repository()
+    repo.add_list(rules)
+    seconds["rules"] = time.perf_counter() - t
+    t = time.perf_counter()
+    alloc = IdentityAllocator()
+    for labels in pw.identity_labels:
+        alloc.allocate(Labels.from_model(labels))
+    cache = alloc.identity_cache()
+    id_table = build_id_table(list(cache), PROXY_IDENTITY_PAD)
+    id_index = {int(v): i for i, v in enumerate(id_table) if v != PAD_ID}
+    seconds["identities"] = time.perf_counter() - t
+    t = time.perf_counter()
+    policy = resolve_l4_policy(repo, LabelArray.parse(*pw.server_labels))
+    endpoint = types.SimpleNamespace(
+        id=PROXY_ENDPOINT_ID, desired_l4_policy=policy, realized_redirects={}
+    )
+    seconds["resolve"] = time.perf_counter() - t
+    t = time.perf_counter()
+    proxy = Proxy(device=device)
+    proxy.update_endpoint_redirects(endpoint, cache, id_index, len(id_table),
+                                    wait_group=wait_group)
+    if wait_group is not None and not wait_group.wait(timeout=600):
+        raise RuntimeError("a redirect compile failed or timed out")
+    seconds["redirects"] = time.perf_counter() - t
+    redirects = {
+        "http": proxy.redirect_for(PROXY_ENDPOINT_ID, True, "TCP", 80),
+        "kafka": proxy.redirect_for(PROXY_ENDPOINT_ID, True, "TCP", 9092),
+        "memcache": proxy.redirect_for(PROXY_ENDPOINT_ID, True, "TCP", 11211),
+        "http_egress": proxy.redirect_for(PROXY_ENDPOINT_ID, False, "TCP",
+                                          8080),
+    }
+    return types.SimpleNamespace(
+        repo=repo, allocator=alloc, cache=cache, id_table=id_table,
+        id_index=id_index, policy=policy, endpoint=endpoint, proxy=proxy,
+        redirects=redirects, seconds=seconds,
+    )
+
+
+def proxy_requests(pw: ProxyWorld, parser: str):
+    """The request list of `parser` (templates by pick; memcached frames
+    decoded once with decode_stream), its identity indices and known
+    flags."""
+    pick, ident, known = pw.draws[parser]
+    if parser == "memcache":
+        from cilium_tpu_torch.l7.memcached import decode_stream
+
+        templates, _ = decode_stream(pw.memcache_wire)
+    elif parser == "kafka":
+        from cilium_tpu_torch.l7.kafka import KafkaRequest
+
+        templates = [KafkaRequest(kind=k, version=v, client_id=c, topics=t,
+                                  parsed=p)
+                     for k, v, c, t, p in pw.kafka_templates]
+    else:
+        templates = pw.http_templates
+    return [templates[i] for i in pick.tolist()], ident, known

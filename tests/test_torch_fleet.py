@@ -204,7 +204,7 @@ def test_fleet_plain_matches_jax(fields):
     ))(*cols, *hf, *kf))
     assert 0 < want.sum() < len(want)
     sources = {
-        "port": convert.fleet_to(port, "cpu"),
+        "port": convert.l7_tables_to(port, "cpu"),
         "convert": convert.fleet_from_numpy(l7_leaves(fleet), "cpu"),
     }
     args = as_torch((*cols, *hf, *kf))
@@ -328,7 +328,7 @@ def test_combined_step_matches_jax(cap):
     acc = tv.make_counter_buffers(tables.policy)
     tel = tv.make_telemetry_buffers("cpu")
     out = tc.combined_step(
-        tables, convert.fleet_to(fleet, "cpu"),
+        tables, convert.l7_tables_to(fleet, "cpu"),
         tc.pool_to(w.pool, hf, kf, "cpu"), torch.from_numpy(picks), acc, tel,
         cap=cap,
     )
@@ -358,7 +358,7 @@ def test_fleet_and_combined_kernels_match_plain():
     w, wide, fleet = _small_world(2)
     _, _, hf, kf = world.l7_payloads(w, fleet)
     tables = convert.tables_to(world.headline_tables(w, wide), "cuda")
-    fd = convert.fleet_to(fleet, "cuda")
+    fd = convert.l7_tables_to(fleet, "cuda")
     pool = tc.pool_to(w.pool, hf, kf, "cuda")
     rng = np.random.default_rng(22)
     picks = torch.from_numpy(np.stack([

@@ -42,7 +42,10 @@ def test_import_loads_no_jax_and_no_reference_module():
               "cilium_tpu_torch.tunnel", "cilium_tpu_torch.prng",
               "cilium_tpu_torch.telemetry", "cilium_tpu_torch.metrics",
               "cilium_tpu_torch.spanstat",
-              "cilium_tpu_torch.monitor.events"):
+              "cilium_tpu_torch.monitor.events", "cilium_tpu_torch.labels",
+              "cilium_tpu_torch.identity", "cilium_tpu_torch.policy.repository",
+              "cilium_tpu_torch.compiler.mapstate",
+              "cilium_tpu_torch.l7.memcached", "cilium_tpu_torch.proxy.proxy"):
         assert m in mods
     code = (
         "import importlib, sys\n"

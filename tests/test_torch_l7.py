@@ -301,7 +301,7 @@ def test_http_plain_matches_jax(branch, which):
         port, ref = _no_strided(port), _no_strided(ref)
     assert (port.path_sdfa is None) == (branch == "byte")
     sources = {
-        "port": convert.http_tables_to(port, "cpu"),
+        "port": convert.l7_tables_to(port, "cpu"),
         "convert": convert.http_tables_from_numpy(l7_leaves(ref), "cpu"),
     }
     for use_scope in (False, True):
@@ -340,7 +340,7 @@ def test_kafka_plain_matches_jax(which):
     port = tk.compile_kafka_rules(specs, n)
     ref = jk.compile_kafka_rules([as_spec(s, jk) for s in specs], n)
     sources = {
-        "port": convert.kafka_tables_to(port, "cpu"),
+        "port": convert.l7_tables_to(port, "cpu"),
         "convert": convert.kafka_tables_from_numpy(l7_leaves(ref), "cpu"),
     }
     for use_scope in (False, True):
@@ -357,7 +357,7 @@ def test_kafka_plain_matches_jax(which):
 
 
 def test_entry_points_refuse_other_devices():
-    tables = convert.http_tables_to(
+    tables = convert.l7_tables_to(
         th.compile_http_rules(_edge_http_specs(), 16).tables, "cpu")
     fields, ident, known, _ = _edge_http_requests()
     args = [torch.from_numpy(np.ascontiguousarray(a)) for a in
@@ -383,7 +383,7 @@ def test_http_kernel_matches_plain():
     from cilium_tpu_torch import kernels
 
     for which, specs, n, fields, ident, known in _card_http_cases():
-        tables = convert.http_tables_to(th.compile_http_rules(specs, n).tables,
+        tables = convert.l7_tables_to(th.compile_http_rules(specs, n).tables,
                                         "cuda")
         b = len(ident)
         w = tables.n_words
@@ -414,7 +414,7 @@ def test_kafka_kernel_matches_plain():
         et, tk.pad_kafka_requests)
     cases.append(("edge", et, fields, ident, known))
     for which, host, fields, ident, known in cases:
-        tables = convert.kafka_tables_to(host, "cuda")
+        tables = convert.l7_tables_to(host, "cuda")
         b = len(ident)
         w = int(tables.ident_rules.shape[1])
         scope = torch.randint(-(1 << 31), 1 << 31, (b, w), dtype=torch.int32,
@@ -436,7 +436,7 @@ def test_l7_kernels_refuse_what_they_do_not_take():
     from cilium_tpu_torch import kernels
 
     host = th.compile_http_rules(_edge_http_specs(), 16).tables
-    tables = convert.http_tables_to(host, "cuda")
+    tables = convert.l7_tables_to(host, "cuda")
     fields, ident, known, _ = _edge_http_requests()
     args = [torch.from_numpy(np.ascontiguousarray(a)) for a in
             (*fields, ident, known)]
