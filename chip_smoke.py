@@ -119,6 +119,30 @@ launch counts set to 0 just before it and read just after:
              upload (bench's 4,194,304 tuples and probes of every
              change, which flip as the map states say), and the epoch
              two publishes back is refused; then publish_timing;
+  rules      config 5 from rules (world.rules_world,
+             bench.py's build_config5): 50,000 rules, 32 endpoints,
+             65,536 identities through the port's Daemon on the card
+             (endpoints, identities with their /32s, policy_add, the
+             two-phase regenerate sweep with its proxy redirects), then
+             published_device()'s full upload, checked leaf for leaf
+             (rules_setup); LATTICE on that epoch over 4,194,304 tuples
+             (world.rules_tuples) against its plain version and 512
+             oracle rows, and one evaluate_batch_from_ips call on the
+             DIR-24-8 tables of the daemon's ipcache against the plain
+             version, HostLPM with the oracle, and lookup_host on 8 rows
+             (rules_check); bench.py's update from a rule: add_one_rule,
+             regenerate_all, published_device(), 3 priming and 8 timed
+             steps, each timed one a delta and every epoch equal to its
+             host tables (rule_update, PUBLISH_SCATTER);
+             compile_candidate_world over one candidate rule
+             (world.restricting_rule), uploaded, LATTICE on the live and
+             candidate epochs and SHADOW_DIFF, against its plain version
+             and the numpy diff of the oracle on 512 rows, with at least
+             one row changed (shadow), then shadow_timing;
+             replay_lattice(manager=...) over 1,048,576 records with
+             counters against the plain loop, sync_counters_to_endpoints
+             (the synced packets equal the counters' sum) and the refusal
+             of a snapshot two publishes old (manager_replay);
   memo       config 5's memoized headline pair (bench.py's timed memo
              loop): 8 Zipf(1.1) pairs of 2 x 2,097,152 flows through
              memo_pair_packed4 behind AsyncBatchDispatcher (depth 2),
@@ -164,7 +188,8 @@ jax drops), of `torch.randint` for PICK_DRAW
 no single PyTorch call computes the fused datapath steps, the intent
 compaction, a DFA scan, the Kafka rule match, the fleet's routed match,
 the policy lattice, the two dependent DIR-24-8 reads, the v6 program,
-the verdict cache, the memo's key words or the memcached rule match.  LATTICE's launches are
+the verdict cache, the memo's key words, the memcached rule match or
+the shadow diff.  LATTICE's launches are
 summed over its four paths, its time is config 5's compact mode;
 LPM_LOOKUP's time is config 2's 1,048,576 addresses; DATAPATH6's is
 config 6's 1,048,576 flows.  The DATAPATH_PAIR and DATAPATH_STEP rows
@@ -187,6 +212,13 @@ plain time the whole plain memoized pair; MEMO_DEDUP's and MEMO_CACHE's
 times are one half's at rep_cap 524,288, MEMO_DEDUP's library call
 `torch.unique(keys, dim=0, return_inverse=True)`; MEMO_KEYS_LATTICE's
 time is its keys and combine launches on 4,194,304 tuples.
+SHADOW_DIFF's time is its device time over 20 launches at 4,194,304
+rows queued behind a device spin (`queued_ms`; `wrapper_ms` the CUDA
+events of 20 launches as a caller sees them, the wrapper's host time
+included; the serve_* keys the same at 131,072 rows), its bound 16 B a
+row; LATTICE's and
+PUBLISH_SCATTER's launches include the from-rules paths
+(`launches_by_path`).
 PUBLISH_SCATTER's time is one launch on the last timed step's payloads
 (every scattered leaf) and base epoch, its bound their index and value
 bytes read and the destination rows written once.  HTTP_MATCH's and
@@ -195,6 +227,21 @@ path (`launches_by_path`); MEMCACHE_MATCH's time is one launch on the
 proxy's 1,048,576 packed memcached requests against its 25 rules
 (`wide_ms` at 70 rules), its bound those requests' 15 bytes each, each
 distinct identity row and the rule columns, read or written once.
+
+Map states from rules: the CPU recipe is
+`world.rules_world(n_rules=600, n_endpoints=4, n_identities=256,
+device="cpu")` (the port's Daemon), tested against the reference's own
+build_config5 by `JAX_PLATFORMS=cpu python -m pytest
+tests/test_torch_endpoint.py tests/test_torch_shadow.py -q`.  The
+phases rules_setup to manager_replay above run alone with
+`python3 -c "import chip_smoke; from cilium_tpu_torch import kernels;
+kernels.build_all(('shadow', 'lattice', 'publish'));
+chip_smoke.rules_phases(kernels, [])"` on one H100.  Gotchas:
+proxy ports come from the daemon's second sweep, in endpoint insertion
+order; the oracle counts hits, so it runs on copies of the map states;
+a stale device epoch is refused by the compiler's stamp check; at these
+sizes a caller's time of SHADOW_DIFF is its wrapper's host time
+(`wrapper_ms`), so its `ms` queues the launches behind a device spin.
 """
 
 from __future__ import annotations
@@ -202,6 +249,7 @@ from __future__ import annotations
 import contextlib
 import copy
 import dataclasses
+import ipaddress
 import json
 import subprocess
 import sys
@@ -3551,6 +3599,433 @@ def publish_phases(kernels, w, rows) -> dict:
     return pub
 
 
+# -- config 5 from rules ----------------------------------------------------------
+
+RULES_TUPLES = 1 << 22  # bench.py's lattice line (--batch)
+RULES_IP_TUPLES = 1 << 20  # rules_check's evaluate_batch_from_ips call
+RULES_LOOKUP_HOST_ROWS = 8  # of the IP rows, also through lookup_host
+RULE_PRIME_PORTS = (4301, 4302, 4303)  # bench.py:1390-1394
+RULE_TIMED_PORTS = tuple(range(4304, 4312))
+SHADOW_PORT = 4321
+SHADOW_SERVE_ROWS = 1 << 17  # the serving plane's batch (serve.py)
+MANAGER_RECORDS = 1 << 20
+MANAGER_STALE_PORTS = (4331, 4332)
+DIFF_ROW_BYTES = 2 * (1 + 4 + 1) + 4  # SHADOW_DIFF: six columns in, four out
+
+
+def oracle_verdicts(states, cols, rows) -> tuple:
+    """evaluate_batch_oracle over `rows` of the tuple columns, on a copy
+    of the map states (the oracle counts hits; the endpoints' own
+    counters stay as they are)."""
+    from cilium_tpu_torch.engine.oracle import evaluate_batch_oracle
+
+    return evaluate_batch_oracle(
+        copy.deepcopy(list(states)), *(cols[k][rows] for k in (
+            "ep_index", "identity", "dport", "proto", "direction",
+            "is_fragment")))
+
+
+def oracle_err(v, rows, want) -> int:
+    """Rows of `v` (Verdicts on the card) at `rows` that differ from the
+    oracle's (allowed, proxy_port, match_kind) columns."""
+    got = [getattr(v, c)[torch.from_numpy(rows).cuda()].cpu().numpy()
+           .astype(np.int64) for c in ("allowed", "proxy_port", "match_kind")]
+    return int(sum((g != w.astype(np.int64)) for g, w in zip(got, want)).sum())
+
+
+def timed_compiles(em) -> list:
+    """Wall seconds of every EndpointManager.publish_tables (the fleet
+    compile of a sweep) from now on, appended to the returned list."""
+    seconds = []
+    inner = em.publish_tables
+
+    def publish_tables(*args, **kw):
+        t = time.perf_counter()
+        out = inner(*args, **kw)
+        seconds.append(time.perf_counter() - t)
+        return out
+
+    em.publish_tables = publish_tables
+    return seconds
+
+
+def rules_setup(kernels) -> dict:
+    """rules_setup: config 5 from rules (world.rules_world, bench.py's
+    build_config5 at full width) through the port's Daemon on the card,
+    then published_device()'s full upload, checked leaf for leaf."""
+    from cilium_tpu_torch import world
+
+    t = time.perf_counter()
+    rw = world.rules_world()
+    d = rw.daemon
+    em = d.endpoint_manager
+    spans = d.last_regen_spans.report()
+    redirects = d.proxy.redirects
+    entries = [len(s) for s in rw.states]
+    host = host_copy(rw.tables)
+    t1 = time.perf_counter()
+    _, dev, index = em.published_device()
+    upload_s = time.perf_counter() - t1
+    st = em.last_publish_stats
+    err = epoch_err(dev, host)
+    phase("rules_setup", t, rules=len(rw.rules), endpoints=len(rw.index),
+          identities=len(rw.ids), **{k: round(v, 3)
+                                     for k, v in rw.timings.items()},
+          regen_spans_s=json.dumps({k: round(v, 3) for k, v in spans.items()}),
+          redirect_s=round(spans.get("proxy", 0.0), 3),
+          redirects=len(redirects),
+          proxy_ports=len({r.proxy_port for r in redirects.values()}),
+          l7_rules=len(rw.l7_pairs),
+          entries_per_endpoint=json.dumps([min(entries),
+                                           int(np.median(entries)),
+                                           max(entries)]),
+          entries=sum(entries), upload_mode=st.mode,
+          upload_bytes=st.bytes_h2d, upload_ms=round(st.seconds * 1e3, 3),
+          published_device_ms=round(upload_s * 1e3, 3), epoch_err=err)
+    if st.mode != "full" or err or not redirects or index != rw.index:
+        raise SystemExit("rules_setup: the first device publish is not a "
+                         "full upload equal to the host tables")
+    return dict(rw=rw, dev=dev, host=host)
+
+
+def rules_check(kernels, r) -> int:
+    """rules_check: LATTICE on the from-rules epoch over 4,194,304
+    tuples (world.rules_tuples), against the plain version on the card
+    and 512 rows against the oracle over the published map states; then
+    one evaluate_batch_from_ips call on the DIR-24-8 tables of the
+    daemon's ipcache over sources drawn from the identity /32s, against
+    the plain version, HostLPM plus the oracle on 512 rows and
+    lookup_host on 8 of them.  Returns LATTICE's launches."""
+    from cilium_tpu_torch import world
+    from cilium_tpu_torch.convert import lpm_to
+    from cilium_tpu_torch.engine.hostpath import HostLPM
+    from cilium_tpu_torch.engine.verdict import (
+        TupleBatch,
+        evaluate_batch,
+        evaluate_batch_from_ips,
+    )
+    from cilium_tpu_torch.ipcache.lpm import build_lpm, lookup_host
+
+    t = time.perf_counter()
+    rw, dev = r["rw"], r["dev"]
+    cols = world.rules_tuples(rw, RULES_TUPLES, seed=71)
+    batch = TupleBatch.from_numpy(**cols, device="cuda")
+    r.update(cols=cols, batch=batch)
+    torch.cuda.synchronize()
+    reset_counts(kernels)
+    v = evaluate_batch(dev, batch)
+    torch.cuda.synchronize()
+    launches = kernels.LATTICE.launches
+    err = verdicts_err(v, lattice_plain(dev, batch)[0])
+    rng = np.random.default_rng(72)
+    rows = rng.integers(0, RULES_TUPLES, ORACLE_ROWS)
+    bad = oracle_err(v, rows, oracle_verdicts(rw.states, cols, rows))
+    allowed = v.allowed.to(torch.int64).sum().item() / RULES_TUPLES
+    redirected = (v.proxy_port > 0).to(torch.int64).sum().item()
+
+    # the CIDR path over the daemon's ipcache
+    mappings = dict(rw.daemon.lpm_builder.mappings)
+    lpm = lpm_to(build_lpm(mappings), "cuda")
+    src = rw.id_ips[rng.integers(0, len(rw.id_ips), RULES_IP_TUPLES)]
+    src_t = torch.from_numpy(src.view(np.int32)).cuda()
+    sub = {k: c[:RULES_IP_TUPLES] for k, c in cols.items()}
+    ip_batch = TupleBatch.from_numpy(**sub, device="cuda")
+    torch.cuda.synchronize()
+    n0 = kernels.LATTICE.launches
+    vi = evaluate_batch_from_ips(lpm, dev, src_t, ip_batch)
+    torch.cuda.synchronize()
+    launches += kernels.LATTICE.launches - n0
+    ip_err = verdicts_err(vi, lattice_plain(dev, ip_batch, lpm=lpm,
+                                            src_ips=src_t)[0])
+    host_lpm = HostLPM(mappings)
+    ip_rows = rng.integers(0, RULES_IP_TUPLES, ORACLE_ROWS)
+    ids = np.asarray([host_lpm.lookup(int(a)) for a in src[ip_rows]],
+                     np.uint32)
+    lookup_bad = sum(
+        lookup_host(mappings, str(ipaddress.ip_address(int(src[k]))))
+        != int(ids[i])
+        for i, k in enumerate(ip_rows[:RULES_LOOKUP_HOST_ROWS]))
+    sub_rows = {k: c[ip_rows] for k, c in sub.items()}
+    sub_rows["identity"] = ids
+    ip_bad = oracle_err(vi, ip_rows, oracle_verdicts(
+        rw.states, sub_rows, np.arange(len(ip_rows))))
+    phase("rules_check", t, tuples=RULES_TUPLES, launches=launches,
+          max_abs_err=err, oracle_rows=ORACLE_ROWS, oracle_mismatches=bad,
+          allowed_share=round(allowed, 6), redirected=redirected,
+          ip_tuples=RULES_IP_TUPLES, ip_max_abs_err=ip_err,
+          ip_oracle_mismatches=ip_bad, lookup_host_rows=RULES_LOOKUP_HOST_ROWS,
+          lookup_host_mismatches=lookup_bad, prefixes=len(mappings))
+    if err or bad or ip_err or ip_bad or lookup_bad or launches != 2 or (
+            redirected == 0):
+        raise SystemExit("rules_check: LATTICE on the from-rules epoch "
+                         "differs from its plain version or the oracle")
+    r["lattice_err"] = max(err, ip_err)
+    return launches
+
+
+def rule_update(kernels, r) -> int:
+    """rule_update: bench.py's incremental update from a rule on the
+    card: add_one_rule, the daemon's regenerate_all, published_device()
+    (delta_for and PUBLISH_SCATTER); 3 priming steps, then 8 timed ones
+    on fresh ports; every timed step a delta and every epoch equal to
+    its host tables.  Returns PUBLISH_SCATTER's launches."""
+    from cilium_tpu_torch import world
+
+    t = time.perf_counter()
+    d = r["rw"].daemon
+    em = d.endpoint_manager
+    compiles = timed_compiles(em)
+
+    def step(port, label):
+        n_comp = len(compiles)
+        t0 = time.perf_counter()
+        world.add_one_rule(d, port, label_prefix="bench-delta")
+        t1 = time.perf_counter()
+        d.regenerate_all("delta-update bench")
+        t2 = time.perf_counter()
+        _, dev, _ = em.published_device()
+        t3 = time.perf_counter()
+        st = em.last_publish_stats
+        host = em.published()[1]
+        rec = dict(mode=st.mode, bytes_h2d=st.bytes_h2d,
+                   policy_add_ms=(t1 - t0) * 1e3,
+                   map_states_ms=(t2 - t1 - sum(compiles[n_comp:])) * 1e3,
+                   compile_ms=sum(compiles[n_comp:]) * 1e3,
+                   delta_for_ms=(t3 - t2 - st.seconds) * 1e3,
+                   publish_ms=st.seconds * 1e3, update_ms=(t3 - t0) * 1e3,
+                   epoch_err=epoch_err(dev, host))
+        print(f"  rule_update {label}{port}: " + " ".join(
+            f"{k}={round(v, 3) if isinstance(v, float) else v}"
+            for k, v in rec.items()), flush=True)
+        return rec
+
+    prime = [step(p, "prime") for p in RULE_PRIME_PORTS]
+    torch.cuda.synchronize()
+    reset_counts(kernels)
+    timed = [step(p, "timed") for p in RULE_TIMED_PORTS]
+    torch.cuda.synchronize()
+    launches = kernels.PUBLISH_SCATTER.launches
+    med = {k: round(float(np.median([s[k] for s in timed])), 3)
+           for k in ("update_ms", "policy_add_ms", "map_states_ms",
+                     "compile_ms", "delta_for_ms", "publish_ms")}
+    ok = (all(s["mode"] == "delta" for s in timed)
+          and all(s["epoch_err"] == 0 for s in prime + timed)
+          and launches == len(timed))
+    phase("rule_update", t, steps=len(prime) + len(timed), launches=launches,
+          **med, bytes_h2d=int(np.median([s["bytes_h2d"] for s in timed])),
+          modes=[s["mode"] for s in prime + timed], ok=ok)
+    if not ok:
+        raise SystemExit("rule_update: a timed step was not a delta, or an "
+                         "epoch differs from its host tables")
+    return launches
+
+
+def shadow_phase(kernels, r) -> dict:
+    """shadow: compile_candidate_world over one candidate rule (world.
+    restricting_rule: an L3-only rule of rules_world restricted to one
+    port under its labels), uploaded with policy_tables_to; LATTICE on
+    the live and candidate epochs over rules_check's 4,194,304 tuples,
+    then SHADOW_DIFF; against its plain version on the same columns, and
+    512 rows against the numpy diff of the oracle over both worlds'
+    map states."""
+    from cilium_tpu_torch import shadow, world
+    from cilium_tpu_torch.convert import policy_tables_to
+    from cilium_tpu_torch.engine.verdict import evaluate_batch
+
+    t = time.perf_counter()
+    rw, batch, cols = r["rw"], r["batch"], r["cols"]
+    em = rw.daemon.endpoint_manager
+    cand = world.restricting_rule(rw.rules, SHADOW_PORT)
+    t1 = time.perf_counter()
+    tables_c, index_c, states_c = shadow.compile_candidate_world(
+        rw.daemon, [cand])
+    compile_s = time.perf_counter() - t1
+    t1 = time.perf_counter()
+    cand_dev = policy_tables_to(tables_c, "cuda")
+    torch.cuda.synchronize()
+    upload_s = time.perf_counter() - t1
+    _, live_dev, index = em.published_device()
+    live_states = em.published_with_states()[3]
+    torch.cuda.synchronize()
+    reset_counts(kernels)
+    lv = evaluate_batch(live_dev, batch)
+    cv = evaluate_batch(cand_dev, batch)
+    codes = shadow.diff_codes(lv.allowed, lv.proxy_port, lv.match_kind,
+                              cv.allowed, cv.proxy_port, cv.match_kind)
+    torch.cuda.synchronize()
+    launches = {"lattice": kernels.LATTICE.launches,
+                "shadow_diff": kernels.SHADOW_DIFF.launches}
+    cols_v = (lv.allowed, lv.proxy_port, lv.match_kind,
+              cv.allowed, cv.proxy_port, cv.match_kind)
+    plain = shadow.diff_codes_plain(*cols_v)
+    err = max(int_err(a, b) for a, b in zip(codes, plain))
+    totals = torch.bincount(codes[3].to(torch.int64), minlength=4).tolist()
+    changed = [int(c.to(torch.int64).sum().item()) for c in codes[:3]]
+    rows = np.random.default_rng(73).integers(0, RULES_TUPLES, ORACLE_ROWS)
+    want = shadow.diff_codes_np(*oracle_verdicts(live_states, cols, rows),
+                                *oracle_verdicts(states_c, cols, rows))
+    rows_t = torch.from_numpy(rows).cuda()
+    bad = sum(int((c[rows_t].cpu().numpy() != w).sum())
+              for c, w in zip(codes, want))
+    phase("shadow", t, compile_s=round(compile_s, 3),
+          upload_ms=round(upload_s * 1e3, 3), launches=json.dumps(launches),
+          max_abs_err=err, transitions=json.dumps(dict(zip(
+              (shadow.TRANS_NAMES[k] or "none" for k in range(4)), totals))),
+          changed_allowed_proxy_kind=changed, oracle_rows=ORACLE_ROWS,
+          oracle_mismatches=bad, same_index=index_c == index)
+    if (err or bad or index_c != index or totals[shadow.TRANS_ALLOW_TO_DENY]
+            == 0 or launches != {"lattice": 2, "shadow_diff": 1}):
+        raise SystemExit("shadow: SHADOW_DIFF differs from its plain version "
+                         "or the oracle, or the candidate changed no row")
+    del cand_dev
+    return dict(cols=cols_v, launches=launches["shadow_diff"], err=err,
+                lattice_launches=launches["lattice"])
+
+
+def queued_ms(fn, reps: int, spin_cycles: int = 50_000_000):
+    """Device ms per call of `fn` with the host's launch time hidden:
+    the calls queue behind a device spin (torch.cuda._sleep, about 25
+    ms) while the events time them back to back.  None when the device
+    reached the start event before the last call was queued (the host
+    was slower than the spin)."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(spin_cycles)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    late = start.query()
+    torch.cuda.synchronize()
+    return None if late else start.elapsed_time(end) / reps
+
+
+def shadow_timing(kernels, s) -> dict:
+    """shadow_timing: SHADOW_DIFF at 4,194,304 rows and at the serving
+    plane's 131,072: its device time over 20 launches queued behind a
+    device spin (`ms`), CUDA events over 20 launches as the caller sees
+    them (`wrapper_ms`: the wrapper's host time when a launch takes
+    less), its plain version, and the bound: 16 B a row (six columns
+    read, four written) at 3.35 TB/s."""
+    from cilium_tpu_torch import shadow
+
+    t = time.perf_counter()
+    res = {}
+    for n in (RULES_TUPLES, SHADOW_SERVE_ROWS):
+        cols = tuple(c[:n] for c in s["cols"])
+        res[n] = dict(
+            ms=queued_ms(lambda: kernels.SHADOW_DIFF(*cols), 20),
+            wrapper_ms=event_ms(lambda: kernels.SHADOW_DIFF(*cols), 20),
+            plain_ms=event_ms(lambda: shadow.diff_codes_plain(*cols), 5),
+            bound_ms=DIFF_ROW_BYTES * n / HBM_BYTES_PER_S * 1e3)
+    main, serve = res[RULES_TUPLES], res[SHADOW_SERVE_ROWS]
+    r4 = lambda v: None if v is None else round(v, 4)
+    phase("shadow_timing", t, rows=RULES_TUPLES, ms=r4(main["ms"]),
+          wrapper_ms=r4(main["wrapper_ms"]), plain_ms=r4(main["plain_ms"]),
+          bound_ms=r4(main["bound_ms"]), serve_rows=SHADOW_SERVE_ROWS,
+          serve_ms=r4(serve["ms"]), serve_wrapper_ms=r4(serve["wrapper_ms"]),
+          serve_plain_ms=r4(serve["plain_ms"]),
+          serve_bound_ms=r4(serve["bound_ms"]))
+    if main["ms"] is None or serve["ms"] is None:
+        raise SystemExit("shadow_timing: the launches did not queue behind "
+                         "the device spin")
+    return dict(kernel_row(
+        kernels.SHADOW_DIFF, "cilium_tpu_torch/csrc/shadow.cu",
+        "cilium_tpu/shadow.py:90", s["launches"], s["err"], main["ms"],
+        main["plain_ms"], main["bound_ms"], 0.0),
+        wrapper_ms=main["wrapper_ms"], serve_rows=SHADOW_SERVE_ROWS,
+        serve_ms=serve["ms"], serve_wrapper_ms=serve["wrapper_ms"],
+        serve_plain_ms=serve["plain_ms"], serve_bound_ms=serve["bound_ms"])
+
+
+def manager_replay(kernels, r) -> int:
+    """manager_replay: replay_lattice(manager=...) over 1,048,576 records
+    of the from-rules world with counters (LATTICE), against the plain
+    loop; sync_counters_to_endpoints, whose synced packets must equal
+    the counters' sum; then the snapshot two publishes old is refused.
+    Returns LATTICE's launches."""
+    from cilium_tpu_torch import replay as rp
+    from cilium_tpu_torch import world
+    from cilium_tpu_torch.native.loader import FLOW_RECORD_DTYPE
+
+    t = time.perf_counter()
+    rw = r["rw"]
+    d = rw.daemon
+    em = d.endpoint_manager
+    buf = world.rules_records(rw, MANAGER_RECORDS, seed=74)
+    _, dev, index = em.published_device()
+    torch.cuda.synchronize()
+    reset_counts(kernels)
+    st, l4, l3 = rp.replay_lattice(dev, buf, REPLAY_BATCH, manager=em)
+    torch.cuda.synchronize()
+    launches = kernels.LATTICE.launches
+    with PlainRoute(kernels, {"LATTICE": lattice_plain}):
+        sp, p4, p3 = rp.replay_lattice(dev, buf, REPLAY_BATCH, manager=em)
+    fields = ("total", "allowed", "denied", "redirected", "batches")
+    same = (all(getattr(st, f) == getattr(sp, f) for f in fields)
+            and np.array_equal(l4, p4) and np.array_equal(l3, p3))
+
+    def packets():
+        return sum(int(e.realized_map_state.packets.sum())
+                   for e in em.endpoints())
+
+    before = packets()
+    t1 = time.perf_counter()
+    updated = rp.sync_counters_to_endpoints(l4, l3, em, dev, index)
+    sync_s = time.perf_counter() - t1
+    synced = packets() - before
+    hits = int(l4.sum()) + int(l3.sum())
+    # two publishes later the snapshot is refused, the live epoch is not
+    for port in MANAGER_STALE_PORTS:
+        world.add_one_rule(d, port, label_prefix="stale")
+        d.regenerate_all("stale snapshot")
+        live = em.published_device()[1]
+    try:
+        rp.replay_lattice(dev, buf[:4096 * FLOW_RECORD_DTYPE.itemsize], 4096,
+                          manager=em)
+        refused = False
+    except ValueError as exc:
+        refused = "stale" in str(exc)
+    em.check_tables_current(live)
+    phase("manager_replay", t, records=st.total, batches=st.batches,
+          launches=launches, seconds=round(st.seconds, 4),
+          records_per_s=round(st.total / st.seconds),
+          equal_to_plain=same, l4_hits=int(l4.sum()), l3_hits=int(l3.sum()),
+          entries_updated=updated, synced_packets=synced,
+          sync_s=round(sync_s, 3), stale_refused=refused)
+    if (not same or synced != hits or not refused or updated == 0
+            or launches != st.batches or st.total != MANAGER_RECORDS):
+        raise SystemExit("manager_replay: the replay differs from the plain "
+                         "loop, the synced packets differ from the counters, "
+                         "or the stale snapshot was not refused")
+    return launches
+
+
+def rules_phases(kernels, rows) -> None:
+    """Config 5 from rules: rules_setup, rules_check, rule_update, shadow,
+    shadow_timing and manager_replay (each resets the launch counts just
+    before its path and reads them just after); SHADOW_DIFF's row is
+    appended to `rows`, and LATTICE's and PUBLISH_SCATTER's rows count
+    these paths' launches too (`launches_by_path`)."""
+    r = rules_setup(kernels)
+    n_lat = rules_check(kernels, r)
+    n_pub = rule_update(kernels, r)
+    s = shadow_phase(kernels, r)
+    n_lat += s["lattice_launches"]
+    rows.append(shadow_timing(kernels, s))
+    del s
+    n_lat += manager_replay(kernels, r)
+    for row in rows:
+        extra = {"lattice": n_lat, "publish_scatter": n_pub}.get(row["name"])
+        if extra is not None:
+            row["launches_by_path"] = {"earlier": row["launches"],
+                                       "rules": extra}
+            row["launches"] += extra
+    del r
+
+
 MEMO_ROWS = 1 << 14  # bench.py's VerdictCache(n_rows=1 << 14)
 MEMO_REP_CAP = max(HALF >> 2, 1 << 10)  # bench.py's memo_rep_cap
 MEMO_OVERFLOW_CAP = 1 << 10
@@ -4423,6 +4898,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     pub = publish_phases(kernels, w, rows)
     torch.cuda.empty_cache()
+    rules_phases(kernels, rows)
+    torch.cuda.empty_cache()
     memo_phases(kernels, w, tables, rows, pub)
 
     print("[library] library_ms is null except for ct_delta "
@@ -4433,7 +4910,8 @@ def main() -> int:
           "the fused datapath steps (v4 or v6), the intent compaction, a "
           "DFA scan, the Kafka rule match, the fleet's routed match, the "
           "policy lattice, the two dependent DIR-24-8 reads, the verdict "
-          "cache, the memo's key words or the memcached rule match",
+          "cache, the memo's key words, the memcached rule match or the "
+          "shadow diff's four columns",
           flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
     print(smi, flush=True)

@@ -8,6 +8,11 @@ them: the carried-across form of the same compiled maps.
 `datapath6_tables_to` and `datapath6_tables_from_numpy` do the same
 for the v6 program's tables, `flow_batch6_to` moves a v6 flow batch.
 
+`map_states_from_numpy` builds this package's MapStateArrays from a
+map state's arrays (the JAX package's MapStateArrays handed over as
+numpy: packed u64 keys and proxy ports), and `map_states_to_numpy` is
+the reverse.
+
 Every u32 array becomes an int32 tensor holding the same bits; static
 layout facts (bucket counts, widths, class schedules) and scalar leaves
 (the policy's `id_lo_len` and its `generation` stamp) become Python
@@ -35,6 +40,7 @@ from cilium_tpu_torch.ipcache.lpm import IPCacheDevice, LPMTables
 from cilium_tpu_torch.ipcache.lpm6 import IPCache6Device
 from cilium_tpu_torch.lb.device import LBInline, LBTables
 from cilium_tpu_torch.lb.device6 import LB6Inline
+from cilium_tpu_torch.maps.policymap import MapStateArrays
 from cilium_tpu_torch.prefilter import PrefilterRanges
 from cilium_tpu_torch.tunnel import TunnelTables, TunnelTables6
 
@@ -441,3 +447,25 @@ def fleet_from_numpy(leaves: dict, device=None):
         parser_kind=np.asarray(leaves["parser_kind"]),
     )
     return l7_tables_to(fleet, device)
+
+
+def map_states_from_numpy(keys_packed, proxy) -> MapStateArrays:
+    """A map state from its arrays: `keys_packed` strictly increasing
+    u64 (identity<<32 | dport<<16 | proto<<8 | dir) and the parallel u32
+    `proxy` ports; copied, so the result shares no memory with the
+    caller's.  Counters start at 0."""
+    keys = np.array(keys_packed, dtype=np.uint64)
+    proxy = np.array(proxy, dtype=np.uint32)
+    if len(keys) > 1 and not (keys[1:] > keys[:-1]).all():
+        raise ValueError("keys_packed must be strictly increasing")
+    if proxy.shape != keys.shape:
+        raise ValueError("keys_packed and proxy must be parallel")
+    return MapStateArrays(keys, proxy)
+
+
+def map_states_to_numpy(state) -> tuple:
+    """The (keys_packed, proxy) arrays of a map state (a MapStateArrays
+    or a dict state), copies."""
+    if not isinstance(state, MapStateArrays):
+        state = MapStateArrays.from_dict(state)
+    return state.keys_packed.copy(), state.proxy.copy()

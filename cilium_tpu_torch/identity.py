@@ -7,9 +7,9 @@ Re-design of pkg/identity/{numericidentity.go,identity.go,
 allocator.go,cache.go}.  In the reference, identities are allocated
 cluster-wide through a kvstore CAS allocator; here the allocator is an
 in-process store with the same semantics (sorted-label key -> id,
-refcounted), pluggable onto a distributed backend (the JAX package's kvstore
-shim, cilium_tpu/runtime/kvstore.py, not ported yet) for multi-host
-operation.
+refcounted), pluggable onto a distributed backend (the JAX package's
+kvstore allocator, cilium_tpu/kvstore/allocator.py, not ported yet) for
+multi-host operation.
 
 The identity *universe* (id -> LabelArray) is the object the policy
 compiler consumes: every table tensor is indexed by NumericIdentity, so
@@ -136,7 +136,8 @@ class IdentityAllocator:
         # and the fleet compiler uses it as its universe_token
         self._version = 0
         self._cache_snapshot = None
-        # Optional distributed backend (runtime.kvstore.Allocator shim).
+        # Optional distributed backend (the kvstore allocator's
+        # IdentityBackendAdapter, kvstore/allocator.py).
         self._backend = backend
 
     # -- allocation ----------------------------------------------------------

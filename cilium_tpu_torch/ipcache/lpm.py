@@ -23,6 +23,9 @@ address, `l1[ip >> 8]` and, when that entry points at a block,
 `l2[block, ip & 0xFF]`.  `build_ipcache` falls back to it past
 MAX_RANGES non-/32 prefixes, and the fused datapath then reads the
 raw identity from it (`lookup_plain`).
+
+`LPMBuilder` is the IPCache listener that mirrors the listener-visible
+CIDR -> identity view into `build_ipcache` tables (host arrays).
 """
 
 from __future__ import annotations
@@ -30,7 +33,7 @@ from __future__ import annotations
 import dataclasses
 import ipaddress
 from dataclasses import dataclass
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -795,3 +798,36 @@ def lookup_plain(tables, ips) -> torch.Tensor:
         ingress = torch.ones(ips.shape, dtype=torch.bool, device=ips.device)
         return ipcache_lookup_fused(tables, ips, ingress)[0]
     return lpm_lookup_plain(tables, ips)
+
+
+class LPMBuilder:
+    """IPCache listener accumulating the listener-visible CIDR→identity
+    view and lowering it to device tables — the analog of the
+    BPFListener keeping `cilium_ipcache` in sync
+    (pkg/datapath/ipcache/listener.go:78)."""
+
+    def __init__(self) -> None:
+        self.mappings: Dict[str, int] = {}
+        self._dirty = True
+        self._tables: Optional[LPMTables] = None
+
+    def __call__(
+        self,
+        modification: str,
+        cidr: str,
+        old_host_ip,
+        new_host_ip,
+        old_id,
+        new_id: int,
+    ) -> None:
+        if modification == "upsert":
+            self.mappings[cidr] = new_id
+        else:
+            self.mappings.pop(cidr, None)
+        self._dirty = True
+
+    def tables(self):
+        if self._dirty or self._tables is None:
+            self._tables = build_ipcache(self.mappings)
+            self._dirty = False
+        return self._tables

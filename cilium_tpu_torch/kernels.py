@@ -1,8 +1,8 @@
 """Build, binding and wrappers of the hand-written CUDA kernels.
 
 `csrc/datapath.cu`, `csrc/l7.cu`, `csrc/churn.cu`, `csrc/lattice.cu`,
-`csrc/datapath6.cu`, `csrc/prng.cu`, `csrc/memo.cu` and
-`csrc/publish.cu` (with their headers) are each compiled by `nvcc` for `sm_90a` into a shared library
+`csrc/datapath6.cu`, `csrc/prng.cu`, `csrc/memo.cu`, `csrc/publish.cu`
+and `csrc/shadow.cu` (with their headers) are each compiled by `nvcc` for `sm_90a` into a shared library
 with a plain C interface, at first use, into `cilium_tpu_torch/_build/`
 (one file per source digest), and bound with ctypes.  Nothing here runs
 at import: the CPU tests import this module on a machine with no `nvcc`
@@ -62,6 +62,10 @@ written in place into the spare epoch's tensors, in one launch, with
 jax's scatter rules (engine/publish.py `scatter_segments_plain` is its
 plain version).
 
+`SHADOW_DIFF(la, lp, lk, sa, sp, sk)` (csrc/shadow.cu) is the shadow
+plane's per-row diff of a live and a shadow verdict set (K19), under
+the same rules (shadow.py `diff_codes_plain` is its plain version).
+
 `DATAPATH6(tables, flows)` (csrc/datapath6.cu) is the fused IPv6
 program (K15, with the v6 tunnel stage of K11) over Datapath6Tables and
 a FlowBatch6, under the same rules: it checks every table plane and
@@ -102,7 +106,7 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
 # csrc/<stem>.cu, one library each
 LIBRARIES = ("datapath", "l7", "churn", "lattice", "datapath6", "prng",
-             "memo", "publish")
+             "memo", "publish", "shadow")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC",
@@ -2192,7 +2196,91 @@ class PublishScatterKernel:
 
 
 PUBLISH_SCATTER = PublishScatterKernel()
+
+
+# ---------------------------------------------------------------------------
+# The shadow plane's verdict diff (csrc/shadow.cu)
+# ---------------------------------------------------------------------------
+
+_DIFF_IN = ("live_allowed", "live_proxy", "live_kind", "shadow_allowed",
+            "shadow_proxy", "shadow_kind")
+_DIFF_OUT = ("ca", "cp", "ck", "trans")
+
+
+class DiffArgs(ctypes.Structure):
+    """Mirror of cshd::DiffArgs in csrc/shadow.cu, field for field."""
+
+    _fields_ = ([(name, _P) for name in _DIFF_IN + _DIFF_OUT]
+                + [("n", ctypes.c_int64), ("vector", _I), ("pad", _I)])
+
+
+class _ShadowLibrary(_Library):
+    """csrc/shadow.cu: SHADOW_DIFF."""
+
+    stem = "shadow"
+
+    def bind(self, lib) -> None:
+        self.declare(lib, (("launch_shadow_diff", DiffArgs),))
+        lib.shadow_struct_sizes.argtypes = [ctypes.POINTER(ctypes.c_int)]
+        lib.shadow_struct_sizes.restype = ctypes.c_int
+        sizes = (ctypes.c_int * 1)()
+        lib.shadow_struct_sizes(sizes)
+        if list(sizes) != [ctypes.sizeof(DiffArgs)]:
+            raise RuntimeError(
+                f"shadow argument layout differs between kernels.py "
+                f"{ctypes.sizeof(DiffArgs)} and csrc/shadow.cu {list(sizes)}"
+            )
+
+
+SHADOW_LIBRARY = _ShadowLibrary()
+
+
+class ShadowDiffKernel:
+    """K19 on the card: the per-row diff of a live and a shadow verdict
+    set.  Takes allowed u8, proxy_port int32 and match_kind u8 columns,
+    live then shadow, all [B] on one CUDA device; returns (ca, cp, ck,
+    trans), u8 [B] each, with shadow.diff_codes_plain's values."""
+
+    name = "shadow_diff"
+
+    def __init__(self) -> None:
+        self.launches = 0
+
+    def load(self, verbose: bool = False):
+        return SHADOW_LIBRARY.load(verbose)
+
+    def __call__(self, live_allowed, live_proxy, live_kind, shadow_allowed,
+                 shadow_proxy, shadow_kind):
+        cols = (live_allowed, live_proxy, live_kind, shadow_allowed,
+                shadow_proxy, shadow_kind)
+        dev = _cuda_device(live_allowed, self.name)
+        if live_allowed.dim() != 1:
+            raise ValueError(f"{self.name}: columns must be [B], got "
+                             f"{tuple(live_allowed.shape)}")
+        n = int(live_allowed.shape[0])
+        if n >= 1 << 31:
+            raise ValueError(f"{self.name}: {n} rows, at most 2^31 - 1")
+        a = DiffArgs()
+        for name, col in zip(_DIFF_IN, cols):
+            dtype = torch.int32 if name.endswith("proxy") else torch.uint8
+            setattr(a, name, _ptr(col, name, dev, dtype, (n,)))
+        out = tuple(torch.empty((len(_DIFF_OUT), n), dtype=torch.uint8,
+                                device=dev))
+        for name, col in zip(_DIFF_OUT, out):
+            setattr(a, name, col.data_ptr())
+        # the four-row loads: u8 columns on 4 bytes, proxy columns on 16
+        a.vector = int(all(
+            c.data_ptr() % (16 if c.dtype == torch.int32 else 4) == 0
+            for c in cols + out))
+        a.n = n
+        if n:
+            SHADOW_LIBRARY.launch("launch_shadow_diff", a, dev, self.name)
+            self.launches += 1
+        return out
+
+
+SHADOW_DIFF = ShadowDiffKernel()
 KERNELS = (DATAPATH_PAIR, DATAPATH_STEP, CHURN_COMPACT, CT_DELTA,
            HTTP_MATCH, KAFKA_MATCH, FLEET_L7, LATTICE, LPM_LOOKUP, DATAPATH6,
            PICK_DRAW, DATAPATH_PAIR_MEMO, MEMO_DEDUP, MEMO_CACHE,
-           MEMO_KEYS_LATTICE, PUBLISH_SCATTER, MEMCACHE_MATCH)
+           MEMO_KEYS_LATTICE, PUBLISH_SCATTER, MEMCACHE_MATCH, SHADOW_DIFF)

@@ -12,7 +12,7 @@ input of compiler.tables.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Dict, Iterable
+from typing import Dict, Iterable, List, Tuple
 
 import numpy as np
 
@@ -49,6 +49,29 @@ class PolicyMapStateEntry:
 
 
 PolicyMapState = Dict[PolicyKey, PolicyMapStateEntry]
+
+
+def sort_keys(state: PolicyMapState) -> List[PolicyKey]:
+    """Deterministic dump order (PolicyEntriesDump.Less,
+    policymap.go:96: direction then identity)."""
+    return sorted(
+        state.keys(),
+        key=lambda k: (k.traffic_direction, k.identity, k.dest_port, k.nexthdr),
+    )
+
+
+def diff_map_state(
+    realized: PolicyMapState, desired: PolicyMapState
+) -> Tuple[List[PolicyKey], List[PolicyKey]]:
+    """syncPolicyMap's delta (pkg/endpoint/endpoint.go:2572): returns
+    (keys_to_add_or_update, keys_to_delete)."""
+    to_add = [
+        k
+        for k, v in desired.items()
+        if k not in realized or realized[k].proxy_port != v.proxy_port
+    ]
+    to_delete = [k for k in realized if k not in desired]
+    return to_add, to_delete
 
 
 # ---------------------------------------------------------------------------
@@ -255,3 +278,39 @@ class MapStateArrays:
 
     def __repr__(self) -> str:
         return f"MapStateArrays({len(self)} entries)"
+
+
+def sync_map_arrays(
+    realized: "MapStateArrays", desired: "MapStateArrays"
+) -> Tuple["MapStateArrays", int, int]:
+    """Vectorized syncPolicyMap (endpoint.go:2572): returns
+    (new_realized, n_added_or_updated, n_deleted).  Counters of keys
+    present in both states carry over (including proxy-port changes,
+    matching the dict path's old.packets preservation)."""
+    nd, nr = len(desired.keys_packed), len(realized.keys_packed)
+    if nr:
+        pos = np.searchsorted(realized.keys_packed, desired.keys_packed)
+        pos_c = np.minimum(pos, nr - 1)
+        present = realized.keys_packed[pos_c] == desired.keys_packed
+        changed = ~present | (
+            present & (realized.proxy[pos_c] != desired.proxy)
+        )
+        packets = np.where(present, realized.packets[pos_c], 0)
+        bytes_ = np.where(present, realized.bytes[pos_c], 0)
+    else:
+        changed = np.ones(nd, bool)
+        packets = np.zeros(nd, np.int64)
+        bytes_ = np.zeros(nd, np.int64)
+    n_add = int(changed.sum())
+    # deletions: realized keys absent from desired
+    if nd and nr:
+        rpos = np.searchsorted(desired.keys_packed, realized.keys_packed)
+        rpos_c = np.minimum(rpos, nd - 1)
+        still = desired.keys_packed[rpos_c] == realized.keys_packed
+        n_del = int((~still).sum())
+    else:
+        n_del = nr
+    new = MapStateArrays(
+        desired.keys_packed, desired.proxy.copy(), packets, bytes_
+    )
+    return new, n_add, n_del

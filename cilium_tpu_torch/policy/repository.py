@@ -11,11 +11,11 @@ gated on revision (the ACK-flip pattern, SURVEY.md §5).
 
 from __future__ import annotations
 
-import logging
 import threading
 from typing import Dict, List, Optional, Tuple
 
 from cilium_tpu_torch.labels import LabelArray
+from cilium_tpu_torch.logging import get_logger
 
 from cilium_tpu_torch.policy.api.rule import (
     PROTO_TCP,
@@ -37,9 +37,7 @@ from cilium_tpu_torch.policy.l4 import (
 from cilium_tpu_torch.policy.rule_resolve import L4MergeError, PolicyRule, TraceState
 from cilium_tpu_torch.policy.search import Decision, SearchContext
 
-# the reference's structured per-subsystem logger waits for the
-# observability plane; the standard logger under the subsystem's name
-log = logging.getLogger("cilium_tpu_torch.policy")
+log = get_logger("policy")
 
 
 class Repository:

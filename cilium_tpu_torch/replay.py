@@ -49,9 +49,11 @@ One round of a batch runs:
 The round repeats (a rerun) while the header's `remaining` says that
 intents lost their slot or were cut by the cap.  On CUDA tensors the
 kernels run, or the call raises; on CPU tensors their plain versions
-run.  `replay`'s `manager=` (the stale-table check) waits for the
-control plane and its `flow_store=` (flow capture) for the flow plane:
-each raises NotImplementedError.  The reference's `_guarded_dispatch`
+run.  `replay`'s and `replay_lattice`'s `manager=` runs the endpoint
+manager's stale-table check first; `replay`'s `flow_store=` (flow
+capture) waits for the flow plane and raises NotImplementedError.
+`sync_counters_to_endpoints` folds the counter totals back into the
+endpoints' realized map states.  The reference's `_guarded_dispatch`
 retry seam waits for the resilience plane; without an injected fault
 it passes every dispatch straight through, as here.
 """
@@ -96,6 +98,11 @@ from cilium_tpu_torch.engine.verdict import (
     evaluate_batch_with_counters,
     make_counter_buffers,
     make_telemetry_buffers,
+)
+from cilium_tpu_torch.maps.policymap import (
+    MapStateArrays,
+    PolicyKey,
+    _EntryView,
 )
 from cilium_tpu_torch.native.loader import decode_flow_records
 from cilium_tpu_torch.prng import fold_in, prng_key, randint_u32
@@ -523,15 +530,20 @@ def _drain(item, stats: ReplayStats,
 
 def replay_lattice(tables, buf: bytes, batch_size: int = 1 << 20,
                    accumulate_counters: bool = True,
-                   ep_map: Optional[Dict[int, int]] = None, *,
-                   device=None) -> tuple:
+                   ep_map: Optional[Dict[int, int]] = None, manager=None,
+                   *, device=None) -> tuple:
     """Replay flow records through the bare policy lattice on `device`
     (None = the card), where the PolicyTables must already lie
-    (convert.policy_tables_to).  Returns (stats, l4, l3): the u64 hit
+    (convert.policy_tables_to, or an EndpointManager's
+    `published_device()` epoch).  Returns (stats, l4, l3): the u64 hit
     totals [E, 2, Kg] and [E, 2, N] over every batch, or None, None
     without `accumulate_counters` (which then runs the lattice without
-    its counters).  `stats.seconds` covers decode, upload, the lattice
-    and the drains; `stats.spans` splits it."""
+    its counters).  With `manager` the tables must still be current
+    (EndpointManager.check_tables_current raises otherwise).
+    `stats.seconds` covers decode, upload, the lattice and the drains;
+    `stats.spans` splits it."""
+    if manager is not None:
+        manager.check_tables_current(tables)
     dev = resolve_device(device)
     require_on(tables.l3_allow_bits, dev,
                "the policy tables (convert.policy_tables_to)")
@@ -635,10 +647,10 @@ def replay(tables: DatapathTables, buf: bytes, batch_size: int = 1 << 20,
     )
 
     if manager is not None:
-        raise NotImplementedError(
-            "replay(manager=...) waits for the control plane (ROADMAP "
-            "queue 1 item 4): the port has no endpoint manager whose "
-            "stale-table check it could run")
+        # the stale-table guard at the layer that reads the stacked
+        # per-endpoint rows: tables two or more publishes old have had
+        # those rows rewritten in place and would answer wrongly
+        manager.check_tables_current(tables.policy)
     if flow_store is not None:
         raise NotImplementedError(
             "replay(flow_store=...) waits for the flow plane (ROADMAP "
@@ -787,3 +799,87 @@ def slot_keys_from_tables(tables) -> Dict[int, Tuple[int, int]]:
         int(j): (int(dport), int(proto))
         for j, dport, proto in zip(slots, dports, protos)
     }
+
+
+def _first_l4_entry(state, dport: int, proto: int, direction: int):
+    """The first entry of `state`, in its items() order, on (dport,
+    proto, direction): the first by packed key for MapStateArrays, found
+    with one array compare instead of a walk over every entry."""
+    if isinstance(state, MapStateArrays):
+        want = (dport << 16) | (proto << 8) | direction
+        pos = np.flatnonzero(
+            (state.keys_packed & np.uint64(0xFFFFFFFF)) == np.uint64(want))
+        return _EntryView(state, int(pos[0])) if len(pos) else None
+    for key, cand in state.items():
+        if (key.dest_port == dport and key.nexthdr == proto
+                and key.traffic_direction == direction):
+            return cand
+    return None
+
+
+def sync_counters_to_endpoints(
+    l4_counts: Optional[np.ndarray],
+    l3_counts: Optional[np.ndarray],
+    manager,
+    tables=None,
+    index: Optional[Dict[int, int]] = None,
+) -> int:
+    """Fold accumulated counters back into the endpoints' realized map
+    states (the packets field of policy_entry the agent reads back from
+    the datapath, pkg/maps/policymap PolicyEntry).
+
+    Pass the `tables`/`index` the counters were computed against (host
+    arrays or a device epoch); a republish between the replay and the
+    sync would otherwise shift the identity/slot indexing and
+    misattribute counts.  Falls back to the currently published version
+    when not given.  Returns entries updated."""
+    if tables is None or index is None:
+        _, tables, index = manager.published()
+    if tables is None:
+        return 0
+    # no staleness guard: only id_table (fresh per rebuild) and
+    # port_slot (write-once cells) are read, both valid in arbitrarily
+    # old snapshots
+    updated = 0
+    rev_index = {v: k for k, v in index.items()}
+    id_table = tables.id_table
+    if isinstance(id_table, torch.Tensor):
+        id_table = id_table.cpu().numpy()
+    id_table = np.asarray(id_table).view(np.uint32)
+    if l3_counts is not None:
+        # L3 counters are indexed by identity index.  The realized
+        # state is re-read under the endpoint lock per update: a
+        # concurrent sync_policy_map publishes a NEW state, and an
+        # increment through a pre-sync view would land in the old one.
+        for e, d, idx in zip(*np.nonzero(l3_counts)):
+            ep = manager.lookup(rev_index.get(int(e), -1))
+            if ep is None:
+                continue
+            key = PolicyKey(int(id_table[idx]), 0, 0, int(d))
+            with ep.lock:
+                entry = ep.realized_map_state.get(key)
+                if entry is not None:
+                    entry.packets += int(l3_counts[e, d, idx])
+                    updated += 1
+    if l4_counts is not None:
+        # L4 counters are indexed by global slot; a slot hit covers
+        # every (identity, dport, proto) entry of that filter, so the
+        # slot's wildcard entry, or else its first entry, takes the
+        # count (totals preserved, as in the reference)
+        slot_keys = slot_keys_from_tables(tables)
+        for e, d, j in zip(*np.nonzero(l4_counts)):
+            ep = manager.lookup(rev_index.get(int(e), -1))
+            if ep is None or int(j) not in slot_keys:
+                continue
+            dport, proto = slot_keys[int(j)]
+            count = int(l4_counts[e, d, j])
+            wild = PolicyKey(0, dport, proto, int(d))
+            with ep.lock:
+                state = ep.realized_map_state
+                entry = state.get(wild)
+                if entry is None:
+                    entry = _first_l4_entry(state, dport, proto, int(d))
+                if entry is not None:
+                    entry.packets += count
+                    updated += 1
+    return updated

@@ -57,6 +57,14 @@ bench.py's one-rule update at map-state level.
 one server endpoint, with configs 3 and 4's HTTP and Kafka rules and
 24 memcached rules written as JSON, identities allocated from labels,
 and request templates for all three parsers.
+
+`rules_world` is config 5 from rules, as bench.py's build_config5
+builds it: `build_rules`' 50,000 rules through the port's Daemon
+(endpoints, identities with their /32s, `policy_add`, one
+`regenerate_all`), with bench's one-rule update `add_one_rule`, the
+tuples and flow records `rules_tuples` and `rules_records` draw over
+it, and `restricting_rule`, the shadow candidate that restricts one of
+its L3-only rules.
 """
 
 from __future__ import annotations
@@ -1431,3 +1439,297 @@ def proxy_requests(pw: ProxyWorld, parser: str):
     else:
         templates = pw.http_templates
     return [templates[i] for i in pick.tolist()], ident, known
+
+
+# -- config 5 from rules ---------------------------------------------------------
+
+
+def build_rules(rng, n_rules: int, n_endpoints: int, n_teams: int):
+    """bench.py's build_rules: a mixed policy of `n_rules` rules, plain
+    L4 (84 %), L3-only (8 %), CIDR /24 (4 %), HTTP L7 (3 %) and Kafka
+    L7 (1 %); every rule selects one app (endpoint) and allows one team
+    (identity group).  Returns (rules, all_ports, l7_pairs): the
+    (port, proto) universe of the rules and the (endpoint index, port,
+    team index) of each L7 rule."""
+    from cilium_tpu_torch.labels import LabelArray
+    from cilium_tpu_torch.policy.api import (
+        CIDRRule,
+        EndpointSelector,
+        IngressRule,
+        L7Rules,
+        PortProtocol,
+        PortRule,
+        PortRuleHTTP,
+        PortRuleKafka,
+        Rule,
+    )
+
+    def es(key, value):
+        return EndpointSelector(match_labels={f"k8s.{key}": value})
+
+    plain_ports = rng.choice(np.arange(1000, 30000), size=224, replace=False)
+    http_ports = list(HTTP_PORTS)
+    kafka_ports = list(KAFKA_PORTS)
+
+    rules = []
+    l7_pairs = []
+    for i in range(n_rules):
+        app = f"app{i % n_endpoints}"
+        team_idx = int(rng.integers(0, n_teams))
+        team = f"t{team_idx}"
+        kind = rng.random()
+        sel = es("app", app)
+        src = es("team", team)
+        if kind < 0.84:
+            port = int(plain_ports[int(rng.integers(0, len(plain_ports)))])
+            proto = "TCP" if rng.random() < 0.7 else "UDP"
+            ingress = IngressRule(
+                from_endpoints=[src],
+                to_ports=[PortRule(
+                    ports=[PortProtocol(port=str(port), protocol=proto)])],
+            )
+        elif kind < 0.92:
+            ingress = IngressRule(from_endpoints=[src])  # L3-only
+        elif kind < 0.96:
+            block = int(rng.integers(0, 256))
+            ingress = IngressRule(
+                from_cidr_set=[CIDRRule(cidr=f"198.18.{block}.0/24")])
+        elif kind < 0.99:
+            port = http_ports[int(rng.integers(0, len(http_ports)))]
+            l7_pairs.append((i % n_endpoints, port, team_idx))
+            ingress = IngressRule(
+                from_endpoints=[src],
+                to_ports=[PortRule(
+                    ports=[PortProtocol(port=str(port), protocol="TCP")],
+                    rules=L7Rules(http=[PortRuleHTTP(
+                        method="GET", path=f"/api/v{i % 4}/[a-z]+")]),
+                )],
+            )
+        else:
+            port = kafka_ports[int(rng.integers(0, len(kafka_ports)))]
+            l7_pairs.append((i % n_endpoints, port, team_idx))
+            ingress = IngressRule(
+                from_endpoints=[src],
+                to_ports=[PortRule(
+                    ports=[PortProtocol(port=str(port), protocol="TCP")],
+                    rules=L7Rules(kafka=[PortRuleKafka(
+                        topic=f"topic{i % 32}")]),
+                )],
+            )
+        rules.append(Rule(endpoint_selector=sel, ingress=[ingress],
+                          labels=LabelArray.parse(f"bench-rule-{i}")))
+    all_ports = (
+        [(int(p), 6) for p in plain_ports]
+        + [(int(p), 17) for p in plain_ports]
+        + [(p, 6) for p in http_ports]
+        + [(p, 6) for p in kafka_ports]
+    )
+    return rules, all_ports, l7_pairs
+
+
+def add_one_rule(d, port: int, app: str = "app0", team: str = "t0",
+                 label_prefix: str = "bench-incr") -> None:
+    """bench.py's add_one_rule, the one-rule churn unit: allow `team`
+    -> `app` on one TCP port, through `d.policy_add`."""
+    from cilium_tpu_torch.labels import LabelArray
+    from cilium_tpu_torch.policy.api import (
+        EndpointSelector,
+        IngressRule,
+        PortProtocol,
+        PortRule,
+        Rule,
+    )
+
+    d.policy_add([Rule(
+        endpoint_selector=EndpointSelector(match_labels={"k8s.app": app}),
+        ingress=[IngressRule(
+            from_endpoints=[EndpointSelector(match_labels={"k8s.team": team})],
+            to_ports=[PortRule(
+                ports=[PortProtocol(port=str(port), protocol="TCP")])],
+        )],
+        labels=LabelArray.parse(f"{label_prefix}-{port}"),
+    )])
+
+
+def rules_world(seed: int = 5, n_rules: int = 50_000, n_endpoints: int = 32,
+                n_identities: int = 65_536, device=None):
+    """Config 5 from rules (bench.py's build_config5 up to the published
+    tables), through the port's Daemon on `device` (None = the card):
+    one endpoint per app (10.250.x.y, labels app=app{i}), then
+    `n_identities - n_endpoints` cluster identities in teams of
+    `n_identities // 16` (labels team, svc), each with a /32 in the
+    ipcache from 10.0.0.1 on, then `build_rules` through `policy_add`
+    and one explicit `regenerate_all`.  Returns a namespace: the daemon,
+    the published version, host tables, index and map states, the
+    identity /32s (`id_ips`, u32) and ids, the endpoint addresses
+    (`ep_ip`, id -> u32), `all_ports`, `l7_pairs`, `n_teams`, `rules`,
+    and bench's `timings` (identity_setup_s, policy_add_s,
+    regenerate_s)."""
+    from cilium_tpu_torch.daemon import Daemon
+    from cilium_tpu_torch.ipcache.ipcache import IPIdentity
+    from cilium_tpu_torch.labels import Label, Labels
+
+    rng = np.random.default_rng(seed)
+    timings = {}
+    d = Daemon(num_workers=8, device=device)  # bench.py's builder pool
+
+    t0 = time.perf_counter()
+    ep_ip = {}
+    for i in range(n_endpoints):
+        ip = f"10.250.{i // 256}.{i % 256}"
+        ep_ip[100 + i] = _ip(ip)
+        d.create_endpoint(100 + i,
+                          Labels({"app": Label("app", f"app{i}", "k8s")}),
+                          ipv4=ip, name=f"ep{i}")
+    n_teams = max(n_identities // 16, 1)
+    id_ips, ids = [], []
+    for i in range(n_identities - n_endpoints):
+        labels = Labels({
+            "team": Label("team", f"t{i % n_teams}", "k8s"),
+            "svc": Label("svc", f"s{i}", "k8s"),
+        })
+        ident, _ = d.identity_allocator.allocate(labels)
+        ip = 0x0A000000 | (i + 1)  # 10.0.0.0/8, dense
+        id_ips.append(ip)
+        ids.append(ident.id)
+        d.ipcache.upsert(_ip_str(ip), IPIdentity(ident.id, "kvstore"))
+    timings["identity_setup_s"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    rules, all_ports, l7_pairs = build_rules(rng, n_rules, n_endpoints,
+                                             n_teams)
+    d.policy_add(rules)
+    timings["policy_add_s"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    d.regenerate_all("bench import")
+    timings["regenerate_s"] = time.perf_counter() - t0
+
+    version, tables, index, states = (
+        d.endpoint_manager.published_with_states())
+    return types.SimpleNamespace(
+        daemon=d, version=version, tables=tables, index=index,
+        states=states, id_ips=np.asarray(id_ips, np.uint32),
+        ids=np.asarray(ids, np.int64), ep_ip=ep_ip, all_ports=all_ports,
+        l7_pairs=l7_pairs, n_teams=n_teams, rules=rules, timings=timings,
+    )
+
+
+RULE_SHARE = 0.25  # rules_tuples' rows drawn from a rule's own shape
+
+
+def rules_tuples(rw, n: int, seed: int = 1) -> dict:
+    """`n` lattice tuples over a rules_world, as numpy columns: endpoint
+    axis indices, identities of the published universe (its id_table),
+    the rules' (port, proto) pairs, directions and 2 % fragments, all
+    uniform; then a RULE_SHARE of rows takes a drawn rule's own shape
+    (its endpoint, a member of its team, its port, or a drawn port for
+    an L3-only rule; ingress, no fragment), so that allows, redirects
+    and rule changes show.  CIDR rules keep the uniform row."""
+    from cilium_tpu_torch.compiler.tables import PAD_ID
+
+    rng = np.random.default_rng(seed)
+    id_table = np.asarray(rw.tables.id_table).view(np.uint32)
+    universe = id_table[id_table != np.uint32(PAD_ID)]
+    ports = np.asarray(rw.all_ports, np.int64)
+    axis = np.asarray(sorted(rw.index.values()), np.int64)
+    pick = rng.integers(0, len(ports), size=n)
+    cols = dict(
+        ep_index=axis[rng.integers(0, len(axis), size=n)],
+        identity=universe[rng.integers(0, len(universe), size=n)],
+        dport=ports[pick, 0],
+        proto=ports[pick, 1],
+        direction=rng.integers(0, 2, size=n),
+        is_fragment=rng.random(n) < FRAG_SHARE,
+    )
+    # each rule's shape: endpoint axis index, team (-1 for a CIDR
+    # rule), port and proto (0 for an L3-only rule)
+    shape = np.zeros((len(rw.rules), 4), np.int64)
+    for r, rule in enumerate(rw.rules):
+        ing = rule.ingress[0]
+        app = rule.endpoint_selector.match_labels["k8s.app"]
+        shape[r, 0] = rw.index[100 + int(app[3:])]
+        shape[r, 1] = (int(ing.from_endpoints[0].match_labels["k8s.team"][1:])
+                       if ing.from_endpoints else -1)
+        if ing.to_ports:
+            pp = ing.to_ports[0].ports[0]
+            shape[r, 2] = int(pp.port)
+            shape[r, 3] = 6 if pp.protocol == "TCP" else 17
+    shaped = np.flatnonzero(rng.random(n) < RULE_SHARE)
+    got = shape[rng.integers(0, len(rw.rules), size=len(shaped))]
+    members = rng.integers(0, max(len(rw.ids) // rw.n_teams, 1),
+                           size=len(shaped))
+    drawn = ports[rng.integers(0, len(ports), size=len(shaped))]
+    keep = got[:, 1] >= 0
+    rows, got = shaped[keep], got[keep]
+    members, drawn = members[keep], drawn[keep]
+    i_id = members * rw.n_teams + got[:, 1]
+    i_id = np.where(i_id >= len(rw.ids), got[:, 1], i_id)
+    l3 = got[:, 2] == 0
+    cols["ep_index"][rows] = got[:, 0]
+    cols["identity"][rows] = rw.ids[i_id]
+    cols["dport"][rows] = np.where(l3, drawn[:, 0], got[:, 2])
+    cols["proto"][rows] = np.where(l3, drawn[:, 1], got[:, 3])
+    cols["direction"][rows] = INGRESS
+    cols["is_fragment"][rows] = False
+    cols["identity"] = cols["identity"].astype(np.uint32)
+    return cols
+
+
+def rules_records(rw, n: int, seed: int = 31) -> bytes:
+    """`n` flow records of rules_tuples(rw, n, seed): the endpoint axis
+    index as ep_id, the identity pre-resolved (replay_lattice's input),
+    zero addresses and source ports."""
+    from cilium_tpu_torch.native.loader import encode_flow_records
+
+    t = rules_tuples(rw, n, seed)
+    zeros = np.zeros(n, np.uint32)
+    return encode_flow_records(
+        ep_id=t["ep_index"], identity=t["identity"], saddr=zeros,
+        daddr=zeros, sport=zeros, dport=t["dport"], proto=t["proto"],
+        direction=t["direction"], is_fragment=t["is_fragment"])
+
+
+def restricted_rule_index(rules) -> int:
+    """The first L3-only rule whose (app, team) no other L3-only rule
+    allows: the rule a shadow candidate restricts, so that its
+    allow-to-deny rows show."""
+    def pair(r):
+        ing = r.ingress[0]
+        if not ing.from_endpoints or ing.to_ports:
+            return None
+        return (r.endpoint_selector.match_labels["k8s.app"],
+                ing.from_endpoints[0].match_labels["k8s.team"])
+
+    pairs = [pair(r) for r in rules]
+    count: Dict[tuple, int] = {}
+    for p in pairs:
+        if p is not None:
+            count[p] = count.get(p, 0) + 1
+    return next(i for i, p in enumerate(pairs)
+                if p is not None and count[p] == 1)
+
+
+def restricting_rule(rules, port: int, api=None, labels_cls=None):
+    """A shadow candidate: add_one_rule's shape (the restricted rule's
+    team -> its app on TCP `port`) under the labels of the rule
+    `restricted_rule_index` picks, so that it replaces that L3-only
+    rule.  `api` and `labels_cls` default to this package's policy API
+    and LabelArray."""
+    if api is None:
+        from cilium_tpu_torch.policy import api
+    if labels_cls is None:
+        from cilium_tpu_torch.labels import LabelArray as labels_cls
+    base = rules[restricted_rule_index(rules)]
+    app = base.endpoint_selector.match_labels["k8s.app"]
+    team = base.ingress[0].from_endpoints[0].match_labels["k8s.team"]
+    return api.Rule(
+        endpoint_selector=api.EndpointSelector(match_labels={"k8s.app": app}),
+        ingress=[api.IngressRule(
+            from_endpoints=[api.EndpointSelector(
+                match_labels={"k8s.team": team})],
+            to_ports=[api.PortRule(ports=[api.PortProtocol(
+                port=str(port), protocol="TCP")])],
+        )],
+        labels=labels_cls.parse(*(str(lab) for lab in base.labels)),
+    )

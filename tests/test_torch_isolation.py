@@ -45,7 +45,16 @@ def test_import_loads_no_jax_and_no_reference_module():
               "cilium_tpu_torch.monitor.events", "cilium_tpu_torch.labels",
               "cilium_tpu_torch.identity", "cilium_tpu_torch.policy.repository",
               "cilium_tpu_torch.compiler.mapstate",
-              "cilium_tpu_torch.l7.memcached", "cilium_tpu_torch.proxy.proxy"):
+              "cilium_tpu_torch.l7.memcached", "cilium_tpu_torch.proxy.proxy",
+              "cilium_tpu_torch.logging", "cilium_tpu_torch.option",
+              "cilium_tpu_torch.compiler.selectorcache",
+              "cilium_tpu_torch.ipcache.ipcache",
+              "cilium_tpu_torch.ipcache.cidr", "cilium_tpu_torch.endpoint",
+              "cilium_tpu_torch.endpoint.endpoint",
+              "cilium_tpu_torch.endpoint.manager",
+              "cilium_tpu_torch.endpoint.checkpoint",
+              "cilium_tpu_torch.policy.trace", "cilium_tpu_torch.daemon",
+              "cilium_tpu_torch.shadow"):
         assert m in mods
     code = (
         "import importlib, sys\n"
@@ -144,6 +153,32 @@ def test_entry_points_default_to_the_card():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             tables_to(host)
     assert tables_to(host, "cpu").ct.buckets.device.type == "cpu"
+
+
+def test_policy_plane_defaults_to_the_card():
+    """Daemon, EndpointManager and DeviceTableStore take device=None as
+    the card: without one the daemon and the store raise, and the
+    manager's first device publish raises; device="cpu" runs."""
+    from cilium_tpu_torch import world
+    from cilium_tpu_torch.daemon import Daemon
+    from cilium_tpu_torch.endpoint import EndpointManager
+    from cilium_tpu_torch.engine.publish import DeviceTableStore
+
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    for make in (Daemon, DeviceTableStore):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            make()
+    rw = world.rules_world(seed=1, n_rules=40, n_endpoints=2,
+                           n_identities=32, device="cpu")
+    em = EndpointManager()
+    for e in rw.daemon.endpoint_manager.endpoints():
+        em.insert(e)
+    em.publish_tables(rw.daemon.identity_cache())
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        em.published_device()
+    dev = rw.daemon.endpoint_manager.published_device()[1]
+    assert dev.l4_meta.device.type == "cpu"
 
 
 def test_chip_smoke_fails_without_a_card(tmp_path):

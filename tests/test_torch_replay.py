@@ -342,10 +342,22 @@ def test_replay_churn_mode_matches_jax(tables, monkeypatch):
 
 
 def test_replay_refuses_what_waits_for_later_planes(tables):
+    """flow_store= waits for the flow plane; manager= (since the control
+    plane's port) runs the manager's stale-table check on tables.policy
+    first, and its refusal stops the replay."""
     w, _, tts = tables
     buf, _ = _records(w, n=10)
-    with pytest.raises(NotImplementedError, match="control plane"):
-        trp.replay(tts["port"], buf, 8, manager=object(), device="cpu")
+
+    class Stale:
+        checked = []
+
+        def check_tables_current(self, t):
+            self.checked.append(t)
+            raise ValueError("stale PolicyTables")
+
+    with pytest.raises(ValueError, match="stale"):
+        trp.replay(tts["port"], buf, 8, manager=Stale(), device="cpu")
+    assert Stale.checked == [tts["port"].policy]
     with pytest.raises(NotImplementedError, match="flow plane"):
         trp.replay(tts["port"], buf, 8, flow_store=object(), device="cpu")
 

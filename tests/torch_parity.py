@@ -299,3 +299,46 @@ def as_torch(arrays, device="cpu"):
     from cilium_tpu_torch.device import array_tensor
 
     return tuple(array_tensor(a, device) for a in arrays)
+
+
+M32 = 0xFFFFFFFF
+
+
+def _leaf_np(v):
+    return v.cpu().numpy() if isinstance(v, torch.Tensor) else np.asarray(v)
+
+
+def assert_same_tables_low32(want, got):
+    """A reference table set (PolicyTables, IPCacheDevice; host arrays
+    or a device epoch) against the port's, leaf for leaf; the
+    generation stamp by its low 32 bits (the high 32 carry a
+    per-process compiler nonce) and u32 leaves the port carries as
+    int32 tensors by their bits."""
+    assert type(want).__name__ == type(got).__name__
+    for f in dataclasses.fields(want):
+        a, b = getattr(want, f.name), getattr(got, f.name)
+        if f.name == "generation":
+            assert int(_leaf_np(a)) & M32 == int(_leaf_np(b)) & M32
+            continue
+        if a is None or b is None:
+            assert a is None and b is None, f.name
+            continue
+        if isinstance(a, (int, float, bool, str, tuple)):
+            assert a == b, f.name
+            continue
+        a, b = _leaf_np(a), _leaf_np(b)
+        assert a.shape == b.shape, f.name
+        if a.dtype != b.dtype:
+            a, b = a.astype(np.int64) & M32, b.astype(np.int64) & M32
+        assert np.array_equal(a, b), f.name
+
+
+def assert_same_states(want, got):
+    """Two map states (dicts or MapStateArrays of either package):
+    keys, proxy ports and counters equal."""
+    w = jpm.MapStateArrays.from_dict(want)
+    g = tpm.MapStateArrays.from_dict(got)
+    assert np.array_equal(w.keys_packed, g.keys_packed)
+    assert np.array_equal(w.proxy, g.proxy)
+    assert np.array_equal(w.packets, g.packets)
+    assert np.array_equal(w.bytes, g.bytes)
