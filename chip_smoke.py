@@ -9,10 +9,20 @@ matchers from fixed seeds, and drives these paths, each with the
 launch counts set to 0 just before it and read just after:
 
   main_path  the headline datapath: PersistentPairDispatcher with
-             K = 4 over 8 pairs of 2 x 2,097,152 flows (DATAPATH_PAIR),
-             after the pair kernel is checked bit-exact against its
-             plain version on a full pair and two small worlds, and
-             on a full pair over the wide layouts (wide_pair_check);
+             K = 4 over 8 pairs of 2 x 2,097,152 flows, one copy and
+             one PERSISTENT_PAIR launch per super-batch (2 launches, 0
+             of DATAPATH_PAIR), after the pair kernel is checked
+             bit-exact against its plain version on a full pair and two
+             small worlds, and on a full pair over the wide layouts
+             (wide_pair_check), and persistent_check holds
+             PERSISTENT_PAIR against its plain version on a [4, 2, 4,
+             2,097,152] super-batch and runs 9 pairs through a
+             dispatcher at site "smoke.persistent" (2 super-launches, 1
+             DATAPATH_PAIR remainder, the site's jit-cache calls and the
+             datapath_persistent_* deltas as the reference counts
+             them); main_path_trace counts the host-to-device copies
+             (1 per super-batch) and persistent_timing times
+             PERSISTENT_PAIR per super-batch beside 4 x DATAPATH_PAIR;
   churn      config 5's conntrack churn loop (replay_pool, bench.py's
              ct_churn_tuples_per_sec): a seed pass of 2 x 2,097,152
              picks drawn on the card, then the timed pass of
@@ -40,7 +50,9 @@ launch counts set to 0 just before it and read just after:
              for them) and 256 rows against the host matchers, the
              memcached rows flagged for the host against the plain
              version's; then proxy_timing holds MEMCACHE_MATCH against
-             its plain version at the world's 25 rules and at 70;
+             its plain version at the world's 25 rules and at 70; and
+             l7_proxy_monitor logs 131,072 HTTP requests to a MonitorBus
+             (as many deny events as denials);
   combined   config 5's datapath + proxy step: 8 steps of
              2 x 2,097,152 flows, redirected flows compacted to
              131,072 per half and judged by the fleet L7 matchers
@@ -84,7 +96,13 @@ launch counts set to 0 just before it and read just after:
              and replay_churn: replay(ct_map=...) over 2 x 2,097,152
              records of pool rows on the wide tables (DATAPATH_STEP,
              CHURN_COMPACT, CT_DELTA), first against the plain loop,
-             then timed;
+             then timed; then flow_capture: replay(flow_store=
+             FlowStore()) over 1,048,576 records in 4 batches into the
+             default 65,536-record ring, against the same replay without
+             a store and a host recomputation of the ring from the
+             batches' drained columns, the captured, cut and evicted
+             counts, and the same columns through capture_batch with the
+             metrics registry (flow_store_evicted);
   node, node_lpm  the node-scale worlds (world.node_world: 110
              endpoints, 1,024 prefilter CIDRs, a 64-backend VIP, CIDR
              identities over 8 prefix lengths; node_lpm with 4,096 /24
@@ -92,10 +110,16 @@ launch counts set to 0 just before it and read just after:
              prefilter, the classic LB and the idx ipcache without L3
              planes with the [B, P] range scan (node) or a DIR-24-8
              ipcache (node_lpm): 8 pairs through
-             PersistentPairDispatcher (K = 4, DATAPATH_PAIR), verdicts/s
-             and a traced idle share; before it node_world asserts the
-             layouts and node_check holds DATAPATH_PAIR (2 full pairs)
-             and DATAPATH_STEP's forms (1,048,576 flows) against their
+             PersistentPairDispatcher (K = 4, PERSISTENT_PAIR),
+             verdicts/s and a traced idle share (its device time and
+             copies "not_measured" where the profiler's later session
+             loses its device rows, else the copies checked against
+             the super-batches; CUDA events time the loop too); before
+             it node_world
+             asserts the layouts and node_check holds DATAPATH_PAIR (2
+             full pairs), PERSISTENT_PAIR (a super-batch of 4 pairs of
+             2 x 524,288) and DATAPATH_STEP's forms (1,048,576 flows)
+             against their
              plain versions, replay() (2 batches) and int-pick
              replay_pool (2 x 2,097,152, wide tables) against the plain
              loops with the snapshot against its mirror, and 512 pool
@@ -142,7 +166,12 @@ launch counts set to 0 just before it and read just after:
              replay_lattice(manager=...) over 1,048,576 records with
              counters against the plain loop, sync_counters_to_endpoints
              (the synced packets equal the counters' sum) and the refusal
-             of a snapshot two publishes old (manager_replay);
+             of a snapshot two publishes old (manager_replay); then
+             trace_spans: a priming step and 8 update steps from a rule,
+             each under a root span of the port's tracer, one
+             compiler.compile, compiler.delta_for and publish.epoch span
+             per step, their median ms beside the step's own split, and
+             one step's span tree;
   memo       config 5's memoized headline pair (bench.py's timed memo
              loop): 8 Zipf(1.1) pairs of 2 x 2,097,152 flows through
              memo_pair_packed4 behind AsyncBatchDispatcher (depth 2),
@@ -185,14 +214,20 @@ of `torch.unique` for MEMO_DEDUP, of one `index_put_` per leaf for
 PUBLISH_SCATTER (on in-range payloads: a time only, torch raises where
 jax drops), of `torch.randint` for PICK_DRAW
 (other numbers on the same shape: a time only) and null for the others:
-no single PyTorch call computes the fused datapath steps, the intent
+no single PyTorch call computes the fused datapath steps (pair,
+persistent or single-batch), the intent
 compaction, a DFA scan, the Kafka rule match, the fleet's routed match,
 the policy lattice, the two dependent DIR-24-8 reads, the v6 program,
 the verdict cache, the memo's key words, the memcached rule match or
 the shadow diff.  LATTICE's launches are
 summed over its four paths, its time is config 5's compact mode;
 LPM_LOOKUP's time is config 2's 1,048,576 addresses; DATAPATH6's is
-config 6's 1,048,576 flows.  The DATAPATH_PAIR and DATAPATH_STEP rows
+config 6's 1,048,576 flows.  PERSISTENT_PAIR's time is one launch on
+4 pairs of 2 x 2,097,152 flows (`datapath_pair_x4_ms`: 4 DATAPATH_PAIR
+launches on the same pairs), its plain time one call, its bound
+needed_bytes over the super-batch (each distinct table row across the
+4 pairs once); its launches are the main, persistent_check and node
+paths' (`launches_by_path`).  The DATAPATH_PAIR and DATAPATH_STEP rows
 also carry their time in overlay mode (`tunnel_ms`, `tunnel_plain_ms`,
 `tunnel_bound_ms`: the same bound plus the 3 KB map read whole,
 `tunnel_max_abs_err`), and DATAPATH6's row its time, plain time and
@@ -200,8 +235,9 @@ bound with the tunnel map.  DATAPATH_STEP's launches are summed over
 its three paths (churn, replay, replay_churn; `launches_by_path`), and
 its replay modes' times, plain times and bounds are the line
 {"datapath_step_modes": ...} just before.  DATAPATH_PAIR's launches
-are summed over the main path and the two node paths
-(`launches_by_path`); both datapath rows carry `by_layout`: per layout
+are summed over the main path, persistent_check's remainder, the two
+node paths and the combined loop (`launches_by_path`); both datapath
+rows carry `by_layout`: per layout
 instantiation (kernels.layout_name) and world, the time, plain time,
 bytes, operations and bound of node_timing.  Then the card's name and
 power limit as nvidia-smi prints them, then {"ok": true, "device":
@@ -242,6 +278,18 @@ order; the oracle counts hits, so it runs on copies of the map states;
 a stale device epoch is refused by the compiler's stamp check; at these
 sizes a caller's time of SHADOW_DIFF is its wrapper's host time
 (`wrapper_ms`), so its `ms` queues the launches behind a device spin.
+
+Persistent pair and observability: the CPU recipe of the persistent
+program, the flow ring and the tracer is tested against the reference by
+`JAX_PLATFORMS=cpu python -m pytest tests/test_torch_persistent.py
+tests/test_torch_tracing.py tests/test_torch_flow.py -q`; the kernel's
+test on one H100 is `python -m pytest --noconftest
+tests/test_torch_persistent.py -q -m cuda`.  Gotchas: a dispatcher's
+per-pair results are views of fresh stacked outputs (no later launch
+writes them); the remainder runs pair by pair through DATAPATH_PAIR;
+the update steps of trace_spans need a primed spare epoch to publish
+deltas; the reference's replay feeds no metrics registry to its
+capture, so flow_store_evicted is checked through a second feed.
 """
 
 from __future__ import annotations
@@ -358,6 +406,39 @@ def check_pairs(tables, pairs, kernels, dp, verdict) -> int:
     return max(err, buf_err(acc_k, acc_p), buf_err(tel_k, tel_p))
 
 
+def check_super(tables, pairs, kernels, dp, verdict) -> int:
+    """PERSISTENT_PAIR against persistent_pair_plain on the super-batch
+    of `pairs` (host [2, 4, B] each) from fresh carries: max error over
+    the 15 stacked columns, the counters and the telemetry."""
+    stacked = torch.from_numpy(np.stack(pairs).view(np.int32)).cuda()
+    acc_k = verdict.make_counter_buffers(tables.policy)
+    tel_k = verdict.make_telemetry_buffers(acc_k.device)
+    acc_p, tel_p = acc_k.clone(), tel_k.clone()
+    ki, ke, acc_k, tel_k = kernels.PERSISTENT_PAIR(tables, stacked, acc_k,
+                                                   tel_k)
+    pi, pe, acc_p, tel_p = dp.persistent_pair_plain(tables, stacked, acc_p,
+                                                    tel_p)
+    torch.cuda.synchronize()
+    return max(compare((ki, ke), (pi, pe), dp), buf_err(acc_k, acc_p),
+               buf_err(tel_k, tel_p))
+
+
+def once_ms(fn) -> float:
+    """One synchronised call's wall time, in ms."""
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t) * 1e3
+
+
+def h2d_copies(prof) -> int:
+    """Host-to-device copies in a profiler run."""
+    return sum(ev.count for ev in prof.key_averages()
+               if ev.device_type == torch.autograd.DeviceType.CUDA
+               and "HtoD" in ev.key)
+
+
 def event_ms(fn, reps: int) -> float:
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
@@ -431,8 +512,10 @@ def out_bytes_per_flow(dp) -> int:
 
 
 def needed_bytes(tables, pair, dp, verdict, kernels):
-    """Bytes one pair step must move for this pair's data: the flows
-    read and the 15 columns written once; each distinct table row that
+    """Bytes one pair step (`pair` [2, 4, B]) or one persistent program
+    (a super-batch [K, 2, 4, B]) must move for these pairs' data: the
+    flows read and the 15 columns written once; each distinct table row
+    (across the K pairs) that
     the flows' hashes select read once, whole (the rows the plain
     version gathers; it probes every range class for every flow where
     the kernel stops at the first hit, which overcounts by at most the
@@ -441,10 +524,12 @@ def needed_bytes(tables, pair, dp, verdict, kernels):
     read and written.  Returns (bytes, row-read bytes per flow)."""
     acc = verdict.make_counter_buffers(tables.policy)
     tel = verdict.make_telemetry_buffers(acc.device)
+    plain = dp.persistent_pair_plain if pair.dim() == 4 else (
+        dp.datapath_pair_plain)
     rows_b, gathered = table_row_bytes(
         tables, kernels.datapath_reads(tables),
-        lambda: dp.datapath_pair_plain(tables, pair, acc, tel))
-    flows = pair.shape[0] * pair.shape[2]
+        lambda: plain(tables, pair, acc, tel))
+    flows = pair.numel() // 4
     total = pair.numel() * 4 + out_bytes_per_flow(dp) * flows
     total += 2 * tel.numel() * 4 + 2 * 4 * int(torch.count_nonzero(acc).item())
     return total + rows_b, gathered / flows
@@ -909,7 +994,48 @@ def l7_proxy_phase(kernels, pw, ps) -> dict:
     if launches != 1 or diff or not 0 < int(eg.sum()) < len(reqs):
         raise SystemExit("l7_proxy_http_egress: launch, difference or mix")
     out["http"] += launches
+    n = PROXY_MONITOR_REQUESTS
+    proxy_monitor(ps, reqs[:n], ident[:n], known[:n])
     return out, cols
+
+
+PROXY_MONITOR_REQUESTS = 1 << 17  # the access log is a host loop per request
+
+
+def proxy_monitor(ps, reqs, ident, known) -> None:
+    """l7_proxy_monitor: HTTP requests through verdict_http with log=True
+    on a proxy whose monitor is a MonitorBus: one LogRecordNotify per
+    request, as many "Denied" events as the call's denials, and the bus's
+    bounded queue counting what it could not hold."""
+    from cilium_tpu_torch.monitor import MonitorBus
+
+    t = time.perf_counter()
+    bus = MonitorBus()
+    q = bus.subscribe_queue()
+    verdicts = {"Forwarded": 0, "Denied": 0}
+
+    def count(ev):
+        verdicts[ev.verdict] += 1
+
+    bus.subscribe(count)
+    saved, ps.proxy.monitor = ps.proxy.monitor, bus
+    try:
+        t1 = time.perf_counter()
+        allowed = np.asarray(ps.proxy.verdict_http(ps.redirects["http"], reqs,
+                                                   ident, known, log=True))
+        logged_s = time.perf_counter() - t1
+    finally:
+        ps.proxy.monitor = saved
+    denied = int((~allowed.astype(bool)).sum())
+    phase("l7_proxy_monitor", t, requests=len(reqs), denied=denied,
+          denied_events=verdicts["Denied"],
+          forwarded_events=verdicts["Forwarded"], queued=len(q),
+          lost_events=bus.lost_events, verdict_logged_s=round(logged_s, 4))
+    if (verdicts["Denied"] != denied
+            or verdicts["Forwarded"] != len(reqs) - denied
+            or len(q) + bus.lost_events != len(reqs)):
+        raise SystemExit("l7_proxy_monitor: the monitor's events do not "
+                         "match the HTTP verdicts")
 
 
 def memcache_need(tab, cols):
@@ -1064,10 +1190,11 @@ def combined_oracle(w, fleet, reqs, kreqs, id_table, picks, out,
     return len(sample), bad
 
 
-def combined_phase(kernels, w, tables, fleet) -> dict:
+def combined_phase(kernels, w, tables, fleet) -> tuple:
     """Config 5's combined datapath + proxy step (see the module
     docstring): checks, the 8-step loop, its trace, and FLEET_L7 alone
-    against its plain version, timed, with its bound."""
+    against its plain version, timed, with its bound.  Returns FLEET_L7's
+    row and DATAPATH_PAIR's launches on the loop."""
     from cilium_tpu_torch import world
     from cilium_tpu_torch.convert import l7_tables_to
     from cilium_tpu_torch.engine import datapath as dp
@@ -1220,7 +1347,7 @@ def combined_phase(kernels, w, tables, fleet) -> dict:
     return kernel_row(kernels.FLEET_L7, "cilium_tpu_torch/csrc/l7.cu",
                       "cilium_tpu/l7/fleet.py:172",
                       counts[kernels.FLEET_L7.name], max(err_step, err_fleet),
-                      ms, plain_ms, bb, bo)
+                      ms, plain_ms, bb, bo), counts[kernels.DATAPATH_PAIR.name]
 
 
 # -- the churn loop (config 5's replay_pool) ------------------------------------
@@ -2316,6 +2443,167 @@ def replay_phases(kernels, w, tables, wide_t, rows) -> None:
             r["max_abs_err"] = max(r["max_abs_err"], chk["err"])
 
 
+FLOW_RECORDS = 1 << 20
+FLOW_BATCH = 1 << 18  # 4 batches: the ring keeps the newest records
+FLOW_FIELDS = ("chip", "ep_id", "src_identity", "dst_identity", "dport",
+               "proto", "direction", "verdict", "match_kind", "drop_reason",
+               "proxy_port", "ct_state")
+
+
+def drained_columns(tables, batches) -> list:
+    """Each replay batch's capture inputs drained to the host: the 15
+    columns of datapath_step on the card (the identity as sec_id) and the
+    flows' endpoint, protocol and direction words, over the valid rows."""
+    from cilium_tpu_torch.engine import datapath as dp
+
+    out = []
+    for flows, valid in batches:
+        v = dp.datapath_step(tables, flows)
+        col = {c: getattr(v, c)[:valid].cpu().numpy()
+               for c in dp.VERDICT_COLUMNS}
+        for c in ("ep_index", "proto", "direction"):
+            col[c] = getattr(flows, c)[:valid].cpu().numpy()
+        col["sec_id"] = col["sec_id"].view(np.uint32).astype(np.int64)
+        out.append(col)
+    return out
+
+
+def capture_inputs(col) -> dict:
+    """capture_batch's keyword arguments for one drained batch, the peer
+    identity on its side of the pair, as replay's capture sets them."""
+    dirs, sec = col["direction"], col["sec_id"]
+    return dict(
+        ep_ids=col["ep_index"], src_identities=np.where(dirs == 0, sec, 0),
+        dst_identities=np.where(dirs == 0, 0, sec), dports=col["final_dport"],
+        protos=col["proto"], directions=dirs, allowed=col["allowed"],
+        match_kind=col["match_kind"], proxy_port=col["proxy_port"],
+        pre_dropped=col["pre_dropped"], ct_result=col["ct_result"],
+        ct_delete=col["ct_delete"], lb_slave=col["lb_slave"],
+        ipcache_miss=col["ipcache_miss"])
+
+
+def expected_flows(drained, sample, cap) -> tuple:
+    """A host recomputation of the flow ring, independent of
+    capture_batch: every drop of a batch and its first `sample` allows
+    (None: all), the drops cut to the newest `cap` when a batch has more
+    (its allows then dropped too), the drop reason from the prefilter bit
+    and the match kind; the newest `cap` records over all batches.
+    Returns ({field: array}, records built, drops cut, drops)."""
+    from cilium_tpu_torch.engine.oracle import MATCH_FRAG_DROP
+
+    parts, built, cut, drops_total = [], 0, 0, 0
+    for col in drained:
+        allowed = col["allowed"].astype(bool)
+        drops = np.nonzero(~allowed)[0]
+        allows = np.nonzero(allowed)[0]
+        if sample is not None:
+            allows = allows[:sample]
+        drops_total += len(drops)
+        if len(drops) > cap:
+            cut += len(drops) - cap
+            drops, allows = drops[-cap:], allows[:0]
+        idx = np.concatenate([drops, allows])
+        built += len(idx)
+        dirs, sec = col["direction"], col["sec_id"]
+        reason = np.where(col["pre_dropped"], "Policy denied (CIDR)",
+                          np.where(col["match_kind"] == MATCH_FRAG_DROP,
+                                   "Fragmentation needed",
+                                   "Policy denied (L3)"))
+        parts.append(dict(
+            chip=np.zeros(len(idx), np.int64), ep_id=col["ep_index"][idx],
+            src_identity=np.where(dirs == 0, sec, 0)[idx],
+            dst_identity=np.where(dirs == 0, 0, sec)[idx],
+            dport=col["final_dport"][idx], proto=col["proto"][idx],
+            direction=dirs[idx],
+            verdict=np.where(allowed, "FORWARDED", "DROPPED")[idx],
+            match_kind=col["match_kind"][idx],
+            drop_reason=np.where(allowed, "", reason)[idx],
+            proxy_port=col["proxy_port"][idx], ct_state=col["ct_result"][idx],
+        ))
+    want = {f: np.concatenate([q[f] for q in parts])[-cap:]
+            for f in FLOW_FIELDS}
+    return want, built, cut, drops_total
+
+
+def flow_capture(kernels, w, tables) -> None:
+    """flow_capture: replay(..., flow_store=FlowStore()) over
+    FLOW_RECORDS of config 5's records in batches of FLOW_BATCH, at the
+    FlowStore's default capacity (65,536) and the default
+    MonitorAggregationLevel; its stats, counters and telemetry against
+    the same call without a store; the ring's records against a host
+    recomputation from the batches' drained columns (expected_flows);
+    the captured, cut and evicted counts; and the same columns through
+    capture_batch with the metrics registry, whose store must equal the
+    replay's record by record and whose flow_store_evicted gauge must
+    equal its evicted count.  Prints the capture's host seconds (the
+    drain span's growth) beside the replay's wall."""
+    from cilium_tpu_torch import option
+    from cilium_tpu_torch import replay as rp
+    from cilium_tpu_torch import world
+    from cilium_tpu_torch.flow import (
+        FlowStore,
+        allow_sample_for_level,
+        capture_batch,
+    )
+    from cilium_tpu_torch.metrics import registry as metrics
+
+    t = time.perf_counter()
+    buf = world.lattice_records(w, FLOW_RECORDS, seed=37)
+    store = FlowStore()
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    st, l4, l3 = rp.replay(tables, buf, FLOW_BATCH, collect_telemetry=True,
+                           flow_store=store)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t1
+    t1 = time.perf_counter()
+    st0, l40, l30 = rp.replay(tables, buf, FLOW_BATCH, collect_telemetry=True)
+    torch.cuda.synchronize()
+    wall0 = time.perf_counter() - t1
+    capture_s = st.spans["drain"].total() - st0.spans["drain"].total()
+    same = (all(getattr(st, f) == getattr(st0, f) for f in REPLAY_FIELDS)
+            and np.array_equal(l4, l40) and np.array_equal(l3, l30)
+            and np.array_equal(st.telemetry, st0.telemetry))
+    sample = allow_sample_for_level(
+        option.Config.opts.level(option.MONITOR_AGGREGATION))
+    drained = drained_columns(
+        tables, rp.read_flow_batches(buf, FLOW_BATCH, None, "cuda"))
+    want, built, cut, n_drops = expected_flows(drained, sample,
+                                               store.capacity)
+    snap = store.snapshot()
+    got = {f: np.array([getattr(rec, f) for rec in snap]) for f in FLOW_FIELDS}
+    diff = {f: int((got[f] != want[f]).sum()) for f in FLOW_FIELDS
+            if got[f].shape != want[f].shape or (got[f] != want[f]).any()}
+    counts_ok = (store.captured_total == built
+                 and store.evicted == built - len(snap) + cut
+                 and n_drops == st.denied)
+    # the same columns through capture_batch with the metrics registry
+    fed = FlowStore()
+    dropped0 = metrics.flow_records_captured_total.get("DROPPED")
+    for col in drained:
+        capture_batch(fed, **capture_inputs(col), allow_sample=sample,
+                      metrics_registry=metrics)
+    same_fed = [dataclasses.replace(a, ts=0.0) for a in fed.snapshot()] == [
+        dataclasses.replace(b, ts=0.0) for b in snap]
+    gauge = metrics.flow_store_evicted.get()
+    dropped = metrics.flow_records_captured_total.get("DROPPED") - dropped0
+    phase("flow_capture", t, records=st.total, batches=st.batches,
+          batch=FLOW_BATCH, capacity=store.capacity, allow_sample=sample,
+          ring=len(snap), captured=store.captured_total, evicted=store.evicted,
+          cut=cut, denied=st.denied, equal_without_store=same,
+          host_recompute_diff=json.dumps(diff), counts_ok=counts_ok,
+          metrics_store_equal=same_fed, flow_store_evicted=gauge,
+          captured_dropped_metric=dropped, capture_host_s=round(capture_s, 4),
+          replay_wall_s=round(wall, 4), replay_wall_without_store_s=round(
+              wall0, 4))
+    if (not same or diff or not counts_ok or not same_fed
+            or gauge != store.evicted or dropped != st.denied
+            or len(snap) != store.capacity):
+        raise SystemExit("flow_capture: the capture changed the replay, or "
+                         "the ring differs from the host recomputation, or "
+                         "the counts do not add up")
+
+
 def cidr_phase(kernels, u) -> tuple:
     """Config 2 (bench.py config2): evaluate_batch_from_ips at 100,000
     tuples (16 calls) and at 1,048,576 (8 calls), bench's 512-row oracle
@@ -2888,14 +3176,16 @@ def oracle_mismatches(w, tables, rows) -> tuple:
     return int(bad.sum()), stages
 
 
-def node_check(kernels, label: str, nw: dict) -> int:
+def node_check(kernels, label: str, nw: dict) -> tuple:
     """0 differences required everywhere: DATAPATH_PAIR over 2 pairs of
-    2 x 2,097,152 flows and DATAPATH_STEP's forms over 1,048,576 flows
+    2 x 2,097,152 flows, PERSISTENT_PAIR over a super-batch of 4 pairs
+    of 2 x 524,288, and DATAPATH_STEP's forms over 1,048,576 flows
     against their plain versions on the card (15 columns, counters,
     telemetry); replay() over 2 batches and replay_pool with 2 int-pick
     batches of 2,097,152 on the wide tables against the plain loops (CT
     entries, snapshots, and the snapshot against its host mirror); 512
-    pool rows against the composed oracle.  Returns the worst error."""
+    pool rows against the composed oracle.  Returns the worst error of
+    the pair and step kernels, and PERSISTENT_PAIR's."""
     from cilium_tpu_torch import replay as rp
     from cilium_tpu_torch import world
     from cilium_tpu_torch.engine import datapath as dp
@@ -2905,6 +3195,8 @@ def node_check(kernels, label: str, nw: dict) -> int:
     t = time.perf_counter()
     err_pair = check_pairs(tables, w.pairs(seed=51, half=HALF, k=2), kernels,
                            dp, verdict)
+    err_super = check_super(tables, w.pairs(seed=52, half=HALF // 4,
+                                            k=PERSIST_K), kernels, dp, verdict)
     flows, _, _ = forms_flows(w, FORMS_FLOWS, seed=53)
     errs = {}
     for name, _, _ in STEP_FORMS:
@@ -2942,6 +3234,7 @@ def node_check(kernels, label: str, nw: dict) -> int:
     bad, stages = oracle_mismatches(w, tables, rows)
     err = max(err_pair, max(errs.values()))
     phase("node_check", t, world=label, pair_max_abs_err=err_pair,
+          persistent_max_abs_err=err_super,
           forms_max_abs_err=errs, replay_equal_to_plain=same_replay,
           replay_records=k[0].total, pool_equal_to_plain=same_pool,
           pool_stats=stats_fields(s_k), snapshot_vs_mirror_err=mirror_err,
@@ -2950,20 +3243,21 @@ def node_check(kernels, label: str, nw: dict) -> int:
           oracle_pre_drops=int(stages["pre_drop"].sum()),
           oracle_ipcache_misses=int(stages["ipcache_miss"].sum()),
           oracle_outside_universe=int(stages["outside_universe"].sum()))
-    if (err or not same_replay or not same_pool or mirror_err or bad
-            or s_k.ct_created == 0):
+    if (err or err_super or not same_replay or not same_pool or mirror_err
+            or bad or s_k.ct_created == 0):
         raise SystemExit(f"node_check ({label}): a kernel differs from its "
                          f"plain version, or the oracle disagrees")
-    return err
+    return err, err_super
 
 
 def node_path(kernels, label: str, nw: dict) -> dict:
     """The node world's pair path: N_PAIRS pairs of 2 x 2,097,152 flows
-    through PersistentPairDispatcher (K = PERSIST_K), the launch counts
-    set to 0 just before and read just after; its outputs against the
-    plain version; then one traced run of the same loop for the device's
-    idle share, and one with CUDA events around each pair's copy and
-    kernel (the device's busy time without the profiler)."""
+    through PersistentPairDispatcher (K = PERSIST_K: PERSISTENT_PAIR), the
+    launch counts set to 0 just before and read just after; its outputs
+    against the plain version; then one traced run of the same loop for
+    the device's idle share and its host-to-device copies, and one with
+    CUDA events around each super-batch's copy and kernel (the device's
+    busy time without the profiler)."""
     from cilium_tpu_torch.device import u32_tensor
     from cilium_tpu_torch.engine import datapath as dp
     from cilium_tpu_torch.engine import verdict
@@ -2983,9 +3277,10 @@ def node_path(kernels, label: str, nw: dict) -> dict:
     results.extend(rem)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t
-    launches = kernels.DATAPATH_PAIR.launches
+    launches = kernels.PERSISTENT_PAIR.launches
+    pair_launches = kernels.DATAPATH_PAIR.launches
     others = {k.name: k.launches for k in kernels.KERNELS
-              if k.launches and k is not kernels.DATAPATH_PAIR}
+              if k.launches and k is not kernels.PERSISTENT_PAIR}
     flows = N_PAIRS * 2 * HALF
     acc_p = verdict.make_counter_buffers(tables.policy)
     tel_p = verdict.make_telemetry_buffers(acc_p.device)
@@ -3012,41 +3307,60 @@ def node_path(kernels, label: str, nw: dict) -> dict:
         traced_ms = (time.perf_counter() - t1) * 1e3
     busy = device_busy(prof)
     busy_ms = sum(busy.values())
+    copies = h2d_copies(prof)
     for key, ms in sorted(busy.items(), key=lambda kv: -kv[1])[:4]:
         print(f"  device {ms:.3f} ms  {key[:90]}", flush=True)
-    # the same loop timed by CUDA events: each pair's copy and kernel
-    # bracketed on the stream (the profiler's later sessions in one
-    # process can miss device rows)
+    # the profiler's later sessions in one process can lose every device
+    # row: then its device time and copies were not measured
+    traced = busy_ms > 0
+    if traced and copies != disp_t.launches:
+        raise SystemExit(f"node ({label}): {copies} host-to-device copies "
+                         f"for {disp_t.launches} super-batches")
+    # the same loop timed by CUDA events: each super-batch's copy and
+    # kernel bracketed on the stream, the host staging before the bracket
     marks = []
     acc_e = verdict.make_counter_buffers(tables.policy)
     tel_e = verdict.make_telemetry_buffers(acc.device)
+    program = dp.persistent_pair_program(PERSIST_K)
+    host = np.empty((PERSIST_K,) + pairs[0].shape, np.uint32)
+    host_t = torch.from_numpy(host.view(np.int32))
     torch.cuda.synchronize()
     t1 = time.perf_counter()
-    for p in pairs:
+    for i in range(0, N_PAIRS, PERSIST_K):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
+        # the dispatcher's staging: torch's copy into the reused buffer
+        for dst, p in zip(host_t, pairs[i:i + PERSIST_K]):
+            dst.copy_(torch.from_numpy(p.view(np.int32)))
         start.record()
-        _, _, acc_e, tel_e = dp.datapath_step_accum_pair_telem_packed4_stacked(
-            tables, u32_tensor(p, acc_e.device), acc_e, tel_e)
+        stacked = u32_tensor(host, acc_e.device)
+        _, _, acc_e, tel_e = program(tables, stacked, acc_e, tel_e)
         end.record()
         marks.append((start, end))
     torch.cuda.synchronize()
     events_wall_ms = (time.perf_counter() - t1) * 1e3
     events_busy_ms = sum(a.elapsed_time(b) for a, b in marks)
     phase("node", t, world=label, pairs=N_PAIRS, k=PERSIST_K,
-          launches=launches, verdicts_per_s=round(flows / wall),
+          persistent_pair_launches=launches,
+          datapath_pair_launches=pair_launches,
+          h2d_copies=copies if traced else "not_measured",
+          verdicts_per_s=round(flows / wall),
           wall_s=round(wall, 6), max_abs_err=err,
-          traced_wall_ms=round(traced_ms, 3), device_busy_ms=round(busy_ms, 3),
-          device_idle_share=round(1 - busy_ms / traced_ms, 4),
+          traced_wall_ms=round(traced_ms, 3),
+          device_busy_ms=(round(busy_ms, 3) if traced
+                          else "not_measured"),
+          device_idle_share=(round(1 - busy_ms / traced_ms, 4) if traced
+                             else "not_measured"),
           events_wall_ms=round(events_wall_ms, 3),
           events_busy_ms=round(events_busy_ms, 3),
           events_idle_share=round(1 - events_busy_ms / events_wall_ms, 4),
           telemetry=json.dumps(dict(zip(verdict.TELEM_NAMES, telem))))
-    if (launches != N_PAIRS or others or len(results) != N_PAIRS or err
-            or telem[verdict.TELEM_TOTAL] != flows):
-        raise SystemExit(f"node ({label}): {launches} launches for "
-                         f"{N_PAIRS} pairs, others {others}, error {err}")
-    return dict(launches=launches, err=err)
+    if (launches != N_PAIRS // PERSIST_K or others or len(results) != N_PAIRS
+            or err or telem[verdict.TELEM_TOTAL] != flows):
+        raise SystemExit(f"node ({label}): {launches} PERSISTENT_PAIR "
+                         f"launches for {N_PAIRS} pairs at K = {PERSIST_K}, "
+                         f"others {others}, error {err}")
+    return dict(launches=launches, pair_launches=pair_launches, err=err)
 
 
 def datapath_timing(kernels, tables, wide_t, pair, pool, picks) -> dict:
@@ -3156,18 +3470,22 @@ def node_phases(kernels, w5, tables5, wide5, rows) -> None:
     """Both node worlds (node_world, node_check, node, node_timing), then
     config 5's DATAPATH_PAIR and DATAPATH_STEP timed again in the same
     run, and the pair with one node-layout plane at a time
-    (node_planes); the results go into the two kernels' rows: launches
-    of each world's path (`launches_by_path`), the worst error, per
-    layout instantiation the time, plain time and bound (`by_layout`),
-    and per swapped plane (`by_plane`)."""
+    (node_planes); the results go into the kernels' rows: launches of
+    each world's path (`launches_by_path`, PERSISTENT_PAIR's and
+    DATAPATH_PAIR's), the worst error, per layout instantiation the time,
+    plain time and bound (`by_layout`), and per swapped plane
+    (`by_plane`)."""
     from cilium_tpu_torch.convert import flow_pool_to
 
-    timing, launches, err = {}, {}, 0
+    timing, launches, pair_launches, err, err_super = {}, {}, {}, 0, 0
     for label in NODE_WORLDS:
         nw = node_world_phase(kernels, label)
-        err = max(err, node_check(kernels, label, nw))
+        e_pair, e_super = node_check(kernels, label, nw)
+        err = max(err, e_pair)
         run = node_path(kernels, label, nw)
+        err_super = max(err_super, e_super, run["err"])
         launches[label] = run["launches"]
+        pair_launches[label] = run["pair_launches"]
         t = time.perf_counter()
         w = nw["w"]
         pair = torch.from_numpy(w.pairs(seed=61, half=HALF, k=1)[0].view(
@@ -3218,8 +3536,12 @@ def node_phases(kernels, w5, tables5, wide5, rows) -> None:
             r["by_plane"] = {k: {f: v[f] for f in (
                 "layout", "ms", "plain_ms", "bound_ms", "bound_by")}
                 for k, v in planes.items()}
-            r["launches_by_path"] = {"main": r["launches"], **launches}
+            r["launches_by_path"].update(pair_launches)
             r["launches"] = sum(r["launches_by_path"].values())
+        if r["name"] == kernels.PERSISTENT_PAIR.name:
+            r["launches_by_path"].update(launches)
+            r["launches"] = sum(r["launches_by_path"].values())
+            r["max_abs_err"] = max(r["max_abs_err"], err_super)
 
 
 # -- policy publication ----------------------------------------------------------
@@ -3763,46 +4085,50 @@ def rules_check(kernels, r) -> int:
     return launches
 
 
+def rule_step(d, compiles, port, label) -> dict:
+    """One of bench.py's update steps: add_one_rule on `port`, the
+    daemon's regenerate_all, published_device(); its split in ms (the
+    fleet compiles from `compiles`, timed_compiles' list), its publish
+    mode and bytes, and the epoch's error against its host tables."""
+    from cilium_tpu_torch import world
+
+    em = d.endpoint_manager
+    n_comp = len(compiles)
+    t0 = time.perf_counter()
+    world.add_one_rule(d, port, label_prefix="bench-delta")
+    t1 = time.perf_counter()
+    d.regenerate_all("delta-update bench")
+    t2 = time.perf_counter()
+    _, dev, _ = em.published_device()
+    t3 = time.perf_counter()
+    st = em.last_publish_stats
+    host = em.published()[1]
+    rec = dict(mode=st.mode, bytes_h2d=st.bytes_h2d,
+               policy_add_ms=(t1 - t0) * 1e3,
+               map_states_ms=(t2 - t1 - sum(compiles[n_comp:])) * 1e3,
+               compile_ms=sum(compiles[n_comp:]) * 1e3,
+               delta_for_ms=(t3 - t2 - st.seconds) * 1e3,
+               publish_ms=st.seconds * 1e3, update_ms=(t3 - t0) * 1e3,
+               epoch_err=epoch_err(dev, host))
+    print(f"  rule_update {label}{port}: " + " ".join(
+        f"{k}={round(v, 3) if isinstance(v, float) else v}"
+        for k, v in rec.items()), flush=True)
+    return rec
+
+
 def rule_update(kernels, r) -> int:
     """rule_update: bench.py's incremental update from a rule on the
     card: add_one_rule, the daemon's regenerate_all, published_device()
     (delta_for and PUBLISH_SCATTER); 3 priming steps, then 8 timed ones
     on fresh ports; every timed step a delta and every epoch equal to
     its host tables.  Returns PUBLISH_SCATTER's launches."""
-    from cilium_tpu_torch import world
-
     t = time.perf_counter()
     d = r["rw"].daemon
-    em = d.endpoint_manager
-    compiles = timed_compiles(em)
-
-    def step(port, label):
-        n_comp = len(compiles)
-        t0 = time.perf_counter()
-        world.add_one_rule(d, port, label_prefix="bench-delta")
-        t1 = time.perf_counter()
-        d.regenerate_all("delta-update bench")
-        t2 = time.perf_counter()
-        _, dev, _ = em.published_device()
-        t3 = time.perf_counter()
-        st = em.last_publish_stats
-        host = em.published()[1]
-        rec = dict(mode=st.mode, bytes_h2d=st.bytes_h2d,
-                   policy_add_ms=(t1 - t0) * 1e3,
-                   map_states_ms=(t2 - t1 - sum(compiles[n_comp:])) * 1e3,
-                   compile_ms=sum(compiles[n_comp:]) * 1e3,
-                   delta_for_ms=(t3 - t2 - st.seconds) * 1e3,
-                   publish_ms=st.seconds * 1e3, update_ms=(t3 - t0) * 1e3,
-                   epoch_err=epoch_err(dev, host))
-        print(f"  rule_update {label}{port}: " + " ".join(
-            f"{k}={round(v, 3) if isinstance(v, float) else v}"
-            for k, v in rec.items()), flush=True)
-        return rec
-
-    prime = [step(p, "prime") for p in RULE_PRIME_PORTS]
+    compiles = timed_compiles(d.endpoint_manager)
+    prime = [rule_step(d, compiles, p, "prime") for p in RULE_PRIME_PORTS]
     torch.cuda.synchronize()
     reset_counts(kernels)
-    timed = [step(p, "timed") for p in RULE_TIMED_PORTS]
+    timed = [rule_step(d, compiles, p, "timed") for p in RULE_TIMED_PORTS]
     torch.cuda.synchronize()
     launches = kernels.PUBLISH_SCATTER.launches
     med = {k: round(float(np.median([s[k] for s in timed])), 3)
@@ -4003,12 +4329,68 @@ def manager_replay(kernels, r) -> int:
     return launches
 
 
+TRACE_PRIME_PORT = 4340
+TRACE_PORTS = tuple(range(4341, 4341 + 8))
+TRACE_SEAMS = ("compiler.compile", "compiler.delta_for", "publish.epoch")
+
+
+def trace_spans(kernels, r) -> None:
+    """trace_spans: rule_update's steps (rule_step) on 8 fresh ports after
+    a priming one, each under a root span of the port's module tracer:
+    every step must export
+    exactly one compiler.compile, one compiler.delta_for and one
+    publish.epoch span in its trace, and publish a delta equal to its
+    host tables.  Prints the seams' median ms beside the step's own split
+    and render_span_tree of the last step."""
+    from collections import Counter
+
+    from cilium_tpu_torch import tracing
+
+    t = time.perf_counter()
+    d = r["rw"].daemon
+    compiles = timed_compiles(d.endpoint_manager)
+    rule_step(d, compiles, TRACE_PRIME_PORT, "prime")
+    tr = tracing.tracer
+    tr.reset(seed=12, sample_rate=1.0)
+    recs, seam_ms, counts = [], {k: [] for k in TRACE_SEAMS}, []
+    for port in TRACE_PORTS:
+        with tr.span("rule_update.step", site="smoke",
+                     attrs={"port": port}) as root:
+            recs.append(rule_step(d, compiles, port, "traced"))
+        spans = tr.get_trace(root.trace_id)
+        counts.append(Counter(sp.name for sp in spans))
+        for sp in spans:
+            if sp.name in seam_ms:
+                seam_ms[sp.name].append(sp.duration_ms)
+    print(tracing.render_span_tree([sp.to_dict() for sp in spans]),
+          end="", flush=True)
+    med = {f"{k}_ms": round(float(np.median(v)), 3)
+           for k, v in seam_ms.items()}
+    split = {k: round(float(np.median([rec[k] for rec in recs])), 3)
+             for k in ("compile_ms", "delta_for_ms", "publish_ms",
+                       "update_ms")}
+    ok = (all(c[k] == 1 for c in counts for k in TRACE_SEAMS)
+          and all(rec["mode"] == "delta" and rec["epoch_err"] == 0
+                  for rec in recs)
+          and tr.dropped == 0)
+    phase("trace_spans", t, steps=len(TRACE_PORTS),
+          spans_per_step=json.dumps(dict(counts[-1])),
+          seams=json.dumps(med), split=json.dumps(split),
+          tracer_overhead_ms=round(tr.overhead_s * 1e3, 3),
+          spans_finished=tr.finished_total, ok=ok)
+    if not ok:
+        raise SystemExit("trace_spans: a step did not export one span per "
+                         "seam, or did not publish a delta equal to its "
+                         "host tables")
+
+
 def rules_phases(kernels, rows) -> None:
     """Config 5 from rules: rules_setup, rules_check, rule_update, shadow,
-    shadow_timing and manager_replay (each resets the launch counts just
-    before its path and reads them just after); SHADOW_DIFF's row is
-    appended to `rows`, and LATTICE's and PUBLISH_SCATTER's rows count
-    these paths' launches too (`launches_by_path`)."""
+    shadow_timing, manager_replay (each resets the launch counts just
+    before its path and reads them just after) and trace_spans (which
+    counts spans); SHADOW_DIFF's row is appended to `rows`, and LATTICE's and
+    PUBLISH_SCATTER's rows count these paths' launches too
+    (`launches_by_path`)."""
     r = rules_setup(kernels)
     n_lat = rules_check(kernels, r)
     n_pub = rule_update(kernels, r)
@@ -4017,6 +4399,7 @@ def rules_phases(kernels, rows) -> None:
     rows.append(shadow_timing(kernels, s))
     del s
     n_lat += manager_replay(kernels, r)
+    trace_spans(kernels, r)
     for row in rows:
         extra = {"lattice": n_lat, "publish_scatter": n_pub}.get(row["name"])
         if extra is not None:
@@ -4648,6 +5031,122 @@ def memo_phases(kernels, w, tables, rows, pub) -> None:
     rows.extend(memo_timing(kernels, tables, chk, path, lat))
 
 
+# -- the persistent pair program (K13) ------------------------------------------
+
+DISPATCH_CHECK_PAIRS = 9  # persistent_check's dispatcher: 2 super-launches + 1
+PERSIST_SITE = "smoke.persistent"
+
+
+def site_calls(site: str) -> tuple:
+    from cilium_tpu_torch.metrics import registry as m
+
+    return (m.jit_cache_hits.get(site), m.jit_cache_misses.get(site),
+            m.datapath_persistent_launches.get(),
+            m.datapath_persistent_pairs.get())
+
+
+def persistent_check(kernels, w, tables) -> dict:
+    """PERSISTENT_PAIR against its plain version on one [4, 2, 4,
+    2,097,152] super-batch of config 5's compact world (15 columns,
+    counters, telemetry); then DISPATCH_CHECK_PAIRS pairs through a
+    PersistentPairDispatcher at site "smoke.persistent", the launch counts
+    set to 0 just before and read just after, against as many plain pair
+    steps: 2 PERSISTENT_PAIR launches and 1 DATAPATH_PAIR remainder, 2
+    calls at the site (a miss and a hit), 1 at its remainder site, and
+    the datapath_persistent_* deltas 2 launches and 8 pairs (the
+    reference's arithmetic, tests/test_subword.py)."""
+    from cilium_tpu_torch.engine import datapath as dp
+    from cilium_tpu_torch.engine import verdict
+
+    t = time.perf_counter()
+    err_super = check_super(tables, w.pairs(seed=43, half=HALF, k=PERSIST_K),
+                            kernels, dp, verdict)
+    pairs = w.pairs(seed=44, half=HALF, k=DISPATCH_CHECK_PAIRS)
+    before = site_calls(PERSIST_SITE)
+    rem0 = site_calls(PERSIST_SITE + ".remainder")
+    disp = dp.PersistentPairDispatcher(
+        tables, PERSIST_K, verdict.make_counter_buffers(tables.policy),
+        verdict.make_telemetry_buffers("cuda"), site=PERSIST_SITE)
+    torch.cuda.synchronize()
+    reset_counts(kernels)
+    got = [r for p in pairs for r in disp.submit(p)]
+    rem, acc, tel = disp.flush()
+    got += rem
+    torch.cuda.synchronize()
+    launches = {k.name: k.launches for k in kernels.KERNELS if k.launches}
+    after = site_calls(PERSIST_SITE)
+    rem1 = site_calls(PERSIST_SITE + ".remainder")
+    deltas = dict(hits=after[0] - before[0], misses=after[1] - before[1],
+                  persistent_launches=after[2] - before[2],
+                  persistent_pairs=after[3] - before[3],
+                  remainder_calls=rem1[0] + rem1[1] - rem0[0] - rem0[1])
+    acc_p = verdict.make_counter_buffers(tables.policy)
+    tel_p = verdict.make_telemetry_buffers("cuda")
+    err_disp = 0
+    for p, res in zip(pairs, got):
+        pt = torch.from_numpy(p.view(np.int32)).cuda()
+        pi, pe, acc_p, tel_p = dp.datapath_pair_plain(tables, pt, acc_p, tel_p)
+        err_disp = max(err_disp, compare(res, (pi, pe), dp))
+    torch.cuda.synchronize()
+    err_disp = max(err_disp, buf_err(acc, acc_p), buf_err(tel, tel_p))
+    n_super = DISPATCH_CHECK_PAIRS // PERSIST_K
+    n_rem = DISPATCH_CHECK_PAIRS % PERSIST_K
+    want = {kernels.PERSISTENT_PAIR.name: n_super,
+            kernels.DATAPATH_PAIR.name: n_rem}
+    phase("persistent_check", t, super_batch=f"[{PERSIST_K}, 2, 4, {HALF}]",
+          super_max_abs_err=err_super, pairs=DISPATCH_CHECK_PAIRS,
+          k=PERSIST_K, launches=json.dumps(launches),
+          site=PERSIST_SITE, **deltas, dispatcher_max_abs_err=err_disp)
+    if (err_super or err_disp or launches != want or len(got) != len(pairs)
+            or disp.launches != n_super
+            or deltas["hits"] + deltas["misses"] != n_super
+            or deltas["persistent_launches"] != n_super
+            or deltas["persistent_pairs"] != n_super * PERSIST_K
+            or deltas["remainder_calls"] != n_rem):
+        raise SystemExit("persistent_check: PERSISTENT_PAIR differs from its "
+                         "plain version, or the dispatcher's launches or "
+                         "counts are not the reference's")
+    return dict(err=max(err_super, err_disp), launches=launches)
+
+
+def persistent_timing(kernels, tables, pairs) -> dict:
+    """PERSISTENT_PAIR's ms per super-batch over 20 launches on the first
+    PERSIST_K pairs pre-staged on the card, beside 4 x DATAPATH_PAIR's on
+    the same pairs, the plain version's ms (one call) and the bound: the
+    bytes these K pairs need (needed_bytes over the super-batch: the
+    stream of every pair, each distinct table row across the K pairs
+    once) at 3.35 TB/s, or their operations (flow_ops) at 67 T/s,
+    whichever is larger.  Scratch carries; launches not counted."""
+    from cilium_tpu_torch.engine import datapath as dp
+    from cilium_tpu_torch.engine import verdict
+
+    t = time.perf_counter()
+    stacked = torch.from_numpy(np.stack(pairs[:PERSIST_K]).view(
+        np.int32)).cuda()
+    acc = verdict.make_counter_buffers(tables.policy)
+    tel = verdict.make_telemetry_buffers("cuda")
+    ms = event_ms(lambda: kernels.PERSISTENT_PAIR(tables, stacked, acc, tel),
+                  20)
+
+    def pair_loop():
+        for k in range(PERSIST_K):
+            kernels.DATAPATH_PAIR(tables, stacked[k], acc, tel)
+
+    pair_ms = event_ms(pair_loop, 20)
+    plain_ms = once_ms(lambda: dp.persistent_pair_plain(tables, stacked, acc,
+                                                        tel))
+    need, per_flow = needed_bytes(tables, stacked, dp, verdict, kernels)
+    per_flow_ops, egress_ops = flow_ops(tables)
+    ops = (per_flow_ops * 2 + egress_ops) * HALF * PERSIST_K
+    bb, bo = need / HBM_BYTES_PER_S * 1e3, ops / OPS_PER_S * 1e3
+    phase("persistent_timing", t, k=PERSIST_K, half=HALF, ms=round(ms, 4),
+          datapath_pair_x4_ms=round(pair_ms, 4), plain_ms=round(plain_ms, 4),
+          bytes=need, ops=ops, bound_bytes_ms=round(bb, 4),
+          bound_ops_ms=round(bo, 4), row_bytes_per_flow=round(per_flow, 2),
+          verdicts_per_s=round(PERSIST_K * 2 * HALF / (ms / 1e3)))
+    return dict(ms=ms, pair_ms=pair_ms, plain_ms=plain_ms, bb=bb, bo=bo)
+
+
 def device_busy(prof) -> dict:
     """Device time per kernel or copy from a profiler run, each once (a
     host op such as aten::copy_ also reports its copy's device time)
@@ -4767,7 +5266,11 @@ def main() -> int:
     phase("timing", t, kernel_ms=round(kernel_ms, 4),
           plain_ms=round(plain_ms, 4))
 
-    # -- the main path: the persistent pair dispatcher
+    # -- PERSISTENT_PAIR against its plain version, the dispatcher's counts
+    pchk = persistent_check(kernels, w, tables)
+
+    # -- the main path: the persistent pair dispatcher (PERSISTENT_PAIR,
+    # one copy and one launch per K pairs)
     pairs = w.pairs(seed=42, half=HALF, k=N_PAIRS)
     acc = verdict.make_counter_buffers(tables.policy)
     tel = verdict.make_telemetry_buffers(acc.device)
@@ -4782,14 +5285,19 @@ def main() -> int:
     results.extend(rem)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t
-    launches = kernels.DATAPATH_PAIR.launches
-    others = {k.name: k.launches for k in kernels.KERNELS[1:]}
+    launches = kernels.PERSISTENT_PAIR.launches
+    pair_launches = kernels.DATAPATH_PAIR.launches
+    others = {k.name: k.launches for k in kernels.KERNELS
+              if k.launches and k is not kernels.PERSISTENT_PAIR}
     flows = N_PAIRS * 2 * HALF
-    phase("main_path", t, pairs=N_PAIRS, k=PERSIST_K, launches=launches,
+    phase("main_path", t, pairs=N_PAIRS, k=PERSIST_K,
+          persistent_pair_launches=launches,
+          datapath_pair_launches=pair_launches,
           super_launches=disp.launches, verdicts_per_s=round(flows / wall))
-    if launches != N_PAIRS or len(results) != N_PAIRS or any(others.values()):
-        raise SystemExit(f"{launches} kernel launches for {N_PAIRS} pairs, "
-                         f"others {others}")
+    if (launches != N_PAIRS // PERSIST_K or len(results) != N_PAIRS
+            or others):
+        raise SystemExit(f"{launches} PERSISTENT_PAIR launches for {N_PAIRS} "
+                         f"pairs at K = {PERSIST_K}, others {others}")
     telem = (tel.cpu().to(torch.int64) & 0xFFFFFFFF).sum(dim=0).tolist()
     print("  telemetry", json.dumps(dict(zip(verdict.TELEM_NAMES, telem))),
           flush=True)
@@ -4831,11 +5339,17 @@ def main() -> int:
         traced_ms = (time.perf_counter() - t1) * 1e3
     busy = device_busy(prof)
     busy_ms = sum(busy.values())
+    copies = h2d_copies(prof)
     for key, ms in sorted(busy.items(), key=lambda kv: -kv[1])[:6]:
         print(f"  device {ms:.3f} ms  {key[:90]}", flush=True)
     phase("main_path_trace", t, wall_ms=round(traced_ms, 3),
           device_busy_ms=round(busy_ms, 3),
-          device_idle_share=round(1 - busy_ms / traced_ms, 4))
+          device_idle_share=round(1 - busy_ms / traced_ms, 4),
+          super_launches=disp_t.launches, h2d_copies=copies,
+          h2d_copies_per_super_batch=copies / max(disp_t.launches, 1))
+    if copies != disp_t.launches:
+        raise SystemExit(f"main_path_trace: {copies} host-to-device copies "
+                         f"for {disp_t.launches} super-batches")
 
     # -- the bound: what the timed pair's data needs moved (see
     # needed_bytes), or its operations, whichever takes longer
@@ -4856,6 +5370,9 @@ def main() -> int:
           kernel_ms_per_pair=round(kernel_ms, 4),
           kernel_verdicts_per_s=round(b2 / (kernel_ms / 1e3)))
 
+    # -- PERSISTENT_PAIR per super-batch beside 4 x DATAPATH_PAIR
+    ptim = persistent_timing(kernels, tables, pairs)
+
     # -- the pair kernel on the wide layouts: one full pair, exact
     t = time.perf_counter()
     err_wide = check_pairs(wide_t, full, kernels, dp, verdict)
@@ -4868,10 +5385,27 @@ def main() -> int:
 
     rows = [kernel_row(
         kernels.DATAPATH_PAIR, "cilium_tpu_torch/csrc/datapath.cu",
-        "cilium_tpu/engine/datapath.py:801", launches,
-        max(err_full, err_small, err_stash, err_main, err_wide), kernel_ms,
+        "cilium_tpu/engine/datapath.py:801", pair_launches,
+        max(err_full, err_small, err_stash, err_wide), kernel_ms,
         plain_ms, bound_bytes_ms, bound_ops_ms,
+    ), kernel_row(
+        kernels.PERSISTENT_PAIR, "cilium_tpu_torch/csrc/datapath.cu",
+        "cilium_tpu/engine/datapath.py:922", launches,
+        max(pchk["err"], err_main), ptim["ms"], ptim["plain_ms"], ptim["bb"],
+        ptim["bo"],
     )]
+    rows[1]["datapath_pair_x4_ms"] = ptim["pair_ms"]
+    # DATAPATH_PAIR's launches by path: the main path's (the dispatcher's
+    # remainder, none at K = 4 over 8 pairs), persistent_check's dispatcher
+    # remainder, and the node and combined paths below
+    rows[0]["launches_by_path"] = {
+        "main": pair_launches,
+        "persistent_check": pchk["launches"][kernels.DATAPATH_PAIR.name]}
+    rows[1]["launches_by_path"] = {
+        "main": launches,
+        "persistent_check": pchk["launches"][kernels.PERSISTENT_PAIR.name]}
+    for r in rows[:2]:
+        r["launches"] = sum(r["launches_by_path"].values())
     del pairs, results, full, disp, disp_t
     torch.cuda.empty_cache()
 
@@ -4887,12 +5421,16 @@ def main() -> int:
     rows.append(l7_http_phase(kernels))
     rows.append(l7_kafka_phase(kernels))
     rows.append(proxy_phases(kernels, rows[-2], rows[-1]))
-    rows.append(combined_phase(kernels, w, tables, fleet))
+    fleet_row, combined_pairs = combined_phase(kernels, w, tables, fleet)
+    rows.append(fleet_row)
+    rows[0]["launches_by_path"]["combined"] = combined_pairs
+    rows[0]["launches"] += combined_pairs
     rows.extend(lattice_phases(kernels, w, tables, wide_t))
     torch.cuda.empty_cache()
     config6_phases(kernels, w, tables, wide_t, rows)
     torch.cuda.empty_cache()
     replay_phases(kernels, w, tables, wide_t, rows)
+    flow_capture(kernels, w, tables)
     torch.cuda.empty_cache()
     node_phases(kernels, w, tables, wide_t, rows)
     torch.cuda.empty_cache()

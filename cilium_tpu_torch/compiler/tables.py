@@ -973,10 +973,18 @@ class FleetCompiler:
         the cached one.  A `universe_token` equal to the previous
         compile's skips the identity-set diff (the caller warrants the
         ids are unchanged).  Returns (tables, ep_id -> endpoint-axis
-        index)."""
-        with self._compile_lock:
-            return self._compile_locked(endpoints, identity_ids,
-                                        universe_token)
+        index).  Runs under a `compiler.compile` span."""
+        from cilium_tpu_torch import tracing
+
+        with self._compile_lock, tracing.tracer.span(
+            "compiler.compile", site="compiler",
+            attrs={"endpoints": len(endpoints)},
+        ) as sp:
+            tables, index = self._compile_locked(endpoints, identity_ids,
+                                                 universe_token)
+            sp.attrs["identities"] = len(self._id_list)
+            sp.attrs["slots"] = len(self._slot_list)
+            return tables, index
 
     def _compile_locked(self, endpoints, identity_ids, universe_token=None):
         prev_id_len = len(self._id_list)
@@ -1100,10 +1108,14 @@ class FleetCompiler:
         `base_stamp` to `tables` (this compiler's latest compile), or
         None when none can be derived (unknown base, a record gap, another
         compiler) and the caller must upload in full.  Scatter values
-        are fresh copies taken from `tables`."""
+        are fresh copies taken from `tables`.  Runs under a
+        `compiler.delta_for` span."""
+        from cilium_tpu_torch import tracing
         from cilium_tpu_torch.compiler.delta import LeafUpdate, TableDelta
 
-        with self._compile_lock:
+        with self._compile_lock, tracing.tracer.span(
+            "compiler.delta_for", site="compiler"
+        ):
             if not base_stamp:
                 return None
             if (base_stamp >> 32) != self._instance_nonce:

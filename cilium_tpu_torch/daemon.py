@@ -28,10 +28,13 @@ Not here yet, each with the ROADMAP item it waits for (queue 1 items
 kvstore and its identity and ip publish, clustermesh, the FQDN poller,
 the policy trigger and controllers, endpoint restore from a state
 directory, the REST API, the serving plane and its dispatch, the
-shadow plane's wiring, the monitor bus, and the tracer's spans
-(`trace_tuple` with them).  The regeneration sweep keeps its SpanStats
-phases ("policy", "proxy", "policy_redirects", "total") in
-`last_regen_spans` and accumulates them in `regen_spans`.
+shadow plane's wiring and `trace_tuple`.  The regeneration sweep runs
+under a `daemon.regenerate` span of `tracing.tracer` (`Daemon.tracer`),
+the proxy's upcalls and the endpoint manager's compile spans nested
+under it, and the proxy's access records go to `Daemon.monitor` (a
+MonitorBus).  It keeps its SpanStats phases ("policy", "proxy",
+"policy_redirects", "total"; "total" through a StatSpan, one clock with
+its span) in `last_regen_spans` and accumulates them in `regen_spans`.
 """
 
 from __future__ import annotations
@@ -42,7 +45,7 @@ from collections import Counter as _Counter
 from typing import List, Optional, Tuple
 
 from cilium_tpu_torch import logging as logfields
-from cilium_tpu_torch import option
+from cilium_tpu_torch import option, tracing
 from cilium_tpu_torch.compiler.selectorcache import RuleIndex, SelectorCache
 from cilium_tpu_torch.endpoint import Endpoint, EndpointManager
 from cilium_tpu_torch.endpoint.endpoint import (
@@ -59,6 +62,7 @@ from cilium_tpu_torch.ipcache.ipcache import (
 from cilium_tpu_torch.ipcache.lpm import LPMBuilder
 from cilium_tpu_torch.logging import get_logger
 from cilium_tpu_torch.metrics import registry as metrics
+from cilium_tpu_torch.monitor.bus import MonitorBus
 from cilium_tpu_torch.policy.repository import Repository
 from cilium_tpu_torch.proxy import Proxy
 from cilium_tpu_torch.spanstat import SpanStats
@@ -113,7 +117,13 @@ class Daemon:
         # endpoint selectors of rules changed since the last sweep;
         # None = a non-policy reason forced a full sweep
         self._pending_rule_selectors: Optional[list] = []
-        self.proxy = Proxy(device=device)
+        # the monitor bus (the proxy's access records land there) and
+        # the process-global tracer: the regeneration sweep's root span
+        # parents the proxy upcalls, and the compile and publish spans
+        # of the endpoint manager nest under whatever span is active
+        self.monitor = MonitorBus()
+        self.proxy = Proxy(monitor=self.monitor, device=device)
+        self.tracer = tracing.tracer
         # accumulated per-phase regeneration spans (pkg/spanstat; the
         # reference logs one SpanStat per phase, policy.go:689-699)
         self.regen_spans = SpanStats()
@@ -223,12 +233,18 @@ class Daemon:
 
     def regenerate_all(self, reason: str = "") -> int:
         with self._regen_lock:
-            return self._regenerate_all_locked(reason)
+            # the sweep's root span: proxy upcalls and the compile
+            # spans of the sweep nest under it
+            with self.tracer.span("daemon.regenerate", site="daemon",
+                                  attrs={"reason": reason}):
+                return self._regenerate_all_locked(reason)
 
     def _regenerate_all_locked(self, reason: str = "") -> int:
         stats = SpanStats()  # fresh per run: the histogram observes
         # THIS run's duration; regen_spans accumulates across runs
-        total_span = stats.span("total").start()
+        total_span = tracing.stat_span(
+            stats, "total", site="daemon.regenerate", trc=self.tracer
+        ).start()
         cache, cache_version = (
             self.identity_allocator.identity_cache_versioned()
         )

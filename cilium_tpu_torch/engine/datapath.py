@@ -26,7 +26,11 @@ On a CUDA tensor `datapath_step_accum_pair_telem_packed4_stacked`
 launches the hand-written kernel (kernels.py, csrc/datapath.cu); on a
 CPU tensor it runs `datapath_pair_plain`, the plain PyTorch version
 of the same step.  The carried counter and telemetry buffers are
-updated in place and returned.
+updated in place and returned.  `persistent_pair_program(k)` runs K
+pair steps over a [K, 2, 4, B] super-batch: one PERSISTENT_PAIR launch
+on CUDA tensors, `persistent_pair_plain` on CPU tensors; the headline's
+`PersistentPairDispatcher` stages K host pairs, copies them as one
+super-batch and launches it once.
 
 The single-batch step (the reference's `datapath_step`, which its
 churn loop runs) takes each flow's own direction, writes the identity
@@ -662,46 +666,184 @@ def subword_datapath_tables(dtables: DatapathTables) -> DatapathTables:
     )
 
 
+# -- the persistent pair program (K13) -------------------------------------------
+
+
+def _stack_verdicts(outs) -> DatapathVerdicts:
+    return DatapathVerdicts(**{
+        c: torch.stack([getattr(o, c) for o in outs]) for c in VERDICT_COLUMNS
+    })
+
+
+def persistent_pair_plain(tables: DatapathTables, pairs: torch.Tensor,
+                          acc: torch.Tensor, telem: torch.Tensor):
+    """Plain version of the persistent pair program: datapath_pair_plain
+    over pairs[k] for each k of a [K, 2, 4, B] super-batch in order, the
+    carry threaded through, the columns stacked [K, B].  Returns
+    (outs_in, outs_eg, acc, telem); acc and telem are updated in place."""
+    outs_i, outs_e = [], []
+    for k in range(int(pairs.shape[0])):
+        out_i, out_e, acc, telem = datapath_pair_plain(tables, pairs[k], acc,
+                                                       telem)
+        outs_i.append(out_i)
+        outs_e.append(out_e)
+    return _stack_verdicts(outs_i), _stack_verdicts(outs_e), acc, telem
+
+
+def _launch_class(tables: DatapathTables, pairs: torch.Tensor) -> tuple:
+    """What a jit trace of the reference keys on: the device, the
+    super-batch's shape (K and B) and the tables' plane layouts."""
+    ipc = tables.ipcache
+    return (
+        pairs.device.type, tuple(pairs.shape),
+        type(tables.prefilter).__name__, type(tables.lb).__name__,
+        type(ipc).__name__, bool(getattr(ipc, "values_are_idx", False)),
+        bool(getattr(ipc, "l3_planes", False)),
+        int(getattr(tables.ct, "entry_words", 5)), tables.tunnel is not None,
+    )
+
+
+def _persistent_pair(tables: DatapathTables, pairs: torch.Tensor,
+                     acc: torch.Tensor, telem: torch.Tensor):
+    """K pair steps over `pairs` [K, 2, 4, B]: one PERSISTENT_PAIR launch
+    on CUDA tensors, the plain version on CPU tensors."""
+    if pairs.device.type == "cuda":
+        from cilium_tpu_torch import kernels
+
+        return kernels.PERSISTENT_PAIR(tables, pairs, acc, telem)
+    if pairs.device.type == "cpu":
+        return persistent_pair_plain(tables, pairs, acc, telem)
+    raise ValueError(f"unsupported device {pairs.device}")
+
+
+class _Program:
+    """A pair program with the launch classes it has run (device, K, B
+    and table layouts) behind `_cache_size()`, as a jit function's cache
+    counts its traces: tracing.track_jit reads it.  `k` set: the program
+    takes [k, 2, 4, B] super-batches; None: one [2, 4, B] pair."""
+
+    def __init__(self, fn, k: Optional[int] = None) -> None:
+        self.fn = fn
+        self.k = k
+        self._classes = set()
+
+    def _cache_size(self) -> int:
+        return len(self._classes)
+
+    def __call__(self, tables: DatapathTables, pairs: torch.Tensor,
+                 acc: torch.Tensor, telem: torch.Tensor):
+        if self.k is None:
+            self._classes.add(_launch_class(tables, pairs[None]))
+        elif pairs.dim() != 4 or int(pairs.shape[0]) != self.k:
+            raise ValueError(f"the program takes [{self.k}, 2, 4, B] pairs, "
+                             f"got {tuple(pairs.shape)}")
+        else:
+            self._classes.add(_launch_class(tables, pairs))
+        return self.fn(tables, pairs, acc, telem)
+
+
+_PERSISTENT_PROGRAMS = {}
+
+
+def persistent_pair_program(k_pairs: int) -> _Program:
+    """The persistent fused-pair program for K pairs (K13):
+    fn(tables, pairs [K, 2, 4, B], acc, telem) -> (outs_in, outs_eg, acc,
+    telem), the 15 columns of pair k at index k of each [K, B] output
+    column, acc and telem updated in place.  Bit-identical per pair to
+    K datapath_step_accum_pair_telem_packed4_stacked calls in order.  On
+    CUDA tensors one PERSISTENT_PAIR launch; on CPU tensors the plain
+    version.  One program per K, as the reference caches one jit per K."""
+    k = int(k_pairs)
+    if k not in _PERSISTENT_PROGRAMS:
+        _PERSISTENT_PROGRAMS[k] = _Program(_persistent_pair, k)
+    return _PERSISTENT_PROGRAMS[k]
+
+
+# the dispatcher's remainder: the per-pair step, tracked as the
+# reference's per-pair jit is
+_PAIR_PROGRAM = _Program(datapath_step_accum_pair_telem_packed4_stacked)
+
+
 class PersistentPairDispatcher:
-    """Host side of the headline loop: stages up to `k_pairs` packed4
-    pair batches, then copies each to the device and runs its pair
-    step, with the counter and telemetry carry kept on the device.
-    `submit(pair)` returns the per-pair (out_in, out_eg) results once
-    K pairs are staged, [] before; `flush()` runs the staged remainder
-    and returns (results, acc, telem)."""
+    """Host side of the persistent program: stages up to `k_pairs`
+    packed4 pair batches ([2, 4, B] u32 host arrays), stacks them into a
+    [K, 2, 4, B] host buffer it allocates once and reuses (torch's copy,
+    on every host thread, into pages already mapped: np.stack runs on one
+    thread and maps a new array every super-batch), ships that as
+    ONE host-to-device copy and ONE launch, and keeps the counter and
+    telemetry carry on the device across launches.  The copy is pageable,
+    so it has read the buffer when it returns.  `submit(pair)`
+    returns the per-pair (out_in, out_eg) results of a completed
+    super-batch (views of its fresh stacked outputs, which no later launch
+    writes), [] while staging; `flush()` runs the staged remainder pair by
+    pair through the per-pair step (DATAPATH_PAIR on the card; padding the
+    super-batch would corrupt the carried counters) and returns (results,
+    acc, telem).  The device is the carry's.
+
+    Each super-launch counts in cilium_jit_cache_{hits,misses}{site}
+    (tracing.track_jit), the remainder's launches at `site + ".remainder"`,
+    and datapath_persistent_launches / _pairs count launches and pairs."""
 
     def __init__(self, tables: DatapathTables, k_pairs: int,
-                 acc: torch.Tensor, telem: torch.Tensor) -> None:
+                 acc: torch.Tensor, telem: torch.Tensor,
+                 site: str = "datapath.persistent") -> None:
+        from cilium_tpu_torch import tracing
+
         self.tables = tables
         self.k = max(int(k_pairs), 1)
         self.acc = acc
         self.telem = telem
         self._staged: List[np.ndarray] = []
+        self._host: Optional[np.ndarray] = None  # the [K, 2, 4, B] stack
+        self._program = tracing.track_jit(persistent_pair_program(self.k),
+                                          site)
+        self._pair_fallback = tracing.track_jit(_PAIR_PROGRAM,
+                                                site + ".remainder")
         self.launches = 0  # super-batch launches (K pair steps each)
 
-    def _run(self, pairs: List[np.ndarray]):
-        results = []
-        for p in pairs:
-            out_i, out_e, self.acc, self.telem = (
-                datapath_step_accum_pair_telem_packed4_stacked(
-                    self.tables, u32_tensor(p, self.acc.device), self.acc,
-                    self.telem,
-                )
-            )
-            results.append((out_i, out_e))
-        return results
-
     def submit(self, pair_host: np.ndarray):
+        from cilium_tpu_torch.metrics import registry as metrics
+
         self._staged.append(pair_host)
         if len(self._staged) < self.k:
             return []
+        stacked = u32_tensor(self._stack(self._staged), self.acc.device)
         staged, self._staged = self._staged, []
+        outs_i, outs_e, self.acc, self.telem = self._program(
+            self.tables, stacked, self.acc, self.telem)
         self.launches += 1
-        return self._run(staged)
+        metrics.datapath_persistent_launches.inc()
+        metrics.datapath_persistent_pairs.inc(value=len(staged))
+        return [
+            (DatapathVerdicts(**{c: getattr(outs_i, c)[i]
+                                 for c in VERDICT_COLUMNS}),
+             DatapathVerdicts(**{c: getattr(outs_e, c)[i]
+                                 for c in VERDICT_COLUMNS}))
+            for i in range(self.k)
+        ]
+
+    def _stack(self, staged: List[np.ndarray]) -> np.ndarray:
+        """np.stack(staged) as u32, into the reused host buffer."""
+        shape = (len(staged),) + np.shape(staged[0])
+        if self._host is None or self._host.shape != shape:
+            self._host = np.empty(shape, np.uint32)
+        host = torch.from_numpy(self._host.view(np.int32))
+        for dst, pair in zip(host, staged):
+            src = np.asarray(pair).astype(np.uint32, copy=False)
+            if src.shape != shape[1:]:
+                raise ValueError("all staged pairs must have the same "
+                                 f"shape, got {src.shape} and {shape[1:]}")
+            dst.copy_(torch.from_numpy(src.view(np.int32)))
+        return self._host
 
     def flush(self):
-        staged, self._staged = self._staged, []
-        results = self._run(staged) if staged else []
+        results = []
+        for pair in self._staged:
+            out_i, out_e, self.acc, self.telem = self._pair_fallback(
+                self.tables, u32_tensor(pair, self.acc.device), self.acc,
+                self.telem)
+            results.append((out_i, out_e))
+        self._staged = []
         return results, self.acc, self.telem
 
 

@@ -692,22 +692,28 @@ class VerdictCache:
             if self._fresh:
                 self._stamp = stamp
                 return True
-            self._flush_locked()
+            self._flush_locked(reason="epoch-stamp", old=self._stamp,
+                               new=stamp)
             self._stamp = stamp
             return True
 
-    def flush(self) -> None:
+    def flush(self, reason: str = "explicit") -> None:
         with self._lock:
-            self._flush_locked()
+            self._flush_locked(reason=reason)
             self._stamp = None
 
-    def _flush_locked(self) -> None:
+    def _flush_locked(self, reason: str, old=None, new=None) -> None:
+        """A fresh buffer; the flush counts in the metrics and lands as
+        a `cache.flush` event on the active span."""
+        from cilium_tpu_torch import tracing
         from cilium_tpu_torch.metrics import registry as metrics
 
         self._rows = self._put(self._factory())
         self._fresh = True
         self.flushes += 1
         metrics.verdict_cache_flushes_total.inc()
+        tracing.add_event("cache.flush", reason=reason, old_stamp=str(old),
+                          new_stamp=str(new))
 
     def account(self, stats) -> dict:
         """Fold one batch's stats row into the counters and the metrics

@@ -183,8 +183,13 @@ class DeviceTableStore:
         """Install `tables` (host arrays) as the new current epoch.
         `delta` must describe every change from the SPARE slot's stamp
         to `tables` (FleetCompiler.delta_for); anything else, or None,
-        uploads in full.  Returns (the device epoch, PublishStats)."""
-        with self._lock:
+        uploads in full.  Returns (the device epoch, PublishStats).  Runs
+        under a `publish.epoch` span."""
+        from cilium_tpu_torch import tracing
+
+        with self._lock, tracing.tracer.span(
+            "publish.epoch", site="engine.publish"
+        ) as sp:
             t0 = time.perf_counter()
             layout = tables_layout_version(tables)
             spare_i = self._cur ^ 1
@@ -230,6 +235,12 @@ class DeviceTableStore:
             stats.epoch = self._epoch
             stats.seconds = time.perf_counter() - t0
             self._sample_bytes()
+            sp.attrs.update(
+                mode=stats.mode, epoch=stats.epoch,
+                bytes_h2d=stats.bytes_h2d,
+                scatter_leaves=stats.scatter_leaves,
+                replaced_leaves=stats.replaced_leaves,
+            )
             return dev, stats
 
     def _sample_bytes(self) -> None:

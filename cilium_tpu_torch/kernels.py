@@ -9,7 +9,8 @@ at import: the CPU tests import this module on a machine with no `nvcc`
 and no card.
 
 `DATAPATH_PAIR(tables, pair, acc, telem)` is the pair step on the
-card and `DATAPATH_STEP(tables, pool, picks)` the single-batch step
+card, `PERSISTENT_PAIR(tables, pairs, acc, telem)` K of them over a
+[K, 2, 4, B] super-batch in one launch (K13), and `DATAPATH_STEP(tables, pool, picks)` the single-batch step
 over pool[:, picks] (or over an [8, B] pack with `picks=None`), in
 each of its forms: a static direction, the raw index or the identity
 as sec_id, counters into a carried `acc`, telemetry into a carried
@@ -336,23 +337,28 @@ class _Library:
             getattr(lib, launch).argtypes = [ctypes.POINTER(args), _P]
             getattr(lib, launch).restype = ctypes.c_int
 
-    def launch(self, launch: str, args, device, name: str) -> None:
-        """Launch on the current stream; raise on a launch error."""
+    def launch(self, launch: str, args, device, name: str, *ints) -> None:
+        """Launch on the current stream, with `ints` between the
+        arguments and the stream; raise on a launch error."""
         lib = self.load()
         stream = torch.cuda.current_stream(device).cuda_stream
-        err = getattr(lib, launch)(ctypes.byref(args), stream)
+        err = getattr(lib, launch)(ctypes.byref(args), *ints, stream)
         if err != 0:
             raise RuntimeError(f"{name} launch failed: CUDA error {err}")
 
 
 class _DatapathLibrary(_Library):
-    """csrc/datapath.cu: DATAPATH_PAIR and DATAPATH_STEP."""
+    """csrc/datapath.cu: DATAPATH_PAIR, DATAPATH_STEP and
+    PERSISTENT_PAIR."""
 
     stem = "datapath"
 
     def bind(self, lib) -> None:
         self.declare(lib, (("launch_datapath_pair", DatapathArgs),
                            ("launch_datapath_step", DatapathArgs)))
+        lib.launch_datapath_persistent.argtypes = [
+            ctypes.POINTER(DatapathArgs), ctypes.c_int, _P]
+        lib.launch_datapath_persistent.restype = ctypes.c_int
         lib.datapath_args_size.argtypes = []
         lib.datapath_args_size.restype = ctypes.c_int
         if lib.datapath_args_size() != ctypes.sizeof(DatapathArgs):
@@ -619,6 +625,33 @@ def _alloc_columns(a: DatapathArgs, shape, dev) -> dict:
     return cols
 
 
+def _pair_args(tables, pairs, acc, telem, dims: int) -> DatapathArgs:
+    """Validate a pair step's inputs (`pairs` [2, 4, B], or with
+    `dims` 4 a super-batch [K, 2, 4, B]) and fill its launch
+    arguments."""
+    dev = pairs.device
+    if dev.type != "cuda":
+        raise ValueError(f"the kernel runs on CUDA tensors, got {dev}")
+    if pairs.dim() != dims or pairs.shape[dims - 3:dims - 1] != (2, 4):
+        lead = "[2, 4, B]" if dims == 3 else "[K, 2, 4, B]"
+        raise ValueError(f"pair must be {lead}, got {tuple(pairs.shape)}")
+    b = int(pairs.shape[-1])
+    if b >= 1 << 31:
+        raise ValueError("half-batch too large")
+    a = DatapathArgs()
+    a.pair = _ptr(pairs, "pair", dev)
+    a.B = b
+    _fill_tables(a, tables, dev)
+    e_count, kg, n = a.n_eps, a.kg, a.n_ids
+    if tuple(acc.shape) != (e_count, 2, kg + n):
+        raise ValueError(f"acc must be [E, 2, Kg + N], got {tuple(acc.shape)}")
+    if tuple(telem.shape) != (2, TELEM_COLS):
+        raise ValueError(f"telem must be [2, {TELEM_COLS}]")
+    a.acc = _ptr(acc, "acc", dev)
+    a.telem = _ptr(telem, "telem", dev)
+    return a
+
+
 class DatapathPairKernel:
     """The pair step on the card (see the module docstring)."""
 
@@ -630,31 +663,8 @@ class DatapathPairKernel:
     def load(self, verbose: bool = False):
         return DATAPATH_LIBRARY.load(verbose)
 
-    def _args(self, tables, pair, acc, telem):
-        """Validate everything and fill the launch arguments."""
-        dev = pair.device
-        if dev.type != "cuda":
-            raise ValueError(f"the kernel runs on CUDA tensors, got {dev}")
-        if pair.dim() != 3 or pair.shape[:2] != (2, 4):
-            raise ValueError(f"pair must be [2, 4, B], got {tuple(pair.shape)}")
-        b = int(pair.shape[2])
-        if b >= 1 << 31:
-            raise ValueError("half-batch too large")
-        a = DatapathArgs()
-        a.pair = _ptr(pair, "pair", dev)
-        a.B = b
-        _fill_tables(a, tables, dev)
-        e_count, kg, n = a.n_eps, a.kg, a.n_ids
-        if tuple(acc.shape) != (e_count, 2, kg + n):
-            raise ValueError(f"acc must be [E, 2, Kg + N], got {tuple(acc.shape)}")
-        if tuple(telem.shape) != (2, TELEM_COLS):
-            raise ValueError(f"telem must be [2, {TELEM_COLS}]")
-        a.acc = _ptr(acc, "acc", dev)
-        a.telem = _ptr(telem, "telem", dev)
-        return a
-
     def __call__(self, tables, pair, acc, telem):
-        a = self._args(tables, pair, acc, telem)
+        a = _pair_args(tables, pair, acc, telem, 3)
         cols = _alloc_columns(a, (2, a.B), pair.device)
         DATAPATH_LIBRARY.launch("launch_datapath_pair", a, pair.device,
                                 self.name)
@@ -719,8 +729,39 @@ class DatapathStepKernel:
         return DatapathVerdicts(**cols)
 
 
+class PersistentPairKernel:
+    """K13 on the card: K pair steps in one launch over a super-batch
+    `pairs` [K, 2, 4, B] (int32 words, pair k's halves at [k, 0] and
+    [k, 1]), every pair's counter hits into the one `acc` and every
+    half's telemetry into the one `telem`, in place.  Returns (outs_in,
+    outs_eg, acc, telem): DatapathVerdicts whose columns are [K, B]
+    views of fresh [K, 2, B] outputs, pair k's at [k]."""
+
+    name = "persistent_pair"
+
+    def __init__(self) -> None:
+        self.launches = 0
+
+    def load(self, verbose: bool = False):
+        return DATAPATH_LIBRARY.load(verbose)
+
+    def __call__(self, tables, pairs, acc, telem):
+        a = _pair_args(tables, pairs, acc, telem, 4)
+        k = int(pairs.shape[0])
+        if not 1 <= k <= 65535:
+            raise ValueError(f"{self.name}: K = {k} pairs, 1 to 65,535")
+        cols = _alloc_columns(a, (k, 2, a.B), pairs.device)
+        DATAPATH_LIBRARY.launch("launch_datapath_persistent", a, pairs.device,
+                                self.name, k)
+        self.launches += 1
+        outs_i = DatapathVerdicts(**{n: v[:, 0] for n, v in cols.items()})
+        outs_e = DatapathVerdicts(**{n: v[:, 1] for n, v in cols.items()})
+        return outs_i, outs_e, acc, telem
+
+
 DATAPATH_PAIR = DatapathPairKernel()
 DATAPATH_STEP = DatapathStepKernel()
+PERSISTENT_PAIR = PersistentPairKernel()
 
 
 # ---------------------------------------------------------------------------
@@ -2283,4 +2324,5 @@ SHADOW_DIFF = ShadowDiffKernel()
 KERNELS = (DATAPATH_PAIR, DATAPATH_STEP, CHURN_COMPACT, CT_DELTA,
            HTTP_MATCH, KAFKA_MATCH, FLEET_L7, LATTICE, LPM_LOOKUP, DATAPATH6,
            PICK_DRAW, DATAPATH_PAIR_MEMO, MEMO_DEDUP, MEMO_CACHE,
-           MEMO_KEYS_LATTICE, PUBLISH_SCATTER, MEMCACHE_MATCH, SHADOW_DIFF)
+           MEMO_KEYS_LATTICE, PUBLISH_SCATTER, MEMCACHE_MATCH, SHADOW_DIFF,
+           PERSISTENT_PAIR)

@@ -1,22 +1,27 @@
-"""Monitor event names the telemetry fold needs, and the L7 access-log
-record.
+"""Monitor event payload types.
 
-The port's copy of the reference's `DROP_REASONS` table and
-`drop_reason_name` (monitor/events.py): the canonical bpf/lib/common.h
-drop-reason strings that `cilium monitor` prints and that label
-cilium_drop_count_total; and `LogRecordNotify`, the proxy's access-log
-record (pkg/proxy/accesslog), with its message type id.  The other
-event payload types and the monitor bus wait for the observability
-plane.
+Port of Cilium's pkg/monitor/{datapath_drop.go,datapath_trace.go,
+agent.go} payloads and the bpf-side structs they decode
+(bpf/lib/drop.h:40 drop_notify, bpf/lib/trace.h trace_notify).
+Message type ids follow bpf/lib/common.h:209-215.  The port's copy of
+the JAX package's module.
 """
 
 from __future__ import annotations
 
-from dataclasses import dataclass
-from typing import Dict
+from dataclasses import dataclass, field
+from typing import Dict, Optional
 
-# agent-level message type of an access-log record (pkg/monitor/messages.go)
+# bpf/lib/common.h:209-215
+NOTIFY_UNSPEC = 0
+NOTIFY_DROP = 1
+NOTIFY_DBG_MSG = 2
+NOTIFY_DBG_CAPTURE = 3
+NOTIFY_TRACE = 4
+# agent-level messages (pkg/monitor/messages.go)
+NOTIFY_AGENT = 5
 NOTIFY_LOG_RECORD = 6
+NOTIFY_POLICY_VERDICT = 7
 
 # bpf/lib/common.h:237-269 drop reasons (negative datapath returns).
 DROP_REASONS: Dict[int, str] = {
@@ -65,6 +70,84 @@ DROP_OVERLOAD = -163
 def drop_reason_name(code: int) -> str:
     """pkg/monitor/datapath_drop.go dropReason."""
     return DROP_REASONS.get(code, f"unknown ({code})")
+
+
+@dataclass
+class DropNotify:
+    """drop_notify (bpf/lib/drop.h:40)."""
+
+    source: int  # endpoint id
+    hash: int = 0
+    orig_len: int = 0
+    cap_len: int = 0
+    src_label: int = 0
+    dst_label: int = 0
+    dst_id: int = 0
+    reason: int = 0  # positive DROP_* magnitude (common.h sign flip)
+    ifindex: int = 0
+
+    type: int = NOTIFY_DROP
+
+
+# trace observation points (bpf/lib/trace.h:30-47)
+TRACE_TO_LXC = 0
+TRACE_TO_PROXY = 1
+TRACE_TO_HOST = 2
+TRACE_TO_STACK = 3
+TRACE_TO_OVERLAY = 4
+TRACE_FROM_LXC = 5
+TRACE_FROM_PROXY = 6
+TRACE_FROM_HOST = 7
+TRACE_FROM_STACK = 8
+TRACE_FROM_OVERLAY = 9
+TRACE_FROM_NETWORK = 10
+
+
+@dataclass
+class TraceNotify:
+    """trace_notify (bpf/lib/trace.h:84 send_trace_notify)."""
+
+    source: int
+    obs_point: int = TRACE_TO_LXC
+    hash: int = 0
+    orig_len: int = 0
+    cap_len: int = 0
+    src_label: int = 0
+    dst_label: int = 0
+    dst_id: int = 0
+    reason: int = 0
+    ifindex: int = 0
+
+    type: int = NOTIFY_TRACE
+
+
+@dataclass
+class PolicyVerdictNotify:
+    """Per-tuple verdict record (the PolicyVerdictNotification option,
+    pkg/option; payload shaped after the drop/trace structs)."""
+
+    source: int
+    src_label: int
+    dst_label: int
+    dport: int
+    proto: int
+    ingress: bool
+    allowed: bool
+    proxy_port: int = 0
+    match_kind: int = 0
+
+    type: int = NOTIFY_POLICY_VERDICT
+
+
+@dataclass
+class AgentNotify:
+    """pkg/monitor/agent.go:27: agent-level event (policy updated,
+    endpoint created/deleted, ...)."""
+
+    kind: str
+    text: str = ""
+
+    type: int = NOTIFY_AGENT
 
 
 @dataclass

@@ -6,9 +6,10 @@ redirect's tables on the host and moves them to `device` (None = the
 card; without one the constructor raises), so every verdict call of
 its redirects runs there: HTTP_MATCH, KAFKA_MATCH and MEMCACHE_MATCH
 on CUDA tensors, their plain versions on CPU tensors.  The monitor is
-any object with `publish` (the reference's MonitorBus waits for the
-observability plane), and the `proxy.upcall` span and fault seam of
-`update_endpoint_redirects` wait for the tracing and fault planes.
+a monitor.MonitorBus (or any object with `publish`), which receives
+one LogRecordNotify per logged request.  `update_endpoint_redirects`
+runs under the `proxy.upcall` span; its fault seam waits for the fault
+plane.
 
 Port of pkg/proxy/proxy.go:
   - proxy-port allocation from a fixed range with reuse per proxy ID
@@ -65,6 +66,7 @@ from cilium_tpu_torch.l7.kafka import (
 )
 from cilium_tpu_torch.l7.proxylib import GenericL7Tables
 from cilium_tpu_torch.metrics import registry as metrics
+from cilium_tpu_torch.monitor.bus import MonitorBus
 from cilium_tpu_torch.monitor.events import LogRecordNotify
 from cilium_tpu_torch.policy.l4 import L4Filter, proxy_id
 from cilium_tpu_torch.proxy.xds import Cache as XDSCache
@@ -144,7 +146,7 @@ def _resolved_fingerprint(parser: str, resolved, n_identities: int):
 class Proxy:
     def __init__(
         self,
-        monitor=None,
+        monitor: Optional[MonitorBus] = None,
         port_min: int = PORT_MIN,
         port_max: int = PORT_MAX,
         device=None,
@@ -560,33 +562,46 @@ class Proxy:
         """addNewRedirects/removeOldRedirects for one endpoint; returns
         the realized proxy-id → port map to feed back into the next
         computeDesiredPolicyMapState.  The endpoint is any object with
-        `id`, `desired_l4_policy` and `realized_redirects`."""
-        realized: Dict[str, int] = {}
-        l4_policy = endpoint.desired_l4_policy
-        wanted = set()
-        if l4_policy is not None:
-            for l4map in (l4_policy.ingress, l4_policy.egress):
-                for f in l4map.values():
-                    if not f.is_redirect():
-                        continue
-                    pid = proxy_id(endpoint.id, f.ingress, f.protocol, f.port)
-                    redirect = self.create_or_update_redirect(
-                        f, pid, endpoint.id, identity_cache,
-                        id_index, n_identities, selector_cache,
-                        wait_group=wait_group,
-                    )
-                    realized[pid] = redirect.proxy_port
-                    wanted.add(pid)
-        with self._lock:
-            stale = [
-                p
-                for p, st in self._pids.items()
-                if st.endpoint_id == endpoint.id and p not in wanted
-            ]
-        for pid in stale:
-            self.remove_redirect(pid)
-        endpoint.realized_redirects = realized
-        return realized
+        `id`, `desired_l4_policy` and `realized_redirects`.  Runs under a
+        `proxy.upcall` span (error status on a failure), so a traced
+        regeneration shows which endpoint's redirect realization cost or
+        failed the sweep.  The reference's fault seam at the start of the
+        span (`faultinject.fire("proxy.upcall")`) waits for the
+        resilience plane."""
+        from cilium_tpu_torch import tracing
+
+        with tracing.tracer.span(
+            "proxy.upcall", site="proxy.upcall",
+            attrs={"endpoint": endpoint.id},
+        ) as sp:
+            realized: Dict[str, int] = {}
+            l4_policy = endpoint.desired_l4_policy
+            wanted = set()
+            if l4_policy is not None:
+                for l4map in (l4_policy.ingress, l4_policy.egress):
+                    for f in l4map.values():
+                        if not f.is_redirect():
+                            continue
+                        pid = proxy_id(endpoint.id, f.ingress, f.protocol,
+                                       f.port)
+                        redirect = self.create_or_update_redirect(
+                            f, pid, endpoint.id, identity_cache,
+                            id_index, n_identities, selector_cache,
+                            wait_group=wait_group,
+                        )
+                        realized[pid] = redirect.proxy_port
+                        wanted.add(pid)
+            with self._lock:
+                stale = [
+                    p
+                    for p, st in self._pids.items()
+                    if st.endpoint_id == endpoint.id and p not in wanted
+                ]
+            for pid in stale:
+                self.remove_redirect(pid)
+            endpoint.realized_redirects = realized
+            sp.attrs["redirects"] = len(realized)
+            return realized
 
     # -- access logging (pkg/proxy/logger) -----------------------------------
 

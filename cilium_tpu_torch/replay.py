@@ -50,8 +50,14 @@ The round repeats (a rerun) while the header's `remaining` says that
 intents lost their slot or were cut by the cap.  On CUDA tensors the
 kernels run, or the call raises; on CPU tensors their plain versions
 run.  `replay`'s and `replay_lattice`'s `manager=` runs the endpoint
-manager's stale-table check first; `replay`'s `flow_store=` (flow
-capture) waits for the flow plane and raises NotImplementedError.
+manager's stale-table check first.  `replay`'s `flow_store=` (a
+flow.FlowStore) folds every drained batch into the flow ring on the
+host (`_FlowCapture`): every drop and the allows that the
+MonitorAggregationLevel's head sample keeps, tagged with `chip`, the
+peer identity on its side of the pair and the record's endpoint id
+(through `ep_map`'s inverse); the columns it reads are copied to the
+host once per batch.  Flow capture is not offered in churn mode, as in
+the reference.
 `sync_counters_to_endpoints` folds the counter totals back into the
 endpoints' realized map states.  The reference's `_guarded_dispatch`
 retry seam waits for the resilience plane; without an injected fault
@@ -629,14 +635,15 @@ def replay(tables: DatapathTables, buf: bytes, batch_size: int = 1 << 20,
            accumulate_counters: bool = True,
            ep_map: Optional[Dict[int, int]] = None, manager=None,
            ct_map=None, collect_telemetry: bool = False, flow_store=None,
-           *, device=None) -> tuple:
+           chip: int = 0, *, device=None) -> tuple:
     """Replay flow records through the fused datapath step on `device`
     (None = the card), where the DatapathTables must already lie
     (convert.tables_to); see the module docstring.  Returns (stats, l4,
     l3): the u64 hit totals [E, 2, Kg] and [E, 2, N] over every batch,
     padding rows' hits included as in the reference, or (stats, None,
-    None) without `accumulate_counters`.  `collect_telemetry` is not
-    offered in churn mode (`ct_map`), as in the reference.  `stats.spans`
+    None) without `accumulate_counters`.  `collect_telemetry` and
+    `flow_store` are not offered in churn mode (`ct_map`), as in the
+    reference.  `stats.spans`
     is a SpanStats; `stats.seconds` covers decode, upload, the steps and
     the drains."""
     from cilium_tpu_torch.metrics import registry as metrics
@@ -651,10 +658,12 @@ def replay(tables: DatapathTables, buf: bytes, batch_size: int = 1 << 20,
         # per-endpoint rows: tables two or more publishes old have had
         # those rows rewritten in place and would answer wrongly
         manager.check_tables_current(tables.policy)
-    if flow_store is not None:
-        raise NotImplementedError(
-            "replay(flow_store=...) waits for the flow plane (ROADMAP "
-            "queue 1 item 6): the port has no flow store")
+    if flow_store is not None and ct_map is not None:
+        raise ValueError(
+            "flow capture is not offered in churn mode (the churn "
+            "programs fuse intent compaction instead of returning "
+            "per-tuple verdict columns)"
+        )
     dev = resolve_device(device)
     if dev.type == "cuda" and dev.index is None:
         dev = torch.device("cuda", torch.cuda.current_device())
@@ -691,14 +700,20 @@ def replay(tables: DatapathTables, buf: bytes, batch_size: int = 1 << 20,
         if since_fold >= fold_every:
             fold_counters()
 
+    capture = None
+    if flow_store is not None:
+        capture = _FlowCapture(flow_store, tables, ep_map, chip)
+
     def drain_item(item) -> None:
         nonlocal telem_total
-        out, valid, fold_direction = item
+        out, valid, fold_direction, flows, sec_is_idx = item
         spans.span("drain").start()
         _drain_fused((out, valid), stats)
         if fold_direction is not None:
             telem_total = telem_total + telemetry_from_outputs(
                 out, fold_direction, valid=valid)
+        if capture is not None:
+            capture(out, flows, valid, sec_is_idx)
         spans.span("drain").end()
 
     churn = picks = None
@@ -743,6 +758,9 @@ def replay(tables: DatapathTables, buf: bytes, batch_size: int = 1 << 20,
             metrics.batch_duration.observe(time.perf_counter() - iter_t0)
             continue
         fold_direction = None
+        # the accumulate forms write the raw lattice index as sec_id,
+        # which the capture translates through id_table (idx form only)
+        sec_is_idx = acc is not None
         spans.span("dispatch").start()
         if acc is not None:
             if telem_dev is not None and valid == batch_size:
@@ -760,7 +778,8 @@ def replay(tables: DatapathTables, buf: bytes, batch_size: int = 1 << 20,
             if telem_total is not None:
                 fold_direction = flows.direction
         spans.span("dispatch").end()
-        pending.append((out, valid, fold_direction))
+        pending.append((out, valid, fold_direction,
+                        flows if capture is not None else None, sec_is_idx))
         stats.batches += 1
         if len(pending) >= 4:
             drain_item(pending.pop(0))
@@ -781,6 +800,71 @@ def replay(tables: DatapathTables, buf: bytes, batch_size: int = 1 << 20,
     fold_counters()
     kg = int(tables.policy.l4_meta.shape[2])
     return stats, acc_total[:, :, :kg], acc_total[:, :, kg:]
+
+
+class _FlowCapture:
+    """The replay's Hubble feed (the reference's `_capture_replay_flows`):
+    one drained batch's DatapathVerdicts folded into the flow ring.  The
+    derived peer identity (sec_id: the source of an ingress flow, the
+    destination of an egress one) rides its side of the pair, the other
+    side is 0 (replay knows no endpoint identities); record endpoint ids
+    go back through `ep_map`'s inverse."""
+
+    def __init__(self, store, tables: DatapathTables,
+                 ep_map: Optional[Dict[int, int]], chip: int) -> None:
+        from cilium_tpu_torch.ipcache.lpm import IPCacheDevice
+
+        self.store = store
+        self.chip = chip
+        self.id_table = tables.policy.id_table.cpu().numpy().view(np.uint32)
+        # sec_id is an index only from the accumulate forms over an
+        # idx-form ipcache (the generic form emits the identity)
+        self.idx_form = bool(isinstance(tables.ipcache, IPCacheDevice)
+                             and tables.ipcache.values_are_idx)
+        self.ep_rev_lut = None
+        if ep_map:
+            self.ep_rev_lut = np.zeros(max(ep_map.values()) + 1, np.int64)
+            for ep_id, idx in ep_map.items():
+                self.ep_rev_lut[idx] = ep_id
+
+    def __call__(self, out: DatapathVerdicts, flows: FlowBatch, valid: int,
+                 sec_is_idx: bool) -> None:
+        from cilium_tpu_torch import option
+        from cilium_tpu_torch.flow import allow_sample_for_level, capture_batch
+
+        def host(t: torch.Tensor) -> np.ndarray:
+            return t[:valid].cpu().numpy()
+
+        sec = host(out.sec_id).view(np.uint32).astype(np.int64)
+        if sec_is_idx and self.idx_form:
+            sec = self.id_table[np.minimum(sec, len(self.id_table) - 1)]
+            sec = sec.astype(np.int64)
+        dirs = host(flows.direction)
+        zeros = np.zeros(valid, np.int64)
+        ep_ids = host(flows.ep_index)
+        if self.ep_rev_lut is not None:
+            ep_ids = self.ep_rev_lut[np.minimum(ep_ids,
+                                                len(self.ep_rev_lut) - 1)]
+        capture_batch(
+            self.store,
+            ep_ids=ep_ids,
+            src_identities=np.where(dirs == 0, sec, zeros),
+            dst_identities=np.where(dirs == 0, zeros, sec),
+            dports=host(out.final_dport),
+            protos=host(flows.proto),
+            directions=dirs,
+            allowed=host(out.allowed),
+            match_kind=host(out.match_kind),
+            proxy_port=host(out.proxy_port),
+            pre_dropped=host(out.pre_dropped),
+            ct_result=host(out.ct_result),
+            ct_delete=host(out.ct_delete),
+            lb_slave=host(out.lb_slave),
+            ipcache_miss=host(out.ipcache_miss),
+            chip=self.chip,
+            allow_sample=allow_sample_for_level(
+                option.Config.opts.level(option.MONITOR_AGGREGATION)),
+        )
 
 
 def slot_keys_from_tables(tables) -> Dict[int, Tuple[int, int]]:

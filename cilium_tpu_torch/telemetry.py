@@ -12,8 +12,9 @@ computed on the host from per-tuple DatapathVerdicts columns, into:
   * summary dicts for status output.
 
 Both folds derive from the one mask set (engine/verdict.py
-`telemetry_masks`), as the reference's do.  The per-chip fold waits for
-the mesh.
+`telemetry_masks`), as the reference's do.  `fold_telemetry_per_chip`
+takes a [n_chips, 2, TELEM_COLS] histogram (one chip on one card) and
+`telemetry_consistent` checks one histogram's invariants.
 """
 
 from __future__ import annotations
@@ -31,6 +32,7 @@ from cilium_tpu_torch.engine.verdict import (
     TELEM_CT_NEW,
     TELEM_CT_RELATED,
     TELEM_CT_REPLY,
+    TELEM_DENIED,
     TELEM_DROP_FRAG,
     TELEM_DROP_POLICY,
     TELEM_DROP_PREFILTER,
@@ -44,6 +46,7 @@ from cilium_tpu_torch.engine.verdict import (
     TELEM_MATCH_NONE,
     TELEM_NAMES,
     TELEM_PROXY_REDIRECT,
+    TELEM_TOTAL,
     telemetry_masks,
 )
 from cilium_tpu_torch.monitor.events import drop_reason_name
@@ -145,6 +148,30 @@ def fold_telemetry(telem, registry=None) -> None:
                 )
 
 
+def fold_telemetry_per_chip(per_chip, registry=None) -> np.ndarray:
+    """Fold a [n_chips, 2, TELEM_COLS] per-chip histogram delta into the
+    registry: the chip-summed total through fold_telemetry, and each
+    chip's rows under the `chip` label of
+    cilium_datapath_telemetry_per_chip_total (summing a column over
+    `chip` gives the total).  Returns the [2, TELEM_COLS] u64 total."""
+    if registry is None:
+        from cilium_tpu_torch.metrics import registry as registry_
+
+        registry = registry_
+    per_chip = np.asarray(per_chip).astype(np.uint64)
+    total = per_chip.sum(axis=0)
+    fold_telemetry(total, registry=registry)
+    for chip in range(per_chip.shape[0]):
+        for d, dname in enumerate(DIRECTION_NAMES):
+            row = per_chip[chip, d]
+            for col, name in enumerate(TELEM_NAMES):
+                if int(row[col]):
+                    registry.telemetry_per_chip.inc(
+                        str(chip), name, dname, value=int(row[col])
+                    )
+    return total
+
+
 def telemetry_summary(telem) -> Dict[str, Dict[str, int]]:
     """{direction: {column name: count}} of a histogram, zero columns
     left out."""
@@ -155,3 +182,20 @@ def telemetry_summary(telem) -> Dict[str, Dict[str, int]]:
             name: int(v) for name, v in zip(TELEM_NAMES, telem[d]) if int(v)
         }
     return out
+
+
+def telemetry_consistent(telem) -> bool:
+    """One histogram's invariants: per direction, the outcomes
+    partition the rows, the drop columns partition the denials and the
+    CT results partition the rows."""
+    telem = np.asarray(telem)
+    ok = True
+    for d in (0, 1):
+        row = [int(v) for v in telem[d]]
+        ok &= row[TELEM_TOTAL] == row[TELEM_FORWARDED] + row[TELEM_DENIED]
+        ok &= row[TELEM_DENIED] == (row[TELEM_DROP_PREFILTER]
+                                    + row[TELEM_DROP_POLICY]
+                                    + row[TELEM_DROP_FRAG])
+        ok &= row[TELEM_TOTAL] == (row[TELEM_CT_NEW] + row[TELEM_CT_ESTABLISHED]
+                                   + row[TELEM_CT_REPLY] + row[TELEM_CT_RELATED])
+    return bool(ok)

@@ -131,7 +131,8 @@ def test_narrow_rows_with_full_stashes_match_jax():
 def test_persistent_dispatcher_matches_jax(seed):
     """K = 3 over 7 pairs: 2 super-batches plus a remainder of one
     pair, against the JAX dispatcher (one scan launch per K pairs);
-    the port runs one kernel-or-plain step per pair."""
+    the port runs one persistent program call per K pairs and the
+    remainder pair by pair."""
     w = world.make_world(seed=seed, **SMALL)
     jt = jax_host_tables(w, subword=True)
     host = tdp.subword_datapath_tables(w.host_tables())

@@ -54,7 +54,10 @@ def test_import_loads_no_jax_and_no_reference_module():
               "cilium_tpu_torch.endpoint.manager",
               "cilium_tpu_torch.endpoint.checkpoint",
               "cilium_tpu_torch.policy.trace", "cilium_tpu_torch.daemon",
-              "cilium_tpu_torch.shadow"):
+              "cilium_tpu_torch.shadow", "cilium_tpu_torch.tracing",
+              "cilium_tpu_torch.monitor", "cilium_tpu_torch.monitor.bus",
+              "cilium_tpu_torch.monitor.dissect", "cilium_tpu_torch.flow",
+              "cilium_tpu_torch.flow.store", "cilium_tpu_torch.flow.capture"):
         assert m in mods
     code = (
         "import importlib, sys\n"

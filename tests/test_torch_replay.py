@@ -342,9 +342,10 @@ def test_replay_churn_mode_matches_jax(tables, monkeypatch):
 
 
 def test_replay_refuses_what_waits_for_later_planes(tables):
-    """flow_store= waits for the flow plane; manager= (since the control
-    plane's port) runs the manager's stale-table check on tables.policy
-    first, and its refusal stops the replay."""
+    """manager= (since the control plane's port) runs the manager's
+    stale-table check on tables.policy first, and its refusal stops the
+    replay; flow_store= (since the flow plane's port) is refused in churn
+    mode, as the reference refuses it."""
     w, _, tts = tables
     buf, _ = _records(w, n=10)
 
@@ -358,8 +359,11 @@ def test_replay_refuses_what_waits_for_later_planes(tables):
     with pytest.raises(ValueError, match="stale"):
         trp.replay(tts["port"], buf, 8, manager=Stale(), device="cpu")
     assert Stale.checked == [tts["port"].policy]
-    with pytest.raises(NotImplementedError, match="flow plane"):
-        trp.replay(tts["port"], buf, 8, flow_store=object(), device="cpu")
+    from cilium_tpu_torch.flow import FlowStore
+
+    with pytest.raises(ValueError, match="churn mode"):
+        trp.replay(tts["port"], buf, 8, flow_store=FlowStore(),
+                   ct_map=convert_ct(w.ct, tct), device="cpu")
 
 
 def test_telemetry_fold_matches_jax(tables):
