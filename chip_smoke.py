@@ -190,7 +190,28 @@ launch counts set to 0 just before it and read just after:
   memo_lattice  memo_evaluate (the daemon's serving shape) through a
              VerdictCache, 8 calls on those tuples (MEMO_KEYS_LATTICE,
              MEMO_DEDUP, MEMO_CACHE), and LATTICE's uncached line; then
-             memo_timing.
+             memo_timing;
+  dense      K8's dense branch (dense_check): DATAPATH_PAIR and
+             DATAPATH_STEP on config 5's headline tables with the
+             policy's hashed L4 leaves set to None (the wide compile's
+             port_slot and l4_allow_bits), a full pair and 2,097,152
+             pool picks, against their plain versions and the hashed
+             tables' run (every column but l4_slot);
+  mesh       the lattice on a mesh (K21): config 5's map states through
+             a FleetCompiler into a partitioned and a replica store on a
+             virtual (2, 4) mesh of the card, the word-sharded and the
+             (8, 1) replicated placements (mesh_setup); the word-sharded,
+             partitioned, failover and sharded evaluators once each over
+             the lattice phase's 4,194,304 tuples (8 MESH_PROBE, 16
+             ROUTED_PROBE, 6 MESH_COMBINE and 8 LATTICE launches); then
+             mesh_check (each kernel against its plain version on every
+             shard and batch row, the evaluators' verdicts, counters and
+             folded per-chip telemetry against LATTICE's, chip (0, 1)
+             dead with and without garbage in its own rows against the
+             healthy mesh, replica_hits > 0), mesh_store_update (a
+             one-rule delta into both stores: the owning shards' rows
+             only, both replica copies, verdicts against LATTICE on a
+             fresh upload) and mesh_timing.
 
 The churn path's int picks are drawn on the card by PICK_DRAW, the
 reference's threefry2x32 randint; churn_check also runs 2 int-pick
@@ -263,6 +284,15 @@ path (`launches_by_path`); MEMCACHE_MATCH's time is one launch on the
 proxy's 1,048,576 packed memcached requests against its 25 rules
 (`wide_ms` at 70 rules), its bound those requests' 15 bytes each, each
 distinct identity row and the rule columns, read or written once.
+MESH_PROBE's, ROUTED_PROBE's and MESH_COMBINE's times are device time
+per launch on shard (0, 0)'s 2,097,152 tuples (the combine over the
+partitioned run's 4 records), 20 launches queued behind a device spin;
+their bounds the tuple words and record words each reads or writes and
+each distinct row the shard's plain version gathers, once; `evaluators`
+the ms and verdicts/s of each evaluator and of LATTICE in the same run.
+DATAPATH_PAIR's row also carries its dense-branch time (`dense_ms`,
+`dense_plain_ms`, `dense_bound_ms`, `dense_max_abs_err`, and
+`dense_hashed_ms` the hashed tables on the same pair).
 
 Map states from rules: the CPU recipe is
 `world.rules_world(n_rules=600, n_endpoints=4, n_identities=256,
@@ -5160,6 +5190,629 @@ def device_busy(prof) -> dict:
     }
 
 
+# -- the lattice on a mesh (K21) and the dense datapath (K8 dense) ---------------
+
+MESH_SHAPE = (2, 4)  # (dp, tp) of the partitioned and failover meshes
+SHARDED_SHAPE = (8, 1)  # make_sharded_evaluator's mesh
+MESH_DEAD = (0, 1)  # the failover check's dead chip
+MESH_VALID_EVERY = 16  # one tuple in 16 is padding in the valid-masked runs
+MESH_UPDATE_PORT = 4331  # the stores' one-rule update (team 0 -> app0)
+MESH_CALLS = 4  # timed calls per evaluator
+MESH_SRC = "cilium_tpu_torch/csrc/mesh.cu"
+
+
+def mesh_telemetry(v, direction, valid=None) -> torch.Tensor:
+    """The [2, TELEM_COLS] telemetry of the lattice's verdicts with the
+    datapath's stages absent (the mesh evaluators' epilogue), summed in
+    plain torch: the single-device side of the per-chip fold."""
+    from cilium_tpu_torch.engine import verdict as vd
+
+    d = direction.to(torch.int64)
+    ok = torch.ones_like(d, dtype=torch.bool) if valid is None else valid
+    zeros = torch.zeros_like(d)
+    masks = vd.telemetry_masks(zeros, zeros, v.match_kind, v.allowed, zeros,
+                               v.proxy_port, zeros, zeros)
+    row_in = torch.stack([(m & (d == 0) & ok).sum() for m in masks])
+    total = torch.stack([(m & ok).sum() for m in masks])
+    return torch.stack([row_in, total - row_in])
+
+
+def rows_differ(got, want, keep=None) -> int:
+    """Rows of two verdict sets that differ in any column."""
+    bad = None
+    for c in ("allowed", "proxy_port", "match_kind"):
+        d = getattr(got, c).to(torch.int64) != getattr(want, c).to(
+            torch.int64)
+        bad = d if bad is None else bad | d
+    if keep is not None:
+        bad = bad & keep
+    return int(bad.sum().item())
+
+
+def entries_differ(a, b) -> int:
+    """Entries of two integer tensors (u32 bits) that differ."""
+    if tuple(a.shape) != tuple(b.shape):
+        return max(a.numel(), b.numel())
+    return int(((a.to(torch.int64) & M32) != (b.to(torch.int64) & M32))
+               .sum().item())
+
+
+def record_rows_differ(a, b) -> int:
+    """Tuples whose partial records [5, B] differ in any row."""
+    return int((a != b).any(dim=0).sum().item())
+
+
+def mesh_out_err(got, want, keep=None) -> int:
+    """Differences between two evaluator outputs (Verdicts, then integer
+    tensors): verdict rows (within `keep`) plus counter entries."""
+    err = rows_differ(got[0], want[0], keep)
+    for a, b in zip(got[1:], want[1:]):
+        err += entries_differ(a, b)
+    return err
+
+
+def dense_check(kernels, tables, dense_pol_host, w) -> dict:
+    """DATAPATH_PAIR and DATAPATH_STEP on config 5's headline tables with
+    the policy's hashed L4 leaves set to None (K8's dense branch: the
+    wide compile's port_slot and l4_allow_bits) against their plain
+    versions on a full pair and 2,097,152 pool picks, and against the
+    hashed tables' run on the same flows (every column but l4_slot,
+    which the dense branch reads for every port with a slot; counters
+    and telemetry equal); PERSISTENT_PAIR at K = 1 on the dense pair
+    against the plain pair.  Then DATAPATH_PAIR's dense time, plain
+    time and bound."""
+    from cilium_tpu_torch.convert import flow_pool_to, policy_tables_to
+    from cilium_tpu_torch.engine import datapath as dp
+    from cilium_tpu_torch.engine import verdict
+
+    t = time.perf_counter()
+    dense = dataclasses.replace(tables, policy=policy_tables_to(
+        dataclasses.replace(dense_pol_host, l4_hash_rows=None,
+                            l4_hash_stash=None, l4_wild_rows=None,
+                            l4_wild_stash=None), "cuda"))
+    pair = torch.from_numpy(w.pairs(seed=61, half=HALF, k=1)[0].view(
+        np.int32)).cuda()
+    runs = {}
+    for name, tab, fn in (("dense", dense, kernels.DATAPATH_PAIR),
+                          ("plain", dense, dp.datapath_pair_plain),
+                          ("hashed", tables, kernels.DATAPATH_PAIR),
+                          ("persistent", dense, kernels.PERSISTENT_PAIR)):
+        acc = verdict.make_counter_buffers(tab.policy)
+        tel = verdict.make_telemetry_buffers(acc.device)
+        if name == "persistent":  # K = 1: pair 0's columns at [0]
+            oi, oe, acc, tel = fn(tab, pair[None], acc, tel)
+            runs[name] = (dp.DatapathVerdicts(**{
+                c: getattr(oi, c)[0] for c in dp.VERDICT_COLUMNS}),
+                dp.DatapathVerdicts(**{
+                    c: getattr(oe, c)[0] for c in dp.VERDICT_COLUMNS}),
+                acc, tel)
+        else:
+            runs[name] = fn(tab, pair, acc, tel)
+    pool = flow_pool_to(w.pool, "cuda")
+    picks = torch.from_numpy(np.random.default_rng(62).integers(
+        0, pool.shape[1], CHURN_BATCH).astype(np.int32)).cuda()
+    steps = {"dense": kernels.DATAPATH_STEP(dense, pool, picks),
+             "plain": step_plain(dense, pool, picks),
+             "hashed": kernels.DATAPATH_STEP(tables, pool, picks)}
+    torch.cuda.synchronize()
+    errs = {}
+    for other, skip in (("plain", ()), ("hashed", ("l4_slot",)),
+                        ("persistent", ())):
+        e = 0
+        for g, p in zip(runs["dense"][:2], runs[other][:2]):
+            for col in dp.VERDICT_COLUMNS:
+                if col not in skip:
+                    e += int((getattr(g, col) != getattr(p, col)).sum())
+        e += entries_differ(runs["dense"][2], runs[other][2])
+        e += entries_differ(runs["dense"][3], runs[other][3])
+        errs[f"pair_vs_{other}"] = e
+        if other in steps:
+            errs[f"step_vs_{other}"] = sum(
+                int((getattr(steps["dense"], c) != getattr(steps[other], c))
+                    .sum()) for c in dp.VERDICT_COLUMNS if c not in skip)
+    acc_s = verdict.make_counter_buffers(dense.policy)
+    tel_s = verdict.make_telemetry_buffers(acc_s.device)
+    ms = event_ms(lambda: kernels.DATAPATH_PAIR(dense, pair, acc_s, tel_s),
+                  20)
+    plain_ms = event_ms(
+        lambda: dp.datapath_pair_plain(dense, pair, acc_s, tel_s), 3)
+    hashed_ms = event_ms(
+        lambda: kernels.DATAPATH_PAIR(tables, pair, acc_s.new_zeros(
+            runs["hashed"][2].shape), tel_s), 20)
+    need, _ = needed_bytes(dense, pair, dp, verdict, kernels)
+    res = dict(ms=ms, plain_ms=plain_ms, hashed_ms=hashed_ms, bytes=need,
+               bound_ms=need / HBM_BYTES_PER_S * 1e3, err=max(errs.values()))
+    phase("dense_check", t, half=HALF, picks=CHURN_BATCH, errs=errs,
+          dense_ms=round(ms, 4), dense_plain_ms=round(plain_ms, 4),
+          hashed_ms=round(hashed_ms, 4), dense_bound_ms=round(
+              res["bound_ms"], 4),
+          layout=kernels.datapath_layout(dense))
+    if any(errs.values()):
+        raise SystemExit(f"dense_check: the dense branch differs: {errs}")
+    return res
+
+
+def mesh_setup(w) -> dict:
+    """Config 5's map states through a FleetCompiler (two compiles, the
+    second a new generation), the partitioned and the replica store on a
+    virtual (2, 4) mesh of the card (both epochs full), the tables on
+    the card for LATTICE, the word-sharded and the replicated
+    placements, the lattice phase's tuples split over both meshes, and
+    the evaluators."""
+    from cilium_tpu_torch import world
+    from cilium_tpu_torch.compiler.tables import FleetCompiler
+    from cilium_tpu_torch.convert import policy_tables_to
+    from cilium_tpu_torch.engine import mesh, sharded
+    from cilium_tpu_torch.engine.verdict import (
+        TupleBatch,
+        make_sharded_evaluator,
+    )
+
+    t = time.perf_counter()
+    arrays = world.map_state_arrays(w.states)
+    fc = FleetCompiler(identity_pad=w.identity_pad, filter_pad=w.filter_pad)
+    ids = list(w.identity_ids)
+    hosts = [host_copy(fc.compile([(e, s, 0) for e, s in enumerate(arrays)],
+                                  ids)[0]) for _ in range(2)]
+    compile_s = time.perf_counter() - t
+    m24 = mesh.make_mesh(*MESH_SHAPE)
+    m81 = mesh.make_mesh(*SHARDED_SHAPE)
+    stores = {"partitioned": sharded.make_partitioned_store(m24),
+              "replica": sharded.make_replica_store(m24)}
+    upload_ms = {}
+    for name, store in stores.items():
+        upload_ms[name] = [round(once_ms(lambda: store.publish(h)), 3)
+                           for h in hosts]
+    host = hosts[1]
+    single = policy_tables_to(host, "cuda")
+    batch = TupleBatch.from_numpy(**world.lattice_tuples(w, LATTICE_TUPLES),
+                                  device="cuda")
+    valid = torch.arange(LATTICE_TUPLES, device="cuda") % MESH_VALID_EVERY != 0
+    u = dict(
+        fc=fc, arrays=arrays, ids=ids, host=host, single=single, batch=batch,
+        valid=valid, m24=m24, m81=m81, stores=stores,
+        mt_mesh=mesh.place_tables(single, mesh.shardings_of(
+            m24, sharded.table_specs())),
+        mt_shard=mesh.place_tables(single, sharded.replicated_table_shardings(
+            m81)),
+        sb24=sharded.shard_batch(m24, batch),
+        sb24v=sharded.shard_batch(m24, batch, valid=valid),
+        sb81=sharded.shard_batch(m81, batch),
+        ev_mesh=sharded.make_mesh_evaluator(m24, collect_telemetry=True),
+        ev_part=sharded.make_partitioned_evaluator(m24, host,
+                                                   collect_telemetry=True),
+        ev_fail=sharded.make_failover_evaluator(m24, host,
+                                                collect_telemetry=True),
+        ev_shard=make_sharded_evaluator(m81),
+        alive=np.ones(MESH_SHAPE, bool),
+    )
+    u["mt_part"] = stores["partitioned"].current()[1]
+    u["mt_rep"] = stores["replica"].current()[1]
+    torch.cuda.synchronize()
+    chip = stores["replica"].chip_bytes()
+    phase("mesh_setup", t, tuples=LATTICE_TUPLES, mesh=MESH_SHAPE,
+          sharded_mesh=SHARDED_SHAPE, identities=int(host.id_table.shape[0]),
+          words=int(host.l3_allow_bits.shape[2]),
+          hash_rows=int(host.l4_hash_rows.shape[0]),
+          endpoints=int(host.l4_meta.shape[0]),
+          compile_s=round(compile_s, 3), full_upload_ms=upload_ms,
+          replica_chip_bytes=chip[0],
+          geometry_part=dataclasses.asdict(u["ev_part"].geom),
+          geometry_fail=dataclasses.asdict(u["ev_fail"].geom),
+          cuda_allocated=torch.cuda.memory_allocated())
+    return u
+
+
+def mesh_path(kernels, u) -> dict:
+    """The slice's path, launch counts set to 0 just before and read
+    just after: the four evaluators once each over the 4,194,304 tuples
+    (the word-sharded and partitioned meshes with telemetry, the failover
+    mesh healthy with every tuple valid, the sharded evaluator on (8,
+    1)).  Each probe kernel launches once per shard, the combine once
+    per batch row, LATTICE once per batch shard."""
+    dp_, tp = MESH_SHAPE
+    torch.cuda.synchronize()
+    reset_counts(kernels)
+    t = time.perf_counter()
+    outs = dict(
+        mesh=u["ev_mesh"](u["mt_mesh"], u["sb24"]),
+        part=u["ev_part"](u["mt_part"], u["sb24"]),
+        fail=u["ev_fail"](u["mt_rep"], u["sb24"], u["alive"], None),
+        shard=u["ev_shard"](u["mt_shard"], u["sb81"]),
+    )
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    counts = {k.name: k.launches for k in kernels.KERNELS if k.launches}
+    want = {kernels.MESH_PROBE.name: dp_ * tp,
+            kernels.ROUTED_PROBE.name: 2 * dp_ * tp,
+            kernels.MESH_COMBINE.name: 3 * dp_,
+            kernels.LATTICE.name: SHARDED_SHAPE[0]}
+    phase("mesh", t, tuples=LATTICE_TUPLES, evaluators=len(outs),
+          wall_ms=round(wall * 1e3, 3), launches=counts,
+          replica_hits=int(outs["fail"][3]))
+    if counts != want:
+        raise SystemExit(f"mesh: launches {counts}, expected {want}")
+    return dict(outs=outs, counts=counts)
+
+
+def mesh_kernel_checks(kernels, u) -> dict:
+    """Each mesh kernel against its plain version on the same inputs, on
+    every shard (MESH_PROBE on the word-sharded placement, ROUTED_PROBE
+    on the partitioned epoch and in failover mode on the replica epoch
+    with chip MESH_DEAD dead) and every batch row (MESH_COMBINE in each
+    mode, the failover one valid-masked): differing tuples or entries."""
+    from cilium_tpu_torch.engine import sharded as sh
+
+    dp_, tp = MESH_SHAPE
+    alive = np.ones(MESH_SHAPE, bool)
+    alive[MESH_DEAD] = False
+    alive_t = torch.from_numpy(alive).cuda()
+    g_mesh = sh.mesh_geom(int(u["host"].l3_allow_bits.shape[2]), tp)
+    g_part, g_fail = u["ev_part"].geom, u["ev_fail"].geom
+    errs = {"mesh_probe": 0, "routed_probe": 0, "routed_probe_failover": 0,
+            "mesh_combine": 0}
+    for b in range(dp_):
+        row_parts = {"mesh": [], "part": [], "fail": []}
+        sb = u["sb24v"]
+        for t in range(tp):
+            dev = u["m24"].devices[b, t]
+            bl = sb.on(b, dev)
+            tab = u["mt_mesh"].shard(b, t)
+            k = kernels.MESH_PROBE(tab, bl, t * g_mesh.w_local)
+            errs["mesh_probe"] += record_rows_differ(
+                k, sh.mesh_probe_plain(tab, bl, t * g_mesh.w_local))
+            row_parts["mesh"].append(k)
+            tab = u["mt_part"].shard(b, t)
+            k = kernels.ROUTED_PROBE(tab, bl, g_part, t)
+            errs["routed_probe"] += record_rows_differ(
+                k, sh.routed_probe_plain(tab, bl, g_part, t))
+            row_parts["part"].append(k)
+            tab = u["mt_rep"].shard(b, t)
+            k = kernels.ROUTED_PROBE(tab, bl, g_fail, t, alive_t[b])
+            errs["routed_probe_failover"] += record_rows_differ(
+                k, sh.routed_probe_plain(tab, bl, g_fail, t, alive_t[b]))
+            row_parts["fail"].append(k)
+        dev = u["m24"].devices[b, 0]
+        bl, vl = sb.on(b, dev), sb.valid_on(b, dev)
+        for mode, g, mt, valid in (("mesh", g_mesh, u["mt_mesh"], None),
+                                   ("part", g_part, u["mt_part"], None),
+                                   ("fail", g_fail, u["mt_rep"], vl)):
+            tab = mt.shard(b, 0)
+            k = kernels.MESH_COMBINE(row_parts[mode], tab, bl, g, valid)
+            p = sh.mesh_combine_plain(row_parts[mode], tab, bl, g, valid)
+            errs["mesh_combine"] += mesh_out_err(k, p)
+    torch.cuda.synchronize()
+    return errs
+
+
+def mesh_check(kernels, u, path) -> dict:
+    """mesh_check: every count of differing rows or entries must be 0 —
+    the kernels against their plain versions (mesh_kernel_checks); the
+    four evaluators' verdicts against single-device LATTICE's on the same
+    tuples; their l4_counts and reassembled l3_counts against LATTICE's
+    counters; their per-chip telemetry folded (fold_telemetry_per_chip)
+    against the single-device telemetry; the failover mesh with chip
+    MESH_DEAD dead (valid-masked) against the healthy mesh, with
+    replica_hits > 0, also after that chip's own primary rows and words
+    are overwritten with garbage."""
+    from cilium_tpu_torch.engine.verdict import split_counters
+    from cilium_tpu_torch.metrics import Registry
+    from cilium_tpu_torch.telemetry import fold_telemetry_per_chip
+
+    t = time.perf_counter()
+    errs = mesh_kernel_checks(kernels, u)
+    ref_v, ref_acc = kernels.LATTICE(u["single"], u["batch"], counters=True)
+    ref_l4, ref_l3 = split_counters(ref_acc, u["single"])
+    ref_tel = mesh_telemetry(ref_v, u["batch"].direction)
+    outs = path["outs"]
+    for name in ("mesh", "part", "fail"):
+        o = outs[name]
+        errs[f"{name}_verdicts"] = rows_differ(o[0], ref_v)
+        errs[f"{name}_l4"] = entries_differ(o[1], ref_l4)
+        errs[f"{name}_l3"] = entries_differ(o[2], ref_l3)
+        trows = o[4] if name == "fail" else o[3]
+        folded = fold_telemetry_per_chip(trows.cpu().numpy().view(np.uint32),
+                                         registry=Registry())
+        errs[f"{name}_telemetry"] = int((folded.astype(np.int64) != ref_tel
+                                         .cpu().numpy()).sum())
+    errs["shard_verdicts"] = rows_differ(outs["shard"], ref_v)
+    errs["fail_healthy_replica_hits"] = int(outs["fail"][3])
+
+    # chip MESH_DEAD dead, one tuple in MESH_VALID_EVERY padding
+    valid = u["valid"]
+    dead = np.ones(MESH_SHAPE, bool)
+    dead[MESH_DEAD] = False
+    healthy = u["ev_fail"](u["mt_rep"], u["sb24v"], u["alive"], None)
+    gone = u["ev_fail"](u["mt_rep"], u["sb24v"], dead, None)
+    # every output but replica_hits (0 healthy, > 0 with a dead chip)
+    drop_hits = lambda o: o[:3] + o[4:]  # noqa: E731
+    errs["dead_vs_healthy"] = mesh_out_err(drop_hits(gone),
+                                           drop_hits(healthy), keep=valid)
+    hits = [int(gone[3])]
+    # ... and its own primary rows and words garbage
+    g = u["ev_fail"].geom
+    own = u["mt_rep"].shard(*MESH_DEAD)
+    rows = own.l4_hash_rows.clone()
+    rows[:g.n_row_shard] = -1
+    words = own.l3_allow_bits.clone()
+    words[:, :, :g.wn] = -1
+    shards = u["mt_rep"].shards.copy()
+    shards[MESH_DEAD] = dataclasses.replace(own, l4_hash_rows=rows,
+                                            l3_allow_bits=words)
+    garbled = dataclasses.replace(u["mt_rep"], shards=shards)
+    gone = u["ev_fail"](garbled, u["sb24v"], dead, None)
+    errs["garbage_vs_healthy"] = mesh_out_err(drop_hits(gone),
+                                              drop_hits(healthy), keep=valid)
+    hits.append(int(gone[3]))
+    errs["valid_telemetry"] = int((fold_telemetry_per_chip(
+        healthy[4].cpu().numpy().view(np.uint32), registry=Registry()
+    ).astype(np.int64) != mesh_telemetry(ref_v, u["batch"].direction, valid)
+        .cpu().numpy()).sum())
+    del garbled, rows, words, shards
+    torch.cuda.synchronize()
+    bad = {k: v for k, v in errs.items()
+           if v and k != "fail_healthy_replica_hits"}
+    phase("mesh_check", t, tuples=LATTICE_TUPLES, errs=errs,
+          dead_chip=MESH_DEAD, dead_replica_hits=hits,
+          allowed=int(ref_v.allowed.sum()),
+          match_kinds=torch.bincount(ref_v.match_kind.long(),
+                                     minlength=5).tolist())
+    if bad or errs["fail_healthy_replica_hits"] or min(hits) <= 0:
+        raise SystemExit(f"mesh_check: {bad}, replica hits {hits}")
+    return errs
+
+
+def store_update_check(kernels, u, w) -> dict:
+    """The publish phase's one-rule update (team 0 -> app0 on TCP
+    MESH_UPDATE_PORT) through the compiler's delta into the partitioned
+    and the replica store: each publishes a delta; every shard's updated
+    leaves equal the device layout's slice of the new host tables (both
+    copies in the replica store); no shard has a changed row that the
+    delta's routing does not send it; and the partitioned and failover
+    evaluators on the new epochs equal LATTICE on a fresh single-device
+    upload, on the tuples and on probes of the new rule."""
+    from cilium_tpu_torch import world
+    from cilium_tpu_torch.compiler import partition
+    from cilium_tpu_torch.convert import policy_tables_to
+    from cilium_tpu_torch.engine import sharded as sh
+    from cilium_tpu_torch.engine.publish import route_update
+    from cilium_tpu_torch.engine.verdict import TupleBatch
+
+    t = time.perf_counter()
+    fc, stores = u["fc"], u["stores"]
+    states = world.one_rule_states(w, MESH_UPDATE_PORT, states=u["arrays"])
+    host = host_copy(fc.compile([(e, s, int(e == 0))
+                                 for e, s in enumerate(states)],
+                                u["ids"])[0])
+    base = stores["partitioned"].spare_stamp()
+    delta = fc.delta_for(base, host)
+    if delta is None or stores["replica"].spare_stamp() != base:
+        raise SystemExit("store_update_check: no delta for the update")
+    tp = MESH_SHAPE[1]
+    errs, stats = {}, {}
+    for kind, store in stores.items():
+        lay = host if kind == "partitioned" else (
+            partition.replicate_table_leaves(host, tp))
+        dd = delta if kind == "partitioned" else partition.replica_delta(
+            delta, host, tp)
+        spare = store.get(base)
+        before = {}
+        for coord in u["m24"].coords():
+            for name in dd.updates:
+                leaf = getattr(spare.shard(*coord), name)
+                if id(leaf) not in before:
+                    before[id(leaf)] = leaf.clone()
+        ms = once_ms(lambda: stats.__setitem__(kind, store.publish(host,
+                                                                    delta)))
+        dev, st = stats[kind]
+        stats[kind] = (dev, dict(mode=st.mode, ms=round(ms, 3),
+                                 bytes_h2d=st.bytes_h2d,
+                                 scatter_leaves=st.scatter_leaves,
+                                 replaced_leaves=st.replaced_leaves))
+        slice_err = stray = 0
+        for coord in u["m24"].coords():
+            for name in dd.updates:
+                got = getattr(dev.shard(*coord), name)
+                sharding = getattr(store._shardings, name)
+                want = np.ascontiguousarray(np.asarray(getattr(lay, name))[
+                    sharding.slices(dev.leaf_shape(name), coord)])
+                want = torch.from_numpy(want.view(np.int32) if want.dtype ==
+                                        np.uint32 else want.astype(np.int32))
+                slice_err += int((got.cpu() != want).reshape(
+                    got.shape[0], -1).any(dim=1).sum())
+                old = before[id(getattr(spare.shard(*coord), name))]
+                changed = (got != old).reshape(got.shape[0], -1).any(dim=1)
+                routed = route_update(dd.updates[name],
+                                      dev.leaf_shape(name), sharding, coord)
+                owned = torch.zeros_like(changed)
+                if routed is not None:
+                    owned[torch.from_numpy(routed[0][0]).cuda()] = True
+                stray += int((changed & ~owned).sum())
+        errs[f"{kind}_slices"] = slice_err
+        errs[f"{kind}_stray_rows"] = stray
+        errs[f"{kind}_mode"] = int(stats[kind][1]["mode"] != "delta")
+    fresh = policy_tables_to(host, "cuda")
+    members = [int(m) for m in w.team_members[0]]
+    probe = TupleBatch.from_numpy(
+        ep_index=np.zeros(2 * len(members), np.int64),
+        identity=np.asarray(members * 2, np.uint32),
+        dport=np.full(2 * len(members), MESH_UPDATE_PORT),
+        proto=np.full(2 * len(members), 6),
+        direction=np.zeros(2 * len(members), np.int64), device="cuda")
+    m24 = u["m24"]
+    ev_p = sh.make_partitioned_evaluator(m24, host)
+    ev_f = sh.make_failover_evaluator(m24, host)
+    for name, b in (("tuples", u["batch"]), ("probes", probe)):
+        ref = kernels.LATTICE(fresh, b)[0]
+        errs[f"part_{name}"] = rows_differ(
+            ev_p(stats["partitioned"][0], b)[0], ref)
+        errs[f"fail_{name}"] = rows_differ(ev_f(
+            stats["replica"][0], b, u["alive"], None)[0], ref)
+        if name == "probes":
+            errs["probes_denied"] = int((ref.allowed == 0).sum())
+    torch.cuda.synchronize()
+    phase("mesh_store_update", t, port=MESH_UPDATE_PORT, errs=errs,
+          stats={k: v[1] for k, v in stats.items()},
+          updated=sorted(delta.updates), replaced=sorted(delta.replace))
+    if any(errs.values()):
+        raise SystemExit(f"mesh_store_update: {errs}")
+    return errs
+
+
+def mesh_need(u, kind: str, b: int, t: int) -> int:
+    """Bytes one probe launch must move for its batch row's data: the
+    tuple's five words the probe reads (20 B; the fragment word is the
+    combine's) in and its record out (MESH_PROBE 16 B, ROUTED_PROBE 20
+    B) per tuple, and each distinct row or element of the shard's
+    leaves the plain version gathers, read once; stashes whole."""
+    from cilium_tpu_torch.engine import sharded as sh
+
+    sb = u["sb24"]
+    dev = u["m24"].devices[b, t]
+    bl = sb.on(b, dev)
+    if kind == "mesh":
+        tab = u["mt_mesh"].shard(b, t)
+        g = sh.mesh_geom(int(u["host"].l3_allow_bits.shape[2]),
+                         MESH_SHAPE[1])
+        names = ("id_direct", "port_slot", "l4_meta", "l4_allow_bits",
+                 "l3_allow_bits")
+        run = lambda: sh.mesh_probe_plain(tab, bl, t * g.w_local)  # noqa
+        record = 16
+    else:
+        tab = u["mt_part"].shard(b, t)
+        names = ("id_direct", "l4_hash_rows", "l4_hash_stash",
+                 "l4_wild_rows", "l4_wild_stash", "l3_allow_bits")
+        run = lambda: sh.routed_probe_plain(tab, bl, u["ev_part"].geom,  # noqa
+                                            t)
+        record = 20
+    rows_b, _, _ = leaf_bytes([(n, getattr(tab, n)) for n in names], run)
+    return rows_b + int(bl.ep_index.numel()) * (20 + record)
+
+
+def combine_need(parts, tab, bl, g) -> int:
+    """Bytes one routed-mode combine launch must move for these records:
+    per tuple the ep, dir and fragment words (12 B), the flags and the
+    owner's value of every record (8 B each), the head record's stash
+    and wildcard values (8 B) and 6 B of verdict out; the L3 column of
+    each L3 hit on its owner (4 B); each l4_meta cell the plain version
+    gathers; each counter entry the row changes and the [2, 20]
+    telemetry read and written once."""
+    from cilium_tpu_torch.compiler.tables import l4_entry_words
+    from cilium_tpu_torch.engine import oracle
+    from cilium_tpu_torch.engine import sharded as sh
+
+    n = int(bl.ep_index.numel())
+    meta_b, _, out = leaf_bytes(
+        [("l4_meta", tab.l4_meta)],
+        lambda: sh.mesh_combine_plain(parts, tab, bl, g))
+    if l4_entry_words(tab) == 3:  # the value words carry the proxy
+        meta_b = 0
+    v, l4, l3 = out[0], out[1], out[2]
+    l3_hit = v.match_kind.to(torch.int64) == oracle.MATCH_L3
+    owner_reads = sum(
+        int((l3_hit & ((p[0].to(torch.int64) & sh.F_P2) != 0)).sum().item())
+        for p in parts[:g.l3_shards])
+    changed = int(torch.count_nonzero(l4).item()) + int(
+        torch.count_nonzero(l3).item())
+    return (n * (12 + 8 * len(parts) + 8 + 6) + 4 * owner_reads + meta_b
+            + 2 * 4 * changed + 2 * 160)
+
+
+def mesh_timing(kernels, u, path, chk, smi) -> list:
+    """Each mesh kernel's device ms per call (20 launches on shard (0,
+    0)'s or batch row 0's inputs queued behind a device spin,
+    `queued_ms`), CUDA events over the same 20 launches as the caller
+    sees them (`wrapper_ms`: the wrapper's host time when a launch takes
+    less), its plain version's ms and its byte bound at 3.35 TB/s; each
+    evaluator's verdicts/s over MESH_CALLS calls beside LATTICE's on the
+    same tuples; with the card's name and power limit."""
+    from cilium_tpu_torch.engine import sharded as sh
+
+    t = time.perf_counter()
+    tp = MESH_SHAPE[1]
+    sb = u["sb24"]
+    dev = u["m24"].devices[0, 0]
+    bl = sb.on(0, dev)
+    g_mesh = sh.mesh_geom(int(u["host"].l3_allow_bits.shape[2]), tp)
+    g_part = u["ev_part"].geom
+    tab_m, tab_p = u["mt_mesh"].shard(0, 0), u["mt_part"].shard(0, 0)
+    parts = [kernels.ROUTED_PROBE(u["mt_part"].shard(0, k), bl, g_part, k)
+             for k in range(tp)]
+    res = {}
+    for name, fn, plain in (
+            ("mesh_probe", lambda: kernels.MESH_PROBE(tab_m, bl, 0),
+             lambda: sh.mesh_probe_plain(tab_m, bl, 0)),
+            ("routed_probe", lambda: kernels.ROUTED_PROBE(tab_p, bl, g_part, 0),
+             lambda: sh.routed_probe_plain(tab_p, bl, g_part, 0)),
+            ("mesh_combine",
+             lambda: kernels.MESH_COMBINE(parts, tab_p, bl, g_part),
+             lambda: sh.mesh_combine_plain(parts, tab_p, bl, g_part))):
+        ms = queued_ms(fn, 20)
+        if ms is None:  # the host fell behind the spin: a longer one
+            ms = queued_ms(fn, 20, spin_cycles=500_000_000)
+        if ms is None:
+            raise SystemExit(f"mesh_timing {name}: the launches did not "
+                             "queue behind the device spin")
+        wrapper_ms = event_ms(fn, 20)
+        plain_ms = event_ms(plain, 3)
+        need = (mesh_need(u, "mesh" if name == "mesh_probe" else "routed",
+                          0, 0) if name != "mesh_combine"
+                else combine_need(parts, tab_p, bl, g_part))
+        res[name] = dict(tuples=int(bl.ep_index.numel()), ms=ms,
+                         wrapper_ms=wrapper_ms, plain_ms=plain_ms,
+                         bytes=need, bound_ms=need / HBM_BYTES_PER_S * 1e3)
+    rates = {}
+    evals = (
+        ("lattice", lambda: kernels.LATTICE(u["single"], u["batch"])),
+        ("mesh", lambda: u["ev_mesh"](u["mt_mesh"], u["sb24"])),
+        ("partitioned", lambda: u["ev_part"](u["mt_part"], u["sb24"])),
+        ("failover", lambda: u["ev_fail"](u["mt_rep"], u["sb24v"],
+                                          u["alive"], None)),
+        ("sharded", lambda: u["ev_shard"](u["mt_shard"], u["sb81"])),
+    )
+    for name, fn in evals:
+        fn()
+        ms = event_ms(fn, MESH_CALLS)
+        rates[name] = dict(ms=round(ms, 4),
+                           verdicts_per_s=round(LATTICE_TUPLES / ms * 1e3))
+    for name, r in res.items():
+        print(f"  mesh_timing {name} " + json.dumps(r), flush=True)
+    print("  mesh_timing evaluators " + json.dumps(rates), flush=True)
+    phase("mesh_timing", t, card=repr(smi), calls=MESH_CALLS)
+    rows = []
+    for kernel, replaces in (
+            (kernels.MESH_PROBE, "cilium_tpu/engine/sharded.py:172"),
+            (kernels.ROUTED_PROBE, "cilium_tpu/engine/sharded.py:292"),
+            (kernels.MESH_COMBINE, "cilium_tpu/engine/sharded.py:114")):
+        r = res[kernel.name]
+        err = {"mesh_probe": chk["mesh_probe"],
+               "routed_probe": max(chk["routed_probe"],
+                                   chk["routed_probe_failover"]),
+               "mesh_combine": chk["mesh_combine"]}[kernel.name]
+        row = kernel_row(kernel, MESH_SRC, replaces,
+                         path["counts"][kernel.name], err, r["ms"],
+                         r["plain_ms"], r["bound_ms"], 0.0)
+        row["evaluators"] = rates
+        rows.append(row)
+    return rows
+
+
+def mesh_phases(kernels, w, rows, smi) -> None:
+    """The lattice on a mesh (K21): mesh_setup, the path (mesh),
+    mesh_check, the stores' one-rule update, mesh_timing; the three
+    kernels' rows go into `rows`."""
+    u = mesh_setup(w)
+    path = mesh_path(kernels, u)
+    chk = mesh_check(kernels, u, path)
+    store_update_check(kernels, u, w)
+    for row in rows:
+        if row["name"] == kernels.LATTICE.name:
+            row.setdefault("launches_by_path", {"earlier": row["launches"]})
+            row["launches_by_path"]["mesh"] = path["counts"][row["name"]]
+            row["launches"] += path["counts"][row["name"]]
+    rows.extend(mesh_timing(kernels, u, path, chk, smi))
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -5202,6 +5855,8 @@ def main() -> int:
     # plane only: the churn loop's tables
     wide_t = tables_to(
         dataclasses.replace(wide, policy=split_hot(wide.policy)), "cuda")
+    # the wide compile's policy with its cold planes, for dense_check
+    dense_pol_host = wide.policy
     del wide
     tables = tables_to(host, "cuda")
     total = 0
@@ -5439,7 +6094,20 @@ def main() -> int:
     rules_phases(kernels, rows)
     torch.cuda.empty_cache()
     memo_phases(kernels, w, tables, rows, pub)
+    del pub
+    torch.cuda.empty_cache()
+    dense = dense_check(kernels, tables, dense_pol_host, w)
+    rows[0].update(dense_ms=dense["ms"], dense_plain_ms=dense["plain_ms"],
+                   dense_bound_ms=dense["bound_ms"],
+                   dense_max_abs_err=dense["err"],
+                   dense_hashed_ms=dense["hashed_ms"])
+    del dense_pol_host
+    torch.cuda.empty_cache()
+    mesh_phases(kernels, w, rows, smi)
 
+    if len(rows) != len(kernels.KERNELS):
+        raise SystemExit(f"{len(rows)} kernel rows for "
+                         f"{len(kernels.KERNELS)} kernels")
     print("[library] library_ms is null except for ct_delta "
           "(index_copy_), memo_dedup (torch.unique of the key rows with the "
           "inverse), publish_scatter (one index_put_ per leaf on in-range "
@@ -5448,8 +6116,9 @@ def main() -> int:
           "the fused datapath steps (v4 or v6), the intent compaction, a "
           "DFA scan, the Kafka rule match, the fleet's routed match, the "
           "policy lattice, the two dependent DIR-24-8 reads, the verdict "
-          "cache, the memo's key words, the memcached rule match or the "
-          "shadow diff's four columns",
+          "cache, the memo's key words, the memcached rule match, the "
+          "shadow diff's four columns, or the mesh's shard probes and "
+          "their combine",
           flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
     print(smi, flush=True)

@@ -180,6 +180,11 @@ struct DatapathArgs {
   const uint32_t* memo_vals;
   const uint32_t* memo_stats;
   int32_t memo;
+  // the dense lattice (l4_rows null, K8's dense branch): port_slot
+  // [256, 65536] (u16 values in int32) and l4_allow_bits [n_eps, 2, kg,
+  // n_words]
+  const uint32_t* port_slot;
+  const uint32_t* l4_allow;
 };
 
 constexpr uint32_t FNV_OFFSET = 2166136261u;

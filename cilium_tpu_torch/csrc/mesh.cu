@@ -1,0 +1,417 @@
+// The policy lattice on a (batch x table) mesh, three CUDA kernels for
+// Hopper (sm_90a).  Each replaces one part of a `shard_map` step of the
+// JAX package's cilium_tpu/engine/sharded.py; the port's step is a loop
+// over the mesh coordinates (cilium_tpu_torch/engine/sharded.py), one
+// probe launch per shard and one combine launch per batch row.
+//
+// MESH_PROBE is the shard-local step of `make_mesh_evaluator` (:172, the
+// body :213-250): the replicated id_direct, port_slot and l4_meta give
+// the tuple's global identity index and L4 slot; the shard tests only the
+// l4_allow_bits and l3_allow_bits words it owns.
+// ROUTED_PROBE is the shard-local step of `make_partitioned_evaluator`
+// (:292, the body :376-470) and, in failover mode, of
+// `failover_lattice_probes` (:917): the FNV-1a bucket of the exact key
+// (fnv1a2, common.cuh) is compared on the shard that owns its row only
+// (l4_row_parts, verdict.cuh), the stash and the wildcard probe are
+// replicated, the L3 word is read on its owner; in failover mode a dead
+// primary owner's row or word is read from the backup region one shard
+// over, and the tuple is flagged as served from a replica.
+// MESH_COMBINE is the table-axis psum of one batch row's tp partial
+// records fused with `_combine` and the epilogue of `_counts_and_telemetry`
+// (:114-171) and `failover_counts` (:1063): the ORs and the value sum,
+// the lattice combine, the L4-slot counters, the L3 counters on the
+// word's owner (its slice of the row's buffer), the row's [2, 20]
+// telemetry and the replica count, all masked by `valid` when given.
+//
+// A probe writes a partial record int32 per tuple.  MESH_PROBE's is
+// [4, B]: row 0 the flags (F_*), row 1 the proxy, row 2 the slot j, row 3
+// the tuple's L3 counter column in the shard's slice.  ROUTED_PROBE's is
+// [5, B]: the flags, the owner's exact value, the stash value, the
+// wildcard value, the L3 column.  Integer adds commute, so the counters'
+// atomics give the reference's sums exactly.
+//
+// What bounds them on an H100: dependent reads, as LATTICE (lattice.cu).
+// A probe streams the tuple's 20 B in (not the fragment word) and its
+// record out, and reads one id_direct word, the mesh probe one port_slot
+// word, one l4_meta word, one l4_allow_bits and one l3_allow_bits word
+// (dense_probes, verdict.cuh), the routed probe one hashed row on its
+// owner and the wildcard row, the stash and one L3 word; the combine
+// reads the tuple's ep, dir and fragment words, the flags of every record
+// (and in routed mode the owner's value), the head record's other words
+// and, for an L3 hit, the owner's L3 column, and writes 6 B of verdict.  This first version does the simple
+// thing: one tuple per thread, read-only loads, one global atomicAdd per
+// counted hit, the telemetry reduced per warp and block before one
+// atomicAdd per block and column.
+#include <cuda_runtime.h>
+
+#include <cstdint>
+
+#include "common.cuh"
+#include "verdict.cuh"
+
+namespace cms {
+
+using cdp::clip_u;
+using cdp::gather_ix;
+using cdp::PolicyView;
+
+constexpr int BLOCK = 256;
+constexpr int MAX_TP = 16;
+constexpr int TELEM_COLS = 20;
+constexpr uint32_t F_P1 = 1, F_P2 = 2, F_REPLICA = 4, F_P3 = 8, F_KNOWN = 16,
+                   F_STASH = 32;
+constexpr int MODE_MESH = 0, MODE_ROUTED = 1;
+
+// The field orders are the ctypes Structures' orders in kernels.py;
+// mesh_struct_sizes() lets the wrapper check that they agree.
+struct MeshProbeArgs {
+  const uint32_t* tuples;  // [6, B] u32 words
+  // replicated id_direct, port_slot, l4_meta; l4_allow [E, 2, Kg, n_words]
+  // and l3_allow [E, 2, n_words] this shard's word slices; n_ids global
+  PolicyView pol;
+  int32_t* out;  // [4, B]
+  int32_t B;
+  int32_t w_off;  // the shard's first word
+};
+
+struct RoutedProbeArgs {
+  const uint32_t* tuples;
+  // replicated id_direct, stashes and wildcard rows; l4.rows this shard's
+  // resident rows, l3_allow [E, 2, n_words] its resident words
+  PolicyView pol;
+  const uint8_t* alive;  // [ntp] this batch row's chips (failover)
+  int32_t* out;          // [5, B]
+  int32_t B;
+  int32_t t;  // this shard's table index
+  int32_t ntp;
+  int32_t rows_sharded;
+  int32_t l3_sharded;
+  int32_t failover;
+  int32_t n_rows_global;  // the bucket mask + 1
+  int32_t n_local;        // resident rows per shard (not failover)
+  int32_t w_local;        // resident words per shard (not failover)
+  int32_t n_row_shard;    // failover: un-augmented rows per shard
+  int32_t wn;             // failover: un-augmented words per shard
+  int32_t n_ids;
+};
+
+struct CombineArgs {
+  // tp records on this device: [4, B] (MODE_MESH) or [5, B] (MODE_ROUTED)
+  const int32_t* parts[MAX_TP];
+  const uint32_t* tuples;        // [6, B]
+  const uint32_t* meta;          // l4_meta [E, 2, Kg]
+  const uint8_t* valid;          // [B] or null (all valid)
+  uint8_t* allowed;              // outputs [B]
+  int32_t* proxy_port;
+  uint8_t* match_kind;
+  uint32_t* l4;       // [E, 2, Kg], zeroed
+  uint32_t* l3;       // [E, 2, l3_shards * c_local], zeroed
+  uint32_t* telem;    // [2, 20] zeroed, or null
+  uint32_t* replica;  // [1] zeroed
+  int32_t B;
+  int32_t tp;
+  int32_t mode;
+  int32_t ew;
+  int32_t n_eps;
+  int32_t kg;
+  int32_t l3_shards;
+  int32_t c_local;
+};
+
+// A probe's words of the tuple (the fragment word is the combine's).
+struct Tuple {
+  int32_t ep, dir;
+  uint32_t ident, dport, proto;
+};
+
+__device__ __forceinline__ Tuple load_tuple(const uint32_t* t, size_t b,
+                                            int i) {
+  Tuple u;
+  u.ep = static_cast<int32_t>(__ldg(t + i));
+  u.ident = __ldg(t + b + i);
+  u.dport = clip_u(static_cast<int32_t>(__ldg(t + 2 * b + i)), 65535);
+  u.proto = clip_u(static_cast<int32_t>(__ldg(t + 3 * b + i)), 255);
+  u.dir = static_cast<int32_t>(__ldg(t + 4 * b + i));
+  return u;
+}
+
+__device__ __forceinline__ int64_t clamp64(int64_t v, int64_t lo,
+                                           int64_t hi) {
+  return v < lo ? lo : (v > hi ? hi : v);
+}
+
+__global__ void __launch_bounds__(BLOCK) mesh_probe_kernel(
+    const MeshProbeArgs a) {
+  const int i = blockIdx.x * BLOCK + threadIdx.x;
+  if (i >= a.B) return;
+  const size_t b = static_cast<size_t>(a.B);
+  const Tuple u = load_tuple(a.tuples, b, i);
+  const PolicyView& p = a.pol;
+  bool known;
+  const uint32_t idx = cdp::index_identity(p, u.ident, &known);
+  // the shard's word of idx; a word it does not own tests no bit
+  const int w_local = p.n_words;
+  int64_t wl = static_cast<int64_t>(idx >> 5) - a.w_off;
+  const bool in_shard = wl >= 0 && wl < w_local;
+  wl = clamp64(wl, 0, w_local - 1);
+  const uint32_t bit = idx & 31u;
+  const cdp::Probes q = cdp::dense_probes(
+      p.port_slot, p.l4_allow, p.l4.meta, p.l4.n_eps, p.l4.kg, w_local, u.ep,
+      u.dir, u.dport, u.proto, static_cast<int>(wl), bit, known && in_shard);
+  const size_t row = static_cast<size_t>(gather_ix(u.ep, p.l4.n_eps)) * 2 +
+                     gather_ix(u.dir, 2);
+  const uint32_t l3 = __ldg(p.l3_allow + row * w_local + wl);
+  const bool p2 = known && in_shard && ((l3 >> bit) & 1u);
+  const int64_t lcol =
+      clamp64(static_cast<int64_t>(idx) - static_cast<int64_t>(a.w_off) * 32,
+              0, static_cast<int64_t>(w_local) * 32 - 1);
+  int32_t* out = a.out;
+  out[i] = static_cast<int32_t>((q.p1 ? F_P1 : 0u) | (p2 ? F_P2 : 0u) |
+                                (q.p3 ? F_P3 : 0u));
+  out[b + i] = q.proxy;
+  out[2 * b + i] = q.j;
+  out[3 * b + i] = static_cast<int32_t>(lcol);
+}
+
+__global__ void __launch_bounds__(BLOCK) routed_probe_kernel(
+    const RoutedProbeArgs a) {
+  const int i = blockIdx.x * BLOCK + threadIdx.x;
+  if (i >= a.B) return;
+  const size_t b = static_cast<size_t>(a.B);
+  const Tuple u = load_tuple(a.tuples, b, i);
+  const PolicyView& p = a.pol;
+  const cdp::L4Tables& l4 = p.l4;
+  bool known;
+  const uint32_t idx = cdp::index_identity(p, u.ident, &known);
+  const uint32_t ep32 = static_cast<uint32_t>(u.ep);
+  const uint32_t dir32 = static_cast<uint32_t>(u.dir);
+
+  // -- the exact probe, routed to the bucket row's owner
+  uint32_t w0, w1;
+  cdp::l4_keys(l4.ew, ep32, dir32, u.dport, u.proto, idx, &w0, &w1);
+  const int64_t bucket = static_cast<int64_t>(
+      cdp::fnv1a2(w0, w1) & static_cast<uint32_t>(a.n_rows_global - 1));
+  bool owns = true, replica = false;
+  int64_t bl = bucket;
+  if (a.rows_sharded && a.failover) {
+    const int64_t n = a.n_row_shard;
+    const int64_t q = bucket / n;
+    const bool ap = a.alive[q] != 0;
+    owns = (ap ? q : (q + 1) % a.ntp) == a.t;
+    bl = clamp64(bucket - q * n + (ap ? 0 : n), 0, 2 * n - 1);
+    replica = owns && !ap;
+  } else if (a.rows_sharded) {
+    bl = bucket - static_cast<int64_t>(a.t) * a.n_local;
+    owns = bl >= 0 && bl < a.n_local;
+    bl = clamp64(bl, 0, a.n_local - 1);
+  }
+  const cdp::L4Probe ex = cdp::l4_row_parts(
+      l4.rows + static_cast<size_t>(bl) * l4.lanes, l4.lanes, l4.ew, w0, w1);
+  const cdp::L4Probe st =
+      cdp::l4_stash_parts(l4.stash, l4.stash_n, l4.ew, w0, w1);
+
+  // -- the wildcard probe, replicated
+  uint32_t v0, v1;
+  cdp::l4_keys(l4.ew, ep32, dir32, u.dport, u.proto, cdp::L4H_WILD_IDX, &v0,
+               &v1);
+  const cdp::L4Probe wd = cdp::l4_probe_ew(l4.wrows, l4.wnrows, l4.wlanes,
+                                           l4.wstash, l4.wstash_n, l4.ew, v0,
+                                           v1);
+
+  // -- the L3 word, on its owner
+  const int64_t word = idx >> 5;
+  const uint32_t bit = idx & 31u;
+  bool owns_w = true;
+  int64_t wl = word, lcol;
+  if (a.l3_sharded && a.failover) {
+    const int64_t wn = a.wn, g = static_cast<int64_t>(a.wn) * 32;
+    const int64_t wp = word / wn;
+    const bool apw = a.alive[wp] != 0;
+    owns_w = (apw ? wp : (wp + 1) % a.ntp) == a.t;
+    wl = clamp64(word - wp * wn + (apw ? 0 : wn), 0, 2 * wn - 1);
+    replica = replica || (owns_w && !apw);
+    lcol = clamp64(static_cast<int64_t>(idx) - wp * g, 0, g - 1) +
+           (apw ? 0 : g);
+  } else if (a.l3_sharded) {
+    const int64_t off = static_cast<int64_t>(a.t) * a.w_local;
+    wl = word - off;
+    owns_w = wl >= 0 && wl < a.w_local;
+    wl = clamp64(wl, 0, a.w_local - 1);
+    lcol = clamp64(static_cast<int64_t>(idx) - off * 32, 0,
+                   static_cast<int64_t>(a.w_local) * 32 - 1);
+  } else {
+    lcol = clamp64(idx, 0, a.n_ids - 1);
+  }
+  const size_t row = static_cast<size_t>(gather_ix(u.ep, l4.n_eps)) * 2 +
+                     gather_ix(u.dir, 2);
+  const uint32_t l3 = __ldg(p.l3_allow + row * p.n_words +
+                            gather_ix(static_cast<int32_t>(wl), p.n_words));
+  const bool p2 = known && owns_w && ((l3 >> bit) & 1u);
+  const uint32_t flags = ((ex.hit && owns) ? F_P1 : 0u) | (p2 ? F_P2 : 0u) |
+                         (replica ? F_REPLICA : 0u) | (wd.hit ? F_P3 : 0u) |
+                         (known ? F_KNOWN : 0u) | (st.hit ? F_STASH : 0u);
+  int32_t* out = a.out;
+  out[i] = static_cast<int32_t>(flags);
+  out[b + i] = static_cast<int32_t>(owns ? ex.val : 0u);
+  out[2 * b + i] = static_cast<int32_t>(st.val);
+  out[3 * b + i] = static_cast<int32_t>(wd.val);
+  out[4 * b + i] = static_cast<int32_t>(lcol);
+}
+
+// jax's scatter-add at [e, d, c] of an [n_eps, 2, cols] buffer: negative
+// indices count from the end, an update still outside is dropped.
+__device__ __forceinline__ void count_hit(uint32_t* buf, int n_eps,
+                                          int64_t cols, int32_t ep,
+                                          int32_t dir, int64_t c) {
+  const int64_t e = ep < 0 ? static_cast<int64_t>(ep) + n_eps : ep;
+  const int64_t d = dir < 0 ? static_cast<int64_t>(dir) + 2 : dir;
+  if (c < 0) c += cols;
+  if (e >= 0 && e < n_eps && d >= 0 && d < 2 && c >= 0 && c < cols)
+    atomicAdd(buf + (e * 2 + d) * cols + c, 1u);
+}
+
+__global__ void __launch_bounds__(BLOCK) mesh_combine_kernel(
+    const CombineArgs a) {
+  const int i = blockIdx.x * BLOCK + threadIdx.x;
+  const bool active = i < a.B;
+  const size_t b = static_cast<size_t>(a.B);
+  uint32_t tbits = 0, served = 0;
+  int row = 0;
+  if (active) {
+    const int32_t ep = static_cast<int32_t>(__ldg(a.tuples + i));
+    const int32_t dir = static_cast<int32_t>(__ldg(a.tuples + 4 * b + i));
+    const bool frag = __ldg(a.tuples + 5 * b + i) != 0;
+    const int32_t* head = a.parts[0];
+    const bool mesh = a.mode == MODE_MESH;
+    const uint32_t f0 = static_cast<uint32_t>(__ldg(head + i));
+    uint32_t any = 0, val1 = 0;
+    for (int t = 0; t < a.tp; ++t) {
+      const uint32_t f = static_cast<uint32_t>(__ldg(a.parts[t] + i));
+      any |= f;
+      if (!mesh) val1 += static_cast<uint32_t>(__ldg(a.parts[t] + b + i));
+      served += (f & F_REPLICA) ? 1u : 0u;
+    }
+    const bool p2 = any & F_P2;
+    bool p1, p3;
+    int32_t proxy, j;
+    if (mesh) {
+      p1 = any & F_P1;
+      p3 = f0 & F_P3;
+      proxy = __ldg(head + b + i);
+      j = __ldg(head + 2 * b + i);
+    } else {
+      const bool found1 = (any & F_P1) || (f0 & F_STASH);
+      val1 += static_cast<uint32_t>(__ldg(head + 2 * b + i));
+      p1 = (f0 & F_KNOWN) && found1;
+      p3 = f0 & F_P3;
+      const uint32_t val =
+          p1 ? val1 : static_cast<uint32_t>(__ldg(head + 3 * b + i));
+      if (a.ew == 3) {
+        proxy = static_cast<int32_t>(val & 0xFFFFu);
+        j = static_cast<int32_t>(val >> 16);
+      } else {
+        j = static_cast<int32_t>(val);
+        const uint32_t meta = __ldg(
+            a.meta +
+            (static_cast<size_t>(gather_ix(ep, a.n_eps)) * 2 +
+             gather_ix(dir, 2)) * a.kg +
+            gather_ix(j, a.kg));
+        proxy = (p1 || p3) ? static_cast<int32_t>(meta >> 1) : 0;
+      }
+    }
+    const cdp::Lattice v = cdp::combine(p1, p2, p3, proxy, j, frag);
+    a.allowed[i] = v.allowed;
+    a.proxy_port[i] = v.proxy;
+    a.match_kind[i] = static_cast<uint8_t>(v.kind);
+
+    const bool ok = a.valid == nullptr || __ldg(a.valid + i) != 0;
+    if (!ok) served = 0;
+    if (ok) {
+      if (v.kind == cdp::MATCH_L4 || v.kind == cdp::MATCH_L4_WILD)
+        count_hit(a.l4, a.n_eps, a.kg, ep, dir, v.j);
+      if (v.kind == cdp::MATCH_L3) {
+        const int64_t cols = static_cast<int64_t>(a.l3_shards) * a.c_local;
+        const size_t lrow = (mesh ? 3 : 4) * b;
+        for (int t = 0; t < a.l3_shards; ++t) {
+          if (__ldg(a.parts[t] + i) & F_P2)
+            count_hit(a.l3, a.n_eps, cols, ep, dir,
+                      static_cast<int64_t>(t) * a.c_local +
+                          __ldg(a.parts[t] + lrow + i));
+        }
+      }
+      // engine/verdict.py telemetry_masks with the datapath's stages
+      // absent (zeros: no prefilter, CT_NEW, no LB, no ipcache miss)
+      const uint32_t kind = v.kind;
+      const bool al = v.allowed;
+      tbits = 1u | (al ? 1u << 1 : 0u) | (!al ? 1u << 2 : 0u) |
+              ((!al && kind == cdp::MATCH_NONE) ? 1u << 4 : 0u) |
+              ((!al && kind == cdp::MATCH_FRAG_DROP) ? 1u << 5 : 0u) |
+              (kind == cdp::MATCH_L4 ? 1u << 6 : 0u) |
+              (kind == cdp::MATCH_L3 ? 1u << 7 : 0u) |
+              (kind == cdp::MATCH_L4_WILD ? 1u << 8 : 0u) |
+              (kind == cdp::MATCH_NONE ? 1u << 9 : 0u) |
+              (kind == cdp::MATCH_FRAG_DROP ? 1u << 10 : 0u) | (1u << 12) |
+              ((v.proxy > 0 && al) ? 1u << 19 : 0u);
+      row = dir == 0 ? 0 : 1;
+    }
+  }
+  // the replica count: a warp sum, one atomicAdd per warp
+  const uint32_t warp_served = __reduce_add_sync(0xFFFFFFFFu, served);
+  if ((threadIdx.x & 31) == 0 && warp_served) atomicAdd(a.replica, warp_served);
+  if (a.telem == nullptr) return;
+  // telemetry: warp ballots per row, a block sum in shared memory, one
+  // atomicAdd per block, row and column
+  __shared__ uint32_t s_rows[2 * TELEM_COLS];
+  if (threadIdx.x < 2 * TELEM_COLS) s_rows[threadIdx.x] = 0;
+  __syncthreads();
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int c = 0; c < TELEM_COLS; ++c) {
+    const bool on = (tbits >> c) & 1u;
+    const uint32_t b0 = __ballot_sync(0xFFFFFFFFu, on && row == 0);
+    const uint32_t b1 = __ballot_sync(0xFFFFFFFFu, on && row == 1);
+    if (lane == 0 && b0) atomicAdd(&s_rows[c], static_cast<uint32_t>(__popc(b0)));
+    if (lane == 0 && b1)
+      atomicAdd(&s_rows[TELEM_COLS + c], static_cast<uint32_t>(__popc(b1)));
+  }
+  __syncthreads();
+  if (threadIdx.x < 2 * TELEM_COLS && s_rows[threadIdx.x])
+    atomicAdd(a.telem + threadIdx.x, s_rows[threadIdx.x]);
+}
+
+template <typename Args, typename Kernel>
+int launch(Kernel kernel, const Args* args, void* stream) {
+  if (args->B > 0) {
+    const int grid = (args->B + BLOCK - 1) / BLOCK;
+    kernel<<<grid, BLOCK, 0, static_cast<cudaStream_t>(stream)>>>(*args);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace cms
+
+extern "C" int mesh_struct_sizes(int* out) {
+  out[0] = static_cast<int>(sizeof(cdp::PolicyView));
+  out[1] = static_cast<int>(sizeof(cms::MeshProbeArgs));
+  out[2] = static_cast<int>(sizeof(cms::RoutedProbeArgs));
+  out[3] = static_cast<int>(sizeof(cms::CombineArgs));
+  return 4;
+}
+
+// Launch MESH_PROBE on `stream`; returns cudaGetLastError().
+extern "C" int launch_mesh_probe(const cms::MeshProbeArgs* args,
+                                 void* stream) {
+  return cms::launch(cms::mesh_probe_kernel, args, stream);
+}
+
+// Launch ROUTED_PROBE on `stream`; returns cudaGetLastError().
+extern "C" int launch_routed_probe(const cms::RoutedProbeArgs* args,
+                                   void* stream) {
+  return cms::launch(cms::routed_probe_kernel, args, stream);
+}
+
+// Launch MESH_COMBINE on `stream`; returns cudaGetLastError().
+extern "C" int launch_mesh_combine(const cms::CombineArgs* args,
+                                   void* stream) {
+  return cms::launch(cms::mesh_combine_kernel, args, stream);
+}

@@ -40,58 +40,98 @@ __device__ __forceinline__ uint32_t l4c_key1(uint32_t dport, uint32_t proto,
          ((dir & 1u) << 18);
 }
 
+// The lane compares of one fetched row of `lanes` words holding ew-word
+// planar entries (engine/verdict.py l4hash_row_parts): every matching
+// lane counts, its value summed (j for compact entries, j << 16 | proxy
+// for wide ones).  The routed mesh probe (csrc/mesh.cu) calls it on the
+// row its shard owns.
+__device__ __forceinline__ L4Probe l4_row_parts(const uint32_t* row,
+                                                int lanes, int ew,
+                                                uint32_t w0, uint32_t w1) {
+  L4Probe p{false, 0u};
+  const int e = lanes / ew;
+  for (int k = 0; k < e; ++k) {
+    if (__ldg(row + k) != w0) continue;
+    const uint32_t k1 = __ldg(row + e + k);
+    if (ew == 3) {
+      if (k1 == w1) {
+        p.hit = true;
+        p.val += __ldg(row + 2 * e + k);
+      }
+    } else if ((k1 & L4C_CMP_MASK) == w1) {
+      p.hit = true;
+      p.val += (k1 >> 19) & 0xFFFu;
+    }
+  }
+  return p;
+}
+
+// The same compares over a stash of stash_n ew-word entries
+// (l4hash_stash_parts).
+__device__ __forceinline__ L4Probe l4_stash_parts(const uint32_t* stash,
+                                                  int stash_n, int ew,
+                                                  uint32_t w0, uint32_t w1) {
+  L4Probe p{false, 0u};
+  for (int s = 0; s < stash_n; ++s) {
+    const uint32_t* ent = stash + static_cast<size_t>(ew) * s;
+    if (__ldg(ent) != w0) continue;
+    const uint32_t k1 = __ldg(ent + 1);
+    if (ew == 3) {
+      if (k1 == w1) {
+        p.hit = true;
+        p.val += __ldg(ent + 2);
+      }
+    } else if ((k1 & L4C_CMP_MASK) == w1) {
+      p.hit = true;
+      p.val += (k1 >> 19) & 0xFFFu;
+    }
+  }
+  return p;
+}
+
+// One hashed probe: the FNV-1a row, then its lanes and the stash.
+__device__ __forceinline__ L4Probe l4_probe_ew(const uint32_t* rows,
+                                               int nrows, int lanes,
+                                               const uint32_t* stash,
+                                               int stash_n, int ew,
+                                               uint32_t w0, uint32_t w1) {
+  const uint32_t h = fnv1a2(w0, w1);
+  const uint32_t* row =
+      rows + static_cast<size_t>(h & static_cast<uint32_t>(nrows - 1)) * lanes;
+  L4Probe p = l4_row_parts(row, lanes, ew, w0, w1);
+  const L4Probe s = l4_stash_parts(stash, stash_n, ew, w0, w1);
+  p.hit = p.hit || s.hit;
+  p.val += s.val;
+  return p;
+}
+
 __device__ __forceinline__ L4Probe l4_probe(const uint32_t* rows, int nrows,
                                             int lanes, const uint32_t* stash,
                                             int stash_n, uint32_t w0,
                                             uint32_t w1) {
-  const uint32_t h = fnv1a2(w0, w1);
-  const uint32_t* row =
-      rows + static_cast<size_t>(h & static_cast<uint32_t>(nrows - 1)) * lanes;
-  const int e = lanes / 2;
-  L4Probe p{false, 0u};
-  for (int k = 0; k < e; ++k) {
-    if (__ldg(row + k) == w0) {
-      const uint32_t k1 = __ldg(row + e + k);
-      if ((k1 & L4C_CMP_MASK) == w1) {
-        p.hit = true;
-        p.val += (k1 >> 19) & 0xFFFu;
-      }
-    }
-  }
-  for (int s = 0; s < stash_n; ++s) {
-    if (__ldg(stash + 2 * s) == w0) {
-      const uint32_t k1 = __ldg(stash + 2 * s + 1);
-      if ((k1 & L4C_CMP_MASK) == w1) {
-        p.hit = true;
-        p.val += (k1 >> 19) & 0xFFFu;
-      }
-    }
-  }
-  return p;
+  return l4_probe_ew(rows, nrows, lanes, stash, stash_n, 2, w0, w1);
 }
 
 __device__ __forceinline__ L4Probe l4_probe3(const uint32_t* rows, int nrows,
                                              int lanes, const uint32_t* stash,
                                              int stash_n, uint32_t w0,
                                              uint32_t w1) {
-  const uint32_t h = fnv1a2(w0, w1);
-  const uint32_t* row =
-      rows + static_cast<size_t>(h & static_cast<uint32_t>(nrows - 1)) * lanes;
-  const int e = lanes / 3;
-  L4Probe p{false, 0u};
-  for (int k = 0; k < e; ++k) {
-    if (__ldg(row + k) == w0 && __ldg(row + e + k) == w1) {
-      p.hit = true;
-      p.val += __ldg(row + 2 * e + k);
-    }
+  return l4_probe_ew(rows, nrows, lanes, stash, stash_n, 3, w0, w1);
+}
+
+// The probe key words of either layout (l4hash_probe_keys): ep and dir
+// as u32 words, dport and proto clipped; idx may be L4H_WILD_IDX.
+__device__ __forceinline__ void l4_keys(int ew, uint32_t ep, uint32_t dir,
+                                        uint32_t dport, uint32_t proto,
+                                        uint32_t idx, uint32_t* w0,
+                                        uint32_t* w1) {
+  if (ew == 3) {
+    *w0 = idx | (dir << 22) | ((ep & 0x1FFu) << 23);
+    *w1 = (dport << 16) | (proto << 8) | (ep >> 9);
+  } else {
+    *w0 = l4c_key0(idx, dport);
+    *w1 = l4c_key1(dport, proto, ep, dir);
   }
-  for (int s = 0; s < stash_n; ++s) {
-    if (__ldg(stash + 3 * s) == w0 && __ldg(stash + 3 * s + 1) == w1) {
-      p.hit = true;
-      p.val += __ldg(stash + 3 * s + 2);
-    }
-  }
-  return p;
 }
 
 // An XLA gather's index: negative counts from the end, then it clamps.
@@ -244,6 +284,37 @@ __device__ __forceinline__ uint32_t index_identity(const PolicyView& p,
                         known);
 }
 
+// Probes 1 and 3 without the hashed tables (engine/verdict.py _probes'
+// dense branch, K8): the slot from port_slot[proto, dport] (u16 values
+// in int32), then l4_allow_bits[ep, dir, j, word] and l4_meta[ep, dir,
+// j], ep, dir and j taken as an XLA gather takes them.  `word` indexes
+// the n_words on hand (dense_word(), or a shard's local word) and `bit`
+// is idx & 31; dport and proto are already clipped.  Shared by the tuple
+// lattice (index_probes), the datapath kernels (lattice()) and the
+// word-sharded mesh probe (csrc/mesh.cu).
+__device__ __forceinline__ int dense_word(uint32_t idx, int n_words) {
+  return gather_ix(static_cast<int32_t>(idx) >> 5, n_words);
+}
+
+__device__ __forceinline__ Probes dense_probes(
+    const uint32_t* port_slot, const uint32_t* l4_allow, const uint32_t* meta,
+    int n_eps, int kg, int n_words, int32_t ep, int32_t dir, uint32_t dport,
+    uint32_t proto, int word, uint32_t bit, bool known) {
+  const size_t row =
+      static_cast<size_t>(gather_ix(ep, n_eps)) * 2 + gather_ix(dir, 2);
+  const uint32_t slot = __ldg(port_slot + proto * 65536u + dport);
+  const bool has_port = slot != NO_SLOT;
+  Probes q;
+  q.j = has_port ? static_cast<int32_t>(slot) : 0;
+  const size_t cell = row * kg + gather_ix(q.j, kg);
+  const uint32_t exact = __ldg(l4_allow + cell * n_words + word);
+  const uint32_t m = __ldg(meta + cell);
+  q.proxy = static_cast<int32_t>(m >> 1);
+  q.p1 = known && has_port && ((exact >> bit) & 1u);
+  q.p3 = has_port && (m & 1u);
+  return q;
+}
+
 // The three probes of one tuple from its resolved identity index
 // (engine/verdict.py _probes with idx_known): ep and dir are the
 // tuple's int32 words, dport and proto already clipped.  `l3_bit` < 0
@@ -261,25 +332,17 @@ __device__ __forceinline__ ProbeBits index_probes(const PolicyView& p,
                                                   uint32_t dport,
                                                   uint32_t proto, uint32_t idx,
                                                   bool known, int l3_bit) {
-  const int word = gather_ix(static_cast<int32_t>(idx) >> 5, p.n_words);
+  const int word = dense_word(idx, p.n_words);
   const uint32_t bit = idx & 31u;
   const size_t row = static_cast<size_t>(gather_ix(ep, p.l4.n_eps)) * 2 +
                      gather_ix(dir, 2);
-  Probes q;
-  if (p.l4.rows) {
-    q = hashed_probes(p.l4, static_cast<uint32_t>(ep),
-                      static_cast<uint32_t>(dir), dport, proto, idx, known);
-  } else {
-    const uint32_t slot = __ldg(p.port_slot + proto * 65536u + dport);
-    const bool has_port = slot != NO_SLOT;
-    q.j = has_port ? static_cast<int32_t>(slot) : 0;
-    const size_t cell = row * p.l4.kg + gather_ix(q.j, p.l4.kg);
-    const uint32_t exact = __ldg(p.l4_allow + cell * p.n_words + word);
-    const uint32_t meta = __ldg(p.l4.meta + cell);
-    q.proxy = static_cast<int32_t>(meta >> 1);
-    q.p1 = known && has_port && ((exact >> bit) & 1u);
-    q.p3 = has_port && (meta & 1u);
-  }
+  const Probes q =
+      p.l4.rows ? hashed_probes(p.l4, static_cast<uint32_t>(ep),
+                                static_cast<uint32_t>(dir), dport, proto, idx,
+                                known)
+                : dense_probes(p.port_slot, p.l4_allow, p.l4.meta, p.l4.n_eps,
+                               p.l4.kg, p.n_words, ep, dir, dport, proto, word,
+                               bit, known);
   bool l3;
   if (l3_bit < 0) {
     l3 = (__ldg(p.l3_allow + row * p.n_words + word) >> bit) & 1u;
@@ -321,21 +384,27 @@ __device__ __forceinline__ bool l3_allow_bit(const DatapathArgs& a,
   const size_t row =
       static_cast<size_t>(gather_ix(static_cast<int32_t>(ep), a.n_eps)) * 2 +
       gather_ix(static_cast<int32_t>(dir), 2);
-  const int word = gather_ix(static_cast<int32_t>(idx) >> 5, a.n_words);
+  const int word = dense_word(idx, a.n_words);
   return (__ldg(a.l3_allow + row * a.n_words + word) >> (idx & 31u)) & 1u;
 }
 
 // The datapath's lattice: probes 1-3 and the combine, with idx and known
 // from the ipcache (or id_direct) and l3_bit from the ipcache's L3 word
-// or l3_allow_bit.
+// or l3_allow_bit; without the hashed L4 tables (l4_rows null) probes 1
+// and 3 read the dense planes (K8's dense branch).
 __device__ __forceinline__ Lattice lattice(const DatapathArgs& a, uint32_t ep,
                                            uint32_t dir, uint32_t dport_w,
                                            uint32_t proto_w, uint32_t idx,
                                            bool known, bool l3_bit,
                                            bool frag) {
-  const Probes p = hashed_probes(
-      l4_tables(a), ep, dir, clip_u(static_cast<int32_t>(dport_w), 65535),
-      clip_u(static_cast<int32_t>(proto_w), 255), idx, known);
+  const uint32_t dport = clip_u(static_cast<int32_t>(dport_w), 65535);
+  const uint32_t proto = clip_u(static_cast<int32_t>(proto_w), 255);
+  const Probes p =
+      a.l4_rows ? hashed_probes(l4_tables(a), ep, dir, dport, proto, idx, known)
+                : dense_probes(a.port_slot, a.l4_allow, a.l4_meta, a.n_eps,
+                               a.kg, a.n_words, static_cast<int32_t>(ep),
+                               static_cast<int32_t>(dir), dport, proto,
+                               dense_word(idx, a.n_words), idx & 31u, known);
   return combine(p.p1, known && l3_bit, p.p3, p.proxy, p.j, frag);
 }
 

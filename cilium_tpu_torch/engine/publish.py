@@ -23,6 +23,15 @@ The scatter follows jax's `.at[idx].set(values)` on the reference's
 spare epoch, not torch's indexing: a negative index counts from the end
 once, and a row with any index still outside its axis is dropped.
 
+On a mesh (`shardings` or `shardings_fn`, engine/mesh.py) an epoch is
+MeshTables: each leaf placed under its NamedSharding.  A delta publish
+routes each row to the shard that owns it on the host (its global index
+minus the shard's offset; a payload that spans the sharded axis is
+sliced), then scatters each device's rows in place, one launch per
+device.  `transform_fn` lays the host tables out for the devices (the
+replica store's N+1 copies) and `delta_transform_fn` rewrites a delta
+into that layout; `partition_digest` is folded into the layout stamp.
+
 `AsyncBatchDispatcher` is the double-buffered async batch pipeline and
 `next_pow2` the pow2 size class of every padded payload.
 """
@@ -107,6 +116,38 @@ def scatter_segments_plain(segments) -> None:
         dst[tuple(i[keep] for i in norm)] = values[keep]
 
 
+def route_update(update, shape, sharding, coord):
+    """The part of one LeafUpdate (host arrays, recorded against the
+    global leaf of `shape`) that lands on coordinate `coord` under
+    `sharding`, in the shard's coordinates: (idx, values), or None when
+    no row lands there.  A replicated leaf takes the whole update.
+    Where the update indexes the sharded axis, each row goes to the
+    shard owning it (jax's rules first: a negative index counts from the
+    end, a row outside the leaf is dropped) at its index minus the
+    shard's offset; where the values span the sharded axis, each shard
+    takes its slice of them."""
+    idx = tuple(np.asarray(i, np.int64) for i in update.idx)
+    values = np.asarray(update.values)
+    block = sharding.slices(shape, coord)
+    axes = [a for a, s in enumerate(block) if s != slice(None)]
+    if not axes:
+        return idx, values
+    keep = np.ones(values.shape[0], bool)
+    out_idx = list(idx)
+    for a in axes:
+        lo, hi = block[a].start, block[a].stop
+        if a < len(idx):
+            i = np.where(idx[a] < 0, idx[a] + shape[a], idx[a])
+            keep &= (i >= lo) & (i < hi)
+            out_idx[a] = i - lo
+        else:
+            va = a - len(idx) + 1
+            values = np.take(values, np.arange(lo, hi), axis=va)
+    if not keep.any():
+        return None
+    return tuple(i[keep] for i in out_idx), values[keep]
+
+
 def publish_scatter(segments) -> None:
     """Write every segment in place: PUBLISH_SCATTER when the
     destinations lie on a CUDA device (one launch for all), the plain
@@ -158,22 +199,65 @@ class DeviceTableStore:
 
     A failed scatter de-registers the spare slot (its rows can no
     longer be trusted; the next publish uploads in full) and raises:
-    it is never answered with a full upload."""
+    it is never answered with a full upload.
 
-    def __init__(self, device=None) -> None:
+    On a mesh: `shardings` (PolicyTables of NamedSharding) places every
+    epoch, or `shardings_fn(tables)` resolves them per publish (leaf
+    divisibility depends on the published shapes); `partition_digest`
+    is folded into the layout stamp; `transform_fn(tables)` gives the
+    device layout and `delta_transform_fn(delta, tables)` rewrites a
+    delta recorded against `tables` into it."""
+
+    def __init__(self, device=None, shardings=None, shardings_fn=None,
+                 partition_digest: int = 0, transform_fn=None,
+                 delta_transform_fn=None) -> None:
         self._lock = threading.Lock()
-        # each slot: dict(tables=<device PolicyTables>, stamp, epoch,
-        # nbytes (host), layout, resident (device bytes))
+        # each slot: dict(tables=<device PolicyTables or MeshTables>,
+        # stamp, epoch, nbytes (host), layout, chip_bytes {chip: bytes})
         self._slots = [None, None]
         self._cur = 0
         self._epoch = 0
-        self._device = resolve_device(device)
+        # a mesh store's devices are its mesh's
+        mesh_store = shardings is not None or shardings_fn is not None
+        self._device = None if mesh_store else resolve_device(device)
+        self._shardings = shardings
+        self._shardings_fn = shardings_fn
+        self.partition_digest = int(partition_digest)
+        self._transform_fn = transform_fn
+        self._delta_transform_fn = delta_transform_fn
+
+    @property
+    def on_mesh(self) -> bool:
+        return self._shardings is not None or self._shardings_fn is not None
 
     def _sync(self) -> None:
-        """Wait for the device's queued work (the reference's
+        """Wait for the devices' queued work (the reference's
         block_until_ready): the epoch is complete when publish returns."""
-        if self._device.type == "cuda":
-            torch.cuda.current_stream(self._device).synchronize()
+        if self._shardings is not None:
+            devs = set(self._shardings.generation.mesh.devices.flat)
+        else:
+            devs = {self._device}
+        for dev in devs:
+            if torch.device(dev).type == "cuda":
+                torch.cuda.current_stream(dev).synchronize()
+
+    def _specs(self):
+        """Each leaf's PartitionSpec on a mesh store (None on one
+        device)."""
+        if self._shardings is None:
+            return None
+        return tuple((f.name, tuple(getattr(self._shardings, f.name).spec))
+                     for f in dataclasses.fields(self._shardings))
+
+    def _put_tables(self, tables):
+        """Full placement: one device, or the mesh's coordinates."""
+        if self._shardings is None:
+            from cilium_tpu_torch.convert import policy_tables_to
+
+            return policy_tables_to(tables, self._device)
+        from cilium_tpu_torch.engine.mesh import place_tables
+
+        return place_tables(tables, self._shardings)
 
     # -- publication ---------------------------------------------------------
 
@@ -191,7 +275,13 @@ class DeviceTableStore:
             "publish.epoch", site="engine.publish"
         ) as sp:
             t0 = time.perf_counter()
-            layout = tables_layout_version(tables)
+            pre_transform = tables
+            if self._transform_fn is not None:
+                tables = self._transform_fn(tables)
+            if self._shardings_fn is not None:
+                self._shardings = self._shardings_fn(tables)
+            base_layout = tables_layout_version(tables)
+            layout = base_layout | (self.partition_digest << 32)
             spare_i = self._cur ^ 1
             spare = self._slots[spare_i]
             stamp = int(np.asarray(tables.generation))
@@ -201,13 +291,21 @@ class DeviceTableStore:
                 and spare["stamp"] == delta.base_stamp
                 and stamp == delta.new_stamp
                 # a delta's indices mean something only against the
-                # layout the spare epoch holds
-                and spare["layout"] == layout == delta.layout
+                # layout (and partitioning) the spare epoch holds
+                and spare["layout"] == layout
+                and delta.layout == base_layout
+                # a mesh epoch's rows route by its placement
+                and spare["specs"] == self._specs()
             )
+            if use_delta and self._delta_transform_fn is not None:
+                # into device coordinates: the delta was recorded
+                # against the un-transformed tables
+                delta = self._delta_transform_fn(delta, pre_transform)
             if use_delta:
                 try:
-                    dev, stats = self._publish_delta(spare["tables"],
-                                                     tables, delta)
+                    publish = (self._publish_delta_mesh if self.on_mesh
+                               else self._publish_delta)
+                    dev, stats = publish(spare["tables"], tables, delta)
                 except Exception:
                     # the scatter may have written part of the spare's
                     # tensors: de-register the slot so the next publish
@@ -218,9 +316,7 @@ class DeviceTableStore:
                 metrics.device_table_retired_bytes.inc(
                     value=spare.get("nbytes", 0))
             else:
-                from cilium_tpu_torch.convert import policy_tables_to
-
-                dev = policy_tables_to(tables, self._device)
+                dev = self._put_tables(tables)
                 self._sync()
                 stats = PublishStats(epoch=0, mode="full",
                                      bytes_h2d=tables_nbytes(tables),
@@ -229,7 +325,9 @@ class DeviceTableStore:
             self._slots[spare_i] = {
                 "tables": dev, "stamp": stamp, "epoch": self._epoch,
                 "nbytes": tables_nbytes(tables), "layout": layout,
-                "resident": _resident_bytes(dev),
+                "chip_bytes": (dev.chip_bytes() if self.on_mesh else {
+                    self._device.index or 0: _resident_bytes(dev)}),
+                "specs": self._specs(),
             }
             self._cur = spare_i
             stats.epoch = self._epoch
@@ -253,8 +351,8 @@ class DeviceTableStore:
                                        value=(cur or {}).get("nbytes", 0))
         metrics.device_table_bytes.set("standby",
                                        value=(spare or {}).get("nbytes", 0))
-        metrics.device_table_bytes_per_chip.set(
-            str(self._device.index or 0), value=self._resident_locked())
+        for chip, nbytes in sorted(self._chip_bytes_locked().items()):
+            metrics.device_table_bytes_per_chip.set(str(chip), value=nbytes)
 
     def _publish_delta(self, spare_dev: PolicyTables, tables: PolicyTables,
                        delta: TableDelta):
@@ -278,6 +376,68 @@ class DeviceTableStore:
                          for name, (idx, values) in payloads.items()])
         dev = dataclasses.replace(
             base, generation=int(np.asarray(tables.generation)))
+        self._sync()
+        return dev, PublishStats(
+            epoch=0, mode="delta", bytes_h2d=bytes_h2d, seconds=0.0,
+            scatter_leaves=n_scatter, replaced_leaves=n_replace,
+        )
+
+    def _publish_delta_mesh(self, spare_dev, tables, delta: TableDelta):
+        """The delta publish of a mesh epoch: whole-leaf replacements
+        placed under their sharding; each scattered leaf's rows routed
+        to their shards (route_update), uploaded to the shard's device
+        and written in place there, one launch per device."""
+        from cilium_tpu_torch.convert import _leaf_to
+        from cilium_tpu_torch.engine.mesh import place
+
+        mesh = self._shardings.generation.mesh
+        n_scatter = n_replace = bytes_h2d = 0
+        placed = {}
+        for name, arr in delta.replace.items():
+            placed[name] = place(arr, getattr(self._shardings, name))
+            bytes_h2d += np.asarray(arr).nbytes
+            n_replace += 1
+        gen = int(np.asarray(tables.generation))
+        shards = np.empty(mesh.devices.shape, dtype=object)
+        for coord in mesh.coords():
+            shards[coord] = dataclasses.replace(
+                spare_dev.shard(*coord),
+                **{**{n: v[coord] for n, v in placed.items()},
+                   "generation": gen})
+        by_dev: Dict[str, list] = {}
+        seen = set()
+        for name in sorted(delta.updates):
+            up = delta.updates[name]
+            bytes_h2d += up.nbytes
+            n_scatter += 1
+            sharding = getattr(self._shardings, name)
+            shape = spare_dev.leaf_shape(name)
+            for coord in mesh.coords():
+                dst = getattr(shards[coord], name)
+                if id(dst) in seen:
+                    continue
+                seen.add(id(dst))
+                routed = route_update(up, shape, sharding, coord)
+                if routed is None:
+                    continue
+                idx, values = routed
+                dev = dst.device
+                by_dev.setdefault(str(dev), []).append((
+                    dst, tuple(torch.from_numpy(np.ascontiguousarray(
+                        i, np.int64)).to(dev) for i in idx),
+                    _leaf_to(values, dev)))
+        from cilium_tpu_torch.kernels import MAX_SCATTER_SEGMENTS
+
+        for segments in by_dev.values():
+            for k in range(0, len(segments), MAX_SCATTER_SEGMENTS):
+                publish_scatter(segments[k:k + MAX_SCATTER_SEGMENTS])
+        shapes = dict(spare_dev.shapes)
+        for name, arr in delta.replace.items():
+            shape = tuple(getattr(arr, "shape", ()))
+            if shape:
+                shapes[name] = shape
+        dev = dataclasses.replace(spare_dev, shards=shards, shapes=shapes,
+                                  generation=gen)
         self._sync()
         return dev, PublishStats(
             epoch=0, mode="delta", bytes_h2d=bytes_h2d, seconds=0.0,
@@ -318,13 +478,19 @@ class DeviceTableStore:
             return tuple(s["stamp"] for s in self._slots if s is not None)
 
     def chip_bytes(self) -> Dict[int, int]:
-        """Resident bytes over both epochs, by device ordinal."""
+        """Resident bytes over both epochs, by chip: the device ordinal,
+        or on a mesh the coordinate's row-major ordinal."""
         with self._lock:
-            return {self._device.index or 0: self._resident_locked()}
+            return self._chip_bytes_locked()
 
-    def _resident_locked(self) -> int:
-        return sum(slot["resident"] for slot in self._slots
-                   if slot is not None)
+    def _chip_bytes_locked(self) -> Dict[int, int]:
+        per: Dict[int, int] = {} if self.on_mesh else {
+            self._device.index or 0: 0}
+        for slot in self._slots:
+            for chip, nbytes in ((slot or {}).get("chip_bytes")
+                                 or {}).items():
+                per[chip] = per.get(chip, 0) + nbytes
+        return per
 
     @staticmethod
     def _norm(stamp: int) -> int:

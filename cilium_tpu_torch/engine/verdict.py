@@ -203,6 +203,22 @@ def _index_identity(tables, identity):
     return torch.where(known, v, n - 1), known
 
 
+def _index(tables, batch: TupleBatch):
+    """Index resolution from the small replicated tables only (the
+    word-sharded mesh's probe): (idx, word, bit, known, j, has_port),
+    int64 and bool [B], all global.  The L4 slot comes from port_slot,
+    read at the clipped (proto, dport)."""
+    idx, known = _index_identity(tables, widen(batch.identity))
+    word = idx >> 5
+    bit = idx & 31
+    proto = batch.proto.to(torch.int64).clamp(0, 255)
+    dport = batch.dport.to(torch.int64).clamp(0, 65535)
+    slot = tables.port_slot[proto, dport].to(torch.int64)
+    has_port = slot != int(NO_SLOT)
+    j = torch.where(has_port, slot, 0)
+    return idx, word, bit, known, j, has_port
+
+
 def l4hash_probe_keys(entry_words: int, ep, dirn, idx, dport, proto):
     """(w0, w1) probe key words for either hashed layout; `idx` may
     carry L4H_WILD_IDX, which the compact layout remaps to its own
@@ -536,3 +552,34 @@ def make_telemetry_buffers(device) -> torch.Tensor:
     """Zeroed [2, TELEM_COLS] telemetry accumulator (u32 bits in
     int32)."""
     return torch.zeros((2, TELEM_COLS), dtype=torch.int32, device=device)
+
+
+def make_sharded_evaluator(mesh=None, batch_axis: str = "batch"):
+    """The batch split over the mesh's batch axis, the tables
+    replicated (flow batches shard like packets across nodes, tables
+    replicate like per-node BPF maps): fn(tables, batch) -> Verdicts.
+    Each batch row runs the tuple lattice on its own device (LATTICE on
+    a CUDA device, the plain version on the CPU) over its slice, and
+    the rows' verdicts concatenate in batch order.  `tables` is
+    PolicyTables (host or device) or MeshTables placed replicated;
+    `batch` a TupleBatch (B a multiple of the batch-axis size) or
+    sharded.shard_batch's rows.  With `mesh=None` it is evaluate_batch."""
+    if mesh is None:
+        return evaluate_batch
+    from cilium_tpu_torch.engine import sharded
+
+    shardings = sharded.replicated_table_shardings(mesh)
+
+    def run(tables, batch) -> Verdicts:
+        mt = sharded.placed(tables, shardings)
+        sb = sharded.shard_batch(mesh, batch, batch_axis=batch_axis)
+        home = mesh.devices[0, 0]
+        outs = []
+        for b in range(int(mesh.shape[batch_axis])):
+            dev = mesh.devices[b, 0]
+            outs.append(evaluate_batch(mt.shard(b, 0), sb.on(b, dev),
+                                       device=dev))
+        return Verdicts(*(torch.cat([getattr(o, c).to(home) for o in outs])
+                          for c in ("allowed", "proxy_port", "match_kind")))
+
+    return run

@@ -1,8 +1,8 @@
 """Build, binding and wrappers of the hand-written CUDA kernels.
 
 `csrc/datapath.cu`, `csrc/l7.cu`, `csrc/churn.cu`, `csrc/lattice.cu`,
-`csrc/datapath6.cu`, `csrc/prng.cu`, `csrc/memo.cu`, `csrc/publish.cu`
-and `csrc/shadow.cu` (with their headers) are each compiled by `nvcc` for `sm_90a` into a shared library
+`csrc/datapath6.cu`, `csrc/prng.cu`, `csrc/memo.cu`, `csrc/publish.cu`,
+`csrc/shadow.cu` and `csrc/mesh.cu` (with their headers) are each compiled by `nvcc` for `sm_90a` into a shared library
 with a plain C interface, at first use, into `cilium_tpu_torch/_build/`
 (one file per source digest), and bound with ctypes.  Nothing here runs
 at import: the CPU tests import this module on a machine with no `nvcc`
@@ -21,9 +21,9 @@ L4 entries, 5-word CT rows), with or without a v4 tunnel map (overlay
 mode), over every plane layout the agent's builders pick: the range
 or DIR-24-8 prefilter, the inline or classic LB, the idx ipcache with
 or without L3 planes or the generic one (raw identities, bucketized or
-DIR-24-8), its ranges by hashed classes or the [B, P] scan.  The
-dense lattice (policy tables without the hashed L4 entries) is not
-implemented.  `_fill_tables` picks one of the kernels' 12 layout
+DIR-24-8), its ranges by hashed classes or the [B, P] scan, and, with
+policy tables without the hashed L4 entries, the dense lattice
+(port_slot and l4_allow_bits: K8's dense branch).  `_fill_tables` picks one of the kernels' 12 layout
 instantiations (`layout_name`).  They allocate the outputs with
 `torch.empty`, launch on the current stream without synchronising,
 raise if the launch reports an error, and count their launches in
@@ -67,6 +67,12 @@ plain version).
 plane's per-row diff of a live and a shadow verdict set (K19), under
 the same rules (shadow.py `diff_codes_plain` is its plain version).
 
+`MESH_PROBE`, `ROUTED_PROBE` and `MESH_COMBINE` (csrc/mesh.cu) are the
+lattice on a mesh (K21): a shard's step of the word-sharded and of the
+routed (partitioned, failover) evaluators, and one batch row's combine
+over the table axis, under the same rules (engine/sharded.py strings
+them together and holds their plain versions).
+
 `DATAPATH6(tables, flows)` (csrc/datapath6.cu) is the fused IPv6
 program (K15, with the v6 tunnel stage of K11) over Datapath6Tables and
 a FlowBatch6, under the same rules: it checks every table plane and
@@ -107,7 +113,7 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
 # csrc/<stem>.cu, one library each
 LIBRARIES = ("datapath", "l7", "churn", "lattice", "datapath6", "prng",
-             "memo", "publish", "shadow")
+             "memo", "publish", "shadow", "mesh")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC",
@@ -156,9 +162,13 @@ def datapath_reads(tables) -> tuple:
             ic += tuple(("ipcache", f"range_{k}") for k in (
                 "base", "mask", "plen", "value")
                 + (("l3_in", "l3_out") if ipc.l3_planes else ()))
-    pol = (("policy", "l4_hash_rows"), ("policy", "l4_hash_stash"),
-           ("policy", "l4_wild_rows"), ("policy", "l4_wild_stash"),
-           ("policy", "l4_meta"))
+    if tables.policy.l4_hash_rows is None:
+        pol = (("policy", "port_slot"), ("policy", "l4_allow_bits"),
+               ("policy", "l4_meta"))
+    else:
+        pol = (("policy", "l4_hash_rows"), ("policy", "l4_hash_stash"),
+               ("policy", "l4_wild_rows"), ("policy", "l4_wild_stash"),
+               ("policy", "l4_meta"))
     idx_form = isinstance(ipc, IPCacheDevice) and ipc.values_are_idx
     if not (idx_form and ipc.l3_planes):
         pol += (("policy", "l3_allow_bits"),)
@@ -219,7 +229,7 @@ class DatapathArgs(ctypes.Structure):
         + [("n_ranges", _I), ("l3_allow", _P), ("id_direct", _P),
            ("n_words", _I), ("direct_n", _I), ("lo_len", ctypes.c_uint32)]
         + [("memo_keys", _P), ("memo_vals", _P), ("memo_stats", _P),
-           ("memo", _I)]
+           ("memo", _I), ("port_slot", _P), ("l4_allow", _P)]
     )
 
 
@@ -409,11 +419,6 @@ def _fill_tables(a: DatapathArgs, tables, dev) -> None:
     ipc_form = _fill_ipcache(a, tables.ipcache, dev)
 
     pol = tables.policy
-    if pol.l4_hash_rows is None:
-        raise ValueError(
-            "the datapath kernels take the hashed L4 tables (the dense "
-            "lattice inside the datapath is not implemented)"
-        )
     l4 = _l4_tables(pol, dev)
     for key, pre in (("l4", ""), ("l4w", "w")):
         for f in ("rows", "stash", "nrows", "lanes", "stash_n"):
@@ -430,6 +435,16 @@ def _fill_tables(a: DatapathArgs, tables, dev) -> None:
         raise ValueError("policy.l3_allow_bits must be [E, 2, W >= 1]")
     a.l3_allow = _ptr(l3, "policy.l3_allow_bits", dev,
                       shape=(e_count, 2, a.n_words))
+    if pol.l4_hash_rows is None:
+        # K8's dense branch: probes 1 and 3 read port_slot and
+        # l4_allow_bits (l4_rows stays null)
+        if pol.port_slot is None or pol.l4_allow_bits is None:
+            raise ValueError("policy tables without the hashed L4 tables "
+                             "need the dense port_slot and l4_allow_bits")
+        a.port_slot = _ptr(pol.port_slot, "policy.port_slot", dev,
+                           shape=(256, 65536))
+        a.l4_allow = _ptr(pol.l4_allow_bits, "policy.l4_allow_bits", dev,
+                          shape=(e_count, 2, kg, a.n_words))
     direct_n = int(pol.id_direct.shape[0])
     if not 1 <= direct_n < 1 << 31:
         raise ValueError(f"id_direct has {direct_n} entries")
@@ -2321,8 +2336,274 @@ class ShadowDiffKernel:
 
 
 SHADOW_DIFF = ShadowDiffKernel()
+
+# ---------------------------------------------------------------------------
+# The lattice on a mesh (csrc/mesh.cu)
+# ---------------------------------------------------------------------------
+
+MESH_MAX_TP = 16  # csrc/mesh.cu MAX_TP
+MESH_RECORD_ROWS = 4  # MESH_PROBE's record: flags, proxy, j, L3 column
+ROUTED_RECORD_ROWS = 5  # ROUTED_PROBE's: flags, owner, stash, wild, column
+
+
+class MeshProbeArgs(ctypes.Structure):
+    """Mirror of cms::MeshProbeArgs in csrc/mesh.cu, field for field."""
+
+    _fields_ = [("tuples", _P), ("pol", PolicyViewArgs), ("out", _P),
+                ("B", _I), ("w_off", _I)]
+
+
+class RoutedProbeArgs(ctypes.Structure):
+    """Mirror of cms::RoutedProbeArgs in csrc/mesh.cu, field for field."""
+
+    _fields_ = ([("tuples", _P), ("pol", PolicyViewArgs), ("alive", _P),
+                 ("out", _P)]
+                + [(n, _I) for n in (
+                    "B", "t", "ntp", "rows_sharded", "l3_sharded",
+                    "failover", "n_rows_global", "n_local", "w_local",
+                    "n_row_shard", "wn", "n_ids")])
+
+
+class CombineArgs(ctypes.Structure):
+    """Mirror of cms::CombineArgs in csrc/mesh.cu, field for field."""
+
+    _fields_ = ([("parts", _P * MESH_MAX_TP)]
+                + [(n, _P) for n in (
+                    "tuples", "meta", "valid", "allowed", "proxy_port",
+                    "match_kind", "l4", "l3", "telem", "replica")]
+                + [(n, _I) for n in (
+                    "B", "tp", "mode", "ew", "n_eps", "kg", "l3_shards",
+                    "c_local")])
+
+
+class _MeshLibrary(_Library):
+    """csrc/mesh.cu: MESH_PROBE, ROUTED_PROBE and MESH_COMBINE."""
+
+    stem = "mesh"
+
+    def bind(self, lib) -> None:
+        self.declare(lib, (("launch_mesh_probe", MeshProbeArgs),
+                           ("launch_routed_probe", RoutedProbeArgs),
+                           ("launch_mesh_combine", CombineArgs)))
+        lib.mesh_struct_sizes.argtypes = [ctypes.POINTER(ctypes.c_int)]
+        lib.mesh_struct_sizes.restype = ctypes.c_int
+        sizes = (ctypes.c_int * 4)()
+        lib.mesh_struct_sizes(sizes)
+        want = [ctypes.sizeof(a) for a in (PolicyViewArgs, MeshProbeArgs,
+                                           RoutedProbeArgs, CombineArgs)]
+        if list(sizes) != want:
+            raise RuntimeError(
+                f"mesh argument layouts differ between kernels.py {want} "
+                f"and csrc/mesh.cu {list(sizes)}"
+            )
+
+
+MESH_LIBRARY = _MeshLibrary()
+
+
+def _shard_view(tab, dev, dense: bool) -> PolicyViewArgs:
+    """Check one shard's policy tables and fill a PolicyView: id_direct
+    and the identity pad global, l3_allow_bits the shard's resident
+    words (n_words), and with `dense` port_slot and the shard's
+    l4_allow_bits words; the hashed tables when present (rows the
+    shard's resident rows)."""
+    v = PolicyViewArgs()
+    v.l4 = _l4_tables(tab, dev)
+    e_count, kg = v.l4.n_eps, v.l4.kg
+    n = int(tab.id_table.shape[0])
+    if n < 1 or n >= 1 << 31:
+        raise ValueError(f"{n} identities")
+    v.n_ids = n
+    direct_n = int(tab.id_direct.shape[0])
+    if not 1 <= direct_n < 1 << 31:
+        raise ValueError(f"id_direct has {direct_n} entries")
+    v.id_direct = _ptr(tab.id_direct, "policy.id_direct", dev,
+                       shape=(direct_n,))
+    v.direct_n = direct_n
+    v.lo_len = int(tab.id_lo_len) & 0xFFFFFFFF
+    l3 = tab.l3_allow_bits
+    w = int(l3.shape[2]) if l3.dim() == 3 else 0
+    if w < 1:
+        raise ValueError("policy.l3_allow_bits must be [E, 2, W >= 1]")
+    v.n_words = w
+    v.l3_allow = _ptr(l3, "policy.l3_allow_bits", dev, shape=(e_count, 2, w))
+    if dense:
+        if tab.port_slot is None or tab.l4_allow_bits is None:
+            raise ValueError("the word-sharded probe reads the dense "
+                             "port_slot and l4_allow_bits")
+        v.port_slot = _ptr(tab.port_slot, "policy.port_slot", dev,
+                           shape=(256, 65536))
+        v.l4_allow = _ptr(tab.l4_allow_bits, "policy.l4_allow_bits", dev,
+                          shape=(e_count, 2, kg, w))
+    return v
+
+
+def _tuples(batch, name: str):
+    packed = batch.pack()
+    dev = _cuda_device(packed, name)
+    if packed.dim() != 2 or packed.shape[0] != 6:
+        raise ValueError(f"the tuple pack must be [6, B], got "
+                         f"{tuple(packed.shape)}")
+    b = _batch(int(packed.shape[1]))
+    return packed, dev, b
+
+
+class MeshProbeKernel:
+    """K21's word-sharded probe on the card: the partial record int32
+    [4, B] of one shard (engine/sharded.py mesh_probe_plain) from a
+    TupleBatch and the shard's PolicyTables (replicated index tables,
+    the word slices of l4_allow_bits and l3_allow_bits, whose first word
+    is `w_off`)."""
+
+    name = "mesh_probe"
+
+    def __init__(self) -> None:
+        self.launches = 0
+
+    def load(self, verbose: bool = False):
+        return MESH_LIBRARY.load(verbose)
+
+    def __call__(self, tab, batch, w_off: int) -> torch.Tensor:
+        packed, dev, b = _tuples(batch, self.name)
+        a = MeshProbeArgs()
+        a.tuples = _ptr(packed, "tuples", dev, shape=(6, b))
+        a.pol = _shard_view(tab, dev, dense=True)
+        if not 0 <= int(w_off) < 1 << 26:
+            raise ValueError(f"w_off = {w_off}")
+        a.w_off = int(w_off)
+        out = torch.empty((MESH_RECORD_ROWS, b), dtype=torch.int32,
+                          device=dev)
+        a.out, a.B = out.data_ptr(), b
+        MESH_LIBRARY.launch("launch_mesh_probe", a, dev, self.name)
+        self.launches += 1
+        return out
+
+
+class RoutedProbeKernel:
+    """K21's routed probe on the card: shard t's partial record int32
+    [5, B] (engine/sharded.py routed_probe_plain) under the RouteGeom
+    `g`, from a TupleBatch and the shard's PolicyTables (hashed, its
+    resident rows and L3 words); in failover mode `alive_row` bool [tp]
+    is its batch row's chip health."""
+
+    name = "routed_probe"
+
+    def __init__(self) -> None:
+        self.launches = 0
+
+    def load(self, verbose: bool = False):
+        return MESH_LIBRARY.load(verbose)
+
+    def __call__(self, tab, batch, g, t: int, alive_row=None
+                 ) -> torch.Tensor:
+        packed, dev, b = _tuples(batch, self.name)
+        if tab.l4_hash_rows is None:
+            raise ValueError(f"{self.name} reads the hashed L4 tables")
+        a = RoutedProbeArgs()
+        a.tuples = _ptr(packed, "tuples", dev, shape=(6, b))
+        a.pol = _shard_view(tab, dev, dense=False)
+        a.t, a.ntp = int(t), int(g.ntp)
+        if not 0 <= a.t < a.ntp <= MESH_MAX_TP:
+            raise ValueError(f"shard {t} of {g.ntp}")
+        a.rows_sharded, a.l3_sharded = int(g.rows_sharded), int(g.l3_sharded)
+        a.failover = int(g.failover)
+        a.n_rows_global = _pow2(int(g.n_rows_global), "hashed rows")
+        a.n_local, a.w_local = int(g.n_local), int(g.w_local)
+        a.n_row_shard, a.wn, a.n_ids = int(g.n_row_shard), int(g.wn), int(
+            g.n_ids)
+        if int(tab.l4_hash_rows.shape[0]) != (
+                g.n_local if g.rows_sharded else g.n_rows_global):
+            raise ValueError(f"{self.name}: {tuple(tab.l4_hash_rows.shape)} "
+                             f"rows on the shard, the geometry says "
+                             f"{g.n_local}")
+        if a.pol.n_words != g.w_local:
+            raise ValueError(f"{self.name}: {a.pol.n_words} L3 words on "
+                             f"the shard, the geometry says {g.w_local}")
+        keep = None
+        if g.failover:
+            if alive_row is None:
+                raise ValueError("failover mode takes alive_row [tp]")
+            keep = alive_row.to(device=dev, dtype=torch.uint8).contiguous()
+            a.alive = _ptr(keep, "alive_row", dev, torch.uint8, (a.ntp,))
+        out = torch.empty((ROUTED_RECORD_ROWS, b), dtype=torch.int32,
+                          device=dev)
+        a.out, a.B = out.data_ptr(), b
+        MESH_LIBRARY.launch("launch_routed_probe", a, dev, self.name)
+        self.launches += 1
+        return out
+
+
+class MeshCombineKernel:
+    """K21's combine on the card: the tp partial records of one batch
+    row (on its device; [4, B] in mesh mode, [5, B] routed), its TupleBatch and a shard's PolicyTables
+    (l4_meta) -> (Verdicts, l4 [E, 2, Kg], l3 [E, 2, l3_shards *
+    c_local], telemetry [2, 20] or None, replica tuples []), counters
+    as u32 bits in int32 (engine/sharded.py mesh_combine_plain)."""
+
+    name = "mesh_combine"
+
+    def __init__(self) -> None:
+        self.launches = 0
+
+    def load(self, verbose: bool = False):
+        return MESH_LIBRARY.load(verbose)
+
+    def __call__(self, parts, tab, batch, g, valid=None,
+                 telemetry: bool = True):
+        from cilium_tpu_torch.engine.verdict import Verdicts
+
+        packed, dev, b = _tuples(batch, self.name)
+        if not 1 <= len(parts) <= MESH_MAX_TP or len(parts) != g.ntp:
+            raise ValueError(f"{self.name}: {len(parts)} records for "
+                             f"{g.ntp} table shards")
+        if not 1 <= g.l3_shards <= len(parts):
+            raise ValueError(f"{self.name}: l3_shards = {g.l3_shards}")
+        a = CombineArgs()
+        # mode 0 is engine/sharded.py MODE_MESH
+        rows = MESH_RECORD_ROWS if g.mode == 0 else ROUTED_RECORD_ROWS
+        for k, part in enumerate(parts):
+            a.parts[k] = _ptr(part, f"record {k}", dev, shape=(rows, b))
+        a.tuples = _ptr(packed, "tuples", dev, shape=(6, b))
+        l4t = _l4_tables(tab, dev)
+        a.meta, a.n_eps, a.kg = l4t.meta, l4t.n_eps, l4t.kg
+        a.ew = l4t.ew if tab.l4_hash_rows is not None else 3
+        keep = None
+        if valid is not None:
+            keep = valid.to(device=dev, dtype=torch.uint8).contiguous()
+            a.valid = _ptr(keep, "valid", dev, torch.uint8, (b,))
+        cols = int(g.l3_shards) * int(g.c_local)
+        if not 1 <= cols < 1 << 31:
+            raise ValueError(f"{self.name}: {cols} L3 counter columns")
+        out = Verdicts(
+            allowed=torch.empty(b, dtype=torch.uint8, device=dev),
+            proxy_port=torch.empty(b, dtype=torch.int32, device=dev),
+            match_kind=torch.empty(b, dtype=torch.uint8, device=dev),
+        )
+        l4 = torch.zeros((a.n_eps, 2, a.kg), dtype=torch.int32, device=dev)
+        l3 = torch.zeros((a.n_eps, 2, cols), dtype=torch.int32, device=dev)
+        replica = torch.zeros(1, dtype=torch.int32, device=dev)
+        telem = (torch.zeros((2, TELEM_COLS), dtype=torch.int32, device=dev)
+                 if telemetry else None)
+        a.allowed = out.allowed.data_ptr()
+        a.proxy_port = out.proxy_port.data_ptr()
+        a.match_kind = out.match_kind.data_ptr()
+        a.l4, a.l3, a.replica = l4.data_ptr(), l3.data_ptr(), replica.data_ptr()
+        if telem is not None:
+            a.telem = telem.data_ptr()
+        a.B, a.tp, a.mode = b, len(parts), int(g.mode)
+        a.l3_shards, a.c_local = int(g.l3_shards), int(g.c_local)
+        MESH_LIBRARY.launch("launch_mesh_combine", a, dev, self.name)
+        self.launches += 1
+        return out, l4, l3, telem, replica[0]
+
+
+MESH_PROBE = MeshProbeKernel()
+ROUTED_PROBE = RoutedProbeKernel()
+MESH_COMBINE = MeshCombineKernel()
+
+
 KERNELS = (DATAPATH_PAIR, DATAPATH_STEP, CHURN_COMPACT, CT_DELTA,
            HTTP_MATCH, KAFKA_MATCH, FLEET_L7, LATTICE, LPM_LOOKUP, DATAPATH6,
            PICK_DRAW, DATAPATH_PAIR_MEMO, MEMO_DEDUP, MEMO_CACHE,
            MEMO_KEYS_LATTICE, PUBLISH_SCATTER, MEMCACHE_MATCH, SHADOW_DIFF,
-           PERSISTENT_PAIR)
+           PERSISTENT_PAIR, MESH_PROBE, ROUTED_PROBE, MESH_COMBINE)

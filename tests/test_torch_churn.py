@@ -638,8 +638,10 @@ def test_churn_loop_raises_on_a_layout_the_kernels_refuse():
     loop raise instead of running the plain version."""
     _need_card()
     w, tables = _card_world()
+    # without the hashed rows the kernels take the dense lattice; without
+    # its planes too they refuse the tables
     bad = dataclasses.replace(tables, policy=dataclasses.replace(
-        tables.policy, l4_hash_rows=None))
-    with pytest.raises(ValueError, match="dense lattice"):
+        tables.policy, l4_hash_rows=None, l4_allow_bits=None))
+    with pytest.raises(ValueError, match="dense port_slot"):
         trp.replay_pool(bad, dict(w.pool), 1000, batch_size=1000,
                         ct_map=convert_ct_port(w.ct), device="cuda")

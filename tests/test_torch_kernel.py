@@ -91,10 +91,161 @@ def test_kernel_refuses_layouts_it_does_not_implement():
         for col in dp.VERDICT_COLUMNS:
             assert torch.equal(getattr(g, col), getattr(p, col)), col
     assert torch.equal(got[2], want[2]) and torch.equal(got[3], want[3])
-    # the dense lattice inside the datapath is not implemented
-    dense = dataclasses.replace(tables, policy=dataclasses.replace(
-        tables.policy, l4_hash_rows=None))
-    with pytest.raises(ValueError, match="dense lattice"):
-        kernels.DATAPATH_PAIR(dense, pair.cuda(), acc, tel)
+    # without the hashed L4 tables the kernels take the dense lattice
+    # (K8's dense branch), and refuse tables without its planes
+    dense_t = tables_to(dataclasses.replace(w.host_tables(), policy=(
+        dataclasses.replace(w.host_tables().policy, l4_hash_rows=None,
+                            l4_hash_stash=None, l4_wild_rows=None,
+                            l4_wild_stash=None))), "cuda")
+    got = kernels.DATAPATH_PAIR(dense_t, pair.cuda(), acc.clone(),
+                                tel.clone())
+    want = dp.datapath_pair_plain(dense_t, pair.cuda(), acc.clone(),
+                                  tel.clone())
+    for g, p in zip(got[:2], want[:2]):
+        for col in dp.VERDICT_COLUMNS:
+            assert torch.equal(getattr(g, col), getattr(p, col)), col
+    assert torch.equal(got[2], want[2]) and torch.equal(got[3], want[3])
+    no_planes = dataclasses.replace(dense_t, policy=dataclasses.replace(
+        dense_t.policy, l4_allow_bits=None))
+    with pytest.raises(ValueError, match="dense port_slot"):
+        kernels.DATAPATH_PAIR(no_planes, pair.cuda(), acc, tel)
     with pytest.raises(ValueError, match="CUDA"):
         kernels.DATAPATH_PAIR(tables, pair, acc, tel)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("compact", [False, True])
+def test_dense_datapath_matches_plain_version(compact):
+    """DATAPATH_PAIR and DATAPATH_STEP on tables without the hashed L4
+    tables (K8's dense branch) against their plain versions, and
+    against the hashed tables' verdicts (every column but the slot,
+    which the dense branch reads for every port with a slot)."""
+    _need_card()
+    import dataclasses
+
+    from cilium_tpu_torch import kernels, world
+    from cilium_tpu_torch.convert import tables_to
+    from cilium_tpu_torch.engine import datapath as dp
+    from cilium_tpu_torch.engine import verdict
+
+    w = world.make_world(
+        seed=4, n_rules=400, n_endpoints=4, n_identities=512,
+        n_cidr_blocks=16, n_vips=4, n_pool=3000, ct_max_entries=4096,
+        identity_pad=256, filter_pad=16,
+    )
+    wide = w.host_tables()
+    hashed = dp.subword_datapath_tables(wide) if compact else wide
+    dense = dataclasses.replace(hashed, policy=dataclasses.replace(
+        wide.policy, l4_hash_rows=None, l4_hash_stash=None,
+        l4_wild_rows=None, l4_wild_stash=None))
+    ht, dt = tables_to(hashed, "cuda"), tables_to(dense, "cuda")
+    pair = torch.from_numpy(w.pairs(seed=5, half=20_000, k=1)[0].view(
+        np.int32)).cuda()
+    outs = {}
+    for name, tab, fn in (("dense", dt, kernels.DATAPATH_PAIR),
+                          ("plain", dt, dp.datapath_pair_plain),
+                          ("hashed", ht, kernels.DATAPATH_PAIR)):
+        acc = verdict.make_counter_buffers(tab.policy)
+        tel = verdict.make_telemetry_buffers("cuda")
+        outs[name] = fn(tab, pair, acc, tel)
+    pairs = torch.stack([pair, pair.flip(-1)])
+    got = kernels.PERSISTENT_PAIR(dt, pairs,
+                                  verdict.make_counter_buffers(dt.policy),
+                                  verdict.make_telemetry_buffers("cuda"))
+    want = dp.persistent_pair_plain(dt, pairs,
+                                    verdict.make_counter_buffers(dt.policy),
+                                    verdict.make_telemetry_buffers("cuda"))
+    torch.cuda.synchronize()
+    for g, p in zip(got, want):
+        if isinstance(g, torch.Tensor):
+            assert torch.equal(g, p)
+        else:
+            for col in dp.VERDICT_COLUMNS:
+                assert torch.equal(getattr(g, col), getattr(p, col)), col
+    for other, skip in (("plain", ()), ("hashed", ("l4_slot",))):
+        for g, p in zip(outs["dense"][:2], outs[other][:2]):
+            for col in dp.VERDICT_COLUMNS:
+                if col not in skip:
+                    assert torch.equal(getattr(g, col), getattr(p, col)), (
+                        other, col)
+        assert torch.equal(outs["dense"][2], outs[other][2]), other
+        assert torch.equal(outs["dense"][3], outs[other][3]), other
+    from cilium_tpu_torch.convert import flow_pool_to
+
+    pool = flow_pool_to(w.pool, "cuda")
+    picks = torch.arange(int(pool.shape[1]), dtype=torch.int32,
+                         device="cuda").flip(0)
+    got = kernels.DATAPATH_STEP(dt, pool, picks)
+    want = dp.datapath_step_plain(
+        dt, dp.flow_batch_from_packed(pool[:, picks.long()]))
+    for col in dp.VERDICT_COLUMNS:
+        assert torch.equal(getattr(got, col), getattr(want, col)), col
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dp_,tp", [(2, 4), (4, 2), (8, 1)])
+@pytest.mark.parametrize("compact", [False, True])
+def test_mesh_kernels_match_plain_versions(dp_, tp, compact):
+    """MESH_PROBE, ROUTED_PROBE and MESH_COMBINE through the four mesh
+    evaluators on a CUDA mesh of virtual chips against the plain
+    versions on a CPU mesh of the same shape: every output; each kernel
+    launched once per shard (probes) or batch row (combine)."""
+    _need_card()
+    import dataclasses
+
+    from cilium_tpu_torch import kernels, world
+    from cilium_tpu_torch.compiler import partition
+    from cilium_tpu_torch.compiler.tables import repack_l4_subword
+    from cilium_tpu_torch.convert import policy_tables_to
+    from cilium_tpu_torch.engine import mesh, sharded, verdict
+    from cilium_tpu_torch.engine.verdict import TupleBatch
+
+    w = world.make_world(
+        seed=6, n_rules=400, n_endpoints=4, n_identities=512,
+        n_cidr_blocks=16, n_vips=4, n_pool=3000, ct_max_entries=4096,
+        identity_pad=256, filter_pad=16,
+    )
+    pol = w.host_tables().policy
+    if compact:
+        pol = dataclasses.replace(repack_l4_subword(pol), port_slot=(
+            pol.port_slot), l4_allow_bits=pol.l4_allow_bits)
+    cols = world.lattice_tuples(w, 8 * 1000, seed=3)
+    cols["identity"][::7] = 7  # unknown identities
+    cols["is_fragment"] = np.arange(8000) % 11 == 0
+    valid = np.arange(8000) % 5 != 0
+    alive = np.ones((dp_, tp), bool)
+    if tp > 1:
+        alive[0, 1] = False
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        m = mesh.make_mesh(dp_, tp, device=dev)
+        tab = policy_tables_to(pol, dev)
+        batch = TupleBatch.from_numpy(**cols, device=dev)
+        aug = policy_tables_to(partition.replicate_table_leaves(pol, tp), dev)
+        before = {k.name: k.launches for k in (
+            kernels.MESH_PROBE, kernels.ROUTED_PROBE, kernels.MESH_COMBINE)}
+        runs[dev] = (
+            sharded.make_mesh_evaluator(m, collect_telemetry=True)(tab, batch),
+            sharded.make_partitioned_evaluator(m, pol,
+                                               collect_telemetry=True)(
+                tab, batch),
+            sharded.make_failover_evaluator(m, pol, collect_telemetry=True)(
+                aug, batch, alive, valid),
+            (verdict.make_sharded_evaluator(m)(tab, batch),),
+        )
+        torch.cuda.synchronize()
+        after = {k.name: k.launches for k in (
+            kernels.MESH_PROBE, kernels.ROUTED_PROBE, kernels.MESH_COMBINE)}
+        if dev == "cuda":
+            assert after["mesh_probe"] - before["mesh_probe"] == dp_ * tp
+            assert after["routed_probe"] - before["routed_probe"] == (
+                2 * dp_ * tp)
+            assert after["mesh_combine"] - before["mesh_combine"] == 3 * dp_
+        else:
+            assert after == before
+    for k, (got, want) in enumerate(zip(runs["cuda"], runs["cpu"])):
+        for c in ("allowed", "proxy_port", "match_kind"):
+            assert torch.equal(getattr(got[0], c).cpu(),
+                               getattr(want[0], c)), (k, c)
+        for a, b in zip(got[1:], want[1:]):
+            assert torch.equal(a.cpu(), b), k
