@@ -211,7 +211,30 @@ launch counts set to 0 just before it and read just after:
              healthy mesh, replica_hits > 0), mesh_store_update (a
              one-rule delta into both stores: the owning shards' rows
              only, both replica copies, verdicts against LATTICE on a
-             fresh upload) and mesh_timing.
+             fresh upload) and mesh_timing;
+  failover   the mesh's host half: a ChipFailoverRouter on the same
+             (2, 4) mesh over a replica store of config 5's tables and
+             the 4,194,304 tuples (failover_setup), launch counts set
+             to 0 around each dispatch: failover_healthy (16
+             ROUTED_PROBE, 2 MESH_COMBINE; no degradation, re-split,
+             replica hit or chip failure), failover_kill (chip 1 killed
+             through the engine.dispatch fault seam: replica_hits > 0,
+             equal outputs), failover_resplit (its backup too: row 0
+             re-splits), failover_readmit (two one-rule deltas by
+             PUBLISH_SCATTER while out, the missed rows poisoned in the
+             chip's own slice, the half-open probe's rebalance by
+             REPAIR_SCATTER: bytes beside a full upload, live and spare
+             epochs equal to fresh uploads, verdicts against LATTICE),
+             failover_terminal (every breaker open, 4,096 tuples
+             through the host fold against LATTICE), failover_memo
+             (attach_memo at R_local = 1,024 and 8 lanes, a Zipf(1.1)
+             stream cold and warm, healthy and with chip 1 dead,
+             against an uncached router: MEMO_KEYS_LATTICE, MEMO_DEDUP,
+             MESH_MEMO_PROBE, MESH_MEMO_COMBINE, ROUTED_PROBE and
+             MESH_MEMO_INSERT; a forced overflow re-dispatched uncached;
+             make_partitioned_memo_evaluator against the partitioned
+             evaluator) and failover_timing (each new kernel against its
+             plain version, cold and warm, and timed).
 
 The churn path's int picks are drawn on the card by PICK_DRAW, the
 reference's threefry2x32 randint; churn_check also runs 2 int-pick
@@ -233,7 +256,8 @@ and written once at 3.35 TB/s, or its operations at 67 T/s, whichever
 is larger.  `library_ms` is the time of `index_copy_` for CT_DELTA,
 of `torch.unique` for MEMO_DEDUP, of one `index_put_` per leaf for
 PUBLISH_SCATTER (on in-range payloads: a time only, torch raises where
-jax drops), of `torch.randint` for PICK_DRAW
+jax drops), of `index_copy_` along the repaired axis for REPAIR_SCATTER
+(a time only), of `torch.randint` for PICK_DRAW
 (other numbers on the same shape: a time only) and null for the others:
 no single PyTorch call computes the fused datapath steps (pair,
 persistent or single-batch), the intent
@@ -5811,6 +5835,619 @@ def mesh_phases(kernels, w, rows, smi) -> None:
             row["launches_by_path"]["mesh"] = path["counts"][row["name"]]
             row["launches"] += path["counts"][row["name"]]
     rows.extend(mesh_timing(kernels, u, path, chk, smi))
+    failover_phases(kernels, w, u, rows, smi)
+
+
+# -- the mesh's host half: the per-chip failover router (K18 repair, K21 memo)
+
+FAIL_TERMINAL_TUPLES = 4096  # the terminal fold is host Python
+FAIL_PORTS = (4351, 4352)  # the deltas published while a chip is out
+FAIL_DEAD = MESH_DEAD  # coordinate (0, 1), ordinal 1
+FAIL_RESPLIT = (0, 2)  # (0, 1)'s backup: row 0 loses table slice 1
+FAIL_MEMO_ROWS, FAIL_MEMO_ENTRIES = 1 << 10, 8  # attach_memo's defaults
+FAIL_OVERFLOW_SHIFT = 30  # rep_cap = min(local_b, 256): a Zipf row overflows
+FAIL_CALLS = 20
+
+
+class ManualClock:
+    """The breakers' clock, moved by hand: a half-open probe is due when
+    the smoke says so, not when a timer fires."""
+
+    def __init__(self):
+        self.now = 0.0
+
+    def __call__(self):
+        return self.now
+
+
+def fail_result_err(res, ref) -> int:
+    """Differences between two FailoverResults: verdict rows, counter
+    entries and the folded telemetry's."""
+    err = 0
+    for c in ("allowed", "proxy_port", "match_kind"):
+        err += int((np.asarray(getattr(res.verdicts, c)).astype(np.int64)
+                    != np.asarray(getattr(ref.verdicts, c)).astype(np.int64))
+                   .sum())
+    for f in ("l4_counts", "l3_counts"):
+        err += int((getattr(res, f) != getattr(ref, f)).sum())
+    if res.telemetry is not None or ref.telemetry is not None:
+        err += int((res.telemetry.astype(np.uint64).sum(axis=0)
+                    != ref.telemetry.astype(np.uint64).sum(axis=0)).sum())
+    return err
+
+
+def fail_ref_err(res, ref) -> int:
+    """A FailoverResult against LATTICE's verdicts, counters and
+    telemetry on the same tuples (ref: v, l4, l3, telemetry [2, T])."""
+    v, l4, l3, tel = ref
+    err = 0
+    for c in ("allowed", "proxy_port", "match_kind"):
+        err += int((np.asarray(getattr(res.verdicts, c)).astype(np.int64)
+                    != getattr(v, c).cpu().numpy().astype(np.int64)).sum())
+    err += int((res.l4_counts.astype(np.int64)
+                != l4.cpu().numpy().view(np.uint32).astype(np.int64)).sum())
+    err += int((res.l3_counts.astype(np.int64)
+                != l3.cpu().numpy().view(np.uint32).astype(np.int64)).sum())
+    if res.telemetry is not None:
+        err += int((res.telemetry.astype(np.int64).sum(axis=0)
+                    != tel.cpu().numpy()).sum())
+    return err
+
+
+def lattice_ref(kernels, single, batch):
+    from cilium_tpu_torch.engine.verdict import split_counters
+
+    v, acc = kernels.LATTICE(single, batch, counters=True)
+    l4, l3 = split_counters(acc, single)
+    return v, l4, l3, mesh_telemetry(v, batch.direction)
+
+
+def epoch_vs_fresh(mt, host, m24) -> int:
+    """Leaves of a MeshTables epoch that differ, on any coordinate, from
+    a fresh full placement of the replica layout of `host`."""
+    from cilium_tpu_torch.compiler import partition
+    from cilium_tpu_torch.engine import mesh
+
+    aug = partition.replicate_table_leaves(host, MESH_SHAPE[1])
+    fresh = mesh.place_tables(aug, partition.table_shardings(m24, aug))
+    err = 0
+    for coord in m24.coords():
+        a, b = mt.shard(*coord), fresh.shard(*coord)
+        for f in dataclasses.fields(a):
+            x, y = getattr(a, f.name), getattr(b, f.name)
+            if isinstance(x, torch.Tensor):
+                err += entries_differ(x, y)
+            elif x != y and f.name != "generation":
+                err += 1
+    return err
+
+
+def failover_setup(kernels, w, u) -> dict:
+    """Two routers on the virtual (2, 4) mesh of the card over config 5's
+    FleetCompiler tables (u["host"]), each publishing them twice (both
+    epochs full): `router` (the smoke's, telemetry on) and `plain` (the
+    uncached comparison of the memo phase).  Banks on a manual clock,
+    one failure opens a breaker, no host fold (a failed launch then
+    raises instead of folding: set only for the terminal phase)."""
+    from cilium_tpu_torch import world
+    from cilium_tpu_torch.engine.failover import ChipFailoverRouter
+    from cilium_tpu_torch.resilience import ChipBreakerBank
+
+    t = time.perf_counter()
+    clock = ManualClock()
+    routers = {}
+    for name in ("router", "plain"):
+        bank = ChipBreakerBank(recovery_timeout=1.0, failure_threshold=1,
+                               clock=clock)
+        r = ChipFailoverRouter(u["m24"], u["host"], bank=bank,
+                               collect_telemetry=True)
+        for _ in range(2):
+            r.publish(u["host"])
+        routers[name] = r
+    cols = world.lattice_tuples(w, LATTICE_TUPLES)
+    torch.cuda.synchronize()
+    phase("failover_setup", t, tuples=LATTICE_TUPLES, mesh=MESH_SHAPE,
+          ordinals=routers["router"].ordinals.tolist(),
+          replica_chip_bytes=routers["router"].store.chip_bytes()[0])
+    return dict(clock=clock, cols=cols, **routers)
+
+
+def fail_dispatch(kernels, router, cols, name, t, want=None, **fields):
+    """One router dispatch with the launch counts set to 0 just before
+    and read just after; `want` the launch counts expected."""
+    torch.cuda.synchronize()
+    reset_counts(kernels)
+    t1 = time.perf_counter()
+    res = router.dispatch(**cols)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t1
+    counts = {k.name: k.launches for k in kernels.KERNELS if k.launches}
+    if want is not None and counts != want:
+        raise SystemExit(f"{name}: launches {counts}, expected {want}")
+    return res, counts, wall
+
+
+def failover_paths(kernels, w, u, fu, smi) -> dict:
+    """failover_healthy, failover_kill, failover_resplit, failover_readmit
+    and failover_terminal through the smoke's router."""
+    from cilium_tpu_torch import faultinject, world
+    from cilium_tpu_torch.compiler import partition
+    from cilium_tpu_torch.compiler.delta import tables_nbytes
+    from cilium_tpu_torch.convert import policy_tables_to
+    from cilium_tpu_torch.engine.hostpath import lattice_fold_host
+    from cilium_tpu_torch.engine.verdict import TupleBatch
+
+    dp_, tp = MESH_SHAPE
+    router, cols = fu["router"], fu["cols"]
+    dead = int(router.ordinals[FAIL_DEAD])
+    routed = {kernels.ROUTED_PROBE.name: dp_ * tp,
+              kernels.MESH_COMBINE.name: dp_}
+    ref = lattice_ref(kernels, u["single"], u["batch"])
+    counts = {}
+
+    # -- 1. healthy: no fault armed
+    t = time.perf_counter()
+    healthy, counts["healthy"], wall = fail_dispatch(
+        kernels, router, cols, "failover_healthy", t, routed)
+    err = fail_ref_err(healthy, ref)
+    phase("failover_healthy", t, tuples=LATTICE_TUPLES, err=err,
+          wall_ms=round(wall * 1e3, 3), launches=counts["healthy"],
+          degraded=healthy.degraded, rerouted=healthy.rerouted,
+          replica_hits=healthy.replica_hits,
+          chip_failures=dict(router.stats.chip_failures))
+    if (err or healthy.degraded or healthy.rerouted or healthy.replica_hits
+            or router.stats.chip_failures):
+        raise SystemExit("failover_healthy: the healthy router differs or "
+                         "degraded")
+
+    # -- 2. kill chip (0, 1) through the fault seam until its breaker opens
+    t = time.perf_counter()
+    faultinject.arm("engine.dispatch", f"raise:chip={dead}")
+    killed, counts["kill"], wall = fail_dispatch(
+        kernels, router, cols, "failover_kill", t, routed)
+    again = router.dispatch(**cols)
+    err = fail_result_err(killed, healthy) + fail_result_err(again, healthy)
+    phase("failover_kill", t, chip=dead, err=err, wall_ms=round(wall * 1e3, 3),
+          replica_hits=[killed.replica_hits, again.replica_hits],
+          state=router.bank.state(dead), degraded=killed.degraded,
+          rerouted=killed.rerouted, launches=counts["kill"])
+    if (err or killed.replica_hits <= 0 or killed.degraded or killed.rerouted
+            or router.bank.state(dead) == "closed"):
+        raise SystemExit("failover_kill: the replicas did not serve the "
+                         "dead chip's rows bit-identically")
+
+    # -- 3. its backup dies too: row 0 re-splits across the survivors
+    t = time.perf_counter()
+    backup = int(router.ordinals[FAIL_RESPLIT])
+    router.bank.record_failure(backup, "smoke kill")
+    split, counts["resplit"], wall = fail_dispatch(
+        kernels, router, cols, "failover_resplit", t, routed)
+    err = fail_result_err(split, healthy)
+    phase("failover_resplit", t, chips=[dead, backup], err=err,
+          rerouted=split.rerouted, degraded=split.degraded,
+          replica_hits=split.replica_hits, wall_ms=round(wall * 1e3, 3),
+          rerouted_batches=router.stats.rerouted_batches)
+    if err or not split.rerouted or split.degraded:
+        raise SystemExit("failover_resplit: the re-split differs")
+
+    # -- 4. two one-rule deltas while the chips are out, then readmission
+    t = time.perf_counter()
+    fc = u["fc"]
+    arrays, states = u["arrays"], list(w.states)
+    hosts = []
+    torch.cuda.synchronize()
+    reset_counts(kernels)
+    for k, port in enumerate(FAIL_PORTS):
+        arrays = world.one_rule_states(w, port, states=arrays)
+        states = world.one_rule_states(w, port, states=states)
+        host = host_copy(fc.compile([(e, s, 10 + k if e == 0 else 0)
+                                     for e, s in enumerate(arrays)],
+                                    u["ids"])[0])
+        delta = fc.delta_for(router.store.spare_stamp(), host)
+        _, st = router.publish(host, delta)
+        if delta is None or st.mode != "delta":
+            raise SystemExit(f"failover_readmit: publish of port {port} was "
+                             f"{st.mode}")
+        hosts.append(host)
+    torch.cuda.synchronize()
+    counts["outage_publish"] = {k.name: k.launches for k in kernels.KERNELS
+                                if k.launches}
+    if counts["outage_publish"] != {kernels.PUBLISH_SCATTER.name: 2}:
+        raise SystemExit(f"failover_readmit: publish launches "
+                         f"{counts['outage_publish']}")
+    ledger = router.store.chip_outage(dead)
+    faultinject.disarm("engine.dispatch")
+    router.bank.breaker(backup).reset()
+    fu["clock"].now += 2.0  # the dead chip's breaker is due for its probe
+    single = policy_tables_to(hosts[-1], "cuda")
+    ref_new = lattice_ref(kernels, single, u["batch"])
+    store = router.store
+    # the rows the dead chip missed, garbage in its own slice of the live
+    # epoch (a private copy: coordinates of one card share a block)
+    mt = store.current()[1]
+    own = mt.shard(*FAIL_DEAD)
+    poison = {}
+    for name, (axis, idx) in router._owned_row_sets(dead, ledger).items():
+        blk = getattr(store._shardings, name).slices(mt.leaf_shape(name),
+                                                     FAIL_DEAD)[axis]
+        leaf = getattr(own, name).clone()
+        leaf.index_fill_(axis, torch.from_numpy(idx - blk.start).cuda(), -1)
+        poison[name] = leaf
+    mt.shards[FAIL_DEAD] = dataclasses.replace(own, **poison)
+    poisoned = {k: int((v == -1).sum()) for k, v in poison.items()}
+    spare_before = store._slots[store._cur ^ 1]["epoch"]
+    back, counts["readmit"], wall = fail_dispatch(
+        kernels, router, cols, "failover_readmit", t)
+    repair_launches = counts["readmit"].get(kernels.REPAIR_SCATTER.name, 0)
+    aug = partition.replicate_table_leaves(hosts[-1], tp)
+    full_bytes = tables_nbytes(aug)
+    live_err = epoch_vs_fresh(store.current()[1], hosts[-1], u["m24"])
+    spare = store._slots[store._cur ^ 1]
+    spare_err = epoch_vs_fresh(spare["tables"], hosts[0], u["m24"])
+    err = fail_ref_err(back, ref_new)
+    phase("failover_readmit", t, ports=FAIL_PORTS, chips=[dead, backup],
+          missed=len(ledger["missed"]), needs_full=ledger["needs_full"],
+          poisoned_words=poisoned,
+          rebalanced=list(back.rebalanced_chips),
+          rebalance_bytes=back.rebalance_bytes, full_upload_bytes=full_bytes,
+          rebalance_ms=round(back.rebalance_ms, 3), live_epoch_err=live_err,
+          spare_epoch=[spare_before, spare["epoch"]], spare_epoch_err=spare_err,
+          verdict_err=err, state=router.bank.state(dead),
+          repair_launches=repair_launches, launches=counts["readmit"],
+          publish_launches=counts["outage_publish"])
+    if (err or live_err or spare_err or dead not in back.rebalanced_chips
+            or not 0 < back.rebalance_bytes < full_bytes
+            or router.bank.state(dead) != "closed" or not repair_launches
+            or back.degraded or back.replica_hits or not poisoned):
+        raise SystemExit("failover_readmit: the readmission did not repair "
+                         "the chip's rows")
+
+    # -- 5. every breaker open: the terminal host fold on a small batch
+    t = time.perf_counter()
+    small = {k: v[:FAIL_TERMINAL_TUPLES] for k, v in cols.items()}
+    router.host_fold = lambda *a: lattice_fold_host(states, *a[:5],
+                                                    is_fragment=a[5])
+    for o in router.ordinals.ravel():
+        router.bank.record_failure(int(o), "smoke outage")
+    fold, counts["terminal"], wall = fail_dispatch(
+        kernels, router, small, "failover_terminal", t, {})
+    sb = TupleBatch.from_numpy(**small, device="cuda")
+    want = kernels.LATTICE(single, sb)[0]
+    err = rows_differ(_host_v(fold), _cpu_v(want))
+    router.host_fold = None
+    router.bank.reset()
+    phase("failover_terminal", t, tuples=FAIL_TERMINAL_TUPLES, err=err,
+          degraded=fold.degraded, wall_ms=round(wall * 1e3, 3),
+          degraded_batches=router.stats.degraded_batches)
+    if err or not fold.degraded:
+        raise SystemExit("failover_terminal: the host fold differs")
+    return dict(counts=counts, healthy=healthy, hosts=hosts, states=states,
+                single=single, ref_new=ref_new, smi=smi)
+
+
+def _host_v(res):
+    from cilium_tpu_torch.engine.verdict import Verdicts
+
+    return Verdicts(*(torch.from_numpy(np.asarray(getattr(res.verdicts, c)))
+                      for c in ("allowed", "proxy_port", "match_kind")))
+
+
+def _cpu_v(v):
+    from cilium_tpu_torch.engine.verdict import Verdicts
+
+    return Verdicts(*(getattr(v, c).cpu() for c in ("allowed", "proxy_port",
+                                                    "match_kind")))
+
+
+def memo_counts(kernels, dispatches: int = 1) -> dict:
+    dp_, tp = MESH_SHAPE
+    per = {kernels.MEMO_KEYS_LATTICE.name: dp_, kernels.MEMO_DEDUP.name: dp_,
+           kernels.MESH_MEMO_PROBE.name: dp_,  # one per row on one card
+           kernels.MESH_MEMO_COMBINE.name: 2 * dp_,
+           kernels.ROUTED_PROBE.name: dp_ * tp,
+           kernels.MESH_MEMO_INSERT.name: dp_ * tp}
+    return {k: v * dispatches for k, v in per.items()}
+
+
+def failover_memo(kernels, w, u, fu, fp) -> dict:
+    """failover_memo: attach_memo() at the reference's defaults, a
+    Zipf(1.1) stream of LATTICE_TUPLES dispatched cold then warm against
+    the uncached router on the same epoch, healthy and with chip (0, 1)
+    dead (the kill flushes the cache); a batch forced to overflow is
+    re-dispatched uncached; then make_partitioned_memo_evaluator once
+    against the partitioned evaluator."""
+    from cilium_tpu_torch.engine import sharded as sh
+    from cilium_tpu_torch.engine.memo_mesh import (
+        make_partitioned_memo_evaluator,
+    )
+    from cilium_tpu_torch.engine.verdict import TupleBatch
+
+    t = time.perf_counter()
+    router, plain = fu["router"], fu["plain"]
+    for host in fp["hosts"]:
+        plain.publish(host)
+    zcols = memo_zipf_tuples(w, LATTICE_TUPLES, seed=61)
+    router.attach_memo(FAIL_MEMO_ROWS, FAIL_MEMO_ENTRIES)
+    cache = router._memo["cache"]
+    dead = int(router.ordinals[FAIL_DEAD])
+    errs, hit_rates, counts = {}, {}, {}
+    results = {}
+    for tag in ("healthy", "dead"):
+        if tag == "dead":
+            flushes = cache.flushes
+            for r in (router, plain):
+                r.bank.record_failure(dead, "smoke kill")
+            errs["kill_flushed"] = int(cache.flushes != flushes + 1)
+        ref = plain.dispatch(**zcols)
+        for when in ("cold", "warm"):
+            res, c, wall = fail_dispatch(kernels, router, zcols,
+                                         f"failover_memo {tag} {when}", t,
+                                         memo_counts(kernels))
+            counts[f"{tag}_{when}"] = c
+            errs[f"{tag}_{when}"] = fail_result_err(res, ref)
+            hit_rates[f"{tag}_{when}"] = round(float(res.cache_hit.mean()), 4)
+            errs[f"{tag}_{when}_degraded"] = int(res.degraded or res.rerouted)
+            results[f"{tag}_{when}"] = res
+            print(f"  failover_memo {tag} {when} wall_ms "
+                  f"{round(wall * 1e3, 3)} replica_hits {res.replica_hits} "
+                  f"ref_replica_hits {ref.replica_hits}", flush=True)
+        errs[f"{tag}_replica"] = int(
+            (ref.replica_hits > 0) != (tag == "dead")
+            or (tag == "dead" and results["dead_cold"].replica_hits <= 0))
+    for r in (router, plain):
+        r.bank.reset()
+    # a forced overflow: re-dispatched through the uncached evaluator
+    router._memo["rep_shift"] = FAIL_OVERFLOW_SHIFT
+    before = router._memo["overflow_redispatches"]
+    over = router.dispatch(**zcols)
+    router._memo["rep_shift"] = 2
+    errs["overflow"] = fail_result_err(over, plain.dispatch(**zcols))
+    errs["overflow_redispatched"] = int(
+        over.cache_hit is not None
+        or router._memo["overflow_redispatches"] != before + 1)
+    # make_partitioned_memo_evaluator once, against the partitioned mesh
+    batch = TupleBatch.from_numpy(**zcols, device="cuda")
+    sbz = sh.shard_batch(u["m24"], batch)
+    rep_cap = LATTICE_TUPLES // MESH_SHAPE[0] >> 2
+    ev = make_partitioned_memo_evaluator(u["m24"], u["host"], cache.rows,
+                                         rep_cap, collect_telemetry=True)
+    rows0 = make_cache(u["m24"]).rows
+    got = ev(u["mt_part"], sbz, rows0)
+    want = u["ev_part"](u["mt_part"], sbz)
+    errs["partitioned_memo"] = mesh_out_err(
+        (got[0], got[1], got[2], got[6]), want)
+    errs["partitioned_memo_overflow"] = int(got[5][3].item())
+    torch.cuda.synchronize()
+    snap = cache.snapshot()
+    phase("failover_memo", t, tuples=LATTICE_TUPLES, zipf_s=MEMO_ZIPF_S,
+          rows_local=FAIL_MEMO_ROWS, entries=FAIL_MEMO_ENTRIES, errs=errs,
+          hit_rate=hit_rates, dedup_factor=round(snap["dedup_factor"], 3),
+          memo_hits=router._memo["hits"], flushes=snap["flushes"],
+          overflow_redispatches=router._memo["overflow_redispatches"],
+          launches=counts["healthy_warm"])
+    if any(errs.values()) or hit_rates["healthy_warm"] <= 0:
+        raise SystemExit(f"failover_memo: {errs}")
+    return dict(zcols=zcols, counts=counts, errs=errs, batch=batch)
+
+
+def make_cache(m24):
+    from cilium_tpu_torch.engine.memo_mesh import make_partitioned_cache
+
+    return make_partitioned_cache(m24, FAIL_MEMO_ROWS, FAIL_MEMO_ENTRIES)
+
+
+def memo_stage_need(stage, mg, g, front, rows, b, tp) -> int:
+    """Bytes one memo-stage launch must move for these inputs, each read
+    once and each output written once (mesh_need's rule): the valid
+    representatives' key words and rep_orig, the cache rows they probe
+    (distinct rows, whole) and the row's tp records (probe); the tp
+    records, the
+    missed tuples and the pack (front); the routed records, the reps'
+    words, srow and gid, each tuple's ep, dir, fragment and index words
+    and its verdict and hit out (back); the slice copied and the entries
+    written (insert)."""
+    from cilium_tpu_torch.engine.memo_mesh import _scalar
+
+    nv = min(_scalar(g["n_unique"]), mg.rep_cap)
+    nm = min(_scalar(front["n_miss"]), mg.miss_cap)
+    row_b = mg.width * 4
+    if stage == "probe":
+        return nv * 16 + rows * row_b + tp * mg.rep_cap * 16
+    if stage == "front":
+        return tp * 16 * mg.rep_cap + nm * 28 + mg.rep_cap * 16 + \
+            mg.miss_cap * (4 + 24)
+    if stage == "back":
+        return (tp * 20 * mg.miss_cap + mg.rep_cap * 16 + b * (8 + 16)
+                + b * 7 + mg.miss_cap * 8 + 2 * 160)
+    return 2 * (mg.c_local + 1) * row_b + nm * 5 * 4
+
+
+def failover_timing(kernels, u, fu, fp, fm, smi) -> list:
+    """failover_timing: each new kernel against its plain version on the
+    same inputs at the phase's shapes (batch row 0 of the Zipf stream on
+    the router's live epoch, a cold cache slice and the warm one; the
+    rebalance's whole owned region of chip (0, 1)), bit-exact; CUDA
+    events over FAIL_CALLS launches; the plain version's ms; the byte
+    bound at 3.35 TB/s; index_copy_ beside REPAIR_SCATTER."""
+    from cilium_tpu_torch.compiler import partition
+    from cilium_tpu_torch.convert import _leaf_to
+    from cilium_tpu_torch.engine import memo_mesh as mm
+    from cilium_tpu_torch.engine import publish
+    from cilium_tpu_torch.engine import sharded as sh
+    from cilium_tpu_torch.engine.verdict import _tuple_batch_from_packed
+
+    t = time.perf_counter()
+    dp_, tp = MESH_SHAPE
+    router = fu["router"]
+    mt = router.store.current()[1]
+    rg = router._ev.geom
+    local_b = LATTICE_TUPLES // dp_
+    ev = router._memo_evaluator(max(local_b >> 2, min(local_b, 256)))
+    mg = ev.memo_geom
+    sb = sh.shard_batch(u["m24"], fm["batch"])
+    dev = u["m24"].devices[0, 0]
+    packed = sb.on(0, dev).pack()
+    valid = torch.ones(local_b, dtype=torch.bool, device=dev)
+    alive = torch.ones(tp, dtype=torch.bool, device=dev)
+    # the row's key words and groups as the memo path makes them
+    # (MEMO_KEYS_LATTICE, MEMO_DEDUP)
+    keys = mm._keys(mt.shard(0, 0), packed)
+    g = mm._dedup(keys, mg.rep_cap)
+    errs, res = {}, {}
+    slices = {"cold": [make_cache(u["m24"]).rows.block(0, k).reshape(
+                  -1, mg.width) for k in range(tp)],
+              "warm": [router._memo["cache"].rows.block(0, k).reshape(
+                  -1, mg.width) for k in range(tp)]}
+    for tag, rows in slices.items():
+        by_t = dict(enumerate(rows))
+        got = kernels.MESH_MEMO_PROBE(by_t, keys, g, mg, alive)
+        want = mm.memo_probe_plain(by_t, keys, g, mg, alive)
+        errs[f"probe_{tag}"] = sum(entries_differ(got[k], want[k])
+                                   for k in range(tp))
+        recs = [got[k] for k in range(tp)]
+        front = kernels.MESH_MEMO_COMBINE.front(recs, g, packed, mg)
+        fpl = mm.memo_front_plain(recs, g, packed, mg)
+        errs[f"front_{tag}"] = sum(entries_differ(front[k], fpl[k])
+                                   for k in front)
+        miss = _tuple_batch_from_packed(front["miss_pack"])
+        rparts = [kernels.ROUTED_PROBE(mt.shard(0, k), miss, rg, k, alive)
+                  for k in range(tp)]
+        back = kernels.MESH_MEMO_COMBINE.back(
+            front, rparts, mt.shard(0, 0), g, packed, keys, mg, rg, valid,
+            alive, True)
+        bpl = mm.memo_back_plain(front, rparts, mt.shard(0, 0), g, packed,
+                                 keys, mg, rg, valid, alive, True)
+        errs[f"back_{tag}"] = rows_differ(back[0], bpl[0]) + sum(
+            entries_differ(a, b) for a, b in zip(back[1:], bpl[1:]))
+        ins = kernels.MESH_MEMO_INSERT(rows[0], front, back[7], back[6], keys,
+                                       g, mg, 0, alive)
+        errs[f"insert_{tag}"] = entries_differ(ins, mm.memo_insert_plain(
+            rows[0], front, back[7], back[6], keys, g, mg, 0, alive))
+        res[tag] = dict(rows=rows, recs=recs, front=front, rparts=rparts,
+                        back=back)
+    c = res["cold"]
+    rows0 = c["rows"]
+    # the distinct bucket rows batch row 0's probe reads, over its tp
+    # coordinates
+    gg = mm._groups64(g)
+    _, h = mm._rep_keys(keys, gg)
+    bucket = (h & (mg.c_global - 1))[:min(gg["n_unique"], mg.rep_cap)]
+    probe_rows = int(torch.unique(bucket).numel())
+    rows0_t = dict(enumerate(rows0))
+    timed = {
+        "mesh_memo_probe": (
+            lambda: kernels.MESH_MEMO_PROBE(rows0_t, keys, g, mg, alive),
+            lambda: mm.memo_probe_plain(rows0_t, keys, g, mg, alive),
+            memo_stage_need("probe", mg, g, c["front"], probe_rows,
+                            local_b, tp)),
+        "mesh_memo_combine": (
+            lambda: (kernels.MESH_MEMO_COMBINE.front(c["recs"], g, packed, mg),
+                     kernels.MESH_MEMO_COMBINE.back(
+                         c["front"], c["rparts"], mt.shard(0, 0), g, packed,
+                         keys, mg, rg, valid, alive, True)),
+            lambda: (mm.memo_front_plain(c["recs"], g, packed, mg),
+                     mm.memo_back_plain(c["front"], c["rparts"],
+                                        mt.shard(0, 0), g, packed, keys, mg,
+                                        rg, valid, alive, True)),
+            memo_stage_need("front", mg, g, c["front"], 0, local_b, tp)
+            + memo_stage_need("back", mg, g, c["front"], 0, local_b, tp)),
+        "mesh_memo_insert": (
+            lambda: kernels.MESH_MEMO_INSERT(rows0[0], c["front"], c["back"][7],
+                                             c["back"][6], keys, g, mg, 0,
+                                             alive),
+            lambda: mm.memo_insert_plain(rows0[0], c["front"], c["back"][7],
+                                         c["back"][6], keys, g, mg, 0, alive),
+            memo_stage_need("insert", mg, g, c["front"], 0, local_b, tp)),
+    }
+    # REPAIR_SCATTER on the rebalance's largest call: chip (0, 1)'s whole
+    # owned regions of the live epoch, from the retained host tables
+    dead = int(router.ordinals[FAIL_DEAD])
+    aug = partition.replicate_table_leaves(fp["hosts"][-1], tp)
+    segs_k, segs_p, lib, rep_bytes = [], [], [], 0
+    for name, (axis, idx) in router._whole_owned_row_sets(dead).items():
+        dst = getattr(mt.shard(*FAIL_DEAD), name)
+        blk = getattr(router.store._shardings, name).slices(
+            mt.leaf_shape(name), FAIL_DEAD)
+        values = np.take(np.asarray(getattr(aug, name)), idx, axis=axis)
+        values = np.ascontiguousarray(values[tuple(
+            slice(None) if a == axis else s for a, s in enumerate(blk))])
+        li = torch.from_numpy(idx - blk[axis].start).cuda()
+        vt = _leaf_to(values, "cuda")
+        segs_k.append((dst.clone(), axis, li, vt))
+        segs_p.append((dst.clone(), axis, li, vt))
+        lib.append((dst.clone(), axis, li, vt))
+        rep_bytes += li.numel() * 8 + 2 * vt.numel() * 4
+    kernels.REPAIR_SCATTER(segs_k)
+    publish.repair_segments_plain(segs_p)
+    errs["repair"] = sum(entries_differ(a[0], b[0])
+                         for a, b in zip(segs_k, segs_p))
+    timed["repair_scatter"] = (
+        lambda: kernels.REPAIR_SCATTER(segs_k),
+        lambda: publish.repair_segments_plain(segs_p), rep_bytes)
+    lib_ms = {"repair_scatter": event_ms(lambda: [
+        d.index_copy_(a, i, v) for d, a, i, v in lib], FAIL_CALLS)}
+    out = {}
+    for name, (fn, plain, need) in timed.items():
+        out[name] = dict(ms=event_ms(fn, FAIL_CALLS),
+                         plain_ms=event_ms(plain, 3), bytes=need,
+                         bound_ms=need / HBM_BYTES_PER_S * 1e3,
+                         library_ms=lib_ms.get(name))
+        print(f"  failover_timing {name} " + json.dumps(out[name]),
+              flush=True)
+    torch.cuda.synchronize()
+    phase("failover_timing", t, card=repr(smi), calls=FAIL_CALLS, errs=errs,
+          rep_cap=mg.rep_cap, miss_cold=mm._scalar(c["front"]["n_miss"]),
+          n_unique=mm._scalar(g["n_unique"]))
+    if any(errs.values()):
+        raise SystemExit(f"failover_timing: kernels differ from plain {errs}")
+    return dict(times=out, errs=errs)
+
+
+def failover_phases(kernels, w, u, rows, smi) -> None:
+    """The mesh's host half (K18 repair, K21 memo): the router's paths,
+    the memo on the router, the kernels' timing; the four new kernels'
+    rows go into `rows`, and the failover path's launches of the earlier
+    kernels into their rows' launches_by_path."""
+    fu = failover_setup(kernels, w, u)
+    fp = failover_paths(kernels, w, u, fu, smi)
+    fm = failover_memo(kernels, w, u, fu, fp)
+    ft = failover_timing(kernels, u, fu, fp, fm, smi)
+    memo_launches = {}
+    for c in fm["counts"].values():
+        for k, v in c.items():
+            memo_launches[k] = memo_launches.get(k, 0) + v
+    path_launches = dict(memo_launches)
+    for c in fp["counts"].values():
+        for k, v in c.items():
+            path_launches[k] = path_launches.get(k, 0) + v
+    for row in rows:
+        n = path_launches.get(row["name"], 0)
+        if n:
+            row.setdefault("launches_by_path", {"earlier": row["launches"]})
+            row["launches_by_path"]["failover"] = n
+            row["launches"] += n
+    tt = ft["times"]
+    for kernel, replaces, errk in (
+            (kernels.REPAIR_SCATTER, "cilium_tpu/engine/publish.py:925",
+             ("repair",)),
+            (kernels.MESH_MEMO_PROBE, "cilium_tpu/engine/sharded.py:1493",
+             ("probe_cold", "probe_warm")),
+            (kernels.MESH_MEMO_COMBINE, "cilium_tpu/engine/sharded.py:1374",
+             ("front_cold", "front_warm", "back_cold", "back_warm")),
+            (kernels.MESH_MEMO_INSERT, "cilium_tpu/engine/sharded.py:1573",
+             ("insert_cold", "insert_warm"))):
+        r = tt[kernel.name]
+        src = ("cilium_tpu_torch/csrc/publish.cu"
+               if kernel is kernels.REPAIR_SCATTER else MESH_SRC)
+        row = kernel_row(kernel, src, replaces, path_launches.get(
+            kernel.name, 0), max(ft["errs"][k] for k in errk), r["ms"],
+            r["plain_ms"], r["bound_ms"], 0.0, r["library_ms"])
+        rows.append(row)
+    if any(not path_launches.get(k.name) for k in (
+            kernels.REPAIR_SCATTER, kernels.MESH_MEMO_PROBE,
+            kernels.MESH_MEMO_COMBINE, kernels.MESH_MEMO_INSERT)):
+        raise SystemExit(f"failover: a new kernel never launched on its "
+                         f"path: {path_launches}")
 
 
 def main() -> int:
@@ -6118,7 +6755,9 @@ def main() -> int:
           "policy lattice, the two dependent DIR-24-8 reads, the verdict "
           "cache, the memo's key words, the memcached rule match, the "
           "shadow diff's four columns, or the mesh's shard probes and "
-          "their combine",
+          "their combine, or the memo's probe, combine and insert on the "
+          "mesh; repair_scatter's is index_copy_ along the repaired axis "
+          "(a time only)",
           flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
     print(smi, flush=True)

@@ -57,37 +57,19 @@
 #include <cstdint>
 
 #include "common.cuh"
+#include "radix.cuh"
 #include "verdict.cuh"
 
 namespace cmm {
 
 using cdp::PolicyView;
 
-constexpr int BLOCK = 256;
-constexpr int WARPS = BLOCK / 32;
-constexpr int RADIX = 256;
-constexpr int TILE = 4096;                 // radix elements per block
-constexpr int WARP_TILE = TILE / WARPS;    // 512: 16 chunks of 32
-constexpr int SCAN_TILE = BLOCK * 4;       // flag-scan elements per block
-constexpr int SCAN_THREADS = 1024;         // the one-block scan
+using crx::BLOCK;
+using crx::SCAN_TILE;
+using crx::SortArgs;
 constexpr uint32_t EMPTY = 0xFFFFFFFFu;
 constexpr int STAT_UNIQUE = 0, STAT_HIT = 1, STAT_INSERT = 2,
               STAT_OVERFLOW = 3, STAT_TUPLES = 4;
-
-// The radix sort's buffers: ping-pong key words and a payload (the
-// element's position), the per-block digit histograms, the buffer each
-// pass reads (parity[p]; parity[p + 1] equals it when pass p is skipped)
-// and the element count on the device.
-struct SortArgs {
-  uint32_t* key[2][3];
-  uint32_t* val[2];
-  uint32_t* hist;     // [RADIX * n_blocks], digit-major
-  uint32_t* digits;   // [2 * RADIX]: each digit's total, then its base
-  int32_t* parity;    // [passes + 1]
-  const int32_t* n;   // elements (<= cap)
-  int32_t cap;
-  int32_t n_blocks;   // ceil(cap / TILE)
-};
 
 struct DedupArgs {
   const uint32_t* keys;  // [3, B]
@@ -159,235 +141,6 @@ struct KeysArgs {
   int32_t B;
   int32_t mode;
 };
-
-// -- scans -------------------------------------------------------------------
-
-// Exclusive scan of data[0, m) in place by one block of SCAN_THREADS
-// threads (each sums a contiguous chunk, the chunk sums are scanned in
-// shared memory, each chunk is rewritten).  Returns the total to every
-// thread.
-__device__ uint32_t block_exclusive_scan(uint32_t* data, int m) {
-  __shared__ uint32_t s[SCAN_THREADS];
-  const int per = (m + SCAN_THREADS - 1) / SCAN_THREADS;
-  const int lo = min(static_cast<int>(threadIdx.x) * per, m);
-  const int hi = min(lo + per, m);
-  uint32_t sum = 0;
-  for (int i = lo; i < hi; ++i) sum += data[i];
-  s[threadIdx.x] = sum;
-  __syncthreads();
-  for (int off = 1; off < SCAN_THREADS; off <<= 1) {
-    const uint32_t t = threadIdx.x >= off ? s[threadIdx.x - off] : 0u;
-    __syncthreads();
-    s[threadIdx.x] += t;
-    __syncthreads();
-  }
-  uint32_t run = threadIdx.x ? s[threadIdx.x - 1] : 0u;
-  const uint32_t total = s[SCAN_THREADS - 1];
-  for (int i = lo; i < hi; ++i) {
-    const uint32_t x = data[i];
-    data[i] = run;
-    run += x;
-  }
-  __syncthreads();
-  return total;
-}
-
-// Inclusive scan of one value per thread over a block of N threads
-// (N <= 1024, a multiple of 32): warp shuffles, then the warp sums.
-// `total` (when not null) gets the block's sum.
-template <int N>
-__device__ __forceinline__ uint32_t block_inclusive(uint32_t x,
-                                                    uint32_t* total) {
-  __shared__ uint32_t s_warp[N / 32];
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-#pragma unroll
-  for (int off = 1; off < 32; off <<= 1) {
-    const uint32_t y = __shfl_up_sync(0xFFFFFFFFu, x, off);
-    if (lane >= off) x += y;
-  }
-  if (lane == 31) s_warp[warp] = x;
-  __syncthreads();
-  if (warp == 0) {
-    uint32_t w = lane < N / 32 ? s_warp[lane] : 0u;
-#pragma unroll
-    for (int off = 1; off < 32; off <<= 1) {
-      const uint32_t y = __shfl_up_sync(0xFFFFFFFFu, w, off);
-      if (lane >= off) w += y;
-    }
-    if (lane < N / 32) s_warp[lane] = w;
-  }
-  __syncthreads();
-  const uint32_t r = x + (warp ? s_warp[warp - 1] : 0u);
-  if (total) *total = s_warp[N / 32 - 1];
-  __syncthreads();
-  return r;
-}
-
-// The flag scan over in[0, *n): block sums, one-block scan of the sums
-// (total to *total when not null), then each block's exclusive prefixes.
-__global__ void __launch_bounds__(BLOCK)
-    scan_block_sums(const uint32_t* in, const int32_t* n, uint32_t* sums) {
-  const int cnt = *n;
-  const int base = blockIdx.x * SCAN_TILE + threadIdx.x * 4;
-  uint32_t x = 0;
-  for (int k = 0; k < 4; ++k)
-    if (base + k < cnt) x += in[base + k];
-  const uint32_t incl = block_inclusive<BLOCK>(x, nullptr);
-  if (threadIdx.x == BLOCK - 1) sums[blockIdx.x] = incl;
-}
-
-__global__ void __launch_bounds__(SCAN_THREADS)
-    scan_sums(uint32_t* sums, int m, int32_t* total) {
-  const uint32_t t = block_exclusive_scan(sums, m);
-  if (total && threadIdx.x == 0) *total = static_cast<int32_t>(t);
-}
-
-__global__ void __launch_bounds__(BLOCK)
-    scan_apply(const uint32_t* in, uint32_t* out, const int32_t* n,
-               const uint32_t* sums) {
-  const int cnt = *n;
-  const int base = blockIdx.x * SCAN_TILE + threadIdx.x * 4;
-  uint32_t x[4], t = 0;
-  for (int k = 0; k < 4; ++k) {
-    x[k] = base + k < cnt ? in[base + k] : 0u;
-    t += x[k];
-  }
-  uint32_t run = block_inclusive<BLOCK>(t, nullptr) - t + sums[blockIdx.x];
-  for (int k = 0; k < 4; ++k) {
-    if (base + k < cnt) out[base + k] = run;
-    run += x[k];
-  }
-}
-
-void flag_scan(const uint32_t* in, uint32_t* out, const int32_t* n, int cap,
-               uint32_t* sums, int32_t* total, cudaStream_t st) {
-  const int blocks = (cap + SCAN_TILE - 1) / SCAN_TILE;
-  scan_block_sums<<<blocks, BLOCK, 0, st>>>(in, n, sums);
-  scan_sums<<<1, SCAN_THREADS, 0, st>>>(sums, blocks, total);
-  scan_apply<<<blocks, BLOCK, 0, st>>>(in, out, n, sums);
-}
-
-// -- the stable LSD radix sort -------------------------------------------------
-
-__global__ void __launch_bounds__(BLOCK)
-    radix_hist(SortArgs a, int pass, int word, int shift) {
-  __shared__ uint32_t h[RADIX];
-  for (int d = threadIdx.x; d < RADIX; d += BLOCK) h[d] = 0;
-  __syncthreads();
-  const int n = *a.n;
-  const uint32_t* kin = a.key[a.parity[pass]][word];
-  const int base = blockIdx.x * TILE;
-  for (int i = threadIdx.x; i < TILE; i += BLOCK) {
-    const int g = base + i;
-    if (g < n) atomicAdd(&h[(kin[g] >> shift) & 0xFFu], 1u);
-  }
-  __syncthreads();
-  for (int d = threadIdx.x; d < RADIX; d += BLOCK)
-    a.hist[d * a.n_blocks + blockIdx.x] = h[d];
-}
-
-// Each digit's per-block counts (one block per digit, the counts
-// contiguous): their exclusive scan in place, and the digit's total.
-__global__ void __launch_bounds__(SCAN_THREADS) radix_digit_scan(SortArgs a) {
-  __shared__ uint32_t s_total;
-  uint32_t* h = a.hist + static_cast<size_t>(blockIdx.x) * a.n_blocks;
-  uint32_t carry = 0;
-  for (int base = 0; base < a.n_blocks; base += SCAN_THREADS) {
-    const int i = base + threadIdx.x;
-    const uint32_t x = i < a.n_blocks ? h[i] : 0u;
-    const uint32_t incl = block_inclusive<SCAN_THREADS>(x, &s_total);
-    if (i < a.n_blocks) h[i] = carry + incl - x;
-    carry += s_total;
-    __syncthreads();
-  }
-  if (threadIdx.x == 0) a.digits[blockIdx.x] = carry;
-}
-
-// The digits' bases (an exclusive scan of their totals, RADIX threads).
-// A pass whose digit is one value for every element keeps the buffer
-// (parity[pass + 1] = parity[pass]).
-__global__ void __launch_bounds__(RADIX) radix_digit_base(SortArgs a,
-                                                          int pass) {
-  __shared__ int s_skip;
-  if (threadIdx.x == 0) s_skip = 0;
-  __syncthreads();
-  const uint32_t t = a.digits[threadIdx.x];
-  const uint32_t incl = block_inclusive<RADIX>(t, nullptr);
-  a.digits[RADIX + threadIdx.x] = incl - t;
-  if (t == static_cast<uint32_t>(*a.n)) s_skip = 1;
-  __syncthreads();
-  if (threadIdx.x == 0)
-    a.parity[pass + 1] = a.parity[pass] ^ (s_skip ? 0 : 1);
-}
-
-// The stable scatter of one pass: each warp walks its 512 elements in
-// chunks of 32, ranks a lane among the chunk's lanes of its digit with
-// __match_any_sync, and takes its base from the warp's running count of
-// that digit (warps ordered within the block, blocks by the scan).
-template <int KW>
-__global__ void __launch_bounds__(BLOCK)
-    radix_scatter(SortArgs a, int pass, int word, int shift) {
-  const int cur = a.parity[pass];
-  if (a.parity[pass + 1] == cur) return;  // a skipped pass
-  __shared__ uint32_t s_cnt[WARPS][RADIX];
-  for (int i = threadIdx.x; i < WARPS * RADIX; i += BLOCK)
-    (&s_cnt[0][0])[i] = 0;
-  __syncthreads();
-  const int n = *a.n;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int wbase = blockIdx.x * TILE + warp * WARP_TILE;
-  const uint32_t* kin = a.key[cur][word];
-  for (int c = 0; c < WARP_TILE / 32; ++c) {
-    const int g = wbase + c * 32 + lane;
-    const bool ok = g < n;
-    const uint32_t d = ok ? (kin[g] >> shift) & 0xFFu : RADIX + lane;
-    const unsigned peers = __match_any_sync(0xFFFFFFFFu, d);
-    if (ok && lane == __ffs(peers) - 1) s_cnt[warp][d] += __popc(peers);
-    __syncwarp();
-  }
-  __syncthreads();
-  for (int d = threadIdx.x; d < RADIX; d += BLOCK) {
-    uint32_t run = a.hist[d * a.n_blocks + blockIdx.x] + a.digits[RADIX + d];
-    for (int w = 0; w < WARPS; ++w) {
-      const uint32_t c = s_cnt[w][d];
-      s_cnt[w][d] = run;
-      run += c;
-    }
-  }
-  __syncthreads();
-  const int nxt = cur ^ 1;
-  for (int c = 0; c < WARP_TILE / 32; ++c) {
-    const int g = wbase + c * 32 + lane;
-    const bool ok = g < n;
-    const uint32_t d = ok ? (kin[g] >> shift) & 0xFFu : RADIX + lane;
-    const unsigned peers = __match_any_sync(0xFFFFFFFFu, d);
-    if (ok) {
-      const uint32_t pos =
-          s_cnt[warp][d] + __popc(peers & ((1u << lane) - 1u));
-#pragma unroll
-      for (int w = 0; w < KW; ++w) a.key[nxt][w][pos] = a.key[cur][w][g];
-      a.val[nxt][pos] = a.val[cur][g];
-    }
-    __syncwarp();
-    if (ok && lane == __ffs(peers) - 1) s_cnt[warp][d] += __popc(peers);
-    __syncwarp();
-  }
-}
-
-// Passes over `bytes` digits of each of the KW words, least significant
-// word (the last) first.
-template <int KW>
-void radix_sort(const SortArgs& a, int bytes, cudaStream_t st) {
-  int pass = 0;
-  for (int w = KW - 1; w >= 0; --w) {
-    for (int b = 0; b < bytes; ++b, ++pass) {
-      radix_hist<<<a.n_blocks, BLOCK, 0, st>>>(a, pass, w, 8 * b);
-      radix_digit_scan<<<RADIX, SCAN_THREADS, 0, st>>>(a);
-      radix_digit_base<<<1, RADIX, 0, st>>>(a, pass);
-      radix_scatter<KW><<<a.n_blocks, BLOCK, 0, st>>>(a, pass, w, 8 * b);
-    }
-  }
-}
 
 // -- MEMO_DEDUP --------------------------------------------------------------
 
@@ -703,9 +456,9 @@ extern "C" int launch_memo_dedup(const cmm::DedupArgs* args, void* stream) {
   if (a.B <= 0 || a.rep_cap <= 0) return static_cast<int>(cudaErrorInvalidValue);
   const int grid = grid_of(a.B);
   dedup_init<<<grid, BLOCK, 0, st>>>(a);
-  radix_sort<3>(a.sort, 4, st);
+  crx::radix_sort<3>(a.sort, 4, st);
   dedup_flags<<<grid, BLOCK, 0, st>>>(a);
-  flag_scan(a.flags, a.prefix, a.n_elems, a.B, a.sums, nullptr, st);
+  crx::flag_scan(a.flags, a.prefix, a.n_elems, a.B, a.sums, nullptr, st);
   dedup_groups_kernel<<<grid, BLOCK, 0, st>>>(a);
   dedup_pad<<<grid_of(static_cast<long>(a.rep_cap) + 1), BLOCK, 0, st>>>(a);
   return static_cast<int>(cudaGetLastError());
@@ -727,7 +480,7 @@ extern "C" int launch_memo_cache(const cmm::CacheArgs* args, void* stream) {
                                             nullptr);
   const int reps = grid_of(a.rep_cap);
   cache_probe_kernel<<<reps, BLOCK, 0, st>>>(a);
-  radix_sort<1>(a.sort, a.bucket_passes, st);
+  crx::radix_sort<1>(a.sort, a.bucket_passes, st);
   cache_lanes_kernel<<<reps, BLOCK, 0, st>>>(a);
   cache_lattice_kernel<<<reps, BLOCK, 0, st>>>(a);
   cache_commit_kernel<<<reps, BLOCK, 0, st>>>(a);

@@ -4,8 +4,10 @@ derivation), the host backend selection `lb_select_host`, and
 `composed_oracle`, the per-tuple host evaluation of the whole fused
 pipeline that the fused step is held against: prefilter, LB/DNAT with
 service-scope stickiness, conntrack, ipcache identity, the policy
-lattice and the combine, in the order the device step fuses them.  The
-host lattice fold of the degraded mode waits for the resilience plane.
+lattice and the combine, in the order the device step fuses them; and
+`lattice_fold_host`, the host fold of the bare lattice that the mesh
+failover router (engine/failover.py) serves a batch through when no
+mesh row has a usable chip.
 """
 
 from __future__ import annotations
@@ -118,6 +120,42 @@ def lb_select_host(ct, svc, saddr, daddr, sport, dport, proto):
         slave = int(_fnv1a_host(words)[0]) % len(svc.backends) + 1
         sticky = False
     return slave, sticky
+
+
+def lattice_fold_host(states, ep_index, identity, dport, proto, direction,
+                      is_fragment=None, pad_to: int = 0):
+    """The degraded mode's host fold of the bare verdict lattice: the
+    oracle's policy_can_access (without hit counting: the device path
+    it stands in for carries no entry counters) per tuple over the
+    per-endpoint realized map states, so the verdicts equal
+    engine.verdict.evaluate_batch's on any input.  A missing endpoint
+    (None state) evaluates against an empty map: default deny.
+
+    Returns a Verdicts-shaped namespace (allowed u8, proxy_port i32,
+    match_kind u8 numpy columns), zero-padded to `pad_to` when given."""
+    from types import SimpleNamespace
+
+    from cilium_tpu_torch.engine.oracle import policy_can_access
+
+    b = len(ep_index)
+    n = max(b, pad_to)
+    allowed = np.zeros(n, np.uint8)
+    proxy = np.zeros(n, np.int32)
+    kind = np.zeros(n, np.uint8)
+    if is_fragment is None:
+        is_fragment = np.zeros(b, bool)
+    empty: Dict = {}
+    for i in range(b):
+        state = states[int(ep_index[i])]
+        v = policy_can_access(
+            empty if state is None else state, int(identity[i]),
+            int(dport[i]), int(proto[i]), int(direction[i]),
+            bool(is_fragment[i]), count_hits=False)
+        allowed[i] = 1 if v.allowed else 0
+        proxy[i] = v.proxy_port
+        kind[i] = v.match_kind
+    return SimpleNamespace(allowed=allowed, proxy_port=proxy,
+                           match_kind=kind)
 
 
 def composed_oracle(ctx, states, flows_dict, idx_list,

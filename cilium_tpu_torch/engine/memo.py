@@ -623,14 +623,21 @@ class VerdictCache:
     `stamp` is any hashable naming the table world the cached verdicts
     were computed under (the publish generation and the layout
     version); any change flushes.  The rows live on `device` (None =
-    the card) as an int32 tensor of u32 words."""
+    the card) as an int32 tensor of u32 words.  `rows_factory` (host
+    rows) and `sharding` (an engine.mesh.NamedSharding) give another
+    layout: the mesh cache's [dp, tp, R + 1, W] rows placed per
+    coordinate (engine/memo_mesh.py make_partitioned_cache) as an
+    engine.mesh.PlacedArray."""
 
     def __init__(self, n_rows: int = 1 << 12, entries: int = 8,
-                 subword: bool = False, device=None) -> None:
+                 subword: bool = False, device=None, rows_factory=None,
+                 sharding=None) -> None:
         self._lock = threading.Lock()
-        self._device = resolve_device(device)
-        self._factory = functools.partial(make_cache_rows, n_rows, entries,
-                                          subword=subword)
+        self._sharding = sharding
+        self._device = None if sharding is not None else resolve_device(
+            device)
+        self._factory = rows_factory or functools.partial(
+            make_cache_rows, n_rows, entries, subword=subword)
         self._stamp = None
         # a just-allocated buffer is as empty as a flushed one: the first
         # ensure() adopts its stamp without a flush
@@ -645,6 +652,10 @@ class VerdictCache:
         self.unique = 0
 
     def _put(self, rows):
+        if self._sharding is not None:
+            from cilium_tpu_torch.engine.mesh import place_array
+
+            return place_array(rows, self._sharding)
         from cilium_tpu_torch.convert import cache_rows_to
 
         return cache_rows_to(rows, self._device)
@@ -664,7 +675,7 @@ class VerdictCache:
         self._fresh = False
 
     def nbytes(self) -> int:
-        return int(self._rows.numel()) * 4
+        return int(np.prod(self._rows.shape)) * 4
 
     def acquire(self):
         """(stamp, rows) read together for one dispatch."""

@@ -14,7 +14,8 @@
     replicated leaf (or a slice) is placed once per device: coordinates
     on one device share the tensor.
   * `MeshTables` is a table dataclass (PolicyTables) placed on a mesh:
-    `shard(b, t)` is the dataclass of coordinate (b, t)'s local leaves.
+    `shard(b, t)` is the dataclass of coordinate (b, t)'s local leaves;
+    `PlacedArray` one placed array (the mesh verdict cache's rows).
 
 The reference's `shard_map` step becomes an explicit loop over the
 coordinates in engine/sharded.py.
@@ -219,6 +220,39 @@ class MeshTables:
                           for f in dataclasses.fields(tab))
                 if isinstance(v, torch.Tensor))
         return per
+
+
+@dataclass
+class PlacedArray:
+    """One array placed on a mesh (jax's sharded jax.Array): `blocks`
+    is an object array [dp, tp] of the coordinates' tensors, `shape` the
+    global shape, `sharding` its NamedSharding."""
+
+    sharding: NamedSharding
+    blocks: np.ndarray
+    shape: tuple
+
+    @property
+    def mesh(self) -> Mesh:
+        return self.sharding.mesh
+
+    def block(self, b: int, t: int) -> torch.Tensor:
+        return self.blocks[b, t]
+
+    def numpy(self) -> np.ndarray:
+        """The global array on the host (int32 blocks as u32)."""
+        first = self.blocks.flat[0]
+        out = np.empty(self.shape, dtype=first.cpu().numpy().dtype)
+        for coord in self.mesh.coords():
+            out[self.sharding.slices(self.shape, coord)] = (
+                self.blocks[coord].cpu().numpy())
+        return out.view(np.uint32) if out.dtype == np.int32 else out
+
+
+def place_array(arr, sharding: NamedSharding) -> PlacedArray:
+    """A host array placed under `sharding` (u32 as int32 bits)."""
+    return PlacedArray(sharding=sharding, blocks=place(arr, sharding),
+                       shape=tuple(np.shape(arr)))
 
 
 def place_tables(tables, shardings, cache: Optional[dict] = None

@@ -18,6 +18,18 @@ pkg/datapath/ipcache/listener.go):
     untouched: only the spare's tensors are written.
   * `check_current` raises for tables whose epoch has since been
     written over (StaleEpochError).
+  * the `publish.scatter` fault seam (faultinject) is probed once per
+    chip that holds a slice of the spare epoch before its scatter; a
+    fired fault de-registers the spare and the publish uploads in full
+    (`publish_fallback_total`, the `publish.epoch` span's `fallback`).
+  * the per-chip outage ledger: `mark_chip_out` starts recording what a
+    chip misses (the deltas published while its breaker is open, or
+    that it needs its whole slice); `readmit_chip` closes the record and
+    `repair_rows` rewrites rows of the live (or spare) epoch from the
+    host tables the epoch was placed from, which a store with a
+    `transform_fn` retains (on the card by REPAIR_SCATTER, one launch
+    for each device that holds a repaired slice; on the CPU by
+    `repair_segments_plain`).
 
 The scatter follows jax's `.at[idx].set(values)` on the reference's
 spare epoch, not torch's indexing: a negative index counts from the end
@@ -53,8 +65,12 @@ from cilium_tpu_torch.compiler.tables import (
     PolicyTables,
     tables_layout_version,
 )
+from cilium_tpu_torch import faultinject
 from cilium_tpu_torch.device import array_tensor, resolve_device
+from cilium_tpu_torch.logging import get_logger
 from cilium_tpu_torch.metrics import registry as metrics
+
+log = get_logger("publish")
 
 def next_pow2(n: int) -> int:
     """Smallest power of two >= n (>= 1)."""
@@ -148,6 +164,63 @@ def route_update(update, shape, sharding, coord):
     return tuple(i[keep] for i in out_idx), values[keep]
 
 
+def repair_segments_plain(segments) -> None:
+    """REPAIR_SCATTER's plain version: for each (dst, axis, idx, values)
+    of `segments`, in place, dst[(slice(None),) * axis + (idx,)] =
+    values with jax's scatter rules (an index below 0 gets the axis size
+    added once; one still outside [0, size) is dropped).  `idx` is an
+    int64 tensor [K]; `values` has dst's shape with K at `axis`."""
+    for dst, axis, idx, values in segments:
+        size = int(dst.shape[axis])
+        i = torch.where(idx < 0, idx + size, idx)
+        keep = (i >= 0) & (i < size)
+        ix = (slice(None),) * axis
+        dst[ix + (i[keep],)] = values[ix + (keep,)]
+
+
+def repair_scatter(segments) -> None:
+    """Write every repair segment in place: REPAIR_SCATTER when the
+    destinations lie on a CUDA device (one launch for all), the plain
+    version on the CPU."""
+    if not segments:
+        return
+    dev = segments[0][0].device
+    if dev.type == "cuda":
+        from cilium_tpu_torch import kernels
+
+        kernels.REPAIR_SCATTER(segments)
+    elif dev.type == "cpu":
+        repair_segments_plain(segments)
+    else:
+        raise ValueError(f"unsupported device {dev}")
+
+
+def route_repair(idx, values, axis: int, shape, sharding, coord):
+    """The part of a repair payload (host `idx` along `axis` of the
+    global leaf of `shape`, `values` with the leaf's shape but K rows at
+    `axis`) that lands on coordinate `coord` under `sharding`, in the
+    block's coordinates: (idx, values), or None.  Along a sharded
+    `axis` each row goes to the block that owns it, at its index minus
+    the block's offset; along any other sharded axis the values are
+    sliced.  jax's rules come first: a negative index counts from the
+    end once, and an index still out of range is dropped."""
+    idx = np.asarray(idx, np.int64)
+    values = np.asarray(values)
+    idx = np.where(idx < 0, idx + shape[axis], idx)
+    keep = (idx >= 0) & (idx < shape[axis])
+    for a, blk in enumerate(sharding.slices(shape, coord)):
+        if blk == slice(None):
+            continue
+        if a == axis:
+            keep &= (idx >= blk.start) & (idx < blk.stop)
+            idx = idx - blk.start
+        else:
+            values = np.take(values, np.arange(blk.start, blk.stop), axis=a)
+    if not keep.any():
+        return None
+    return idx[keep], np.take(values, np.flatnonzero(keep), axis=axis)
+
+
 def publish_scatter(segments) -> None:
     """Write every segment in place: PUBLISH_SCATTER when the
     destinations lie on a CUDA device (one launch for all), the plain
@@ -197,9 +270,15 @@ class DeviceTableStore:
     delta recorded against another layout, or onto a spare epoch of
     another layout, is refused and the publish uploads in full.
 
-    A failed scatter de-registers the spare slot (its rows can no
-    longer be trusted; the next publish uploads in full) and raises:
-    it is never answered with a full upload.
+    An injected `publish.scatter` fault (faultinject.FaultInjected)
+    de-registers the spare slot and this publish uploads in full
+    instead.  Any other failed scatter de-registers the spare slot (its
+    rows can no longer be trusted; the next publish uploads in full)
+    and raises.
+
+    With a `transform_fn` or `delta_transform_fn` (the replica store)
+    each epoch retains the transformed host tables it was placed from:
+    the value source of `repair_rows`.  A plain store retains none.
 
     On a mesh: `shardings` (PolicyTables of NamedSharding) places every
     epoch, or `shardings_fn(tables)` resolves them per publish (leaf
@@ -225,6 +304,14 @@ class DeviceTableStore:
         self.partition_digest = int(partition_digest)
         self._transform_fn = transform_fn
         self._delta_transform_fn = delta_transform_fn
+        # only a store with a device layout seam has a repair consumer
+        # for the retained host tables
+        self._retain_host = (transform_fn is not None
+                             or delta_transform_fn is not None)
+        # the per-chip outage ledger: chip -> {"epoch" at mark-out,
+        # "missed" [transformed TableDelta], "needs_full"}
+        self._out_chips: Dict[int, Dict] = {}
+        self._missed_cap = 32
 
     @property
     def on_mesh(self) -> bool:
@@ -303,9 +390,21 @@ class DeviceTableStore:
                 delta = self._delta_transform_fn(delta, pre_transform)
             if use_delta:
                 try:
+                    self._probe_scatter_fault(spare)
                     publish = (self._publish_delta_mesh if self.on_mesh
                                else self._publish_delta)
                     dev, stats = publish(spare["tables"], tables, delta)
+                except faultinject.FaultInjected as exc:
+                    # the seam fires before any write: serve this
+                    # publish by a full upload, and drop the spare whose
+                    # bookkeeping the fault makes untrusted
+                    self._slots[spare_i] = None
+                    use_delta = False
+                    metrics.publish_fallback_total.inc()
+                    sp.attrs["fallback"] = str(exc)
+                    log.warning(
+                        "delta publish scatter faulted; falling back to "
+                        "full upload", extra={"fields": {"error": str(exc)}})
                 except Exception:
                     # the scatter may have written part of the spare's
                     # tensors: de-register the slot so the next publish
@@ -313,9 +412,10 @@ class DeviceTableStore:
                     self._slots[spare_i] = None
                     self._sample_bytes()
                     raise
-                metrics.device_table_retired_bytes.inc(
-                    value=spare.get("nbytes", 0))
-            else:
+                else:
+                    metrics.device_table_retired_bytes.inc(
+                        value=spare.get("nbytes", 0))
+            if not use_delta:
                 dev = self._put_tables(tables)
                 self._sync()
                 stats = PublishStats(epoch=0, mode="full",
@@ -328,10 +428,21 @@ class DeviceTableStore:
                 "chip_bytes": (dev.chip_bytes() if self.on_mesh else {
                     self._device.index or 0: _resident_bytes(dev)}),
                 "specs": self._specs(),
+                "host": tables if self._retain_host else None,
+                "shardings": self._shardings,
             }
             self._cur = spare_i
             stats.epoch = self._epoch
             stats.seconds = time.perf_counter() - t0
+            # the outage ledger: a delta is replayable row by row at
+            # readmission; a full upload (or a full miss list) makes the
+            # rebalance replay the chip's whole slice
+            for rec in self._out_chips.values():
+                if (use_delta and not rec["needs_full"]
+                        and len(rec["missed"]) < self._missed_cap):
+                    rec["missed"].append(delta)
+                else:
+                    rec["needs_full"] = True
             self._sample_bytes()
             sp.attrs.update(
                 mode=stats.mode, epoch=stats.epoch,
@@ -353,6 +464,20 @@ class DeviceTableStore:
                                        value=(spare or {}).get("nbytes", 0))
         for chip, nbytes in sorted(self._chip_bytes_locked().items()):
             metrics.device_table_bytes_per_chip.set(str(chip), value=nbytes)
+
+    @staticmethod
+    def _probe_scatter_fault(spare) -> None:
+        """The publish.scatter fault seam, probed once per chip holding
+        a slice of the spare epoch (a chip-scoped schedule fires only
+        when its chip receives the scatter).  Nothing armed costs one
+        lock-free read."""
+        if not faultinject.any_armed():
+            return
+        chips = sorted(spare.get("chip_bytes") or {})
+        if not chips:
+            faultinject.fire("publish.scatter")
+        for chip in chips:
+            faultinject.fire("publish.scatter", chip=chip)
 
     def _publish_delta(self, spare_dev: PolicyTables, tables: PolicyTables,
                        delta: TableDelta):
@@ -491,6 +616,154 @@ class DeviceTableStore:
                                  or {}).items():
                 per[chip] = per.get(chip, 0) + nbytes
         return per
+
+    # -- the per-chip outage ledger and the repair ---------------------------
+
+    def mark_chip_out(self, ordinal: int) -> None:
+        """Start the outage ledger of a chip whose breaker opened: every
+        publish from now on records what it missed.  Idempotent: a
+        re-open after a failed probe keeps the first record."""
+        with self._lock:
+            self._out_chips.setdefault(int(ordinal), {
+                "epoch": self._epoch, "missed": [], "needs_full": False})
+
+    def chip_outage(self, ordinal: int) -> Optional[Dict]:
+        with self._lock:
+            rec = self._out_chips.get(int(ordinal))
+            if rec is None:
+                return None
+            return {"epoch": rec["epoch"], "missed": list(rec["missed"]),
+                    "needs_full": rec["needs_full"]}
+
+    def readmit_chip(self, ordinal: int) -> Optional[Dict]:
+        """Close a chip's outage ledger and return it, with the layouts
+        of the live and spare epochs (`live_layout`, `spare_layout`: the
+        repair pins them).  A spare epoch published during the outage
+        is stale on the chip's slice: where it retains its host tables
+        the record carries `spare_stale` and `spare_epoch` (the caller
+        repairs the chip's whole slice of it with `repair_rows(...,
+        spare=True)`); otherwise the spare is de-registered and the next
+        publish uploads in full."""
+        with self._lock:
+            rec = self._out_chips.pop(int(ordinal), None)
+            if rec is None:
+                return None
+            live = self._slots[self._cur]
+            spare = self._slots[self._cur ^ 1]
+            rec["live_layout"] = None if live is None else live["layout"]
+            rec["spare_layout"] = None if spare is None else spare["layout"]
+            if spare is not None and spare["epoch"] > rec["epoch"]:
+                if spare.get("host") is not None:
+                    rec["spare_stale"] = True
+                    # the store's own counter: epochs may share a stamp
+                    rec["spare_epoch"] = spare["epoch"]
+                else:
+                    self._slots[self._cur ^ 1] = None
+            return rec
+
+    def restore_outage(self, ordinal: int, rec: Dict) -> None:
+        """Put a popped ledger back after a failed repair, downgraded to
+        needs_full (the scatter may have partly landed); merged into a
+        record that a re-open created meanwhile."""
+        rec["needs_full"] = True
+        with self._lock:
+            existing = self._out_chips.get(int(ordinal))
+            if existing is None:
+                self._out_chips[int(ordinal)] = rec
+            else:
+                existing["epoch"] = min(existing["epoch"], rec["epoch"])
+                existing["needs_full"] = True
+
+    def repair_rows(self, row_sets: Dict[str, Tuple[int, object]],
+                    spare: bool = False, expect_epoch: Optional[int] = None,
+                    expect_layout: Optional[int] = None) -> int:
+        """Rewrite `row_sets` ({leaf: (axis, index array)}, indices of
+        the transformed layout along one axis) of the LIVE epoch (the
+        SPARE with `spare=True`) from the host tables it retains: the
+        readmission rebalance, bytes in proportion to the rows.  Refuses
+        (RuntimeError) when the slot's epoch is not `expect_epoch` or
+        its layout not `expect_layout`, or when it retains no host
+        tables.  The epoch's tensors are written in place: the devices
+        are synchronized first, and the caller keeps no batch queued
+        against the epoch.  Returns the bytes shipped host to device
+        (also counted in rebalance_bytes_h2d_total)."""
+        from cilium_tpu_torch.convert import _leaf_to
+
+        with self._lock:
+            slot = self._slots[self._cur ^ 1 if spare else self._cur]
+            which = "spare" if spare else "live"
+            if slot is None:
+                raise RuntimeError(f"no {which} epoch to repair")
+            if expect_epoch is not None and slot["epoch"] != expect_epoch:
+                raise RuntimeError(
+                    f"{which} epoch changed since readmission (epoch "
+                    f"{slot['epoch']} != expected {expect_epoch}); repair "
+                    f"refused")
+            if (expect_layout is not None
+                    and slot["layout"] != expect_layout):
+                raise RuntimeError(
+                    f"{which} epoch layout changed since readmission "
+                    f"(layout {slot['layout']:#x} != expected "
+                    f"{int(expect_layout):#x}); repair refused")
+            host = slot.get("host")
+            if host is None:
+                raise RuntimeError(
+                    f"{which} epoch retains no host source; repair "
+                    f"requires a publish through this store")
+            payloads, bytes_h2d = [], 0
+            for name in sorted(row_sets):
+                axis, idx = row_sets[name]
+                idx = np.asarray(idx, np.int64)
+                if idx.size == 0:
+                    continue
+                # pow2 size classes, padded by repeating the last index
+                # (duplicate identical writes give the same bits)
+                size = next_pow2(idx.size)
+                if size != idx.size:
+                    idx = np.concatenate(
+                        [idx, np.repeat(idx[-1:], size - idx.size)])
+                values = np.take(np.asarray(getattr(host, name)), idx,
+                                 axis=int(axis))
+                payloads.append((name, int(axis), idx, values))
+                bytes_h2d += idx.nbytes + values.nbytes
+            if not payloads:
+                return 0
+            tables = slot["tables"]
+            by_dev: Dict[str, list] = {}
+            if isinstance(tables, PolicyTables):
+                for name, axis, idx, values in payloads:
+                    dst = getattr(tables, name)
+                    by_dev.setdefault(str(dst.device), []).append(
+                        (dst, axis, array_tensor(idx, dst.device),
+                         _leaf_to(values, dst.device)))
+            else:
+                shardings = slot["shardings"]
+                seen = set()
+                for name, axis, idx, values in payloads:
+                    shape = tables.leaf_shape(name)
+                    for coord in tables.mesh.coords():
+                        dst = getattr(tables.shard(*coord), name)
+                        if id(dst) in seen:
+                            continue
+                        seen.add(id(dst))
+                        routed = route_repair(idx, values, axis, shape,
+                                              getattr(shardings, name),
+                                              coord)
+                        if routed is None:
+                            continue
+                        by_dev.setdefault(str(dst.device), []).append(
+                            (dst, axis, array_tensor(routed[0], dst.device),
+                             _leaf_to(routed[1], dst.device)))
+            # nothing queued may read the rows while they are written
+            self._sync()
+            from cilium_tpu_torch.kernels import MAX_SCATTER_SEGMENTS
+
+            for segments in by_dev.values():
+                for k in range(0, len(segments), MAX_SCATTER_SEGMENTS):
+                    repair_scatter(segments[k:k + MAX_SCATTER_SEGMENTS])
+            self._sync()
+            metrics.rebalance_bytes_h2d_total.inc(value=bytes_h2d)
+            return bytes_h2d
 
     @staticmethod
     def _norm(stamp: int) -> int:

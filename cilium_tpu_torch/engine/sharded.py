@@ -29,12 +29,13 @@ csrc/mesh.cu) or raises; on the CPU the plain versions here run.  The
 probes' and the combine's plain versions are `mesh_probe_plain`,
 `routed_probe_plain` and `mesh_combine_plain`.
 
-The memo evaluators of the reference's module are not here.
+The memo evaluators of the reference's module are in engine/memo_mesh.py.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 from dataclasses import dataclass
 from typing import Dict, List, Optional
 
@@ -397,6 +398,26 @@ def routed_probe_plain(tab, batch: TupleBatch, g: RouteGeom, t: int,
     return _record(flags, val, s_val, val3, lcol)
 
 
+def routed_lattice(parts, tab, ep, dirn):
+    """The table-axis psum of ROUTED_PROBE's tp records and the lattice
+    inputs it gives (the reference's failover_lattice_probes after its
+    psums): (probe1, probe2, probe3, proxy, j), `ep` and `dirn` the
+    tuples' int64 words."""
+    flags = [widen(p[0]) for p in parts]
+    any_of = functools.reduce(lambda x, y: x | y, flags)
+    head = parts[0]
+    found1 = ((any_of & F_P1) != 0) | ((flags[0] & F_STASH) != 0)
+    val1 = widen(head[2])
+    for p in parts:
+        val1 = val1 + widen(p[1])
+    val1 = val1 & MASK32
+    p1 = ((flags[0] & F_KNOWN) != 0) & found1
+    p3 = (flags[0] & F_P3) != 0
+    proxy, j = l4hash_value_decode(tab, ep, dirn, p1, val1, p3,
+                                   widen(head[3]), l4_entry_words(tab))
+    return p1, (any_of & F_P2) != 0, p3, proxy, j
+
+
 def mesh_combine_plain(parts, tab, batch: TupleBatch, g: RouteGeom,
                        valid: Optional[torch.Tensor] = None,
                        telemetry: bool = True):
@@ -418,51 +439,52 @@ def mesh_combine_plain(parts, tab, batch: TupleBatch, g: RouteGeom,
             out = out | ((f & bit) != 0)
         return out
 
-    p2 = any_of(F_P2)
     head = parts[0]
     if g.mode == MODE_MESH:
-        p1, p3 = any_of(F_P1), (flags[0] & F_P3) != 0
+        p1, p2, p3 = any_of(F_P1), any_of(F_P2), (flags[0] & F_P3) != 0
         proxy, j = widen(head[1]), head[2].to(torch.int64)
     else:
-        found1 = any_of(F_P1) | ((flags[0] & F_STASH) != 0)
-        val1 = widen(head[2])
-        for p in parts:
-            val1 = val1 + widen(p[1])
-        val1 = val1 & MASK32
-        p1 = ((flags[0] & F_KNOWN) != 0) & found1
-        p3 = (flags[0] & F_P3) != 0
-        proxy, j = l4hash_value_decode(tab, ep, dirn, p1, val1, p3,
-                                       widen(head[3]), l4_entry_words(tab))
+        p1, p2, p3, proxy, j = routed_lattice(parts, tab, ep, dirn)
     allowed, proxy_out, kind = _combine(p1, p2, p3, proxy, frag)
     v = Verdicts(allowed=allowed.to(torch.uint8),
                  proxy_port=proxy_out.to(torch.int32), match_kind=kind)
     ok = torch.ones_like(p2) if valid is None else valid.bool()
-    e_count, _, kg = tab.l4_meta.shape
-    dev = head.device
-    l4 = torch.zeros((e_count, 2, kg), dtype=torch.int32, device=dev)
-    hit_l4 = ((kind == MATCH_L4) | (kind == MATCH_L4_WILD)) & ok
-    _accumulate_counters(l4, ep, dirn, j, hit_l4)
+    l4, trow = l4_counts_and_telemetry(v, tab, ep, dirn, j, ok, telemetry)
+    e_count = int(tab.l4_meta.shape[0])
     l3 = torch.zeros((e_count, 2, g.l3_shards * g.c_local),
-                     dtype=torch.int32, device=dev)
+                     dtype=torch.int32, device=head.device)
     hit_l3 = (kind == MATCH_L3) & ok
     for t in range(g.l3_shards):
         here = hit_l3 & ((flags[t] & F_P2) != 0)
         _accumulate_counters(l3, ep, dirn,
                              t * g.c_local + parts[t][-1].to(torch.int64),
                              here)
-    served = torch.zeros((), dtype=torch.int64, device=dev)
+    served = torch.zeros((), dtype=torch.int64, device=head.device)
     for f in flags:
         served = served + (((f & F_REPLICA) != 0) & ok).sum()
-    trow = None
-    if telemetry:
-        zeros = torch.zeros_like(dirn)
-        masks = telemetry_masks(zeros, zeros, kind, allowed, zeros,
-                                proxy_out, zeros, zeros)
-        ingress = (dirn == 0) & ok
-        row_in = torch.stack([(m & ingress).sum() for m in masks])
-        total = torch.stack([(m & ok).sum() for m in masks])
-        trow = narrow(torch.stack([row_in, total - row_in]))
     return v, l4, l3, trow, narrow(served)
+
+
+def l4_counts_and_telemetry(v: Verdicts, tab, ep, dirn, j, ok,
+                            telemetry: bool):
+    """The combine's epilogue shared with the memo on the mesh: the
+    L4-slot counters [E, 2, Kg] of the `ok` tuples and, with
+    `telemetry`, their [2, TELEM_COLS] rows (ingress, egress), u32 bits
+    in int32 (None without)."""
+    kind = v.match_kind
+    e_count, _, kg = tab.l4_meta.shape
+    l4 = torch.zeros((e_count, 2, kg), dtype=torch.int32, device=kind.device)
+    hit_l4 = ((kind == MATCH_L4) | (kind == MATCH_L4_WILD)) & ok
+    _accumulate_counters(l4, ep, dirn, j, hit_l4)
+    if not telemetry:
+        return l4, None
+    zeros = torch.zeros_like(dirn)
+    masks = telemetry_masks(zeros, zeros, kind, v.allowed.bool(), zeros,
+                            v.proxy_port.to(torch.int64), zeros, zeros)
+    ingress = (dirn == 0) & ok
+    row_in = torch.stack([(m & ingress).sum() for m in masks])
+    total = torch.stack([(m & ok).sum() for m in masks])
+    return l4, narrow(torch.stack([row_in, total - row_in]))
 
 
 # -- dispatch: the kernel on a CUDA device, the plain version on the CPU ----

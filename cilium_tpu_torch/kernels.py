@@ -180,6 +180,13 @@ def datapath_reads(tables) -> tuple:
 _P = ctypes.c_void_p
 _I = ctypes.c_int32
 
+
+class KernelError(RuntimeError):
+    """A kernel library that failed to build or load, or a launch that
+    reported an error: a fault of the program, never of a chip, so the
+    failover router lets it propagate instead of routing around it."""
+
+
 _PTRS = (
     "pair", "pf_base", "pf_mask", "ct_buckets", "ct_stash", "lb_rows",
     "lb_stash", "ipc_buckets", "ipc_stash", "ipc_range_rows", "l4_rows",
@@ -244,7 +251,7 @@ def _nvcc() -> str:
     cand = Path("/usr/local/cuda/bin/nvcc")
     if cand.exists():
         return str(cand)
-    raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
+    raise KernelError("nvcc not found: the CUDA kernels cannot be built")
 
 
 def _lib_path(stem: str) -> Path:
@@ -287,7 +294,7 @@ def build_all(stems=LIBRARIES, verbose: bool = False) -> dict:
         os.replace(tmp, lib)
         out[stem] = (lib, log)
     if failed:
-        raise RuntimeError("\n".join(failed))
+        raise KernelError("\n".join(failed))
     return out
 
 
@@ -332,8 +339,11 @@ class _Library:
     def load(self, verbose: bool = False):
         if self.lib is None:
             path, self.build_log = build(self.stem, verbose=verbose)
-            lib = ctypes.CDLL(str(path))
-            self.bind(lib)
+            try:
+                lib = ctypes.CDLL(str(path))
+                self.bind(lib)
+            except (OSError, RuntimeError) as exc:
+                raise KernelError(f"csrc/{self.stem}.cu: {exc}") from exc
             self.lib = lib
         return self.lib
 
@@ -354,7 +364,7 @@ class _Library:
         stream = torch.cuda.current_stream(device).cuda_stream
         err = getattr(lib, launch)(ctypes.byref(args), *ints, stream)
         if err != 0:
-            raise RuntimeError(f"{name} launch failed: CUDA error {err}")
+            raise KernelError(f"{name} launch failed: CUDA error {err}")
 
 
 class _DatapathLibrary(_Library):
@@ -2038,20 +2048,24 @@ class MemoKeysLatticeKernel:
     def load(self, verbose: bool = False):
         return MEMO_LIBRARY.load(verbose)
 
-    def _args(self, pol, packed, mode: int):
+    def _args(self, pol, packed, mode: int, view=None):
         dev = _cuda_device(packed, self.name)
         if packed.dim() != 2 or packed.shape[0] != 6:
             raise ValueError(f"{self.name}: the tuple pack must be [6, B]")
         b = _batch(int(packed.shape[1]))
         a = KeysArgs()
         a.tuples = _ptr(packed, "tuples", dev, shape=(6, b))
-        if pol is not None:
+        if view is not None:
+            a.pol = view
+        elif pol is not None:
             a.pol = _policy_view(pol, dev)
         a.B, a.mode = b, mode
         return a, dev, b
 
-    def keys(self, pol, packed):
-        a, dev, b = self._args(pol, packed, 0)
+    def keys(self, pol, packed, view=None):
+        """`view` (a PolicyViewArgs) in place of `pol`: a mesh shard's
+        tables (_shard_view), whose identity index tables are whole."""
+        a, dev, b = self._args(pol, packed, 0, view)
         keys = torch.empty((3, b), dtype=torch.int32, device=dev)
         a.keys = keys.data_ptr()
         MEMO_LIBRARY.launch("launch_memo_keys", a, dev, self.name)
@@ -2173,18 +2187,38 @@ class ScatterArgs(ctypes.Structure):
                 ("n_seg", _I), ("pad", _I), ("total", ctypes.c_int64)]
 
 
+class RepairSegment(ctypes.Structure):
+    """Mirror of cpub::RepairSegment in csrc/publish.cu, field for
+    field."""
+
+    _fields_ = (
+        [(name, _P) for name in ("dst", "idx", "values")]
+        + [(name, ctypes.c_int64) for name in ("outer", "n_axis", "inner",
+                                               "k", "start")]
+    )
+
+
+class RepairArgs(ctypes.Structure):
+    """Mirror of cpub::RepairArgs in csrc/publish.cu, field for field."""
+
+    _fields_ = [("seg", RepairSegment * MAX_SCATTER_SEGMENTS),
+                ("n_seg", _I), ("pad", _I), ("total", ctypes.c_int64)]
+
+
 class _PublishLibrary(_Library):
-    """csrc/publish.cu: PUBLISH_SCATTER."""
+    """csrc/publish.cu: PUBLISH_SCATTER and REPAIR_SCATTER."""
 
     stem = "publish"
 
     def bind(self, lib) -> None:
-        self.declare(lib, (("launch_publish_scatter", ScatterArgs),))
+        self.declare(lib, (("launch_publish_scatter", ScatterArgs),
+                           ("launch_repair_scatter", RepairArgs)))
         lib.publish_struct_sizes.argtypes = [ctypes.POINTER(ctypes.c_int)]
         lib.publish_struct_sizes.restype = ctypes.c_int
-        sizes = (ctypes.c_int * 2)()
+        sizes = (ctypes.c_int * 4)()
         lib.publish_struct_sizes(sizes)
-        want = [ctypes.sizeof(ScatterSegment), ctypes.sizeof(ScatterArgs)]
+        want = [ctypes.sizeof(a) for a in (ScatterSegment, ScatterArgs,
+                                           RepairSegment, RepairArgs)]
         if list(sizes) != want:
             raise RuntimeError(
                 f"publish argument layouts differ between kernels.py "
@@ -2251,7 +2285,60 @@ class PublishScatterKernel:
         self.launches += 1
 
 
+class RepairScatterKernel:
+    """K18's readmission repair on the card: for each (dst, axis, idx,
+    values) of `segments`, dst[(slice(None),) * axis + (idx,)] = values
+    in place, in one launch, with engine/publish.py
+    repair_segments_plain's rules (negative indices count from the end
+    once, an index out of range is dropped).  dst is an int32 tensor;
+    idx int64 [K]; values int32 of dst's shape with K at `axis`."""
+
+    name = "repair_scatter"
+
+    def __init__(self) -> None:
+        self.launches = 0
+
+    def load(self, verbose: bool = False):
+        return PUBLISH_LIBRARY.load(verbose)
+
+    def __call__(self, segments):
+        segments = [s for s in segments if s[3].numel() > 0]
+        if not segments:
+            return
+        if len(segments) > MAX_SCATTER_SEGMENTS:
+            raise ValueError(f"{len(segments)} leaves in one repair, at "
+                             f"most {MAX_SCATTER_SEGMENTS}")
+        dev = _cuda_device(segments[0][0], self.name)
+        a = RepairArgs()
+        total = 0
+        for n, (dst, axis, idx, values) in enumerate(segments):
+            axis = int(axis)
+            if not 0 <= axis < dst.dim():
+                raise ValueError(f"segment {n}: axis {axis} of a "
+                                 f"{dst.dim()}-d leaf")
+            k = int(idx.shape[0])
+            shape = tuple(int(v) for v in dst.shape)
+            g = a.seg[n]
+            g.dst = _ptr(dst, f"segment {n} dst", dev)
+            g.idx = _ptr(idx, f"segment {n} idx", dev, torch.int64, (k,))
+            g.values = _ptr(values, f"segment {n} values", dev,
+                            shape=shape[:axis] + (k,) + shape[axis + 1:])
+            g.outer = g.inner = 1
+            for v in shape[:axis]:
+                g.outer *= v
+            for v in shape[axis + 1:]:
+                g.inner *= v
+            g.n_axis, g.k, g.start = shape[axis], k, total
+            total += g.outer * k * g.inner
+        a.n_seg, a.total = len(segments), total
+        if total >= 1 << 62:
+            raise ValueError("repair too large")
+        PUBLISH_LIBRARY.launch("launch_repair_scatter", a, dev, self.name)
+        self.launches += 1
+
+
 PUBLISH_SCATTER = PublishScatterKernel()
+REPAIR_SCATTER = RepairScatterKernel()
 
 
 # ---------------------------------------------------------------------------
@@ -2376,21 +2463,77 @@ class CombineArgs(ctypes.Structure):
                     "c_local")])
 
 
+class MemoProbeArgs(ctypes.Structure):
+    """Mirror of cms::MemoProbeArgs in csrc/mesh.cu, field for field."""
+
+    _fields_ = ([("rows", _P * MESH_MAX_TP), ("rec", _P * MESH_MAX_TP)]
+                + [(n, _P) for n in ("keys", "rep_orig", "n_unique",
+                                     "alive")]
+                + [("sort", SortArgs), ("n_valid", _P)]
+                + [(n, _I) for n in ("B", "rep_cap", "c_local", "ntp",
+                                     "entries", "width", "failover",
+                                     "bucket_passes")])
+
+
+class MemoFrontArgs(ctypes.Structure):
+    """Mirror of cms::MemoFrontArgs in csrc/mesh.cu, field for field."""
+
+    _fields_ = ([("recs", _P * MESH_MAX_TP)]
+                + [(n, _P) for n in ("rep_orig", "n_unique", "tuples", "rep",
+                                     "flags", "prefix", "sums", "n_elems",
+                                     "miss_pos", "n_miss", "miss_pack")]
+                + [(n, _I) for n in ("B", "rep_cap", "miss_cap", "tp")])
+
+
+class MemoBackArgs(ctypes.Structure):
+    """Mirror of cms::MemoBackArgs in csrc/mesh.cu, field for field."""
+
+    _fields_ = ([("parts", _P * MESH_MAX_TP)]
+                + [(n, _P) for n in (
+                    "rep", "miss_pos", "n_miss", "miss_pack", "srow", "gid",
+                    "n_unique", "dedup_overflow", "tuples", "keys", "meta",
+                    "valid", "alive", "rv", "mv", "allowed", "proxy_port",
+                    "match_kind", "hit", "l4", "l3", "telem", "replica",
+                    "stats", "counters")]
+                + [(n, _I) for n in (
+                    "B", "rep_cap", "miss_cap", "tp", "ew", "n_eps", "kg",
+                    "l3_shards", "c_local", "failover", "l3_sharded", "wn",
+                    "w_local")])
+
+
+class MemoInsertArgs(ctypes.Structure):
+    """Mirror of cms::MemoInsertArgs in csrc/mesh.cu, field for field."""
+
+    _fields_ = ([(n, _P) for n in ("rows_in", "rows_out", "rep", "miss_pos",
+                                   "n_miss", "mv", "stats", "keys",
+                                   "rep_orig", "alive")]
+                + [(n, _I) for n in ("B", "rep_cap", "miss_cap", "c_local",
+                                     "ntp", "entries", "width", "t",
+                                     "failover")])
+
+
 class _MeshLibrary(_Library):
-    """csrc/mesh.cu: MESH_PROBE, ROUTED_PROBE and MESH_COMBINE."""
+    """csrc/mesh.cu: MESH_PROBE, ROUTED_PROBE, MESH_COMBINE and the memo
+    on the mesh (MESH_MEMO_PROBE, MESH_MEMO_COMBINE, MESH_MEMO_INSERT)."""
 
     stem = "mesh"
 
     def bind(self, lib) -> None:
         self.declare(lib, (("launch_mesh_probe", MeshProbeArgs),
                            ("launch_routed_probe", RoutedProbeArgs),
-                           ("launch_mesh_combine", CombineArgs)))
+                           ("launch_mesh_combine", CombineArgs),
+                           ("launch_mesh_memo_probe", MemoProbeArgs),
+                           ("launch_mesh_memo_front", MemoFrontArgs),
+                           ("launch_mesh_memo_back", MemoBackArgs),
+                           ("launch_mesh_memo_insert", MemoInsertArgs)))
         lib.mesh_struct_sizes.argtypes = [ctypes.POINTER(ctypes.c_int)]
         lib.mesh_struct_sizes.restype = ctypes.c_int
-        sizes = (ctypes.c_int * 4)()
+        sizes = (ctypes.c_int * 9)()
         lib.mesh_struct_sizes(sizes)
-        want = [ctypes.sizeof(a) for a in (PolicyViewArgs, MeshProbeArgs,
-                                           RoutedProbeArgs, CombineArgs)]
+        want = [ctypes.sizeof(a) for a in (
+            PolicyViewArgs, MeshProbeArgs, RoutedProbeArgs, CombineArgs,
+            SortArgs, MemoProbeArgs, MemoFrontArgs, MemoBackArgs,
+            MemoInsertArgs)]
         if list(sizes) != want:
             raise RuntimeError(
                 f"mesh argument layouts differ between kernels.py {want} "
@@ -2597,13 +2740,264 @@ class MeshCombineKernel:
         return out, l4, l3, telem, replica[0]
 
 
+def _memo_mesh_common(keys, g, mg, name: str):
+    """Check a batch row's key words int32 [3, B] and MEMO_DEDUP groups
+    against the memo geometry; returns (device, B)."""
+    dev, b = _keys3(keys, name)
+    if not 1 <= mg.ntp <= MESH_MAX_TP:
+        raise ValueError(f"{name}: {mg.ntp} table shards")
+    if not 1 <= mg.entries <= 32 or mg.width < 5 * mg.entries:
+        raise ValueError(f"{name}: {mg.entries} lanes in {mg.width} words")
+    _pow2(mg.c_local * mg.ntp, "cache buckets")
+    if not 1 <= mg.rep_cap < 1 << 30 or not 1 <= mg.miss_cap < 1 << 30:
+        raise ValueError(f"{name}: rep_cap {mg.rep_cap}, miss_cap "
+                         f"{mg.miss_cap}")
+    _ptr(g["rep_orig"], "rep_orig", dev, shape=(mg.rep_cap + 1,))
+    _ptr(g["n_unique"], "n_unique", dev, shape=(1,))
+    return dev, b
+
+
+def _alive_ptr(mg, alive_row, dev, keep: list) -> int:
+    if not mg.failover:
+        return 0
+    if alive_row is None:
+        raise ValueError("failover mode takes alive_row [tp]")
+    a = alive_row.to(device=dev, dtype=torch.uint8).contiguous()
+    keep.append(a)
+    return _ptr(a, "alive_row", dev, torch.uint8, (mg.ntp,))
+
+
+class MeshMemoProbeKernel:
+    """K21's memo probe on the card, for the coordinates of one batch row
+    that lie on one device: `rows` {t: cache slice [R_local + 1, W]} ->
+    {t: record int32 [4, rep_cap]} (engine/memo_mesh.py
+    memo_probe_plain) from the row's key words and MEMO_DEDUP groups;
+    `alive_row` bool [tp] in failover mode.  One call runs the init, one
+    stable radix sort of the valid representatives by bucket and the
+    probe of every coordinate given."""
+
+    name = "mesh_memo_probe"
+
+    def __init__(self) -> None:
+        self.launches = 0
+
+    def load(self, verbose: bool = False):
+        return MESH_LIBRARY.load(verbose)
+
+    def __call__(self, rows: dict, keys, g, mg, alive_row=None) -> dict:
+        dev, b = _memo_mesh_common(keys, g, mg, self.name)
+        if not rows or not all(0 <= int(t) < mg.ntp for t in rows):
+            raise ValueError(f"{self.name}: shards {sorted(rows)} of "
+                             f"{mg.ntp}")
+        if mg.ntp > MESH_MAX_TP:
+            raise ValueError(f"{self.name}: {mg.ntp} table shards, at most "
+                             f"{MESH_MAX_TP}")
+        keep = []
+        a = MemoProbeArgs()
+        recs = {}
+        for t, slice_t in rows.items():
+            a.rows[int(t)] = _ptr(slice_t, f"cache rows {t}", dev,
+                                  shape=(mg.c_local + 1, mg.width))
+            recs[int(t)] = torch.empty((4, mg.rep_cap), dtype=torch.int32,
+                                       device=dev)
+            a.rec[int(t)] = recs[int(t)].data_ptr()
+        a.keys, a.rep_orig = keys.data_ptr(), g["rep_orig"].data_ptr()
+        a.n_unique = g["n_unique"].data_ptr()
+        a.alive = _alive_ptr(mg, alive_row, dev, keep)
+        n_valid = torch.empty(1, dtype=torch.int32, device=dev)
+        a.n_valid = n_valid.data_ptr()
+        bits = max((mg.c_local * mg.ntp).bit_length() - 1, 1)
+        passes = (bits + 7) // 8
+        a.sort, sort_bufs = _sort_args(mg.rep_cap, 1, passes,
+                                       n_valid.data_ptr(), dev)
+        a.B, a.rep_cap, a.c_local, a.ntp = b, mg.rep_cap, mg.c_local, mg.ntp
+        a.entries, a.width = mg.entries, mg.width
+        a.failover, a.bucket_passes = int(mg.failover), passes
+        MESH_LIBRARY.launch("launch_mesh_memo_probe", a, dev, self.name)
+        self.launches += 1
+        del sort_bufs, keep, n_valid
+        return recs
+
+
+class MeshMemoCombineKernel:
+    """K21's memo combine on the card, in two passes per batch row.
+    `front(records, g, packed, mg)`: the table-axis sum of the tp probe
+    records, the hit masked by rep_valid, the ascending compaction of the
+    missed representatives and their [6, miss_cap] tuple pack
+    (memo_front_plain).  `back(front, rparts, tab, g, packed, keys, mg,
+    rg, valid, alive_row, telemetry)`: the missed representatives'
+    lattice from the tp ROUTED_PROBE records packed into value words, the
+    scatter-back to every tuple, the combine, the counters, the telemetry
+    row, the replica count and the stats row (memo_back_plain).  Each
+    pass is one launch."""
+
+    name = "mesh_memo_combine"
+
+    def __init__(self) -> None:
+        self.launches = 0
+
+    def load(self, verbose: bool = False):
+        return MESH_LIBRARY.load(verbose)
+
+    def front(self, records, g, packed, mg) -> dict:
+        dev = _cuda_device(packed, self.name)
+        b = _batch(int(packed.shape[1]))
+        if len(records) != mg.ntp:
+            raise ValueError(f"{self.name}: {len(records)} records for "
+                             f"{mg.ntp} table shards")
+        a = MemoFrontArgs()
+        for k, rec in enumerate(records):
+            a.recs[k] = _ptr(rec, f"record {k}", dev, shape=(4, mg.rep_cap))
+        a.rep_orig = _ptr(g["rep_orig"], "rep_orig", dev,
+                          shape=(mg.rep_cap + 1,))
+        a.n_unique = _ptr(g["n_unique"], "n_unique", dev, shape=(1,))
+        a.tuples = _ptr(packed, "tuples", dev, shape=(6, b))
+        out = {"rep": torch.empty((4, mg.rep_cap), dtype=torch.int32,
+                                  device=dev),
+               "miss_pos": torch.empty(mg.miss_cap, dtype=torch.int32,
+                                       device=dev),
+               "n_miss": torch.empty(1, dtype=torch.int32, device=dev),
+               "miss_pack": torch.empty((6, mg.miss_cap), dtype=torch.int32,
+                                        device=dev)}
+        scratch = torch.empty((2, mg.rep_cap), dtype=torch.int32, device=dev)
+        sums = torch.empty(max(-(-mg.rep_cap // _SCAN_TILE), 1),
+                           dtype=torch.int32, device=dev)
+        n_elems = torch.empty(1, dtype=torch.int32, device=dev)
+        a.rep, a.miss_pos = out["rep"].data_ptr(), out["miss_pos"].data_ptr()
+        a.n_miss, a.miss_pack = (out["n_miss"].data_ptr(),
+                                 out["miss_pack"].data_ptr())
+        a.flags, a.prefix = scratch[0].data_ptr(), scratch[1].data_ptr()
+        a.sums, a.n_elems = sums.data_ptr(), n_elems.data_ptr()
+        a.B, a.rep_cap, a.miss_cap, a.tp = b, mg.rep_cap, mg.miss_cap, mg.ntp
+        MESH_LIBRARY.launch("launch_mesh_memo_front", a, dev, self.name)
+        self.launches += 1
+        del scratch, sums, n_elems
+        return out
+
+    def back(self, front, rparts, tab, g, packed, keys, mg, rg, valid=None,
+             alive_row=None, telemetry: bool = True):
+        from cilium_tpu_torch.engine.verdict import Verdicts
+
+        dev, b = _memo_mesh_common(keys, g, mg, self.name)
+        if len(rparts) != mg.ntp:
+            raise ValueError(f"{self.name}: {len(rparts)} routed records "
+                             f"for {mg.ntp} table shards")
+        keep = []
+        a = MemoBackArgs()
+        for k, part in enumerate(rparts):
+            a.parts[k] = _ptr(part, f"routed record {k}", dev,
+                              shape=(ROUTED_RECORD_ROWS, mg.miss_cap))
+        a.rep = _ptr(front["rep"], "rep", dev, shape=(4, mg.rep_cap))
+        a.miss_pos = _ptr(front["miss_pos"], "miss_pos", dev,
+                          shape=(mg.miss_cap,))
+        a.n_miss = _ptr(front["n_miss"], "n_miss", dev, shape=(1,))
+        a.miss_pack = _ptr(front["miss_pack"], "miss_pack", dev,
+                           shape=(6, mg.miss_cap))
+        a.srow = _ptr(g["srow"], "srow", dev, shape=(b,))
+        a.gid = _ptr(g["gid"], "gid", dev, shape=(b,))
+        a.n_unique = g["n_unique"].data_ptr()
+        a.dedup_overflow = _ptr(g["overflow"], "overflow", dev, shape=(1,))
+        a.tuples = _ptr(packed, "tuples", dev, shape=(6, b))
+        a.keys = keys.data_ptr()
+        l4t = _l4_tables(tab, dev)
+        a.meta, a.n_eps, a.kg = l4t.meta, l4t.n_eps, l4t.kg
+        a.ew = l4t.ew
+        if mg.failover and valid is not None:
+            v8 = valid.to(device=dev, dtype=torch.uint8).contiguous()
+            keep.append(v8)
+            a.valid = _ptr(v8, "valid", dev, torch.uint8, (b,))
+        a.alive = _alive_ptr(mg, alive_row, dev, keep)
+        cols = int(rg.l3_shards) * int(rg.c_local)
+        if not 1 <= cols < 1 << 31:
+            raise ValueError(f"{self.name}: {cols} L3 counter columns")
+        v = Verdicts(
+            allowed=torch.empty(b, dtype=torch.uint8, device=dev),
+            proxy_port=torch.empty(b, dtype=torch.int32, device=dev),
+            match_kind=torch.empty(b, dtype=torch.uint8, device=dev))
+        hit = torch.empty(b, dtype=torch.bool, device=dev)
+        l4 = torch.zeros((a.n_eps, 2, a.kg), dtype=torch.int32, device=dev)
+        l3 = torch.zeros((a.n_eps, 2, cols), dtype=torch.int32, device=dev)
+        small = torch.zeros(9, dtype=torch.int32, device=dev)
+        replica, stats, counters = small[0:1], small[1:6], small[6:9]
+        telem = (torch.zeros((2, TELEM_COLS), dtype=torch.int32, device=dev)
+                 if telemetry else None)
+        rv = torch.empty((2, mg.rep_cap), dtype=torch.int32, device=dev)
+        mv = torch.empty((2, mg.miss_cap), dtype=torch.int32, device=dev)
+        a.rv, a.mv = rv.data_ptr(), mv.data_ptr()
+        a.allowed, a.proxy_port = (v.allowed.data_ptr(),
+                                   v.proxy_port.data_ptr())
+        a.match_kind, a.hit = v.match_kind.data_ptr(), hit.data_ptr()
+        a.l4, a.l3 = l4.data_ptr(), l3.data_ptr()
+        if telem is not None:
+            a.telem = telem.data_ptr()
+        a.replica, a.stats = replica.data_ptr(), stats.data_ptr()
+        a.counters = counters.data_ptr()
+        a.B, a.rep_cap, a.miss_cap, a.tp = b, mg.rep_cap, mg.miss_cap, mg.ntp
+        a.l3_shards, a.c_local = int(rg.l3_shards), int(rg.c_local)
+        a.failover, a.l3_sharded = int(mg.failover), int(rg.l3_sharded)
+        a.wn, a.w_local = int(rg.wn), int(rg.w_local)
+        if rg.l3_sharded and not (a.wn if mg.failover else a.w_local):
+            raise ValueError(f"{self.name}: a sharded L3 plane of 0 words")
+        MESH_LIBRARY.launch("launch_mesh_memo_back", a, dev, self.name)
+        self.launches += 1
+        del keep, rv
+        return v, l4, l3, telem, replica, hit, stats, mv
+
+
+class MeshMemoInsertKernel:
+    """K21's memo insert on the card: a copy of coordinate t's cache slice
+    [R_local + 1, W] with the live missed representatives it owns
+    written at their lanes, unless the row's stats show an overflow
+    (memo_insert_plain).  Returns the new slice."""
+
+    name = "mesh_memo_insert"
+
+    def __init__(self) -> None:
+        self.launches = 0
+
+    def load(self, verbose: bool = False):
+        return MESH_LIBRARY.load(verbose)
+
+    def __call__(self, rows, front, mv, stats, keys, g, mg, t: int,
+                 alive_row=None):
+        dev, b = _memo_mesh_common(keys, g, mg, self.name)
+        if not 0 <= int(t) < mg.ntp:
+            raise ValueError(f"{self.name}: shard {t} of {mg.ntp}")
+        keep = []
+        a = MemoInsertArgs()
+        shape = (mg.c_local + 1, mg.width)
+        a.rows_in = _ptr(rows, "cache rows", dev, shape=shape)
+        out = torch.empty(shape, dtype=torch.int32, device=dev)
+        a.rows_out = out.data_ptr()
+        a.rep = _ptr(front["rep"], "rep", dev, shape=(4, mg.rep_cap))
+        a.miss_pos = _ptr(front["miss_pos"], "miss_pos", dev,
+                          shape=(mg.miss_cap,))
+        a.n_miss = _ptr(front["n_miss"], "n_miss", dev, shape=(1,))
+        a.mv = _ptr(mv, "mv", dev, shape=(2, mg.miss_cap))
+        a.stats = _ptr(stats, "stats", dev, shape=(5,))
+        a.keys, a.rep_orig = keys.data_ptr(), g["rep_orig"].data_ptr()
+        a.alive = _alive_ptr(mg, alive_row, dev, keep)
+        a.B, a.rep_cap, a.miss_cap = b, mg.rep_cap, mg.miss_cap
+        a.c_local, a.ntp, a.entries = mg.c_local, mg.ntp, mg.entries
+        a.width, a.t, a.failover = mg.width, int(t), int(mg.failover)
+        MESH_LIBRARY.launch("launch_mesh_memo_insert", a, dev, self.name)
+        self.launches += 1
+        del keep
+        return out
+
+
 MESH_PROBE = MeshProbeKernel()
 ROUTED_PROBE = RoutedProbeKernel()
 MESH_COMBINE = MeshCombineKernel()
+MESH_MEMO_PROBE = MeshMemoProbeKernel()
+MESH_MEMO_COMBINE = MeshMemoCombineKernel()
+MESH_MEMO_INSERT = MeshMemoInsertKernel()
 
 
 KERNELS = (DATAPATH_PAIR, DATAPATH_STEP, CHURN_COMPACT, CT_DELTA,
            HTTP_MATCH, KAFKA_MATCH, FLEET_L7, LATTICE, LPM_LOOKUP, DATAPATH6,
            PICK_DRAW, DATAPATH_PAIR_MEMO, MEMO_DEDUP, MEMO_CACHE,
            MEMO_KEYS_LATTICE, PUBLISH_SCATTER, MEMCACHE_MATCH, SHADOW_DIFF,
-           PERSISTENT_PAIR, MESH_PROBE, ROUTED_PROBE, MESH_COMBINE)
+           PERSISTENT_PAIR, MESH_PROBE, ROUTED_PROBE, MESH_COMBINE,
+           REPAIR_SCATTER, MESH_MEMO_PROBE, MESH_MEMO_COMBINE,
+           MESH_MEMO_INSERT)

@@ -565,15 +565,16 @@ class Proxy:
         `id`, `desired_l4_policy` and `realized_redirects`.  Runs under a
         `proxy.upcall` span (error status on a failure), so a traced
         regeneration shows which endpoint's redirect realization cost or
-        failed the sweep.  The reference's fault seam at the start of the
-        span (`faultinject.fire("proxy.upcall")`) waits for the
-        resilience plane."""
-        from cilium_tpu_torch import tracing
+        failed the sweep.  An armed `proxy.upcall` fault site fails the
+        realization at the start of the span, as a dead proxy fails the
+        upcall."""
+        from cilium_tpu_torch import faultinject, tracing
 
         with tracing.tracer.span(
             "proxy.upcall", site="proxy.upcall",
             attrs={"endpoint": endpoint.id},
         ) as sp:
+            faultinject.fire("proxy.upcall")
             realized: Dict[str, int] = {}
             l4_policy = endpoint.desired_l4_policy
             wanted = set()

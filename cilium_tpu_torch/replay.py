@@ -59,9 +59,11 @@ peer identity on its side of the pair and the record's endpoint id
 host once per batch.  Flow capture is not offered in churn mode, as in
 the reference.
 `sync_counters_to_endpoints` folds the counter totals back into the
-endpoints' realized map states.  The reference's `_guarded_dispatch`
-retry seam waits for the resilience plane; without an injected fault
-it passes every dispatch straight through, as here.
+endpoints' realized map states.  Every step launch of `replay` and
+`replay_lattice` goes through resilience.guarded_dispatch: the
+`engine.dispatch` fault seam fires before the launch and a fired fault
+is retried, at most twice; the steps that carry the counter buffers
+(`donated=True`) retry only that pre-launch fault.
 """
 
 from __future__ import annotations
@@ -112,6 +114,7 @@ from cilium_tpu_torch.maps.policymap import (
 )
 from cilium_tpu_torch.native.loader import decode_flow_records
 from cilium_tpu_torch.prng import fold_in, prng_key, randint_u32
+from cilium_tpu_torch.resilience import guarded_dispatch
 
 # fold the carried u32 counter buffer into host u64 sums before any cell
 # could gain 2^31 increments (a batch adds at most batch_size to a cell)
@@ -575,7 +578,8 @@ def replay_lattice(tables, buf: bytes, batch_size: int = 1 << 20,
     batches = timed("decode", read_batches, buf, batch_size, ep_map, dev)
     while (item := timed("pack", next, batches, None)) is not None:
         batch, valid = item
-        pending.append((timed("dispatch", step, batch), valid))
+        pending.append((timed("dispatch", guarded_dispatch, step, batch),
+                        valid))
         stats.batches += 1
         if len(pending) >= 4:
             timed("drain", _drain, pending.pop(0), stats, acc)
@@ -742,11 +746,13 @@ def replay(tables: DatapathTables, buf: bytes, batch_size: int = 1 << 20,
                 t = dataclasses.replace(tables, ct=churn.dev_snap)
                 spans.span("dispatch").start()
                 if first_pass and acc is not None:
-                    out, _ = datapath_step_accum(t, flows, acc)
+                    out, _ = guarded_dispatch(datapath_step_accum, t,
+                                              flows, acc, donated=True)
                     header, intents = churn_compact(out, pack, picks, valid)
                     counted()
                 else:
-                    header, intents = churn_step(t, pack, picks, valid)
+                    header, intents = guarded_dispatch(
+                        churn_step, t, pack, picks, valid)
                 spans.span("dispatch").end()
                 spans.span("drain").start()
                 remaining = churn.drain(header, intents, stats, valid,
@@ -764,17 +770,19 @@ def replay(tables: DatapathTables, buf: bytes, batch_size: int = 1 << 20,
         spans.span("dispatch").start()
         if acc is not None:
             if telem_dev is not None and valid == batch_size:
-                out, _, _ = datapath_step_accum_telem(tables, flows, acc,
-                                                      telem_dev)
+                out, _, _ = guarded_dispatch(
+                    datapath_step_accum_telem, tables, flows, acc, telem_dev,
+                    donated=True)
             else:
-                out, _ = datapath_step_accum(tables, flows, acc)
+                out, _ = guarded_dispatch(datapath_step_accum, tables,
+                                          flows, acc, donated=True)
                 if telem_total is not None:
                     # a partial tail: the device sums would count its
                     # padding rows, so it folds on the host
                     fold_direction = flows.direction
             counted()
         else:
-            out = datapath_step(tables, flows)
+            out = guarded_dispatch(datapath_step, tables, flows)
             if telem_total is not None:
                 fold_direction = flows.direction
         spans.span("dispatch").end()

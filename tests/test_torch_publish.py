@@ -654,6 +654,46 @@ def test_failed_scatter_deregisters_the_spare_and_raises(monkeypatch):
     assert_epoch_equal(dev, t)
 
 
+@pytest.mark.parametrize("spec,falls_back", [
+    ("raise:next=1", True), ("raise:chip=0", True), ("raise:chip=5", False),
+])
+def test_injected_scatter_fault_falls_back_to_full_upload(spec, falls_back):
+    """The publish.scatter fault seam, probed once per chip holding a
+    slice of the spare (chip 0 on one device): a fired fault drops the
+    spare and serves the publish by a full upload (publish_fallback_total,
+    the publish.epoch span's `fallback`); a schedule scoped to a chip
+    that holds no slice never fires and the delta lands."""
+    from cilium_tpu_torch import faultinject, tracing
+    from cilium_tpu_torch.metrics import registry as metrics
+
+    key = tpm.PolicyKey(256, 80, 6, tpm.INGRESS)
+    comp = ttab.FleetCompiler(identity_pad=32, filter_pad=4)
+    store = tpub.DeviceTableStore(device="cpu")
+    for tok in range(2):
+        t, _ = comp.compile([(1, {key: tpm.PolicyMapStateEntry()}, tok)],
+                            [256, 257])
+        store.publish(t, comp.delta_for(store.spare_stamp(), t))
+    t, _ = comp.compile(
+        [(1, {tpm.PolicyKey(257, 80, 6, 0): tpm.PolicyMapStateEntry()}, 2)],
+        [256, 257])
+    delta = comp.delta_for(store.spare_stamp(), t)
+    before = metrics.publish_fallback_total.get()
+    tracer = tracing.Tracer(sample_rate=1.0, seed=3)
+    old = tracing.tracer
+    tracing.tracer = tracer
+    try:
+        with faultinject.injected("publish.scatter", spec):
+            dev, st = store.publish(t, delta)
+    finally:
+        tracing.tracer = old
+    assert st.mode == ("full" if falls_back else "delta")
+    assert (metrics.publish_fallback_total.get() - before
+            == int(falls_back))
+    span = [s for s in tracer.snapshot() if s.name == "publish.epoch"][-1]
+    assert ("fallback" in span.attrs) == falls_back
+    assert_epoch_equal(dev, t)
+
+
 def test_epochs_never_share_storage():
     """A delta publish writes only the spare's tensors: the live epoch
     and the host arrays keep their words, and no tensor of one epoch is
