@@ -234,7 +234,28 @@ launch counts set to 0 just before it and read just after:
              MESH_MEMO_INSERT; a forced overflow re-dispatched uncached;
              make_partitioned_memo_evaluator against the partitioned
              evaluator) and failover_timing (each new kernel against its
-             plain version, cold and warm, and timed).
+             plain version, cold and warm, and timed);
+  dp_mesh    the fused datapath on the same (2, 4) mesh (K21 datapath
+             mesh): dp_mesh_setup (config 5's compact DatapathTables, a
+             DatapathStore published twice, the byte models), dp_mesh
+             (the pair evaluator over a pair of 2 x 2,097,152 flows and
+             the per-flow evaluator over the same 4,194,304 flows
+             shuffled, healthy and with chip (0, 1) dead and its primary
+             rows poisoned in a private copy: 80 DP_MESH_PROBE and 6
+             DP_MESH_COMBINE launches each time; the 15 columns, both
+             counter buffers and the telemetry against DATAPATH_PAIR and
+             DATAPATH_STEP on the single-device tables), dp_mesh_node
+             (the node world's tables: the [B, P] scan, the classic LB,
+             one pair), dp_mesh_store (two churn steps of a CT write-back
+             and an ipcache upsert, each a delta below a tenth of a full
+             upload; resident blocks against the host augmentation;
+             repair_chip(1) by REPAIR_SCATTER), dp_failover_* (the
+             router's dispatch_flows of the 4,194,304 flows healthy, chip
+             (0, 1) killed, its backup (0, 2) dead too, the backup back,
+             the chip readmitted with its poisoned blocks repaired) and
+             dp_mesh_timing (each new kernel against its plain version,
+             every round, and timed; the evaluators beside DATAPATH_PAIR
+             and DATAPATH_STEP).
 
 The churn path's int picks are drawn on the card by PICK_DRAW, the
 reference's threefry2x32 randint; churn_check also runs 2 int-pick
@@ -314,6 +335,17 @@ partitioned run's 4 records), 20 launches queued behind a device spin;
 their bounds the tuple words and record words each reads or writes and
 each distinct row the shard's plain version gathers, once; `evaluators`
 the ms and verdicts/s of each evaluator and of LATTICE in the same run.
+DP_MESH_PROBE's time is the mean per launch of rounds S, L, F and P on
+shard (0, 0)'s 2,097,152 flows (`by_round` each, its plain version and
+bound), device time over 20 launches queued behind a device spin (CUDA
+events as the caller sees them in `wrapper_ms`); DP_MESH_COMBINE's one
+launch over batch row 0's 4 round-P records; their bounds the flow words each reads,
+the record rows it needs (a row that shard 0 alone writes counted once)
+and writes, and each distinct row the shard's plain version gathers,
+once; `evaluators` both evaluators' ms beside DATAPATH_PAIR's and
+DATAPATH_STEP's on the same flows, with their spread over repeated
+timings and traced runs (the device's busy ms and the ms it waited on
+the host).
 DATAPATH_PAIR's row also carries its dense-branch time (`dense_ms`,
 `dense_plain_ms`, `dense_bound_ms`, `dense_max_abs_err`, and
 `dense_hashed_ms` the hashed tables on the same pair).
@@ -3183,15 +3215,15 @@ def node_world_phase(kernels, label: str) -> dict:
     wide_t = tables_to(
         dataclasses.replace(wide, policy=split_hot(wide.policy)), "cuda")
     tables = tables_to(host, "cuda")
-    del wide, host
+    del wide
     nbytes = sum(v.numel() * v.element_size()
                  for _, v in table_leaves(tables))
     names = {"headline": kernels.datapath_layout(tables),
              "wide": kernels.datapath_layout(wide_t)}
     phase("node_world", t, world=label, **w.meta, table_bytes=nbytes,
           layout=json.dumps(layout), kernel_layouts=json.dumps(names))
-    return dict(w=w, tables=tables, wide_t=wide_t, layout=names["headline"],
-                wide_layout=names["wide"])
+    return dict(w=w, host=host, tables=tables, wide_t=wide_t,
+                layout=names["headline"], wide_layout=names["wide"])
 
 
 def oracle_mismatches(w, tables, rows) -> tuple:
@@ -3520,7 +3552,7 @@ def plane_timing(kernels, w5, tables5, pair, node_prefilter) -> dict:
     return out
 
 
-def node_phases(kernels, w5, tables5, wide5, rows) -> None:
+def node_phases(kernels, w5, tables5, wide5, rows) -> tuple:
     """Both node worlds (node_world, node_check, node, node_timing), then
     config 5's DATAPATH_PAIR and DATAPATH_STEP timed again in the same
     run, and the pair with one node-layout plane at a time
@@ -3528,7 +3560,8 @@ def node_phases(kernels, w5, tables5, wide5, rows) -> None:
     each world's path (`launches_by_path`, PERSISTENT_PAIR's and
     DATAPATH_PAIR's), the worst error, per layout instantiation the time,
     plain time and bound (`by_layout`), and per swapped plane
-    (`by_plane`)."""
+    (`by_plane`).  Returns the node world and its headline host tables
+    (the [B, P] scan's world, for dp_mesh_node)."""
     from cilium_tpu_torch.convert import flow_pool_to
 
     timing, launches, pair_launches, err, err_super = {}, {}, {}, 0, 0
@@ -3554,6 +3587,7 @@ def node_phases(kernels, w5, tables5, wide5, rows) -> None:
                              step_layout=nw["wide_layout"])
         if label == "node":
             node_prefilter = nw["tables"].prefilter
+            node_keep = (nw["w"], nw["host"])
         phase("node_timing", t, world=label, **{
             k: json.dumps(v) if isinstance(v, dict) else v
             for k, v in timing[label].items()})
@@ -3596,6 +3630,7 @@ def node_phases(kernels, w5, tables5, wide5, rows) -> None:
             r["launches_by_path"].update(launches)
             r["launches"] = sum(r["launches_by_path"].values())
             r["max_abs_err"] = max(r["max_abs_err"], err_super)
+    return node_keep
 
 
 # -- policy publication ----------------------------------------------------------
@@ -6450,6 +6485,876 @@ def failover_phases(kernels, w, u, rows, smi) -> None:
                          f"path: {path_launches}")
 
 
+# -- the fused datapath on the mesh (K21 datapath mesh) -----------------------
+
+DP_SRC = "cilium_tpu_torch/csrc/datapath_mesh.cu"
+DP_FLOWS = 2 * HALF  # the per-flow evaluator's flows, of mixed direction
+DP_WB_FLOWS = 1 << 12  # a CT write-back step's flows (the host applies them)
+DP_UPSERT_STRIDE = 97  # the ipcache upsert rewrites /32 entry 97 (k + 1)
+DP_POISON = -559038737  # 0xDEADBEEF in a dead chip's primary rows
+DP_CALLS = 20
+DP_EV_CALLS = 3  # timed calls per evaluator
+DP_EV_REPEATS = 3  # the evaluators' repeated timings and traced runs
+
+
+def words_of_pair(pair, seed: int) -> torch.Tensor:
+    """A packed4 pair [2, 4, B] on the card as one flow batch of its
+    2 B flows (int32 [8, 2 B] words, FLOW_COLUMNS order), shuffled so
+    each batch row sees both directions."""
+    from cilium_tpu_torch.device import narrow
+
+    h = pair.to(torch.int64) & M32
+    w2, w3 = h[:, 2], h[:, 3]
+    cols = (w3 >> 16, h[:, 0], h[:, 1], w2 >> 16, w2 & 0xFFFF,
+            (w3 >> 8) & 0xFF, (w3 >> 1) & 1, w3 & 1)
+    words = torch.stack([c.reshape(-1) for c in cols])
+    gen = torch.Generator(device=pair.device).manual_seed(seed)
+    perm = torch.randperm(words.shape[1], generator=gen, device=pair.device)
+    return narrow(words[:, perm]).contiguous()
+
+
+def dp_rows_differ(got, want, id_table=None) -> int:
+    """Flows whose 15 DatapathVerdicts columns differ in any column;
+    with `id_table`, want's sec_id is a raw lattice index (the pair
+    step's) and is compared as the identity it indexes."""
+    from cilium_tpu_torch.engine import datapath as dp
+
+    bad = None
+    for c in dp.VERDICT_COLUMNS:
+        a = getattr(got, c).to(torch.int64)
+        b = getattr(want, c)
+        if c == "sec_id" and id_table is not None:
+            b = id_table[b.to(torch.int64)]
+        b = b.to(torch.int64)
+        if c in dp.U32_COLUMNS:
+            a, b = a & M32, b & M32
+        d = a != b
+        bad = d if bad is None else bad | d
+    return int(bad.sum().item())
+
+
+def dp_oracle(kernels, tables, pair, words) -> dict:
+    """The single-device program on the same tables and flows: the pair
+    through DATAPATH_PAIR (fresh counters and telemetry), the flows
+    through datapath_step_with_counters and datapath_step_telem
+    (DATAPATH_STEP)."""
+    from cilium_tpu_torch.engine import datapath as dp
+    from cilium_tpu_torch.engine import verdict
+
+    out = {}
+    if pair is not None:
+        acc = verdict.make_counter_buffers(tables.policy)
+        tel = verdict.make_telemetry_buffers(acc.device)
+        oi, oe, acc, tel = kernels.DATAPATH_PAIR(tables, pair, acc, tel)
+        l4, l3 = verdict.split_counters(acc, tables.policy)
+        out["pair"] = (oi, oe, l4, l3, tel)
+    if words is not None:
+        fb = dp.flow_batch_from_packed(words)
+        o, l4, l3 = dp.datapath_step_with_counters(tables, fb)
+        _, tel = dp.datapath_step_telem(tables, fb)
+        out["flows"] = (o, l4, l3, tel)
+    torch.cuda.synchronize()
+    return out
+
+
+def dp_out_errs(got, want, id_table, pair: bool) -> dict:
+    """Differing rows of the columns (each half of a pair), entries of
+    the counters and of the telemetry summed over the batch rows."""
+    from cilium_tpu_torch.device import narrow, widen
+
+    n_v = 2 if pair else 1
+    errs = {}
+    for k in range(n_v):
+        errs[f"rows{k}"] = dp_rows_differ(got[k], want[k],
+                                          id_table if pair else None)
+    errs["l4"] = entries_differ(got[n_v], want[n_v])
+    errs["l3"] = entries_differ(got[n_v + 1], want[n_v + 1])
+    errs["telemetry"] = entries_differ(
+        narrow(widen(got[-1]).sum(dim=0)), want[-1])
+    return errs
+
+
+def dp_poisoned(md, coord, axes):
+    """A copy of the epoch `md` whose coordinate `coord` holds private
+    copies of its sharded blocks with the primary region written over
+    (coordinates of one card share a block: the other row keeps its
+    own)."""
+    from cilium_tpu_torch.engine import datapath_mesh as dm
+
+    shards = md.shards.copy()
+    tab = shards[coord]
+    ups = {}
+    for (fam, name), axis in axes.items():
+        leaf = getattr(getattr(tab, fam), name).clone()
+        leaf.narrow(axis, 0, leaf.shape[axis] // 2).fill_(DP_POISON)
+        ups[(fam, name)] = leaf
+    shards[coord] = dm._with_leaves(tab, ups)
+    return dataclasses.replace(md, shards=shards)
+
+
+def dp_mesh_setup(kernels, w, host, tables) -> dict:
+    """Config 5's compact DatapathTables (the headline's, nothing cut)
+    through _check_fused_world, a DatapathStore on the virtual (2, 4)
+    mesh published twice (both epochs full), the byte models, the pair
+    of 2 x 2,097,152 flows and its flows as one mixed batch of
+    4,194,304, and both evaluators."""
+    from cilium_tpu_torch.compiler import partition
+    from cilium_tpu_torch.engine import datapath_mesh as dm
+    from cilium_tpu_torch.engine import mesh
+
+    t = time.perf_counter()
+    tp = MESH_SHAPE[1]
+    dm._check_fused_world(host)
+    m24 = mesh.make_mesh(*MESH_SHAPE)
+    store = dm.DatapathStore(m24)
+    upload_ms = [round(once_ms(lambda: store.publish(host)), 3)
+                 for _ in range(2)]
+    _, per_chip, repl, ovh = partition.datapath_bytes_model(host, tp)
+    pair = torch.from_numpy(w.pairs(seed=71, half=HALF, k=1)[0].view(
+        np.int32)).cuda()
+    words = words_of_pair(pair, 72)
+    ev = dm.make_failover_datapath_evaluator(m24, host,
+                                             collect_telemetry=True)
+    ev_pair = dm.make_failover_datapath_pair_evaluator(m24, host)
+    torch.cuda.synchronize()
+    chip = store.chip_bytes()
+    geom = {k: v for k, v in ev.geom.items() if k != "route"}
+    phase("dp_mesh_setup", t, flows=DP_FLOWS, pair_half=HALF,
+          mesh=MESH_SHAPE, full_bytes=store.full_bytes(),
+          chip_bytes=[chip[k] for k in sorted(chip)],
+          model_per_chip=per_chip, model_replicated=repl,
+          model_overhead=ovh,
+          universe_1=partition.datapath_universe_max_identities(host, 1),
+          universe_4=partition.datapath_universe_max_identities(host, tp),
+          alltoall_bytes_per_tuple=partition.datapath_alltoall_bytes_per_tuple(
+              tp, len(geom["class_plens"])),
+          full_upload_ms=upload_ms, geometry=json.dumps(geom),
+          replica_leaves=sorted(".".join(k) for k in
+                                partition.datapath_all_replica_axes(host, tp)),
+          cuda_allocated=torch.cuda.memory_allocated())
+    return dict(m24=m24, store=store, pair=pair, words=words, ev=ev,
+                ev_pair=ev_pair, host=host, tables=tables,
+                axes=partition.datapath_all_replica_axes(host, tp))
+
+
+def dp_counts(kernels) -> dict:
+    return {k.name: k.launches for k in kernels.KERNELS if k.launches}
+
+
+def dp_run(kernels, u, md, alive, tag: str) -> tuple:
+    """Both evaluators once on `md` (launch counts set to 0 just before,
+    read just after): the pair, then the mixed batch."""
+    torch.cuda.synchronize()
+    reset_counts(kernels)
+    t = time.perf_counter()
+    out_pair = u["ev_pair"](md, u["pair"], alive, None)
+    out_flows = u["ev"](md, u["words"], alive, None)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    counts = dp_counts(kernels)
+    dp_, tp = MESH_SHAPE
+    want = {kernels.DP_MESH_PROBE.name: (2 + 4) * dp_ * tp + 4 * dp_ * tp,
+            kernels.DP_MESH_COMBINE.name: 2 * dp_ + dp_}
+    if counts != want:
+        raise SystemExit(f"dp_mesh {tag}: launches {counts}, expected {want}")
+    return out_pair, out_flows, counts, wall
+
+
+def dp_mesh_path(kernels, u, oracle) -> dict:
+    """The slice's path: the pair evaluator over the pair and the per-flow
+    evaluator over the mixed batch, healthy and with chip (0, 1) dead
+    (its primary rows written over in a private copy), every output
+    against the single-device program."""
+    md = u["store"].current()
+    id_table = u["tables"].policy.id_table
+    runs, counts = {}, {}
+    for tag in ("healthy", "dead"):
+        t = time.perf_counter()
+        alive = np.ones(MESH_SHAPE, bool)
+        epoch = md
+        if tag == "dead":
+            alive[MESH_DEAD] = False
+            epoch = dp_poisoned(md, MESH_DEAD, u["axes"])
+        out_pair, out_flows, counts[tag], wall = dp_run(kernels, u, epoch,
+                                                        alive, tag)
+        errs = {"pair_" + k: v for k, v in dp_out_errs(
+            out_pair, oracle["pair"], id_table, True).items()}
+        errs.update({"flows_" + k: v for k, v in dp_out_errs(
+            out_flows, oracle["flows"], None, False).items()})
+        hits = [int(out_pair[4]), int(out_flows[3])]
+        phase("dp_mesh", t, case=tag, flows=DP_FLOWS, pair_flows=2 * HALF,
+              wall_ms=round(wall * 1e3, 3), launches=counts[tag],
+              replica_hits=hits, differing=errs)
+        if any(errs.values()) or (tag == "dead") != all(hits):
+            raise SystemExit(f"dp_mesh {tag}: the mesh differs from the "
+                             f"single-device program: {errs}, hits {hits}")
+        runs[tag] = (out_pair, out_flows)
+    return dict(counts=counts, runs=runs)
+
+
+def dp_mesh_node(kernels, u, node) -> dict:
+    """The node world (its ipcache without range rows: the [B, P] scan;
+    the classic LB; the DIR-24-8 prefilter) at one pair through the pair
+    evaluator, healthy and with chip (0, 1) dead, against DATAPATH_PAIR
+    on its tables."""
+    from cilium_tpu_torch.compiler import partition
+    from cilium_tpu_torch.convert import tables_to
+    from cilium_tpu_torch.engine import datapath_mesh as dm
+
+    t = time.perf_counter()
+    nw, nhost = node
+    tp = MESH_SHAPE[1]
+    if nhost.ipcache.range_rows is not None:
+        raise SystemExit("dp_mesh_node: the node world took range classes")
+    ntab = tables_to(nhost, "cuda")
+    ev = dm.make_failover_datapath_pair_evaluator(u["m24"], nhost)
+    md = dm.place_datapath(partition.replicate_datapath_leaves(nhost, tp),
+                           ev.shardings)
+    pair = torch.from_numpy(nw.pairs(seed=73, half=HALF, k=1)[0].view(
+        np.int32)).cuda()
+    want = dp_oracle(kernels, ntab, pair, None)["pair"]
+    axes = partition.datapath_all_replica_axes(nhost, tp)
+    errs, counts, hits = {}, {}, {}
+    for tag in ("healthy", "dead"):
+        alive = np.ones(MESH_SHAPE, bool)
+        epoch = md
+        if tag == "dead":
+            alive[MESH_DEAD] = False
+            epoch = dp_poisoned(md, MESH_DEAD, axes)
+        torch.cuda.synchronize()
+        reset_counts(kernels)
+        got = ev(epoch, pair, alive, None)
+        torch.cuda.synchronize()
+        counts[tag] = dp_counts(kernels)
+        errs[tag] = dp_out_errs(got, want, ntab.policy.id_table, True)
+        hits[tag] = int(got[4])
+    phase("dp_mesh_node", t, pair_flows=2 * HALF,
+          layout=kernels.datapath_layout(ntab), replica_hits=hits,
+          launches=counts, differing=errs,
+          sharded=sorted(".".join(k) for k in axes))
+    if any(v for e in errs.values() for v in e.values()) or not hits["dead"]:
+        raise SystemExit(f"dp_mesh_node: the mesh differs on the node "
+                         f"world: {errs}")
+    return dict(counts=counts)
+
+
+def dp_churn(kernels, w, host, tables, words, step: int):
+    """One CT write-back step (the single-device verdicts of the step's
+    DP_WB_FLOWS flows applied to the world's CT map) and one ipcache
+    upsert, the two planes recompiled in the headline's layouts: the
+    new host tables.  The upsert gives an existing /32 another identity
+    (config 5's bucket plane is full: one more /32 regrows it, a
+    geometry change that uploads in full)."""
+    from cilium_tpu_torch.ct.device import compact_ct_snapshot, compile_ct
+    from cilium_tpu_torch.engine import datapath as dp
+    from cilium_tpu_torch.ipcache.lpm import (
+        build_ipcache,
+        specialize_ipcache_to_idx,
+        subword_ipcache,
+    )
+
+    fb = dp.flow_batch_from_packed(
+        words[:, step * DP_WB_FLOWS:(step + 1) * DP_WB_FLOWS].contiguous())
+    out = kernels.DATAPATH_STEP(tables, fb.packed)
+    created, deleted = dp.apply_ct_writeback(w.ct, out, fb, now=step + 1)
+    keys = [k for k in w.ipc_map if k.endswith("/32")]
+    key = keys[DP_UPSERT_STRIDE * (step + 1) % len(keys)]
+    w.ipc_map[key] = next(int(i) for i in w.identity_ids[step + 1:]
+                          if int(i) != w.ipc_map[key])
+    new = dataclasses.replace(
+        host, ct=compact_ct_snapshot(compile_ct(w.ct)),
+        ipcache=subword_ipcache(specialize_ipcache_to_idx(
+            build_ipcache(w.ipc_map), host.policy)))
+    return new, created, deleted
+
+
+def dp_resident_err(store, host) -> int:
+    """Entries of the current epoch's blocks that differ from the
+    augmented host tables, over every sharded leaf and coordinate."""
+    from cilium_tpu_torch.compiler import partition
+    from cilium_tpu_torch.convert import _leaf_to
+
+    md = store.current()
+    aug = partition.replicate_datapath_leaves(host, MESH_SHAPE[1])
+    err = 0
+    for (fam, name), _ in partition.datapath_all_replica_axes(
+            host, MESH_SHAPE[1]).items():
+        full = _leaf_to(np.asarray(getattr(getattr(aug, fam), name)), "cuda")
+        sh = getattr(getattr(md.shardings, fam), name)
+        for coord in md.mesh.coords():
+            block = getattr(getattr(md.shard(*coord), fam), name)
+            err += entries_differ(block, full[sh.slices(tuple(full.shape),
+                                                         coord)])
+    return err
+
+
+def dp_mesh_store(kernels, w, u) -> dict:
+    """Two churn steps (a CT write-back and an ipcache upsert each), each
+    published as a row-diff delta below a tenth of a full upload; the
+    resident blocks against the host augmentation; then repair_chip(1)
+    (REPAIR_SCATTER), its bytes and ms."""
+    from cilium_tpu_torch.convert import tables_to
+
+    t = time.perf_counter()
+    store, host, tables = u["store"], u["host"], u["tables"]
+    full = store.full_bytes()
+    steps, counts = [], {}
+    for step in range(2):
+        host, created, deleted = dp_churn(kernels, w, host, tables,
+                                          u["words"], step)
+        torch.cuda.synchronize()
+        reset_counts(kernels)
+        t1 = time.perf_counter()
+        _, st = store.publish(host)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t1) * 1e3
+        counts[f"publish{step}"] = dp_counts(kernels)
+        steps.append(dict(mode=st.mode, bytes_h2d=st.bytes_h2d,
+                          rows=st.scattered_rows,
+                          replaced=st.replaced_leaves, ms=round(ms, 3),
+                          created=created, deleted=deleted))
+        if st.mode != "delta" or not st.bytes_h2d < full / 10:
+            raise SystemExit(f"dp_mesh_store: step {step} published "
+                             f"{st.mode}, {st.bytes_h2d} B of {full}")
+        tables = tables_to(host, "cuda")
+    resident = dp_resident_err(store, host)
+    torch.cuda.synchronize()
+    reset_counts(kernels)
+    t1 = time.perf_counter()
+    rep_bytes = store.repair_chip(1)
+    torch.cuda.synchronize()
+    rep_ms = (time.perf_counter() - t1) * 1e3
+    counts["repair"] = dp_counts(kernels)
+    resident_after = dp_resident_err(store, host)
+    # the last publish diffed against the spare: the world two steps back
+    scatter = dp_delta_scatter(kernels, store, u["host"], host)
+    phase("dp_mesh_store", t, full_bytes=full, steps=json.dumps(steps),
+          resident_err=[resident, resident_after], repair_bytes=rep_bytes,
+          repair_ms=round(rep_ms, 3), launches=counts,
+          delta_scatter=json.dumps(scatter))
+    if (resident or resident_after or not 0 < rep_bytes < full
+            or not counts["repair"].get(kernels.REPAIR_SCATTER.name)
+            or scatter["err"]):
+        raise SystemExit("dp_mesh_store: the resident epoch, the repair or "
+                         "the delta's scatter differs")
+    return dict(host=host, tables=tables, counts=counts, scatter=scatter)
+
+
+def dp_delta_scatter(kernels, store, prev, host) -> dict:
+    """REPAIR_SCATTER at the last churn delta's sizes (the reference's
+    DatapathStore._scatter_fn): the row diff of the two augmented host
+    tables routed to the current epoch's blocks, written into copies of
+    them by the kernel and by its plain version (compared), timed beside
+    index_copy_ on the same segments; the bound their index bytes and
+    their rows read and written once."""
+    from cilium_tpu_torch.compiler import partition
+    from cilium_tpu_torch.engine import datapath_mesh as dm
+    from cilium_tpu_torch.engine import publish
+
+    tp = MESH_SHAPE[1]
+    aug = partition.replicate_datapath_leaves(host, tp)
+    payloads, _, n_rows, nbytes = dm.row_diff(
+        aug, partition.replicate_datapath_leaves(prev, tp),
+        partition.datapath_all_replica_axes(host, tp))
+    segs = [s for v in dm.segments(store.current(), payloads).values()
+            for s in v]
+    segs_k = [(d.clone(), a, i, v) for d, a, i, v in segs]
+    segs_p = [(d.clone(), a, i, v) for d, a, i, v in segs]
+    lib = [(d.clone(), a, i, v) for d, a, i, v in segs]
+    kernels.REPAIR_SCATTER(segs_k)
+    publish.repair_segments_plain(segs_p)
+    err = sum(entries_differ(a[0], b[0]) for a, b in zip(segs_k, segs_p))
+    need = sum(i.numel() * 8 + 2 * v.numel() * 4 for _, _, i, v in segs)
+    return dict(
+        segments=len(segs), rows=n_rows, bytes_h2d=nbytes, err=err,
+        ms=event_ms(lambda: kernels.REPAIR_SCATTER(segs_k), DP_CALLS),
+        plain_ms=event_ms(lambda: publish.repair_segments_plain(segs_p), 3),
+        library_ms=event_ms(lambda: [d.index_copy_(a, i, v)
+                                     for d, a, i, v in lib], DP_CALLS),
+        bytes=need, bound_ms=need / HBM_BYTES_PER_S * 1e3)
+
+
+def dp_host_cols(words) -> dict:
+    """The flow batch's columns on the host, as dispatch_flows takes
+    them."""
+    from cilium_tpu_torch.engine import datapath as dp
+
+    a = words.cpu().numpy()
+    cols = {c: a[k] for k, c in enumerate(dp.FLOW_COLUMNS)}
+    cols["saddr"] = cols["saddr"].view(np.uint32)
+    cols["daddr"] = cols["daddr"].view(np.uint32)
+    cols["is_fragment"] = cols["is_fragment"] != 0
+    return cols
+
+
+def dp_result_err(res, want) -> dict:
+    """A FailoverResult of dispatch_flows against the single-device
+    program's outputs (columns, counters, telemetry)."""
+    from cilium_tpu_torch.engine import datapath as dp
+
+    got = dp.DatapathVerdicts(**{
+        c: torch.from_numpy(np.ascontiguousarray(getattr(res.verdicts, c)
+                                                 ).astype(np.int64))
+        for c in dp.VERDICT_COLUMNS})
+    o, l4, l3, tel = want
+    return {
+        "rows": dp_rows_differ(got, dp.DatapathVerdicts(**{
+            c: getattr(o, c).cpu() for c in dp.VERDICT_COLUMNS})),
+        "l4": int((res.l4_counts != _u32np(l4)).sum()),
+        "l3": int((res.l3_counts != _u32np(l3)).sum()),
+        "telemetry": int((res.telemetry.astype(np.uint64).sum(axis=0)
+                          != _u32np(tel)).sum()),
+    }
+
+
+def _u32np(t):
+    return t.cpu().numpy().view(np.uint32)
+
+
+def dp_failover(kernels, u, host, tables) -> dict:
+    """ChipFailoverRouter.attach_datapath on the churned world, then
+    dispatch_flows of the 4,194,304 flows healthy, with chip (0, 1)
+    killed through the fault seam (replica gathers, no host fold: none
+    is configured), with its backup (0, 2) dead too (the row re-split),
+    the backup closed again (its datapath slices repaired), and at the
+    dead chip's readmission (its private blocks written over first; the
+    datapath repair drains _dp_out), each against the single-device
+    program."""
+    from cilium_tpu_torch import faultinject
+    from cilium_tpu_torch.engine.failover import ChipFailoverRouter
+    from cilium_tpu_torch.resilience import ChipBreakerBank
+
+    t = time.perf_counter()
+    clock = ManualClock()
+    bank = ChipBreakerBank(recovery_timeout=1.0, failure_threshold=1,
+                           clock=clock)
+    router = ChipFailoverRouter(u["m24"], host.policy, bank=bank,
+                                collect_telemetry=True)
+    router.attach_datapath(host)
+    cols = dp_host_cols(u["words"])
+    want = dp_oracle(kernels, tables, None, u["words"])["flows"]
+    full = router.dp_store.full_bytes()
+    phase("dp_failover_setup", t, flows=DP_FLOWS, full_bytes=full)
+    dead = int(router.ordinals[MESH_DEAD])
+    backup = int(router.ordinals[FAIL_RESPLIT])
+    dp_, tp = MESH_SHAPE
+    per_dispatch = {kernels.DP_MESH_PROBE.name: 4 * dp_ * tp,
+                    kernels.DP_MESH_COMBINE.name: dp_}
+    counts, results = {}, {}
+
+    def dispatch(tag):
+        torch.cuda.synchronize()
+        reset_counts(kernels)
+        t1 = time.perf_counter()
+        res = router.dispatch_flows(**cols)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t1
+        counts[tag] = dp_counts(kernels)
+        err = dp_result_err(res, want)
+        results[tag] = res
+        return res, err, wall
+
+    for tag in ("healthy", "kill", "resplit", "backup_back", "readmit"):
+        t = time.perf_counter()
+        if tag == "kill":
+            faultinject.arm("engine.dispatch", f"raise:chip={dead}")
+        if tag == "resplit":
+            router.bank.record_failure(backup, "smoke kill")
+        if tag == "backup_back":  # the backup closes: its slices repaired
+            router.bank.breaker(backup).reset()
+        if tag == "readmit":
+            faultinject.disarm("engine.dispatch")
+            clock.now += 2.0
+            st = router.dp_store
+            st._slots[st._cur]["dev"] = dp_poisoned(
+                st.current(), MESH_DEAD, u["axes"])
+        res, err, wall = dispatch(tag)
+        phase(f"dp_failover_{tag}", t, chip=dead, err=err,
+              wall_ms=round(wall * 1e3, 3), launches=counts[tag],
+              replica_hits=res.replica_hits, rerouted=res.rerouted,
+              degraded=res.degraded, rebalanced=list(res.rebalanced_chips),
+              rebalance_bytes=res.rebalance_bytes, full_upload_bytes=full,
+              rebalance_ms=round(res.rebalance_ms, 3),
+              dp_out=sorted(router._dp_out), state=router.bank.state(dead))
+        repair = counts[tag].get(kernels.REPAIR_SCATTER.name, 0)
+        bad = (any(err.values()) or res.degraded
+               or {k: v for k, v in counts[tag].items()
+                   if k != kernels.REPAIR_SCATTER.name} != per_dispatch)
+        if tag == "healthy":
+            bad |= bool(res.replica_hits or res.rerouted)
+        if tag == "kill":
+            bad |= res.replica_hits <= 0 or res.rerouted or (
+                dead not in router._dp_out)
+        if tag == "resplit":
+            bad |= not res.rerouted
+        if tag == "backup_back":
+            bad |= (res.rerouted or res.replica_hits <= 0 or not repair
+                    or res.rebalanced_chips != (backup,)
+                    or not 0 < res.rebalance_bytes < full)
+        if tag == "readmit":
+            bad |= (res.rebalanced_chips != (dead,) or bool(router._dp_out)
+                    or not 0 < res.rebalance_bytes < full or not repair
+                    or res.replica_hits or router.bank.state(dead) != "closed")
+        if bad:
+            raise SystemExit(f"dp_failover_{tag}: the router's fused path "
+                             f"differs or degraded: {err}")
+    return dict(counts=counts)
+
+
+def dp_records(kernels, u, form_pair: bool = False) -> dict:
+    """Batch row 0's records of every round and its combine, on the
+    kernels, from the store's epoch: the per-flow batch's row (or the
+    pair's egress half's)."""
+    from cilium_tpu_torch.engine import datapath_mesh as dm
+
+    dp_, tp = MESH_SHAPE
+    md = u["store"].current()
+    g = u["ev"].geom
+    n = DP_FLOWS // dp_
+    flows = u["words"][:, :n].contiguous()
+    alive = torch.ones(tp, dtype=torch.bool, device="cuda")
+    recs, prev = {}, None
+    for rnd in range(4):
+        prev = [kernels.DP_MESH_PROBE(rnd, md.shard(0, k), flows,
+                                      dm.FORM_WORDS, prev, alive, k, g)
+                for k in range(tp)]
+        recs[rnd] = prev
+    return dict(md=md, g=g, flows=flows, alive=alive, recs=recs)
+
+
+# the flow words (4 B each) a step reads: rounds S and L the tuple's five,
+# F the five and the direction, P the ep, direction and protocol words,
+# the combine the ep, saddr, direction and fragment words
+DP_FLOW_BYTES = (20, 20, 24, 12)
+DP_COMBINE_FLOW_BYTES = 16
+DP_OUT_BYTES = 39  # the 15 DatapathVerdicts columns of a flow
+
+
+def dp_head_rows(rnd: int, tab) -> int:
+    """The value rows of round `rnd`'s record that shard 0 alone writes
+    (the other shards write 0 there): F's post-DNAT daddr, dport, rev_nat
+    and slave; P's wildcard value, idx, CT result and post-DNAT tuple;
+    all of L's with the classic LB layout, which shard 0 alone runs."""
+    from cilium_tpu_torch.engine import datapath_mesh as dm
+    from cilium_tpu_torch.lb.device import LBInline
+
+    if rnd == dm.ROUND_L:
+        return 0 if isinstance(tab.lb, LBInline) else dm.RECORD_ROWS[rnd] - 1
+    return {dm.ROUND_S: 0, dm.ROUND_F: 4, dm.ROUND_P: 7}[rnd]
+
+
+def dp_probe_need(u, r, rnd: int, t: int) -> int:
+    """Bytes one DP_MESH_PROBE launch of shard t must move for its batch
+    row's data: the flow words the round reads (DP_FLOW_BYTES); the
+    previous round's records, the flags and the value rows of all tp
+    records and the head rows (dp_head_rows) of shard 0's alone; its
+    record out (on shards 1 .. tp - 1 without the head rows); and each
+    distinct row or element of the shard's leaves that the plain version
+    gathers, read once; stashes and the scan's ranges whole (shard 0
+    reads them)."""
+    from cilium_tpu_torch.engine import datapath_mesh as dm
+    from cilium_tpu_torch.lb.device import LBInline
+
+    tab = r["md"].shard(0, t)
+    leaves = {
+        dm.ROUND_S: [("ct", "buckets"), ("ct", "stash")],
+        dm.ROUND_L: ([("lb", "rows"), ("lb", "stash")]
+                     if isinstance(tab.lb, LBInline) else
+                     [("lb", "buckets"), ("lb", "stash"),
+                      ("lb", "backend_rows")]),
+        dm.ROUND_F: [("ct", "buckets"), ("ct", "stash"),
+                     ("ipcache", "buckets"), ("ipcache", "stash")]
+        + ([("ipcache", "range_rows")] if tab.ipcache.range_rows is not None
+           else [("ipcache", f"range_{k}") for k in
+                 ("base", "mask", "plen", "value")]),
+        dm.ROUND_P: [("policy", "l4_hash_rows"), ("policy", "l4_hash_stash"),
+                     ("policy", "l4_wild_rows"), ("policy", "l4_wild_stash"),
+                     ("policy", "l3_allow_bits")],
+    }[rnd]
+    if t != 0:  # the replicated leaves are shard 0's
+        leaves = [lf for lf in leaves if lf[1] in (
+            "buckets", "rows", "range_rows", "l4_hash_rows",
+            "l3_allow_bits")]
+    prev = None if rnd == 0 else r["recs"][rnd - 1]
+    rows_b, _, _ = leaf_bytes(
+        [(f"{f}.{n}", getattr(getattr(tab, f), n)) for f, n in leaves],
+        lambda: dm.dp_mesh_probe_plain(rnd, tab, r["flows"], dm.FORM_WORDS,
+                                       prev, r["alive"], t, r["g"]))
+    b = int(r["flows"].shape[1])
+    tp = MESH_SHAPE[1]
+    prev_rows = 0
+    if rnd != 0:
+        head = dp_head_rows(rnd - 1, tab)
+        prev_rows = (dm.RECORD_ROWS[rnd - 1] - head) * tp + head
+    out_rows = dm.RECORD_ROWS[rnd] - (0 if t == 0 else dp_head_rows(rnd, tab))
+    return rows_b + b * (DP_FLOW_BYTES[rnd] + 4 * (prev_rows + out_rows))
+
+
+def dp_combine_need(u, r) -> int:
+    """Bytes one DP_MESH_COMBINE launch must move: the flow words it reads
+    (16 B a flow); of the tp round-P records the flags and the owner's
+    value of each (8 B each) and the head rows of shard 0's (28 B); the L3
+    column of each L3 hit on the shard that read the word (4 B); the 39 B
+    of columns out; each l4_meta cell (not with 3-word L4 entries, whose
+    values carry the proxy) and id_table entry the plain version gathers;
+    the prefilter whole; each counter entry the row changes and the [2,
+    20] telemetry read and written once, and the replica count."""
+    from cilium_tpu_torch.compiler.tables import l4_entry_words
+    from cilium_tpu_torch.engine import datapath_mesh as dm
+    from cilium_tpu_torch.engine import oracle
+
+    tab = r["md"].shard(0, 0)
+    parts = r["recs"][3]
+    leaves = [("policy.id_table", tab.policy.id_table)] + [
+        (f"prefilter.{f.name}", getattr(tab.prefilter, f.name))
+        for f in dataclasses.fields(tab.prefilter)]
+    if l4_entry_words(tab.policy) != 3:
+        leaves.append(("policy.l4_meta", tab.policy.l4_meta))
+    meta_b, _, out = leaf_bytes(leaves, lambda: dm.dp_mesh_combine_plain(
+        parts, tab, r["flows"], dm.FORM_WORDS, r["g"]))
+    l3_hit = out[0].match_kind.to(torch.int64) == oracle.MATCH_L3
+    owner_reads = sum(
+        int((l3_hit & ((p[0].to(torch.int64) & dm.P_P2) != 0)).sum().item())
+        for p in parts[:r["g"]["route"].l3_shards])
+    changed = int(torch.count_nonzero(out[1]).item()) + int(
+        torch.count_nonzero(out[2]).item())
+    b = int(r["flows"].shape[1])
+    head = dp_head_rows(dm.ROUND_P, tab)
+    return (b * (DP_COMBINE_FLOW_BYTES + 8 * MESH_SHAPE[1] + 4 * head
+                 + DP_OUT_BYTES) + 4 * owner_reads + meta_b
+            + 2 * 4 * changed + 2 * 160 + 4)
+
+
+def dp_device_ms(fn, what: str) -> float:
+    """A kernel's device ms per launch: DP_CALLS launches queued behind a
+    device spin (queued_ms), a longer spin if the host fell behind."""
+    ms = queued_ms(fn, DP_CALLS)
+    if ms is None:
+        ms = queued_ms(fn, DP_CALLS, spin_cycles=500_000_000)
+    if ms is None:
+        raise SystemExit(f"dp_mesh_timing {what}: the launches did not "
+                         "queue behind the device spin")
+    return ms
+
+
+def busy_split(fn, reps: int) -> dict:
+    """One traced run of `reps` calls of `fn`: the wall ms per call (the
+    profiler's own host time included), the device's busy ms per call
+    (device_busy's kernels and copies) and the rest, the ms per call
+    the device waited on the host."""
+    fn()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t) * 1e3 / reps
+    busy = sum(device_busy(prof).values()) / reps
+    return dict(wall_ms=wall, busy_ms=busy, idle_ms=wall - busy)
+
+
+def dp_mesh_timing(kernels, u, path_counts, smi) -> list:
+    """Each new kernel against its plain version on the card at the path's
+    shapes (batch row 0 of the mixed batch: every round on every shard,
+    the combine; the pair's ingress half's rounds F and P on shard 0),
+    bit-exact; its device ms per launch (DP_CALLS launches on shard (0,
+    0) queued behind a device spin) and CUDA events over as many
+    launches as the caller sees them (`wrapper_ms`: the wrapper's host
+    time when a launch takes less), the plain version's ms and the byte
+    bound at 3.35 TB/s; both evaluators' ms beside DATAPATH_PAIR's and
+    DATAPATH_STEP's on the same flows; with the card's name and power
+    limit."""
+    from cilium_tpu_torch.engine import datapath as dp
+    from cilium_tpu_torch.engine import datapath_mesh as dm
+    from cilium_tpu_torch.engine import verdict
+
+    t = time.perf_counter()
+    tp = MESH_SHAPE[1]
+    r = dp_records(kernels, u)
+    md, g, flows, alive = r["md"], r["g"], r["flows"], r["alive"]
+    errs = {}
+    for rnd, name in enumerate("SLFP"):
+        prev = None if rnd == 0 else r["recs"][rnd - 1]
+        errs[name] = sum(entries_differ(
+            r["recs"][rnd][k], dm.dp_mesh_probe_plain(
+                rnd, md.shard(0, k), flows, dm.FORM_WORDS, prev, alive, k, g))
+            for k in range(tp))
+    got = kernels.DP_MESH_COMBINE(r["recs"][3], md.shard(0, 0), flows,
+                                  dm.FORM_WORDS, g)
+    want = dm.dp_mesh_combine_plain(r["recs"][3], md.shard(0, 0), flows,
+                                    dm.FORM_WORDS, g)
+    errs["combine"] = dp_rows_differ(got[0], want[0]) + sum(
+        entries_differ(a, b) for a, b in zip(got[1:], want[1:]))
+    # the pair's ingress half: packed4 flows, static ingress (F, P only)
+    half = u["pair"][0][:, :HALF // MESH_SHAPE[0]].contiguous()
+    prev_k = prev_p = None
+    errs["pair_ingress"] = 0
+    for rnd in (dm.ROUND_F, dm.ROUND_P):
+        prev_k = [kernels.DP_MESH_PROBE(rnd, md.shard(0, k), half,
+                                        dm.FORM_PACKED4, prev_k, alive, k, g,
+                                        0) for k in range(tp)]
+        prev_p = [dm.dp_mesh_probe_plain(rnd, md.shard(0, k), half,
+                                         dm.FORM_PACKED4, prev_p, alive, k,
+                                         g, 0) for k in range(tp)]
+        errs["pair_ingress"] += sum(entries_differ(a, b)
+                                    for a, b in zip(prev_k, prev_p))
+    gk = kernels.DP_MESH_COMBINE(prev_k, md.shard(0, 0), half,
+                                 dm.FORM_PACKED4, g, None, 0)
+    gp = dm.dp_mesh_combine_plain(prev_p, md.shard(0, 0), half,
+                                  dm.FORM_PACKED4, g, None, 0)
+    errs["pair_ingress"] += dp_rows_differ(gk[0], gp[0]) + sum(
+        entries_differ(a, b) for a, b in zip(gk[1:], gp[1:]))
+    torch.cuda.synchronize()
+    if any(errs.values()):
+        raise SystemExit(f"dp_mesh_timing: kernels differ from plain {errs}")
+    rounds = {}
+    for rnd, name in enumerate("SLFP"):
+        prev = None if rnd == 0 else r["recs"][rnd - 1]
+        tab = md.shard(0, 0)
+        fn = (lambda rnd=rnd, prev=prev, tab=tab: kernels.DP_MESH_PROBE(
+            rnd, tab, flows, dm.FORM_WORDS, prev, alive, 0, g))
+        plain = (lambda rnd=rnd, prev=prev, tab=tab: dm.dp_mesh_probe_plain(
+            rnd, tab, flows, dm.FORM_WORDS, prev, alive, 0, g))
+        need = dp_probe_need(u, r, rnd, 0)
+        rounds[name] = dict(ms=dp_device_ms(fn, f"round {name}"),
+                            wrapper_ms=event_ms(fn, DP_CALLS),
+                            plain_ms=event_ms(plain, 2), bytes=need,
+                            bound_ms=need / HBM_BYTES_PER_S * 1e3)
+    tab0 = md.shard(0, 0)
+    cneed = dp_combine_need(u, r)
+    comb_fn = (lambda: kernels.DP_MESH_COMBINE(
+        r["recs"][3], tab0, flows, dm.FORM_WORDS, g))
+    comb = dict(
+        ms=dp_device_ms(comb_fn, "combine"),
+        wrapper_ms=event_ms(comb_fn, DP_CALLS),
+        plain_ms=event_ms(lambda: dm.dp_mesh_combine_plain(
+            r["recs"][3], tab0, flows, dm.FORM_WORDS, g), 2),
+        bytes=cneed, bound_ms=cneed / HBM_BYTES_PER_S * 1e3)
+    # the evaluators beside the single-device program on the same flows
+    alive_all = np.ones(MESH_SHAPE, bool)
+    tables = u["tables"]
+    acc = verdict.make_counter_buffers(tables.policy)
+    tel = verdict.make_telemetry_buffers(acc.device)
+    fb = dp.flow_batch_from_packed(u["words"])
+    evals = dict(
+        pair_evaluator_ms=event_ms(lambda: u["ev_pair"](
+            md, u["pair"], alive_all, None), DP_EV_CALLS),
+        datapath_pair_ms=event_ms(lambda: kernels.DATAPATH_PAIR(
+            tables, u["pair"], acc, tel), DP_CALLS),
+        flow_evaluator_ms=event_ms(lambda: u["ev"](
+            md, u["words"], alive_all, None), DP_EV_CALLS),
+        datapath_step_ms=event_ms(lambda: dp.datapath_step_with_counters(
+            tables, fb), DP_CALLS))
+    evals["pair_ratio"] = (evals["pair_evaluator_ms"]
+                           / evals["datapath_pair_ms"])
+    evals["flow_ratio"] = (evals["flow_evaluator_ms"]
+                           / evals["datapath_step_ms"])
+    # the evaluators' spread: DP_EV_REPEATS more timings each, and as many
+    # traced runs that split a call into the device's busy time and the
+    # time it waited on the host (launches, the per-row copies and syncs)
+    spread = {}
+    for name, fn in (
+            ("pair_evaluator", lambda: u["ev_pair"](md, u["pair"], alive_all,
+                                                    None)),
+            ("flow_evaluator", lambda: u["ev"](md, u["words"], alive_all,
+                                               None))):
+        spread[name] = dict(
+            ms=[event_ms(fn, DP_EV_CALLS) for _ in range(DP_EV_REPEATS)],
+            traced=[busy_split(fn, DP_EV_CALLS)
+                    for _ in range(DP_EV_REPEATS)])
+    evals["spread"] = spread
+    for name, res in list(rounds.items()) + [("combine", comb)]:
+        print(f"  dp_mesh_timing {name} " + json.dumps(res), flush=True)
+    print("  dp_mesh_timing evaluators " + json.dumps(evals), flush=True)
+    phase("dp_mesh_timing", t, card=repr(smi), calls=DP_CALLS,
+          flows_per_row=int(flows.shape[1]), errs=errs)
+    probe = dict(ms=sum(v["ms"] for v in rounds.values()) / 4,
+                 wrapper_ms=sum(v["wrapper_ms"] for v in rounds.values()) / 4,
+                 plain_ms=sum(v["plain_ms"] for v in rounds.values()) / 4,
+                 bound_ms=sum(v["bound_ms"] for v in rounds.values()) / 4)
+    rows = []
+    for kernel, res, replaces in (
+            (kernels.DP_MESH_PROBE, probe,
+             "cilium_tpu/engine/datapath_mesh.py:231"),
+            (kernels.DP_MESH_COMBINE, comb,
+             "cilium_tpu/engine/datapath_mesh.py:231")):
+        row = kernel_row(kernel, DP_SRC, replaces,
+                         path_counts.get(kernel.name, 0), 0, res["ms"],
+                         res["plain_ms"], res["bound_ms"], 0.0)
+        row["wrapper_ms"] = res["wrapper_ms"]
+        row["evaluators"] = evals
+        dp_, tp = MESH_SHAPE
+        row["launches_per_dispatch"] = (
+            {"flows": 4 * dp_ * tp, "pair": 6 * dp_ * tp}
+            if kernel is kernels.DP_MESH_PROBE
+            else {"flows": dp_, "pair": 2 * dp_})
+        if kernel is kernels.DP_MESH_PROBE:
+            row["by_round"] = rounds
+        rows.append(row)
+    return rows
+
+
+def dp_mesh_phases(kernels, w, host, tables, node, rows, smi) -> None:
+    """The fused datapath on the mesh (K21 datapath mesh): dp_mesh_setup,
+    the path (dp_mesh, dp_mesh_node), dp_mesh_store, dp_failover,
+    dp_mesh_timing; the two new kernels' rows go into `rows`, and the
+    paths' launches of REPAIR_SCATTER into its row's launches_by_path."""
+    u = dp_mesh_setup(kernels, w, host, tables)
+    oracle = dp_oracle(kernels, tables, u["pair"], u["words"])
+    path = dp_mesh_path(kernels, u, oracle)
+    nodep = dp_mesh_node(kernels, u, node)
+    del oracle
+    st = dp_mesh_store(kernels, w, u)
+    fo = dp_failover(kernels, u, st["host"], st["tables"])
+    u["tables"] = st["tables"]
+    totals = {}
+    for c in (list(path["counts"].values()) + list(nodep["counts"].values())
+              + list(st["counts"].values()) + list(fo["counts"].values())):
+        for k, v in c.items():
+            totals[k] = totals.get(k, 0) + v
+    for row in rows:
+        n = totals.get(row["name"], 0)
+        if n:
+            row.setdefault("launches_by_path", {"earlier": row["launches"]})
+            row["launches_by_path"]["dp_mesh"] = n
+            row["launches"] += n
+        if row["name"] == kernels.REPAIR_SCATTER.name:
+            row["datapath_delta"] = {k: st["scatter"][k] for k in (
+                "segments", "rows", "ms", "plain_ms", "bound_ms",
+                "library_ms")}
+    torch.cuda.empty_cache()
+    rows.extend(dp_mesh_timing(kernels, u, totals, smi))
+    if any(not totals.get(k.name) for k in (kernels.DP_MESH_PROBE,
+                                           kernels.DP_MESH_COMBINE)):
+        raise SystemExit(f"dp_mesh: a new kernel never launched on its path: "
+                         f"{totals}")
+
+
+def dp_mesh_alone() -> None:
+    """dp_mesh_setup and dp_mesh_timing alone on config 5's world (the
+    kernels built first), for the spread of their times across
+    processes: `python3 -c "import chip_smoke;
+    chip_smoke.dp_mesh_alone()"` on one H100."""
+    from cilium_tpu_torch import kernels, world
+    from cilium_tpu_torch.convert import tables_to
+
+    if not torch.cuda.is_available():
+        raise SystemExit("chip_smoke: no CUDA device")
+    smi = nvidia_smi()
+    t = time.perf_counter()
+    kernels.build_all()
+    for k in kernels.KERNELS:
+        k.load()
+    phase("build", t, card=repr(smi))
+    w = world.make_world(seed=5)
+    host = world.headline_tables(w, w.host_tables())
+    u = dp_mesh_setup(kernels, w, host, tables_to(host, "cuda"))
+    dp_mesh_timing(kernels, u, {}, smi)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -6724,7 +7629,7 @@ def main() -> int:
     replay_phases(kernels, w, tables, wide_t, rows)
     flow_capture(kernels, w, tables)
     torch.cuda.empty_cache()
-    node_phases(kernels, w, tables, wide_t, rows)
+    node = node_phases(kernels, w, tables, wide_t, rows)
     torch.cuda.empty_cache()
     pub = publish_phases(kernels, w, rows)
     torch.cuda.empty_cache()
@@ -6741,6 +7646,9 @@ def main() -> int:
     del dense_pol_host
     torch.cuda.empty_cache()
     mesh_phases(kernels, w, rows, smi)
+    torch.cuda.empty_cache()
+    dp_mesh_phases(kernels, w, host, tables, node, rows, smi)
+    del node
 
     if len(rows) != len(kernels.KERNELS):
         raise SystemExit(f"{len(rows)} kernel rows for "
@@ -6756,7 +7664,8 @@ def main() -> int:
           "cache, the memo's key words, the memcached rule match, the "
           "shadow diff's four columns, or the mesh's shard probes and "
           "their combine, or the memo's probe, combine and insert on the "
-          "mesh; repair_scatter's is index_copy_ along the repaired axis "
+          "mesh, or the fused datapath's rounds and combine on the mesh; "
+          "repair_scatter's is index_copy_ along the repaired axis "
           "(a time only)",
           flush=True)
     print(json.dumps({"kernels": rows}), flush=True)

@@ -1,6 +1,6 @@
-"""Declarative per-leaf partition rules for the policy tables (the
-reference's compiler/partition.py, its policy, ipcache and replica
-parts).
+"""Declarative per-leaf partition rules for the policy and datapath
+tables (the reference's compiler/partition.py, all but its reshard row
+maps).
 
 A REGEX RULE TABLE matched over the leaf names (`match_partition_rules`)
 decides which leaves shard along the mesh's `table` axis, with
@@ -24,9 +24,18 @@ shard (i + 1) % ntp), so a dead chip takes down one copy of its rows,
 not the rows.  `replicate_table_leaves` lays the device form out,
 `replica_delta` rewrites a delta into it.
 
+The fused datapath's families follow the same pattern
+(`datapath_partition_specs`): the CT bucket rows, the inline LB rows
+and the ipcache's bucket and range-class rows shard along the table
+axis and join the N+1 placement (DATAPATH_REPLICA_LEAVES,
+`replicate_datapath_leaves`); stashes, the [B, P] scan's ranges, the
+classic LB, the prefilter and the tunnel map replicate.  A family of
+specs is the family's dataclass with a PartitionSpec in each array
+field.
+
 The byte models (`shard_bytes_model`, `replica_bytes_model`,
-`universe_max_identities`, `alltoall_bytes_per_tuple`) account each
-leaf as the rule layer places it.
+`universe_max_identities`, `alltoall_bytes_per_tuple` and their
+`datapath_*` forms) account each leaf as the rule layer places it.
 """
 
 from __future__ import annotations
@@ -37,6 +46,7 @@ import zlib
 from typing import Dict, List, Optional, Sequence
 
 import numpy as np
+import torch
 
 from cilium_tpu_torch.engine.mesh import (
     TABLE_AXIS,
@@ -104,6 +114,10 @@ IPCACHE_LEAF_NAMES = (
     "buckets", "stash", "range_base", "range_mask", "range_plen",
     "range_value", "range_l3_in", "range_l3_out", "range_rows",
 )
+# the other fused-datapath families
+CT_LEAF_NAMES = ("buckets", "stash")
+LB_INLINE_LEAF_NAMES = ("rows", "stash")
+LB_CLASSIC_LEAF_NAMES = ("buckets", "stash", "backend_rows")
 
 
 # -- the rule tables ---------------------------------------------------------
@@ -132,6 +146,26 @@ def default_ipcache_rules(table_axis: str = TABLE_AXIS) -> List[tuple]:
     range-class rows shard along their row axis; the rest replicates."""
     return [
         (r"^(buckets|range_rows)$", P(table_axis)),
+        (r".*", P()),
+    ]
+
+
+def default_ct_rules(table_axis: str = TABLE_AXIS) -> List[tuple]:
+    """The CTSnapshot rule table: the bucket rows shard along their row
+    axis; the overflow stash replicates (every probe compares it)."""
+    return [
+        (r"^buckets$", P(table_axis)),
+        (r".*", P()),
+    ]
+
+
+def default_lb_rules(table_axis: str = TABLE_AXIS) -> List[tuple]:
+    """The LB rule table: the inline layout's service rows shard along
+    their row axis.  The classic layout replicates whole (its backend
+    rows are indexed by the entry's stored row, not by a hash); the
+    stash replicates."""
+    return [
+        (r"^rows$", P(table_axis)),
         (r".*", P()),
     ]
 
@@ -433,3 +467,313 @@ def alltoall_bytes_per_tuple(num_shards: int) -> float:
     if num_shards <= 1:
         return 0.0
     return 12.0
+
+
+# -- the fused datapath's families (CT, LB, ipcache) --------------------------
+# Every hashed bucket-row plane the fused datapath gathers shards along the
+# table axis as l4_hash_rows does, and the ones below join the N+1 replica
+# placement.  Stashes, the [B, P] scan's range arrays, the classic LB,
+# the prefilter and the tunnel map replicate.
+
+# (family, leaf) pairs the N+1 layout augments; a family without the
+# leaf (lb.rows on the classic layout) is skipped
+DATAPATH_REPLICA_LEAVES = (
+    ("ct", "buckets"),
+    ("ipcache", "buckets"),
+    ("ipcache", "range_rows"),
+    ("lb", "rows"),
+)
+
+
+def _family_spec_children(children, names, rules, ntp, table_axis):
+    """The PartitionSpec of each child of one family, indivisible
+    sharded axes replicated; None children keep None."""
+    specs = match_partition_rules(rules, names, children)
+    out = []
+    for leaf, spec in zip(children, specs):
+        if leaf is None:
+            out.append(None)
+            continue
+        if not _divisible(spec, tuple(np.shape(leaf)), ntp, table_axis):
+            spec = P()
+        out.append(spec)
+    return tuple(out)
+
+
+def _is_array(v) -> bool:
+    return isinstance(v, (np.ndarray, torch.Tensor))
+
+
+def _replicated_specs(obj):
+    """The family dataclass with every array field replicated (P())."""
+    return dataclasses.replace(obj, **{
+        f.name: P() for f in dataclasses.fields(obj)
+        if _is_array(getattr(obj, f.name))})
+
+
+def _family_specs(obj, names, rules, ntp, table_axis):
+    children = [getattr(obj, n) for n in names]
+    specs = _family_spec_children(children, names, rules, ntp, table_axis)
+    return dataclasses.replace(obj, **dict(zip(names, specs)))
+
+
+def ct_family_specs(ct, ntp: int, table_axis: str = TABLE_AXIS):
+    """The CTSnapshot of PartitionSpecs under default_ct_rules."""
+    return _family_specs(ct, CT_LEAF_NAMES, default_ct_rules(table_axis),
+                         ntp, table_axis)
+
+
+def _lb_leaf_names(lb) -> tuple:
+    from cilium_tpu_torch.lb.device import LBInline
+
+    return (LB_INLINE_LEAF_NAMES if isinstance(lb, LBInline)
+            else LB_CLASSIC_LEAF_NAMES)
+
+
+def lb_family_specs(lb, ntp: int, table_axis: str = TABLE_AXIS):
+    """The LBInline or LBTables of PartitionSpecs under
+    default_lb_rules."""
+    return _family_specs(lb, _lb_leaf_names(lb), default_lb_rules(table_axis),
+                         ntp, table_axis)
+
+
+def ipcache_family_specs(dev, ntp: int, table_axis: str = TABLE_AXIS):
+    """The IPCacheDevice of PartitionSpecs under default_ipcache_rules
+    (divisibility checked); a DIR-24-8 ipcache replicates."""
+    from cilium_tpu_torch.ipcache.lpm import IPCacheDevice
+
+    if not isinstance(dev, IPCacheDevice):
+        return _replicated_specs(dev)
+    return _family_specs(dev, IPCACHE_LEAF_NAMES,
+                         default_ipcache_rules(table_axis), ntp, table_axis)
+
+
+def datapath_partition_specs(dtables, ntp: int, table_axis: str = TABLE_AXIS):
+    """The PartitionSpecs of a whole DatapathTables: each family under
+    its own rule table, the policy under the divisible policy rules,
+    the prefilter and the tunnel map replicated.  A family dataclass of
+    specs keeps its scalar fields."""
+    return dataclasses.replace(
+        dtables,
+        prefilter=_replicated_specs(dtables.prefilter),
+        ipcache=ipcache_family_specs(dtables.ipcache, ntp, table_axis),
+        ct=ct_family_specs(dtables.ct, ntp, table_axis),
+        lb=lb_family_specs(dtables.lb, ntp, table_axis),
+        policy=divisible_partition_specs(dtables.policy, ntp, table_axis),
+        tunnel=(None if dtables.tunnel is None
+                else _replicated_specs(dtables.tunnel)),
+    )
+
+
+def _map_family_specs(fn, specs):
+    """`fn(family, leaf, spec)` over every PartitionSpec leaf of a
+    DatapathTables of specs, the same tree shape back."""
+    fams = {}
+    for f in dataclasses.fields(specs):
+        obj = getattr(specs, f.name)
+        if obj is None:
+            continue
+        fams[f.name] = dataclasses.replace(obj, **{
+            g.name: fn(f.name, g.name, getattr(obj, g.name))
+            for g in dataclasses.fields(obj)
+            if isinstance(getattr(obj, g.name), P)})
+    return dataclasses.replace(specs, **fams)
+
+
+def datapath_table_shardings(mesh: Mesh, dtables,
+                             table_axis: str = TABLE_AXIS):
+    """The DatapathTables of NamedSharding of the family rules resolved
+    against `mesh` (the datapath store's placement)."""
+    from cilium_tpu_torch.engine.mesh import NamedSharding
+
+    specs = datapath_partition_specs(dtables, int(mesh.shape[table_axis]),
+                                     table_axis)
+    return _map_family_specs(lambda f, n, s: NamedSharding(mesh, s), specs)
+
+
+def datapath_replica_axes(dtables, ntp: int, table_axis: str = TABLE_AXIS):
+    """{(family, leaf): sharded-axis position} of the
+    DATAPATH_REPLICA_LEAVES the divisibility-checked rules shard at
+    `ntp`."""
+    specs = datapath_partition_specs(dtables, ntp, table_axis)
+    out = {}
+    for fam, leaf in DATAPATH_REPLICA_LEAVES:
+        fobj = getattr(dtables, fam)
+        if fobj is None or getattr(fobj, leaf, None) is None:
+            continue
+        spec = getattr(getattr(specs, fam), leaf, None)
+        if not isinstance(spec, P):
+            continue
+        for axis, ax in enumerate(spec):
+            if ax == table_axis:
+                out[(fam, leaf)] = axis
+                break
+    return out
+
+
+def datapath_all_replica_axes(dtables, ntp: int,
+                              table_axis: str = TABLE_AXIS):
+    """{(family, leaf): sharded axis} over the whole datapath tree: the
+    datapath families' replica leaves and the policy's, keyed
+    ("policy", name).  The one enumeration the delta publish, the chip
+    repair and the residency checks share."""
+    out = dict(datapath_replica_axes(dtables, ntp, table_axis))
+    out.update({("policy", name): axis for name, axis in replica_axes(
+        dtables.policy, ntp, table_axis).items()})
+    return out
+
+
+def replicate_datapath_leaves(dtables, ntp: int,
+                              table_axis: str = TABLE_AXIS):
+    """DatapathTables with every datapath replica leaf augmented along
+    its sharded axis (replicate_shard_axis) and the policy augmented by
+    replicate_table_leaves: the layout the fused failover evaluator
+    reads."""
+    axes = datapath_replica_axes(dtables, ntp, table_axis)
+    ups: Dict[str, dict] = {}
+    for (fam, leaf), axis in axes.items():
+        ups.setdefault(fam, {})[leaf] = replicate_shard_axis(
+            getattr(getattr(dtables, fam), leaf), ntp, axis)
+    fams = {fam: dataclasses.replace(getattr(dtables, fam), **u)
+            for fam, u in ups.items()}
+    return dataclasses.replace(
+        dtables, policy=replicate_table_leaves(dtables.policy, ntp,
+                                               table_axis), **fams)
+
+
+def datapath_partition_digest(table_axis: str = TABLE_AXIS,
+                              ntp: Optional[int] = None) -> int:
+    """Digest of the whole fused-datapath placement: every family's rule
+    table, both replica sets, the backup offset and, with `ntp`, the
+    shard count (the augmented shapes do not depend on it)."""
+    parts = []
+    for fam, rules in (("policy", default_table_rules(table_axis)),
+                       ("ipcache", default_ipcache_rules(table_axis)),
+                       ("ct", default_ct_rules(table_axis)),
+                       ("lb", default_lb_rules(table_axis))):
+        parts.append(fam + ":" + ";".join(f"{pat}->{tuple(spec)}"
+                                          for pat, spec in rules))
+    parts.append("replicas=" + ",".join(REPLICA_LEAVES))
+    parts.append("dp_replicas=" + ",".join(
+        f"{f}.{leaf}" for f, leaf in DATAPATH_REPLICA_LEAVES))
+    parts.append(f"backup_offset={REPLICA_BACKUP_OFFSET}")
+    if ntp is not None:
+        parts.append(f"ntp={int(ntp)}")
+    return zlib.crc32("|".join(parts).encode()) & 0xFFFFFFFF
+
+
+def _family_byte_rows(fam, obj, names, rules, ntp, table_axis, rep_axes):
+    children = [getattr(obj, n) for n in names]
+    specs = _family_spec_children(children, names, rules, ntp, table_axis)
+    rows = []
+    for name, leaf, spec in zip(names, children, specs):
+        if leaf is None:
+            continue
+        nbytes = _nbytes(leaf)
+        sharded = spec is not None and any(ax == table_axis for ax in spec)
+        chip = (nbytes + ntp - 1) // ntp if sharded else nbytes
+        rep = (fam, name) in rep_axes
+        if rep:
+            chip *= 2
+        rows.append({"leaf": f"{fam}.{name}", "sharded": sharded,
+                     "replicated_n_plus_1": rep, "bytes_total": nbytes,
+                     "bytes_per_chip": chip})
+    return rows
+
+
+def _array_bytes(obj) -> int:
+    return sum(_nbytes(getattr(obj, f.name)) for f in dataclasses.fields(obj)
+               if _is_array(getattr(obj, f.name)))
+
+
+def datapath_bytes_model(dtables, num_shards: int,
+                         table_axis: str = TABLE_AXIS):
+    """Per-leaf per-chip bytes of the whole fused datapath under the
+    family rules and the N+1 placement.  Returns (rows, per_chip_total,
+    replicated_total, overhead): `replicated_total` the per-chip bytes
+    of the replicated leaves, `overhead` the backup copies' bytes."""
+    from cilium_tpu_torch.ipcache.lpm import IPCacheDevice
+
+    rep_axes = datapath_replica_axes(dtables, num_shards, table_axis)
+    pol_rows, per_chip, overhead = replica_bytes_model(
+        dtables.policy, num_shards, table_axis)
+    rows = [{**r, "leaf": f"policy.{r['leaf']}"} for r in pol_rows]
+    replicated = sum(r["bytes_per_chip"] for r in rows if not r["sharded"])
+    fam_args = [("ct", dtables.ct, CT_LEAF_NAMES,
+                 default_ct_rules(table_axis)),
+                ("lb", dtables.lb, _lb_leaf_names(dtables.lb),
+                 default_lb_rules(table_axis))]
+    if isinstance(dtables.ipcache, IPCacheDevice):
+        fam_args.append(("ipcache", dtables.ipcache, IPCACHE_LEAF_NAMES,
+                         default_ipcache_rules(table_axis)))
+    for fam, obj, names, rules in fam_args:
+        frows = _family_byte_rows(fam, obj, names, rules, num_shards,
+                                  table_axis, rep_axes)
+        rows.extend(frows)
+        for r in frows:
+            per_chip += r["bytes_per_chip"]
+            if not r["sharded"]:
+                replicated += r["bytes_per_chip"]
+            elif r["replicated_n_plus_1"]:
+                overhead += r["bytes_per_chip"] // 2
+    extra = [dtables.prefilter, dtables.tunnel]
+    if not isinstance(dtables.ipcache, IPCacheDevice):
+        extra.append(dtables.ipcache)
+    for obj in extra:
+        if obj is None:
+            continue
+        nbytes = _array_bytes(obj)
+        per_chip += nbytes
+        replicated += nbytes
+    return rows, per_chip, replicated, overhead
+
+
+def datapath_universe_max_identities(dtables, num_shards: int,
+                                     hbm_bytes: int = 16 << 30,
+                                     table_axis: str = TABLE_AXIS) -> int:
+    """universe_max_identities over the whole datapath: the policy's
+    identity-major leaves (replica leaves twice) and the ipcache /32
+    bucket plane scale with the identities; the CT and LB planes (which
+    scale with flows and services) and the replicated leaves join the
+    per-chip constant."""
+    pol = dtables.policy
+    leaves = _leaves(pol, POLICY_LEAF_NAMES)
+    specs = match_partition_rules(default_table_rules(table_axis),
+                                  POLICY_LEAF_NAMES, leaves)
+    n = int(pol.id_table.shape[0])
+    id_bytes = 0.0
+    constant = 0.0
+    for name, leaf, spec in zip(POLICY_LEAF_NAMES, leaves, specs):
+        if leaf is None:
+            continue
+        if any(ax == table_axis for ax in spec):
+            id_bytes += _nbytes(leaf) * (2 if name in REPLICA_LEAVES else 1)
+        else:
+            constant += _nbytes(leaf)
+    rows, per_chip, _, _ = datapath_bytes_model(dtables, num_shards,
+                                                table_axis)
+    for r in rows:
+        if r["leaf"].startswith("policy."):
+            continue
+        if r["leaf"] == "ipcache.buckets" and r["sharded"]:
+            id_bytes += r["bytes_total"] * (
+                2 if r["replicated_n_plus_1"] else 1)
+        else:
+            constant += r["bytes_per_chip"]
+    constant += max(per_chip - sum(r["bytes_per_chip"] for r in rows), 0)
+    per_id = id_bytes / max(n, 1)
+    budget = hbm_bytes - constant
+    if per_id <= 0 or budget <= 0:
+        return 0
+    return int(budget * num_shards / per_id)
+
+
+def datapath_alltoall_bytes_per_tuple(num_shards: int,
+                                      range_classes: int = 2) -> float:
+    """Collective bytes the fused routed pipeline moves per tuple along
+    the table axis: the lattice's 12 B, the CT service probe (8 B), the
+    CT flow probe (16 B), the LB resolution (20 B), the ipcache exact
+    probe (8 B) and 8 B per hashed range class; none on one shard."""
+    if num_shards <= 1:
+        return 0.0
+    return 12.0 + 8.0 + 16.0 + 20.0 + 8.0 + 8.0 * range_classes

@@ -166,6 +166,13 @@ def tables_from_numpy(leaves: dict, device=None) -> DatapathTables:
                      device)
 
 
+def host_tables_from_numpy(leaves: dict) -> DatapathTables:
+    """tables_from_numpy's tables kept on the host: the leaves as
+    given (numpy arrays and Python scalars), the input of the mesh
+    stores and evaluators, which place them themselves."""
+    return DatapathTables(**_planes_from_numpy(leaves, _PLANES))
+
+
 def datapath6_tables_from_numpy(leaves: dict,
                                 device=None) -> Datapath6Tables:
     """The port's v6 tables on `device` (None = the card) from the JAX

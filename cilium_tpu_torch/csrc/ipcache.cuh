@@ -177,4 +177,94 @@ __device__ __forceinline__ IPCResult ipcache_lookup(const DatapathArgs& a,
   return r;
 }
 
+// -- the row and stash halves (the routed mesh probe, csrc/datapath_mesh.cu)
+// ipcache/lpm.py ipcache_bucket_parts, ipcache_stash_parts and
+// range_row_parts, the value only: the same compares as ipcache_lookup,
+// split so that a row's half runs on the shard that owns it.
+
+struct IPCParts {
+  bool found;
+  uint32_t val;
+};
+
+// one /32 bucket row: `per` ips, then the value plane at `vw` bits (the
+// halfword sentinel decodes back to UNKNOWN_IDX after the sum)
+__device__ __forceinline__ IPCParts ipc_bucket_parts(const uint32_t* row,
+                                                     int per, int vw,
+                                                     uint32_t ip) {
+  IPCParts p{false, 0u};
+  for (int k = 0; k < per; ++k) {
+    if (__ldg(row + k) == ip) {
+      p.found = true;
+      p.val += unpack_lane(row + per, k, vw);
+    }
+  }
+  if (vw == 16 && p.found && p.val == VAL16_UNKNOWN) p.val = UNKNOWN_IDX;
+  return p;
+}
+
+// the stash of n entries of w columns (ip, value, ...)
+__device__ __forceinline__ IPCParts ipc_stash_parts(const uint32_t* stash,
+                                                    int n, int w,
+                                                    uint32_t ip) {
+  IPCParts p{false, 0u};
+  for (int s = 0; s < n; ++s) {
+    const uint32_t* e = stash + w * s;
+    if (__ldg(e) == ip) {
+      p.found = true;
+      p.val += __ldg(e + 1);
+    }
+  }
+  return p;
+}
+
+// the key of range class `sp` (stored plen + 1): the masked address
+__device__ __forceinline__ uint32_t range_class_w0(uint32_t ip, uint32_t sp) {
+  const uint32_t raw = sp - 1;
+  // a /0 class masks everything (a shift by 32 is undefined in C)
+  return ip & (raw ? (0xFFFFFFFFu << (32 - raw)) : 0u);
+}
+
+// one range-class row of e entries, its planes at offs[] of widths[]
+__device__ __forceinline__ IPCParts range_class_parts(const uint32_t* rrow,
+                                                      int e,
+                                                      const int32_t* offs,
+                                                      const int32_t* widths,
+                                                      uint32_t w0,
+                                                      uint32_t sp) {
+  IPCParts p{false, 0u};
+  for (int k = 0; k < e; ++k) {
+    if (__ldg(rrow + offs[0] + k) == w0 &&
+        unpack_lane(rrow + offs[1], k, widths[1]) == sp) {
+      p.found = true;
+      p.val += unpack_lane(rrow + offs[2], k, widths[2]);
+    }
+  }
+  if (widths[2] == 16 && p.found && p.val == VAL16_UNKNOWN)
+    p.val = UNKNOWN_IDX;
+  return p;
+}
+
+// the [B, P] scan's longest match from the staged ranges (stage_ranges):
+// found = a range matched, the value the u32 sum at the longest length
+__device__ __forceinline__ IPCParts range_scan_parts(int n, uint32_t ip) {
+  const uint32_t* base = s_ranges;
+  const uint32_t* mask = s_ranges + n;
+  const uint32_t* plen = s_ranges + 2 * n;
+  const uint32_t* val = s_ranges + 3 * n;
+  uint32_t best = 0, v = 0;
+  for (int q = 0; q < n; ++q) {
+    if ((ip & mask[q]) == base[q]) {
+      const uint32_t pl = plen[q];
+      if (pl > best) {
+        best = pl;
+        v = val[q];
+      } else if (pl == best) {
+        v += val[q];
+      }
+    }
+  }
+  return IPCParts{best > 0, best > 0 ? v : 0u};
+}
+
 }  // namespace cdp

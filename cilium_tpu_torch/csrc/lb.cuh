@@ -152,4 +152,55 @@ __device__ __forceinline__ LBResult lb_select_classic(
   return r;
 }
 
+// -- the slot half (the routed mesh probe, csrc/datapath_mesh.cu) ----------
+// lb/device.py lb_inline_slot + lb_slot_outputs over one source of inline
+// slots (a bucket row's two, or the stash's): the matching slots' lanes
+// summed, then the backend choice, every output zero where the service is
+// not found (no pass-through: two sources' outputs add up).
+
+struct LBOut {
+  bool found;
+  int32_t slave;
+  uint32_t daddr, dport;
+  int32_t rev_nat;
+};
+
+__device__ __forceinline__ LBOut lb_slot_outputs(const uint32_t* slots,
+                                                 int n_slots, uint32_t vip,
+                                                 uint32_t w1, uint32_t fh,
+                                                 int32_t ct_slave) {
+  LBOut o{false, 0, 0u, 0u, 0};
+  uint32_t meta = 0;
+  for (int s = 0; s < n_slots; ++s) {
+    const uint32_t* slot = slots + s * LB_SLOT;
+    if (__ldg(slot) == vip && __ldg(slot + 1) == w1) {
+      o.found = true;
+      meta += __ldg(slot + 2);
+    }
+  }
+  const uint32_t count = meta & 0xFFFFu;
+  if (!o.found || count == 0) {
+    o.found = false;
+    return o;
+  }
+  int32_t slave = static_cast<int32_t>(fh % count) + 1;
+  if (ct_slave > 0 && ct_slave <= static_cast<int32_t>(count))
+    slave = ct_slave;
+  const int k = slave - 1;
+  uint32_t new_daddr = 0, port_pair = 0;
+  for (int s = 0; s < n_slots; ++s) {
+    const uint32_t* slot = slots + s * LB_SLOT;
+    if (__ldg(slot) == vip && __ldg(slot + 1) == w1) {
+      if (k < LB_MAX_BACKENDS) new_daddr += __ldg(slot + 4 + k);
+      if ((k >> 1) < LB_MAX_BACKENDS / 2)
+        port_pair += __ldg(slot + LB_PORT_LANE + (k >> 1));
+    }
+  }
+  o.slave = slave;
+  o.daddr = new_daddr;
+  o.dport = (port_pair >> (16 * (k & 1))) & 0xFFFFu;
+  o.rev_nat = static_cast<int32_t>(meta >> 16);
+  return o;
+}
+
 }  // namespace cdp

@@ -482,9 +482,13 @@ def _masked_sum(hit, vals):
 
 
 def ct_probe_row_parts(rows, lo_a, hi_a, ports_w, w3_fwd, w3_rev,
-                       entry_words: int = ENTRY_WORDS):
-    """Lane compares against fetched rows, either layout.  Returns
-    (fwd_found, rev_found, fwd_val, rev_val)."""
+                       owns=None, entry_words: int = ENTRY_WORDS):
+    """Lane compares against fetched rows, either layout, with an
+    optional ownership mask `owns` bool [B] (the routed mesh probe
+    reads each row on its owning shard only: a shard that does not own
+    a flow's row contributes exactly zero, so a sum over the table axis
+    equals the single-device result).  Returns (fwd_found, rev_found,
+    fwd_val, rev_val)."""
     n_e = rows.shape[1] // entry_words
     ew = [
         widen(rows[:, k * n_e : (k + 1) * n_e]) for k in range(entry_words)
@@ -494,6 +498,8 @@ def ct_probe_row_parts(rows, lo_a, hi_a, ports_w, w3_fwd, w3_rev,
         & (ew[1] == hi_a[:, None])
         & (ew[2] == ports_w[:, None])
     )
+    if owns is not None:
+        key_eq = key_eq & owns[:, None]
     if entry_words == ENTRY_WORDS:
         w3_plane, val_plane = ew[3], ew[4]
     else:

@@ -32,9 +32,12 @@ proves there, as the reference's CPU mesh does, is that no verdict,
 counter or telemetry bit depends on a dead chip's table slice.
 
 `attach_memo` puts the memo on the mesh (engine/memo_mesh.py) on the
-dispatch path.  The fused-datapath and reshard half of the reference's
-router (attach_datapath, publish_datapath, adopt_reshard, dispatch_flows
-and the datapath repair at readmission) is not here.
+dispatch path.  `attach_datapath` puts the fused datapath on the mesh
+(engine/datapath_mesh.py) behind the same breakers: `dispatch_flows`
+serves raw flows through it, `publish_datapath` publishes its epochs,
+and a readmitted chip's datapath slices are repaired from the
+DatapathStore (`repair_chip`) before its probe.  The reshard half of the
+reference's router (adopt_reshard) is not here.
 """
 
 from __future__ import annotations
@@ -192,6 +195,15 @@ class ChipFailoverRouter:
         # live epoch in place)
         self._verdict_cache = None
         self._memo = None
+        # the fused datapath plane (attach_datapath): its store and
+        # evaluator, the geometry the evaluator was built for, the
+        # terminal fold, and the ordinals whose datapath slices a
+        # readmission must repair
+        self.dp_store = None
+        self._dp_ev = None
+        self._dp_geom = None
+        self._host_datapath_fold = None
+        self._dp_out = set()
 
     # -- breaker plumbing ----------------------------------------------------
 
@@ -257,6 +269,8 @@ class ChipFailoverRouter:
                           new=new, reason=reason)
         if new == "open":
             self.store.mark_chip_out(ordinal)
+            if self.dp_store is not None:
+                self._dp_out.add(int(ordinal))
         log.warning("chip breaker transition", extra={"fields": {
             "chip": int(ordinal), "from": old, "to": new,
             "reason": reason}})
@@ -285,6 +299,197 @@ class ChipFailoverRouter:
             self._pack_plans.clear()
         self._tables = tables
         return self.store.publish(tables, delta)
+
+    # -- the fused datapath plane (engine/datapath_mesh.py) ------------------
+
+    def attach_datapath(self, dtables, host_fold=None) -> None:
+        """Adopt the fused pipeline: build the DatapathStore and the fused
+        failover evaluator, and publish `dtables` (host, un-augmented)
+        twice, so both epoch slots hold it and the next publish rides the
+        row diff.  dispatch_flows then serves raw flows through prefilter,
+        LB/DNAT, CT, ipcache and the lattice over the partitioned N+1
+        tables, with this router's breakers, re-split and replica
+        gathers.  `host_fold(ep_index, saddr, daddr, sport, dport, proto,
+        direction, is_fragment)` -> DatapathVerdicts of host columns is
+        the optional terminal fallback when no mesh row can serve."""
+        from cilium_tpu_torch.engine.datapath_mesh import DatapathStore
+
+        self.dp_store = DatapathStore(self.mesh, self.table_axis)
+        self._dp_ev = None
+        self._dp_geom = None
+        self._host_datapath_fold = host_fold
+        self.publish_datapath(dtables)
+        self.publish_datapath(dtables)
+
+    def publish_datapath(self, dtables, changes=None):
+        """Install a fused-datapath world (host, un-augmented) as the
+        serving epoch: churn rides the store's row diff (with a change
+        record, `changes`, the scoped one; see DatapathStore.publish); a
+        geometry change rebuilds the fused evaluator and uploads in
+        full."""
+        from cilium_tpu_torch.engine.datapath_mesh import (
+            _geometry,
+            make_failover_datapath_evaluator,
+        )
+
+        if self.dp_store is None:
+            raise RuntimeError("no datapath plane attached: call "
+                               "attach_datapath")
+        geom = _geometry(dtables)
+        if self._dp_ev is None or geom != self._dp_geom:
+            self._dp_ev = make_failover_datapath_evaluator(
+                self.mesh, dtables, batch_axis=self.batch_axis,
+                table_axis=self.table_axis,
+                collect_telemetry=self.collect_telemetry)
+            self._dp_geom = geom
+        return self.dp_store.publish(dtables, changes=changes)
+
+    def _flow_batch(self, padded):
+        """The padded flow columns as an int32 [8, B] word pack on the
+        mesh's first device (engine/datapath.py FLOW_COLUMNS order)."""
+        from cilium_tpu_torch.device import u32_tensor
+        from cilium_tpu_torch.engine.datapath import FLOW_COLUMNS
+
+        words = np.stack([np.asarray(padded[c]).astype(np.int64).astype(
+            np.uint32) for c in FLOW_COLUMNS])
+        return u32_tensor(words, self.mesh.devices[0, 0])
+
+    def dispatch_flows(self, ep_index, saddr, daddr, sport, dport, proto,
+                       direction, is_fragment=None) -> FailoverResult:
+        """One raw-flow batch through the fused pipeline on the mesh: a
+        FailoverResult whose `verdicts` is a DatapathVerdicts of host
+        columns in stream order (u32 columns as uint32), equal to the
+        single-device fused program whatever the survivor set while one
+        owner of every table slice survives.  A mesh-wide outage, or a
+        chip fault (CHIP_FAULTS) of the launch, folds on the host
+        (`attach_datapath(host_fold=)`, else it raises); any other launch
+        error, a kernel that fails to build or launch above all,
+        propagates with no breaker opened and no fold."""
+        from cilium_tpu_torch.engine.datapath import (
+            U32_COLUMNS,
+            VERDICT_COLUMNS,
+            VERDICT_DTYPES,
+            DatapathVerdicts,
+        )
+
+        if self.dp_store is None:
+            raise RuntimeError("no datapath plane attached: call "
+                               "attach_datapath")
+        cols = {
+            "ep_index": np.asarray(ep_index, np.int32),
+            "saddr": np.asarray(saddr, np.uint32),
+            "daddr": np.asarray(daddr, np.uint32),
+            "sport": np.asarray(sport, np.int32),
+            "dport": np.asarray(dport, np.int32),
+            "proto": np.asarray(proto, np.int32),
+            "direction": np.asarray(direction, np.int32),
+            "is_fragment": (np.zeros(len(ep_index), bool)
+                            if is_fragment is None
+                            else np.asarray(is_fragment, bool)),
+        }
+        b = len(cols["ep_index"])
+
+        def host_dtype(c):
+            if c in U32_COLUMNS:
+                return np.uint32
+            return torch.empty(0, dtype=VERDICT_DTYPES[c]).numpy().dtype
+
+        if b == 0:
+            return FailoverResult(verdicts=DatapathVerdicts(**{
+                c: np.zeros(0, host_dtype(c)) for c in VERDICT_COLUMNS}))
+        plan, fold_args = self._plan_batch(cols)
+        if plan is None:
+            return self._terminal_flow_fold(
+                cols, *fold_args,
+                reason="no mesh row can serve every table slice")
+        alive = plan["alive"]
+        dev = self.dp_store.current()
+        if dev is None:
+            raise RuntimeError("no published datapath epoch: call "
+                               "publish_datapath")
+        flows = self._flow_batch(plan["padded"])
+        valid = torch.from_numpy(plan["valid"])
+        with tracing.tracer.span(
+            "mesh.dispatch", site=self.site,
+            attrs={"chips": int(alive.sum()), "rows": b,
+                   "rerouted": plan["rerouted"], "fused": True},
+        ) as sp:
+            try:
+                out = self._dp_ev(dev, flows, alive, valid)
+                wait_devices(out)
+            except CHIP_FAULTS as exc:
+                sp.status = "error"
+                sp.attrs["error"] = str(exc)
+                self._blame_alive(alive, exc)
+                return self._terminal_flow_fold(
+                    cols, alive, plan["rebalanced"], plan["reb_bytes"],
+                    plan["reb_ms"], reason=str(exc))
+            except Exception as exc:
+                sp.status = "error"
+                sp.attrs["error"] = str(exc)
+                for ordinal in plan["probed"]:
+                    self.bank.release_probe(ordinal)
+                raise
+        self._credit_alive(alive)
+        if self.collect_telemetry:
+            v, l4c, l3c, replica_hits, trow = out
+            telemetry = _u32(trow)
+        else:
+            v, l4c, l3c, replica_hits = out
+            telemetry = None
+        replica_hits = self._count_replica_hits(replica_hits)
+        positions = plan["positions"]
+
+        def col(c):
+            a = getattr(v, c).cpu().numpy()
+            if c in U32_COLUMNS:
+                a = a.view(np.uint32)
+            return a if positions is None else a[positions]
+
+        return FailoverResult(
+            verdicts=DatapathVerdicts(**{c: col(c) for c in VERDICT_COLUMNS}),
+            l4_counts=_u32(l4c), l3_counts=_u32(l3c), telemetry=telemetry,
+            replica_hits=replica_hits, rerouted=plan["rerouted"],
+            degraded=False, alive=alive,
+            rebalanced_chips=plan["rebalanced"],
+            rebalance_bytes=plan["reb_bytes"], rebalance_ms=plan["reb_ms"])
+
+    def _terminal_flow_fold(self, cols, alive, rebalanced, reb_bytes,
+                            reb_ms, reason="") -> FailoverResult:
+        """The host fold of the fused path, taken only when no owner of
+        some slice survives (or a chip fault ended the launch); raises
+        without a host datapath fold."""
+        if self._host_datapath_fold is None:
+            raise RuntimeError(f"fused mesh unserviceable ({reason}) and no "
+                               f"host datapath fold configured")
+        with tracing.tracer.span(
+                "engine.hostpath", site="engine.hostpath",
+                attrs={"failover": True, "fused": True, "reason": reason}):
+            v = self._host_datapath_fold(
+                cols["ep_index"], cols["saddr"], cols["daddr"], cols["sport"],
+                cols["dport"], cols["proto"], cols["direction"],
+                cols["is_fragment"])
+        metrics.degraded_batches_total.inc()
+        self.stats.degraded_batches += 1
+        log.warning("fused mesh batch served by terminal host fold",
+                    extra={"fields": {"reason": reason}})
+        return FailoverResult(
+            verdicts=v, degraded=True, alive=alive,
+            rebalanced_chips=rebalanced, rebalance_bytes=reb_bytes,
+            rebalance_ms=reb_ms)
+
+    def _repair_datapath(self, ordinal: int, col: int) -> Tuple[int, float]:
+        """The datapath half of a readmission: the chip's owned slices of
+        both datapath epochs rewritten from the store's retained host
+        snapshots.  Returns (bytes, ms)."""
+        t0 = time.perf_counter()
+        nbytes = self.dp_store.repair_chip(col)
+        ms = (time.perf_counter() - t0) * 1e3
+        self._dp_out.discard(ordinal)
+        self.stats.rebalance_bytes += nbytes
+        tracing.add_event("chip.rebalance", chip=ordinal, bytes_h2d=nbytes,
+                          datapath=True)
+        return nbytes, ms
 
     # -- readmission rebalance -------------------------------------------------
 
@@ -421,6 +626,24 @@ class ChipFailoverRouter:
                     except Exception as exc:  # noqa: BLE001
                         self.bank.record_failure(
                             ordinal, f"rebalance failed: {exc}")
+                        ok = False
+                if ok and ordinal in self._dp_out:
+                    # the chip's datapath slices (CT, ipcache, LB, policy)
+                    # from the store's retained host snapshots: bytes of
+                    # one chip's slices, never a full upload
+                    try:
+                        b, ms = self._repair_datapath(ordinal, c)
+                        reb_bytes += b
+                        reb_ms += ms
+                        if ordinal not in rebalanced:
+                            rebalanced.append(ordinal)
+                    except KernelError:
+                        for o in probed + [ordinal] * was_half_open:
+                            self.bank.release_probe(o)
+                        raise
+                    except Exception as exc:  # noqa: BLE001
+                        self.bank.record_failure(
+                            ordinal, f"datapath repair failed: {exc}")
                         ok = False
                 if ok and was_half_open:
                     probed.append(ordinal)

@@ -325,21 +325,25 @@ def mesh_probe_plain(tab, batch: TupleBatch, w_off: int) -> torch.Tensor:
     return _record(flags, meta >> 1, j, lcol)
 
 
-def routed_probe_plain(tab, batch: TupleBatch, g: RouteGeom, t: int,
-                       alive_row: Optional[torch.Tensor] = None
-                       ) -> torch.Tensor:
-    """ROUTED_PROBE's plain version: shard t's step of the routed
-    lattice (the reference's make_partitioned_evaluator body, and in
-    failover mode failover_lattice_probes with `alive_row` [tp], this
-    batch row's chip health).  The FNV-1a bucket's owner compares its
-    row (a shard that does not own it contributes 0); the stash and
-    wildcard probes are replicated; the L3 word is read on its owner.
-    Returns the partial record [5, Bb] int32: flags (F_P1 the owner's
-    hit, F_P2, F_REPLICA, F_P3 the wildcard hit, F_KNOWN, F_STASH), the
-    owner's value, the stash value, the wildcard value, the L3
-    column."""
-    ep, dirn, dport, proto = _cols(batch)
-    idx, known = _index_identity(tab, widen(batch.identity))
+def failover_lattice_parts(tab, ep, dirn, dport, proto, idx, known,
+                           g: RouteGeom, t: int,
+                           alive_row: Optional[torch.Tensor] = None,
+                           solo: bool = False) -> dict:
+    """Shard t's part of the routed lattice with the identity index
+    given (the reference's failover_lattice_probes before its psums, in
+    the form the fused datapath calls it: `idx` int64 and `known` bool
+    [B] from the routed ipcache; routed_probe_plain derives them from
+    id_direct).  `ep` and `dirn` are the tuples' int64 words, `dport`
+    and `proto` clipped.  The exact key's bucket is compared on its
+    owner (in failover mode the backup owner when `alive_row`, this
+    batch row's chip health [tp], says the primary is dead) and the L3
+    word read on its owner.  A plane the rules replicate is owned by
+    every shard, or with `solo` by shard 0 alone (then a sum over the
+    table axis reads one shard's result).  Returns {found, val (the
+    owner's exact hit and value), s_found, s_val (the stash), hit3, val3
+    (the wildcard probe), p2 (the L3 bit on its owner), replica (served
+    from a backup region), lcol (the L3 counter column in this shard's
+    slice)}."""
     ew = l4_entry_words(tab)
     ep32, d32 = ep & MASK32, dirn & MASK32
     w0, w1 = l4hash_probe_keys(ew, ep32, d32, idx, dport, proto)
@@ -359,7 +363,7 @@ def routed_probe_plain(tab, batch: TupleBatch, g: RouteGeom, t: int,
         owns = (bl >= 0) & (bl < g.n_local)
         bl = bl.clamp(0, g.n_local - 1)
     else:
-        owns, bl = ~none, bucket
+        owns, bl = (none | (t == 0)) if solo else ~none, bucket
     found, val = l4hash_row_parts(tab.l4_hash_rows[bl], w0, w1, ew)
     found = found & owns
     val = torch.where(owns, val, 0)
@@ -385,17 +389,40 @@ def routed_probe_plain(tab, batch: TupleBatch, g: RouteGeom, t: int,
         wl = wl.clamp(0, g.w_local - 1)
         lcol = (idx - t * g.w_local * 32).clamp(0, g.w_local * 32 - 1)
     else:
-        owns_w, wl = ~none, word
+        owns_w = (none | (t == 0)) if solo else ~none
+        wl = word
         lcol = idx.clamp(0, g.n_ids - 1)
     e_count = int(tab.l3_allow_bits.shape[0])
     l3 = widen(tab.l3_allow_bits[_gather_ix(ep, e_count),
                                  _gather_ix(dirn, 2),
                                  _gather_ix(wl, w_res)])
     p2 = known & owns_w & ((l3 >> bit) & 1).bool()
-    flags = (found.long() * F_P1 | p2.long() * F_P2
-             | replica.long() * F_REPLICA | hit3.long() * F_P3
-             | known.long() * F_KNOWN | s_found.long() * F_STASH)
-    return _record(flags, val, s_val, val3, lcol)
+    return dict(found=found, val=val, s_found=s_found, s_val=s_val,
+                hit3=hit3, val3=val3, p2=p2, replica=replica, lcol=lcol)
+
+
+def routed_probe_plain(tab, batch: TupleBatch, g: RouteGeom, t: int,
+                       alive_row: Optional[torch.Tensor] = None
+                       ) -> torch.Tensor:
+    """ROUTED_PROBE's plain version: shard t's step of the routed
+    lattice (the reference's make_partitioned_evaluator body, and in
+    failover mode failover_lattice_probes with `alive_row` [tp], this
+    batch row's chip health): the identity index from id_direct, then
+    failover_lattice_parts.  The FNV-1a bucket's owner compares its row
+    (a shard that does not own it contributes 0); the stash and
+    wildcard probes are replicated; the L3 word is read on its owner.
+    Returns the partial record [5, Bb] int32: flags (F_P1 the owner's
+    hit, F_P2, F_REPLICA, F_P3 the wildcard hit, F_KNOWN, F_STASH), the
+    owner's value, the stash value, the wildcard value, the L3
+    column."""
+    ep, dirn, dport, proto = _cols(batch)
+    idx, known = _index_identity(tab, widen(batch.identity))
+    r = failover_lattice_parts(tab, ep, dirn, dport, proto, idx, known, g,
+                               t, alive_row)
+    flags = (r["found"].long() * F_P1 | r["p2"].long() * F_P2
+             | r["replica"].long() * F_REPLICA | r["hit3"].long() * F_P3
+             | known.long() * F_KNOWN | r["s_found"].long() * F_STASH)
+    return _record(flags, r["val"], r["s_val"], r["val3"], r["lcol"])
 
 
 def routed_lattice(parts, tab, ep, dirn):
@@ -450,15 +477,8 @@ def mesh_combine_plain(parts, tab, batch: TupleBatch, g: RouteGeom,
                  proxy_port=proxy_out.to(torch.int32), match_kind=kind)
     ok = torch.ones_like(p2) if valid is None else valid.bool()
     l4, trow = l4_counts_and_telemetry(v, tab, ep, dirn, j, ok, telemetry)
-    e_count = int(tab.l4_meta.shape[0])
-    l3 = torch.zeros((e_count, 2, g.l3_shards * g.c_local),
-                     dtype=torch.int32, device=head.device)
-    hit_l3 = (kind == MATCH_L3) & ok
-    for t in range(g.l3_shards):
-        here = hit_l3 & ((flags[t] & F_P2) != 0)
-        _accumulate_counters(l3, ep, dirn,
-                             t * g.c_local + parts[t][-1].to(torch.int64),
-                             here)
+    l3 = l3_counts(tab, ep, dirn, kind, [(f & F_P2) != 0 for f in flags],
+                   [p[-1] for p in parts], ok, g)
     served = torch.zeros((), dtype=torch.int64, device=head.device)
     for f in flags:
         served = served + (((f & F_REPLICA) != 0) & ok).sum()
@@ -472,10 +492,7 @@ def l4_counts_and_telemetry(v: Verdicts, tab, ep, dirn, j, ok,
     `telemetry`, their [2, TELEM_COLS] rows (ingress, egress), u32 bits
     in int32 (None without)."""
     kind = v.match_kind
-    e_count, _, kg = tab.l4_meta.shape
-    l4 = torch.zeros((e_count, 2, kg), dtype=torch.int32, device=kind.device)
-    hit_l4 = ((kind == MATCH_L4) | (kind == MATCH_L4_WILD)) & ok
-    _accumulate_counters(l4, ep, dirn, j, hit_l4)
+    l4 = l4_counts(tab, ep, dirn, kind, j, ok)
     if not telemetry:
         return l4, None
     zeros = torch.zeros_like(dirn)
@@ -485,6 +502,35 @@ def l4_counts_and_telemetry(v: Verdicts, tab, ep, dirn, j, ok,
     row_in = torch.stack([(m & ingress).sum() for m in masks])
     total = torch.stack([(m & ok).sum() for m in masks])
     return l4, narrow(torch.stack([row_in, total - row_in]))
+
+
+def l4_counts(tab, ep, dirn, kind, j, ok) -> torch.Tensor:
+    """The L4 half of the counter epilogue (the reference's
+    failover_counts): the L4-slot hits of the `ok` tuples at [ep, dir,
+    j], [E, 2, Kg] u32 bits in int32."""
+    e_count, _, kg = tab.l4_meta.shape
+    l4 = torch.zeros((e_count, 2, kg), dtype=torch.int32, device=kind.device)
+    hit_l4 = ((kind == MATCH_L4) | (kind == MATCH_L4_WILD)) & ok
+    _accumulate_counters(l4, ep, dirn, j, hit_l4)
+    return l4
+
+
+def l3_counts(tab, ep, dirn, kind, p2_parts, lcol_parts, ok,
+              g: RouteGeom) -> torch.Tensor:
+    """The L3 half of the failover counter epilogue: the L3 hits of the
+    `ok` tuples on the shard that read the word (`p2_parts[t]`), at its
+    augmented local column `lcol_parts[t]` of slice t (fold_l3_aug folds
+    them back), or at the global column on a replicated plane (one
+    slice); [E, 2, l3_shards * c_local] u32 bits in int32."""
+    e_count = int(tab.l4_meta.shape[0])
+    l3 = torch.zeros((e_count, 2, g.l3_shards * g.c_local),
+                     dtype=torch.int32, device=kind.device)
+    hit_l3 = (kind == MATCH_L3) & ok
+    for t in range(g.l3_shards):
+        _accumulate_counters(l3, ep, dirn,
+                             t * g.c_local + lcol_parts[t].to(torch.int64),
+                             hit_l3 & p2_parts[t])
+    return l3
 
 
 # -- dispatch: the kernel on a CUDA device, the plain version on the CPU ----

@@ -616,15 +616,19 @@ def range_class_key(ips, sp: int):
     return w0, h
 
 
-def range_row_parts(row, w0, sp: int, planes: int, widths=()):
+def range_row_parts(row, w0, sp: int, planes: int, owns=None, widths=()):
     """Lane compares of one fetched range-class row of `planes` planes
-    (base, plen, value, then with 5 the l3_in and l3_out words).
-    Returns (hit, val, l3_in, l3_out); the L3 sums are zero with 3."""
+    (base, plen, value, then with 5 the l3_in and l3_out words), with an
+    optional ownership mask `owns` bool [B] (the routed mesh probe: a
+    shard that does not own the row contributes zeros).  Returns (hit,
+    val, l3_in, l3_out); the L3 sums are zero with 3."""
     zero = torch.zeros_like(w0)
     if not widths:
         e = row.shape[1] // planes
         r = widen(row)
         hit = (r[:, :e] == w0[:, None]) & (r[:, e : 2 * e] == int(sp))
+        if owns is not None:
+            hit = hit & owns[:, None]
 
         def msum(p):
             return _msum(hit, r[:, p * e : (p + 1) * e]) if p < planes else zero
@@ -642,6 +646,8 @@ def range_row_parts(row, w0, sp: int, planes: int, widths=()):
         return sw.unpack_lanes(row[:, offs[p] : offs[p] + lanes], widths[p], e)
 
     hit = (widen(row[:, :e]) == w0[:, None]) & (plane(1) == int(sp))
+    if owns is not None:
+        hit = hit & owns[:, None]
     found = hit.any(dim=1)
     val = _msum(hit, plane(2))
     if widths[2] == 16:
@@ -677,17 +683,23 @@ def _range_hash_probe(dev: IPCacheDevice, ips):
     for sp in dev.range_class_plens:
         w0, h = range_class_key(ips, sp)
         row = dev.range_rows[h & (n_rows - 1)]
-        classes.append(range_row_parts(row, w0, sp, planes, dev.range_widths))
+        classes.append(range_row_parts(row, w0, sp, planes,
+                                       widths=dev.range_widths))
     return range_take_fold(classes, ips)
 
 
-def ipcache_bucket_parts(dev: IPCacheDevice, rows, ips, ingress=None):
+def ipcache_bucket_parts(dev: IPCacheDevice, rows, ips, ingress=None,
+                         owns=None):
     """Exact-/32 parts from fetched bucket rows, any layout: (found,
-    val, l3 selected by `ingress`; zeros without L3 planes)."""
+    val, l3 selected by `ingress`; zeros without L3 planes).  `owns`
+    bool [B] masks the rows another shard owns (the routed mesh probe:
+    their flows get zeros)."""
     sub = bool(dev.bucket_entries)
     per = (dev.bucket_entries if sub
            else (32 if dev.l3_planes else IP_ENTRIES_PER_BUCKET))
     hit = widen(rows[:, :per]) == ips[:, None]
+    if owns is not None:
+        hit = hit & owns[:, None]
     found = hit.any(dim=1)
     if not sub:
         val = _msum(hit, widen(rows[:, per : 2 * per]))

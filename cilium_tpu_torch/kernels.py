@@ -2,7 +2,8 @@
 
 `csrc/datapath.cu`, `csrc/l7.cu`, `csrc/churn.cu`, `csrc/lattice.cu`,
 `csrc/datapath6.cu`, `csrc/prng.cu`, `csrc/memo.cu`, `csrc/publish.cu`,
-`csrc/shadow.cu` and `csrc/mesh.cu` (with their headers) are each compiled by `nvcc` for `sm_90a` into a shared library
+`csrc/shadow.cu`, `csrc/mesh.cu` and `csrc/datapath_mesh.cu` (with their
+headers) are each compiled by `nvcc` for `sm_90a` into a shared library
 with a plain C interface, at first use, into `cilium_tpu_torch/_build/`
 (one file per source digest), and bound with ctypes.  Nothing here runs
 at import: the CPU tests import this module on a machine with no `nvcc`
@@ -73,6 +74,12 @@ routed (partitioned, failover) evaluators, and one batch row's combine
 over the table axis, under the same rules (engine/sharded.py strings
 them together and holds their plain versions).
 
+`DP_MESH_PROBE` and `DP_MESH_COMBINE` (csrc/datapath_mesh.cu) are the
+fused datapath on a mesh (K21): one shard's step of one round (S, L, F,
+P) of the routed pipeline and one batch row's combine, under the same
+rules (engine/datapath_mesh.py strings them together and holds their
+plain versions).
+
 `DATAPATH6(tables, flows)` (csrc/datapath6.cu) is the fused IPv6
 program (K15, with the v6 tunnel stage of K11) over Datapath6Tables and
 a FlowBatch6, under the same rules: it checks every table plane and
@@ -97,6 +104,7 @@ from cilium_tpu_torch.engine.datapath import (
     VERDICT_DTYPES,
     DatapathVerdicts,
 )
+from cilium_tpu_torch.engine.datapath_mesh import RECORD_ROWS
 from cilium_tpu_torch.engine.subword import lanes_for
 from cilium_tpu_torch.engine.verdict import TELEM_COLS
 from cilium_tpu_torch.ipcache.lpm import (
@@ -113,7 +121,7 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
 # csrc/<stem>.cu, one library each
 LIBRARIES = ("datapath", "l7", "churn", "lattice", "datapath6", "prng",
-             "memo", "publish", "shadow", "mesh")
+             "memo", "publish", "shadow", "mesh", "datapath_mesh")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC",
@@ -497,10 +505,11 @@ def _fill_lb(a: DatapathArgs, lb, dev) -> int:
     raise ValueError(f"unknown LB layout {type(lb).__name__}")
 
 
-def _fill_ipcache(a: DatapathArgs, ipc, dev) -> int:
+def _fill_ipcache(a: DatapathArgs, ipc, dev, rows=None) -> int:
     """The ipcache plane: DIR-24-8 (generic), or bucket rows and stash
-    with hashed range classes or the [B, P] scan.  Returns its
-    layout."""
+    with hashed range classes or the [B, P] scan.  `rows` is the bucket
+    rows expected on hand (n_buckets where None; a mesh shard's block
+    otherwise).  Returns its layout."""
     if isinstance(ipc, LPMTables):
         a.ipc_l1, a.ipc_l2, a.ipc_blocks = _lpm_tables(ipc, dev)
         return IPC_GENERIC
@@ -526,7 +535,7 @@ def _fill_ipcache(a: DatapathArgs, ipc, dev) -> int:
     a.ipc_stash = _ptr(ipc.stash, "ipcache.stash", dev)
     a.ipc_stash_w = int(ipc.stash.shape[1])
     a.ipc_nb = _pow2(int(ipc.n_buckets), "ipcache.n_buckets")
-    if ipc.buckets.shape[0] != ipc.n_buckets:
+    if ipc.buckets.shape[0] != (ipc.n_buckets if rows is None else rows):
         raise ValueError("ipcache.buckets rows differ from n_buckets")
     a.ipc_lanes = int(ipc.buckets.shape[1])
     a.ipc_per, a.ipc_vw, a.ipc_lw = per, vw, lw
@@ -2994,10 +3003,292 @@ MESH_MEMO_COMBINE = MeshMemoCombineKernel()
 MESH_MEMO_INSERT = MeshMemoInsertKernel()
 
 
+# ---------------------------------------------------------------------------
+# The fused datapath on a mesh (csrc/datapath_mesh.cu)
+# ---------------------------------------------------------------------------
+
+
+
+class DpMeshArgs(ctypes.Structure):
+    """Mirror of cdm::DpMeshArgs in csrc/datapath_mesh.cu, field for
+    field."""
+
+    _fields_ = ([("dp", DatapathArgs), ("flows", _P),
+                 ("prev", _P * MESH_MAX_TP), ("out", _P), ("alive", _P)]
+                + [(n, _I) for n in (
+                    "B", "flow_form", "round", "t", "ntp", "static_dir",
+                    "ct_sharded", "lb_sharded", "ipc_sharded",
+                    "range_sharded", "rows_sharded", "l3_sharded", "n_ct",
+                    "n_lb", "n_ipc", "n_range", "n_rows_global", "wn",
+                    "n_l3_ids", "scan")])
+
+
+class DpCombineArgs(ctypes.Structure):
+    """Mirror of cdm::DpCombineArgs in csrc/datapath_mesh.cu, field for
+    field."""
+
+    _fields_ = ([("dp", DatapathArgs), ("flows", _P),
+                 ("parts", _P * MESH_MAX_TP)]
+                + [(n, _P) for n in ("valid", "l4", "l3", "telem",
+                                     "replica")]
+                + [(n, _I) for n in ("B", "flow_form", "tp", "static_dir",
+                                     "l3_shards", "c_local")])
+
+
+class _DpMeshLibrary(_Library):
+    """csrc/datapath_mesh.cu: DP_MESH_PROBE and DP_MESH_COMBINE."""
+
+    stem = "datapath_mesh"
+
+    def bind(self, lib) -> None:
+        self.declare(lib, (("launch_dp_mesh_probe", DpMeshArgs),
+                           ("launch_dp_mesh_combine", DpCombineArgs)))
+        lib.dp_mesh_struct_sizes.argtypes = [ctypes.POINTER(ctypes.c_int)]
+        lib.dp_mesh_struct_sizes.restype = ctypes.c_int
+        sizes = (ctypes.c_int * 3)()
+        lib.dp_mesh_struct_sizes(sizes)
+        want = [ctypes.sizeof(a) for a in (DatapathArgs, DpMeshArgs,
+                                           DpCombineArgs)]
+        if list(sizes) != want:
+            raise RuntimeError(
+                f"datapath mesh argument layouts differ between kernels.py "
+                f"{want} and csrc/datapath_mesh.cu {list(sizes)}")
+
+
+DP_MESH_LIBRARY = _DpMeshLibrary()
+
+
+def _fill_shard(a: DatapathArgs, tab, dev, g: dict) -> None:
+    """Check one mesh shard's DatapathTables (its local blocks of the
+    sharded planes, the replicated leaves whole) against the fused
+    geometry `g` and fill the DatapathArgs view the mesh kernels read."""
+    ntp = int(g["ntp"])
+
+    def local(sharded: bool, n_global: int) -> int:
+        return 2 * n_global // ntp if sharded else n_global
+
+    pf = tab.prefilter
+    if isinstance(pf, PrefilterRanges):
+        a.pf_base = _ptr(pf.base, "prefilter.base", dev)
+        a.pf_mask = _ptr(pf.mask, "prefilter.mask", dev,
+                         shape=tuple(pf.base.shape))
+        a.pf_n = int(pf.base.shape[0])
+    elif isinstance(pf, LPMTables):
+        a.pf_l1, a.pf_l2, a.pf_blocks = _lpm_tables(pf, dev)
+    else:
+        raise ValueError(f"unknown prefilter form {type(pf).__name__}")
+    ct = tab.ct
+    ew = int(ct.entry_words)
+    if ew not in (4, 5) or ct.stash.shape[1] != 5:
+        raise ValueError("the kernel takes 4- or 5-word CT rows and a "
+                         "5-word stash")
+    a.ct_buckets = _ptr(ct.buckets, "ct.buckets", dev)
+    if ct.buckets.shape[0] != local(g["ct_sharded"], g["n_ct"]):
+        raise ValueError(f"ct.buckets has {ct.buckets.shape[0]} rows on the "
+                         f"shard, the geometry says "
+                         f"{local(g['ct_sharded'], g['n_ct'])}")
+    a.ct_lanes, a.ct_ew = int(ct.buckets.shape[1]), ew
+    if a.ct_lanes < ew or (ew == 4 and a.ct_lanes % 4):
+        raise ValueError("compact CT rows must hold whole 4-word entries")
+    a.ct_stash = _ptr(ct.stash, "ct.stash", dev)
+    a.ct_stash_n = int(ct.stash.shape[0])
+    lb = tab.lb
+    if isinstance(lb, LBInline):
+        if lb.rows.shape[1] != 128 or lb.stash.shape[1] != 64:
+            raise ValueError("inline LB rows must be 128 lanes, stash 64")
+        if lb.rows.shape[0] != local(g["lb_sharded"], g["n_lb"]):
+            raise ValueError("lb.rows on the shard differ from the geometry")
+        a.lb_rows = _ptr(lb.rows, "lb.rows", dev)
+        a.lb_stash = _ptr(lb.stash, "lb.stash", dev)
+        a.lb_nb = _pow2(int(lb.n_buckets), "lb.n_buckets")
+        a.lb_stash_n = int(lb.stash.shape[0])
+    else:
+        _fill_lb(a, lb, dev)
+    ipc = tab.ipcache
+    if not isinstance(ipc, IPCacheDevice) or not ipc.values_are_idx:
+        raise ValueError("the fused mesh datapath takes an idx-form "
+                         "IPCacheDevice")
+    _fill_ipcache(a, ipc, dev, rows=local(g["ipc_sharded"], g["n_ipc"]))
+    if ipc.range_rows is not None and (
+            ipc.range_rows.shape[0] != local(g["range_sharded"],
+                                             g["n_range"])):
+        raise ValueError("ipcache.range_rows on the shard differ from the "
+                         "geometry")
+    pol = tab.policy
+    if pol.l4_hash_rows is None:
+        raise ValueError("the fused mesh datapath reads the hashed L4 tables")
+    l4 = _l4_tables(pol, dev)
+    for key, pre in (("l4", ""), ("l4w", "w")):
+        for f in ("rows", "stash", "nrows", "lanes", "stash_n"):
+            setattr(a, f"{key}_{f}", getattr(l4, pre + f))
+    if a.l4_nrows != local(g["rows_sharded"], g["n_rows_global"]):
+        raise ValueError("policy.l4_hash_rows on the shard differ from the "
+                         "geometry")
+    a.l4_ew = l4.ew
+    a.l4_meta = l4.meta
+    a.n_eps, a.kg = l4.n_eps, l4.kg
+    n = int(pol.id_table.shape[0])
+    a.n_ids = n
+    a.id_table = _ptr(pol.id_table, "policy.id_table", dev, shape=(n,))
+    l3 = pol.l3_allow_bits
+    w = int(l3.shape[2]) if l3.dim() == 3 else 0
+    if w != local(g["l3_sharded"], g["w_global"]) or w < 1:
+        raise ValueError(f"policy.l3_allow_bits has {w} words on the shard, "
+                         f"the geometry says "
+                         f"{local(g['l3_sharded'], g['w_global'])}")
+    a.n_words = w
+    a.l3_allow = _ptr(l3, "policy.l3_allow_bits", dev,
+                      shape=(a.n_eps, 2, w))
+    if tab.tunnel is not None:
+        a.tun_base, a.tun_mask, a.tun_endpoint, a.tun_n = _tunnel_ranges(
+            tab.tunnel, TunnelTables, 1, dev)
+
+
+def _flows_of(flows, form: int, name: str):
+    dev = _cuda_device(flows, name)
+    rows = 8 if form == 0 else 4
+    if flows.dim() != 2 or flows.shape[0] != rows:
+        raise ValueError(f"{name}: flows must be [{rows}, B], got "
+                         f"{tuple(flows.shape)}")
+    b = _batch(int(flows.shape[1]))
+    return dev, b, _ptr(flows, "flows", dev, shape=(rows, b))
+
+
+class DpMeshProbeKernel:
+    """K21's fused-datapath probe on the card: shard t's record int32
+    [RECORD_ROWS[rnd], B] of round `rnd` (engine/datapath_mesh.py
+    dp_mesh_probe_plain) from its DatapathTables (local blocks), its
+    batch row's flows (int32 [8, B] words, or a packed4 half [4, B] with
+    `form` 1), the row's tp records of the previous round, the row's
+    chip health `alive_row` bool [tp] and the fused geometry `g`;
+    `static_dir` None, 0 (ingress: rounds F and P only) or 1."""
+
+    name = "dp_mesh_probe"
+
+    def __init__(self) -> None:
+        self.launches = 0
+
+    def load(self, verbose: bool = False):
+        return DP_MESH_LIBRARY.load(verbose)
+
+    def __call__(self, rnd: int, tab, flows, form: int, prev, alive_row,
+                 t: int, g: dict, static_dir=None) -> torch.Tensor:
+        dev, b, fptr = _flows_of(flows, form, self.name)
+        ntp = int(g["ntp"])
+        if not 0 <= int(t) < ntp <= MESH_MAX_TP:
+            raise ValueError(f"{self.name}: shard {t} of {ntp}")
+        if rnd not in (0, 1, 2, 3):
+            raise ValueError(f"{self.name}: round {rnd}")
+        if static_dir not in (None, 0, 1) or (static_dir == 0 and rnd < 2):
+            raise ValueError(f"{self.name}: round {rnd} of static direction "
+                             f"{static_dir!r}")
+        a = DpMeshArgs()
+        _fill_shard(a.dp, tab, dev, g)
+        a.flows = fptr
+        reads = rnd > 0 and not (rnd == 2 and static_dir == 0)
+        if reads:
+            if prev is None or len(prev) != ntp:
+                raise ValueError(f"{self.name}: round {rnd} reads the "
+                                 f"previous round's {ntp} records")
+            for k, p in enumerate(prev):
+                a.prev[k] = _ptr(p, f"record {k}", dev,
+                                 shape=(RECORD_ROWS[rnd - 1], b))
+        keep = alive_row.to(device=dev, dtype=torch.uint8).contiguous()
+        a.alive = _ptr(keep, "alive_row", dev, torch.uint8, (ntp,))
+        out = torch.empty((RECORD_ROWS[rnd], b), dtype=torch.int32,
+                          device=dev)
+        a.out = out.data_ptr()
+        a.B, a.flow_form, a.round, a.t, a.ntp = b, int(form), rnd, int(t), ntp
+        a.static_dir = -1 if static_dir is None else int(static_dir)
+        for k in ("ct_sharded", "lb_sharded", "ipc_sharded", "range_sharded",
+                  "rows_sharded", "l3_sharded"):
+            setattr(a, k, int(bool(g[k])))
+        a.n_ct = _pow2(int(g["n_ct"]), "ct rows")
+        a.n_lb = _pow2(int(g["n_lb"]), "lb rows") if g["lb_inline"] else 0
+        a.n_ipc = _pow2(int(g["n_ipc"]), "ipcache rows")
+        a.n_range = (_pow2(int(g["n_range"]), "range rows")
+                     if g["n_range"] else 0)
+        a.n_rows_global = _pow2(int(g["n_rows_global"]), "hashed rows")
+        a.wn, a.n_l3_ids = int(g["wn"]), int(g["route"].n_ids)
+        if g["l3_sharded"] and a.wn < 1:
+            raise ValueError(f"{self.name}: a sharded L3 plane of 0 words")
+        a.scan = int(rnd == 2 and int(t) == 0 and bool(a.dp.range_base))
+        DP_MESH_LIBRARY.launch("launch_dp_mesh_probe", a, dev, self.name)
+        self.launches += 1
+        del keep
+        return out
+
+
+class DpMeshCombineKernel:
+    """K21's fused-datapath combine on the card: one batch row's tp
+    round-P records, shard 0's DatapathTables, the row's flows and the
+    fused geometry `g` -> (DatapathVerdicts [B], l4 [E, 2, Kg], l3 [E, 2,
+    l3_shards * c_local], telemetry [2, 20] or None, the (tuple, shard)
+    pairs served from a backup region []), counters as u32 bits in
+    int32, masked by `valid` bool [B] where given (engine/
+    datapath_mesh.py dp_mesh_combine_plain)."""
+
+    name = "dp_mesh_combine"
+
+    def __init__(self) -> None:
+        self.launches = 0
+
+    def load(self, verbose: bool = False):
+        return DP_MESH_LIBRARY.load(verbose)
+
+    def __call__(self, parts, tab, flows, form: int, g: dict, valid=None,
+                 static_dir=None, telemetry: bool = True):
+        dev, b, fptr = _flows_of(flows, form, self.name)
+        tp = int(g["ntp"])
+        if len(parts) != tp or not 1 <= tp <= MESH_MAX_TP:
+            raise ValueError(f"{self.name}: {len(parts)} records for {tp} "
+                             f"table shards")
+        if static_dir not in (None, 0, 1):
+            raise ValueError(f"{self.name}: static direction {static_dir!r}")
+        route = g["route"]
+        if not 1 <= route.l3_shards <= tp:
+            raise ValueError(f"{self.name}: l3_shards = {route.l3_shards}")
+        a = DpCombineArgs()
+        _fill_shard(a.dp, tab, dev, g)
+        a.flows = fptr
+        for k, part in enumerate(parts):
+            a.parts[k] = _ptr(part, f"record {k}", dev,
+                              shape=(RECORD_ROWS[3], b))
+        keep = None
+        if valid is not None:
+            keep = valid.to(device=dev, dtype=torch.uint8).contiguous()
+            a.valid = _ptr(keep, "valid", dev, torch.uint8, (b,))
+        cols = _alloc_columns(a.dp, (b,), dev)
+        n_l3 = int(route.l3_shards) * int(route.c_local)
+        if not 1 <= n_l3 < 1 << 31:
+            raise ValueError(f"{self.name}: {n_l3} L3 counter columns")
+        l4 = torch.zeros((a.dp.n_eps, 2, a.dp.kg), dtype=torch.int32,
+                         device=dev)
+        l3 = torch.zeros((a.dp.n_eps, 2, n_l3), dtype=torch.int32,
+                         device=dev)
+        replica = torch.zeros(1, dtype=torch.int32, device=dev)
+        telem = (torch.zeros((2, TELEM_COLS), dtype=torch.int32, device=dev)
+                 if telemetry else None)
+        a.l4, a.l3, a.replica = l4.data_ptr(), l3.data_ptr(), replica.data_ptr()
+        if telem is not None:
+            a.telem = telem.data_ptr()
+        a.B, a.flow_form, a.tp = b, int(form), tp
+        a.static_dir = -1 if static_dir is None else int(static_dir)
+        a.l3_shards, a.c_local = int(route.l3_shards), int(route.c_local)
+        DP_MESH_LIBRARY.launch("launch_dp_mesh_combine", a, dev, self.name)
+        self.launches += 1
+        del keep
+        return DatapathVerdicts(**cols), l4, l3, telem, replica[0]
+
+
+DP_MESH_PROBE = DpMeshProbeKernel()
+DP_MESH_COMBINE = DpMeshCombineKernel()
+
+
 KERNELS = (DATAPATH_PAIR, DATAPATH_STEP, CHURN_COMPACT, CT_DELTA,
            HTTP_MATCH, KAFKA_MATCH, FLEET_L7, LATTICE, LPM_LOOKUP, DATAPATH6,
            PICK_DRAW, DATAPATH_PAIR_MEMO, MEMO_DEDUP, MEMO_CACHE,
            MEMO_KEYS_LATTICE, PUBLISH_SCATTER, MEMCACHE_MATCH, SHADOW_DIFF,
            PERSISTENT_PAIR, MESH_PROBE, ROUTED_PROBE, MESH_COMBINE,
            REPAIR_SCATTER, MESH_MEMO_PROBE, MESH_MEMO_COMBINE,
-           MESH_MEMO_INSERT)
+           MESH_MEMO_INSERT, DP_MESH_PROBE, DP_MESH_COMBINE)

@@ -221,11 +221,15 @@ def lb_service_key(daddr, dport, proto):
     return widen(daddr), ((widen(dport) & 0xFFFF) << 16) | (widen(proto) & 0xFF)
 
 
-def lb_inline_slot(rows, vip, w1):
+def lb_inline_slot(rows, vip, w1, owns=None):
     """The matching 64-lane slot of fetched rows (masked sum over the
-    two halves).  Returns (slot int64 [B, 64], found [B])."""
+    two halves), with an optional ownership mask `owns` bool [B] (the
+    routed mesh probe: a flow whose row another shard owns gets slot 0
+    and found False).  Returns (slot int64 [B, 64], found [B])."""
     half = widen(rows).reshape(-1, 2, INLINE_SLOT)
     hit2 = (half[:, :, 0] == vip[:, None]) & (half[:, :, 1] == w1[:, None])
+    if owns is not None:
+        hit2 = hit2 & owns[:, None]
     slot = torch.where(hit2[:, :, None], half, 0).sum(dim=1) & 0xFFFFFFFF
     return slot, hit2.any(dim=1)
 
