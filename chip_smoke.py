@@ -255,7 +255,34 @@ launch counts set to 0 just before it and read just after:
              the chip readmitted with its poisoned blocks repaired) and
              dp_mesh_timing (each new kernel against its plain version,
              every round, and timed; the evaluators beside DATAPATH_PAIR
-             and DATAPATH_STEP).
+             and DATAPATH_STEP);
+  hash_lookup  the generic hash table (K20 rest a): 262,144 unique
+             4-word keys (capacity 1,048,576 + a 128-row stash, a cluster
+             of keys homed in the main region's last slots filling the
+             stash and wrapping their windows), 4,194,304 queries (half
+             hits, half misses, 1,024 all-ones sentinel rows) through
+             lookup_batch (HASH_LOOKUP), against the plain version and
+             65,536 rows against a host dict; then timed;
+  ipcache_lookup  lpm_lookup over the bucketized ipcache (K20 rest b):
+             1,048,576 addresses through config 5's generic, idx with L3
+             planes and sub-word forms and the node world's idx form
+             with the [B, P] scan (IPCACHE_LOOKUP, one launch each),
+             each against the plain version, the generic form also
+             against DIR-24-8 built from the same map; then timed;
+  reshard    live resharding: a router over config 5's FleetCompiler
+             policy tables with its compact DatapathTables attached, on
+             a virtual (2, 2) mesh, grown to (2, 4) and shrunk back
+             through ReshardPlan in about 8 bounded steps each, a
+             checked dispatch of both planes (dispatch against LATTICE,
+             dispatch_flows against DATAPATH_STEP) at every step and 0
+             differing entries; during the grow a chip of new column 2
+             dies at the reshard.migrate seam (the plan completes from
+             the replicas) and a churn publish of both planes (a
+             one-rule policy delta, a CT write-back and an ipcache
+             upsert) patches the live epochs and is folded into the
+             staged ones; REPAIR_SCATTER against its plain version on
+             the grow's datapath relayout segments (the REPAIR_SCATTER
+             row's `relayout`).
 
 The churn path's int picks are drawn on the card by PICK_DRAW, the
 reference's threefry2x32 randint; churn_check also runs 2 int-pick
@@ -7355,6 +7382,669 @@ def dp_mesh_alone() -> None:
     dp_mesh_timing(kernels, u, {}, smi)
 
 
+# -- the lookups of K20 outside the datapath (HASH_LOOKUP, IPCACHE_LOOKUP) --------
+
+LOOKUP_SRC = "cilium_tpu_torch/csrc/lookup.cu"
+HASH_KEYS = 1 << 18  # capacity LOAD_FACTOR_INV x keys = 1,048,576
+HASH_KW = 4  # a CT tuple's key words
+HASH_QUERIES = 1 << 22  # half hits, half misses
+HASH_CANDIDATES = 1 << 26  # keys hashed on the card to find the cluster
+HASH_CLUSTER_SLOTS = 4  # the cluster's home slots: the main region's last
+HASH_STASH_FILL = 120  # stash rows the cluster aims to fill (of 128)
+HASH_SENTINELS = 1024  # all-ones query rows
+HASH_DICT_ROWS = 1 << 16  # queries also held against a host dict
+IPC_ADDRESSES = 1 << 20
+LOOKUP_CALLS = 20
+
+
+def hash_world(seed: int = 61) -> dict:
+    """262,144 unique KW = 4 keys, a few of them a cluster whose home
+    slots are the main region's last HASH_CLUSTER_SLOTS (found by hashing
+    HASH_CANDIDATES random keys on the card), sized so that the stash
+    holds about HASH_STASH_FILL keys and the cluster's windows wrap to
+    slot 0; the table built on the host (build_hash_table)."""
+    from cilium_tpu_torch.engine import hashtable as ht
+
+    t = time.perf_counter()
+    cap = ht.LOAD_FACTOR_INV * HASH_KEYS
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    cand = torch.randint(-(1 << 31), 1 << 31, (HASH_CANDIDATES, HASH_KW),
+                         generator=gen, device="cuda", dtype=torch.int32)
+    home = ht.fnv1a(cand) & (cap - 1)
+    cluster = cand[home >= cap - HASH_CLUSTER_SLOTS].cpu().numpy().view(
+        np.uint32)
+    del cand, home
+    torch.cuda.empty_cache()
+    rng = np.random.default_rng(seed)
+    bg = np.unique(rng.integers(0, 1 << 32, size=(HASH_KEYS + 4096, HASH_KW),
+                                dtype=np.uint64).astype(np.uint32), axis=0)
+    bg = bg[~(bg == M32).all(axis=1)]
+    bg = bg[~(bg[:, None, :] == cluster[None, :, :]).all(axis=2).any(axis=1)]
+    bg = bg[rng.permutation(len(bg))]
+    _, base_left = ht._place_vectorized(ht._fnv1a_host(bg[:HASH_KEYS]), cap,
+                                        ht.PROBE_WINDOW)
+    n_cluster = min(len(cluster), 2 * HASH_CLUSTER_SLOTS + 8
+                    + HASH_STASH_FILL - len(base_left))
+    while True:
+        keys = np.concatenate([bg[:HASH_KEYS - n_cluster],
+                               cluster[:n_cluster]])
+        table = ht.build_hash_table(keys, min_capacity=cap)
+        stash = int((~(table.keys[cap:] == M32).all(axis=1)).sum())
+        if table.capacity == cap:
+            break
+        n_cluster -= 8  # the stash overflowed: a smaller cluster
+    wrapped = int((table.value_index[:ht.PROBE_WINDOW]
+                   >= HASH_KEYS - n_cluster).sum())
+    phase("hash_world", t, keys=len(keys), capacity=table.capacity,
+          stash_rows=table.keys.shape[0] - cap, stash_filled=stash,
+          cluster=n_cluster, cluster_candidates=len(cluster),
+          wrapped_slots=wrapped)
+    if stash < HASH_STASH_FILL // 2 or not wrapped:
+        raise SystemExit(f"hash_world: stash {stash}, wrapped {wrapped}")
+    return dict(keys=keys, table=table, cluster=n_cluster, stash=stash)
+
+
+def hash_queries(hw: dict, seed: int = 62) -> np.ndarray:
+    """HASH_QUERIES rows, shuffled: half hits (every stash and cluster key,
+    then keys drawn with repetition), half misses (random u32 rows,
+    HASH_SENTINELS all-ones rows and keys with one word flipped)."""
+    rng = np.random.default_rng(seed)
+    keys = hw["keys"]
+    half = HASH_QUERIES // 2
+    n = len(keys)
+    special = np.arange(n - hw["cluster"], n)
+    hits = keys[np.concatenate([special, rng.integers(
+        0, n, size=half - len(special))])]
+    flip = keys[rng.integers(0, n, size=4096)].copy()
+    flip[:, 1] ^= 0x5A5A5A5A
+    miss = np.concatenate([
+        np.full((HASH_SENTINELS, HASH_KW), M32, np.uint32), flip,
+        rng.integers(0, 1 << 32, size=(half - HASH_SENTINELS - len(flip),
+                                       HASH_KW), dtype=np.uint64
+                     ).astype(np.uint32)])
+    q = np.concatenate([hits, miss])
+    return q[rng.permutation(len(q))]
+
+
+def hash_need(table, q: torch.Tensor, found: torch.Tensor,
+              index: torch.Tensor) -> int:
+    """Bytes HASH_LOOKUP must move on `q`, whose answer is (found,
+    index): the queries read and (found, index) written once, the key
+    words of each distinct main-region slot a window reads and of the
+    stash, once, and the value_index word of each distinct slot a query
+    hits (keys are distinct, so one index per slot)."""
+    from cilium_tpu_torch.engine import hashtable as ht
+
+    cap = int(table.capacity)
+    h = ht.fnv1a(q) & (cap - 1)
+    touched = torch.zeros(cap, dtype=torch.bool, device=q.device)
+    for p in range(int(table.max_probes)):
+        touched[(h + p) & (cap - 1)] = True
+    slots = int(touched.sum().item())
+    kw = int(table.keys.shape[1])
+    stash = int(table.keys.shape[0]) - cap
+    hit_slots = int(torch.unique(index[found]).numel())
+    return (nbytes(q) + q.shape[0] * 5 + (slots + stash) * 4 * kw
+            + hit_slots * 4)
+
+
+def hash_lookup_phase(kernels, rows) -> None:
+    """hash_lookup: the generic hash table (K20 rest a) at 262,144 keys
+    and 4,194,304 queries through lookup_batch (HASH_LOOKUP, counts set to
+    0 just before and read just after), against the plain version on the
+    card and HASH_DICT_ROWS rows against a host dict; then timed."""
+    from cilium_tpu_torch.convert import hashtable_to
+    from cilium_tpu_torch.engine import hashtable as ht
+
+    hw = hash_world()
+    t = time.perf_counter()
+    tab = hashtable_to(hw["table"], "cuda")
+    qh = hash_queries(hw)
+    q = torch.from_numpy(qh.view(np.int32)).cuda()
+    torch.cuda.synchronize()
+    reset_counts(kernels)
+    t1 = time.perf_counter()
+    found, index = ht.lookup_batch(tab, q)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t1
+    counts = dp_counts(kernels)
+    pf, pi = ht.lookup_batch_plain(tab, q)
+    err = max(int_err(found, pf), int_err(index, pi))
+    rows_dict = {tuple(k): i for i, k in enumerate(hw["keys"].tolist())}
+    fh, ih = found[:HASH_DICT_ROWS].cpu().numpy(), index[
+        :HASH_DICT_ROWS].cpu().numpy()
+    dict_err = 0
+    for k, f, i in zip(qh[:HASH_DICT_ROWS].tolist(), fh, ih):
+        want = rows_dict.get(tuple(k))
+        dict_err += (bool(f) != (want is not None)) or (
+            want is not None and int(i) != want) or (want is None and i != 0)
+    n_found = int(found.sum().item())
+    phase("hash_lookup", t, keys=len(hw["keys"]), queries=HASH_QUERIES,
+          kw=HASH_KW, capacity=tab.capacity, stash_filled=hw["stash"],
+          launches=counts, wall_ms=round(wall * 1e3, 3), found=n_found,
+          max_abs_err=err, dict_rows=HASH_DICT_ROWS, dict_differing=dict_err)
+    if (err or dict_err or counts != {kernels.HASH_LOOKUP.name: 1}
+            or n_found < HASH_QUERIES // 2):
+        raise SystemExit("hash_lookup: the kernel differs from its plain "
+                         "version or the host dict")
+    t = time.perf_counter()
+    ms = event_ms(lambda: kernels.HASH_LOOKUP(tab, q), LOOKUP_CALLS)
+    qms = queued_ms(lambda: kernels.HASH_LOOKUP(tab, q), LOOKUP_CALLS)
+    plain_ms = event_ms(lambda: ht.lookup_batch_plain(tab, q), 3)
+    need = hash_need(tab, q, pf, pi)
+    ops = HASH_QUERIES * (12 * HASH_KW + 2 * ht.PROBE_WINDOW * HASH_KW)
+    bb, bo = need / HBM_BYTES_PER_S * 1e3, ops / OPS_PER_S * 1e3
+    phase("hash_lookup_timing", t, ms=round(ms, 4), queued_ms=qms,
+          plain_ms=round(plain_ms, 4), need_bytes=need,
+          bound_ms=round(max(bb, bo), 4))
+    row = kernel_row(kernels.HASH_LOOKUP, LOOKUP_SRC,
+                     "cilium_tpu/engine/hashtable.py:200",
+                     counts[kernels.HASH_LOOKUP.name], err, ms, plain_ms,
+                     bb, bo)
+    row.update(queued_ms=qms, launches_by_path={"hash_lookup": 1})
+    rows.append(row)
+
+
+def ipcache_forms(w, host, node) -> dict:
+    """The IPCacheDevice forms on the host: config 5's generic (raw
+    identities), its idx form with L3 planes (32 endpoints), that form in
+    sub-word planes (the headline's), and the node world's idx form
+    without L3 planes and with the [B, P] scan."""
+    from cilium_tpu_torch.ipcache.lpm import (
+        build_ipcache,
+        specialize_ipcache_to_idx,
+        subword_ipcache,
+    )
+
+    generic = build_ipcache(w.ipc_map)
+    planes = specialize_ipcache_to_idx(generic, host.policy)
+    return {"config5_generic": generic, "config5_idx_planes": planes,
+            "config5_subword": subword_ipcache(planes),
+            "node_idx_scan": node[1].ipcache}
+
+
+def ipc_addresses(ipc_map, seed: int = 63) -> np.ndarray:
+    """IPC_ADDRESSES addresses: every /32 of the map, the first and last
+    address of every range, the empty-lane marker 0xFFFFFFFF, and
+    random addresses inside the ranges and anywhere."""
+    rng = np.random.default_rng(seed)
+    exact, lo, hi = [], [], []
+    for cidr in ipc_map:
+        net = ipaddress.ip_network(cidr, strict=False)
+        if net.prefixlen == 32:
+            exact.append(int(net.network_address))
+        else:
+            lo.append(int(net.network_address))
+            hi.append(int(net.broadcast_address))
+    lo, hi = np.asarray(lo, np.int64), np.asarray(hi, np.int64)
+    pick = rng.integers(0, len(lo), size=IPC_ADDRESSES // 4)
+    inside = lo[pick] + (rng.random(len(pick)) * (hi[pick] - lo[pick] + 1)
+                         ).astype(np.int64)
+    head = np.concatenate([exact, lo, hi, [M32] * 16, inside]).astype(
+        np.int64)[:IPC_ADDRESSES // 2]
+    rest = rng.integers(0, 1 << 32, size=IPC_ADDRESSES - len(head))
+    return np.concatenate([head, rest]).astype(np.uint32)
+
+
+def distinct_words(row: torch.Tensor, lane: torch.Tensor) -> int:
+    """The count of distinct (row, lane) pairs: the u32 words read."""
+    return int(torch.unique(row.to(torch.int64) * 65536 + lane).numel())
+
+
+def ipc_need(ipc, ips: torch.Tensor) -> int:
+    """Bytes IPCACHE_LOOKUP must move on `ips`: the addresses read and
+    the values written once; the key lanes of each distinct bucket row
+    the addresses hash to and the stash's address column; the one value
+    word holding each distinct exact hit's entry; and, for the addresses
+    no /32 holds, the base and length lanes of each distinct range-class
+    row their classes probe, longest first until one hits (or the scan's
+    base, mask and length columns), with the value word of each distinct
+    range hit.  The L3 planes and columns are not counted: lpm_lookup
+    returns the value alone."""
+    from cilium_tpu_torch.device import widen
+    from cilium_tpu_torch.engine import subword as sw
+    from cilium_tpu_torch.engine.hashtable import fnv1a
+    from cilium_tpu_torch.ipcache import lpm
+
+    x = ips.to(torch.int64) & M32
+    sub = bool(ipc.bucket_entries)
+    per = (ipc.bucket_entries if sub
+           else (32 if ipc.l3_planes else lpm.IP_ENTRIES_PER_BUCKET))
+    vpl = 32 // (ipc.value_width if sub else 32)  # entries a value word
+    h = fnv1a(x[:, None]) & (int(ipc.n_buckets) - 1)
+    need = 8 * x.numel() + int(torch.unique(h).numel()) * per * 4
+    hit = widen(ipc.buckets[:, :per][h]) == x[:, None]
+    b_found = hit.any(dim=1)
+    lane = hit.to(torch.int8).argmax(dim=1) // vpl
+    need += 4 * distinct_words(h[b_found], lane[b_found])
+    stash = widen(ipc.stash)
+    need += 4 * int(stash.shape[0])
+    s_hit = stash[None, :, 0] == x[:, None]
+    s_found = s_hit.any(dim=1)
+    need += 4 * int(torch.unique(s_hit.to(torch.int8).argmax(dim=1)[
+        s_found]).numel())
+    rest = x[~(b_found | s_found)]
+    if ipc.range_rows is None:
+        base, mask = widen(ipc.range_base), widen(ipc.range_mask)
+        plen = widen(ipc.range_plen)
+        need += 4 * 3 * int(plen.shape[0])
+        won = []
+        for k in range(0, int(rest.shape[0]), 1 << 12):
+            r = rest[k:k + (1 << 12)]
+            match = (r[:, None] & mask[None, :]) == base[None, :]
+            lens = torch.where(match, plen[None, :], 0)
+            best = lens.amax(dim=1)
+            won.append(lens.argmax(dim=1)[best > 0])
+        if won:
+            need += 4 * int(torch.unique(torch.cat(won)).numel())
+        return need
+    e = lpm.RANGE_ENTRIES_PER_BUCKET
+    wd = ipc.range_widths or (32, 32, 32)
+    kl = sw.lanes_for(e, wd[1])
+    nrows = int(ipc.range_rows.shape[0])
+    for sp in ipc.range_class_plens:
+        w0, rh = lpm.range_class_key(rest, int(sp))
+        rh = rh & (nrows - 1)
+        need += int(torch.unique(rh).numel()) * 4 * (e + kl)
+        row = ipc.range_rows[rh]
+        hit = (widen(row[:, :e]) == w0[:, None]) & (
+            sw.unpack_lanes(row[:, e:e + kl], wd[1], e) == int(sp))
+        f = hit.any(dim=1)
+        need += 4 * distinct_words(rh[f], hit.to(torch.int8).argmax(
+            dim=1)[f] // (32 // wd[2]))
+        rest = rest[~f]
+    return need
+
+
+def ipcache_lookup_phase(kernels, w, host, node, rows) -> None:
+    """ipcache_lookup: IPC_ADDRESSES addresses through lpm_lookup over
+    each IPCacheDevice form (IPCACHE_LOOKUP, counts set to 0 just before
+    and read just after), each against its plain version on the card;
+    the generic form also against lpm_lookup_plain over build_lpm of the
+    same map (DIR-24-8, an independent build); then timed."""
+    from cilium_tpu_torch.convert import lpm_to, plane_to
+    from cilium_tpu_torch.device import narrow
+    from cilium_tpu_torch.ipcache import lpm
+
+    t = time.perf_counter()
+    forms = {k: plane_to(v, "cuda") for k, v in ipcache_forms(
+        w, host, node).items()}
+    ips = {"config5": torch.from_numpy(ipc_addresses(w.ipc_map).view(
+        np.int32)).cuda(), "node": torch.from_numpy(ipc_addresses(
+            node[0].ipc_map, 64).view(np.int32)).cuda()}
+    ips_of = {k: ips["node" if k.startswith("node") else "config5"]
+              for k in forms}
+    torch.cuda.synchronize()
+    reset_counts(kernels)
+    t1 = time.perf_counter()
+    outs = {k: lpm.lpm_lookup(v, ips_of[k]) for k, v in forms.items()}
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t1
+    counts = dp_counts(kernels)
+    errs = {k: int_err(outs[k], narrow(lpm.lookup_plain(v, ips_of[k])),
+                       u32=True) for k, v in forms.items()}
+    dir24 = lpm.lpm_lookup_plain(lpm_to(lpm.build_lpm(w.ipc_map), "cuda"),
+                                 ips["config5"])
+    marker = (ips["config5"].to(torch.int64) & M32) == M32
+    indep = int(((outs["config5_generic"].to(torch.int64) & M32)
+                 != dir24)[~marker].sum().item())
+    layouts = {k: dict(l3_planes=bool(v.l3_planes),
+                       range_classes=v.range_rows is not None,
+                       bucket_entries=int(v.bucket_entries),
+                       idx=bool(v.values_are_idx),
+                       found=int((outs[k] != 0).sum().item()))
+               for k, v in forms.items()}
+    phase("ipcache_lookup", t, addresses=IPC_ADDRESSES, launches=counts,
+          wall_ms=round(wall * 1e3, 3), max_abs_err=json.dumps(errs),
+          generic_vs_dir24_8_differing=indep, forms=json.dumps(layouts))
+    if (any(errs.values()) or indep
+            or counts != {kernels.IPCACHE_LOOKUP.name: len(forms)}
+            or any(not v["found"] for v in layouts.values())):
+        raise SystemExit("ipcache_lookup: the kernel differs from its plain "
+                         "version or the generic form from DIR-24-8")
+    t = time.perf_counter()
+    by_form = {}
+    for k, v in forms.items():
+        x = ips_of[k]
+        ms = event_ms(lambda: kernels.IPCACHE_LOOKUP(v, x), LOOKUP_CALLS)
+        qms = queued_ms(lambda: kernels.IPCACHE_LOOKUP(v, x), LOOKUP_CALLS)
+        plain_ms = event_ms(lambda: lpm.lookup_plain(v, x), 3)
+        need = ipc_need(v, x)
+        by_form[k] = dict(ms=ms, queued_ms=qms, plain_ms=plain_ms,
+                          need_bytes=need,
+                          bound_ms=need / HBM_BYTES_PER_S * 1e3,
+                          max_abs_err=errs[k])
+    phase("ipcache_lookup_timing", t, by_form=json.dumps(by_form))
+    head = by_form["config5_subword"]
+    row = kernel_row(kernels.IPCACHE_LOOKUP, LOOKUP_SRC,
+                     "cilium_tpu/ipcache/lpm.py:1079",
+                     counts[kernels.IPCACHE_LOOKUP.name], max(errs.values()),
+                     head["ms"], head["plain_ms"], head["bound_ms"], 0.0)
+    row.update(queued_ms=head["queued_ms"], by_form=by_form,
+               launches_by_path={"ipcache_lookup": len(forms)})
+    rows.append(row)
+
+
+# -- live resharding of the mesh stores ---------------------------------------------
+
+RESHARD_SHAPE = (2, 2)  # the source mesh; the grow goes to (2, 4) and back
+RESHARD_GROW_TP = 4
+RESHARD_TUPLES = 1 << 18  # a checked dispatch's tuples, and its flows
+RESHARD_STEPS = 8  # step_bytes: the grow's moved bytes over this many steps
+RESHARD_PORT = 4361  # the policy churn's one-rule delta (team 0 -> app0)
+RESHARD_CHURN_STEP = 2  # dp_churn's step (dp_mesh_store took 0 and 1)
+RESHARD_CHURN_AT = 2  # the churn publish lands after this many grow steps
+
+
+def reshard_setup(kernels, w, host, tables) -> dict:
+    """The reshard phase's world: config 5's map states through a
+    FleetCompiler (the router's policy tables) and a one-rule churn of
+    them (RESHARD_PORT), config 5's compact DatapathTables (`host`) and
+    a datapath churn step of them (a CT write-back and an ipcache
+    upsert, dp_churn); the router on the virtual (2, 2) mesh (published
+    twice, the datapath attached), breakers on a manual clock; the
+    RESHARD_TUPLES tuples and flows of every checked dispatch and their
+    references on both worlds (LATTICE, DATAPATH_STEP)."""
+    from cilium_tpu_torch import world
+    from cilium_tpu_torch.compiler.tables import FleetCompiler
+    from cilium_tpu_torch.convert import policy_tables_to, tables_to
+    from cilium_tpu_torch.engine import mesh
+    from cilium_tpu_torch.engine.failover import ChipFailoverRouter
+    from cilium_tpu_torch.engine.verdict import TupleBatch
+    from cilium_tpu_torch.resilience import ChipBreakerBank
+
+    t = time.perf_counter()
+    fc = FleetCompiler(identity_pad=w.identity_pad, filter_pad=w.filter_pad)
+    ids = list(w.identity_ids)
+    arrays = world.map_state_arrays(w.states)
+    pols = [host_copy(fc.compile([(e, s, 0) for e, s in enumerate(arrays)],
+                                 ids)[0])]
+    arrays = world.one_rule_states(w, RESHARD_PORT, states=arrays)
+    pols.append(host_copy(fc.compile(
+        [(e, s, 1 if e == 0 else 0) for e, s in enumerate(arrays)], ids)[0]))
+    compile_s = time.perf_counter() - t
+    cols = world.lattice_tuples(w, RESHARD_TUPLES, seed=7)
+    batch = TupleBatch.from_numpy(**cols, device="cuda")
+    pair = torch.from_numpy(w.pairs(seed=73, half=RESHARD_TUPLES // 2,
+                                    k=1)[0].view(np.int32)).cuda()
+    words = words_of_pair(pair, 74)
+    dhosts = [host, dp_churn(kernels, w, host, tables, words,
+                             RESHARD_CHURN_STEP)[0]]
+    refs = []
+    for pol, dh in zip(pols, dhosts):
+        single = policy_tables_to(pol, "cuda")
+        refs.append((lattice_ref(kernels, single, batch),
+                     dp_oracle(kernels, tables_to(dh, "cuda"), None,
+                               words)["flows"]))
+        del single
+    clock = ManualClock()
+    bank = ChipBreakerBank(recovery_timeout=1.0, failure_threshold=1,
+                           clock=clock)
+    router = ChipFailoverRouter(mesh.make_mesh(*RESHARD_SHAPE), pols[0],
+                                bank=bank, collect_telemetry=True)
+    for _ in range(2):
+        router.publish(pols[0])
+    router.attach_datapath(host)
+    torch.cuda.synchronize()
+    phase("reshard_setup", t, mesh=RESHARD_SHAPE, tuples=RESHARD_TUPLES,
+          compile_s=round(compile_s, 3), ordinals=router.ordinals.tolist(),
+          policy_full_bytes=tables_nbytes_of(router.store),
+          datapath_full_bytes=router.dp_store.full_bytes())
+    return dict(router=router, clock=clock, fc=fc, pols=pols, dhosts=dhosts,
+                refs=refs, cols=cols, fcols=dp_host_cols(words))
+
+
+def tables_nbytes_of(store) -> int:
+    """The host bytes of a DeviceTableStore's live epoch (its layout)."""
+    return int(store._slots[store._cur]["nbytes"])
+
+
+def reshard_check(kernels, r, ref, tag: str, stats: list) -> dict:
+    """One checked dispatch of each plane: router.dispatch of the tuples
+    against LATTICE's verdicts, counters and telemetry, dispatch_flows of
+    the flows against DATAPATH_STEP's; the differing entries must be 0."""
+    router = r["router"]
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    res = router.dispatch(**r["cols"])
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    dres = router.dispatch_flows(**r["fcols"])
+    torch.cuda.synchronize()
+    t3 = time.perf_counter()
+    rec = dict(tag=tag, policy_ms=round((t2 - t1) * 1e3, 3),
+               datapath_ms=round((t3 - t2) * 1e3, 3),
+               policy_differing=fail_ref_err(res, ref[0]),
+               datapath_differing=sum(dp_result_err(dres, ref[1]).values()),
+               replica_hits=[res.replica_hits, dres.replica_hits],
+               tp=router.tp)
+    stats.append(rec)
+    if rec["policy_differing"] or rec["datapath_differing"] or (
+            res.degraded or dres.degraded):
+        raise SystemExit(f"reshard {tag}: a checked dispatch differs from "
+                         f"LATTICE or DATAPATH_STEP: {rec}")
+    return rec
+
+
+def moved_bytes(pol, dtables) -> int:
+    """Bytes of the rows a grow from RESHARD_SHAPE moves: both stores'
+    moved rows (partition.reshard_moved_rows and
+    datapath_reshard_moved_rows) times their row bytes."""
+    from cilium_tpu_torch.compiler import partition
+
+    total = 0
+    src, dst = RESHARD_SHAPE[1], RESHARD_GROW_TP
+    sets = [(pol, name, axis, idx) for name, (axis, idx) in
+            partition.reshard_moved_rows(pol, src, dst).items()]
+    sets += [(getattr(dtables, fam), name, axis, idx)
+             for (fam, name), (axis, idx) in
+             partition.datapath_reshard_moved_rows(dtables, src,
+                                                   dst).items()]
+    for obj, name, axis, idx in sets:
+        leaf = np.asarray(getattr(obj, name))
+        total += int(idx.size) * (leaf.nbytes // leaf.shape[axis])
+    return total
+
+
+def relayout_hold(kernels, store, plan) -> dict:
+    """REPAIR_SCATTER against its plain version on the relayout segments
+    of the grow's whole datapath queue (every moved row of the staged
+    target epoch, each leaf's rows on each block), on copies of the
+    staged blocks; timed beside the plain version and index_copy_."""
+    from cilium_tpu_torch.engine import datapath_mesh as dm
+    from cilium_tpu_torch.engine.publish import repair_segments_plain
+
+    sets = {}
+    for it in plan._pending:
+        if it["plane"] == "datapath":
+            prev = sets.get(it["key"])
+            sets[it["key"]] = (it["axis"], it["idx"] if prev is None else
+                               np.concatenate([prev[1], it["idx"]]))
+    slot = store._slots[store._cur ^ 1]
+    aug = slot["host"]
+    payloads = [(fam, name, axis, idx, np.take(np.asarray(getattr(getattr(
+        aug, fam), name)), idx, axis=axis)) for (fam, name), (axis, idx)
+        in sorted(sets.items())]
+    segs = [s for v in dm.segments(slot["dev"], payloads).values() for s in v]
+
+    def copies():
+        return [(d.clone(), a, i, v) for d, a, i, v in segs]
+
+    def kernel(segments):
+        for k in range(0, len(segments), kernels.MAX_SCATTER_SEGMENTS):
+            kernels.REPAIR_SCATTER(
+                segments[k:k + kernels.MAX_SCATTER_SEGMENTS])
+
+    got, want = copies(), copies()
+    kernel(got)
+    repair_segments_plain(want)
+    err = max(entries_differ(a[0], b[0]) for a, b in zip(got, want))
+    ms = event_ms(lambda: kernel(got), LOOKUP_CALLS)
+    plain_ms = event_ms(lambda: repair_segments_plain(want), 3)
+    lib_ms = event_ms(lambda: [d.index_copy_(a, i, v) for d, a, i, v in want],
+                      3)
+    need = sum(nbytes(i) + 2 * nbytes(v) for _, _, i, v in segs)
+    del got, want
+    return dict(segments=len(segs), rows=sum(int(i.numel())
+                                             for _, _, i, _ in segs),
+                ms=ms, plain_ms=plain_ms,
+                bound_ms=need / HBM_BYTES_PER_S * 1e3, library_ms=lib_ms,
+                max_abs_err=err)
+
+
+def reshard_phase(kernels, w, host, tables, rows) -> None:
+    """reshard: the router's stores on the virtual (2, 2) mesh grown to
+    (2, 4) and shrunk back through ReshardPlan (counts set to 0 just
+    before and read just after), a checked dispatch of both planes at
+    every step; during the grow a chip of a new column dies at the
+    reshard.migrate seam (the plan completes from the replicas) and a
+    churn publish of both planes lands (dual-applied); REPAIR_SCATTER
+    against its plain version on the relayout segments."""
+    from cilium_tpu_torch import faultinject
+    from cilium_tpu_torch.compiler import partition
+    from cilium_tpu_torch.engine import reshard
+    from cilium_tpu_torch.metrics import registry as metrics
+
+    r = reshard_setup(kernels, w, host, tables)
+    router = r["router"]
+    checks = []
+    t = time.perf_counter()
+    reset_counts(kernels)
+    reshard_check(kernels, r, r["refs"][0], "before", checks)
+    path = dp_counts(kernels)
+    moved = moved_bytes(r["pols"][0], r["dhosts"][0])
+    step_bytes = max(moved // RESHARD_STEPS, 1)
+    legs, ref = [], r["refs"][0]
+    for tp, dtables in ((RESHARD_GROW_TP, r["dhosts"][0]),
+                        (RESHARD_SHAPE[1], r["dhosts"][1])):
+        plan = reshard.ReshardPlan(
+            router, reshard.reshard_target_mesh(router, tp),
+            step_bytes=step_bytes, on_fault="complete", dtables=dtables)
+        plan.begin()
+        grow = tp == RESHARD_GROW_TP
+        if grow:
+            hold = relayout_hold(kernels, router.dp_store, plan)
+            victim = plan._target_ordinals_of_col(RESHARD_SHAPE[1])[0]
+            faultinject.arm("reshard.migrate", f"raise:chip={victim}")
+        reset_counts(kernels)
+        pol_bytes0 = metrics.rebalance_bytes_h2d_total.get()
+        step_ms = []
+        while plan.pending():
+            t1 = time.perf_counter()
+            plan.step()
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t1) * 1e3)
+            if grow and plan.stats["steps"] == RESHARD_CHURN_AT:
+                # the churn publish: a policy delta against the live
+                # epoch and a datapath churn step, then the staged fold
+                pol2, dh2 = r["pols"][1], r["dhosts"][1]
+                delta = r["fc"].delta_for(router.store.current_stamp(), pol2)
+                _, st = router.publish(pol2, delta)
+                _, dst = router.publish_datapath(dh2)
+                plan.on_publish(pol2, dtables=dh2)
+                ref = r["refs"][1]
+                if st.mode != "delta" or dst.mode != "delta" or (
+                        router.store.relayout_state()["broken"]):
+                    raise SystemExit(f"reshard: the churn publish took "
+                                     f"{st.mode}/{dst.mode}")
+            reshard_check(kernels, r, ref, f"tp{tp} step "
+                          f"{plan.stats['steps']}", checks)
+        faultinject.disarm_all()
+        full = {"policy": tables_nbytes_of(router.store),
+                "datapath": router.dp_store.full_bytes()}
+        t1 = time.perf_counter()
+        out = plan.cutover()
+        torch.cuda.synchronize()
+        cut_ms = (time.perf_counter() - t1) * 1e3
+        pol_bytes = metrics.rebalance_bytes_h2d_total.get() - pol_bytes0
+        after = reshard_check(kernels, r, ref, f"tp{tp} after", checks)
+        for k, v in dp_counts(kernels).items():
+            path[k] = path.get(k, 0) + v
+        leg = dict(tp=f"{RESHARD_SHAPE[1]}->{tp}" if grow
+                   else f"{RESHARD_GROW_TP}->{tp}",
+                   outcome=out["outcome"], steps=out["steps"],
+                   restarts=out["restarts"], dead_cols=out["dead_cols"],
+                   bytes_h2d={"policy": int(pol_bytes),
+                              "datapath": int(out["bytes_h2d"] - pol_bytes)},
+                   source_full_bytes=full, step_bytes=step_bytes,
+                   step_ms=[round(x, 3) for x in step_ms],
+                   cutover_ms=round(cut_ms, 3), plan_ms=round(out["ms"], 3),
+                   ordinals=router.ordinals.tolist(),
+                   target_full_bytes={
+                       "policy": tables_nbytes_of(router.store),
+                       "datapath": router.dp_store.full_bytes()},
+                   replica_hits_after=after["replica_hits"])
+        legs.append(leg)
+        phase("reshard_leg", t1, **{k: json.dumps(v) if isinstance(
+            v, (dict, list)) else v for k, v in leg.items()})
+        if (out["outcome"] != "cutover" or out["restarts"]
+                or out["steps"] < 2 or router.tp != tp):
+            raise SystemExit(f"reshard {leg['tp']}: {out}")
+    during = [c for c in checks if c["tag"] not in ("before",)
+              and not c["tag"].endswith("after")]
+    disp = {k: dict(policy_ms=round(float(np.median([c["policy_ms"]
+                                                     for c in v])), 3),
+                    datapath_ms=round(float(np.median([c["datapath_ms"]
+                                                       for c in v])), 3))
+            for k, v in (("before", checks[:1]), ("during", during),
+                         ("after", [checks[-1]]))}
+    differing = [c["policy_differing"] + c["datapath_differing"]
+                 for c in checks]
+    phase("reshard", t, launches=json.dumps(path), legs=len(legs),
+          checks=len(checks), differing_per_check=json.dumps(differing),
+          dispatch_ms=json.dumps(disp), grow_dead_cols=legs[0]["dead_cols"],
+          relayout_repair=json.dumps(hold),
+          ordinals=json.dumps([leg["ordinals"] for leg in legs]))
+    need = (kernels.REPAIR_SCATTER, kernels.PUBLISH_SCATTER,
+            kernels.ROUTED_PROBE, kernels.MESH_COMBINE,
+            kernels.DP_MESH_PROBE, kernels.DP_MESH_COMBINE)
+    if (any(differing) or hold["max_abs_err"]
+            or any(not path.get(k.name) for k in need)
+            or legs[0]["dead_cols"] != [RESHARD_SHAPE[1]]
+            or legs[0]["ordinals"] != [[0, 1, 4, 5], [2, 3, 6, 7]]
+            or legs[1]["ordinals"] != [[0, 1], [2, 3]]):
+        raise SystemExit(f"reshard: {path}, relayout {hold}")
+    for row in rows:
+        n = path.get(row["name"], 0)
+        if n:
+            row.setdefault("launches_by_path", {"earlier": row["launches"]})
+            row["launches_by_path"]["reshard"] = n
+            row["launches"] += n
+        if row["name"] == kernels.REPAIR_SCATTER.name:
+            row["relayout"] = hold
+            row["max_abs_err"] = max(row["max_abs_err"], hold["max_abs_err"])
+    print("  reshard " + json.dumps({"legs": legs, "dispatch_ms": disp}),
+          flush=True)
+
+
+def lookup_reshard_alone() -> None:
+    """hash_lookup, ipcache_lookup and reshard alone (the lookup kernels,
+    the mesh, datapath-mesh and publish libraries built first) on config
+    5's world and the node world: `python3 -c "import chip_smoke;
+    chip_smoke.lookup_reshard_alone()"` on one H100."""
+    from cilium_tpu_torch import kernels, world
+    from cilium_tpu_torch.convert import tables_to
+
+    if not torch.cuda.is_available():
+        raise SystemExit("chip_smoke: no CUDA device")
+    t = time.perf_counter()
+    kernels.build_all(("lookup", "mesh", "datapath_mesh", "publish",
+                       "datapath", "lattice"))
+    phase("build", t, card=repr(nvidia_smi()))
+    w = world.make_world(seed=5)
+    host = world.headline_tables(w, w.host_tables())
+    tables = tables_to(host, "cuda")
+    nw = node_world_phase(kernels, "node")
+    rows = [kernel_row(k, "", "", 0, 0, 0.0, 0.0, 0.0, 0.0)
+            for k in (kernels.REPAIR_SCATTER,)]
+    hash_lookup_phase(kernels, rows)
+    ipcache_lookup_phase(kernels, w, host, (nw["w"], nw["host"]), rows)
+    del nw
+    torch.cuda.empty_cache()
+    reshard_phase(kernels, w, host, tables, rows)
+    print(json.dumps({"kernels": rows}), flush=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -7648,7 +8338,12 @@ def main() -> int:
     mesh_phases(kernels, w, rows, smi)
     torch.cuda.empty_cache()
     dp_mesh_phases(kernels, w, host, tables, node, rows, smi)
+    torch.cuda.empty_cache()
+    hash_lookup_phase(kernels, rows)
+    ipcache_lookup_phase(kernels, w, host, node, rows)
     del node
+    torch.cuda.empty_cache()
+    reshard_phase(kernels, w, host, tables, rows)
 
     if len(rows) != len(kernels.KERNELS):
         raise SystemExit(f"{len(rows)} kernel rows for "
@@ -7664,7 +8359,9 @@ def main() -> int:
           "cache, the memo's key words, the memcached rule match, the "
           "shadow diff's four columns, or the mesh's shard probes and "
           "their combine, or the memo's probe, combine and insert on the "
-          "mesh, or the fused datapath's rounds and combine on the mesh; "
+          "mesh, or the fused datapath's rounds and combine on the mesh, "
+          "or the windowed hash-table lookup with its stash, or the "
+          "bucketized ipcache lookup; "
           "repair_scatter's is index_copy_ along the repaired axis "
           "(a time only)",
           flush=True)

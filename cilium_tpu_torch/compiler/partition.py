@@ -1,6 +1,5 @@
 """Declarative per-leaf partition rules for the policy and datapath
-tables (the reference's compiler/partition.py, all but its reshard row
-maps).
+tables (the reference's compiler/partition.py).
 
 A REGEX RULE TABLE matched over the leaf names (`match_partition_rules`)
 decides which leaves shard along the mesh's `table` axis, with
@@ -43,7 +42,7 @@ from __future__ import annotations
 import dataclasses
 import re
 import zlib
-from typing import Dict, List, Optional, Sequence
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -777,3 +776,88 @@ def datapath_alltoall_bytes_per_tuple(num_shards: int,
     if num_shards <= 1:
         return 0.0
     return 12.0 + 8.0 + 16.0 + 20.0 + 8.0 + 8.0 * range_classes
+
+
+# -- live resharding: the owned-row delta between two shard counts ---------------
+#
+# The augmented replica layout keeps its total shape under any shard
+# count (a sharded axis [S] is [2S] whatever ntp), so moving a leaf from
+# ntp_src to ntp_dst shards is an index permutation of the augmented
+# axis.  A target augmented row j, holding un-augmented row u owned by
+# target column c, is RETAINED (already on its chip, no bytes) iff c also
+# exists in the source layout (c < ntp_src) and the source chip of column
+# c already held u in its primary or backup region; every other row is
+# MOVED (streamed host to device by engine/reshard.py and counted in
+# reshard_bytes_h2d).  A grow 2 -> 4 moves exactly the new columns'
+# contents.
+
+
+def reshard_row_map(n_rows: int, ntp_src: int, ntp_dst: int
+                    ) -> Tuple[np.ndarray, np.ndarray]:
+    """For one sharded leaf axis of un-augmented length `n_rows`:
+    (src_unaug, moved) over the target augmented axis [2 * n_rows]:
+    src_unaug[j] the un-augmented row position j holds under ntp_dst
+    (a column block's primary region [0, n) its own slice, its backup
+    region [n, 2n) its left neighbour's), moved[j] whether position j
+    must be streamed.  Both shard counts must divide `n_rows`."""
+    s = int(n_rows)
+    if s % ntp_src or s % ntp_dst:
+        raise ValueError(f"shard counts {ntp_src}->{ntp_dst} must divide "
+                         f"the sharded axis ({s} rows)")
+    n_t = s // ntp_dst
+    n_s = s // ntp_src
+    j = np.arange(2 * s)
+    col = j // (2 * n_t)
+    within = j - col * 2 * n_t
+    primary = within < n_t
+    src_unaug = np.where(
+        primary, col * n_t + within,
+        ((col - REPLICA_BACKUP_OFFSET) % ntp_dst) * n_t + (within - n_t))
+    src_shard = src_unaug // n_s
+    resident = (col < ntp_src) & (
+        (src_shard == col)
+        | (src_shard == (col - REPLICA_BACKUP_OFFSET) % ntp_src))
+    return src_unaug, ~resident
+
+
+def reshard_moved_rows(tables, ntp_src: int, ntp_dst: int,
+                       table_axis: str = TABLE_AXIS
+                       ) -> Dict[str, Tuple[int, np.ndarray]]:
+    """{leaf: (axis, moved target-augmented indices)} of the policy
+    replica leaves: the rows a ReshardPlan streams.  A leaf sharded at
+    one count and replicated at the other is a geometry change, not a
+    permutation: ValueError."""
+    src_axes = replica_axes(tables, ntp_src, table_axis)
+    dst_axes = replica_axes(tables, ntp_dst, table_axis)
+    if set(src_axes) != set(dst_axes):
+        raise ValueError(
+            f"replica leaf sets differ between shard counts {ntp_src} "
+            f"({sorted(src_axes)}) and {ntp_dst} ({sorted(dst_axes)}): not "
+            f"a permutation reshard")
+    out: Dict[str, Tuple[int, np.ndarray]] = {}
+    for name, axis in dst_axes.items():
+        n = int(np.shape(getattr(tables, name))[axis])
+        _, moved = reshard_row_map(n, ntp_src, ntp_dst)
+        out[name] = (axis, np.flatnonzero(moved))
+    return out
+
+
+def datapath_reshard_moved_rows(dtables, ntp_src: int, ntp_dst: int,
+                                table_axis: str = TABLE_AXIS
+                                ) -> Dict[Tuple[str, str],
+                                          Tuple[int, np.ndarray]]:
+    """reshard_moved_rows over the whole fused datapath: {(family, leaf):
+    (axis, moved target-augmented indices)} of every N+1 leaf (policy,
+    CT, ipcache, LB: datapath_all_replica_axes)."""
+    src_axes = datapath_all_replica_axes(dtables, ntp_src, table_axis)
+    dst_axes = datapath_all_replica_axes(dtables, ntp_dst, table_axis)
+    if set(src_axes) != set(dst_axes):
+        raise ValueError(
+            f"datapath replica leaf sets differ between shard counts "
+            f"{ntp_src} and {ntp_dst}: not a permutation reshard")
+    out: Dict[Tuple[str, str], Tuple[int, np.ndarray]] = {}
+    for (fam, leaf), axis in dst_axes.items():
+        n = int(np.shape(getattr(getattr(dtables, fam), leaf))[axis])
+        _, moved = reshard_row_map(n, ntp_src, ntp_dst)
+        out[(fam, leaf)] = (axis, np.flatnonzero(moved))
+    return out

@@ -218,6 +218,19 @@ def lpm_to(tables: LPMTables, device=None) -> LPMTables:
     return _plane_to(tables, resolve_device(device))
 
 
+def hashtable_to(table, device=None):
+    """A HashTable built on the host (engine/hashtable.py) -> the same
+    table on `device` (None = the card): keys as int32 bits,
+    value_index int32."""
+    from cilium_tpu_torch.device import array_tensor
+
+    dev = resolve_device(device)
+    return dataclasses.replace(
+        table, keys=u32_tensor(table.keys, dev),
+        value_index=array_tensor(np.asarray(table.value_index, np.int32),
+                                 dev))
+
+
 def lpm_from_numpy(leaves: dict, device=None) -> LPMTables:
     """The port's LPMTables on `device` (None = the card) from the
     leaves of tables built elsewhere: {l1: u32 [2^24], l2: u32

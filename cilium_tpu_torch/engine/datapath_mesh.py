@@ -1,6 +1,5 @@
 """One datapath, one mesh: the fused IPv4 pipeline over partitioned N+1
-tables (the reference's engine/datapath_mesh.py, all but its relayout
-half).
+tables (the reference's engine/datapath_mesh.py).
 
 engine/datapath.py runs the fused pipeline (prefilter, LB/DNAT, CT,
 ipcache, lattice) on one device with every table whole.  Here every
@@ -47,8 +46,13 @@ shard) pairs served from a backup region, as the reference's
 `DatapathStore` is the publication half: two device epochs of the
 augmented tables (`MeshDatapath`), a row-diff delta or a change-scoped
 publish into the spare, written by REPAIR_SCATTER on the card
-(engine/publish.py route_repair and repair_scatter), and the per-chip
-repair of a readmitted chip.
+(engine/publish.py route_repair and repair_scatter), the per-chip
+repair of a readmitted chip, and the relayout window of a live reshard
+(engine/reshard.py): `begin_relayout` stages the target mesh's layout in
+the spare slot, every moved row zeroed, `relayout_scatter` streams the
+moved rows in through REPAIR_SCATTER, a publish during the window patches
+the live slot in place, and `cutover_relayout` flips the staged epoch
+live and rebinds the store to the target mesh.
 """
 
 from __future__ import annotations
@@ -963,6 +967,9 @@ class DatapathStore:
         self._shardings = None
         # per-epoch change records (None: that publish was full-diffed)
         self._change_log: Dict[int, object] = {}
+        # the open relayout window (begin_relayout): the spare slot holds
+        # the target layout, and publish() patches the live slot
+        self._relayout: Optional[dict] = None
 
     # -- internals -----------------------------------------------------------
 
@@ -1024,6 +1031,12 @@ class DatapathStore:
             for e in list(self._change_log):
                 if e <= self.epoch - 8:
                     del self._change_log[e]
+            if self._relayout is not None and not self._relayout["broken"]:
+                # the spare slot is the staged reshard target: the churn
+                # lands on the live slot
+                dev, stats = self._publish_relayout_locked(dtables, geom, sp)
+                stats.seconds = time.perf_counter() - t0
+                return dev, stats
             spare_i = self._cur ^ 1
             spare = self._slots[spare_i]
             union = (None if spare is None
@@ -1035,8 +1048,7 @@ class DatapathStore:
                 dev, nbytes = self._full_place(aug)
                 stats = DatapathPublishStats(epoch=self.epoch, mode="full",
                                              bytes_h2d=nbytes, seconds=0.0)
-                slot = {"dev": dev, "host": aug, "geom": geom,
-                        "digest": self.partition_digest, "epoch": self.epoch}
+                slot = self._slot(dev, aug, geom)
             elif union is not None:
                 dev, stats = self._publish_scoped(dtables, spare, union)
                 slot = dict(spare, dev=dev, geom=geom, epoch=self.epoch)
@@ -1044,8 +1056,7 @@ class DatapathStore:
                 aug = partition.replicate_datapath_leaves(
                     dtables, self.ntp, self.table_axis)
                 dev, stats = self._publish_delta(aug, spare)
-                slot = {"dev": dev, "host": aug, "geom": geom,
-                        "digest": self.partition_digest, "epoch": self.epoch}
+                slot = self._slot(dev, aug, geom)
             self._slots[spare_i] = slot
             self._cur = spare_i
             stats.seconds = time.perf_counter() - t0
@@ -1053,6 +1064,37 @@ class DatapathStore:
                             bytes_h2d=stats.bytes_h2d,
                             scattered_rows=stats.scattered_rows)
             return dev, stats
+
+    def _slot(self, dev, aug, geom) -> dict:
+        """A slot of the store's current layout."""
+        return {"dev": dev, "host": aug, "geom": geom,
+                "digest": self.partition_digest, "epoch": self.epoch,
+                "ntp": self.ntp}
+
+    def _publish_relayout_locked(self, dtables, geom, sp):
+        """A publish while a relayout window is open (the caller holds the
+        lock): the live slot takes the churn through the row diff,
+        written in place at a stream boundary; a geometry or digest change
+        uploads the live slot in full and marks the window broken, the
+        plan's restart signal."""
+        live_i = self._cur
+        live = self._slots[live_i]
+        aug = partition.replicate_datapath_leaves(dtables, self.ntp,
+                                                  self.table_axis)
+        if (live is None or geom != live["geom"]
+                or live["digest"] != self.partition_digest):
+            dev, nbytes = self._full_place(aug)
+            stats = DatapathPublishStats(epoch=self.epoch, mode="full",
+                                         bytes_h2d=nbytes, seconds=0.0)
+            self._relayout["broken"] = True
+            sp.attrs["relayout_broken"] = True
+        else:
+            dev, stats = self._publish_delta(aug, live)
+        self._slots[live_i] = self._slot(dev, aug, geom)
+        sp.attrs.update(mode=stats.mode, epoch=stats.epoch,
+                        bytes_h2d=stats.bytes_h2d,
+                        scattered_rows=stats.scattered_rows, relayout=True)
+        return dev, stats
 
     def _union_changes(self, spare_epoch: int):
         """The union of the change records of every publish since the
@@ -1153,15 +1195,20 @@ class DatapathStore:
             scattered_rows=n_rows, replaced_leaves=len(replaced))
 
     def _repair_slot(self, slot: dict, col: int) -> int:
+        """One column's owned regions of one slot, in the slot's own
+        layout (its ntp, and its epoch's mesh: the source epoch before a
+        reshard's cutover, the staged target during the window); a column
+        the slot's layout lacks has nothing to repair."""
         aug = slot["host"]
-        if col >= self.ntp:
+        ntp = int(slot["ntp"])
+        if col >= ntp:
             return 0
-        rep_axes = partition.datapath_all_replica_axes(aug, self.ntp,
+        rep_axes = partition.datapath_all_replica_axes(aug, ntp,
                                                        self.table_axis)
         payloads, bytes_h2d = [], 0
         for (fam, name), axis in rep_axes.items():
             host_leaf = np.asarray(getattr(getattr(aug, fam), name))
-            per = host_leaf.shape[axis] // self.ntp
+            per = host_leaf.shape[axis] // ntp
             idx = np.arange(col * per, (col + 1) * per, dtype=np.int64)
             rows = np.take(host_leaf, idx, axis=axis)
             payloads.append((fam, name, axis, idx, rows))
@@ -1184,6 +1231,187 @@ class DatapathStore:
                 if slot is not None:
                     bytes_h2d += self._repair_slot(slot, col)
             return bytes_h2d
+
+    # -- live resharding (engine/reshard.py drives these) --------------------
+
+    def begin_relayout(self, dtables: DatapathTables, target_mesh):
+        """Open a relayout window toward `target_mesh`: place the fused
+        world laid out for the target table-axis size into the SPARE slot
+        while the live epoch keeps serving, every moved augmented row
+        (compiler.partition.datapath_reshard_moved_rows) zeroed, so the
+        epoch becomes whole only as relayout_scatter streams them in.
+        Returns the moved-row sets {(family, leaf): (axis, index array)}:
+        the plan's work queue."""
+        _check_fused_world(dtables)
+        with self._lock, tracing.tracer.span(
+                "datapath.begin_relayout", site="engine.datapath_mesh") as sp:
+            if self._relayout is not None:
+                raise RuntimeError("datapath relayout window already open")
+            if self._slots[self._cur] is None:
+                raise RuntimeError("no live datapath epoch to reshard from")
+            ntp_dst = int(target_mesh.shape[self.table_axis])
+            aug = partition.replicate_datapath_leaves(dtables, ntp_dst,
+                                                      self.table_axis)
+            moved = partition.datapath_reshard_moved_rows(
+                dtables, self.ntp, ntp_dst, self.table_axis)
+            digest = partition.datapath_partition_digest(self.table_axis,
+                                                         ntp=ntp_dst)
+            shardings = partition.datapath_table_shardings(
+                target_mesh, aug, self.table_axis)
+            zeroed = {}
+            for (fam, name), (axis, idx) in moved.items():
+                idx = np.asarray(idx, np.int64)
+                if idx.size:
+                    arr = np.array(np.asarray(getattr(getattr(aug, fam),
+                                                      name)))
+                    arr[(slice(None),) * int(axis) + (idx,)] = 0
+                    zeroed[(fam, name)] = arr
+            seed = _with_leaves(aug, zeroed) if zeroed else aug
+            dev = place_datapath(seed, shardings)
+            _sync(target_mesh)
+            self.epoch += 1
+            self._slots[self._cur ^ 1] = {
+                "dev": dev, "host": aug, "geom": _geometry(dtables),
+                "digest": digest, "epoch": self.epoch, "ntp": ntp_dst}
+            self._relayout = {"epoch": self.epoch, "mesh": target_mesh,
+                              "ntp": ntp_dst, "digest": digest,
+                              "shardings": shardings, "broken": False}
+            sp.attrs.update(epoch=self.epoch, ntp_src=self.ntp,
+                            ntp_dst=ntp_dst)
+            return moved
+
+    def relayout_state(self) -> Optional[dict]:
+        with self._lock:
+            rel = self._relayout
+            if rel is None:
+                return None
+            return {"epoch": rel["epoch"], "ntp": rel["ntp"],
+                    "broken": bool(rel["broken"])}
+
+    def _staged_locked(self) -> dict:
+        """The staged target slot of an open, unbroken window."""
+        rel = self._relayout
+        if rel is None or rel["broken"]:
+            raise RuntimeError("no open datapath relayout window")
+        slot = self._slots[self._cur ^ 1]
+        if slot is None or slot["epoch"] != rel["epoch"]:
+            raise RuntimeError("staged datapath relayout epoch is gone")
+        return slot
+
+    def relayout_scatter(self, row_sets) -> int:
+        """One bounded migration step: the rows of `row_sets` ({(family,
+        leaf): (axis, index array)}, augmented target coordinates) of the
+        staged target epoch, written from its retained host tables by
+        REPAIR_SCATTER (route_repair), as repair_chip writes a column.
+        Returns the bytes shipped (the rows and the pow2-padded
+        indices)."""
+        with self._lock:
+            slot = self._staged_locked()
+            aug = slot["host"]
+            payloads, bytes_h2d = [], 0
+            for fam, name in sorted(row_sets):
+                axis, idx = row_sets[(fam, name)]
+                idx = np.asarray(idx, np.int64)
+                if idx.size == 0:
+                    continue
+                size = next_pow2(idx.size)
+                if size != idx.size:
+                    idx = np.concatenate(
+                        [idx, np.repeat(idx[-1:], size - idx.size)])
+                rows = np.take(np.asarray(getattr(getattr(aug, fam), name)),
+                               idx, axis=axis)
+                payloads.append((fam, name, int(axis), idx, rows))
+                bytes_h2d += int(rows.nbytes + idx.nbytes)
+            if payloads:
+                self._scatter(slot["dev"], payloads)
+            return bytes_h2d
+
+    def relayout_update(self, dtables: DatapathTables):
+        """The churn dual-apply's staged half: fold a new fused world into
+        the staged target's retained host tables and return the sharded
+        rows whose contents changed ({(family, leaf): (axis, augmented
+        index array)}) for the plan to re-queue; a changed replicated
+        leaf is placed on the staged epoch at once.  A geometry or shape
+        change marks the window broken and returns None."""
+        _check_fused_world(dtables)
+        with self._lock:
+            slot = self._staged_locked()
+            rel = self._relayout
+            if _geometry(dtables) != slot["geom"]:
+                rel["broken"] = True
+                return None
+            ntp = rel["ntp"]
+            aug = partition.replicate_datapath_leaves(dtables, ntp,
+                                                      self.table_axis)
+            prev = slot["host"]
+            rep_axes = partition.datapath_all_replica_axes(aug, ntp,
+                                                           self.table_axis)
+            changed: Dict[tuple, tuple] = {}
+            replaced = []
+            for fam, name, new_arr in _table_leaves(aug):
+                new_np = np.asarray(new_arr)
+                prev_np = np.asarray(getattr(getattr(prev, fam), name))
+                if new_np.shape != prev_np.shape:
+                    rel["broken"] = True
+                    return None
+                axis = rep_axes.get((fam, name))
+                if axis is not None:
+                    mn = np.moveaxis(new_np, axis, 0)
+                    mp = np.moveaxis(prev_np, axis, 0)
+                    chg = np.flatnonzero(np.any(
+                        mn.reshape(mn.shape[0], -1)
+                        != mp.reshape(mp.shape[0], -1), axis=1))
+                    if chg.size:
+                        changed[(fam, name)] = (int(axis), chg)
+                elif not np.array_equal(new_np, prev_np):
+                    replaced.append((fam, name, new_np))
+            for fam, name, arr in replaced:
+                self._replace(slot["dev"], fam, name, arr)
+            if replaced:
+                _sync(rel["mesh"])
+            slot["host"] = aug
+            return changed
+
+    def cutover_relayout(self) -> int:
+        """Flip the staged target epoch live and rebind the store to the
+        target mesh, ntp and digest.  The old live epoch stays as the
+        source-layout spare, which the next publish uploads in full (its
+        digest differs).  Refused while the window is broken.  Returns
+        the new live epoch."""
+        with self._lock, tracing.tracer.span(
+                "datapath.cutover_relayout",
+                site="engine.datapath_mesh") as sp:
+            if self._relayout is None:
+                raise RuntimeError("no open datapath relayout window")
+            if self._relayout["broken"]:
+                raise RuntimeError("datapath relayout window broken; cutover "
+                                   "refused: restart the migration")
+            slot = self._staged_locked()
+            rel = self._relayout
+            self._cur ^= 1
+            self._relayout = None
+            self.mesh = rel["mesh"]
+            self.ntp = rel["ntp"]
+            self.partition_digest = rel["digest"]
+            self._shardings = rel["shardings"]
+            # the change records were kept against source-layout epochs
+            self._change_log.clear()
+            sp.attrs.update(epoch=slot["epoch"], ntp=self.ntp)
+            return slot["epoch"]
+
+    def rollback_relayout(self) -> bool:
+        """Drop the staged target epoch (the live source layout was never
+        written by the migration).  Returns True when a window was
+        open."""
+        with self._lock:
+            rel = self._relayout
+            if rel is None:
+                return False
+            slot = self._slots[self._cur ^ 1]
+            if slot is not None and slot["epoch"] == rel["epoch"]:
+                self._slots[self._cur ^ 1] = None
+            self._relayout = None
+            return True
 
     def current(self) -> Optional[MeshDatapath]:
         with self._lock:

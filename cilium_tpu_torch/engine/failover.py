@@ -25,9 +25,10 @@ DeviceTableStore.repair_rows and REPAIR_SCATTER on the card), then the
 dispatch that includes the chip is its probe; success closes the
 breaker.
 
-A chip's ordinal is its coordinate's row-major index in the mesh
-(engine.mesh.Mesh.chip), not a torch device index: on one card every
-coordinate is a virtual chip of the same device.  What the router
+A chip's ordinal is its coordinate's chip id in the mesh (engine.mesh
+Mesh.ids, row-major unless a reshard grew or shrank the mesh), not a
+torch device index: on one card every coordinate is a virtual chip of
+the same device.  What the router
 proves there, as the reference's CPU mesh does, is that no verdict,
 counter or telemetry bit depends on a dead chip's table slice.
 
@@ -36,8 +37,9 @@ dispatch path.  `attach_datapath` puts the fused datapath on the mesh
 (engine/datapath_mesh.py) behind the same breakers: `dispatch_flows`
 serves raw flows through it, `publish_datapath` publishes its epochs,
 and a readmitted chip's datapath slices are repaired from the
-DatapathStore (`repair_chip`) before its probe.  The reshard half of the
-reference's router (adopt_reshard) is not here.
+DatapathStore (`repair_chip`) before its probe.  `adopt_reshard` re-aims
+the router at a resharded mesh at the cutover of engine/reshard.py's
+ReshardPlan.
 """
 
 from __future__ import annotations
@@ -158,12 +160,8 @@ class ChipFailoverRouter:
         self._on_chip_transition = on_chip_transition
         self.dp = int(mesh.shape[batch_axis])
         self.tp = int(mesh.shape[table_axis])
-        # the ordinal grid [dp, tp]: each coordinate's row-major index
-        grid = np.empty((self.dp, self.tp), np.int64)
-        for b in range(self.dp):
-            for t in range(self.tp):
-                grid[b, t] = mesh.chip((b, t))
-        self.ordinals = grid
+        # the ordinal grid [dp, tp]: each coordinate's chip id
+        self.ordinals = mesh.ids.copy()
         self.store = store or make_replica_store(mesh, table_axis)
         if bank is None:
             bank = ChipBreakerBank(name=site, on_transition=self._chip_event)
@@ -343,6 +341,55 @@ class ChipFailoverRouter:
                 collect_telemetry=self.collect_telemetry)
             self._dp_geom = geom
         return self.dp_store.publish(dtables, changes=changes)
+
+    # -- live resharding (engine/reshard.py's cutover) -----------------------
+
+    def adopt_reshard(self, target_mesh, dtables=None) -> None:
+        """Adopt a resharded mesh at cutover: rebuild what closes over the
+        mesh geometry (the ordinal grid, the failover evaluator, the
+        re-split plans, the memo on the mesh, re-attached empty with its
+        counters carried across, and the fused evaluator, from `dtables`,
+        the un-augmented fused world, or at the next publish_datapath
+        without it).  The stores' own cutover is the plan's; this runs
+        between dispatches."""
+        from cilium_tpu_torch.engine.sharded import make_failover_evaluator
+
+        self.mesh = target_mesh
+        self.dp = int(target_mesh.shape[self.batch_axis])
+        self.tp = int(target_mesh.shape[self.table_axis])
+        self.ordinals = target_mesh.ids.copy()
+        self._ev = make_failover_evaluator(
+            target_mesh, self._tables, batch_axis=self.batch_axis,
+            table_axis=self.table_axis,
+            collect_telemetry=self.collect_telemetry)
+        self._pack_plans.clear()
+        if self._memo is not None:
+            # the cache's rows are laid out per chip: a new empty cache
+            # on the target mesh
+            carried = self._memo
+            self.attach_memo(n_rows_local=carried["n_rows_local"],
+                             entries=carried["entries"],
+                             rep_shift=carried["rep_shift"])
+            for k in ("hits", "misses", "overflow_redispatches",
+                      "insert_faults"):
+                self._memo[k] = carried[k]
+        elif self._verdict_cache is not None:
+            self._verdict_cache.flush(reason="mesh reshard cutover")
+        if self.dp_store is not None:
+            self._dp_ev = None
+            self._dp_geom = None
+            if dtables is not None:
+                from cilium_tpu_torch.engine.datapath_mesh import (
+                    _geometry,
+                    make_failover_datapath_evaluator,
+                )
+
+                self._dp_ev = make_failover_datapath_evaluator(
+                    target_mesh, dtables, batch_axis=self.batch_axis,
+                    table_axis=self.table_axis,
+                    collect_telemetry=self.collect_telemetry)
+                self._dp_geom = _geometry(dtables)
+        tracing.add_event("reshard.adopt", dp=self.dp, tp=self.tp)
 
     def _flow_batch(self, padded):
         """The padded flow columns as an int32 [8, B] word pack on the

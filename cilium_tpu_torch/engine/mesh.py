@@ -5,7 +5,11 @@
     the axis names ("batch", "table"), and `.shape[name]`.  `make_mesh`
     builds one on one device for every coordinate (virtual chips, as
     the reference's tests run 8 virtual host devices), or on a list of
-    devices, one per coordinate.
+    devices, one per coordinate.  `Mesh.ids` is the grid of chip ids
+    (the reference's jax device ids): row-major by default, and after a
+    reshard the grid engine/reshard.py `reshard_target_mesh` gives, in
+    which a surviving column keeps its chips and a new column takes the
+    next free ids.
   * `PartitionSpec` (`P`) is a tuple of axis names or None per leaf
     dimension, equal as a tuple to jax's.
   * `NamedSharding(mesh, spec)` places a leaf: `place` gives one tensor
@@ -53,16 +57,24 @@ P = PartitionSpec
 
 
 class Mesh:
-    """Devices [dp, tp] under the axis names (batch, table)."""
+    """Devices [dp, tp] under the axis names (batch, table), and the
+    chip id of each coordinate, `ids` [dp, tp] (row-major when None)."""
 
-    def __init__(self, devices, axis_names: Sequence[str] = AXES) -> None:
+    def __init__(self, devices, axis_names: Sequence[str] = AXES,
+                 ids=None) -> None:
         arr = np.empty(np.shape(devices)[:2], dtype=object)
         for ix in np.ndindex(arr.shape):
             arr[ix] = torch.device(devices[ix[0]][ix[1]])
         if arr.ndim != len(axis_names):
             raise ValueError(f"a mesh of shape {arr.shape} for axes "
                              f"{tuple(axis_names)}")
+        grid = (np.arange(arr.size, dtype=np.int64).reshape(arr.shape)
+                if ids is None else np.array(ids, dtype=np.int64))
+        if grid.shape != arr.shape or len(np.unique(grid)) != grid.size:
+            raise ValueError(f"chip ids {grid.tolist()} for a mesh of shape "
+                             f"{arr.shape}: one distinct id per coordinate")
         self.devices = arr
+        self.ids = grid
         self.axis_names = tuple(axis_names)
         self.shape = dict(zip(self.axis_names, arr.shape))
 
@@ -75,8 +87,8 @@ class Mesh:
         return itertools.product(*(range(n) for n in self.devices.shape))
 
     def chip(self, coord) -> int:
-        """The flat (row-major) ordinal of a coordinate."""
-        return int(np.ravel_multi_index(tuple(coord), self.devices.shape))
+        """The chip id (ordinal) of a coordinate."""
+        return int(self.ids[tuple(coord)])
 
     def axis_index(self, name: str, coord) -> int:
         """The coordinate's index along axis `name` (jax's
@@ -87,11 +99,13 @@ class Mesh:
         return (isinstance(other, Mesh) and self.axis_names == other.axis_names
                 and self.devices.shape == other.devices.shape
                 and all(a == b for a, b in zip(self.devices.flat,
-                                               other.devices.flat)))
+                                               other.devices.flat))
+                and np.array_equal(self.ids, other.ids))
 
     def __hash__(self) -> int:
         return hash((self.axis_names, self.devices.shape,
-                     tuple(str(d) for d in self.devices.flat)))
+                     tuple(str(d) for d in self.devices.flat),
+                     tuple(self.ids.flat)))
 
     def __repr__(self) -> str:
         return (f"Mesh({dict(self.shape)}, "
@@ -99,17 +113,19 @@ class Mesh:
 
 
 def make_mesh(dp: int, tp: int, device=None,
-              devices: Optional[Sequence] = None) -> Mesh:
+              devices: Optional[Sequence] = None, ids=None) -> Mesh:
     """A (batch, table) mesh of dp x tp coordinates: `devices` gives
     one device per coordinate (row-major); otherwise every coordinate
-    is `device` (None = the card), the virtual chips of one device."""
+    is `device` (None = the card), the virtual chips of one device.
+    `ids` [dp, tp] sets the coordinates' chip ids (row-major 0 .. dp *
+    tp - 1 when None)."""
     if devices is not None:
         devs = [torch.device(d) for d in devices]
         if len(devs) != dp * tp:
             raise ValueError(f"{len(devs)} devices for a {dp} x {tp} mesh")
     else:
         devs = [resolve_device(device)] * (dp * tp)
-    return Mesh([devs[b * tp:(b + 1) * tp] for b in range(dp)])
+    return Mesh([devs[b * tp:(b + 1) * tp] for b in range(dp)], ids=ids)
 
 
 @dataclass(frozen=True)

@@ -44,6 +44,16 @@ device.  `transform_fn` lays the host tables out for the devices (the
 replica store's N+1 copies) and `delta_transform_fn` rewrites a delta
 into that layout; `partition_digest` is folded into the layout stamp.
 
+A relayout window (engine/reshard.py, live resharding): `begin_relayout`
+stages the target layout of another mesh in the spare slot, every moved
+row zeroed, and `repair_rows(spare=True)` streams the moved rows in.
+While the window is open a publish patches the LIVE epoch in place (a
+delta against it, devices synchronized before and after) and never
+touches the staged target; anything else (no usable delta, a scatter
+fault) uploads the live epoch in full and marks the window broken, so
+the plan restarts.  `cutover_relayout` flips the staged epoch live and
+rebinds the store's partition seams; `rollback_relayout` drops it.
+
 `AsyncBatchDispatcher` is the double-buffered async batch pipeline and
 `next_pow2` the pow2 size class of every padded payload.
 """
@@ -312,6 +322,10 @@ class DeviceTableStore:
         # "missed" [transformed TableDelta], "needs_full"}
         self._out_chips: Dict[int, Dict] = {}
         self._missed_cap = 32
+        # the open relayout window (begin_relayout): while set, the spare
+        # slot holds the migration target and publish() patches the live
+        # slot instead
+        self._relayout: Optional[Dict] = None
 
     @property
     def on_mesh(self) -> bool:
@@ -331,10 +345,7 @@ class DeviceTableStore:
     def _specs(self):
         """Each leaf's PartitionSpec on a mesh store (None on one
         device)."""
-        if self._shardings is None:
-            return None
-        return tuple((f.name, tuple(getattr(self._shardings, f.name).spec))
-                     for f in dataclasses.fields(self._shardings))
+        return _specs_of(self._shardings)
 
     def _put_tables(self, tables):
         """Full placement: one device, or the mesh's coordinates."""
@@ -372,18 +383,14 @@ class DeviceTableStore:
             spare_i = self._cur ^ 1
             spare = self._slots[spare_i]
             stamp = int(np.asarray(tables.generation))
-            use_delta = (
-                delta is not None
-                and spare is not None
-                and spare["stamp"] == delta.base_stamp
-                and stamp == delta.new_stamp
-                # a delta's indices mean something only against the
-                # layout (and partitioning) the spare epoch holds
-                and spare["layout"] == layout
-                and delta.layout == base_layout
-                # a mesh epoch's rows route by its placement
-                and spare["specs"] == self._specs()
-            )
+            if self._relayout is not None and not self._relayout["broken"]:
+                # the spare slot is the staged migration target: churn
+                # lands on the live slot
+                return self._publish_relayout_locked(
+                    tables, pre_transform, delta, base_layout, layout,
+                    stamp, sp, t0)
+            use_delta = self._delta_fits(spare, delta, stamp, layout,
+                                         base_layout)
             if use_delta and self._delta_transform_fn is not None:
                 # into device coordinates: the delta was recorded
                 # against the un-transformed tables
@@ -421,36 +428,251 @@ class DeviceTableStore:
                 stats = PublishStats(epoch=0, mode="full",
                                      bytes_h2d=tables_nbytes(tables),
                                      seconds=0.0)
+            self._install_locked(spare_i, dev, tables, stamp, layout)
+            self._cur = spare_i
+            return dev, self._published_locked(stats, use_delta, delta, sp,
+                                               t0)
+
+    def _delta_fits(self, slot, delta, stamp: int, layout: int,
+                    base_layout: int) -> bool:
+        """Whether `delta` takes `slot`'s epoch to `stamp`: it starts at
+        the slot's stamp, and its indices mean something only against the
+        layout (and partitioning) the slot holds and, on a mesh, the
+        placement its rows route by."""
+        return (delta is not None and slot is not None
+                and slot["stamp"] == delta.base_stamp
+                and stamp == delta.new_stamp
+                and slot["layout"] == layout
+                and delta.layout == base_layout
+                and slot["specs"] == self._specs())
+
+    def _install_locked(self, i: int, dev, tables, stamp: int,
+                        layout: int) -> None:
+        """A new epoch `dev` (placed from host `tables`) in slot `i`."""
+        self._epoch += 1
+        self._slots[i] = {
+            "tables": dev, "stamp": stamp, "epoch": self._epoch,
+            "nbytes": tables_nbytes(tables), "layout": layout,
+            "chip_bytes": (dev.chip_bytes() if self.on_mesh else {
+                self._device.index or 0: _resident_bytes(dev)}),
+            "specs": self._specs(),
+            "host": tables if self._retain_host else None,
+            "shardings": self._shardings,
+        }
+
+    def _published_locked(self, stats, use_delta: bool, delta, sp, t0,
+                          **attrs):
+        """A publish's bookkeeping after its epoch is installed: the
+        stats, the outage ledger (a delta is replayable row by row at
+        readmission; a full upload, or a full miss list, makes the
+        rebalance replay the chip's whole slice), the byte gauges and the
+        span."""
+        stats.epoch = self._epoch
+        stats.seconds = time.perf_counter() - t0
+        for rec in self._out_chips.values():
+            if (use_delta and not rec["needs_full"]
+                    and len(rec["missed"]) < self._missed_cap):
+                rec["missed"].append(delta)
+            else:
+                rec["needs_full"] = True
+        self._sample_bytes()
+        sp.attrs.update(
+            mode=stats.mode, epoch=stats.epoch, bytes_h2d=stats.bytes_h2d,
+            scatter_leaves=stats.scatter_leaves,
+            replaced_leaves=stats.replaced_leaves, **attrs)
+        return stats
+
+    def _publish_relayout_locked(self, tables, pre_transform, delta,
+                                 base_layout: int, layout: int, stamp: int,
+                                 sp, t0):
+        """A publish while a relayout window is open (the caller holds the
+        lock).  The spare slot is the staged migration target, so the
+        churn lands on the LIVE slot: a usable delta against the live
+        epoch patches its tensors in place (the devices synchronized
+        before, so no queued batch reads a row while it is written);
+        anything else (no usable delta, a scatter fault) uploads the live
+        epoch in full and marks the window broken, the plan's restart
+        signal."""
+        live_i = self._cur
+        live = self._slots[live_i]
+        use_delta = self._delta_fits(live, delta, stamp, layout, base_layout)
+        if use_delta and self._delta_transform_fn is not None:
+            delta = self._delta_transform_fn(delta, pre_transform)
+        if use_delta:
+            try:
+                self._probe_scatter_fault(live)
+                self._sync()
+                publish = (self._publish_delta_mesh if self.on_mesh
+                           else self._publish_delta)
+                dev, stats = publish(live["tables"], tables, delta)
+            except faultinject.FaultInjected as exc:
+                # the seam fires before any write: the live epoch is
+                # intact, and the full upload below breaks the window
+                use_delta = False
+                metrics.publish_fallback_total.inc()
+                sp.attrs["fallback"] = str(exc)
+                log.warning(
+                    "delta publish scatter faulted during relayout; "
+                    "falling back to full upload",
+                    extra={"fields": {"error": str(exc)}})
+        if not use_delta:
+            dev = self._put_tables(tables)
+            self._sync()
+            stats = PublishStats(epoch=0, mode="full",
+                                 bytes_h2d=tables_nbytes(tables),
+                                 seconds=0.0)
+            self._relayout["broken"] = True
+            sp.attrs["relayout_broken"] = True
+        self._install_locked(live_i, dev, tables, stamp, layout)
+        return dev, self._published_locked(stats, use_delta, delta, sp, t0,
+                                           relayout=True)
+
+    # -- live resharding (engine/reshard.py drives these) --------------------
+
+    def begin_relayout(self, host_aug, moved_rows, shardings,
+                       partition_digest: int) -> Tuple[int, int]:
+        """Open a relayout window: place the migration target (host
+        tables already laid out for the target mesh) under `shardings`
+        into the SPARE slot, while the live epoch keeps serving.  The
+        rows of `moved_rows` ({leaf: (axis, index array)},
+        compiler.partition.reshard_moved_rows) are placed zeroed: the
+        epoch becomes whole only as repair_rows(spare=True) streams them
+        in.  The slot retains the true `host_aug` as the stream's source.
+        Returns (epoch, layout), the pins of every migration step."""
+        from cilium_tpu_torch import tracing
+        from cilium_tpu_torch.engine.mesh import place_tables
+
+        with self._lock, tracing.tracer.span(
+                "publish.begin_relayout", site="engine.publish") as sp:
+            if self._relayout is not None:
+                raise RuntimeError("relayout window already open")
+            if self._slots[self._cur] is None:
+                raise RuntimeError("no live epoch to reshard from")
+            layout = tables_layout_version(host_aug) | (
+                int(partition_digest) << 32)
+            kw = {}
+            for name, (axis, idx) in moved_rows.items():
+                arr = np.array(np.asarray(getattr(host_aug, name)))
+                idx = np.asarray(idx, np.int64)
+                if idx.size:
+                    arr[(slice(None),) * int(axis) + (idx,)] = 0
+                kw[name] = arr
+            seed = dataclasses.replace(host_aug, **kw) if kw else host_aug
+            dev = place_tables(seed, shardings)
+            spare_i = self._cur ^ 1
             self._epoch += 1
             self._slots[spare_i] = {
-                "tables": dev, "stamp": stamp, "epoch": self._epoch,
-                "nbytes": tables_nbytes(tables), "layout": layout,
-                "chip_bytes": (dev.chip_bytes() if self.on_mesh else {
-                    self._device.index or 0: _resident_bytes(dev)}),
-                "specs": self._specs(),
-                "host": tables if self._retain_host else None,
-                "shardings": self._shardings,
+                "tables": dev,
+                "stamp": int(np.asarray(host_aug.generation)),
+                "epoch": self._epoch, "nbytes": tables_nbytes(host_aug),
+                "layout": layout, "chip_bytes": dev.chip_bytes(),
+                "specs": _specs_of(shardings), "host": host_aug,
+                "shardings": shardings,
             }
-            self._cur = spare_i
-            stats.epoch = self._epoch
-            stats.seconds = time.perf_counter() - t0
-            # the outage ledger: a delta is replayable row by row at
-            # readmission; a full upload (or a full miss list) makes the
-            # rebalance replay the chip's whole slice
-            for rec in self._out_chips.values():
-                if (use_delta and not rec["needs_full"]
-                        and len(rec["missed"]) < self._missed_cap):
-                    rec["missed"].append(delta)
-                else:
-                    rec["needs_full"] = True
+            self._relayout = {"epoch": self._epoch, "layout": layout,
+                              "broken": False, "shardings": shardings,
+                              "digest": int(partition_digest)}
+            for d in {str(d) for d in shardings.generation.mesh.devices.flat}:
+                if torch.device(d).type == "cuda":
+                    torch.cuda.synchronize(d)
             self._sample_bytes()
-            sp.attrs.update(
-                mode=stats.mode, epoch=stats.epoch,
-                bytes_h2d=stats.bytes_h2d,
-                scatter_leaves=stats.scatter_leaves,
-                replaced_leaves=stats.replaced_leaves,
-            )
-            return dev, stats
+            sp.attrs.update(epoch=self._epoch, layout=layout)
+            return self._epoch, layout
+
+    def relayout_state(self) -> Optional[Dict]:
+        """{"epoch", "layout", "broken"} of the open relayout window, or
+        None: the plan's restart detector."""
+        with self._lock:
+            rel = self._relayout
+            if rel is None:
+                return None
+            return {"epoch": rel["epoch"], "layout": rel["layout"],
+                    "broken": bool(rel["broken"])}
+
+    def relayout_update_host(self, host_aug) -> Tuple[int, int]:
+        """The churn dual-apply's staged half: the staged target retains
+        `host_aug` from now on (the plan re-queues the rows whose
+        contents changed, and later steps read the new values), and its
+        generation stamp follows the live world.  Refused when no window
+        is open or the window broke.  Returns the new pins."""
+        with self._lock:
+            rel = self._relayout
+            if rel is None or rel["broken"]:
+                raise RuntimeError("no open relayout window to update")
+            slot = self._slots[self._cur ^ 1]
+            if slot is None or slot["epoch"] != rel["epoch"]:
+                raise RuntimeError("staged relayout epoch is gone")
+            stamp = int(np.asarray(host_aug.generation))
+            mt = slot["tables"]
+            shards = np.empty(mt.shards.shape, dtype=object)
+            for coord in mt.mesh.coords():
+                shards[coord] = dataclasses.replace(mt.shards[coord],
+                                                    generation=stamp)
+            slot["tables"] = dataclasses.replace(mt, shards=shards,
+                                                 generation=stamp)
+            layout = tables_layout_version(host_aug) | (rel["digest"] << 32)
+            slot.update(host=host_aug, stamp=stamp, layout=layout,
+                        nbytes=tables_nbytes(host_aug))
+            rel["layout"] = layout
+            return slot["epoch"], layout
+
+    def cutover_relayout(self, shardings_fn=None, partition_digest=None,
+                         transform_fn=None, delta_transform_fn=None) -> int:
+        """Flip the staged target epoch live (the reshard cutover) and
+        rebind the store's partition seams (sharding resolver, digest,
+        layout transform, delta rewrite) to the target layout.  The old
+        live epoch stays as the source-layout spare: its next delta
+        publish is refused by the layout guard into one full upload.
+        Refused while the window is broken.  Returns the new live
+        epoch."""
+        from cilium_tpu_torch import tracing
+
+        with self._lock, tracing.tracer.span(
+                "publish.cutover_relayout", site="engine.publish") as sp:
+            rel = self._relayout
+            if rel is None:
+                raise RuntimeError("no open relayout window")
+            if rel["broken"]:
+                raise RuntimeError("relayout window broken by a full "
+                                   "publish; cutover refused: restart the "
+                                   "migration")
+            spare_i = self._cur ^ 1
+            slot = self._slots[spare_i]
+            if slot is None or slot["epoch"] != rel["epoch"]:
+                raise RuntimeError("staged relayout epoch is gone; cutover "
+                                   "refused")
+            self._cur = spare_i
+            self._relayout = None
+            self._shardings = rel["shardings"]
+            if shardings_fn is not None:
+                self._shardings_fn = shardings_fn
+            if partition_digest is not None:
+                self.partition_digest = int(partition_digest)
+            if transform_fn is not None:
+                self._transform_fn = transform_fn
+            if delta_transform_fn is not None:
+                self._delta_transform_fn = delta_transform_fn
+            self._retain_host = (self._transform_fn is not None
+                                 or self._delta_transform_fn is not None)
+            self._sample_bytes()
+            sp.attrs.update(epoch=slot["epoch"], layout=slot["layout"])
+            return slot["epoch"]
+
+    def rollback_relayout(self) -> bool:
+        """Drop the staged target epoch (the live source layout was never
+        written by the migration); the next publish uploads the freed
+        slot in full.  Returns True when a window was open."""
+        with self._lock:
+            rel = self._relayout
+            if rel is None:
+                return False
+            spare_i = self._cur ^ 1
+            slot = self._slots[spare_i]
+            if slot is not None and slot["epoch"] == rel["epoch"]:
+                self._slots[spare_i] = None
+            self._relayout = None
+            self._sample_bytes()
+            return True
 
     def _sample_bytes(self) -> None:
         """cilium_device_table_bytes{epoch} and
@@ -793,6 +1015,15 @@ class DeviceTableStore:
             f"resident (live epochs: {live}) — its tensors were "
             f"written over by a newer publish"
         )
+
+
+def _specs_of(shardings):
+    """Each leaf's PartitionSpec of a dataclass of NamedSharding (None
+    on one device): what a mesh epoch's rows route by."""
+    if shardings is None:
+        return None
+    return tuple((f.name, tuple(getattr(shardings, f.name).spec))
+                 for f in dataclasses.fields(shardings))
 
 
 def _has_cuda_tensor(out) -> bool:

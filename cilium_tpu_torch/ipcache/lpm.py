@@ -163,25 +163,29 @@ def lpm_lookup_plain(tables: LPMTables, ips: torch.Tensor) -> torch.Tensor:
 
 
 def lpm_lookup(tables, ips, device=None) -> torch.Tensor:
-    """Batched IPv4 -> identity on `device` (None = the card): int32
-    [B] holding u32 identities, 0 = no entry.  `tables` are LPMTables
-    already on that device (convert.lpm_to); `ips` a tensor there or a
-    numpy array, uploaded.  A CUDA device launches LPM_LOOKUP; the CPU
-    runs the plain version."""
-    if isinstance(tables, IPCacheDevice):
-        raise TypeError(
-            "lpm_lookup over the bucketized IPCacheDevice is not ported "
-            "(ROADMAP queue 1: the generic IPCacheDevice lookup); pass "
-            "DIR-24-8 LPMTables"
-        )
+    """Batched IPv4 -> value on `device` (None = the card): int32 [B]
+    holding u32 values, 0 = no entry.  From DIR-24-8 LPMTables the
+    value is the identity; from a bucketized IPCacheDevice it is what the
+    table stores (the identity in the generic form, the identity index +
+    1 in the idx forms; the ingress L3 plane is not returned).  `tables`
+    lie on that device (convert.lpm_to, convert.plane_to); `ips` is a
+    tensor there or a numpy array, uploaded.  A CUDA device launches
+    LPM_LOOKUP (DIR-24-8) or IPCACHE_LOOKUP; the CPU runs the plain
+    version."""
     dev = resolve_device(device)
     ips = tensor_on(ips, dev, "ips")
-    require_on(tables.l1, dev, "the LPM tables (convert.lpm_to)")
+    if isinstance(tables, IPCacheDevice):
+        require_on(tables.buckets, dev,
+                   "the ipcache tables (convert.plane_to)")
+    else:
+        require_on(tables.l1, dev, "the LPM tables (convert.lpm_to)")
     if dev.type == "cuda":
         from cilium_tpu_torch import kernels
 
+        if isinstance(tables, IPCacheDevice):
+            return kernels.IPCACHE_LOOKUP(tables, ips)
         return kernels.LPM_LOOKUP(tables, ips)
-    return narrow(lpm_lookup_plain(tables, ips))
+    return narrow(lookup_plain(tables, ips))
 
 
 @dataclass

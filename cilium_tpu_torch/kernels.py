@@ -80,6 +80,12 @@ P) of the routed pipeline and one batch row's combine, under the same
 rules (engine/datapath_mesh.py strings them together and holds their
 plain versions).
 
+`HASH_LOOKUP(table, query)` and `IPCACHE_LOOKUP(ipc, ips)`
+(csrc/lookup.cu) are the generic hash-table lookup and the lookup over
+a bucketized IPCacheDevice (the rest of K20), under the same rules
+(engine/hashtable.py `lookup_batch_plain` and ipcache/lpm.py
+`lookup_plain` are their plain versions).
+
 `DATAPATH6(tables, flows)` (csrc/datapath6.cu) is the fused IPv6
 program (K15, with the v6 tunnel stage of K11) over Datapath6Tables and
 a FlowBatch6, under the same rules: it checks every table plane and
@@ -121,7 +127,7 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
 # csrc/<stem>.cu, one library each
 LIBRARIES = ("datapath", "l7", "churn", "lattice", "datapath6", "prng",
-             "memo", "publish", "shadow", "mesh", "datapath_mesh")
+             "memo", "publish", "shadow", "mesh", "datapath_mesh", "lookup")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC",
@@ -3285,10 +3291,157 @@ DP_MESH_PROBE = DpMeshProbeKernel()
 DP_MESH_COMBINE = DpMeshCombineKernel()
 
 
+# ---------------------------------------------------------------------------
+# The lookups of K20 outside the datapath (csrc/lookup.cu)
+# ---------------------------------------------------------------------------
+
+class HashArgs(ctypes.Structure):
+    """Mirror of clk::HashArgs in csrc/lookup.cu, field for field."""
+
+    _fields_ = ([(n, _P) for n in ("keys", "value_index", "query", "found",
+                                   "index")]
+                + [(n, _I) for n in ("B", "kw", "capacity", "stash_n",
+                                     "window")])
+
+
+class IpcLookupArgs(ctypes.Structure):
+    """Mirror of clk::IpcLookupArgs in csrc/lookup.cu, field for field."""
+
+    _fields_ = [("dp", DatapathArgs), ("ips", _P), ("out", _P),
+                ("form", _I)]
+
+
+class _LookupLibrary(_Library):
+    """csrc/lookup.cu: HASH_LOOKUP and IPCACHE_LOOKUP."""
+
+    stem = "lookup"
+
+    def __init__(self) -> None:
+        super().__init__()
+        self.smem_limits = {}
+
+    def bind(self, lib) -> None:
+        lib.launch_hash_lookup.argtypes = [ctypes.POINTER(HashArgs),
+                                           ctypes.c_int, _P]
+        lib.launch_hash_lookup.restype = ctypes.c_int
+        self.declare(lib, (("launch_ipcache_lookup", IpcLookupArgs),))
+        lib.lookup_smem_limit.argtypes = []
+        lib.lookup_smem_limit.restype = ctypes.c_int
+        lib.lookup_struct_sizes.argtypes = [ctypes.POINTER(ctypes.c_int)]
+        lib.lookup_struct_sizes.restype = ctypes.c_int
+        sizes = (ctypes.c_int * 3)()
+        lib.lookup_struct_sizes(sizes)
+        want = [ctypes.sizeof(a) for a in (DatapathArgs, HashArgs,
+                                           IpcLookupArgs)]
+        if list(sizes) != want:
+            raise RuntimeError(
+                f"lookup argument layouts differ between kernels.py {want} "
+                f"and csrc/lookup.cu {list(sizes)}")
+
+
+    def smem_limit(self, device) -> int:
+        """The dynamic shared memory one block of `device` may opt in to
+        (asked once a device)."""
+        if device not in self.smem_limits:
+            with torch.cuda.device(device):
+                self.smem_limits[device] = int(self.load().lookup_smem_limit())
+        return self.smem_limits[device]
+
+
+LOOKUP_LIBRARY = _LookupLibrary()
+
+
+class HashLookupKernel:
+    """K20's generic hash-table lookup on the card (engine/hashtable.py):
+    (found bool [B], index int32 [B]) of a query int32 [B, KW] (u32
+    bits) against a HashTable on the same device (keys int32 [C + S, KW],
+    value_index int32 [C + S])."""
+
+    name = "hash_lookup"
+
+    def __init__(self) -> None:
+        self.launches = 0
+
+    def load(self, verbose: bool = False):
+        return LOOKUP_LIBRARY.load(verbose)
+
+    def __call__(self, table, query):
+        dev = _cuda_device(query, self.name)
+        keys, vi = table.keys, table.value_index
+        if keys.dim() != 2 or keys.shape[1] < 1:
+            raise ValueError(f"hash keys must be [C + S, KW >= 1], got "
+                             f"{tuple(keys.shape)}")
+        rows, kw = (int(x) for x in keys.shape)
+        cap = _pow2(int(table.capacity), "hash capacity")
+        if not cap <= rows < 1 << 31 or rows * kw >= 1 << 31:
+            raise ValueError(f"{rows} hash rows for capacity {cap}")
+        window = int(table.max_probes)
+        if window < 1:
+            raise ValueError(f"probe window {window}")
+        stash_n = rows - cap
+        smem = stash_n * kw * 4
+        limit = LOOKUP_LIBRARY.smem_limit(dev)
+        if smem > limit:
+            raise ValueError(f"{self.name}: a stash of {stash_n} x {kw} words "
+                             f"exceeds the {limit} B of shared memory one "
+                             f"block may use")
+        b = _batch(int(query.shape[0]))
+        a = HashArgs()
+        a.keys = _ptr(keys, "hash keys", dev)
+        a.value_index = _ptr(vi, "hash value_index", dev, shape=(rows,))
+        a.query = _ptr(query, "query", dev, shape=(b, kw))
+        found = torch.empty(b, dtype=torch.bool, device=dev)
+        index = torch.empty(b, dtype=torch.int32, device=dev)
+        a.found, a.index = found.data_ptr(), index.data_ptr()
+        a.B, a.kw, a.capacity, a.stash_n, a.window = b, kw, cap, stash_n, window
+        LOOKUP_LIBRARY.launch("launch_hash_lookup", a, dev, self.name, smem)
+        self.launches += 1
+        return found, index
+
+
+class IpcacheLookupKernel:
+    """K20's lookup over a bucketized IPCacheDevice on the card
+    (ipcache/lpm.py lpm_lookup): ips int32 [B] (u32 bits) -> values
+    int32 [B] (u32 bits: the identity index + 1 in the idx forms, the
+    identity in the generic one; 0 = no entry), every form the builders
+    make (range classes or the [B, P] scan, u32 or sub-word planes, with
+    or without L3 planes)."""
+
+    name = "ipcache_lookup"
+
+    def __init__(self) -> None:
+        self.launches = 0
+
+    def load(self, verbose: bool = False):
+        return LOOKUP_LIBRARY.load(verbose)
+
+    def __call__(self, ipc, ips):
+        dev = _cuda_device(ips, self.name)
+        if not isinstance(ipc, IPCacheDevice):
+            raise ValueError(f"{self.name} takes an IPCacheDevice, got "
+                             f"{type(ipc).__name__}")
+        if ips.dim() != 1:
+            raise ValueError("ips must be [B]")
+        b = _batch(int(ips.shape[0]))
+        a = IpcLookupArgs()
+        a.form = _fill_ipcache(a.dp, ipc, dev)
+        a.ips = _ptr(ips, "ips", dev, shape=(b,))
+        out = torch.empty(b, dtype=torch.int32, device=dev)
+        a.out, a.dp.B = out.data_ptr(), b
+        LOOKUP_LIBRARY.launch("launch_ipcache_lookup", a, dev, self.name)
+        self.launches += 1
+        return out
+
+
+HASH_LOOKUP = HashLookupKernel()
+IPCACHE_LOOKUP = IpcacheLookupKernel()
+
+
 KERNELS = (DATAPATH_PAIR, DATAPATH_STEP, CHURN_COMPACT, CT_DELTA,
            HTTP_MATCH, KAFKA_MATCH, FLEET_L7, LATTICE, LPM_LOOKUP, DATAPATH6,
            PICK_DRAW, DATAPATH_PAIR_MEMO, MEMO_DEDUP, MEMO_CACHE,
            MEMO_KEYS_LATTICE, PUBLISH_SCATTER, MEMCACHE_MATCH, SHADOW_DIFF,
            PERSISTENT_PAIR, MESH_PROBE, ROUTED_PROBE, MESH_COMBINE,
            REPAIR_SCATTER, MESH_MEMO_PROBE, MESH_MEMO_COMBINE,
-           MESH_MEMO_INSERT, DP_MESH_PROBE, DP_MESH_COMBINE)
+           MESH_MEMO_INSERT, DP_MESH_PROBE, DP_MESH_COMBINE, HASH_LOOKUP,
+           IPCACHE_LOOKUP)

@@ -263,9 +263,14 @@ def test_build_lpm_refusals_match_jax():
     for build in (tlpm.build_lpm, jlpm.build_lpm):
         with pytest.raises(ValueError, match="31-bit"):
             build(big)
-    with pytest.raises(TypeError, match="IPCacheDevice"):
-        tlpm.lpm_lookup(tlpm.build_ipcache({"10.0.0.0/8": 1}),
-                        np.zeros(1, np.uint32), device="cpu")
+    # a bucketized IPCacheDevice is looked up once it lies on the device
+    host = tlpm.build_ipcache({"10.0.0.0/8": 1})
+    with pytest.raises(ValueError, match="ipcache tables"):
+        tlpm.lpm_lookup(host, np.zeros(1, np.uint32), device="cpu")
+    got = tlpm.lpm_lookup(convert.plane_to(host, "cpu"),
+                          np.array([0x0A000001, 0x0B000001], np.uint32),
+                          device="cpu")
+    assert got.tolist() == [1, 0]
 
 
 def test_lpm_from_numpy_carries_jax_tables():
