@@ -284,6 +284,19 @@ launch counts set to 0 just before it and read just after:
              the grow's datapath relayout segments (the REPAIR_SCATTER
              row's `relayout`).
 
+    python3 chip_smoke.py --ab-parent DIR
+
+also builds DIR/cilium_tpu_torch/csrc/publish.cu (a `git archive` of the
+parent commit) into cilium_tpu_torch/_build/ab/ and, at each of the four
+sites of PUBLISH_SCATTER and REPAIR_SCATTER (publish_timing's one-rule
+publish, failover_timing's readmission, dp_mesh_store's churn delta,
+reshard's relayout queue), runs the parent's kernel and this one on
+copies of the site's segments: every entry must agree, then both are
+timed in turns parent, new, new, parent (the row's `ab`; the
+scatter_ab phase sums the sites up, its A/B held to SCATTER_AB_BUDGET_S).
+The four sites alone, on config 5's world: `python3 -c "import
+chip_smoke; chip_smoke.scatter_alone('DIR')"` (DIR None: no A/B).
+
 The churn path's int picks are drawn on the card by PICK_DRAW, the
 reference's threefry2x32 randint; churn_check also runs 2 int-pick
 batches on the kernels and on the plain versions (the same picks), and
@@ -350,7 +363,14 @@ PUBLISH_SCATTER's launches include the from-rules paths
 (`launches_by_path`).
 PUBLISH_SCATTER's time is one launch on the last timed step's payloads
 (every scattered leaf) and base epoch, its bound their index and value
-bytes read and the destination rows written once.  HTTP_MATCH's and
+bytes read and the destination rows written once.  It and
+REPAIR_SCATTER's four sites (the row's own readmission time,
+`datapath_delta`, `relayout`) give device ms over 20 calls queued
+behind a device spin (`ms`, `library_ms`: warm in the L2 where the
+site's bytes fit), the same with the L2 evicted before each call
+(`cold_ms`, `library_cold_ms`), the caller's CUDA events (`events_ms`,
+`library_events_ms`), and each segment's [leaf shape, axis, index rows]
+(`geometry`).  HTTP_MATCH's and
 KAFKA_MATCH's launches are summed over configs 3 and 4 and the proxy
 path (`launches_by_path`); MEMCACHE_MATCH's time is one launch on the
 proxy's 1,048,576 packed memcached requests against its 25 rules
@@ -409,7 +429,9 @@ from __future__ import annotations
 
 import contextlib
 import copy
+import ctypes
 import dataclasses
+import gc
 import ipaddress
 import json
 import subprocess
@@ -4012,25 +4034,34 @@ def publish_phases(kernels, w, rows) -> dict:
             for n, (idx, vals) in last["payloads"].items()]
     plain = [(d.clone(), i, v) for d, i, v in segs]
     lib = [(d.clone(), i, v) for d, i, v in segs]
-    ms = event_ms(lambda: kernels.PUBLISH_SCATTER(segs), 20)
+    tm = scatter_times(lambda: kernels.PUBLISH_SCATTER(segs),
+                       lambda: [d.index_put_(i, v) for d, i, v in lib])
     plain_ms = event_ms(lambda: scatter_segments_plain(plain), 20)
-    library_ms = event_ms(
-        lambda: [d.index_put_(i, v) for d, i, v in lib], 20)
     err = max(max(r["scatter_err"] for r in delta_steps),
               max(int_err(a[0], b[0], u32=True) for a, b in zip(segs, plain)))
     payload_bytes = sum(nbytes(*i) + 2 * nbytes(v) for _, i, v in segs)
     bound_ms = payload_bytes / HBM_BYTES_PER_S * 1e3
-    phase("publish_timing", t, ms=round(ms, 4), plain_ms=round(plain_ms, 4),
-          library_ms=round(library_ms, 4), bound_ms=round(bound_ms, 4),
-          payload_bytes=payload_bytes, leaves=[n for n in last["payloads"]],
-          max_abs_err=err)
+    geometry = scatter_geometry(segs, "publish")
+    phase("publish_timing", t, ms=round(tm["device_ms"], 4),
+          cold_ms=round(tm["cold_ms"], 4),
+          events_ms=round(tm["events_ms"], 4), plain_ms=round(plain_ms, 4),
+          library_ms=round(tm["library_device_ms"], 4),
+          library_cold_ms=round(tm["library_cold_ms"], 4),
+          library_events_ms=round(tm["library_events_ms"], 4),
+          bound_ms=round(bound_ms, 4), payload_bytes=payload_bytes,
+          leaves=[n for n in last["payloads"]],
+          geometry=json.dumps(geometry), max_abs_err=err)
     if err:
         raise SystemExit("PUBLISH_SCATTER differs from its plain version")
+    ab = scatter_ab(kernels, "publish", "publish", segs)
     rows.append(dict(kernel_row(
         kernels.PUBLISH_SCATTER, "cilium_tpu_torch/csrc/publish.cu",
-        "cilium_tpu/engine/publish.py:232", launches, err, ms, plain_ms,
-        bound_ms, 0.0, library_ms=library_ms),
-        leaves=len(segs), payload_bytes=payload_bytes))
+        "cilium_tpu/engine/publish.py:232", launches, err, tm["device_ms"],
+        plain_ms, bound_ms, 0.0, library_ms=tm["library_device_ms"]),
+        cold_ms=tm["cold_ms"], events_ms=tm["events_ms"],
+        library_cold_ms=tm["library_cold_ms"],
+        library_events_ms=tm["library_events_ms"], leaves=len(segs),
+        payload_bytes=payload_bytes, geometry=geometry, ab=ab))
     last.pop("payloads")
     last.pop("base")
     del segs, plain, lib, timed, steps
@@ -4324,6 +4355,19 @@ def shadow_phase(kernels, r) -> dict:
                 lattice_launches=launches["lattice"])
 
 
+@contextlib.contextmanager
+def gc_paused():
+    """The garbage collector off while calls are queued behind a device
+    spin: one pass over this process's objects can outlast the spin."""
+    was = gc.isenabled()
+    gc.disable()
+    try:
+        yield
+    finally:
+        if was:
+            gc.enable()
+
+
 def queued_ms(fn, reps: int, spin_cycles: int = 50_000_000):
     """Device ms per call of `fn` with the host's launch time hidden:
     the calls queue behind a device spin (torch.cuda._sleep, about 25
@@ -4334,14 +4378,295 @@ def queued_ms(fn, reps: int, spin_cycles: int = 50_000_000):
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
-    torch.cuda._sleep(spin_cycles)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    late = start.query()
+    with gc_paused():
+        torch.cuda._sleep(spin_cycles)
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        late = start.query()
     torch.cuda.synchronize()
     return None if late else start.elapsed_time(end) / reps
+
+
+SCATTER_REPS = 20
+SCATTER_SPIN = 100_000_000  # cycles, about 50 ms: a host loop of copies fits
+
+
+L2_FLUSH_BYTES = 128 << 20  # read before a cold call: the L2 is 50 MB
+
+
+def cold_ms(fn, reps: int, spin_cycles: int = SCATTER_SPIN):
+    """Device ms per call of `fn` with a cold L2: each call bracketed by
+    its own events after a 128 MB read that evicts the L2 (clean lines:
+    the call pays no write-back of another's), all queued behind a
+    device spin (so no host time falls inside a bracket).  None when the
+    device reached the first event before the last call was queued."""
+    fn()
+    scratch = torch.zeros(L2_FLUSH_BYTES // 4, dtype=torch.int32,
+                          device="cuda")
+    ev = [(torch.cuda.Event(enable_timing=True),
+           torch.cuda.Event(enable_timing=True)) for _ in range(reps)]
+    torch.cuda.synchronize()
+    with gc_paused():
+        torch.cuda._sleep(spin_cycles)
+        for start, end in ev:
+            scratch.sum()
+            start.record()
+            fn()
+            end.record()
+        late = ev[0][0].query()
+    torch.cuda.synchronize()
+    return None if late else sum(s.elapsed_time(e) for s, e in ev) / reps
+
+
+def spun_ms(measure, fn, what: str) -> float:
+    """`measure` (queued_ms or cold_ms) of `fn` over SCATTER_REPS calls,
+    again behind a ten times longer spin when the host fell behind the
+    first (as mesh_timing does); SystemExit when it falls behind that."""
+    for spin in (SCATTER_SPIN, 10 * SCATTER_SPIN):
+        ms = measure(fn, SCATTER_REPS, spin)
+        if ms is not None:
+            return ms
+    raise SystemExit(f"{what}: the calls did not queue behind the device "
+                     f"spin")
+
+
+def scatter_times(kernel, library) -> dict:
+    """A scatter kernel's and its library call's time over SCATTER_REPS
+    calls each: device ms with the calls queued back to back behind a
+    device spin (queued_ms: the payload and rows warm in the L2 where
+    they fit), the same with the L2 evicted before each call (cold_ms),
+    and the CUDA events a caller sees (event_ms; minus the device ms,
+    the host's share)."""
+    return dict(device_ms=spun_ms(queued_ms, kernel, "scatter timing"),
+                cold_ms=spun_ms(cold_ms, kernel, "scatter timing"),
+                events_ms=event_ms(kernel, SCATTER_REPS),
+                library_device_ms=spun_ms(queued_ms, library,
+                                          "scatter timing"),
+                library_cold_ms=spun_ms(cold_ms, library, "scatter timing"),
+                library_events_ms=event_ms(library, SCATTER_REPS))
+
+
+def scatter_geometry(segs, kind: str) -> list:
+    """Per segment [leaf shape, axis, index rows]; a publish's axis is
+    its last indexed one (0, or 1 for port_slot's two)."""
+    if kind == "publish":
+        return [[list(d.shape), len(i) - 1, int(v.shape[0])]
+                for d, i, v in segs]
+    return [[list(d.shape), int(a), int(i.numel())] for d, a, i, _ in segs]
+
+
+# -- scatter_ab: the parent commit's csrc/publish.cu beside this one ---------
+
+SCATTER_AB_BUDGET_S = 120.0  # the four sites' A/B together
+SCATTER_AB_TURNS = ("parent", "new", "new", "parent")
+AB = {"lib": None, "source": None, "sites": {}, "s": 0.0}
+
+
+class _ParentSegment(ctypes.Structure):
+    """The parent's cpub::Segment (PUBLISH_SCATTER's argument)."""
+
+    _fields_ = ([(n, ctypes.c_void_p) for n in ("dst", "idx0", "idx1",
+                                                "values")]
+                + [(n, ctypes.c_int64) for n in ("size0", "size1", "rows",
+                                                 "words", "start")]
+                + [("axes", ctypes.c_int32), ("pad", ctypes.c_int32)])
+
+
+class _ParentArgs(ctypes.Structure):
+    _fields_ = [("seg", _ParentSegment * 16), ("n_seg", ctypes.c_int32),
+                ("pad", ctypes.c_int32), ("total", ctypes.c_int64)]
+
+
+class _ParentRepairSegment(ctypes.Structure):
+    """The parent's cpub::RepairSegment (REPAIR_SCATTER's argument)."""
+
+    _fields_ = ([(n, ctypes.c_void_p) for n in ("dst", "idx", "values")]
+                + [(n, ctypes.c_int64) for n in ("outer", "n_axis", "inner",
+                                                 "k", "start")])
+
+
+class _ParentRepairArgs(ctypes.Structure):
+    _fields_ = [("seg", _ParentRepairSegment * 16),
+                ("n_seg", ctypes.c_int32), ("pad", ctypes.c_int32),
+                ("total", ctypes.c_int64)]
+
+
+def scatter_ab_load(kernels, parent: str) -> None:
+    """Build `parent`/cilium_tpu_torch/csrc/publish.cu (a `git archive`
+    of the parent commit) with the package's nvcc flags into
+    cilium_tpu_torch/_build/ab/ and bind its two launchers; the argument
+    layouts are checked against the parent's publish_struct_sizes."""
+    from pathlib import Path
+
+    t = time.perf_counter()
+    src = Path(parent) / "cilium_tpu_torch" / "csrc" / "publish.cu"
+    if not src.is_file():
+        raise SystemExit(f"scatter_ab: no {src}")
+    out = kernels.BUILD_DIR / "ab" / "libpublish_parent.so"
+    out.parent.mkdir(parents=True, exist_ok=True)
+    proc = subprocess.run([kernels._nvcc(), *kernels.NVCC_FLAGS, "-o",
+                           str(out), str(src)], capture_output=True,
+                          text=True)
+    if proc.returncode:
+        raise SystemExit(f"scatter_ab: nvcc of {src} failed:\n"
+                         f"{proc.stdout}{proc.stderr}")
+    lib = ctypes.CDLL(str(out))
+    lib.launch_publish_scatter.argtypes = [ctypes.POINTER(_ParentArgs),
+                                           ctypes.c_void_p]
+    lib.launch_repair_scatter.argtypes = [ctypes.POINTER(_ParentRepairArgs),
+                                          ctypes.c_void_p]
+    sizes = (ctypes.c_int * 4)()
+    lib.publish_struct_sizes(sizes)
+    want = [ctypes.sizeof(a) for a in (_ParentSegment, _ParentArgs,
+                                       _ParentRepairSegment,
+                                       _ParentRepairArgs)]
+    if list(sizes) != want:
+        raise SystemExit(f"scatter_ab: the parent's layouts {list(sizes)} "
+                         f"are not {want}")
+    AB.update(lib=lib, source=str(src))
+    phase("scatter_ab_build", t, source=str(src))
+
+
+def _parent_publish(kernels, segments) -> None:
+    """The parent's PUBLISH_SCATTER wrapper, its checks included."""
+    a = _ParentArgs()
+    total = 0
+    dev = segments[0][0].device
+    for k, (dst, idx, values) in enumerate(segments):
+        axes = len(idx)
+        rows = int(values.shape[0])
+        tail = tuple(int(v) for v in dst.shape[axes:])
+        g = a.seg[k]
+        g.dst = kernels._ptr(dst, "dst", dev)
+        g.values = kernels._ptr(values, "values", dev, shape=(rows,) + tail)
+        g.idx0 = kernels._ptr(idx[0], "idx0", dev, torch.int64, (rows,))
+        if axes == 2:
+            g.idx1 = kernels._ptr(idx[1], "idx1", dev, torch.int64, (rows,))
+        g.size0 = int(dst.shape[0])
+        g.size1 = int(dst.shape[1]) if axes == 2 else 1
+        g.words = 1
+        for v in tail:
+            g.words *= v
+        g.rows, g.start, g.axes = rows, total, axes
+        total += rows * g.words
+    a.n_seg, a.total = len(segments), total
+    err = AB["lib"].launch_publish_scatter(
+        ctypes.byref(a), torch.cuda.current_stream(dev).cuda_stream)
+    if err:
+        raise SystemExit(f"scatter_ab: the parent's publish launch: {err}")
+
+
+def _parent_repair(kernels, segments) -> None:
+    """The parent's REPAIR_SCATTER wrapper, its checks included."""
+    a = _ParentRepairArgs()
+    total = 0
+    dev = segments[0][0].device
+    for n, (dst, axis, idx, values) in enumerate(segments):
+        k = int(idx.shape[0])
+        shape = tuple(int(v) for v in dst.shape)
+        g = a.seg[n]
+        g.dst = kernels._ptr(dst, "dst", dev)
+        g.idx = kernels._ptr(idx, "idx", dev, torch.int64, (k,))
+        g.values = kernels._ptr(values, "values", dev,
+                                shape=shape[:axis] + (k,) + shape[axis + 1:])
+        g.outer = g.inner = 1
+        for v in shape[:axis]:
+            g.outer *= v
+        for v in shape[axis + 1:]:
+            g.inner *= v
+        g.n_axis, g.k, g.start = shape[axis], k, total
+        total += g.outer * k * g.inner
+    a.n_seg, a.total = len(segments), total
+    err = AB["lib"].launch_repair_scatter(
+        ctypes.byref(a), torch.cuda.current_stream(dev).cuda_stream)
+    if err:
+        raise SystemExit(f"scatter_ab: the parent's repair launch: {err}")
+
+
+def host_us(fn, calls: int = 200) -> float:
+    """Host microseconds per call of `fn`: the time to queue `calls`
+    calls, none waited for (the device runs behind)."""
+    fn()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    us = (time.perf_counter() - t) / calls * 1e6
+    torch.cuda.synchronize()
+    return us
+
+
+def scatter_ab(kernels, site: str, kind: str, segs):
+    """The parent's kernel against this one on copies of `segs` (the
+    site's own segments, `kind` "publish" or "repair"), in chunks of
+    MAX_SCATTER_SEGMENTS a launch: each writes its copies once and every
+    entry must agree (SystemExit otherwise), then both are timed in
+    turns parent, new, new, parent (device ms queued behind a spin and
+    CUDA events over SCATTER_REPS calls, host µs over 200).  The new kernel's launch
+    count is left as it was.  None when no parent was built."""
+    if AB["lib"] is None:
+        return None
+    t = time.perf_counter()
+    new = kernels.PUBLISH_SCATTER if kind == "publish" else (
+        kernels.REPAIR_SCATTER)
+    old = _parent_publish if kind == "publish" else _parent_repair
+    step = kernels.MAX_SCATTER_SEGMENTS
+    copies = {w: [(s[0].clone(),) + tuple(s[1:]) for s in segs]
+              for w in ("parent", "new")}
+    calls = {
+        "parent": lambda: [old(kernels, copies["parent"][k:k + step])
+                           for k in range(0, len(segs), step)],
+        "new": lambda: [new(copies["new"][k:k + step])
+                        for k in range(0, len(segs), step)],
+    }
+    launches = new.launches
+    calls["parent"]()
+    calls["new"]()
+    torch.cuda.synchronize()
+    differ = sum(entries_differ(a[0], b[0])
+                 for a, b in zip(copies["parent"], copies["new"]))
+    rec = {f"{w}_{m}": [] for w in ("parent", "new")
+           for m in ("ms", "events_ms", "host_us")}
+    for who in SCATTER_AB_TURNS:
+        rec[f"{who}_ms"].append(spun_ms(queued_ms, calls[who],
+                                        f"scatter_ab {site}"))
+        rec[f"{who}_events_ms"].append(event_ms(calls[who], SCATTER_REPS))
+        rec[f"{who}_host_us"].append(host_us(calls[who]))
+    new.launches = launches
+    del copies
+    AB["s"] += time.perf_counter() - t
+    rec.update(differing=differ, segments=len(segs),
+               seconds=round(time.perf_counter() - t, 3))
+    AB["sites"][site] = rec
+    print(f"  scatter_ab {site} " + json.dumps(rec), flush=True)
+    if differ:
+        raise SystemExit(f"scatter_ab {site}: {differ} entries differ "
+                         f"between the parent's kernel and this one")
+    if AB["s"] > SCATTER_AB_BUDGET_S:
+        raise SystemExit(f"scatter_ab: {AB['s']:.1f} s past its budget of "
+                         f"{SCATTER_AB_BUDGET_S} s")
+    return rec
+
+
+SCATTER_AB_SITES = ("publish", "readmission", "datapath_delta", "relayout")
+
+
+def scatter_ab_phase() -> None:
+    """scatter_ab: the four sites' A/B in one line; fails when a site
+    was not reached."""
+    if AB["lib"] is None:
+        return
+    missing = [s for s in SCATTER_AB_SITES if s not in AB["sites"]]
+    med = lambda v: round(float(np.median(v)), 4)
+    phase("scatter_ab", time.perf_counter() - AB["s"], source=AB["source"],
+          sites=json.dumps({s: dict(
+              {k: med(v) for k, v in r.items() if isinstance(v, list)},
+              differing=r["differing"]) for s, r in AB["sites"].items()}),
+          missing=missing)
+    if missing:
+        raise SystemExit(f"scatter_ab: sites not reached: {missing}")
 
 
 def shadow_timing(kernels, s) -> dict:
@@ -6446,16 +6771,24 @@ def failover_timing(kernels, u, fu, fp, fm, smi) -> list:
     timed["repair_scatter"] = (
         lambda: kernels.REPAIR_SCATTER(segs_k),
         lambda: publish.repair_segments_plain(segs_p), rep_bytes)
-    lib_ms = {"repair_scatter": event_ms(lambda: [
-        d.index_copy_(a, i, v) for d, a, i, v in lib], FAIL_CALLS)}
     out = {}
     for name, (fn, plain, need) in timed.items():
-        out[name] = dict(ms=event_ms(fn, FAIL_CALLS),
-                         plain_ms=event_ms(plain, 3), bytes=need,
-                         bound_ms=need / HBM_BYTES_PER_S * 1e3,
-                         library_ms=lib_ms.get(name))
+        if name == "repair_scatter":
+            # device time (queued behind a spin) beside the caller's
+            # events, for the kernel and index_copy_
+            tm = scatter_times(fn, lambda: [
+                d.index_copy_(a, i, v) for d, a, i, v in lib])
+            out[name] = dict(ms=tm["device_ms"],
+                             library_ms=tm["library_device_ms"], **tm,
+                             geometry=scatter_geometry(segs_k, "repair"))
+        else:
+            out[name] = dict(ms=event_ms(fn, FAIL_CALLS), library_ms=None)
+        out[name].update(plain_ms=event_ms(plain, 3), bytes=need,
+                         bound_ms=need / HBM_BYTES_PER_S * 1e3)
         print(f"  failover_timing {name} " + json.dumps(out[name]),
               flush=True)
+    out["repair_scatter"]["ab"] = scatter_ab(kernels, "readmission",
+                                             "repair", segs_k)
     torch.cuda.synchronize()
     phase("failover_timing", t, card=repr(smi), calls=FAIL_CALLS, errs=errs,
           rep_cap=mg.rep_cap, miss_cold=mm._scalar(c["front"]["n_miss"]),
@@ -6504,6 +6837,10 @@ def failover_phases(kernels, w, u, rows, smi) -> None:
         row = kernel_row(kernel, src, replaces, path_launches.get(
             kernel.name, 0), max(ft["errs"][k] for k in errk), r["ms"],
             r["plain_ms"], r["bound_ms"], 0.0, r["library_ms"])
+        if kernel is kernels.REPAIR_SCATTER:
+            row.update({k: r[k] for k in (
+                "cold_ms", "events_ms", "library_cold_ms",
+                "library_events_ms", "geometry", "ab")})
         rows.append(row)
     if any(not path_launches.get(k.name) for k in (
             kernels.REPAIR_SCATTER, kernels.MESH_MEMO_PROBE,
@@ -6892,13 +7229,16 @@ def dp_delta_scatter(kernels, store, prev, host) -> dict:
     publish.repair_segments_plain(segs_p)
     err = sum(entries_differ(a[0], b[0]) for a, b in zip(segs_k, segs_p))
     need = sum(i.numel() * 8 + 2 * v.numel() * 4 for _, _, i, v in segs)
+    tm = scatter_times(lambda: kernels.REPAIR_SCATTER(segs_k),
+                       lambda: [d.index_copy_(a, i, v)
+                                for d, a, i, v in lib])
     return dict(
         segments=len(segs), rows=n_rows, bytes_h2d=nbytes, err=err,
-        ms=event_ms(lambda: kernels.REPAIR_SCATTER(segs_k), DP_CALLS),
+        ms=tm["device_ms"], library_ms=tm["library_device_ms"], **tm,
         plain_ms=event_ms(lambda: publish.repair_segments_plain(segs_p), 3),
-        library_ms=event_ms(lambda: [d.index_copy_(a, i, v)
-                                     for d, a, i, v in lib], DP_CALLS),
-        bytes=need, bound_ms=need / HBM_BYTES_PER_S * 1e3)
+        bytes=need, bound_ms=need / HBM_BYTES_PER_S * 1e3,
+        geometry=scatter_geometry(segs, "repair"),
+        ab=scatter_ab(kernels, "datapath_delta", "repair", segs))
 
 
 def dp_host_cols(words) -> dict:
@@ -7350,8 +7690,9 @@ def dp_mesh_phases(kernels, w, host, tables, node, rows, smi) -> None:
             row["launches"] += n
         if row["name"] == kernels.REPAIR_SCATTER.name:
             row["datapath_delta"] = {k: st["scatter"][k] for k in (
-                "segments", "rows", "ms", "plain_ms", "bound_ms",
-                "library_ms")}
+                "segments", "rows", "ms", "cold_ms", "events_ms", "plain_ms",
+                "bound_ms", "library_ms", "library_cold_ms",
+                "library_events_ms", "geometry", "ab")}
     torch.cuda.empty_cache()
     rows.extend(dp_mesh_timing(kernels, u, totals, smi))
     if any(not totals.get(k.name) for k in (kernels.DP_MESH_PROBE,
@@ -7879,17 +8220,18 @@ def relayout_hold(kernels, store, plan) -> dict:
     kernel(got)
     repair_segments_plain(want)
     err = max(entries_differ(a[0], b[0]) for a, b in zip(got, want))
-    ms = event_ms(lambda: kernel(got), LOOKUP_CALLS)
+    tm = scatter_times(lambda: kernel(got), lambda: [
+        d.index_copy_(a, i, v) for d, a, i, v in want])
     plain_ms = event_ms(lambda: repair_segments_plain(want), 3)
-    lib_ms = event_ms(lambda: [d.index_copy_(a, i, v) for d, a, i, v in want],
-                      3)
     need = sum(nbytes(i) + 2 * nbytes(v) for _, _, i, v in segs)
     del got, want
     return dict(segments=len(segs), rows=sum(int(i.numel())
                                              for _, _, i, _ in segs),
-                ms=ms, plain_ms=plain_ms,
-                bound_ms=need / HBM_BYTES_PER_S * 1e3, library_ms=lib_ms,
-                max_abs_err=err)
+                ms=tm["device_ms"], library_ms=tm["library_device_ms"],
+                **tm, plain_ms=plain_ms,
+                bound_ms=need / HBM_BYTES_PER_S * 1e3, max_abs_err=err,
+                geometry=scatter_geometry(segs, "repair"),
+                ab=scatter_ab(kernels, "relayout", "repair", segs))
 
 
 def reshard_phase(kernels, w, host, tables, rows) -> None:
@@ -8045,7 +8387,64 @@ def lookup_reshard_alone() -> None:
     print(json.dumps({"kernels": rows}), flush=True)
 
 
-def main() -> int:
+def scatter_alone(parent=None) -> None:
+    """The four sites of PUBLISH_SCATTER and REPAIR_SCATTER alone on
+    config 5's world (every kernel built first): publish, the mesh and
+    its failover phases (the readmission), dp_mesh_setup and
+    dp_mesh_store (the churn delta's scatter), reshard (the relayout);
+    with `parent` (a `git archive` of the parent commit) each site's
+    scatter_ab too: `python3 -c "import chip_smoke;
+    chip_smoke.scatter_alone('PARENT_DIR')"` on one H100."""
+    from cilium_tpu_torch import kernels, world
+    from cilium_tpu_torch.convert import tables_to
+
+    if not torch.cuda.is_available():
+        raise SystemExit("chip_smoke: no CUDA device")
+    smi = nvidia_smi()
+    t = time.perf_counter()
+    for stem, (_, log) in kernels.build_all(verbose=True).items():
+        for line in log.splitlines():
+            if stem == "publish" and ("registers" in line or "spill" in line
+                                      or "Compiling entry" in line):
+                print(f"  ptxas {stem}:", line.strip(), flush=True)
+    for k in kernels.KERNELS:
+        k.load()
+    phase("build", t, card=repr(smi))
+    if parent:
+        scatter_ab_load(kernels, parent)
+    w = world.make_world(seed=5)
+    host = world.headline_tables(w, w.host_tables())
+    tables = tables_to(host, "cuda")
+    rows = [kernel_row(k, "", "", 0, 0, 0.0, 0.0, 0.0, 0.0)
+            for k in kernels.KERNELS]
+    publish_phases(kernels, w, rows)
+    torch.cuda.empty_cache()
+    u = mesh_setup(w)
+    failover_phases(kernels, w, u, rows, smi)
+    del u
+    torch.cuda.empty_cache()
+    st = dp_mesh_store(kernels, w, dp_mesh_setup(kernels, w, host, tables))
+    del st["tables"], st["host"]
+    torch.cuda.empty_cache()
+    reshard_phase(kernels, w, host, tables, rows)
+    scatter_ab_phase()
+    mine = [r for r in rows if r["name"] in (
+        "publish_scatter", "repair_scatter") and r["source"]]
+    for r in mine:
+        if r["name"] == "repair_scatter":
+            r["datapath_delta"] = st["scatter"]
+    print(json.dumps({"kernels": mine}), flush=True)
+
+
+def main(argv=()) -> int:
+    """`--ab-parent DIR`: also time the parent commit's csrc/publish.cu,
+    from DIR (a `git archive` of it), beside this one (scatter_ab)."""
+    parent = None
+    if argv:
+        if len(argv) != 2 or argv[0] != "--ab-parent":
+            print("usage: chip_smoke.py [--ab-parent DIR]", file=sys.stderr)
+            return 2
+        parent = argv[1]
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
@@ -8076,6 +8475,8 @@ def main() -> int:
     for k in kernels.KERNELS:
         k.load()
     phase("build", t)
+    if parent:
+        scatter_ab_load(kernels, parent)
 
     # -- config-5 world, headline layouts, onto the card
     t = time.perf_counter()
@@ -8344,6 +8745,7 @@ def main() -> int:
     del node
     torch.cuda.empty_cache()
     reshard_phase(kernels, w, host, tables, rows)
+    scatter_ab_phase()
 
     if len(rows) != len(kernels.KERNELS):
         raise SystemExit(f"{len(rows)} kernel rows for "
@@ -8351,7 +8753,8 @@ def main() -> int:
     print("[library] library_ms is null except for ct_delta "
           "(index_copy_), memo_dedup (torch.unique of the key rows with the "
           "inverse), publish_scatter (one index_put_ per leaf on in-range "
-          "payloads: a time only) and pick_draw (torch.randint on the same shape: "
+          "payloads: a time only; device ms queued behind a spin, as its "
+          "ms) and pick_draw (torch.randint on the same shape: "
           "other numbers, so a time only): no single PyTorch call computes "
           "the fused datapath steps (v4 or v6), the intent compaction, a "
           "DFA scan, the Kafka rule match, the fleet's routed match, the "
@@ -8363,7 +8766,7 @@ def main() -> int:
           "or the windowed hash-table lookup with its stash, or the "
           "bucketized ipcache lookup; "
           "repair_scatter's is index_copy_ along the repaired axis "
-          "(a time only)",
+          "(a time only; device ms queued behind a spin, as its ms)",
           flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
     print(smi, flush=True)
@@ -8374,4 +8777,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

@@ -1,44 +1,59 @@
 // PUBLISH_SCATTER and REPAIR_SCATTER: K18's publish scatter and its
 // readmission repair on the card.
 //
-// Replaces cilium_tpu/engine/publish.py DeviceTableStore._apply_fn
-// (`apply`, jit site publish.scatter): for each leaf of a TableDelta,
-// `leaf.at[idx].set(values)` into the spare epoch, which the reference
-// donates.  Here the spare epoch's own tensors are written in place.
+// PUBLISH_SCATTER replaces cilium_tpu/engine/publish.py
+// DeviceTableStore._apply_fn (`apply`, jit site publish.scatter): for
+// each leaf of a TableDelta, `leaf.at[idx].set(values)` into the spare
+// epoch, which the reference donates.  Here the spare epoch's own
+// tensors are written in place.  One or two leading axes are indexed
+// (two for port_slot's (proto, dport)); the indices fold into one cell
+// index i0 * size1 + i1 over the leaf viewed as [cells, words].
 //
-// One launch covers every scattered leaf of a publish.  The argument
-// struct (a __grid_constant__ kernel parameter) holds a segment per
-// leaf: the destination, its indexed axes' sizes (one axis, or two for
-// port_slot's (proto, dport)), the words of one destination row, the
-// int64 index arrays and the payload rows.  A grid-stride loop walks
-// the flat (segment, payload row, word) space; each item finds its
-// segment by a short linear scan of the segments' start offsets.
+// REPAIR_SCATTER replaces cilium_tpu/engine/publish.py
+// DeviceTableStore._repair_fn (`apply`, jit site publish.repair, run by
+// repair_rows :953), and through it DatapathStore._scatter_fn
+// (engine/datapath_mesh.py :846) and the relayout windows: for each leaf
+// of a chip's row sets, `leaf.at[(slice(None),) * axis + (idx,)]
+// .set(values)` along one interior axis, in place.  A segment views the
+// leaf as [outer, n_axis, inner] and the payload as [outer, k, inner]:
+// values[o, r, i] goes to leaf[o, idx[r], i].  A publish is the same
+// geometry with outer = 1, so both kernels run one tile routine.
 //
 // jax's scatter rules, not torch's: an index below 0 gets its axis
 // size added once, and a row with any index still outside [0, size) is
-// dropped (FILL_OR_DROP).  Duplicate indices carry identical rows
-// (the store's pow2 padding repeats the last row), so any write order
-// gives the same bits.  Every word is 32 bits: u32 leaves travel as
-// int32 with the same bits, port_slot's u16 payload is widened to the
-// int32 the port keeps on the card.
+// dropped (FILL_OR_DROP).  Duplicate indices carry identical rows (the
+// stores' pow2 padding repeats the last row), so any write order gives
+// the same bits.  Every word is 32 bits: u32 leaves travel as int32
+// with the same bits, port_slot's u16 payload is widened to the int32
+// the port keeps on the card.  One launch covers up to MAX_SEGMENTS
+// leaves.
 //
-// Bound: bytes.  The index and value bytes are read once and the
-// destination rows written once; nothing is computed.  A row of
-// l4_allow_bits is 2 x Kg x W words (8.5 MB at config 5), so the loop
-// spreads a row's words over the whole grid: neighbouring threads
-// write neighbouring words.
-
-// REPAIR_SCATTER replaces cilium_tpu/engine/publish.py
-// DeviceTableStore._repair_fn (`apply`, jit site publish.repair, run by
-// repair_rows :953): for each leaf of a chip's owned row sets,
-// `leaf.at[(slice(None),) * axis + (idx,)].set(values)` along one
-// interior axis of the epoch the reference donates; here the epoch's
-// own tensors (each device's slices) are written in place.  A segment
-// views the leaf as [outer, n_axis, inner] and the payload as
-// [outer, k, inner]: values[o, r, i] goes to leaf[o, idx[r], i], with
-// the same index rules and the same flat grid-stride walk as the
-// publish scatter.  Bound: bytes, as the publish scatter: the index and
-// value bytes read once, the destination words written once.
+// Bound: bytes.  The index bytes and the payload are read once and the
+// destination words written once (chip_smoke.py counts the same:
+// idx + 2 x values); nothing is computed.  The shapes that matter are
+// few very wide rows (a publish's l4_allow_bits row is 2 x Kg x W
+// words, 8.5 MB at config 5) and long runs of a narrow axis (a
+// readmission repairs l4_allow_bits and l3_allow_bits along their
+// sharded last axis: inner = 1, an owned range of k consecutive words
+// per outer row).  The design:
+//  * The host lays out a table of tiles per segment: a tile is an
+//    outer range x a chunk of at most MAX_TILE_ROWS index rows x a
+//    chunk of a row's words, at most `tile words` in all (1,024 to
+//    8,192, from the launch's size: about one tile an SM, which beat
+//    two to eight on the card).  One block is one tile.  A block finds its segment once (a
+//    scan of at most 16 starts) and its tile from blockIdx with two
+//    32-bit divisions; nothing is divided per word, and 64-bit
+//    arithmetic makes only a run's base address.
+//  * The block reads its index rows once, into shared memory, with the
+//    index rules applied.  Where they are consecutive cells (an owned
+//    range, a row split over tiles) the tile is one contiguous run per
+//    outer row, and one run for the whole tile where the tile covers
+//    whole rows on both sides; otherwise each row is its own run.
+//  * A run is copied with 16-byte loads and stores where its source and
+//    destination share their alignment (scalar words before the first
+//    aligned vector and after the last), with 32-bit words where they
+//    do not; lanes per run are picked from the runs' length and count,
+//    and each lane keeps UNROLL loads in flight before it stores.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -47,121 +62,221 @@ namespace cpub {
 
 constexpr int MAX_SEGMENTS = 16;
 constexpr int BLOCK = 256;
-constexpr int MAX_BLOCKS = 132 * 16;
+constexpr int MAX_TILE_ROWS = 2048;  // index rows a tile stages
+constexpr int UNROLL = 4;
 
+// Every field is 8 bytes: the host fills the struct as an int64 array.
 struct Segment {
   uint32_t* dst;
   const int64_t* idx0;
   const int64_t* idx1;  // null for one indexed axis
   const uint32_t* values;
-  int64_t size0;
+  int64_t size0;  // the indexed axes' sizes: cells = size0 * size1
   int64_t size1;
-  int64_t rows;   // payload rows
-  int64_t words;  // 32-bit words of one destination row
-  int64_t start;  // first flat item of this segment
-  int32_t axes;
-  int32_t pad;
+  int64_t outer;  // rows before the indexed axis (1 for a publish)
+  int64_t inner;  // words of one cell
+  int64_t k;      // payload rows
+  // the tiling, laid out by the host
+  int64_t cols;      // words of a tile's chunk of a row
+  int64_t log_rows;  // a tile's index rows: 1 << log_rows at most
+  int64_t outers;    // a tile's outer rows at most
+  int64_t col_tiles;
+  int64_t row_tiles;
+  int64_t tile_start;  // this segment's first block
 };
 
-struct ScatterArgs {
+struct Args {
   Segment seg[MAX_SEGMENTS];
-  int32_t n_seg;
-  int32_t pad;
-  int64_t total;  // sum of rows * words over the segments
+  int64_t n_seg;
+  int64_t tiles;  // blocks of the launch
 };
 
-__global__ void __launch_bounds__(BLOCK)
-    publish_scatter_kernel(const __grid_constant__ ScatterArgs a) {
-  const int64_t stride = static_cast<int64_t>(gridDim.x) * BLOCK;
-  for (int64_t k = static_cast<int64_t>(blockIdx.x) * BLOCK + threadIdx.x;
-       k < a.total; k += stride) {
-    int s = 0;
-    while (s + 1 < a.n_seg && k >= a.seg[s + 1].start) ++s;
-    const Segment& g = a.seg[s];
-    const int64_t off = k - g.start;
-    const int64_t r = off / g.words;
-    const int64_t w = off - r * g.words;
-    int64_t cell = g.idx0[r];
-    if (cell < 0) cell += g.size0;
-    if (cell < 0 || cell >= g.size0) continue;
-    if (g.axes == 2) {
-      int64_t i1 = g.idx1[r];
-      if (i1 < 0) i1 += g.size1;
-      if (i1 < 0 || i1 >= g.size1) continue;
-      cell = cell * g.size1 + i1;
-    }
-    g.dst[cell * g.words + w] = g.values[off];
+// n / d for n < 2^31 with a multiply (d's magic number, made once per
+// block).
+struct FastDiv {
+  uint32_t m, s;
+  __device__ explicit FastDiv(uint32_t d) {
+    s = d > 1 ? 32 - __clz(d - 1) : 0;
+    m = static_cast<uint32_t>(((1ull << 32) * ((1ull << s) - d)) / d + 1);
+  }
+  __device__ uint32_t operator()(uint32_t n) const {
+    return (__umulhi(n, m) + n) >> s;
+  }
+};
+
+__device__ __forceinline__ int64_t min64(int64_t x, int64_t y) {
+  return x < y ? x : y;
+}
+
+__device__ __forceinline__ int pow2_floor(int x) {
+  return 1 << (31 - __clz(x));
+}
+
+__device__ __forceinline__ int pow2_ceil(int x) {
+  return x <= 1 ? 1 : 1 << (32 - __clz(x - 1));
+}
+
+// n elements of T from s to d, element e by lane e % lanes, UNROLL loads
+// in flight before the stores.
+template <typename T>
+__device__ __forceinline__ void copy_lanes(const T* __restrict__ s,
+                                           T* __restrict__ d, int n,
+                                           int lane, int lanes) {
+  for (int e = lane; e < n; e += UNROLL * lanes) {
+    T x[UNROLL];
+#pragma unroll
+    for (int q = 0; q < UNROLL; ++q)
+      if (e + q * lanes < n) x[q] = __ldg(s + e + q * lanes);
+#pragma unroll
+    for (int q = 0; q < UNROLL; ++q)
+      if (e + q * lanes < n) d[e + q * lanes] = x[q];
   }
 }
 
-struct RepairSegment {
-  uint32_t* dst;
-  const int64_t* idx;      // [k]
-  const uint32_t* values;  // [outer, k, inner]
-  int64_t outer;
-  int64_t n_axis;  // the leaf's size along the repaired axis
-  int64_t inner;   // words after the axis
-  int64_t k;       // payload rows along the axis
-  int64_t start;   // first flat item of this segment
-};
+// One run of `len` words: 16-byte vectors where both sides share their
+// alignment, scalar words at the edges and where they do not.
+__device__ __forceinline__ void copy_run(const uint32_t* src, uint32_t* dst,
+                                         int len, int lane, int lanes) {
+  const int ms = static_cast<int>(reinterpret_cast<uintptr_t>(src) >> 2) & 3;
+  const int md = static_cast<int>(reinterpret_cast<uintptr_t>(dst) >> 2) & 3;
+  if (ms != md) {
+    copy_lanes(src, dst, len, lane, lanes);
+    return;
+  }
+  const int head = min((4 - md) & 3, len);
+  const int nv = (len - head) >> 2;
+  const int done = head + 4 * nv;
+  copy_lanes(src, dst, head, lane, lanes);
+  copy_lanes(reinterpret_cast<const uint4*>(src + head),
+             reinterpret_cast<uint4*>(dst + head), nv, lane, lanes);
+  copy_lanes(src + done, dst + done, len - done, lane, lanes);
+}
 
-struct RepairArgs {
-  RepairSegment seg[MAX_SEGMENTS];
-  int32_t n_seg;
-  int32_t pad;
-  int64_t total;  // sum of outer * k * inner over the segments
-};
+// One block: one tile of one segment.
+__device__ __forceinline__ void scatter_tile(const Args& a) {
+  __shared__ int32_t cell[MAX_TILE_ROWS];
+  const int64_t b = blockIdx.x;
+  int s = 0;
+  while (s + 1 < a.n_seg && b >= a.seg[s + 1].tile_start) ++s;
+  const Segment& g = a.seg[s];
+  uint32_t t = static_cast<uint32_t>(b - g.tile_start);
+  const uint32_t col_tiles = static_cast<uint32_t>(g.col_tiles);
+  const uint32_t row_tiles = static_cast<uint32_t>(g.row_tiles);
+  const uint32_t ct = t % col_tiles;
+  t /= col_tiles;
+  const uint32_t rt = t % row_tiles;
+  const uint32_t ot = t / row_tiles;
+
+  const int64_t r0 = static_cast<int64_t>(rt) << g.log_rows;
+  const int nrows =
+      static_cast<int>(min64(int64_t{1} << g.log_rows, g.k - r0));
+  const int64_t c0 = static_cast<int64_t>(ct) * g.cols;
+  const int ncols = static_cast<int>(min64(g.cols, g.inner - c0));
+  const int64_t o0 = static_cast<int64_t>(ot) * g.outers;
+  const int nouter = static_cast<int>(min64(g.outers, g.outer - o0));
+  const int64_t cells = g.size0 * g.size1;
+
+  // the tile's index rows, once, with jax's rules (-1: dropped)
+  for (int j = threadIdx.x; j < nrows; j += BLOCK) {
+    int64_t i0 = g.idx0[r0 + j];
+    if (i0 < 0) i0 += g.size0;
+    bool ok = i0 >= 0 && i0 < g.size0;
+    if (g.idx1 != nullptr) {
+      int64_t i1 = g.idx1[r0 + j];
+      if (i1 < 0) i1 += g.size1;
+      ok = ok && i1 >= 0 && i1 < g.size1;
+      i0 = i0 * g.size1 + i1;
+    }
+    cell[j] = ok ? static_cast<int32_t>(i0) : -1;
+  }
+  __syncthreads();
+  bool consecutive = true;
+  for (int j = threadIdx.x; j < nrows; j += BLOCK)
+    consecutive = consecutive && cell[j] >= 0 &&
+                  (j == 0 || cell[j] == cell[j - 1] + 1);
+  const bool run = __syncthreads_and(consecutive);
+
+  // runs: one per outer row (consecutive cells), or one per (outer row,
+  // index row); a whole tile is one run where it covers whole rows of
+  // both the payload and the leaf
+  const int64_t src_row = g.k * g.inner;   // payload words per outer row
+  const int64_t dst_row = cells * g.inner;  // leaf words per outer row
+  const uint32_t* src0 = g.values + ((o0 * g.k + r0) * g.inner + c0);
+  uint32_t* dst0 = g.dst + (o0 * dst_row + c0);
+  int len, runs;
+  if (run) {
+    len = nrows * ncols;
+    runs = nouter;
+    if (nouter > 1 && len == src_row && len == dst_row) {
+      len *= nouter;
+      runs = 1;
+    }
+  } else {
+    len = ncols;
+    runs = nouter * nrows;
+  }
+  const int lanes = min(pow2_ceil((len + 3) >> 2),
+                        pow2_floor(max(1, BLOCK / min(runs, BLOCK))));
+  const int per_pass = BLOCK / lanes;
+  const int lane = threadIdx.x & (lanes - 1);
+  if (run) {
+    const int64_t at = static_cast<int64_t>(cell[0]) * g.inner;
+    for (int n = threadIdx.x / lanes; n < runs; n += per_pass)
+      copy_run(src0 + n * src_row, dst0 + (n * dst_row + at), len, lane,
+               lanes);
+    return;
+  }
+  const FastDiv by_rows(static_cast<uint32_t>(nrows));
+#pragma unroll 4
+  for (int n = threadIdx.x / lanes; n < runs; n += per_pass) {
+    const int o = static_cast<int>(by_rows(static_cast<uint32_t>(n)));
+    const int j = n - o * nrows;
+    const int32_t c = cell[j];
+    if (c < 0) continue;
+    copy_run(src0 + (o * src_row + static_cast<int64_t>(j) * g.inner),
+             dst0 + (o * dst_row + static_cast<int64_t>(c) * g.inner), len,
+             lane, lanes);
+  }
+}
 
 __global__ void __launch_bounds__(BLOCK)
-    repair_scatter_kernel(const __grid_constant__ RepairArgs a) {
-  const int64_t stride = static_cast<int64_t>(gridDim.x) * BLOCK;
-  for (int64_t f = static_cast<int64_t>(blockIdx.x) * BLOCK + threadIdx.x;
-       f < a.total; f += stride) {
-    int s = 0;
-    while (s + 1 < a.n_seg && f >= a.seg[s + 1].start) ++s;
-    const RepairSegment& g = a.seg[s];
-    const int64_t off = f - g.start;
-    const int64_t i = off % g.inner;
-    const int64_t r = (off / g.inner) % g.k;
-    const int64_t o = off / (g.inner * g.k);
-    int64_t cell = g.idx[r];
-    if (cell < 0) cell += g.n_axis;
-    if (cell < 0 || cell >= g.n_axis) continue;
-    g.dst[(o * g.n_axis + cell) * g.inner + i] = g.values[off];
-  }
+    publish_scatter_kernel(const __grid_constant__ Args a) {
+  scatter_tile(a);
+}
+
+__global__ void __launch_bounds__(BLOCK)
+    repair_scatter_kernel(const __grid_constant__ Args a) {
+  scatter_tile(a);
 }
 
 }  // namespace cpub
 
+// The layout and limits the host must agree with: sizeof(Segment),
+// sizeof(Args), MAX_SEGMENTS, MAX_TILE_ROWS.
 extern "C" int publish_struct_sizes(int* out) {
   out[0] = static_cast<int>(sizeof(cpub::Segment));
-  out[1] = static_cast<int>(sizeof(cpub::ScatterArgs));
-  out[2] = static_cast<int>(sizeof(cpub::RepairSegment));
-  out[3] = static_cast<int>(sizeof(cpub::RepairArgs));
+  out[1] = static_cast<int>(sizeof(cpub::Args));
+  out[2] = cpub::MAX_SEGMENTS;
+  out[3] = cpub::MAX_TILE_ROWS;
   return 0;
 }
 
-// One repair scatter of every segment on `stream`; returns
-// cudaGetLastError().
-extern "C" int launch_repair_scatter(const cpub::RepairArgs* args,
-                                     void* stream) {
-  if (args->total > 0) {
-    int64_t blocks = (args->total + cpub::BLOCK - 1) / cpub::BLOCK;
-    if (blocks > cpub::MAX_BLOCKS) blocks = cpub::MAX_BLOCKS;
-    cpub::repair_scatter_kernel<<<static_cast<int>(blocks), cpub::BLOCK, 0,
+// One repair scatter of every segment on `stream`, one block a tile;
+// returns cudaGetLastError().
+extern "C" int launch_repair_scatter(const cpub::Args* args, void* stream) {
+  if (args->tiles > 0)
+    cpub::repair_scatter_kernel<<<static_cast<unsigned>(args->tiles),
+                                  cpub::BLOCK, 0,
                                   static_cast<cudaStream_t>(stream)>>>(*args);
-  }
   return static_cast<int>(cudaGetLastError());
 }
 
-// One scatter of every segment on `stream`; returns cudaGetLastError().
-extern "C" int launch_publish_scatter(const cpub::ScatterArgs* args,
-                                      void* stream) {
-  if (args->total > 0) {
-    int64_t blocks = (args->total + cpub::BLOCK - 1) / cpub::BLOCK;
-    if (blocks > cpub::MAX_BLOCKS) blocks = cpub::MAX_BLOCKS;
-    cpub::publish_scatter_kernel<<<static_cast<int>(blocks), cpub::BLOCK, 0,
+// One publish scatter of every segment on `stream`; returns
+// cudaGetLastError().
+extern "C" int launch_publish_scatter(const cpub::Args* args, void* stream) {
+  if (args->tiles > 0)
+    cpub::publish_scatter_kernel<<<static_cast<unsigned>(args->tiles),
+                                   cpub::BLOCK, 0,
                                    static_cast<cudaStream_t>(stream)>>>(*args);
-  }
   return static_cast<int>(cudaGetLastError());
 }

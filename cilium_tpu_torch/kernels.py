@@ -96,7 +96,9 @@ raises on a launch error and counts `.launches`.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
+import math
 import os
 import shutil
 import subprocess
@@ -339,6 +341,13 @@ def _pow2(n: int, name: str) -> int:
     return n
 
 
+def _stream(device: torch.device) -> int:
+    """The raw handle of `device`'s current CUDA stream: the query
+    torch.cuda.current_stream(device).cuda_stream makes, without
+    building a Stream object (a few microseconds a launch)."""
+    return torch._C._cuda_getCurrentRawStream(device.index)
+
+
 class _Library:
     """csrc/<stem>.cu, built and bound once for the wrappers that
     launch its kernels; `bind` declares the C functions and checks that
@@ -375,8 +384,8 @@ class _Library:
         """Launch on the current stream, with `ints` between the
         arguments and the stream; raise on a launch error."""
         lib = self.load()
-        stream = torch.cuda.current_stream(device).cuda_stream
-        err = getattr(lib, launch)(ctypes.byref(args), *ints, stream)
+        err = getattr(lib, launch)(ctypes.byref(args), *ints,
+                                   _stream(device))
         if err != 0:
             raise KernelError(f"{name} launch failed: CUDA error {err}")
 
@@ -2182,42 +2191,47 @@ DATAPATH_PAIR_MEMO = DatapathPairMemoKernel()
 # ---------------------------------------------------------------------------
 
 MAX_SCATTER_SEGMENTS = 16  # csrc/publish.cu MAX_SEGMENTS
+MAX_TILE_ROWS = 2048  # csrc/publish.cu MAX_TILE_ROWS
+SCATTER_TILE_WORDS = (1 << 10, 1 << 13)  # a tile's words, least and most
+SCATTER_TARGET_TILES = 132  # about one block an SM of an H100
+# cpub::Segment, every field 8 bytes, then cpub::Args's n_seg and tiles
+SEGMENT_FIELDS = ("dst", "idx0", "idx1", "values", "size0", "size1",
+                  "outer", "inner", "k", "cols", "log_rows", "outers",
+                  "col_tiles", "row_tiles", "tile_start")
+_SCATTER_ARGS = ctypes.c_int64 * (
+    len(SEGMENT_FIELDS) * MAX_SCATTER_SEGMENTS + 2)
 
 
-class ScatterSegment(ctypes.Structure):
-    """Mirror of cpub::Segment in csrc/publish.cu, field for field."""
-
-    _fields_ = (
-        [(name, _P) for name in ("dst", "idx0", "idx1", "values")]
-        + [(name, ctypes.c_int64) for name in ("size0", "size1", "rows",
-                                               "words", "start")]
-        + [("axes", _I), ("pad", _I)]
-    )
-
-
-class ScatterArgs(ctypes.Structure):
-    """Mirror of cpub::ScatterArgs in csrc/publish.cu, field for field."""
-
-    _fields_ = [("seg", ScatterSegment * MAX_SCATTER_SEGMENTS),
-                ("n_seg", _I), ("pad", _I), ("total", ctypes.c_int64)]
+def scatter_tile_words(total: int) -> int:
+    """A scatter tile's words for a launch that moves `total` payload
+    words: the power of two at or below total / SCATTER_TARGET_TILES,
+    kept within SCATTER_TILE_WORDS (small scatters still fill the card,
+    large ones keep several 16-byte vectors a thread)."""
+    lo, hi = SCATTER_TILE_WORDS
+    return min(hi, max(lo, 1 << max(
+        (total // SCATTER_TARGET_TILES).bit_length() - 1, 0)))
 
 
-class RepairSegment(ctypes.Structure):
-    """Mirror of cpub::RepairSegment in csrc/publish.cu, field for
-    field."""
-
-    _fields_ = (
-        [(name, _P) for name in ("dst", "idx", "values")]
-        + [(name, ctypes.c_int64) for name in ("outer", "n_axis", "inner",
-                                               "k", "start")]
-    )
-
-
-class RepairArgs(ctypes.Structure):
-    """Mirror of cpub::RepairArgs in csrc/publish.cu, field for field."""
-
-    _fields_ = [("seg", RepairSegment * MAX_SCATTER_SEGMENTS),
-                ("n_seg", _I), ("pad", _I), ("total", ctypes.c_int64)]
+@functools.lru_cache(maxsize=4096)
+def scatter_tiling(outer: int, k: int, inner: int, tile_words: int) -> tuple:
+    """csrc/publish.cu's tiles of a segment of values [outer, k, inner]:
+    (cols, log_rows, outers, col_tiles, row_tiles, outer_tiles).  A tile
+    is `outers` outer rows x 1 << log_rows index rows x `cols` words of
+    a row (the last tile of each axis clipped), at most `tile_words`
+    words; a row wider than a tile is split into column chunks, one
+    index row a tile.  Cached: a store scatters the same leaf shapes
+    and payload sizes again and again."""
+    cols = inner if inner < tile_words else tile_words
+    cap = tile_words // cols
+    rows = MAX_TILE_ROWS if cap >= MAX_TILE_ROWS else (
+        1 << (cap.bit_length() - 1))
+    if k < rows:
+        rows = 1 << (k - 1).bit_length()
+    outers = tile_words // (cols * (k if k < rows else rows))
+    if outers > outer:
+        outers = outer
+    return (cols, rows.bit_length() - 1, outers, -(-inner // cols),
+            -(-k // rows), -(-outer // outers))
 
 
 class _PublishLibrary(_Library):
@@ -2226,22 +2240,89 @@ class _PublishLibrary(_Library):
     stem = "publish"
 
     def bind(self, lib) -> None:
-        self.declare(lib, (("launch_publish_scatter", ScatterArgs),
-                           ("launch_repair_scatter", RepairArgs)))
+        for launch in ("launch_publish_scatter", "launch_repair_scatter"):
+            getattr(lib, launch).argtypes = [_P, _P]
+            getattr(lib, launch).restype = ctypes.c_int
         lib.publish_struct_sizes.argtypes = [ctypes.POINTER(ctypes.c_int)]
         lib.publish_struct_sizes.restype = ctypes.c_int
-        sizes = (ctypes.c_int * 4)()
-        lib.publish_struct_sizes(sizes)
-        want = [ctypes.sizeof(a) for a in (ScatterSegment, ScatterArgs,
-                                           RepairSegment, RepairArgs)]
-        if list(sizes) != want:
+        got = (ctypes.c_int * 4)()
+        lib.publish_struct_sizes(got)
+        want = [8 * len(SEGMENT_FIELDS), ctypes.sizeof(_SCATTER_ARGS),
+                MAX_SCATTER_SEGMENTS, MAX_TILE_ROWS]
+        if list(got) != want:
             raise RuntimeError(
-                f"publish argument layouts differ between kernels.py "
-                f"{want} and csrc/publish.cu {list(sizes)}"
+                f"publish argument layout and limits differ between "
+                f"kernels.py {want} and csrc/publish.cu {list(got)}"
             )
+
+    def scatter(self, launch: str, geo, device, name: str) -> None:
+        """One launch over the segments `geo` (scatter_args)."""
+        args = scatter_args(geo, name)
+        err = getattr(self.load(), launch)(ctypes.addressof(args),
+                                           _stream(device))
+        if err != 0:
+            raise KernelError(f"{name} launch failed: CUDA error {err}")
+
+
+def scatter_args(geo, name: str):
+    """csrc/publish.cu's argument block for the segments `geo`, each
+    (dst, idx0, idx1, values pointers, size0, size1, outer, inner, k):
+    the segments and their tiles (scatter_tiling), as int64 words."""
+    tile_words = scatter_tile_words(sum(g[6] * g[7] * g[8] for g in geo))
+    flat, tiles = [], 0
+    for g in geo:
+        cols, log_rows, outers, ct, rt, ot = scatter_tiling(
+            g[6], g[8], g[7], tile_words)
+        flat.extend(g)
+        flat.extend((cols, log_rows, outers, ct, rt, tiles))
+        tiles += ct * rt * ot
+    if tiles >= 1 << 31:
+        raise ValueError(f"{name}: {tiles} tiles in one launch")
+    args = _SCATTER_ARGS()
+    args[:len(flat)] = flat
+    args[-2], args[-1] = len(geo), tiles
+    return args
 
 
 PUBLISH_LIBRARY = _PublishLibrary()
+
+
+def _cell_limit(cells: int) -> None:
+    # csrc/publish.cu stages a row's cell index as int32
+    if cells >= 1 << 31:
+        raise ValueError(f"{cells} cells, at most 2**31 - 1")
+
+
+def _publish_geometry(dst, idx, values, dev) -> tuple:
+    """One publish segment's pointers (checked by _ptr) and sizes."""
+    axes = len(idx)
+    shape = tuple(dst.shape)
+    if axes not in (1, 2) or len(shape) < axes:
+        raise ValueError(f"{axes} indexed axes of a {len(shape)}-d leaf")
+    rows = values.shape[0]
+    size1 = shape[1] if axes == 2 else 1
+    _cell_limit(shape[0] * size1)
+    return (_ptr(dst, "dst", dev),
+            _ptr(idx[0], "idx[0]", dev, torch.int64, (rows,)),
+            _ptr(idx[1], "idx[1]", dev, torch.int64, (rows,))
+            if axes == 2 else 0,
+            _ptr(values, "values", dev, shape=(rows,) + shape[axes:]),
+            shape[0], size1, 1, math.prod(shape[axes:]), rows)
+
+
+def _repair_geometry(dst, axis: int, idx, values, dev) -> tuple:
+    """One repair segment's pointers (checked by _ptr) and sizes."""
+    shape = tuple(dst.shape)
+    if not 0 <= axis < len(shape):
+        raise ValueError(f"axis {axis} of a {len(shape)}-d leaf")
+    k = idx.shape[0]
+    _cell_limit(shape[axis])
+    return (_ptr(dst, "dst", dev),
+            _ptr(idx, "idx", dev, torch.int64, (k,)), 0,
+            _ptr(values, "values", dev,
+                 shape=shape[:axis] + (k,) + shape[axis + 1:]),
+            shape[axis], 1, math.prod(shape[:axis]),
+            math.prod(shape[axis + 1:]), k)
 
 
 class PublishScatterKernel:
@@ -2261,42 +2342,21 @@ class PublishScatterKernel:
         return PUBLISH_LIBRARY.load(verbose)
 
     def __call__(self, segments):
-        segments = [s for s in segments if int(s[2].shape[0]) > 0]
+        segments = [s for s in segments if s[2].numel()]
         if not segments:
             return
         if len(segments) > MAX_SCATTER_SEGMENTS:
             raise ValueError(f"{len(segments)} leaves in one scatter, at "
                              f"most {MAX_SCATTER_SEGMENTS}")
         dev = _cuda_device(segments[0][0], self.name)
-        a = ScatterArgs()
-        total = 0
-        for k, (dst, idx, values) in enumerate(segments):
-            axes = len(idx)
-            if axes not in (1, 2) or dst.dim() < axes:
-                raise ValueError(f"segment {k}: {axes} indexed axes of a "
-                                 f"{dst.dim()}-d leaf")
-            rows = int(values.shape[0])
-            tail = tuple(int(v) for v in dst.shape[axes:])
-            g = a.seg[k]
-            g.dst = _ptr(dst, f"segment {k} dst", dev)
-            g.values = _ptr(values, f"segment {k} values", dev,
-                            shape=(rows,) + tail)
-            g.idx0 = _ptr(idx[0], f"segment {k} idx[0]", dev, torch.int64,
-                          (rows,))
-            if axes == 2:
-                g.idx1 = _ptr(idx[1], f"segment {k} idx[1]", dev,
-                              torch.int64, (rows,))
-            g.size0 = int(dst.shape[0])
-            g.size1 = int(dst.shape[1]) if axes == 2 else 1
-            g.words = 1
-            for v in tail:
-                g.words *= v
-            g.rows, g.start, g.axes = rows, total, axes
-            total += rows * g.words
-        a.n_seg, a.total = len(segments), total
-        if total >= 1 << 62:
-            raise ValueError("scatter too large")
-        PUBLISH_LIBRARY.launch("launch_publish_scatter", a, dev, self.name)
+        geo = []
+        for n, (dst, idx, values) in enumerate(segments):
+            try:
+                geo.append(_publish_geometry(dst, idx, values, dev))
+            except (TypeError, ValueError) as exc:
+                raise type(exc)(f"segment {n}: {exc}") from None
+        PUBLISH_LIBRARY.scatter("launch_publish_scatter", geo, dev,
+                                self.name)
         self.launches += 1
 
 
@@ -2317,38 +2377,22 @@ class RepairScatterKernel:
         return PUBLISH_LIBRARY.load(verbose)
 
     def __call__(self, segments):
-        segments = [s for s in segments if s[3].numel() > 0]
+        segments = [s for s in segments if s[3].numel()]
         if not segments:
             return
         if len(segments) > MAX_SCATTER_SEGMENTS:
             raise ValueError(f"{len(segments)} leaves in one repair, at "
                              f"most {MAX_SCATTER_SEGMENTS}")
         dev = _cuda_device(segments[0][0], self.name)
-        a = RepairArgs()
-        total = 0
+        geo = []
         for n, (dst, axis, idx, values) in enumerate(segments):
-            axis = int(axis)
-            if not 0 <= axis < dst.dim():
-                raise ValueError(f"segment {n}: axis {axis} of a "
-                                 f"{dst.dim()}-d leaf")
-            k = int(idx.shape[0])
-            shape = tuple(int(v) for v in dst.shape)
-            g = a.seg[n]
-            g.dst = _ptr(dst, f"segment {n} dst", dev)
-            g.idx = _ptr(idx, f"segment {n} idx", dev, torch.int64, (k,))
-            g.values = _ptr(values, f"segment {n} values", dev,
-                            shape=shape[:axis] + (k,) + shape[axis + 1:])
-            g.outer = g.inner = 1
-            for v in shape[:axis]:
-                g.outer *= v
-            for v in shape[axis + 1:]:
-                g.inner *= v
-            g.n_axis, g.k, g.start = shape[axis], k, total
-            total += g.outer * k * g.inner
-        a.n_seg, a.total = len(segments), total
-        if total >= 1 << 62:
-            raise ValueError("repair too large")
-        PUBLISH_LIBRARY.launch("launch_repair_scatter", a, dev, self.name)
+            try:
+                geo.append(_repair_geometry(dst, int(axis), idx, values,
+                                            dev))
+            except (TypeError, ValueError) as exc:
+                raise type(exc)(f"segment {n}: {exc}") from None
+        PUBLISH_LIBRARY.scatter("launch_repair_scatter", geo, dev,
+                                self.name)
         self.launches += 1
 
 

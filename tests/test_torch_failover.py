@@ -589,34 +589,128 @@ def test_lattice_fold_host_matches_reference():
         np.testing.assert_array_equal(a, b)
 
 
-@pytest.mark.parametrize("axis", [0, 1, 2])
-def test_repair_scatter_plain_matches_reference_repair_fn(axis):
+# REPAIR_SCATTER's cases beyond the three axes of a (6, 8, 10) leaf: leaf
+# shape, axis, index kind, the destination's and the payload's offsets
+# in words into larger buffers.  Index kinds: "owned" the first half of
+# the axis (a chip's primary words), "whole" every index (on a narrow
+# axis one run over several outer rows), "tail" the last 8 by negative
+# indices, "mixed" a consecutive run, a scattered unsorted part, -1 and
+# -n, n and -n - 1 (dropped) and pow2 padding repeating the last,
+# "wide" 3 rows of a leaf wider than a tile.
+_REPAIR_CASES = {
+    "last_owned": ((4, 2, 6, 520), 3, "owned", 0, 0),
+    "last_whole": ((4, 2, 6, 520), 3, "whole", 0, 0),
+    "last_whole_narrow": ((40, 2, 6, 8), 3, "whole", 0, 0),
+    "last_scattered": ((3, 2, 3000), 2, "mixed", 0, 0),
+    "last_tail": ((5, 70), 1, "tail", 0, 0),
+    "width1": ((200, 1), 0, "mixed", 0, 0),
+    "width3": ((200, 3), 0, "mixed", 0, 0),
+    "width4": ((200, 4), 0, "mixed", 0, 0),
+    "width5": ((200, 5), 0, "mixed", 0, 0),
+    "width64": ((3, 200, 64), 1, "mixed", 0, 0),
+    "unaligned_dst": ((120, 8), 0, "mixed", 1, 0),
+    "unaligned_both": ((120, 8), 0, "owned", 3, 3),
+    "wide_row": ((4, 4500), 0, "wide", 0, 0),
+}
+SIXTEEN_SEGMENTS = 16  # csrc/publish.cu MAX_SEGMENTS: one launch
+
+
+def _repair_idx(rng, n, kind):
+    if kind == "owned":
+        return np.arange(n // 2, dtype=np.int64)
+    if kind == "whole":
+        return np.arange(n, dtype=np.int64)
+    if kind == "tail":
+        return np.arange(-8, 0, dtype=np.int64)
+    if kind == "wide":
+        return np.array([2, -1, 4], np.int64)
+    run = np.arange(n // 4, n // 4 + n // 3)
+    rest = rng.permutation(n)[:n // 4]
+    idx = np.concatenate([run, rest, [-1, -n, n, -n - 1]]).astype(np.int64)
+    pad = tpub.next_pow2(len(idx)) - len(idx)
+    return np.concatenate([idx, np.repeat(idx[-1:], pad)])
+
+
+def _repair_segment(rng, shape, axis, kind, dst_off, val_off):
+    """(leaf, axis, idx, values, dst_off, val_off), numpy u32; duplicate
+    cells carry their first row, as the store's padding does."""
+    leaf = rng.integers(0, 2 ** 32, shape, dtype=np.uint64).astype(np.uint32)
+    n = shape[axis]
+    idx = _repair_idx(rng, n, kind)
+    vshape = list(shape)
+    vshape[axis] = len(idx)
+    values = rng.integers(0, 2 ** 32, vshape, dtype=np.uint64).astype(
+        np.uint32)
+    _, first, inverse = np.unique(np.where(idx < 0, idx + n, idx),
+                                  return_index=True, return_inverse=True)
+    values = np.take(values, first[inverse.reshape(-1)], axis=axis)
+    return leaf, axis, idx, values, dst_off, val_off
+
+
+def _repair_case(case):
+    """The segments of a repair case: one, or SIXTEEN_SEGMENTS of the
+    width and last-axis cases for "sixteen"."""
+    rng = np.random.default_rng(len(case))
+    if case == "sixteen":
+        names = sorted(c for c in _REPAIR_CASES if c.startswith(("width",
+                                                                 "last")))
+        return [_repair_segment(rng, *_REPAIR_CASES[names[k % len(names)]])
+                for k in range(SIXTEEN_SEGMENTS)]
+    return [_repair_segment(rng, *_REPAIR_CASES[case])]
+
+
+def _words(a, offset=0, device="cpu"):
+    """A u32 array as int32 words (same bits), a view `offset` words
+    into a larger buffer on `device`."""
+    flat = torch.from_numpy(a.view(np.int32).reshape(-1).copy())
+    buf = torch.zeros(offset + flat.numel(), dtype=torch.int32,
+                      device=device)
+    buf[offset:] = flat.to(device)
+    return buf[offset:].view(a.shape)
+
+
+@pytest.mark.parametrize("case", [0, 1, 2] + sorted(_REPAIR_CASES)
+                         + ["sixteen"])
+def test_repair_scatter_plain_matches_reference_repair_fn(case):
     """repair_segments_plain against the reference store's jitted
     `_repair_fn` (leaf.at[(slice(None),) * axis + (idx,)].set(values)):
     negative indices count from the end once, an index still out of
-    range is dropped."""
+    range is dropped.  Cases 0, 1, 2 are the axes of a (6, 8, 10) leaf;
+    the named ones the shapes REPAIR_SCATTER's paths take (inner 1
+    along the last axis, owned and scattered; row widths 1 to 64; an
+    unaligned destination; a row wider than a tile; sixteen
+    segments)."""
     _need_jax()
     from cilium_tpu.engine.publish import DeviceTableStore as JStore
 
-    rng = np.random.default_rng(axis)
-    leaf = rng.integers(0, 2 ** 32, (6, 8, 10), dtype=np.uint64).astype(
-        np.uint32)
-    n = leaf.shape[axis]
-    idx = np.array([0, -1, n - 2, n + 3, -n - 1, 2], np.int64)
-    shape = list(leaf.shape)
-    shape[axis] = len(idx)
-    values = rng.integers(0, 2 ** 32, shape, dtype=np.uint64).astype(
-        np.uint32)
+    if isinstance(case, int):
+        axis = case
+        rng = np.random.default_rng(axis)
+        leaf = rng.integers(0, 2 ** 32, (6, 8, 10), dtype=np.uint64).astype(
+            np.uint32)
+        n = leaf.shape[axis]
+        idx = np.array([0, -1, n - 2, n + 3, -n - 1, 2], np.int64)
+        shape = list(leaf.shape)
+        shape[axis] = len(idx)
+        values = rng.integers(0, 2 ** 32, shape, dtype=np.uint64).astype(
+            np.uint32)
+        segments = [(leaf, axis, idx, values, 0, 0)]
+    else:
+        segments = _repair_case(case)
     fields = tuple(f.name for f in dataclasses.fields(jtab.PolicyTables))
-    jt = jtab.PolicyTables(**{f: None for f in fields})
-    jt = dataclasses.replace(jt, l3_allow_bits=jax.numpy.asarray(leaf))
-    fn = JStore()._repair_fn(("l3_allow_bits",), (axis,))
-    want = np.asarray(fn(jt, ((jax.numpy.asarray(idx),
-                               jax.numpy.asarray(values)),)).l3_allow_bits)
-    dst = torch.from_numpy(leaf.view(np.int32).copy())
-    tpub.repair_segments_plain([(dst, axis, torch.from_numpy(idx),
-                                 torch.from_numpy(values.view(np.int32)))])
-    np.testing.assert_array_equal(dst.numpy().view(np.uint32), want)
+    jt0 = jtab.PolicyTables(**{f: None for f in fields})
+    dsts, wants = [], []
+    for leaf, axis, idx, values, dst_off, val_off in segments:
+        jt = dataclasses.replace(jt0, l3_allow_bits=jax.numpy.asarray(leaf))
+        fn = JStore()._repair_fn(("l3_allow_bits",), (axis,))
+        wants.append(np.asarray(fn(jt, ((jax.numpy.asarray(idx),
+                                         jax.numpy.asarray(values)),))
+                                .l3_allow_bits))
+        dsts.append((_words(leaf, dst_off), axis, torch.from_numpy(idx),
+                     _words(values, val_off)))
+    tpub.repair_segments_plain(dsts)
+    for (dst, *_), want in zip(dsts, wants):
+        np.testing.assert_array_equal(dst.numpy().view(np.uint32), want)
 
 
 def test_route_repair_splits_rows_by_block():
@@ -648,36 +742,47 @@ def test_route_repair_splits_rows_by_block():
 
 
 @pytest.mark.cuda
-def test_repair_scatter_kernel_matches_plain():
-    """REPAIR_SCATTER against repair_segments_plain on the card: three
-    leaves in one launch, along axes 0, 1 and 2, with negative and
-    out-of-range indices."""
+@pytest.mark.parametrize("case", ["random"] + sorted(_REPAIR_CASES)
+                         + ["sixteen"])
+def test_repair_scatter_kernel_matches_plain(case):
+    """REPAIR_SCATTER against repair_segments_plain on the card, one
+    launch a case: three random leaves along axes 0, 1 and 2 with
+    negative and out-of-range indices, and each named case of the plain
+    version's test (inner 1 along the last axis, owned and scattered;
+    row widths 1 to 64; unaligned views; a row wider than a tile;
+    sixteen segments)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     from cilium_tpu_torch import kernels
 
     rng = np.random.default_rng(1)
-    segs = {}
-    for dev in ("cpu", "cuda"):
-        segs[dev] = []
-    for axis, shape in ((0, (4096, 64)), (1, (3, 2000, 7)), (2, (32, 2, 96))):
-        leaf = rng.integers(-2 ** 31, 2 ** 31, shape, dtype=np.int64).astype(
-            np.int32)
-        n = shape[axis]
-        idx = np.concatenate([rng.integers(-n - 3, n + 3, 300), [0, -1]])
-        vshape = list(shape)
-        vshape[axis] = idx.size
-        values = rng.integers(-2 ** 31, 2 ** 31, vshape,
-                              dtype=np.int64).astype(np.int32)
-        # duplicates carry identical rows, as the store's padding does
-        _, first = np.unique(np.where(idx < 0, idx + n, idx),
-                             return_index=True)
-        idx = idx[np.sort(first)]
-        values = np.take(values, np.sort(first), axis=axis)
-        for dev in ("cpu", "cuda"):
-            segs[dev].append((torch.from_numpy(leaf.copy()).to(dev), axis,
-                              torch.from_numpy(idx).to(dev),
-                              torch.from_numpy(values).to(dev)))
+    segs = {"cpu": [], "cuda": []}
+    if case == "random":
+        for axis, shape in ((0, (4096, 64)), (1, (3, 2000, 7)),
+                            (2, (32, 2, 96))):
+            leaf = rng.integers(-2 ** 31, 2 ** 31, shape,
+                                dtype=np.int64).astype(np.int32)
+            n = shape[axis]
+            idx = np.concatenate([rng.integers(-n - 3, n + 3, 300), [0, -1]])
+            vshape = list(shape)
+            vshape[axis] = idx.size
+            values = rng.integers(-2 ** 31, 2 ** 31, vshape,
+                                  dtype=np.int64).astype(np.int32)
+            # duplicates carry identical rows, as the store's padding does
+            _, first = np.unique(np.where(idx < 0, idx + n, idx),
+                                 return_index=True)
+            idx = idx[np.sort(first)]
+            values = np.take(values, np.sort(first), axis=axis)
+            for dev in ("cpu", "cuda"):
+                segs[dev].append((torch.from_numpy(leaf.copy()).to(dev),
+                                  axis, torch.from_numpy(idx).to(dev),
+                                  torch.from_numpy(values).to(dev)))
+    else:
+        for leaf, axis, idx, values, dst_off, val_off in _repair_case(case):
+            for dev in ("cpu", "cuda"):
+                segs[dev].append((_words(leaf, dst_off, dev), axis,
+                                  torch.from_numpy(idx).to(dev),
+                                  _words(values, val_off, dev)))
     before = kernels.REPAIR_SCATTER.launches
     kernels.REPAIR_SCATTER(segs["cuda"])
     tpub.repair_segments_plain(segs["cpu"])

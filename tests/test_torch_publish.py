@@ -755,49 +755,161 @@ def test_generation_is_carried_to_the_device():
 # -- the scatter's plain version -----------------------------------------------
 
 _SCATTER_CASES = {
-    # leaf shape, dtype, indexed axes, index values per axis
-    "rows_u32": ((8, 2, 3), np.uint32, 1, ([0, -1, 3, 9, -9, 3, -8],)),
-    "elements_u32": ((16,), np.uint32, 1, ([15, -16, 16, -17, 2, 2, 7],)),
+    # leaf shape, dtype, indexed axes, index values per axis (None: a
+    # consecutive run, a scattered unsorted part, negative and
+    # out-of-range indices, pow2 padding repeating the last; _mixed_idx),
+    # the destination's offset in words into a larger buffer
+    "rows_u32": ((8, 2, 3), np.uint32, 1, ([0, -1, 3, 9, -9, 3, -8],), 0),
+    "elements_u32": ((16,), np.uint32, 1, ([15, -16, 16, -17, 2, 2, 7],),
+                     0),
     "port_slot_u16": ((6, 10), np.uint16, 2,
                       ([0, 5, -1, 6, 2, 2, -7, 3], [9, 0, -10, 1, 10, 4, 4,
-                                                    -1])),
+                                                    -1]), 0),
+    # the kernel's 16-byte and ragged paths: row widths of 1, 3, 4, 5, 64
+    "width1_u32": ((300, 1), np.uint32, 1, None, 0),
+    "width3_u32": ((300, 3), np.uint32, 1, None, 0),
+    "width4_u32": ((300, 4), np.uint32, 1, None, 0),
+    "width5_u32": ((300, 5), np.uint32, 1, None, 0),
+    "width64_u32": ((300, 4, 16), np.uint32, 1, None, 0),
+    # a destination whose start is not 16-byte aligned
+    "unaligned_width8_u32": ((120, 8), np.uint32, 1, None, 1),
+    # consecutive dports of one proto: one run of cells on two axes
+    "port_slot_run_u16": ((17, 300), np.uint16, 2,
+                          ([3] * 64 + [-1, 16, 17, -18, 2, 2, 2, 2],
+                           list(range(100, 164)) + [-1, 299, 300, 5, 7, 7,
+                                                    7, 7]), 0),
+    # one row wider than a tile (1,024 to 8,192 words)
+    "wide_row_u32": ((4, 2, 4500), np.uint32, 1, ([2, 0, -1, 4],), 0),
 }
+SIXTEEN_LEAVES = 16  # csrc/publish.cu MAX_SEGMENTS: one launch
 
 
-@pytest.mark.parametrize("case", sorted(_SCATTER_CASES))
-def test_plain_scatter_matches_jax(case):
-    """scatter_segments_plain against jitted jax `.at[idx].set` (the
-    reference's scatter) with negative, out-of-range and duplicate
-    indices (duplicates carry identical rows, as the store's pow2
-    padding does)."""
-    _need_jax()
-    shape, dtype, axes, idx = _SCATTER_CASES[case]
-    rng = np.random.default_rng(len(case))
+def _mixed_idx(rng, n, k):
+    """k-ish indices into an axis of n: a consecutive run, a scattered
+    unsorted part, -1 and -n (counting from the end), n and -n - 1
+    (dropped), padded to a power of two by repeating the last."""
+    run = np.arange(n // 4, n // 4 + k // 2)
+    rest = rng.permutation(n)[:k - len(run)]
+    idx = np.concatenate([run, rest, [-1, -n, n, -n - 1]]).astype(np.int64)
+    pad = tpub.next_pow2(len(idx)) - len(idx)
+    return np.concatenate([idx, np.repeat(idx[-1:], pad)])
+
+
+def _scatter_leaf(rng, shape, dtype, axes, idx, offset):
+    """(base, idx, values, offset) of one leaf, numpy; duplicate cells
+    carry their first row, as the store's padding does."""
     info = np.iinfo(dtype)
     base = rng.integers(0, int(info.max) + 1, size=shape,
                         dtype=np.int64).astype(dtype)
+    if idx is None:
+        idx = (_mixed_idx(rng, shape[0], 96),)
     idx = tuple(np.asarray(i, np.int64) for i in idx)
     r = len(idx[0])
     values = rng.integers(0, int(info.max) + 1, size=(r,) + shape[axes:],
                           dtype=np.int64).astype(dtype)
-    # duplicate cells carry the same row
     cells = np.stack([np.where(i < 0, i + s, i)
                       for i, s in zip(idx, shape)], axis=1)
-    for k in range(r):
-        for j in range(k):
-            if np.array_equal(cells[k], cells[j]):
-                values[k] = values[j]
-    want = np.asarray(jax.jit(lambda a, v, *i: a.at[i].set(v))(
-        jnp.asarray(base), jnp.asarray(values),
-        *[jnp.asarray(i) for i in idx]))
-    dst = torch.from_numpy(base.astype(np.int64).astype(np.uint32)
-                           .view(np.int32).copy())
-    vals = torch.from_numpy(values.astype(np.int64).astype(np.uint32)
-                            .view(np.int32).copy())
-    tpub.publish_scatter([(dst, tuple(torch.from_numpy(i) for i in idx),
-                           vals)])
-    got = dst.numpy().view(np.uint32)
-    assert np.array_equal(got, want.astype(np.uint32))
+    _, first, inverse = np.unique(cells, axis=0, return_index=True,
+                                  return_inverse=True)
+    values = values[first[inverse.reshape(-1)]]
+    return base, idx, values, offset
+
+
+def _scatter_case(case):
+    """The leaves of a scatter case: one, or SIXTEEN_LEAVES of the width
+    cases for "sixteen_leaves"."""
+    rng = np.random.default_rng(len(case))
+    if case == "sixteen_leaves":
+        names = sorted(c for c in _SCATTER_CASES if c.startswith("width"))
+        return [_scatter_leaf(rng, *_SCATTER_CASES[names[k % len(names)]])
+                for k in range(SIXTEEN_LEAVES)]
+    return [_scatter_leaf(rng, *_SCATTER_CASES[case])]
+
+
+def _u32_tensor(a, offset=0, device="cpu"):
+    """A u32 or u16 array as the port's int32 words (same bits), as a
+    view `offset` words into a larger buffer on `device`."""
+    words = a.astype(np.int64).astype(np.uint32).view(np.int32).reshape(-1)
+    buf = torch.zeros(offset + words.size, dtype=torch.int32, device=device)
+    buf[offset:] = torch.from_numpy(words.copy()).to(device)
+    return buf[offset:].view(a.shape)
+
+
+@pytest.mark.parametrize("case", sorted(_SCATTER_CASES) + ["sixteen_leaves"])
+def test_plain_scatter_matches_jax(case):
+    """scatter_segments_plain against jitted jax `.at[idx].set` (the
+    reference's scatter) with negative, out-of-range and duplicate
+    indices (duplicates carry identical rows, as the store's pow2
+    padding does), at the row widths and alignments the kernel's paths
+    take."""
+    _need_jax()
+    leaves = _scatter_case(case)
+    segs, wants = [], []
+    for base, idx, values, offset in leaves:
+        wants.append(np.asarray(jax.jit(lambda a, v, *i: a.at[i].set(v))(
+            jnp.asarray(base), jnp.asarray(values),
+            *[jnp.asarray(i) for i in idx])))
+        segs.append((_u32_tensor(base, offset),
+                     tuple(torch.from_numpy(i) for i in idx),
+                     _u32_tensor(values)))
+    tpub.publish_scatter(segs)
+    for (dst, _, _), want in zip(segs, wants):
+        got = dst.numpy().view(np.uint32)
+        assert np.array_equal(got, want.astype(np.uint32))
+
+
+@pytest.mark.parametrize("outer,k,inner", [
+    (1, 1, 2_129_920), (32_768, 520, 1), (64, 1040, 1), (1, 297_136, 64),
+    (1, 3302, 64), (3, 3000, 1), (40, 8, 1), (4, 3, 4500), (7, 5, 3)])
+def test_scatter_tiling_covers_every_word_once(outer, k, inner):
+    """kernels.scatter_tiling (csrc/publish.cu decodes a block's tile
+    the same way): along each axis of values [outer, k, inner] the
+    tiles' chunks cover every index once, a tile stages at most
+    MAX_TILE_ROWS index rows and moves at most its words, at the least
+    and the most tile words.  Shapes: the sites' (a publish row, the
+    readmission, the relayout, the churn delta), a narrow whole axis, a
+    row wider than a tile, a ragged one."""
+    from cilium_tpu_torch import kernels
+
+    for words in kernels.SCATTER_TILE_WORDS:
+        cols, log_rows, outers, ct, rt, ot = kernels.scatter_tiling(
+            outer, k, inner, words)
+        rows = 1 << log_rows
+        assert rows <= kernels.MAX_TILE_ROWS and ct * rt * ot < 2 ** 31
+        assert outers * min(rows, k) * cols <= words
+        for n, step, tiles in ((inner, cols, ct), (k, rows, rt),
+                               (outer, outers, ot)):
+            cover = np.zeros(n, np.int64)
+            for t in range(tiles):
+                cover[t * step:(t + 1) * step] += 1
+            assert (cover == 1).all()
+
+
+def test_scatter_args_lay_out_segments_and_tiles():
+    """kernels.scatter_args: each segment's fields in SEGMENT_FIELDS
+    order with its tiling, tile_start the running count of tiles, then
+    the segment count and the launch's tiles; the tile words follow the
+    launch's payload words."""
+    from cilium_tpu_torch import kernels
+
+    geo = [(11, 12, 0, 13, 100, 1, 1, 64, 3302),
+           (21, 22, 23, 24, 256, 65536, 1, 1, 2),
+           (31, 32, 0, 33, 1040, 1, 64, 1, 1040)]
+    args = list(kernels.scatter_args(geo, "test"))
+    nf = len(kernels.SEGMENT_FIELDS)
+    words = kernels.scatter_tile_words(sum(g[6] * g[7] * g[8] for g in geo))
+    start = 0
+    for n, g in enumerate(geo):
+        seg = dict(zip(kernels.SEGMENT_FIELDS, args[n * nf:(n + 1) * nf]))
+        tiling = kernels.scatter_tiling(g[6], g[8], g[7], words)
+        assert args[n * nf:n * nf + len(g)] == list(g)
+        assert [seg[f] for f in ("cols", "log_rows", "outers", "col_tiles",
+                                 "row_tiles")] == list(tiling[:5])
+        assert seg["tile_start"] == start
+        start += tiling[3] * tiling[4] * tiling[5]
+    assert args[len(geo) * nf:-2] == [0] * (nf * (
+        kernels.MAX_SCATTER_SEGMENTS - len(geo)))
+    assert args[-2:] == [len(geo), start]
 
 
 def test_pad_pow2_matches_reference():
@@ -846,11 +958,24 @@ def _random_segments(dev, seed):
 
 
 @pytest.mark.cuda
-def test_publish_scatter_kernel_matches_plain():
+@pytest.mark.parametrize("case", ["random"] + sorted(_SCATTER_CASES)
+                         + ["sixteen_leaves"])
+def test_publish_scatter_kernel_matches_plain(case):
+    """PUBLISH_SCATTER against scatter_segments_plain on the card, one
+    launch a case: the random leaves of a publish, and each case of the
+    plain version's test (row widths 1 to 64 words, an unaligned
+    destination, a run of port_slot cells, a row wider than a tile,
+    sixteen leaves)."""
     _need_card()
     from cilium_tpu_torch import kernels
 
-    segs = _random_segments("cuda", 1)
+    if case == "random":
+        segs = _random_segments("cuda", 1)
+    else:
+        segs = [(_u32_tensor(base, offset, "cuda"),
+                 tuple(torch.from_numpy(i).cuda() for i in idx),
+                 _u32_tensor(values, 0, "cuda"))
+                for base, idx, values, offset in _scatter_case(case)]
     plain = [(d.clone(), i, v) for d, i, v in segs]
     before = kernels.PUBLISH_SCATTER.launches
     kernels.PUBLISH_SCATTER(segs)
