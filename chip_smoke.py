@@ -286,15 +286,26 @@ launch counts set to 0 just before it and read just after:
 
     python3 chip_smoke.py --ab-parent DIR
 
-also builds DIR/cilium_tpu_torch/csrc/publish.cu (a `git archive` of the
-parent commit) into cilium_tpu_torch/_build/ab/ and, at each of the four
-sites of PUBLISH_SCATTER and REPAIR_SCATTER (publish_timing's one-rule
-publish, failover_timing's readmission, dp_mesh_store's churn delta,
-reshard's relayout queue), runs the parent's kernel and this one on
-copies of the site's segments: every entry must agree, then both are
-timed in turns parent, new, new, parent (the row's `ab`; the
-scatter_ab phase sums the sites up, its A/B held to SCATTER_AB_BUDGET_S).
-The four sites alone, on config 5's world: `python3 -c "import
+also builds DIR/cilium_tpu_torch/csrc/{publish,churn,datapath,lattice,
+datapath_mesh,lookup}.cu (a `git archive` of the parent commit) into cilium_tpu_torch/_build/ab/,
+beside the package's own build, and runs the parent's kernels beside
+this one's: at each of the four sites of PUBLISH_SCATTER and
+REPAIR_SCATTER (publish_timing's one-rule publish, failover_timing's
+readmission, dp_mesh_store's churn delta, reshard's relayout queue) on
+copies of the site's segments, every entry agreeing, both timed in
+turns parent, new, new, parent (the row's `ab`; the scatter_ab phase
+sums the sites up, its A/B held to SCATTER_AB_BUDGET_S); in
+persistent_timing PERSISTENT_PAIR at K = 4 and DATAPATH_PAIR on the
+timed super-batch, every entry of the 15 columns, the counters and the
+telemetry agreeing, in the same turns (pair_ab: the rows' `ab`); in
+churn_timing the parent's CT_DELTA beside this one and index_copy_ on
+the run's delta (`parent_ms`, `parent_events_ms`) and the parent's
+DATAPATH_STEP on the churn batch (the step row's `ab`); and, every
+result agreeing, in the same turns, LATTICE in each of lattice_timing's
+modes, DP_MESH_PROBE's four rounds on shard (0, 0) in dp_mesh_timing
+and IPCACHE_LOOKUP on each form of ipcache_lookup (library_ab: the
+rows' `ab`), whose stage code (csrc/*.cuh) the pair kernel shares.
+The four scatter sites alone, on config 5's world: `python3 -c "import
 chip_smoke; chip_smoke.scatter_alone('DIR')"` (DIR None: no A/B).
 
 The churn path's int picks are drawn on the card by PICK_DRAW, the
@@ -314,7 +325,10 @@ launches on its path, its error against the plain version, its time
 (CUDA events over 20 launches), the plain version's time, and the
 least time the card could take: the bytes this run's data needs read
 and written once at 3.35 TB/s, or its operations at 67 T/s, whichever
-is larger.  `library_ms` is the time of `index_copy_` for CT_DELTA,
+is larger.  CT_DELTA's time is its device ms queued behind a spin (the
+CUDA events a caller sees in `events_ms`), on the churn loop's first
+delta.  `library_ms` is the time of `index_copy_` for CT_DELTA (device
+ms likewise, `library_events_ms` beside),
 of `torch.unique` for MEMO_DEDUP, of one `index_put_` per leaf for
 PUBLISH_SCATTER (on in-range payloads: a time only, torch raises where
 jax drops), of `index_copy_` along the repaired axis for REPAIR_SCATTER
@@ -333,7 +347,11 @@ config 6's 1,048,576 flows.  PERSISTENT_PAIR's time is one launch on
 launches on the same pairs), its plain time one call, its bound
 needed_bytes over the super-batch (each distinct table row across the
 4 pairs once); its launches are the main, persistent_check and node
-paths' (`launches_by_path`).  The DATAPATH_PAIR and DATAPATH_STEP rows
+paths' (`launches_by_path`); `device_ms` its device ms queued behind a
+spin, `design` the kernel's launch there (pair_launch: its grid, the
+stash words staged and the dynamic shared memory a block takes),
+`stash_rows` the tables' stash rows, `ptxas` the registers, spills and
+static shared memory of each layout's instantiation.  The DATAPATH_PAIR and DATAPATH_STEP rows
 also carry their time in overlay mode (`tunnel_ms`, `tunnel_plain_ms`,
 `tunnel_bound_ms`: the same bound plus the 3 KB map read whole,
 `tunnel_max_abs_err`), and DATAPATH6's row its time, plain time and
@@ -556,6 +574,59 @@ def check_super(tables, pairs, kernels, dp, verdict) -> int:
     torch.cuda.synchronize()
     return max(compare((ki, ke), (pi, pe), dp), buf_err(acc_k, acc_p),
                buf_err(tel_k, tel_p))
+
+
+# the pair kernel's 12 layout instantiations on small worlds: the
+# make_world settings that put each plane in each of its layouts
+LAYOUT_BASE = dict(n_rules=400, n_identities=512, n_vips=4, n_pool=3000,
+                   ct_max_entries=4096, identity_pad=256, filter_pad=16,
+                   n_endpoints=4, n_cidr_blocks=16)
+LAYOUT_PLANES = (
+    {"ranges": {}, "dir24_8": dict(n_blocklist=140)},  # prefilter
+    {"inline": {}, "classic": dict(big_vip_backends=50)},  # LB
+    {"idx_planes": {}, "idx": dict(n_endpoints=36),  # ipcache
+     "generic": dict(n_cidr_blocks=520)},
+)
+
+
+def layouts_check(kernels, dp, verdict) -> dict:
+    """DATAPATH_PAIR over 2 pairs of 2 x 5,000 flows and PERSISTENT_PAIR
+    over 4 pairs of 2 x 4,999 against their plain versions on 12 small
+    worlds, one per layout instantiation (LAYOUT_PLANES), each with its
+    wide tables and its headline ones (sub-word, hot plane): 0
+    differences, and every instantiation taken."""
+    import itertools
+
+    from cilium_tpu_torch import world
+    from cilium_tpu_torch.compiler.tables import split_hot
+    from cilium_tpu_torch.convert import tables_to
+
+    t = time.perf_counter()
+    errs, taken = {}, set()
+    for combo in itertools.product(*(p.items() for p in LAYOUT_PLANES)):
+        w = world.make_world(seed=5, **{**LAYOUT_BASE, **{
+            k: v for _, o in combo for k, v in o.items()}})
+        wide = w.host_tables()
+        for form, host in (("wide", wide),
+                           ("headline", dp.subword_datapath_tables(wide))):
+            host.policy = split_hot(host.policy)
+            tables = tables_to(host, "cuda")
+            name = kernels.datapath_layout(tables)
+            taken.add(name.split("+")[0])
+            errs[f"{'/'.join(c[0] for c in combo)} {form}: {name}"] = max(
+                check_pairs(tables, w.pairs(seed=9, half=5000, k=2), kernels,
+                            dp, verdict),
+                check_super(tables, w.pairs(seed=10, half=4999, k=4),
+                            kernels, dp, verdict))
+            del tables
+    want = {kernels.layout_name(i) for i in range(12)}
+    phase("layouts_check", t, instantiations=len(taken),
+          max_abs_err=json.dumps(errs))
+    if any(errs.values()) or taken != want:
+        raise SystemExit(f"layouts_check: a kernel differs from its plain "
+                         f"version, or layouts {sorted(want - taken)} were "
+                         f"not taken")
+    return errs
 
 
 def once_ms(fn) -> float:
@@ -1617,11 +1688,32 @@ def churn_check(kernels, w, tables) -> dict:
     mirror = torch.from_numpy(index.full_snapshot().buckets.view(np.int32))
     err_delta = max(int_err(snap.buckets, ref.buckets, True),
                     int_err(snap.buckets.cpu(), mirror, True))
+    # a delta whose indices leave the table, on copies: -1 and -n count
+    # from the end once, n, n + 3 and -n - 1 drop their rows (jax's
+    # scatter rules), a duplicate carries the same row
+    n = int(snap.buckets.shape[0])
+    edge = torch.tensor([2, -1, n, 5, -n, n + 3, 2, -n - 1, n - 2],
+                        dtype=torch.int32, device="cuda")
+    erows = torch.randint(-2**31, 2**31 - 1, (edge.numel(), rows_t.shape[1]),
+                          generator=gen, device="cuda", dtype=torch.int32)
+    erows[6] = erows[0]
+    snap_e, ref_e = copy.deepcopy(snap), copy.deepcopy(snap)
+    kernels.CT_DELTA(snap_e, edge, erows)
+    apply_bucket_delta_plain(ref_e, edge, erows)
+    torch.cuda.synchronize()
+    err_edge = int_err(snap_e.buckets, ref_e.buckets, True)
+    changed = int((snap_e.buckets != snap.buckets).any(dim=1).sum())
+    if not (torch.equal(snap_e.buckets[n - 1], erows[1])
+            and torch.equal(snap_e.buckets[0], erows[4])):
+        err_edge = max(err_edge, 1)
+    del snap_e, ref_e
     phase("churn_check_kernels", t, batch=CHURN_BATCH, valid=valid,
           step_max_abs_err=err_step, compact_max_abs_err=err_compact,
           delta_max_abs_err=err_delta, headers=headers,
           delta_rows=int(idx.size), created=len(created),
-          deleted=len(deleted))
+          deleted=len(deleted), edge_delta_max_abs_err=err_edge,
+          edge_delta_indices=edge.tolist(), edge_rows_changed=changed)
+    err_delta = max(err_delta, err_edge)
     if err_step or err_compact or err_delta:
         raise SystemExit("churn_check: a kernel differs from its plain version")
     n_def, _, _, rem_def = headers["default"]
@@ -1811,16 +1903,38 @@ def churn_timing(kernels, tables, chk, counts) -> list:
                      + 12 * 4 * rp._CT_INTENT_CAP + 16)
     compact_ops = 4 * b + 16 * 4 * n_flag  # flag tests; 4 hashed words
     # CT_DELTA: the first round's padded delta (its pow2 padding repeats
-    # the first changed bucket with the same row); index_copy_ the
-    # yardstick.  The function needs the M indices and each distinct
-    # bucket's row read and written once.
+    # the first changed bucket with the same row), device ms queued behind
+    # a spin with the caller's CUDA events beside, as the scatters; the
+    # parent's kernel (--ab-parent) and index_copy_ the yardsticks.  The
+    # function needs the M indices and each distinct bucket's row read and
+    # written once.
     snap, idx, rows = chk["snap"], chk["idx"], chk["rows"]
     idx64 = idx.long()
-    delta_ms = event_ms(lambda: kernels.CT_DELTA(snap, idx, rows), 20)
+    calls = {"new": lambda: kernels.CT_DELTA(snap, idx, rows),
+             "library": lambda: snap.buckets.index_copy_(0, idx64, rows)}
+    if "churn" in AB["libs"]:
+        calls["parent"] = lambda: parent_ct_delta(kernels, snap, idx, rows)
+    launches = kernels.CT_DELTA.launches
+    delta = {f"{who}_{m}": [] for who in calls for m in ("ms", "events_ms")}
+    for who in list(calls) + list(calls)[::-1]:
+        delta[f"{who}_ms"].append(spun_ms(queued_ms, calls[who], "ct_delta"))
+        delta[f"{who}_events_ms"].append(event_ms(calls[who], 20))
+    kernels.CT_DELTA.launches = launches
+    delta = {k: float(np.median(v)) for k, v in delta.items()}
+    delta_ms, library_ms = delta["new_ms"], delta["library_ms"]
     delta_plain = event_ms(lambda: apply_bucket_delta_plain(snap, idx, rows),
                            20)
-    library_ms = event_ms(lambda: snap.buckets.index_copy_(0, idx64, rows),
-                          20)
+    # DATAPATH_STEP of the parent's csrc/datapath.cu (--ab-parent): the
+    # per-thread stages, now the lane-group templates at G = 1
+    step_ab = None
+    if "datapath" in AB["libs"]:
+        step_ab = {"new_ms": [], "parent_ms": []}
+        for who in SCATTER_AB_TURNS:
+            ctx = (parent_datapath(kernels) if who == "parent"
+                   else contextlib.nullcontext())
+            with ctx:
+                step_ab[f"{who}_ms"].append(event_ms(
+                    lambda: kernels.DATAPATH_STEP(tables, pool, picks), 20))
     m = int(idx.numel())
     m_distinct = int(torch.unique(idx).numel())
     delta_bytes = m * 4 + 2 * m_distinct * rows.shape[1] * 4
@@ -1836,7 +1950,9 @@ def churn_timing(kernels, tables, chk, counts) -> list:
           compact_plain_ms=round(compact_plain, 4),
           compact_bytes=compact_bytes, flagged=n_flag, winners=winners,
           delta_ms=round(delta_ms, 4), delta_plain_ms=round(delta_plain, 4),
-          delta_library_ms=round(library_ms, 4), delta_rows=m,
+          delta_library_ms=round(library_ms, 4),
+          delta_times=json.dumps({k: round(v, 4) for k, v in delta.items()}),
+          step_ab=json.dumps(step_ab), delta_rows=m,
           delta_rows_distinct=m_distinct,
           delta_bytes=delta_bytes, step_ops=step_ops,
           compact_ops=compact_ops,
@@ -1844,7 +1960,7 @@ def churn_timing(kernels, tables, chk, counts) -> list:
           bound_ops_ms={k: round(v, 4) for k, v in bounds_ops.items()})
     err = chk["err"]
     src = "cilium_tpu_torch/csrc/"
-    return [
+    rows_out = [
         kernel_row(kernels.DATAPATH_STEP, src + "datapath.cu",
                    "cilium_tpu/engine/datapath.py:604",
                    counts[kernels.DATAPATH_STEP.name], err, step_ms,
@@ -1858,6 +1974,14 @@ def churn_timing(kernels, tables, chk, counts) -> list:
                    counts[kernels.CT_DELTA.name], err, delta_ms, delta_plain,
                    bounds["delta"], 0.0, library_ms),
     ]
+    rows_out[2].update(events_ms=delta["new_events_ms"],
+                       library_events_ms=delta["library_events_ms"],
+                       parent_ms=delta.get("parent_ms"),
+                       parent_events_ms=delta.get("parent_events_ms"))
+    if step_ab is not None:
+        rows_out[0]["ab"] = {k: round(float(np.median(v)), 4)
+                             for k, v in step_ab.items()}
+    return rows_out
 
 
 # -- the churn loop's pick draw (PICK_DRAW) --------------------------------------
@@ -2908,13 +3032,21 @@ def lattice_timing(kernels, u, launches_lattice, launches_lpm, err) -> list:
             bound_ops_ms=ops / OPS_PER_S * 1e3)
     for name, r in res.items():
         print(f"  lattice_timing {name} " + json.dumps(r), flush=True)
+    # the parent's csrc/lattice.cu (--ab-parent): the shared stage code
+    ab = library_ab(kernels, "lattice", {
+        name: (lambda tab=tab, batch=batch, kw=kw: kernels.LATTICE(
+            tab, batch, **kw))
+        for name, (tab, batch, kw) in lattice_modes(u).items()})
     phase("lattice_timing", t, modes=len(res))
     main, lpm = res["c5_compact"], res["lpm_c2"]
     src = "cilium_tpu_torch/csrc/lattice.cu"
+    row = kernel_row(kernels.LATTICE, src, "cilium_tpu/engine/verdict.py:432",
+                     launches_lattice, err, main["ms"], main["plain_ms"],
+                     main["bound_bytes_ms"], main["bound_ops_ms"])
+    if ab is not None:
+        row["ab"] = ab["medians"]
     return [
-        kernel_row(kernels.LATTICE, src, "cilium_tpu/engine/verdict.py:432",
-                   launches_lattice, err, main["ms"], main["plain_ms"],
-                   main["bound_bytes_ms"], main["bound_ops_ms"]),
+        row,
         kernel_row(kernels.LPM_LOOKUP, src, "cilium_tpu/ipcache/lpm.py:1091",
                    launches_lpm, err, lpm["ms"], lpm["plain_ms"],
                    lpm["bound_bytes_ms"], lpm["bound_ops_ms"]),
@@ -4457,132 +4589,200 @@ def scatter_geometry(segs, kind: str) -> list:
     return [[list(d.shape), int(a), int(i.numel())] for d, a, i, _ in segs]
 
 
-# -- scatter_ab: the parent commit's csrc/publish.cu beside this one ---------
+# -- the A/B: the parent commit's kernels beside this one's -----------------
 
 SCATTER_AB_BUDGET_S = 120.0  # the four sites' A/B together
 SCATTER_AB_TURNS = ("parent", "new", "new", "parent")
-AB = {"lib": None, "source": None, "sites": {}, "s": 0.0}
+# the parent's libraries built, and the package's library each stands in
+# for inside parent_library
+AB_STEMS = ("publish", "churn", "datapath", "lattice", "datapath_mesh",
+            "lookup")
+AB_LIBRARIES = {"datapath": "DATAPATH_LIBRARY", "lattice": "LATTICE_LIBRARY",
+                "datapath_mesh": "DP_MESH_LIBRARY", "lookup": "LOOKUP_LIBRARY"}
+AB = {"lib": None, "source": None, "libs": {}, "sites": {}, "s": 0.0}
 
 
-class _ParentSegment(ctypes.Structure):
-    """The parent's cpub::Segment (PUBLISH_SCATTER's argument)."""
+class _ParentDeltaArgs(ctypes.Structure):
+    """The parent's cch::DeltaArgs (CT_DELTA's argument)."""
 
-    _fields_ = ([(n, ctypes.c_void_p) for n in ("dst", "idx0", "idx1",
-                                                "values")]
-                + [(n, ctypes.c_int64) for n in ("size0", "size1", "rows",
-                                                 "words", "start")]
-                + [("axes", ctypes.c_int32), ("pad", ctypes.c_int32)])
+    _fields_ = [("buckets", ctypes.c_void_p), ("idx", ctypes.c_void_p),
+                ("rows", ctypes.c_void_p), ("m", ctypes.c_int32),
+                ("lanes", ctypes.c_int32), ("n_buckets", ctypes.c_int32)]
 
 
-class _ParentArgs(ctypes.Structure):
-    _fields_ = [("seg", _ParentSegment * 16), ("n_seg", ctypes.c_int32),
-                ("pad", ctypes.c_int32), ("total", ctypes.c_int64)]
-
-
-class _ParentRepairSegment(ctypes.Structure):
-    """The parent's cpub::RepairSegment (REPAIR_SCATTER's argument)."""
-
-    _fields_ = ([(n, ctypes.c_void_p) for n in ("dst", "idx", "values")]
-                + [(n, ctypes.c_int64) for n in ("outer", "n_axis", "inner",
-                                                 "k", "start")])
-
-
-class _ParentRepairArgs(ctypes.Structure):
-    _fields_ = [("seg", _ParentRepairSegment * 16),
-                ("n_seg", ctypes.c_int32), ("pad", ctypes.c_int32),
-                ("total", ctypes.c_int64)]
-
-
-def scatter_ab_load(kernels, parent: str) -> None:
-    """Build `parent`/cilium_tpu_torch/csrc/publish.cu (a `git archive`
-    of the parent commit) with the package's nvcc flags into
-    cilium_tpu_torch/_build/ab/ and bind its two launchers; the argument
-    layouts are checked against the parent's publish_struct_sizes."""
+def ab_start(kernels, parent: str) -> list:
+    """Start nvcc on `parent`/cilium_tpu_torch/csrc/<stem>.cu (a `git
+    archive` of the parent commit) for each of AB_STEMS, with the
+    package's flags, into cilium_tpu_torch/_build/ab/; returns the
+    running builds for ab_load."""
     from pathlib import Path
 
+    jobs = []
+    for stem in AB_STEMS:
+        src = Path(parent) / "cilium_tpu_torch" / "csrc" / f"{stem}.cu"
+        if not src.is_file():
+            raise SystemExit(f"ab: no {src}")
+        out = kernels.BUILD_DIR / "ab" / f"lib{stem}_parent.so"
+        out.parent.mkdir(parents=True, exist_ok=True)
+        jobs.append((stem, src, out, subprocess.Popen(
+            [kernels._nvcc(), *kernels.NVCC_FLAGS, "-o", str(out), str(src)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+    return jobs
+
+
+def ab_load(kernels, jobs) -> None:
+    """Wait for ab_start's builds and bind them, each argument layout
+    checked against the parent's own sizes: publish.cu's launchers (the
+    tile table of kernels.scatter_args), churn.cu's CT_DELTA (its
+    DeltaArgs), and the others by their library's own bind
+    (AB_LIBRARIES)."""
     t = time.perf_counter()
-    src = Path(parent) / "cilium_tpu_torch" / "csrc" / "publish.cu"
-    if not src.is_file():
-        raise SystemExit(f"scatter_ab: no {src}")
-    out = kernels.BUILD_DIR / "ab" / "libpublish_parent.so"
-    out.parent.mkdir(parents=True, exist_ok=True)
-    proc = subprocess.run([kernels._nvcc(), *kernels.NVCC_FLAGS, "-o",
-                           str(out), str(src)], capture_output=True,
-                          text=True)
-    if proc.returncode:
-        raise SystemExit(f"scatter_ab: nvcc of {src} failed:\n"
-                         f"{proc.stdout}{proc.stderr}")
-    lib = ctypes.CDLL(str(out))
-    lib.launch_publish_scatter.argtypes = [ctypes.POINTER(_ParentArgs),
-                                           ctypes.c_void_p]
-    lib.launch_repair_scatter.argtypes = [ctypes.POINTER(_ParentRepairArgs),
-                                          ctypes.c_void_p]
-    sizes = (ctypes.c_int * 4)()
-    lib.publish_struct_sizes(sizes)
-    want = [ctypes.sizeof(a) for a in (_ParentSegment, _ParentArgs,
-                                       _ParentRepairSegment,
-                                       _ParentRepairArgs)]
-    if list(sizes) != want:
-        raise SystemExit(f"scatter_ab: the parent's layouts {list(sizes)} "
-                         f"are not {want}")
-    AB.update(lib=lib, source=str(src))
-    phase("scatter_ab_build", t, source=str(src))
+    for stem, src, out, proc in jobs:
+        log, _ = proc.communicate()
+        if proc.returncode:
+            raise SystemExit(f"ab: nvcc of {src} failed:\n{log}")
+        lib = ctypes.CDLL(str(out))
+        if stem == "publish":
+            kernels._PublishLibrary().bind(lib)
+            AB.update(lib=lib, source=str(src))
+        elif stem == "churn":
+            lib.launch_ct_delta.argtypes = [ctypes.POINTER(_ParentDeltaArgs),
+                                            ctypes.c_void_p]
+            sizes = (ctypes.c_int * 2)()
+            lib.churn_struct_sizes(sizes)
+            if sizes[1] != ctypes.sizeof(_ParentDeltaArgs):
+                raise SystemExit(f"ab: the parent's DeltaArgs is {sizes[1]} "
+                                 f"bytes, not {ctypes.sizeof(_ParentDeltaArgs)}")
+        else:
+            type(getattr(kernels, AB_LIBRARIES[stem]))().bind(lib)
+        AB["libs"][stem] = lib
+    phase("ab_build", t, sources=[str(j[1]) for j in jobs])
+
+
+def _parent_scatter(kernels, launch: str, geometry, segments) -> None:
+    """The parent's PUBLISH_SCATTER or REPAIR_SCATTER launch on the
+    segments' tile table (its wrapper's checks and tiling are this
+    package's: the parent's argument layout is the same)."""
+    dev = segments[0][0].device
+    args = kernels.scatter_args([geometry(s, dev) for s in segments],
+                                "scatter_ab")
+    err = getattr(AB["lib"], launch)(ctypes.addressof(args),
+                                     kernels._stream(dev))
+    if err:
+        raise SystemExit(f"scatter_ab: the parent's {launch}: {err}")
 
 
 def _parent_publish(kernels, segments) -> None:
-    """The parent's PUBLISH_SCATTER wrapper, its checks included."""
-    a = _ParentArgs()
-    total = 0
-    dev = segments[0][0].device
-    for k, (dst, idx, values) in enumerate(segments):
-        axes = len(idx)
-        rows = int(values.shape[0])
-        tail = tuple(int(v) for v in dst.shape[axes:])
-        g = a.seg[k]
-        g.dst = kernels._ptr(dst, "dst", dev)
-        g.values = kernels._ptr(values, "values", dev, shape=(rows,) + tail)
-        g.idx0 = kernels._ptr(idx[0], "idx0", dev, torch.int64, (rows,))
-        if axes == 2:
-            g.idx1 = kernels._ptr(idx[1], "idx1", dev, torch.int64, (rows,))
-        g.size0 = int(dst.shape[0])
-        g.size1 = int(dst.shape[1]) if axes == 2 else 1
-        g.words = 1
-        for v in tail:
-            g.words *= v
-        g.rows, g.start, g.axes = rows, total, axes
-        total += rows * g.words
-    a.n_seg, a.total = len(segments), total
-    err = AB["lib"].launch_publish_scatter(
-        ctypes.byref(a), torch.cuda.current_stream(dev).cuda_stream)
-    if err:
-        raise SystemExit(f"scatter_ab: the parent's publish launch: {err}")
+    _parent_scatter(kernels, "launch_publish_scatter",
+                    lambda s, dev: kernels._publish_geometry(*s, dev),
+                    segments)
 
 
 def _parent_repair(kernels, segments) -> None:
-    """The parent's REPAIR_SCATTER wrapper, its checks included."""
-    a = _ParentRepairArgs()
-    total = 0
-    dev = segments[0][0].device
-    for n, (dst, axis, idx, values) in enumerate(segments):
-        k = int(idx.shape[0])
-        shape = tuple(int(v) for v in dst.shape)
-        g = a.seg[n]
-        g.dst = kernels._ptr(dst, "dst", dev)
-        g.idx = kernels._ptr(idx, "idx", dev, torch.int64, (k,))
-        g.values = kernels._ptr(values, "values", dev,
-                                shape=shape[:axis] + (k,) + shape[axis + 1:])
-        g.outer = g.inner = 1
-        for v in shape[:axis]:
-            g.outer *= v
-        for v in shape[axis + 1:]:
-            g.inner *= v
-        g.n_axis, g.k, g.start = shape[axis], k, total
-        total += g.outer * k * g.inner
-    a.n_seg, a.total = len(segments), total
-    err = AB["lib"].launch_repair_scatter(
-        ctypes.byref(a), torch.cuda.current_stream(dev).cuda_stream)
+    _parent_scatter(kernels, "launch_repair_scatter",
+                    lambda s, dev: kernels._repair_geometry(
+                        s[0], int(s[1]), s[2], s[3], dev), segments)
+
+
+def parent_ct_delta(kernels, snap, idx, rows) -> None:
+    """The parent's CT_DELTA wrapper, its checks included."""
+    buckets = snap.buckets
+    dev = buckets.device
+    nb, lanes = (int(v) for v in buckets.shape)
+    m = int(idx.shape[0])
+    a = _ParentDeltaArgs()
+    a.buckets = kernels._ptr(buckets, "ct.buckets", dev)
+    a.idx = kernels._ptr(idx, "idx", dev, shape=(m,))
+    a.rows = kernels._ptr(rows, "rows", dev, shape=(m, lanes))
+    a.m, a.lanes, a.n_buckets = m, lanes, nb
+    err = AB["libs"]["churn"].launch_ct_delta(ctypes.byref(a),
+                                               kernels._stream(dev))
     if err:
-        raise SystemExit(f"scatter_ab: the parent's repair launch: {err}")
+        raise SystemExit(f"ab: the parent's CT_DELTA launch: {err}")
+
+
+@contextlib.contextmanager
+def parent_library(kernels, stem: str):
+    """The wrappers of csrc/<stem>.cu (AB_LIBRARIES) launch the parent's
+    build inside; the launch counts are left as they were."""
+    lib = getattr(kernels, AB_LIBRARIES[stem])
+    mine = lib.load()
+    counts = [k.launches for k in kernels.KERNELS]
+    lib.lib = AB["libs"][stem]
+    try:
+        yield
+    finally:
+        lib.lib = mine
+        for k, n in zip(kernels.KERNELS, counts):
+            k.launches = n
+
+
+def parent_datapath(kernels):
+    """DATAPATH_PAIR, PERSISTENT_PAIR and DATAPATH_STEP launch the
+    parent's csrc/datapath.cu inside."""
+    return parent_library(kernels, "datapath")
+
+
+def _tensors(x):
+    """The tensors of a kernel's result, in order (tuples, lists and
+    dataclasses walked)."""
+    if isinstance(x, torch.Tensor):
+        yield x
+    elif isinstance(x, (tuple, list)):
+        for v in x:
+            yield from _tensors(v)
+    elif dataclasses.is_dataclass(x):
+        for f in dataclasses.fields(x):
+            yield from _tensors(getattr(x, f.name))
+
+
+LIB_AB_REPS = 20
+
+
+def library_ab(kernels, stem: str, calls: dict):
+    """The parent's build of csrc/<stem>.cu against this one's
+    (--ab-parent) on `calls` ({name: a call of one of its kernels}):
+    each call's result once under each, every entry agreeing (SystemExit
+    otherwise); then CUDA events over LIB_AB_REPS calls and device ms
+    with the calls queued behind a device spin, in turns parent, new,
+    new, parent, and their medians.  Launches not counted; None without
+    the parent."""
+    if stem not in AB["libs"]:
+        return None
+    t = time.perf_counter()
+    launches = [k.launches for k in kernels.KERNELS]
+    differ = {}
+    for name, fn in calls.items():
+        new = list(_tensors(fn()))
+        with parent_library(kernels, stem):
+            old = list(_tensors(fn()))
+        torch.cuda.synchronize()
+        differ[name] = (sum(entries_differ(a, b) for a, b in zip(new, old))
+                        + abs(len(new) - len(old)))
+        del new, old
+    rec = {f"{who}_{name}_{m}": [] for who in ("parent", "new")
+           for name in calls for m in ("ms", "device_ms")}
+    for who in SCATTER_AB_TURNS:
+        ctx = (parent_library(kernels, stem) if who == "parent"
+               else contextlib.nullcontext())
+        with ctx:
+            for name, fn in calls.items():
+                rec[f"{who}_{name}_ms"].append(event_ms(fn, LIB_AB_REPS))
+                rec[f"{who}_{name}_device_ms"].append(
+                    spun_ms(queued_ms, fn, f"{stem}_ab"))
+    for k, n in zip(kernels.KERNELS, launches):
+        k.launches = n
+    out = dict(differing=differ,
+               medians={k: round(float(np.median(v)), 4)
+                        for k, v in rec.items()},
+               turns={k: [round(x, 4) for x in v] for k, v in rec.items()},
+               source=str(kernels.BUILD_DIR / "ab" / f"lib{stem}_parent.so"),
+               seconds=round(time.perf_counter() - t, 3))
+    print(f"  {stem}_ab " + json.dumps(out), flush=True)
+    if any(differ.values()):
+        raise SystemExit(f"{stem}_ab: entries differ between the parent's "
+                         f"kernels and this one's: {differ}")
+    return out
 
 
 def host_us(fn, calls: int = 200) -> float:
@@ -5550,6 +5750,139 @@ def persistent_check(kernels, w, tables) -> dict:
     return dict(err=max(err_super, err_disp), launches=launches)
 
 
+PAIR_PTXAS = {}  # layout name: the pair kernel's ptxas record (build)
+PAIR_AB_REPS = 20
+
+
+def pair_ptxas(kernels, log: str) -> dict:
+    """PERSISTENT_PAIR's kernel in each layout instantiation from
+    `-Xptxas -v` output of csrc/datapath.cu: {layout name: {registers,
+    spill_stores, spill_loads, smem}} (smem the static bytes)."""
+    import re
+
+    out, cur = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '\S*datapath_persistent_"
+                      r"kernelILi(\d)ELi(\d)ELi(\d)E", line)
+        if m:
+            pf, lb, ipc = (int(v) for v in m.groups())
+            cur = kernels.layout_name(pf + 2 * lb + 4 * ipc)
+            out[cur] = {}
+            continue
+        if "Compiling entry" in line:
+            cur = None
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            out[cur].update(spill_stores=int(m.group(1)),
+                            spill_loads=int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            out[cur]["registers"] = int(m.group(1))
+            m = re.search(r"(\d+) bytes smem", line)
+            out[cur]["smem"] = int(m.group(1)) if m else 0
+    return out
+
+
+def pair_outputs(kernels, tables, stacked):
+    """PERSISTENT_PAIR over `stacked` and DATAPATH_PAIR over its first
+    pair, each from fresh carries: ((columns, acc, telem), ...)."""
+    from cilium_tpu_torch.engine import verdict
+
+    out = []
+    for launch in (lambda a, t: kernels.PERSISTENT_PAIR(tables, stacked, a,
+                                                        t),
+                   lambda a, t: kernels.DATAPATH_PAIR(tables, stacked[0], a,
+                                                      t)):
+        acc = verdict.make_counter_buffers(tables.policy)
+        tel = verdict.make_telemetry_buffers("cuda")
+        ki, ke, acc, tel = launch(acc, tel)
+        out.append(((ki, ke), acc, tel))
+    torch.cuda.synchronize()
+    return out
+
+
+def outputs_differ(got, want, dp) -> int:
+    """Entries that differ between two pair_outputs records: every
+    column of both halves, the counters and the telemetry."""
+    (gv, ga, gt), (wv, wa, wt) = got, want
+    return (sum(entries_differ(getattr(g, c), getattr(w, c))
+                for g, w in zip(gv, wv) for c in dp.VERDICT_COLUMNS)
+            + entries_differ(ga, wa) + entries_differ(gt, wt))
+
+
+def pair_ab(kernels, tables, stacked, acc, tel):
+    """The parent commit's csrc/datapath.cu against this one (the A/B,
+    --ab-parent): PERSISTENT_PAIR on `stacked` (K = 4) and DATAPATH_PAIR
+    on its first pair write fresh outputs once each and every entry must
+    agree (SystemExit otherwise); then both are timed in turns parent,
+    new, new, parent: CUDA events over PAIR_AB_REPS launches and device
+    ms with the launches queued behind a device spin.  None without the
+    parent."""
+    from cilium_tpu_torch.engine import datapath as dp
+
+    if "datapath" not in AB["libs"]:
+        return None
+    t = time.perf_counter()
+    new = pair_outputs(kernels, tables, stacked)
+    with parent_datapath(kernels):
+        old = pair_outputs(kernels, tables, stacked)
+    differ = {"persistent_pair": outputs_differ(new[0], old[0], dp),
+              "datapath_pair": outputs_differ(new[1], old[1], dp)}
+    del new, old
+    calls = {
+        "persistent_pair": lambda: kernels.PERSISTENT_PAIR(tables, stacked,
+                                                           acc, tel),
+        "datapath_pair": lambda: kernels.DATAPATH_PAIR(tables, stacked[0],
+                                                       acc, tel),
+    }
+    rec = {f"{who}_{k}_{m}": [] for who in ("parent", "new")
+           for k in calls for m in ("ms", "device_ms")}
+    launches = [k.launches for k in kernels.KERNELS]
+    for who in SCATTER_AB_TURNS:
+        ctx = (parent_datapath(kernels) if who == "parent"
+               else contextlib.nullcontext())
+        with ctx:
+            for k, fn in calls.items():
+                rec[f"{who}_{k}_ms"].append(event_ms(fn, PAIR_AB_REPS))
+                rec[f"{who}_{k}_device_ms"].append(
+                    spun_ms(queued_ms, fn, "pair_ab"))
+    for k, n in zip(kernels.KERNELS, launches):
+        k.launches = n
+    med = {k: round(float(np.median(v)), 4) for k, v in rec.items()}
+    out = dict(differing=differ, medians=med,
+               turns={k: [round(x, 4) for x in v] for k, v in rec.items()},
+               source=str(kernels.BUILD_DIR / "ab" / "libdatapath_parent.so"),
+               seconds=round(time.perf_counter() - t, 3))
+    print("  pair_ab " + json.dumps(out), flush=True)
+    if any(differ.values()):
+        raise SystemExit(f"pair_ab: entries differ between the parent's "
+                         f"pair kernel and this one: {differ}")
+    return out
+
+
+PAIR_STASH_SMEM = 64 * 1024  # csrc/datapath.cu STASH_SMEM
+
+
+def pair_launch(kernels, tables, stacked, acc, tel) -> dict:
+    """PERSISTENT_PAIR's launch on `stacked` as csrc/datapath.cu lays it
+    out: one thread a flow, a block for each unit of 256 flows of one
+    half of one pair (the grid), the four stashes staged in shared
+    memory where their words fit PAIR_STASH_SMEM bytes, after the [B, P]
+    scan's ranges (the dynamic shared memory a block takes)."""
+    a = kernels._pair_args(tables, stacked, acc, tel, 4)
+    words = (5 * a.ct_stash_n + a.ipc_stash_w * a.ipc_stash_n
+             + a.l4_ew * (a.l4_stash_n + a.l4w_stash_n))
+    scan = (6 if a.range_l3_in else 4) * a.n_ranges * 4 if a.range_base else 0
+    staged = words * 4 <= PAIR_STASH_SMEM
+    return dict(lanes_a_flow=1, block=256,
+                grid=2 * int(stacked.shape[0]) * -(-a.B // 256),
+                stash_words=words, stashes_in_shared_memory=staged,
+                smem_bytes=scan + (words * 4 if staged else 0))
+
+
 def persistent_timing(kernels, tables, pairs) -> dict:
     """PERSISTENT_PAIR's ms per super-batch over 20 launches on the first
     PERSIST_K pairs pre-staged on the card, beside 4 x DATAPATH_PAIR's on
@@ -5557,7 +5890,9 @@ def persistent_timing(kernels, tables, pairs) -> dict:
     bytes these K pairs need (needed_bytes over the super-batch: the
     stream of every pair, each distinct table row across the K pairs
     once) at 3.35 TB/s, or their operations (flow_ops) at 67 T/s,
-    whichever is larger.  Scratch carries; launches not counted."""
+    whichever is larger; the kernel's launch here (pair_launch; its
+    ptxas registers and spills per layout from the build) and, with
+    --ab-parent, pair_ab.  Scratch carries; launches not counted."""
     from cilium_tpu_torch.engine import datapath as dp
     from cilium_tpu_torch.engine import verdict
 
@@ -5568,6 +5903,8 @@ def persistent_timing(kernels, tables, pairs) -> dict:
     tel = verdict.make_telemetry_buffers("cuda")
     ms = event_ms(lambda: kernels.PERSISTENT_PAIR(tables, stacked, acc, tel),
                   20)
+    device_ms = spun_ms(queued_ms, lambda: kernels.PERSISTENT_PAIR(
+        tables, stacked, acc, tel), "persistent_timing")
 
     def pair_loop():
         for k in range(PERSIST_K):
@@ -5580,12 +5917,25 @@ def persistent_timing(kernels, tables, pairs) -> dict:
     per_flow_ops, egress_ops = flow_ops(tables)
     ops = (per_flow_ops * 2 + egress_ops) * HALF * PERSIST_K
     bb, bo = need / HBM_BYTES_PER_S * 1e3, ops / OPS_PER_S * 1e3
+    design = pair_launch(kernels, tables, stacked, acc, tel)
+    stashes = {name: int(getattr(leaf, "stash").shape[0]) for name, leaf in (
+        ("ct", tables.ct), ("ipcache", tables.ipcache))
+        if getattr(leaf, "stash", None) is not None}
+    if tables.policy.l4_hash_stash is not None:
+        stashes.update(l4=int(tables.policy.l4_hash_stash.shape[0]),
+                       l4_wild=int(tables.policy.l4_wild_stash.shape[0]))
+    ab = pair_ab(kernels, tables, stacked, acc, tel)
     phase("persistent_timing", t, k=PERSIST_K, half=HALF, ms=round(ms, 4),
+          device_ms=round(device_ms, 4),
           datapath_pair_x4_ms=round(pair_ms, 4), plain_ms=round(plain_ms, 4),
           bytes=need, ops=ops, bound_bytes_ms=round(bb, 4),
           bound_ops_ms=round(bo, 4), row_bytes_per_flow=round(per_flow, 2),
-          verdicts_per_s=round(PERSIST_K * 2 * HALF / (ms / 1e3)))
-    return dict(ms=ms, pair_ms=pair_ms, plain_ms=plain_ms, bb=bb, bo=bo)
+          verdicts_per_s=round(PERSIST_K * 2 * HALF / (ms / 1e3)),
+          design=json.dumps(design), stash_rows=json.dumps(stashes),
+          ptxas=json.dumps(PAIR_PTXAS.get(kernels.layout_name(0))))
+    return dict(ms=ms, device_ms=device_ms, pair_ms=pair_ms,
+                plain_ms=plain_ms, bb=bb, bo=bo, design=design,
+                stash_rows=stashes, ab=ab)
 
 
 def device_busy(prof) -> dict:
@@ -7590,6 +7940,13 @@ def dp_mesh_timing(kernels, u, path_counts, smi) -> list:
                             wrapper_ms=event_ms(fn, DP_CALLS),
                             plain_ms=event_ms(plain, 2), bytes=need,
                             bound_ms=need / HBM_BYTES_PER_S * 1e3)
+    # the parent's csrc/datapath_mesh.cu (--ab-parent): the shared stage
+    # code, each round on shard (0, 0)
+    ab = library_ab(kernels, "datapath_mesh", {
+        name: (lambda rnd=rnd, prev=(None if rnd == 0 else r["recs"][rnd - 1]):
+               kernels.DP_MESH_PROBE(rnd, md.shard(0, 0), flows,
+                                     dm.FORM_WORDS, prev, alive, 0, g))
+        for rnd, name in enumerate("SLFP")})
     tab0 = md.shard(0, 0)
     cneed = dp_combine_need(u, r)
     comb_fn = (lambda: kernels.DP_MESH_COMBINE(
@@ -7660,6 +8017,8 @@ def dp_mesh_timing(kernels, u, path_counts, smi) -> list:
             else {"flows": dp_, "pair": 2 * dp_})
         if kernel is kernels.DP_MESH_PROBE:
             row["by_round"] = rounds
+            if ab is not None:
+                row["ab"] = ab["medians"]
         rows.append(row)
     return rows
 
@@ -8055,6 +8414,10 @@ def ipcache_lookup_phase(kernels, w, host, node, rows) -> None:
                           need_bytes=need,
                           bound_ms=need / HBM_BYTES_PER_S * 1e3,
                           max_abs_err=errs[k])
+    # the parent's csrc/lookup.cu (--ab-parent): the shared stage code
+    ab = library_ab(kernels, "lookup", {
+        k: (lambda v=v, x=ips_of[k]: kernels.IPCACHE_LOOKUP(v, x))
+        for k, v in forms.items()})
     phase("ipcache_lookup_timing", t, by_form=json.dumps(by_form))
     head = by_form["config5_subword"]
     row = kernel_row(kernels.IPCACHE_LOOKUP, LOOKUP_SRC,
@@ -8063,6 +8426,8 @@ def ipcache_lookup_phase(kernels, w, host, node, rows) -> None:
                      head["ms"], head["plain_ms"], head["bound_ms"], 0.0)
     row.update(queued_ms=head["queued_ms"], by_form=by_form,
                launches_by_path={"ipcache_lookup": len(forms)})
+    if ab is not None:
+        row["ab"] = ab["medians"]
     rows.append(row)
 
 
@@ -8402,6 +8767,7 @@ def scatter_alone(parent=None) -> None:
         raise SystemExit("chip_smoke: no CUDA device")
     smi = nvidia_smi()
     t = time.perf_counter()
+    ab_jobs = ab_start(kernels, parent) if parent else None
     for stem, (_, log) in kernels.build_all(verbose=True).items():
         for line in log.splitlines():
             if stem == "publish" and ("registers" in line or "spill" in line
@@ -8410,8 +8776,8 @@ def scatter_alone(parent=None) -> None:
     for k in kernels.KERNELS:
         k.load()
     phase("build", t, card=repr(smi))
-    if parent:
-        scatter_ab_load(kernels, parent)
+    if ab_jobs:
+        ab_load(kernels, ab_jobs)
     w = world.make_world(seed=5)
     host = world.headline_tables(w, w.host_tables())
     tables = tables_to(host, "cuda")
@@ -8437,8 +8803,9 @@ def scatter_alone(parent=None) -> None:
 
 
 def main(argv=()) -> int:
-    """`--ab-parent DIR`: also time the parent commit's csrc/publish.cu,
-    from DIR (a `git archive` of it), beside this one (scatter_ab)."""
+    """`--ab-parent DIR`: also time the parent commit's csrc/ libraries
+    of AB_STEMS, from DIR (a `git archive` of it), beside this one's
+    (scatter_ab, churn_timing, pair_ab, library_ab)."""
     parent = None
     if argv:
         if len(argv) != 2 or argv[0] != "--ab-parent":
@@ -8464,19 +8831,22 @@ def main(argv=()) -> int:
           torch=torch.__version__, cuda=torch.version.cuda)
 
     # -- kernel build: one nvcc per library, started together (ptxas
-    # registers and spills per kernel)
+    # registers and spills per kernel), the parent's beside them
     t = time.perf_counter()
+    ab_jobs = ab_start(kernels, parent) if parent else None
     for stem, (_, log) in kernels.build_all(verbose=True).items():
         for line in log.splitlines():
             if "Compiling entry" in line or "registers" in line or (
                 "spill" in line
             ):
                 print(f"  ptxas {stem}:", line.strip(), flush=True)
+        if stem == "datapath":
+            PAIR_PTXAS.update(pair_ptxas(kernels, log))
     for k in kernels.KERNELS:
         k.load()
     phase("build", t)
-    if parent:
-        scatter_ab_load(kernels, parent)
+    if ab_jobs:
+        ab_load(kernels, ab_jobs)
 
     # -- config-5 world, headline layouts, onto the card
     t = time.perf_counter()
@@ -8539,6 +8909,7 @@ def main(argv=()) -> int:
           value_width=sh.ipcache.value_width)
     if err_small or err_stash:
         raise SystemExit("kernel differs from the plain version (small worlds)")
+    layouts_check(kernels, dp, verdict)
 
     # -- timings at the full width (scratch carries; launches not counted)
     t = time.perf_counter()
@@ -8682,7 +9053,16 @@ def main(argv=()) -> int:
         max(pchk["err"], err_main), ptim["ms"], ptim["plain_ms"], ptim["bb"],
         ptim["bo"],
     )]
-    rows[1]["datapath_pair_x4_ms"] = ptim["pair_ms"]
+    rows[1].update(datapath_pair_x4_ms=ptim["pair_ms"],
+                   device_ms=ptim["device_ms"], design=ptim["design"],
+                   stash_rows=ptim["stash_rows"], ptxas=PAIR_PTXAS)
+    if ptim["ab"] is not None:
+        med = ptim["ab"]["medians"]
+        for r, key in ((rows[0], "datapath_pair"),
+                       (rows[1], "persistent_pair")):
+            r["ab"] = dict(differing=ptim["ab"]["differing"][key], **{
+                f"{who}_{m}": med[f"{who}_{key}_{m}"]
+                for who in ("parent", "new") for m in ("ms", "device_ms")})
     # DATAPATH_PAIR's launches by path: the main path's (the dispatcher's
     # remainder, none at K = 4 over 8 pairs), persistent_check's dispatcher
     # remainder, and the node and combined paths below
@@ -8751,7 +9131,8 @@ def main(argv=()) -> int:
         raise SystemExit(f"{len(rows)} kernel rows for "
                          f"{len(kernels.KERNELS)} kernels")
     print("[library] library_ms is null except for ct_delta "
-          "(index_copy_), memo_dedup (torch.unique of the key rows with the "
+          "(index_copy_ of the delta's rows; device ms queued behind a "
+          "spin, as its ms, the CUDA events beside), memo_dedup (torch.unique of the key rows with the "
           "inverse), publish_scatter (one index_put_ per leaf on in-range "
           "payloads: a time only; device ms queued behind a spin, as its "
           "ms) and pick_draw (torch.randint on the same shape: "

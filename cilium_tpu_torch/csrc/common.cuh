@@ -244,6 +244,60 @@ __device__ __forceinline__ int lanes_for(int entries, int width) {
   return (entries + per - 1) / per;
 }
 
+// -- how a stage reads its rows ------------------------------------------------
+// A stage's row walk reads a row's key plane and compares every word
+// (the other planes only where the key matches), then walks its stash.
+// Reads<CH, LDG_STASH> says how: CH = 4 reads the key plane in 16-byte
+// loads where the plane is 16-byte aligned (the pair kernel of
+// csrc/datapath.cu), CH = 1 word by word; LDG_STASH reads the stash
+// through the read-only path, which only a stash in global memory takes
+// (the pair kernel's may lie in shared memory).  Every other kernel runs
+// the stages as ThreadReads.
+template <int CH, bool LDG_STASH>
+struct Reads {
+  static_assert(CH == 1 || CH == 4, "a key plane is read by words or by 16 B");
+
+  // match(e, key) for each word e < n of the key plane
+  template <typename Match>
+  static __device__ __forceinline__ void keys(const uint32_t* plane, int n,
+                                              Match&& match) {
+    if constexpr (CH == 1) {
+      for (int e = 0; e < n; ++e) match(e, __ldg(plane + e));
+    } else {
+      const bool vec = (reinterpret_cast<uintptr_t>(plane) & 15) == 0;
+      for (int e0 = 0; e0 < n; e0 += 4) {
+        uint32_t w[4];
+        const int m = n - e0;
+        if (vec && m >= 4) {
+          const uint4 v = __ldg(reinterpret_cast<const uint4*>(plane + e0));
+          w[0] = v.x;
+          w[1] = v.y;
+          w[2] = v.z;
+          w[3] = v.w;
+        } else {
+          w[0] = __ldg(plane + e0);
+#pragma unroll
+          for (int j = 1; j < 4; ++j) w[j] = j < m ? __ldg(plane + e0 + j) : 0u;
+        }
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          if (e0 + j < n) match(e0 + j, w[j]);
+      }
+    }
+  }
+
+  static __device__ __forceinline__ uint32_t stash(const uint32_t* p) {
+    if constexpr (LDG_STASH) {
+      return __ldg(p);
+    } else {
+      return *p;
+    }
+  }
+};
+
+using ThreadReads = Reads<1, true>;
+using PairReads = Reads<4, false>;
+
 constexpr uint32_t BLOCK_FLAG = 1u << 31;
 
 // DIR-24-8: l1[ip >> 8], and for a block cell l2[block, ip & 0xFF] (the

@@ -45,80 +45,12 @@ __device__ __forceinline__ CTKey ct_normalize(uint32_t daddr, uint32_t saddr,
   return k;
 }
 
-// THE bucket row read: by the normalized hash of the original tuple
-__device__ __forceinline__ const uint32_t* ct_fetch_row(
-    const DatapathArgs& a, uint32_t daddr, uint32_t saddr, uint32_t dport,
-    uint32_t sport, uint32_t proto) {
-  const CTKey k = ct_normalize(daddr, saddr, dport, sport);
-  const uint32_t h = fnv1a4(k.lo_a, k.hi_a, k.ports, proto & 0xFFu);
-  return a.ct_buckets +
-         static_cast<size_t>(h & static_cast<uint32_t>(a.ct_nb - 1)) *
-             a.ct_lanes;
-}
-
-// probe a fetched row (and the stash) for one tuple and direction:
-// the reverse key (REPLY) before the forward key (ESTABLISHED)
-__device__ __forceinline__ CTResult ct_probe(const DatapathArgs& a,
-                                             const uint32_t* row,
-                                             uint32_t daddr, uint32_t saddr,
-                                             uint32_t dport, uint32_t sport,
-                                             uint32_t proto, uint32_t dir) {
-  const uint32_t base = dir == CT_DIR_INGRESS  ? TUPLE_F_OUT
-                        : dir == CT_DIR_EGRESS ? TUPLE_F_IN
-                                               : TUPLE_F_SERVICE;
-  const uint32_t rev_flags = base ^ TUPLE_F_IN;
-  const CTKey k = ct_normalize(daddr, saddr, dport, sport);
-  const bool pairs_equal =
-      daddr == saddr && (dport & 0xFFFFu) == (sport & 0xFFFFu);
-  const uint32_t pr = (proto & 0xFFu) << 8;
-  const uint32_t w3_fwd =
-      pr | ((k.swapped && !pairs_equal) ? SWAPPED_BIT : 0u) | base;
-  const uint32_t w3_rev =
-      pr | ((!k.swapped && !pairs_equal) ? SWAPPED_BIT : 0u) | rev_flags;
-
-  bool ff = false, rf = false;
-  uint32_t fv = 0, rv = 0;
-  const bool wide = a.ct_ew == 5;
-  const int ne = a.ct_lanes / a.ct_ew;
-  for (int e = 0; e < ne; ++e) {
-    if (__ldg(row + e) == k.lo_a && __ldg(row + ne + e) == k.hi_a &&
-        __ldg(row + 2 * ne + e) == k.ports) {
-      const uint32_t w3p = __ldg(row + 3 * ne + e);
-      uint32_t w3, val;
-      if (wide) {
-        w3 = w3p;
-        val = __ldg(row + 4 * ne + e);
-      } else {
-        w3 = w3p >> 16;
-        val = (((w3p >> 8) & 0xFFu) << 16) | (w3p & 0xFFu);
-      }
-      if (w3 == w3_fwd) { ff = true; fv += val; }
-      if (w3 == w3_rev) { rf = true; rv += val; }
-    }
-  }
-  for (int s = 0; s < a.ct_stash_n; ++s) {
-    const uint32_t* e = a.ct_stash + 5 * s;
-    if (__ldg(e) == k.lo_a && __ldg(e + 1) == k.hi_a &&
-        __ldg(e + 2) == k.ports) {
-      const uint32_t w3 = __ldg(e + 3), val = __ldg(e + 4);
-      if (w3 == w3_fwd) { ff = true; fv += val; }
-      if (w3 == w3_rev) { rf = true; rv += val; }
-    }
-  }
-  CTResult r;
-  r.result = rf ? CT_REPLY : (ff ? CT_ESTABLISHED : CT_NEW);
-  const uint32_t val = rf ? rv : fv;
-  const bool hit = rf || ff;
-  r.rev_nat = hit ? static_cast<int32_t>(val >> 16) : 0;
-  r.slave = hit ? static_cast<int32_t>(val & 0xFFFFu) : 0;
-  return r;
-}
-
-// -- the row and stash halves (the routed mesh probe, csrc/datapath_mesh.cu)
-// ct/device.py ct_probe_keys, ct_probe_row_parts and ct_probe_stash_parts:
-// the same compares as ct_probe, split so that the row half runs on the
-// shard that owns the row and the stash half once; their sums are
-// ct_probe's.
+// -- the probe, as row and stash halves: ct/device.py ct_probe_rows, and
+// for the routed mesh probe (csrc/datapath_mesh.cu) ct_probe_keys,
+// ct_probe_row_parts and ct_probe_stash_parts, which run the row half on
+// the shard that owns the row and the stash half once; their sums are
+// the probe's.  The reverse key (REPLY) wins over the forward key
+// (ESTABLISHED).  RD: how the rows are read (common.cuh Reads).
 
 struct CTKeys {
   uint32_t lo_a, hi_a, ports, w3_fwd, w3_rev;
@@ -129,7 +61,7 @@ struct CTParts {
   uint32_t fv, rv;
 };
 
-// the normalized-tuple hash of the bucket row (ct_fetch_row's)
+// THE bucket row: by the normalized hash of the original tuple
 __device__ __forceinline__ uint32_t ct_row_hash(uint32_t daddr,
                                                 uint32_t saddr, uint32_t dport,
                                                 uint32_t sport,
@@ -158,15 +90,27 @@ __device__ __forceinline__ CTKeys ct_keys(uint32_t daddr, uint32_t saddr,
   return q;
 }
 
-// one row of `lanes` words of ew-word planar entries
-__device__ __forceinline__ CTParts ct_row_parts(const uint32_t* row,
-                                                int lanes, int ew,
-                                                const CTKeys& k) {
-  CTParts p{false, false, 0u, 0u};
+// a matching entry's flag word and value into one key's parts
+__device__ __forceinline__ void ct_add(CTParts& p, const CTKeys& k,
+                                       uint32_t w3, uint32_t val) {
+  if (w3 == k.w3_fwd) { p.ff = true; p.fv += val; }
+  if (w3 == k.w3_rev) { p.rf = true; p.rv += val; }
+}
+
+// one row of `lanes` words of ew-word planar entries against NK keys of
+// one tuple (they differ in their flag words alone): the first plane (lo
+// addr) walked whole, the other planes only where it matches, each key's
+// parts into p[0 .. NK)
+template <typename RD = ThreadReads, int NK = 1>
+__device__ __forceinline__ void ct_row_parts_n(const uint32_t* row, int lanes,
+                                               int ew, const CTKeys* k,
+                                               CTParts* p) {
+#pragma unroll
+  for (int n = 0; n < NK; ++n) p[n] = CTParts{false, false, 0u, 0u};
   const int ne = lanes / ew;
-  for (int e = 0; e < ne; ++e) {
-    if (__ldg(row + e) == k.lo_a && __ldg(row + ne + e) == k.hi_a &&
-        __ldg(row + 2 * ne + e) == k.ports) {
+  RD::keys(row, ne, [&](int e, uint32_t lo) {
+    if (lo == k[0].lo_a && __ldg(row + ne + e) == k[0].hi_a &&
+        __ldg(row + 2 * ne + e) == k[0].ports) {
       const uint32_t w3p = __ldg(row + 3 * ne + e);
       uint32_t w3, val;
       if (ew == 5) {
@@ -176,26 +120,42 @@ __device__ __forceinline__ CTParts ct_row_parts(const uint32_t* row,
         w3 = w3p >> 16;
         val = (((w3p >> 8) & 0xFFu) << 16) | (w3p & 0xFFu);
       }
-      if (w3 == k.w3_fwd) { p.ff = true; p.fv += val; }
-      if (w3 == k.w3_rev) { p.rf = true; p.rv += val; }
+#pragma unroll
+      for (int n = 0; n < NK; ++n) ct_add(p[n], k[n], w3, val);
+    }
+  });
+}
+
+// the 5-word stash of n entries, the same NK keys
+template <typename RD = ThreadReads, int NK = 1>
+__device__ __forceinline__ void ct_stash_parts_n(const uint32_t* stash, int n,
+                                                 const CTKeys* k,
+                                                 CTParts* p) {
+#pragma unroll
+  for (int q = 0; q < NK; ++q) p[q] = CTParts{false, false, 0u, 0u};
+  for (int s = 0; s < n; ++s) {
+    const uint32_t* e = stash + 5 * s;
+    if (RD::stash(e) == k[0].lo_a && RD::stash(e + 1) == k[0].hi_a &&
+        RD::stash(e + 2) == k[0].ports) {
+      const uint32_t w3 = RD::stash(e + 3), val = RD::stash(e + 4);
+#pragma unroll
+      for (int q = 0; q < NK; ++q) ct_add(p[q], k[q], w3, val);
     }
   }
+}
+
+__device__ __forceinline__ CTParts ct_row_parts(const uint32_t* row,
+                                                int lanes, int ew,
+                                                const CTKeys& k) {
+  CTParts p;
+  ct_row_parts_n(row, lanes, ew, &k, &p);
   return p;
 }
 
-// the 5-word stash of n entries
 __device__ __forceinline__ CTParts ct_stash_parts(const uint32_t* stash,
                                                   int n, const CTKeys& k) {
-  CTParts p{false, false, 0u, 0u};
-  for (int s = 0; s < n; ++s) {
-    const uint32_t* e = stash + 5 * s;
-    if (__ldg(e) == k.lo_a && __ldg(e + 1) == k.hi_a &&
-        __ldg(e + 2) == k.ports) {
-      const uint32_t w3 = __ldg(e + 3), val = __ldg(e + 4);
-      if (w3 == k.w3_fwd) { p.ff = true; p.fv += val; }
-      if (w3 == k.w3_rev) { p.rf = true; p.rv += val; }
-    }
-  }
+  CTParts p;
+  ct_stash_parts_n(stash, n, &k, &p);
   return p;
 }
 
@@ -208,6 +168,32 @@ __device__ __forceinline__ CTResult ct_combine(bool ff, bool rf, uint32_t fv,
   const bool hit = rf || ff;
   r.rev_nat = hit ? static_cast<int32_t>(val >> 16) : 0;
   r.slave = hit ? static_cast<int32_t>(val & 0xFFFFu) : 0;
+  return r;
+}
+
+// NK probes of one tuple (flag words apart) in a fetched bucket row and
+// the stash, one walk of each (ct/device.py ct_probe_rows without the
+// RELATED key): r[n] is key n's result.
+template <typename RD = ThreadReads, int NK = 1>
+__device__ __forceinline__ void ct_probe_n(const uint32_t* row, int lanes,
+                                           int ew, const uint32_t* stash,
+                                           int stash_n, const CTKeys* k,
+                                           CTResult* r) {
+  CTParts rp[NK], sp[NK];
+  ct_row_parts_n<RD, NK>(row, lanes, ew, k, rp);
+  ct_stash_parts_n<RD, NK>(stash, stash_n, k, sp);
+#pragma unroll
+  for (int n = 0; n < NK; ++n)
+    r[n] = ct_combine(rp[n].ff || sp[n].ff, rp[n].rf || sp[n].rf,
+                      rp[n].fv + sp[n].fv, rp[n].rv + sp[n].rv);
+}
+
+template <typename RD = ThreadReads>
+__device__ __forceinline__ CTResult ct_probe(const uint32_t* row, int lanes,
+                                             int ew, const uint32_t* stash,
+                                             int stash_n, const CTKeys& k) {
+  CTResult r;
+  ct_probe_n<RD>(row, lanes, ew, stash, stash_n, &k, &r);
   return r;
 }
 

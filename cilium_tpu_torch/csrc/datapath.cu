@@ -3,17 +3,14 @@
 // PERSISTENT_PAIR replaces the JAX package's persistent fused-pair program
 // `persistent_pair_program` (cilium_tpu/engine/datapath.py:922, jit :953:
 // a lax.scan of the pair step over a [K, 2, 4, B] super-batch, the counter
-// and telemetry carry threaded through).  It is DATAPATH_PAIR's per-flow
-// body on a grid whose third axis is the pair (DATAPATH_PAIR launches the
-// same kernel at K = 1): one launch for K pairs, the K pairs' columns
-// stacked [K, 2, B], every hit into the one counter buffer and every
-// half's telemetry into the one [2, 20] row pair.  What
-// bounds it is what bounds DATAPATH_PAIR (below): the stream of all K
-// pairs (16 B in and 39 B out a flow) and each distinct table row the K
-// pairs select, read once; at the headline's K = 4 and B = 2,097,152 at
-// most 4 x 244,466,568 B, 0.29 ms at 3.35 TB/s.  Its design does nothing
-// more about that than DATAPATH_PAIR's: it saves K - 1 launches and lets
-// the pairs' blocks share the L2's table rows.
+// and telemetry carry threaded through): one launch for K pairs, the K
+// pairs' columns stacked [K, 2, B], every hit into the one counter buffer
+// and every half's telemetry into the one [2, 20] row pair.  DATAPATH_PAIR
+// launches the same kernel at K = 1.  What bounds it is what bounds
+// DATAPATH_PAIR (below): the stream of all K pairs (16 B in and 39 B out
+// a flow) and each distinct table row the K pairs select, read once; at
+// the headline's K = 4 and B = 2,097,152 at most 4 x 244,466,568 B, 0.29
+// ms at 3.35 TB/s.
 //
 // DATAPATH_PAIR replaces the JAX package's jitted device program
 // `datapath_step_accum_pair_telem_packed4_stacked`
@@ -65,45 +62,54 @@
 // one by DatapathArgs.layout); the range lookup is a runtime branch, taken
 // only on an exact miss.
 //
-// Shape: one thread per flow.  The pair kernel's grid is
-// (ceil(B / 256), 2, K); blockIdx.y is the half (0 ingress, 1 egress), so
-// a block never straddles the halves and the telemetry row is the block's.
-// The step kernel's grid is ceil(B / 256) and each flow takes its own
+// Shape of the single-batch step (and the memo mode's passes): one thread
+// per flow, a grid of ceil(B / 256) blocks; each flow takes its own
 // direction word (or the static one of a per-direction form): an ingress
 // flow (direction 0) runs no LB, any other word goes through the service
-// probe and LB; its telemetry block sums both rows.  The CT probe direction,
-// the lattice direction and the counter row use each flow's own
-// direction.  With a tunnel map (overlay mode, tun_base not null) an
+// probe and LB; its telemetry block sums both rows.  The CT probe
+// direction, the lattice direction and the counter row use each flow's
+// own direction.  With a tunnel map (overlay mode, tun_base not null) an
 // allowed flow that is not ingress (the egress half; a step flow whose
 // direction is not 0) scans the map's ranges for its post-DNAT
 // destination's node (tunnel.cuh); without one the column is 0 and the
 // stage costs a null test.
 //
 // What bounds it on an H100: random row reads.  Per flow, at the config-5
-// compact layouts (the wide ones read about twice the bytes), the thread
-// reads one 256-byte CT row, one 256-byte ipcache row,
-// up to three 136-byte range-class rows (only on an exact miss), two
-// 128-byte L4 rows, on egress part of one 512-byte LB row, and one
-// l4_meta word: about 1 KB gathered from tables of tens of megabytes, of
-// which 16 B of flow input and 39 B of output are streamed (the step
-// kernel streams a 4 B pick and 39 B of output, and gathers its flow's
-// 32 B of words from the pool, 1.6 MB at config 5).  The tables
-// mostly fit the 50 MB L2, so the kernel is bound by L2/DRAM sector
-// traffic of dependent gathers, not by arithmetic.  This first version
-// does the simple thing: each thread walks its own rows' lanes with
-// read-only loads (__ldg) and sums every match (no early exit, as the
-// reference's masked sums), the counter scatter is one global atomicAdd
-// per hit, and the 20 telemetry columns are reduced per warp with
-// __ballot_sync/__popc and per block in shared memory before one
-// atomicAdd per block and column.  Staging rows through shared memory
-// with cp.async/TMA and a persistent grid are later work.  The node-scale
-// layouts add, per flow: PF_LPM one l1 word from a 64 MB table (most of
-// it outside L2) and on a block cell an l2 word, in place of a compare
-// per listed prefix; LB_CLASSIC a 512-byte bucket row and a dependent
-// backend row on a service hit; IPC_IDX one l3_allow_bits word;
+// compact layouts (the wide ones read about twice the bytes), a flow
+// reads one 256-byte CT row, one 256-byte ipcache row, up to three
+// 136-byte range-class rows (only on an exact miss), two 128-byte L4
+// rows, on egress part of one 512-byte LB row, and one l4_meta word:
+// about 1 KB gathered from tables of tens of megabytes, of which 16 B of
+// flow input and 39 B of output are streamed (the step kernel streams a
+// 4 B pick and 39 B of output, and gathers its flow's 32 B of words from
+// the pool, 1.6 MB at config 5).  The tables mostly fit the 50 MB L2, so
+// the kernel is bound by its dependent row reads, not by arithmetic:
+// cutting the CT, ipcache or L4 rows out of the pair kernel saved 0.51
+// to 0.62 of its 2.7 ms a super-batch, the counter atomics and the
+// column stores 0.02 and 0.08 (PERF.md).  Every kernel sums every match
+// (no early exit, as the reference's masked sums).  The single-batch
+// step walks a row's key plane 4 bytes at a time, one thread a flow
+// (ThreadReads, common.cuh).  The pair kernel also runs one thread a
+// flow (a group of lanes a flow measured 4-10 x slower: a flow's hashes,
+// LB and index arithmetic repeat on every lane) and reads each key plane
+// in 16-byte loads (PairReads: a compact CT or L4 row's 16 keys in four,
+// a sub-word ipcache row's 32 ips in eight); an egress flow walks its CT
+// row once for its service-scope and its own direction's probes (the
+// step and the memo front pass share this).  A block takes 256 flows of
+// one half of one pair (a grid of resident blocks looping over such
+// units measured level on config 5 and 4 % slower on the node world),
+// stages the [B, P] ranges and the four stashes in shared memory (up to
+// STASH_SMEM bytes), reads the flow stream and stores the columns with
+// the streaming hint, counts each hit with one atomicAdd (aggregating a
+// warp's hits on a column measured level) and commits its telemetry
+// once; its registers are fitted to PAIR_BLOCKS_PER_SM blocks an SM.
+// The node-scale layouts add, per flow: PF_LPM one l1 word from a 64 MB
+// table (most of it outside L2) and on a block cell an l2 word, in place
+// of a compare per listed prefix; LB_CLASSIC a 512-byte bucket row and a
+// dependent backend row on a service hit; IPC_IDX one l3_allow_bits word;
 // IPC_GENERIC one id_direct word, or with DIR-24-8 the two reads in place
 // of the bucket row; the [B, P] scan up to 512 compares from shared
-// memory on an exact miss (each block stages the ranges once, 8-12 KB).
+// memory on an exact miss (8-12 KB of ranges a block).
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -120,6 +126,10 @@ namespace cdp {
 
 constexpr int BLOCK = 256;
 constexpr int TELEM_COLS = 20;
+// the pair kernel's resident blocks an SM, its registers fitted to them
+constexpr int PAIR_BLOCKS_PER_SM = 6;
+// the stashes a block stages at most (more: they are read where they lie)
+constexpr size_t STASH_SMEM = 64 * 1024;
 
 struct FlowOut {
   bool pre, miss, allowed, ct_create, ct_delete;
@@ -129,16 +139,30 @@ struct FlowOut {
   Lattice v;
 };
 
+// Where a kernel reads the four stashes: their global tensors, or the
+// block's copies in shared memory (stage_stashes).
+struct Stashes {
+  const uint32_t* ct;
+  const uint32_t* ipc;
+  const uint32_t* l4;
+  const uint32_t* l4w;
+};
+
+__device__ __forceinline__ Stashes global_stashes(const DatapathArgs& a) {
+  return Stashes{a.ct_stash, a.ipc_stash, a.l4_stash, a.l4w_stash};
+}
+
 // Stages 1-5 of one flow: prefilter, conntrack, LB, ipcache and the
 // identity index.  `ingress` is the flow's side: an ingress flow runs no
 // service-scope CT probe and no LB (for the pair step that is its half,
 // for the single-batch step its own direction == 0; skipping the LB of
 // an ingress row gives what the reference's masked LB gives it).  `dir`
 // is the direction word the CT probe and the lattice read.  Writes the
-// lattice's `known` and L3 bit.  PF, LB and IPC are the table layouts
-// (common.cuh).
-template <int PF, int LB, int IPC>
+// lattice's `known` and L3 bit.  PF, LB and IPC are the table layouts,
+// RD how the rows are read (common.cuh).
+template <int PF, int LB, int IPC, typename RD = ThreadReads>
 __device__ __forceinline__ FlowOut fused_front(const DatapathArgs& a,
+                                               const Stashes& st,
                                                uint32_t saddr, uint32_t daddr,
                                                uint32_t sport, uint32_t dport,
                                                uint32_t proto, uint32_t ep,
@@ -147,32 +171,47 @@ __device__ __forceinline__ FlowOut fused_front(const DatapathArgs& a,
   FlowOut o;
   // -- prefilter, then ONE conntrack row for both probes
   o.pre = prefilter_drop<PF>(a, saddr);
-  const uint32_t* ct_row = ct_fetch_row(a, daddr, saddr, dport, sport, proto);
+  const uint32_t ct_ri = ct_row_hash(daddr, saddr, dport, sport, proto) &
+                         static_cast<uint32_t>(a.ct_nb - 1);
+  const uint32_t* ct_row =
+      a.ct_buckets + static_cast<size_t>(ct_ri) * a.ct_lanes;
   o.eff_daddr = daddr;
   o.eff_dport = dport;
   o.rev_nat = 0;
   o.lb_slave = 0;
   if (!ingress) {
-    const CTResult svc = ct_probe(a, ct_row, daddr, saddr, dport, sport,
-                                  proto, CT_DIR_SERVICE);
+    // the service-scope probe and the flow direction's, one walk: the LB
+    // keeps the tuple unless it finds the service
+    const CTKeys keys[2] = {
+        ct_keys(daddr, saddr, dport, sport, proto, CT_DIR_SERVICE),
+        ct_keys(daddr, saddr, dport, sport, proto, dir)};
+    CTResult r[2];
+    ct_probe_n<RD, 2>(ct_row, a.ct_lanes, a.ct_ew, st.ct, a.ct_stash_n, keys,
+                      r);
     const LBResult lb =
         LB == LB_CLASSIC
             ? lb_select_classic(a, saddr, daddr, sport, dport, proto,
-                                svc.slave)
-            : lb_select(a, saddr, daddr, sport, dport, proto, svc.slave);
+                                r[0].slave)
+            : lb_select(a, saddr, daddr, sport, dport, proto, r[0].slave);
+    o.ct = r[1];
     if (lb.found) {
       o.eff_daddr = lb.daddr;
       o.eff_dport = lb.dport;
       o.rev_nat = lb.rev_nat;
       o.lb_slave = lb.slave;
+      o.ct = ct_probe<RD>(
+          ct_row, a.ct_lanes, a.ct_ew, st.ct, a.ct_stash_n,
+          ct_keys(o.eff_daddr, saddr, o.eff_dport, sport, proto, dir));
     }
+  } else {
+    const CTKeys key = ct_keys(daddr, saddr, dport, sport, proto, dir);
+    ct_probe_n<RD>(ct_row, a.ct_lanes, a.ct_ew, st.ct, a.ct_stash_n, &key,
+                   &o.ct);
   }
-  o.ct = ct_probe(a, ct_row, o.eff_daddr, saddr, o.eff_dport, sport, proto,
-                  dir);
 
   // -- identity: the peer's ipcache entry, WORLD on a miss
-  const IPCResult ipc =
-      ipcache_lookup<IPC>(a, ingress ? saddr : o.eff_daddr, ingress);
+  const IPCResult ipc = ipcache_lookup<IPC, RD>(
+      a, ingress ? saddr : o.eff_daddr, ingress, st.ipc);
   o.miss = ipc.value == 0;
   if (IPC == IPC_GENERIC) {
     // the raw identity (sec_id in every form), indexed through id_direct
@@ -218,38 +257,57 @@ __device__ __forceinline__ void fused_back(const DatapathArgs& a, FlowOut& o,
 }
 
 // One flow through every stage: fused_front, the lattice, fused_back.
-template <int PF, int LB, int IPC>
+template <int PF, int LB, int IPC, typename RD = ThreadReads>
 __device__ __forceinline__ FlowOut fused_flow(const DatapathArgs& a,
+                                              const Stashes& st,
                                               uint32_t saddr, uint32_t daddr,
                                               uint32_t sport, uint32_t dport,
                                               uint32_t proto, uint32_t ep,
                                               uint32_t dir, bool frag,
                                               bool ingress) {
   bool known, l3_bit;
-  FlowOut o = fused_front<PF, LB, IPC>(a, saddr, daddr, sport, dport, proto,
-                                       ep, dir, ingress, &known, &l3_bit);
-  o.v = lattice(a, ep, dir, o.eff_dport, proto, o.idx, known, l3_bit, frag);
+  FlowOut o = fused_front<PF, LB, IPC, RD>(a, st, saddr, daddr, sport, dport,
+                                           proto, ep, dir, ingress, &known,
+                                           &l3_bit);
+  L4Tables t = l4_tables(a);
+  t.stash = st.l4;
+  t.wstash = st.l4w;
+  o.v = lattice<RD>(a, t, ep, dir, o.eff_dport, proto, o.idx, known, l3_bit,
+                    frag);
   fused_back(a, o, ingress);
   return o;
 }
 
+// A column store; STREAM marks its L2 line first to go.
+template <bool STREAM, typename T>
+__device__ __forceinline__ void st_stream(T* p, T v) {
+  if constexpr (STREAM) {
+    __stcs(p, v);
+  } else {
+    *p = v;
+  }
+}
+
+// The 15 columns of one flow at offset o; STREAM stores them with the
+// streaming hint, so a batch's outputs do not push the tables out of L2.
+template <bool STREAM = false>
 __device__ __forceinline__ void write_flow(const DatapathArgs& a, size_t o,
                                            const FlowOut& f, uint32_t sec_id) {
-  a.allowed[o] = f.allowed;
-  a.proxy_port[o] = f.proxy;
-  a.match_kind[o] = static_cast<uint8_t>(f.v.kind);
-  a.ct_result[o] = static_cast<uint8_t>(f.ct.result);
-  a.pre_dropped[o] = f.pre;
-  a.sec_id[o] = sec_id;
-  a.final_daddr[o] = f.eff_daddr;
-  a.final_dport[o] = static_cast<int32_t>(f.eff_dport);
-  a.rev_nat[o] = f.rev_nat;
-  a.lb_slave[o] = f.lb_slave;
-  a.ct_create[o] = f.ct_create;
-  a.ct_delete[o] = f.ct_delete;
-  a.tunnel_endpoint[o] = f.tunnel;
-  a.l4_slot[o] = f.v.j;
-  a.ipcache_miss[o] = f.miss;
+  st_stream<STREAM>(a.allowed + o, static_cast<uint8_t>(f.allowed));
+  st_stream<STREAM>(a.proxy_port + o, f.proxy);
+  st_stream<STREAM>(a.match_kind + o, static_cast<uint8_t>(f.v.kind));
+  st_stream<STREAM>(a.ct_result + o, static_cast<uint8_t>(f.ct.result));
+  st_stream<STREAM>(a.pre_dropped + o, static_cast<uint8_t>(f.pre));
+  st_stream<STREAM>(a.sec_id + o, sec_id);
+  st_stream<STREAM>(a.final_daddr + o, f.eff_daddr);
+  st_stream<STREAM>(a.final_dport + o, static_cast<int32_t>(f.eff_dport));
+  st_stream<STREAM>(a.rev_nat + o, f.rev_nat);
+  st_stream<STREAM>(a.lb_slave + o, f.lb_slave);
+  st_stream<STREAM>(a.ct_create + o, static_cast<uint8_t>(f.ct_create));
+  st_stream<STREAM>(a.ct_delete + o, static_cast<uint8_t>(f.ct_delete));
+  st_stream<STREAM>(a.tunnel_endpoint + o, f.tunnel);
+  st_stream<STREAM>(a.l4_slot + o, f.v.j);
+  st_stream<STREAM>(a.ipcache_miss + o, static_cast<uint8_t>(f.miss));
 }
 
 // Bit c set = the flow counts in telemetry column c (engine/verdict.py
@@ -326,9 +384,9 @@ __device__ __forceinline__ void memo_front_flow(const DatapathArgs& a,
   const uint32_t dir = (w3 >> 1) & 1u;
   const uint32_t proto = (w3 >> 8) & 0xFFu;
   bool known, l3_bit;
-  const FlowOut f = fused_front<PF, LB, IPC>(a, saddr, daddr, w2 >> 16,
-                                             w2 & 0xFFFFu, proto, ep, dir,
-                                             ingress, &known, &l3_bit);
+  const FlowOut f = fused_front<PF, LB, IPC>(
+      a, global_stashes(a), saddr, daddr, w2 >> 16, w2 & 0xFFFFu, proto, ep,
+      dir, ingress, &known, &l3_bit);
   const size_t o = static_cast<size_t>(half) * a.B + i;
   a.ct_result[o] = static_cast<uint8_t>(f.ct.result);
   a.pre_dropped[o] = f.pre;
@@ -348,42 +406,50 @@ __device__ __forceinline__ void memo_front_flow(const DatapathArgs& a,
 }
 
 // One flow of a pair step: its half's packed4 words at `p` (the [4, B]
-// half), its outputs at flat offset `o`.  Counts its lattice hit, writes
-// its 15 columns and returns its telemetry bits.
+// half, read with the streaming hint), its outputs at flat offset `o`
+// (stored likewise).  Returns its telemetry bits and the counter cell
+// its lattice hit counts in (-1: none).
+struct PairFlow {
+  uint32_t tmask;
+  int64_t cell;
+};
+
 template <int PF, int LB, int IPC>
-__device__ __forceinline__ uint32_t pair_flow(const DatapathArgs& a,
+__device__ __forceinline__ PairFlow pair_flow(const DatapathArgs& a,
+                                              const Stashes& st,
                                               const uint32_t* p, size_t o,
                                               int i, bool ingress) {
   // -- packed4 unpack
-  const uint32_t saddr = __ldg(p + i);
-  const uint32_t daddr = __ldg(p + a.B + i);
-  const uint32_t w2 = __ldg(p + 2 * a.B + i);
-  const uint32_t w3 = __ldg(p + 3 * a.B + i);
+  const uint32_t saddr = __ldcs(p + i);
+  const uint32_t daddr = __ldcs(p + a.B + i);
+  const uint32_t w2 = __ldcs(p + 2 * a.B + i);
+  const uint32_t w3 = __ldcs(p + 3 * a.B + i);
   const uint32_t ep = w3 >> 16;
   const uint32_t dir = (w3 >> 1) & 1u;
-  const FlowOut f = fused_flow<PF, LB, IPC>(
-      a, saddr, daddr, w2 >> 16, w2 & 0xFFFFu, (w3 >> 8) & 0xFFu, ep, dir,
+  const FlowOut f = fused_flow<PF, LB, IPC, PairReads>(
+      a, st, saddr, daddr, w2 >> 16, w2 & 0xFFFFu, (w3 >> 8) & 0xFFu, ep, dir,
       (w3 & 1u) != 0, ingress);
 
   // -- counters: L4 hits at slot j, L3 hits at column kg + idx; an
   // out-of-range index drops its update, as an XLA scatter does
+  PairFlow r{telemetry_bits(f), -1};
   const uint32_t kind = f.v.kind;
   const bool hit_l4 = kind == MATCH_L4 || kind == MATCH_L4_WILD;
   if (hit_l4 || kind == MATCH_L3) {
     const int cols = a.kg + a.n_ids;
     const int col = hit_l4 ? f.v.j : a.kg + static_cast<int32_t>(f.idx);
     if (ep < static_cast<uint32_t>(a.n_eps) && col >= 0 && col < cols)
-      atomicAdd(a.acc + (static_cast<size_t>(ep) * 2 + dir) * cols + col, 1u);
+      r.cell = (static_cast<int64_t>(ep) * 2 + dir) * cols + col;
   }
 
   // -- outputs: sec_id is the raw lattice index in the pair form (the
   // identity in the generic form)
-  write_flow(a, o, f, IPC == IPC_GENERIC ? f.ident : f.idx);
-  return telemetry_bits(f);
+  write_flow<true>(a, o, f, IPC == IPC_GENERIC ? f.ident : f.idx);
+  return r;
 }
 
-// The pair steps' telemetry epilogue, called by every thread of the
-// block: warp ballots, a block sum in shared memory, then (with `commit`)
+// The memo mode's back pass's telemetry epilogue, called by every thread
+// of the block: warp ballots, a block sum in shared memory, then (with `commit`)
 // one atomicAdd per block and column into `row` (a block never straddles
 // the halves, so the row is the block's).
 __device__ __forceinline__ void telemetry_block_sum(uint32_t* row,
@@ -418,26 +484,100 @@ __global__ void __launch_bounds__(BLOCK)
                                half == 0);
 }
 
+// Stage the four stashes into the block's shared memory, after the
+// ranges of the [B, P] scan (stage_ranges), where they fit STASH_SMEM
+// bytes (pair_smem_bytes); returns where the block reads them.
+__host__ __device__ inline int stash_words(const DatapathArgs& a) {
+  return 5 * a.ct_stash_n + a.ipc_stash_w * a.ipc_stash_n +
+         a.l4_ew * (a.l4_stash_n + a.l4w_stash_n);
+}
+
+__host__ __device__ inline bool stashes_staged(const DatapathArgs& a) {
+  return static_cast<size_t>(stash_words(a)) * 4 <= STASH_SMEM;
+}
+
+inline size_t pair_smem_bytes(const DatapathArgs& a) {
+  return scan_smem_bytes(a) +
+         (stashes_staged(a) ? static_cast<size_t>(stash_words(a)) * 4 : 0);
+}
+
+__device__ __forceinline__ const uint32_t* stage_words(const uint32_t* src,
+                                                       int n, uint32_t* dst) {
+  for (int k = threadIdx.x; k < n; k += blockDim.x) dst[k] = __ldg(src + k);
+  return dst;
+}
+
+// Every thread of the block calls it (after stage_ranges).
+__device__ __forceinline__ Stashes stage_stashes(const DatapathArgs& a) {
+  if (!stashes_staged(a)) return global_stashes(a);
+  uint32_t* w = s_ranges + scan_smem_bytes(a) / 4;
+  Stashes st;
+  const int n_ct = 5 * a.ct_stash_n, n_ipc = a.ipc_stash_w * a.ipc_stash_n;
+  const int n_l4 = a.l4_ew * a.l4_stash_n, n_l4w = a.l4_ew * a.l4w_stash_n;
+  st.ct = stage_words(a.ct_stash, n_ct, w);
+  st.ipc = stage_words(a.ipc_stash, n_ipc, w + n_ct);
+  st.l4 = stage_words(a.l4_stash, n_l4, w + n_ct + n_ipc);
+  st.l4w = stage_words(a.l4w_stash, n_l4w, w + n_ct + n_ipc + n_l4);
+  __syncthreads();
+  return st;
+}
+
 // The pair step over K pairs in one launch: PERSISTENT_PAIR, and
-// DATAPATH_PAIR as its K = 1 grid.  Grid (ceil(B / 256), 2, K):
-// blockIdx.z is the pair k of the [K, 2, 4, B] super-batch, blockIdx.y
-// its half; pair k's columns go to [k, half, i] of the [K, 2, B] outputs.
-// Every pair's hits add into the one `acc` and every half's telemetry
-// into the one `telem`: the pair body only adds to them (atomics, never a
-// read), and integer adds commute, so K pairs at once give lax.scan's
-// carry bit for bit.
+// DATAPATH_PAIR as its K = 1 launch.  A unit is 256 flows of one half of
+// one pair; the units run half by half, pair by pair, and the grid is
+// one block a unit.  The body is a grid-stride loop over the units all
+// the same, which runs once: so written, ptxas fits the flow into its 40
+// registers with fewer spills than the same body written straight, and
+// the kernel runs faster (PERF.md).  Pair k's columns go to [k,
+// half, i] of the [K, 2, B] outputs.  Every pair's hits add into the one
+// `acc` and every half's telemetry into the one `telem`: the pair body
+// only adds to them (atomics, never a read), and integer adds commute,
+// so K pairs at once give lax.scan's carry bit for bit.  The telemetry
+// is a ballot per column into lane c's register, summed per block in
+// shared memory and committed once.
 template <int PF, int LB, int IPC>
-__global__ void __launch_bounds__(BLOCK)
-    datapath_persistent_kernel(const DatapathArgs a) {
+__global__ void __launch_bounds__(BLOCK, PAIR_BLOCKS_PER_SM)
+    datapath_persistent_kernel(const __grid_constant__ DatapathArgs a,
+                               int k_pairs) {
+  __shared__ uint32_t s_tel[2 * TELEM_COLS];
+  if (threadIdx.x < 2 * TELEM_COLS) s_tel[threadIdx.x] = 0;
   stage_ranges(a);
-  const int half = blockIdx.y;
-  const size_t ph = static_cast<size_t>(blockIdx.z) * 2 + half;
-  const int i = blockIdx.x * BLOCK + threadIdx.x;
-  uint32_t tmask = 0;  // bit c set = this flow counts in telemetry column c
-  if (i < a.B)
-    tmask = pair_flow<PF, LB, IPC>(a, a.pair + ph * 4 * a.B, ph * a.B + i, i,
-                                   half == 0);
-  telemetry_block_sum(a.telem + half * TELEM_COLS, tmask, true);
+  const Stashes st = stage_stashes(a);
+  __syncthreads();
+  const int tiles = (a.B + BLOCK - 1) / BLOCK;
+  const int per_half = k_pairs * tiles;
+  const int units = 2 * per_half;
+  const int lane = threadIdx.x & 31;
+  uint32_t tel = 0;  // lane c < TELEM_COLS: column c of half `cur`
+  int cur = 0;
+  for (int u = blockIdx.x; u < units; u += gridDim.x) {
+    const int half = u >= per_half ? 1 : 0;
+    if (half != cur) {
+      if (lane < TELEM_COLS && tel)
+        atomicAdd(&s_tel[cur * TELEM_COLS + lane], tel);
+      tel = 0;
+      cur = half;
+    }
+    const int r = u - half * per_half;
+    const int k = r / tiles;
+    const int i = (r - k * tiles) * BLOCK + threadIdx.x;
+    const size_t ph = static_cast<size_t>(k) * 2 + half;
+    PairFlow f{0u, -1};
+    if (i < a.B)
+      f = pair_flow<PF, LB, IPC>(a, st, a.pair + ph * 4 * a.B, ph * a.B + i,
+                                 i, half == 0);
+    if (f.cell >= 0) atomicAdd(a.acc + f.cell, 1u);
+    const uint32_t tmask = f.tmask;
+#pragma unroll
+    for (int c = 0; c < TELEM_COLS; ++c) {
+      const uint32_t b = __ballot_sync(0xFFFFFFFFu, (tmask >> c) & 1u);
+      if (lane == c) tel += static_cast<uint32_t>(__popc(b));
+    }
+  }
+  if (lane < TELEM_COLS && tel) atomicAdd(&s_tel[cur * TELEM_COLS + lane], tel);
+  __syncthreads();
+  if (threadIdx.x < 2 * TELEM_COLS && s_tel[threadIdx.x])
+    atomicAdd(a.telem + threadIdx.x, s_tel[threadIdx.x]);
 }
 
 // The memo mode's back pass: the lattice-free columns the front pass
@@ -548,8 +688,9 @@ __global__ void __launch_bounds__(BLOCK)
     const uint32_t dir = w[6];
     const bool ingress =
         a.static_dir < 0 ? dir == CT_DIR_INGRESS : a.static_dir == 0;
-    const FlowOut f = fused_flow<PF, LB, IPC>(a, w[1], w[2], w[3], w[4], w[5],
-                                              w[0], dir, w[7] != 0, ingress);
+    const FlowOut f = fused_flow<PF, LB, IPC>(
+        a, global_stashes(a), w[1], w[2], w[3], w[4], w[5], w[0], dir,
+        w[7] != 0, ingress);
     if (a.acc) count_hit(a, f, w[0], dir);
     write_flow(a, static_cast<size_t>(i), f,
                IPC == IPC_GENERIC ? f.ident
@@ -563,36 +704,52 @@ __global__ void __launch_bounds__(BLOCK)
   if (a.telem) telemetry_rows_epilogue(a.telem, tmask, row);
 }
 
-// One launcher per kernel and layout: LAYOUT = PF + 2 LB + 4 IPC.
+// One launcher per kernel and layout: LAYOUT = PF + 2 LB + 4 IPC.  The
+// launchers and their tables have internal linkage: a static member of a
+// class template, or a static local of a function template, is a
+// process-wide unique symbol, and would make a second build of this file
+// loaded into the same process (the parent commit's, for an A/B)
+// launch the first one's kernels.
+namespace {
+
 template <int LAYOUT>
-void launch_persistent(const DatapathArgs& a, int k, cudaStream_t stream) {
-  const dim3 grid((a.B + BLOCK - 1) / BLOCK, 2, k);
-  datapath_persistent_kernel<LAYOUT & 1, (LAYOUT >> 1) & 1, (LAYOUT >> 2)>
-      <<<grid, BLOCK, scan_smem_bytes(a), stream>>>(a);
+int launch_persistent(const DatapathArgs& a, int k, cudaStream_t stream) {
+  auto kernel = datapath_persistent_kernel<LAYOUT & 1, (LAYOUT >> 1) & 1,
+                                           (LAYOUT >> 2)>;
+  const size_t smem = pair_smem_bytes(a);
+  if (smem > 48 * 1024 &&
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           static_cast<int>(smem)) != cudaSuccess)
+    return static_cast<int>(cudaGetLastError());
+  const long long units = 2LL * k * ((a.B + BLOCK - 1) / BLOCK);
+  if (units > 0x7FFFFFFFLL) return static_cast<int>(cudaErrorInvalidValue);
+  kernel<<<static_cast<unsigned>(units), BLOCK, smem, stream>>>(a, k);
+  return 0;
 }
 
 // DATAPATH_PAIR: the pair step is PERSISTENT_PAIR's kernel at K = 1; the
 // memo mode's front pass has its own.
 template <int LAYOUT>
-void launch_pair(const DatapathArgs& a, cudaStream_t stream) {
+int launch_pair(const DatapathArgs& a, cudaStream_t stream) {
   if (a.memo == 1) {
     const dim3 grid((a.B + BLOCK - 1) / BLOCK, 2);
     datapath_memo_front_kernel<LAYOUT & 1, (LAYOUT >> 1) & 1, (LAYOUT >> 2)>
         <<<grid, BLOCK, scan_smem_bytes(a), stream>>>(a);
-  } else {
-    launch_persistent<LAYOUT>(a, 1, stream);
+    return 0;
   }
+  return launch_persistent<LAYOUT>(a, 1, stream);
 }
 
 template <int LAYOUT>
-void launch_step(const DatapathArgs& a, cudaStream_t stream) {
+int launch_step(const DatapathArgs& a, cudaStream_t stream) {
   const int grid = (a.B + BLOCK - 1) / BLOCK;
   datapath_step_kernel<LAYOUT & 1, (LAYOUT >> 1) & 1, (LAYOUT >> 2)>
       <<<grid, BLOCK, scan_smem_bytes(a), stream>>>(a);
+  return 0;
 }
 
-using Launcher = void (*)(const DatapathArgs&, cudaStream_t);
-using KLauncher = void (*)(const DatapathArgs&, int, cudaStream_t);
+using Launcher = int (*)(const DatapathArgs&, cudaStream_t);
+using KLauncher = int (*)(const DatapathArgs&, int, cudaStream_t);
 
 template <int... L>
 struct Launchers {
@@ -603,6 +760,8 @@ struct Launchers {
 };
 using AllLayouts = Launchers<0, 1, 2, 3, 4, 5, 6, 7, 8, 9, 10, 11>;
 static_assert(N_LAYOUTS == 12, "one launcher per layout");
+
+}  // namespace
 
 }  // namespace cdp
 
@@ -618,16 +777,17 @@ extern "C" int launch_datapath_pair(const cdp::DatapathArgs* args,
   if (args->layout < 0 || args->layout >= cdp::N_LAYOUTS ||
       args->memo < 0 || args->memo > 2)
     return static_cast<int>(cudaErrorInvalidValue);
+  int err = 0;
   if (args->B > 0 && args->memo == 2) {
     const dim3 grid((args->B + cdp::BLOCK - 1) / cdp::BLOCK, 2);
     cdp::datapath_pair_memo_back_kernel<<<grid, cdp::BLOCK, 0,
                                           static_cast<cudaStream_t>(stream)>>>(
         *args);
   } else if (args->B > 0) {
-    cdp::AllLayouts::pair[args->layout](*args,
-                                        static_cast<cudaStream_t>(stream));
+    err = cdp::AllLayouts::pair[args->layout](
+        *args, static_cast<cudaStream_t>(stream));
   }
-  return static_cast<int>(cudaGetLastError());
+  return err ? err : static_cast<int>(cudaGetLastError());
 }
 
 // Launch PERSISTENT_PAIR over `k` pairs (args->pair is [k, 2, 4, B], the
@@ -638,10 +798,11 @@ extern "C" int launch_datapath_persistent(const cdp::DatapathArgs* args,
   if (args->layout < 0 || args->layout >= cdp::N_LAYOUTS ||
       args->memo != 0 || k < 1 || k > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
+  int err = 0;
   if (args->B > 0)
-    cdp::AllLayouts::persistent[args->layout](
+    err = cdp::AllLayouts::persistent[args->layout](
         *args, k, static_cast<cudaStream_t>(stream));
-  return static_cast<int>(cudaGetLastError());
+  return err ? err : static_cast<int>(cudaGetLastError());
 }
 
 // Launch one single-batch step on `stream`; returns cudaGetLastError().

@@ -43,15 +43,17 @@ __device__ __forceinline__ uint32_t l4c_key1(uint32_t dport, uint32_t proto,
 // The lane compares of one fetched row of `lanes` words holding ew-word
 // planar entries (engine/verdict.py l4hash_row_parts): every matching
 // lane counts, its value summed (j for compact entries, j << 16 | proxy
-// for wide ones).  The routed mesh probe (csrc/mesh.cu) calls it on the
-// row its shard owns.
+// for wide ones).  The key plane is walked whole (RD: how, common.cuh
+// Reads), the rest read only where it matches.  The routed mesh probe
+// (csrc/mesh.cu) calls it on the row its shard owns.
+template <typename RD = ThreadReads>
 __device__ __forceinline__ L4Probe l4_row_parts(const uint32_t* row,
                                                 int lanes, int ew,
                                                 uint32_t w0, uint32_t w1) {
   L4Probe p{false, 0u};
   const int e = lanes / ew;
-  for (int k = 0; k < e; ++k) {
-    if (__ldg(row + k) != w0) continue;
+  RD::keys(row, e, [&](int k, uint32_t key) {
+    if (key != w0) return;
     const uint32_t k1 = __ldg(row + e + k);
     if (ew == 3) {
       if (k1 == w1) {
@@ -62,24 +64,25 @@ __device__ __forceinline__ L4Probe l4_row_parts(const uint32_t* row,
       p.hit = true;
       p.val += (k1 >> 19) & 0xFFFu;
     }
-  }
+  });
   return p;
 }
 
 // The same compares over a stash of stash_n ew-word entries
 // (l4hash_stash_parts).
+template <typename RD = ThreadReads>
 __device__ __forceinline__ L4Probe l4_stash_parts(const uint32_t* stash,
                                                   int stash_n, int ew,
                                                   uint32_t w0, uint32_t w1) {
   L4Probe p{false, 0u};
   for (int s = 0; s < stash_n; ++s) {
     const uint32_t* ent = stash + static_cast<size_t>(ew) * s;
-    if (__ldg(ent) != w0) continue;
-    const uint32_t k1 = __ldg(ent + 1);
+    if (RD::stash(ent) != w0) continue;
+    const uint32_t k1 = RD::stash(ent + 1);
     if (ew == 3) {
       if (k1 == w1) {
         p.hit = true;
-        p.val += __ldg(ent + 2);
+        p.val += RD::stash(ent + 2);
       }
     } else if ((k1 & L4C_CMP_MASK) == w1) {
       p.hit = true;
@@ -90,6 +93,7 @@ __device__ __forceinline__ L4Probe l4_stash_parts(const uint32_t* stash,
 }
 
 // One hashed probe: the FNV-1a row, then its lanes and the stash.
+template <typename RD = ThreadReads>
 __device__ __forceinline__ L4Probe l4_probe_ew(const uint32_t* rows,
                                                int nrows, int lanes,
                                                const uint32_t* stash,
@@ -98,25 +102,11 @@ __device__ __forceinline__ L4Probe l4_probe_ew(const uint32_t* rows,
   const uint32_t h = fnv1a2(w0, w1);
   const uint32_t* row =
       rows + static_cast<size_t>(h & static_cast<uint32_t>(nrows - 1)) * lanes;
-  L4Probe p = l4_row_parts(row, lanes, ew, w0, w1);
-  const L4Probe s = l4_stash_parts(stash, stash_n, ew, w0, w1);
+  L4Probe p = l4_row_parts<RD>(row, lanes, ew, w0, w1);
+  const L4Probe s = l4_stash_parts<RD>(stash, stash_n, ew, w0, w1);
   p.hit = p.hit || s.hit;
   p.val += s.val;
   return p;
-}
-
-__device__ __forceinline__ L4Probe l4_probe(const uint32_t* rows, int nrows,
-                                            int lanes, const uint32_t* stash,
-                                            int stash_n, uint32_t w0,
-                                            uint32_t w1) {
-  return l4_probe_ew(rows, nrows, lanes, stash, stash_n, 2, w0, w1);
-}
-
-__device__ __forceinline__ L4Probe l4_probe3(const uint32_t* rows, int nrows,
-                                             int lanes, const uint32_t* stash,
-                                             int stash_n, uint32_t w0,
-                                             uint32_t w1) {
-  return l4_probe_ew(rows, nrows, lanes, stash, stash_n, 3, w0, w1);
 }
 
 // The probe key words of either layout (l4hash_probe_keys): ep and dir
@@ -175,6 +165,7 @@ struct Probes {
 // _probes' hashed branch): the keys take ep and dir as u32 words, the
 // compact layout's l4_meta read takes them as gather indices.  dport
 // and proto are already clipped.
+template <typename RD = ThreadReads>
 __device__ __forceinline__ Probes hashed_probes(const L4Tables& t,
                                                 uint32_t ep, uint32_t dir,
                                                 uint32_t dport,
@@ -184,10 +175,10 @@ __device__ __forceinline__ Probes hashed_probes(const L4Tables& t,
   if (t.ew == 3) {
     const uint32_t k1 = (dport << 16) | (proto << 8) | (ep >> 9);
     const uint32_t dk = (dir << 22) | ((ep & 0x1FFu) << 23);
-    const L4Probe p1 = l4_probe3(t.rows, t.nrows, t.lanes, t.stash,
-                                 t.stash_n, idx | dk, k1);
-    const L4Probe p3 = l4_probe3(t.wrows, t.wnrows, t.wlanes, t.wstash,
-                                 t.wstash_n, L4H_WILD_IDX | dk, k1);
+    const L4Probe p1 = l4_probe_ew<RD>(t.rows, t.nrows, t.lanes, t.stash,
+                                       t.stash_n, 3, idx | dk, k1);
+    const L4Probe p3 = l4_probe_ew<RD>(t.wrows, t.wnrows, t.wlanes, t.wstash,
+                                       t.wstash_n, 3, L4H_WILD_IDX | dk, k1);
     r.p1 = known && p1.hit;
     r.p3 = p3.hit;
     const uint32_t val = r.p1 ? p1.val : p3.val;
@@ -196,10 +187,11 @@ __device__ __forceinline__ Probes hashed_probes(const L4Tables& t,
     return r;
   }
   const uint32_t k1 = l4c_key1(dport, proto, ep, dir);
-  const L4Probe p1 = l4_probe(t.rows, t.nrows, t.lanes, t.stash, t.stash_n,
-                              l4c_key0(idx, dport), k1);
-  const L4Probe p3 = l4_probe(t.wrows, t.wnrows, t.wlanes, t.wstash,
-                              t.wstash_n, l4c_key0(L4H_WILD_IDX, dport), k1);
+  const L4Probe p1 = l4_probe_ew<RD>(t.rows, t.nrows, t.lanes, t.stash,
+                                     t.stash_n, 2, l4c_key0(idx, dport), k1);
+  const L4Probe p3 =
+      l4_probe_ew<RD>(t.wrows, t.wnrows, t.wlanes, t.wstash, t.wstash_n, 2,
+                      l4c_key0(L4H_WILD_IDX, dport), k1);
   r.p1 = known && p1.hit;
   r.p3 = p3.hit;
   r.j = static_cast<int32_t>(r.p1 ? p1.val : p3.val);
@@ -390,9 +382,12 @@ __device__ __forceinline__ bool l3_allow_bit(const DatapathArgs& a,
 
 // The datapath's lattice: probes 1-3 and the combine, with idx and known
 // from the ipcache (or id_direct) and l3_bit from the ipcache's L3 word
-// or l3_allow_bit; without the hashed L4 tables (l4_rows null) probes 1
-// and 3 read the dense planes (K8's dense branch).
-__device__ __forceinline__ Lattice lattice(const DatapathArgs& a, uint32_t ep,
+// or l3_allow_bit; `t` is l4_tables(a), its stashes where the kernel
+// keeps them; without the hashed L4 tables (l4_rows null) probes 1 and 3
+// read the dense planes (K8's dense branch).
+template <typename RD = ThreadReads>
+__device__ __forceinline__ Lattice lattice(const DatapathArgs& a,
+                                           const L4Tables& t, uint32_t ep,
                                            uint32_t dir, uint32_t dport_w,
                                            uint32_t proto_w, uint32_t idx,
                                            bool known, bool l3_bit,
@@ -400,7 +395,7 @@ __device__ __forceinline__ Lattice lattice(const DatapathArgs& a, uint32_t ep,
   const uint32_t dport = clip_u(static_cast<int32_t>(dport_w), 65535);
   const uint32_t proto = clip_u(static_cast<int32_t>(proto_w), 255);
   const Probes p =
-      a.l4_rows ? hashed_probes(l4_tables(a), ep, dir, dport, proto, idx, known)
+      a.l4_rows ? hashed_probes<RD>(t, ep, dir, dport, proto, idx, known)
                 : dense_probes(a.port_slot, a.l4_allow, a.l4_meta, a.n_eps,
                                a.kg, a.n_words, static_cast<int32_t>(ep),
                                static_cast<int32_t>(dir), dport, proto,

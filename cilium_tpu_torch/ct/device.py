@@ -259,10 +259,16 @@ class CTBucketIndex:
 def apply_bucket_delta_plain(snapshot: CTSnapshot, idx: torch.Tensor,
                              rows: torch.Tensor) -> None:
     """Plain version of the CT delta: rows [M, lanes] written into
-    `snapshot.buckets` at idx [M] by an index write, in place.
+    `snapshot.buckets` at idx [M] by an index write, in place, with
+    jax's scatter rules: an index below 0 gets the bucket count added
+    once, and a row whose index is still outside the table is dropped.
     Duplicate indices carry identical rows, so the order of the writes
     does not matter."""
-    snapshot.buckets[idx.to(torch.int64)] = rows
+    n = int(snapshot.buckets.shape[0])
+    i = idx.to(torch.int64)
+    i = torch.where(i < 0, i + n, i)
+    keep = (i >= 0) & (i < n)
+    snapshot.buckets[i[keep]] = rows[keep]
 
 
 def apply_bucket_delta(snapshot: CTSnapshot, idx: np.ndarray,

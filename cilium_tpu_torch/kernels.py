@@ -11,7 +11,8 @@ and no card.
 
 `DATAPATH_PAIR(tables, pair, acc, telem)` is the pair step on the
 card, `PERSISTENT_PAIR(tables, pairs, acc, telem)` K of them over a
-[K, 2, 4, B] super-batch in one launch (K13), and `DATAPATH_STEP(tables, pool, picks)` the single-batch step
+[K, 2, 4, B] super-batch in one launch (K13; DATAPATH_PAIR is its K = 1
+launch), and `DATAPATH_STEP(tables, pool, picks)` the single-batch step
 over pool[:, picks] (or over an [8, B] pack with `picks=None`), in
 each of its forms: a static direction, the raw index or the identity
 as sec_id, counters into a carried `acc`, telemetry into a carried
@@ -33,7 +34,9 @@ raise if the launch reports an error, and count their launches in
 `CHURN_COMPACT` and `CT_DELTA` (csrc/churn.cu) are the churn loop's
 intent compaction (K22) and CT bucket delta (K18's CT part) under the
 same rules.  One CHURN_COMPACT call is four device launches (see the
-source note) and counts one.
+source note) and counts one.  CT_DELTA runs the row scatters' tile
+routine (csrc/scatter.cuh) on a tiling laid out by `scatter_args`, with
+jax's scatter rules on its indices.
 
 `HTTP_MATCH`, `KAFKA_MATCH`, `FLEET_L7` and `MEMCACHE_MATCH`
 (csrc/l7.cu) are the L7 matchers K16, K17a, K17b and K17c under the
@@ -1235,28 +1238,22 @@ class ChurnArgs(ctypes.Structure):
     )
 
 
-class DeltaArgs(ctypes.Structure):
-    """Mirror of cch::DeltaArgs in csrc/churn.cu, field for field."""
-
-    _fields_ = [("buckets", _P), ("idx", _P), ("rows", _P), ("m", _I),
-                ("lanes", _I), ("n_buckets", _I)]
-
-
 class _ChurnLibrary(_Library):
     """csrc/churn.cu: CHURN_COMPACT and CT_DELTA."""
 
     stem = "churn"
 
     def bind(self, lib) -> None:
-        self.declare(lib, (("launch_churn_compact", ChurnArgs),
-                           ("launch_ct_delta", DeltaArgs)))
+        self.declare(lib, (("launch_churn_compact", ChurnArgs),))
+        lib.launch_ct_delta.argtypes = [_P, _P]
+        lib.launch_ct_delta.restype = ctypes.c_int
         lib.churn_blocks.argtypes = [ctypes.c_int]
         lib.churn_blocks.restype = ctypes.c_int
         lib.churn_struct_sizes.argtypes = [ctypes.POINTER(ctypes.c_int)]
         lib.churn_struct_sizes.restype = ctypes.c_int
         sizes = (ctypes.c_int * 2)()
         lib.churn_struct_sizes(sizes)
-        want = [ctypes.sizeof(ChurnArgs), ctypes.sizeof(DeltaArgs)]
+        want = [ctypes.sizeof(ChurnArgs), ctypes.sizeof(_DELTA_ARGS)]
         if list(sizes) != want:
             raise RuntimeError(
                 f"churn argument layouts differ between kernels.py "
@@ -1323,8 +1320,12 @@ class ChurnCompactKernel:
 
 class CtDeltaKernel:
     """K18's CT part on the card: rows int32 [M, lanes] written into
-    snapshot.buckets at idx int32 [M], in place; returns the
-    snapshot."""
+    snapshot.buckets at idx int32 [M], in place, with jax's scatter
+    rules (an index below 0 counts from the end once, a row whose index
+    is still outside the table is dropped); returns the snapshot.  One
+    launch of the row scatters' tile routine (csrc/scatter.cuh) over one
+    segment (scatter_args), built into csrc/churn.cu; an empty delta
+    launches nothing."""
 
     name = "ct_delta"
 
@@ -1340,15 +1341,19 @@ class CtDeltaKernel:
         if buckets.dim() != 2:
             raise ValueError("ct.buckets must be [Cb, lanes]")
         nb, lanes = (int(v) for v in buckets.shape)
+        _cell_limit(nb)
         m = int(idx.shape[0])
-        if m >= 1 << 31:
-            raise ValueError("delta too large")
-        a = DeltaArgs()
-        a.buckets = _ptr(buckets, "ct.buckets", dev)
-        a.idx = _ptr(idx, "idx", dev, shape=(m,))
-        a.rows = _ptr(rows, "rows", dev, shape=(m, lanes))
-        a.m, a.lanes, a.n_buckets = m, lanes, nb
-        CHURN_LIBRARY.launch("launch_ct_delta", a, dev, self.name)
+        if m == 0:
+            return snapshot
+        geo = ((_ptr(buckets, "ct.buckets", dev),
+                _ptr(idx, "idx", dev, shape=(m,)), 0,
+                _ptr(rows, "rows", dev, shape=(m, lanes)),
+                nb, 1, 1, lanes, m),)
+        args = scatter_args(geo, self.name, _DELTA_ARGS)
+        err = self.load().launch_ct_delta(ctypes.addressof(args),
+                                          _stream(dev))
+        if err != 0:
+            raise KernelError(f"{self.name} launch failed: CUDA error {err}")
         self.launches += 1
         return snapshot
 
@@ -2200,8 +2205,10 @@ SEGMENT_FIELDS = ("dst", "idx0", "idx1", "values", "size0", "size1",
                   "col_tiles", "row_tiles", "tile_start")
 _SCATTER_ARGS = ctypes.c_int64 * (
     len(SEGMENT_FIELDS) * MAX_SCATTER_SEGMENTS + 2)
+_DELTA_ARGS = ctypes.c_int64 * (len(SEGMENT_FIELDS) + 2)  # cpub::ArgsOf<1>
 
 
+@functools.lru_cache(maxsize=4096)
 def scatter_tile_words(total: int) -> int:
     """A scatter tile's words for a launch that moves `total` payload
     words: the power of two at or below total / SCATTER_TARGET_TILES,
@@ -2264,10 +2271,11 @@ class _PublishLibrary(_Library):
             raise KernelError(f"{name} launch failed: CUDA error {err}")
 
 
-def scatter_args(geo, name: str):
-    """csrc/publish.cu's argument block for the segments `geo`, each
+def scatter_args(geo, name: str, block=_SCATTER_ARGS):
+    """csrc/scatter.cuh's argument block for the segments `geo`, each
     (dst, idx0, idx1, values pointers, size0, size1, outer, inner, k):
-    the segments and their tiles (scatter_tiling), as int64 words."""
+    the segments and their tiles (scatter_tiling), as int64 words, in
+    `block` (ArgsOf<16> or, for one segment, ArgsOf<1>)."""
     tile_words = scatter_tile_words(sum(g[6] * g[7] * g[8] for g in geo))
     flat, tiles = [], 0
     for g in geo:
@@ -2278,7 +2286,7 @@ def scatter_args(geo, name: str):
         tiles += ct * rt * ot
     if tiles >= 1 << 31:
         raise ValueError(f"{name}: {tiles} tiles in one launch")
-    args = _SCATTER_ARGS()
+    args = block()
     args[:len(flat)] = flat
     args[-2], args[-1] = len(geo), tiles
     return args

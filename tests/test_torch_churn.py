@@ -330,6 +330,45 @@ def test_apply_bucket_delta_matches_jax():
     np.testing.assert_array_equal(_u32(port.buckets[idx[0]]), rows[2])
 
 
+def _edge_delta(n, lanes, seed):
+    """A delta over an n-bucket table holding every index case of jax's
+    scatter rules: -1 and -n (counted from the end), n, n + 3 and -n - 1
+    (dropped), a duplicate carrying an identical row, in-range rows."""
+    idx = np.array([2, -1, n, 5, -n, n + 3, 2, -n - 1, 7], np.int32)
+    rng = np.random.default_rng(seed)
+    rows = rng.integers(0, 1 << 32, (idx.size, lanes), dtype=np.uint64
+                        ).astype(np.uint32)
+    rows[6] = rows[0]
+    return idx, rows
+
+
+def test_apply_bucket_delta_follows_jax_index_rules():
+    """Out-of-range and negative indices as the jitted reference takes
+    them: -1 and -n write rows n - 1 and 0, n, n + 3 and -n - 1 drop
+    their rows.  A torch index write (the plain version before the
+    repair) raises on n instead."""
+    _need_jax()
+    w = _world(1)
+    jsnap = jcd.CTBucketIndex(convert_ct(w.ct, jct)).full_snapshot()
+    n = 16
+    small = {"buckets": np.asarray(jsnap.buckets)[:n].copy(),
+             "stash": np.asarray(jsnap.stash), "n_buckets": n}
+    idx, rows = _edge_delta(n, small["buckets"].shape[1], 3)
+    port = convert.ct_snapshot_from_numpy(small, device="cpu")
+    with pytest.raises(IndexError):
+        port.buckets.clone()[torch.from_numpy(idx).long()] = torch.from_numpy(
+            rows.view(np.int32))
+    jfn = jax.jit(jcd.apply_bucket_delta)
+    want = jfn(jax.device_put(jcd.CTSnapshot(
+        buckets=jnp.asarray(small["buckets"]),
+        stash=jnp.asarray(small["stash"]), n_buckets=n,
+        entry_words=jsnap.entry_words)), jnp.asarray(idx), jnp.asarray(rows))
+    got = tcd.apply_bucket_delta(port, idx, rows)
+    _assert_same_snapshot(got, want)
+    np.testing.assert_array_equal(_u32(got.buckets[n - 1]), rows[1])
+    np.testing.assert_array_equal(_u32(got.buckets[0]), rows[4])
+
+
 def _replay_both(w, picks, batch, slots, monkeypatch):
     jt = jax_host_tables(w, subword=False)
     tt = convert.tables_to(w.host_tables(), "cpu")
@@ -601,6 +640,33 @@ def test_churn_kernels_match_plain(slots):
     after = [k.launches for k in (kernels.DATAPATH_STEP,
                                   kernels.CHURN_COMPACT, kernels.CT_DELTA)]
     assert [a - b for a, b in zip(after, before)] == [2, 2, 1]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lanes", [128, 64, 12])
+def test_ct_delta_kernel_follows_jax_index_rules(lanes):
+    """CT_DELTA against its plain version on the edge indices (-1, -n,
+    n, n + 3, -n - 1, a duplicate, in-range rows), at the wide, compact
+    and a narrow row width (no 16-byte vectors)."""
+    _need_card()
+    from cilium_tpu_torch import kernels
+
+    n = 16
+    idx, rows = _edge_delta(n, lanes, 4)
+    base = torch.randint(-2**31, 2**31 - 1, (n, lanes), dtype=torch.int32,
+                         generator=torch.Generator().manual_seed(lanes))
+    snap = tcd.CTSnapshot(buckets=base.cuda(), stash=torch.zeros(
+        (1, 5), dtype=torch.int32, device="cuda"), n_buckets=n)
+    ref = copy.deepcopy(snap)
+    idx_t = torch.from_numpy(idx).cuda()
+    rows_t = torch.from_numpy(rows.view(np.int32)).cuda()
+    before = kernels.CT_DELTA.launches
+    kernels.CT_DELTA(snap, idx_t, rows_t)
+    tcd.apply_bucket_delta_plain(ref, idx_t, rows_t)
+    torch.cuda.synchronize()
+    assert kernels.CT_DELTA.launches - before == 1
+    assert torch.equal(snap.buckets, ref.buckets)
+    assert torch.equal(snap.buckets[n - 1], rows_t[1])
 
 
 @pytest.mark.cuda

@@ -11,7 +11,10 @@ each cross one threshold, and one that crosses all of them:
              4): the [B, P] range scan, with L3 planes;
   ranges523  520 /24 CIDR blocks (523 ranges, more than 512): a
              DIR-24-8 ipcache, the generic identity branch;
-  node       all of them together (world.node_world at a small size).
+  node       all of them together (world.node_world at a small size);
+  pf141eps36, lb50eps36, pf141lb50, pf141r523, lb50r523, pf141lb50r523
+             two or three of them together: with the worlds above, each
+             of the datapath kernels' 12 layout instantiations.
 
 Builders leaf for leaf (both packages refuse a service past 64
 backends); each plain stage function (prefilter_drop, lb_select_batch,
@@ -19,8 +22,8 @@ ipcache_lookup_fused, the generic lookup, _probes) against its JAX
 function, with edge inputs; the pair step on every world from both
 table sources (the port's builders, and the JAX leaves carried across
 by tables_from_numpy); every single-batch form and replay() on the
-node world.  The `cuda`-marked twins hold DATAPATH_PAIR and
-DATAPATH_STEP against their plain versions on every layout and replay()
+node world.  The `cuda`-marked twins hold DATAPATH_PAIR, PERSISTENT_PAIR
+and DATAPATH_STEP against their plain versions on every layout and replay()
 on the card against the plain loop; they need no JAX and skip here:
 
     python -m pytest --noconftest tests/test_torch_layouts.py -q -m cuda
@@ -81,6 +84,14 @@ WORLDS = {
     "node": dict(n_endpoints=40, n_cidr_blocks=30, n_blocklist=140,
                  big_vip_backends=50,
                  cidr_plens=(8, 12, 16, 20, 24, 28)),
+    # the rest of the 12 layout instantiations
+    "pf141eps36": dict(n_blocklist=140, n_endpoints=36),
+    "lb50eps36": dict(big_vip_backends=50, n_endpoints=36),
+    "pf141lb50": dict(n_blocklist=140, big_vip_backends=50),
+    "pf141r523": dict(n_blocklist=140, n_cidr_blocks=520),
+    "lb50r523": dict(big_vip_backends=50, n_cidr_blocks=520),
+    "pf141lb50r523": dict(n_blocklist=140, big_vip_backends=50,
+                          n_cidr_blocks=520),
 }
 # the layout each world's tables take: (prefilter, LB, ipcache), the
 # ipcache as (L3 planes, range classes) or "dir24_8"
@@ -91,7 +102,24 @@ LAYOUTS = {
     "plens7": ("PrefilterRanges", "LBInline", (True, False)),
     "ranges523": ("PrefilterRanges", "LBInline", "dir24_8"),
     "node": ("LPMTables", "LBTables", (False, False)),
+    "pf141eps36": ("LPMTables", "LBInline", (False, True)),
+    "lb50eps36": ("PrefilterRanges", "LBTables", (False, True)),
+    "pf141lb50": ("LPMTables", "LBTables", (True, True)),
+    "pf141r523": ("LPMTables", "LBInline", "dir24_8"),
+    "lb50r523": ("PrefilterRanges", "LBTables", "dir24_8"),
+    "pf141lb50r523": ("LPMTables", "LBTables", "dir24_8"),
 }
+
+
+def _layout_name(name):
+    """The kernels' instantiation name (kernels.layout_name) of the
+    layout LAYOUTS gives world `name`."""
+    pf, lb, ipc = LAYOUTS[name]
+    return "/".join((
+        {"PrefilterRanges": "ranges", "LPMTables": "dir24_8"}[pf],
+        {"LBInline": "inline", "LBTables": "classic"}[lb],
+        "generic" if ipc == "dir24_8" else (
+            "idx_planes" if ipc[0] else "idx")))
 
 _CACHE = {}
 
@@ -472,6 +500,22 @@ def _assert_same_outputs(got, want, name):
     assert tel.numpy()[:, 18].sum() > 0  # ipcache misses
 
 
+def test_worlds_take_every_layout_instantiation():
+    """The worlds' layouts (held by test_datapath_matches_jax) are the
+    12 instantiations of the datapath kernels, so the card test below
+    runs each of them; and on the CPU tables of a few worlds
+    kernels.datapath_layout names the instantiation LAYOUTS gives."""
+    from cilium_tpu_torch import kernels
+
+    assert ({_layout_name(n) for n in WORLDS}
+            == {kernels.layout_name(i) for i in range(12)})
+    for name in ("pf141eps36", "lb50r523"):
+        host = tdp.subword_datapath_tables(_world(name).host_tables())
+        tables = convert.tables_to(host, "cpu")
+        assert (kernels.datapath_layout(tables).split("+")[0]
+                == _layout_name(name))
+
+
 # -- on the card -----------------------------------------------------------------
 
 
@@ -484,9 +528,10 @@ def _card_cases():
 @pytest.mark.cuda
 @pytest.mark.parametrize("name,subword", list(_card_cases()))
 def test_kernels_match_plain_on_every_layout(name, subword):
-    """DATAPATH_PAIR over two pairs and DATAPATH_STEP in each form over
-    the edge flows, on the card, against the plain versions on the same
-    device inputs: columns, counters, telemetry."""
+    """DATAPATH_PAIR over two pairs, PERSISTENT_PAIR over four of 4,999
+    flows a half and DATAPATH_STEP in each form over the edge flows, on
+    the card, against the plain versions on the same device inputs:
+    columns, counters, telemetry."""
     _need_card()
     from cilium_tpu_torch import kernels
 
@@ -496,6 +541,7 @@ def test_kernels_match_plain_on_every_layout(name, subword):
         host = tdp.subword_datapath_tables(host)
     host.policy = split_hot(host.policy)
     tt = convert.tables_to(host, "cuda")
+    assert kernels.datapath_layout(tt).split("+")[0] == _layout_name(name)
     acc_k = tvd.make_counter_buffers(tt.policy)
     tel_k = tvd.make_telemetry_buffers("cuda")
     acc_p, tel_p = acc_k.clone(), tel_k.clone()
@@ -506,6 +552,20 @@ def test_kernels_match_plain_on_every_layout(name, subword):
         for got, want in ((ki, pi), (ke, pe)):
             for col in tdp.VERDICT_COLUMNS:
                 assert torch.equal(getattr(got, col), getattr(want, col)), col
+    assert torch.equal(acc_k, acc_p) and torch.equal(tel_k, tel_p)
+    # PERSISTENT_PAIR at K = 4 on 4,999 flows a half (not a multiple of
+    # a block's 256)
+    stacked = torch.from_numpy(np.stack(w.pairs(seed=10, half=4999, k=4))
+                               .view(np.int32)).cuda()
+    acc_k = tvd.make_counter_buffers(tt.policy)
+    tel_k = tvd.make_telemetry_buffers("cuda")
+    acc_p, tel_p = acc_k.clone(), tel_k.clone()
+    ki, ke, acc_k, tel_k = kernels.PERSISTENT_PAIR(tt, stacked, acc_k, tel_k)
+    pi, pe, acc_p, tel_p = tdp.persistent_pair_plain(tt, stacked, acc_p,
+                                                     tel_p)
+    for got, want in ((ki, pi), (ke, pe)):
+        for col in tdp.VERDICT_COLUMNS:
+            assert torch.equal(getattr(got, col), getattr(want, col)), col
     assert torch.equal(acc_k, acc_p) and torch.equal(tel_k, tel_p)
     packed = torch.from_numpy(_edge_flows(w).view(np.int32)).cuda()
     flows = tdp.flow_batch_from_packed(packed)

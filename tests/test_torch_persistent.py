@@ -8,9 +8,12 @@ columns, the counter and telemetry carry, the launches, the
 `datapath_persistent_*` metric deltas and the site's jit-cache calls.
 Every value is an integer; the tolerance is 0.
 
-The cuda-marked test at the end holds PERSISTENT_PAIR against its plain
-version on the card, with K not dividing the pair count; it needs no
-JAX and skips here:
+The cuda-marked tests at the end hold PERSISTENT_PAIR against its plain
+version on the card: through the dispatcher, with K not dividing the
+pair count; and on edge tables (every stash filled and hit, 4,999 flows
+a half, 2,000 flows on one counter cell, with and without overlay
+mode) at K = 1 and K = 4, DATAPATH_PAIR beside it.  They need no JAX and
+skip here:
 
     python -m pytest --noconftest tests/test_torch_persistent.py -q -m cuda
 """
@@ -288,3 +291,93 @@ def test_persistent_kernel_matches_plain_version():
         for col in tdp.VERDICT_COLUMNS:
             assert torch.equal(getattr(got_v, col), getattr(want_v, col)), col
     assert torch.equal(acc_k, acc_q) and torch.equal(tel_k, tel_q)
+
+
+def _edge_tables(w, overlay: bool):
+    """The world's tables with every stash filled and hit: its CT rows cut
+    to 12 lanes and its L4 rows to 4 (both spill into their stashes), its
+    ipcache stash 64 copies of /32s the pairs' flows look up (ingress
+    sources, egress destinations); with `overlay` a tunnel map over the
+    /24s of 32 egress destinations (host numpy)."""
+    import dataclasses
+    import ipaddress
+
+    from cilium_tpu_torch.compiler.tables import repack_l4_subword
+    from cilium_tpu_torch.ct.device import compact_ct_snapshot
+    from cilium_tpu_torch.ipcache.lpm import subword_ipcache
+    from cilium_tpu_torch.tunnel import TunnelMap
+
+    wide = w.host_tables()
+    pool = w.pool
+    ips = np.concatenate([
+        np.unique(pool["saddr"][pool["direction"] == 0])[:32],
+        np.unique(pool["daddr"][pool["direction"] == 1])[:32]])
+    rng = np.random.default_rng(8)
+    stash = np.stack([ips, rng.integers(1, 200, ips.size),
+                      rng.integers(0, 1 << 32, ips.size),
+                      rng.integers(0, 1 << 32, ips.size)], axis=1)
+    ipc = subword_ipcache(wide.ipcache)
+    ipc = dataclasses.replace(ipc, stash=stash.astype(np.uint32))
+    tunnel = None
+    if overlay:
+        tm = TunnelMap()
+        for k, ip in enumerate(np.unique(pool["daddr"][pool["direction"] == 1])
+                               [:32]):
+            net = ipaddress.IPv4Network((int(ip) & 0xFFFFFF00, 24))
+            tm.set_tunnel_endpoint(str(net), f"192.168.{k}.1")
+        tunnel = tm.tables()
+    return tdp.DatapathTables(
+        prefilter=wide.prefilter, ipcache=ipc,
+        ct=compact_ct_snapshot(wide.ct, lanes=12), lb=wide.lb,
+        policy=split_hot(repack_l4_subword(wide.policy, lanes=4)),
+        tunnel=tunnel)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("overlay", [False, True])
+def test_pair_kernel_matches_plain_on_edge_tables(overlay):
+    """PERSISTENT_PAIR at K = 1 and K = 4 and DATAPATH_PAIR against their
+    plain versions on _edge_tables: 4,999 flows a half (a multiple of
+    neither 256 nor 4), the first 2,000 of each half one flow repeated
+    (one counter cell takes 2,000 hits a pair), every stash hit; columns,
+    counters and telemetry."""
+    _need_card()
+    from cilium_tpu_torch import kernels
+
+    w = world.make_world(seed=4, **SMALL)
+    tables = convert.tables_to(_edge_tables(w, overlay), "cuda")
+    assert tables.ct.stash.shape[0] > 1
+    assert tables.policy.l4_hash_stash.shape[0] > 1
+    assert tables.ipcache.stash.shape[0] == 64
+    pairs = np.stack(w.pairs(seed=21, half=4999, k=4))
+    pairs[:, :, :, :2000] = pairs[:, :, :, :1]
+    stacked = torch.from_numpy(pairs.view(np.int32)).cuda()
+    for k in (1, 4):
+        acc_k = tv.make_counter_buffers(tables.policy)
+        tel_k = tv.make_telemetry_buffers("cuda")
+        acc_p, tel_p = acc_k.clone(), tel_k.clone()
+        ki, ke, acc_k, tel_k = kernels.PERSISTENT_PAIR(tables, stacked[:k],
+                                                       acc_k, tel_k)
+        pi, pe, acc_p, tel_p = tdp.persistent_pair_plain(
+            tables, stacked[:k], acc_p, tel_p)
+        torch.cuda.synchronize()
+        for got, want in ((ki, pi), (ke, pe)):
+            for col in tdp.VERDICT_COLUMNS:
+                assert torch.equal(getattr(got, col), getattr(want, col)), (
+                    k, col)
+        assert torch.equal(acc_k, acc_p) and torch.equal(tel_k, tel_p), k
+    assert int(acc_k.max()) >= 2000
+    if overlay:
+        assert bool((ke.tunnel_endpoint != 0).any())
+    acc_k = tv.make_counter_buffers(tables.policy)
+    tel_k = tv.make_telemetry_buffers("cuda")
+    acc_p, tel_p = acc_k.clone(), tel_k.clone()
+    ki, ke, acc_k, tel_k = kernels.DATAPATH_PAIR(tables, stacked[0], acc_k,
+                                                 tel_k)
+    pi, pe, acc_p, tel_p = tdp.datapath_pair_plain(tables, stacked[0], acc_p,
+                                                   tel_p)
+    torch.cuda.synchronize()
+    for got, want in ((ki, pi), (ke, pe)):
+        for col in tdp.VERDICT_COLUMNS:
+            assert torch.equal(getattr(got, col), getattr(want, col)), col
+    assert torch.equal(acc_k, acc_p) and torch.equal(tel_k, tel_p)
