@@ -186,7 +186,9 @@ launch counts set to 0 just before it and read just after:
              a delta publish through the publish phase's compiler and
              store (0 hits, then hits), an overflow at rep_cap 1,024 and
              memo_evaluate against LATTICE and its plain version on
-             4,194,304 Zipf tuples;
+             4,194,304 Zipf tuples, and MEMO_DEDUP against its plain
+             version on its edge cases (dedup_case_keys, each at rep_cap
+             n_unique, half of it and past it);
   memo_lattice  memo_evaluate (the daemon's serving shape) through a
              VerdictCache, 8 calls on those tuples (MEMO_KEYS_LATTICE,
              MEMO_DEDUP, MEMO_CACHE), and LATTICE's uncached line; then
@@ -287,7 +289,8 @@ launch counts set to 0 just before it and read just after:
     python3 chip_smoke.py --ab-parent DIR
 
 also builds DIR/cilium_tpu_torch/csrc/{publish,churn,datapath,lattice,
-datapath_mesh,lookup}.cu (a `git archive` of the parent commit) into cilium_tpu_torch/_build/ab/,
+datapath_mesh,lookup,memo}.cu (a `git archive` of the parent commit)
+into cilium_tpu_torch/_build/ab/,
 beside the package's own build, and runs the parent's kernels beside
 this one's: at each of the four sites of PUBLISH_SCATTER and
 REPAIR_SCATTER (publish_timing's one-rule publish, failover_timing's
@@ -300,7 +303,13 @@ timed super-batch, every entry of the 15 columns, the counters and the
 telemetry agreeing, in the same turns (pair_ab: the rows' `ab`); in
 churn_timing the parent's CT_DELTA beside this one and index_copy_ on
 the run's delta (`parent_ms`, `parent_events_ms`) and the parent's
-DATAPATH_STEP on the churn batch (the step row's `ab`); and, every
+DATAPATH_STEP on the churn batch beside this one (the parent's kernel
+reads the planar pool, this one the row-major copy; library_ab: the
+step row's `ab`),
+and in step_form_timing on the record replay's accum_telem form (the
+`datapath_step_modes` line's `ab`); in memo_timing the parent's
+MEMO_DEDUP on the Zipf pair half's keys and on MEMO_DISTINCT distinct
+keys, every output entry agreeing (memo_ab: the row's `ab`); and, every
 result agreeing, in the same turns, LATTICE in each of lattice_timing's
 modes, DP_MESH_PROBE's four rounds on shard (0, 0) in dp_mesh_timing
 and IPCACHE_LOOKUP on each form of ipcache_lookup (library_ab: the
@@ -589,12 +598,58 @@ LAYOUT_PLANES = (
 )
 
 
+# DATAPATH_STEP's forms in layouts_check: its flags on and off
+LAYOUT_STEP_FORMS = (
+    {},
+    {"emit_sec_id": False, "acc": True, "telem": True},
+    {"static_dir": 1, "acc": True},
+    {"static_dir": 0, "emit_sec_id": False, "telem": True},
+)
+
+
+def check_step(tables, pool, kernels, dp, verdict) -> int:
+    """DATAPATH_STEP against its plain version on a world's [8, P] pool:
+    5,000 picks (the last row, rows past it, picks with bit 31 set)
+    gathered from the pool's row-major copy (made by the wrapper, and
+    passed in), and the
+    first 4,999 rows as a pack without picks, each in LAYOUT_STEP_FORMS
+    from carries that are not zero: max error over the 15 columns, the
+    counters and the telemetry."""
+    n = int(pool.shape[1])
+    pk = np.random.default_rng(12).integers(0, n, 5000).astype(np.int64)
+    pk[:6] = [n - 1, n, n + 7, 0xFFFFFFFF, 0x80000000, 0]
+    picks = torch.from_numpy(pk.astype(np.uint32).view(np.int32)).cuda()
+    err = 0
+    for src, pks, rows in ((pool, picks, None),
+                           (pool, picks, dp.pool_rows_of(pool)),
+                           (pool[:, :4999].contiguous(), None, None)):
+        for form in LAYOUT_STEP_FORMS:
+            kw = dict(form)
+            if kw.get("acc"):
+                kw["acc"] = verdict.make_counter_buffers(tables.policy) + 1
+            if kw.get("telem"):
+                kw["telem"] = verdict.make_telemetry_buffers("cuda") + 2
+            kp = {k: v.clone() if torch.is_tensor(v) else v
+                  for k, v in kw.items()}
+            got = kernels.DATAPATH_STEP(tables, src, pks, pool_rows=rows,
+                                        **kw)
+            want = step_plain(tables, src, pks, **kp)
+            err = max(err, compare((got,), (want,), dp), *(
+                buf_err(kw[b], kp[b]) for b in ("acc", "telem") if b in kw))
+    torch.cuda.synchronize()
+    return err
+
+
 def layouts_check(kernels, dp, verdict) -> dict:
-    """DATAPATH_PAIR over 2 pairs of 2 x 5,000 flows and PERSISTENT_PAIR
-    over 4 pairs of 2 x 4,999 against their plain versions on 12 small
-    worlds, one per layout instantiation (LAYOUT_PLANES), each with its
-    wide tables and its headline ones (sub-word, hot plane): 0
-    differences, and every instantiation taken."""
+    """DATAPATH_PAIR over 2 pairs of 2 x 5,000 flows, PERSISTENT_PAIR
+    over 4 pairs of 2 x 4,999 and DATAPATH_STEP over the world's pool
+    (check_step: picks, the row-major copy, a pack, every form flag)
+    against their plain versions on 12 small worlds, one per layout
+    instantiation (LAYOUT_PLANES), each with its wide tables and its
+    headline ones (sub-word, hot plane): 0 differences, and every
+    instantiation taken."""
+    from cilium_tpu_torch.replay import pack_flow_pool
+
     import itertools
 
     from cilium_tpu_torch import world
@@ -607,6 +662,7 @@ def layouts_check(kernels, dp, verdict) -> dict:
         w = world.make_world(seed=5, **{**LAYOUT_BASE, **{
             k: v for _, o in combo for k, v in o.items()}})
         wide = w.host_tables()
+        pool = torch.from_numpy(pack_flow_pool(w.pool).view(np.int32)).cuda()
         for form, host in (("wide", wide),
                            ("headline", dp.subword_datapath_tables(wide))):
             host.policy = split_hot(host.policy)
@@ -617,7 +673,8 @@ def layouts_check(kernels, dp, verdict) -> dict:
                 check_pairs(tables, w.pairs(seed=9, half=5000, k=2), kernels,
                             dp, verdict),
                 check_super(tables, w.pairs(seed=10, half=4999, k=4),
-                            kernels, dp, verdict))
+                            kernels, dp, verdict),
+                check_step(tables, pool, kernels, dp, verdict))
             del tables
     want = {kernels.layout_name(i) for i in range(12)}
     phase("layouts_check", t, instantiations=len(taken),
@@ -1579,13 +1636,14 @@ class PlainRoute:
             setattr(self.kernels, n, k)
 
 
-def step_plain(tables, pool, picks=None, **form):
+def step_plain(tables, pool, picks=None, pool_rows=None, **form):
     """DATAPATH_STEP's plain version, called as the kernel is (every
-    form; `picks` None reads the pack directly)."""
+    form; `picks` None reads the pack directly; the pool's row-major
+    copy holds the same flows)."""
     from cilium_tpu_torch.engine import datapath as dp
 
-    flows = dp.flow_batch_from_packed(
-        pool if picks is None else pool[:, picks.long()])
+    flows = (dp.flow_batch_from_packed(pool) if picks is None
+             else dp.pool_flows(pool, picks))
     return dp.datapath_step_plain(tables, flows, **form)
 
 
@@ -1597,7 +1655,7 @@ def churn_plain() -> dict:
     from cilium_tpu_torch.prng import pick_draw_plain
 
     def flows(pool, picks):
-        return dp.flow_batch_from_packed(pool[:, picks.long()])
+        return dp.pool_flows(pool, picks)
 
     return {
         "DATAPATH_STEP": step_plain,
@@ -1871,8 +1929,20 @@ def churn_timing(kernels, tables, chk, counts) -> list:
         chk["flows"]
     b = int(picks.numel())
     # DATAPATH_STEP: picks and columns streamed, each distinct pool row
-    # and table row read once
-    step_ms = event_ms(lambda: kernels.DATAPATH_STEP(tables, pool, picks), 20)
+    # and table row read once; as the churn loop calls it (the pool's
+    # row-major copy kept), CUDA events and device ms queued behind a spin
+    pool_rows = dp.pool_rows_of(pool)
+    step_calls = {
+        "churn": lambda: kernels.DATAPATH_STEP(tables, pool, picks,
+                                               pool_rows=pool_rows)}
+    step_times = {}
+    for name in list(step_calls) + list(step_calls)[::-1]:
+        step_times.setdefault(f"{name}_ms", []).append(
+            event_ms(step_calls[name], 20))
+        step_times.setdefault(f"{name}_device_ms", []).append(
+            spun_ms(queued_ms, step_calls[name], "churn_timing"))
+    step_times = {k: float(np.median(v)) for k, v in step_times.items()}
+    step_ms = step_times["churn_ms"]
     step_plain = event_ms(lambda: dp.datapath_step_plain(
         tables, dp.flow_batch_from_packed(pool[:, picks.long()])), 3)
     rows_b, gathered = table_row_bytes(
@@ -1924,17 +1994,10 @@ def churn_timing(kernels, tables, chk, counts) -> list:
     delta_ms, library_ms = delta["new_ms"], delta["library_ms"]
     delta_plain = event_ms(lambda: apply_bucket_delta_plain(snap, idx, rows),
                            20)
-    # DATAPATH_STEP of the parent's csrc/datapath.cu (--ab-parent): the
-    # per-thread stages, now the lane-group templates at G = 1
-    step_ab = None
-    if "datapath" in AB["libs"]:
-        step_ab = {"new_ms": [], "parent_ms": []}
-        for who in SCATTER_AB_TURNS:
-            ctx = (parent_datapath(kernels) if who == "parent"
-                   else contextlib.nullcontext())
-            with ctx:
-                step_ab[f"{who}_ms"].append(event_ms(
-                    lambda: kernels.DATAPATH_STEP(tables, pool, picks), 20))
+    # DATAPATH_STEP of the parent's csrc/datapath.cu (--ab-parent; its
+    # kernel reads the planar pool, and pool_rows shares its word with
+    # the pair kernels' flows, which its step never reads)
+    step_ab = library_ab(kernels, "datapath", step_calls)
     m = int(idx.numel())
     m_distinct = int(torch.unique(idx).numel())
     delta_bytes = m * 4 + 2 * m_distinct * rows.shape[1] * 4
@@ -1952,7 +2015,9 @@ def churn_timing(kernels, tables, chk, counts) -> list:
           delta_ms=round(delta_ms, 4), delta_plain_ms=round(delta_plain, 4),
           delta_library_ms=round(library_ms, 4),
           delta_times=json.dumps({k: round(v, 4) for k, v in delta.items()}),
-          step_ab=json.dumps(step_ab), delta_rows=m,
+          step_times=json.dumps({k: round(v, 4)
+                                 for k, v in step_times.items()}),
+          step_ab=json.dumps(step_ab and step_ab["medians"]), delta_rows=m,
           delta_rows_distinct=m_distinct,
           delta_bytes=delta_bytes, step_ops=step_ops,
           compact_ops=compact_ops,
@@ -1978,9 +2043,10 @@ def churn_timing(kernels, tables, chk, counts) -> list:
                        library_events_ms=delta["library_events_ms"],
                        parent_ms=delta.get("parent_ms"),
                        parent_events_ms=delta.get("parent_events_ms"))
+    rows_out[0].update(ptxas=STEP_PTXAS,
+                       device_ms=step_times["churn_device_ms"])
     if step_ab is not None:
-        rows_out[0]["ab"] = {k: round(float(np.median(v)), 4)
-                             for k, v in step_ab.items()}
+        rows_out[0]["ab"] = step_ab["medians"]
     return rows_out
 
 
@@ -2621,8 +2687,10 @@ def replay_churn(kernels, w, wide_t) -> dict:
 
 def step_form_timing(kernels, tables, flows) -> dict:
     """DATAPATH_STEP in the replay's modes on FORMS_FLOWS flows (direct
-    [8, B] pack): CUDA events over 20 launches, the plain version's time
-    and the bound (the pack read and the columns written once, each
+    [8, B] pack): CUDA events over 20 launches, device ms queued behind
+    a spin, the record replay's accum_telem form against the parent's
+    kernel (--ab-parent, library_ab), the plain version's time and the
+    bound (the pack read and the columns written once, each
     distinct table row the flows select read once, each counter entry
     the form changes read and written, the telemetry read and written;
     or the operations counted low as churn_timing counts them)."""
@@ -2636,7 +2704,7 @@ def step_form_timing(kernels, tables, flows) -> dict:
     per_flow, egress_ops = flow_ops(tables)
     acc = verdict.make_counter_buffers(pol)
     tel = verdict.make_telemetry_buffers("cuda")
-    modes = {}
+    modes, ab = {}, None
     for name, form, emit in STEP_FORMS:
         if name == "with_counters":
             continue
@@ -2645,8 +2713,11 @@ def step_form_timing(kernels, tables, flows) -> dict:
             kw["acc"] = acc
         if form.get("telem"):
             kw["telem"] = tel
-        ms = event_ms(lambda: kernels.DATAPATH_STEP(tables, pack, None, **kw),
-                      20)
+        call = lambda: kernels.DATAPATH_STEP(tables, pack, None, **kw)
+        ms = event_ms(call, 20)
+        device_ms = spun_ms(queued_ms, call, "step_form_timing")
+        if name == "accum_telem":  # the record replay's form
+            ab = library_ab(kernels, "datapath", {name: call})
         plain_ms = event_ms(lambda: step_plain(tables, pack, None, **kw), 3)
         fresh = dict(kw)
         if "acc" in kw:
@@ -2667,10 +2738,13 @@ def step_form_timing(kernels, tables, flows) -> dict:
         ops = per_flow * b + egress_ops * not_in
         bb = need / HBM_BYTES_PER_S * 1e3
         bo = ops / OPS_PER_S * 1e3
-        modes[name] = dict(ms=round(ms, 4), plain_ms=round(plain_ms, 4),
+        modes[name] = dict(ms=round(ms, 4), device_ms=round(device_ms, 4),
+                           plain_ms=round(plain_ms, 4),
                            bytes=need, ops=ops,
                            bound_ms=round(max(bb, bo), 6),
                            bound_by="bytes" if bb >= bo else "operations")
+    if ab is not None:
+        modes["accum_telem"]["ab"] = ab["medians"]
     phase("step_form_timing", t, flows=b)
     return modes
 
@@ -3008,14 +3082,25 @@ def lattice_timing(kernels, u, launches_lattice, launches_lpm, err) -> list:
 
     t = time.perf_counter()
     res = {}
-    for name, (tab, batch, kw) in lattice_modes(u).items():
-        ms = event_ms(lambda: kernels.LATTICE(tab, batch, **kw), 20)
+    ip_small = dict(lpm=u["c2_lpm"], src_ips=u["c2_small"][2])
+    modes = dict(lattice_modes(u),
+                 c1_1024=(u["c1"], u["c1_batch"], {}),
+                 c2_ip_100k=(u["c2"], u["c2_small"][3], ip_small))
+    launches = kernels.LATTICE.launches
+    for name, (tab, batch, kw) in modes.items():
+        call = lambda: kernels.LATTICE(tab, batch, **kw)
+        ms = event_ms(call, 20)
+        # the device's own time: the calls queued behind a spin (at the
+        # config-1 and CIDR sizes the events time the host's launches)
+        device_ms = spun_ms(queued_ms, call, "lattice_timing")
         plain_ms = event_ms(lambda: lattice_plain(tab, batch, **kw), 3)
         need, ops = lattice_need(tab, batch, **kw)
         res[name] = dict(
-            tuples=int(batch.ep_index.numel()), ms=ms, plain_ms=plain_ms,
-            bytes=need, ops=ops, bound_bytes_ms=need / HBM_BYTES_PER_S * 1e3,
+            tuples=int(batch.ep_index.numel()), ms=ms, device_ms=device_ms,
+            plain_ms=plain_ms, bytes=need, ops=ops,
+            bound_bytes_ms=need / HBM_BYTES_PER_S * 1e3,
             bound_ops_ms=ops / OPS_PER_S * 1e3)
+    kernels.LATTICE.launches = launches
     for name, lpm, ips in (("lpm_c2", u["c2_lpm"], u["c2_big"][2]),
                            ("lpm_c5", u["c5_lpm"], u["c5_ips"])):
         ms = event_ms(lambda: kernels.LPM_LOOKUP(lpm, ips), 20)
@@ -3043,6 +3128,9 @@ def lattice_timing(kernels, u, launches_lattice, launches_lpm, err) -> list:
     row = kernel_row(kernels.LATTICE, src, "cilium_tpu/engine/verdict.py:432",
                      launches_lattice, err, main["ms"], main["plain_ms"],
                      main["bound_bytes_ms"], main["bound_ops_ms"])
+    row["modes_ms"] = {n: {"events": round(r["ms"], 4),
+                           "device": round(r["device_ms"], 4)}
+                       for n, r in res.items() if "device_ms" in r}
     if ab is not None:
         row["ab"] = ab["medians"]
     return [
@@ -4552,12 +4640,12 @@ def cold_ms(fn, reps: int, spin_cycles: int = SCATTER_SPIN):
     return None if late else sum(s.elapsed_time(e) for s, e in ev) / reps
 
 
-def spun_ms(measure, fn, what: str) -> float:
-    """`measure` (queued_ms or cold_ms) of `fn` over SCATTER_REPS calls,
+def spun_ms(measure, fn, what: str, reps: int = SCATTER_REPS) -> float:
+    """`measure` (queued_ms or cold_ms) of `fn` over `reps` calls,
     again behind a ten times longer spin when the host fell behind the
     first (as mesh_timing does); SystemExit when it falls behind that."""
     for spin in (SCATTER_SPIN, 10 * SCATTER_SPIN):
-        ms = measure(fn, SCATTER_REPS, spin)
+        ms = measure(fn, reps, spin)
         if ms is not None:
             return ms
     raise SystemExit(f"{what}: the calls did not queue behind the device "
@@ -4596,18 +4684,54 @@ SCATTER_AB_TURNS = ("parent", "new", "new", "parent")
 # the parent's libraries built, and the package's library each stands in
 # for inside parent_library
 AB_STEMS = ("publish", "churn", "datapath", "lattice", "datapath_mesh",
-            "lookup")
-AB_LIBRARIES = {"datapath": "DATAPATH_LIBRARY", "lattice": "LATTICE_LIBRARY",
+            "lookup", "memo")
+AB_LIBRARIES = {"churn": "CHURN_LIBRARY", "datapath": "DATAPATH_LIBRARY",
+                "lattice": "LATTICE_LIBRARY",
                 "datapath_mesh": "DP_MESH_LIBRARY", "lookup": "LOOKUP_LIBRARY"}
 AB = {"lib": None, "source": None, "libs": {}, "sites": {}, "s": 0.0}
 
 
-class _ParentDeltaArgs(ctypes.Structure):
-    """The parent's cch::DeltaArgs (CT_DELTA's argument)."""
+def _parent_dedup_args(kernels):
+    """The parent's cmm::DedupArgs (MEMO_DEDUP's argument: the radix
+    sort's SortArgs, which radix.cuh keeps, and its scan buffers)."""
+    if "dedup_args" not in AB:
+        P, I = ctypes.c_void_p, ctypes.c_int32
+        AB["dedup_args"] = type("_ParentDedupArgs", (ctypes.Structure,), {
+            "_fields_": [("keys", P), ("sort", kernels.SortArgs)] + [
+                (n, P) for n in ("flags", "prefix", "sums", "n_elems", "srow",
+                                 "gid", "n_unique", "rep_orig", "rep_valid",
+                                 "overflow")] + [("B", I), ("rep_cap", I)]})
+    return AB["dedup_args"]
 
-    _fields_ = [("buckets", ctypes.c_void_p), ("idx", ctypes.c_void_p),
-                ("rows", ctypes.c_void_p), ("m", ctypes.c_int32),
-                ("lanes", ctypes.c_int32), ("n_buckets", ctypes.c_int32)]
+
+def parent_memo_dedup(kernels, keys, rep_cap: int) -> dict:
+    """The parent's MEMO_DEDUP wrapper (a 12-pass radix sort of every
+    key, then the flag scan), its checks and outputs."""
+    dev, b = kernels._keys3(keys, "parent memo_dedup")
+    ints = torch.empty(3, dtype=torch.int32, device=dev)
+    out = dict(
+        srow=torch.empty(b, dtype=torch.int32, device=dev),
+        gid=torch.empty(b, dtype=torch.int32, device=dev),
+        n_unique=ints[0:1], overflow=ints[1:2],
+        rep_orig=torch.empty(rep_cap + 1, dtype=torch.int32, device=dev),
+        rep_valid=torch.empty(rep_cap, dtype=torch.bool, device=dev))
+    a = _parent_dedup_args(kernels)()
+    a.sort, bufs = kernels._sort_args(b, 3, 12, ints[2:3].data_ptr(), dev)
+    scratch = torch.empty((2, b), dtype=torch.int32, device=dev)
+    sums = torch.empty(max(-(-b // kernels._SCAN_TILE), 1),
+                       dtype=torch.int32, device=dev)
+    a.keys = keys.data_ptr()
+    a.flags, a.prefix = scratch[0].data_ptr(), scratch[1].data_ptr()
+    a.sums, a.n_elems = sums.data_ptr(), ints[2:3].data_ptr()
+    for name, t in out.items():
+        setattr(a, name, t.data_ptr())
+    a.B, a.rep_cap = b, rep_cap
+    err = AB["libs"]["memo"].launch_memo_dedup(ctypes.byref(a),
+                                               kernels._stream(dev))
+    if err:
+        raise SystemExit(f"ab: the parent's MEMO_DEDUP launch: {err}")
+    del bufs, scratch, sums
+    return out
 
 
 def ab_start(kernels, parent: str) -> list:
@@ -4633,8 +4757,8 @@ def ab_start(kernels, parent: str) -> list:
 def ab_load(kernels, jobs) -> None:
     """Wait for ab_start's builds and bind them, each argument layout
     checked against the parent's own sizes: publish.cu's launchers (the
-    tile table of kernels.scatter_args), churn.cu's CT_DELTA (its
-    DeltaArgs), and the others by their library's own bind
+    tile table of kernels.scatter_args), memo.cu's MEMO_DEDUP (its
+    DedupArgs), and the others by their library's own bind
     (AB_LIBRARIES)."""
     t = time.perf_counter()
     for stem, src, out, proc in jobs:
@@ -4645,14 +4769,16 @@ def ab_load(kernels, jobs) -> None:
         if stem == "publish":
             kernels._PublishLibrary().bind(lib)
             AB.update(lib=lib, source=str(src))
-        elif stem == "churn":
-            lib.launch_ct_delta.argtypes = [ctypes.POINTER(_ParentDeltaArgs),
-                                            ctypes.c_void_p]
-            sizes = (ctypes.c_int * 2)()
-            lib.churn_struct_sizes(sizes)
-            if sizes[1] != ctypes.sizeof(_ParentDeltaArgs):
-                raise SystemExit(f"ab: the parent's DeltaArgs is {sizes[1]} "
-                                 f"bytes, not {ctypes.sizeof(_ParentDeltaArgs)}")
+        elif stem == "memo":
+            args = _parent_dedup_args(kernels)
+            lib.launch_memo_dedup.argtypes = [ctypes.POINTER(args),
+                                              ctypes.c_void_p]
+            lib.launch_memo_dedup.restype = ctypes.c_int
+            sizes = (ctypes.c_int * 5)()
+            lib.memo_struct_sizes(sizes)
+            if sizes[1] != ctypes.sizeof(args):
+                raise SystemExit(f"ab: the parent's DedupArgs is {sizes[1]} "
+                                 f"bytes, not {ctypes.sizeof(args)}")
         else:
             type(getattr(kernels, AB_LIBRARIES[stem]))().bind(lib)
         AB["libs"][stem] = lib
@@ -4685,20 +4811,16 @@ def _parent_repair(kernels, segments) -> None:
 
 
 def parent_ct_delta(kernels, snap, idx, rows) -> None:
-    """The parent's CT_DELTA wrapper, its checks included."""
-    buckets = snap.buckets
-    dev = buckets.device
-    nb, lanes = (int(v) for v in buckets.shape)
-    m = int(idx.shape[0])
-    a = _ParentDeltaArgs()
-    a.buckets = kernels._ptr(buckets, "ct.buckets", dev)
-    a.idx = kernels._ptr(idx, "idx", dev, shape=(m,))
-    a.rows = kernels._ptr(rows, "rows", dev, shape=(m, lanes))
-    a.m, a.lanes, a.n_buckets = m, lanes, nb
-    err = AB["libs"]["churn"].launch_ct_delta(ctypes.byref(a),
-                                               kernels._stream(dev))
-    if err:
-        raise SystemExit(f"ab: the parent's CT_DELTA launch: {err}")
+    """The parent's CT_DELTA: this package's wrapper, its checks and
+    argument block (the parent's layout is the same), launching the
+    parent's build; its launch not counted."""
+    lib, n = kernels.CHURN_LIBRARY, kernels.CT_DELTA.launches
+    mine, lib.lib = lib.lib, AB["libs"]["churn"]
+    try:
+        kernels.CT_DELTA(snap, idx, rows)
+    finally:
+        lib.lib = mine
+        kernels.CT_DELTA.launches = n
 
 
 @contextlib.contextmanager
@@ -5129,6 +5251,97 @@ def dedup_err(k, p) -> int:
                abs(int(k["overflow"].item()) - p["overflow"]))
 
 
+MEMO_DISTINCT = HALF  # the all-distinct dedup batch
+
+
+def dedup_case_keys(seed: int) -> dict:
+    """MEMO_DEDUP's edge cases, {name: keys int32 [3, B] on the card}:
+    100,000 equal keys, MEMO_DISTINCT distinct ones (every word varies),
+    one row, 10,007 rows of 3,001 keys (not a multiple of the 2,048- or
+    4,096-row tiles), 50,000 rows of 700 keys with bit 31 set in each
+    word."""
+    rng = np.random.default_rng(seed)
+
+    def card(words):
+        return torch.from_numpy(np.ascontiguousarray(
+            words.astype(np.uint32)).view(np.int32)).cuda()
+
+    def drawn(n, k, high=False):
+        base = rng.integers(0, 1 << 32, (k, 3), dtype=np.int64)
+        if high:
+            base |= 1 << 31
+        return base[rng.integers(0, k, n)].T
+
+    b = MEMO_DISTINCT
+    distinct = np.stack([
+        np.arange(b, dtype=np.uint64) * 2654435761 % (1 << 32),
+        rng.integers(0, 1 << 32, b, dtype=np.int64),
+        rng.integers(0, 1 << 32, b, dtype=np.int64)])
+    equal = np.array([[0x80000001], [0xFFFFFFFF], [0x7FFFFFFF]],
+                     dtype=np.int64)
+    return {"all_equal": card(np.tile(equal, (1, 100_000))),
+            "all_distinct": card(distinct), "one_row": card(drawn(1, 1)),
+            "ragged": card(drawn(10_007, 3_001)),
+            "bit31": card(drawn(50_000, 700, high=True))}
+
+
+def dedup_cases_check(kernels, cases: dict) -> dict:
+    """MEMO_DEDUP against its plain version on each of `cases`
+    (dedup_case_keys) at rep_cap n_unique, half of it (an overflow) and
+    n_unique + 5: {case: max error}."""
+    from cilium_tpu_torch.device import widen
+    from cilium_tpu_torch.engine import memo
+
+    errs = {}
+    for name, keys in cases.items():
+        inp = [widen(keys[i]) for i in range(3)]
+        u = memo.dedup_groups(*inp, 1)["n_unique"]
+        errs[name] = max(
+            dedup_err(kernels.MEMO_DEDUP(keys, cap),
+                      memo.dedup_groups(*inp, cap))
+            for cap in sorted({u, max(u // 2, 1), u + 5}))
+    torch.cuda.synchronize()
+    return errs
+
+
+DEDUP_QUEUED = 5  # the parent's dedup is some 60 launches a call: a
+# longer queue behind the spin fills the launch queue and blocks the host
+
+
+def dedup_ab(kernels, batches: dict, rep_cap: int) -> dict:
+    """MEMO_DEDUP on each of `batches` ({name: keys}) at rep_cap: CUDA
+    events over 20 calls and device ms over DEDUP_QUEUED calls queued
+    behind a spin, in turns parent, new, new, parent with the parent's
+    build (--ab-parent; every output entry equal, SystemExit otherwise),
+    else this build's twice; medians.  Launches not counted."""
+    ab = "memo" in AB["libs"]
+    calls = {"new": lambda k: kernels.MEMO_DEDUP(k, rep_cap),
+             "parent": lambda k: parent_memo_dedup(kernels, k, rep_cap)}
+    launches = kernels.MEMO_DEDUP.launches
+    differ = {}
+    if ab:
+        for name, k in batches.items():
+            a, b = calls["new"](k), calls["parent"](k)
+            differ[name] = sum(entries_differ(a[f], b[f]) for f in a)
+    rec = {}
+    for who in SCATTER_AB_TURNS if ab else ("new", "new"):
+        for name, k in batches.items():
+            fn = lambda: calls[who](k)
+            rec.setdefault(f"{who}_{name}_ms", []).append(event_ms(fn, 20))
+            rec.setdefault(f"{who}_{name}_device_ms", []).append(
+                spun_ms(queued_ms, fn, "memo_ab", DEDUP_QUEUED))
+    kernels.MEMO_DEDUP.launches = launches
+    out = dict(differing=differ, rep_cap=rep_cap,
+               medians={k: round(float(np.median(v)), 4)
+                        for k, v in rec.items()},
+               turns={k: [round(x, 4) for x in v] for k, v in rec.items()})
+    print("  memo_ab " + json.dumps(out), flush=True)
+    if any(differ.values()):
+        raise SystemExit(f"memo_ab: MEMO_DEDUP's outputs differ from the "
+                         f"parent's: {differ}")
+    return out
+
+
 def memo_keys_plain(pol, batch):
     """MEMO_KEYS_LATTICE's keys mode, plain: [3, B] int64 u32 values."""
     from cilium_tpu_torch.device import widen
@@ -5220,6 +5433,9 @@ def memo_check(kernels, w, tables, pub) -> dict:
     inp = memo_pair_inputs(keys)
     g_p = memo.dedup_groups(*inp["keys"], HALF)
     err_dedup = dedup_err(g_k, g_p)
+    cases = dedup_case_keys(71)
+    err_cases = dedup_cases_check(kernels, cases)
+    err_dedup = max(err_dedup, *err_cases.values())
     rows = cache.rows
     out_k = torch.empty_like(rows)
     st_k = torch.empty(memo.STATS, dtype=torch.int32, device="cuda")
@@ -5299,7 +5515,8 @@ def memo_check(kernels, w, tables, pub) -> dict:
           rows=MEMO_ROWS,
           hits=json.dumps(hits), pair_vs_plain_err=err_plain,
           pair_vs_uncached_err=err_ref, hits_consistent=consistent,
-          flushed=flushed, dedup_err=err_dedup, cache_err=err_cache,
+          flushed=flushed, dedup_err=err_dedup,
+          dedup_cases_err=json.dumps(err_cases), cache_err=err_cache,
           overflow_cap=MEMO_OVERFLOW_CAP, overflow=overflow,
           overflow_err=err_over, evaluate_tuples=MEMO_TUPLES,
           evaluate_vs_plain_err=err_eval,
@@ -5309,7 +5526,7 @@ def memo_check(kernels, w, tables, pub) -> dict:
         raise SystemExit("memo_check failed")
     return dict(err_pair=max(err_plain, err_ref, err_over), err_dedup=err_dedup,
                 err_cache=err_cache, err_keys=max(err_keys, err_eval),
-                batch=batch, zp=zp)
+                batch=batch, zp=zp, distinct=cases["all_distinct"])
 
 
 def memo_loop(kernels, tables, pairs, memo_on: bool) -> dict:
@@ -5546,6 +5763,10 @@ def memo_timing(kernels, tables, chk, path, lat_counts) -> list:
     back_ms = event_ms(lambda: kernels.DATAPATH_PAIR_MEMO.back(
         tables, pt, front, vals, acc, tel, stats), 20)
     dedup_ms = event_ms(lambda: kernels.MEMO_DEDUP(keys, MEMO_REP_CAP), 20)
+    # against the parent's (--ab-parent) on these Zipf keys and on
+    # MEMO_DISTINCT distinct keys, device ms beside the events
+    d_ab = dedup_ab(kernels, {"zipf": keys, "distinct": chk["distinct"]},
+                    MEMO_REP_CAP)
     cache_ms = event_ms(lambda: cache_call(0, g), 20)
     pair_ms = event_ms(lambda: memo.memo_pair_packed4(
         tables, pt, rows, acc, tel, MEMO_REP_CAP), 20)
@@ -5641,7 +5862,12 @@ def memo_timing(kernels, tables, chk, path, lat_counts) -> list:
             mo(3 * b), library_ms=unique_ms),
             launches_by_path={"memo": path["launches"]["memo_dedup"],
                               "memo_lattice": lat_counts["memo_dedup"]},
-            launches_per_pair=per_pair["memo_dedup"]),
+            launches_per_pair=per_pair["memo_dedup"],
+            ptxas=DEDUP_PTXAS.get(""),
+            device_ms=d_ab["medians"]["new_zipf_device_ms"],
+            distinct_ms=d_ab["medians"]["new_distinct_ms"],
+            distinct_device_ms=d_ab["medians"]["new_distinct_device_ms"],
+            ab=d_ab["medians"] if d_ab["differing"] else None),
         dict(kernel_row(
             kernels.MEMO_CACHE, "cilium_tpu_torch/csrc/memo.cu",
             "cilium_tpu/engine/memo.py:326",
@@ -5751,22 +5977,27 @@ def persistent_check(kernels, w, tables) -> dict:
 
 
 PAIR_PTXAS = {}  # layout name: the pair kernel's ptxas record (build)
+STEP_PTXAS = {}  # the same of DATAPATH_STEP's kernel
+DEDUP_PTXAS = {}  # MEMO_DEDUP's kernel ({"": record})
 PAIR_AB_REPS = 20
 
 
-def pair_ptxas(kernels, log: str) -> dict:
-    """PERSISTENT_PAIR's kernel in each layout instantiation from
-    `-Xptxas -v` output of csrc/datapath.cu: {layout name: {registers,
-    spill_stores, spill_loads, smem}} (smem the static bytes)."""
+def pair_ptxas(kernels, log: str, entry: str = "datapath_persistent_"
+               "kernel") -> dict:
+    """A datapath kernel (PERSISTENT_PAIR's by default) in each layout
+    instantiation from `-Xptxas -v` output of csrc/datapath.cu: {layout
+    name: {registers, spill_stores, spill_loads, smem}} (smem the static
+    bytes); a kernel that is no template: {"": {...}}."""
     import re
 
     out, cur = {}, None
     for line in log.splitlines():
-        m = re.search(r"Compiling entry function '\S*datapath_persistent_"
-                      r"kernelILi(\d)ELi(\d)ELi(\d)E", line)
+        m = re.search(r"Compiling entry function '\S*" + entry +
+                      r"(?:ILi(\d)ELi(\d)ELi(\d)E)?", line)
         if m:
-            pf, lb, ipc = (int(v) for v in m.groups())
-            cur = kernels.layout_name(pf + 2 * lb + 4 * ipc)
+            pf, lb, ipc = m.groups()
+            cur = ("" if pf is None else
+                   kernels.layout_name(int(pf) + 2 * int(lb) + 4 * int(ipc)))
             out[cur] = {}
             continue
         if "Compiling entry" in line:
@@ -8842,6 +9073,10 @@ def main(argv=()) -> int:
                 print(f"  ptxas {stem}:", line.strip(), flush=True)
         if stem == "datapath":
             PAIR_PTXAS.update(pair_ptxas(kernels, log))
+            STEP_PTXAS.update(pair_ptxas(kernels, log,
+                                         "datapath_step_kernel"))
+        if stem == "memo":
+            DEDUP_PTXAS.update(pair_ptxas(kernels, log, "dedup_kernel"))
     for k in kernels.KERNELS:
         k.load()
     phase("build", t)

@@ -108,9 +108,9 @@ constexpr int C_SADDR = 1, C_DADDR = 2, C_SPORT = 3, C_DPORT = 4,
 
 __device__ __forceinline__ const uint32_t* pool_row(const ChurnArgs& a,
                                                     int i) {
-  const uint32_t n = static_cast<uint32_t>(a.pool_n);
-  uint32_t p = __ldg(a.picks + i);
-  return a.pool + (p < n ? p : n - 1);  // clamped, as the step's gather
+  // clamped as the step's gather: an XLA gather's int32 index
+  const int32_t p = static_cast<int32_t>(__ldg(a.picks + i));
+  return a.pool + (p < 0 ? 0 : p < a.pool_n ? p : a.pool_n - 1);
 }
 
 __device__ __forceinline__ uint32_t pool_word(const ChurnArgs& a,

@@ -33,9 +33,14 @@ constexpr int N_LAYOUTS = 2 * 2 * 3;  // layout = PF + 2 LB + 4 IPC
 // Structure's order in kernels.py; datapath_args_size() lets the
 // wrapper check that the two agree.
 struct DatapathArgs {
-  // flows of the pair step: [2, 4, B] packed4 words, half 0 ingress,
-  // half 1 egress (unused by the single-batch step, see pool below)
-  const uint32_t* pair;
+  // pair: the pair step's flows, [2, 4, B] packed4 words, half 0
+  // ingress, half 1 egress; pool_rows: the single-batch step's pool as
+  // its row-major copy [pool_n, 8], which the step reads a picked flow
+  // from (two 16-byte loads; see pool below).  One word, one name a kernel.
+  union {
+    const uint32_t* pair;
+    const uint32_t* pool_rows;
+  };
   // prefilter ranges [pf_n]
   const uint32_t* pf_base;
   const uint32_t* pf_mask;
@@ -110,7 +115,8 @@ struct DatapathArgs {
   uint32_t world_l3_in;
   uint32_t world_l3_out;
   // the single-batch step: flows are pool[:, picks[i]] of an [8, pool_n]
-  // pool (FLOW_COLUMNS order), sec_id = id_table[idx]
+  // pool (FLOW_COLUMNS order), read from its copy pool_rows, or pool[:, i]
+  // of an [8, B] pack without picks; sec_id = id_table[idx]
   const uint32_t* pool;
   const uint32_t* picks;
   const uint32_t* id_table;

@@ -63,10 +63,11 @@
 // only on an exact miss.
 //
 // Shape of the single-batch step (and the memo mode's passes): one thread
-// per flow, a grid of ceil(B / 256) blocks; each flow takes its own
-// direction word (or the static one of a per-direction form): an ingress
-// flow (direction 0) runs no LB, any other word goes through the service
-// probe and LB; its telemetry block sums both rows.  The CT probe
+// per flow, a grid of ceil(B / 256) blocks (the step's blocks stage the
+// [B, P] ranges and the stashes as the pair kernel's do); each flow
+// takes its own direction word (or the static one of a per-direction
+// form): an ingress flow (direction 0) runs no LB, any other word goes
+// through the service probe and LB; its telemetry block sums both rows.  The CT probe
 // direction, the lattice direction and the counter row use each flow's
 // own direction.  With a tunnel map (overlay mode, tun_base not null) an
 // allowed flow that is not ingress (the egress half; a step flow whose
@@ -87,22 +88,25 @@
 // cutting the CT, ipcache or L4 rows out of the pair kernel saved 0.51
 // to 0.62 of its 2.7 ms a super-batch, the counter atomics and the
 // column stores 0.02 and 0.08 (PERF.md).  Every kernel sums every match
-// (no early exit, as the reference's masked sums).  The single-batch
-// step walks a row's key plane 4 bytes at a time, one thread a flow
-// (ThreadReads, common.cuh).  The pair kernel also runs one thread a
-// flow (a group of lanes a flow measured 4-10 x slower: a flow's hashes,
-// LB and index arithmetic repeat on every lane) and reads each key plane
-// in 16-byte loads (PairReads: a compact CT or L4 row's 16 keys in four,
-// a sub-word ipcache row's 32 ips in eight); an egress flow walks its CT
-// row once for its service-scope and its own direction's probes (the
-// step and the memo front pass share this).  A block takes 256 flows of
-// one half of one pair (a grid of resident blocks looping over such
-// units measured level on config 5 and 4 % slower on the node world),
+// (no early exit, as the reference's masked sums).  The pair kernel and
+// the single-batch step run one thread a flow (a group of lanes a flow
+// measured 4-10 x slower: a flow's hashes, LB and index arithmetic
+// repeat on every lane) and read each key plane in 16-byte loads
+// (PairReads: a compact CT or L4 row's 16 keys in four, a sub-word
+// ipcache row's 32 ips in eight, a wide CT row's 25 in six and a word);
+// an egress flow walks its CT row once for its service-scope and its
+// own direction's probes (the memo front pass shares this).  The step
+// gathers a picked flow's 32 B from the pool's row-major copy in two
+// 16-byte loads (pool_rows).  A pair kernel's block takes 256
+// flows of one half of one pair (a grid of resident blocks looping over
+// such units measured level on config 5 and 4 % slower on the node world),
 // stages the [B, P] ranges and the four stashes in shared memory (up to
 // STASH_SMEM bytes), reads the flow stream and stores the columns with
 // the streaming hint, counts each hit with one atomicAdd (aggregating a
 // warp's hits on a column measured level) and commits its telemetry
-// once; its registers are fitted to PAIR_BLOCKS_PER_SM blocks an SM.
+// once; its registers are fitted to PAIR_BLOCKS_PER_SM blocks an SM
+// (the step's, with the same staging, streaming and store hints, to
+// STEP_BLOCKS_PER_SM).
 // The node-scale layouts add, per flow: PF_LPM one l1 word from a 64 MB
 // table (most of it outside L2) and on a block cell an l2 word, in place
 // of a compare per listed prefix; LB_CLASSIC a 512-byte bucket row and a
@@ -126,8 +130,10 @@ namespace cdp {
 
 constexpr int BLOCK = 256;
 constexpr int TELEM_COLS = 20;
-// the pair kernel's resident blocks an SM, its registers fitted to them
+// the pair and step kernels' resident blocks an SM, their registers
+// fitted to them (the step also measured at 4, 5 and 8, PERF.md)
 constexpr int PAIR_BLOCKS_PER_SM = 6;
+constexpr int STEP_BLOCKS_PER_SM = 6;
 // the stashes a block stages at most (more: they are read where they lie)
 constexpr size_t STASH_SMEM = 64 * 1024;
 
@@ -658,50 +664,71 @@ __device__ __forceinline__ void count_hit(const DatapathArgs& a,
   atomicAdd(a.acc + (e * 2 + d) * cols + c, 1u);
 }
 
-// The single-batch step and its forms: flow i is pool[:, picks[i]] (a
-// pick past the pool clamps to its last row, as an XLA gather clamps),
-// or pool[:, i] without picks.  The flow runs as its own direction
-// (static_dir -1) or as the static one; sec_id is id_table[idx] or the
-// raw index; with acc each lattice hit is counted, with telem each flow
-// counts in its telemetry row: the ingress row when it runs as ingress,
-// else the egress row (the reference's egress row is the column total
-// minus the ingress row, so a direction word outside {0, 1} lands there).
+// The single-batch step and its forms: flow i is pool[:, picks[i]] (the
+// pick clamped as an XLA gather clamps its int32 index: past the pool
+// the last row, negative the first) read from the row-major copy
+// pool_rows [pool_n, 8], 32 B a row in two 16-byte loads; or pool[:, i],
+// 8 planar words, without picks.
+// The flow runs as its own direction (static_dir -1) or as the static
+// one; sec_id is id_table[idx] or the raw index; with acc each lattice
+// hit is counted, with telem each flow counts in its telemetry row: the
+// ingress row when it runs as ingress, else the egress row (the
+// reference's egress row is the column total minus the ingress row, so a
+// direction word outside {0, 1} lands there).  The pair kernel's per-flow
+// design: key planes in 16-byte loads (PairReads), the [B, P] ranges and
+// the four stashes staged in shared memory, the picks read and the
+// columns stored with the streaming hint, registers fitted to
+// STEP_BLOCKS_PER_SM blocks an SM, and the body a grid-stride loop that
+// runs once (grid = ceil(B / 256)), the form ptxas fits with the fewest
+// spills (PERF.md, the pair kernel).
 template <int PF, int LB, int IPC>
-__global__ void __launch_bounds__(BLOCK)
-    datapath_step_kernel(const DatapathArgs a) {
+__global__ void __launch_bounds__(BLOCK, STEP_BLOCKS_PER_SM)
+    datapath_step_kernel(const __grid_constant__ DatapathArgs a) {
   stage_ranges(a);
-  const int i = blockIdx.x * BLOCK + threadIdx.x;
-  uint32_t tmask = 0;
-  int row = 0;
-  if (i < a.B) {
-    uint32_t p = static_cast<uint32_t>(i);
-    if (a.picks) {
-      const uint32_t n = static_cast<uint32_t>(a.pool_n);
-      p = __ldg(a.picks + i);
-      p = p < n ? p : n - 1;
-    }
-    uint32_t w[8];
+  const Stashes st = stage_stashes(a);
+  const int tiles = (a.B + BLOCK - 1) / BLOCK;
+  for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
+    const int i = t * BLOCK + threadIdx.x;
+    uint32_t tmask = 0;
+    int row = 0;
+    if (i < a.B) {
+      uint32_t w[8];
+      if (a.picks) {
+        const int32_t q = static_cast<int32_t>(__ldcs(a.picks + i));
+        const size_t p = q < 0 ? 0 : q < a.pool_n ? q : a.pool_n - 1;
+        const uint4* r = reinterpret_cast<const uint4*>(a.pool_rows) + 2 * p;
+        const uint4 lo = __ldg(r), hi = __ldg(r + 1);
+        w[0] = lo.x;
+        w[1] = lo.y;
+        w[2] = lo.z;
+        w[3] = lo.w;
+        w[4] = hi.x;
+        w[5] = hi.y;
+        w[6] = hi.z;
+        w[7] = hi.w;
+      } else {
 #pragma unroll
-    for (int c = 0; c < 8; ++c)
-      w[c] = __ldg(a.pool + static_cast<size_t>(c) * a.pool_n + p);
-    // FLOW_COLUMNS: ep_index saddr daddr sport dport proto direction frag
-    const uint32_t dir = w[6];
-    const bool ingress =
-        a.static_dir < 0 ? dir == CT_DIR_INGRESS : a.static_dir == 0;
-    const FlowOut f = fused_flow<PF, LB, IPC>(
-        a, global_stashes(a), w[1], w[2], w[3], w[4], w[5], w[0], dir,
-        w[7] != 0, ingress);
-    if (a.acc) count_hit(a, f, w[0], dir);
-    write_flow(a, static_cast<size_t>(i), f,
-               IPC == IPC_GENERIC ? f.ident
-               : a.emit_sec_id    ? __ldg(a.id_table + f.idx)
-                                  : f.idx);
-    if (a.telem) {
-      tmask = telemetry_bits(f);
-      row = ingress ? 0 : 1;
+        for (int c = 0; c < 8; ++c)
+          w[c] = __ldg(a.pool + static_cast<size_t>(c) * a.pool_n + i);
+      }
+      // FLOW_COLUMNS: ep_index saddr daddr sport dport proto direction frag
+      const uint32_t dir = w[6];
+      const bool ingress =
+          a.static_dir < 0 ? dir == CT_DIR_INGRESS : a.static_dir == 0;
+      const FlowOut f = fused_flow<PF, LB, IPC, PairReads>(
+          a, st, w[1], w[2], w[3], w[4], w[5], w[0], dir, w[7] != 0, ingress);
+      if (a.acc) count_hit(a, f, w[0], dir);
+      write_flow<true>(a, static_cast<size_t>(i), f,
+                       IPC == IPC_GENERIC ? f.ident
+                       : a.emit_sec_id    ? __ldg(a.id_table + f.idx)
+                                          : f.idx);
+      if (a.telem) {
+        tmask = telemetry_bits(f);
+        row = ingress ? 0 : 1;
+      }
     }
+    if (a.telem) telemetry_rows_epilogue(a.telem, tmask, row);
   }
-  if (a.telem) telemetry_rows_epilogue(a.telem, tmask, row);
 }
 
 // One launcher per kernel and layout: LAYOUT = PF + 2 LB + 4 IPC.  The
@@ -742,9 +769,14 @@ int launch_pair(const DatapathArgs& a, cudaStream_t stream) {
 
 template <int LAYOUT>
 int launch_step(const DatapathArgs& a, cudaStream_t stream) {
-  const int grid = (a.B + BLOCK - 1) / BLOCK;
-  datapath_step_kernel<LAYOUT & 1, (LAYOUT >> 1) & 1, (LAYOUT >> 2)>
-      <<<grid, BLOCK, scan_smem_bytes(a), stream>>>(a);
+  auto kernel =
+      datapath_step_kernel<LAYOUT & 1, (LAYOUT >> 1) & 1, (LAYOUT >> 2)>;
+  const size_t smem = pair_smem_bytes(a);
+  if (smem > 48 * 1024 &&
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           static_cast<int>(smem)) != cudaSuccess)
+    return static_cast<int>(cudaGetLastError());
+  kernel<<<(a.B + BLOCK - 1) / BLOCK, BLOCK, smem, stream>>>(a);
   return 0;
 }
 
@@ -810,8 +842,9 @@ extern "C" int launch_datapath_step(const cdp::DatapathArgs* args,
                                     void* stream) {
   if (args->layout < 0 || args->layout >= cdp::N_LAYOUTS)
     return static_cast<int>(cudaErrorInvalidValue);
+  int err = 0;
   if (args->B > 0)
-    cdp::AllLayouts::step[args->layout](*args,
-                                        static_cast<cudaStream_t>(stream));
-  return static_cast<int>(cudaGetLastError());
+    err = cdp::AllLayouts::step[args->layout](
+        *args, static_cast<cudaStream_t>(stream));
+  return err ? err : static_cast<int>(cudaGetLastError());
 }

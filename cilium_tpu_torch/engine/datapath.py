@@ -468,20 +468,37 @@ def _step(tables: DatapathTables, flows: FlowBatch, **form) -> DatapathVerdicts:
     raise ValueError(f"unsupported device {dev}")
 
 
+def pool_flows(pool: torch.Tensor, picks: torch.Tensor) -> FlowBatch:
+    """The flows pool[:, picks] of an [8, P] pool, each pick clamped as
+    an XLA gather clamps its int32 index: a pick past the pool takes
+    the last row, one with bit 31 set (negative as int32) the first."""
+    idx = picks.to(torch.int64)
+    idx = torch.where(idx >= 1 << 31, idx - (1 << 32), idx)
+    return flow_batch_from_packed(pool[:, idx.clamp(0, pool.shape[1] - 1)])
+
+
+def pool_rows_of(pool: torch.Tensor) -> torch.Tensor:
+    """An [8, P] flow pool's row-major copy [P, 8]: DATAPATH_STEP reads
+    a picked flow's 32 B from it in two 16-byte loads."""
+    return pool.t().contiguous()
+
+
 def datapath_step_pool(tables: DatapathTables, pool: torch.Tensor,
-                       picks: torch.Tensor) -> DatapathVerdicts:
+                       picks: torch.Tensor,
+                       pool_rows: Optional[torch.Tensor] = None
+                       ) -> DatapathVerdicts:
     """The single-batch step over the flows `pool[:, picks]` of an
     [8, P] pool (FLOW_COLUMNS order, int32 words) and picks [B].  A
-    CUDA pool launches DATAPATH_STEP, which gathers the rows itself; a
-    CPU pool runs the plain version."""
+    CUDA pool launches DATAPATH_STEP, which gathers the rows itself
+    from the pool's row-major copy (`pool_rows`, `pool_rows_of(pool)`,
+    when the caller keeps one; else the wrapper makes it); a CPU pool
+    runs the plain version."""
     if pool.device.type == "cuda":
         from cilium_tpu_torch import kernels
 
-        return kernels.DATAPATH_STEP(tables, pool, picks)
+        return kernels.DATAPATH_STEP(tables, pool, picks, pool_rows=pool_rows)
     if pool.device.type == "cpu":
-        return datapath_step_plain(
-            tables, flow_batch_from_packed(pool[:, picks.to(torch.int64)])
-        )
+        return datapath_step_plain(tables, pool_flows(pool, picks))
     raise ValueError(f"unsupported device {pool.device}")
 
 

@@ -13,7 +13,8 @@ and no card.
 card, `PERSISTENT_PAIR(tables, pairs, acc, telem)` K of them over a
 [K, 2, 4, B] super-batch in one launch (K13; DATAPATH_PAIR is its K = 1
 launch), and `DATAPATH_STEP(tables, pool, picks)` the single-batch step
-over pool[:, picks] (or over an [8, B] pack with `picks=None`), in
+over pool[:, picks] (read from the pool's row-major copy, `pool_rows`
+or one made per call; or over an [8, B] pack with `picks=None`), in
 each of its forms: a static direction, the raw index or the identity
 as sec_id, counters into a carried `acc`, telemetry into a carried
 `telem`.  Both check devices, dtypes, shapes and the table layouts and
@@ -58,7 +59,8 @@ same rules.
 the verdict memo's levels A and B and memo_evaluate's key words and
 combine (K14); `DATAPATH_PAIR_MEMO` launches DATAPATH_PAIR's memo mode
 (its front and back passes).  engine/memo.py strings them together.
-Each call counts one launch, though each runs several device kernels in
+Each call counts one launch: MEMO_DEDUP is one cooperative kernel (after
+a memset of its barrier), MEMO_CACHE runs several device kernels in
 order on the current stream.
 
 `PUBLISH_SCATTER(segments)` (csrc/publish.cu) is the device table
@@ -114,6 +116,7 @@ from cilium_tpu_torch.engine.datapath import (
     VERDICT_COLUMNS,
     VERDICT_DTYPES,
     DatapathVerdicts,
+    pool_rows_of,
 )
 from cilium_tpu_torch.engine.datapath_mesh import RECORD_ROWS
 from cilium_tpu_torch.engine.subword import lanes_for
@@ -207,7 +210,7 @@ class KernelError(RuntimeError):
 
 
 _PTRS = (
-    "pair", "pf_base", "pf_mask", "ct_buckets", "ct_stash", "lb_rows",
+    "pf_base", "pf_mask", "ct_buckets", "ct_stash", "lb_rows",
     "lb_stash", "ipc_buckets", "ipc_stash", "ipc_range_rows", "l4_rows",
     "l4_stash", "l4w_rows", "l4w_stash", "l4_meta",
 ) + VERDICT_COLUMNS + ("acc", "telem")
@@ -225,11 +228,20 @@ _INTS3 = ("pool_n", "ct_ew", "l4_ew")
 _PTRS4 = ("tun_base", "tun_mask", "tun_endpoint")
 
 
+class _FlowsWord(ctypes.Union):
+    """DatapathArgs' first word: the pair kernels' flows or the step's
+    row-major pool (a union in csrc/common.cuh)."""
+
+    _fields_ = [("pair", _P), ("pool_rows", _P)]
+
+
 class DatapathArgs(ctypes.Structure):
     """Mirror of cdp::DatapathArgs in csrc/common.cuh, field for field."""
 
+    _anonymous_ = ("flows",)
     _fields_ = (
-        [(name, ctypes.c_void_p) for name in _PTRS]
+        [("flows", _FlowsWord)]
+        + [(name, ctypes.c_void_p) for name in _PTRS]
         + [(name, ctypes.c_int32) for name in _INTS]
         + [
             ("class_plens", ctypes.c_int32 * RANGE_CLASS_MAX),
@@ -734,7 +746,10 @@ class DatapathStepKernel:
     forms: `static_dir` None takes each flow's direction, INGRESS (0) or
     EGRESS (1) runs every flow as that side; `emit_sec_id` writes the
     identity or the raw lattice index; `acc` [E, 2, Kg + N] takes the
-    counter hits and `telem` [2, 20] the telemetry sums, in place."""
+    counter hits and `telem` [2, 20] the telemetry sums, in place.
+    The kernel reads a picked flow's 32 B from the pool's row-major copy
+    [P, 8] in two 16-byte loads: `pool_rows` (`pool_rows_of(pool)`, which
+    a caller that steps one pool many times keeps), else one made here."""
 
     name = "datapath_step"
 
@@ -745,8 +760,8 @@ class DatapathStepKernel:
         return DATAPATH_LIBRARY.load(verbose)
 
     def __call__(self, tables, pool, picks=None, *, acc=None, telem=None,
-                 emit_sec_id: bool = True,
-                 static_dir=None) -> DatapathVerdicts:
+                 emit_sec_id: bool = True, static_dir=None,
+                 pool_rows=None) -> DatapathVerdicts:
         dev = _cuda_device(pool, self.name)
         if pool.dim() != 2 or pool.shape[0] != 8:
             raise ValueError(f"pool must be [8, P], got {tuple(pool.shape)}")
@@ -765,6 +780,11 @@ class DatapathStepKernel:
         a = DatapathArgs()
         a.pool = _ptr(pool, "pool", dev, shape=(8, n))
         if picks is not None:
+            if pool_rows is None:
+                pool_rows = pool_rows_of(pool)
+            a.pool_rows = _ptr(pool_rows, "pool_rows", dev, shape=(n, 8))
+            if a.pool_rows % 16:
+                raise ValueError("pool_rows is not 16-byte aligned")
             a.picks = _ptr(picks, "picks", dev, shape=(b,))
         a.pool_n, a.B = n, b
         a.static_dir = -1 if static_dir is None else int(static_dir)
@@ -1823,8 +1843,10 @@ PICK_DRAW = PickDrawKernel()
 # ---------------------------------------------------------------------------
 
 _RADIX = 256
-_RADIX_TILE = 4096  # csrc/memo.cu TILE
-_SCAN_TILE = 1024  # csrc/memo.cu SCAN_TILE
+_RADIX_TILE = 4096  # csrc/radix.cuh TILE
+_SCAN_TILE = 1024  # csrc/radix.cuh SCAN_TILE
+_DEDUP_BIG_TILE = 4096  # csrc/memo.cu BIG_TILE
+_DEDUP_FEW_TILES = 32  # csrc/memo.cu FEW_TILES
 
 
 class SortArgs(ctypes.Structure):
@@ -1839,11 +1861,13 @@ class DedupArgs(ctypes.Structure):
     """Mirror of cmm::DedupArgs in csrc/memo.cu, field for field."""
 
     _fields_ = (
-        [("keys", _P), ("sort", SortArgs)]
+        [(name, _P) for name in ("keys", "slot", "slot_group",
+                                 "row_slot")]
+        + [("sk", (_P * 4) * 2)]
         + [(name, _P) for name in (
-            "flags", "prefix", "sums", "n_elems", "srow", "gid", "n_unique",
-            "rep_orig", "rep_valid", "overflow")]
-        + [("B", _I), ("rep_cap", _I)]
+            "hist", "totals", "dtot", "status", "misc", "bar", "srow", "gid",
+            "n_unique", "rep_orig", "rep_valid", "overflow")]
+        + [("B", _I), ("rep_cap", _I), ("t_mask", ctypes.c_uint32)]
     )
 
 
@@ -1930,11 +1954,29 @@ def _keys3(keys, name: str):
     return dev, b
 
 
+def dedup_scratch_words(b: int) -> tuple:
+    """MEMO_DEDUP's scratch for a batch of `b`: the hash table's slots
+    (a power of two, at least 2b and 64; 8 bytes each) and the word
+    count of each region, in DedupArgs order (each a multiple of 4
+    words: 16-byte aligned)."""
+    slots = max(64, 1 << (2 * b - 1).bit_length())
+    tiles = max(-(-b // _DEDUP_BIG_TILE), _DEDUP_FEW_TILES)
+    up4 = lambda n: -(-n // 4) * 4
+    return slots, (("slot", 2 * slots), ("slot_group", slots),
+                   ("row_slot", up4(b)),
+                   *((f"sk{side}{w}", up4(b)) for side in (0, 1)
+                     for w in range(4)),
+                   ("hist", 256 * tiles), ("totals", 256),
+                   ("dtot", 16 * 256), ("status", 16 * _DEDUP_FEW_TILES * 256),
+                   ("misc", 8), ("bar", 4))
+
+
 class MemoDedupKernel:
     """K14's level A on the card: memo.dedup_groups of the key words
     keys int32 [3, B] (u32 bits).  Returns the dict of dedup_groups with
     tensors: srow, gid int32 [B], n_unique int32 [1], rep_orig int32
-    [rep_cap + 1], rep_valid bool [rep_cap], overflow int32 [1]."""
+    [rep_cap + 1], rep_valid bool [rep_cap], overflow int32 [1].  One
+    cooperative launch (csrc/memo.cu); its scratch is one allocation."""
 
     name = "memo_dedup"
 
@@ -1949,7 +1991,7 @@ class MemoDedupKernel:
         rep_cap = int(rep_cap)
         if not 1 <= rep_cap < (1 << 31) - 1:
             raise ValueError(f"{self.name}: rep_cap = {rep_cap}")
-        ints = torch.empty(3, dtype=torch.int32, device=dev)
+        ints = torch.empty(2, dtype=torch.int32, device=dev)
         out = dict(
             srow=torch.empty(b, dtype=torch.int32, device=dev),
             gid=torch.empty(b, dtype=torch.int32, device=dev),
@@ -1957,22 +1999,26 @@ class MemoDedupKernel:
             rep_orig=torch.empty(rep_cap + 1, dtype=torch.int32, device=dev),
             rep_valid=torch.empty(rep_cap, dtype=torch.bool, device=dev),
         )
+        slots, regions = dedup_scratch_words(b)
+        words = sum(n for _, n in regions)
+        scratch = torch.empty(words, dtype=torch.int32, device=dev)
         a = DedupArgs()
-        a.sort, sort_bufs = _sort_args(b, 3, 12, ints[2:3].data_ptr(), dev)
-        scratch = torch.empty((2, b), dtype=torch.int32, device=dev)
-        sums = torch.empty(max((b + _SCAN_TILE - 1) // _SCAN_TILE, 1),
-                           dtype=torch.int32, device=dev)
+        at = scratch.data_ptr()
+        for name, n in regions:
+            if name.startswith("sk"):
+                a.sk[int(name[2])][int(name[3])] = at
+            else:
+                setattr(a, name, at)
+            at += 4 * n
         a.keys = keys.data_ptr()
-        a.flags, a.prefix = scratch[0].data_ptr(), scratch[1].data_ptr()
-        a.sums, a.n_elems = sums.data_ptr(), ints[2:3].data_ptr()
         for name, t in out.items():
             setattr(a, name, t.data_ptr())
-        a.B, a.rep_cap = b, rep_cap
+        a.B, a.rep_cap, a.t_mask = b, rep_cap, slots - 1
         MEMO_LIBRARY.launch("launch_memo_dedup", a, dev, self.name)
         self.launches += 1
         # the scratch may be freed now: the caching allocator hands it
-        # only to work queued after these kernels on the same stream
-        del sort_bufs, scratch, sums
+        # only to work queued after the kernel on the same stream
+        del scratch
         return out
 
 

@@ -97,6 +97,8 @@ from cilium_tpu_torch.engine.datapath import (
     datapath_step_pool,
     flow_batch_from_packed,
     pack_flow_batch,
+    pool_flows,
+    pool_rows_of,
 )
 from cilium_tpu_torch.engine.hashtable import fnv1a
 from cilium_tpu_torch.engine.verdict import (
@@ -134,6 +136,7 @@ INTENT_COLUMNS = (
 )
 
 _POOL_PACK_KEY = "__device_pack__"
+_POOL_ROWS_KEY = "__device_rows__"
 
 
 def churn_hash(out: DatapathVerdicts, flows: FlowBatch) -> torch.Tensor:
@@ -211,16 +214,18 @@ def churn_compact(out: DatapathVerdicts, pool: torch.Tensor,
         return kernels.CHURN_COMPACT(out, pool, picks, valid, cap,
                                      claim_slots)
     if pool.device.type == "cpu":
-        flows = flow_batch_from_packed(pool[:, picks.to(torch.int64)])
-        return _churn_compact(out, flows, valid, cap, claim_slots)
+        return _churn_compact(out, pool_flows(pool, picks), valid, cap,
+                              claim_slots)
     raise ValueError(f"unsupported device {pool.device}")
 
 
 def churn_step(tables: DatapathTables, pool: torch.Tensor,
-               picks: torch.Tensor, valid: int):
+               picks: torch.Tensor, valid: int,
+               pool_rows: Optional[torch.Tensor] = None):
     """Pool gather, single-batch datapath step and intent compaction:
-    (header, intents) as `_churn_compact` returns them."""
-    out = datapath_step_pool(tables, pool, picks)
+    (header, intents) as `_churn_compact` returns them; `pool_rows` is
+    the pool's row-major copy for the step's gather (datapath_step_pool)."""
+    out = datapath_step_pool(tables, pool, picks, pool_rows)
     return churn_compact(out, pool, picks, valid)
 
 
@@ -349,12 +354,12 @@ class _ChurnDriver:
         return remaining
 
     def run_batch(self, tables: DatapathTables, pool: torch.Tensor,
-                  picks: torch.Tensor, valid: int,
-                  stats: ReplayStats) -> None:
+                  picks: torch.Tensor, valid: int, stats: ReplayStats,
+                  pool_rows: Optional[torch.Tensor] = None) -> None:
         first_pass = True
         while True:
             t = dataclasses.replace(tables, ct=self.dev_snap)
-            header, intents = churn_step(t, pool, picks, valid)
+            header, intents = churn_step(t, pool, picks, valid, pool_rows)
             remaining = self.drain(header, intents, stats, valid, first_pass)
             first_pass = False
             if remaining == 0:
@@ -376,7 +381,23 @@ def _pool_on(pool: Dict[str, np.ndarray], dev: torch.device) -> torch.Tensor:
     if packed is None or not on_device(packed, dev):
         packed = flow_pool_to(pool, dev)
         pool[_POOL_PACK_KEY] = packed
+        pool.pop(_POOL_ROWS_KEY, None)
     return packed
+
+
+def _pool_rows_on(pool: Dict[str, np.ndarray],
+                  dev: torch.device) -> Optional[torch.Tensor]:
+    """The card's row-major copy of the pool's pack (pool_rows_of),
+    cached beside it; None off the card (the plain step gathers the
+    pack's columns)."""
+    packed = _pool_on(pool, dev)
+    if packed.device.type != "cuda":
+        return None
+    rows = pool.get(_POOL_ROWS_KEY)
+    if rows is None:
+        rows = pool_rows_of(packed)
+        pool[_POOL_ROWS_KEY] = rows
+    return rows
 
 
 def replay_pool(tables: DatapathTables, pool: Dict[str, np.ndarray],
@@ -399,11 +420,12 @@ def replay_pool(tables: DatapathTables, pool: Dict[str, np.ndarray],
         dev = torch.device("cuda", torch.cuda.current_device())
     require_on(tables.policy.id_table, dev, "the tables (convert.tables_to)")
     pool_dev = _pool_on(pool, dev)
+    pool_rows = _pool_rows_on(pool, dev)
     churn = _ChurnDriver(ct_map, dev)
     stats = ReplayStats()
 
     def run(picks_dev, valid):
-        churn.run_batch(tables, pool_dev, picks_dev, valid, stats)
+        churn.run_batch(tables, pool_dev, picks_dev, valid, stats, pool_rows)
 
     if isinstance(picks, (int, np.integer)):
         n = int(picks)

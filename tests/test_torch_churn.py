@@ -166,6 +166,18 @@ def test_datapath_step_matches_jax(seed, source):
     for col in tdp.VERDICT_COLUMNS:
         assert torch.equal(getattr(via_pool, col),
                            getattr(to, col)[: picks.size]), col
+    # explicit picks at the pool's last row, past it and with bit 31
+    # set: the reference's gather (replay.py _flows_from_pool) clamps
+    # them as int32 indices, and so does the pool route
+    n = pool.shape[1]
+    edge = np.random.default_rng(seed).integers(0, n, packed.shape[1])
+    edge[:7] = [n - 1, n, n + 9, 0x7FFFFFFF, 0x80000000, 0xFFFFFFFF, 0]
+    edge = edge.astype(np.uint32)
+    jo_edge = jdp.datapath_step(jt, jrp._flows_from_pool(
+        jnp.asarray(trp.pack_flow_pool(w.pool)), jnp.asarray(edge)))
+    assert_same_verdicts(
+        tdp.datapath_step_pool(tt, pool, torch.from_numpy(edge.view(np.int32))),
+        jo_edge, "datapath_step over edge picks")
     # the mix reaches what the slice is about
     ct_res = np.asarray(jo.ct_result)
     assert all((ct_res == r).any() for r in (0, 1, 2)), np.bincount(ct_res)
@@ -640,6 +652,36 @@ def test_churn_kernels_match_plain(slots):
     after = [k.launches for k in (kernels.DATAPATH_STEP,
                                   kernels.CHURN_COMPACT, kernels.CT_DELTA)]
     assert [a - b for a, b in zip(after, before)] == [2, 2, 1]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows", [False, True])
+def test_step_kernel_clamps_picks_as_plain(rows):
+    """DATAPATH_STEP (the pool's row-major copy made by the wrapper, or
+    passed in) and CHURN_COMPACT against their plain versions on picks at the
+    pool's last row, past it and with bit 31 set, the wide tables."""
+    _need_card()
+    from cilium_tpu_torch import kernels
+
+    w, tables = _card_world()
+    pool = convert.flow_pool_to(w.pool, "cuda")
+    n = pool.shape[1]
+    edge = np.random.default_rng(2).integers(0, n, 20_000)
+    edge[:7] = [n - 1, n, n + 9, 0x7FFFFFFF, 0x80000000, 0xFFFFFFFF, 0]
+    picks = torch.from_numpy(edge.astype(np.uint32).view(np.int32)).cuda()
+    out = kernels.DATAPATH_STEP(
+        tables, pool, picks,
+        pool_rows=tdp.pool_rows_of(pool) if rows else None)
+    flows = tdp.pool_flows(pool, picks)
+    plain = tdp.datapath_step_plain(tables, flows)
+    for col in tdp.VERDICT_COLUMNS:
+        assert torch.equal(getattr(out, col), getattr(plain, col)), col
+    h, i = kernels.CHURN_COMPACT(out, pool, picks, 19_000,
+                                 trp._CT_INTENT_CAP, trp._CT_CLAIM_SLOTS)
+    ph, pi = trp._churn_compact(out, flows, 19_000, trp._CT_INTENT_CAP,
+                                trp._CT_CLAIM_SLOTS)
+    torch.cuda.synchronize()
+    assert torch.equal(h, ph) and torch.equal(i, pi)
 
 
 @pytest.mark.cuda

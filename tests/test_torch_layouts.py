@@ -529,9 +529,11 @@ def _card_cases():
 @pytest.mark.parametrize("name,subword", list(_card_cases()))
 def test_kernels_match_plain_on_every_layout(name, subword):
     """DATAPATH_PAIR over two pairs, PERSISTENT_PAIR over four of 4,999
-    flows a half and DATAPATH_STEP in each form over the edge flows, on
-    the card, against the plain versions on the same device inputs:
-    columns, counters, telemetry."""
+    flows a half and DATAPATH_STEP in each form over the edge flows, as
+    a pack and picked from them as a pool (the row-major copy passed in
+    or made by the wrapper; picks at the last row, past it and with bit
+    31 set), on the card, against the plain versions on the same device
+    inputs: columns, counters, telemetry."""
     _need_card()
     from cilium_tpu_torch import kernels
 
@@ -568,20 +570,29 @@ def test_kernels_match_plain_on_every_layout(name, subword):
             assert torch.equal(getattr(got, col), getattr(want, col)), col
     assert torch.equal(acc_k, acc_p) and torch.equal(tel_k, tel_p)
     packed = torch.from_numpy(_edge_flows(w).view(np.int32)).cuda()
-    flows = tdp.flow_batch_from_packed(packed)
-    for form in (dict(), dict(emit_sec_id=False), dict(static_dir=0),
-                 dict(static_dir=1)):
-        acc_k = tvd.make_counter_buffers(tt.policy) + 1
-        tel_k = tvd.make_telemetry_buffers("cuda") + 2
-        acc_p, tel_p = acc_k.clone(), tel_k.clone()
-        got = kernels.DATAPATH_STEP(tt, packed, None, acc=acc_k, telem=tel_k,
-                                    **form)
-        want = tdp.datapath_step_plain(tt, flows, acc=acc_p, telem=tel_p,
-                                       **form)
-        for col in tdp.VERDICT_COLUMNS:
-            assert torch.equal(getattr(got, col), getattr(want, col)), (
-                form, col)
-        assert torch.equal(acc_k, acc_p) and torch.equal(tel_k, tel_p), form
+    n = int(packed.shape[1])
+    picks = np.random.default_rng(11).integers(0, n, 3001).astype(np.int64)
+    picks[:6] = (n - 1, n, n + 7, 1 << 31, (1 << 32) - 1, 0x9000_0000)
+    picks = torch.from_numpy(picks.astype(np.uint32).view(np.int32)).cuda()
+    runs = ((None, None, tdp.flow_batch_from_packed(packed)),
+            (picks, None, tdp.pool_flows(packed, picks)),
+            (picks, tdp.pool_rows_of(packed), tdp.pool_flows(packed, picks)))
+    for pks, rows, flows in runs:
+        for form in (dict(), dict(emit_sec_id=False), dict(static_dir=0),
+                     dict(static_dir=1)):
+            acc_k = tvd.make_counter_buffers(tt.policy) + 1
+            tel_k = tvd.make_telemetry_buffers("cuda") + 2
+            acc_p, tel_p = acc_k.clone(), tel_k.clone()
+            got = kernels.DATAPATH_STEP(tt, packed, pks, acc=acc_k,
+                                        telem=tel_k, pool_rows=rows, **form)
+            want = tdp.datapath_step_plain(tt, flows, acc=acc_p, telem=tel_p,
+                                           **form)
+            case = (pks is not None, rows is not None, form)
+            for col in tdp.VERDICT_COLUMNS:
+                assert torch.equal(getattr(got, col), getattr(want, col)), (
+                    case, col)
+            assert torch.equal(acc_k, acc_p), case
+            assert torch.equal(tel_k, tel_p), case
 
 
 @pytest.mark.cuda

@@ -172,27 +172,55 @@ def test_value_words_match_jax():
 
 
 def _keys(rng, n, spread):
+    """[3, n] u32 key words: "random" (equal leading words), "duplicated"
+    (24 keys), "all_equal", "all_distinct", "zipf_hot" (Zipf(1.1) over
+    256 keys: one hot key), "bit31" (bit 31 set in each word, 40 keys),
+    "one_row" (n = 1)."""
     if spread == "duplicated":
         base = rng.integers(0, 1 << 32, (24, 3), dtype=np.int64)
         base[:4, 0] = [0, 0xFFFFFFFF, 1 << 31, 5]
         return base[rng.integers(0, 24, n)].T.astype(np.uint32)
+    if spread == "all_equal":
+        return np.tile(np.array([[0x80000001], [0xFFFFFFFF], [0x7FFFFFFF]],
+                                dtype=np.uint32), (1, n))
+    if spread == "all_distinct":
+        k = rng.integers(0, 1 << 32, (3, n), dtype=np.int64)
+        k[0] = rng.permutation(n) * 2654435761 % (1 << 32)
+        return k.astype(np.uint32)
+    if spread == "zipf_hot":
+        base = rng.integers(0, 1 << 32, (256, 3), dtype=np.int64)
+        rank = np.minimum(rng.zipf(1.1, n), 256) - 1
+        return base[rank].T.astype(np.uint32)
+    if spread == "bit31":
+        base = rng.integers(0, 1 << 31, (40, 3), dtype=np.int64) | (1 << 31)
+        return base[rng.integers(0, 40, n)].T.astype(np.uint32)
+    if spread == "one_row":
+        return rng.integers(0, 1 << 32, (3, 1), dtype=np.int64).astype(
+            np.uint32)
     k = rng.integers(0, 1 << 32, (3, n), dtype=np.int64).astype(np.uint32)
     k[0] = rng.integers(0, 4, n)  # equal leading words, order by the rest
     return k
 
 
-@pytest.mark.parametrize("spread", ["random", "duplicated"])
-@pytest.mark.parametrize("rep_cap", [768, 16])
+@pytest.mark.parametrize("spread", ["random", "duplicated", "all_equal",
+                                    "all_distinct", "zipf_hot", "bit31",
+                                    "one_row"])
+@pytest.mark.parametrize("rep_cap", [768, 16, "n_unique"])
 def test_dedup_groups_match_jax(spread, rep_cap):
     _need_jax()
     k = _keys(np.random.default_rng(5), 768, spread)
+    n_unique = len(np.unique(k, axis=1).T)
+    if rep_cap == "n_unique":
+        rep_cap = n_unique
     want = jax.jit(lambda a, b, c: jvm.dedup_groups(a, b, c, rep_cap))(*k)
     got = tm.dedup_groups(*(_i64(x) for x in k), rep_cap)
     for name in ("srow", "gid", "rep_orig", "rep_valid"):
         _same(got[name], want[name], name)
-    assert got["n_unique"] == int(want["n_unique"])
+    assert got["n_unique"] == int(want["n_unique"]) == n_unique
     assert got["overflow"] == int(want["overflow"])
-    assert (got["overflow"] > 0) == (rep_cap == 16)
+    assert got["overflow"] == max(n_unique - rep_cap, 0)
+    if spread in ("random", "duplicated"):
+        assert (got["overflow"] > 0) == (rep_cap == 16)
 
 
 def test_xla_sort_is_stable_on_equal_keys():
@@ -753,6 +781,33 @@ def test_memo_dedup_kernel_matches_plain(rep_cap):
     assert kernels.MEMO_DEDUP.launches == before + 1
     with pytest.raises(ValueError, match="CUDA"):
         kernels.MEMO_DEDUP(keys.cpu(), rep_cap)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("spread", ["all_equal", "all_distinct", "zipf_hot",
+                                    "bit31", "one_row", "duplicated"])
+@pytest.mark.parametrize("cap", ["n_unique", "half", "more"])
+def test_memo_dedup_kernel_edge_cases(spread, cap):
+    """MEMO_DEDUP against its plain version on the CPU test's key sets
+    at 300,007 rows (no multiple of the kernel's tiles; one row for
+    "one_row"), rep_cap n_unique, half of it (an overflow) and past
+    it."""
+    _need_card()
+    from cilium_tpu_torch import kernels
+
+    k = _keys(np.random.default_rng(11), 300_007, spread)
+    keys = torch.from_numpy(np.ascontiguousarray(k).view(np.int32)).cuda()
+    wide = [tv.widen(keys[i]) for i in range(3)]
+    n_unique = tm.dedup_groups(*wide, 1)["n_unique"]
+    rep_cap = {"n_unique": n_unique, "half": max(n_unique // 2, 1),
+               "more": n_unique + 5}[cap]
+    got = kernels.MEMO_DEDUP(keys, rep_cap)
+    want = tm.dedup_groups(*wide, rep_cap)
+    torch.cuda.synchronize()
+    for name in ("srow", "gid", "rep_orig", "rep_valid"):
+        _card_equal(got[name], want[name], name)
+    assert int(got["n_unique"]) == want["n_unique"]
+    assert int(got["overflow"]) == want["overflow"]
 
 
 @pytest.mark.cuda
