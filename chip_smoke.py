@@ -186,9 +186,13 @@ launch counts set to 0 just before it and read just after:
              a delta publish through the publish phase's compiler and
              store (0 hits, then hits), an overflow at rep_cap 1,024 and
              memo_evaluate against LATTICE and its plain version on
-             4,194,304 Zipf tuples, and MEMO_DEDUP against its plain
+             4,194,304 Zipf tuples, MEMO_DEDUP against its plain
              version on its edge cases (dedup_case_keys, each at rep_cap
-             n_unique, half of it and past it);
+             n_unique, half of it and past it), and MEMO_CACHE against
+             its plain version on both halves of the Zipf pair's keys
+             over the three layouts at 8, 16 and 32 entries, one bucket,
+             one key, rep_cap = U and an overflow with the restore
+             (cache_cases_check);
   memo_lattice  memo_evaluate (the daemon's serving shape) through a
              VerdictCache, 8 calls on those tuples (MEMO_KEYS_LATTICE,
              MEMO_DEDUP, MEMO_CACHE), and LATTICE's uncached line; then
@@ -207,7 +211,12 @@ launch counts set to 0 just before it and read just after:
              the lattice phase's 4,194,304 tuples (8 MESH_PROBE, 16
              ROUTED_PROBE, 6 MESH_COMBINE and 8 LATTICE launches); then
              mesh_check (each kernel against its plain version on every
-             shard and batch row, the evaluators' verdicts, counters and
+             shard and batch row; ROUTED_PROBE's records also on (2, 4)
+             and (4, 2) meshes of a small world whose tuples hit both
+             L4 stashes and carry out-of-range words, partitioned,
+             healthy and with a dead chip, and the failover evaluator
+             with holes on the card against the CPU: routed_cases_check;
+             the evaluators' verdicts, counters and
              folded per-chip telemetry against LATTICE's, chip (0, 1)
              dead with and without garbage in its own rows against the
              healthy mesh, replica_hits > 0), mesh_store_update (a
@@ -309,7 +318,16 @@ step row's `ab`),
 and in step_form_timing on the record replay's accum_telem form (the
 `datapath_step_modes` line's `ab`); in memo_timing the parent's
 MEMO_DEDUP on the Zipf pair half's keys and on MEMO_DISTINCT distinct
-keys, every output entry agreeing (memo_ab: the row's `ab`); and, every
+keys, every output entry the parent has agreeing (memo_ab: the row's
+`ab`, and `ab_device_ms_over_parent`: the new rgid output's cost), the
+parent's MEMO_CACHE on both halves of the Zipf pair, v0, v1, hit, the
+rows and the stats agreeing (cache_ab: device ms, events and the
+wrapper's host µs queued behind a spin, the row's `ab`), and the whole
+memoized pair on the parent's MEMO_DEDUP and MEMO_CACHE
+(memo_pair_ab: DATAPATH_PAIR_MEMO's row); in mesh_timing the parent's
+ROUTED_PROBE, partitioned and in failover mode on shard 0 of the dead
+chip's batch row and on the shard serving its backup rows (library_ab:
+the row's `ab`); and, every
 result agreeing, in the same turns, LATTICE in each of lattice_timing's
 modes, DP_MESH_PROBE's four rounds on shard (0, 0) in dp_mesh_timing
 and IPCACHE_LOOKUP on each form of ipcache_lookup (library_ab: the
@@ -375,10 +393,13 @@ instantiation (kernels.layout_name) and world, the time, plain time,
 bytes, operations and bound of node_timing.  Then the card's name and
 power limit as nvidia-smi prints them, then {"ok": true, "device":
 {...}}.  The memo rows: DATAPATH_PAIR_MEMO's time is its front and back
-passes on one Zipf pair (`front_ms`, `back_ms`; `memo_pair_ms` the whole
-memoized pair, `uncached_pair_ms` DATAPATH_PAIR on the same pair) and its
-plain time the whole plain memoized pair; MEMO_DEDUP's and MEMO_CACHE's
-times are one half's at rep_cap 524,288, MEMO_DEDUP's library call
+passes on one Zipf pair (`front_ms`, `back_ms`, their device ms
+`front_device_ms`, `back_device_ms` queued behind a spin; `memo_pair_ms`
+the whole memoized pair, `uncached_pair_ms` DATAPATH_PAIR on the same
+pair) and its plain time the whole plain memoized pair; MEMO_DEDUP's and
+MEMO_CACHE's times are one half's at rep_cap 524,288 (MEMO_CACHE's the
+ingress half's events; `device_ms`, `egress_ms`, `egress_device_ms` and
+the wrapper's `host_us` per call beside them), MEMO_DEDUP's library call
 `torch.unique(keys, dim=0, return_inverse=True)`; MEMO_KEYS_LATTICE's
 time is its keys and combine launches on 4,194,304 tuples.
 SHADOW_DIFF's time is its device time over 20 launches at 4,194,304
@@ -405,7 +426,12 @@ proxy's 1,048,576 packed memcached requests against its 25 rules
 distinct identity row and the rule columns, read or written once.
 MESH_PROBE's, ROUTED_PROBE's and MESH_COMBINE's times are device time
 per launch on shard (0, 0)'s 2,097,152 tuples (the combine over the
-partitioned run's 4 records), 20 launches queued behind a device spin;
+partitioned run's 4 records), 20 launches queued behind a device spin
+(ROUTED_PROBE's `failover` and `failover_backup` in failover mode with
+chip (0, 1) dead, its `rows_aligned` whether the rows allow 16-byte
+key-plane loads, its `ptxas` registers and spills; the reshard path's
+launches of the three mesh kernels timed at their own shape in each
+row's `reshard_launch`);
 their bounds the tuple words and record words each reads or writes and
 each distinct row the shard's plain version gathers, once; `evaluators`
 the ms and verdicts/s of each evaluator and of LATTICE in the same run.
@@ -4684,53 +4710,130 @@ SCATTER_AB_TURNS = ("parent", "new", "new", "parent")
 # the parent's libraries built, and the package's library each stands in
 # for inside parent_library
 AB_STEMS = ("publish", "churn", "datapath", "lattice", "datapath_mesh",
-            "lookup", "memo")
+            "lookup", "memo", "mesh")
 AB_LIBRARIES = {"churn": "CHURN_LIBRARY", "datapath": "DATAPATH_LIBRARY",
                 "lattice": "LATTICE_LIBRARY",
-                "datapath_mesh": "DP_MESH_LIBRARY", "lookup": "LOOKUP_LIBRARY"}
+                "datapath_mesh": "DP_MESH_LIBRARY", "lookup": "LOOKUP_LIBRARY",
+                "mesh": "MESH_LIBRARY"}
 AB = {"lib": None, "source": None, "libs": {}, "sites": {}, "s": 0.0}
 
 
-def _parent_dedup_args(kernels):
-    """The parent's cmm::DedupArgs (MEMO_DEDUP's argument: the radix
-    sort's SortArgs, which radix.cuh keeps, and its scan buffers)."""
-    if "dedup_args" not in AB:
+def _parent_memo_args(kernels):
+    """The parent's cmm::DedupArgs and cmm::CacheArgs: this package's
+    without the dedup's rgid, and the cache's before its cooperative
+    launch (the srow/gid scatter-back, per-representative byte and word
+    arrays, the bucket sort's SortArgs)."""
+    if "memo_args" not in AB:
         P, I = ctypes.c_void_p, ctypes.c_int32
-        AB["dedup_args"] = type("_ParentDedupArgs", (ctypes.Structure,), {
-            "_fields_": [("keys", P), ("sort", kernels.SortArgs)] + [
-                (n, P) for n in ("flags", "prefix", "sums", "n_elems", "srow",
-                                 "gid", "n_unique", "rep_orig", "rep_valid",
-                                 "overflow")] + [("B", I), ("rep_cap", I)]})
-    return AB["dedup_args"]
+        dedup = type("_ParentDedupArgs", (ctypes.Structure,), {
+            "_fields_": [f for f in kernels.DedupArgs._fields_
+                         if f[0] != "rgid"]})
+        cache = type("_ParentCacheArgs", (ctypes.Structure,), {
+            "_fields_": [("pol", kernels.PolicyViewArgs)] + [
+                (n, P) for n in (
+                    "keys", "ep_w", "dir_w", "srow", "gid", "rep_orig",
+                    "n_unique", "dedup_overflow", "rows_in", "rows_out",
+                    "restore", "v0", "v1", "hit", "stats", "r_hit",
+                    "r_hit_lane", "r_ins_lane", "r_do_ins", "r_bucket",
+                    "r_rank_word", "r_empty", "rv0", "rv1")]
+            + [("sort", kernels.SortArgs), ("counters", P)]
+            + [(n, I) for n in ("B", "rep_cap", "n_rows", "width", "entries",
+                                "ranked", "subword", "has_l3", "accumulate",
+                                "bucket_passes")]})
+        AB["memo_args"] = (dedup, cache)
+    return AB["memo_args"]
 
 
 def parent_memo_dedup(kernels, keys, rep_cap: int) -> dict:
-    """The parent's MEMO_DEDUP wrapper (a 12-pass radix sort of every
-    key, then the flag scan), its checks and outputs."""
+    """The parent's MEMO_DEDUP wrapper (the same cooperative kernel
+    without rgid), its checks and outputs."""
     dev, b = kernels._keys3(keys, "parent memo_dedup")
-    ints = torch.empty(3, dtype=torch.int32, device=dev)
+    ints = torch.empty(2, dtype=torch.int32, device=dev)
     out = dict(
         srow=torch.empty(b, dtype=torch.int32, device=dev),
         gid=torch.empty(b, dtype=torch.int32, device=dev),
         n_unique=ints[0:1], overflow=ints[1:2],
         rep_orig=torch.empty(rep_cap + 1, dtype=torch.int32, device=dev),
         rep_valid=torch.empty(rep_cap, dtype=torch.bool, device=dev))
-    a = _parent_dedup_args(kernels)()
-    a.sort, bufs = kernels._sort_args(b, 3, 12, ints[2:3].data_ptr(), dev)
-    scratch = torch.empty((2, b), dtype=torch.int32, device=dev)
-    sums = torch.empty(max(-(-b // kernels._SCAN_TILE), 1),
-                       dtype=torch.int32, device=dev)
+    slots, regions = kernels.dedup_scratch_words(b)
+    scratch = torch.empty(sum(n for _, n in regions), dtype=torch.int32,
+                          device=dev)
+    a = _parent_memo_args(kernels)[0]()
+    at = scratch.data_ptr()
+    for name, n in regions:
+        if name.startswith("sk"):
+            a.sk[int(name[2])][int(name[3])] = at
+        else:
+            setattr(a, name, at)
+        at += 4 * n
     a.keys = keys.data_ptr()
-    a.flags, a.prefix = scratch[0].data_ptr(), scratch[1].data_ptr()
-    a.sums, a.n_elems = sums.data_ptr(), ints[2:3].data_ptr()
     for name, t in out.items():
         setattr(a, name, t.data_ptr())
-    a.B, a.rep_cap = b, rep_cap
+    a.B, a.rep_cap, a.t_mask = b, rep_cap, slots - 1
     err = AB["libs"]["memo"].launch_memo_dedup(ctypes.byref(a),
                                                kernels._stream(dev))
     if err:
         raise SystemExit(f"ab: the parent's MEMO_DEDUP launch: {err}")
-    del bufs, scratch, sums
+    del scratch
+    return out
+
+
+def parent_memo_cache(kernels, pol, keys, g, rows_in, rows_out, stats, *,
+                      rep_cap: int, has_l3: bool, accumulate: bool = False,
+                      restore=None, out=None):
+    """The parent's MEMO_CACHE wrapper (14-15 launches a call: probe,
+    bucket sort, lanes, lattice, commit, scatter through srow/gid,
+    stats; the copy and the restore), its checks, allocations and
+    outputs."""
+    from cilium_tpu_torch.engine.memo import cache_layout
+
+    _ptr = kernels._ptr
+    dev, b = kernels._keys3(keys, "parent memo_cache")
+    n_rows = int(rows_in.shape[0]) - 1
+    e, ranked, subw = cache_layout(rows_in)
+    a = _parent_memo_args(kernels)[1]()
+    a.pol = kernels._policy_view(pol, dev)
+    a.keys = keys.data_ptr()
+    a.srow = _ptr(g["srow"], "srow", dev, shape=(b,))
+    a.gid = _ptr(g["gid"], "gid", dev, shape=(b,))
+    a.rep_orig = _ptr(g["rep_orig"], "rep_orig", dev, shape=(rep_cap + 1,))
+    a.n_unique = _ptr(g["n_unique"], "n_unique", dev, shape=(1,))
+    a.dedup_overflow = _ptr(g["overflow"], "overflow", dev, shape=(1,))
+    shape = tuple(rows_in.shape)
+    a.rows_in = _ptr(rows_in, "rows_in", dev)
+    a.rows_out = _ptr(rows_out, "rows_out", dev, shape=shape)
+    if restore is not None:
+        a.restore = _ptr(restore, "restore", dev, shape=shape)
+    a.stats = _ptr(stats, "stats", dev, shape=(5,))
+    if out is None:
+        out = (torch.empty(b, dtype=torch.int32, device=dev),
+               torch.empty(b, dtype=torch.int32, device=dev),
+               torch.empty(b, dtype=torch.bool, device=dev))
+    a.v0 = _ptr(out[0], "v0", dev, shape=(b,))
+    a.v1 = _ptr(out[1], "v1", dev, shape=(b,))
+    a.hit = _ptr(out[2], "hit", dev, dtype=torch.bool, shape=(b,))
+    bytes4 = torch.empty((5, rep_cap), dtype=torch.int32, device=dev)
+    bytes1 = torch.empty((4, rep_cap), dtype=torch.uint8, device=dev)
+    for k, name in enumerate(("r_hit", "r_hit_lane", "r_ins_lane",
+                              "r_do_ins")):
+        setattr(a, name, bytes1[k].data_ptr())
+    for k, name in enumerate(("r_bucket", "r_rank_word", "r_empty", "rv0",
+                              "rv1")):
+        setattr(a, name, bytes4[k].data_ptr())
+    counters = torch.empty(3, dtype=torch.int32, device=dev)
+    a.counters = counters.data_ptr()
+    passes = max((max(n_rows.bit_length() - 1, 1) + 7) // 8, 1)
+    a.sort, sort_bufs = kernels._sort_args(rep_cap, 1, passes,
+                                           counters.data_ptr(), dev)
+    a.B, a.rep_cap, a.n_rows, a.width = b, rep_cap, n_rows, int(shape[1])
+    a.entries, a.ranked, a.subword = e, int(ranked), int(subw)
+    a.has_l3, a.accumulate = int(bool(has_l3)), int(bool(accumulate))
+    a.bucket_passes = passes
+    err = AB["libs"]["memo"].launch_memo_cache(ctypes.byref(a),
+                                               kernels._stream(dev))
+    if err:
+        raise SystemExit(f"ab: the parent's MEMO_CACHE launch: {err}")
+    del bytes4, bytes1, counters, sort_bufs
     return out
 
 
@@ -4770,15 +4873,18 @@ def ab_load(kernels, jobs) -> None:
             kernels._PublishLibrary().bind(lib)
             AB.update(lib=lib, source=str(src))
         elif stem == "memo":
-            args = _parent_dedup_args(kernels)
-            lib.launch_memo_dedup.argtypes = [ctypes.POINTER(args),
-                                              ctypes.c_void_p]
-            lib.launch_memo_dedup.restype = ctypes.c_int
+            args = _parent_memo_args(kernels)
             sizes = (ctypes.c_int * 5)()
             lib.memo_struct_sizes(sizes)
-            if sizes[1] != ctypes.sizeof(args):
-                raise SystemExit(f"ab: the parent's DedupArgs is {sizes[1]} "
-                                 f"bytes, not {ctypes.sizeof(args)}")
+            for launch, at, mirror in (("launch_memo_dedup", 1, args[0]),
+                                       ("launch_memo_cache", 2, args[1])):
+                getattr(lib, launch).argtypes = [ctypes.POINTER(mirror),
+                                                 ctypes.c_void_p]
+                getattr(lib, launch).restype = ctypes.c_int
+                if sizes[at] != ctypes.sizeof(mirror):
+                    raise SystemExit(f"ab: the parent's {mirror.__name__} "
+                                     f"is {sizes[at]} bytes, not "
+                                     f"{ctypes.sizeof(mirror)}")
         else:
             type(getattr(kernels, AB_LIBRARIES[stem]))().bind(lib)
         AB["libs"][stem] = lib
@@ -4861,14 +4967,15 @@ def _tensors(x):
 LIB_AB_REPS = 20
 
 
-def library_ab(kernels, stem: str, calls: dict):
+def library_ab(kernels, stem: str, calls: dict, device: bool = True):
     """The parent's build of csrc/<stem>.cu against this one's
     (--ab-parent) on `calls` ({name: a call of one of its kernels}):
     each call's result once under each, every entry agreeing (SystemExit
-    otherwise); then CUDA events over LIB_AB_REPS calls and device ms
-    with the calls queued behind a device spin, in turns parent, new,
-    new, parent, and their medians.  Launches not counted; None without
-    the parent."""
+    otherwise); then CUDA events over LIB_AB_REPS calls and (with
+    `device`) device ms with the calls queued behind a device spin, in
+    turns parent, new, new, parent, and their medians.  `device` False
+    for calls that wait on the device (an evaluator).  Launches not
+    counted; None without the parent."""
     if stem not in AB["libs"]:
         return None
     t = time.perf_counter()
@@ -4883,15 +4990,17 @@ def library_ab(kernels, stem: str, calls: dict):
                         + abs(len(new) - len(old)))
         del new, old
     rec = {f"{who}_{name}_{m}": [] for who in ("parent", "new")
-           for name in calls for m in ("ms", "device_ms")}
+           for name in calls
+           for m in (("ms", "device_ms") if device else ("ms",))}
     for who in SCATTER_AB_TURNS:
         ctx = (parent_library(kernels, stem) if who == "parent"
                else contextlib.nullcontext())
         with ctx:
             for name, fn in calls.items():
                 rec[f"{who}_{name}_ms"].append(event_ms(fn, LIB_AB_REPS))
-                rec[f"{who}_{name}_device_ms"].append(
-                    spun_ms(queued_ms, fn, f"{stem}_ab"))
+                if device:
+                    rec[f"{who}_{name}_device_ms"].append(
+                        spun_ms(queued_ms, fn, f"{stem}_ab"))
     for k, n in zip(kernels.KERNELS, launches):
         k.launches = n
     out = dict(differing=differ,
@@ -5236,7 +5345,7 @@ def groups_to_card(g):
     """dedup_groups' plain dict as MEMO_CACHE takes MEMO_DEDUP's."""
     i32 = lambda x: x.to(torch.int32).contiguous()
     dev = g["srow"].device
-    return dict(srow=i32(g["srow"]), gid=i32(g["gid"]),
+    return dict(srow=i32(g["srow"]), gid=i32(g["gid"]), rgid=i32(g["rgid"]),
                 rep_orig=i32(g["rep_orig"]),
                 n_unique=torch.tensor([g["n_unique"]], dtype=torch.int32,
                                       device=dev),
@@ -5245,8 +5354,8 @@ def groups_to_card(g):
 
 
 def dedup_err(k, p) -> int:
-    err = max(int_err(k[n], p[n]) for n in ("srow", "gid", "rep_orig",
-                                            "rep_valid"))
+    err = max(int_err(k[n], p[n]) for n in ("srow", "gid", "rgid",
+                                            "rep_orig", "rep_valid"))
     return max(err, abs(int(k["n_unique"].item()) - p["n_unique"]),
                abs(int(k["overflow"].item()) - p["overflow"]))
 
@@ -5319,10 +5428,10 @@ def dedup_ab(kernels, batches: dict, rep_cap: int) -> dict:
              "parent": lambda k: parent_memo_dedup(kernels, k, rep_cap)}
     launches = kernels.MEMO_DEDUP.launches
     differ = {}
-    if ab:
+    if ab:  # every output the parent has (rgid is new)
         for name, k in batches.items():
             a, b = calls["new"](k), calls["parent"](k)
-            differ[name] = sum(entries_differ(a[f], b[f]) for f in a)
+            differ[name] = sum(entries_differ(a[f], b[f]) for f in b)
     rec = {}
     for who in SCATTER_AB_TURNS if ab else ("new", "new"):
         for name, k in batches.items():
@@ -5331,14 +5440,259 @@ def dedup_ab(kernels, batches: dict, rep_cap: int) -> dict:
             rec.setdefault(f"{who}_{name}_device_ms", []).append(
                 spun_ms(queued_ms, fn, "memo_ab", DEDUP_QUEUED))
     kernels.MEMO_DEDUP.launches = launches
-    out = dict(differing=differ, rep_cap=rep_cap,
-               medians={k: round(float(np.median(v)), 4)
-                        for k, v in rec.items()},
+    med = {k: round(float(np.median(v)), 4) for k, v in rec.items()}
+    out = dict(differing=differ, rep_cap=rep_cap, medians=med,
                turns={k: [round(x, 4) for x in v] for k, v in rec.items()})
+    if ab:  # rgid's writes: the device ms against the parent's
+        out["device_ms_over_parent"] = {
+            name: round(med[f"new_{name}_device_ms"]
+                        - med[f"parent_{name}_device_ms"], 4)
+            for name in batches}
     print("  memo_ab " + json.dumps(out), flush=True)
     if any(differ.values()):
         raise SystemExit(f"memo_ab: MEMO_DEDUP's outputs differ from the "
                          f"parent's: {differ}")
+    return out
+
+
+def spun_host_us(fn, calls: int = 20) -> float:
+    """Host microseconds per call of `fn` with the launches queued behind
+    a device spin (the device busy, so the host never waits on it)."""
+    fn()
+    torch.cuda.synchronize()
+    with gc_paused():
+        torch.cuda._sleep(SCATTER_SPIN)
+        t = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        us = (time.perf_counter() - t) / calls * 1e6
+    torch.cuda.synchronize()
+    return us
+
+
+def cache_ab(kernels, pol, keys, gs, rows, has_l3: bool) -> dict:
+    """MEMO_CACHE on both halves of a Zipf pair (`keys` [2, 3, B] and
+    their MEMO_DEDUP groups `gs`) from the warm `rows`, as the memoized
+    pair runs it: the ingress half copies the rows into a buffer and
+    commits there, the egress half commits in place, adds to the stats
+    and restores the rows on an overflow.  Per half: device ms over 20
+    calls queued behind a spin, CUDA events over 20 calls and the
+    wrapper's host µs per call queued behind a spin, in turns parent,
+    new, new, parent with the parent's build (--ab-parent: both halves'
+    v0, v1, hit, the rows and the stats must agree, SystemExit
+    otherwise), else this build's twice; medians.  Launches not
+    counted."""
+    from cilium_tpu_torch.engine import memo
+
+    ab = "memo" in AB["libs"]
+    b = int(keys.shape[2])
+    impl = {"new": kernels.MEMO_CACHE,
+            "parent": lambda *a, **k: parent_memo_cache(kernels, *a, **k)}
+    bufs = {who: dict(rows=torch.empty_like(rows),
+                      stats=torch.empty(memo.STATS, dtype=torch.int32,
+                                        device="cuda"),
+                      vals=torch.empty((2, 2, b), dtype=torch.int32,
+                                       device="cuda"),
+                      hits=torch.empty((2, b), dtype=torch.bool,
+                                       device="cuda"))
+            for who in ("new", "parent")}
+
+    def half(who, h):
+        u = bufs[who]
+        return lambda: impl[who](
+            pol, keys[h], gs[h], rows if h == 0 else u["rows"], u["rows"],
+            u["stats"], rep_cap=MEMO_REP_CAP, has_l3=has_l3,
+            accumulate=h == 1, restore=rows if h == 1 else None,
+            out=(u["vals"][h, 0], u["vals"][h, 1], u["hits"][h]))
+
+    launches = kernels.MEMO_CACHE.launches
+    differ = None
+    if ab:
+        for who in ("new", "parent"):
+            half(who, 0)()
+            half(who, 1)()
+        torch.cuda.synchronize()
+        differ = {k: entries_differ(bufs["new"][k], bufs["parent"][k])
+                  for k in ("rows", "stats", "vals", "hits")}
+    rec = {}
+    for who in SCATTER_AB_TURNS if ab else ("new", "new"):
+        for h in (0, 1):
+            fn = half(who, h)
+            rec.setdefault(f"{who}_half{h}_device_ms", []).append(
+                spun_ms(queued_ms, fn, "cache_ab"))
+            rec.setdefault(f"{who}_half{h}_ms", []).append(event_ms(fn, 20))
+            rec.setdefault(f"{who}_half{h}_host_us", []).append(
+                spun_host_us(fn))
+    kernels.MEMO_CACHE.launches = launches
+    out = dict(differing=differ, rep_cap=MEMO_REP_CAP,
+               medians={k: round(float(np.median(v)), 4)
+                        for k, v in rec.items()},
+               turns={k: [round(x, 4) for x in v] for k, v in rec.items()})
+    print("  cache_ab " + json.dumps(out), flush=True)
+    if differ and any(differ.values()):
+        raise SystemExit(f"cache_ab: MEMO_CACHE's outputs differ from the "
+                         f"parent's: {differ}")
+    return out
+
+
+CACHE_CASE_ROWS = 1 << 6  # a narrow cache: many keys a bucket
+
+
+CACHE_MANY_TUPLES = 1 << 19  # more representatives than HIT_SMEM_WORDS' bits
+
+
+def distinct_tuples(w, seed: int) -> dict:
+    """CACHE_MANY_TUPLES of bench's lattice tuples with their dports drawn
+    over the whole range: nearly every tuple a key of its own."""
+    from cilium_tpu_torch import world
+
+    cols = world.lattice_tuples(w, CACHE_MANY_TUPLES, seed=seed)
+    cols["dport"] = np.random.default_rng(seed).integers(
+        0, 1 << 16, CACHE_MANY_TUPLES)
+    return cols
+
+
+def cache_cases_check(kernels, pol, keys2, has_l3: bool, many) -> dict:
+    """MEMO_CACHE against memo_cache_plain on both halves of a pair's
+    keys (`keys2` [2, 3, B]; the ingress half copies the rows and commits
+    into the copy, the egress half commits in place, adds to the stats
+    and restores on an overflow), over the three layouts at 8, 16 and 32
+    entries (CACHE_CASE_ROWS rows: ranks past the lanes), one bucket for
+    every representative, one key (U = 1), rep_cap = U, an overflow of
+    the second half with the restore, and `many` (keys [2, 3, B'] without
+    an L3 bit whose halves hold more representatives than a block's
+    shared memory holds hit bits: the kernel reads them from global
+    memory): {case: differing entries of v0, v1, hit, the rows and the
+    stats}."""
+    from cilium_tpu_torch.convert import cache_rows_to
+    from cilium_tpu_torch.device import widen
+    from cilium_tpu_torch.engine import memo
+
+    def rows_of(layout, e, n):
+        if layout == "legacy":
+            return np.full((n + 1, memo.CACHE_WORDS * e), memo.EMPTY,
+                           np.uint32)
+        return memo.make_cache_rows(n, e, subword=layout == "subword")
+
+    cases = {f"{lay}_{e}": (lay, e, CACHE_CASE_ROWS, keys2, (None, None),
+                            has_l3)
+             for lay in ("legacy", "rank", "subword") for e in (8, 16, 32)}
+    one = keys2[:, :, :1].expand(-1, -1, 1 << 16).contiguous()
+    cases.update(one_bucket=("rank", 8, 1, keys2, (None, None), has_l3),
+                 one_key=("rank", 8, CACHE_CASE_ROWS, one, (None, None),
+                          has_l3),
+                 rep_cap_u=("subword", 16, CACHE_CASE_ROWS, keys2,
+                            ("u", "u"), has_l3),
+                 overflow_restore=("rank", 8, CACHE_CASE_ROWS, keys2,
+                                   (None, "half"), has_l3),
+                 many_reps=("rank", 8, MEMO_ROWS, many, (None, None),
+                            False))
+    launches = kernels.MEMO_CACHE.launches
+    errs = {}
+    for name, (layout, e, n, kk, caps, has_l3) in cases.items():
+        rows = cache_rows_to(rows_of(layout, e, n), "cuda")
+        out_rows = torch.empty_like(rows)
+        stats = torch.empty(memo.STATS, dtype=torch.int32, device="cuda")
+        p_rows = rows
+        p_stats = torch.zeros(memo.STATS, dtype=torch.int64, device="cuda")
+        err = 0
+        for h in (0, 1):
+            keys = kk[h]
+            k0, k1, k2 = (widen(keys[i]) for i in range(3))
+            u = memo.dedup_groups(k0, k1, k2, 1)["n_unique"]
+            cap = {None: int(keys.shape[1]), "u": u,
+                   "half": max(u // 2, 1)}[caps[h]]
+            g = memo.dedup_groups(k0, k1, k2, cap)
+            got = kernels.MEMO_CACHE(
+                pol, keys, groups_to_card(g), rows if h == 0 else out_rows,
+                out_rows, stats, rep_cap=cap, has_l3=has_l3,
+                accumulate=h == 1, restore=rows if h == 1 else None)
+            pv0, pv1, phit, prow, pst = memo.memo_cache_plain(
+                pol, p_rows, (k0, k1, k2), g, k0, ((k1 >> 1) & 1).bool(),
+                (k1 & 1).bool() if has_l3 else None, k2 >> 1, k2 & 1,
+                k1 >> 16, (k1 >> 8) & 0xFF, cap)
+            p_stats = p_stats + pst
+            restored = h == 1 and int(p_stats[memo.STAT_OVERFLOW]) != 0
+            p_rows = rows if restored else prow
+            torch.cuda.synchronize()
+            err += (int_err(got[0], pv0, u32=True)
+                    + int_err(got[1], pv1, u32=True) + int_err(got[2], phit)
+                    + int_err(out_rows, p_rows, u32=True)
+                    + int_err(stats, p_stats, u32=True))
+        if name == "overflow_restore" and not restored:
+            err += 1
+        errs[name] = err
+    kernels.MEMO_CACHE.launches = launches
+    return errs
+
+
+def parent_memo_pair(kernels, tables, pair, cache_rows, acc, telem,
+                     rep_cap: int):
+    """engine/memo._memo_pair_cuda with the parent's MEMO_DEDUP and
+    MEMO_CACHE (--ab-parent): the memoized pair as the parent ran it."""
+    from cilium_tpu_torch.engine import memo
+
+    dev = pair.device
+    b = int(pair.shape[2])
+    front = kernels.DATAPATH_PAIR_MEMO.front(tables, pair)
+    stats = torch.empty(memo.STATS, dtype=torch.int32, device=dev)
+    out_rows = torch.empty_like(cache_rows)
+    vals = torch.empty((2, 2, b), dtype=torch.int32, device=dev)
+    hits = torch.empty((2, b), dtype=torch.bool, device=dev)
+    for half in (0, 1):
+        keys = front.keys[half]
+        g = parent_memo_dedup(kernels, keys, rep_cap)
+        parent_memo_cache(
+            kernels, tables.policy, keys, g,
+            cache_rows if half == 0 else out_rows, out_rows, stats,
+            rep_cap=rep_cap, has_l3=front.has_l3, accumulate=half == 1,
+            restore=cache_rows if half == 1 else None,
+            out=(vals[half, 0], vals[half, 1], hits[half]))
+    out_i, out_e = kernels.DATAPATH_PAIR_MEMO.back(tables, pair, front, vals,
+                                                   acc, telem, stats)
+    return out_i, out_e, acc, telem, out_rows, hits[0], hits[1], stats
+
+
+def memo_pair_ab(kernels, tables, pt, rows, acc, tel) -> dict:
+    """The whole memoized pair (memo_pair_packed4) against the same pair
+    on the parent's MEMO_DEDUP and MEMO_CACHE (--ab-parent): every output
+    equal (SystemExit otherwise), then CUDA events and device ms over 20
+    pairs, in turns parent, new, new, parent; medians.  None without the
+    parent's build.  Launches not counted."""
+    from cilium_tpu_torch.engine import memo
+
+    if "memo" not in AB["libs"]:
+        return None
+    launches = [k.launches for k in kernels.KERNELS]
+    calls = {"new": lambda: memo.memo_pair_packed4(
+                 tables, pt, rows, acc, tel, MEMO_REP_CAP),
+             "parent": lambda: parent_memo_pair(
+                 kernels, tables, pt, rows, acc, tel, MEMO_REP_CAP)}
+    got = {}
+    for who, fn in calls.items():
+        a, t_ = acc.clone().zero_(), tel.clone().zero_()
+        got[who] = list(_tensors(memo.memo_pair_packed4(
+            tables, pt, rows, a, t_, MEMO_REP_CAP) if who == "new" else
+            parent_memo_pair(kernels, tables, pt, rows, a, t_,
+                             MEMO_REP_CAP)))
+    torch.cuda.synchronize()
+    differ = sum(entries_differ(a, b) for a, b in zip(got["new"],
+                                                       got["parent"]))
+    rec = {}
+    for who in SCATTER_AB_TURNS:
+        rec.setdefault(f"{who}_ms", []).append(event_ms(calls[who], 20))
+        rec.setdefault(f"{who}_device_ms", []).append(
+            spun_ms(queued_ms, calls[who], "memo_pair_ab", DEDUP_QUEUED))
+    for k, n in zip(kernels.KERNELS, launches):
+        k.launches = n
+    out = dict(differing=differ,
+               medians={k: round(float(np.median(v)), 4)
+                        for k, v in rec.items()},
+               turns={k: [round(x, 4) for x in v] for k, v in rec.items()})
+    print("  memo_pair_ab " + json.dumps(out), flush=True)
+    if differ:
+        raise SystemExit(f"memo_pair_ab: {differ} entries differ from the "
+                         f"parent's memoized pair")
     return out
 
 
@@ -5449,6 +5803,14 @@ def memo_check(kernels, w, tables, pub) -> dict:
     err_cache = max(int_err(v0, pv0, u32=True), int_err(v1, pv1, u32=True),
                     int_err(hit, phit), int_err(out_k, prow, u32=True),
                     int_err(st_k, pst, u32=True))
+    many = torch.stack([kernels.MEMO_KEYS_LATTICE.keys(
+        tables.policy, TupleBatch.from_numpy(**distinct_tuples(w, seed),
+                                             device="cuda").pack())
+        for seed in (66, 67)])
+    err_cache_cases = cache_cases_check(kernels, tables.policy, front.keys,
+                                        front.has_l3, many)
+    del many
+    err_cache = max(err_cache, *err_cache_cases.values())
 
     # the stamp flush: a new epoch's policy, 0 hits, then hits again
     tables2 = memo_policy_churn(w, tables, pub)
@@ -5517,6 +5879,7 @@ def memo_check(kernels, w, tables, pub) -> dict:
           pair_vs_uncached_err=err_ref, hits_consistent=consistent,
           flushed=flushed, dedup_err=err_dedup,
           dedup_cases_err=json.dumps(err_cases), cache_err=err_cache,
+          cache_cases_err=json.dumps(err_cache_cases),
           overflow_cap=MEMO_OVERFLOW_CAP, overflow=overflow,
           overflow_err=err_over, evaluate_tuples=MEMO_TUPLES,
           evaluate_vs_plain_err=err_eval,
@@ -5742,8 +6105,9 @@ def memo_timing(kernels, tables, chk, path, lat_counts) -> list:
             rep_cap=MEMO_REP_CAP, has_l3=front.has_l3, accumulate=h == 1,
             out=(vals[h, 0], vals[h, 1], hits[h]))
 
+    g1 = kernels.MEMO_DEDUP(front.keys[1], MEMO_REP_CAP)
     cache_call(0, g)
-    cache_call(1, kernels.MEMO_DEDUP(front.keys[1], MEMO_REP_CAP))
+    cache_call(1, g1)
     # the front and back passes against their plain version on these
     # value words, from fresh carries
     bufs = [(acc.clone().zero_(), tel.clone().zero_()) for _ in range(2)]
@@ -5758,18 +6122,24 @@ def memo_timing(kernels, tables, chk, path, lat_counts) -> list:
                          f"version by {err_mode}")
     mode_plain_ms = event_ms(lambda: memo_mode_plain(
         tables, pt, vals, acc.clone(), tel.clone()), 2)
-    front_ms = event_ms(lambda: kernels.DATAPATH_PAIR_MEMO.front(tables, pt),
-                        20)
-    back_ms = event_ms(lambda: kernels.DATAPATH_PAIR_MEMO.back(
-        tables, pt, front, vals, acc, tel, stats), 20)
+    front_fn = lambda: kernels.DATAPATH_PAIR_MEMO.front(tables, pt)  # noqa
+    back_fn = lambda: kernels.DATAPATH_PAIR_MEMO.back(  # noqa: E731
+        tables, pt, front, vals, acc, tel, stats)
+    front_ms, back_ms = event_ms(front_fn, 20), event_ms(back_fn, 20)
+    front_dev = spun_ms(queued_ms, front_fn, "memo_timing front")
+    back_dev = spun_ms(queued_ms, back_fn, "memo_timing back")
     dedup_ms = event_ms(lambda: kernels.MEMO_DEDUP(keys, MEMO_REP_CAP), 20)
     # against the parent's (--ab-parent) on these Zipf keys and on
     # MEMO_DISTINCT distinct keys, device ms beside the events
     d_ab = dedup_ab(kernels, {"zipf": keys, "distinct": chk["distinct"]},
                     MEMO_REP_CAP)
-    cache_ms = event_ms(lambda: cache_call(0, g), 20)
+    # MEMO_CACHE on both halves against the parent's (--ab-parent):
+    # device ms, events and the wrapper's host µs
+    c_ab = cache_ab(kernels, pol, front.keys, (g, g1), rows, front.has_l3)
+    cache_ms = c_ab["medians"]["new_half0_ms"]
     pair_ms = event_ms(lambda: memo.memo_pair_packed4(
         tables, pt, rows, acc, tel, MEMO_REP_CAP), 20)
+    p_ab = memo_pair_ab(kernels, tables, pt, rows, acc, tel)
     uncached_ms = event_ms(lambda: kernels.DATAPATH_PAIR(tables, pt, acc, tel),
                            20)
     unique_ms = event_ms(lambda: torch.unique(keys.t(), dim=0,
@@ -5828,7 +6198,8 @@ def memo_timing(kernels, tables, chk, path, lat_counts) -> list:
     per_pair = {n: path["launches"][n] / MEMO_PAIRS
                 for n in ("datapath_pair_memo", "memo_dedup", "memo_cache")}
     phase("memo_timing", t, front_ms=round(front_ms, 4),
-          back_ms=round(back_ms, 4), dedup_ms=round(dedup_ms, 4),
+          back_ms=round(back_ms, 4), front_device_ms=round(front_dev, 4),
+          back_device_ms=round(back_dev, 4), dedup_ms=round(dedup_ms, 4),
           cache_ms=round(cache_ms, 4), memo_pair_ms=round(pair_ms, 4),
           uncached_pair_ms=round(uncached_ms, 4),
           unique_ms=round(unique_ms, 4), dedup_plain_ms=round(dedup_plain, 4),
@@ -5849,7 +6220,9 @@ def memo_timing(kernels, tables, chk, path, lat_counts) -> list:
                                                          err_mode),
             front_ms + back_ms, mode_plain_ms, mb(front_back_bytes),
             mo(mode_ops)),
-            front_ms=front_ms, back_ms=back_ms, memo_pair_ms=pair_ms,
+            front_ms=front_ms, back_ms=back_ms, front_device_ms=front_dev,
+            back_device_ms=back_dev, memo_pair_ms=pair_ms,
+            memo_pair_ab=p_ab["medians"] if p_ab else None,
             memo_pair_plain_ms=pair_plain, uncached_pair_ms=uncached_ms,
             plain_of="the front and back passes, plain, on the same value "
                      "words",
@@ -5867,7 +6240,8 @@ def memo_timing(kernels, tables, chk, path, lat_counts) -> list:
             device_ms=d_ab["medians"]["new_zipf_device_ms"],
             distinct_ms=d_ab["medians"]["new_distinct_ms"],
             distinct_device_ms=d_ab["medians"]["new_distinct_device_ms"],
-            ab=d_ab["medians"] if d_ab["differing"] else None),
+            ab=d_ab["medians"] if d_ab["differing"] else None,
+            ab_device_ms_over_parent=d_ab.get("device_ms_over_parent")),
         dict(kernel_row(
             kernels.MEMO_CACHE, "cilium_tpu_torch/csrc/memo.cu",
             "cilium_tpu/engine/memo.py:326",
@@ -5876,7 +6250,15 @@ def memo_timing(kernels, tables, chk, path, lat_counts) -> list:
             mo(n_valid * (16 * 3 + 4 * 8))),
             launches_by_path={"memo": path["launches"]["memo_cache"],
                               "memo_lattice": lat_counts["memo_cache"]},
-            launches_per_pair=per_pair["memo_cache"]),
+            launches_per_pair=per_pair["memo_cache"],
+            device_ms=c_ab["medians"]["new_half0_device_ms"],
+            egress_ms=c_ab["medians"]["new_half1_ms"],
+            egress_device_ms=c_ab["medians"]["new_half1_device_ms"],
+            host_us=c_ab["medians"]["new_half0_host_us"],
+            egress_host_us=c_ab["medians"]["new_half1_host_us"],
+            ptxas=CACHE_PTXAS.get(""),
+            ab=c_ab["medians"] if c_ab["differing"] is not None else None,
+            ab_differing=c_ab["differing"]),
         dict(kernel_row(
             kernels.MEMO_KEYS_LATTICE, "cilium_tpu_torch/csrc/memo.cu",
             "cilium_tpu/engine/memo.py:673",
@@ -5979,6 +6361,8 @@ def persistent_check(kernels, w, tables) -> dict:
 PAIR_PTXAS = {}  # layout name: the pair kernel's ptxas record (build)
 STEP_PTXAS = {}  # the same of DATAPATH_STEP's kernel
 DEDUP_PTXAS = {}  # MEMO_DEDUP's kernel ({"": record})
+CACHE_PTXAS = {}  # MEMO_CACHE's kernel ({"": record})
+ROUTED_PTXAS = {}  # ROUTED_PROBE's kernel ({"": record})
 PAIR_AB_REPS = 20
 
 
@@ -6477,6 +6861,126 @@ def mesh_kernel_checks(kernels, u) -> dict:
     return errs
 
 
+ROUTED_CASE_TUPLES = 8000
+ROUTED_CASE_MESHES = ((2, 4), (4, 2))
+
+
+def routed_edge_cols(cols) -> dict:
+    """`cols` with edge words in its first 16 tuples: identities past
+    id_direct's two regions and outside the universe, negative and huge
+    endpoints and directions, dports past 65,535."""
+    out = {k: np.asarray(v).copy() for k, v in cols.items()}
+    edge = dict(
+        identity=[0xFFFFFFFF, 0x7FFFFFFF, (1 << 24) + 70000, (1 << 24) - 1,
+                  999999, 1 << 31, (1 << 24) + 200, 7],
+        ep_index=[-1, -2, 1 << 20, 0xFFFFFFFF, 2, 1, 0, -3],
+        direction=[-1, 2, 255, 0xFFFFFFFE, 1, 0, 1, 0],
+        dport=[70000, 65536, 1 << 31, 0xFFFFFFFF, 80, 53, 443, 8080])
+    for k, v in edge.items():
+        col = out[k].astype(np.int64)
+        col[:16] = np.asarray(v * 2, np.int64)
+        out[k] = (col & 0xFFFFFFFF).astype(np.uint32)
+    return out
+
+
+def stash_hit_cols(pol, cols) -> dict:
+    """`cols` with the tuples from the 17th on replaced, one an entry,
+    by tuples whose keys are the entries of both L4 stashes (the compact
+    layout's key words decoded: identity, dport, proto, endpoint,
+    direction), so that both stashes are hit."""
+    out = {k: np.asarray(v).copy() for k, v in cols.items()}
+    ids = np.asarray(pol.id_table).astype(np.int64) & M32
+    at = 16
+    for stash in (pol.l4_hash_stash, pol.l4_wild_stash):
+        for w0, w1 in (np.asarray(stash).astype(np.int64) & M32)[:, :2]:
+            if w0 == 0xFFFFFFFF:  # an empty slot
+                continue
+            idx = int(w0 & 0x3FFFF)
+            out["identity"][at] = ids[min(idx, len(ids) - 1)]
+            out["dport"][at] = (w0 >> 18) | ((w1 & 3) << 14)
+            out["proto"][at] = (w1 >> 2) & 0xFF
+            out["ep_index"][at] = (w1 >> 10) & 0xFF
+            out["direction"][at] = (w1 >> 18) & 1
+            at += 1
+    return out
+
+
+def routed_cases_check(kernels) -> dict:
+    """ROUTED_PROBE against routed_probe_plain on every shard of (2, 4)
+    and (4, 2) meshes, partitioned and in failover mode healthy and with
+    chip (0, 1) dead, on a small world whose hashed tables are repacked
+    at 4 lanes (entries spill into both stashes: the tuples hit them)
+    with routed_edge_cols' and stash_hit_cols' tuples; then the failover
+    evaluator with holes (one tuple in 5 not valid) and chip (0, 1) dead
+    on the card against the same evaluator on the plain versions on the
+    CPU.
+    {name: differing entries}, and the stash hits."""
+    from cilium_tpu_torch import world
+    from cilium_tpu_torch.compiler import partition
+    from cilium_tpu_torch.compiler.tables import repack_l4_subword
+    from cilium_tpu_torch.convert import policy_tables_to
+    from cilium_tpu_torch.engine import mesh, sharded
+    from cilium_tpu_torch.engine.verdict import TupleBatch
+
+    w = world.make_world(seed=6, n_rules=400, n_endpoints=4,
+                         n_identities=512, n_cidr_blocks=16, n_vips=4,
+                         n_pool=3000, ct_max_entries=4096, identity_pad=256,
+                         filter_pad=16)
+    pol = repack_l4_subword(w.host_tables().policy, lanes=4)
+    cols = routed_edge_cols(world.lattice_tuples(w, ROUTED_CASE_TUPLES,
+                                                 seed=3))
+    cols["identity"][16::7] = 7  # unknown identities
+    cols = stash_hit_cols(pol, cols)
+    valid = np.arange(ROUTED_CASE_TUPLES) % 5 != 0
+    launches = kernels.ROUTED_PROBE.launches
+    errs, stash_hits = {}, 0
+    for dp_, tp in ROUTED_CASE_MESHES:
+        m = mesh.make_mesh(dp_, tp, device="cuda")
+        batch = TupleBatch.from_numpy(**cols, device="cuda")
+        sb = sharded.shard_batch(m, batch)
+        dead = np.ones((dp_, tp), bool)
+        dead[0, 1] = False
+        for mode, failover, alive in (("partitioned", False, None),
+                                      ("healthy", True, np.ones_like(dead)),
+                                      ("dead", True, dead)):
+            tab = (partition.replicate_table_leaves(pol, tp) if failover
+                   else pol)
+            specs, g = sharded._routed_geom(pol, tp, "table",
+                                            failover=failover)
+            placed = mesh.place_tables(policy_tables_to(tab, "cuda"),
+                                       mesh.shardings_of(m, specs))
+            differ = 0
+            for (b, t), dev in np.ndenumerate(m.devices):
+                bl = sb.on(b, dev)
+                row = (torch.from_numpy(alive[b]).cuda() if failover
+                       else None)
+                k = kernels.ROUTED_PROBE(placed.shard(b, t), bl, g, t, row)
+                p = sharded.routed_probe_plain(placed.shard(b, t), bl, g, t,
+                                               row)
+                differ += entries_differ(k, p)
+                stash_hits += int(((p[0] & sharded.F_STASH) != 0).sum())
+            errs[f"{dp_}x{tp}_{mode}"] = differ
+        runs = []
+        for dev in ("cuda", "cpu"):
+            mm = mesh.make_mesh(dp_, tp, device=dev)
+            runs.append(sharded.make_failover_evaluator(mm, pol)(
+                policy_tables_to(partition.replicate_table_leaves(pol, tp),
+                                 dev),
+                TupleBatch.from_numpy(**cols, device=dev), dead, valid))
+        torch.cuda.synchronize()
+        cpu = lambda x: torch.as_tensor(x).cpu()  # noqa: E731
+        errs[f"{dp_}x{tp}_evaluator_holes"] = sum(
+            entries_differ(cpu(getattr(runs[0][0], c)),
+                           cpu(getattr(runs[1][0], c)))
+            for c in ("allowed", "proxy_port", "match_kind")) + sum(
+            entries_differ(cpu(a), cpu(b_))
+            for a, b_ in zip(runs[0][1:], runs[1][1:]))
+    kernels.ROUTED_PROBE.launches = launches
+    return dict(errs=errs, stash_hits=stash_hits,
+                stash_rows=int(pol.l4_hash_stash.shape[0]),
+                wild_stash_rows=int(pol.l4_wild_stash.shape[0]))
+
+
 def mesh_check(kernels, u, path) -> dict:
     """mesh_check: every count of differing rows or entries must be 0 —
     the kernels against their plain versions (mesh_kernel_checks); the
@@ -6493,6 +6997,8 @@ def mesh_check(kernels, u, path) -> dict:
 
     t = time.perf_counter()
     errs = mesh_kernel_checks(kernels, u)
+    cases = routed_cases_check(kernels)
+    errs.update({f"routed_{k}": v for k, v in cases["errs"].items()})
     ref_v, ref_acc = kernels.LATTICE(u["single"], u["batch"], counters=True)
     ref_l4, ref_l3 = split_counters(ref_acc, u["single"])
     ref_tel = mesh_telemetry(ref_v, u["batch"].direction)
@@ -6545,12 +7051,17 @@ def mesh_check(kernels, u, path) -> dict:
     bad = {k: v for k, v in errs.items()
            if v and k != "fail_healthy_replica_hits"}
     phase("mesh_check", t, tuples=LATTICE_TUPLES, errs=errs,
+          routed_cases_stash_hits=cases["stash_hits"],
+          routed_cases_stash_rows=[cases["stash_rows"],
+                                   cases["wild_stash_rows"]],
           dead_chip=MESH_DEAD, dead_replica_hits=hits,
           allowed=int(ref_v.allowed.sum()),
           match_kinds=torch.bincount(ref_v.match_kind.long(),
                                      minlength=5).tolist())
-    if bad or errs["fail_healthy_replica_hits"] or min(hits) <= 0:
-        raise SystemExit(f"mesh_check: {bad}, replica hits {hits}")
+    if (bad or errs["fail_healthy_replica_hits"] or min(hits) <= 0
+            or cases["stash_hits"] <= 0):
+        raise SystemExit(f"mesh_check: {bad}, replica hits {hits}, stash "
+                         f"hits {cases['stash_hits']}")
     return errs
 
 
@@ -6651,12 +7162,14 @@ def store_update_check(kernels, u, w) -> dict:
     return errs
 
 
-def mesh_need(u, kind: str, b: int, t: int) -> int:
+def mesh_need(u, kind: str, b: int, t: int, alive_row=None) -> int:
     """Bytes one probe launch must move for its batch row's data: the
     tuple's five words the probe reads (20 B; the fragment word is the
     combine's) in and its record out (MESH_PROBE 16 B, ROUTED_PROBE 20
     B) per tuple, and each distinct row or element of the shard's
-    leaves the plain version gathers, read once; stashes whole."""
+    leaves the plain version gathers, read once; stashes whole.  `kind`
+    "routed" is the partitioned epoch, "failover" the replica epoch
+    under `alive_row`."""
     from cilium_tpu_torch.engine import sharded as sh
 
     sb = u["sb24"]
@@ -6671,11 +7184,11 @@ def mesh_need(u, kind: str, b: int, t: int) -> int:
         run = lambda: sh.mesh_probe_plain(tab, bl, t * g.w_local)  # noqa
         record = 16
     else:
-        tab = u["mt_part"].shard(b, t)
+        tab = u["mt_part" if kind == "routed" else "mt_rep"].shard(b, t)
+        g = u["ev_part" if kind == "routed" else "ev_fail"].geom
         names = ("id_direct", "l4_hash_rows", "l4_hash_stash",
                  "l4_wild_rows", "l4_wild_stash", "l3_allow_bits")
-        run = lambda: sh.routed_probe_plain(tab, bl, u["ev_part"].geom,  # noqa
-                                            t)
+        run = lambda: sh.routed_probe_plain(tab, bl, g, t, alive_row)  # noqa
         record = 20
     rows_b, _, _ = leaf_bytes([(n, getattr(tab, n)) for n in names], run)
     return rows_b + int(bl.ep_index.numel()) * (20 + record)
@@ -6730,12 +7243,34 @@ def mesh_timing(kernels, u, path, chk, smi) -> list:
     tab_m, tab_p = u["mt_mesh"].shard(0, 0), u["mt_part"].shard(0, 0)
     parts = [kernels.ROUTED_PROBE(u["mt_part"].shard(0, k), bl, g_part, k)
              for k in range(tp)]
+    # failover mode with chip MESH_DEAD dead: shard 0 of its batch row,
+    # and the shard that serves the dead chip's rows from its backup
+    # region
+    g_fail = u["ev_fail"].geom
+    alive = np.ones(MESH_SHAPE, bool)
+    alive[MESH_DEAD] = False
+    row_f = torch.from_numpy(alive[MESH_DEAD[0]]).cuda()
+    back = (MESH_DEAD[1] + 1) % tp
+    tab_f, tab_fb = (u["mt_rep"].shard(MESH_DEAD[0], 0),
+                     u["mt_rep"].shard(MESH_DEAD[0], back))
+    bl_f = sb.on(MESH_DEAD[0], u["m24"].devices[MESH_DEAD[0], 0])
+    routed = {
+        "routed_probe": lambda: kernels.ROUTED_PROBE(tab_p, bl, g_part, 0),
+        "routed_failover": lambda: kernels.ROUTED_PROBE(tab_f, bl_f, g_fail,
+                                                        0, row_f),
+        "routed_failover_backup": lambda: kernels.ROUTED_PROBE(
+            tab_fb, bl_f, g_fail, back, row_f)}
     res = {}
     for name, fn, plain in (
             ("mesh_probe", lambda: kernels.MESH_PROBE(tab_m, bl, 0),
              lambda: sh.mesh_probe_plain(tab_m, bl, 0)),
-            ("routed_probe", lambda: kernels.ROUTED_PROBE(tab_p, bl, g_part, 0),
+            ("routed_probe", routed["routed_probe"],
              lambda: sh.routed_probe_plain(tab_p, bl, g_part, 0)),
+            ("routed_failover", routed["routed_failover"],
+             lambda: sh.routed_probe_plain(tab_f, bl_f, g_fail, 0, row_f)),
+            ("routed_failover_backup", routed["routed_failover_backup"],
+             lambda: sh.routed_probe_plain(tab_fb, bl_f, g_fail, back,
+                                           row_f)),
             ("mesh_combine",
              lambda: kernels.MESH_COMBINE(parts, tab_p, bl, g_part),
              lambda: sh.mesh_combine_plain(parts, tab_p, bl, g_part))):
@@ -6747,9 +7282,14 @@ def mesh_timing(kernels, u, path, chk, smi) -> list:
                              "queue behind the device spin")
         wrapper_ms = event_ms(fn, 20)
         plain_ms = event_ms(plain, 3)
-        need = (mesh_need(u, "mesh" if name == "mesh_probe" else "routed",
-                          0, 0) if name != "mesh_combine"
-                else combine_need(parts, tab_p, bl, g_part))
+        if name == "mesh_combine":
+            need = combine_need(parts, tab_p, bl, g_part)
+        elif name.startswith("routed_failover"):
+            need = mesh_need(u, "failover", MESH_DEAD[0],
+                             back if name.endswith("backup") else 0, row_f)
+        else:
+            need = mesh_need(u, "mesh" if name == "mesh_probe" else "routed",
+                             0, 0)
         res[name] = dict(tuples=int(bl.ep_index.numel()), ms=ms,
                          wrapper_ms=wrapper_ms, plain_ms=plain_ms,
                          bytes=need, bound_ms=need / HBM_BYTES_PER_S * 1e3)
@@ -6770,6 +7310,26 @@ def mesh_timing(kernels, u, path, chk, smi) -> list:
     for name, r in res.items():
         print(f"  mesh_timing {name} " + json.dumps(r), flush=True)
     print("  mesh_timing evaluators " + json.dumps(rates), flush=True)
+    # ROUTED_PROBE's 16-byte key-plane loads: the rows' alignment at the
+    # lanes the epochs use (a row is aligned when its tensor's base is and
+    # its lanes are a multiple of 4)
+    aligned = {}
+    for name, mt in (("partitioned", u["mt_part"]), ("replica", u["mt_rep"])):
+        for leaf in ("l4_hash_rows", "l4_wild_rows"):
+            bases = {int(getattr(mt.shard(b_, t_), leaf).data_ptr()) % 16
+                     for (b_, t_), _ in np.ndenumerate(u["m24"].devices)}
+            lanes = int(getattr(mt.shard(0, 0), leaf).shape[1])
+            aligned[f"{name}.{leaf}"] = dict(lanes=lanes,
+                                             base_mod16=sorted(bases),
+                                             aligned=bases == {0}
+                                             and lanes % 4 == 0)
+    print("  mesh_timing rows_aligned " + json.dumps(aligned), flush=True)
+    # against the parent's csrc/mesh.cu (--ab-parent): ROUTED_PROBE, then
+    # the two evaluators that launch it dp x tp times a call (events)
+    ab = library_ab(kernels, "mesh", routed)
+    ev_ab = library_ab(kernels, "mesh", {
+        f"{name}_evaluator": fn for name, fn in evals
+        if name in ("partitioned", "failover")}, device=False)
     phase("mesh_timing", t, card=repr(smi), calls=MESH_CALLS)
     rows = []
     for kernel, replaces in (
@@ -6785,6 +7345,17 @@ def mesh_timing(kernels, u, path, chk, smi) -> list:
                          path["counts"][kernel.name], err, r["ms"],
                          r["plain_ms"], r["bound_ms"], 0.0)
         row["evaluators"] = rates
+        if kernel is kernels.ROUTED_PROBE:
+            for mode in ("routed_failover", "routed_failover_backup"):
+                f = res[mode]
+                row[mode[7:]] = dict(ms=f["ms"], events_ms=f["wrapper_ms"],
+                                     plain_ms=f["plain_ms"],
+                                     bound_ms=f["bound_ms"])
+            row.update(events_ms=r["wrapper_ms"], ptxas=ROUTED_PTXAS.get(""),
+                       rows_aligned=aligned,
+                       ab=ab["medians"] if ab else None,
+                       ab_differing=ab["differing"] if ab else None,
+                       evaluator_ab=ev_ab["medians"] if ev_ab else None)
         rows.append(row)
     return rows
 
@@ -8830,6 +9401,63 @@ def relayout_hold(kernels, store, plan) -> dict:
                 ab=scatter_ab(kernels, "relayout", "repair", segs))
 
 
+def reshard_launch_calls(kernels, r) -> dict:
+    """The reshard path's ROUTED_PROBE, MESH_COMBINE and DP_MESH_COMBINE
+    calls at their own shape, built as the router's dispatch builds them
+    from its live epochs after the shrink: batch row 0 of the
+    RESHARD_TUPLES tuples and flows on its (2, 2) mesh, every chip
+    alive, shard (0, 0).  {name: (call, tuples)}."""
+    from cilium_tpu_torch.engine import datapath_mesh as dm
+    from cilium_tpu_torch.engine import sharded as sh
+    from cilium_tpu_torch.engine.verdict import TupleBatch
+
+    router = r["router"]
+    dp_, tp = router.mesh.devices.shape
+    dev = router.mesh.devices[0, 0]
+    mt, g = router.store.current()[1], router._ev.geom
+    n = RESHARD_TUPLES // dp_
+    batch = TupleBatch.from_numpy(**r["cols"], device=dev)
+    bl = sh.shard_batch(router.mesh, batch).on(0, dev)
+    valid = torch.ones(n, dtype=torch.bool, device=dev)
+    alive = torch.ones(tp, dtype=torch.bool, device=dev)
+    parts = [kernels.ROUTED_PROBE(mt.shard(0, k), bl, g, k, alive)
+             for k in range(tp)]
+    md, dg = router.dp_store.current(), router._dp_ev.geom
+    flows = router._flow_batch(r["fcols"])[:, :n].contiguous()
+    prev = None
+    for rnd in range(4):
+        prev = [kernels.DP_MESH_PROBE(rnd, md.shard(0, k), flows,
+                                      dm.FORM_WORDS, prev, alive, k, dg)
+                for k in range(tp)]
+    tab0 = mt.shard(0, 0)
+    return {
+        kernels.ROUTED_PROBE.name: (
+            lambda: kernels.ROUTED_PROBE(tab0, bl, g, 0, alive), n),
+        kernels.MESH_COMBINE.name: (
+            lambda: kernels.MESH_COMBINE(parts, tab0, bl, g, valid, True), n),
+        kernels.DP_MESH_COMBINE.name: (
+            lambda: kernels.DP_MESH_COMBINE(prev, md.shard(0, 0), flows,
+                                            dm.FORM_WORDS, dg, valid, None,
+                                            True), n),
+    }
+
+
+def reshard_launch_timing(kernels, r) -> dict:
+    """The reshard path's mesh launches at their own shape
+    (reshard_launch_calls), each timed: device ms over 20 calls queued
+    behind a spin and CUDA events over 20 calls.  Launches not
+    counted."""
+    launches = [k.launches for k in kernels.KERNELS]
+    out = {}
+    for name, (fn, n) in reshard_launch_calls(kernels, r).items():
+        out[name] = dict(device_ms=spun_ms(queued_ms, fn, "reshard timing"),
+                         events_ms=event_ms(fn, 20), tuples=n)
+    for k, n in zip(kernels.KERNELS, launches):
+        k.launches = n
+    print("  reshard_launch_timing " + json.dumps(out), flush=True)
+    return out
+
+
 def reshard_phase(kernels, w, host, tables, rows) -> None:
     """reshard: the router's stores on the virtual (2, 2) mesh grown to
     (2, 4) and shrunk back through ReshardPlan (counts set to 0 just
@@ -8942,12 +9570,15 @@ def reshard_phase(kernels, w, host, tables, rows) -> None:
             or legs[0]["ordinals"] != [[0, 1, 4, 5], [2, 3, 6, 7]]
             or legs[1]["ordinals"] != [[0, 1], [2, 3]]):
         raise SystemExit(f"reshard: {path}, relayout {hold}")
+    timed = reshard_launch_timing(kernels, r)
     for row in rows:
         n = path.get(row["name"], 0)
         if n:
             row.setdefault("launches_by_path", {"earlier": row["launches"]})
             row["launches_by_path"]["reshard"] = n
             row["launches"] += n
+        if row["name"] in timed:
+            row["reshard_launch"] = timed[row["name"]]
         if row["name"] == kernels.REPAIR_SCATTER.name:
             row["relayout"] = hold
             row["max_abs_err"] = max(row["max_abs_err"], hold["max_abs_err"])
@@ -9077,6 +9708,10 @@ def main(argv=()) -> int:
                                          "datapath_step_kernel"))
         if stem == "memo":
             DEDUP_PTXAS.update(pair_ptxas(kernels, log, "dedup_kernel"))
+            CACHE_PTXAS.update(pair_ptxas(kernels, log, "cache_kernel"))
+        if stem == "mesh":
+            ROUTED_PTXAS.update(pair_ptxas(kernels, log,
+                                           "routed_probe_kernel"))
     for k in kernels.KERNELS:
         k.load()
     phase("build", t)

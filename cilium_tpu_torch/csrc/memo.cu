@@ -38,8 +38,10 @@
 //      sort position) and rep_orig[g] (the slot's row);
 //   3. the rows: (group id, row) pairs in row order sorted stably by the
 //      group id over ceil(log2 U) bits (two passes at U <= 65,536), the
-//      last pass writing srow and gid; U == B puts each row at its group
-//      directly, U == 1 keeps the row order.
+//      last pass writing srow and gid, and rgid (each row's group id in
+//      row order, MEMO_CACHE's scatter-back order) written as the pairs
+//      are made; U == B puts each row at its group directly, U == 1
+//      keeps the row order.
 // A sort pass is three phases: per-tile digit histograms, a scan of each
 // digit's tile counts, and the scatter, which ranks a tile's elements in
 // registers (a warp's share in chunks of 32, __match_any_sync), stages
@@ -53,14 +55,8 @@
 // reads after a barrier is loaded with __ldcg (the L2, never a stale L1
 // line).
 //
-// Each other launcher runs several kernels in order on one stream:
-//   cache  the row copy (when the output is another buffer), the probe
-//          of each representative, the stable sort of the
-//          representatives by bucket (1-4 radix passes, radix.cuh), the
-//          rank within the bucket and the insert lane, the lattice on the
-//          misses, the commit (rank nibbles and entries, only when
-//          nothing overflowed), the scatter-back to every tuple, the stats
-//          row, and the restore of the rows after an overflow of the pair.
+// MEMO_CACHE is one cooperative launch too (its phases are listed at
+// its kernel below).
 // Order where the reference's XLA sort leaves it open: equal keys, and
 // equal buckets, keep their input order (the stable order XLA's CPU sort
 // gives, which the CPU tests check), so the representatives are the
@@ -78,10 +74,17 @@
 // on top (small at the memo's U of tens of thousands; at U = B every
 // key's 12 passes, as the first version's sort did).  The first version
 // sorted all B keys, 16 B a key a pass over 6-12 passes of four launches
-// each (1.06 ms per 2,097,152 Zipf keys on the H100).  The cache reads
-// one 164-byte row per representative and writes 4 B of values and a hit
-// byte per tuple: one thread per element, shared-memory histograms, warp
-// match for the stable ranks, global atomics for the counts.
+// each (1.06 ms per 2,097,152 Zipf keys on the H100).  The dedup also
+// writes rgid, 4 B a row.  The cache must read one 164-byte row per
+// representative and each row's group id (4 B), and write 8 B of values
+// and a hit byte per tuple.  It reads the group ids and writes the values
+// in row order, 16 bytes a thread, gathering each row's values from the
+// U-entry arrays, which stay in the L2 (the first version scattered them
+// through srow: three scattered writes a row, over 14-15 launches a call
+// whose per-representative grids were sized by rep_cap).  Its
+// per-representative phases run over U, and the same-bucket ranks come
+// from per-bucket member lists (a count by atomics, then a run of a list
+// buffer a bucket), not from a sort.
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -119,6 +122,7 @@ struct DedupArgs {
                           // (zeroed by the launcher)
   int32_t* srow;          // [B]
   int32_t* gid;           // [B]
+  int32_t* rgid;          // [B]: each row's group id, in row order
   int32_t* n_unique;      // [1]
   int32_t* rep_orig;      // [rep_cap + 1]
   uint8_t* rep_valid;     // [rep_cap]
@@ -133,8 +137,7 @@ struct CacheArgs {
   const uint32_t* keys;       // [3, B]
   const uint32_t* ep_w;       // [B] tuple words, or null: from k2
   const uint32_t* dir_w;
-  const int32_t* srow;        // MEMO_DEDUP's outputs
-  const int32_t* gid;
+  const int32_t* rgid;        // MEMO_DEDUP's outputs: each row's group
   const int32_t* rep_orig;
   const int32_t* n_unique;
   const int32_t* dedup_overflow;
@@ -145,18 +148,24 @@ struct CacheArgs {
   uint32_t* v1;
   uint8_t* hit;
   uint32_t* stats;            // [5]
-  // per representative [rep_cap]
-  uint8_t* r_hit;
-  uint8_t* r_hit_lane;
-  uint8_t* r_ins_lane;
-  uint8_t* r_do_ins;          // the insert lane is ok, then: inserts
+  // scratch (kernels.cache_scratch_words), per representative [rep_cap]
   uint32_t* r_bucket;
   uint32_t* r_rank_word;
   uint32_t* r_empty;          // bit k: lane k's k0 is EMPTY
-  uint32_t* rv0;              // the representatives' value words
-  uint32_t* rv1;
-  SortArgs sort;              // by bucket; sort.n = &counters[0]
-  int32_t* counters;          // [3]: valid reps, inserts, hits
+  uint32_t* r_arrive;         // its arrival in its bucket (0 first)
+  uint2* rv;                  // the representatives' value words (v0, v1)
+  uint32_t* hit_bits;         // [rep_cap / 32]: bit g, representative g hit
+  uint32_t* seg;              // the larger buckets' later members
+  uint8_t* r_hit;
+  uint8_t* r_hit_lane;
+  // per bucket [n_rows]: representatives, and the start + 1 of a bucket's
+  // run of seg past its SLOTS members; [n_rows, SLOTS] its first members
+  uint32_t* b_count;
+  uint32_t* b_start;
+  uint32_t* b_placed;         // members placed in the run so far
+  uint32_t* b_slots;
+  uint32_t* ctl;              // [CTL_WORDS]: the grid barrier's two (0
+                              // between calls), then C_ALLOC ..
   int32_t B;
   int32_t rep_cap;
   int32_t n_rows;
@@ -166,7 +175,8 @@ struct CacheArgs {
   int32_t subword;
   int32_t has_l3;
   int32_t accumulate;
-  int32_t bucket_passes;
+  int32_t hit_smem_words;     // the hit bits' share of shared memory (set
+                              // by the launcher)
 };
 
 struct KeysArgs {
@@ -678,6 +688,7 @@ __global__ void __launch_bounds__(DB, DEDUP_BLOCKS_PER_SM)
       const size_t at = U == 1 ? r : g;
       a.srow[at] = static_cast<int32_t>(r);
       a.gid[at] = static_cast<int32_t>(g);
+      a.rgid[r] = static_cast<int32_t>(g);
     }
     return;
   }
@@ -701,6 +712,7 @@ __global__ void __launch_bounds__(DB, DEDUP_BLOCKS_PER_SM)
         const uint32_t g = __ldcg(a.slot_group + __ldcg(a.row_slot + r));
         buf[0].w[0][r] = g;
         buf[0].w[1][r] = r;
+        a.rgid[r] = static_cast<int32_t>(g);
         if (few) {
           for (int p = 0; p < passes; ++p)
             atomicAdd(&tot[p * 256 + ((g >> (8 * p)) & 0xFFu)], 1u);
@@ -731,15 +743,47 @@ __global__ void __launch_bounds__(DB, DEDUP_BLOCKS_PER_SM)
 }
 
 // -- MEMO_CACHE --------------------------------------------------------------
+//
+// One cooperative launch over the U = min(n_unique, rep_cap)
+// representatives, every phase grid-stride over U (or the rows), parted
+// by two grid barriers (bar_sync on ctl):
+//   0. the per-bucket counts, run starts and placed counts, the hit
+//      bits and the control counters zeroed; the rows copied into
+//      rows_out when it is another buffer;
+//   1. each representative's bucket row probed (the hit, the summed
+//      value words of the hit lanes, the first hit lane, the empty lanes,
+//      the rank word), its arrival in the bucket counted (the index
+//      atomicAdd returns; the first SLOTS arrivals written into the
+//      bucket's slots), and on a miss the lattice; its value words kept
+//      as one 8-byte word and its hit as a bit;
+//   2. a bucket of more than SLOTS representatives gets a run of the
+//      list buffer for the rest (its arrival SLOTS takes it from one
+//      global count, the later ones wait for its start) and each of them
+//      is written at its arrival and counted; every row takes its
+//      group's value words and hit flag (its group id rgid[r] clipped to
+//      rep_cap - 1) in row order, four rows a thread and four such in
+//      flight, one 8-byte gather a row (the L2 serves them) and the hit
+//      bits from the block's copy in shared memory, the values stored
+//      coalesced with the streaming hint; an overflow of the
+//      pair restores the rows; then each representative's rank among
+//      its bucket's members in representative order (the members below
+//      it, counted up to the lane count; a larger bucket's once its run
+//      is complete), its insert lane, and the commit when nothing
+//      overflowed; the last block to finish writes the stats row.
 
-__global__ void __launch_bounds__(BLOCK)
-    copy_words(const uint32_t* src, uint32_t* dst, size_t n,
-               const uint32_t* stats) {
-  if (stats && __ldg(stats + STAT_OVERFLOW) == 0) return;
-  for (size_t i = blockIdx.x * static_cast<size_t>(BLOCK) + threadIdx.x; i < n;
-       i += static_cast<size_t>(gridDim.x) * BLOCK)
-    dst[i] = src[i];
-}
+constexpr int CB = 256;  // threads a block
+// resident blocks an SM (the barrier needs every block resident; 1 and
+// 4 measured level or slower, PERF.md)
+constexpr int CACHE_BLOCKS_PER_SM = 2;
+// the control words after the barrier's two
+constexpr int C_ALLOC = 2, C_INSERT = 3, C_HIT = 4, C_DONE = 5,
+              CTL_WORDS = 8;
+// a bucket's members held in its own slots (a Zipf batch's buckets hold
+// one or two representatives); the rest go to a run of seg
+constexpr uint32_t SLOTS = 4;
+// the hit bits a block stages (at most 384,000 representatives: 48,000 B
+// of the 48 KB a block has without opting in; more are read from hit_bits)
+constexpr int HIT_SMEM_WORDS = 12000;
 
 __device__ __forceinline__ int n_valid(const CacheArgs& a) {
   const int32_t nu = *a.n_unique;
@@ -750,73 +794,221 @@ __device__ __forceinline__ int rank_col(const CacheArgs& a) {
   return a.subword ? 4 * a.entries + a.entries / 8 : 5 * a.entries;
 }
 
-// One bucket row per representative: the lane compares over the three
-// key words, the summed value words of the hit lanes, the first hit lane,
-// the empty-lane mask and the rank word (cache_probe).
-__global__ void __launch_bounds__(BLOCK) cache_probe_kernel(CacheArgs a) {
-  const int g = blockIdx.x * BLOCK + threadIdx.x;
-  if (g == 0) {
-    a.counters[0] = n_valid(a);
-    a.counters[1] = a.counters[2] = 0;
-    a.sort.parity[0] = 0;
+__device__ __forceinline__ void cache_sync(const CacheArgs& a) {
+  bar_sync(a.ctl, gridDim.x);
+}
+
+// n words of src into dst, 16 bytes a load where both are aligned
+__device__ __forceinline__ void copy_rows(const uint32_t* src, uint32_t* dst,
+                                          size_t n, size_t tid,
+                                          size_t threads) {
+  size_t done = 0;
+  if (((reinterpret_cast<uintptr_t>(src) |
+        reinterpret_cast<uintptr_t>(dst)) & 15) == 0) {
+    const size_t n4 = n / 4;
+    const uint4* s4 = reinterpret_cast<const uint4*>(src);
+    uint4* d4 = reinterpret_cast<uint4*>(dst);
+    for (size_t j = tid; j < n4; j += threads) d4[j] = __ldcg(s4 + j);
+    done = 4 * n4;
   }
-  if (g >= n_valid(a)) return;
+  for (size_t j = done + tid; j < n; j += threads) dst[j] = __ldcg(src + j);
+}
+
+// index_probes (verdict.cuh) with the hashed tables' key planes read 16
+// bytes at a time (PairReads): the lattice of a missed representative
+__device__ __forceinline__ cdp::ProbeBits rep_probes(const PolicyView& p,
+                                                     int32_t ep, int32_t dir,
+                                                     uint32_t dport,
+                                                     uint32_t proto,
+                                                     uint32_t idx, bool known,
+                                                     int l3_bit) {
+  if (!p.l4.rows)
+    return cdp::index_probes(p, ep, dir, dport, proto, idx, known, l3_bit);
+  const cdp::Probes q = cdp::hashed_probes<cdp::PairReads>(
+      p.l4, static_cast<uint32_t>(ep), static_cast<uint32_t>(dir), dport,
+      proto, idx, known);
+  bool l3 = l3_bit != 0;
+  if (l3_bit < 0) {
+    const size_t row = static_cast<size_t>(cdp::gather_ix(ep, p.l4.n_eps)) *
+                           2 + cdp::gather_ix(dir, 2);
+    l3 = (__ldg(p.l3_allow + row * p.n_words + cdp::dense_word(idx, p.n_words)) >>
+          (idx & 31u)) & 1u;
+  }
+  return cdp::ProbeBits{q.p1, known && l3, q.p3, q.proxy, q.j};
+}
+
+// Phase 1 for representative g: the probe of its bucket row (cache_probe),
+// its arrival, and on a miss the lattice (its value words replace the
+// representative's).
+__device__ __forceinline__ void cache_probe_rep(const CacheArgs& a, int g) {
   const size_t b = static_cast<size_t>(a.B);
   const int r = a.rep_orig[g];
   const uint32_t k0 = __ldg(a.keys + r), k1 = __ldg(a.keys + b + r),
                  k2 = __ldg(a.keys + 2 * b + r);
-  uint32_t h = cdp::fnv1a_word(cdp::fnv1a2(k0, k1), k2);
-  const uint32_t bucket = h & static_cast<uint32_t>(a.n_rows - 1);
+  const uint32_t bucket = cdp::fnv1a_word(cdp::fnv1a2(k0, k1), k2) &
+                          static_cast<uint32_t>(a.n_rows - 1);
+  // plain loads: in place, later phases write these rows
   const uint32_t* row = a.rows_in + static_cast<size_t>(bucket) * a.width;
   const int e = a.entries;
   bool hit = false;
   uint32_t cv0 = 0, cv1 = 0, empty = 0;
   int hit_lane = -1;
-  for (int k = 0; k < e; ++k) {
-    const uint32_t w0 = row[k];
-    if (w0 == EMPTY) empty |= 1u << k;
-    if (w0 == k0 && row[e + k] == k1 && row[2 * e + k] == k2) {
-      hit = true;
-      if (hit_lane < 0) hit_lane = k;
-      cv0 += row[3 * e + k];
-      cv1 += a.subword ? (row[4 * e + k / 8] >> (4 * (k % 8))) & 0xFu
-                       : row[4 * e + k];
+  // the k0 plane eight lanes at a time, the loads started together
+  for (int k8 = 0; k8 < e; k8 += 8) {
+    uint32_t w0[8];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) w0[j] = k8 + j < e ? row[k8 + j] : 0u;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int k = k8 + j;
+      if (k >= e) break;
+      if (w0[j] == EMPTY) empty |= 1u << k;
+      if (w0[j] == k0 && row[e + k] == k1 && row[2 * e + k] == k2) {
+        hit = true;
+        if (hit_lane < 0) hit_lane = k;
+        cv0 += row[3 * e + k];
+        cv1 += a.subword ? (row[4 * e + k / 8] >> (4 * (k % 8))) & 0xFu
+                         : row[4 * e + k];
+      }
     }
   }
-  a.r_hit[g] = hit;
-  a.r_hit_lane[g] = static_cast<uint8_t>(hit_lane < 0 ? 0 : hit_lane);
   a.r_bucket[g] = bucket;
   a.r_rank_word[g] = a.ranked ? row[rank_col(a)] : 0u;
   a.r_empty[g] = empty;
-  a.rv0[g] = hit ? cv0 : 0u;
-  a.rv1[g] = hit ? cv1 : 0u;
-  a.sort.key[0][0][g] = bucket;
-  a.sort.val[0][g] = static_cast<uint32_t>(g);
+  a.r_hit[g] = hit;
+  if (hit) atomicOr(a.hit_bits + g / 32, 1u << (g % 32));
+  a.r_hit_lane[g] = static_cast<uint8_t>(hit_lane < 0 ? 0 : hit_lane);
+  const uint32_t arrive = atomicAdd(a.b_count + bucket, 1u);
+  a.r_arrive[g] = arrive;
+  if (arrive < SLOTS) a.b_slots[bucket * SLOTS + arrive] = g;
+  if (hit) {
+    a.rv[g] = make_uint2(cv0, cv1);
+    return;
+  }
+  const int32_t ep = static_cast<int32_t>(a.ep_w ? __ldg(a.ep_w + r) : k2 >> 1);
+  const int32_t dir =
+      static_cast<int32_t>(a.dir_w ? __ldg(a.dir_w + r) : k2 & 1u);
+  const cdp::ProbeBits q = rep_probes(
+      a.pol, ep, dir, k1 >> 16, (k1 >> 8) & 0xFFu, k0, (k1 >> 1) & 1u,
+      a.has_l3 ? static_cast<int>(k1 & 1u) : -1);
+  a.rv[g] = make_uint2(
+      (static_cast<uint32_t>(q.j) << 16) |
+          (static_cast<uint32_t>(q.proxy) & 0xFFFFu),
+      (q.p1 ? 1u : 0u) | (q.p2 ? 2u : 0u) | (q.p3 ? 4u : 0u));
 }
 
-// The rank of each representative among the representatives of its
-// bucket (in key order: the bucket sort is stable), capped at the lane
-// count, then its insert lane (bucket_insert_lanes): the rank-th coldest
-// lane (empty first, then by rank nibble, ties by lane) with the rank
-// word and at most 8 lanes, else the first empty lane (or bucket mod
-// lanes when none is empty) plus the rank.
-__global__ void __launch_bounds__(BLOCK) cache_lanes_kernel(CacheArgs a) {
-  const int p = blockIdx.x * BLOCK + threadIdx.x;
-  if (p >= n_valid(a)) return;
-  const int cur = a.sort.parity[a.bucket_passes];
-  const uint32_t* sb = a.sort.key[cur][0];
-  const uint32_t bucket = sb[p];
-  const int g = static_cast<int>(a.sort.val[cur][p]);
+// Row r takes its group's value words (one 8-byte gather) and hit flag
+// (a bit of `bits`: the block's copy of hit_bits, or hit_bits itself);
+// returns the hit.
+__device__ __forceinline__ uint32_t scatter_row(const CacheArgs& a,
+                                                const uint32_t* bits,
+                                                uint32_t g, uint32_t* v0,
+                                                uint32_t* v1, uint8_t* h) {
+  const uint32_t last = static_cast<uint32_t>(a.rep_cap - 1);
+  g = g < last ? g : last;
+  const uint2 v = __ldcg(a.rv + g);
+  *v0 = v.x;
+  *v1 = v.y;
+  *h = (bits[g / 32] >> (g % 32)) & 1u;
+  return *h;
+}
+
+// The row-order scatter-back: where the columns are 16-byte aligned a
+// thread takes four rows at once, and QUADS of them in flight (their
+// group ids loaded together, then the groups' values); returns this
+// thread's hits.  `bits` as scatter_row's.
+constexpr int QUADS = 4;
+
+__device__ __forceinline__ uint32_t cache_scatter_back(const CacheArgs& a,
+                                                       const uint32_t* bits,
+                                                       size_t tid,
+                                                       size_t threads) {
+  const size_t b = static_cast<size_t>(a.B);
+  uint32_t hits = 0;
+  size_t done = 0;
+  const bool vec = b % 4 == 0 &&
+                   ((reinterpret_cast<uintptr_t>(a.v0) |
+                     reinterpret_cast<uintptr_t>(a.v1) |
+                     reinterpret_cast<uintptr_t>(a.rgid)) & 15) == 0 &&
+                   (reinterpret_cast<uintptr_t>(a.hit) & 3) == 0;
+  if (vec) {
+    const size_t nq = b / 4;
+    const uint4* gq = reinterpret_cast<const uint4*>(a.rgid);
+    for (size_t q0 = tid; q0 < nq; q0 += QUADS * threads) {
+      uint4 g[QUADS];
+#pragma unroll
+      for (int k = 0; k < QUADS; ++k) {
+        const size_t q = q0 + k * threads;
+        g[k] = q < nq ? __ldcs(gq + q) : make_uint4(0, 0, 0, 0);
+      }
+#pragma unroll
+      for (int k = 0; k < QUADS; ++k) {
+        const size_t q = q0 + k * threads;
+        if (q >= nq) break;
+        uint32_t x0[4], x1[4];
+        uint8_t h[4];
+        hits += scatter_row(a, bits, g[k].x, &x0[0], &x1[0], &h[0]);
+        hits += scatter_row(a, bits, g[k].y, &x0[1], &x1[1], &h[1]);
+        hits += scatter_row(a, bits, g[k].z, &x0[2], &x1[2], &h[2]);
+        hits += scatter_row(a, bits, g[k].w, &x0[3], &x1[3], &h[3]);
+        __stcs(reinterpret_cast<uint4*>(a.v0) + q,
+               make_uint4(x0[0], x0[1], x0[2], x0[3]));
+        __stcs(reinterpret_cast<uint4*>(a.v1) + q,
+               make_uint4(x1[0], x1[1], x1[2], x1[3]));
+        __stcs(reinterpret_cast<unsigned int*>(a.hit) + q,
+               static_cast<unsigned int>(h[0]) | (h[1] << 8) | (h[2] << 16) |
+                   (static_cast<unsigned int>(h[3]) << 24));
+      }
+    }
+    done = b;
+  }
+  for (size_t r = done + tid; r < b; r += threads) {
+    uint8_t h;
+    hits += scatter_row(a, bits, static_cast<uint32_t>(__ldcs(a.rgid + r)),
+                        a.v0 + r, a.v1 + r, &h);
+    a.hit[r] = h;
+  }
+  return hits;
+}
+
+// Phase 2 for representative g: its rank among its bucket's members in
+// representative order, capped at the lane count, then its insert lane
+// (bucket_insert_lanes): the rank-th coldest lane (empty first, then by
+// rank nibble, ties by lane) with the rank word and at most 8 lanes,
+// else the first empty lane (or bucket mod lanes when none is empty)
+// plus the rank; the commit when `commit` (hit bumps and insert resets
+// of the rank nibbles by atomic adds, the inserted entry's words, and
+// in the sub-word layout v1 into its nibble by an add of the
+// difference).  Returns whether it inserts (the reference's do_ins,
+// counted even when the batch overflows).
+__device__ __forceinline__ bool cache_rank_commit(const CacheArgs& a, int g,
+                                                  bool commit) {
+  const uint32_t bucket = a.r_bucket[g];
+  const uint32_t c = __ldcg(a.b_count + bucket);
   const int e = a.entries;
   int rank = 0;
-  while (rank < e && p - 1 - rank >= 0 && sb[p - 1 - rank] == bucket) ++rank;
+  if (c > 1) {
+    const uint32_t* m = a.b_slots + static_cast<size_t>(bucket) * SLOTS;
+    for (uint32_t k = 0; k < c && k < SLOTS; ++k)
+      rank += __ldcg(m + k) < static_cast<uint32_t>(g);
+    if (c > SLOTS) {  // once every member past SLOTS is in its run
+      const volatile uint32_t* placed = a.b_placed + bucket;
+      while (*placed != c - SLOTS) __nanosleep(32);
+      __threadfence();
+      m = a.seg + (__ldcg(a.b_start + bucket) - 1);
+      for (uint32_t k = 0; k < c - SLOTS && rank < e; ++k)
+        rank += __ldcg(m + k) < static_cast<uint32_t>(g);
+    }
+    rank = rank < e ? rank : e;
+  }
   const uint32_t empty = a.r_empty[g];
+  const uint32_t rw = a.r_rank_word[g];
+  const bool lru = a.ranked && e <= 8;
   int lane;
-  if (a.ranked && e <= 8) {
+  if (lru) {
     // insertion sort of (score, lane): empty lanes score -1
     int order[8];
     int score[8];
-    const uint32_t rw = a.r_rank_word[g];
     for (int k = 0; k < e; ++k) {
       const int s = (empty >> k) & 1u ? -1 : static_cast<int>((rw >> (4 * k)) & 0xFu);
       int j = k;
@@ -833,105 +1025,130 @@ __global__ void __launch_bounds__(BLOCK) cache_lanes_kernel(CacheArgs a) {
     const int base = empty ? __ffs(empty) - 1 : static_cast<int>(bucket % e);
     lane = (base + rank) % e;
   }
-  a.r_ins_lane[g] = static_cast<uint8_t>(lane);
-  a.r_do_ins[g] = rank < e;
-}
-
-// The lattice on each missed representative; its value words replace the
-// representative's, and one whose insert lane is ok is counted (the
-// reference's do_ins, counted even when the batch overflows).
-__global__ void __launch_bounds__(BLOCK) cache_lattice_kernel(CacheArgs a) {
-  const int g = blockIdx.x * BLOCK + threadIdx.x;
-  if (g >= n_valid(a) || a.r_hit[g]) {
-    if (g < n_valid(a)) a.r_do_ins[g] = 0;
-    return;
-  }
-  const size_t b = static_cast<size_t>(a.B);
-  const int r = a.rep_orig[g];
-  const uint32_t k0 = __ldg(a.keys + r), k1 = __ldg(a.keys + b + r),
-                 k2 = __ldg(a.keys + 2 * b + r);
-  const int32_t ep = static_cast<int32_t>(a.ep_w ? __ldg(a.ep_w + r) : k2 >> 1);
-  const int32_t dir =
-      static_cast<int32_t>(a.dir_w ? __ldg(a.dir_w + r) : k2 & 1u);
-  const cdp::ProbeBits q = cdp::index_probes(
-      a.pol, ep, dir, k1 >> 16, (k1 >> 8) & 0xFFu, k0, (k1 >> 1) & 1u,
-      a.has_l3 ? static_cast<int>(k1 & 1u) : -1);
-  a.rv0[g] = (static_cast<uint32_t>(q.j) << 16) |
-             (static_cast<uint32_t>(q.proxy) & 0xFFFFu);
-  a.rv1[g] = (q.p1 ? 1u : 0u) | (q.p2 ? 2u : 0u) | (q.p3 ? 4u : 0u);
-  if (a.r_do_ins[g]) atomicAdd(&a.counters[1], 1);
-}
-
-// The misses never exceed the valid representatives, so only the dedup
-// can overflow.
-__device__ __forceinline__ bool batch_ok(const CacheArgs& a) {
-  return *a.dedup_overflow == 0;
-}
-
-// The commit, only when nothing overflowed: hit bumps and insert resets
-// of the rank nibbles (atomic adds), the inserted entries' words, and in
-// the sub-word layout v1 into its nibble by an add of the difference.
-__global__ void __launch_bounds__(BLOCK) cache_commit_kernel(CacheArgs a) {
-  const int g = blockIdx.x * BLOCK + threadIdx.x;
-  if (g >= n_valid(a) || !batch_ok(a)) return;
-  const int e = a.entries;
-  uint32_t* row = a.rows_out + static_cast<size_t>(a.r_bucket[g]) * a.width;
-  const bool lru = a.ranked && e <= 8;
-  const uint32_t rw = a.r_rank_word[g];
-  if (a.r_hit[g]) {
+  const bool hit = a.r_hit[g] != 0;
+  const bool ins = !hit && rank < e;
+  if (!commit) return ins;
+  uint32_t* row = a.rows_out + static_cast<size_t>(bucket) * a.width;
+  if (hit) {
     const uint32_t sh = 4u * (a.r_hit_lane[g] % 8u);
     if (lru && ((rw >> sh) & 0xFu) < 15u)
       atomicAdd(row + rank_col(a), 1u << sh);
-    return;
+    return false;
   }
-  if (!a.r_do_ins[g]) return;
-  const int lane = a.r_ins_lane[g];
+  if (!ins) return false;
   const size_t b = static_cast<size_t>(a.B);
   const int r = a.rep_orig[g];
   row[lane] = __ldg(a.keys + r);
   row[e + lane] = __ldg(a.keys + b + r);
   row[2 * e + lane] = __ldg(a.keys + 2 * b + r);
-  row[3 * e + lane] = a.rv0[g];
+  const uint2 v = a.rv[g];
+  row[3 * e + lane] = v.x;
   if (a.subword) {
     const uint32_t sh = 4u * (lane % 8);
     const int col = 4 * e + lane / 8;
+    // this lane's nibble: other inserts change only their own lanes'
     const uint32_t old =
-        (a.rows_in[static_cast<size_t>(a.r_bucket[g]) * a.width + col] >> sh) &
-        0xFu;
-    atomicAdd(row + col, ((a.rv1[g] & 0xFu) - old) << sh);
+        (__ldcg(a.rows_in + static_cast<size_t>(bucket) * a.width + col) >>
+         sh) & 0xFu;
+    atomicAdd(row + col, ((v.y & 0xFu) - old) << sh);
   } else {
-    row[4 * e + lane] = a.rv1[g];
+    row[4 * e + lane] = v.y;
   }
   if (lru) {
     const uint32_t sh = 4u * (lane % 8);
     atomicAdd(row + rank_col(a), 0u - (((rw >> sh) & 0xFu) << sh));
   }
+  return true;
 }
 
-// Every tuple takes its group's value words and hit flag (the group id
-// clipped to rep_cap - 1); the hits are counted per warp.
-__global__ void __launch_bounds__(BLOCK) cache_scatter_kernel(CacheArgs a) {
-  const int p = blockIdx.x * BLOCK + threadIdx.x;
-  bool h = false;
-  if (p < a.B) {
-    const int t = a.srow[p];
-    int gg = a.gid[p];
-    gg = gg < a.rep_cap - 1 ? gg : a.rep_cap - 1;
-    a.v0[t] = a.rv0[gg];
-    a.v1[t] = a.rv1[gg];
-    h = a.r_hit[gg] != 0;
-    a.hit[t] = h;
+// a count summed over the warp, then one atomicAdd a warp (every lane
+// of the block calls it)
+__device__ __forceinline__ void warp_count(uint32_t* at, uint32_t n) {
+  const uint32_t s = __reduce_add_sync(0xFFFFFFFFu, n);
+  if ((threadIdx.x & 31) == 0 && s) atomicAdd(at, s);
+}
+
+__global__ void __launch_bounds__(CB, CACHE_BLOCKS_PER_SM)
+    cache_kernel(const __grid_constant__ CacheArgs a) {
+  extern __shared__ uint32_t s_hits[];
+  const size_t tid = static_cast<size_t>(blockIdx.x) * CB + threadIdx.x;
+  const size_t threads = static_cast<size_t>(gridDim.x) * CB;
+  const size_t words = static_cast<size_t>(a.n_rows + 1) * a.width;
+  // 0: counts, starts and counters zeroed; the rows copied
+  for (size_t j = tid; j < static_cast<size_t>(a.n_rows); j += threads) {
+    a.b_count[j] = 0;
+    a.b_start[j] = 0;
+    a.b_placed[j] = 0;
   }
-  const unsigned bal = __ballot_sync(0xFFFFFFFFu, h);
-  if ((threadIdx.x & 31) == 0 && bal) atomicAdd(&a.counters[2], __popc(bal));
-}
-
-__global__ void cache_stats_kernel(CacheArgs a) {
-  const uint32_t vals[5] = {
-      static_cast<uint32_t>(*a.n_unique), static_cast<uint32_t>(a.counters[2]),
-      static_cast<uint32_t>(a.counters[1]),
-      static_cast<uint32_t>(*a.dedup_overflow), static_cast<uint32_t>(a.B)};
-  for (int i = 0; i < 5; ++i) a.stats[i] = (a.accumulate ? a.stats[i] : 0u) + vals[i];
+  if (tid >= 2 && tid < CTL_WORDS) a.ctl[tid] = 0;
+  const int U = n_valid(a);
+  const int hit_words = (U + 31) / 32;
+  for (size_t j = tid; j < static_cast<size_t>(hit_words); j += threads)
+    a.hit_bits[j] = 0;
+  if (a.rows_out != a.rows_in) copy_rows(a.rows_in, a.rows_out, words, tid,
+                                         threads);
+  cache_sync(a);
+  // 1: the probe, the arrivals, the lattice on the misses
+  for (int g = static_cast<int>(tid); g < U; g += static_cast<int>(threads))
+    cache_probe_rep(a, g);
+  cache_sync(a);
+  // 2: the larger buckets' runs of seg; the scatter-back; the restore;
+  // the ranks, insert lanes and the commit.  A thread's waits are for
+  // work its earlier loops' peers do without waiting (an allocation, a
+  // placement), and every block is resident: each wait ends.
+  for (int g = static_cast<int>(tid); g < U; g += static_cast<int>(threads)) {
+    if (a.r_arrive[g] != SLOTS) continue;
+    const uint32_t bucket = a.r_bucket[g];
+    const uint32_t c = __ldcg(a.b_count + bucket);
+    atomicExch(a.b_start + bucket, atomicAdd(a.ctl + C_ALLOC, c - SLOTS) + 1);
+  }
+  for (int g = static_cast<int>(tid); g < U; g += static_cast<int>(threads)) {
+    const uint32_t arrive = a.r_arrive[g];
+    if (arrive < SLOTS) continue;
+    const volatile uint32_t* sp = a.b_start + a.r_bucket[g];
+    uint32_t s;
+    while ((s = *sp) == 0) __nanosleep(32);
+    a.seg[s - 1 + arrive - SLOTS] = static_cast<uint32_t>(g);
+    __threadfence();
+    atomicAdd(a.b_placed + a.r_bucket[g], 1u);
+  }
+  // the hit bits in shared memory where they fit the launch's share
+  const uint32_t* bits = a.hit_bits;
+  if (hit_words <= a.hit_smem_words) {
+    for (int j = threadIdx.x; j < hit_words; j += CB)
+      s_hits[j] = __ldcg(a.hit_bits + j);
+    __syncthreads();
+    bits = s_hits;
+  }
+  warp_count(a.ctl + C_HIT, cache_scatter_back(a, bits, tid, threads));
+  const uint32_t overflow = static_cast<uint32_t>(*a.dedup_overflow);
+  const bool restoring =
+      a.restore != nullptr &&
+      (a.accumulate ? __ldcg(a.stats + STAT_OVERFLOW) : 0u) + overflow != 0;
+  if (restoring) copy_rows(a.restore, a.rows_out, words, tid, threads);
+  const bool commit = overflow == 0 && !restoring;
+  uint32_t inserts = 0;
+  for (int g = static_cast<int>(tid); g < U; g += static_cast<int>(threads))
+    inserts += cache_rank_commit(a, g, commit);
+  warp_count(a.ctl + C_INSERT, inserts);
+  __shared__ bool last;
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    __threadfence();
+    last = atomicAdd(a.ctl + C_DONE, 1u) == gridDim.x - 1;
+  }
+  __syncthreads();
+  if (last && threadIdx.x == 0) {
+    __threadfence();
+    uint32_t vals[5];
+    vals[STAT_UNIQUE] = static_cast<uint32_t>(*a.n_unique);
+    vals[STAT_HIT] = atomicAdd(a.ctl + C_HIT, 0u);
+    vals[STAT_INSERT] = atomicAdd(a.ctl + C_INSERT, 0u);
+    vals[STAT_OVERFLOW] = overflow;
+    vals[STAT_TUPLES] = static_cast<uint32_t>(a.B);
+    for (int i = 0; i < 5; ++i)
+      a.stats[i] = (a.accumulate ? __ldcg(a.stats + i) : 0u) + vals[i];
+  }
 }
 
 int grid_of(long n) { return static_cast<int>((n + BLOCK - 1) / BLOCK); }
@@ -999,6 +1216,28 @@ int dedup_grid_max() {
   }
   return most[dev];
 }
+
+// The cache's grid on the current device: every block resident, at most
+// CACHE_BLOCKS_PER_SM an SM, kept per device.
+int cache_grid_max() {
+  static int most[MAX_DEVICES] = {};
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess || dev < 0 || dev >= MAX_DEVICES)
+    return -1;
+  if (most[dev] == 0) {
+    int sms = 0, per_sm = 0;
+    if (cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) !=
+            cudaSuccess ||
+        cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+            &per_sm, cmm::cache_kernel, cmm::CB,
+            cmm::HIT_SMEM_WORDS * sizeof(uint32_t)) != cudaSuccess)
+      return -1;
+    most[dev] = sms * (per_sm < cmm::CACHE_BLOCKS_PER_SM
+                           ? per_sm
+                           : cmm::CACHE_BLOCKS_PER_SM);
+  }
+  return most[dev];
+}
 }  // namespace
 
 extern "C" int memo_struct_sizes(int* out) {
@@ -1034,31 +1273,34 @@ extern "C" int launch_memo_dedup(const cmm::DedupArgs* args, void* stream) {
   return static_cast<int>(cudaGetLastError());
 }
 
-// MEMO_CACHE on `stream`; returns cudaGetLastError().
+// MEMO_CACHE on `stream`, one cooperative launch of at most
+// CACHE_BLOCKS_PER_SM blocks an SM; returns the launch's error.
 extern "C" int launch_memo_cache(const cmm::CacheArgs* args, void* stream) {
   using namespace cmm;
-  const CacheArgs& a = *args;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (a.B <= 0 || a.rep_cap <= 0 || a.entries < 1 || a.entries > 32)
+  CacheArgs a = *args;
+  if (a.B <= 0 || a.rep_cap <= 0 || a.entries < 1 || a.entries > 32 ||
+      a.n_rows < 1 || (a.n_rows & (a.n_rows - 1)) != 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  const size_t words = static_cast<size_t>(a.n_rows + 1) * a.width;
-  const int copy_grid = static_cast<int>((words + BLOCK - 1) / BLOCK < 4096
-                                             ? (words + BLOCK - 1) / BLOCK
-                                             : 4096);
-  if (a.rows_out != a.rows_in)
-    copy_words<<<copy_grid, BLOCK, 0, st>>>(a.rows_in, a.rows_out, words,
-                                            nullptr);
-  const int reps = grid_of(a.rep_cap);
-  cache_probe_kernel<<<reps, BLOCK, 0, st>>>(a);
-  crx::radix_sort<1>(a.sort, a.bucket_passes, st);
-  cache_lanes_kernel<<<reps, BLOCK, 0, st>>>(a);
-  cache_lattice_kernel<<<reps, BLOCK, 0, st>>>(a);
-  cache_commit_kernel<<<reps, BLOCK, 0, st>>>(a);
-  cache_scatter_kernel<<<grid_of(a.B), BLOCK, 0, st>>>(a);
-  cache_stats_kernel<<<1, 1, 0, st>>>(a);
-  if (a.restore)
-    copy_words<<<copy_grid, BLOCK, 0, st>>>(a.restore, a.rows_out, words,
-                                            a.stats);
+  // the hit bits staged in shared memory: up to HIT_SMEM_WORDS words
+  const long want = (static_cast<long>(a.rep_cap) + 31) / 32;
+  a.hit_smem_words = static_cast<int32_t>(want < HIT_SMEM_WORDS ? want
+                                                               : HIT_SMEM_WORDS);
+  const size_t smem = static_cast<size_t>(a.hit_smem_words) * 4;
+  const int most = cache_grid_max();
+  if (most <= 0) return static_cast<int>(cudaErrorInvalidConfiguration);
+  // the widest phase: the scatter-back's four rows a thread, the
+  // representatives, the rows' copy
+  long work = (static_cast<long>(a.B) + 3) / 4;
+  work = work > a.rep_cap ? work : a.rep_cap;
+  const long copy = (static_cast<long>(a.n_rows) + 1) * a.width / 4;
+  work = work > copy ? work : copy;
+  const long need = (work + CB - 1) / CB;
+  const int grid = static_cast<int>(need < most ? need : most);
+  void* params[] = {&a};
+  const cudaError_t e = cudaLaunchCooperativeKernel(
+      reinterpret_cast<const void*>(cache_kernel), dim3(grid), dim3(CB),
+      params, smem, static_cast<cudaStream_t>(stream));
+  if (e != cudaSuccess) return static_cast<int>(e);
   return static_cast<int>(cudaGetLastError());
 }
 

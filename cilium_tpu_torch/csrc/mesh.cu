@@ -38,10 +38,12 @@
 // owner and the wildcard row, the stash and one L3 word; the combine
 // reads the tuple's ep, dir and fragment words, the flags of every record
 // (and in routed mode the owner's value), the head record's other words
-// and, for an L3 hit, the owner's L3 column, and writes 6 B of verdict.  This first version does the simple
-// thing: one tuple per thread, read-only loads, one global atomicAdd per
-// counted hit, the telemetry reduced per warp and block before one
-// atomicAdd per block and column.
+// and, for an L3 hit, the owner's L3 column, and writes 6 B of verdict.
+// MESH_PROBE, MESH_COMBINE and the memo kernels do the simple thing: one
+// tuple per thread, read-only loads, one global atomicAdd per counted
+// hit, the telemetry reduced per warp and block before one atomicAdd per
+// block and column.  ROUTED_PROBE runs the pair kernel's per-flow design
+// (see its kernel).
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -174,89 +176,154 @@ __global__ void __launch_bounds__(BLOCK) mesh_probe_kernel(
   out[3 * b + i] = static_cast<int32_t>(lcol);
 }
 
-__global__ void __launch_bounds__(BLOCK) routed_probe_kernel(
-    const RoutedProbeArgs a) {
-  const int i = blockIdx.x * BLOCK + threadIdx.x;
-  if (i >= a.B) return;
-  const size_t b = static_cast<size_t>(a.B);
-  const Tuple u = load_tuple(a.tuples, b, i);
+// ROUTED_PROBE's design (the pair kernel's per-flow design of
+// csrc/datapath.cu): one thread a tuple, the tuple's words read and the
+// record's written with the streaming hints; the key planes of both L4
+// rows read in 16-byte loads (PairReads) where a row is 16-byte aligned;
+// both stashes staged once a block in shared memory when they fit
+// ROUTED_STASH_SMEM bytes, else read from global memory by the same
+// code; the wildcard probe, whose keys do not depend on the identity,
+// started before the id_direct -> exact row chain; the exact row and the
+// L3 word read only on the shard that owns them (a shard's other tuples
+// contribute zeros, which need no read); the failover mode's
+// index arithmetic in 32 bits (u32 divisions by the shard's rows and
+// words, the backup shard by a compare), with the same results as the
+// 64-bit arithmetic on every index; registers fitted to
+// ROUTED_BLOCKS_PER_SM blocks an SM, the body a grid-stride loop that
+// runs once (as the pair kernel's).
+constexpr int ROUTED_BLOCKS_PER_SM = 8;  // 4 and 6 measured slower, PERF.md
+constexpr int ROUTED_STASH_SMEM = 16 * 1024;
+
+__host__ __device__ inline int routed_stash_words(const RoutedProbeArgs& a) {
+  return a.pol.l4.ew * (a.pol.l4.stash_n + a.pol.l4.wstash_n);
+}
+
+__host__ __device__ inline bool routed_stashes_staged(
+    const RoutedProbeArgs& a) {
+  return routed_stash_words(a) * 4 <= ROUTED_STASH_SMEM;
+}
+
+// (q + 1) % n, the compare first (q < n on every index the tables make)
+__device__ __forceinline__ uint32_t next_shard(uint32_t q, uint32_t n) {
+  return q + 1 < n ? q + 1 : (q + 1) % n;
+}
+
+__global__ void __launch_bounds__(BLOCK, ROUTED_BLOCKS_PER_SM)
+    routed_probe_kernel(const __grid_constant__ RoutedProbeArgs a) {
+  extern __shared__ uint32_t s_stash[];
   const PolicyView& p = a.pol;
   const cdp::L4Tables& l4 = p.l4;
-  bool known;
-  const uint32_t idx = cdp::index_identity(p, u.ident, &known);
-  const uint32_t ep32 = static_cast<uint32_t>(u.ep);
-  const uint32_t dir32 = static_cast<uint32_t>(u.dir);
-
-  // -- the exact probe, routed to the bucket row's owner
-  uint32_t w0, w1;
-  cdp::l4_keys(l4.ew, ep32, dir32, u.dport, u.proto, idx, &w0, &w1);
-  const int64_t bucket = static_cast<int64_t>(
-      cdp::fnv1a2(w0, w1) & static_cast<uint32_t>(a.n_rows_global - 1));
-  bool owns = true, replica = false;
-  int64_t bl = bucket;
-  if (a.rows_sharded && a.failover) {
-    const int64_t n = a.n_row_shard;
-    const int64_t q = bucket / n;
-    const bool ap = a.alive[q] != 0;
-    owns = (ap ? q : (q + 1) % a.ntp) == a.t;
-    bl = clamp64(bucket - q * n + (ap ? 0 : n), 0, 2 * n - 1);
-    replica = owns && !ap;
-  } else if (a.rows_sharded) {
-    bl = bucket - static_cast<int64_t>(a.t) * a.n_local;
-    owns = bl >= 0 && bl < a.n_local;
-    bl = clamp64(bl, 0, a.n_local - 1);
+  const uint32_t* ex_stash = l4.stash;
+  const uint32_t* wd_stash = l4.wstash;
+  if (routed_stashes_staged(a)) {
+    const int n_ex = l4.ew * l4.stash_n, n_wd = l4.ew * l4.wstash_n;
+    for (int k = threadIdx.x; k < n_ex; k += BLOCK)
+      s_stash[k] = __ldg(l4.stash + k);
+    for (int k = threadIdx.x; k < n_wd; k += BLOCK)
+      s_stash[n_ex + k] = __ldg(l4.wstash + k);
+    __syncthreads();
+    ex_stash = s_stash;
+    wd_stash = s_stash + n_ex;
   }
-  const cdp::L4Probe ex = cdp::l4_row_parts(
-      l4.rows + static_cast<size_t>(bl) * l4.lanes, l4.lanes, l4.ew, w0, w1);
-  const cdp::L4Probe st =
-      cdp::l4_stash_parts(l4.stash, l4.stash_n, l4.ew, w0, w1);
+  const size_t b = static_cast<size_t>(a.B);
+  const uint32_t ntp = static_cast<uint32_t>(a.ntp);
+  const uint32_t t = static_cast<uint32_t>(a.t);
+  for (int i = blockIdx.x * BLOCK + threadIdx.x; i < a.B;
+       i += gridDim.x * BLOCK) {
+    const uint32_t* tw = a.tuples;
+    const int32_t ep = static_cast<int32_t>(__ldcs(tw + i));
+    const uint32_t ident = __ldcs(tw + b + i);
+    const uint32_t dport =
+        clip_u(static_cast<int32_t>(__ldcs(tw + 2 * b + i)), 65535);
+    const uint32_t proto =
+        clip_u(static_cast<int32_t>(__ldcs(tw + 3 * b + i)), 255);
+    const int32_t dir = static_cast<int32_t>(__ldcs(tw + 4 * b + i));
+    const uint32_t ep32 = static_cast<uint32_t>(ep);
+    const uint32_t dir32 = static_cast<uint32_t>(dir);
 
-  // -- the wildcard probe, replicated
-  uint32_t v0, v1;
-  cdp::l4_keys(l4.ew, ep32, dir32, u.dport, u.proto, cdp::L4H_WILD_IDX, &v0,
-               &v1);
-  const cdp::L4Probe wd = cdp::l4_probe_ew(l4.wrows, l4.wnrows, l4.wlanes,
-                                           l4.wstash, l4.wstash_n, l4.ew, v0,
-                                           v1);
+    // -- the wildcard probe, replicated (no identity in its keys)
+    uint32_t v0, v1;
+    cdp::l4_keys(l4.ew, ep32, dir32, dport, proto, cdp::L4H_WILD_IDX, &v0,
+                 &v1);
+    const cdp::L4Probe wd = cdp::l4_probe_ew<cdp::PairReads>(
+        l4.wrows, l4.wnrows, l4.wlanes, wd_stash, l4.wstash_n, l4.ew, v0, v1);
 
-  // -- the L3 word, on its owner
-  const int64_t word = idx >> 5;
-  const uint32_t bit = idx & 31u;
-  bool owns_w = true;
-  int64_t wl = word, lcol;
-  if (a.l3_sharded && a.failover) {
-    const int64_t wn = a.wn, g = static_cast<int64_t>(a.wn) * 32;
-    const int64_t wp = word / wn;
-    const bool apw = a.alive[wp] != 0;
-    owns_w = (apw ? wp : (wp + 1) % a.ntp) == a.t;
-    wl = clamp64(word - wp * wn + (apw ? 0 : wn), 0, 2 * wn - 1);
-    replica = replica || (owns_w && !apw);
-    lcol = clamp64(static_cast<int64_t>(idx) - wp * g, 0, g - 1) +
-           (apw ? 0 : g);
-  } else if (a.l3_sharded) {
-    const int64_t off = static_cast<int64_t>(a.t) * a.w_local;
-    wl = word - off;
-    owns_w = wl >= 0 && wl < a.w_local;
-    wl = clamp64(wl, 0, a.w_local - 1);
-    lcol = clamp64(static_cast<int64_t>(idx) - off * 32, 0,
-                   static_cast<int64_t>(a.w_local) * 32 - 1);
-  } else {
-    lcol = clamp64(idx, 0, a.n_ids - 1);
+    // -- the exact probe, routed to the bucket row's owner
+    bool known;
+    const uint32_t idx = cdp::index_identity(p, ident, &known);
+    uint32_t w0, w1;
+    cdp::l4_keys(l4.ew, ep32, dir32, dport, proto, idx, &w0, &w1);
+    const uint32_t bucket =
+        cdp::fnv1a2(w0, w1) & static_cast<uint32_t>(a.n_rows_global - 1);
+    bool owns = true, replica = false;
+    uint32_t bl = bucket;
+    if (a.rows_sharded && a.failover) {
+      const uint32_t n = static_cast<uint32_t>(a.n_row_shard);
+      const uint32_t q = bucket / n;
+      const bool ap = a.alive[q] != 0;
+      owns = (ap ? q : next_shard(q, ntp)) == t;
+      const uint32_t r = bucket - q * n + (ap ? 0u : n);
+      bl = r < 2 * n - 1 ? r : 2 * n - 1;
+      replica = owns && !ap;
+    } else if (a.rows_sharded) {
+      const int64_t l =
+          static_cast<int64_t>(bucket) - static_cast<int64_t>(a.t) * a.n_local;
+      owns = l >= 0 && l < a.n_local;
+      bl = static_cast<uint32_t>(clamp64(l, 0, a.n_local - 1));
+    }
+    // a row this shard does not own contributes nothing: not read
+    cdp::L4Probe ex{false, 0u};
+    if (owns)
+      ex = cdp::l4_row_parts<cdp::PairReads>(
+          l4.rows + static_cast<size_t>(bl) * l4.lanes, l4.lanes, l4.ew, w0,
+          w1);
+    const cdp::L4Probe st = cdp::l4_stash_parts<cdp::PairReads>(
+        ex_stash, l4.stash_n, l4.ew, w0, w1);
+
+    // -- the L3 word, on its owner
+    const uint32_t word = idx >> 5;
+    const uint32_t bit = idx & 31u;
+    bool owns_w = true;
+    int64_t wl = word, lcol;
+    if (a.l3_sharded && a.failover) {
+      const uint32_t wn = static_cast<uint32_t>(a.wn);
+      const uint32_t wp = word / wn;
+      const bool apw = a.alive[wp] != 0;
+      owns_w = (apw ? wp : next_shard(wp, ntp)) == t;
+      const uint32_t r = word - wp * wn + (apw ? 0u : wn);
+      wl = r < 2 * wn - 1 ? r : 2 * wn - 1;
+      replica = replica || (owns_w && !apw);
+      const int64_t g = static_cast<int64_t>(wn) * 32;
+      lcol = clamp64(static_cast<int64_t>(idx) - static_cast<int64_t>(wp) * g,
+                     0, g - 1) +
+             (apw ? 0 : g);
+    } else if (a.l3_sharded) {
+      const int64_t off = static_cast<int64_t>(a.t) * a.w_local;
+      wl = static_cast<int64_t>(word) - off;
+      owns_w = wl >= 0 && wl < a.w_local;
+      wl = clamp64(wl, 0, a.w_local - 1);
+      lcol = clamp64(static_cast<int64_t>(idx) - off * 32, 0,
+                     static_cast<int64_t>(a.w_local) * 32 - 1);
+    } else {
+      lcol = clamp64(idx, 0, a.n_ids - 1);
+    }
+    const size_t row = static_cast<size_t>(gather_ix(ep, l4.n_eps)) * 2 +
+                       gather_ix(dir, 2);
+    const uint32_t l3 =
+        owns_w ? __ldg(p.l3_allow + row * p.n_words +
+                       gather_ix(static_cast<int32_t>(wl), p.n_words))
+               : 0u;
+    const bool p2 = known && owns_w && ((l3 >> bit) & 1u);
+    const uint32_t flags = ((ex.hit && owns) ? F_P1 : 0u) | (p2 ? F_P2 : 0u) |
+                           (replica ? F_REPLICA : 0u) | (wd.hit ? F_P3 : 0u) |
+                           (known ? F_KNOWN : 0u) | (st.hit ? F_STASH : 0u);
+    int32_t* out = a.out;
+    __stcs(out + i, static_cast<int32_t>(flags));
+    __stcs(out + b + i, static_cast<int32_t>(owns ? ex.val : 0u));
+    __stcs(out + 2 * b + i, static_cast<int32_t>(st.val));
+    __stcs(out + 3 * b + i, static_cast<int32_t>(wd.val));
+    __stcs(out + 4 * b + i, static_cast<int32_t>(lcol));
   }
-  const size_t row = static_cast<size_t>(gather_ix(u.ep, l4.n_eps)) * 2 +
-                     gather_ix(u.dir, 2);
-  const uint32_t l3 = __ldg(p.l3_allow + row * p.n_words +
-                            gather_ix(static_cast<int32_t>(wl), p.n_words));
-  const bool p2 = known && owns_w && ((l3 >> bit) & 1u);
-  const uint32_t flags = ((ex.hit && owns) ? F_P1 : 0u) | (p2 ? F_P2 : 0u) |
-                         (replica ? F_REPLICA : 0u) | (wd.hit ? F_P3 : 0u) |
-                         (known ? F_KNOWN : 0u) | (st.hit ? F_STASH : 0u);
-  int32_t* out = a.out;
-  out[i] = static_cast<int32_t>(flags);
-  out[b + i] = static_cast<int32_t>(owns ? ex.val : 0u);
-  out[2 * b + i] = static_cast<int32_t>(st.val);
-  out[3 * b + i] = static_cast<int32_t>(wd.val);
-  out[4 * b + i] = static_cast<int32_t>(lcol);
 }
 
 // The table-axis sum of ROUTED_PROBE's records for tuple i (the flags OR
@@ -860,10 +927,24 @@ extern "C" int launch_mesh_probe(const cms::MeshProbeArgs* args,
   return cms::launch(cms::mesh_probe_kernel, args, stream);
 }
 
-// Launch ROUTED_PROBE on `stream`; returns cudaGetLastError().
+// Launch ROUTED_PROBE on `stream` (its stashes in dynamic shared memory
+// where they fit); returns cudaGetLastError().
 extern "C" int launch_routed_probe(const cms::RoutedProbeArgs* args,
                                    void* stream) {
-  return cms::launch(cms::routed_probe_kernel, args, stream);
+  using namespace cms;
+  const RoutedProbeArgs& a = *args;
+  if (a.ntp < 1 || a.ntp > MAX_TP || a.n_rows_global < 1 ||
+      (a.failover && ((a.rows_sharded && a.n_row_shard < 1) ||
+                      (a.l3_sharded && a.wn < 1))))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (a.B > 0) {
+    const size_t smem = routed_stashes_staged(a)
+                            ? static_cast<size_t>(routed_stash_words(a)) * 4
+                            : 0;
+    routed_probe_kernel<<<(a.B + BLOCK - 1) / BLOCK, BLOCK, smem,
+                          static_cast<cudaStream_t>(stream)>>>(a);
+  }
+  return static_cast<int>(cudaGetLastError());
 }
 
 // Launch MESH_COMBINE on `stream`; returns cudaGetLastError().

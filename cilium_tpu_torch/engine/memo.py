@@ -184,6 +184,7 @@ def dedup_groups(k0, k1, k2, rep_cap: int) -> dict:
 
       srow       int64 [B]  original row of each sorted position
       gid        int64 [B]  group id per sorted position
+      rgid       int64 [B]  group id per original row (rgid[srow] = gid)
       n_unique   int        distinct keys
       rep_orig   int64 [rep_cap + 1]  each group's first row in sort
                  order; slots past n_unique hold srow[0], slot rep_cap 0
@@ -206,8 +207,11 @@ def dedup_groups(k0, k1, k2, rep_cap: int) -> dict:
     rep_orig = torch.cat([srow[rep_pos],
                           torch.zeros(1, dtype=torch.int64, device=dev)])
     rep_valid = torch.arange(rep_cap, device=dev) < n_unique
-    return dict(srow=srow, gid=gid, n_unique=n_unique, rep_orig=rep_orig,
-                rep_valid=rep_valid, overflow=max(n_unique - rep_cap, 0))
+    rgid = torch.empty_like(gid)
+    rgid[srow] = gid
+    return dict(srow=srow, gid=gid, rgid=rgid, n_unique=n_unique,
+                rep_orig=rep_orig, rep_valid=rep_valid,
+                overflow=max(n_unique - rep_cap, 0))
 
 
 # -- level B -------------------------------------------------------------------

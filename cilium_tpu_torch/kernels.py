@@ -60,8 +60,8 @@ the verdict memo's levels A and B and memo_evaluate's key words and
 combine (K14); `DATAPATH_PAIR_MEMO` launches DATAPATH_PAIR's memo mode
 (its front and back passes).  engine/memo.py strings them together.
 Each call counts one launch: MEMO_DEDUP is one cooperative kernel (after
-a memset of its barrier), MEMO_CACHE runs several device kernels in
-order on the current stream.
+a memset of its barrier), MEMO_CACHE one cooperative kernel (its barrier
+words zeroed once, in its held scratch).
 
 `PUBLISH_SCATTER(segments)` (csrc/publish.cu) is the device table
 store's delta scatter (K18 publish): every scattered leaf of a publish
@@ -1847,6 +1847,19 @@ _RADIX_TILE = 4096  # csrc/radix.cuh TILE
 _SCAN_TILE = 1024  # csrc/radix.cuh SCAN_TILE
 _DEDUP_BIG_TILE = 4096  # csrc/memo.cu BIG_TILE
 _DEDUP_FEW_TILES = 32  # csrc/memo.cu FEW_TILES
+# MEMO_CACHE's scratch regions in CacheArgs order: per representative
+# (rep_cap words; rv two, r_hit and r_hit_lane a byte, hit_bits a bit),
+# per bucket (n_rows; b_slots SLOTS), then the control words
+# (csrc/memo.cu CTL_WORDS)
+CACHE_SCRATCH = ("r_bucket", "r_rank_word", "r_empty", "r_arrive", "rv",
+                 "hit_bits", "seg", "r_hit", "r_hit_lane", "b_count",
+                 "b_start", "b_placed", "b_slots")
+_CACHE_CTL_WORDS = 8  # csrc/memo.cu CTL_WORDS
+_CACHE_SLOTS = 4  # csrc/memo.cu SLOTS: a bucket's own member slots
+# the PolicyTables leaves _policy_view reads
+_VIEW_LEAVES = ("id_table", "id_direct", "id_lo_len", "port_slot", "l4_meta",
+                "l4_allow_bits", "l3_allow_bits", "l4_hash_rows",
+                "l4_hash_stash", "l4_wild_rows", "l4_wild_stash")
 
 
 class SortArgs(ctypes.Structure):
@@ -1866,7 +1879,7 @@ class DedupArgs(ctypes.Structure):
         + [("sk", (_P * 4) * 2)]
         + [(name, _P) for name in (
             "hist", "totals", "dtot", "status", "misc", "bar", "srow", "gid",
-            "n_unique", "rep_orig", "rep_valid", "overflow")]
+            "rgid", "n_unique", "rep_orig", "rep_valid", "overflow")]
         + [("B", _I), ("rep_cap", _I), ("t_mask", ctypes.c_uint32)]
     )
 
@@ -1877,14 +1890,12 @@ class CacheArgs(ctypes.Structure):
     _fields_ = (
         [("pol", PolicyViewArgs)]
         + [(name, _P) for name in (
-            "keys", "ep_w", "dir_w", "srow", "gid", "rep_orig", "n_unique",
+            "keys", "ep_w", "dir_w", "rgid", "rep_orig", "n_unique",
             "dedup_overflow", "rows_in", "rows_out", "restore", "v0", "v1",
-            "hit", "stats", "r_hit", "r_hit_lane", "r_ins_lane", "r_do_ins",
-            "r_bucket", "r_rank_word", "r_empty", "rv0", "rv1")]
-        + [("sort", SortArgs), ("counters", _P)]
+            "hit", "stats", *CACHE_SCRATCH, "ctl")]
         + [(name, _I) for name in (
             "B", "rep_cap", "n_rows", "width", "entries",
-            "ranked", "subword", "has_l3", "accumulate", "bucket_passes")]
+            "ranked", "subword", "has_l3", "accumulate", "hit_smem_words")]
     )
 
 
@@ -1974,9 +1985,10 @@ def dedup_scratch_words(b: int) -> tuple:
 class MemoDedupKernel:
     """K14's level A on the card: memo.dedup_groups of the key words
     keys int32 [3, B] (u32 bits).  Returns the dict of dedup_groups with
-    tensors: srow, gid int32 [B], n_unique int32 [1], rep_orig int32
-    [rep_cap + 1], rep_valid bool [rep_cap], overflow int32 [1].  One
-    cooperative launch (csrc/memo.cu); its scratch is one allocation."""
+    tensors: srow, gid, rgid int32 [B], n_unique int32 [1], rep_orig
+    int32 [rep_cap + 1], rep_valid bool [rep_cap], overflow int32 [1].
+    One cooperative launch (csrc/memo.cu); its scratch is one
+    allocation."""
 
     name = "memo_dedup"
 
@@ -1995,6 +2007,7 @@ class MemoDedupKernel:
         out = dict(
             srow=torch.empty(b, dtype=torch.int32, device=dev),
             gid=torch.empty(b, dtype=torch.int32, device=dev),
+            rgid=torch.empty(b, dtype=torch.int32, device=dev),
             n_unique=ints[0:1], overflow=ints[1:2],
             rep_orig=torch.empty(rep_cap + 1, dtype=torch.int32, device=dev),
             rep_valid=torch.empty(rep_cap, dtype=torch.bool, device=dev),
@@ -2022,27 +2035,80 @@ class MemoDedupKernel:
         return out
 
 
+def cache_scratch_words(rep_cap: int, n_rows: int) -> tuple:
+    """MEMO_CACHE's scratch regions in CacheArgs order, (name, int32
+    words) each a multiple of 4 words (16-byte aligned): CACHE_SCRATCH
+    (per representative, per bucket), then the control words."""
+    up4 = lambda n: -(-n // 4) * 4
+    per = {"rv": 2 * up4(rep_cap), "hit_bits": up4(-(-rep_cap // 32)),
+           "r_hit": up4(-(-rep_cap // 4)), "r_hit_lane": up4(-(-rep_cap // 4)),
+           "b_count": up4(n_rows), "b_start": up4(n_rows),
+           "b_placed": up4(n_rows),
+           "b_slots": up4(n_rows * _CACHE_SLOTS)}
+    return tuple((n, per.get(n, up4(rep_cap))) for n in CACHE_SCRATCH) + (
+        ("ctl", _CACHE_CTL_WORDS),)
+
+
 class MemoCacheKernel:
     """K14's level B on the card: the probe of each representative of
     MEMO_DEDUP's groups `g` in rows_in ([n_rows + 1, W] int32, any of the
     three layouts), the insert lanes, the lattice (index_probes over the
     policy tables `pol`) on the missed representatives, the commit into
     rows_out (which the rows are first copied into when it is another
-    buffer) when nothing overflowed, and the scatter-back.
-    Writes the stats row into `stats` int32 [5] (added to it with
-    `accumulate`); with `restore` copies those rows back into rows_out
-    when the stats show an overflow.  `has_l3`: key bit 0 is the
-    ipcache's L3 bit (else probe 2 reads l3_allow_bits); `ep_dir`: the
-    tuples' endpoint and direction words [B] (else decoded from k2).
-    Returns (v0, v1 int32 [B], hit bool [B]), into `out` when given."""
+    buffer) when nothing overflowed, and the scatter-back in row order
+    (g["rgid"]).  Writes the stats row into `stats` int32 [5] (added to
+    it with `accumulate`); with `restore` copies those rows back into
+    rows_out when the stats show an overflow.  `has_l3`: key bit 0 is
+    the ipcache's L3 bit (else probe 2 reads l3_allow_bits); `ep_dir`:
+    the tuples' endpoint and direction words [B] (else decoded from
+    k2).  Returns (v0, v1 int32 [B], hit bool [B]), into `out` when
+    given.  One cooperative launch (csrc/memo.cu).
+
+    The scratch (cache_scratch_words) is kept across calls, one
+    allocation per (device, stream), laid out for the largest rep_cap
+    and n_rows seen there and regrown past them: calls on one stream
+    run in order, so each may reuse it (the old buffer goes back to the
+    allocator in stream order); a call on another stream gets its own.
+    Its barrier words are zeroed when it is made, and each call leaves
+    them zero.  The policy tables' view is rebuilt only when an address,
+    shape or dtype of a leaf it reads (_VIEW_LEAVES) differs from the
+    last call's."""
 
     name = "memo_cache"
 
     def __init__(self) -> None:
         self.launches = 0
+        self._scratch = {}  # (device, stream) -> (rep_cap, n_rows, ptrs, buf)
+        self._view = (None, None)  # (leaves_key, view)
 
     def load(self, verbose: bool = False):
         return MEMO_LIBRARY.load(verbose)
+
+    def _policy(self, pol, dev) -> PolicyViewArgs:
+        key = [dev]
+        for name in _VIEW_LEAVES:
+            x = getattr(pol, name)
+            key.append((x.data_ptr(), x.shape, x.dtype)
+                       if isinstance(x, torch.Tensor) else x)
+        if key != self._view[0]:
+            self._view = (key, _policy_view(pol, dev))
+        return self._view[1]
+
+    def _scratch_ptrs(self, dev, rep_cap: int, n_rows: int) -> dict:
+        key = (dev.index, _stream(dev))
+        got = self._scratch.get(key)
+        if got is None or got[0] < rep_cap or got[1] < n_rows:
+            if got is not None:
+                rep_cap, n_rows = max(rep_cap, got[0]), max(n_rows, got[1])
+            regions = cache_scratch_words(rep_cap, n_rows)
+            buf = torch.zeros(sum(n for _, n in regions), dtype=torch.int32,
+                              device=dev)
+            ptrs, at = {}, buf.data_ptr()
+            for name, n in regions:
+                ptrs[name] = at
+                at += 4 * n
+            got = self._scratch[key] = (rep_cap, n_rows, ptrs, buf)
+        return got[2]
 
     def __call__(self, pol, keys, g, rows_in, rows_out, stats, *,
                  rep_cap: int, has_l3: bool,
@@ -2062,13 +2128,12 @@ class MemoCacheKernel:
         if not 1 <= e <= 32 or rank_column(rows_in) + int(ranked) > width:
             raise ValueError(f"{self.name}: no row layout is {width} wide")
         a = CacheArgs()
-        a.pol = _policy_view(pol, dev)
+        a.pol = self._policy(pol, dev)
         a.keys = keys.data_ptr()
         if ep_dir is not None:
             a.ep_w = _ptr(ep_dir[0], "ep words", dev, shape=(b,))
             a.dir_w = _ptr(ep_dir[1], "direction words", dev, shape=(b,))
-        a.srow = _ptr(g["srow"], "srow", dev, shape=(b,))
-        a.gid = _ptr(g["gid"], "gid", dev, shape=(b,))
+        a.rgid = _ptr(g["rgid"], "rgid", dev, shape=(b,))
         a.rep_orig = _ptr(g["rep_orig"], "rep_orig", dev, shape=(rep_cap + 1,))
         a.n_unique = _ptr(g["n_unique"], "n_unique", dev, shape=(1,))
         a.dedup_overflow = _ptr(g["overflow"], "overflow", dev, shape=(1,))
@@ -2085,26 +2150,14 @@ class MemoCacheKernel:
         a.v0 = _ptr(out[0], "v0", dev, shape=(b,))
         a.v1 = _ptr(out[1], "v1", dev, shape=(b,))
         a.hit = _ptr(out[2], "hit", dev, dtype=torch.bool, shape=(b,))
-        bytes4 = torch.empty((5, rep_cap), dtype=torch.int32, device=dev)
-        bytes1 = torch.empty((4, rep_cap), dtype=torch.uint8, device=dev)
-        for k, name in enumerate(("r_hit", "r_hit_lane", "r_ins_lane",
-                                  "r_do_ins")):
-            setattr(a, name, bytes1[k].data_ptr())
-        for k, name in enumerate(("r_bucket", "r_rank_word", "r_empty",
-                                  "rv0", "rv1")):
-            setattr(a, name, bytes4[k].data_ptr())
-        counters = torch.empty(3, dtype=torch.int32, device=dev)
-        a.counters = counters.data_ptr()
-        passes = max((max(n_rows.bit_length() - 1, 1) + 7) // 8, 1)
-        a.sort, sort_bufs = _sort_args(rep_cap, 1, passes,
-                                       counters.data_ptr(), dev)
+        for name, at in self._scratch_ptrs(dev, rep_cap, n_rows).items():
+            setattr(a, name, at)
         a.B, a.rep_cap, a.n_rows, a.width = b, rep_cap, n_rows, width
         a.entries, a.ranked, a.subword = e, int(ranked), int(subw)
         a.has_l3 = int(bool(has_l3))
-        a.accumulate, a.bucket_passes = int(bool(accumulate)), passes
+        a.accumulate = int(bool(accumulate))
         MEMO_LIBRARY.launch("launch_memo_cache", a, dev, self.name)
         self.launches += 1
-        del bytes4, bytes1, counters, sort_bufs
         return out
 
 

@@ -182,14 +182,46 @@ def test_dense_datapath_matches_plain_version(compact):
         assert torch.equal(getattr(got, col), getattr(want, col)), col
 
 
+def _routed_records_differ(m, pol, batch, alive, tp) -> int:
+    """ROUTED_PROBE against routed_probe_plain on every shard of the
+    CUDA mesh `m`, partitioned and in failover mode under `alive`:
+    differing record entries."""
+    from cilium_tpu_torch import kernels
+    from cilium_tpu_torch.compiler import partition
+    from cilium_tpu_torch.convert import policy_tables_to
+    from cilium_tpu_torch.engine import mesh, sharded
+
+    differ = 0
+    sb = sharded.shard_batch(m, batch)
+    alive_t = torch.from_numpy(alive).cuda()
+    for failover, tab in ((False, pol),
+                          (True, partition.replicate_table_leaves(pol, tp))):
+        specs, g = sharded._routed_geom(pol, tp, "table", failover=failover)
+        placed = mesh.place_tables(policy_tables_to(tab, "cuda"),
+                                   mesh.shardings_of(m, specs))
+        for (b, t), dev in np.ndenumerate(m.devices):
+            bl = sb.on(b, dev)
+            row = alive_t[b] if failover else None
+            k = kernels.ROUTED_PROBE(placed.shard(b, t), bl, g, t, row)
+            p = sharded.routed_probe_plain(placed.shard(b, t), bl, g, t, row)
+            differ += int((k != p).sum().item())
+    return differ
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dp_,tp", [(2, 4), (4, 2), (8, 1)])
-@pytest.mark.parametrize("compact", [False, True])
+@pytest.mark.parametrize("compact", [False, True, "stash_edges"])
 def test_mesh_kernels_match_plain_versions(dp_, tp, compact):
     """MESH_PROBE, ROUTED_PROBE and MESH_COMBINE through the four mesh
     evaluators on a CUDA mesh of virtual chips against the plain
     versions on a CPU mesh of the same shape: every output; each kernel
-    launched once per shard (probes) or batch row (combine)."""
+    launched once per shard (probes) or batch row (combine); and
+    ROUTED_PROBE's records against its plain version's on every shard,
+    partitioned and in failover mode.  "stash_edges" repacks the hashed
+    tables at 4 lanes (entries spill into both stashes, which are hit)
+    and puts edge words in the first 16 tuples: identities past
+    id_direct's regions, negative and huge endpoints and directions,
+    dports past 65,535."""
     _need_card()
     import dataclasses
 
@@ -207,11 +239,38 @@ def test_mesh_kernels_match_plain_versions(dp_, tp, compact):
     )
     pol = w.host_tables().policy
     if compact:
-        pol = dataclasses.replace(repack_l4_subword(pol), port_slot=(
+        lanes = {"stash_edges": {"lanes": 4}}.get(compact, {})
+        pol = dataclasses.replace(repack_l4_subword(pol, **lanes), port_slot=(
             pol.port_slot), l4_allow_bits=pol.l4_allow_bits)
     cols = world.lattice_tuples(w, 8 * 1000, seed=3)
     cols["identity"][::7] = 7  # unknown identities
     cols["is_fragment"] = np.arange(8000) % 11 == 0
+    if compact == "stash_edges":
+        edge = dict(
+            identity=[0xFFFFFFFF, 0x7FFFFFFF, (1 << 24) + 70000,
+                      (1 << 24) - 1, 999999, 1 << 31, (1 << 24) + 200, 7],
+            ep_index=[-1, -2, 1 << 20, 0xFFFFFFFF, 2, 1, 0, -3],
+            direction=[-1, 2, 255, 0xFFFFFFFE, 1, 0, 1, 0],
+            dport=[70000, 65536, 1 << 31, 0xFFFFFFFF, 80, 53, 443, 8080])
+        for k, v in edge.items():
+            cols[k] = np.asarray(cols[k]).astype(np.int64)
+            cols[k][:16] = np.asarray(v * 2, np.int64)
+            cols[k] = (cols[k] & 0xFFFFFFFF).astype(np.uint32)
+        # then one tuple an entry of both stashes: their keys decoded
+        ids = np.asarray(pol.id_table).astype(np.int64) & 0xFFFFFFFF
+        at = 16
+        for stash in (pol.l4_hash_stash, pol.l4_wild_stash):
+            for w0, w1 in (np.asarray(stash).astype(np.int64)
+                           & 0xFFFFFFFF)[:, :2]:
+                if w0 == 0xFFFFFFFF:
+                    continue
+                cols["identity"][at] = ids[min(int(w0 & 0x3FFFF),
+                                               len(ids) - 1)]
+                cols["dport"][at] = (w0 >> 18) | ((w1 & 3) << 14)
+                cols["proto"][at] = (w1 >> 2) & 0xFF
+                cols["ep_index"][at] = (w1 >> 10) & 0xFF
+                cols["direction"][at] = (w1 >> 18) & 1
+                at += 1
     valid = np.arange(8000) % 5 != 0
     alive = np.ones((dp_, tp), bool)
     if tp > 1:
@@ -249,3 +308,11 @@ def test_mesh_kernels_match_plain_versions(dp_, tp, compact):
                                getattr(want[0], c)), (k, c)
         for a, b in zip(got[1:], want[1:]):
             assert torch.equal(a.cpu(), b), k
+    m = mesh.make_mesh(dp_, tp, device="cuda")
+    batch = TupleBatch.from_numpy(**cols, device="cuda")
+    assert _routed_records_differ(m, pol, batch, alive, tp) == 0
+    if compact == "stash_edges":  # both stashes hit
+        stash = sharded.routed_probe_plain(
+            policy_tables_to(pol, "cuda"), batch, sharded._routed_geom(
+                pol, 1, "table", failover=False)[1], 0)
+        assert int(((stash[0] & sharded.F_STASH) != 0).sum()) > 0

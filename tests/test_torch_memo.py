@@ -23,6 +23,7 @@ plain versions on the card; they need no JAX and skip here:
 """
 
 import dataclasses
+import functools
 import os
 import shutil
 
@@ -202,17 +203,27 @@ def _keys(rng, n, spread):
     return k
 
 
-@pytest.mark.parametrize("spread", ["random", "duplicated", "all_equal",
-                                    "all_distinct", "zipf_hot", "bit31",
-                                    "one_row"])
-@pytest.mark.parametrize("rep_cap", [768, 16, "n_unique"])
-def test_dedup_groups_match_jax(spread, rep_cap):
-    _need_jax()
+_SPREADS = ["random", "duplicated", "all_equal", "all_distinct", "zipf_hot",
+            "bit31", "one_row"]
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_groups(spread, rep_cap):
+    """(keys [3, 768], n_unique, rep_cap, JAX's dedup_groups), each case
+    run through the jitted reference once a module."""
     k = _keys(np.random.default_rng(5), 768, spread)
     n_unique = len(np.unique(k, axis=1).T)
     if rep_cap == "n_unique":
         rep_cap = n_unique
     want = jax.jit(lambda a, b, c: jvm.dedup_groups(a, b, c, rep_cap))(*k)
+    return k, n_unique, rep_cap, want
+
+
+@pytest.mark.parametrize("spread", _SPREADS)
+@pytest.mark.parametrize("rep_cap", [768, 16, "n_unique"])
+def test_dedup_groups_match_jax(spread, rep_cap):
+    _need_jax()
+    k, n_unique, rep_cap, want = _jax_groups(spread, rep_cap)
     got = tm.dedup_groups(*(_i64(x) for x in k), rep_cap)
     for name in ("srow", "gid", "rep_orig", "rep_valid"):
         _same(got[name], want[name], name)
@@ -221,6 +232,21 @@ def test_dedup_groups_match_jax(spread, rep_cap):
     assert got["overflow"] == max(n_unique - rep_cap, 0)
     if spread in ("random", "duplicated"):
         assert (got["overflow"] > 0) == (rep_cap == 16)
+
+
+@pytest.mark.parametrize("spread", _SPREADS)
+def test_dedup_rgid_inverts_jax_groups(spread):
+    """rgid, each row's group id in row order (MEMO_CACHE's scatter-back
+    order), is the inverse of the reference's sorted rows and groups:
+    rgid[srow] == gid, over every row."""
+    _need_jax()
+    k, _, rep_cap, want = _jax_groups(spread, 768)
+    got = tm.dedup_groups(*(_i64(x) for x in k), rep_cap)
+    srow, gid = np.asarray(want["srow"]), np.asarray(want["gid"])
+    assert sorted(srow.tolist()) == list(range(k.shape[1]))
+    inverse = np.empty_like(gid)
+    inverse[srow] = gid
+    _same(got["rgid"], inverse, "rgid")
 
 
 def test_xla_sort_is_stable_on_equal_keys():
@@ -279,18 +305,34 @@ def _t_round(rows, k, valid, v):
     return (hit, cv0, cv1, bucket, lane, ok, hlane, rword), r2, r3
 
 
-@pytest.mark.parametrize("n_rows", [2, 64])
-@pytest.mark.parametrize("entries", [8, 16])
-@pytest.mark.parametrize("layout", ["legacy", "rank", "subword"])
+_CACHE_OPS_CASES = [
+    (layout, entries, n_rows)
+    for layout in ("legacy", "rank", "subword")
+    for entries, n_rows in ((8, 2), (8, 64), (16, 2), (16, 64))
+] + [
+    # one bucket (every key ranked past the lanes but the first few) and
+    # 32-entry rows
+    (layout, entries, n_rows)
+    for layout in ("legacy", "rank", "subword")
+    for entries, n_rows in ((8, 1), (32, 64), (32, 1))
+]
+
+
+@pytest.mark.parametrize("layout,entries,n_rows", _CACHE_OPS_CASES)
 def test_cache_ops_match_jax(layout, entries, n_rows):
     """Four rounds of probe, insert lanes, rank updates and insert over
     keys that recur between rounds (hits, rank bumps, evictions from
-    full buckets); each output and the rows after each step equal."""
+    full buckets); each output and the rows after each step equal.  At
+    n_rows 1 every key lands in one bucket, 160 keys a round against at
+    most 32 lanes."""
     _need_jax()
     rng = np.random.default_rng(entries * 100 + n_rows)
+    # one bucket keeps at most 32 keys: a universe little larger than a
+    # round's keys makes them recur (hits) there
+    u = 170 if n_rows == 1 else 600
     universe = np.unique(np.stack([
-        rng.integers(0, 1 << 22, 600), rng.integers(0, 1 << 32, 600),
-        rng.integers(0, 1 << 32, 600)], axis=1), axis=0).astype(np.uint32)
+        rng.integers(0, 1 << 22, u), rng.integers(0, 1 << 32, u),
+        rng.integers(0, 1 << 32, u)], axis=1), axis=0).astype(np.uint32)
     j_rows = jax.device_put(_rows(layout, n_rows, entries))
     t_rows = convert.cache_rows_to(_rows(layout, n_rows, entries), "cpu")
     for rnd in range(4):
@@ -774,7 +816,7 @@ def test_memo_dedup_kernel_matches_plain(rep_cap):
     got = kernels.MEMO_DEDUP(keys, rep_cap)
     want = tm.dedup_groups(*(tv.widen(keys[i]) for i in range(3)), rep_cap)
     torch.cuda.synchronize()
-    for name in ("srow", "gid", "rep_orig", "rep_valid"):
+    for name in ("srow", "gid", "rgid", "rep_orig", "rep_valid"):
         _card_equal(got[name], want[name], name)
     assert int(got["n_unique"]) == want["n_unique"]
     assert int(got["overflow"]) == want["overflow"]
@@ -804,10 +846,120 @@ def test_memo_dedup_kernel_edge_cases(spread, cap):
     got = kernels.MEMO_DEDUP(keys, rep_cap)
     want = tm.dedup_groups(*wide, rep_cap)
     torch.cuda.synchronize()
-    for name in ("srow", "gid", "rep_orig", "rep_valid"):
+    for name in ("srow", "gid", "rgid", "rep_orig", "rep_valid"):
         _card_equal(got[name], want[name], name)
     assert int(got["n_unique"]) == want["n_unique"]
     assert int(got["overflow"]) == want["overflow"]
+
+
+def _card_groups(g):
+    """dedup_groups' plain dict as MEMO_CACHE takes MEMO_DEDUP's."""
+    i32 = lambda x: x.to(torch.int32).contiguous()  # noqa: E731
+    out = {n: i32(g[n]) for n in ("srow", "gid", "rgid", "rep_orig")}
+    for n in ("n_unique", "overflow"):
+        out[n] = torch.tensor([g[n]], dtype=torch.int32, device="cuda")
+    return out
+
+
+@functools.lru_cache(maxsize=None)
+def _card_memo_world():
+    """A small world's headline tables on the card and a Zipf pair's
+    memo keys [2, 3, 60,000] (DATAPATH_PAIR_MEMO's front pass)."""
+    from cilium_tpu_torch import kernels
+
+    w = world.make_world(seed=1, **SMALL)
+    tt = convert.tables_to(world.headline_tables(w), "cuda")
+    pair = world.zipf_pairs(w, np.random.default_rng(55), 60_000, 1, 1.1)[0]
+    pt = torch.from_numpy(pair.view(np.int32)).cuda()
+    front = kernels.DATAPATH_PAIR_MEMO.front(tt, pt)
+    return tt, front.keys, front.has_l3
+
+
+_CACHE_CASES = {
+    # (layout, entries, n_rows, the halves' keys, their rep_caps)
+    **{f"{lay}-{e}": (lay, e, 64, "pair", (None, None))
+       for lay in ("legacy", "rank", "subword") for e in (8, 16, 32)},
+    "one_bucket": ("rank", 8, 1, "pair", (None, None)),
+    "one_key": ("rank", 8, 64, "one_key", (None, None)),
+    "rep_cap_full": ("subword", 16, 64, "pair", ("n_unique", "n_unique")),
+    "overflow_restore": ("rank", 8, 64, "pair", (None, "half")),
+    # more representatives than a block stages hit bits for
+    "many_reps": ("rank", 8, 1 << 12, "many", (None, None)),
+}
+
+
+def _card_many_keys(tt):
+    """Key words [2, 3, 450,000] of nearly distinct tuples (dports over the
+    whole range) from MEMO_KEYS_LATTICE: no L3 bit."""
+    from cilium_tpu_torch import kernels
+
+    w = world.make_world(seed=1, **SMALL)
+    out = []
+    for seed in (12, 13):
+        cols = world.lattice_tuples(w, 450_000, seed=seed)
+        cols["dport"] = np.random.default_rng(seed).integers(0, 1 << 16,
+                                                             450_000)
+        batch = tv.TupleBatch.from_numpy(**cols, device="cuda")
+        out.append(kernels.MEMO_KEYS_LATTICE.keys(tt.policy, batch.pack()))
+    return torch.stack(out)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(_CACHE_CASES))
+def test_memo_cache_kernel_matches_plain(case):
+    """MEMO_CACHE against memo_cache_plain on both halves of a memoized
+    pair (the ingress half copies the rows and commits into the copy,
+    the egress half commits in place, accumulates the stats and
+    restores the rows after an overflow): v0, v1, hit, the rows and the
+    stats, over the three layouts at 8, 16 and 32 entries, every
+    representative in one bucket, one key (U = 1), rep_cap = U, an
+    overflow of the second half, and more representatives than the
+    kernel stages hit bits for in shared memory.  One launch a call."""
+    _need_card()
+    from cilium_tpu_torch import kernels
+
+    layout, e, n_rows, which, caps = _CACHE_CASES[case]
+    tt, keys2, has_l3 = _card_memo_world()
+    if which == "one_key":
+        keys2 = keys2[:, :, :1].expand(-1, -1, 5000).contiguous()
+    if which == "many":
+        keys2, has_l3 = _card_many_keys(tt), False
+    rows = convert.cache_rows_to(_rows(layout, n_rows, e), "cuda")
+    out_rows = torch.empty_like(rows)
+    stats = torch.empty(tm.STATS, dtype=torch.int32, device="cuda")
+    p_rows, p_stats = rows, torch.zeros(tm.STATS, dtype=torch.int64,
+                                        device="cuda")
+    for h in (0, 1):
+        keys = keys2[h]
+        k0, k1, k2 = (tv.widen(keys[i]) for i in range(3))
+        n_unique = tm.dedup_groups(k0, k1, k2, 1)["n_unique"]
+        cap = {None: keys.shape[1], "n_unique": n_unique,
+               "half": max(n_unique // 2, 1)}[caps[h]]
+        g = tm.dedup_groups(k0, k1, k2, cap)
+        before = kernels.MEMO_CACHE.launches
+        v0, v1, hit = kernels.MEMO_CACHE(
+            tt.policy, keys, _card_groups(g), rows if h == 0 else out_rows,
+            out_rows, stats, rep_cap=cap, has_l3=has_l3, accumulate=h == 1,
+            restore=rows if h == 1 else None)
+        assert kernels.MEMO_CACHE.launches == before + 1
+        pv0, pv1, phit, prow, pst = tm.memo_cache_plain(
+            tt.policy, p_rows, (k0, k1, k2), g, k0, ((k1 >> 1) & 1).bool(),
+            (k1 & 1).bool() if has_l3 else None, k2 >> 1, k2 & 1, k1 >> 16,
+            (k1 >> 8) & 0xFF, cap)
+        p_stats = p_stats + pst
+        restored = h == 1 and int(p_stats[tm.STAT_OVERFLOW]) != 0
+        p_rows = rows if restored else prow
+        torch.cuda.synchronize()
+        for got, want, what in ((v0, pv0, "v0"), (v1, pv1, "v1"),
+                                (hit, phit, "hit"), (out_rows, p_rows, "rows"),
+                                (stats, p_stats, "stats")):
+            _card_equal(got, want, f"{case} half {h} {what}")
+    if case == "overflow_restore":
+        assert restored and torch.equal(out_rows, rows)
+    if case == "one_bucket":  # ranks past the lanes
+        assert n_unique > e
+    if case == "many_reps":  # csrc/memo.cu HIT_SMEM_WORDS' bits
+        assert n_unique > 12000 * 32
 
 
 @pytest.mark.cuda

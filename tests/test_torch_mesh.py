@@ -264,21 +264,78 @@ def _same_valid(got, healthy, valid):
         assert torch.equal(a, b)
 
 
-@pytest.mark.parametrize("dp,tp", [(4, 2), (2, 4)])
-def test_failover_dead_chip_matches_jax(dp, tp, worlds, jax_evaluators):
+def _stash_world(w):
+    """World 1 with both hashed tables repacked at 4 lanes (2 entries a
+    row: 16 exact and 2 wildcard entries spill into the stashes), and
+    edge tuples in its first 16 rows: identities past id_direct's two
+    regions and outside the universe, negative and huge endpoints and
+    directions, dports past 65,535."""
+    tt = ttab.repack_l4_subword(w["tt"], lanes=4)
+    jt = jtab.repack_l4_subword(w["jt"], lanes=4)
+    cols = {k: np.asarray(v).astype(np.int64) for k, v in w["cols"].items()}
+    edge = dict(
+        identity=[0xFFFFFFFF, 0x7FFFFFFF, (1 << 24) + 70000, (1 << 24) - 1,
+                  999999, 1 << 31, (1 << 24) + 200, 7] * 2,
+        ep_index=[-1, -2, 1 << 20, 0xFFFFFFFF, 2, 1, 0, -3] * 2,
+        direction=[-1, 2, 255, 0xFFFFFFFE, 1, 0, 1, 0] * 2,
+        dport=[70000, 65536, 1 << 31, 0xFFFFFFFF, 80, 53, 443, 8080] * 2,
+    )
+    for k, v in edge.items():
+        cols[k][:16] = np.asarray(v, np.int64)
+    cols = {k: (v.astype(bool) if k == "is_fragment" else
+                (v & M32).astype(np.uint32)) for k, v in cols.items()}
+    return dict(tt=tt, jt=jt, cols=cols, valid=w["valid"],
+                jb=jv.TupleBatch.from_numpy(**cols),
+                tb=tv.TupleBatch.from_numpy(**cols, device="cpu"))
+
+
+@pytest.fixture(scope="module")
+def stash_edges(worlds, jax_evaluators):
+    """_stash_world of world 1 and its JAX failover evaluator per (dp,
+    tp), built once a module."""
+    if jax is None:
+        return {}
+    w = _stash_world(worlds[1])
+    w["fail"] = {k: jsh.make_failover_evaluator(ev["mesh"], w["jt"],
+                                                collect_telemetry=True)
+                 for k, ev in jax_evaluators.items()}
+    return w
+
+
+@pytest.mark.parametrize("dp,tp,world", [
+    pytest.param(4, 2, "seed1", id="4-2"),
+    pytest.param(2, 4, "seed1", id="2-4"),
+    pytest.param(4, 2, "stash_edges", id="4-2-stash_edges"),
+    pytest.param(2, 4, "stash_edges", id="2-4-stash_edges"),
+])
+def test_failover_dead_chip_matches_jax(dp, tp, world, worlds,
+                                        jax_evaluators, stash_edges):
     """Table column 1 dead with its primary regions overwritten with
     garbage (the reference's own test): the outputs equal the
     reference's and the healthy mesh's.  Then chip (0, 1) alone dead,
     its own resident rows garbage: the valid rows' verdicts and every
-    counter equal the healthy mesh's, and replica_hits > 0."""
+    counter equal the healthy mesh's, and replica_hits > 0.  The
+    "stash_edges" world (_stash_world) takes the same steps with stash
+    hits on the exact and wildcard probes and out-of-range tuple
+    words."""
     _need_jax()
-    w, ev = worlds[1], jax_evaluators[dp, tp]
+    if world == "seed1":
+        w, ev = worlds[1], jax_evaluators[dp, tp]
+    else:
+        w, ev = stash_edges, dict(fail=stash_edges["fail"][dp, tp])
     mesh = tmesh.make_mesh(dp, tp, device="cpu")
     tt, jt = w["tt"], w["jt"]
     taug = tpart.replicate_table_leaves(tt, tp)
     jaug = jpart.replicate_table_leaves(jt, tp)
     fo = tsh.make_failover_evaluator(mesh, tt, collect_telemetry=True)
     healthy = fo(taug, w["tb"], np.ones((dp, tp), bool), w["valid"])
+    if world != "seed1":  # the stashes are hit
+        placed = tmesh.place_tables(taug, tmesh.shardings_of(
+            mesh, tpart.divisible_partition_specs(tt, tp)))
+        rec = tsh.routed_probe_plain(placed.shard(0, 0), w["tb"], fo.geom, 0,
+                                     torch.ones(tp, dtype=torch.bool))
+        assert int(((rec[0] & tsh.F_STASH) != 0).sum()) > 0
+        assert int(((rec[0] & tsh.F_P3) != 0).sum()) > 0
     n = tt.l4_hash_rows.shape[0] // tp
     wn = tt.l3_allow_bits.shape[-1] // tp
     alive = np.ones((dp, tp), bool)
