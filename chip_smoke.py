@@ -61,8 +61,12 @@ launch counts set to 0 just before it and read just after:
              config 5's 4,194,304 tuples (LATTICE), after lattice_check
              holds LATTICE in every mode (config 5's compact and wide
              tables, config 1's dense tables, config 2's IP mode; with
-             and without counters) and LPM_LOOKUP against their plain
-             versions;
+             and without counters; config 5's tuples drawn Zipf(1.1)
+             with counters) and LPM_LOOKUP against their plain versions,
+             and LATTICE on a world whose entries overflow into both
+             stashes (lattice_cases_check: tuples on the stash entries
+             and edge words, every layout and mode, the stashes also
+             padded past what the kernel stages);
   replay_lattice  10,000,000 flow records of config 5's pool through
              replay_lattice in batches of 1,048,576 with counters
              (LATTICE), its first 2 batches also on the plain version,
@@ -184,7 +188,10 @@ launch counts set to 0 just before it and read just after:
              memoized pair and the uncached DATAPATH_PAIR, each memo kernel
              against its plain version, a stamp flush onto the policy of
              a delta publish through the publish phase's compiler and
-             store (0 hits, then hits), an overflow at rep_cap 1,024 and
+             store (0 hits, then hits), a hot pair (one flow that counts
+             a hit takes 3 rows of 4 of each half: one hot counter cell)
+             cold and warm, an overflow at rep_cap 1,024 (of the uniform
+             pair, and of a pair whose hot ingress half fits it) and
              memo_evaluate against LATTICE and its plain version on
              4,194,304 Zipf tuples, MEMO_DEDUP against its plain
              version on its edge cases (dedup_case_keys, each at rep_cap
@@ -297,8 +304,9 @@ launch counts set to 0 just before it and read just after:
 
     python3 chip_smoke.py --ab-parent DIR
 
-also builds DIR/cilium_tpu_torch/csrc/{publish,churn,datapath,lattice,
-datapath_mesh,lookup,memo}.cu (a `git archive` of the parent commit)
+also builds DIR/cilium_tpu_torch/csrc/{publish,churn,datapath,datapath6,
+lattice,datapath_mesh,lookup,memo,mesh}.cu (a `git archive` of the parent
+commit)
 into cilium_tpu_torch/_build/ab/,
 beside the package's own build, and runs the parent's kernels beside
 this one's: at each of the four sites of PUBLISH_SCATTER and
@@ -318,18 +326,21 @@ step row's `ab`),
 and in step_form_timing on the record replay's accum_telem form (the
 `datapath_step_modes` line's `ab`); in memo_timing the parent's
 MEMO_DEDUP on the Zipf pair half's keys and on MEMO_DISTINCT distinct
-keys, every output entry the parent has agreeing (memo_ab: the row's
-`ab`, and `ab_device_ms_over_parent`: the new rgid output's cost), the
+keys, every output entry agreeing (memo_ab: the row's `ab`), the
 parent's MEMO_CACHE on both halves of the Zipf pair, v0, v1, hit, the
 rows and the stats agreeing (cache_ab: device ms, events and the
-wrapper's host µs queued behind a spin, the row's `ab`), and the whole
-memoized pair on the parent's MEMO_DEDUP and MEMO_CACHE
+wrapper's host µs queued behind a spin, the row's `ab`), the parent's
+memo mode passes (the front pass's key words and columns, the back
+pass's columns, and its counters and telemetry from zeroed carries
+agreeing; library_ab: DATAPATH_PAIR_MEMO's `ab`), and the whole
+memoized pair on the parent's csrc/datapath.cu and csrc/memo.cu
 (memo_pair_ab: DATAPATH_PAIR_MEMO's row); in mesh_timing the parent's
 ROUTED_PROBE, partitioned and in failover mode on shard 0 of the dead
 chip's batch row and on the shard serving its backup rows (library_ab:
 the row's `ab`); and, every
 result agreeing, in the same turns, LATTICE in each of lattice_timing's
-modes, DP_MESH_PROBE's four rounds on shard (0, 0) in dp_mesh_timing
+shapes, DATAPATH6 on config 6's flows with and without the tunnel map,
+DP_MESH_PROBE's four rounds on shard (0, 0) in dp_mesh_timing
 and IPCACHE_LOOKUP on each form of ipcache_lookup (library_ab: the
 rows' `ab`), whose stage code (csrc/*.cuh) the pair kernel shares.
 The four scatter sites alone, on config 5's world: `python3 -c "import
@@ -378,7 +389,11 @@ paths' (`launches_by_path`); `device_ms` its device ms queued behind a
 spin, `design` the kernel's launch there (pair_launch: its grid, the
 stash words staged and the dynamic shared memory a block takes),
 `stash_rows` the tables' stash rows, `ptxas` the registers, spills and
-static shared memory of each layout's instantiation.  The DATAPATH_PAIR and DATAPATH_STEP rows
+static shared memory of each layout's instantiation.  LATTICE's row
+carries each timed shape's events, device ms and bound (`modes_ms`) and
+the ptxas record of each of its instantiations (`ptxas`: entry words,
+IP mode, streaming); DATAPATH_PAIR_MEMO's its front and back passes'
+times and their ptxas records by layout (`ptxas`).  The DATAPATH_PAIR and DATAPATH_STEP rows
 also carry their time in overlay mode (`tunnel_ms`, `tunnel_plain_ms`,
 `tunnel_bound_ms`: the same bound plus the 3 KB map read whole,
 `tunnel_max_abs_err`), and DATAPATH6's row its time, plain time and
@@ -666,10 +681,40 @@ def check_step(tables, pool, kernels, dp, verdict) -> int:
     return err
 
 
+def check_memo(tables, w, kernels, dp, verdict) -> int:
+    """The memoized pair (memo_pair_packed4: DATAPATH_PAIR_MEMO's front
+    and back passes, MEMO_DEDUP, MEMO_CACHE) against memo_pair_plain on a
+    world's uniform pair of 2 x 5,000 flows cold and warm, its Zipf(1.1)
+    pair, and the Zipf pair again at a capacity it overflows, carries and
+    cache rows threaded through: max error over the 15 columns, the
+    counters, the telemetry, the rows, the hit flags and the stats."""
+    from cilium_tpu_torch import world
+    from cilium_tpu_torch.engine import memo
+
+    uni = w.pairs(seed=13, half=5000, k=1)[0]
+    zp = world.zipf_pairs(w, np.random.default_rng(54), 5000, 1, 1.1)[0]
+    rows = torch.from_numpy(memo.make_cache_rows(1 << 8, 8).view(np.int32)
+                            ).cuda()
+    acc = verdict.make_counter_buffers(tables.policy)
+    tel = verdict.make_telemetry_buffers("cuda")
+    acc_p, tel_p = acc.clone(), tel.clone()
+    err = 0
+    for pair, cap in ((uni, 5000), (uni, 5000), (zp, 5000), (zp, 64)):
+        pt = torch.from_numpy(pair.view(np.int32)).cuda()
+        k = memo.memo_pair_packed4(tables, pt, rows, acc, tel, cap)
+        p = memo.memo_pair_plain(tables, pt, rows, acc_p, tel_p, cap)
+        err = max(err, memo_err(k, p, dp))
+        rows, acc, tel, acc_p, tel_p = k[4], k[2], k[3], p[2], p[3]
+    torch.cuda.synchronize()
+    return err
+
+
 def layouts_check(kernels, dp, verdict) -> dict:
     """DATAPATH_PAIR over 2 pairs of 2 x 5,000 flows, PERSISTENT_PAIR
-    over 4 pairs of 2 x 4,999 and DATAPATH_STEP over the world's pool
-    (check_step: picks, the row-major copy, a pack, every form flag)
+    over 4 pairs of 2 x 4,999, DATAPATH_STEP over the world's pool
+    (check_step: picks, the row-major copy, a pack, every form flag) and
+    the memoized pair (check_memo: DATAPATH_PAIR_MEMO's front and back
+    passes with MEMO_DEDUP and MEMO_CACHE, cold, warm and overflowing)
     against their plain versions on 12 small worlds, one per layout
     instantiation (LAYOUT_PLANES), each with its wide tables and its
     headline ones (sub-word, hot plane): 0 differences, and every
@@ -700,7 +745,8 @@ def layouts_check(kernels, dp, verdict) -> dict:
                             dp, verdict),
                 check_super(tables, w.pairs(seed=10, half=4999, k=4),
                             kernels, dp, verdict),
-                check_step(tables, pool, kernels, dp, verdict))
+                check_step(tables, pool, kernels, dp, verdict),
+                check_memo(tables, w, kernels, dp, verdict))
             del tables
     want = {kernels.layout_name(i) for i in range(12)}
     phase("layouts_check", t, instantiations=len(taken),
@@ -2155,7 +2201,11 @@ def lattice_setup(w, tables, wide_t) -> dict:
     drawn in bench.py config2's order (100,000 tuples, the 512 oracle
     rows, 1,048,576 tuples); config 5's ipcache as DIR-24-8
     (build_lpm(w.ipc_map)) with 1,048,576 of the pool's peer
-    addresses."""
+    addresses; 4,194,304 of bench's tuples drawn Zipf(1.1) from
+    65,536 (memo_zipf_tuples: a few hot counter cells); and the first
+    batch of config 5's record replay (replay_lattice_phase's records
+    and batch, as replay.read_batches decodes them)."""
+    from cilium_tpu_torch import replay as rp
     from cilium_tpu_torch import world
     from cilium_tpu_torch.compiler.tables import split_hot
     from cilium_tpu_torch.convert import lpm_to, policy_tables_to
@@ -2179,6 +2229,11 @@ def lattice_setup(w, tables, wide_t) -> dict:
     u = dict(
         c5=TupleBatch.from_numpy(**world.lattice_tuples(w, LATTICE_TUPLES),
                                  device="cuda"),
+        c5_zipf=TupleBatch.from_numpy(
+            **memo_zipf_tuples(w, LATTICE_TUPLES, 61), device="cuda"),
+        c5_replay=next(rp.read_batches(
+            world.lattice_records(w, REPLAY_BATCH, seed=31), REPLAY_BATCH,
+            device="cuda"))[0],
         c5_policy=tables.policy, c5_wide=wide_t.policy,
         ex=ex, c1=policy_tables_to(split_hot(pol1), "cuda"),
         c1_batch=TupleBatch.from_numpy(**ex.tuples, device="cuda"),
@@ -2211,10 +2266,14 @@ def lattice_modes(u) -> dict:
     """LATTICE's modes at this run's shapes: (tables, batch, kwargs)."""
     ip = dict(lpm=u["c2_lpm"], src_ips=u["c2_big"][2])
     return {
+        "c5_zipf_counters": (u["c5_policy"], u["c5_zipf"],
+                             {"counters": True}),
         "c5_compact": (u["c5_policy"], u["c5"], {}),
         "c5_compact_counters": (u["c5_policy"], u["c5"], {"counters": True}),
         "c5_wide": (u["c5_wide"], u["c5"], {}),
         "c5_wide_counters": (u["c5_wide"], u["c5"], {"counters": True}),
+        "c5_replay_counters": (u["c5_policy"], u["c5_replay"],
+                               {"counters": True}),
         "c1_dense": (u["c1_dense"], u["c1_big"], {}),
         "c1_dense_counters": (u["c1_dense"], u["c1_big"], {"counters": True}),
         "c2_ip": (u["c2"], u["c2_big"][3], ip),
@@ -2222,9 +2281,91 @@ def lattice_modes(u) -> dict:
     }
 
 
+LATTICE_CASE_TUPLES = 20_000
+LATTICE_CASE_PAD = 2048  # stash rows past csrc/lattice.cu's 16 KB staged
+
+
+def lattice_case_tables():
+    """world.stash_world's policy (hashed L4 rows of two entries: both
+    stashes used): {layout: host PolicyTables} for "wide", "compact" and
+    "dense" (no hash), and "wide_pad", "compact_pad" with both stashes
+    padded by LATTICE_CASE_PAD empty rows (past the shared memory
+    LATTICE stages, so read where they lie); and the world."""
+    from cilium_tpu_torch import world
+
+    w, tabs = world.stash_world()
+    tabs["dense"] = dataclasses.replace(tabs["wide"], **{k: None for k in (
+        "l4_hash_rows", "l4_hash_stash", "l4_wild_rows", "l4_wild_stash")})
+    for name, empty in (("wide", (0, M32, 0)), ("compact", (0, 1 << 31))):
+        pad = np.tile(np.asarray(empty, np.uint32), (LATTICE_CASE_PAD, 1))
+        tabs[f"{name}_pad"] = dataclasses.replace(tabs[name], **{
+            k: np.concatenate([np.asarray(getattr(tabs[name], k)), pad])
+            for k in ("l4_hash_stash", "l4_wild_stash")})
+    return tabs, w
+
+
+def lattice_cases_check(kernels) -> dict:
+    """LATTICE against its plain version on lattice_case_tables' world:
+    LATTICE_CASE_TUPLES of bench's tuples, edge words in the first 16
+    (routed_edge_cols: identities past id_direct's regions, negative and
+    huge endpoints and directions, dports past 65,535), then one tuple a
+    used stash entry of the wide and the compact tables
+    (world.stash_tuples), and one in 7 fragments; in each layout (wide,
+    compact, dense, and wide and compact with the padded stashes), with
+    and without counters, and in IP mode (world.identity_addresses: the
+    world's identities at /32s through DIR-24-8, the edge identities at
+    an address it misses).  {case: differing entries}, and the stash
+    rows."""
+    from cilium_tpu_torch import world
+    from cilium_tpu_torch.convert import lpm_to, policy_tables_to
+    from cilium_tpu_torch.engine.verdict import TupleBatch
+    from cilium_tpu_torch.ipcache.lpm import build_lpm
+
+    tabs, w = lattice_case_tables()
+    cols = routed_edge_cols(world.lattice_tuples(w, LATTICE_CASE_TUPLES,
+                                                 seed=3))
+    at = 16
+    for name in ("wide", "compact"):
+        st = world.stash_tuples(tabs[name], 4)
+        n = len(st["dport"])
+        for k, v in st.items():
+            if k in cols:
+                cols[k][at:at + n] = v
+        at += n
+    cols["is_fragment"] = (np.arange(LATTICE_CASE_TUPLES) % 7 == 3
+                           ).astype(np.int64)
+    cidrs, src = world.identity_addresses(w.identity_ids, cols["identity"])
+    ip = dict(lpm=lpm_to(build_lpm(cidrs), "cuda"),
+              src_ips=torch.from_numpy(src.view(np.int32)).cuda())
+    batch = TupleBatch.from_numpy(**cols, device="cuda")
+    launches = kernels.LATTICE.launches
+    errs = {}
+    for name, host in tabs.items():
+        tab = policy_tables_to(host, "cuda")
+        modes = [({}, ""), ({"counters": True}, "_counters")]
+        if name != "dense":
+            modes += [(dict(ip), "_ip"), (dict(ip, counters=True),
+                                          "_ip_counters")]
+        for kw, tag in modes:
+            v, acc = kernels.LATTICE(tab, batch, **kw)
+            pv, pacc = lattice_plain(tab, batch, **kw)
+            err = verdicts_err(v, pv)
+            if acc is not None:
+                err = max(err, int_err(acc, pacc, True))
+            errs[name + tag] = err
+        del tab
+    torch.cuda.synchronize()
+    kernels.LATTICE.launches = launches
+    return dict(errs=errs, stash_tuples=at - 16, stash_rows={
+        n: [int(tabs[n].l4_hash_stash.shape[0]),
+            int(tabs[n].l4_wild_stash.shape[0])]
+        for n in ("wide", "compact", "wide_pad", "compact_pad")})
+
+
 def lattice_check(kernels, u) -> int:
     """LATTICE in every mode and LPM_LOOKUP on both DIR-24-8 tables,
-    each against its plain version on the same inputs: 0 differences."""
+    each against its plain version on the same inputs, and LATTICE on
+    lattice_cases_check's stash-heavy world: 0 differences."""
     from cilium_tpu_torch.ipcache.lpm import lpm_lookup_plain
 
     t = time.perf_counter()
@@ -2242,7 +2383,11 @@ def lattice_check(kernels, u) -> int:
         errs[name] = int_err(kernels.LPM_LOOKUP(lpm, ips),
                              lpm_lookup_plain(lpm, ips), True)
     torch.cuda.synchronize()
-    phase("lattice_check", t, max_abs_err=errs)
+    cases = lattice_cases_check(kernels)
+    errs.update({f"case_{k}": v for k, v in cases["errs"].items()})
+    phase("lattice_check", t, max_abs_err=errs,
+          case_stash_tuples=cases["stash_tuples"],
+          case_stash_rows=json.dumps(cases["stash_rows"]))
     if any(errs.values()):
         raise SystemExit(f"lattice_check: a kernel differs from its plain "
                          f"version: {errs}")
@@ -3143,11 +3288,11 @@ def lattice_timing(kernels, u, launches_lattice, launches_lpm, err) -> list:
             bound_ops_ms=ops / OPS_PER_S * 1e3)
     for name, r in res.items():
         print(f"  lattice_timing {name} " + json.dumps(r), flush=True)
-    # the parent's csrc/lattice.cu (--ab-parent): the shared stage code
+    # the parent's csrc/lattice.cu (--ab-parent) on every shape above
     ab = library_ab(kernels, "lattice", {
         name: (lambda tab=tab, batch=batch, kw=kw: kernels.LATTICE(
             tab, batch, **kw))
-        for name, (tab, batch, kw) in lattice_modes(u).items()})
+        for name, (tab, batch, kw) in modes.items()})
     phase("lattice_timing", t, modes=len(res))
     main, lpm = res["c5_compact"], res["lpm_c2"]
     src = "cilium_tpu_torch/csrc/lattice.cu"
@@ -3155,10 +3300,14 @@ def lattice_timing(kernels, u, launches_lattice, launches_lpm, err) -> list:
                      launches_lattice, err, main["ms"], main["plain_ms"],
                      main["bound_bytes_ms"], main["bound_ops_ms"])
     row["modes_ms"] = {n: {"events": round(r["ms"], 4),
-                           "device": round(r["device_ms"], 4)}
+                           "device": round(r["device_ms"], 4),
+                           "bound": round(max(r["bound_bytes_ms"],
+                                              r["bound_ops_ms"]), 4)}
                        for n, r in res.items() if "device_ms" in r}
+    row["ptxas"] = LATTICE_PTXAS
     if ab is not None:
         row["ab"] = ab["medians"]
+        row["ab_differing"] = ab["differing"]
     return [
         row,
         kernel_row(kernels.LPM_LOOKUP, src, "cilium_tpu/ipcache/lpm.py:1091",
@@ -3442,6 +3591,12 @@ def config6_timing(kernels, u, chk, launches6) -> tuple:
     row["tunnel_ms"] = tunnel_ms
     row["tunnel_plain_ms"] = tunnel_plain_ms
     row["tunnel_bound_ms"] = tunnel_bound_ms
+    # the parent's csrc/datapath6.cu (--ab-parent): the shared stage code
+    ab = library_ab(kernels, "datapath6", {
+        "config6": lambda: kernels.DATAPATH6(tables, flows),
+        "config6_tunnel": lambda: kernels.DATAPATH6(u["tunnel"], flows)})
+    if ab is not None:
+        row["ab"] = ab["medians"]
     return row, overlay
 
 
@@ -4709,132 +4864,13 @@ SCATTER_AB_BUDGET_S = 120.0  # the four sites' A/B together
 SCATTER_AB_TURNS = ("parent", "new", "new", "parent")
 # the parent's libraries built, and the package's library each stands in
 # for inside parent_library
-AB_STEMS = ("publish", "churn", "datapath", "lattice", "datapath_mesh",
-            "lookup", "memo", "mesh")
+AB_STEMS = ("publish", "churn", "datapath", "datapath6", "lattice",
+            "datapath_mesh", "lookup", "memo", "mesh")
 AB_LIBRARIES = {"churn": "CHURN_LIBRARY", "datapath": "DATAPATH_LIBRARY",
-                "lattice": "LATTICE_LIBRARY",
+                "datapath6": "DATAPATH6_LIBRARY", "lattice": "LATTICE_LIBRARY",
                 "datapath_mesh": "DP_MESH_LIBRARY", "lookup": "LOOKUP_LIBRARY",
-                "mesh": "MESH_LIBRARY"}
+                "memo": "MEMO_LIBRARY", "mesh": "MESH_LIBRARY"}
 AB = {"lib": None, "source": None, "libs": {}, "sites": {}, "s": 0.0}
-
-
-def _parent_memo_args(kernels):
-    """The parent's cmm::DedupArgs and cmm::CacheArgs: this package's
-    without the dedup's rgid, and the cache's before its cooperative
-    launch (the srow/gid scatter-back, per-representative byte and word
-    arrays, the bucket sort's SortArgs)."""
-    if "memo_args" not in AB:
-        P, I = ctypes.c_void_p, ctypes.c_int32
-        dedup = type("_ParentDedupArgs", (ctypes.Structure,), {
-            "_fields_": [f for f in kernels.DedupArgs._fields_
-                         if f[0] != "rgid"]})
-        cache = type("_ParentCacheArgs", (ctypes.Structure,), {
-            "_fields_": [("pol", kernels.PolicyViewArgs)] + [
-                (n, P) for n in (
-                    "keys", "ep_w", "dir_w", "srow", "gid", "rep_orig",
-                    "n_unique", "dedup_overflow", "rows_in", "rows_out",
-                    "restore", "v0", "v1", "hit", "stats", "r_hit",
-                    "r_hit_lane", "r_ins_lane", "r_do_ins", "r_bucket",
-                    "r_rank_word", "r_empty", "rv0", "rv1")]
-            + [("sort", kernels.SortArgs), ("counters", P)]
-            + [(n, I) for n in ("B", "rep_cap", "n_rows", "width", "entries",
-                                "ranked", "subword", "has_l3", "accumulate",
-                                "bucket_passes")]})
-        AB["memo_args"] = (dedup, cache)
-    return AB["memo_args"]
-
-
-def parent_memo_dedup(kernels, keys, rep_cap: int) -> dict:
-    """The parent's MEMO_DEDUP wrapper (the same cooperative kernel
-    without rgid), its checks and outputs."""
-    dev, b = kernels._keys3(keys, "parent memo_dedup")
-    ints = torch.empty(2, dtype=torch.int32, device=dev)
-    out = dict(
-        srow=torch.empty(b, dtype=torch.int32, device=dev),
-        gid=torch.empty(b, dtype=torch.int32, device=dev),
-        n_unique=ints[0:1], overflow=ints[1:2],
-        rep_orig=torch.empty(rep_cap + 1, dtype=torch.int32, device=dev),
-        rep_valid=torch.empty(rep_cap, dtype=torch.bool, device=dev))
-    slots, regions = kernels.dedup_scratch_words(b)
-    scratch = torch.empty(sum(n for _, n in regions), dtype=torch.int32,
-                          device=dev)
-    a = _parent_memo_args(kernels)[0]()
-    at = scratch.data_ptr()
-    for name, n in regions:
-        if name.startswith("sk"):
-            a.sk[int(name[2])][int(name[3])] = at
-        else:
-            setattr(a, name, at)
-        at += 4 * n
-    a.keys = keys.data_ptr()
-    for name, t in out.items():
-        setattr(a, name, t.data_ptr())
-    a.B, a.rep_cap, a.t_mask = b, rep_cap, slots - 1
-    err = AB["libs"]["memo"].launch_memo_dedup(ctypes.byref(a),
-                                               kernels._stream(dev))
-    if err:
-        raise SystemExit(f"ab: the parent's MEMO_DEDUP launch: {err}")
-    del scratch
-    return out
-
-
-def parent_memo_cache(kernels, pol, keys, g, rows_in, rows_out, stats, *,
-                      rep_cap: int, has_l3: bool, accumulate: bool = False,
-                      restore=None, out=None):
-    """The parent's MEMO_CACHE wrapper (14-15 launches a call: probe,
-    bucket sort, lanes, lattice, commit, scatter through srow/gid,
-    stats; the copy and the restore), its checks, allocations and
-    outputs."""
-    from cilium_tpu_torch.engine.memo import cache_layout
-
-    _ptr = kernels._ptr
-    dev, b = kernels._keys3(keys, "parent memo_cache")
-    n_rows = int(rows_in.shape[0]) - 1
-    e, ranked, subw = cache_layout(rows_in)
-    a = _parent_memo_args(kernels)[1]()
-    a.pol = kernels._policy_view(pol, dev)
-    a.keys = keys.data_ptr()
-    a.srow = _ptr(g["srow"], "srow", dev, shape=(b,))
-    a.gid = _ptr(g["gid"], "gid", dev, shape=(b,))
-    a.rep_orig = _ptr(g["rep_orig"], "rep_orig", dev, shape=(rep_cap + 1,))
-    a.n_unique = _ptr(g["n_unique"], "n_unique", dev, shape=(1,))
-    a.dedup_overflow = _ptr(g["overflow"], "overflow", dev, shape=(1,))
-    shape = tuple(rows_in.shape)
-    a.rows_in = _ptr(rows_in, "rows_in", dev)
-    a.rows_out = _ptr(rows_out, "rows_out", dev, shape=shape)
-    if restore is not None:
-        a.restore = _ptr(restore, "restore", dev, shape=shape)
-    a.stats = _ptr(stats, "stats", dev, shape=(5,))
-    if out is None:
-        out = (torch.empty(b, dtype=torch.int32, device=dev),
-               torch.empty(b, dtype=torch.int32, device=dev),
-               torch.empty(b, dtype=torch.bool, device=dev))
-    a.v0 = _ptr(out[0], "v0", dev, shape=(b,))
-    a.v1 = _ptr(out[1], "v1", dev, shape=(b,))
-    a.hit = _ptr(out[2], "hit", dev, dtype=torch.bool, shape=(b,))
-    bytes4 = torch.empty((5, rep_cap), dtype=torch.int32, device=dev)
-    bytes1 = torch.empty((4, rep_cap), dtype=torch.uint8, device=dev)
-    for k, name in enumerate(("r_hit", "r_hit_lane", "r_ins_lane",
-                              "r_do_ins")):
-        setattr(a, name, bytes1[k].data_ptr())
-    for k, name in enumerate(("r_bucket", "r_rank_word", "r_empty", "rv0",
-                              "rv1")):
-        setattr(a, name, bytes4[k].data_ptr())
-    counters = torch.empty(3, dtype=torch.int32, device=dev)
-    a.counters = counters.data_ptr()
-    passes = max((max(n_rows.bit_length() - 1, 1) + 7) // 8, 1)
-    a.sort, sort_bufs = kernels._sort_args(rep_cap, 1, passes,
-                                           counters.data_ptr(), dev)
-    a.B, a.rep_cap, a.n_rows, a.width = b, rep_cap, n_rows, int(shape[1])
-    a.entries, a.ranked, a.subword = e, int(ranked), int(subw)
-    a.has_l3, a.accumulate = int(bool(has_l3)), int(bool(accumulate))
-    a.bucket_passes = passes
-    err = AB["libs"]["memo"].launch_memo_cache(ctypes.byref(a),
-                                               kernels._stream(dev))
-    if err:
-        raise SystemExit(f"ab: the parent's MEMO_CACHE launch: {err}")
-    del bytes4, bytes1, counters, sort_bufs
-    return out
 
 
 def ab_start(kernels, parent: str) -> list:
@@ -4860,9 +4896,8 @@ def ab_start(kernels, parent: str) -> list:
 def ab_load(kernels, jobs) -> None:
     """Wait for ab_start's builds and bind them, each argument layout
     checked against the parent's own sizes: publish.cu's launchers (the
-    tile table of kernels.scatter_args), memo.cu's MEMO_DEDUP (its
-    DedupArgs), and the others by their library's own bind
-    (AB_LIBRARIES)."""
+    tile table of kernels.scatter_args), and the others by their
+    library's own bind (AB_LIBRARIES)."""
     t = time.perf_counter()
     for stem, src, out, proc in jobs:
         log, _ = proc.communicate()
@@ -4872,19 +4907,6 @@ def ab_load(kernels, jobs) -> None:
         if stem == "publish":
             kernels._PublishLibrary().bind(lib)
             AB.update(lib=lib, source=str(src))
-        elif stem == "memo":
-            args = _parent_memo_args(kernels)
-            sizes = (ctypes.c_int * 5)()
-            lib.memo_struct_sizes(sizes)
-            for launch, at, mirror in (("launch_memo_dedup", 1, args[0]),
-                                       ("launch_memo_cache", 2, args[1])):
-                getattr(lib, launch).argtypes = [ctypes.POINTER(mirror),
-                                                 ctypes.c_void_p]
-                getattr(lib, launch).restype = ctypes.c_int
-                if sizes[at] != ctypes.sizeof(mirror):
-                    raise SystemExit(f"ab: the parent's {mirror.__name__} "
-                                     f"is {sizes[at]} bytes, not "
-                                     f"{ctypes.sizeof(mirror)}")
         else:
             type(getattr(kernels, AB_LIBRARIES[stem]))().bind(lib)
         AB["libs"][stem] = lib
@@ -5424,11 +5446,16 @@ def dedup_ab(kernels, batches: dict, rep_cap: int) -> dict:
     build (--ab-parent; every output entry equal, SystemExit otherwise),
     else this build's twice; medians.  Launches not counted."""
     ab = "memo" in AB["libs"]
+
+    def parent_dedup(k):
+        with parent_library(kernels, "memo"):
+            return kernels.MEMO_DEDUP(k, rep_cap)
+
     calls = {"new": lambda k: kernels.MEMO_DEDUP(k, rep_cap),
-             "parent": lambda k: parent_memo_dedup(kernels, k, rep_cap)}
+             "parent": parent_dedup}
     launches = kernels.MEMO_DEDUP.launches
     differ = {}
-    if ab:  # every output the parent has (rgid is new)
+    if ab:
         for name, k in batches.items():
             a, b = calls["new"](k), calls["parent"](k)
             differ[name] = sum(entries_differ(a[f], b[f]) for f in b)
@@ -5486,8 +5513,11 @@ def cache_ab(kernels, pol, keys, gs, rows, has_l3: bool) -> dict:
 
     ab = "memo" in AB["libs"]
     b = int(keys.shape[2])
-    impl = {"new": kernels.MEMO_CACHE,
-            "parent": lambda *a, **k: parent_memo_cache(kernels, *a, **k)}
+    def parent_cache(*a, **k):
+        with parent_library(kernels, "memo"):
+            return kernels.MEMO_CACHE(*a, **k)
+
+    impl = {"new": kernels.MEMO_CACHE, "parent": parent_cache}
     bufs = {who: dict(rows=torch.empty_like(rows),
                       stats=torch.empty(memo.STATS, dtype=torch.int32,
                                         device="cuda"),
@@ -5626,63 +5656,50 @@ def cache_cases_check(kernels, pol, keys2, has_l3: bool, many) -> dict:
     return errs
 
 
-def parent_memo_pair(kernels, tables, pair, cache_rows, acc, telem,
-                     rep_cap: int):
-    """engine/memo._memo_pair_cuda with the parent's MEMO_DEDUP and
-    MEMO_CACHE (--ab-parent): the memoized pair as the parent ran it."""
-    from cilium_tpu_torch.engine import memo
-
-    dev = pair.device
-    b = int(pair.shape[2])
-    front = kernels.DATAPATH_PAIR_MEMO.front(tables, pair)
-    stats = torch.empty(memo.STATS, dtype=torch.int32, device=dev)
-    out_rows = torch.empty_like(cache_rows)
-    vals = torch.empty((2, 2, b), dtype=torch.int32, device=dev)
-    hits = torch.empty((2, b), dtype=torch.bool, device=dev)
-    for half in (0, 1):
-        keys = front.keys[half]
-        g = parent_memo_dedup(kernels, keys, rep_cap)
-        parent_memo_cache(
-            kernels, tables.policy, keys, g,
-            cache_rows if half == 0 else out_rows, out_rows, stats,
-            rep_cap=rep_cap, has_l3=front.has_l3, accumulate=half == 1,
-            restore=cache_rows if half == 1 else None,
-            out=(vals[half, 0], vals[half, 1], hits[half]))
-    out_i, out_e = kernels.DATAPATH_PAIR_MEMO.back(tables, pair, front, vals,
-                                                   acc, telem, stats)
-    return out_i, out_e, acc, telem, out_rows, hits[0], hits[1], stats
+@contextlib.contextmanager
+def parent_memo_pair(kernels):
+    """The memoized pair's kernels launch the parent's builds inside:
+    csrc/datapath.cu's front and back passes and csrc/memo.cu's
+    MEMO_DEDUP and MEMO_CACHE (--ab-parent)."""
+    with parent_library(kernels, "datapath"), parent_library(kernels, "memo"):
+        yield
 
 
 def memo_pair_ab(kernels, tables, pt, rows, acc, tel) -> dict:
     """The whole memoized pair (memo_pair_packed4) against the same pair
-    on the parent's MEMO_DEDUP and MEMO_CACHE (--ab-parent): every output
-    equal (SystemExit otherwise), then CUDA events and device ms over 20
-    pairs, in turns parent, new, new, parent; medians.  None without the
-    parent's build.  Launches not counted."""
+    on the parent's builds of csrc/datapath.cu and csrc/memo.cu
+    (--ab-parent): every output equal (SystemExit otherwise), then CUDA
+    events and device ms over 20 pairs, in turns parent, new, new,
+    parent; medians.  None without the parent's builds.  Launches not
+    counted."""
     from cilium_tpu_torch.engine import memo
 
-    if "memo" not in AB["libs"]:
+    if "memo" not in AB["libs"] or "datapath" not in AB["libs"]:
         return None
     launches = [k.launches for k in kernels.KERNELS]
-    calls = {"new": lambda: memo.memo_pair_packed4(
-                 tables, pt, rows, acc, tel, MEMO_REP_CAP),
-             "parent": lambda: parent_memo_pair(
-                 kernels, tables, pt, rows, acc, tel, MEMO_REP_CAP)}
+
+    def run(a, t_):
+        return memo.memo_pair_packed4(tables, pt, rows, a, t_, MEMO_REP_CAP)
+
     got = {}
-    for who, fn in calls.items():
-        a, t_ = acc.clone().zero_(), tel.clone().zero_()
-        got[who] = list(_tensors(memo.memo_pair_packed4(
-            tables, pt, rows, a, t_, MEMO_REP_CAP) if who == "new" else
-            parent_memo_pair(kernels, tables, pt, rows, a, t_,
-                             MEMO_REP_CAP)))
+    for who in ("new", "parent"):
+        ctx = (parent_memo_pair(kernels) if who == "parent"
+               else contextlib.nullcontext())
+        with ctx:
+            got[who] = list(_tensors(run(acc.clone().zero_(),
+                                         tel.clone().zero_())))
     torch.cuda.synchronize()
     differ = sum(entries_differ(a, b) for a, b in zip(got["new"],
                                                        got["parent"]))
     rec = {}
     for who in SCATTER_AB_TURNS:
-        rec.setdefault(f"{who}_ms", []).append(event_ms(calls[who], 20))
-        rec.setdefault(f"{who}_device_ms", []).append(
-            spun_ms(queued_ms, calls[who], "memo_pair_ab", DEDUP_QUEUED))
+        ctx = (parent_memo_pair(kernels) if who == "parent"
+               else contextlib.nullcontext())
+        with ctx:
+            fn = lambda: run(acc, tel)  # noqa: E731
+            rec.setdefault(f"{who}_ms", []).append(event_ms(fn, 20))
+            rec.setdefault(f"{who}_device_ms", []).append(
+                spun_ms(queued_ms, fn, "memo_pair_ab", DEDUP_QUEUED))
     for k, n in zip(kernels.KERNELS, launches):
         k.launches = n
     out = dict(differing=differ,
@@ -5751,7 +5768,11 @@ def memo_check(kernels, w, tables, pub) -> dict:
     `_memo_stamp`: 0 hits, then hits), the overflow case (rep_cap
     1,024: stats, and the carried state unchanged) and memo_evaluate
     against LATTICE and its plain version on 4,194,304 Zipf tuples
-    (cold and warm).  The limit is 0 differences."""
+    (cold and warm).  Also a hot pair (world.hot_pair: one flow that
+    counts a hit takes 3 rows of 4 of each half of the Zipf pair) cold
+    and warm, and the overflow case on a pair whose ingress half is all
+    that flow and fits the capacity while its egress half overflows it.
+    The limit is 0 differences."""
     from cilium_tpu_torch import world
     from cilium_tpu_torch.convert import cache_rows_to
     from cilium_tpu_torch.device import widen
@@ -5777,6 +5798,21 @@ def memo_check(kernels, w, tables, pub) -> dict:
         err_plain, err_ref = max(err_plain, ep_), max(err_ref, er)
         consistent &= ok and row["overflow"] == 0
         hits[tag] = row["hits"]
+    # a hot pair: the Zipf pair with one flow that counts a hit in 3 rows
+    # of 4 of each half (one hot counter cell a half for the back pass's
+    # aggregated atomics), cold and warm
+    ki, ke, _, _ = kernels.DATAPATH_PAIR(
+        tables, torch.from_numpy(zp.view(np.int32)).cuda(),
+        verdict.make_counter_buffers(tables.policy),
+        verdict.make_telemetry_buffers("cuda"))
+    kinds = [ki.match_kind.cpu().numpy(), ke.match_kind.cpu().numpy()]
+    hot = world.hot_pair(zp, kinds, 0.75, 91)
+    for tag in ("hot", "hot_warm"):
+        row, ep_, er, ok = memo_gate(kernels, tables, hot, cache, HALF)
+        err_plain, err_ref = max(err_plain, ep_), max(err_ref, er)
+        consistent &= ok and row["overflow"] == 0
+        hits[tag] = row["hits"]
+
     gate_rows = dict(cache.snapshot())
 
     # each new kernel against its plain version on the Zipf pair's keys
@@ -5824,22 +5860,27 @@ def memo_check(kernels, w, tables, pub) -> dict:
         hits[tag] = row["hits"]
     del tables2
 
-    # overflow: the stats report it, the carried state stays as it was
-    pu = torch.from_numpy(uni.view(np.int32)).cuda()
-    acc = verdict.make_counter_buffers(tables.policy)
-    tel = verdict.make_telemetry_buffers("cuda")
-    rows0 = cache.rows.clone()
-    k = memo.memo_pair_packed4(tables, pu, cache.rows, acc, tel,
-                               MEMO_OVERFLOW_CAP)
-    p = memo.memo_pair_plain(tables, pu, cache.rows, acc.clone(),
-                             tel.clone(), MEMO_OVERFLOW_CAP)
-    torch.cuda.synchronize()
-    overflow = int(k[7][memo.STAT_OVERFLOW].item())
-    err_over = max(int_err(k[7], p[7], u32=True),
-                   buf_err(k[2], torch.zeros_like(acc)),
-                   buf_err(k[3], torch.zeros_like(tel)),
-                   int_err(k[4], rows0, u32=True),
-                   int_err(p[4], rows0, u32=True))
+    # overflow: the stats report it, the carried state stays as it was;
+    # on the uniform pair, and on a pair whose ingress half is all the hot
+    # flow (it fits the capacity) while its egress half overflows it
+    hot_in = world.hot_pair(zp, kinds, 1.0, 92, halves=(0,))
+    overflow, err_over = [], 0
+    for pair in (uni, hot_in):
+        pu = torch.from_numpy(pair.view(np.int32)).cuda()
+        acc = verdict.make_counter_buffers(tables.policy)
+        tel = verdict.make_telemetry_buffers("cuda")
+        rows0 = cache.rows.clone()
+        k = memo.memo_pair_packed4(tables, pu, cache.rows, acc, tel,
+                                   MEMO_OVERFLOW_CAP)
+        p = memo.memo_pair_plain(tables, pu, cache.rows, acc.clone(),
+                                 tel.clone(), MEMO_OVERFLOW_CAP)
+        torch.cuda.synchronize()
+        overflow.append(int(k[7][memo.STAT_OVERFLOW].item()))
+        err_over = max(err_over, int_err(k[7], p[7], u32=True),
+                       buf_err(k[2], torch.zeros_like(acc)),
+                       buf_err(k[3], torch.zeros_like(tel)),
+                       int_err(k[4], rows0, u32=True),
+                       int_err(p[4], rows0, u32=True))
 
     # memo_evaluate against LATTICE and its plain version
     cols = memo_zipf_tuples(w, MEMO_TUPLES, 61)
@@ -5869,7 +5910,8 @@ def memo_check(kernels, w, tables, pub) -> dict:
           and hits["uniform_cold"] == 0 and hits["uniform_warm"] > 0
           and hits["zipf_warm"] > 0 and hits["zipf_timed_cap"] > 0
           and hits["flush"] == 0
-          and hits["flush_warm"] > 0 and overflow > 0 and err_over == 0
+          and hits["flush_warm"] > 0 and hits["hot_warm"] > 0
+          and min(overflow) > 0 and err_over == 0
           and err_dedup == 0 and err_cache == 0 and err_eval == 0
           and err_eval_ref == 0 and err_keys == 0 and eval_hits[0] == 0
           and eval_hits[1] > 0)
@@ -6128,6 +6170,33 @@ def memo_timing(kernels, tables, chk, path, lat_counts) -> list:
     front_ms, back_ms = event_ms(front_fn, 20), event_ms(back_fn, 20)
     front_dev = spun_ms(queued_ms, front_fn, "memo_timing front")
     back_dev = spun_ms(queued_ms, back_fn, "memo_timing back")
+    # the passes on the parent's csrc/datapath.cu (--ab-parent): the front
+    # pass's key words and 8 columns and the back pass's columns agreeing,
+    # both timed in turns; and the back pass's counters and telemetry from
+    # zeroed carries agreeing
+    pass_ab = library_ab(kernels, "datapath", {
+        "memo_front": lambda: (lambda f: (f.keys, [f.cols[c] for c in (
+            "ct_result", "pre_dropped", "sec_id", "final_daddr",
+            "final_dport", "rev_nat", "lb_slave", "ipcache_miss")]))(
+                front_fn()),
+        "memo_back": back_fn})
+    if pass_ab is not None:
+        carries = []
+        for ctx in (contextlib.nullcontext(),
+                    parent_library(kernels, "datapath")):
+            a0, t0 = acc.clone().zero_(), tel.clone().zero_()
+            with ctx:
+                kernels.DATAPATH_PAIR_MEMO.back(tables, pt, front, vals, a0,
+                                                t0, stats)
+            carries.append((a0, t0))
+        torch.cuda.synchronize()
+        pass_ab["differing"]["memo_back_carries"] = max(
+            buf_err(carries[0][0], carries[1][0]),
+            buf_err(carries[0][1], carries[1][1]))
+        if pass_ab["differing"]["memo_back_carries"]:
+            raise SystemExit("memo_timing: the back pass's counters or "
+                             "telemetry differ from the parent's")
+        del carries
     dedup_ms = event_ms(lambda: kernels.MEMO_DEDUP(keys, MEMO_REP_CAP), 20)
     # against the parent's (--ab-parent) on these Zipf keys and on
     # MEMO_DISTINCT distinct keys, device ms beside the events
@@ -6223,6 +6292,9 @@ def memo_timing(kernels, tables, chk, path, lat_counts) -> list:
             front_ms=front_ms, back_ms=back_ms, front_device_ms=front_dev,
             back_device_ms=back_dev, memo_pair_ms=pair_ms,
             memo_pair_ab=p_ab["medians"] if p_ab else None,
+            ab=pass_ab["medians"] if pass_ab else None,
+            ab_differing=pass_ab["differing"] if pass_ab else None,
+            ptxas={"front": MEMO_FRONT_PTXAS, "back": MEMO_BACK_PTXAS},
             memo_pair_plain_ms=pair_plain, uncached_pair_ms=uncached_ms,
             plain_of="the front and back passes, plain, on the same value "
                      "words",
@@ -6363,25 +6435,32 @@ STEP_PTXAS = {}  # the same of DATAPATH_STEP's kernel
 DEDUP_PTXAS = {}  # MEMO_DEDUP's kernel ({"": record})
 CACHE_PTXAS = {}  # MEMO_CACHE's kernel ({"": record})
 ROUTED_PTXAS = {}  # ROUTED_PROBE's kernel ({"": record})
+LATTICE_PTXAS = {}  # LATTICE's instantiations (lattice_ptxas)
+MEMO_FRONT_PTXAS = {}  # the memo mode's front pass, by layout
+MEMO_BACK_PTXAS = {}  # its back pass ({"": record})
 PAIR_AB_REPS = 20
 
 
 def pair_ptxas(kernels, log: str, entry: str = "datapath_persistent_"
-               "kernel") -> dict:
+               "kernel", templ: str = r"ILi(\d)ELi(\d)ELi(\d)E",
+               key=None) -> dict:
     """A datapath kernel (PERSISTENT_PAIR's by default) in each layout
     instantiation from `-Xptxas -v` output of csrc/datapath.cu: {layout
     name: {registers, spill_stores, spill_loads, smem}} (smem the static
-    bytes); a kernel that is no template: {"": {...}}."""
+    bytes); a kernel that is no template: {"": {...}}.  Another kernel's
+    instantiations: `templ` matches its mangled template arguments and
+    `key` names an instantiation from their digits."""
     import re
 
+    if key is None:
+        def key(pf, lb, ipc):
+            return kernels.layout_name(int(pf) + 2 * int(lb) + 4 * int(ipc))
     out, cur = {}, None
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '\S*" + entry +
-                      r"(?:ILi(\d)ELi(\d)ELi(\d)E)?", line)
+                      r"(?:" + templ + r")?", line)
         if m:
-            pf, lb, ipc = m.groups()
-            cur = ("" if pf is None else
-                   kernels.layout_name(int(pf) + 2 * int(lb) + 4 * int(ipc)))
+            cur = "" if m.group(1) is None else key(*m.groups())
             out[cur] = {}
             continue
         if "Compiling entry" in line:
@@ -6399,6 +6478,17 @@ def pair_ptxas(kernels, log: str, entry: str = "datapath_persistent_"
             m = re.search(r"(\d+) bytes smem", line)
             out[cur]["smem"] = int(m.group(1)) if m else 0
     return out
+
+
+def lattice_ptxas(kernels, log: str) -> dict:
+    """LATTICE's instantiations in csrc/lattice.cu's `-Xptxas -v` output:
+    {"ew<entry words>[_ip][_stream]": record} (pair_ptxas)."""
+    def key(ew, ip, stream):
+        return "ew" + ew + "".join(
+            f"_{n}" for n, b in (("ip", ip), ("stream", stream)) if b == "1")
+
+    return pair_ptxas(kernels, log, "lattice_kernel",
+                      r"ILi(\d)ELb(\d)ELb(\d)E", key)
 
 
 def pair_outputs(kernels, tables, stacked):
@@ -9706,6 +9796,12 @@ def main(argv=()) -> int:
             PAIR_PTXAS.update(pair_ptxas(kernels, log))
             STEP_PTXAS.update(pair_ptxas(kernels, log,
                                          "datapath_step_kernel"))
+            MEMO_FRONT_PTXAS.update(pair_ptxas(
+                kernels, log, "datapath_memo_front_kernel"))
+            MEMO_BACK_PTXAS.update(pair_ptxas(
+                kernels, log, "datapath_pair_memo_back_kernel"))
+        if stem == "lattice":
+            LATTICE_PTXAS.update(lattice_ptxas(kernels, log))
         if stem == "memo":
             DEDUP_PTXAS.update(pair_ptxas(kernels, log, "dedup_kernel"))
             CACHE_PTXAS.update(pair_ptxas(kernels, log, "cache_kernel"))

@@ -319,4 +319,65 @@ __device__ __forceinline__ uint32_t dir24_8(const uint32_t* l1,
                (ip & 0xFFu));
 }
 
+// -- counter cells aggregated a block -------------------------------------------
+// A counter kernel's hits, one cell of a u32 counter buffer a thread (-1:
+// none), added with one global atomic a distinct cell and block where the
+// block's table has room: a warp's equal cells meet by __match_any_sync,
+// and their leader adds the warp's count into the block's CellTable (open
+// addressing over CELL_SLOTS cells in shared memory, CELL_PROBES slots
+// tried, else straight into the buffer); cell_flush commits the table.  A
+// hot cell (the hottest rows of a Zipf stream all count in one cell) thus
+// takes one same-address atomic a block in place of one a hit.  Integer
+// adds commute, so the buffer ends as with one atomicAdd a hit, bit for
+// bit.  LATTICE's counter form and the memo mode's back pass count so.
+constexpr int CELL_SLOTS = 512;
+constexpr int CELL_SLOT_BITS = 9;
+constexpr int CELL_PROBES = 4;
+constexpr uint32_t CELL_EMPTY = 0xFFFFFFFFu;
+
+struct CellTable {
+  uint32_t cell[CELL_SLOTS];
+  uint32_t n[CELL_SLOTS];
+};
+
+// Every thread of the block, before its first cell_add.
+__device__ __forceinline__ void cell_init(CellTable& t) {
+  for (int k = threadIdx.x; k < CELL_SLOTS; k += blockDim.x) {
+    t.cell[k] = CELL_EMPTY;
+    t.n[k] = 0;
+  }
+  __syncthreads();
+}
+
+// Every lane of the warp; `cell` < 0 adds nothing.
+__device__ __forceinline__ void cell_add(CellTable& t, uint32_t* acc,
+                                         int64_t cell) {
+  const uint32_t hit = __ballot_sync(0xFFFFFFFFu, cell >= 0);
+  if (cell < 0) return;
+  const uint32_t peers =
+      __match_any_sync(hit, static_cast<unsigned long long>(cell));
+  if ((threadIdx.x & 31) != __ffs(peers) - 1) return;
+  const uint32_t n = static_cast<uint32_t>(__popc(peers));
+  if (cell < CELL_EMPTY) {
+    const uint32_t c = static_cast<uint32_t>(cell);
+    uint32_t s = (c * 2654435761u) >> (32 - CELL_SLOT_BITS);
+    for (int k = 0; k < CELL_PROBES; ++k) {
+      const uint32_t was = atomicCAS(&t.cell[s], CELL_EMPTY, c);
+      if (was == CELL_EMPTY || was == c) {
+        atomicAdd(&t.n[s], n);
+        return;
+      }
+      s = (s + 1) & (CELL_SLOTS - 1);
+    }
+  }
+  atomicAdd(acc + cell, n);
+}
+
+// Every thread of the block, after its last cell_add.
+__device__ __forceinline__ void cell_flush(const CellTable& t, uint32_t* acc) {
+  __syncthreads();
+  for (int k = threadIdx.x; k < CELL_SLOTS; k += blockDim.x)
+    if (t.cell[k] != CELL_EMPTY) atomicAdd(acc + t.cell[k], t.n[k]);
+}
+
 }  // namespace cdp

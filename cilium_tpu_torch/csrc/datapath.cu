@@ -62,9 +62,10 @@
 // one by DatapathArgs.layout); the range lookup is a runtime branch, taken
 // only on an exact miss.
 //
-// Shape of the single-batch step (and the memo mode's passes): one thread
-// per flow, a grid of ceil(B / 256) blocks (the step's blocks stage the
-// [B, P] ranges and the stashes as the pair kernel's do); each flow
+// Shape of the single-batch step: one thread per flow, a grid of
+// ceil(B / 256) blocks (the step's blocks stage the [B, P] ranges and the
+// stashes as the pair kernel's do; the memo mode's passes run a block a
+// unit of 256 flows of one half, as the pair kernel); each flow
 // takes its own direction word (or the static one of a per-direction
 // form): an ingress flow (direction 0) runs no LB, any other word goes
 // through the service probe and LB; its telemetry block sums both rows.  The CT probe
@@ -134,6 +135,10 @@ constexpr int TELEM_COLS = 20;
 // fitted to them (the step also measured at 4, 5 and 8, PERF.md)
 constexpr int PAIR_BLOCKS_PER_SM = 6;
 constexpr int STEP_BLOCKS_PER_SM = 6;
+// the memo mode's passes, likewise (the front pass measured level at 8,
+// slower at 4; the back pass slower at 6; PERF.md)
+constexpr int MEMO_FRONT_BLOCKS_PER_SM = 6;
+constexpr int MEMO_BACK_BLOCKS_PER_SM = 8;
 // the stashes a block stages at most (more: they are read where they lie)
 constexpr size_t STASH_SMEM = 64 * 1024;
 
@@ -375,40 +380,45 @@ __device__ __forceinline__ void telemetry_rows_epilogue(uint32_t* telem,
     atomicAdd(telem + threadIdx.x, s_rows[threadIdx.x]);
 }
 
-// The memo mode's front pass (MODE 1) of one pair flow: stages 1-5, the
-// columns that do not depend on the lattice, and the three policy-key
-// words of the verdict memo (engine/memo.py memo_key_words: k0 the
-// index, k1 dport << 16 | proto << 8 | known << 1 | the L3 bit where the
-// ipcache carries one, k2 ep << 1 | dir).
+// The memo mode's front pass (memo 1) of one pair flow: stages 1-5 over
+// the block's stashes `st` (PairReads), its half's packed4 words at `p`
+// read with the streaming hint, the columns that do not depend on the
+// lattice and the three policy-key words of the verdict memo
+// (engine/memo.py memo_key_words: k0 the index, k1 dport << 16 | proto
+// << 8 | known << 1 | the L3 bit where the ipcache carries one, k2 ep << 1
+// | dir) stored likewise.
 template <int PF, int LB, int IPC>
 __device__ __forceinline__ void memo_front_flow(const DatapathArgs& a,
-                                                int half, int i,
-                                                uint32_t saddr, uint32_t daddr,
-                                                uint32_t w2, uint32_t w3,
-                                                bool ingress) {
+                                                const Stashes& st,
+                                                const uint32_t* p, int half,
+                                                int i, bool ingress) {
+  const uint32_t saddr = __ldcs(p + i);
+  const uint32_t daddr = __ldcs(p + a.B + i);
+  const uint32_t w2 = __ldcs(p + 2 * a.B + i);
+  const uint32_t w3 = __ldcs(p + 3 * a.B + i);
   const uint32_t ep = w3 >> 16;
   const uint32_t dir = (w3 >> 1) & 1u;
   const uint32_t proto = (w3 >> 8) & 0xFFu;
   bool known, l3_bit;
-  const FlowOut f = fused_front<PF, LB, IPC>(
-      a, global_stashes(a), saddr, daddr, w2 >> 16, w2 & 0xFFFFu, proto, ep,
-      dir, ingress, &known, &l3_bit);
+  const FlowOut f = fused_front<PF, LB, IPC, PairReads>(
+      a, st, saddr, daddr, w2 >> 16, w2 & 0xFFFFu, proto, ep, dir, ingress,
+      &known, &l3_bit);
   const size_t o = static_cast<size_t>(half) * a.B + i;
-  a.ct_result[o] = static_cast<uint8_t>(f.ct.result);
-  a.pre_dropped[o] = f.pre;
-  a.sec_id[o] = IPC == IPC_GENERIC ? f.ident : f.idx;
-  a.final_daddr[o] = f.eff_daddr;
-  a.final_dport[o] = static_cast<int32_t>(f.eff_dport);
-  a.rev_nat[o] = f.rev_nat;
-  a.lb_slave[o] = f.lb_slave;
-  a.ipcache_miss[o] = f.miss;
+  __stcs(a.ct_result + o, static_cast<uint8_t>(f.ct.result));
+  __stcs(a.pre_dropped + o, static_cast<uint8_t>(f.pre));
+  __stcs(a.sec_id + o, IPC == IPC_GENERIC ? f.ident : f.idx);
+  __stcs(a.final_daddr + o, f.eff_daddr);
+  __stcs(a.final_dport + o, static_cast<int32_t>(f.eff_dport));
+  __stcs(a.rev_nat + o, f.rev_nat);
+  __stcs(a.lb_slave + o, f.lb_slave);
+  __stcs(a.ipcache_miss + o, static_cast<uint8_t>(f.miss));
   const size_t b = static_cast<size_t>(a.B);
   uint32_t* k = a.memo_keys + static_cast<size_t>(half) * 3 * b + i;
-  k[0] = f.idx;
-  k[b] = (clip_u(static_cast<int32_t>(f.eff_dport), 65535) << 16) |
-         (proto << 8) | (known ? 2u : 0u) |
-         (IPC == IPC_IDX_PLANES && l3_bit ? 1u : 0u);
-  k[2 * b] = (ep << 1) | dir;
+  __stcs(k, f.idx);
+  __stcs(k + b, (clip_u(static_cast<int32_t>(f.eff_dport), 65535) << 16) |
+                    (proto << 8) | (known ? 2u : 0u) |
+                    (IPC == IPC_IDX_PLANES && l3_bit ? 1u : 0u));
+  __stcs(k + 2 * b, (ep << 1) | dir);
 }
 
 // One flow of a pair step: its half's packed4 words at `p` (the [4, B]
@@ -454,42 +464,6 @@ __device__ __forceinline__ PairFlow pair_flow(const DatapathArgs& a,
   return r;
 }
 
-// The memo mode's back pass's telemetry epilogue, called by every thread
-// of the block: warp ballots, a block sum in shared memory, then (with `commit`)
-// one atomicAdd per block and column into `row` (a block never straddles
-// the halves, so the row is the block's).
-__device__ __forceinline__ void telemetry_block_sum(uint32_t* row,
-                                                    uint32_t tmask,
-                                                    bool commit) {
-  __shared__ uint32_t s_tel[TELEM_COLS];
-  if (threadIdx.x < TELEM_COLS) s_tel[threadIdx.x] = 0;
-  __syncthreads();
-  const int lane = threadIdx.x & 31;
-#pragma unroll
-  for (int c = 0; c < TELEM_COLS; ++c) {
-    const uint32_t b = __ballot_sync(0xFFFFFFFFu, (tmask >> c) & 1u);
-    if (lane == 0 && b) atomicAdd(&s_tel[c], static_cast<uint32_t>(__popc(b)));
-  }
-  __syncthreads();
-  if (commit && threadIdx.x < TELEM_COLS && s_tel[threadIdx.x])
-    atomicAdd(row + threadIdx.x, s_tel[threadIdx.x]);
-}
-
-// The memo mode's front pass (memo 1): no lattice, no counters, no
-// telemetry.
-template <int PF, int LB, int IPC>
-__global__ void __launch_bounds__(BLOCK)
-    datapath_memo_front_kernel(const DatapathArgs a) {
-  stage_ranges(a);
-  const int half = blockIdx.y;
-  const int i = blockIdx.x * BLOCK + threadIdx.x;
-  if (i >= a.B) return;
-  const uint32_t* p = a.pair + static_cast<size_t>(half) * 4 * a.B;
-  memo_front_flow<PF, LB, IPC>(a, half, i, __ldg(p + i), __ldg(p + a.B + i),
-                               __ldg(p + 2 * a.B + i), __ldg(p + 3 * a.B + i),
-                               half == 0);
-}
-
 // Stage the four stashes into the block's shared memory, after the
 // ranges of the [B, P] scan (stage_ranges), where they fit STASH_SMEM
 // bytes (pair_smem_bytes); returns where the block reads them.
@@ -526,6 +500,29 @@ __device__ __forceinline__ Stashes stage_stashes(const DatapathArgs& a) {
   st.l4w = stage_words(a.l4w_stash, n_l4w, w + n_ct + n_ipc + n_l4);
   __syncthreads();
   return st;
+}
+
+// The memo mode's front pass (memo 1): no lattice, no counters, no
+// telemetry.  The pair kernel's design: a block a unit of 256 flows of
+// one half (units half by half), the [B, P] ranges and the stashes staged
+// in shared memory (stage_stashes, pair_smem_bytes), the key planes in
+// 16-byte loads, the stream read and the columns and key words stored
+// with the streaming hints, registers fitted to MEMO_FRONT_BLOCKS_PER_SM
+// blocks an SM, the body a grid-stride loop that runs once.
+template <int PF, int LB, int IPC>
+__global__ void __launch_bounds__(BLOCK, MEMO_FRONT_BLOCKS_PER_SM)
+    datapath_memo_front_kernel(const __grid_constant__ DatapathArgs a) {
+  stage_ranges(a);
+  const Stashes st = stage_stashes(a);
+  const int tiles = (a.B + BLOCK - 1) / BLOCK;
+  for (int u = blockIdx.x; u < 2 * tiles; u += gridDim.x) {
+    const int half = u >= tiles ? 1 : 0;
+    const int i = (u - half * tiles) * BLOCK + threadIdx.x;
+    if (i < a.B)
+      memo_front_flow<PF, LB, IPC>(
+          a, st, a.pair + static_cast<size_t>(half) * 4 * a.B, half, i,
+          half == 0);
+  }
 }
 
 // The pair step over K pairs in one launch: PERSISTENT_PAIR, and
@@ -591,54 +588,76 @@ __global__ void __launch_bounds__(BLOCK, PAIR_BLOCKS_PER_SM)
 // proxy, v1 = the three probe bits, engine/memo.py pack_value_words) in
 // place of the lattice, then the combine, fused_back, the counters and
 // the telemetry, both skipped when the memo's summed stats show an
-// overflow (the reference commits its carried state only then).
-__global__ void __launch_bounds__(BLOCK)
-    datapath_pair_memo_back_kernel(const DatapathArgs a) {
-  const int half = blockIdx.y;
-  const bool ingress = half == 0;
-  const int i = blockIdx.x * BLOCK + threadIdx.x;
+// overflow (the reference commits its carried state only then).  About
+// 50 B a flow streamed in and out, read and stored with the streaming
+// hints; a block a unit of 256 flows of one half (the grid is one block
+// a unit); the counter hits aggregated a block (common.cuh cell_add: on
+// a Zipf pair the hottest rows all count in one cell, whose atomics a
+// hit serialise in the L2); the telemetry a ballot per column into lane
+// c's register, summed per block in shared memory and committed once.
+__global__ void __launch_bounds__(BLOCK, MEMO_BACK_BLOCKS_PER_SM)
+    datapath_pair_memo_back_kernel(const __grid_constant__ DatapathArgs a) {
+  __shared__ uint32_t s_tel[TELEM_COLS];
+  __shared__ CellTable cells;
+  if (threadIdx.x < TELEM_COLS) s_tel[threadIdx.x] = 0;
+  cell_init(cells);
   const bool ok = __ldg(a.memo_stats + 3) == 0;  // STAT_OVERFLOW
+  const size_t b = static_cast<size_t>(a.B);
+  const int tiles = (a.B + BLOCK - 1) / BLOCK;
+  const int half = static_cast<int>(blockIdx.x) >= tiles ? 1 : 0;
+  const int i = (blockIdx.x - half * tiles) * BLOCK + threadIdx.x;
   uint32_t tmask = 0;
+  int64_t cell = -1;
   if (i < a.B) {
-    const size_t b = static_cast<size_t>(a.B);
     const size_t o = static_cast<size_t>(half) * b + i;
     const uint32_t* k = a.memo_keys + static_cast<size_t>(half) * 3 * b + i;
     const uint32_t* v = a.memo_vals + static_cast<size_t>(half) * 2 * b + i;
-    const uint32_t idx = __ldg(k), k2 = __ldg(k + 2 * b);
+    const uint32_t idx = __ldcs(k), k2 = __ldcs(k + 2 * b);
     const uint32_t ep = k2 >> 1, dir = k2 & 1u;
-    const uint32_t v0 = __ldg(v), v1 = __ldg(v + b);
+    const uint32_t v0 = __ldcs(v), v1 = __ldcs(v + b);
     const bool frag =
-        (__ldg(a.pair + static_cast<size_t>(half) * 4 * b + 3 * b + i) & 1u) !=
-        0;
+        (__ldcs(a.pair + static_cast<size_t>(half) * 4 * b + 3 * b + i) &
+         1u) != 0;
     FlowOut f;
-    f.pre = a.pre_dropped[o] != 0;
-    f.miss = a.ipcache_miss[o] != 0;
-    f.ct.result = a.ct_result[o];
-    f.eff_daddr = a.final_daddr[o];
-    f.lb_slave = a.lb_slave[o];
+    f.pre = __ldcs(a.pre_dropped + o) != 0;
+    f.miss = __ldcs(a.ipcache_miss + o) != 0;
+    f.ct.result = __ldcs(a.ct_result + o);
+    f.eff_daddr = __ldcs(a.final_daddr + o);
+    f.lb_slave = __ldcs(a.lb_slave + o);
     f.idx = idx;
     f.v = combine((v1 & 1u) != 0, (v1 & 2u) != 0, (v1 & 4u) != 0,
                   static_cast<int32_t>(v0 & 0xFFFFu),
                   static_cast<int32_t>(v0 >> 16), frag);
-    fused_back(a, f, ingress);
+    fused_back(a, f, half == 0);
     const uint32_t kind = f.v.kind;
     const bool hit_l4 = kind == MATCH_L4 || kind == MATCH_L4_WILD;
     if (ok && (hit_l4 || kind == MATCH_L3)) {
       const int cols = a.kg + a.n_ids;
       const int col = hit_l4 ? f.v.j : a.kg + static_cast<int32_t>(idx);
       if (ep < static_cast<uint32_t>(a.n_eps) && col >= 0 && col < cols)
-        atomicAdd(a.acc + (static_cast<size_t>(ep) * 2 + dir) * cols + col, 1u);
+        cell = (static_cast<int64_t>(ep) * 2 + dir) * cols + col;
     }
-    a.allowed[o] = f.allowed;
-    a.proxy_port[o] = f.proxy;
-    a.match_kind[o] = static_cast<uint8_t>(kind);
-    a.ct_create[o] = f.ct_create;
-    a.ct_delete[o] = f.ct_delete;
-    a.tunnel_endpoint[o] = f.tunnel;
-    a.l4_slot[o] = f.v.j;
+    __stcs(a.allowed + o, static_cast<uint8_t>(f.allowed));
+    __stcs(a.proxy_port + o, f.proxy);
+    __stcs(a.match_kind + o, static_cast<uint8_t>(kind));
+    __stcs(a.ct_create + o, static_cast<uint8_t>(f.ct_create));
+    __stcs(a.ct_delete + o, static_cast<uint8_t>(f.ct_delete));
+    __stcs(a.tunnel_endpoint + o, f.tunnel);
+    __stcs(a.l4_slot + o, f.v.j);
     tmask = telemetry_bits(f);
   }
-  telemetry_block_sum(a.telem + half * TELEM_COLS, tmask, ok);
+  cell_add(cells, a.acc, cell);
+  const int lane = threadIdx.x & 31;
+  uint32_t tel = 0;  // lane c < TELEM_COLS: column c of the warp's flows
+#pragma unroll
+  for (int c = 0; c < TELEM_COLS; ++c) {
+    const uint32_t bal = __ballot_sync(0xFFFFFFFFu, (tmask >> c) & 1u);
+    if (lane == c) tel = static_cast<uint32_t>(__popc(bal));
+  }
+  if (lane < TELEM_COLS && tel) atomicAdd(&s_tel[lane], tel);
+  cell_flush(cells, a.acc);
+  if (ok && threadIdx.x < TELEM_COLS && s_tel[threadIdx.x])
+    atomicAdd(a.telem + half * TELEM_COLS + threadIdx.x, s_tel[threadIdx.x]);
 }
 
 // The counter scatter-add of the single-batch forms, with an XLA
@@ -759,9 +778,15 @@ int launch_persistent(const DatapathArgs& a, int k, cudaStream_t stream) {
 template <int LAYOUT>
 int launch_pair(const DatapathArgs& a, cudaStream_t stream) {
   if (a.memo == 1) {
-    const dim3 grid((a.B + BLOCK - 1) / BLOCK, 2);
-    datapath_memo_front_kernel<LAYOUT & 1, (LAYOUT >> 1) & 1, (LAYOUT >> 2)>
-        <<<grid, BLOCK, scan_smem_bytes(a), stream>>>(a);
+    auto kernel = datapath_memo_front_kernel<LAYOUT & 1, (LAYOUT >> 1) & 1,
+                                             (LAYOUT >> 2)>;
+    const size_t smem = pair_smem_bytes(a);
+    if (smem > 48 * 1024 &&
+        cudaFuncSetAttribute(kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(smem)) != cudaSuccess)
+      return static_cast<int>(cudaGetLastError());
+    kernel<<<2 * ((a.B + BLOCK - 1) / BLOCK), BLOCK, smem, stream>>>(a);
     return 0;
   }
   return launch_persistent<LAYOUT>(a, 1, stream);
@@ -811,10 +836,9 @@ extern "C" int launch_datapath_pair(const cdp::DatapathArgs* args,
     return static_cast<int>(cudaErrorInvalidValue);
   int err = 0;
   if (args->B > 0 && args->memo == 2) {
-    const dim3 grid((args->B + cdp::BLOCK - 1) / cdp::BLOCK, 2);
-    cdp::datapath_pair_memo_back_kernel<<<grid, cdp::BLOCK, 0,
-                                          static_cast<cudaStream_t>(stream)>>>(
-        *args);
+    cdp::datapath_pair_memo_back_kernel<<<
+        2 * ((args->B + cdp::BLOCK - 1) / cdp::BLOCK), cdp::BLOCK, 0,
+        static_cast<cudaStream_t>(stream)>>>(*args);
   } else if (args->B > 0) {
     err = cdp::AllLayouts::pair[args->layout](
         *args, static_cast<cudaStream_t>(stream));

@@ -814,29 +814,6 @@ __device__ __forceinline__ void copy_rows(const uint32_t* src, uint32_t* dst,
   for (size_t j = done + tid; j < n; j += threads) dst[j] = __ldcg(src + j);
 }
 
-// index_probes (verdict.cuh) with the hashed tables' key planes read 16
-// bytes at a time (PairReads): the lattice of a missed representative
-__device__ __forceinline__ cdp::ProbeBits rep_probes(const PolicyView& p,
-                                                     int32_t ep, int32_t dir,
-                                                     uint32_t dport,
-                                                     uint32_t proto,
-                                                     uint32_t idx, bool known,
-                                                     int l3_bit) {
-  if (!p.l4.rows)
-    return cdp::index_probes(p, ep, dir, dport, proto, idx, known, l3_bit);
-  const cdp::Probes q = cdp::hashed_probes<cdp::PairReads>(
-      p.l4, static_cast<uint32_t>(ep), static_cast<uint32_t>(dir), dport,
-      proto, idx, known);
-  bool l3 = l3_bit != 0;
-  if (l3_bit < 0) {
-    const size_t row = static_cast<size_t>(cdp::gather_ix(ep, p.l4.n_eps)) *
-                           2 + cdp::gather_ix(dir, 2);
-    l3 = (__ldg(p.l3_allow + row * p.n_words + cdp::dense_word(idx, p.n_words)) >>
-          (idx & 31u)) & 1u;
-  }
-  return cdp::ProbeBits{q.p1, known && l3, q.p3, q.proxy, q.j};
-}
-
 // Phase 1 for representative g: the probe of its bucket row (cache_probe),
 // its arrival, and on a miss the lattice (its value words replace the
 // representative's).
@@ -888,7 +865,8 @@ __device__ __forceinline__ void cache_probe_rep(const CacheArgs& a, int g) {
   const int32_t ep = static_cast<int32_t>(a.ep_w ? __ldg(a.ep_w + r) : k2 >> 1);
   const int32_t dir =
       static_cast<int32_t>(a.dir_w ? __ldg(a.dir_w + r) : k2 & 1u);
-  const cdp::ProbeBits q = rep_probes(
+  // the hashed tables' key planes read 16 bytes at a time (PairReads)
+  const cdp::ProbeBits q = cdp::index_probes<cdp::PairReads>(
       a.pol, ep, dir, k1 >> 16, (k1 >> 8) & 0xFFu, k0, (k1 >> 1) & 1u,
       a.has_l3 ? static_cast<int>(k1 & 1u) : -1);
   a.rv[g] = make_uint2(

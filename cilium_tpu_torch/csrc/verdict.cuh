@@ -311,14 +311,16 @@ __device__ __forceinline__ Probes dense_probes(
 // (engine/verdict.py _probes with idx_known): ep and dir are the
 // tuple's int32 words, dport and proto already clipped.  `l3_bit` < 0
 // reads probe 2's bit from l3_allow_bits (word idx >> 5 taken as a gather
-// index), else it is the ipcache's L3 bit.  Shared by tuple_verdict()
-// and the verdict memo's lattice on missed keys (csrc/memo.cu).
+// index), else it is the ipcache's L3 bit.  RD reads the hashed rows'
+// key planes (hashed_probes).  Shared by tuple_verdict() and the verdict
+// memo's lattice on missed keys (csrc/memo.cu, with PairReads).
 struct ProbeBits {
   bool p1, p2, p3;
   int32_t proxy;
   int32_t j;
 };
 
+template <typename RD = ThreadReads>
 __device__ __forceinline__ ProbeBits index_probes(const PolicyView& p,
                                                   int32_t ep, int32_t dir,
                                                   uint32_t dport,
@@ -329,9 +331,9 @@ __device__ __forceinline__ ProbeBits index_probes(const PolicyView& p,
   const size_t row = static_cast<size_t>(gather_ix(ep, p.l4.n_eps)) * 2 +
                      gather_ix(dir, 2);
   const Probes q =
-      p.l4.rows ? hashed_probes(p.l4, static_cast<uint32_t>(ep),
-                                static_cast<uint32_t>(dir), dport, proto, idx,
-                                known)
+      p.l4.rows ? hashed_probes<RD>(p.l4, static_cast<uint32_t>(ep),
+                                    static_cast<uint32_t>(dir), dport, proto,
+                                    idx, known)
                 : dense_probes(p.port_slot, p.l4_allow, p.l4.meta, p.l4.n_eps,
                                p.l4.kg, p.n_words, ep, dir, dport, proto, word,
                                bit, known);

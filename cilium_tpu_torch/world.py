@@ -26,7 +26,8 @@ BPF maps the agent writes, without the control plane:
     service-scope entries with their DNATed flow entries for VIP
     flows;
   * packed4 pairs: an ingress half and an egress half sampled from
-    the pool, uniform or Zipf-ranked.
+    the pool, uniform or Zipf-ranked, or with one hot flow that counts
+    (`hot_pair`).
 
 Everything is drawn from one numpy Generator seeded by `seed`.
 
@@ -44,8 +45,11 @@ config 6 can run with.
 The bare policy lattice has worlds of its own, at the same level:
 `example_world` (config 1), `cidr_world` (config 2, with its DIR-24-8
 mapping and tuple generator), and over config 5: `lattice_tuples`
-(bench.py's lattice line) and `lattice_records` (flow records drawn
-from the pool, each carrying its peer's identity).  `pool_records` and
+(bench.py's lattice line), `lattice_records` (flow records drawn
+from the pool, each carrying its peer's identity), `stash_world` (a
+policy whose L4 entries overflow into both stashes), `stash_tuples`
+(tuples that probe a policy's stash entries) and `identity_addresses`
+(addresses that resolve to given identities).  `pool_records` and
 `oracle_context` serve the fused record replay and its composed host
 oracle.
 
@@ -73,17 +77,20 @@ import ipaddress
 import json
 import time
 import types
-from dataclasses import dataclass, field
+from dataclasses import dataclass, field, replace
 from typing import Dict, List, Optional
 
 import numpy as np
 
 from cilium_tpu_torch.compiler.tables import (
+    L4H_WILD_IDX,
     LOCAL_ID_BASE,
     PAD_ID,
     RESERVED_WORLD,
     build_id_table,
     compile_map_states,
+    l4_entry_records,
+    repack_l4_subword,
     split_hot,
 )
 from cilium_tpu_torch.ct.device import compile_ct
@@ -230,6 +237,23 @@ def zipf_pairs(world: World, prng, half: int, k: int,
             pair[row] = pack_flow_records4(
                 **{c: pool[c][picks] for c in FLOW_COLUMNS})
         out.append(pair)
+    return out
+
+
+def hot_pair(pair: np.ndarray, kinds, share: float, seed: int,
+             halves=(0, 1)) -> np.ndarray:
+    """A packed4 pair [2, 4, B] whose halves in `halves` each have a
+    `share` of their rows (drawn from `seed`) replaced by the half's
+    first flow whose lattice match kind counts a hit (L4, L3 or the L4
+    wildcard; `kinds` [2, B] the pair's match kinds): one hot flow, one
+    hot counter cell a half, as the hottest row of a steep Zipf stream
+    gives."""
+    rng = np.random.default_rng(seed)
+    out = pair.copy()
+    for h in halves:
+        hot = int(np.nonzero(np.isin(np.asarray(kinds[h]), (1, 2, 3)))[0][0])
+        rows = rng.random(pair.shape[2]) < share
+        out[h][:, rows] = pair[h][:, hot:hot + 1]
     return out
 
 
@@ -963,6 +987,70 @@ def lattice_tuples(w: World, n: int, seed: int = 1) -> dict:
         proto=rng.choice([6, 17], size=n),
         direction=rng.integers(0, 2, size=n),
     )
+
+
+# the stash world's hashed L4 rows: two wide entries (6 lanes), two
+# compact ones (4 lanes)
+STASH_LANES = {"wide": 6, "compact": 4}
+
+
+def stash_world(seed: int = 1):
+    """A small world of config 5's rule mix (400 rules, 16 endpoints,
+    512 identities) whose policy compiles into hashed L4 rows of two
+    entries (STASH_LANES), so that entries overflow into both stashes
+    (the rows double only until the overflow fits the 64-row stash):
+    (world, {"wide": PolicyTables, "compact": PolicyTables}), host numpy,
+    the wide tables with their dense leaves too."""
+    w = make_world(seed=seed, n_rules=400, n_endpoints=16,
+                   n_identities=512, n_cidr_blocks=16, n_vips=4,
+                   n_pool=3000, ct_max_entries=4096, identity_pad=256,
+                   filter_pad=16)
+    wide = compile_map_states(w.states, w.identity_ids,
+                              identity_pad=w.identity_pad,
+                              filter_pad=w.filter_pad,
+                              hash_lanes=STASH_LANES["wide"])
+    return w, {"wide": wide, "compact": repack_l4_subword(
+        wide, lanes=STASH_LANES["compact"])}
+
+
+def identity_addresses(identity_ids, identities):
+    """Addresses for the lattice's IP mode: each of `identity_ids` at a
+    /32 of 11.0.0.0/8, in order ({cidr: identity}, for build_lpm), and
+    the source address u32 [B] of each of `identities` (12.0.0.1, which
+    the map misses, for one not in it)."""
+    at = {int(ident): 0x0B000000 + k for k, ident in enumerate(identity_ids)}
+    cidrs = {f"{a >> 24}.{(a >> 16) & 255}.{(a >> 8) & 255}.{a & 255}/32":
+             ident for ident, a in at.items()}
+    return cidrs, np.asarray([at.get(int(i), 0x0C000001)
+                              for i in identities], np.uint32)
+
+
+def stash_tuples(policy, seed: int) -> dict:
+    """One tuple a used entry of both hashed L4 stashes of the host
+    PolicyTables `policy` (either entry layout), exact stash first: the
+    entry's endpoint, direction, dport and proto, and the identity of its
+    index (for a wildcard entry one of the table's identities drawn from
+    `seed`); tuple columns as numpy arrays, no fragments.  With rows
+    narrow enough that entries overflow, they probe the stashes."""
+    rng = np.random.default_rng(seed)
+    recs = l4_entry_records(replace(
+        policy, l4_hash_rows=np.asarray(policy.l4_hash_rows)[:0],
+        l4_wild_rows=np.asarray(policy.l4_wild_rows)[:0]))
+    ids = np.asarray(policy.id_table)
+    parts = []
+    for r in (recs["exact"], recs["wild"]):
+        idx = r["idx"].astype(np.int64)
+        idx = np.where(idx == int(L4H_WILD_IDX),
+                       rng.integers(0, len(ids), len(idx)),
+                       np.minimum(idx, len(ids) - 1))
+        parts.append(dict(ep_index=r["ep"].astype(np.int64),
+                          identity=ids[idx].astype(np.uint32),
+                          dport=r["dport"].astype(np.int64),
+                          proto=r["proto"].astype(np.int64),
+                          direction=r["d"].astype(np.int64)))
+    out = {k: np.concatenate([p[k] for p in parts]) for k in parts[0]}
+    out["is_fragment"] = np.zeros(len(out["dport"]), np.int64)
+    return out
 
 
 def lattice_records(w: World, n: int, seed: int = 31) -> bytes:

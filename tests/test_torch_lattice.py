@@ -364,6 +364,92 @@ def test_counter_form_matches_jax(layout):
     assert int(l4.sum()) > 0 and int(l3.sum()) > 0
 
 
+STASH_ENDPOINTS = 16  # world.stash_world's
+_STASH = []
+
+
+def _stash_hosts():
+    """world.stash_world, built once: (world, {layout: host
+    PolicyTables}) for "wide" and "compact", whose entries overflow into
+    both stashes."""
+    if not _STASH:
+        _STASH.append(world.stash_world())
+    return _STASH[0]
+
+
+def _stash_columns(w, hosts):
+    """The stash-heavy world's tuples: 1,500 of bench's lattice tuples,
+    1,500 with the edges (out-of-range endpoints, directions, dports,
+    identities, fragment words), then one a used stash entry of each
+    layout of `hosts` (world.stash_tuples)."""
+    own = world.lattice_tuples(w, 1500, seed=23)
+    own["is_fragment"] = np.zeros(1500, np.int64)
+    parts = [own, _edge_columns(hosts["wide"], STASH_ENDPOINTS, 1500,
+                                np.random.default_rng(24))] + [
+        world.stash_tuples(h, 25) for h in hosts.values()]
+    parts = [{k: np.asarray(p[k]).astype(np.int64) for k in own}
+             for p in parts]
+    return {k: np.concatenate([p[k] for p in parts]) for k in parts[0]}
+
+
+def _stash_used(host):
+    """Used rows of a host PolicyTables' exact and wildcard stashes."""
+    recs = ttab.l4_entry_records(dataclasses.replace(
+        host, l4_hash_rows=host.l4_hash_rows[:0],
+        l4_wild_rows=host.l4_wild_rows[:0]))
+    return [len(recs[k]["ep"]) for k in ("exact", "wild")]
+
+
+@pytest.fixture(scope="module")
+def stash_world():
+    """world.stash_world on both sides: {layout: (port tables on the
+    CPU, JAX tables, used rows of the exact and the wildcard stash)},
+    its tuples (_stash_columns) and how many of them are stash tuples."""
+    _need_jax()
+    w, hosts = _stash_hosts()
+    jt = jtab.compile_map_states(
+        convert_states(w.states, tpm, jpm), w.identity_ids,
+        identity_pad=w.identity_pad, filter_pad=w.filter_pad,
+        hash_lanes=world.STASH_LANES["wide"])
+    refs = {"wide": jt, "compact": jtab.repack_l4_subword(
+        jt, lanes=world.STASH_LANES["compact"])}
+    pols = {k: (convert.policy_tables_to(h, "cpu"), refs[k], _stash_used(h))
+            for k, h in hosts.items()}
+    cols = _stash_columns(w, hosts)
+    return dict(pols=pols, cols=cols, n_stash=len(cols["dport"]) - 3000)
+
+
+@pytest.mark.parametrize("layout", ["wide", "compact"])
+def test_stash_heavy_evaluate_matches_jax(stash_world, layout):
+    """evaluate_batch on the stash-heavy world (both stashes used, the
+    tuples hitting their entries, the edge words among them) against the
+    JAX reference's."""
+    tt, jt, used = stash_world["pols"][layout]
+    assert min(used) >= 8, used
+    tb, jb = _batches(stash_world["cols"])
+    got = tv.evaluate_batch(tt, tb, device="cpu")
+    want = jv.evaluate_batch(jt, jb)
+    assert_same_columns(got, want, VERDICT_COLS, layout)
+    kinds = got.match_kind.numpy()[-stash_world["n_stash"]:]
+    assert np.isin(kinds, (tor.MATCH_L4, tor.MATCH_L4_WILD)).mean() > 0.5
+
+
+@pytest.mark.parametrize("layout", ["wide", "compact"])
+def test_stash_heavy_counters_match_jax(stash_world, layout):
+    """The counter form on the stash-heavy world against the JAX
+    reference's: both counter planes, the out-of-range endpoints and
+    directions dropped as the reference's scatter drops them."""
+    tt, jt, _ = stash_world["pols"][layout]
+    tb, jb = _batches(stash_world["cols"])
+    v, l4, l3 = tv.evaluate_batch_with_counters(tt, tb, device="cpu")
+    jv_, jl4, jl3 = jax.jit(jv._verdict_kernel_with_counters)(jt, jb)
+    assert_same_columns(v, jv_, VERDICT_COLS, layout)
+    for got, want in ((l4, jl4), (l3, jl3)):
+        np.testing.assert_array_equal(got.numpy().view(np.uint32),
+                                      np.asarray(want))
+    assert int(l4.sum()) > 0 and int(l3.sum()) > 0
+
+
 def test_identity_index_sweep_matches_jax():
     """_index_identity over the region edges and the u32 range, on
     tables with both id_direct regions populated."""
@@ -655,6 +741,93 @@ def test_lattice_ip_mode_matches_plain(counters):
         assert torch.equal(getattr(v, c), getattr(pv, c)), c
     if counters:
         assert torch.equal(acc, pacc)
+
+
+# the stash-heavy cases on the card: (layout, counters, IP mode, both
+# stashes padded past the shared memory the kernel stages)
+_STASH_CARD_CASES = {
+    f"{lay}{'-counters' if c else ''}{'-ip' if ip else ''}"
+    f"{'-padded' if pad else ''}": (lay, c, ip, pad)
+    for lay in ("wide", "compact", "dense") for c in (False, True)
+    for ip in ((False, True) if lay != "dense" else (False,))
+    for pad in ((False, True) if lay != "dense" else (False,))
+}
+PAD_ROWS = 2048  # 16 KB of stash words is what csrc/lattice.cu stages
+
+
+def _card_stash_case(layout, pad):
+    """The stash-heavy world's tables on the card in `layout` ("dense":
+    the wide tables without the hash), both stashes padded by PAD_ROWS
+    empty rows with `pad`; its tuples on the card; and the DIR-24-8
+    tables and source addresses of IP mode (the world's identities at
+    /32s of 11.0.0.0/8, the others at an address it misses)."""
+    w, hosts = _stash_hosts()
+    host = hosts["wide" if layout == "dense" else layout]
+    if layout == "dense":
+        host = dataclasses.replace(host, **{k: None for k in HASH_LEAVES})
+    if pad:
+        empty = (0, 0xFFFFFFFF, 0) if layout == "wide" else (0, 1 << 31)
+        rows = np.tile(np.asarray(empty, np.uint32), (PAD_ROWS, 1))
+        host = dataclasses.replace(host, **{
+            k: np.concatenate([np.asarray(getattr(host, k)), rows])
+            for k in ("l4_hash_stash", "l4_wild_stash")})
+    cols = _stash_columns(w, hosts)
+    cidrs, src = world.identity_addresses(w.identity_ids, cols["identity"])
+    lpm = convert.lpm_to(tlpm.build_lpm(cidrs), "cuda")
+    return (convert.policy_tables_to(host, "cuda"),
+            tv.TupleBatch.from_numpy(**cols, device="cuda"), lpm,
+            torch.from_numpy(src.view(np.int32)).cuda())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(_STASH_CARD_CASES))
+def test_lattice_kernel_stash_cases_match_plain(case):
+    """LATTICE against its plain version on the stash-heavy world (both
+    stashes used, a tuple for each used entry, the edge words), in every
+    layout, with and without counters, in IP mode, and with the stashes
+    padded past the shared memory the kernel stages (read where they
+    lie)."""
+    _need_card()
+    from cilium_tpu_torch import kernels
+
+    layout, counters, ip, pad = _STASH_CARD_CASES[case]
+    tt, tb, lpm, src = _card_stash_case(layout, pad)
+    kw = dict(counters=counters)
+    ids = None
+    if ip:
+        kw.update(lpm=lpm, src_ips=src)
+        ids = tlpm.lpm_lookup_plain(lpm, src)
+    v, acc = kernels.LATTICE(tt, tb, **kw)
+    pv, pacc = tv._lattice_plain(tt, tb, identity=ids, counters=counters)
+    torch.cuda.synchronize()
+    for c in VERDICT_COLS:
+        assert torch.equal(getattr(v, c), getattr(pv, c)), c
+    if counters:
+        assert torch.equal(acc, pacc)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["wide", "compact"])
+def test_lattice_kernel_zipf_hot_counters_match_plain(layout):
+    """The counter form on 200,000 tuples drawn Zipf(1.1) from 4,096 of
+    the stash-heavy world's lattice tuples: a few hot counter cells take
+    most hits (the kernel aggregates a block's equal cells)."""
+    _need_card()
+    from cilium_tpu_torch import kernels
+
+    w, hosts = _stash_hosts()
+    base = world.lattice_tuples(w, 4096, seed=26)
+    picks = world.zipf_picks(np.random.default_rng(27), 4096, 200_000, 1.1)
+    tb = tv.TupleBatch.from_numpy(**{k: v[picks] for k, v in base.items()},
+                                  device="cuda")
+    tt = convert.policy_tables_to(hosts[layout], "cuda")
+    v, acc = kernels.LATTICE(tt, tb, counters=True)
+    pv, pacc = tv._lattice_plain(tt, tb, counters=True)
+    torch.cuda.synchronize()
+    for c in VERDICT_COLS:
+        assert torch.equal(getattr(v, c), getattr(pv, c)), c
+    assert torch.equal(acc, pacc)
+    assert int(pacc.max()) > 1000
 
 
 @pytest.mark.cuda

@@ -22,8 +22,9 @@ ipcache_lookup_fused, the generic lookup, _probes) against its JAX
 function, with edge inputs; the pair step on every world from both
 table sources (the port's builders, and the JAX leaves carried across
 by tables_from_numpy); every single-batch form and replay() on the
-node world.  The `cuda`-marked twins hold DATAPATH_PAIR, PERSISTENT_PAIR
-and DATAPATH_STEP against their plain versions on every layout and replay()
+node world.  The `cuda`-marked twins hold DATAPATH_PAIR, PERSISTENT_PAIR,
+DATAPATH_STEP and the memoized pair against their plain versions on
+every layout and replay()
 on the card against the plain loop; they need no JAX and skip here:
 
     python -m pytest --noconftest tests/test_torch_layouts.py -q -m cuda
@@ -41,6 +42,7 @@ from cilium_tpu_torch import convert, world
 from cilium_tpu_torch import replay as trp
 from cilium_tpu_torch.compiler.tables import split_hot
 from cilium_tpu_torch.engine import datapath as tdp
+from cilium_tpu_torch.engine import memo as tmemo
 from cilium_tpu_torch.engine import verdict as tvd
 from cilium_tpu_torch.ipcache import lpm as tlpm
 from cilium_tpu_torch.lb import device as tlb
@@ -442,13 +444,25 @@ def _u32_of(x):
             else np.asarray(x))
 
 
-@pytest.mark.parametrize("name", sorted(WORLDS))
+# the worlds whose test_datapath_matches_jax case runs in
+# tests/test_torch_layouts_mixed.py, so that --dist loadfile gives the
+# two halves of the cases to two workers
+MIXED = ("ranges523", "pf141eps36", "lb50eps36", "pf141lb50", "pf141r523",
+         "lb50r523", "pf141lb50r523")
+
+
+@pytest.mark.parametrize("name", sorted(set(WORLDS) - set(MIXED)))
 def test_datapath_matches_jax(name):
     """Each world's tables take the reference's layouts, leaf for leaf,
     wide and sub-word; then on the sub-word tables, port-built and
     carried across: the pair step, replay()
     and, on the FULL worlds, every single-batch form, column for column,
     with the counters and the telemetry exact."""
+    check_datapath_matches_jax(name)
+
+
+def check_datapath_matches_jax(name):
+    """test_datapath_matches_jax's case for world `name`."""
     _need_jax()
     forms = name in FULL
     for subword in (False, True):
@@ -532,8 +546,12 @@ def test_kernels_match_plain_on_every_layout(name, subword):
     flows a half and DATAPATH_STEP in each form over the edge flows, as
     a pack and picked from them as a pool (the row-major copy passed in
     or made by the wrapper; picks at the last row, past it and with bit
-    31 set), on the card, against the plain versions on the same device
-    inputs: columns, counters, telemetry."""
+    31 set), and the memoized pair (DATAPATH_PAIR_MEMO's front and back
+    passes with MEMO_DEDUP and MEMO_CACHE) on a uniform pair cold and
+    warm, a Zipf pair and the Zipf pair at a capacity it overflows, on
+    the card, against the plain versions on the same device inputs:
+    columns, counters, telemetry (and the memo's rows, hit flags and
+    stats)."""
     _need_card()
     from cilium_tpu_torch import kernels
 
@@ -593,6 +611,25 @@ def test_kernels_match_plain_on_every_layout(name, subword):
                     case, col)
             assert torch.equal(acc_k, acc_p), case
             assert torch.equal(tel_k, tel_p), case
+    uni = w.pairs(seed=13, half=5000, k=1)[0]
+    zp = world.zipf_pairs(w, np.random.default_rng(54), 5000, 1, 1.1)[0]
+    rows = convert.cache_rows_to(tmemo.make_cache_rows(1 << 8, 8), "cuda")
+    acc_k = tvd.make_counter_buffers(tt.policy)
+    tel_k = tvd.make_telemetry_buffers("cuda")
+    acc_p, tel_p = acc_k.clone(), tel_k.clone()
+    for n, (pair, cap) in enumerate(((uni, 5000), (uni, 5000), (zp, 5000),
+                                     (zp, 64))):
+        pt = torch.from_numpy(pair.view(np.int32)).cuda()
+        k = tmemo.memo_pair_packed4(tt, pt, rows, acc_k, tel_k, cap)
+        q = tmemo.memo_pair_plain(tt, pt, rows, acc_p, tel_p, cap)
+        for got, want in ((k[0], q[0]), (k[1], q[1])):
+            for col in tdp.VERDICT_COLUMNS:
+                assert torch.equal(getattr(got, col), getattr(want, col)), (
+                    n, col)
+        for i in range(2, 8):
+            assert torch.equal(k[i], q[i]), (n, i)
+        assert (int(k[7][tmemo.STAT_OVERFLOW]) > 0) == (cap == 64), n
+        rows, acc_k, tel_k, acc_p, tel_p = k[4], k[2], k[3], q[2], q[3]
 
 
 @pytest.mark.cuda

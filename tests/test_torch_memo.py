@@ -596,14 +596,39 @@ def test_lru_through_memo_evaluate():
 # -- the memoized pair -------------------------------------------------------------
 
 
-def _pair_world(source):
-    w = world.make_world(seed=1, **SMALL)
-    jt = jax_host_tables(w, subword=True)
-    if source == "convert":
-        tt = convert.tables_from_numpy(jax_leaves(jt), device="cpu")
-    else:
-        tt = convert.tables_to(world.headline_tables(w), "cpu")
-    return w, tt, jt
+@pytest.fixture(scope="module")
+def pair_worlds():
+    """(world, port tables, JAX tables) of the SMALL config-5 world's
+    headline layout by table source ("port": the port's compilers,
+    "convert": the JAX leaves carried across), each built once a
+    module."""
+    cache = {}
+
+    def get(source):
+        if source not in cache:
+            _need_jax()
+            w = world.make_world(seed=1, **SMALL)
+            jt = jax_host_tables(w, subword=True)
+            if source == "convert":
+                tt = convert.tables_from_numpy(jax_leaves(jt), device="cpu")
+            else:
+                tt = convert.tables_to(world.headline_tables(w), "cpu")
+            cache[source] = (w, tt, jt)
+        return cache[source]
+
+    return get
+
+
+def _hot_pair(w, tt, half, seed, share=0.75, halves=(0, 1)):
+    """A Zipf(1.1) pair whose halves in `halves` take one flow that
+    counts a lattice hit in a `share` of their rows (world.hot_pair, the
+    kinds from the uncached pair)."""
+    pair = world.zipf_pairs(w, np.random.default_rng(seed), half, 1, 1.1)[0]
+    out = tdp.datapath_step_accum_pair_telem_packed4_stacked(
+        tt, torch.from_numpy(pair.view(np.int32)),
+        tv.make_counter_buffers(tt.policy), tv.make_telemetry_buffers("cpu"))
+    kinds = [out[h].match_kind.numpy() for h in (0, 1)]
+    return world.hot_pair(pair, kinds, share, seed + 1, halves)
 
 
 def _pair_both(tt, jt, pair, t_state, j_state, rep_cap):
@@ -625,20 +650,41 @@ def _pair_both(tt, jt, pair, t_state, j_state, rep_cap):
     return t
 
 
-@pytest.mark.parametrize("source", ["port", "convert"])
-def test_memo_pair_matches_jax(source):
+# test_memo_pair_matches_jax's cases: (table source, traffic)
+_PAIR_CASES = {
+    "port": ("port", "mixed"),
+    "convert": ("convert", "mixed"),
+    "zipf_hot": ("port", "hot"),
+    "overflow": ("port", "hot_overflow"),
+}
+
+
+@pytest.mark.parametrize("case", list(_PAIR_CASES))
+def test_memo_pair_matches_jax(case, pair_worlds):
     """The memoized headline pair on the SMALL config-5 world's compact
     tables, from port-built and carried-across tables: uniform cold then
     warm, two Zipf(1.1) pairs, then an overflowing capacity.  Every
     column, the counters, the telemetry, the rows, the hit flags and
     the stats equal the reference's; without overflow the outputs equal
     the uncached pair's; an overflow leaves counters, telemetry and
-    rows as they were."""
-    _need_jax()
-    w, tt, jt = _pair_world(source)
+    rows as they were.  "zipf_hot": a Zipf pair whose halves each take
+    one flow that counts a hit in 3 rows of 4 (one hot counter cell a
+    half), cold then warm, then the overflow.  "overflow": the overflow
+    falls on a pair whose ingress half alone is hot and fits the
+    capacity, its egress half overflowing: nothing of either half is
+    committed."""
+    source, traffic = _PAIR_CASES[case]
+    w, tt, jt = pair_worlds(source)
     half = 192
-    pairs = (w.pairs(seed=11, half=half, k=1) * 2
-             + world.zipf_pairs(w, np.random.default_rng(53), half, 2, 1.1))
+    if traffic == "mixed":
+        pairs = (w.pairs(seed=11, half=half, k=1) * 2
+                 + world.zipf_pairs(w, np.random.default_rng(53), half, 2,
+                                    1.1))
+    else:
+        pairs = [_hot_pair(w, tt, half, 57)] * 2
+    over = pairs[0]
+    if traffic == "hot_overflow":
+        over = _hot_pair(w, tt, half, 58, share=1.0, halves=(0,))
     rows = tm.make_cache_rows(1 << 6, 8)
     t_state = dict(rows=convert.cache_rows_to(rows, "cpu"),
                    acc=tv.make_counter_buffers(tt.policy),
@@ -660,8 +706,10 @@ def test_memo_pair_matches_jax(source):
             for c in tdp.VERDICT_COLUMNS:
                 assert torch.equal(getattr(got, c), getattr(ref, c)), c
         assert torch.equal(t[2], u_acc) and torch.equal(t[3], u_tel)
+    if traffic != "mixed":  # the hot flows' cells took 3 rows of 4
+        assert int(t[2].max()) * 2 > len(pairs) * half
     before = {k: v.clone() for k, v in t_state.items()}
-    t = _pair_both(tt, jt, pairs[0], t_state, j_state, 8)
+    t = _pair_both(tt, jt, over, t_state, j_state, 8)
     assert int(t[7][tm.STAT_OVERFLOW]) > 0
     for k, v in before.items():
         assert torch.equal(t_state[k], v), k
@@ -1017,3 +1065,49 @@ def test_memo_pair_kernels_match_plain():
             _card_equal(k[5], q[5], "hit ingress")
             _card_equal(k[6], q[6], "hit egress")
         rows = k[4]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["hot", "overflow"])
+def test_memo_pair_kernels_hot_cell_match_plain(case):
+    """The memoized pair on the card against the plain memoized pair on
+    a Zipf(1.1) pair in which one flow that counts a lattice hit takes 3
+    rows of 4 of each half (world.hot_pair: one hot counter cell a half,
+    whose hits the back pass adds a block at a time), cold then warm;
+    "overflow": a pair whose ingress half is all that flow and fits the
+    capacity while its egress half overflows it, so that nothing is
+    committed."""
+    _need_card()
+    w = world.make_world(seed=1, **SMALL)
+    tt = convert.tables_to(world.headline_tables(w), "cuda")
+    half = 50_000
+    zp = world.zipf_pairs(w, np.random.default_rng(56), half, 1, 1.1)[0]
+    out = tdp.datapath_pair_plain(
+        tt, torch.from_numpy(zp.view(np.int32)).cuda(),
+        tv.make_counter_buffers(tt.policy), tv.make_telemetry_buffers("cuda"))
+    kinds = [out[h].match_kind.cpu().numpy() for h in (0, 1)]
+    if case == "hot":
+        runs = [(world.hot_pair(zp, kinds, 0.75, 91), half)] * 2
+    else:
+        runs = [(world.hot_pair(zp, kinds, 1.0, 92, halves=(0,)), 256)]
+    rows = convert.cache_rows_to(tm.make_cache_rows(1 << 8, 8), "cuda")
+    acc = tv.make_counter_buffers(tt.policy)
+    tel = tv.make_telemetry_buffers("cuda")
+    acc_p, tel_p = acc.clone(), tel.clone()
+    for pair, rep_cap in runs:
+        pt = torch.from_numpy(pair.view(np.int32)).cuda()
+        k = tm.memo_pair_packed4(tt, pt, rows, acc, tel, rep_cap)
+        q = tm.memo_pair_plain(tt, pt, rows, acc_p, tel_p, rep_cap)
+        torch.cuda.synchronize()
+        for got, ref in ((k[0], q[0]), (k[1], q[1])):
+            for c in tdp.VERDICT_COLUMNS:
+                _card_equal(getattr(got, c), getattr(ref, c), c)
+        for i, what in ((2, "acc"), (3, "telem"), (4, "rows"), (5, "hit in"),
+                        (6, "hit eg"), (7, "stats")):
+            _card_equal(k[i], q[i], what)
+        rows, acc, tel, acc_p, tel_p = k[4], k[2], k[3], q[2], q[3]
+    if case == "hot":  # the two hot cells
+        assert int(acc.view(-1).topk(2).values.min()) > half
+    else:
+        assert int(k[7][tm.STAT_OVERFLOW]) > 0
+        assert not acc.any() and not tel.any()
