@@ -83,7 +83,9 @@ launch counts set to 0 just before it and read just after:
              before it config6_check holds DATAPATH6 against its plain
              version on those flows, with the 256-node tunnel map, and
              on both passes of the conntrack variant (a 65,536-flow
-             slice written back, then the slice and its reverses), and
+             slice written back, then the slice and its reverses), on
+             the v6 tables' edges (world.v6_edge_world, its tables
+             staged and padded to be read in place), and
              DATAPATH_PAIR and DATAPATH_STEP against theirs on config 5's
              tables with the same tunnel map (overlay mode); after it
              config6_timing;
@@ -380,7 +382,8 @@ the verdict cache, the memo's key words, the memcached rule match or
 the shadow diff.  LATTICE's launches are
 summed over its four paths, its time is config 5's compact mode;
 LPM_LOOKUP's time is config 2's 1,048,576 addresses; DATAPATH6's is
-config 6's 1,048,576 flows.  PERSISTENT_PAIR's time is one launch on
+config 6's 1,048,576 flows in device ms queued behind a spin (the
+caller's CUDA events in `events_ms`, ptxas in `ptxas`).  PERSISTENT_PAIR's time is one launch on
 4 pairs of 2 x 2,097,152 flows (`datapath_pair_x4_ms`: 4 DATAPATH_PAIR
 launches on the same pairs), its plain time one call, its bound
 needed_bytes over the super-batch (each distinct table row across the
@@ -397,7 +400,11 @@ times and their ptxas records by layout (`ptxas`).  The DATAPATH_PAIR and DATAPA
 also carry their time in overlay mode (`tunnel_ms`, `tunnel_plain_ms`,
 `tunnel_bound_ms`: the same bound plus the 3 KB map read whole,
 `tunnel_max_abs_err`), and DATAPATH6's row its time, plain time and
-bound with the tunnel map.  DATAPATH_STEP's launches are summed over
+bound with the tunnel map.  DP_MESH_COMBINE's row also carries its
+wrapper's one zero fill alone and its share (`fills_ms`, `fills_share`),
+the four fills the wrapper made before (`four_fills_ms`) and the counter
+buffers' bytes (`counter_bytes`), and its `reshard_launch` the same at
+the reshard shape with that shape's bound.  DATAPATH_STEP's launches are summed over
 its three paths (churn, replay, replay_churn; `launches_by_path`), and
 its replay modes' times, plain times and bounds are the line
 {"datapath_step_modes": ...} just before.  DATAPATH_PAIR's launches
@@ -3371,13 +3378,18 @@ def config6_setup() -> dict:
 
 def config6_check(kernels, u, w, tables, wide_t) -> dict:
     """DATAPATH6 against its plain version on config 6's 1,048,576
-    flows, with the tunnel map, and on both passes of the conntrack
-    variant (a 65,536-flow slice written back, CT6 recompiled, then the
-    slice and its reverses); DATAPATH_PAIR and DATAPATH_STEP against
+    flows, with the tunnel map, on both passes of the conntrack variant
+    (a 65,536-flow slice written back, CT6 recompiled, then the slice and
+    its reverses) and on the edge world (world.v6_edge_world) with its
+    tables staged and read in place; DATAPATH_PAIR and DATAPATH_STEP against
     theirs on config 5's tables with the 256-node tunnel map.  Returns
     the errors and the overlay inputs for the timings."""
     from cilium_tpu_torch import world
-    from cilium_tpu_torch.convert import flow_pool_to, plane_to
+    from cilium_tpu_torch.convert import (
+        datapath6_tables_to,
+        flow_pool_to,
+        plane_to,
+    )
     from cilium_tpu_torch.engine import datapath as dp
     from cilium_tpu_torch.engine import datapath6 as d6
     from cilium_tpu_torch.engine import verdict
@@ -3404,6 +3416,16 @@ def config6_check(kernels, u, w, tables, wide_t) -> dict:
     ct_results = torch.bincount(got2.ct_result.long(), minlength=4).tolist()
     sticky = int(((got2.lb_slave[:CONFIG6_SLICE] > 0)
                   & (got2.ct_result[:CONFIG6_SLICE] == 1)).sum().item())
+    # the v6 tables' edges (world.v6_edge_world: the stashes in use,
+    # duplicate and near-miss keys, tied ranges, nested tunnel ranges),
+    # staged and padded past what a block stages (read in place)
+    edges = world.v6_edge_world()
+    ef = d6.FlowBatch6.from_numpy(**edges.flows, device="cuda")
+    for name, host6 in (("edges", edges.tables),
+                        ("edges_in_place", world.v6_unstaged(edges.tables))):
+        t6 = datapath6_tables_to(host6, "cuda")
+        errs[name] = verdicts6_err(kernels.DATAPATH6(t6, ef),
+                                   d6.datapath6_plain(t6, ef))
 
     # v4 overlay mode: config 5's tables with the same 256 nodes
     tun4 = plane_to(u["tm"].tables(), "cuda")
@@ -3540,20 +3562,26 @@ def datapath6_need(tables, flows):
 
 
 def config6_timing(kernels, u, chk, launches6) -> tuple:
-    """DATAPATH6's time over 20 launches on config 6's flows (with and
-    without the tunnel map), the plain version's, and the bound (see
-    datapath6_need); then DATAPATH_PAIR and DATAPATH_STEP in overlay
-    mode (the pair of config6_check, 2,097,152 picks of the pool).
-    Returns (DATAPATH6's row, the overlay times)."""
+    """DATAPATH6's device ms on config 6's flows (with and without the
+    tunnel map; 20 calls queued behind a device spin), its CUDA events
+    (the wrapper's host time included), ptxas's registers and spills, the
+    plain version's ms and the bound (see datapath6_need); then
+    DATAPATH_PAIR and DATAPATH_STEP in overlay mode (the pair of
+    config6_check, 2,097,152 picks of the pool).  Returns (DATAPATH6's
+    row, the overlay times)."""
     from cilium_tpu_torch.engine import datapath as dp
     from cilium_tpu_torch.engine import datapath6 as d6
     from cilium_tpu_torch.engine import verdict
 
     t = time.perf_counter()
     tables, flows = u["tables"], u["flows"]
-    ms = event_ms(lambda: kernels.DATAPATH6(tables, flows), 20)
+    events = event_ms(lambda: kernels.DATAPATH6(tables, flows), 20)
+    ms = spun_ms(queued_ms, lambda: kernels.DATAPATH6(tables, flows),
+                 "config6")
     plain_ms = event_ms(lambda: d6.datapath6_plain(tables, flows), 3)
-    tunnel_ms = event_ms(lambda: kernels.DATAPATH6(u["tunnel"], flows), 20)
+    tunnel_ms = spun_ms(queued_ms,
+                        lambda: kernels.DATAPATH6(u["tunnel"], flows),
+                        "config6")
     tunnel_plain_ms = event_ms(
         lambda: d6.datapath6_plain(u["tunnel"], flows), 3)
     need, ops, gathered = datapath6_need(tables, flows)
@@ -3574,7 +3602,8 @@ def config6_timing(kernels, u, chk, launches6) -> tuple:
             chk["wide_tun"], dp.flow_batch_from_packed(pool[:, picks.long()])),
             3),
     )
-    phase("config6_timing", t, ms=round(ms, 4), plain_ms=round(plain_ms, 4),
+    phase("config6_timing", t, ms=round(ms, 4), events_ms=round(events, 4),
+          plain_ms=round(plain_ms, 4),
           tunnel_ms=round(tunnel_ms, 4),
           tunnel_plain_ms=round(tunnel_plain_ms, 4),
           tunnel_bound_ms=round(tunnel_bound_ms, 4), tunnel_ops=t_ops,
@@ -3585,12 +3614,15 @@ def config6_timing(kernels, u, chk, launches6) -> tuple:
           overlay={k: round(v, 4) for k, v in overlay.items()})
     row = kernel_row(kernels.DATAPATH6, "cilium_tpu_torch/csrc/datapath6.cu",
                      "cilium_tpu/engine/datapath6.py:452", launches6,
-                     max(chk["errs"]["tables"], chk["errs"]["tunnel"],
-                         chk["errs"]["ct_first"], chk["errs"]["ct_second"]),
+                     max(chk["errs"][k] for k in (
+                         "tables", "tunnel", "ct_first", "ct_second", "edges",
+                         "edges_in_place")),
                      ms, plain_ms, bb, bo)
     row["tunnel_ms"] = tunnel_ms
     row["tunnel_plain_ms"] = tunnel_plain_ms
     row["tunnel_bound_ms"] = tunnel_bound_ms
+    row["events_ms"] = events
+    row["ptxas"] = D6_PTXAS
     # the parent's csrc/datapath6.cu (--ab-parent): the shared stage code
     ab = library_ab(kernels, "datapath6", {
         "config6": lambda: kernels.DATAPATH6(tables, flows),
@@ -6438,6 +6470,8 @@ ROUTED_PTXAS = {}  # ROUTED_PROBE's kernel ({"": record})
 LATTICE_PTXAS = {}  # LATTICE's instantiations (lattice_ptxas)
 MEMO_FRONT_PTXAS = {}  # the memo mode's front pass, by layout
 MEMO_BACK_PTXAS = {}  # its back pass ({"": record})
+D6_PTXAS = {}  # DATAPATH6's kernel ({"": ...})
+COMBINE_PTXAS = {}  # DP_MESH_COMBINE's kernel ({"": ...})
 PAIR_AB_REPS = 20
 
 
@@ -8699,39 +8733,73 @@ def dp_probe_need(u, r, rnd: int, t: int) -> int:
     return rows_b + b * (DP_FLOW_BYTES[rnd] + 4 * (prev_rows + out_rows))
 
 
-def dp_combine_need(u, r) -> int:
-    """Bytes one DP_MESH_COMBINE launch must move: the flow words it reads
-    (16 B a flow); of the tp round-P records the flags and the owner's
-    value of each (8 B each) and the head rows of shard 0's (28 B); the L3
-    column of each L3 hit on the shard that read the word (4 B); the 39 B
-    of columns out; each l4_meta cell (not with 3-word L4 entries, whose
-    values carry the proxy) and id_table entry the plain version gathers;
-    the prefilter whole; each counter entry the row changes and the [2,
-    20] telemetry read and written once, and the replica count."""
+def dp_combine_need(tab, parts, flows, g) -> int:
+    """Bytes one DP_MESH_COMBINE launch must move for a batch row: the
+    flow words it reads (16 B a flow); of the tp round-P records `parts`
+    the flags and the owner's value of each (8 B each) and the head rows
+    of shard 0's (28 B); the L3 column of each L3 hit on the shard that
+    read the word (4 B); the 39 B of columns out; each l4_meta cell (not
+    with 3-word L4 entries, whose values carry the proxy) and id_table
+    entry the plain version gathers; the prefilter whole; the counter
+    buffers the call returns written whole (l4, l3: every entry once), the
+    [2, 20] telemetry and the replica count written once.  `tab` is shard
+    0's tables."""
     from cilium_tpu_torch.compiler.tables import l4_entry_words
     from cilium_tpu_torch.engine import datapath_mesh as dm
     from cilium_tpu_torch.engine import oracle
 
-    tab = r["md"].shard(0, 0)
-    parts = r["recs"][3]
     leaves = [("policy.id_table", tab.policy.id_table)] + [
         (f"prefilter.{f.name}", getattr(tab.prefilter, f.name))
         for f in dataclasses.fields(tab.prefilter)]
     if l4_entry_words(tab.policy) != 3:
         leaves.append(("policy.l4_meta", tab.policy.l4_meta))
     meta_b, _, out = leaf_bytes(leaves, lambda: dm.dp_mesh_combine_plain(
-        parts, tab, r["flows"], dm.FORM_WORDS, r["g"]))
+        parts, tab, flows, dm.FORM_WORDS, g))
     l3_hit = out[0].match_kind.to(torch.int64) == oracle.MATCH_L3
     owner_reads = sum(
         int((l3_hit & ((p[0].to(torch.int64) & dm.P_P2) != 0)).sum().item())
-        for p in parts[:r["g"]["route"].l3_shards])
-    changed = int(torch.count_nonzero(out[1]).item()) + int(
-        torch.count_nonzero(out[2]).item())
-    b = int(r["flows"].shape[1])
+        for p in parts[:g["route"].l3_shards])
+    counters = out[1].numel() + out[2].numel()
+    b = int(flows.shape[1])
     head = dp_head_rows(dm.ROUND_P, tab)
-    return (b * (DP_COMBINE_FLOW_BYTES + 8 * MESH_SHAPE[1] + 4 * head
+    return (b * (DP_COMBINE_FLOW_BYTES + 8 * len(parts) + 4 * head
                  + DP_OUT_BYTES) + 4 * owner_reads + meta_b
-            + 2 * 4 * changed + 2 * 160 + 4)
+            + 4 * counters + 160 + 4)
+
+
+def combine_fills(g, tab):
+    """The zero fill of DP_MESH_COMBINE's wrapper (its l4, l3, replica
+    and telemetry buffers are views of one zeroed allocation), for the
+    fill's time alone."""
+    from cilium_tpu_torch.engine.verdict import TELEM_COLS
+
+    pol = tab.policy
+    n_eps, kg = int(pol.l4_meta.shape[0]), int(pol.l4_meta.shape[2])
+    n_l3 = int(g["route"].l3_shards) * int(g["route"].c_local)
+    n = n_eps * 2 * (kg + n_l3) + 1 + 2 * TELEM_COLS
+    return lambda: torch.zeros(n, dtype=torch.int32, device="cuda")
+
+
+def combine_times(kernels, fn, tab, parts, flows, g, what: str) -> dict:
+    """DP_MESH_COMBINE's device ms at one shape (a call, its wrapper's
+    zero fill with it), its zero fill's alone and share, the four fills
+    the wrapper made before it zeroed one allocation (each buffer its
+    own torch.zeros: `four_fills_ms`), CUDA events, and the bound
+    (dp_combine_need)."""
+    need = dp_combine_need(tab, parts, flows, g)
+    ms = dp_device_ms(fn, what)
+    fills = dp_device_ms(combine_fills(g, tab), f"{what} fills")
+    out = fn()
+    shapes = [tuple(x.shape) for x in out[1:] if x is not None]
+    four = dp_device_ms(lambda: [torch.zeros(s, dtype=torch.int32,
+                                             device="cuda") for s in shapes],
+                        f"{what} four fills")
+    return dict(ms=ms, fills_ms=fills, fills_share=fills / ms,
+                four_fills_ms=four, counter_bytes=4 * sum(
+                    x.numel() for x in out[1:] if x is not None),
+                wrapper_ms=event_ms(fn, DP_CALLS), bytes=need,
+                bound_ms=need / HBM_BYTES_PER_S * 1e3, flows=int(
+                    flows.shape[1]), records=len(parts))
 
 
 def dp_device_ms(fn, what: str) -> float:
@@ -8840,15 +8908,20 @@ def dp_mesh_timing(kernels, u, path_counts, smi) -> list:
                                      dm.FORM_WORDS, prev, alive, 0, g))
         for rnd, name in enumerate("SLFP")})
     tab0 = md.shard(0, 0)
-    cneed = dp_combine_need(u, r)
     comb_fn = (lambda: kernels.DP_MESH_COMBINE(
         r["recs"][3], tab0, flows, dm.FORM_WORDS, g))
-    comb = dict(
-        ms=dp_device_ms(comb_fn, "combine"),
-        wrapper_ms=event_ms(comb_fn, DP_CALLS),
-        plain_ms=event_ms(lambda: dm.dp_mesh_combine_plain(
-            r["recs"][3], tab0, flows, dm.FORM_WORDS, g), 2),
-        bytes=cneed, bound_ms=cneed / HBM_BYTES_PER_S * 1e3)
+    comb = combine_times(kernels, comb_fn, tab0, r["recs"][3], flows, g,
+                         "combine")
+    comb["plain_ms"] = event_ms(lambda: dm.dp_mesh_combine_plain(
+        r["recs"][3], tab0, flows, dm.FORM_WORDS, g), 2)
+    comb["ptxas"] = COMBINE_PTXAS
+    # the parent's combine beside this one (--ab-parent), with and
+    # without telemetry
+    comb_ab = library_ab(kernels, "datapath_mesh", {
+        "combine": comb_fn,
+        "combine_no_telemetry": lambda: kernels.DP_MESH_COMBINE(
+            r["recs"][3], tab0, flows, dm.FORM_WORDS, g, None, None,
+            False)})
     # the evaluators beside the single-device program on the same flows
     alive_all = np.ones(MESH_SHAPE, bool)
     tables = u["tables"]
@@ -8911,6 +8984,12 @@ def dp_mesh_timing(kernels, u, path_counts, smi) -> list:
             row["by_round"] = rounds
             if ab is not None:
                 row["ab"] = ab["medians"]
+        else:
+            row.update({k: comb[k] for k in (
+                "fills_ms", "fills_share", "four_fills_ms", "counter_bytes",
+                "ptxas", "bytes")})
+            if comb_ab is not None:
+                row["ab"] = comb_ab["medians"]
         rows.append(row)
     return rows
 
@@ -9522,26 +9601,37 @@ def reshard_launch_calls(kernels, r) -> dict:
     tab0 = mt.shard(0, 0)
     return {
         kernels.ROUTED_PROBE.name: (
-            lambda: kernels.ROUTED_PROBE(tab0, bl, g, 0, alive), n),
+            lambda: kernels.ROUTED_PROBE(tab0, bl, g, 0, alive), n, None),
         kernels.MESH_COMBINE.name: (
-            lambda: kernels.MESH_COMBINE(parts, tab0, bl, g, valid, True), n),
+            lambda: kernels.MESH_COMBINE(parts, tab0, bl, g, valid, True), n,
+            None),
         kernels.DP_MESH_COMBINE.name: (
             lambda: kernels.DP_MESH_COMBINE(prev, md.shard(0, 0), flows,
                                             dm.FORM_WORDS, dg, valid, None,
-                                            True), n),
+                                            True), n,
+            dict(tab=md.shard(0, 0), parts=prev, flows=flows, g=dg)),
     }
 
 
 def reshard_launch_timing(kernels, r) -> dict:
     """The reshard path's mesh launches at their own shape
     (reshard_launch_calls), each timed: device ms over 20 calls queued
-    behind a spin and CUDA events over 20 calls.  Launches not
+    behind a spin and CUDA events over 20 calls; DP_MESH_COMBINE's also
+    with its zero fill's share and its bound at that shape
+    (combine_times), and beside the parent's (--ab-parent).  Launches not
     counted."""
     launches = [k.launches for k in kernels.KERNELS]
     out = {}
-    for name, (fn, n) in reshard_launch_calls(kernels, r).items():
+    for name, (fn, n, aux) in reshard_launch_calls(kernels, r).items():
         out[name] = dict(device_ms=spun_ms(queued_ms, fn, "reshard timing"),
                          events_ms=event_ms(fn, 20), tuples=n)
+        if aux is not None:
+            out[name].update(combine_times(
+                kernels, fn, aux["tab"], aux["parts"], aux["flows"],
+                aux["g"], "reshard combine"))
+            ab = library_ab(kernels, "datapath_mesh", {"reshard_combine": fn})
+            if ab is not None:
+                out[name]["ab"] = ab["medians"]
     for k, n in zip(kernels.KERNELS, launches):
         k.launches = n
     print("  reshard_launch_timing " + json.dumps(out), flush=True)
@@ -9808,6 +9898,11 @@ def main(argv=()) -> int:
         if stem == "mesh":
             ROUTED_PTXAS.update(pair_ptxas(kernels, log,
                                            "routed_probe_kernel"))
+        if stem == "datapath6":
+            D6_PTXAS.update(pair_ptxas(kernels, log, "datapath6_kernel"))
+        if stem == "datapath_mesh":
+            COMBINE_PTXAS.update(pair_ptxas(kernels, log,
+                                            "dp_mesh_combine_kernel"))
     for k in kernels.KERNELS:
         k.load()
     phase("build", t)

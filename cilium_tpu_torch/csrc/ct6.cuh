@@ -5,16 +5,28 @@
 // k of entry e at lane 11 k + e, lanes 121-127 unused): lo limbs 0-3 |
 // hi limbs 0-3 | lo_port << 16 | hi_port | proto << 8 | swapped << 7 |
 // flags | rev_nat << 16 | slave; empty lanes carry 0xFFFFFFFF in the
-// proto|flags word, which no probe key equals.  The stash keeps whole
-// 11-word entries (its occupied pow2 prefix).  The normalisation compares
-// the addresses limb by limb, then the 16-bit ports; equal pairs never
-// set the swapped bit.  Direction words follow the reference: 0 probes
-// as OUT, 1 as IN, every other value as SERVICE.  The value is the u32
-// sum over every matching lane, as the reference's masked sums are.
+// proto|flags word, which no probe key equals (a probe's is below 2^16),
+// and 0 in the others.  The stash keeps whole 11-word entries (its
+// occupied pow2 prefix).  The normalisation compares the addresses limb
+// by limb, then the 16-bit ports; equal pairs never set the swapped bit.
+// Direction words follow the reference: 0 probes as OUT, 1 as IN, every
+// other value as SERVICE.  The value is the u32 sum over every matching
+// lane, as the reference's masked sums are.
+//
+// The key planes are compared in the order ct6_key_plane gives: the ports
+// word first (16 bits of each port, the word in which flows of one
+// address pair differ and which an empty lane holds as 0), then limb 1
+// and limb 3 of both addresses (where config 6's addresses differ; limb
+// 0, the /32, is last).  The first plane is read in 16-byte words
+// (row6.cuh), the rest one word a lane still matching, then the
+// proto|flags and value planes for the lanes left; the stash entries
+// likewise, where they lie (staging them in shared memory measured
+// slower on config 6, whose stash is one entry).
 #pragma once
 
 #include "common.cuh"
 #include "ct.cuh"
+#include "row6.cuh"
 
 namespace cdp {
 
@@ -27,6 +39,12 @@ struct CT6Table {
   int32_t nb;
   int32_t stash_n;
 };
+
+// key plane j of the compare order (j = 0 .. 8)
+__device__ __forceinline__ constexpr int ct6_key_plane(int j) {
+  return j == 0 ? 8 : j == 1 ? 1 : j == 2 ? 5 : j == 3 ? 3 : j == 4 ? 7
+       : j == 5 ? 0 : j == 6 ? 4 : j == 7 ? 2 : 6;
+}
 
 __device__ __forceinline__ CTResult ct6_probe(const CT6Table& t,
                                               const uint32_t* daddr,
@@ -66,23 +84,28 @@ __device__ __forceinline__ CTResult ct6_probe(const CT6Table& t,
 
   bool ff = false, rf = false;
   uint32_t fv = 0, rv = 0;
-  for (int e = 0; e < CT6_PER; ++e) {
-    bool m = true;
+  uint32_t m = plane_hits<CT6_PER, 8>(row, key[8]);
 #pragma unroll
-    for (int k = 0; k < 9; ++k) m = m && __ldg(row + k * CT6_PER + e) == key[k];
-    if (m) {
-      const uint32_t w9 = __ldg(row + 9 * CT6_PER + e);
-      const uint32_t val = __ldg(row + 10 * CT6_PER + e);
-      if (w9 == w9_fwd) { ff = true; fv += val; }
-      if (w9 == w9_rev) { rf = true; rv += val; }
-    }
+  for (int j = 1; j < 9; ++j) {
+    const int k = ct6_key_plane(j);
+    if (m) m = narrow_hits(row + k * CT6_PER, m, key[k]);
+  }
+  for (uint32_t r = m; r; r &= r - 1) {
+    const int e = __ffs(r) - 1;
+    const uint32_t w9 = __ldg(row + 9 * CT6_PER + e);
+    const uint32_t val = __ldg(row + 10 * CT6_PER + e);
+    if (w9 == w9_fwd) { ff = true; fv += val; }
+    if (w9 == w9_rev) { rf = true; rv += val; }
   }
   for (int s = 0; s < t.stash_n; ++s) {
     const uint32_t* e = t.stash + static_cast<size_t>(s) * CT6_PER;
-    bool m = true;
+    bool hit = true;
 #pragma unroll
-    for (int k = 0; k < 9; ++k) m = m && __ldg(e + k) == key[k];
-    if (m) {
+    for (int j = 0; j < 9; ++j) {
+      const int k = ct6_key_plane(j);
+      hit = hit && __ldg(e + k) == key[k];
+    }
+    if (hit) {
       const uint32_t w9 = __ldg(e + 9), val = __ldg(e + 10);
       if (w9 == w9_fwd) { ff = true; fv += val; }
       if (w9 == w9_rev) { rf = true; rv += val; }

@@ -59,9 +59,28 @@
 // tuple's rows are read on its owner only, so the rows per tuple are
 // those of one DATAPATH_PAIR flow, but the records cost 4 B x rows x tp
 // in and out per round, and every shard writes its record whole (zeros
-// in the head rows of shards 1 .. tp - 1).  This first version does the simple thing: one tuple per thread,
-// read-only loads, one global atomicAdd per counted hit, the telemetry
-// and the replica count reduced per warp and block before the atomics.
+// in the head rows of shards 1 .. tp - 1).  The probe is one tuple per
+// thread with read-only loads.
+//
+// The combine (redesigned after a first version that took 0.1731 device
+// ms per batch row of 2,097,152 flows, 4 records, its call's four zero
+// fills included; PERF.md §5) is one flow a thread too, at
+// COMBINE_BLOCKS_PER_SM blocks an SM.  Measured on config 5 there:
+//   * its telemetry took 0.027 ms as 40 ballots a warp and 40 shared
+//     atomics from lane 0; it is now one ballot a column, lane c keeping
+//     column c's ingress and egress counts, and a block's sums committed
+//     once, with the replica count (telem_block_sum);
+//   * the wrapper zeroes the four counter buffers as views of one
+//     allocation, one fill in place of four (0.0175 -> 0.0111 ms; the l3
+//     buffer, [E, 2, l3_shards x c_local], is about 34 MB on config 5's
+//     (2, 4) mesh);
+//   * the counted hits stay one global atomicAdd each: 1,075,758 L3 hits
+//     over 21,827 cells (613 cells for L4) leave a block of 256 flows
+//     nearly no equal cells, and the block's cell tables (common.cuh
+//     cell_add), a warp's match, and 4 flows a thread with 16-byte loads
+//     (more registers, fewer warps) each measured slower;
+//   * the streaming hints measured slower: the records the probes have
+//     just written are read from the L2.
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -522,6 +541,8 @@ __global__ void __launch_bounds__(BLOCK) dp_mesh_probe_kernel(
 
 // -- the combine -------------------------------------------------------------
 
+constexpr int COMBINE_BLOCKS_PER_SM = 6;  // 40 registers; 5 and 4 slower
+
 // jax's scatter-add at [e, d, c] of an [n_eps, 2, cols] buffer: negative
 // indices count from the end, an update still outside is dropped
 __device__ __forceinline__ void count_hit(uint32_t* buf, int n_eps,
@@ -534,32 +555,46 @@ __device__ __forceinline__ void count_hit(uint32_t* buf, int n_eps,
     atomicAdd(buf + (e * 2 + dd) * cols + c, 1u);
 }
 
-// the block's telemetry rows into telem [2, 20]: warp ballots per row, a
-// block sum in shared memory, one atomicAdd per block, row and column;
-// every thread of the block calls it (`tbits` 0 for an inactive one)
+// The block's telemetry rows into telem [2, 20] and its replica count into
+// replica [1]: per column one ballot a warp, whose ingress and egress
+// counts lane c keeps; a block sum in shared memory and one atomicAdd a
+// block, row and column.  Every thread of the block calls it (`tbits` 0
+// for an inactive one).
 __device__ __forceinline__ void telem_block_sum(uint32_t* telem,
-                                                uint32_t tbits, int row) {
-  __shared__ uint32_t s_rows[2 * TELEM_COLS];
-  if (threadIdx.x < 2 * TELEM_COLS) s_rows[threadIdx.x] = 0;
+                                                uint32_t* replica,
+                                                uint32_t tbits, bool ingress,
+                                                uint32_t served) {
+  __shared__ uint32_t s_rows[2 * TELEM_COLS + 1];  // + the replica count
+  if (threadIdx.x <= 2 * TELEM_COLS) s_rows[threadIdx.x] = 0;
   __syncthreads();
   const int lane = threadIdx.x & 31;
+  const uint32_t warp_served = __reduce_add_sync(0xFFFFFFFFu, served);
+  if (lane == 0 && warp_served) atomicAdd(&s_rows[2 * TELEM_COLS], warp_served);
+  if (telem != nullptr) {
+    const uint32_t in = __ballot_sync(0xFFFFFFFFu, ingress);
+    uint32_t n_in = 0, n_out = 0;
 #pragma unroll
-  for (int c = 0; c < TELEM_COLS; ++c) {
-    const bool on = (tbits >> c) & 1u;
-    const uint32_t b0 = __ballot_sync(0xFFFFFFFFu, on && row == 0);
-    const uint32_t b1 = __ballot_sync(0xFFFFFFFFu, on && row == 1);
-    if (lane == 0 && b0)
-      atomicAdd(&s_rows[c], static_cast<uint32_t>(__popc(b0)));
-    if (lane == 0 && b1)
-      atomicAdd(&s_rows[TELEM_COLS + c], static_cast<uint32_t>(__popc(b1)));
+    for (int c = 0; c < TELEM_COLS; ++c) {
+      const uint32_t b = __ballot_sync(0xFFFFFFFFu, (tbits >> c) & 1u);
+      if (lane == c) {
+        n_in = static_cast<uint32_t>(__popc(b & in));
+        n_out = static_cast<uint32_t>(__popc(b & ~in));
+      }
+    }
+    if (lane < TELEM_COLS) {
+      if (n_in) atomicAdd(&s_rows[lane], n_in);
+      if (n_out) atomicAdd(&s_rows[TELEM_COLS + lane], n_out);
+    }
   }
   __syncthreads();
-  if (threadIdx.x < 2 * TELEM_COLS && s_rows[threadIdx.x])
+  if (threadIdx.x < 2 * TELEM_COLS && telem != nullptr && s_rows[threadIdx.x])
     atomicAdd(telem + threadIdx.x, s_rows[threadIdx.x]);
+  if (threadIdx.x == 2 * TELEM_COLS && s_rows[threadIdx.x])
+    atomicAdd(replica, s_rows[threadIdx.x]);
 }
 
-__global__ void __launch_bounds__(BLOCK) dp_mesh_combine_kernel(
-    const DpCombineArgs a) {
+__global__ void __launch_bounds__(BLOCK, COMBINE_BLOCKS_PER_SM)
+    dp_mesh_combine_kernel(const DpCombineArgs a) {
   const DatapathArgs& d = a.dp;
   const int i = blockIdx.x * BLOCK + threadIdx.x;
   const bool active = i < a.B;
@@ -689,12 +724,7 @@ __global__ void __launch_bounds__(BLOCK) dp_mesh_combine_kernel(
       row = ingress ? 0 : 1;
     }
   }
-  // the (tuple, shard) pairs served from a backup region: a warp sum,
-  // one atomicAdd per warp
-  const uint32_t warp_served = __reduce_add_sync(0xFFFFFFFFu, served);
-  if ((threadIdx.x & 31) == 0 && warp_served)
-    atomicAdd(a.replica, warp_served);
-  if (a.telem != nullptr) telem_block_sum(a.telem, tbits, row);
+  telem_block_sum(a.telem, a.replica, tbits, row == 0, served);
 }
 
 }  // namespace cdm

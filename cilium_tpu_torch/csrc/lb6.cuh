@@ -6,7 +6,9 @@
 // sport << 16 | dport with dport unmasked, the key's is masked), or the
 // service-scope CT entry's slave when 0 < slave <= count; DNAT to the
 // backend's limbs (limb-planar lanes 8 + 12 l + k) and port (the k & 1
-// half of lane 56 + k / 2).  A backend index past the slot reads 0.
+// half of lane 56 + k / 2).  A backend index past the slot reads 0.  A
+// slot's key (lanes 0-4 of its 64) is read as a 16-byte word and one
+// word, the fifth only where the first four match.
 #pragma once
 
 #include "common.cuh"
@@ -45,6 +47,14 @@ __device__ __forceinline__ uint32_t lb6_lane(const LB6Table& t,
   return v;
 }
 
+// whether a slot's key lanes hold `key` (a slot is 256 B: 16-byte aligned)
+__device__ __forceinline__ bool lb6_key_is(const uint32_t* slot,
+                                           const uint32_t* key) {
+  const uint4 v = __ldg(reinterpret_cast<const uint4*>(slot));
+  return v.x == key[0] && v.y == key[1] && v.z == key[2] && v.w == key[3] &&
+         __ldg(slot + 4) == key[4];
+}
+
 __device__ __forceinline__ LB6Result lb6_select(const LB6Table& t,
                                                 const uint32_t* saddr,
                                                 const uint32_t* daddr,
@@ -58,18 +68,10 @@ __device__ __forceinline__ LB6Result lb6_select(const LB6Table& t,
       static_cast<size_t>(fnv1a_n(key, 5) & static_cast<uint32_t>(t.nb - 1)) *
           128;
   uint32_t hits = 0;
-  for (int h = 0; h < 2; ++h) {
-    bool m = true;
-#pragma unroll
-    for (int k = 0; k < 5; ++k) m = m && __ldg(row + h * LB6_SLOT + k) == key[k];
-    hits |= m ? (1u << h) : 0u;
-  }
-  for (int s = 0; s < t.stash_n; ++s) {
-    bool m = true;
-#pragma unroll
-    for (int k = 0; k < 5; ++k) m = m && __ldg(t.stash + s * LB6_SLOT + k) == key[k];
-    hits |= m ? (4u << s) : 0u;
-  }
+  for (int h = 0; h < 2; ++h)
+    hits |= lb6_key_is(row + h * LB6_SLOT, key) ? (1u << h) : 0u;
+  for (int s = 0; s < t.stash_n; ++s)
+    hits |= lb6_key_is(t.stash + s * LB6_SLOT, key) ? (4u << s) : 0u;
   const uint32_t meta = lb6_lane(t, row, hits, 5);
   const int32_t count = static_cast<int32_t>(meta & 0xFFFFu);
   LB6Result r;

@@ -349,7 +349,8 @@ __device__ __forceinline__ ProbeBits index_probes(const PolicyView& p,
 // The lattice of one tuple (engine/verdict.py _probes + _combine): ep and
 // dir are the tuple's int32 words, dport and proto already clipped to
 // their ranges.  Writes the identity index to *idx (the counters' L3
-// column).
+// column).  RD reads the hashed rows' key planes (index_probes).
+template <typename RD = ThreadReads>
 __device__ __forceinline__ Lattice tuple_verdict(const PolicyView& p,
                                                  int32_t ep, int32_t dir,
                                                  uint32_t dport,
@@ -358,7 +359,8 @@ __device__ __forceinline__ Lattice tuple_verdict(const PolicyView& p,
                                                  uint32_t* idx) {
   bool known;
   *idx = index_identity(p, ident, &known);
-  const ProbeBits b = index_probes(p, ep, dir, dport, proto, *idx, known, -1);
+  const ProbeBits b =
+      index_probes<RD>(p, ep, dir, dport, proto, *idx, known, -1);
   return combine(b.p1, b.p2, b.p3, b.proxy, b.j, frag);
 }
 

@@ -1656,6 +1656,14 @@ def _rows_of(t, name: str, dev, width: int) -> int:
     return r
 
 
+def _aligned16(ptrs: dict) -> None:
+    """DATAPATH6 reads these leaves in 16-byte words: each must start on
+    a 16-byte boundary (a fresh tensor does; a view may not)."""
+    for name, ptr in ptrs.items():
+        if ptr % 16:
+            raise ValueError(f"{name} does not start on a 16-byte boundary")
+
+
 def _fill_tables6(a: Datapath6Args, tables, dev) -> None:
     """Check every plane DATAPATH6 reads and fill its part of `a`."""
     from cilium_tpu_torch.engine.datapath6 import (
@@ -1724,6 +1732,13 @@ def _fill_tables6(a: Datapath6Args, tables, dev) -> None:
         a.tun_base, a.tun_mask, a.tun_endpoint, a.tun_n = _tunnel_ranges(
             tables.tunnel, TunnelTables6, 4, dev)
     a.pol = _policy_view(tables.policy, dev)
+    _aligned16({"prefilter.base": a.pf_base, "prefilter.mask": a.pf_mask,
+                "ipcache.buckets": t.buckets,
+                "ipcache.range_base": t.range_base,
+                "ipcache.range_mask": t.range_mask,
+                "ct.buckets": a.ct.buckets, "lb.rows": a.lb.rows or 0,
+                "lb.stash": a.lb.stash or 0, "tunnel.base": a.tun_base or 0,
+                "tunnel.mask": a.tun_mask or 0})
 
 
 class Datapath6Kernel:
@@ -1753,6 +1768,7 @@ class Datapath6Kernel:
             setattr(a, name, _ptr(getattr(flows, name), f"flows.{name}", dev,
                                   dtype, shape))
         a.B = b
+        _aligned16({"flows.saddr": a.saddr, "flows.daddr": a.daddr})
         _fill_tables6(a, tables, dev)
         cols = {}
         for name in VERDICT6_COLUMNS:
@@ -3419,13 +3435,16 @@ class DpMeshCombineKernel:
         n_l3 = int(route.l3_shards) * int(route.c_local)
         if not 1 <= n_l3 < 1 << 31:
             raise ValueError(f"{self.name}: {n_l3} L3 counter columns")
-        l4 = torch.zeros((a.dp.n_eps, 2, a.dp.kg), dtype=torch.int32,
-                         device=dev)
-        l3 = torch.zeros((a.dp.n_eps, 2, n_l3), dtype=torch.int32,
-                         device=dev)
-        replica = torch.zeros(1, dtype=torch.int32, device=dev)
-        telem = (torch.zeros((2, TELEM_COLS), dtype=torch.int32, device=dev)
-                 if telemetry else None)
+        # the four counter buffers the kernel adds into, views of one
+        # zeroed allocation: one fill in place of four
+        n4, n3 = a.dp.n_eps * 2 * a.dp.kg, a.dp.n_eps * 2 * n_l3
+        zeroed = torch.zeros(n4 + n3 + 1 + 2 * TELEM_COLS, dtype=torch.int32,
+                             device=dev)
+        l4 = zeroed[:n4].view(a.dp.n_eps, 2, a.dp.kg)
+        l3 = zeroed[n4:n4 + n3].view(a.dp.n_eps, 2, n_l3)
+        replica = zeroed[n4 + n3:n4 + n3 + 1]
+        telem = (zeroed[n4 + n3 + 1:].view(2, TELEM_COLS) if telemetry
+                 else None)
         a.l4, a.l3, a.replica = l4.data_ptr(), l3.data_ptr(), replica.data_ptr()
         if telem is not None:
             a.telem = telem.data_ptr()

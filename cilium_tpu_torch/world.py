@@ -1264,6 +1264,255 @@ def config6_ct_pass(flows: Dict[str, np.ndarray], out, count: int):
     return ct, second
 
 
+
+# -- config 6's edges: the stashes in use, duplicate and near-miss keys ---------
+
+V6_EDGE_TUNNEL = {
+    "2001:db8::/32": "192.168.9.1",
+    "2001:db8::/48": "192.168.3.1",
+    "2001:db8:0:7::/64": "192.168.200.1",
+    "2001:db8:0:8::/64": "192.168.2.1",
+    "2001:db8:0:7:1::/80": "192.168.150.1",
+    "2001:db8:0:8::5/128": "192.168.250.1",
+}
+V6_EDGE_RANGES = {"2001:db8:77::/48": 4100, "2001:db8:77:1::/64": 4101,
+                  "ffff::/16": 4102}
+V6_EDGE_CROWD = 30  # /128s in one ipcache6 row: 25 fit, the rest stashed
+V6_EDGE_CT = 150  # CT6 entries over 16 rows of 11: the rest stashed
+V6_ONES = "ffff:ffff:ffff:ffff:ffff:ffff:ffff:ffff"
+
+
+@dataclass
+class World6Edges:
+    """config6_world's maps widened to the v6 tables' edges (v6_edge_world):
+    `tables` the compiled host tables (numpy) after the edits, `probes`
+    the addresses the edits concern by name, `flows` FlowBatch6's numpy
+    columns."""
+
+    w: World6
+    ct: CTMap
+    tunnel: TunnelMap
+    tables: object  # Datapath6Tables
+    probes: Dict[str, str]
+    flows: Dict[str, np.ndarray]
+
+
+def _empty_lanes6(row, per: int, planes: int, empty) -> List[int]:
+    return [e for e in range(per)
+            if all(row[k * per + e] == empty[k] for k in range(planes))]
+
+
+def v6_edge_world(n: int = 2048, seed: int = 41) -> World6Edges:
+    """config6_world(256, seed)'s maps with the v6 tables' edges, from one
+    Generator seeded by `seed`:
+      * ipcache6: V6_EDGE_CROWD more /128s that hash into one bucket row,
+        so its stash holds some; a row-resident key copied into the stash
+        with another value (found in both, summed); a key copied into an
+        empty lane of its own row with another value (a duplicate in one
+        row); two entries in a probed address's row that equal it in limb
+        1 and differ in limb 3 or limb 0 (near misses); an all-ones stash
+        row with value 7 (which the all-ones address alone sums);
+        V6_EDGE_RANGES, the /48 again with another value (a tie of best
+        length) and a /64 inside it;
+      * CT6: V6_EDGE_CT entries in 16 rows (the rest in the stash), one row
+        entry copied into the stash and one into an empty lane of its row
+        with other values, one near miss (the same ports word, another
+        limb 1);
+      * the tunnel map V6_EDGE_TUNNEL: nested ranges with other endpoints
+        (/32, /48, /64, /80, /128);
+    and `n` flows over those addresses, the world's, the all-ones one, the
+    prefilter's and the VIP, every direction word, ports and protocols
+    past their fields, a tenth egress to the VIP's service, a third
+    replaying a CT entry forward or reversed."""
+    from cilium_tpu_torch.engine.datapath6 import (
+        CT6_ENTRY_WORDS,
+        CT6_PER_BUCKET,
+        compile_ct6,
+    )
+    from cilium_tpu_torch.engine.hashtable import _fnv1a_host
+    from cilium_tpu_torch.ipcache.lpm6 import V6_ENTRIES_PER_BUCKET, ip6_limbs
+
+    rng = np.random.default_rng(seed)
+    w = config6_world(256, seed=seed)
+    ids = w.identity_ids
+    # V6_EDGE_CROWD addresses that share one row of the ipcache6's buckets
+    nb = 16
+    while nb * 8 < len(w.ipc_map) + V6_EDGE_CROWD:
+        nb *= 2
+    cand = np.zeros((4 * nb * V6_EDGE_CROWD, 4), np.uint32)
+    cand[:, 0], cand[:, 1] = 0x20010DB8, 0x000E0000  # 2001:db8:e::k
+    cand[:, 3] = np.arange(1, len(cand) + 1)
+    rows = _fnv1a_host(cand) & (nb - 1)
+    crowd = [str(ipaddress.IPv6Address(0x20010DB8000E0000 << 64 | int(k)))
+             for k in cand[rows == rows[0], 3][:V6_EDGE_CROWD]]
+    ipc_map = dict(w.ipc_map)
+    for k, a in enumerate(crowd):
+        ipc_map[f"{a}/128"] = ids[k]
+    ipc_map.update(V6_EDGE_RANGES)
+    w = replace(w, ipc_map=ipc_map)
+    tm = TunnelMap()
+    for prefix, node in V6_EDGE_TUNNEL.items():
+        tm.set_tunnel_endpoint(prefix, node)
+
+    # CT6: entries between the world's addresses, forward, as the datapath
+    # creates them (ingress, egress, service scope)
+    ct = CTMap(max_entries=V6_EDGE_CT)
+    ct_rows = []
+    for _ in range(V6_EDGE_CT):
+        s_, d_ = (w.addrs[int(i)] for i in rng.integers(0, 64, 2))
+        sp, dp = (int(x) for x in rng.integers(1024, 60000, 2))
+        direction = int(rng.integers(0, 3))
+        ct.create(CTTuple(int(ipaddress.IPv6Address(d_)),
+                          int(ipaddress.IPv6Address(s_)), dp, sp, 6),
+                  direction, rev_nat_index=int(rng.integers(0, 3)),
+                  slave=int(rng.integers(0, 3)))
+        ct_rows.append((s_, d_, sp, dp, direction))
+    ct.max_entries = 32  # compile_ct6 sizes the rows by it: 16 rows
+    host = w.host_tables(ct=ct, tunnel=tm)
+
+    # -- the ipcache6 edits
+    ipc = host.ipcache
+    buckets, stash = np.array(ipc.buckets), np.array(ipc.stash)
+    per = V6_ENTRIES_PER_BUCKET
+    ones = np.uint32(0xFFFFFFFF)
+    used = int((stash[:, :4] != ones).any(axis=1).sum())
+    if not 0 < used < len(stash) - 2:
+        raise AssertionError(f"the ipcache6 stash holds {used} rows")
+    probes = {"crowd_stashed": crowd[-1], "crowd_row": crowd[0]}
+    lim = {a: np.array(ip6_limbs(a), np.uint32) for a in w.addrs[:64]}
+
+    def row_of(a):
+        return int(_fnv1a_host(lim[a][None])[0]) & (nb - 1)
+
+    free = {a: _empty_lanes6(buckets[row_of(a)], per, 4, [ones] * 4)
+            for a in w.addrs[:64]}
+    roomy = [a for a in w.addrs[:64] if len(free[a]) >= 3]
+    both, dup, near = roomy[0], roomy[1], roomy[2]
+    stash[used] = (*lim[both], 7777)  # in its row and in the stash
+    r, e = row_of(dup), free[dup][0]  # twice in its row
+    for k in range(4):
+        buckets[r, k * per + e] = lim[dup][k]
+    buckets[r, 4 * per + e] = 8888
+    r = row_of(near)  # limb 1 equal, limb 3 or limb 0 not
+    for e, flip in zip(free[near][:2], (3, 0)):
+        limbs = lim[near].copy()
+        limbs[flip] ^= 1
+        for k in range(4):
+            buckets[r, k * per + e] = limbs[k]
+        buckets[r, 4 * per + e] = 9999
+    stash[used + 1, 4] = 7  # an all-ones row with a value
+    # the /48 once more with another value: a tie of best length
+    base, mask = np.array(ipc.range_base), np.array(ipc.range_mask)
+    plen, value = np.array(ipc.range_plen), np.array(ipc.range_value)
+    src = int(np.nonzero(plen == 49)[0][0])
+    pad = int(np.nonzero(plen == 0)[0][0])
+    base[pad], mask[pad], plen[pad], value[pad] = (base[src], mask[src], 49,
+                                                   4103)
+    host.ipcache = replace(ipc, buckets=buckets, stash=stash, range_base=base,
+                           range_mask=mask, range_plen=plen,
+                           range_value=value)
+    probes.update(both=both, dup=dup, near=near, ones=V6_ONES)
+
+    # -- the CT6 edits
+    snap = host.ct
+    cb = np.array(snap.buckets)
+    cs = np.concatenate([np.array(snap.stash),
+                         compile_ct6(CTMap()).stash[:1]])
+    cper = CT6_PER_BUCKET
+    ct_used = int((cs[:, 9] != ones).sum())
+    if not 0 < ct_used < len(cs):
+        raise AssertionError(f"the CT6 stash holds {ct_used} entries")
+    lanes = [(r, e) for r in range(len(cb)) for e in range(cper)
+             if cb[r, 9 * cper + e] != ones]
+    holes = {r: [e for e in range(cper) if cb[r, 9 * cper + e] == ones]
+             for r in range(len(cb))}
+    r, e = lanes[0]
+    cs[ct_used] = cb[r, np.arange(CT6_ENTRY_WORDS) * cper + e]
+    cs[ct_used, 10] ^= 0x00010001  # in its row and in the stash
+    r = next(r for r in range(len(cb)) if holes[r] and len(holes[r]) < cper)
+    e = next(e for e in range(cper) if cb[r, 9 * cper + e] != ones)
+    h = holes[r][0]
+    for k in range(CT6_ENTRY_WORDS):  # twice in its row
+        cb[r, k * cper + h] = cb[r, k * cper + e]
+    cb[r, 10 * cper + h] ^= 0x00020002
+    if len(holes[r]) > 1:  # the same ports word, another limb 1
+        h2 = holes[r][1]
+        for k in range(CT6_ENTRY_WORDS):
+            cb[r, k * cper + h2] = cb[r, k * cper + e]
+        cb[r, 1 * cper + h2] ^= 1
+    host.ct = replace(snap, buckets=cb, stash=cs)
+
+    # -- the flows
+    pool = (w.addrs[:64] + crowd + [both, dup, near, V6_ONES,
+            "2001:db8:77::5", "2001:db8:77:1::9", "2001:db8:0:7::3",
+            "2001:db8:0:7:1::4", "2001:db8:0:8::5", "2600:1::9",
+            CONFIG6_VIP, "fd00::1", "::", "ffff::1"])
+    pick = rng.integers(0, len(pool), size=(2, n))
+    flows = dict(
+        ep_index=rng.choice([0, 0, 0, 1, -1], size=n),
+        saddr=np.array([ip6_limbs(pool[i]) for i in pick[0]], np.uint32),
+        daddr=np.array([ip6_limbs(pool[i]) for i in pick[1]], np.uint32),
+        sport=rng.choice([1024, 5000, 65536 + 7, -2], size=n),
+        dport=rng.choice([53, 443, 8443, 65535, 70000, -5], size=n),
+        proto=rng.choice([6, 6, 17, 256 + 6, -1], size=n),
+        direction=rng.choice([0, 1, 2, -1], size=n),
+        is_fragment=rng.random(n) < 0.05,
+    )
+    vip = rng.random(n) < 0.1  # egress TCP to the VIP's port
+    flows["daddr"][vip] = ip6_limbs(CONFIG6_VIP)
+    flows["dport"][vip], flows["proto"][vip] = 443, 6
+    flows["direction"][vip] = 1
+    for i in np.nonzero(rng.random(n) < 0.33)[0]:
+        s_, d_, sp, dp, direction = ct_rows[int(rng.integers(len(ct_rows)))]
+        if direction < 2 and rng.random() < 0.5:
+            s_, d_, sp, dp, direction = d_, s_, dp, sp, 1 - direction
+        flows["saddr"][i] = ip6_limbs(s_)
+        flows["daddr"][i] = ip6_limbs(d_)
+        flows["sport"][i], flows["dport"][i] = sp, dp
+        flows["proto"][i], flows["direction"][i] = 6, direction
+    return World6Edges(w=w, ct=ct, tunnel=tm, tables=host, probes=probes,
+                       flows=flows)
+
+
+
+def v6_unstaged(tables, rows: int = 2048):
+    """Host v6 tables (numpy) with every broadcast list and stash padded to
+    `rows` rows of entries that match nothing or only what the tables'
+    own empties match (ranges with base limb 0 = 1 and mask 0, all-ones
+    ipcache6 stash rows of value 0, CT6 stash entries whose proto|flags
+    word is 0xFFFFFFFF): the same lookups, tables too large for DATAPATH6
+    to stage, which it then reads where they lie."""
+    from cilium_tpu_torch.engine.datapath6 import Prefilter6
+
+    def pad(a, fill):
+        a = np.asarray(a)
+        extra = np.empty((rows - len(a),) + a.shape[1:], a.dtype)
+        extra[...] = fill
+        return np.concatenate([a, extra])
+
+    never = np.array([1, 0, 0, 0], np.uint32)
+    ones = np.uint32(0xFFFFFFFF)
+    ipc, ct = tables.ipcache, tables.ct
+    ct_empty = np.zeros(ct.stash.shape[1], np.uint32)
+    ct_empty[9] = ones
+    out = replace(
+        tables,
+        prefilter=Prefilter6(base=pad(tables.prefilter.base, never),
+                             mask=pad(tables.prefilter.mask, 0)),
+        ipcache=replace(ipc, stash=pad(ipc.stash, [ones] * 4 + [0]),
+                        range_base=pad(ipc.range_base, never),
+                        range_mask=pad(ipc.range_mask, 0),
+                        range_plen=pad(ipc.range_plen, 0),
+                        range_value=pad(ipc.range_value, 0)),
+        ct=replace(ct, stash=pad(ct.stash, ct_empty)))
+    if tables.tunnel is not None:
+        tun = tables.tunnel
+        out.tunnel = replace(tun, base=pad(tun.base, never),
+                             mask=pad(tun.mask, 0),
+                             endpoint=pad(tun.endpoint, 0))
+    return out
+
+
 # -- the L7 proxy from rules ---------------------------------------------------
 
 PROXY_TEAMS = 64

@@ -595,6 +595,105 @@ def test_datapath6_matches_jax_on_config6_tunnel_variant(config6_small):
     assert (np.asarray(jout.tunnel_endpoint) != 0).sum() > 0
 
 
+# -- config 6's edges (world.v6_edge_world) -------------------------------------
+
+
+@pytest.fixture(scope="module")
+def edge_world():
+    """world.v6_edge_world and the JAX program's tables on its arrays:
+    JAX's builders on its maps (the policy, prefilter, LB, tunnel map and
+    the unedited ipcache6 leaf for leaf the port's), then the edited
+    ipcache6 and CT6 arrays as they are."""
+    if jnp is None:
+        pytest.skip("JAX is not installed")
+    from cilium_tpu.tunnel import TunnelMap as JTunnelMap
+
+    e = world.v6_edge_world()
+    jtm = JTunnelMap()
+    for prefix, ip in e.tunnel.snapshot().items():
+        jtm.set_tunnel_endpoint(prefix, ip)
+    jt = _jax_config6_tables(e.w, tunnel=jtm.tables6())
+    h = e.tables
+    for plane in ("prefilter", "policy", "tunnel", "lb"):
+        assert_same_leaves(getattr(h, plane), getattr(jt, plane), plane)
+    assert_same_leaves(tlpm6.build_ipcache6(e.w.ipc_map), jt.ipcache,
+                       "ipcache6")
+
+    def arrays(jplane, plane):
+        return dataclasses.replace(jplane, **{
+            f.name: getattr(plane, f.name) for f in dataclasses.fields(jplane)})
+
+    return e, dataclasses.replace(jt, ipcache=arrays(jt.ipcache, h.ipcache),
+                                  ct=arrays(jt.ct, h.ct))
+
+
+def test_datapath6_matches_jax_on_edge_world(edge_world):
+    """All 13 columns on the edge world (the stashes in use, duplicate and
+    near-miss keys, the all-ones address, tied ranges, nested tunnel
+    ranges), and the plain version the same on its tables padded past
+    what DATAPATH6 stages (world.v6_unstaged)."""
+    e, jt = edge_world
+    jout, pout = _both_steps(jt, e.flows,
+                             convert.datapath6_tables_to(e.tables, "cpu"))
+    _same_verdicts6(pout, jout, "edges")
+    padded = td6.datapath6_plain(
+        convert.datapath6_tables_to(world.v6_unstaged(e.tables), "cpu"),
+        td6.FlowBatch6.from_numpy(**e.flows, device="cpu"))
+    for col in td6.VERDICT6_COLUMNS:
+        assert torch.equal(getattr(padded, col), getattr(pout, col)), col
+    assert {0, 1, 2} <= set(np.asarray(jout.ct_result).tolist())
+    assert len(set(np.asarray(jout.tunnel_endpoint).tolist()) - {0}) >= 2
+    assert (np.asarray(jout.lb_slave) > 0).any()
+    assert np.asarray(jout.pre_dropped).any()
+
+
+def test_stage_lookups_match_jax_on_edge_world(edge_world):
+    """ipcache6_lookup, tunnel_select6 and ct6_lookup_batch against JAX's
+    on the edge world's probe addresses and flows, with the sums the
+    edits make: a key in its row and in the stash, twice in one row, the
+    near misses (which add nothing), the all-ones address (the stash's
+    all-ones row of value 7), the tied /48s."""
+    from cilium_tpu.tunnel import tunnel_select6 as jtunnel_select6
+    from cilium_tpu_torch.tunnel import tunnel_select6
+
+    e, jt = edge_world
+    pt = convert.datapath6_tables_to(e.tables, "cpu")
+    pr = e.probes
+    probes = list(pr.values()) + [
+        "2001:db8:77::5", "2001:db8:77:1::9", "2001:db8:0:7::3",
+        "2001:db8:0:7:1::4", "2001:db8:0:8::5", "2001:db8:0:9::1"]
+    limbs = _limbs(probes)
+    want = np.asarray(jlpm6.ipcache6_lookup(jt.ipcache, jnp.asarray(limbs)))
+    got = tlpm6.ipcache6_lookup(pt.ipcache,
+                                torch.from_numpy(limbs.view(np.int32)))
+    np.testing.assert_array_equal(got.numpy().astype(np.uint32), want)
+    v = dict(zip(probes, want.tolist()))
+    ipc = e.w.ipc_map
+    assert v[pr["both"]] == ipc[pr["both"] + "/128"] + 7777
+    assert v[pr["dup"]] == ipc[pr["dup"] + "/128"] + 8888
+    assert v[pr["near"]] == ipc[pr["near"] + "/128"]
+    assert v[pr["crowd_stashed"]] == ipc[pr["crowd_stashed"] + "/128"]
+    assert v[pr["ones"]] == 7
+    assert v["2001:db8:77::5"] == 4100 + 4103
+    assert v["2001:db8:77:1::9"] == 4101
+    want = np.asarray(jtunnel_select6(jt.tunnel, jnp.asarray(limbs)))
+    got = tunnel_select6(pt.tunnel, torch.from_numpy(limbs.view(np.int32)))
+    np.testing.assert_array_equal(got.numpy().astype(np.uint32), want)
+    assert len(set(want.tolist()) - {0}) >= 3
+    f = e.flows
+    cols = [f["daddr"], f["saddr"], f["dport"], f["sport"], f["proto"],
+            f["direction"]]
+    cols = [np.asarray(c).astype(np.int64).astype(np.int32) if c.ndim == 1
+            else c for c in cols]
+    want = jd6.ct6_lookup_batch(jt.ct, *(jnp.asarray(c) for c in cols))
+    got = td6.ct6_lookup_batch(
+        pt.ct, *(torch.from_numpy(c.view(np.int32)) for c in cols))
+    for g, x in zip(got, want):
+        x = np.asarray(x)
+        np.testing.assert_array_equal(g.numpy().astype(x.dtype), x)
+    assert {0, 1, 2} <= set(np.asarray(want[0]).tolist())
+
+
 def test_mixed_family_batch_matches_jax():
     """tests/test_datapath6.py:180: each family through its own program
     over one shared policy; both families' columns equal JAX's, and
@@ -708,7 +807,8 @@ def _edge_flows(w, n, seed):
 def test_datapath6_kernel_matches_plain():
     """DATAPATH6 against the plain version on the card: config 6 with
     and without the tunnel map and the LB, its conntrack variant, the
-    dense lattice branch and edge flows; one launch a call."""
+    dense lattice branch, edge flows, and the edge world's tables staged
+    and read in place; one launch a call."""
     _need_card()
     import dataclasses as dc
 
@@ -737,6 +837,16 @@ def test_datapath6_kernel_matches_plain():
             torch.cuda.synchronize()
             _card_equal(got, want)
             calls += 1
+    # the edge world (world.v6_edge_world, an odd batch) with its small
+    # tables staged, and padded past what a block stages (read in place)
+    e = world.v6_edge_world(n=2051)
+    ef = td6.FlowBatch6.from_numpy(**e.flows, device="cuda")
+    for host in (e.tables, world.v6_unstaged(e.tables)):
+        tables = convert.datapath6_tables_to(host, "cuda")
+        got = td6.datapath6_step(tables, ef)
+        torch.cuda.synchronize()
+        _card_equal(got, td6.datapath6_plain(tables, ef))
+        calls += 1
     first = td6.datapath6_step(
         full, td6.FlowBatch6.from_numpy(**{
             k: v[:4096] for k, v in w.flows.items()}, device="cuda"))

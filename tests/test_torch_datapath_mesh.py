@@ -565,6 +565,109 @@ def test_fused_layouts_match_jax(kind, tp):
         _same_out(tout, jout, f"{kind} dead={dead}")
 
 
+def _hot_cells(t, kinds, n_eps, rng):
+    """A hot-cell batch from flow columns `t` and the match kinds they take:
+    three fifths copies of one L4-counting flow (one (ep, dir, slot) cell),
+    a fifth copies of one L3-counting flow (one L3 cell); of the hot L4
+    copies, 16 with ep or direction words past their range (ep n_eps and
+    -1, direction 2 and -1: jax's scatter drops them or counts them from
+    the end); the rows shuffled."""
+    b = len(kinds)
+    hot4 = int(np.nonzero((kinds == 1) | (kinds == 3))[0][0])
+    hot3 = int(np.nonzero(kinds == 2)[0][0])
+    out = {k: np.array(v).copy() for k, v in t.items()}
+    for k in out:
+        out[k][: 3 * b // 5] = t[k][hot4]
+        out[k][3 * b // 5: 4 * b // 5] = t[k][hot3]
+    out["ep_index"] = out["ep_index"].astype(np.int64)
+    out["direction"] = out["direction"].astype(np.int64)
+    out["ep_index"][0:4], out["ep_index"][4:8] = n_eps, -1
+    out["direction"][8:12], out["direction"][12:16] = 2, -1
+    perm = rng.permutation(b)
+    return {k: v[perm] for k, v in out.items()}
+
+
+def _slot_past_kg(policy, j, kg):
+    """`policy` (JAX host tables' numpy leaves) with every hashed L4 entry
+    whose slot is j given slot kg + 5, past the l4_meta plane: the flows
+    that hit one count nowhere (jax's scatter drops the index) and read
+    l4_meta at its last slot (its gather clamps)."""
+    up = {}
+    for rows_f, stash_f in (("l4_hash_rows", "l4_hash_stash"),
+                            ("l4_wild_rows", "l4_wild_stash")):
+        rows = np.array(getattr(policy, rows_f))
+        stash = np.array(getattr(policy, stash_f))
+        ew = stash.shape[1]
+        e = rows.shape[1] // ew
+        if ew == 2:  # the compact w1: j in bits 19-30, bit 31 an empty lane
+            for w1 in (rows[:, e:2 * e], stash[:, 1:2]):
+                hit = ((w1 >> 19) & 0xFFF) == j
+                hit &= (w1 >> 31) == 0
+                w1[hit] = (w1[hit] & ~np.uint32(0xFFF << 19)) | np.uint32(
+                    (kg + 5) << 19)
+        else:  # the wide value: j << 16 | proxy
+            for v in (rows[:, 2 * e:3 * e], stash[:, 2:3]):
+                hit = (v >> 16) == j
+                v[hit] = (v[hit] & 0xFFFF) | np.uint32((kg + 5) << 16)
+        up[rows_f], up[stash_f] = rows, stash
+    return dataclasses.replace(policy, **up)
+
+
+def _hot_world():
+    """The storm world with a second L4 flow's slot put past kg
+    (_slot_past_kg) and a hot-cell batch of 256 flows (_hot_cells) that
+    carries 16 copies of that flow."""
+    key = ("hot",)
+    if key in _CACHE:
+        return _CACHE[key]
+    jt, mk = _world("storm")
+    rng = np.random.default_rng(400)
+    t = mk(rng, 256)
+    tev = tdm.make_failover_datapath_evaluator(
+        tmesh.make_mesh(8, 1, device="cpu"), _port(jt))
+    v = tev(tpart.replicate_datapath_leaves(_port(jt), 1), _pflows(t),
+            np.ones((8, 1), bool), None)[0]
+    kinds = v.match_kind.numpy()
+    slots = v.l4_slot.numpy()
+    n_eps, _, kg = np.asarray(jt.policy.l4_meta).shape
+    hot = _hot_cells(t, kinds, n_eps, rng)
+    l4 = np.nonzero((kinds == 1) | (kinds == 3))[0]
+    hot4 = int(slots[l4[0]])
+    other = next(int(i) for i in l4 if 0 < slots[i] != hot4)
+    for k in hot:  # 16 rows of the flow whose slot the tables move
+        hot[k][16:32] = np.asarray(t[k])[other]
+    jt = dataclasses.replace(jt, policy=_slot_past_kg(jt.policy,
+                                                      int(slots[other]), kg))
+    _CACHE[key] = (jt, hot, kg)
+    return _CACHE[key]
+
+
+@pytest.mark.parametrize("tp", [1, 2, 4])
+def test_combine_hot_cells_match_jax(tp):
+    """DP_MESH_COMBINE's counting edges through the per-flow evaluator
+    against the reference's (_hot_world): most flows on one (ep, dir,
+    slot) cell and a fifth on one L3 cell, ep and direction words past
+    their range, slots past kg, and holes in `valid`; every column,
+    both counter buffers, the replica count and the telemetry equal."""
+    _need_jax()
+    jt, t, kg = _hot_world()
+    dp = 8 // tp
+    valid = np.ones(256, bool)
+    valid[::7] = False
+    alive = np.ones((dp, tp), bool)
+    jout = _jev("storm", tp)(_jplace(jt, _jmesh(tp), tp), _jflows(t), alive,
+                             valid)
+    tev = tdm.make_failover_datapath_evaluator(
+        tmesh.make_mesh(dp, tp, device="cpu"), _port(jt),
+        collect_telemetry=True)
+    tout = tev(tpart.replicate_datapath_leaves(_port(jt), tp), _pflows(t),
+               alive, torch.from_numpy(valid))
+    _same_out(tout, jout, f"hot tp={tp}")
+    l4, l3 = _u32(tout[1]), _u32(tout[2])
+    assert l4.max() >= 100 and l3.max() >= 30, (l4.max(), l3.max())
+    assert (tout[0].l4_slot.numpy() >= kg).any()
+
+
 def test_evaluator_refuses_other_geometry():
     _need_jax()
     jt, _ = _world("storm")
@@ -907,12 +1010,46 @@ def _card_world():
     return w, world.headline_tables(w)
 
 
+def _hot_cells_on_card(w, host, dp, tp):
+    """The per-flow evaluator on a CUDA mesh against the same on a CPU
+    mesh on a hot-cell batch (_hot_cells) of dp x 1027 flows, an odd
+    batch row, with holes in `valid`, healthy; every output equal."""
+    rng = np.random.default_rng(dp)
+    t = _pair_cols(w.pairs(seed=9, half=dp * 1027 // 2, k=1)[0])
+    b = len(t["saddr"])
+    aug = tpart.replicate_datapath_leaves(host, tp)
+    alive = np.ones((dp, tp), bool)
+    cpu = tmesh.make_mesh(dp, tp, device="cpu")
+    ev = tdm.make_failover_datapath_evaluator(cpu, host)
+    kinds = ev(tdm.place_datapath(aug, ev.shardings), _pflows(t), alive,
+               None)[0].match_kind.numpy()
+    hot = _pflows(_hot_cells(t, kinds, int(host.policy.l4_meta.shape[0]),
+                             rng))
+    valid = torch.arange(b) % 7 != 0
+    outs = []
+    for dev in ("cuda", "cpu"):
+        m = tmesh.make_mesh(dp, tp, device=dev)
+        ev = tdm.make_failover_datapath_evaluator(m, host,
+                                                  collect_telemetry=True)
+        outs.append(ev(tdm.place_datapath(aug, ev.shardings), hot.to(dev),
+                       alive, valid.to(dev)))
+    torch.cuda.synchronize()
+    got, want = outs
+    for c in tdp.VERDICT_COLUMNS:
+        assert torch.equal(getattr(got[0], c).cpu(), getattr(want[0], c)), c
+    for a, b_ in zip(got[1:], want[1:]):
+        assert torch.equal(a.cpu(), b_)
+    assert _u32(want[1]).max() >= b // 4
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dp,tp", [(2, 4), (4, 2)])
 def test_dp_mesh_kernels_match_plain_on_card(dp, tp):
     """Both evaluators on a CUDA mesh (DP_MESH_PROBE, DP_MESH_COMBINE)
     against the same evaluators on a CPU mesh (the plain versions),
-    healthy and with a chip dead, every output equal."""
+    healthy and with a chip dead, and the per-flow evaluator on a
+    hot-cell batch of odd rows with holes in `valid` (_hot_cells_on_card)
+    on this mesh and on (dp x tp, 1); every output equal."""
     _need_card()
     w, host = _card_world()
     words = _pflows(_pair_cols(w.pairs(seed=7, half=2048, k=1)[0]))
@@ -942,6 +1079,9 @@ def test_dp_mesh_kernels_match_plain_on_card(dp, tp):
                                        getattr(want[k], c)), (dead, c)
             for a, b in zip(got[n_v:], want[n_v:]):
                 assert torch.equal(a.cpu(), b), dead
+    # a hot-cell batch of odd rows, on this mesh and on one of tp = 1
+    _hot_cells_on_card(w, host, dp, tp)
+    _hot_cells_on_card(w, host, dp * tp, 1)
     assert tkern.DP_MESH_PROBE.launches > before[0]
     assert tkern.DP_MESH_COMBINE.launches > before[1]
 
