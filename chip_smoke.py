@@ -509,6 +509,7 @@ import dataclasses
 import gc
 import ipaddress
 import json
+import operator
 import subprocess
 import sys
 import time
@@ -4905,6 +4906,230 @@ AB_LIBRARIES = {"churn": "CHURN_LIBRARY", "datapath": "DATAPATH_LIBRARY",
 AB = {"lib": None, "source": None, "libs": {}, "sites": {}, "s": 0.0}
 
 
+def _parent_mesh_args(kernels):
+    """The parent's cms::CombineArgs, MemoFrontArgs and MemoBackArgs in
+    csrc/mesh.cu (before MESH_COMBINE and MESH_MEMO_COMBINE's passes
+    became cooperative launches that zero their own counter buffers:
+    the wrapper's zero fills, the flag scan's scratch, the scatter-back
+    through srow and gid)."""
+    if "mesh_args" not in AB:
+        P, I = ctypes.c_void_p, ctypes.c_int32
+        tp = P * kernels.MESH_MAX_TP
+
+        def mirror(name, fields):
+            return type(name, (ctypes.Structure,), {"_fields_": fields})
+
+        AB["mesh_args"] = (
+            mirror("_ParentCombineArgs", [("parts", tp)] + [(n, P) for n in (
+                "tuples", "meta", "valid", "allowed", "proxy_port",
+                "match_kind", "l4", "l3", "telem", "replica")] + [
+                (n, I) for n in ("B", "tp", "mode", "ew", "n_eps", "kg",
+                                 "l3_shards", "c_local")]),
+            mirror("_ParentMemoFrontArgs", [("recs", tp)] + [
+                (n, P) for n in ("rep_orig", "n_unique", "tuples", "rep",
+                                 "flags", "prefix", "sums", "n_elems",
+                                 "miss_pos", "n_miss", "miss_pack")] + [
+                (n, I) for n in ("B", "rep_cap", "miss_cap", "tp")]),
+            mirror("_ParentMemoBackArgs", [("parts", tp)] + [
+                (n, P) for n in (
+                    "rep", "miss_pos", "n_miss", "miss_pack", "srow", "gid",
+                    "n_unique", "dedup_overflow", "tuples", "keys", "meta",
+                    "valid", "alive", "rv", "mv", "allowed", "proxy_port",
+                    "match_kind", "hit", "l4", "l3", "telem", "replica",
+                    "stats", "counters")] + [
+                (n, I) for n in ("B", "rep_cap", "miss_cap", "tp", "ew",
+                                 "n_eps", "kg", "l3_shards", "c_local",
+                                 "failover", "l3_sharded", "wn",
+                                 "w_local")]))
+    return AB["mesh_args"]
+
+
+def _parent_mesh_launch(kernels, launch: str, a, dev) -> None:
+    err = getattr(AB["libs"]["mesh"], launch)(ctypes.byref(a),
+                                              kernels._stream(dev))
+    if err:
+        raise SystemExit(f"ab: the parent's {launch}: CUDA error {err}")
+
+
+class ParentMeshCombine:
+    """The parent's MESH_COMBINE wrapper (its four zero fills, one
+    launch), on the parent's build of csrc/mesh.cu."""
+
+    def __init__(self, kernels) -> None:
+        self.k = kernels
+
+    def __call__(self, parts, tab, batch, g, valid=None, telemetry=True):
+        from cilium_tpu_torch.engine.verdict import Verdicts
+
+        k = self.k
+        packed, dev, b = k._tuples(batch, "parent mesh_combine")
+        a = _parent_mesh_args(k)[0]()
+        rows = k.MESH_RECORD_ROWS if g.mode == 0 else k.ROUTED_RECORD_ROWS
+        for n, part in enumerate(parts):
+            a.parts[n] = k._ptr(part, f"record {n}", dev, shape=(rows, b))
+        a.tuples = packed.data_ptr()
+        l4t = k._l4_tables(tab, dev)
+        a.meta, a.n_eps, a.kg = l4t.meta, l4t.n_eps, l4t.kg
+        a.ew = l4t.ew if tab.l4_hash_rows is not None else 3
+        keep = None
+        if valid is not None:
+            keep = valid.to(device=dev, dtype=torch.uint8).contiguous()
+            a.valid = keep.data_ptr()
+        cols = int(g.l3_shards) * int(g.c_local)
+        out = Verdicts(
+            allowed=torch.empty(b, dtype=torch.uint8, device=dev),
+            proxy_port=torch.empty(b, dtype=torch.int32, device=dev),
+            match_kind=torch.empty(b, dtype=torch.uint8, device=dev))
+        l4 = torch.zeros((a.n_eps, 2, a.kg), dtype=torch.int32, device=dev)
+        l3 = torch.zeros((a.n_eps, 2, cols), dtype=torch.int32, device=dev)
+        replica = torch.zeros(1, dtype=torch.int32, device=dev)
+        telem = (torch.zeros((2, k.TELEM_COLS), dtype=torch.int32,
+                             device=dev) if telemetry else None)
+        a.allowed = out.allowed.data_ptr()
+        a.proxy_port = out.proxy_port.data_ptr()
+        a.match_kind = out.match_kind.data_ptr()
+        a.l4, a.l3, a.replica = l4.data_ptr(), l3.data_ptr(), replica.data_ptr()
+        if telem is not None:
+            a.telem = telem.data_ptr()
+        a.B, a.tp, a.mode = b, len(parts), int(g.mode)
+        a.l3_shards, a.c_local = int(g.l3_shards), int(g.c_local)
+        _parent_mesh_launch(k, "launch_mesh_combine", a, dev)
+        del keep
+        return out, l4, l3, telem, replica[0]
+
+
+class ParentMeshMemoCombine:
+    """The parent's MESH_MEMO_COMBINE wrappers on its build of
+    csrc/mesh.cu: the front (7 launches: the sum, the flag scan, the
+    fill, the compaction, the pack) and the back (4 zero fills, 5
+    launches, the scatter-back through srow and gid), each call's
+    scratch allocated anew."""
+
+    def __init__(self, kernels) -> None:
+        self.k = kernels
+
+    def front(self, records, g, packed, mg) -> dict:
+        k = self.k
+        dev, b = packed.device, int(packed.shape[1])
+        a = _parent_mesh_args(k)[1]()
+        for n, rec in enumerate(records):
+            a.recs[n] = k._ptr(rec, f"record {n}", dev, shape=(4, mg.rep_cap))
+        a.rep_orig = g["rep_orig"].data_ptr()
+        a.n_unique = g["n_unique"].data_ptr()
+        a.tuples = packed.data_ptr()
+        out = {"rep": torch.empty((4, mg.rep_cap), dtype=torch.int32,
+                                  device=dev),
+               "miss_pos": torch.empty(mg.miss_cap, dtype=torch.int32,
+                                       device=dev),
+               "n_miss": torch.empty(1, dtype=torch.int32, device=dev),
+               "miss_pack": torch.empty((6, mg.miss_cap), dtype=torch.int32,
+                                        device=dev)}
+        scratch = torch.empty((2, mg.rep_cap), dtype=torch.int32, device=dev)
+        sums = torch.empty(max(-(-mg.rep_cap // 1024), 1), dtype=torch.int32,
+                           device=dev)
+        n_elems = torch.empty(1, dtype=torch.int32, device=dev)
+        a.rep, a.miss_pos = out["rep"].data_ptr(), out["miss_pos"].data_ptr()
+        a.n_miss, a.miss_pack = (out["n_miss"].data_ptr(),
+                                 out["miss_pack"].data_ptr())
+        a.flags, a.prefix = scratch[0].data_ptr(), scratch[1].data_ptr()
+        a.sums, a.n_elems = sums.data_ptr(), n_elems.data_ptr()
+        a.B, a.rep_cap, a.miss_cap, a.tp = b, mg.rep_cap, mg.miss_cap, mg.ntp
+        _parent_mesh_launch(k, "launch_mesh_memo_front", a, dev)
+        del scratch, sums, n_elems
+        return out
+
+    def back(self, front, rparts, tab, g, packed, keys, mg, rg, valid=None,
+             alive_row=None, telemetry=True):
+        from cilium_tpu_torch.engine.verdict import Verdicts
+
+        k = self.k
+        dev, b = keys.device, int(keys.shape[1])
+        keep = []
+        a = _parent_mesh_args(k)[2]()
+        for n, part in enumerate(rparts):
+            a.parts[n] = part.data_ptr()
+        a.rep, a.miss_pos = front["rep"].data_ptr(), front["miss_pos"].data_ptr()
+        a.n_miss, a.miss_pack = (front["n_miss"].data_ptr(),
+                                 front["miss_pack"].data_ptr())
+        a.srow, a.gid = g["srow"].data_ptr(), g["gid"].data_ptr()
+        a.n_unique = g["n_unique"].data_ptr()
+        a.dedup_overflow = g["overflow"].data_ptr()
+        a.tuples, a.keys = packed.data_ptr(), keys.data_ptr()
+        l4t = k._l4_tables(tab, dev)
+        a.meta, a.n_eps, a.kg, a.ew = l4t.meta, l4t.n_eps, l4t.kg, l4t.ew
+        if mg.failover and valid is not None:
+            v8 = valid.to(device=dev, dtype=torch.uint8).contiguous()
+            keep.append(v8)
+            a.valid = v8.data_ptr()
+        a.alive = k._alive_ptr(mg, alive_row, dev, keep)
+        cols = int(rg.l3_shards) * int(rg.c_local)
+        v = Verdicts(
+            allowed=torch.empty(b, dtype=torch.uint8, device=dev),
+            proxy_port=torch.empty(b, dtype=torch.int32, device=dev),
+            match_kind=torch.empty(b, dtype=torch.uint8, device=dev))
+        hit = torch.empty(b, dtype=torch.bool, device=dev)
+        l4 = torch.zeros((a.n_eps, 2, a.kg), dtype=torch.int32, device=dev)
+        l3 = torch.zeros((a.n_eps, 2, cols), dtype=torch.int32, device=dev)
+        small = torch.zeros(9, dtype=torch.int32, device=dev)
+        replica, stats, counters = small[0:1], small[1:6], small[6:9]
+        telem = (torch.zeros((2, k.TELEM_COLS), dtype=torch.int32,
+                             device=dev) if telemetry else None)
+        rv = torch.empty((2, mg.rep_cap), dtype=torch.int32, device=dev)
+        mv = torch.empty((2, mg.miss_cap), dtype=torch.int32, device=dev)
+        a.rv, a.mv = rv.data_ptr(), mv.data_ptr()
+        a.allowed, a.proxy_port = v.allowed.data_ptr(), v.proxy_port.data_ptr()
+        a.match_kind, a.hit = v.match_kind.data_ptr(), hit.data_ptr()
+        a.l4, a.l3 = l4.data_ptr(), l3.data_ptr()
+        if telem is not None:
+            a.telem = telem.data_ptr()
+        a.replica, a.stats = replica.data_ptr(), stats.data_ptr()
+        a.counters = counters.data_ptr()
+        a.B, a.rep_cap, a.miss_cap, a.tp = b, mg.rep_cap, mg.miss_cap, mg.ntp
+        a.l3_shards, a.c_local = int(rg.l3_shards), int(rg.c_local)
+        a.failover, a.l3_sharded = int(mg.failover), int(rg.l3_sharded)
+        a.wn, a.w_local = int(rg.wn), int(rg.w_local)
+        _parent_mesh_launch(k, "launch_mesh_memo_back", a, dev)
+        del keep, rv
+        return v, l4, l3, telem, replica, hit, stats, mv
+
+
+def _bind_parent_mesh(kernels, lib) -> None:
+    """The parent's csrc/mesh.cu: bound as this package's where its
+    argument blocks are this package's sizes; else (a parent before the
+    combines became cooperative launches) its unchanged launchers with
+    this package's blocks and the combine and the memo combine's with
+    the mirrors of _parent_mesh_args, every size checked against the
+    parent's own, and parent_library then swaps in ParentMeshCombine and
+    ParentMeshMemoCombine."""
+    lib.mesh_struct_sizes.argtypes = [ctypes.POINTER(ctypes.c_int)]
+    sizes = (ctypes.c_int * 9)()
+    lib.mesh_struct_sizes(sizes)
+    if list(sizes) == [ctypes.sizeof(x) for x in (
+            kernels.PolicyViewArgs, kernels.MeshProbeArgs,
+            kernels.RoutedProbeArgs, kernels.CombineArgs, kernels.SortArgs,
+            kernels.MemoProbeArgs, kernels.MemoFrontArgs,
+            kernels.MemoBackArgs, kernels.MemoInsertArgs)]:
+        kernels._MeshLibrary().bind(lib)
+        return
+    AB["mesh_mirrors"] = True
+    combine, front, back = _parent_mesh_args(kernels)
+    blocks = (("launch_mesh_probe", kernels.MeshProbeArgs),
+              ("launch_routed_probe", kernels.RoutedProbeArgs),
+              ("launch_mesh_combine", combine),
+              ("launch_mesh_memo_probe", kernels.MemoProbeArgs),
+              ("launch_mesh_memo_front", front),
+              ("launch_mesh_memo_back", back),
+              ("launch_mesh_memo_insert", kernels.MemoInsertArgs))
+    kernels._Library.declare(lib, blocks)
+    want = [ctypes.sizeof(x) for x in (
+        kernels.PolicyViewArgs, kernels.MeshProbeArgs,
+        kernels.RoutedProbeArgs, combine, kernels.SortArgs,
+        kernels.MemoProbeArgs, front, back, kernels.MemoInsertArgs)]
+    if list(sizes) != want:
+        raise SystemExit(f"ab: the parent's mesh.cu argument blocks are "
+                         f"{list(sizes)} bytes, the mirrors {want}")
+
+
 def ab_start(kernels, parent: str) -> list:
     """Start nvcc on `parent`/cilium_tpu_torch/csrc/<stem>.cu (a `git
     archive` of the parent commit) for each of AB_STEMS, with the
@@ -4939,6 +5164,8 @@ def ab_load(kernels, jobs) -> None:
         if stem == "publish":
             kernels._PublishLibrary().bind(lib)
             AB.update(lib=lib, source=str(src))
+        elif stem == "mesh":
+            _bind_parent_mesh(kernels, lib)
         else:
             type(getattr(kernels, AB_LIBRARIES[stem]))().bind(lib)
         AB["libs"][stem] = lib
@@ -4986,15 +5213,27 @@ def parent_ct_delta(kernels, snap, idx, rows) -> None:
 @contextlib.contextmanager
 def parent_library(kernels, stem: str):
     """The wrappers of csrc/<stem>.cu (AB_LIBRARIES) launch the parent's
-    build inside; the launch counts are left as they were."""
+    build inside; for a mesh.cu of other argument blocks
+    (_bind_parent_mesh), kernels.MESH_COMBINE and
+    kernels.MESH_MEMO_COMBINE are the parent's own wrappers there
+    (ParentMeshCombine, ParentMeshMemoCombine).  The launch counts are
+    left as they were."""
     lib = getattr(kernels, AB_LIBRARIES[stem])
     mine = lib.load()
     counts = [k.launches for k in kernels.KERNELS]
+    swapped = {}
+    if stem == "mesh" and AB.get("mesh_mirrors"):
+        swapped = {"MESH_COMBINE": kernels.MESH_COMBINE,
+                   "MESH_MEMO_COMBINE": kernels.MESH_MEMO_COMBINE}
+        kernels.MESH_COMBINE = ParentMeshCombine(kernels)
+        kernels.MESH_MEMO_COMBINE = ParentMeshMemoCombine(kernels)
     lib.lib = AB["libs"][stem]
     try:
         yield
     finally:
         lib.lib = mine
+        for name, k in swapped.items():
+            setattr(kernels, name, k)
         for k, n in zip(kernels.KERNELS, counts):
             k.launches = n
 
@@ -6472,6 +6711,7 @@ MEMO_FRONT_PTXAS = {}  # the memo mode's front pass, by layout
 MEMO_BACK_PTXAS = {}  # its back pass ({"": record})
 D6_PTXAS = {}  # DATAPATH6's kernel ({"": ...})
 COMBINE_PTXAS = {}  # DP_MESH_COMBINE's kernel ({"": ...})
+MESH_PTXAS = {}  # MESH_COMBINE's and the memo combine's passes (build)
 PAIR_AB_REPS = 20
 
 
@@ -7299,33 +7539,47 @@ def mesh_need(u, kind: str, b: int, t: int, alive_row=None) -> int:
     sb = u["sb24"]
     dev = u["m24"].devices[b, t]
     bl = sb.on(b, dev)
-    if kind == "mesh":
-        tab = u["mt_mesh"].shard(b, t)
-        g = sh.mesh_geom(int(u["host"].l3_allow_bits.shape[2]),
-                         MESH_SHAPE[1])
-        names = ("id_direct", "port_slot", "l4_meta", "l4_allow_bits",
-                 "l3_allow_bits")
-        run = lambda: sh.mesh_probe_plain(tab, bl, t * g.w_local)  # noqa
-        record = 16
-    else:
-        tab = u["mt_part" if kind == "routed" else "mt_rep"].shard(b, t)
-        g = u["ev_part" if kind == "routed" else "ev_fail"].geom
-        names = ("id_direct", "l4_hash_rows", "l4_hash_stash",
-                 "l4_wild_rows", "l4_wild_stash", "l3_allow_bits")
-        run = lambda: sh.routed_probe_plain(tab, bl, g, t, alive_row)  # noqa
-        record = 20
-    rows_b, _, _ = leaf_bytes([(n, getattr(tab, n)) for n in names], run)
-    return rows_b + int(bl.ep_index.numel()) * (20 + record)
+    if kind != "mesh":
+        return routed_need(
+            u["mt_part" if kind == "routed" else "mt_rep"].shard(b, t), bl,
+            u["ev_part" if kind == "routed" else "ev_fail"].geom, t,
+            alive_row)
+    tab = u["mt_mesh"].shard(b, t)
+    g = sh.mesh_geom(int(u["host"].l3_allow_bits.shape[2]), MESH_SHAPE[1])
+    names = ("id_direct", "port_slot", "l4_meta", "l4_allow_bits",
+             "l3_allow_bits")
+    rows_b, _, _ = leaf_bytes([(n, getattr(tab, n)) for n in names],
+                              lambda: sh.mesh_probe_plain(tab, bl,
+                                                          t * g.w_local))
+    return rows_b + int(bl.ep_index.numel()) * (20 + 16)
 
 
-def combine_need(parts, tab, bl, g) -> int:
+def routed_need(tab, bl, g, t: int, alive_row=None) -> int:
+    """Bytes one ROUTED_PROBE launch must move (mesh_need's rule): the
+    tuple's five words in and its 20-byte record out per tuple, and each
+    distinct row or element of the shard's leaves the plain version
+    gathers, read once; stashes whole."""
+    from cilium_tpu_torch.engine import sharded as sh
+
+    names = ("id_direct", "l4_hash_rows", "l4_hash_stash", "l4_wild_rows",
+             "l4_wild_stash", "l3_allow_bits")
+    rows_b, _, _ = leaf_bytes(
+        [(n, getattr(tab, n)) for n in names],
+        lambda: sh.routed_probe_plain(tab, bl, g, t, alive_row))
+    return rows_b + int(bl.ep_index.numel()) * (20 + 20)
+
+
+def combine_need(parts, tab, bl, g, valid=None, whole: bool = False) -> int:
     """Bytes one routed-mode combine launch must move for these records:
     per tuple the ep, dir and fragment words (12 B), the flags and the
     owner's value of every record (8 B each), the head record's stash
-    and wildcard values (8 B) and 6 B of verdict out; the L3 column of
-    each L3 hit on its owner (4 B); each l4_meta cell the plain version
-    gathers; each counter entry the row changes and the [2, 20]
-    telemetry read and written once."""
+    and wildcard values (8 B) and 6 B of verdict out (1 B of `valid` in
+    with it); the L3 column of each L3 hit on its owner (4 B); each
+    l4_meta cell the plain version gathers; each counter entry the row
+    changes and the [2, 20] telemetry read and written once, or with
+    `whole` the counter buffers the call returns written whole (l4, l3:
+    every entry once), the telemetry and the replica count written
+    once."""
     from cilium_tpu_torch.compiler.tables import l4_entry_words
     from cilium_tpu_torch.engine import oracle
     from cilium_tpu_torch.engine import sharded as sh
@@ -7333,7 +7587,7 @@ def combine_need(parts, tab, bl, g) -> int:
     n = int(bl.ep_index.numel())
     meta_b, _, out = leaf_bytes(
         [("l4_meta", tab.l4_meta)],
-        lambda: sh.mesh_combine_plain(parts, tab, bl, g))
+        lambda: sh.mesh_combine_plain(parts, tab, bl, g, valid))
     if l4_entry_words(tab) == 3:  # the value words carry the proxy
         meta_b = 0
     v, l4, l3 = out[0], out[1], out[2]
@@ -7343,8 +7597,33 @@ def combine_need(parts, tab, bl, g) -> int:
         for p in parts[:g.l3_shards])
     changed = int(torch.count_nonzero(l4).item()) + int(
         torch.count_nonzero(l3).item())
-    return (n * (12 + 8 * len(parts) + 8 + 6) + 4 * owner_reads + meta_b
-            + 2 * 4 * changed + 2 * 160)
+    counters = (4 * (l4.numel() + l3.numel()) + 160 + 4 if whole
+                else 2 * 4 * changed + 2 * 160)
+    return (n * (12 + 8 * len(parts) + 8 + 6 + (valid is not None))
+            + 4 * owner_reads + meta_b + counters)
+
+
+def mesh_combine_times(kernels, fn, parts, tab, bl, g, valid,
+                       what: str) -> dict:
+    """MESH_COMBINE at one shape: device ms of 20 calls queued behind a
+    spin (spun_ms), CUDA events and the wrapper's host us a call; the
+    time of one torch.zeros of its counter region (`region_fill_ms`:
+    what the launch's own zeroing would cost as a fill) and its share of
+    the call; the bound two ways (combine_need: the counter entries the
+    row changes, and the counter buffers written whole)."""
+    ms = spun_ms(queued_ms, fn, what)
+    out = fn()
+    words = sum(x.numel() for x in out[1:4] if x is not None) + 1
+    fill = spun_ms(queued_ms, lambda: torch.zeros(
+        words, dtype=torch.int32, device=out[1].device), what)
+    need = combine_need(parts, tab, bl, g, valid)
+    whole = combine_need(parts, tab, bl, g, valid, whole=True)
+    return dict(tuples=int(bl.ep_index.numel()), records=len(parts), ms=ms,
+                events_ms=event_ms(fn, 20), host_us=host_us(fn, 100),
+                region_fill_ms=fill, fill_share=fill / ms,
+                counter_bytes=4 * words, bytes=need,
+                bound_ms=need / HBM_BYTES_PER_S * 1e3, bytes_whole=whole,
+                bound_whole_ms=whole / HBM_BYTES_PER_S * 1e3)
 
 
 def mesh_timing(kernels, u, path, chk, smi) -> list:
@@ -7398,6 +7677,12 @@ def mesh_timing(kernels, u, path, chk, smi) -> list:
             ("mesh_combine",
              lambda: kernels.MESH_COMBINE(parts, tab_p, bl, g_part),
              lambda: sh.mesh_combine_plain(parts, tab_p, bl, g_part))):
+        if name == "mesh_combine":
+            res[name] = mesh_combine_times(kernels, fn, parts, tab_p, bl,
+                                           g_part, None, "mesh_timing")
+            res[name].update(wrapper_ms=res[name]["events_ms"],
+                             plain_ms=event_ms(plain, 3))
+            continue
         ms = queued_ms(fn, 20)
         if ms is None:  # the host fell behind the spin: a longer one
             ms = queued_ms(fn, 20, spin_cycles=500_000_000)
@@ -7406,9 +7691,7 @@ def mesh_timing(kernels, u, path, chk, smi) -> list:
                              "queue behind the device spin")
         wrapper_ms = event_ms(fn, 20)
         plain_ms = event_ms(plain, 3)
-        if name == "mesh_combine":
-            need = combine_need(parts, tab_p, bl, g_part)
-        elif name.startswith("routed_failover"):
+        if name.startswith("routed_failover"):
             need = mesh_need(u, "failover", MESH_DEAD[0],
                              back if name.endswith("backup") else 0, row_f)
         else:
@@ -7448,9 +7731,12 @@ def mesh_timing(kernels, u, path, chk, smi) -> list:
                                              aligned=bases == {0}
                                              and lanes % 4 == 0)
     print("  mesh_timing rows_aligned " + json.dumps(aligned), flush=True)
-    # against the parent's csrc/mesh.cu (--ab-parent): ROUTED_PROBE, then
-    # the two evaluators that launch it dp x tp times a call (events)
-    ab = library_ab(kernels, "mesh", routed)
+    # against the parent's csrc/mesh.cu (--ab-parent): ROUTED_PROBE,
+    # MESH_PROBE and MESH_COMBINE, then the two evaluators that launch
+    # them dp x tp and dp times a call (events)
+    ab = library_ab(kernels, "mesh", dict(
+        routed, mesh_probe=lambda: kernels.MESH_PROBE(tab_m, bl, 0),
+        mesh_combine=lambda: kernels.MESH_COMBINE(parts, tab_p, bl, g_part)))
     ev_ab = library_ab(kernels, "mesh", {
         f"{name}_evaluator": fn for name, fn in evals
         if name in ("partitioned", "failover")}, device=False)
@@ -7477,9 +7763,19 @@ def mesh_timing(kernels, u, path, chk, smi) -> list:
                                      bound_ms=f["bound_ms"])
             row.update(events_ms=r["wrapper_ms"], ptxas=ROUTED_PTXAS.get(""),
                        rows_aligned=aligned,
-                       ab=ab["medians"] if ab else None,
-                       ab_differing=ab["differing"] if ab else None,
                        evaluator_ab=ev_ab["medians"] if ev_ab else None)
+        if kernel is kernels.MESH_COMBINE:
+            row.update({k: r[k] for k in (
+                "events_ms", "host_us", "region_fill_ms", "fill_share",
+                "counter_bytes", "bytes_whole", "bound_whole_ms")},
+                ptxas=MESH_PTXAS.get("combine"))
+        if ab:
+            mine = ("routed_" if kernel is kernels.ROUTED_PROBE
+                    else kernel.name)
+            row.update(ab={k: v for k, v in ab["medians"].items()
+                           if mine in k},
+                       ab_differing={k: v for k, v in ab["differing"].items()
+                                     if mine in k})
         rows.append(row)
     return rows
 
@@ -7925,6 +8221,74 @@ def memo_stage_need(stage, mg, g, front, rows, b, tp) -> int:
     return 2 * (mg.c_local + 1) * row_b + nm * 5 * 4
 
 
+def memo_combine_times(kernels, res, g, packed, keys, mg, rg, tab0, valid,
+                       alive, b, tp) -> dict:
+    """MESH_MEMO_COMBINE at failover_timing's inputs: device ms of
+    FAIL_CALLS calls queued behind a spin (spun_ms), the front and the
+    back apart and together, on the cold and the warm slice; CUDA events
+    and the wrapper's host us a call beside each; the plain versions' ms
+    and each pass's bound (memo_stage_need) on both slices.  `ms` is the
+    cold slice's front and back together."""
+    from cilium_tpu_torch.engine import memo_mesh as mm
+
+    passes = {}
+    for tag, r in res.items():
+        def front(r=r):
+            return kernels.MESH_MEMO_COMBINE.front(r["recs"], g, packed, mg)
+
+        def back(r=r):
+            return kernels.MESH_MEMO_COMBINE.back(
+                r["front"], r["rparts"], tab0, g, packed, keys, mg, rg,
+                valid, alive, True)
+
+        for name, fn in (("front", front), ("back", back),
+                         ("both", lambda f=front, k=back: (f(), k()))):
+            passes[f"{name}_{tag}"] = dict(
+                device_ms=spun_ms(queued_ms, fn, "failover_timing"),
+                events_ms=event_ms(fn, FAIL_CALLS),
+                host_us=host_us(fn, 50))
+        need = {p: memo_stage_need(p, mg, g, r["front"], 0, b, tp)
+                for p in ("front", "back")}
+        for p in ("front", "back"):
+            passes[f"{p}_{tag}"].update(
+                bytes=need[p], bound_ms=need[p] / HBM_BYTES_PER_S * 1e3)
+        passes[f"front_{tag}"]["plain_ms"] = event_ms(
+            lambda r=r: mm.memo_front_plain(r["recs"], g, packed, mg), 3)
+        passes[f"back_{tag}"]["plain_ms"] = event_ms(
+            lambda r=r: mm.memo_back_plain(r["front"], r["rparts"], tab0, g,
+                                           packed, keys, mg, rg, valid,
+                                           alive, True), 3)
+    return dict(ms=passes["both_cold"]["device_ms"], library_ms=None,
+                events_ms=passes["both_cold"]["events_ms"],
+                host_us=passes["front_cold"]["host_us"]
+                + passes["back_cold"]["host_us"], passes=passes)
+
+
+def memo_ab_calls(kernels, res, g, packed, keys, mg, rg, mt, valid, alive,
+                  tp) -> dict:
+    """library_ab's calls for the memo on the mesh at failover_timing's
+    inputs, both slices: MESH_MEMO_PROBE, the memo combine's two passes
+    (the back on this package's front, whose outputs the parent's front
+    gives bit for bit) and MESH_MEMO_INSERT; each a list of its output
+    tensors in a fixed order."""
+    calls = {}
+    for tag, r in res.items():
+        rows_t = dict(enumerate(r["rows"]))
+        calls[f"{tag}_probe"] = lambda rows_t=rows_t: [
+            v for _, v in sorted(kernels.MESH_MEMO_PROBE(
+                rows_t, keys, g, mg, alive).items())]
+        calls[f"{tag}_front"] = lambda r=r: operator.itemgetter(
+            "rep", "miss_pos", "n_miss", "miss_pack")(
+            kernels.MESH_MEMO_COMBINE.front(r["recs"], g, packed, mg))
+        calls[f"{tag}_back"] = lambda r=r: kernels.MESH_MEMO_COMBINE.back(
+            r["front"], r["rparts"], mt.shard(0, 0), g, packed, keys, mg, rg,
+            valid, alive, True)
+        calls[f"{tag}_insert"] = lambda r=r: kernels.MESH_MEMO_INSERT(
+            r["rows"][0], r["front"], r["back"][7], r["back"][6], keys, g, mg,
+            0, alive)
+    return calls
+
+
 def failover_timing(kernels, u, fu, fp, fm, smi) -> list:
     """failover_timing: each new kernel against its plain version on the
     same inputs at the phase's shapes (batch row 0 of the Zipf stream on
@@ -8057,6 +8421,10 @@ def failover_timing(kernels, u, fu, fp, fm, smi) -> list:
             out[name] = dict(ms=tm["device_ms"],
                              library_ms=tm["library_device_ms"], **tm,
                              geometry=scatter_geometry(segs_k, "repair"))
+        elif name == "mesh_memo_combine":
+            out[name] = memo_combine_times(kernels, res, g, packed, keys, mg,
+                                           rg, mt.shard(0, 0), valid, alive,
+                                           local_b, tp)
         else:
             out[name] = dict(ms=event_ms(fn, FAIL_CALLS), library_ms=None)
         out[name].update(plain_ms=event_ms(plain, 3), bytes=need,
@@ -8065,6 +8433,16 @@ def failover_timing(kernels, u, fu, fp, fm, smi) -> list:
               flush=True)
     out["repair_scatter"]["ab"] = scatter_ab(kernels, "readmission",
                                              "repair", segs_k)
+    # against the parent's csrc/mesh.cu (--ab-parent): the memo's three
+    # kernels on both slices, every output entry agreeing
+    ab = library_ab(kernels, "mesh", memo_ab_calls(
+        kernels, res, g, packed, keys, mg, rg, mt, valid, alive, tp))
+    for name in ("mesh_memo_probe", "mesh_memo_combine", "mesh_memo_insert"):
+        out[name]["ab"] = None if ab is None else {
+            k: v for k, v in ab["medians"].items()
+            if k.split("_")[2] in {"mesh_memo_probe": ("probe",),
+                                   "mesh_memo_combine": ("front", "back"),
+                                   "mesh_memo_insert": ("insert",)}[name]}
     torch.cuda.synchronize()
     phase("failover_timing", t, card=repr(smi), calls=FAIL_CALLS, errs=errs,
           rep_cap=mg.rep_cap, miss_cold=mm._scalar(c["front"]["n_miss"]),
@@ -8117,6 +8495,11 @@ def failover_phases(kernels, w, u, rows, smi) -> None:
             row.update({k: r[k] for k in (
                 "cold_ms", "events_ms", "library_cold_ms",
                 "library_events_ms", "geometry", "ab")})
+        else:
+            row["ab"] = r["ab"]
+        if kernel is kernels.MESH_MEMO_COMBINE:
+            row.update(events_ms=r["events_ms"], host_us=r["host_us"],
+                       passes=r["passes"], ptxas=MESH_PTXAS.get("memo"))
         rows.append(row)
     if any(not path_launches.get(k.name) for k in (
             kernels.REPAIR_SCATTER, kernels.MESH_MEMO_PROBE,
@@ -9601,37 +9984,50 @@ def reshard_launch_calls(kernels, r) -> dict:
     tab0 = mt.shard(0, 0)
     return {
         kernels.ROUTED_PROBE.name: (
-            lambda: kernels.ROUTED_PROBE(tab0, bl, g, 0, alive), n, None),
+            lambda: kernels.ROUTED_PROBE(tab0, bl, g, 0, alive), n,
+            dict(kind="routed", tab=tab0, bl=bl, g=g, alive=alive)),
         kernels.MESH_COMBINE.name: (
             lambda: kernels.MESH_COMBINE(parts, tab0, bl, g, valid, True), n,
-            None),
+            dict(kind="combine", tab=tab0, parts=parts, bl=bl, g=g,
+                 valid=valid)),
         kernels.DP_MESH_COMBINE.name: (
             lambda: kernels.DP_MESH_COMBINE(prev, md.shard(0, 0), flows,
                                             dm.FORM_WORDS, dg, valid, None,
                                             True), n,
-            dict(tab=md.shard(0, 0), parts=prev, flows=flows, g=dg)),
+            dict(kind="dp", tab=md.shard(0, 0), parts=prev, flows=flows,
+                 g=dg)),
     }
 
 
 def reshard_launch_timing(kernels, r) -> dict:
     """The reshard path's mesh launches at their own shape
     (reshard_launch_calls), each timed: device ms over 20 calls queued
-    behind a spin and CUDA events over 20 calls; DP_MESH_COMBINE's also
-    with its zero fill's share and its bound at that shape
-    (combine_times), and beside the parent's (--ab-parent).  Launches not
-    counted."""
+    behind a spin and CUDA events over 20 calls; ROUTED_PROBE's bound at
+    that shape (routed_need); MESH_COMBINE's (mesh_combine_times) and
+    DP_MESH_COMBINE's (combine_times) zero fill's share and bounds; each
+    beside the parent's (--ab-parent).  Launches not counted."""
     launches = [k.launches for k in kernels.KERNELS]
     out = {}
     for name, (fn, n, aux) in reshard_launch_calls(kernels, r).items():
         out[name] = dict(device_ms=spun_ms(queued_ms, fn, "reshard timing"),
                          events_ms=event_ms(fn, 20), tuples=n)
-        if aux is not None:
+        if aux["kind"] == "routed":
+            need = routed_need(aux["tab"], aux["bl"], aux["g"], 0,
+                               aux["alive"])
+            out[name].update(bytes=need,
+                             bound_ms=need / HBM_BYTES_PER_S * 1e3)
+        elif aux["kind"] == "combine":
+            out[name].update(mesh_combine_times(
+                kernels, fn, aux["parts"], aux["tab"], aux["bl"], aux["g"],
+                aux["valid"], "reshard combine"))
+        else:
             out[name].update(combine_times(
                 kernels, fn, aux["tab"], aux["parts"], aux["flows"],
                 aux["g"], "reshard combine"))
-            ab = library_ab(kernels, "datapath_mesh", {"reshard_combine": fn})
-            if ab is not None:
-                out[name]["ab"] = ab["medians"]
+        ab = library_ab(kernels, "mesh" if aux["kind"] != "dp" else
+                        "datapath_mesh", {f"reshard_{name}": fn})
+        if ab is not None:
+            out[name]["ab"] = ab["medians"]
     for k, n in zip(kernels.KERNELS, launches):
         k.launches = n
     print("  reshard_launch_timing " + json.dumps(out), flush=True)
@@ -9898,6 +10294,10 @@ def main(argv=()) -> int:
         if stem == "mesh":
             ROUTED_PTXAS.update(pair_ptxas(kernels, log,
                                            "routed_probe_kernel"))
+            MESH_PTXAS.update(
+                combine=pair_ptxas(kernels, log, "mesh_combine_kernel"),
+                memo={p: pair_ptxas(kernels, log, f"memo_{p}_kernel")
+                      for p in ("front", "back")})
         if stem == "datapath6":
             D6_PTXAS.update(pair_ptxas(kernels, log, "datapath6_kernel"))
         if stem == "datapath_mesh":

@@ -319,6 +319,31 @@ __device__ __forceinline__ uint32_t dir24_8(const uint32_t* l1,
                (ip & 0xFFu));
 }
 
+// -- a grid barrier -----------------------------------------------------------
+// Blocks 0 .. parts - 1 wait here until all of them have arrived (the
+// launch is cooperative: every block is resident); writes before it are
+// seen by __ldcg loads after it.  bar[0] counts arrivals (0 between
+// barriers: the last to arrive resets it), bar[1] the barriers passed.
+// MEMO_DEDUP and MEMO_CACHE (memo.cu) and the mesh combines (mesh.cu)
+// part their phases with it.
+__device__ __forceinline__ void bar_sync(uint32_t* bar, uint32_t parts) {
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    volatile uint32_t* gen = bar + 1;
+    const uint32_t g = *gen;
+    __threadfence();
+    if (atomicAdd(bar, 1u) == parts - 1) {
+      atomicExch(bar, 0u);
+      __threadfence();
+      atomicAdd(bar + 1, 1u);
+    } else {
+      while (*gen == g) __nanosleep(32);
+    }
+    __threadfence();
+  }
+  __syncthreads();
+}
+
 // -- counter cells aggregated a block -------------------------------------------
 // A counter kernel's hits, one cell of a u32 counter buffer a thread (-1:
 // none), added with one global atomic a distinct cell and block where the
@@ -349,7 +374,9 @@ __device__ __forceinline__ void cell_init(CellTable& t) {
   __syncthreads();
 }
 
-// Every lane of the warp; `cell` < 0 adds nothing.
+// Every lane of the warp; `cell` < 0 adds nothing.  PROBES slots are
+// tried before the buffer takes the add.
+template <int PROBES = CELL_PROBES>
 __device__ __forceinline__ void cell_add(CellTable& t, uint32_t* acc,
                                          int64_t cell) {
   const uint32_t hit = __ballot_sync(0xFFFFFFFFu, cell >= 0);
@@ -361,7 +388,7 @@ __device__ __forceinline__ void cell_add(CellTable& t, uint32_t* acc,
   if (cell < CELL_EMPTY) {
     const uint32_t c = static_cast<uint32_t>(cell);
     uint32_t s = (c * 2654435761u) >> (32 - CELL_SLOT_BITS);
-    for (int k = 0; k < CELL_PROBES; ++k) {
+    for (int k = 0; k < PROBES; ++k) {
       const uint32_t was = atomicCAS(&t.cell[s], CELL_EMPTY, c);
       if (was == CELL_EMPTY || was == c) {
         atomicAdd(&t.n[s], n);

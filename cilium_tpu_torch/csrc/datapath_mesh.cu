@@ -69,7 +69,8 @@
 //   * its telemetry took 0.027 ms as 40 ballots a warp and 40 shared
 //     atomics from lane 0; it is now one ballot a column, lane c keeping
 //     column c's ingress and egress counts, and a block's sums committed
-//     once, with the replica count (telem_block_sum);
+//     once, with the replica count (telem.cuh's telem_block_sum, which
+//     MESH_COMBINE and the memo's back pass in mesh.cu share);
 //   * the wrapper zeroes the four counter buffers as views of one
 //     allocation, one fill in place of four (0.0175 -> 0.0111 ms; the l3
 //     buffer, [E, 2, l3_shards x c_local], is about 34 MB on config 5's
@@ -90,6 +91,7 @@
 #include "ipcache.cuh"
 #include "lb.cuh"
 #include "prefilter.cuh"
+#include "telem.cuh"
 #include "tunnel.cuh"
 #include "verdict.cuh"
 
@@ -99,7 +101,7 @@ using cdp::DatapathArgs;
 
 constexpr int BLOCK = 256;
 constexpr int MAX_TP = 16;
-constexpr int TELEM_COLS = 20;
+using ctl::TELEM_COLS;
 constexpr int ROUND_S = 0, ROUND_L = 1, ROUND_F = 2, ROUND_P = 3;
 constexpr int REC_S = 3, REC_L = 5, REC_F = 12, REC_P = 10;
 constexpr int HEAD_F = 8;  // F's rows 8 .. 11 are shard 0's alone
@@ -555,44 +557,6 @@ __device__ __forceinline__ void count_hit(uint32_t* buf, int n_eps,
     atomicAdd(buf + (e * 2 + dd) * cols + c, 1u);
 }
 
-// The block's telemetry rows into telem [2, 20] and its replica count into
-// replica [1]: per column one ballot a warp, whose ingress and egress
-// counts lane c keeps; a block sum in shared memory and one atomicAdd a
-// block, row and column.  Every thread of the block calls it (`tbits` 0
-// for an inactive one).
-__device__ __forceinline__ void telem_block_sum(uint32_t* telem,
-                                                uint32_t* replica,
-                                                uint32_t tbits, bool ingress,
-                                                uint32_t served) {
-  __shared__ uint32_t s_rows[2 * TELEM_COLS + 1];  // + the replica count
-  if (threadIdx.x <= 2 * TELEM_COLS) s_rows[threadIdx.x] = 0;
-  __syncthreads();
-  const int lane = threadIdx.x & 31;
-  const uint32_t warp_served = __reduce_add_sync(0xFFFFFFFFu, served);
-  if (lane == 0 && warp_served) atomicAdd(&s_rows[2 * TELEM_COLS], warp_served);
-  if (telem != nullptr) {
-    const uint32_t in = __ballot_sync(0xFFFFFFFFu, ingress);
-    uint32_t n_in = 0, n_out = 0;
-#pragma unroll
-    for (int c = 0; c < TELEM_COLS; ++c) {
-      const uint32_t b = __ballot_sync(0xFFFFFFFFu, (tbits >> c) & 1u);
-      if (lane == c) {
-        n_in = static_cast<uint32_t>(__popc(b & in));
-        n_out = static_cast<uint32_t>(__popc(b & ~in));
-      }
-    }
-    if (lane < TELEM_COLS) {
-      if (n_in) atomicAdd(&s_rows[lane], n_in);
-      if (n_out) atomicAdd(&s_rows[TELEM_COLS + lane], n_out);
-    }
-  }
-  __syncthreads();
-  if (threadIdx.x < 2 * TELEM_COLS && telem != nullptr && s_rows[threadIdx.x])
-    atomicAdd(telem + threadIdx.x, s_rows[threadIdx.x]);
-  if (threadIdx.x == 2 * TELEM_COLS && s_rows[threadIdx.x])
-    atomicAdd(replica, s_rows[threadIdx.x]);
-}
-
 __global__ void __launch_bounds__(BLOCK, COMBINE_BLOCKS_PER_SM)
     dp_mesh_combine_kernel(const DpCombineArgs a) {
   const DatapathArgs& d = a.dp;
@@ -724,7 +688,7 @@ __global__ void __launch_bounds__(BLOCK, COMBINE_BLOCKS_PER_SM)
       row = ingress ? 0 : 1;
     }
   }
-  telem_block_sum(a.telem, a.replica, tbits, row == 0, served);
+  ctl::telem_block_sum(a.telem, a.replica, tbits, row == 0, served);
 }
 
 }  // namespace cdm

@@ -232,27 +232,7 @@ __device__ __forceinline__ uint32_t key_hash(uint32_t k0, uint32_t k1,
   return h ^ (h >> 16);
 }
 
-// Blocks 0 .. parts - 1 wait here until all of them have arrived (the
-// launch is cooperative: every block is resident); writes before it are
-// seen by __ldcg loads after it.  bar[0] counts arrivals, bar[1] the
-// barriers passed.
-__device__ __forceinline__ void bar_sync(uint32_t* bar, uint32_t parts) {
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    volatile uint32_t* gen = bar + 1;
-    const uint32_t g = *gen;
-    __threadfence();
-    if (atomicAdd(bar, 1u) == parts - 1) {
-      atomicExch(bar, 0u);
-      __threadfence();
-      atomicAdd(bar + 1, 1u);
-    } else {
-      while (*gen == g) __nanosleep(32);
-    }
-    __threadfence();
-  }
-  __syncthreads();
-}
+using cdp::bar_sync;
 
 // every block; a short pass's blocks (their own counters)
 __device__ __forceinline__ void grid_sync(const DedupArgs& a) {

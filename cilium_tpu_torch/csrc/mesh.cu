@@ -1,8 +1,10 @@
 // The policy lattice on a (batch x table) mesh, three CUDA kernels for
-// Hopper (sm_90a).  Each replaces one part of a `shard_map` step of the
-// JAX package's cilium_tpu/engine/sharded.py; the port's step is a loop
-// over the mesh coordinates (cilium_tpu_torch/engine/sharded.py), one
-// probe launch per shard and one combine launch per batch row.
+// Hopper (sm_90a), and the memo on the mesh's three (MESH_MEMO_PROBE,
+// MESH_MEMO_COMBINE, MESH_MEMO_INSERT: see their section).  Each
+// replaces one part of a `shard_map` step of the JAX package's
+// cilium_tpu/engine/sharded.py; the port's step is a loop over the mesh
+// coordinates (cilium_tpu_torch/engine/sharded.py), one probe launch per
+// shard and one combine launch per batch row.
 //
 // MESH_PROBE is the shard-local step of `make_mesh_evaluator` (:172, the
 // body :213-250): the replicated id_direct, port_slot and l4_meta give
@@ -38,18 +40,23 @@
 // owner and the wildcard row, the stash and one L3 word; the combine
 // reads the tuple's ep, dir and fragment words, the flags of every record
 // (and in routed mode the owner's value), the head record's other words
-// and, for an L3 hit, the owner's L3 column, and writes 6 B of verdict.
-// MESH_PROBE, MESH_COMBINE and the memo kernels do the simple thing: one
-// tuple per thread, read-only loads, one global atomicAdd per counted
-// hit, the telemetry reduced per warp and block before one atomicAdd per
-// block and column.  ROUTED_PROBE runs the pair kernel's per-flow design
-// (see its kernel).
+// and, for an L3 hit, the owner's L3 column, writes 6 B of verdict, and
+// writes its counter buffers whole (the l3 buffer, [E, 2, l3_shards x
+// c_local], is 17 MB at config 5's partitioned (2, 4) mesh and 34 MB in
+// the failover layout).  MESH_PROBE and the memo's probe and insert do
+// the simple thing: one tuple per thread, read-only loads.  ROUTED_PROBE
+// runs the pair kernel's per-flow design (see its kernel).  MESH_COMBINE
+// and each of MESH_MEMO_COMBINE's two passes are one cooperative launch
+// that zeroes its counter buffers, waits at a grid barrier and then
+// counts (no fill launch before it); their telemetry is telem.cuh's one
+// ballot a column (see the kernels).
 #include <cuda_runtime.h>
 
 #include <cstdint>
 
 #include "common.cuh"
 #include "radix.cuh"
+#include "telem.cuh"
 #include "verdict.cuh"
 
 namespace cms {
@@ -60,7 +67,6 @@ using cdp::PolicyView;
 
 constexpr int BLOCK = 256;
 constexpr int MAX_TP = 16;
-constexpr int TELEM_COLS = 20;
 constexpr uint32_t F_P1 = 1, F_P2 = 2, F_REPLICA = 4, F_P3 = 8, F_KNOWN = 16,
                    F_STASH = 32;
 constexpr int MODE_MESH = 0, MODE_ROUTED = 1;
@@ -98,6 +104,19 @@ struct RoutedProbeArgs {
   int32_t n_ids;
 };
 
+// A combine's counter buffers, one region that the kernel zeroes before
+// it counts: l4 [E, 2, Kg] at word 0, l3 [E, 2, l3_shards * c_local] at
+// l3_at, the telemetry [2, 20] at telem_at (-1: none), the replica count
+// at replica_at; `words` in all, a multiple of 4 (the region 16-byte
+// aligned).
+struct Counts {
+  uint32_t* base;
+  int64_t l3_at;
+  int64_t telem_at;
+  int64_t replica_at;
+  int64_t words;
+};
+
 struct CombineArgs {
   // tp records on this device: [4, B] (MODE_MESH) or [5, B] (MODE_ROUTED)
   const int32_t* parts[MAX_TP];
@@ -107,10 +126,8 @@ struct CombineArgs {
   uint8_t* allowed;              // outputs [B]
   int32_t* proxy_port;
   uint8_t* match_kind;
-  uint32_t* l4;       // [E, 2, Kg], zeroed
-  uint32_t* l3;       // [E, 2, l3_shards * c_local], zeroed
-  uint32_t* telem;    // [2, 20] zeroed, or null
-  uint32_t* replica;  // [1] zeroed
+  Counts counts;      // l4, l3, telemetry, replica (zeroed here)
+  uint32_t* bar;      // [2] the grid barrier (held, zero between launches)
   int32_t B;
   int32_t tp;
   int32_t mode;
@@ -327,23 +344,23 @@ __global__ void __launch_bounds__(BLOCK, ROUTED_BLOCKS_PER_SM)
 }
 
 // The table-axis sum of ROUTED_PROBE's records for tuple i (the flags OR
-// `any`, the owners' values summed into `val1`) decoded into the lattice
-// inputs (sharded.routed_lattice): the exact hit, the wildcard hit and
-// the proxy and slot of the first probe that hit (3-word entries carry
-// both in the value; 2-word entries the slot, the proxy from l4_meta).
+// `any`, the owners' values summed into `val1`, the head record's flags
+// f0) decoded into the lattice inputs (sharded.routed_lattice): the exact
+// hit, the wildcard hit and the proxy and slot of the first probe that
+// hit (3-word entries carry both in the value; 2-word entries the slot,
+// the proxy from l4_meta).
 struct Routed {
   bool p1, p2, p3;
   int32_t proxy, j;
 };
 
 __device__ __forceinline__ Routed routed_decode(const int32_t* head, size_t b,
-                                                int i, uint32_t any,
-                                                uint32_t val1,
+                                                int i, uint32_t f0,
+                                                uint32_t any, uint32_t val1,
                                                 const uint32_t* meta, int ew,
                                                 int n_eps, int kg, int32_t ep,
                                                 int32_t dir) {
   Routed r;
-  const uint32_t f0 = static_cast<uint32_t>(__ldg(head + i));
   const bool found1 = (any & F_P1) || (f0 & F_STASH);
   val1 += static_cast<uint32_t>(__ldg(head + 2 * b + i));
   r.p1 = (f0 & F_KNOWN) && found1;
@@ -381,106 +398,121 @@ __device__ __forceinline__ uint32_t telem_bits(const cdp::Lattice& v) {
          ((v.proxy > 0 && al) ? 1u << 19 : 0u);
 }
 
-// The block's telemetry rows into telem [2, 20]: warp ballots per row, a
-// block sum in shared memory, one atomicAdd per block, row and column.
-// Every thread of the block calls it (`tbits` 0 for an inactive one).
-__device__ __forceinline__ void telem_block_sum(uint32_t* telem,
-                                                uint32_t tbits, int row) {
-  __shared__ uint32_t s_rows[2 * TELEM_COLS];
-  if (threadIdx.x < 2 * TELEM_COLS) s_rows[threadIdx.x] = 0;
-  __syncthreads();
-  const int lane = threadIdx.x & 31;
-#pragma unroll
-  for (int c = 0; c < TELEM_COLS; ++c) {
-    const bool on = (tbits >> c) & 1u;
-    const uint32_t b0 = __ballot_sync(0xFFFFFFFFu, on && row == 0);
-    const uint32_t b1 = __ballot_sync(0xFFFFFFFFu, on && row == 1);
-    if (lane == 0 && b0) atomicAdd(&s_rows[c], static_cast<uint32_t>(__popc(b0)));
-    if (lane == 0 && b1)
-      atomicAdd(&s_rows[TELEM_COLS + c], static_cast<uint32_t>(__popc(b1)));
-  }
-  __syncthreads();
-  if (threadIdx.x < 2 * TELEM_COLS && s_rows[threadIdx.x])
-    atomicAdd(telem + threadIdx.x, s_rows[threadIdx.x]);
-}
-
-// jax's scatter-add at [e, d, c] of an [n_eps, 2, cols] buffer: negative
-// indices count from the end, an update still outside is dropped.
-__device__ __forceinline__ void count_hit(uint32_t* buf, int n_eps,
-                                          int64_t cols, int32_t ep,
-                                          int32_t dir, int64_t c) {
+// jax's scatter-add at [e, d, c] of an [n_eps, 2, cols] buffer: the cell's
+// index, -1 when the update is dropped (negative indices count from the
+// end, an index still outside drops it).
+__device__ __forceinline__ int64_t cell_of(int n_eps, int64_t cols,
+                                           int32_t ep, int32_t dir,
+                                           int64_t c) {
   const int64_t e = ep < 0 ? static_cast<int64_t>(ep) + n_eps : ep;
   const int64_t d = dir < 0 ? static_cast<int64_t>(dir) + 2 : dir;
   if (c < 0) c += cols;
-  if (e >= 0 && e < n_eps && d >= 0 && d < 2 && c >= 0 && c < cols)
-    atomicAdd(buf + (e * 2 + d) * cols + c, 1u);
+  return (e >= 0 && e < n_eps && d >= 0 && d < 2 && c >= 0 && c < cols)
+             ? (e * 2 + d) * cols + c
+             : -1;
 }
 
-__global__ void __launch_bounds__(BLOCK) mesh_combine_kernel(
-    const CombineArgs a) {
-  const int i = blockIdx.x * BLOCK + threadIdx.x;
-  const bool active = i < a.B;
-  const size_t b = static_cast<size_t>(a.B);
-  uint32_t tbits = 0, served = 0;
-  int row = 0;
-  if (active) {
-    const int32_t ep = static_cast<int32_t>(__ldg(a.tuples + i));
-    const int32_t dir = static_cast<int32_t>(__ldg(a.tuples + 4 * b + i));
-    const bool frag = __ldg(a.tuples + 5 * b + i) != 0;
-    const int32_t* head = a.parts[0];
-    const bool mesh = a.mode == MODE_MESH;
-    const uint32_t f0 = static_cast<uint32_t>(__ldg(head + i));
-    uint32_t any = 0, val1 = 0;
-    for (int t = 0; t < a.tp; ++t) {
-      const uint32_t f = static_cast<uint32_t>(__ldg(a.parts[t] + i));
-      any |= f;
-      if (!mesh) val1 += static_cast<uint32_t>(__ldg(a.parts[t] + b + i));
-      served += (f & F_REPLICA) ? 1u : 0u;
-    }
-    const bool p2 = any & F_P2;
-    bool p1, p3;
-    int32_t proxy, j;
-    if (mesh) {
-      p1 = any & F_P1;
-      p3 = f0 & F_P3;
-      proxy = __ldg(head + b + i);
-      j = __ldg(head + 2 * b + i);
-    } else {
-      const Routed r = routed_decode(head, b, i, any, val1, a.meta, a.ew,
-                                     a.n_eps, a.kg, ep, dir);
-      p1 = r.p1;
-      p3 = r.p3;
-      proxy = r.proxy;
-      j = r.j;
-    }
-    const cdp::Lattice v = cdp::combine(p1, p2, p3, proxy, j, frag);
-    a.allowed[i] = v.allowed;
-    a.proxy_port[i] = v.proxy;
-    a.match_kind[i] = static_cast<uint8_t>(v.kind);
+// Every thread of the grid, before the barrier: the counter buffers
+// zeroed, 16 bytes a store.
+__device__ __forceinline__ void zero_counts(const Counts& c) {
+  uint4* z = reinterpret_cast<uint4*>(c.base);
+  const int64_t n = c.words / 4;
+  for (int64_t k = static_cast<int64_t>(blockIdx.x) * BLOCK + threadIdx.x;
+       k < n; k += static_cast<int64_t>(gridDim.x) * BLOCK)
+    z[k] = make_uint4(0u, 0u, 0u, 0u);
+}
 
-    const bool ok = a.valid == nullptr || __ldg(a.valid + i) != 0;
-    if (!ok) served = 0;
-    if (ok) {
-      if (v.kind == cdp::MATCH_L4 || v.kind == cdp::MATCH_L4_WILD)
-        count_hit(a.l4, a.n_eps, a.kg, ep, dir, v.j);
-      if (v.kind == cdp::MATCH_L3) {
-        const int64_t cols = static_cast<int64_t>(a.l3_shards) * a.c_local;
-        const size_t lrow = (mesh ? 3 : 4) * b;
-        for (int t = 0; t < a.l3_shards; ++t) {
-          if (__ldg(a.parts[t] + i) & F_P2)
-            count_hit(a.l3, a.n_eps, cols, ep, dir,
-                      static_cast<int64_t>(t) * a.c_local +
-                          __ldg(a.parts[t] + lrow + i));
-        }
+// MESH_COMBINE's design (the parent's one-tuple-a-thread kernel took
+// 0.1058 device ms on a batch row of 2,097,152 tuples and 4 records, of
+// which 0.024 the telemetry, 0.022 the atomics and 0.012 the wrapper's
+// four zero fills; 0.0333 at the reshard's 131,072 tuples, 0.022 of it
+// the fills; PERF.md section 5): one cooperative launch of
+// COMBINE_BLOCKS_PER_SM blocks an SM that first zeroes the counter
+// buffers (one region, 16-byte stores; no fill launch), then, behind a
+// grid barrier, walks the tuples a block-stride round at a time: each
+// record's flags read once (their F_P2 bits kept as a mask, so the L3
+// loop reads only the owners' columns), one global atomicAdd a counted
+// hit (the hits fall in spread cells: 1,079,287 L3 hits in 849,776 cells
+// at config 5, where a block's cell table finds nothing to merge), the
+// telemetry one ballot a column with the replica count (telem.cuh),
+// committed once a block.
+constexpr int COMBINE_BLOCKS_PER_SM = 8;  // 4, 6 measured slower
+
+__global__ void __launch_bounds__(BLOCK, COMBINE_BLOCKS_PER_SM)
+    mesh_combine_kernel(const __grid_constant__ CombineArgs a) {
+  zero_counts(a.counts);
+  cdp::bar_sync(a.bar, gridDim.x);
+  uint32_t* l4 = a.counts.base;
+  uint32_t* l3 = a.counts.base + a.counts.l3_at;
+  uint32_t* telem =
+      a.counts.telem_at < 0 ? nullptr : a.counts.base + a.counts.telem_at;
+  const size_t b = static_cast<size_t>(a.B);
+  const bool mesh = a.mode == MODE_MESH;
+  const int64_t l3_cols = static_cast<int64_t>(a.l3_shards) * a.c_local;
+  const size_t lrow = (mesh ? 3 : 4) * b;
+  const uint32_t l3_parts = (1u << a.l3_shards) - 1u;
+  uint32_t n_in = 0, n_out = 0, served = 0;
+  for (int base = blockIdx.x * BLOCK; base < a.B; base += gridDim.x * BLOCK) {
+    const int i = base + threadIdx.x;
+    uint32_t tbits = 0;
+    bool ingress = false;
+    if (i < a.B) {
+      const int32_t ep = static_cast<int32_t>(__ldg(a.tuples + i));
+      const int32_t dir = static_cast<int32_t>(__ldg(a.tuples + 4 * b + i));
+      const bool frag = __ldg(a.tuples + 5 * b + i) != 0;
+      uint32_t f0 = 0, any = 0, val1 = 0, srv = 0, p2_of = 0;
+      for (int t = 0; t < a.tp; ++t) {
+        const uint32_t f = static_cast<uint32_t>(__ldcs(a.parts[t] + i));
+        if (t == 0) f0 = f;
+        any |= f;
+        if (!mesh) val1 += static_cast<uint32_t>(__ldcs(a.parts[t] + b + i));
+        srv += (f & F_REPLICA) ? 1u : 0u;
+        p2_of |= (f & F_P2) ? 1u << t : 0u;
       }
-      tbits = telem_bits(v);
-      row = dir == 0 ? 0 : 1;
+      const int32_t* head = a.parts[0];
+      bool p1, p3;
+      int32_t proxy, j;
+      if (mesh) {
+        p1 = any & F_P1;
+        p3 = f0 & F_P3;
+        proxy = __ldg(head + b + i);
+        j = __ldg(head + 2 * b + i);
+      } else {
+        const Routed r = routed_decode(head, b, i, f0, any, val1, a.meta,
+                                       a.ew, a.n_eps, a.kg, ep, dir);
+        p1 = r.p1;
+        p3 = r.p3;
+        proxy = r.proxy;
+        j = r.j;
+      }
+      const cdp::Lattice v = cdp::combine(p1, any & F_P2, p3, proxy, j, frag);
+      a.allowed[i] = v.allowed;
+      a.proxy_port[i] = v.proxy;
+      a.match_kind[i] = static_cast<uint8_t>(v.kind);
+      if (a.valid == nullptr || __ldg(a.valid + i) != 0) {
+        served += srv;
+        if (v.kind == cdp::MATCH_L4 || v.kind == cdp::MATCH_L4_WILD) {
+          const int64_t c = cell_of(a.n_eps, a.kg, ep, dir, v.j);
+          if (c >= 0) atomicAdd(l4 + c, 1u);
+        }
+        if (v.kind == cdp::MATCH_L3) {
+          for (uint32_t own = p2_of & l3_parts; own; own &= own - 1) {
+            const int t = __ffs(own) - 1;
+            const int64_t c = cell_of(
+                a.n_eps, l3_cols, ep, dir,
+                static_cast<int64_t>(t) * a.c_local +
+                    __ldg(a.parts[t] + lrow + i));
+            if (c >= 0) atomicAdd(l3 + c, 1u);
+          }
+        }
+        tbits = telem_bits(v);
+        ingress = dir == 0;
+      }
     }
+    if (telem != nullptr) ctl::telem_warp_add(tbits, ingress, n_in, n_out);
   }
-  // the replica count: a warp sum, one atomicAdd per warp
-  const uint32_t warp_served = __reduce_add_sync(0xFFFFFFFFu, served);
-  if ((threadIdx.x & 31) == 0 && warp_served) atomicAdd(a.replica, warp_served);
-  if (a.telem != nullptr) telem_block_sum(a.telem, tbits, row);
+  ctl::telem_commit(telem, a.counts.base + a.counts.replica_at, n_in, n_out,
+                    served);
 }
 
 // -- the memo on the mesh ------------------------------------------------------
@@ -513,17 +545,15 @@ struct MemoProbeArgs {
 
 struct MemoFrontArgs {
   const int32_t* recs[MAX_TP];  // [4, rep_cap] each, on this device
-  const int32_t* rep_orig;
-  const int32_t* n_unique;
-  const uint32_t* tuples;  // [6, B]
-  int32_t* rep;            // [4, rep_cap] out: hit, cv0, cv1, insert word
-  uint32_t* flags;         // [rep_cap] scratch: missed
-  uint32_t* prefix;        // [rep_cap] scratch: their exclusive scan
-  uint32_t* sums;          // [ceil(rep_cap / SCAN_TILE)] scratch
-  int32_t* n_elems;        // [1] scratch: rep_cap
-  int32_t* miss_pos;       // [miss_cap] out
-  int32_t* n_miss;         // [1] out
-  int32_t* miss_pack;      // [6, miss_cap] out
+  const int32_t* rep_orig;      // [rep_cap + 1] MEMO_DEDUP's
+  const int32_t* n_unique;      // [1]
+  const uint32_t* tuples;       // [6, B]
+  int32_t* rep;        // [4, rep_cap] out: hit, cv0, cv1, insert word
+  int32_t* miss_pos;   // [miss_cap] out
+  int32_t* n_miss;     // [1] out
+  int32_t* miss_pack;  // [6, miss_cap] out
+  uint32_t* scratch;   // held (mesh_memo_scratch_words): the barrier, the
+                       // blocks' missed counts, the missed flags' words
   int32_t B;
   int32_t rep_cap;
   int32_t miss_cap;
@@ -532,12 +562,11 @@ struct MemoFrontArgs {
 
 struct MemoBackArgs {
   const int32_t* parts[MAX_TP];  // ROUTED_PROBE's [5, miss_cap] records
-  const int32_t* rep;
+  const int32_t* rep;            // the front's outputs
   const int32_t* miss_pos;
   const int32_t* n_miss;
   const int32_t* miss_pack;
-  const int32_t* srow;  // MEMO_DEDUP's
-  const int32_t* gid;
+  const int32_t* rgid;  // MEMO_DEDUP's: each row's group, in row order
   const int32_t* n_unique;
   const int32_t* dedup_overflow;
   const uint32_t* tuples;  // [6, B]
@@ -545,18 +574,15 @@ struct MemoBackArgs {
   const uint32_t* meta;    // l4_meta [E, 2, Kg]
   const uint8_t* valid;    // [B] (failover) or null
   const uint8_t* alive;    // [ntp] (failover) or null
-  uint32_t* rv;            // [2, rep_cap] scratch: the reps' value words
   uint32_t* mv;            // [2, miss_cap] out: the misses' value words
   uint8_t* allowed;        // [B] outputs
   int32_t* proxy_port;
   uint8_t* match_kind;
   uint8_t* hit;
-  uint32_t* l4;        // [E, 2, Kg] zeroed
-  uint32_t* l3;        // [E, 2, l3_shards * c_local] zeroed
-  uint32_t* telem;     // [2, 20] zeroed, or null
-  uint32_t* replica;   // [1] zeroed
+  Counts counts;       // l4, l3, telemetry, replica (zeroed here)
   uint32_t* stats;     // [5] out
-  uint32_t* counters;  // [3] zeroed: hits, inserts, valid tuples
+  uint32_t* scratch;   // held (mesh_memo_scratch_words): the barrier, the
+                       // counters, the representatives' value words
   int32_t B;
   int32_t rep_cap;
   int32_t miss_cap;
@@ -680,181 +706,355 @@ __global__ void __launch_bounds__(BLOCK) memo_probe_kernel(MemoProbeArgs a) {
   }
 }
 
-// MESH_MEMO_COMBINE's front, stage 1: the records' sum, the hit masked
-// by rep_valid, the missed flags
-__global__ void __launch_bounds__(BLOCK) memo_front_sum(MemoFrontArgs a) {
-  const int g = blockIdx.x * BLOCK + threadIdx.x;
-  if (g == 0) *a.n_elems = a.rep_cap;
-  if (g >= a.rep_cap) return;
+// -- MESH_MEMO_COMBINE -------------------------------------------------------
+// The parent's front pass was 7 launches (the sum, the three of
+// radix.cuh's flag scan, a fill, the compaction, the pack: 0.050-0.053
+// device ms on a batch row at rep_cap = miss_cap = 524,288), its back pass
+// 4 zero fills and 5 launches (0.435-0.440 ms), of which 0.38 the
+// per-tuple stage: it walked MEMO_DEDUP's sorted positions, so each tuple
+// read and wrote its columns at a scattered row, and each counted hit took
+// a global atomic on the Zipf stream's hot L3 cells (0.17 ms); PERF.md
+// section 5.  Each pass is now one cooperative launch, its phases parted
+// by a grid barrier (common.cuh bar_sync) on words of the held scratch.
+//
+// The held scratch, int32 words from its 16-byte aligned start
+// (mesh_memo_scratch_words gives the sizes): the front's FRONT_CTL_WORDS
+// (the barrier), MAX_COOP_BLOCKS block counts and the missed flags'
+// ceil(rep_cap / 32) ballot words; the back's BACK_CTL_WORDS (the barrier,
+// the hit, insert and valid-tuple counts and the blocks' finishing ticket,
+// all zero between launches) and its rv, a uint2 a representative: v0,
+// and v1's three probe bits with the representative's hit in RV_HIT.
+constexpr int MAX_COOP_BLOCKS = 2048;
+constexpr int FRONT_CTL_WORDS = 4;
+constexpr int BACK_CTL_WORDS = 8;
+constexpr int CTL_HITS = 4, CTL_INSERTS = 5, CTL_VALID = 6, CTL_TICKET = 7;
+constexpr uint32_t RV_HIT = 1u << 31;
+constexpr int FRONT_BLOCKS_PER_SM = 2;  // 3, 4, 8 measured slower
+constexpr int BACK_BLOCKS_PER_SM = 4;  // 6, 8 no faster
+constexpr int BACK_UNROLL = 2;  // 1 and 4 measured slower
+// one slot of the block's cell table tried a cell (4 measured 3 % slower:
+// the row's L3 hits spread over 31,086 cells, and a full table's probes
+// cost more than the global atomic they would save)
+constexpr int BACK_CELL_PROBES = 1;
+constexpr int WARPS = BLOCK / 32;
+
+inline int64_t front_scratch_words(int rep_cap) {
+  return FRONT_CTL_WORDS + MAX_COOP_BLOCKS +
+         ((static_cast<int64_t>(rep_cap) + 127) / 128) * 4;
+}
+
+inline int64_t back_scratch_words(int rep_cap) {
+  return BACK_CTL_WORDS + 2 * static_cast<int64_t>(rep_cap);
+}
+
+// The block's sum of one value a thread, to every thread.
+__device__ __forceinline__ uint32_t block_sum(uint32_t x) {
+  uint32_t total;
+  crx::block_inclusive<BLOCK>(x, &total);
+  return total;
+}
+
+// The front (memo_front_plain): phase 1, over a contiguous range of the
+// flags' words a block, each representative's record sum (the hit masked
+// by rep_valid) and its missed flag, one ballot word a warp, and the
+// block's missed count; behind a barrier, the block's first slot (the
+// counts of the blocks before it) and its missed representatives' slots,
+// in ascending order; behind another, every slot's six tuple words,
+// strided over the grid (the missed representative's row, or in the
+// padding rep_orig[rep_cap]'s, its slot set to rep_cap), so that the
+// gathers of a block's misses do not wait on each other.
+__global__ void __launch_bounds__(BLOCK, FRONT_BLOCKS_PER_SM)
+    memo_front_kernel(const __grid_constant__ MemoFrontArgs a) {
+  uint32_t* bar = a.scratch;
+  uint32_t* blk_cnt = a.scratch + FRONT_CTL_WORDS;
+  uint32_t* bits = blk_cnt + MAX_COOP_BLOCKS;
+  __shared__ uint32_t s_pop[WARPS];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const size_t rc = static_cast<size_t>(a.rep_cap);
-  uint32_t tot[4] = {0, 0, 0, 0};
-  for (int t = 0; t < a.tp; ++t)
+  const int n_words = (a.rep_cap + 31) / 32;
+  const int per = (n_words + gridDim.x - 1) / gridDim.x;
+  const int w_lo = min(static_cast<int>(blockIdx.x) * per, n_words);
+  const int w_hi = min(w_lo + per, n_words);
+  const int nv = valid_reps(a.n_unique, a.rep_cap);
+  uint32_t cnt = 0;
+  for (int w = w_lo + warp; w < w_hi; w += WARPS) {
+    const int g = w * 32 + lane;
+    bool missed = false;
+    if (g < a.rep_cap) {
+      uint32_t tot[4] = {0, 0, 0, 0};
+      for (int t = 0; t < a.tp; ++t)
 #pragma unroll
-    for (int w = 0; w < 4; ++w)
-      tot[w] += static_cast<uint32_t>(__ldg(a.recs[t] + w * rc + g));
-  const bool valid = g < valid_reps(a.n_unique, a.rep_cap);
-  const bool hit = valid && tot[0] > 0;
-  a.rep[g] = hit ? 1 : 0;
+        for (int k = 0; k < 4; ++k)
+          tot[k] += static_cast<uint32_t>(__ldcs(a.recs[t] + k * rc + g));
+      const bool hit = g < nv && tot[0] > 0;
+      a.rep[g] = hit ? 1 : 0;
 #pragma unroll
-  for (int w = 1; w < 4; ++w) a.rep[w * rc + g] = static_cast<int32_t>(tot[w]);
-  a.flags[g] = valid && !hit;
-}
-
-// stage 3: the missed positions, ascending, padded with rep_cap
-__global__ void __launch_bounds__(BLOCK) memo_front_fill(MemoFrontArgs a) {
-  const int s = blockIdx.x * BLOCK + threadIdx.x;
-  if (s < a.miss_cap) a.miss_pos[s] = a.rep_cap;
-}
-
-__global__ void __launch_bounds__(BLOCK) memo_front_compact(MemoFrontArgs a) {
-  const int g = blockIdx.x * BLOCK + threadIdx.x;
-  if (g >= a.rep_cap || !a.flags[g]) return;
-  const uint32_t pos = a.prefix[g];
-  if (pos < static_cast<uint32_t>(a.miss_cap))
-    a.miss_pos[pos] = g;
-}
-
-// stage 4: the missed representatives' tuples (padding: tuple
-// rep_orig[rep_cap] = 0)
-__global__ void __launch_bounds__(BLOCK) memo_front_pack(MemoFrontArgs a) {
-  const int s = blockIdx.x * BLOCK + threadIdx.x;
-  if (s >= a.miss_cap) return;
-  const int orig = a.rep_orig[a.miss_pos[s]];
-  const size_t b = static_cast<size_t>(a.B), mc = static_cast<size_t>(a.miss_cap);
-#pragma unroll
-  for (int w = 0; w < 6; ++w)
-    a.miss_pack[w * mc + s] = static_cast<int32_t>(__ldg(a.tuples + w * b + orig));
-}
-
-// MESH_MEMO_COMBINE's back, stage 1, per miss slot: the routed records'
-// lattice packed into value words (memo.pack_value_words), the replica
-// gathers of the live slots (failover) and the inserts that will be done
-__global__ void __launch_bounds__(BLOCK) memo_back_miss(MemoBackArgs a) {
-  const int s = blockIdx.x * BLOCK + threadIdx.x;
-  if (s >= a.miss_cap) return;
-  const size_t mc = static_cast<size_t>(a.miss_cap);
-  uint32_t any = 0, val1 = 0, served = 0;
-  for (int t = 0; t < a.tp; ++t) {
-    const uint32_t f = static_cast<uint32_t>(__ldg(a.parts[t] + s));
-    any |= f;
-    val1 += static_cast<uint32_t>(__ldg(a.parts[t] + mc + s));
-    served += (f & F_REPLICA) ? 1u : 0u;
+      for (int k = 1; k < 4; ++k)
+        a.rep[k * rc + g] = static_cast<int32_t>(tot[k]);
+      missed = g < nv && !hit;
+    }
+    const uint32_t word = __ballot_sync(0xFFFFFFFFu, missed);
+    if (lane == 0) bits[w] = word;
+    cnt += static_cast<uint32_t>(__popc(word));
   }
-  const int32_t ep = __ldg(a.miss_pack + s);
-  const int32_t dir = __ldg(a.miss_pack + 4 * mc + s);
-  const Routed r = routed_decode(a.parts[0], mc, s, any, val1, a.meta, a.ew,
-                                 a.n_eps, a.kg, ep, dir);
-  a.mv[s] = (static_cast<uint32_t>(r.j) << 16) |
-            (static_cast<uint32_t>(r.proxy) & 0xFFFFu);
-  a.mv[mc + s] = (r.p1 ? 1u : 0u) | (r.p2 ? 2u : 0u) | (r.p3 ? 4u : 0u);
-  if (s >= *a.n_miss) return;
-  if (a.failover && served) atomicAdd(a.replica, served);
-  const int g = a.miss_pos[s];
-  if (static_cast<uint32_t>(__ldg(a.rep + 3 * static_cast<size_t>(a.rep_cap) +
-                                  g)) & INS_OK)
-    atomicAdd(a.counters + 1, 1u);
-}
+  // every lane of a warp holds the warp's count: lane 0's into the sum
+  cnt = block_sum(lane == 0 ? cnt : 0u);
+  if (threadIdx.x == 0) blk_cnt[blockIdx.x] = cnt;
+  cdp::bar_sync(bar, gridDim.x);
 
-// stage 2: each representative's value words, the cache's on a hit
-__global__ void __launch_bounds__(BLOCK) memo_back_reps(MemoBackArgs a) {
-  const int g = blockIdx.x * BLOCK + threadIdx.x;
-  if (g >= a.rep_cap) return;
-  const size_t rc = static_cast<size_t>(a.rep_cap);
-  const bool hit = __ldg(a.rep + g) != 0;
-  a.rv[g] = hit ? static_cast<uint32_t>(__ldg(a.rep + rc + g)) : 0u;
-  a.rv[rc + g] = hit ? static_cast<uint32_t>(__ldg(a.rep + 2 * rc + g)) : 0u;
-}
+  uint32_t before = 0, total = 0;
+  for (int k = threadIdx.x; k < static_cast<int>(gridDim.x); k += BLOCK) {
+    const uint32_t c = __ldcg(blk_cnt + k);
+    total += c;
+    before += k < static_cast<int>(blockIdx.x) ? c : 0u;
+  }
+  before = block_sum(before);
+  total = block_sum(total);
+  if (blockIdx.x == 0 && threadIdx.x == 0)
+    *a.n_miss = static_cast<int32_t>(total);
+  const uint32_t mcap = static_cast<uint32_t>(a.miss_cap);
+  const uint32_t lt = (1u << lane) - 1u;
+  uint32_t run = before;
+  for (int w0 = w_lo; w0 < w_hi && run < mcap; w0 += WARPS) {
+    const int w = w0 + warp;
+    const uint32_t word = w < w_hi ? __ldcg(bits + w) : 0u;
+    if (lane == 0) s_pop[warp] = static_cast<uint32_t>(__popc(word));
+    __syncthreads();
+    uint32_t at = run, chunk = 0;
+#pragma unroll
+    for (int k = 0; k < WARPS; ++k) {
+      at += k < warp ? s_pop[k] : 0u;
+      chunk += s_pop[k];
+    }
+    __syncthreads();
+    if ((word >> lane) & 1u) {
+      const uint32_t pos = at + static_cast<uint32_t>(__popc(word & lt));
+      if (pos < mcap) a.miss_pos[pos] = w * 32 + lane;
+    }
+    run += chunk;
+  }
+  cdp::bar_sync(bar, gridDim.x);
 
-// stage 3: the missed representatives take the lattice's words
-__global__ void __launch_bounds__(BLOCK) memo_back_misses(MemoBackArgs a) {
-  const int s = blockIdx.x * BLOCK + threadIdx.x;
-  if (s >= a.miss_cap) return;
-  const int g = a.miss_pos[s];
-  if (g >= a.rep_cap) return;
-  const size_t rc = static_cast<size_t>(a.rep_cap),
-               mc = static_cast<size_t>(a.miss_cap);
-  a.rv[g] = a.mv[s];
-  a.rv[rc + g] = a.mv[mc + s];
-}
-
-// stage 4, per sorted position: the tuple takes its group's words
-// (memo.scatter_back), then the combine, the counters, the telemetry
-__global__ void __launch_bounds__(BLOCK) memo_back_tuples(MemoBackArgs a) {
-  const int p = blockIdx.x * BLOCK + threadIdx.x;
-  const bool active = p < a.B;
-  const size_t b = static_cast<size_t>(a.B), rc = static_cast<size_t>(a.rep_cap);
-  uint32_t tbits = 0;
-  int row = 0;
-  bool counted_hit = false, ok = false;
-  if (active) {
-    const int i = a.srow[p];
-    int gg = a.gid[p];
-    gg = gg < a.rep_cap - 1 ? gg : a.rep_cap - 1;
-    const uint32_t v0 = a.rv[gg], v1 = a.rv[rc + gg];
-    const bool hit = __ldg(a.rep + gg) != 0;
-    a.hit[i] = hit;
-    const int32_t ep = static_cast<int32_t>(__ldg(a.tuples + i));
-    const int32_t dir = static_cast<int32_t>(__ldg(a.tuples + 4 * b + i));
-    const bool frag = __ldg(a.tuples + 5 * b + i) != 0;
-    const bool p2 = v1 & 2u;
-    const cdp::Lattice v =
-        cdp::combine(v1 & 1u, p2, v1 & 4u, static_cast<int32_t>(v0 & 0xFFFFu),
-                     static_cast<int32_t>(v0 >> 16), frag);
-    a.allowed[i] = v.allowed;
-    a.proxy_port[i] = v.proxy;
-    a.match_kind[i] = static_cast<uint8_t>(v.kind);
-    ok = !a.failover || a.valid == nullptr || __ldg(a.valid + i) != 0;
-    counted_hit = hit && ok;
-    if (ok) {
-      if (v.kind == cdp::MATCH_L4 || v.kind == cdp::MATCH_L4_WILD)
-        count_hit(a.l4, a.n_eps, a.kg, ep, dir, v.j);
-      if (v.kind == cdp::MATCH_L3 && p2) {
-        // the word's serving owner and its local column
-        const int64_t idx = __ldg(a.keys + i), word = idx >> 5;
-        const int64_t cols = static_cast<int64_t>(a.l3_shards) * a.c_local;
-        int64_t col = -1;
-        if (!a.l3_sharded) {
-          col = clamp64(idx, 0, a.c_local - 1);
-        } else if (a.failover) {
-          const int64_t g32 = static_cast<int64_t>(a.wn) * 32;
-          const int64_t wp = word / a.wn;
-          if (wp < a.tp) {
-            const bool apw = a.alive[wp] != 0;
-            const int64_t owner = apw ? wp : (wp + 1) % a.tp;
-            col = owner * a.c_local + clamp64(idx - wp * g32, 0, g32 - 1) +
-                  (apw ? 0 : g32);
-          }
-        } else {
-          const int64_t owner = word / a.w_local;
-          if (owner < a.tp)
-            col = owner * a.c_local +
-                  clamp64(idx - owner * a.c_local, 0, a.c_local - 1);
-        }
-        if (col >= 0 && col < cols) count_hit(a.l3, a.n_eps, cols, ep, dir, col);
-      }
-      tbits = telem_bits(v);
-      row = dir == 0 ? 0 : 1;
+  // every slot's tuple, strided over the grid (the gathers independent):
+  // the missed representative's, or in the padding rep_orig[rep_cap]'s,
+  // read once a thread
+  const uint32_t filled = total < mcap ? total : mcap;
+  const size_t b = static_cast<size_t>(a.B);
+  const size_t mc = static_cast<size_t>(a.miss_cap);
+  const int pad = __ldg(a.rep_orig + a.rep_cap);
+  uint32_t pw[6];
+#pragma unroll
+  for (int k = 0; k < 6; ++k) pw[k] = __ldg(a.tuples + k * b + pad);
+  for (uint32_t s = blockIdx.x * BLOCK + threadIdx.x; s < mcap;
+       s += gridDim.x * BLOCK) {
+    if (s < filled) {
+      const int orig = __ldg(a.rep_orig + __ldcg(a.miss_pos + s));
+#pragma unroll
+      for (int k = 0; k < 6; ++k)
+        a.miss_pack[k * mc + s] =
+            static_cast<int32_t>(__ldg(a.tuples + k * b + orig));
+    } else {
+      a.miss_pos[s] = a.rep_cap;
+#pragma unroll
+      for (int k = 0; k < 6; ++k)
+        a.miss_pack[k * mc + s] = static_cast<int32_t>(pw[k]);
     }
   }
-  const uint32_t bh = __ballot_sync(0xFFFFFFFFu, counted_hit);
-  const uint32_t bv = __ballot_sync(0xFFFFFFFFu, active && ok);
-  if ((threadIdx.x & 31) == 0) {
-    if (bh) atomicAdd(a.counters, static_cast<uint32_t>(__popc(bh)));
-    if (bv) atomicAdd(a.counters + 2, static_cast<uint32_t>(__popc(bv)));
-  }
-  if (a.telem != nullptr) telem_block_sum(a.telem, tbits, row);
 }
 
-__global__ void memo_back_stats(MemoBackArgs a) {
-  const uint32_t n_miss = static_cast<uint32_t>(*a.n_miss);
-  const uint32_t over =
-      static_cast<uint32_t>(*a.dedup_overflow) +
-      (n_miss > static_cast<uint32_t>(a.miss_cap) ? n_miss - a.miss_cap : 0u);
-  a.stats[STAT_UNIQUE] = static_cast<uint32_t>(*a.n_unique);
-  a.stats[STAT_HIT] = a.counters[0];
-  a.stats[STAT_INSERT] = over == 0 ? a.counters[1] : 0u;
-  a.stats[STAT_OVERFLOW] = over;
-  a.stats[STAT_TUPLES] = a.failover ? a.counters[2] : static_cast<uint32_t>(a.B);
+// The back (memo_back_plain).  Phase 1, strided over the grid: the counter
+// buffers zeroed; per miss slot the routed records' lattice packed into
+// value words (memo.pack_value_words: mv, every slot), and for a live
+// slot its replica gathers (failover), its insert and its
+// representative's rv; per representative rv for a hit (the cache's
+// words) and 0 for one that is neither a hit nor a live slot's.  (The
+// front's slots name distinct missed representatives in ascending order,
+// so a missed representative has a slot iff the misses fit miss_cap or
+// it is not past the last slot's.)  Phase 2, behind the barrier, the
+// tuples in row order, a block-stride round at a time: each tuple's group
+// rgid[i] (clipped to rep_cap - 1) and its rv (an 8-byte gather from
+// rep_cap-sized words, which stay in the L2), the combine, the verdict
+// columns written where they are read; the counted hits aggregated a
+// block (common.cuh cell_add: a warp's equal cells by __match_any_sync,
+// then the block's cell table; the L3 cells share the l4 buffer's table,
+// the l3 buffer following it in the region); the telemetry one ballot a
+// column (telem.cuh); the stats by the last block to finish, which also
+// leaves the counters zero for the next launch.
+__global__ void __launch_bounds__(BLOCK, BACK_BLOCKS_PER_SM)
+    memo_back_kernel(const __grid_constant__ MemoBackArgs a) {
+  __shared__ cdp::CellTable cells;
+  uint32_t* ctl = a.scratch;
+  uint2* rv = reinterpret_cast<uint2*>(a.scratch + BACK_CTL_WORDS);
+  const size_t b = static_cast<size_t>(a.B);
+  const size_t rc = static_cast<size_t>(a.rep_cap);
+  const size_t mc = static_cast<size_t>(a.miss_cap);
+  const int tid = blockIdx.x * BLOCK + threadIdx.x;
+  const int stride = gridDim.x * BLOCK;
+  cdp::cell_init(cells);
+  zero_counts(a.counts);
+  const int n_miss = *a.n_miss;
+  const int live = n_miss < a.miss_cap ? n_miss : a.miss_cap;
+  uint32_t served = 0, inserts = 0;
+  for (int s = tid; s < a.miss_cap; s += stride) {
+    uint32_t f0 = 0, any = 0, val1 = 0, srv = 0;
+    for (int t = 0; t < a.tp; ++t) {
+      const uint32_t f = static_cast<uint32_t>(__ldg(a.parts[t] + s));
+      if (t == 0) f0 = f;
+      any |= f;
+      val1 += static_cast<uint32_t>(__ldg(a.parts[t] + mc + s));
+      srv += (f & F_REPLICA) ? 1u : 0u;
+    }
+    const int32_t ep = __ldg(a.miss_pack + s);
+    const int32_t dir = __ldg(a.miss_pack + 4 * mc + s);
+    const Routed r = routed_decode(a.parts[0], mc, s, f0, any, val1, a.meta,
+                                   a.ew, a.n_eps, a.kg, ep, dir);
+    const uint32_t v0 = (static_cast<uint32_t>(r.j) << 16) |
+                        (static_cast<uint32_t>(r.proxy) & 0xFFFFu);
+    const uint32_t v1 = (r.p1 ? 1u : 0u) | (r.p2 ? 2u : 0u) | (r.p3 ? 4u : 0u);
+    a.mv[s] = v0;
+    a.mv[mc + s] = v1;
+    const uint32_t g = static_cast<uint32_t>(__ldg(a.miss_pos + s));
+    if (g < static_cast<uint32_t>(a.rep_cap)) rv[g] = make_uint2(v0, v1);
+    if (s < live) {
+      served += a.failover ? srv : 0u;
+      inserts += (static_cast<uint32_t>(__ldg(a.rep + 3 * rc + g)) & INS_OK)
+                     ? 1u
+                     : 0u;
+    }
+  }
+  const int nv = valid_reps(a.n_unique, a.rep_cap);
+  const bool cut = n_miss > a.miss_cap;  // misses without a slot
+  const int last = cut ? __ldg(a.miss_pos + a.miss_cap - 1) : 0;
+  for (int g = tid; g < a.rep_cap; g += stride) {
+    if (__ldg(a.rep + g) != 0)
+      rv[g] = make_uint2(
+          static_cast<uint32_t>(__ldg(a.rep + rc + g)),
+          (static_cast<uint32_t>(__ldg(a.rep + 2 * rc + g)) & 7u) | RV_HIT);
+    else if (g >= nv || (cut && g > last))
+      rv[g] = make_uint2(0u, 0u);
+  }
+  cdp::bar_sync(ctl, gridDim.x);
+
+  uint32_t* acc = a.counts.base;
+  const int64_t l3_at = a.counts.l3_at;
+  uint32_t* telem =
+      a.counts.telem_at < 0 ? nullptr : a.counts.base + a.counts.telem_at;
+  const int64_t l3_cols = static_cast<int64_t>(a.l3_shards) * a.c_local;
+  uint32_t n_in = 0, n_out = 0, hits = 0, oks = 0;
+  for (int base = blockIdx.x * BLOCK * BACK_UNROLL; base < a.B;
+       base += stride * BACK_UNROLL) {
+    // BACK_UNROLL tuples a thread a round, their loads issued first
+    uint32_t tw[BACK_UNROLL][3];
+    uint2 rw[BACK_UNROLL];
+#pragma unroll
+    for (int k = 0; k < BACK_UNROLL; ++k) {
+      const int i = base + k * BLOCK + threadIdx.x;
+      int gg = i < a.B ? __ldcs(a.rgid + i) : 0;
+      gg = gg < a.rep_cap - 1 ? gg : a.rep_cap - 1;
+      rw[k] = __ldcg(rv + gg);
+      tw[k][0] = i < a.B ? __ldcs(a.tuples + i) : 0u;
+      tw[k][1] = i < a.B ? __ldcs(a.tuples + 4 * b + i) : 0u;
+      tw[k][2] = i < a.B ? __ldcs(a.tuples + 5 * b + i) : 0u;
+    }
+#pragma unroll
+    for (int k = 0; k < BACK_UNROLL; ++k) {
+      const int i = base + k * BLOCK + threadIdx.x;
+      uint32_t tbits = 0;
+      bool ingress = false;
+      int64_t c4 = -1, c3 = -1;
+      if (i < a.B) {
+        const uint2 w = rw[k];
+        const bool hit = w.y & RV_HIT;
+        const int32_t ep = static_cast<int32_t>(tw[k][0]);
+        const int32_t dir = static_cast<int32_t>(tw[k][1]);
+        const bool frag = tw[k][2] != 0;
+        const bool p2 = w.y & 2u;
+        const cdp::Lattice v = cdp::combine(
+            w.y & 1u, p2, w.y & 4u, static_cast<int32_t>(w.x & 0xFFFFu),
+            static_cast<int32_t>(w.x >> 16), frag);
+        __stcs(a.allowed + i, static_cast<uint8_t>(v.allowed));
+        __stcs(a.proxy_port + i, v.proxy);
+        __stcs(a.match_kind + i, static_cast<uint8_t>(v.kind));
+        __stcs(a.hit + i, static_cast<uint8_t>(hit));
+        const bool ok = !a.failover || a.valid == nullptr ||
+                        __ldcs(a.valid + i) != 0;
+        if (ok) {
+          hits += hit ? 1u : 0u;
+          ++oks;
+          if (v.kind == cdp::MATCH_L4 || v.kind == cdp::MATCH_L4_WILD)
+            c4 = cell_of(a.n_eps, a.kg, ep, dir, v.j);
+          if (v.kind == cdp::MATCH_L3 && p2) {
+            // the word's serving owner and its local column
+            // (u32 divisions: the word index is below 2^27)
+            const uint32_t idx32 = __ldcs(a.keys + i), word = idx32 >> 5;
+            const int64_t idx = idx32;
+            const uint32_t tp = static_cast<uint32_t>(a.tp);
+            int64_t col = -1;
+            if (!a.l3_sharded) {
+              col = clamp64(idx, 0, a.c_local - 1);
+            } else if (a.failover) {
+              const int64_t g32 = static_cast<int64_t>(a.wn) * 32;
+              const uint32_t wp = word / static_cast<uint32_t>(a.wn);
+              if (wp < tp) {
+                const bool apw = a.alive[wp] != 0;
+                const int64_t owner = apw ? wp : (wp + 1 < tp ? wp + 1 : 0u);
+                col = owner * a.c_local +
+                      clamp64(idx - static_cast<int64_t>(wp) * g32, 0,
+                              g32 - 1) +
+                      (apw ? 0 : g32);
+              }
+            } else {
+              const uint32_t owner = word / static_cast<uint32_t>(a.w_local);
+              if (owner < tp)
+                col = static_cast<int64_t>(owner) * a.c_local +
+                      clamp64(idx - static_cast<int64_t>(owner) * a.c_local, 0,
+                              a.c_local - 1);
+            }
+            if (col >= 0 && col < l3_cols) {
+              c3 = cell_of(a.n_eps, l3_cols, ep, dir, col);
+              if (c3 >= 0) c3 += l3_at;
+            }
+          }
+          tbits = telem_bits(v);
+          ingress = dir == 0;
+        }
+      }
+      cdp::cell_add<BACK_CELL_PROBES>(cells, acc, c4);
+      cdp::cell_add<BACK_CELL_PROBES>(cells, acc, c3);
+      if (telem != nullptr) ctl::telem_warp_add(tbits, ingress, n_in, n_out);
+    }
+  }
+  cdp::cell_flush(cells, acc);
+  ctl::telem_commit(telem, a.counts.base + a.counts.replica_at, n_in, n_out,
+                    served);
+  // the block's counts, then the ticket: the last block writes the stats
+  hits = __reduce_add_sync(0xFFFFFFFFu, hits);
+  inserts = __reduce_add_sync(0xFFFFFFFFu, inserts);
+  oks = __reduce_add_sync(0xFFFFFFFFu, oks);
+  if ((threadIdx.x & 31) == 0) {
+    if (hits) atomicAdd(ctl + CTL_HITS, hits);
+    if (inserts) atomicAdd(ctl + CTL_INSERTS, inserts);
+    if (oks) atomicAdd(ctl + CTL_VALID, oks);
+    __threadfence();
+  }
+  __syncthreads();
+  if (threadIdx.x == 0 &&
+      atomicAdd(ctl + CTL_TICKET, 1u) == gridDim.x - 1) {
+    __threadfence();
+    const uint32_t n_hit = atomicExch(ctl + CTL_HITS, 0u);
+    const uint32_t n_ins = atomicExch(ctl + CTL_INSERTS, 0u);
+    const uint32_t n_ok = atomicExch(ctl + CTL_VALID, 0u);
+    atomicExch(ctl + CTL_TICKET, 0u);
+    const uint32_t over =
+        static_cast<uint32_t>(*a.dedup_overflow) +
+        (n_miss > a.miss_cap ? static_cast<uint32_t>(n_miss - a.miss_cap)
+                             : 0u);
+    a.stats[STAT_UNIQUE] = static_cast<uint32_t>(*a.n_unique);
+    a.stats[STAT_HIT] = n_hit;
+    a.stats[STAT_INSERT] = over == 0 ? n_ins : 0u;
+    a.stats[STAT_OVERFLOW] = over;
+    a.stats[STAT_TUPLES] = a.failover ? n_ok : static_cast<uint32_t>(a.B);
+  }
 }
 
 // MESH_MEMO_INSERT: the slice copied, then (when the row did not
@@ -908,6 +1108,55 @@ int launch(Kernel kernel, const Args* args, void* stream) {
 
 }  // namespace cms
 
+// The cooperative kernels' grids on the current device: every block
+// resident (the grid barrier), at most the kernel's blocks an SM and
+// MAX_COOP_BLOCKS (the front's block counts).  The first call on a device
+// keeps the count for that device.  Internal linkage: a second build of
+// this file in one process keeps its own.
+namespace {
+
+constexpr int MAX_DEVICES = 64;
+
+int coop_grid_max(const void* kernel, int blocks_per_sm, int* most) {
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess || dev < 0 || dev >= MAX_DEVICES)
+    return -1;
+  if (most[dev] == 0) {
+    int sms = 0, per_sm = 0;
+    if (cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) !=
+            cudaSuccess ||
+        cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                      cms::BLOCK, 0) !=
+            cudaSuccess)
+      return -1;
+    const int n = sms * (per_sm < blocks_per_sm ? per_sm : blocks_per_sm);
+    most[dev] = n < cms::MAX_COOP_BLOCKS ? n : cms::MAX_COOP_BLOCKS;
+  }
+  return most[dev];
+}
+
+// One cooperative launch of `kernel` over at most `want` blocks.
+template <typename Args>
+int coop_launch(void (*kernel)(Args), int blocks_per_sm, int* most,
+                long want, const Args& a, void* stream) {
+  const void* fn = reinterpret_cast<const void*>(kernel);
+  const int cap = coop_grid_max(fn, blocks_per_sm, most);
+  if (cap <= 0) return static_cast<int>(cudaErrorInvalidConfiguration);
+  const int grid = static_cast<int>(want < 1 ? 1 : (want < cap ? want : cap));
+  Args copy = a;
+  void* params[] = {&copy};
+  const cudaError_t e = cudaLaunchCooperativeKernel(
+      fn, dim3(grid), dim3(cms::BLOCK), params, 0,
+      static_cast<cudaStream_t>(stream));
+  if (e != cudaSuccess) return static_cast<int>(e);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int combine_most[MAX_DEVICES], front_most[MAX_DEVICES],
+    back_most[MAX_DEVICES];
+
+}  // namespace
+
 extern "C" int mesh_struct_sizes(int* out) {
   out[0] = static_cast<int>(sizeof(cdp::PolicyView));
   out[1] = static_cast<int>(sizeof(cms::MeshProbeArgs));
@@ -947,10 +1196,27 @@ extern "C" int launch_routed_probe(const cms::RoutedProbeArgs* args,
   return static_cast<int>(cudaGetLastError());
 }
 
-// Launch MESH_COMBINE on `stream`; returns cudaGetLastError().
+// The held scratch of MESH_MEMO_COMBINE's two passes at this rep_cap,
+// int32 words: out[0] the front's, out[1] the back's (each region starts
+// 16-byte aligned, its control words zero when it is made).
+extern "C" void mesh_memo_scratch_words(int rep_cap, long long* out) {
+  out[0] = (cms::front_scratch_words(rep_cap) + 3) / 4 * 4;
+  out[1] = (cms::back_scratch_words(rep_cap) + 3) / 4 * 4;
+}
+
+// MESH_COMBINE on `stream`, one cooperative launch (also at B = 0: it
+// zeroes the counter buffers); returns the launch's error.
 extern "C" int launch_mesh_combine(const cms::CombineArgs* args,
                                    void* stream) {
-  return cms::launch(cms::mesh_combine_kernel, args, stream);
+  using namespace cms;
+  const CombineArgs& a = *args;
+  if (a.B < 0 || a.tp < 1 || a.tp > MAX_TP || a.l3_shards < 1 ||
+      a.l3_shards > a.tp || (a.counts.words & 3) != 0 ||
+      (reinterpret_cast<uintptr_t>(a.counts.base) & 15) != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  return coop_launch(mesh_combine_kernel, COMBINE_BLOCKS_PER_SM,
+                     combine_most, (static_cast<long>(a.B) + BLOCK - 1) / BLOCK,
+                     a, stream);
 }
 
 // MESH_MEMO_PROBE on `stream`, once per batch row and device: the init,
@@ -970,39 +1236,35 @@ extern "C" int launch_mesh_memo_probe(const cms::MemoProbeArgs* args,
   return static_cast<int>(cudaGetLastError());
 }
 
-// MESH_MEMO_COMBINE's front on `stream`: the records' sum, the flag scan,
-// the compaction and the miss pack; returns cudaGetLastError().
+// MESH_MEMO_COMBINE's front on `stream`, one cooperative launch; returns
+// the launch's error.
 extern "C" int launch_mesh_memo_front(const cms::MemoFrontArgs* args,
                                       void* stream) {
   using namespace cms;
   const MemoFrontArgs& a = *args;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (a.rep_cap <= 0 || a.miss_cap <= 0 || a.tp < 1 || a.tp > MAX_TP)
+  if (a.rep_cap <= 0 || a.miss_cap <= 0 || a.tp < 1 || a.tp > MAX_TP ||
+      (reinterpret_cast<uintptr_t>(a.scratch) & 15) != 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  memo_front_sum<<<grid_of(a.rep_cap), BLOCK, 0, st>>>(a);
-  crx::flag_scan(a.flags, a.prefix, a.n_elems, a.rep_cap, a.sums, a.n_miss,
-                 st);
-  memo_front_fill<<<grid_of(a.miss_cap), BLOCK, 0, st>>>(a);
-  memo_front_compact<<<grid_of(a.rep_cap), BLOCK, 0, st>>>(a);
-  memo_front_pack<<<grid_of(a.miss_cap), BLOCK, 0, st>>>(a);
-  return static_cast<int>(cudaGetLastError());
+  const long words = (static_cast<long>(a.rep_cap) + 31) / 32;
+  return coop_launch(memo_front_kernel, FRONT_BLOCKS_PER_SM, front_most,
+                     (words + WARPS - 1) / WARPS, a, stream);
 }
 
-// MESH_MEMO_COMBINE's back on `stream`; returns cudaGetLastError().
+// MESH_MEMO_COMBINE's back on `stream`, one cooperative launch; returns
+// the launch's error.
 extern "C" int launch_mesh_memo_back(const cms::MemoBackArgs* args,
                                      void* stream) {
   using namespace cms;
   const MemoBackArgs& a = *args;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (a.B <= 0 || a.rep_cap <= 0 || a.miss_cap <= 0 || a.tp < 1 ||
-      a.tp > MAX_TP)
+      a.tp > MAX_TP || (a.counts.words & 3) != 0 ||
+      ((reinterpret_cast<uintptr_t>(a.counts.base) |
+        reinterpret_cast<uintptr_t>(a.scratch)) & 15) != 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  memo_back_miss<<<grid_of(a.miss_cap), BLOCK, 0, st>>>(a);
-  memo_back_reps<<<grid_of(a.rep_cap), BLOCK, 0, st>>>(a);
-  memo_back_misses<<<grid_of(a.miss_cap), BLOCK, 0, st>>>(a);
-  memo_back_tuples<<<grid_of(a.B), BLOCK, 0, st>>>(a);
-  memo_back_stats<<<1, 1, 0, st>>>(a);
-  return static_cast<int>(cudaGetLastError());
+  long want = a.B > a.rep_cap ? a.B : a.rep_cap;
+  want = want > a.miss_cap ? want : a.miss_cap;
+  return coop_launch(memo_back_kernel, BACK_BLOCKS_PER_SM, back_most,
+                     (want + BLOCK - 1) / BLOCK, a, stream);
 }
 
 // MESH_MEMO_INSERT on `stream`; returns cudaGetLastError().

@@ -1,7 +1,7 @@
-// The stable LSD radix sort and the flag scan of the memo kernels
-// (memo.cu) and the memo on the mesh (mesh.cu): one block of kernels
-// each pass, launched in order on one stream (a global order or count
-// needs a grid-wide barrier between them).
+// The stable LSD radix sort of the memo on the mesh's probe (mesh.cu
+// MESH_MEMO_PROBE), one block of kernels each pass, launched in order on
+// one stream (a global order or count needs a grid-wide barrier between
+// them), and the block scan that the memo kernels (memo.cu) share.
 //
 // The radix sort moves (key words, payload) pairs between two buffers,
 // 8 bits a pass, least significant word first; a pass whose digit is
@@ -20,8 +20,7 @@ constexpr int WARPS = BLOCK / 32;
 constexpr int RADIX = 256;
 constexpr int TILE = 4096;                 // radix elements per block
 constexpr int WARP_TILE = TILE / WARPS;    // 512: 16 chunks of 32
-constexpr int SCAN_TILE = BLOCK * 4;       // flag-scan elements per block
-constexpr int SCAN_THREADS = 1024;         // the one-block scan
+constexpr int SCAN_THREADS = 1024;         // the digit scan's block
 
 // The radix sort's buffers: ping-pong key words and a payload (the
 // element's position), the per-block digit histograms, the buffer each
@@ -39,36 +38,6 @@ struct SortArgs {
 };
 
 // -- scans -------------------------------------------------------------------
-
-// Exclusive scan of data[0, m) in place by one block of SCAN_THREADS
-// threads (each sums a contiguous chunk, the chunk sums are scanned in
-// shared memory, each chunk is rewritten).  Returns the total to every
-// thread.
-__device__ uint32_t block_exclusive_scan(uint32_t* data, int m) {
-  __shared__ uint32_t s[SCAN_THREADS];
-  const int per = (m + SCAN_THREADS - 1) / SCAN_THREADS;
-  const int lo = min(static_cast<int>(threadIdx.x) * per, m);
-  const int hi = min(lo + per, m);
-  uint32_t sum = 0;
-  for (int i = lo; i < hi; ++i) sum += data[i];
-  s[threadIdx.x] = sum;
-  __syncthreads();
-  for (int off = 1; off < SCAN_THREADS; off <<= 1) {
-    const uint32_t t = threadIdx.x >= off ? s[threadIdx.x - off] : 0u;
-    __syncthreads();
-    s[threadIdx.x] += t;
-    __syncthreads();
-  }
-  uint32_t run = threadIdx.x ? s[threadIdx.x - 1] : 0u;
-  const uint32_t total = s[SCAN_THREADS - 1];
-  for (int i = lo; i < hi; ++i) {
-    const uint32_t x = data[i];
-    data[i] = run;
-    run += x;
-  }
-  __syncthreads();
-  return total;
-}
 
 // Inclusive scan of one value per thread over a block of N threads
 // (N <= 1024, a multiple of 32): warp shuffles, then the warp sums.
@@ -99,50 +68,6 @@ __device__ __forceinline__ uint32_t block_inclusive(uint32_t x,
   if (total) *total = s_warp[N / 32 - 1];
   __syncthreads();
   return r;
-}
-
-// The flag scan over in[0, *n): block sums, one-block scan of the sums
-// (total to *total when not null), then each block's exclusive prefixes.
-__global__ void __launch_bounds__(BLOCK)
-    scan_block_sums(const uint32_t* in, const int32_t* n, uint32_t* sums) {
-  const int cnt = *n;
-  const int base = blockIdx.x * SCAN_TILE + threadIdx.x * 4;
-  uint32_t x = 0;
-  for (int k = 0; k < 4; ++k)
-    if (base + k < cnt) x += in[base + k];
-  const uint32_t incl = block_inclusive<BLOCK>(x, nullptr);
-  if (threadIdx.x == BLOCK - 1) sums[blockIdx.x] = incl;
-}
-
-__global__ void __launch_bounds__(SCAN_THREADS)
-    scan_sums(uint32_t* sums, int m, int32_t* total) {
-  const uint32_t t = block_exclusive_scan(sums, m);
-  if (total && threadIdx.x == 0) *total = static_cast<int32_t>(t);
-}
-
-__global__ void __launch_bounds__(BLOCK)
-    scan_apply(const uint32_t* in, uint32_t* out, const int32_t* n,
-               const uint32_t* sums) {
-  const int cnt = *n;
-  const int base = blockIdx.x * SCAN_TILE + threadIdx.x * 4;
-  uint32_t x[4], t = 0;
-  for (int k = 0; k < 4; ++k) {
-    x[k] = base + k < cnt ? in[base + k] : 0u;
-    t += x[k];
-  }
-  uint32_t run = block_inclusive<BLOCK>(t, nullptr) - t + sums[blockIdx.x];
-  for (int k = 0; k < 4; ++k) {
-    if (base + k < cnt) out[base + k] = run;
-    run += x[k];
-  }
-}
-
-inline void flag_scan(const uint32_t* in, uint32_t* out, const int32_t* n, int cap,
-               uint32_t* sums, int32_t* total, cudaStream_t st) {
-  const int blocks = (cap + SCAN_TILE - 1) / SCAN_TILE;
-  scan_block_sums<<<blocks, BLOCK, 0, st>>>(in, n, sums);
-  scan_sums<<<1, SCAN_THREADS, 0, st>>>(sums, blocks, total);
-  scan_apply<<<blocks, BLOCK, 0, st>>>(in, out, n, sums);
 }
 
 // -- the stable LSD radix sort -------------------------------------------------

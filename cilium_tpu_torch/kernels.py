@@ -1860,7 +1860,6 @@ PICK_DRAW = PickDrawKernel()
 
 _RADIX = 256
 _RADIX_TILE = 4096  # csrc/radix.cuh TILE
-_SCAN_TILE = 1024  # csrc/radix.cuh SCAN_TILE
 _DEDUP_BIG_TILE = 4096  # csrc/memo.cu BIG_TILE
 _DEDUP_FEW_TILES = 32  # csrc/memo.cu FEW_TILES
 # MEMO_CACHE's scratch regions in CacheArgs order: per representative
@@ -2633,13 +2632,22 @@ class RoutedProbeArgs(ctypes.Structure):
                     "n_row_shard", "wn", "n_ids")])
 
 
+class CountsArgs(ctypes.Structure):
+    """Mirror of cms::Counts in csrc/mesh.cu, field for field."""
+
+    _fields_ = [("base", _P), ("l3_at", ctypes.c_int64),
+                ("telem_at", ctypes.c_int64), ("replica_at", ctypes.c_int64),
+                ("words", ctypes.c_int64)]
+
+
 class CombineArgs(ctypes.Structure):
     """Mirror of cms::CombineArgs in csrc/mesh.cu, field for field."""
 
     _fields_ = ([("parts", _P * MESH_MAX_TP)]
                 + [(n, _P) for n in (
                     "tuples", "meta", "valid", "allowed", "proxy_port",
-                    "match_kind", "l4", "l3", "telem", "replica")]
+                    "match_kind")]
+                + [("counts", CountsArgs), ("bar", _P)]
                 + [(n, _I) for n in (
                     "B", "tp", "mode", "ew", "n_eps", "kg", "l3_shards",
                     "c_local")])
@@ -2662,8 +2670,8 @@ class MemoFrontArgs(ctypes.Structure):
 
     _fields_ = ([("recs", _P * MESH_MAX_TP)]
                 + [(n, _P) for n in ("rep_orig", "n_unique", "tuples", "rep",
-                                     "flags", "prefix", "sums", "n_elems",
-                                     "miss_pos", "n_miss", "miss_pack")]
+                                     "miss_pos", "n_miss", "miss_pack",
+                                     "scratch")]
                 + [(n, _I) for n in ("B", "rep_cap", "miss_cap", "tp")])
 
 
@@ -2672,11 +2680,11 @@ class MemoBackArgs(ctypes.Structure):
 
     _fields_ = ([("parts", _P * MESH_MAX_TP)]
                 + [(n, _P) for n in (
-                    "rep", "miss_pos", "n_miss", "miss_pack", "srow", "gid",
+                    "rep", "miss_pos", "n_miss", "miss_pack", "rgid",
                     "n_unique", "dedup_overflow", "tuples", "keys", "meta",
-                    "valid", "alive", "rv", "mv", "allowed", "proxy_port",
-                    "match_kind", "hit", "l4", "l3", "telem", "replica",
-                    "stats", "counters")]
+                    "valid", "alive", "mv", "allowed", "proxy_port",
+                    "match_kind", "hit")]
+                + [("counts", CountsArgs), ("stats", _P), ("scratch", _P)]
                 + [(n, _I) for n in (
                     "B", "rep_cap", "miss_cap", "tp", "ew", "n_eps", "kg",
                     "l3_shards", "c_local", "failover", "l3_sharded", "wn",
@@ -2710,6 +2718,9 @@ class _MeshLibrary(_Library):
                            ("launch_mesh_memo_insert", MemoInsertArgs)))
         lib.mesh_struct_sizes.argtypes = [ctypes.POINTER(ctypes.c_int)]
         lib.mesh_struct_sizes.restype = ctypes.c_int
+        lib.mesh_memo_scratch_words.argtypes = [
+            ctypes.c_int, ctypes.POINTER(ctypes.c_longlong)]
+        lib.mesh_memo_scratch_words.restype = None
         sizes = (ctypes.c_int * 9)()
         lib.mesh_struct_sizes(sizes)
         want = [ctypes.sizeof(a) for a in (
@@ -2858,17 +2869,43 @@ class RoutedProbeKernel:
         return out
 
 
+def _combine_counts(dev, n_eps: int, kg: int, n_l3: int, telemetry: bool):
+    """A combine's counter buffers as views of one int32 allocation that
+    its kernel zeroes (csrc/mesh.cu Counts): (CountsArgs, l4 [E, 2, Kg],
+    l3 [E, 2, n_l3], telemetry [2, TELEM_COLS] or None, replica [1]),
+    each region 16-byte aligned."""
+    up4 = lambda n: -(-n // 4) * 4  # noqa: E731
+    n4, n3 = n_eps * 2 * kg, n_eps * 2 * n_l3
+    at3 = up4(n4)
+    at_t = up4(at3 + n3)
+    at_r = at_t + (2 * TELEM_COLS if telemetry else 0)
+    words = up4(at_r + 1)
+    buf = torch.empty(words, dtype=torch.int32, device=dev)
+    c = CountsArgs(buf.data_ptr(), at3, at_t if telemetry else -1, at_r,
+                   words)
+    telem = (buf[at_t:at_t + 2 * TELEM_COLS].view(2, TELEM_COLS)
+             if telemetry else None)
+    return (c, buf[:n4].view(n_eps, 2, kg), buf[at3:at3 + n3].view(
+        n_eps, 2, n_l3), telem, buf[at_r:at_r + 1])
+
+
 class MeshCombineKernel:
     """K21's combine on the card: the tp partial records of one batch
-    row (on its device; [4, B] in mesh mode, [5, B] routed), its TupleBatch and a shard's PolicyTables
-    (l4_meta) -> (Verdicts, l4 [E, 2, Kg], l3 [E, 2, l3_shards *
-    c_local], telemetry [2, 20] or None, replica tuples []), counters
-    as u32 bits in int32 (engine/sharded.py mesh_combine_plain)."""
+    row (on its device; [4, B] in mesh mode, [5, B] routed), its
+    TupleBatch and a shard's PolicyTables (l4_meta) -> (Verdicts, l4
+    [E, 2, Kg], l3 [E, 2, l3_shards * c_local], telemetry [2, 20] or
+    None, replica tuples []), counters as u32 bits in int32
+    (engine/sharded.py mesh_combine_plain).  One cooperative launch
+    that zeroes the counter buffers (views of one allocation) before it
+    counts; its grid barrier's words are kept across calls, zeroed when
+    made (one allocation per device and stream: calls on one stream run
+    in order), and each launch leaves them zero."""
 
     name = "mesh_combine"
 
     def __init__(self) -> None:
         self.launches = 0
+        self._bar = {}  # (device, stream) -> the barrier's words
 
     def load(self, verbose: bool = False):
         return MESH_LIBRARY.load(verbose)
@@ -2899,26 +2936,26 @@ class MeshCombineKernel:
         cols = int(g.l3_shards) * int(g.c_local)
         if not 1 <= cols < 1 << 31:
             raise ValueError(f"{self.name}: {cols} L3 counter columns")
+        u8 = torch.empty((2, b), dtype=torch.uint8, device=dev)
         out = Verdicts(
-            allowed=torch.empty(b, dtype=torch.uint8, device=dev),
+            allowed=u8[0],
             proxy_port=torch.empty(b, dtype=torch.int32, device=dev),
-            match_kind=torch.empty(b, dtype=torch.uint8, device=dev),
+            match_kind=u8[1],
         )
-        l4 = torch.zeros((a.n_eps, 2, a.kg), dtype=torch.int32, device=dev)
-        l3 = torch.zeros((a.n_eps, 2, cols), dtype=torch.int32, device=dev)
-        replica = torch.zeros(1, dtype=torch.int32, device=dev)
-        telem = (torch.zeros((2, TELEM_COLS), dtype=torch.int32, device=dev)
-                 if telemetry else None)
+        a.counts, l4, l3, telem, replica = _combine_counts(
+            dev, a.n_eps, a.kg, cols, telemetry)
         a.allowed = out.allowed.data_ptr()
         a.proxy_port = out.proxy_port.data_ptr()
         a.match_kind = out.match_kind.data_ptr()
-        a.l4, a.l3, a.replica = l4.data_ptr(), l3.data_ptr(), replica.data_ptr()
-        if telem is not None:
-            a.telem = telem.data_ptr()
+        key = (dev.index, _stream(dev))
+        if key not in self._bar:
+            self._bar[key] = torch.zeros(4, dtype=torch.int32, device=dev)
+        a.bar = self._bar[key].data_ptr()
         a.B, a.tp, a.mode = b, len(parts), int(g.mode)
         a.l3_shards, a.c_local = int(g.l3_shards), int(g.c_local)
         MESH_LIBRARY.launch("launch_mesh_combine", a, dev, self.name)
         self.launches += 1
+        del keep
         return out, l4, l3, telem, replica[0]
 
 
@@ -3002,24 +3039,48 @@ class MeshMemoProbeKernel:
 
 
 class MeshMemoCombineKernel:
-    """K21's memo combine on the card, in two passes per batch row.
-    `front(records, g, packed, mg)`: the table-axis sum of the tp probe
-    records, the hit masked by rep_valid, the ascending compaction of the
-    missed representatives and their [6, miss_cap] tuple pack
-    (memo_front_plain).  `back(front, rparts, tab, g, packed, keys, mg,
-    rg, valid, alive_row, telemetry)`: the missed representatives'
-    lattice from the tp ROUTED_PROBE records packed into value words, the
-    scatter-back to every tuple, the combine, the counters, the telemetry
-    row, the replica count and the stats row (memo_back_plain).  Each
-    pass is one launch."""
+    """K21's memo combine on the card, in two passes per batch row, each
+    one cooperative launch (csrc/mesh.cu).  `front(records, g, packed,
+    mg)`: the table-axis sum of the tp probe records, the hit masked by
+    rep_valid, the ascending compaction of the missed representatives
+    and their [6, miss_cap] tuple pack (memo_front_plain).
+    `back(front, rparts, tab, g, packed, keys, mg, rg, valid, alive_row,
+    telemetry)`: the missed representatives' lattice from the tp
+    ROUTED_PROBE records packed into value words, the scatter-back to
+    every tuple in row order (g["rgid"]), the combine, the counters (the
+    buffers zeroed by the launch), the telemetry row, the replica count
+    and the stats row (memo_back_plain); `front` is this front pass's
+    output for the same records.  The passes' scratch
+    (mesh_memo_scratch_words: barriers, counters, the missed flags, the
+    representatives' value words) is kept across calls, one allocation
+    for both per device and stream (calls on one stream run in order),
+    laid out for the largest rep_cap seen there and zeroed when made;
+    each launch leaves its control words zero."""
 
     name = "mesh_memo_combine"
 
     def __init__(self) -> None:
         self.launches = 0
+        # (device, stream) -> (rep_cap laid out for, front, back, buffer)
+        self._held = {}
 
     def load(self, verbose: bool = False):
         return MESH_LIBRARY.load(verbose)
+
+    def _scratch(self, dev, rep_cap: int) -> tuple:
+        """(front, back) scratch pointers for this rep_cap: the front's
+        region, then the back's, laid out for the largest rep_cap seen
+        on this stream (each region's control words at its start)."""
+        key = (dev.index, _stream(dev))
+        got = self._held.get(key)
+        if got is None or got[0] < rep_cap:
+            words = (ctypes.c_longlong * 2)()
+            self.load().mesh_memo_scratch_words(rep_cap, words)
+            buf = torch.zeros(int(words[0]) + int(words[1]),
+                              dtype=torch.int32, device=dev)
+            got = self._held[key] = (rep_cap, buf.data_ptr(),
+                                     buf.data_ptr() + 4 * int(words[0]), buf)
+        return got[1], got[2]
 
     def front(self, records, g, packed, mg) -> dict:
         dev = _cuda_device(packed, self.name)
@@ -3034,26 +3095,20 @@ class MeshMemoCombineKernel:
                           shape=(mg.rep_cap + 1,))
         a.n_unique = _ptr(g["n_unique"], "n_unique", dev, shape=(1,))
         a.tuples = _ptr(packed, "tuples", dev, shape=(6, b))
-        out = {"rep": torch.empty((4, mg.rep_cap), dtype=torch.int32,
-                                  device=dev),
-               "miss_pos": torch.empty(mg.miss_cap, dtype=torch.int32,
-                                       device=dev),
-               "n_miss": torch.empty(1, dtype=torch.int32, device=dev),
-               "miss_pack": torch.empty((6, mg.miss_cap), dtype=torch.int32,
-                                        device=dev)}
-        scratch = torch.empty((2, mg.rep_cap), dtype=torch.int32, device=dev)
-        sums = torch.empty(max(-(-mg.rep_cap // _SCAN_TILE), 1),
-                           dtype=torch.int32, device=dev)
-        n_elems = torch.empty(1, dtype=torch.int32, device=dev)
+        rc, mc = mg.rep_cap, mg.miss_cap
+        # the four outputs, views of one allocation
+        buf = torch.empty(4 * rc + 7 * mc + 1, dtype=torch.int32, device=dev)
+        out = {"rep": buf[:4 * rc].view(4, rc),
+               "miss_pos": buf[4 * rc:4 * rc + mc],
+               "miss_pack": buf[4 * rc + mc:4 * rc + 7 * mc].view(6, mc),
+               "n_miss": buf[4 * rc + 7 * mc:]}
         a.rep, a.miss_pos = out["rep"].data_ptr(), out["miss_pos"].data_ptr()
         a.n_miss, a.miss_pack = (out["n_miss"].data_ptr(),
                                  out["miss_pack"].data_ptr())
-        a.flags, a.prefix = scratch[0].data_ptr(), scratch[1].data_ptr()
-        a.sums, a.n_elems = sums.data_ptr(), n_elems.data_ptr()
-        a.B, a.rep_cap, a.miss_cap, a.tp = b, mg.rep_cap, mg.miss_cap, mg.ntp
+        a.scratch = self._scratch(dev, rc)[0]
+        a.B, a.rep_cap, a.miss_cap, a.tp = b, rc, mc, mg.ntp
         MESH_LIBRARY.launch("launch_mesh_memo_front", a, dev, self.name)
         self.launches += 1
-        del scratch, sums, n_elems
         return out
 
     def back(self, front, rparts, tab, g, packed, keys, mg, rg, valid=None,
@@ -3066,17 +3121,16 @@ class MeshMemoCombineKernel:
                              f"for {mg.ntp} table shards")
         keep = []
         a = MemoBackArgs()
+        rc, mc = mg.rep_cap, mg.miss_cap
         for k, part in enumerate(rparts):
             a.parts[k] = _ptr(part, f"routed record {k}", dev,
-                              shape=(ROUTED_RECORD_ROWS, mg.miss_cap))
-        a.rep = _ptr(front["rep"], "rep", dev, shape=(4, mg.rep_cap))
-        a.miss_pos = _ptr(front["miss_pos"], "miss_pos", dev,
-                          shape=(mg.miss_cap,))
+                              shape=(ROUTED_RECORD_ROWS, mc))
+        a.rep = _ptr(front["rep"], "rep", dev, shape=(4, rc))
+        a.miss_pos = _ptr(front["miss_pos"], "miss_pos", dev, shape=(mc,))
         a.n_miss = _ptr(front["n_miss"], "n_miss", dev, shape=(1,))
         a.miss_pack = _ptr(front["miss_pack"], "miss_pack", dev,
-                           shape=(6, mg.miss_cap))
-        a.srow = _ptr(g["srow"], "srow", dev, shape=(b,))
-        a.gid = _ptr(g["gid"], "gid", dev, shape=(b,))
+                           shape=(6, mc))
+        a.rgid = _ptr(g["rgid"], "rgid", dev, shape=(b,))
         a.n_unique = g["n_unique"].data_ptr()
         a.dedup_overflow = _ptr(g["overflow"], "overflow", dev, shape=(1,))
         a.tuples = _ptr(packed, "tuples", dev, shape=(6, b))
@@ -3092,37 +3146,29 @@ class MeshMemoCombineKernel:
         cols = int(rg.l3_shards) * int(rg.c_local)
         if not 1 <= cols < 1 << 31:
             raise ValueError(f"{self.name}: {cols} L3 counter columns")
-        v = Verdicts(
-            allowed=torch.empty(b, dtype=torch.uint8, device=dev),
-            proxy_port=torch.empty(b, dtype=torch.int32, device=dev),
-            match_kind=torch.empty(b, dtype=torch.uint8, device=dev))
-        hit = torch.empty(b, dtype=torch.bool, device=dev)
-        l4 = torch.zeros((a.n_eps, 2, a.kg), dtype=torch.int32, device=dev)
-        l3 = torch.zeros((a.n_eps, 2, cols), dtype=torch.int32, device=dev)
-        small = torch.zeros(9, dtype=torch.int32, device=dev)
-        replica, stats, counters = small[0:1], small[1:6], small[6:9]
-        telem = (torch.zeros((2, TELEM_COLS), dtype=torch.int32, device=dev)
-                 if telemetry else None)
-        rv = torch.empty((2, mg.rep_cap), dtype=torch.int32, device=dev)
-        mv = torch.empty((2, mg.miss_cap), dtype=torch.int32, device=dev)
-        a.rv, a.mv = rv.data_ptr(), mv.data_ptr()
+        if rg.l3_sharded and not (rg.wn if mg.failover else rg.w_local):
+            raise ValueError(f"{self.name}: a sharded L3 plane of 0 words")
+        # the outputs, views of two allocations (and the counters' one)
+        u8 = torch.empty((3, b), dtype=torch.uint8, device=dev)
+        i32 = torch.empty(b + 8 + 2 * mc, dtype=torch.int32, device=dev)
+        v = Verdicts(allowed=u8[0], proxy_port=i32[:b], match_kind=u8[1])
+        hit = u8[2].view(torch.bool)
+        stats, mv = i32[b:b + 5], i32[b + 8:].view(2, mc)
+        a.counts, l4, l3, telem, replica = _combine_counts(
+            dev, a.n_eps, a.kg, cols, telemetry)
+        a.mv = mv.data_ptr()
         a.allowed, a.proxy_port = (v.allowed.data_ptr(),
                                    v.proxy_port.data_ptr())
         a.match_kind, a.hit = v.match_kind.data_ptr(), hit.data_ptr()
-        a.l4, a.l3 = l4.data_ptr(), l3.data_ptr()
-        if telem is not None:
-            a.telem = telem.data_ptr()
-        a.replica, a.stats = replica.data_ptr(), stats.data_ptr()
-        a.counters = counters.data_ptr()
-        a.B, a.rep_cap, a.miss_cap, a.tp = b, mg.rep_cap, mg.miss_cap, mg.ntp
+        a.stats = stats.data_ptr()
+        a.scratch = self._scratch(dev, rc)[1]
+        a.B, a.rep_cap, a.miss_cap, a.tp = b, rc, mc, mg.ntp
         a.l3_shards, a.c_local = int(rg.l3_shards), int(rg.c_local)
         a.failover, a.l3_sharded = int(mg.failover), int(rg.l3_sharded)
         a.wn, a.w_local = int(rg.wn), int(rg.w_local)
-        if rg.l3_sharded and not (a.wn if mg.failover else a.w_local):
-            raise ValueError(f"{self.name}: a sharded L3 plane of 0 words")
         MESH_LIBRARY.launch("launch_mesh_memo_back", a, dev, self.name)
         self.launches += 1
-        del keep, rv
+        del keep
         return v, l4, l3, telem, replica, hit, stats, mv
 
 

@@ -257,6 +257,28 @@ def hot_pair(pair: np.ndarray, kinds, share: float, seed: int,
     return out
 
 
+def hot_tuples(cols: dict, kinds, n: int, seed: int) -> dict:
+    """`n` lattice tuples drawn from the tuple columns `cols` so that
+    their hits crowd a few counter cells: the first tuple whose match
+    kind (`kinds`, the lattice's, one a tuple) is an L4 or wildcard hit
+    (else an L3 hit) makes more than half of them, five others (L3 hits,
+    then L4 hits, first) three quarters of the rest, random tuples of
+    `cols` the remainder, shuffled (drawn from `seed`)."""
+    kinds = [int(k) for k in np.asarray(kinds)]
+    hot = min(range(len(kinds)),
+              key=lambda k: (kinds[k] not in (1, 3), kinds[k] != 2, k))
+    rest = sorted((k for k in range(len(kinds)) if k != hot),
+                  key=lambda k: (kinds[k] != 2, kinds[k] not in (1, 3), k))
+    rng = np.random.default_rng(seed)
+    n_hot = n // 2 + n // 16
+    few = (n - n_hot) * 3 // 4 // 5
+    pick = np.concatenate([
+        np.full(n_hot, hot), np.repeat(rest[:5], few),
+        rng.integers(0, len(kinds), n - n_hot - 5 * few)])
+    pick = rng.permutation(pick)
+    return {k: np.asarray(v)[pick] for k, v in cols.items()}
+
+
 def headline_tables(world: World,
                     wide: Optional[DatapathTables] = None) -> DatapathTables:
     """The config-5 headline layout (host numpy): every sub-word

@@ -210,7 +210,7 @@ def _routed_records_differ(m, pol, batch, alive, tp) -> int:
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dp_,tp", [(2, 4), (4, 2), (8, 1)])
-@pytest.mark.parametrize("compact", [False, True, "stash_edges"])
+@pytest.mark.parametrize("compact", [False, True, "stash_edges", "hot"])
 def test_mesh_kernels_match_plain_versions(dp_, tp, compact):
     """MESH_PROBE, ROUTED_PROBE and MESH_COMBINE through the four mesh
     evaluators on a CUDA mesh of virtual chips against the plain
@@ -221,7 +221,10 @@ def test_mesh_kernels_match_plain_versions(dp_, tp, compact):
     tables at 4 lanes (entries spill into both stashes, which are hit)
     and puts edge words in the first 16 tuples: identities past
     id_direct's regions, negative and huge endpoints and directions,
-    dports past 65,535."""
+    dports past 65,535.  "hot" takes the compact tables and a hot batch
+    of the tuples (world.hot_tuples: one tuple that hits a counted entry
+    makes more than half of the 8,000, five others most of the rest), so
+    MESH_COMBINE's counted hits crowd a few cells."""
     _need_card()
     import dataclasses
 
@@ -245,6 +248,13 @@ def test_mesh_kernels_match_plain_versions(dp_, tp, compact):
     cols = world.lattice_tuples(w, 8 * 1000, seed=3)
     cols["identity"][::7] = 7  # unknown identities
     cols["is_fragment"] = np.arange(8000) % 11 == 0
+    if compact == "hot":
+        from cilium_tpu_torch.convert import policy_tables_to as to
+
+        kinds = verdict.evaluate_batch(
+            to(pol, "cpu"), TupleBatch.from_numpy(**cols, device="cpu"),
+            device="cpu").match_kind
+        cols = world.hot_tuples(cols, kinds.numpy(), 8000, seed=4)
     if compact == "stash_edges":
         edge = dict(
             identity=[0xFFFFFFFF, 0x7FFFFFFF, (1 << 24) + 70000,

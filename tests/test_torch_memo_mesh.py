@@ -91,8 +91,29 @@ def world():
                                  filter_pad=16)
     tt = ttab.compile_map_states(convert_states(states, jpm, tpm), WIDE_IDS,
                                  identity_pad=256, filter_pad=16)
-    return dict(jt=jt, tt=tt, cold=_repeating(rng, 200),
-                warm=_repeating(rng, 260), valid=rng.random(B) < 0.8)
+    out = dict(jt=jt, tt=tt, cold=_repeating(rng, 200),
+               warm=_repeating(rng, 260), valid=rng.random(B) < 0.8)
+    out["hot"] = _hot(out["tt"], out["cold"])
+    return out
+
+
+def _hot(tt, pool):
+    """B tuples of `pool` whose hits crowd a few cells (world.hot_tuples:
+    one tuple that hits an L4 entry more than half of them, five others
+    most of the rest), by the plain lattice's match kinds on the CPU."""
+    from cilium_tpu_torch import world as tworld
+    from cilium_tpu_torch.convert import policy_tables_to
+
+    kinds = tv.evaluate_batch(
+        policy_tables_to(tt, "cpu"),
+        tv.TupleBatch.from_numpy(**pool, device="cpu"),
+        device="cpu").match_kind
+    return tworld.hot_tuples(pool, kinds.numpy(), B, seed=12)
+
+
+# the streams of the cold and the warm pass: keys repeating within and
+# across the batch shards, and the hot stream for both passes
+STREAMS = {"repeating": ("cold", "warm"), "hot": ("hot", "hot")}
 
 
 def _empty_rows(dp, tp):
@@ -120,10 +141,17 @@ def _check_out(got, want, tag, n_lead=3):
                                       err_msg=f"{tag} output {k}")
 
 
-@pytest.mark.parametrize("dp,tp", MESHES)
-def test_partitioned_memo_matches_reference(world, dp, tp):
+@pytest.mark.parametrize("dp,tp,stream", [
+    pytest.param(2, 4, "repeating", id="2-4"),
+    pytest.param(4, 2, "repeating", id="4-2"),
+    pytest.param(2, 4, "hot", id="2-4-hot"),
+    pytest.param(4, 2, "hot", id="4-2-hot"),
+])
+def test_partitioned_memo_matches_reference(world, dp, tp, stream):
     """Cold then warm: verdicts, counters, cache, hits, stats and
-    telemetry equal to the reference's, the warm pass hitting."""
+    telemetry equal to the reference's, the warm pass hitting; on the
+    repeating stream and on the hot one (most tuples count into one L4
+    cell)."""
     _need_jax()
     jm = _jmesh(dp, tp)
     tm = tmesh.make_mesh(dp, tp, device="cpu")
@@ -134,8 +162,8 @@ def test_partitioned_memo_matches_reference(world, dp, tp):
     tev = tmm.make_partitioned_memo_evaluator(tm, world["tt"], rows0, rep_cap,
                                               collect_telemetry=True)
     jrows, trows = rows0, rows0
-    for tag in ("cold", "warm"):
-        cols = world[tag]
+    for tag, key in zip(("cold", "warm"), STREAMS[stream]):
+        cols = world[key]
         want = jev(world["jt"], jv.TupleBatch.from_numpy(**cols), jrows)
         got = tev(world["tt"], tv.TupleBatch.from_numpy(**cols,
                                                         device="cpu"), trows)
@@ -149,12 +177,19 @@ def test_partitioned_memo_matches_reference(world, dp, tp):
     assert int(_np(got[4]).sum()) > 0, "the warm pass must hit"
 
 
-@pytest.mark.parametrize("dp,tp", MESHES)
-@pytest.mark.parametrize("dead_col", [None, 1])
-def test_failover_memo_matches_reference(world, dp, tp, dead_col):
+@pytest.mark.parametrize("dp,tp,dead_col,stream", [
+    pytest.param(2, 4, None, "repeating", id="None-2-4"),
+    pytest.param(2, 4, 1, "repeating", id="1-2-4"),
+    pytest.param(4, 2, None, "repeating", id="None-4-2"),
+    pytest.param(4, 2, 1, "repeating", id="1-4-2"),
+    pytest.param(2, 4, None, "hot", id="None-2-4-hot"),
+    pytest.param(2, 4, 1, "hot", id="1-2-4-hot"),
+])
+def test_failover_memo_matches_reference(world, dp, tp, dead_col, stream):
     """The router's memo evaluator: cold and warm passes, healthy and
     with a dead table column (its cache slice unread, its inserts
-    dropped, its rows served from the backups), valid-masked."""
+    dropped, its rows served from the backups), valid-masked; on the
+    repeating stream and on the hot one."""
     _need_jax()
     jm = _jmesh(dp, tp)
     tm = tmesh.make_mesh(dp, tp, device="cpu")
@@ -171,8 +206,8 @@ def test_failover_memo_matches_reference(world, dp, tp, dead_col):
         alive[:, dead_col] = False
     valid = world["valid"]
     jrows, trows = rows0, rows0
-    for tag in ("cold", "warm"):
-        cols = world[tag]
+    for tag, key in zip(("cold", "warm"), STREAMS[stream]):
+        cols = world[key]
         want = jev(jaug, jv.TupleBatch.from_numpy(**cols), alive, valid,
                    jrows)
         got = tev(taug, tv.TupleBatch.from_numpy(**cols, device="cpu"),
@@ -268,15 +303,27 @@ def test_partitioned_cache_layout():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("failover", [False, True])
-def test_memo_mesh_kernels_match_plain(failover):
+@pytest.mark.parametrize("failover,stream", [
+    pytest.param(False, "pool", id="False"),
+    pytest.param(True, "pool", id="True"),
+    pytest.param(False, "hot", id="False-hot"),
+    pytest.param(True, "hot", id="True-hot"),
+    pytest.param(False, "overflow", id="False-overflow"),
+    pytest.param(True, "overflow", id="True-overflow"),
+])
+def test_memo_mesh_kernels_match_plain(failover, stream):
     """The memo step on a CUDA (2, 4) mesh (MESH_MEMO_PROBE,
     MESH_MEMO_COMBINE, MESH_MEMO_INSERT with MEMO_KEYS_LATTICE,
     MEMO_DEDUP and ROUTED_PROBE) against the same step on a CPU mesh,
-    cold and warm, every output and the cache rows equal."""
+    cold and warm, every output and the cache rows equal.  Streams: 4096
+    picks of 700 tuples; the hot stream of those tuples (world.hot_tuples:
+    most tuples count into one counter cell); and the picks at rep_cap 256,
+    below each batch row's distinct keys (the rows overflow, so the
+    groups past rep_cap take representative rep_cap - 1's words)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     from cilium_tpu_torch import kernels, world as tworld
+    from cilium_tpu_torch.convert import policy_tables_to
 
     w = tworld.make_world(
         seed=6, n_rules=400, n_endpoints=4, n_identities=512,
@@ -287,6 +334,13 @@ def test_memo_mesh_kernels_match_plain(failover):
     pool = tworld.lattice_tuples(w, 700, seed=3)
     pick = np.random.default_rng(3).integers(0, 700, 4096)
     cols = {k: np.asarray(v)[pick] for k, v in pool.items()}
+    if stream == "hot":
+        kinds = tv.evaluate_batch(
+            policy_tables_to(tables, "cpu"),
+            tv.TupleBatch.from_numpy(**pool, device="cpu"),
+            device="cpu").match_kind
+        cols = tworld.hot_tuples(pool, kinds.numpy(), 4096, seed=3)
+    rep_cap = 256 if stream == "overflow" else 1024
     rows0 = _empty_rows(2, 4)
     launches = {k.name: k.launches for k in (
         kernels.MESH_MEMO_PROBE, kernels.MESH_MEMO_COMBINE,
@@ -295,14 +349,15 @@ def test_memo_mesh_kernels_match_plain(failover):
     for dev in ("cpu", "cuda"):
         tm = tmesh.make_mesh(2, 4, device=dev)
         if failover:
-            ev = tmm.make_failover_memo_evaluator(tm, tables, rows0, 1024,
+            ev = tmm.make_failover_memo_evaluator(tm, tables, rows0, rep_cap,
                                                   collect_telemetry=True)
             aug = tpart.replicate_table_leaves(tables, 4)
             alive = np.ones((2, 4), bool)
             alive[0, 1] = False
             run = lambda b, r: ev(aug, b, alive, np.ones(4096, bool), r)
         else:
-            ev = tmm.make_partitioned_memo_evaluator(tm, tables, rows0, 1024,
+            ev = tmm.make_partitioned_memo_evaluator(tm, tables, rows0,
+                                                     rep_cap,
                                                      collect_telemetry=True)
             run = lambda b, r: ev(tables, b, r)
         rows, res = rows0, []
@@ -319,6 +374,8 @@ def test_memo_mesh_kernels_match_plain(failover):
         "mesh_memo_insert"] == 16
     assert kernels.MESH_MEMO_COMBINE.launches - launches[
         "mesh_memo_combine"] == 8
+    stats = out["cpu"][1][6 if failover else 5]
+    assert (int(stats[tmm.vm.STAT_OVERFLOW]) > 0) == (stream == "overflow")
     for a, b in zip(out["cpu"], out["cuda"]):
         for x, y in zip(a, b):
             if isinstance(x, tmesh.PlacedArray):

@@ -106,7 +106,22 @@ def worlds():
         out[seed] = dict(jt=jt, tt=tt, cols=cols, valid=valid,
                          jb=jv.TupleBatch.from_numpy(**cols),
                          tb=tv.TupleBatch.from_numpy(**cols, device="cpu"))
+    out["hot"] = _hot_world(out[0])
     return out
+
+
+def _hot_world(w):
+    """World 0's tables with a hot batch of its tuples (world.hot_tuples:
+    one tuple that hits an L4 entry makes more than half of the 768, five
+    others most of the rest), its valid mask as world 0's."""
+    from cilium_tpu_torch import world as tworld
+    from cilium_tpu_torch.convert import policy_tables_to
+
+    kinds = tv.evaluate_batch(policy_tables_to(w["tt"], "cpu"), w["tb"],
+                              device="cpu").match_kind
+    cols = tworld.hot_tuples(w["cols"], kinds.numpy(), 768, seed=13)
+    return dict(w, cols=cols, jb=jv.TupleBatch.from_numpy(**cols),
+                tb=tv.TupleBatch.from_numpy(**cols, device="cpu"))
 
 
 @pytest.fixture(scope="module")
@@ -212,10 +227,12 @@ def test_placement_matches_jax_shards(dp, tp, worlds, jax_evaluators):
         assert sorted(per) == list(range(dp * tp))
 
 
-@pytest.mark.parametrize("seed", [0, 1])
+@pytest.mark.parametrize("seed", [0, 1, "hot"])
 @pytest.mark.parametrize("dp,tp", MESHES)
 def test_evaluators_match_jax(dp, tp, seed, worlds, jax_evaluators):
-    """The four evaluators on a healthy mesh: every output column."""
+    """The four evaluators on a healthy mesh: every output column; on
+    worlds 0 and 1, and on world 0 with a hot batch (most tuples count
+    into one L4 cell, where MESH_COMBINE's hits concentrate)."""
     _need_jax()
     w, ev = worlds[seed], jax_evaluators[dp, tp]
     mesh = tmesh.make_mesh(dp, tp, device="cpu")
